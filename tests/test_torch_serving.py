@@ -1,0 +1,182 @@
+"""The port's worker over HTTP on the CPU (tpu_engine_torch.serving) against
+the JAX package's generator and worker, with the same weights: /generate
+and /generate/stream tokens equal the JAX mixed-step generator's, /health
+and /stats carry the JAX schemas for the ported blocks; and the package
+never imports jax or tpu_engine (a serving subprocess's sys.modules, and
+an AST scan of its sources)."""
+
+import ast
+import http.client
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from tpu_engine.models.registry import (
+    _ensure_builtin_models_imported,
+    create_model as jcreate,
+)
+from tpu_engine.runtime.scheduler import ContinuousGenerator as JaxGen
+from tpu_engine.serving.worker import WorkerNode as JaxWorker
+from tpu_engine.utils.config import WorkerConfig as JaxWorkerConfig
+from tpu_engine_torch.models import convert
+from tpu_engine_torch.models.registry import create_model as tcreate
+from tpu_engine_torch.serving.app import serve_worker
+from tpu_engine_torch.utils.config import WorkerConfig
+
+_ensure_builtin_models_imported()
+
+REPO = Path(__file__).resolve().parent.parent
+LANE = dict(gen_kv_block_size=16, gen_mixed_step=True, gen_prefill_chunk=16,
+            gen_mixed_token_budget=16)
+# /health keys of the JAX worker that belong to lanes the port leaves out
+# (the /infer result cache and batcher), and generator stats of modes it
+# leaves out (the dense scheduler's chunk counter and prefix cache, and
+# the unified stateless one-shot rows).
+HEALTH_LEFT_OUT = {"cache_hits", "cache_size", "cache_hit_rate",
+                   "batch_processor"}
+GENERATOR_LEFT_OUT = {"chunks", "prefix_cache", "stateless"}
+PROMPTS = [[5, 9, 3], [(i * 7) % 90 + 1 for i in range(40)]]
+
+
+@pytest.fixture(scope="module")
+def params():
+    return jcreate("gpt2-small-test").init(jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def server(params):
+    tparams = convert.params_from_jax(
+        jax.tree.map(np.asarray, params),
+        tcreate("gpt2-small-test").config, device="cpu")
+    cfg = WorkerConfig(port=0, node_id="torch_1", model="gpt2-small-test",
+                       dtype="float32", device="cpu", **LANE)
+    worker, srv = serve_worker(cfg, params=tparams)
+    yield srv.port
+    srv.stop()
+    worker.stop()
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(params):
+    g = JaxGen(jcreate("gpt2-small-test"), params=params, dtype="float32",
+               n_slots=8, kv_block_size=16, prefill_chunk=16,
+               mixed_step=True, mixed_token_budget=16)
+    try:
+        yield [g.generate([p], max_new_tokens=6)[0] for p in PROMPTS]
+    finally:
+        g.stop()
+
+
+def _request(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, json.dumps(body) if body else None)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def test_generate_matches_jax(server, jax_tokens):
+    for i, (prompt, want) in enumerate(zip(PROMPTS, jax_tokens)):
+        status, raw = _request(server, "POST", "/generate", {
+            "request_id": f"r{i}", "prompt_tokens": prompt,
+            "max_new_tokens": 6})
+        assert status == 200
+        body = json.loads(raw)
+        assert set(body) == {"request_id", "tokens", "node_id",
+                             "generate_time_us"}
+        assert body["request_id"] == f"r{i}" and body["node_id"] == "torch_1"
+        assert body["tokens"] == want
+
+
+def test_generate_stream_matches_jax(server, jax_tokens):
+    status, raw = _request(server, "POST", "/generate/stream", {
+        "request_id": "s1", "prompt_tokens": PROMPTS[1],
+        "max_new_tokens": 6})
+    assert status == 200
+    events = [json.loads(f[len(b"data: "):]) for f in raw.split(b"\n\n")
+              if f]
+    streamed = [t for ev in events[:-1] for t in ev["tokens"]]
+    final = events[-1]
+    assert final["done"] and final["tokens"] == streamed == jax_tokens[1]
+    assert set(final) == {"done", "request_id", "tokens", "node_id",
+                          "generate_time_us"}
+
+
+def test_bad_request_is_400(server):
+    status, _ = _request(server, "POST", "/generate", {"request_id": "x"})
+    assert status == 400
+    status, _ = _request(server, "POST", "/generate/stream", {
+        "request_id": "x", "prompt_tokens": [1], "min_p": 2.0})
+    assert status == 400
+
+
+def test_health_and_stats_schemas_match_jax(server):
+    jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **LANE))
+    try:
+        jhealth = jw.get_health()
+    finally:
+        jw.stop()
+    status, raw = _request(server, "GET", "/health")
+    assert status == 200
+    health = json.loads(raw)
+    assert set(health) == set(jhealth) - HEALTH_LEFT_OUT
+    assert (set(health["generator"])
+            == set(jhealth["generator"]) - GENERATOR_LEFT_OUT)
+    assert set(health["generator"]["mixed"]) == set(
+        jhealth["generator"]["mixed"])
+    assert set(health["generator"]["kv_pool"]) == set(
+        jhealth["generator"]["kv_pool"])
+    status, raw = _request(server, "GET", "/stats")
+    stats = json.loads(raw)
+    assert status == 200 and stats["node_id"] == "torch_1"
+    assert set(stats) - {"node_id"} == set(health["generator"])
+    assert stats["mixed"]["ticks"] == stats["mixed"]["dispatches"]
+
+
+def test_serving_subprocess_imports_no_jax():
+    code = (
+        "import json, sys, urllib.request\n"
+        "from tpu_engine_torch.serving.app import serve_worker\n"
+        "from tpu_engine_torch.utils.config import WorkerConfig\n"
+        "w, s = serve_worker(WorkerConfig(port=0, model='gpt2-small-test',"
+        " dtype='float32', device='cpu', gen_kv_block_size=16,"
+        " gen_mixed_step=True, gen_prefill_chunk=16))\n"
+        "req = urllib.request.Request(f'http://127.0.0.1:{s.port}/generate',"
+        " data=json.dumps({'request_id': 'a', 'prompt_tokens': [1, 2],"
+        " 'max_new_tokens': 3}).encode())\n"
+        "out = json.loads(urllib.request.urlopen(req, timeout=60).read())\n"
+        "s.stop(); w.stop()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith(('jax.', 'tpu_engine.')) or m == 'tpu_engine')\n"
+        "print(json.dumps({'tokens': len(out['tokens']), 'bad': bad}))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == {
+        "tokens": 3, "bad": []}
+
+
+def test_package_sources_import_no_jax():
+    offenders = []
+    for path in sorted((REPO / "tpu_engine_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                root = n.split(".")[0]
+                if root in ("jax", "jaxlib", "tpu_engine"):
+                    offenders.append(f"{path.relative_to(REPO)}: {n}")
+    assert offenders == []

@@ -1,0 +1,131 @@
+"""Decode helpers the continuous scheduler uses (counterpart of the
+helpers in ``tpu_engine/runtime/generator.py``): bucketing, right-padding,
+token counts, the repetition penalty and per-row sampling.
+
+Sampling. Greedy rows (temperature 0) take the argmax and are exact.
+Sampled rows filter in the JAX order — temperature, then top_p and top_k
+(tokens tied at the threshold are kept), then min_p — and draw with a
+per-row ``torch.Generator`` seeded from (seed, position): a row's draw
+depends on its own seed and the logical position of the token only, so a
+seeded stream is deterministic and independent of which rows share its
+batch. The draws are NOT JAX's: the JAX package folds the position into a
+threefry key (``fold_in(PRNGKey(seed), position)``), which this module
+does not reproduce, so seeded streams match the JAX package in
+distribution, not token for token.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def pick_bucket(buckets: Sequence[int], n: int) -> int:
+    """Smallest bucket >= n (largest bucket when n exceeds them all)."""
+    for b in buckets:
+        if b >= n:
+            return b
+    return buckets[-1]
+
+
+def right_pad_prompt(prompt: Sequence[int], pb: int) -> np.ndarray:
+    """(1, pb) RIGHT-padded token row: token i sits at column i, so a
+    shared prefix lands at identical logical columns whatever bucket each
+    prompt picked. Over-long prompts truncate from the left."""
+    tokens = np.zeros((1, pb), np.int32)
+    p = list(prompt)[-pb:]
+    if p:
+        tokens[0, :len(p)] = np.asarray(p, np.int32)
+    return tokens
+
+
+def token_counts(rows: "Sequence[Sequence[int]]", n_rows: int,
+                 vocab: int) -> np.ndarray:
+    """(n_rows, vocab) int32 occurrence counts of each row's tokens."""
+    out = np.zeros((n_rows, vocab), np.int32)
+    for r, toks in enumerate(rows):
+        if len(toks):
+            ids = np.asarray(toks, np.int64)
+            ids = ids[(ids >= 0) & (ids < vocab)]
+            np.add.at(out[r], ids, 1)
+    return out
+
+
+def apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor,
+                             penalty: torch.Tensor) -> torch.Tensor:
+    """HF-style repetition penalty. logits (B, V) f32; counts (B, V) int
+    occurrences of each token in the row's context; penalty (B,), 1.0 =
+    off. Seen tokens' positive logits divide by the penalty, negative ones
+    multiply."""
+    seen = counts > 0
+    p = torch.clamp(penalty, min=1e-6)[:, None]
+    return torch.where(seen, torch.where(logits > 0, logits / p,
+                                         logits * p), logits)
+
+
+def _row_generator_seed(seed: int, position: int) -> int:
+    """The (seed, position) -> generator seed rule: distinct for every
+    pair with 0 <= seed, position < 2**31."""
+    return (int(seed) & 0x7FFFFFFF) << 32 | (int(position) & 0xFFFFFFFF)
+
+
+def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_p: torch.Tensor, top_k: torch.Tensor,
+                  min_p: torch.Tensor) -> torch.Tensor:
+    """Temperature-scaled logits with the top_p/top_k and min_p filters
+    applied (filtered tokens at -inf), in the JAX ``_sample`` order."""
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    lg = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(sorted_lg, dim=-1), dim=-1)
+    k = torch.clamp((cum < top_p[:, None]).sum(-1) + 1, max=lg.shape[-1])
+    k = torch.where(top_k > 0, torch.minimum(k, top_k.long()), k)
+    thresh = sorted_lg.gather(-1, (k - 1)[:, None])
+    lg = torch.where(lg >= thresh, lg, neg_inf)
+    min_thresh = torch.where(
+        min_p > 0,
+        lg.max(-1).values + torch.log(torch.clamp(min_p, min=1e-30)),
+        neg_inf)
+    return torch.where(lg >= min_thresh[:, None], lg, neg_inf)
+
+
+def _sample(logits: torch.Tensor, seeds, positions, temperature,
+            top_p=None, top_k=None, min_p=None) -> torch.Tensor:
+    """Per-row sampling: logits (B, V) f32; the other arguments (B,)
+    host arrays (numpy) or sequences. Greedy where temperature == 0,
+    else a categorical draw from the filtered distribution by the Gumbel
+    argmax, with noise from the row's (seed, position) generator.
+    Returns (B,) int64 on the logits' device."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = np.asarray(temperature, np.float32)
+    sampled_rows = np.nonzero(temps > 0)[0]
+    if sampled_rows.size == 0:
+        return greedy
+    b, v = logits.shape
+    dev = logits.device
+    ones = np.ones((b,), np.float32)
+    top_p = ones if top_p is None else np.asarray(top_p, np.float32)
+    top_k = np.zeros((b,), np.int64) if top_k is None \
+        else np.asarray(top_k, np.int64)
+    min_p = np.zeros((b,), np.float32) if min_p is None \
+        else np.asarray(min_p, np.float32)
+    idx = torch.as_tensor(sampled_rows, device=dev)
+    sel = sampled_rows
+    lg = filter_logits(
+        logits[idx], torch.as_tensor(temps[sel], device=dev),
+        torch.as_tensor(top_p[sel], device=dev),
+        torch.as_tensor(top_k[sel], device=dev),
+        torch.as_tensor(min_p[sel], device=dev))
+    noise = torch.empty((len(sel), v), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    for i, r in enumerate(sel):
+        gen.manual_seed(_row_generator_seed(seeds[r], positions[r]))
+        u = torch.rand((v,), generator=gen, device=dev,
+                       dtype=torch.float32)
+        noise[i] = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+    drawn = torch.argmax(lg + noise, dim=-1)
+    out = greedy.clone()
+    out[idx] = drawn
+    return out
