@@ -7,26 +7,40 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
 
 1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc builds the ragged paged-attention kernel from
-              tpu_engine_torch/csrc;
-3. parity   — the kernel against its plain PyTorch version on the card:
-              f32 at the JAX package's ragged_parity_check and
-              spec_verify_parity_check shapes (tolerance 1e-5), bf16 at the
-              main path's shapes (tolerance 2e-2 on unit normals); then a
-              small llama served on the card agrees token for token with the
-              same weights served on the CPU through the plain version;
-4. server   — the main path: the port's worker over HTTP on localhost
-              serving TinyLlama-1.1B geometry (random weights from seed 0,
-              bf16, 16-token KV blocks, mixed stepping, 256-token prefill
-              chunks): a burst of concurrent /generate requests and one
-              /generate/stream, a shared-prefix request, a greedy repeat;
-              every request completes, the repeat is token-identical,
-              ticks == dispatches, no block leaks once idle, and the kernel
-              (not the plain version) served every attention read;
-5. numbers  — the kernel's time at the main path's shapes beside its bound,
-              the plain version's time and scaled_dot_product_attention's
-              (over K/V gathered dense beforehand; the gather is not timed,
-              and the port never calls it).
+2. build    — nvcc builds the four paged-attention kernels of
+              tpu_engine_torch/csrc (one process per source, all started
+              together) into one library;
+3. parity   — each kernel against its plain PyTorch version on the card:
+              f32 pools at the JAX package's parity-check shapes (tolerance
+              1e-5), bf16 pools at the main path's shapes (2e-2 on unit
+              normals), int8 pools at both (2e-4, the JAX package's bound
+              for its int8 kernels); then a small llama (f32, TF32 off)
+              served on the card through a mixed, a two-path and two int8
+              lanes agrees token for token with the same weights served on
+              the CPU through the plain versions;
+4. server   — the port's worker over HTTP on localhost serving
+              TinyLlama-1.1B geometry (random weights from seed 0, bf16,
+              shared by every lane, 16-token KV blocks, 256-token prefill
+              chunks) in four lanes, each driven with the launch counts set
+              to 0 just before it and read just after: mixed stepping over
+              the bf16 pool (the ragged kernel), two-path with 16-step
+              decode chunks (the decode kernel), mixed over the int8 pool
+              (the int8 ragged kernel) and two-path over the int8 pool (the
+              int8 decode kernel). Each lane answers a burst of concurrent
+              /generate requests and one /generate/stream, a shared-prefix
+              request and a greedy repeat: every request completes, the
+              repeat is token-identical, ticks == dispatches (mixed) or
+              chunks > 0 (two-path), no block leaks once idle, and the
+              lane's kernel, and no plain version, served every attention
+              read of its decode path;
+5. numbers  — each kernel's time at the main path's shapes beside its
+              bound, the plain version's time and
+              scaled_dot_product_attention's (over K/V gathered dense, and
+              dequantized for int8, beforehand; the gather is not timed, and
+              the port never calls it); one full-width forward per step
+              the lanes run (the two-path prefill window included), the
+              host's time to issue it, the card's busy time in it
+              (torch.profiler) and the attention kernel's share of it.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON.
@@ -49,7 +63,35 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
+QUANT_TOL = 2e-4
 OUT_DIR = Path("chiprun_out")
+MAX_NEW = 32
+# The TPU kernel each CUDA kernel replaces, and the lane whose decode path
+# launches it.
+KERNELS = {
+    "ragged_paged_attention": dict(
+        source="tpu_engine_torch/csrc/ragged_paged_attention.cu",
+        replaces="tpu_engine/ops/paged_attention.py:226", lane="mixed-bf16"),
+    "paged_attention": dict(
+        source="tpu_engine_torch/csrc/paged_attention.cu",
+        replaces="tpu_engine/ops/paged_attention.py:83",
+        lane="two-path-bf16"),
+    "quant_paged_attention": dict(
+        source="tpu_engine_torch/csrc/paged_attention.cu",
+        replaces="tpu_engine/ops/paged_attention.py:427",
+        lane="two-path-int8"),
+    "quant_ragged_paged_attention": dict(
+        source="tpu_engine_torch/csrc/quant_ragged_paged_attention.cu",
+        replaces="tpu_engine/ops/paged_attention.py:516",
+        lane="mixed-int8"),
+}
+LANES = {
+    "mixed-bf16": dict(gen_mixed_step=True, gen_mixed_token_budget=256),
+    "two-path-bf16": dict(gen_step_chunk=16),
+    "mixed-int8": dict(gen_mixed_step=True, gen_mixed_token_budget=256,
+                       gen_kv_quantize="int8"),
+    "two-path-int8": dict(gen_step_chunk=16, gen_kv_quantize="int8"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -75,47 +117,63 @@ def card_line() -> str:
 
 # -- kernel inputs at the main path's shapes ----------------------------------
 
-def main_path_inputs(torch, dev, decode_only: bool, seed: int = 1):
-    """The ragged batch a TinyLlama mixed tick hands the kernel: 8 rows,
-    32 query / 4 KV heads, D 64, 16-token blocks, tables 128 wide
-    (max_seq 2048). With a prefill chunk: seven decode rows at contexts up
-    to 2048 and one 256-token chunk at pos0 1700 (W = 256); decode only:
-    eight q_len-1 rows (W = 1)."""
+def main_path_inputs(torch, dev, decode_only: bool, int8: bool = False,
+                     seed: int = 1):
+    """The batch a TinyLlama step hands the kernels: 8 rows, 32 query / 4
+    KV heads, D 64, 16-token blocks, tables 128 wide (max_seq 2048). Mixed
+    (W = 256): seven decode rows at contexts up to 2047 and one 256-token
+    chunk at pos0 1700; decode only: eight q_len-1 rows. A bf16 pool, or
+    the int8 pool and scales the port's quantize_kv makes of the same f32
+    values. Returns (q, k, v, [k_scale, v_scale,] tables, pos0, qlen)."""
+    from tpu_engine_torch.ops.quant import quantize_kv
+
     rng = np.random.default_rng(seed)
     b, h, h_kv, d, bs, nb = 8, 32, 4, 64, 16, 128
     w = 1 if decode_only else 256
     n_pool = b * nb + 1
     q = torch.from_numpy(rng.standard_normal((b, w, h, d), np.float32))
     k = torch.from_numpy(rng.standard_normal((n_pool, bs, h_kv, d),
-                                             np.float32))
+                                             np.float32)).to(dev)
     v = torch.from_numpy(rng.standard_normal((n_pool, bs, h_kv, d),
-                                             np.float32))
+                                             np.float32)).to(dev)
     tables = (1 + rng.permutation(n_pool - 1)[:b * nb]).reshape(b, nb)
     pos0 = np.array([100, 500, 1000, 2046, 17, 1500, 0, 1700], np.int32)
     qlen = np.ones((b,), np.int32)
     if not decode_only:
         qlen[7] = 256
-    return (q.to(dev), k.to(dev).bfloat16(), v.to(dev).bfloat16(),
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        pools = (k, v, ks, vs)
+    else:
+        pools = (k.bfloat16(), v.bfloat16())
+    return (q.to(dev), *pools,
             torch.from_numpy(tables.astype(np.int32)).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(qlen).to(dev))
 
 
-def bound_ms(q, k_pool, tables, pos0, qlen) -> tuple:
+def decode_args(inp):
+    """Decode-only ragged inputs as the decode read's (q, pools...,
+    tables, pos): the W = 1 rows' pos0 is their pos."""
+    return inp[:-1]
+
+
+def bound_ms(q, k_pool, tables, pos0, qlen, out_item: int,
+             scale_bytes: int = 0) -> tuple:
     """Least time the card could take for this call: the larger of the
-    bytes the function must move (valid query slots read, the K/V blocks
-    each row's queries reach read once, valid output slots written) over
-    3.35 TB/s, and its multiply-adds (QK and PV, 4*D flops per (query,
-    key) pair attended) over the bf16 tensor-core rate."""
+    bytes the function must move (valid query slots read in f32, the K/V
+    blocks each row's queries reach read once, with ``scale_bytes`` of
+    scales per (slot, kv-head) for each of K and V, valid output slots
+    written) over 3.35 TB/s, and its multiply-adds (QK and PV, 4*D flops
+    per (query head, key) pair attended) over the bf16 tensor-core rate."""
     _, _, h, d = q.shape
     bs, h_kv = k_pool.shape[1], k_pool.shape[2]
-    kv_item = k_pool.element_size()
     p0 = pos0.cpu().numpy().astype(np.int64)
     ql = qlen.cpu().numpy().astype(np.int64)
     live = ql > 0
     blocks = np.where(live, (p0 + ql - 1) // bs + 1, 0).sum()
-    kv_bytes = blocks * 2 * bs * h_kv * d * kv_item
-    slots = ql.sum()
-    io_bytes = slots * h * d * (q.element_size() + kv_item)
+    kv_bytes = blocks * 2 * bs * h_kv * (d * k_pool.element_size()
+                                         + scale_bytes)
+    io_bytes = ql.sum() * h * d * (q.element_size() + out_item)
     meta_bytes = tables.numel() * 4 + 2 * pos0.numel() * 4
     pairs = sum(int(ql[r] * (p0[r] + 1) + ql[r] * (ql[r] - 1) // 2)
                 for r in range(len(ql)))
@@ -146,19 +204,65 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return total / iters
 
 
-def sdpa_yardstick(torch, q, k_pool, v_pool, tables, pos0, qlen):
-    """scaled_dot_product_attention over K/V gathered dense BEFOREHAND,
-    with the ragged causal mask: the library's time for the same
-    function (the gather is outside the timed call)."""
+def issue_ms(torch, fn, iters: int = 10) -> float:
+    """Mean host time to issue fn() (no synchronise inside it): where it
+    comes near the device time, the card waits on the host."""
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / iters * 1e3
+
+
+def busy_ms(torch, fn, iters: int = 3) -> float:
+    """Mean device-busy time of fn(): the durations of the device-side
+    events (kernels, copies, fills) under torch.profiler, summed; host
+    ops are left out, since their device time repeats their kernels'.
+    Against the wall time of fn() it gives the share of a step the card
+    sits idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no device time")
+    return us / iters / 1e3
+
+
+def sdpa_yardstick(torch, inp, int8: bool):
+    """scaled_dot_product_attention over K/V gathered dense (and, for the
+    int8 pool, dequantized to f32) BEFOREHAND, with the causal mask of
+    the paged read: the library's time for the same function (the gather
+    is outside the timed call)."""
     import torch.nn.functional as F
 
+    from tpu_engine_torch.ops.quant import dequantize_kv
+
+    q, tables, pos0 = inp[0], inp[-3], inp[-2]
     b, w, h, d = q.shape
-    bs, h_kv = k_pool.shape[1], k_pool.shape[2]
+    bs, h_kv = inp[1].shape[1], inp[1].shape[2]
     nb = tables.shape[1]
-    kk = k_pool[tables.long()].reshape(b, nb * bs, h_kv, d).transpose(1, 2)
-    vv = v_pool[tables.long()].reshape(b, nb * bs, h_kv, d).transpose(1, 2)
-    kk, vv = kk.contiguous(), vv.contiguous()
-    qq = q.to(k_pool.dtype).transpose(1, 2).contiguous()
+    idx = tables.long()
+
+    def dense(pool, scale):
+        g = pool[idx]
+        if int8:
+            g = dequantize_kv(g, scale[idx])
+        return g.reshape(b, nb * bs, h_kv, d).transpose(1, 2).contiguous()
+
+    kk = dense(inp[1], inp[3] if int8 else None)
+    vv = dense(inp[2], inp[4] if int8 else None)
+    qq = q.to(kk.dtype).transpose(1, 2).contiguous()
     qpos = pos0.long()[:, None] + torch.arange(w, device=q.device)[None]
     mask = (torch.arange(nb * bs, device=q.device)[None, None, :]
             <= qpos[:, :, None])[:, None]           # (B, 1, W, S)
@@ -231,86 +335,141 @@ def stream(port: int, body: dict) -> tuple:
 
 # -- phases --------------------------------------------------------------------
 
+def _valid_err(torch, out, ref, qlen):
+    valid = (torch.arange(out.shape[1], device=out.device)[None]
+             < qlen[:, None])[:, :, None, None]
+    return float(((out.float() - ref.float()).abs() * valid).max())
+
+
 def phase_parity(torch, pa) -> dict:
     dev = torch.device("cuda")
-    errs = {}
+    errs = {name: {} for name in KERNELS}
+
+    def record(kernel, case, err, tol):
+        log(f"parity {kernel} {case}: max_abs_err {err:.3e} (tol {tol:g})")
+        check(err <= tol, f"{kernel} parity {case}: {err} > {tol}")
+        errs[kernel][case] = err
+
+    def run(kernel, t):
+        out = getattr(pa, kernel)(*t)
+        ref = getattr(pa, kernel + "_reference")(*t)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{kernel}: non-finite output")
+        return out, ref
+
+    on = (lambda arrs: [torch.from_numpy(a).to(dev) for a in arrs])
+    # The JAX package's parity-check shapes: f32 pools (int8 for quant).
     for name, q_lens in (("ragged_parity_check", (1, 7, 16, 17)),
                          ("spec_verify_parity_check", (1, 5, 5, 16, 17))):
-        arrs = pa.ragged_parity_inputs(q_lens=q_lens)
-        t = [torch.from_numpy(a).to(dev) for a in arrs]
-        out = pa.ragged_paged_attention(*t)
-        ref = pa.ragged_paged_attention_reference(*t)
-        torch.cuda.synchronize()
-        valid = (torch.arange(t[0].shape[1], device=dev)[None]
-                 < t[5][:, None])[:, :, None, None]
-        err = float(((out - ref).abs() * valid).max())
-        log(f"parity f32 {name} q_lens={q_lens}: max_abs_err {err:.3e} "
-            f"(tol {F32_TOL:g})")
-        check(err <= F32_TOL, f"f32 parity {name}: {err} > {F32_TOL}")
-        errs[name] = err
+        t = on(pa.ragged_parity_inputs(q_lens=q_lens))
+        out, ref = run("ragged_paged_attention", t)
+        record("ragged_paged_attention", f"f32 {name}",
+               _valid_err(torch, out, ref, t[-1]), F32_TOL)
+    decode_cases = (("parity_check", {}),
+                    ("parity_check G4 D16 bs8",
+                     dict(n_heads=8, n_kv_heads=2, d_head=16, block_size=8,
+                          n_blocks=17, table_len=6)))
+    for name, kw in decode_cases:
+        out, ref = run("paged_attention", on(pa.parity_inputs(**kw)))
+        record("paged_attention", f"f32 {name}",
+               float((out - ref).abs().max()), F32_TOL)
+    for name, kw in (("quant_parity_check", {}),
+                     ("quant_parity_check G4 D64 nb33",
+                      dict(n_heads=8, n_kv_heads=2, d_head=64,
+                           n_blocks=33, table_len=8))):
+        out, ref = run("quant_paged_attention",
+                       on(pa.parity_inputs(quant=True, **kw)))
+        record("quant_paged_attention", f"int8 {name}",
+               float((out - ref).abs().max()), QUANT_TOL)
+    for name, kw in (("quant_ragged_parity_check", {}),
+                     ("quant_ragged_parity_check G4 D32",
+                      dict(q_lens=(1, 3, 16, 17), n_heads=8, n_kv_heads=2,
+                           d_head=32, table_len=8))):
+        t = on(pa.ragged_parity_inputs(quant=True, **kw))
+        out, ref = run("quant_ragged_paged_attention", t)
+        record("quant_ragged_paged_attention", f"int8 {name}",
+               _valid_err(torch, out, ref, t[-1]), QUANT_TOL)
+    # The main path's shapes: bf16 and int8 pools.
     for decode_only in (False, True):
-        inp = main_path_inputs(torch, dev, decode_only)
-        out = pa.ragged_paged_attention(*inp)
-        ref = pa.ragged_paged_attention_reference(*inp)
-        torch.cuda.synchronize()
-        valid = (torch.arange(inp[0].shape[1], device=dev)[None]
-                 < inp[5][:, None])[:, :, None, None]
-        check(bool(torch.isfinite(out.float()).all()), "non-finite output")
-        err = float(((out.float() - ref.float()).abs() * valid).max())
         shape = "decode W=1" if decode_only else "mixed W=256"
-        log(f"parity bf16 main path ({shape}): max_abs_err {err:.3e} "
-            f"(tol {BF16_TOL:g})")
-        check(err <= BF16_TOL, f"bf16 parity {shape}: {err} > {BF16_TOL}")
-        errs[shape] = err
+        t = main_path_inputs(torch, dev, decode_only)
+        out, ref = run("ragged_paged_attention", t)
+        record("ragged_paged_attention", f"bf16 main path {shape}",
+               _valid_err(torch, out, ref, t[-1]), BF16_TOL)
+        t = main_path_inputs(torch, dev, decode_only, int8=True)
+        out, ref = run("quant_ragged_paged_attention", t)
+        record("quant_ragged_paged_attention", f"int8 main path {shape}",
+               _valid_err(torch, out, ref, t[-1]), QUANT_TOL)
+    out, ref = run("paged_attention",
+                   decode_args(main_path_inputs(torch, dev, True)))
+    record("paged_attention", "bf16 main path decode",
+           float((out.float() - ref.float()).abs().max()), BF16_TOL)
+    out, ref = run("quant_paged_attention",
+                   decode_args(main_path_inputs(torch, dev, True, True)))
+    record("quant_paged_attention", "int8 main path decode",
+           float((out - ref).abs().max()), QUANT_TOL)
     return errs
 
 
 def phase_small_model(torch) -> None:
-    """A small llama served on the card (kernel) against the same f32
-    weights served on the CPU (plain version): greedy streams equal."""
+    """A small llama served on the card (kernels) against the same f32
+    weights served on the CPU (plain versions), in every lane's mode:
+    greedy streams equal."""
     from tpu_engine_torch.models.convert import init_params, params_to
     from tpu_engine_torch.models.registry import create_model
     from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 
     spec = create_model("llama-small-test", max_seq=128)
     params = init_params(spec.config, seed=3, device="cpu", dtype="float32")
-    kw = dict(dtype="float32", n_slots=4, max_seq=128, kv_block_size=16,
-              prefill_chunk=16, mixed_step=True, mixed_token_budget=16)
+    base = dict(dtype="float32", n_slots=4, max_seq=128, kv_block_size=16,
+                prefill_chunk=16)
+    modes = {"mixed": dict(mixed_step=True, mixed_token_budget=16),
+             "two-path": dict(step_chunk=4),
+             "mixed int8": dict(mixed_step=True, mixed_token_budget=16,
+                                kv_quantize="int8"),
+             "two-path int8": dict(step_chunk=4, kv_quantize="int8")}
     shared = [(i * 11) % 200 + 1 for i in range(32)]
     prompts = [[5, 9, 3], [(i * 7) % 200 + 1 for i in range(40)],
                shared + [91, 92, 93], shared + [81, 82]]
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        gen = ContinuousGenerator(spec, params=params_to(params, dev),
-                                  device=dev, **kw)
-        try:
-            outs[dev] = [gen.generate([p], max_new_tokens=8)[0]
-                         for p in prompts]
-        finally:
-            gen.stop()
-    log(f"small model llama-small-test f32: card {outs['cuda']} "
-        f"cpu {outs['cpu']}")
-    check(outs["cuda"] == outs["cpu"],
-          "small-model greedy streams differ between card and CPU")
+    for mode, kw in modes.items():
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            gen = ContinuousGenerator(spec, params=params_to(params, dev),
+                                      device=dev, **base, **kw)
+            try:
+                outs[dev] = [gen.generate([p], max_new_tokens=8)[0]
+                             for p in prompts]
+            finally:
+                gen.stop()
+        log(f"small model llama-small-test f32 {mode}: card "
+            f"{outs['cuda']} cpu {outs['cpu']}")
+        check(outs["cuda"] == outs["cpu"],
+              f"small-model greedy streams ({mode}) differ between card "
+              f"and CPU")
 
 
-def phase_server(torch, pa) -> dict:
+def serve_lane(torch, pa, params, lane: str) -> dict:
+    """Drive one lane of the main path over HTTP with the launch counts
+    set to 0 just before and read just after; check its invariants."""
     from tpu_engine_torch.serving.app import serve_worker
     from tpu_engine_torch.utils.config import WorkerConfig
 
-    cfg = WorkerConfig(port=0, node_id="chip-smoke", model="llama",
+    overrides = LANES[lane]
+    kernel = next(k for k, v in KERNELS.items() if v["lane"] == lane)
+    mixed = bool(overrides.get("gen_mixed_step"))
+    cfg = WorkerConfig(port=0, node_id=f"chip-smoke-{lane}", model="llama",
                        dtype="bfloat16", gen_max_batch_size=8,
                        gen_prefill_chunk=256, gen_kv_block_size=16,
-                       gen_mixed_step=True, gen_mixed_token_budget=256,
-                       device="cuda", seed=0)
+                       device="cuda", seed=0, **overrides)
     t0 = time.perf_counter()
-    worker, server = serve_worker(cfg)
+    worker, server = serve_worker(cfg, params=params)
     torch.cuda.synchronize()
-    log(f"server: llama (TinyLlama-1.1B geometry) ready in "
+    log(f"server {lane}: llama (TinyLlama-1.1B geometry) ready in "
         f"{time.perf_counter() - t0:.1f} s on port {server.port}")
     port = server.port
-    vocab = worker.generator.cfg.vocab
-    n_layers = worker.generator.cfg.n_layers
+    gcfg = worker.generator.cfg
+    vocab, n_layers = gcfg.vocab, gcfg.n_layers
     rng = np.random.default_rng(0)
 
     def toks(n):
@@ -320,24 +479,19 @@ def phase_server(torch, pa) -> dict:
     reqs = {"long": toks(300), "prefix_a": prefix + toks(20),
             "mid": toks(100), "short": toks(17), "one": toks(1)}
     stream_prompt = toks(200)
-    max_new = 32
-    out = {}
     try:
-        # The main path's run: counts from 0, read right after it.
-        pa.ragged_paged_attention.launches = 0
-        pa.ragged_paged_attention.plain_calls = 0
+        pa.reset_counts()  # the lane's run: counts from 0, read after it
         warm = post(port, "/generate", {"request_id": "warm",
                                         "prompt_tokens": reqs["short"],
                                         "max_new_tokens": 4})
-        check(len(warm["tokens"]) == 4, f"warm-up: {warm}")
-
+        check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
         results, errors = {}, []
 
         def run(name, prompt):
             try:
                 results[name] = post(port, "/generate", {
                     "request_id": name, "prompt_tokens": prompt,
-                    "max_new_tokens": max_new})
+                    "max_new_tokens": MAX_NEW})
             except Exception as exc:  # reported below, fails the phase
                 errors.append(f"{name}: {exc!r}")
 
@@ -345,7 +499,7 @@ def phase_server(torch, pa) -> dict:
             try:
                 results["stream"] = stream(port, {
                     "request_id": "stream", "prompt_tokens": stream_prompt,
-                    "max_new_tokens": max_new})
+                    "max_new_tokens": MAX_NEW})
             except Exception as exc:
                 errors.append(f"stream: {exc!r}")
 
@@ -359,33 +513,34 @@ def phase_server(torch, pa) -> dict:
             t.join(timeout=600)
         burst_s = time.perf_counter() - t_burst
         check(not errors and not any(t.is_alive() for t in threads),
-              f"burst failed: {errors}")
+              f"{lane} burst failed: {errors}")
         s_toks, s_final, ttft = results.pop("stream")
         check(s_final is not None and "error" not in s_final
-              and s_final["tokens"] == s_toks and len(s_toks) == max_new,
-              f"stream: {s_final}")
+              and s_final["tokens"] == s_toks and len(s_toks) == MAX_NEW,
+              f"{lane} stream: {s_final}")
         n_tokens = len(s_toks)
         for name, res in results.items():
-            check(len(res["tokens"]) == max_new
+            check(len(res["tokens"]) == MAX_NEW
                   and all(0 <= t < vocab for t in res["tokens"]),
-                  f"{name}: {res}")
+                  f"{lane} {name}: {res}")
             n_tokens += len(res["tokens"])
         hit0 = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"]
         shared = post(port, "/generate", {
             "request_id": "prefix_b", "prompt_tokens": prefix + toks(40),
-            "max_new_tokens": max_new})
+            "max_new_tokens": MAX_NEW})
         hit = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"] - hit0
-        check(len(shared["tokens"]) == max_new and hit >= 64,
-              f"shared prefix: {hit} prefix-hit tokens")
+        check(len(shared["tokens"]) == MAX_NEW and hit >= 64,
+              f"{lane} shared prefix: {hit} prefix-hit tokens")
         # Greedy repeat under the same batch composition (alone, both
-        # resuming from the same radix hit): token-identical. A stream's
-        # tokens may differ from a co-batched run of the same prompt: a
-        # decode row that rides a prefill tick goes through a 2048-row
-        # GEMM instead of an 8-row one, and bf16 rounds differently.
+        # resuming from the same radix hit): token-identical. In a mixed
+        # lane a co-batched stream may differ from the same prompt alone:
+        # a decode row riding a prefill tick goes through a 2048-row GEMM
+        # instead of an 8-row one, and bf16 rounds differently.
         first, again = (post(port, "/generate", {
             "request_id": f"long-repeat-{i}", "prompt_tokens": reqs["long"],
-            "max_new_tokens": max_new})["tokens"] for i in range(2))
-        check(first == again, f"greedy repeat differs: {first} {again}")
+            "max_new_tokens": MAX_NEW})["tokens"] for i in range(2))
+        check(first == again, f"{lane} greedy repeat differs: {first} "
+                              f"{again}")
         deadline = time.time() + 30
         while True:
             st = get(port, "/stats")
@@ -395,69 +550,113 @@ def phase_server(torch, pa) -> dict:
             if idle or time.time() > deadline:
                 break
             time.sleep(0.05)
-        launches = pa.ragged_paged_attention.launches
-        plain = pa.ragged_paged_attention.plain_calls
-        mixed = st["mixed"]
-        check(idle, f"not idle or blocks leaked: {pool}")
-        check(mixed["ticks"] == mixed["dispatches"] > 0, f"{mixed}")
-        check(plain == 0, f"plain ragged path served {plain} calls")
-        check(launches == n_layers * mixed["dispatches"],
-              f"{launches} kernel launches for {mixed['dispatches']} "
-              f"dispatches of {n_layers} layers")
-        health = get(port, "/health")
-        check(health["healthy"] and health["generator"]["completed"] >= 8,
-              f"health: {health}")
-        out = {"launches": launches, "ticks": mixed["ticks"],
-               "dispatches": mixed["dispatches"],
-               "prefill_tokens": mixed["prefill_tokens"],
-               "decode_tokens": mixed["decode_tokens"],
+        counts = {k: (getattr(pa, k).launches, getattr(pa, k).plain_calls)
+                  for k in KERNELS}
+        launches = counts[kernel][0]
+        check(idle, f"{lane}: not idle or blocks leaked: {pool}")
+        check(all(p == 0 for _, p in counts.values()),
+              f"{lane}: plain versions served attention reads: {counts}")
+        check(all(n == 0 for k, (n, _) in counts.items() if k != kernel),
+              f"{lane}: other kernels launched: {counts}")
+        check(bool(pool.get("quantized")) == ("int8" in lane),
+              f"{lane}: pool {pool}")
+        out = {"kernel": kernel, "launches": launches,
                "burst_tokens": n_tokens, "burst_s": burst_s,
                "tokens_per_s": n_tokens / burst_s, "stream_ttft_s": ttft,
-               "prefix_hit_tokens": hit}
-        log(f"server: {n_tokens} tokens in {burst_s:.3f} s "
+               "prefix_hit_tokens": hit, "pool": pool}
+        if mixed:
+            m = st["mixed"]
+            check(m["ticks"] == m["dispatches"] > 0, f"{lane}: {m}")
+            check(launches == n_layers * m["dispatches"],
+                  f"{lane}: {launches} launches for {m['dispatches']} "
+                  f"dispatches of {n_layers} layers")
+            out.update(ticks=m["ticks"], dispatches=m["dispatches"])
+            steps = f"ticks {m['ticks']} == dispatches {m['dispatches']}"
+        else:
+            chunks = st["chunks"]
+            step_chunk = overrides["gen_step_chunk"]
+            check(chunks > 0, f"{lane}: no decode chunk ran")
+            check(launches == n_layers * step_chunk * chunks,
+                  f"{lane}: {launches} launches for {chunks} chunks of "
+                  f"{step_chunk} steps of {n_layers} layers")
+            out.update(chunks=chunks,
+                       admission_dispatches=st["admission_dispatches"])
+            steps = f"chunks {chunks} of {step_chunk} steps"
+        health = get(port, "/health")
+        check(health["healthy"] and health["generator"]["completed"] >= 8,
+              f"{lane} health: {health}")
+        log(f"server {lane}: {n_tokens} tokens in {burst_s:.3f} s "
             f"({n_tokens / burst_s:.1f} tokens/s, 6 concurrent requests), "
-            f"stream TTFT {ttft * 1e3:.1f} ms; ticks {mixed['ticks']} == "
-            f"dispatches {mixed['dispatches']}; kernel launches {launches} "
-            f"({n_layers} per tick), plain calls {plain}; prefix hit "
-            f"{hit} tokens; greedy repeat identical; blocks free "
-            f"{pool['blocks_free']} + radix {pool['radix_nodes']} == total "
-            f"{pool['blocks_total']}")
+            f"stream TTFT {ttft * 1e3:.1f} ms; {steps}; {kernel} launches "
+            f"{launches}, plain calls 0; prefix hit {hit} tokens; greedy "
+            f"repeat identical; blocks free {pool['blocks_free']} + radix "
+            f"{pool['radix_nodes']} == total {pool['blocks_total']}")
     finally:
         server.stop()
         worker.stop()
     return out
 
 
-def phase_numbers(torch, pa) -> dict:
+def phase_server(torch, pa) -> dict:
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+
+    params = init_params(create_model("llama").config, seed=0,
+                         device="cuda", dtype="bfloat16")
+    return {lane: serve_lane(torch, pa, params, lane) for lane in LANES}
+
+
+def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
+    int8 = kernel.startswith("quant")
     dev = torch.device("cuda")
+    inp = main_path_inputs(torch, dev, decode_only, int8)
+    args = decode_args(inp) if kernel in ("paged_attention",
+                                          "quant_paged_attention") else inp
+    fn = getattr(pa, kernel)
+    ref = getattr(pa, kernel + "_reference")
+    ms = time_ms(torch, lambda: fn(*args))
+    plain = time_ms(torch, lambda: ref(*args), iters=5)
+    library = time_ms(torch, sdpa_yardstick(torch, inp, int8))
+    out_item = 4 if int8 else inp[1].element_size()
+    bound, by = bound_ms(inp[0], inp[1], inp[-3], inp[-2], inp[-1],
+                         out_item, scale_bytes=4 if int8 else 0)
+    shape = "decode W=1" if decode_only else "mixed W=256"
+    pool = "int8" if int8 else "bf16"
+    log(f"numbers {kernel} ({shape}, B 8, H 32/4, D 64, bs 16, {pool} "
+        f"pool): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over "
+        f"pre-gathered K/V {library:.4f} ms, bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain, "library_ms": library,
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_numbers(torch, pa) -> dict:
     res = {}
-    for decode_only in (False, True):
-        inp = main_path_inputs(torch, dev, decode_only)
-        kernel = time_ms(torch, lambda: pa.ragged_paged_attention(*inp))
-        plain = time_ms(torch,
-                        lambda: pa.ragged_paged_attention_reference(*inp),
-                        iters=5)
-        library = time_ms(torch, sdpa_yardstick(torch, *inp))
-        bound, by = bound_ms(inp[0], inp[1], inp[3], inp[4], inp[5])
-        shape = "decode W=1" if decode_only else "mixed W=256"
-        res[shape] = {"ms": kernel, "plain_ms": plain, "library_ms": library,
-                      "bound_ms": bound, "bound_by": by}
-        log(f"numbers ({shape}, B 8, H 32/4, D 64, bs 16, bf16 pool): "
-            f"kernel {kernel:.4f} ms, plain {plain:.4f} ms, sdpa over "
-            f"pre-gathered K/V {library:.4f} ms, bound {bound:.5f} ms "
-            f"({by})")
-    res["forward"] = forward_times(torch, pa, res)
+    for kernel in KERNELS:
+        shapes = ((True,) if kernel in ("paged_attention",
+                                        "quant_paged_attention")
+                  else (False, True))
+        res[kernel] = {("decode W=1" if d else "mixed W=256"):
+                       kernel_numbers(torch, pa, kernel, d) for d in shapes}
+    res["forward"] = forward_times(torch, res)
     return res
 
 
-def forward_times(torch, pa, kernel_res) -> dict:
-    """One full-width mixed-step forward (22 layers, bf16, 8 rows) at the
-    two widths the main path uses, timed on the card, and the share of it
-    the attention kernel takes (22 launches at the isolated kernel time)."""
+def forward_times(torch, kernel_res) -> dict:
+    """One full-width forward (22 layers, bf16) per step the lanes run,
+    timed on the card, beside the host's time to issue it and the card's
+    busy time under the profiler, and the share of it the attention
+    kernel takes (22 launches at the isolated kernel time): the mixed
+    tick at W = 256 and W = 1 and the two-path decode step (8 rows), over
+    the bf16 and the int8 pool, and the two-path prefill thread's 256-token
+    window of one request over its own dense row cache (no pool, no
+    paged kernel)."""
     from tpu_engine_torch.models.convert import init_params
     from tpu_engine_torch.models.registry import create_model
     from tpu_engine_torch.models.transformer import (
         KVCache,
+        init_caches,
+        transformer_decode_rows_paged,
+        transformer_decode_window,
         transformer_step_rows_ragged,
     )
 
@@ -465,33 +664,82 @@ def forward_times(torch, pa, kernel_res) -> dict:
     dev = torch.device("cuda")
     params = init_params(cfg, seed=0, device=dev, dtype="bfloat16")
     shape = (cfg.n_layers, 8 * 128 + 1, 16, cfg.kv_heads, cfg.d_head)
-    caches = KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                     torch.zeros(shape, dtype=torch.bfloat16, device=dev))
     out = {}
-    for decode_only in (False, True):
-        _, _, _, tables, pos0, qlen = main_path_inputs(torch, dev,
-                                                       decode_only)
-        w = 1 if decode_only else 256
-        tokens = torch.randint(0, cfg.vocab, (8, w), device=dev,
-                               dtype=torch.int32)
-        slot = (qlen - 1).clamp(min=0)
 
-        def fwd():
-            return transformer_step_rows_ragged(
-                params, tokens, caches, tables, pos0, qlen, cfg,
-                dtype=torch.bfloat16, sample_slot=slot)[0]
+    def record(key, fwd, logits_shape, kernel=None, kshape=None):
         logits = fwd()
         check(bool(torch.isfinite(logits).all())
-              and tuple(logits.shape) == (8, cfg.vocab),
-              "full-width forward: non-finite or misshapen logits")
+              and tuple(logits.shape) == logits_shape,
+              f"full-width forward {key}: non-finite or misshapen logits")
         ms = time_ms(torch, fwd, iters=10)
-        shape_name = "decode W=1" if decode_only else "mixed W=256"
-        attn = cfg.n_layers * kernel_res[shape_name]["ms"]
-        out[shape_name] = {"forward_ms": ms, "attention_ms": attn,
-                           "attention_share": attn / ms}
-        log(f"forward ({shape_name}, llama 22 layers, bf16): {ms:.3f} ms "
-            f"per tick, of which the attention kernel {attn:.3f} ms "
-            f"({100 * attn / ms:.1f}%)")
+        host = issue_ms(torch, fwd)
+        busy = busy_ms(torch, fwd)
+        res = {"forward_ms": ms, "issue_ms": host, "busy_ms": busy,
+               "idle_share": max(0.0, 1 - busy / ms)}
+        line = (f"forward ({key}, llama {cfg.n_layers} layers): {ms:.3f} "
+                f"ms per step (host issue {host:.3f} ms, device busy "
+                f"{busy:.3f} ms, idle {100 * res['idle_share']:.1f}%)")
+        if kernel is not None:
+            attn = cfg.n_layers * kernel_res[kernel][kshape]["ms"]
+            res.update(kernel=kernel, attention_ms=attn,
+                       attention_share=attn / ms)
+            line += f", of which {kernel} {attn:.3f} ms " \
+                    f"({100 * attn / ms:.1f}%)"
+        out[key] = res
+        log(line)
+
+    for int8 in (False, True):
+        dt = torch.int8 if int8 else torch.bfloat16
+        caches = KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                         torch.zeros(shape, dtype=dt, device=dev))
+        scales = (KVCache(torch.ones(shape[:-1], device=dev),
+                          torch.ones(shape[:-1], device=dev))
+                  if int8 else None)
+        pool = "int8" if int8 else "bf16"
+        steps = (("mixed W=256", False, "ragged"),
+                 ("decode W=1", True, "ragged"),
+                 ("two-path decode step", True, "paged"))
+        for name, decode_only, read in steps:
+            inp = main_path_inputs(torch, dev, decode_only)
+            tables, pos0, qlen = inp[-3:]
+            w = 1 if decode_only else 256
+            tokens = torch.randint(0, cfg.vocab, (8, w), device=dev,
+                                   dtype=torch.int32)
+            slot = (qlen - 1).clamp(min=0)
+            if read == "ragged":
+                kernel = ("quant_ragged_paged_attention" if int8
+                          else "ragged_paged_attention")
+
+                def fwd():
+                    return transformer_step_rows_ragged(
+                        params, tokens, caches, tables, pos0, qlen, cfg,
+                        dtype=torch.bfloat16, sample_slot=slot,
+                        scales=scales)[0]
+            else:
+                kernel = ("quant_paged_attention" if int8
+                          else "paged_attention")
+
+                def fwd():
+                    return transformer_decode_rows_paged(
+                        params, tokens[:, 0], caches, tables, pos0, cfg,
+                        dtype=torch.bfloat16, scales=scales)[0]
+            kshape = "mixed W=256" if name == "mixed W=256" else "decode W=1"
+            record(f"{name} {pool}", fwd, (8, cfg.vocab), kernel, kshape)
+        del caches, scales
+
+    # The second window of a 300-token prompt (bucket 512): columns
+    # 256..511 of the request's row cache, every slot through the head as
+    # the scheduler asks for the window that holds the prompt's end.
+    row = init_caches(cfg, 1, 512, torch.bfloat16, dev)
+    window = torch.randint(0, cfg.vocab, (1, 256), device=dev,
+                           dtype=torch.int32)
+    w0 = torch.full((1,), 256, dtype=torch.int32, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    record("two-path prefill window W=256",
+           lambda: transformer_decode_window(
+               params, window, row, w0, cfg, dtype=torch.bfloat16,
+               start_vec=zero, head="all")[0],
+           (1, 256, cfg.vocab))
     return out
 
 
@@ -513,26 +761,25 @@ def main() -> int:
     t0 = time.perf_counter()
     pa.kernel_library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"({pa.kernel_library_path().name})")
+        f"({pa.kernel_library_path().name}, {len(pa.SOURCES)} sources)")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "build_log.txt").write_text(pa.build_log)
     errs = phase_parity(torch, pa)
     phase_small_model(torch)
     server = phase_server(torch, pa)
     numbers = phase_numbers(torch, pa)
-    main_shape = numbers["mixed W=256"]
-    kernels = {"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "tpu_engine_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "tpu_engine/ops/paged_attention.py:226",
-        "launches": server["launches"],
-        "max_abs_err": max(errs.values()),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-    }]}
-    OUT_DIR.mkdir(exist_ok=True)
+    rows = []
+    for name, meta in KERNELS.items():
+        main_shape = next(iter(numbers[name].values()))
+        rows.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"],
+            "launches": server[meta["lane"]]["launches"],
+            "max_abs_err": max(errs[name].values()),
+            **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+        })
+    kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "server": server,
          "numbers": numbers, **kernels}, indent=1))

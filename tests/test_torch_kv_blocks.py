@@ -1,9 +1,12 @@
 """The port's block pool and radix tree (tpu_engine_torch.runtime.kv_blocks)
 against the JAX package's: one scripted sequence of alloc / retain /
 release / ensure_writable (copy-on-write) / release_tail / radix insert /
-lookup / evict / clear, run on both pools, gives the same block ids,
-refcounts and stats() at every step; and the port's copy-on-write copies
-the block's contents."""
+lookup / evict / clear, run on both pools (full-precision and int8), gives
+the same block ids, refcounts and stats() at every step; the port's
+copy-on-write copies the block's contents (int8 payload and scales
+bit-exactly); and the two-path admission's gather and scatter, bf16 and
+int8, write and read what the JAX functions do on the same numpy-seeded
+inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +26,11 @@ _ensure_builtin_models_imported()
 BS = 4
 
 
-def _pools(n_blocks=10):
+def _pools(n_blocks=10, quantize=""):
     jp = jkv.BlockPool(jcreate("gpt2-small-test").config, n_blocks, BS,
-                       jnp.float32)
+                       jnp.float32, quantize=quantize)
     tp = tkv.BlockPool(tcreate("gpt2-small-test").config, n_blocks, BS,
-                       torch.float32, "cpu")
+                       torch.float32, "cpu", quantize=quantize)
     return jp, tp
 
 
@@ -78,8 +81,9 @@ def _script(pool, exhausted):
     return seen
 
 
-def test_scripted_sequence_matches_jax():
-    jp, tp = _pools()
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_scripted_sequence_matches_jax(quantize):
+    jp, tp = _pools(quantize=quantize)
     got = _script(tp, tkv.PoolExhausted)
     want = _script(jp, jkv.PoolExhausted)
     assert [s[0] for s in got] == [s[0] for s in want]
@@ -116,6 +120,86 @@ def test_reset_rebuilds_and_unported_tiers_refuse():
     cfg = tcreate("gpt2-small-test").config
     assert tp.bytes_per_block() == jkv.dense_block_bytes(
         jcreate("gpt2-small-test").config, BS, jnp.float32)
-    for kw in ({"host_blocks": 4}, {"quantize": "int8"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", host_blocks=4)
+    with pytest.raises(ValueError, match="unsupported KV quantize"):
+        tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", quantize="fp4")
+    # An int8 pool's reset rebuilds the scales (ones) with the payload.
+    _, qp = _pools(quantize="int8")
+    with qp.lock:
+        (blk,) = qp.alloc(1)
+        qp.scales.k[:, blk] = 0.5
+        qp.reset()
+    assert qp.caches.k.dtype == torch.int8
+    assert bool((qp.scales.k == 1.0).all() and (qp.scales.v == 1.0).all())
+
+
+def test_int8_cow_copies_payload_and_scales_bitexact():
+    _, tp = _pools(quantize="int8")
+    rng = np.random.default_rng(1)
+    with tp.lock:
+        (blk,) = tp.alloc(1)
+        shape = tuple(tp.caches.k[:, blk].shape)
+        for pair in (tp.caches, tp.scales):
+            for t in (pair.k, pair.v):
+                vals = rng.standard_normal(shape[:t.dim() - 1]) * 50
+                t[:, blk] = torch.from_numpy(vals).to(t.dtype)
+        tp.retain(blk)
+        wid, copied = tp.ensure_writable(blk)
+        assert copied and tp.cow_copies == 1
+        for pair in (tp.caches, tp.scales):
+            for t in (pair.k, pair.v):
+                assert torch.equal(t[:, wid], t[:, blk])
+
+
+def _row_inputs(pool, nb, seed):
+    rng = np.random.default_rng(seed)
+    n_layers, _, bs, h, d = pool.caches.k.shape
+    row = [rng.standard_normal((n_layers, 1, nb * bs, h, d)
+                               ).astype(np.float32) for _ in range(2)]
+    # Matched slots point at the null block (duplicates), the rest at
+    # fresh blocks, as the two-path admission scatters them.
+    ids = np.array([0, 0, 5, 2, 7][:nb], np.int32)
+    return row, ids
+
+
+@pytest.mark.parametrize("quantize", ["", "int8"])
+def test_scatter_then_gather_match_jax(quantize):
+    jp, tp = _pools(quantize=quantize)
+    (rk, rv), ids = _row_inputs(tp, 5, seed=3)
+    if quantize:
+        jc, js = jkv.scatter_blocks_quant(
+            jp.caches, jp.scales, jnp.asarray(rk), jnp.asarray(rv),
+            jnp.asarray(ids))
+        tkv.scatter_blocks_quant(tp.caches, tp.scales, torch.from_numpy(rk),
+                                 torch.from_numpy(rv), torch.from_numpy(ids))
+        pairs = ((jc, tp.caches), (js, tp.scales))
+    else:
+        jc = jkv.scatter_blocks(jp.caches, jnp.asarray(rk), jnp.asarray(rv),
+                                jnp.asarray(ids))
+        tkv.scatter_blocks(tp.caches, torch.from_numpy(rk),
+                           torch.from_numpy(rv), torch.from_numpy(ids))
+        pairs = ((jc, tp.caches),)
+    for jpair, tpair in pairs:
+        for j, t in ((jpair.k, tpair.k), (jpair.v, tpair.v)):
+            # Every block but the null block (the duplicates' dump).
+            np.testing.assert_array_equal(t.numpy()[:, 1:],
+                                          np.asarray(j)[:, 1:])
+    gids = np.array([5, 2, 7, 0], np.int32)
+    if quantize:
+        jg = jkv.gather_blocks_quant(jc.k, jc.v, js.k, js.v,
+                                     jnp.asarray(gids), dtype=jnp.bfloat16)
+        tg = tkv.gather_blocks_quant(tp.caches.k, tp.caches.v, tp.scales.k,
+                                     tp.scales.v, torch.from_numpy(gids),
+                                     dtype=torch.bfloat16)
+        assert tg.k.dtype == torch.bfloat16
+    else:
+        jg = jkv.gather_blocks(jc.k, jc.v, jnp.asarray(gids))
+        tg = tkv.gather_blocks(tp.caches.k, tp.caches.v,
+                               torch.from_numpy(gids))
+    cols = 3 * BS  # the null block's columns are garbage by contract
+    for j, t in ((jg.k, tg.k), (jg.v, tg.v)):
+        assert tuple(t.shape) == tuple(j.shape)
+        np.testing.assert_array_equal(
+            t.float().numpy()[:, :, :cols],
+            np.asarray(j.astype(jnp.float32))[:, :, :cols])

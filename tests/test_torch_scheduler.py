@@ -4,7 +4,9 @@ tests/test_mixed_step.py and the same weights (carried across with
 models.convert.params_from_jax): token-identical greedy streams on its
 workloads, the same stats() schema, ticks == dispatches, no leaked
 blocks, cancelled rows that return their blocks, and seeded streams that
-are deterministic and independent of batching."""
+are the JAX scheduler's token for token, deterministic and independent
+of batching. The two-path mode and the int8 pool are
+tests/test_torch_scheduler_paged.py."""
 
 import queue
 import time
@@ -28,8 +30,8 @@ _ensure_builtin_models_imported()
 KW = dict(dtype="float32", n_slots=4, max_seq=128, kv_block_size=16,
           prefill_chunk=16, mixed_step=True, mixed_token_budget=16)
 # stats() keys of the JAX scheduler that belong to modes the port leaves
-# out: the dense scheduler's decode-chunk counter and its prefix cache.
-LEFT_OUT = {"chunks", "prefix_cache"}
+# out: the dense scheduler's prefix cache.
+LEFT_OUT = {"prefix_cache"}
 
 SHARED = [(i * 11) % 90 + 1 for i in range(32)]
 WORKLOADS = {
@@ -156,10 +158,11 @@ def test_cancelled_mid_prefill_row_returns_blocks(gen):
     assert gen.generate([[5, 9, 3]], max_new_tokens=4)[0] == want
 
 
-def test_seeded_streams_deterministic_and_batch_independent(gen):
+def test_seeded_streams_deterministic_and_batch_independent(jax_gen, gen):
     kw = dict(max_new_tokens=8, temperature=0.8, seed=7, top_p=0.95)
     prompt = [5, 9, 3, 2]
     alone = gen.generate([prompt], **kw)[0]
+    assert alone == jax_gen.generate([prompt], **kw)[0]
     assert gen.generate([prompt], **kw)[0] == alone
     batched = gen.generate([[1, 2], prompt, [(i * 3) % 90 for i in
                                              range(30)]],
@@ -183,9 +186,10 @@ def test_construction_without_device_raises_here(spec, tparams):
     (dict(kv_block_size=0), ValueError, "mixed_step requires"),
     (dict(kv_block_size=0, mixed_step=False), NotImplementedError,
      "dense-cache scheduler"),
-    (dict(mixed_step=False), NotImplementedError, "two-path"),
+    (dict(kv_host_blocks=4), NotImplementedError, "host KV tier"),
     (dict(spec_k=2), NotImplementedError, "speculative"),
-    (dict(kv_quantize="int8"), NotImplementedError, "int8"),
+    (dict(state_rows=4), NotImplementedError, "state_slab"),
+    (dict(tp=2), NotImplementedError, "tensor-parallel"),
 ])
 def test_unported_modes_refuse(spec, tparams, overrides, exc, match):
     with pytest.raises(exc, match=match):

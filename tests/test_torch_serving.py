@@ -1,9 +1,11 @@
 """The port's worker over HTTP on the CPU (tpu_engine_torch.serving) against
 the JAX package's generator and worker, with the same weights: /generate
-and /generate/stream tokens equal the JAX mixed-step generator's, /health
-and /stats carry the JAX schemas for the ported blocks; and the package
-never imports jax or tpu_engine (a serving subprocess's sys.modules, and
-an AST scan of its sources)."""
+and /generate/stream tokens equal the JAX mixed-step generator's, and a
+two-path lane's and an int8 lane's tokens equal the JAX generator's of the
+same mode; /health and /stats carry the JAX schemas for the ported
+blocks; the --kv-quantize guard refuses as the JAX worker's does; and
+neither the package nor chip_smoke.py imports jax or tpu_engine (a
+serving subprocess's sys.modules, and an AST scan of the sources)."""
 
 import ast
 import http.client
@@ -36,11 +38,17 @@ LANE = dict(gen_kv_block_size=16, gen_mixed_step=True, gen_prefill_chunk=16,
             gen_mixed_token_budget=16)
 # /health keys of the JAX worker that belong to lanes the port leaves out
 # (the /infer result cache and batcher), and generator stats of modes it
-# leaves out (the dense scheduler's chunk counter and prefix cache, and
-# the unified stateless one-shot rows).
+# leaves out (the dense scheduler's prefix cache, and the unified
+# stateless one-shot rows).
 HEALTH_LEFT_OUT = {"cache_hits", "cache_size", "cache_hit_rate",
                    "batch_processor"}
-GENERATOR_LEFT_OUT = {"chunks", "prefix_cache", "stateless"}
+GENERATOR_LEFT_OUT = {"prefix_cache", "stateless"}
+# The slice-2 lanes: two-path (no --mixed-step) and the int8 pool.
+LANES = {"two-path": dict(gen_kv_block_size=16, gen_prefill_chunk=16,
+                          gen_step_chunk=4),
+         "int8-mixed": dict(LANE, gen_kv_quantize="int8"),
+         "int8-two-path": dict(gen_kv_block_size=16, gen_prefill_chunk=16,
+                               gen_step_chunk=4, gen_kv_quantize="int8")}
 PROMPTS = [[5, 9, 3], [(i * 7) % 90 + 1 for i in range(40)]]
 
 
@@ -141,6 +149,64 @@ def test_health_and_stats_schemas_match_jax(server):
     assert stats["mixed"]["ticks"] == stats["mixed"]["dispatches"]
 
 
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_slice2_lanes_match_jax(params, lane):
+    """A two-path or int8 port worker over HTTP gives the JAX generator's
+    tokens for the same mode and weights, and the JAX worker's /health
+    generator schema for that lane."""
+    kw = LANES[lane]
+    tparams = convert.params_from_jax(
+        jax.tree.map(np.asarray, params),
+        tcreate("gpt2-small-test").config, device="cpu")
+    worker, srv = serve_worker(WorkerConfig(
+        port=0, node_id="torch_2", model="gpt2-small-test",
+        dtype="float32", device="cpu", **kw), params=tparams)
+    g = JaxGen(jcreate("gpt2-small-test"), params=params, dtype="float32",
+               n_slots=8, kv_block_size=16, prefill_chunk=16,
+               step_chunk=kw.get("gen_step_chunk", 8),
+               mixed_step=kw.get("gen_mixed_step", False),
+               mixed_token_budget=kw.get("gen_mixed_token_budget", 0),
+               kv_quantize=kw.get("gen_kv_quantize", ""))
+    jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **kw))
+    try:
+        for i, prompt in enumerate(PROMPTS):
+            status, raw = _request(srv.port, "POST", "/generate", {
+                "request_id": f"{lane}-{i}", "prompt_tokens": prompt,
+                "max_new_tokens": 6})
+            assert status == 200
+            want = g.generate([prompt], max_new_tokens=6)[0]
+            assert json.loads(raw)["tokens"] == want
+        jw.handle_generate({"request_id": "j", "prompt_tokens": [5, 9, 3],
+                            "max_new_tokens": 2})
+        status, raw = _request(srv.port, "GET", "/health")
+        health = json.loads(raw)["generator"]
+        jhealth = jw.get_health()["generator"]
+        assert set(health) == set(jhealth) - GENERATOR_LEFT_OUT
+        assert set(health["kv_pool"]) == set(jhealth["kv_pool"])
+        if kw.get("gen_mixed_step"):
+            assert health["mixed"]["ticks"] == health["mixed"]["dispatches"]
+        else:
+            assert health["chunks"] > 0
+        if kw.get("gen_kv_quantize"):
+            assert health["kv_pool"]["quantized"] == "int8"
+    finally:
+        srv.stop()
+        worker.stop()
+        g.stop()
+        jw.stop()
+
+
+def test_kv_quantize_guard_matches_jax_worker():
+    for kw, match in ((dict(gen_kv_quantize="int8"), "kv-quantize requires"),
+                      (dict(gen_kv_block_size=16, gen_kv_quantize="fp8"),
+                       "must be 'int8'")):
+        with pytest.raises(RuntimeError, match=match):
+            serve_worker(WorkerConfig(port=0, model="gpt2-small-test",
+                                      dtype="float32", device="cpu", **kw))
+        with pytest.raises(RuntimeError, match=match):
+            JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **kw))
+
+
 def test_serving_subprocess_imports_no_jax():
     code = (
         "import json, sys, urllib.request\n"
@@ -167,7 +233,8 @@ def test_serving_subprocess_imports_no_jax():
 
 def test_package_sources_import_no_jax():
     offenders = []
-    for path in sorted((REPO / "tpu_engine_torch").rglob("*.py")):
+    sources = sorted((REPO / "tpu_engine_torch").rglob("*.py"))
+    for path in sources + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

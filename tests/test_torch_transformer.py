@@ -1,9 +1,13 @@
 """The port's transformer (tpu_engine_torch.models) against the JAX
 package's: config fields for every dense decoder name, the weight
-carry-across, and the ragged mixed step's logits and pool writes on a
-ragged batch (decode rows plus a chunk crossing a block boundary) with
-the same weights, within 1e-4 (f32 on both sides; two layers of
-differently ordered f32 sums)."""
+carry-across, and with the same weights and numpy-seeded inputs the
+logits and cache writes of the ragged mixed step (decode rows plus a
+chunk crossing a block boundary; f32 and int8 pools), of the two-path
+prefill windows over a dense row cache, and of the paged decode step
+(f32 and int8 pools). Bound: 1e-4 on logits and f32 caches (f32 on both
+sides; two layers of differently ordered f32 sums); int8 payloads within
+one step of each other (a value at a rounding tie may round either way
+after such sums), scales within 1e-5 relative."""
 
 import dataclasses
 
@@ -19,6 +23,7 @@ from tpu_engine.models.registry import (
     create_model as jcreate,
 )
 from tpu_engine.ops.attention import KVCache as JKV
+from tpu_engine.ops.quant import quantize_kv as jquantize
 from tpu_engine_torch.models import convert, transformer as tt
 from tpu_engine_torch.models.registry import (
     available_models,
@@ -136,15 +141,138 @@ def test_step_rows_ragged_matches_jax(name, sample):
 def test_step_refuses_unported_paths():
     _, _, tcfg, tparams = _models("llama-small-test")
     k0, v0, tokens, tables, pos0, qlen, _ = _ragged_batch(tcfg)
-    args = (tparams, torch.from_numpy(tokens),
-            tt.KVCache(torch.from_numpy(k0), torch.from_numpy(v0)),
+    caches = tt.KVCache(torch.from_numpy(k0), torch.from_numpy(v0))
+    args = (tparams, torch.from_numpy(tokens), caches,
             torch.from_numpy(tables), torch.from_numpy(pos0),
             torch.from_numpy(qlen))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tt.transformer_step_rows_ragged(*args, tcfg, scales=object())
+    moe = dataclasses.replace(tcfg, n_experts=2)
+    with pytest.raises(NotImplementedError, match="decoder dialects"):
+        tt.transformer_step_rows_ragged(*args, moe)
     mcfg = tcreate("mistral-small-test").config
     with pytest.raises(NotImplementedError, match="sliding_window"):
         tt.transformer_step_rows_ragged(*args, mcfg)
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        tt.transformer_decode_rows_paged(
+            tparams, torch.from_numpy(tokens[:, 0]), caches,
+            torch.from_numpy(tables), torch.from_numpy(pos0), mcfg)
+
+
+def _quant_pool(k0, v0):
+    """Quantize f32 pools with the JAX write path: (int8 k, int8 v, f32
+    scales k, f32 scales v) numpy arrays."""
+    qk, sk = jquantize(jnp.asarray(k0))
+    qv, sv = jquantize(jnp.asarray(v0))
+    return [np.array(a) for a in (qk, qv, sk, sv)]
+
+
+def _assert_pools_match(tpools, jpools, quant):
+    """Every block but the null block (padding writes' dump)."""
+    if not quant:
+        for t, j in zip(tpools, jpools):
+            np.testing.assert_allclose(t.numpy()[:, 1:],
+                                       np.asarray(j)[:, 1:], atol=TOL,
+                                       rtol=TOL)
+        return
+    for t, j in zip(tpools[:2], jpools[:2]):
+        diff = np.abs(t.numpy()[:, 1:].astype(np.int32)
+                      - np.asarray(j)[:, 1:].astype(np.int32))
+        assert diff.max() <= 1
+    for t, j in zip(tpools[2:], jpools[2:]):
+        np.testing.assert_allclose(t.numpy()[:, 1:], np.asarray(j)[:, 1:],
+                                   rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", ["gpt2-small-test", "llama-small-test"])
+def test_step_rows_ragged_int8_matches_jax(name):
+    jcfg, params, tcfg, tparams = _models(name)
+    k0, v0, tokens, tables, pos0, qlen, slot = _ragged_batch(jcfg, seed=1)
+    qk, qv, sk, sv = _quant_pool(k0, v0)
+    jl, jc, js = jt.transformer_step_rows_ragged(
+        params, jnp.asarray(tokens), JKV(jnp.asarray(qk), jnp.asarray(qv)),
+        jnp.asarray(tables), jnp.asarray(pos0), jnp.asarray(qlen), jcfg,
+        dtype=jnp.float32, sample_slot=jnp.asarray(slot),
+        scales=JKV(jnp.asarray(sk), jnp.asarray(sv)))
+    tpools = [torch.from_numpy(a.copy()) for a in (qk, qv, sk, sv)]
+    tl, tc, ts = tt.transformer_step_rows_ragged(
+        tparams, torch.from_numpy(tokens), tt.KVCache(*tpools[:2]),
+        torch.from_numpy(tables), torch.from_numpy(pos0),
+        torch.from_numpy(qlen), tcfg, dtype=torch.float32,
+        sample_slot=torch.from_numpy(slot),
+        scales=tt.KVCache(*tpools[2:]))
+    assert tc.k is tpools[0] and ts.k is tpools[2]
+    live = qlen > 0
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                               atol=TOL, rtol=TOL)
+    _assert_pools_match(tpools, [jc.k, jc.v, js.k, js.v], quant=True)
+
+
+@pytest.mark.parametrize("name", ["gpt2-small-test", "llama-small-test"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_rows_paged_matches_jax(name, quant):
+    jcfg, params, tcfg, tparams = _models(name)
+    k0, v0, tokens, tables, _, _, _ = _ragged_batch(jcfg, seed=2)
+    tok = tokens[:, 0]
+    # Rows at their write columns: inside a block, at a block's first
+    # column, deep in the table, and a free row (null table, pos 0).
+    pos = np.array([5, 16, 40, 0], np.int32)
+    pools = _quant_pool(k0, v0) if quant else [k0, v0]
+    jargs = dict(scales=JKV(jnp.asarray(pools[2]), jnp.asarray(pools[3]))
+                 ) if quant else {}
+    jout = jt.transformer_decode_rows_paged(
+        params, jnp.asarray(tok), JKV(jnp.asarray(pools[0]),
+                                      jnp.asarray(pools[1])),
+        jnp.asarray(tables), jnp.asarray(pos), jcfg, dtype=jnp.float32,
+        **jargs)
+    tpools = [torch.from_numpy(np.array(a)) for a in pools]
+    targs = dict(scales=tt.KVCache(*tpools[2:])) if quant else {}
+    tout = tt.transformer_decode_rows_paged(
+        tparams, torch.from_numpy(tok), tt.KVCache(*tpools[:2]),
+        torch.from_numpy(tables), torch.from_numpy(pos), tcfg,
+        dtype=torch.float32, **targs)
+    assert len(tout) == (3 if quant else 2)
+    live = np.array([True, True, True, False])  # the free row reads garbage
+    np.testing.assert_allclose(tout[0].numpy()[live],
+                               np.asarray(jout[0])[live], atol=TOL, rtol=TOL)
+    jpools = [jout[1].k, jout[1].v] + ([jout[2].k, jout[2].v] if quant
+                                       else [])
+    _assert_pools_match(tpools, jpools, quant)
+
+
+@pytest.mark.parametrize("name", ["gpt2-small-test", "llama-small-test",
+                                  "mistral-small-test"])
+@pytest.mark.parametrize("head", ["all", "last", "none"])
+def test_decode_window_matches_jax(name, head):
+    jcfg, params, tcfg, tparams = _models(name)
+    rng = np.random.default_rng(4)
+    pb, w = 32, 12
+    tokens = rng.integers(0, jcfg.vocab, (2, pb)).astype(np.int32)
+    jc = jt.init_caches(jcfg, 2, pb, jnp.float32)
+    tc = tt.init_caches(tcfg, 2, pb, torch.float32)
+    assert tuple(tc.k.shape) == tuple(jc.k.shape)
+    start = np.array([0, 3], np.int32)
+    # Three windows per row, the last one narrower (a prompt's tail).
+    for w0 in (0, w, 2 * w):
+        width = min(w, pb - w0)
+        pos = np.full((2,), w0, np.int32)
+        jl, jc = jt.transformer_decode_window(
+            params, jnp.asarray(tokens[:, w0:w0 + width]), jc,
+            jnp.asarray(pos), jcfg, dtype=jnp.float32,
+            start_vec=jnp.asarray(start), head=head)
+        tl, tc2 = tt.transformer_decode_window(
+            tparams, torch.from_numpy(tokens[:, w0:w0 + width]), tc,
+            torch.from_numpy(pos), tcfg, dtype=torch.float32,
+            start_vec=torch.from_numpy(start), head=head)
+        assert tc2.k is tc.k
+        if head == "none":
+            assert tl is None and jl is None
+        else:
+            assert tuple(tl.shape) == tuple(jl.shape)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=TOL,
+                               rtol=TOL)
 
 
 def test_init_params_is_seeded_and_shaped():

@@ -44,26 +44,17 @@
 // split over long contexts (to fill 132 SMs at decode widths) are later
 // work.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (tpu_engine_torch/ops/paged_attention.py does this
-//        at first use and loads the library with ctypes).
+// Build: tpu_engine_torch/ops/paged_attention.py compiles every source of
+//        this directory with nvcc -gencode arch=compute_90a,code=sm_90a at first
+//        use, links one library and loads it with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "paged_attention_common.cuh"
 
 namespace {
 
 constexpr int kRows = 64;                          // query rows per thread block
 constexpr int kThreads = 256;
 constexpr int kThreadsPerRow = kThreads / kRows;   // 4: PV product split over D
-constexpr int kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -189,11 +180,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem =
       sizeof(float) * (kRows * (D + 1) + 2 * bs * (D + 1) + kRows * (bs + 1));
   auto kernel = ragged_paged_attention_kernel<KV, D>;
-  if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k_pool),

@@ -1,5 +1,7 @@
-"""Transformer forward for the paged mixed step (counterpart of
-``tpu_engine/models/transformer.py``).
+"""Transformer forwards of the paged serving paths (counterpart of
+``tpu_engine/models/transformer.py``): the ragged mixed step, the two-path
+scheduler's prefill windows over a row's own dense cache, and its decode
+step over the block pool, each over a bf16/f32 or an int8 pool.
 
 Parameters are a dict tree with the JAX package's names, except that the
 stacked (L, ...) ``blocks`` tree becomes a list of per-layer dicts: the
@@ -21,7 +23,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpu_engine_torch.ops import nn
-from tpu_engine_torch.ops.attention import _split_heads, rope
+from tpu_engine_torch.ops.attention import (
+    _split_heads,
+    dot_product_attention,
+    rope,
+)
+from tpu_engine_torch.ops.quant import quantize_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +67,21 @@ class TransformerConfig:
 
 
 class KVCache(NamedTuple):
-    """A K/V pair of pool tensors, each (L, NB, bs, H_kv, D)."""
+    """A K/V pair: pool tensors (L, NB, bs, H_kv, D), their int8 pool's
+    scales (L, NB, bs, H_kv), or a dense row cache (L, B, S, H_kv, D)."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+def init_caches(cfg: TransformerConfig, batch: int,
+                max_seq: Optional[int] = None, dtype=torch.bfloat16,
+                device="cpu") -> KVCache:
+    """Zeroed dense cache (L, batch, max_seq, H_kv, D): the two-path
+    scheduler's per-request row cache during its prefill windows."""
+    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
+             cfg.d_head)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _norm(params, x, cfg: TransformerConfig):
@@ -93,13 +112,62 @@ def _project_qkv(bp, x, cfg: TransformerConfig, *, dtype, positions):
     return q, k, v
 
 
+def _embed(params, tokens, logical, cfg: TransformerConfig, dtype):
+    """Token embeddings plus, for learned positions, the table rows of the
+    (clipped) logical positions; cast to the compute dtype."""
+    h = nn.embedding(params["tok_embed"], tokens.long())
+    if cfg.pos == "learned":
+        table = params["pos_embed"]["table"]
+        h = h + table[torch.clamp(logical.long(), 0, table.shape[0] - 1)]
+    return h.to(dtype)
+
+
+def _head(params, h, cfg: TransformerConfig, dtype):
+    return nn.dense(params["head"], _norm(params["ln_f"], h, cfg),
+                    dtype=dtype).float()
+
+
+def _check_dialect(cfg: TransformerConfig) -> None:
+    if cfg.n_experts > 0 or cfg.post_ln or cfg.embed_ln or cfg.type_vocab:
+        raise NotImplementedError(
+            "only the decoder dialects (gpt2, llama) are ported")
+
+
+def _check_paged(cfg: TransformerConfig) -> None:
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "sliding_window models are not supported by the paged KV "
+            "cache (use the dense scheduler)")
+    _check_dialect(cfg)
+
+
+def _write_kv(ck, cv, scales, blk, off, k, v) -> None:
+    """Write new tokens' K/V into pool slots (blk, off), in place. With the
+    int8 pool's layer scales (ks, vs), each (slot, kv-head) vector
+    quantizes here, exactly once, and its scale is written beside it."""
+    if scales is None:
+        ck.index_put_((blk, off), k.to(ck.dtype))
+        cv.index_put_((blk, off), v.to(cv.dtype))
+        return
+    ks, vs = scales
+    qk, sk = quantize_kv(k)
+    qv, sv = quantize_kv(v)
+    ck.index_put_((blk, off), qk)
+    cv.index_put_((blk, off), qv)
+    ks.index_put_((blk, off), sk)
+    vs.index_put_((blk, off), sv)
+
+
 def _block_step_rows_ragged(bp, h, ck, cv, tables, pos0, qlen,
-                            cfg: TransformerConfig, *, dtype, attn_fn):
+                            cfg: TransformerConfig, *, dtype, attn_fn,
+                            scales=None):
     """One layer of the ragged mixed step. ck/cv are this layer's
     (NB, bs, H_kv, D) pool slices, updated IN PLACE: all W slots' K/V are
     written into the rows' blocks before the attention read
     (write-before-attend); padding slots (i >= qlen) write into the null
-    block 0, and columns past the table are clipped to its last column."""
+    block 0, and columns past the table are clipped to its last column.
+    ``scales``: the int8 pool's layer scales (ks, vs); the chunk's tokens
+    quantize at their write, before their own read."""
     bs = ck.shape[1]
     b, w = h.shape[:2]
     x = _norm(bp["ln1"], h, cfg)
@@ -112,9 +180,12 @@ def _block_step_rows_ragged(bp, h, ck, cv, tables, pos0, qlen,
     blk = tables.long()[rows, cols // bs]
     blk = torch.where(offs < qlen[:, None].long(), blk, 0)
     off = cols % bs
-    ck.index_put_((blk, off), k.to(ck.dtype))
-    cv.index_put_((blk, off), v.to(cv.dtype))
-    a = attn_fn(q, ck, cv, tables, pos0, qlen).to(dtype)
+    _write_kv(ck, cv, scales, blk, off, k, v)
+    if scales is None:
+        a = attn_fn(q, ck, cv, tables, pos0, qlen)
+    else:
+        a = attn_fn(q, ck, cv, scales[0], scales[1], tables, pos0, qlen)
+    a = a.to(dtype)
     h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, w, -1), dtype=dtype)
     h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
     return h.to(dtype)
@@ -134,7 +205,10 @@ def transformer_step_rows_ragged(params, tokens, caches: KVCache, tables,
     (L, NB, bs, H_kv, D) pools (updated in place and returned); tables:
     (B, nb) int32 block tables; pos0, qlen: (B,) int32. ``attn_fn``
     defaults to ``ops.paged_attention.ragged_paged_attention`` (the CUDA
-    kernel on CUDA tensors).
+    kernel on CUDA tensors), or with ``scales`` (the int8 pool's KVCache
+    of (L, NB, bs, H_kv) f32, updated in place) to
+    ``quant_ragged_paged_attention``; the return then grows to
+    (logits, caches, scales).
 
     ``sample_slot`` (B,) selects one slot per row to project through the
     LM head; the hidden state is gathered BEFORE ln_f and the head, so the
@@ -142,44 +216,144 @@ def transformer_step_rows_ragged(params, tokens, caches: KVCache, tables,
     the gather to slots sample_slot..sample_slot + width - 1 (clipped to
     W-1). Returns (logits (B, vocab), caches), or (B, sample_width, vocab)
     when sample_width > 1, or (B, W, vocab) without ``sample_slot``."""
-    if scales is not None:
-        raise NotImplementedError(
-            "the int8 KV pool (scales) is not yet ported")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding_window models are not supported by the paged KV "
-            "cache (use the dense scheduler)")
-    if cfg.n_experts > 0 or cfg.post_ln or cfg.embed_ln or cfg.type_vocab:
-        raise NotImplementedError(
-            "only the decoder dialects (gpt2, llama) are ported")
+    _check_paged(cfg)
     if attn_fn is None:
-        from tpu_engine_torch.ops.paged_attention import (
-            ragged_paged_attention,
-        )
+        from tpu_engine_torch.ops import paged_attention as pa
 
-        attn_fn = ragged_paged_attention
+        attn_fn = (pa.ragged_paged_attention if scales is None
+                   else pa.quant_ragged_paged_attention)
     b, w = tokens.shape
-    tokens = tokens.long()
-    h = nn.embedding(params["tok_embed"], tokens)
-    if cfg.pos == "learned":
-        table = params["pos_embed"]["table"]
-        logical = torch.clamp(
-            pos0[:, None].long() + torch.arange(w, device=tokens.device),
-            0, table.shape[0] - 1)
-        h = h + table[logical]
-    h = h.to(dtype)
+    logical = pos0[:, None].long() + torch.arange(w, device=tokens.device)
+    h = _embed(params, tokens, logical, cfg, dtype)
     for li, bp in enumerate(params["blocks"]):
-        h = _block_step_rows_ragged(bp, h, caches.k[li], caches.v[li],
-                                    tables, pos0, qlen, cfg, dtype=dtype,
-                                    attn_fn=attn_fn)
+        h = _block_step_rows_ragged(
+            bp, h, caches.k[li], caches.v[li], tables, pos0, qlen, cfg,
+            dtype=dtype, attn_fn=attn_fn,
+            scales=None if scales is None else (scales.k[li], scales.v[li]))
     if sample_slot is not None:
         slots = torch.clamp(
             sample_slot[:, None].long()
             + torch.arange(sample_width, device=h.device)[None, :],
             max=w - 1)
         h = h[torch.arange(b, device=h.device)[:, None], slots]  # (B, S, d)
-    h = _norm(params["ln_f"], h, cfg)
-    logits = nn.dense(params["head"], h, dtype=dtype).float()
+    logits = _head(params, h, cfg, dtype)
     if sample_slot is not None and sample_width == 1:
         logits = logits[:, 0]
+    if scales is not None:
+        return logits, caches, scales
     return logits, caches
+
+
+def _block_decode_rows_paged(bp, h, ck, cv, tables, pos_vec,
+                             cfg: TransformerConfig, *, dtype, attn_fn,
+                             scales=None):
+    """One decode step of one layer against the block pool: ck/cv are the
+    layer's (NB, bs, H_kv, D) pool slices. Paged rows are 0-aligned, so
+    pos_vec IS the logical position. The new token's K/V is written into
+    its block (in place) before the attention read; with the int8 pool's
+    layer scales it quantizes there, once."""
+    bs = ck.shape[1]
+    b = h.shape[0]
+    x = _norm(bp["ln1"], h, cfg)
+    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype,
+                           positions=pos_vec[:, None].long())
+    rows = torch.arange(b, device=h.device)
+    pos = pos_vec.long()
+    blk = tables.long()[rows, pos // bs]
+    _write_kv(ck, cv, scales, blk, pos % bs, k[:, 0], v[:, 0])
+    if scales is None:
+        a = attn_fn(q, ck, cv, tables, pos_vec)
+    else:
+        a = attn_fn(q, ck, cv, scales[0], scales[1], tables, pos_vec)
+    a = a.to(dtype)
+    h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, 1, -1), dtype=dtype)
+    h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+    return h.to(dtype)
+
+
+def transformer_decode_rows_paged(params, token_t, caches: KVCache, tables,
+                                  pos_vec, cfg: TransformerConfig, *,
+                                  dtype=torch.bfloat16, attn_fn=None,
+                                  scales: Optional[KVCache] = None):
+    """One decode step of every row over the block pool (the two-path
+    scheduler's decode chunk runs ``step_chunk`` of them). token_t: (B,)
+    the rows' last tokens; caches: (L, NB, bs, H_kv, D) pool pair,
+    updated in place; tables: (B, nb) int32 block tables (0 = the null
+    block, masked by pos); pos_vec: (B,) int32 logical write positions.
+    ``attn_fn`` defaults to ``ops.paged_attention.paged_attention`` (the
+    CUDA kernel on CUDA tensors), or with ``scales`` (the int8 pool's
+    scales, updated in place) to ``quant_paged_attention``. Returns
+    (logits (B, vocab), caches), or (logits, caches, scales)."""
+    _check_paged(cfg)
+    if attn_fn is None:
+        from tpu_engine_torch.ops import paged_attention as pa
+
+        attn_fn = (pa.paged_attention if scales is None
+                   else pa.quant_paged_attention)
+    h = _embed(params, token_t[:, None], pos_vec[:, None], cfg, dtype)
+    for li, bp in enumerate(params["blocks"]):
+        h = _block_decode_rows_paged(
+            bp, h, caches.k[li], caches.v[li], tables, pos_vec, cfg,
+            dtype=dtype, attn_fn=attn_fn,
+            scales=None if scales is None else (scales.k[li], scales.v[li]))
+    logits = _head(params, h, cfg, dtype)[:, 0]
+    if scales is not None:
+        return logits, caches, scales
+    return logits, caches
+
+
+def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
+                         cfg: TransformerConfig, *, dtype):
+    """One layer of a W-token window per row against a dense row cache:
+    ck/cv (B, S, H_kv, D), updated in place. Row b writes columns
+    [pos_vec[b], pos_vec[b] + W) before the attention read, and window
+    slot i attends columns start_vec[b] <= kpos <= pos_vec[b] + i (inside
+    the sliding band, for models that have one)."""
+    b, w = h.shape[:2]
+    x = _norm(bp["ln1"], h, cfg)
+    offs = torch.arange(w, device=h.device)[None, :]
+    logical = (pos_vec - start_vec).long()[:, None] + offs
+    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=logical)
+    rows = torch.arange(b, device=h.device)[:, None]
+    cols = pos_vec.long()[:, None] + offs                    # (B, W)
+    ck[rows, cols] = k.to(ck.dtype)
+    cv[rows, cols] = v.to(cv.dtype)
+    kpos = torch.arange(ck.shape[1], device=h.device)[None, None, :]
+    valid = ((kpos <= cols[:, :, None])
+             & (kpos >= start_vec.long()[:, None, None]))
+    if cfg.sliding_window is not None:
+        valid = valid & (kpos > cols[:, :, None] - cfg.sliding_window)
+    a = dot_product_attention(q, ck, cv, mask=valid.to(torch.int32))
+    h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, w, -1), dtype=dtype)
+    h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+    return h.to(dtype)
+
+
+def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
+                              cfg: TransformerConfig, *,
+                              dtype=torch.bfloat16, start_vec=None,
+                              head: str = "all"):
+    """Consume a W-token window per row against a dense row cache in one
+    pass (the two-path scheduler's prefill windows). tokens: (B, W), row
+    b's tokens at cache columns [pos_vec[b], pos_vec[b] + W); caches:
+    (L, B, S, H_kv, D), updated in place; start_vec: (B,) first valid
+    column per row (default 0). ``head``: "all" projects every slot
+    through the LM head ((B, W, vocab)), "last" only the final slot
+    ((B, 1, vocab)), "none" none (logits None). Returns (logits, caches),
+    where logits[:, i] predicts the token after tokens[:, i]. Callers keep
+    pos_vec + W <= S."""
+    _check_dialect(cfg)
+    if start_vec is None:
+        start_vec = torch.zeros_like(pos_vec)
+    w = tokens.shape[1]
+    logical = ((pos_vec - start_vec).long()[:, None]
+               + torch.arange(w, device=tokens.device)[None, :])
+    h = _embed(params, tokens, logical, cfg, dtype)
+    for li, bp in enumerate(params["blocks"]):
+        h = _block_decode_window(bp, h, caches.k[li], caches.v[li],
+                                 pos_vec, start_vec, cfg, dtype=dtype)
+    if head == "none":
+        return None, caches
+    if head == "last":
+        h = h[:, -1:]
+    return _head(params, h, cfg, dtype), caches

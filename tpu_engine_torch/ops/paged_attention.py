@@ -1,26 +1,36 @@
-"""Ragged paged attention over the block-pooled KV cache (counterpart of
-the ragged half of ``tpu_engine/ops/paged_attention.py``).
+"""Paged attention over the block-pooled KV cache (counterpart of
+``tpu_engine/ops/paged_attention.py``): the decode read of the two-path
+paged scheduler, the ragged read of the mixed step, and both over the
+int8 pool.
 
-The mixed scheduler serves decode rows (one new token) and admitting rows
-(a prefill chunk) in one ragged batch: row b's query slot i sits at
-logical position pos0[b] + i and attends keys kpos <= pos0[b] + i, read
-through the row's block table (logical column c lives in pool block
-``tables[b, c // bs]`` at offset ``c % bs``). Slots i >= qlen[b] are
-padding whose output the caller ignores.
+- Decode (``paged_attention``): q (B, 1, H, D); row b attends logical
+  columns kpos <= pos[b], column c read from pool block
+  ``tables[b, c // bs]`` at offset ``c % bs``.
+- Ragged (``ragged_paged_attention``): the mixed scheduler serves decode
+  rows (one new token) and admitting rows (a prefill chunk) in one ragged
+  batch: row b's query slot i sits at logical position pos0[b] + i and
+  attends keys kpos <= pos0[b] + i. Slots i >= qlen[b] are padding whose
+  output the caller ignores.
+- ``quant_*``: the same reads over the int8 pool, whose (NB, bs, H_kv)
+  f32 scale arrays hold one scale per (block slot, kv-head). They return
+  q's dtype (f32 on the serving path), not the pool's.
 
-- ``ragged_paged_attention_reference`` is the plain PyTorch version: it
-  gathers each row's blocks into a dense view and runs the grouped
-  ``dot_product_attention``.
-- ``ragged_paged_attention`` is the wrapper. For CUDA tensors it launches
-  the hand-written kernel of ``csrc/ragged_paged_attention.cu`` (the port
-  of the TPU kernel ``_ragged_kernel``); for CPU tensors, and only for
-  them, it takes the plain version. It never falls back: a kernel that
-  does not build or launch raises.
+Each read has a plain PyTorch version (``*_reference``: gather the row's
+blocks into a dense view, dequantized to f32 for int8, and run the grouped
+``dot_product_attention``) and a wrapper. For CUDA tensors the wrapper
+launches the hand-written kernel that ports the TPU kernel (``csrc/``:
+``_paged_kernel`` and ``_quant_paged_kernel`` in ``paged_attention.cu``,
+``_ragged_kernel`` in ``ragged_paged_attention.cu``,
+``_quant_ragged_kernel`` in ``quant_ragged_paged_attention.cu``); for CPU
+tensors, and only for them, it takes the plain version. It never falls
+back: a kernel that does not build or launch raises. Each wrapper counts
+its kernel launches (``launches``) and its plain calls (``plain_calls``).
 
-The kernel library is compiled with ``nvcc`` for ``sm_90a`` at first use
-into ``build/torch_kernels/`` under the repository root, keyed by a hash
-of its sources and flags, and loaded with ``ctypes``. Importing this
-module needs neither ``nvcc`` nor a card.
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+nvcc per source, all started together, and linked into one library in
+``build/torch_kernels/`` under the repository root, keyed by a hash of the
+sources and flags, loaded with ``ctypes``. Importing this module needs
+neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -34,42 +44,105 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tpu_engine_torch.ops.attention import dot_product_attention
+from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (_CSRC / "ragged_paged_attention.cu",)
+SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_DECODE_GROUP_DIMS = 2048   # G * D a decode thread block accumulates
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# -- plain versions ------------------------------------------------------------
+
+def _gather_rows(pool, tables):
+    """(NB, bs, ...) pool + (B, nb) tables -> (B, nb * bs, ...)."""
+    b, nb = tables.shape
+    g = pool[tables.long()]
+    return g.reshape(b, nb * pool.shape[1], *pool.shape[2:])
+
+
+def _decode_mask(q, tables, bs, pos_vec):
+    kpos = torch.arange(tables.shape[1] * bs, device=q.device)
+    return (kpos[None, :] <= pos_vec.long()[:, None]).to(torch.int32)
+
+
+def _ragged_mask(q, tables, bs, pos0):
+    kpos = torch.arange(tables.shape[1] * bs, device=q.device)
+    qpos = (pos0.long()[:, None]
+            + torch.arange(q.shape[1], device=q.device)[None, :])
+    return (kpos[None, None, :] <= qpos[:, :, None]).to(torch.int32)
+
+
+def paged_attention_reference(q, k_pool, v_pool, tables, pos_vec):
+    """Plain version of the decode read. q: (B, 1, H, D); k_pool/v_pool:
+    (NB, bs, H_kv, D); tables: (B, nb) block ids (0 = the null block, its
+    columns masked by ``pos_vec``); pos_vec: (B,) last valid logical
+    column per row. Returns (B, 1, H, D)."""
+    mask = _decode_mask(q, tables, k_pool.shape[1], pos_vec)
+    return dot_product_attention(q, _gather_rows(k_pool, tables),
+                                 _gather_rows(v_pool, tables), mask=mask)
+
+
 def ragged_paged_attention_reference(q, k_pool, v_pool, tables, pos0, qlen):
-    """Plain version. q: (B, W, H, D); k_pool/v_pool: (NB, bs, H_kv, D);
-    tables: (B, nb) int block ids; pos0: (B,) logical position of each
-    row's first query slot; qlen: (B,) valid slots (padding slots give
-    values the caller ignores). Returns (B, W, H, D)."""
+    """Plain version of the ragged read. q: (B, W, H, D); k_pool/v_pool:
+    (NB, bs, H_kv, D); tables: (B, nb) int block ids; pos0: (B,) logical
+    position of each row's first query slot; qlen: (B,) valid slots
+    (padding slots give values the caller ignores). Returns (B, W, H, D)."""
     del qlen  # padding slots are ignored by contract, not masked
-    bs = k_pool.shape[1]
-    b, w = q.shape[:2]
-    nb = tables.shape[1]
-    idx = tables.long()
-    kk = k_pool[idx].reshape(b, nb * bs, k_pool.shape[2], k_pool.shape[3])
-    vv = v_pool[idx].reshape(b, nb * bs, v_pool.shape[2], v_pool.shape[3])
-    kpos = torch.arange(nb * bs, device=q.device)
-    qpos = pos0.long()[:, None] + torch.arange(w, device=q.device)[None, :]
-    valid = (kpos[None, None, :] <= qpos[:, :, None]).to(torch.int32)
-    return dot_product_attention(q, kk, vv, mask=valid)
+    mask = _ragged_mask(q, tables, k_pool.shape[1], pos0)
+    return dot_product_attention(q, _gather_rows(k_pool, tables),
+                                 _gather_rows(v_pool, tables), mask=mask)
 
 
-# -- the CUDA kernel: build, load, launch -------------------------------------
+def quant_paged_attention_reference(q, k_pool, v_pool, k_scale, v_scale,
+                                    tables, pos_vec):
+    """``paged_attention_reference`` over the int8 pool: k_pool/v_pool
+    (NB, bs, H_kv, D) int8, k_scale/v_scale (NB, bs, H_kv) f32. The
+    gathered view dequantizes to f32, then the same attention runs."""
+    kk = dequantize_kv(_gather_rows(k_pool, tables),
+                       _gather_rows(k_scale, tables))
+    vv = dequantize_kv(_gather_rows(v_pool, tables),
+                       _gather_rows(v_scale, tables))
+    mask = _decode_mask(q, tables, k_pool.shape[1], pos_vec)
+    return dot_product_attention(q, kk, vv, mask=mask)
+
+
+def quant_ragged_paged_attention_reference(q, k_pool, v_pool, k_scale,
+                                           v_scale, tables, pos0, qlen):
+    """``ragged_paged_attention_reference`` over the int8 pool (same
+    contract; padding slots give values the caller ignores)."""
+    del qlen
+    kk = dequantize_kv(_gather_rows(k_pool, tables),
+                       _gather_rows(k_scale, tables))
+    vv = dequantize_kv(_gather_rows(v_pool, tables),
+                       _gather_rows(v_scale, tables))
+    mask = _ragged_mask(q, tables, k_pool.shape[1], pos0)
+    return dot_product_attention(q, kk, vv, mask=mask)
+
+
+# -- the CUDA kernels: build, load, launch -------------------------------------
 
 _build_lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's report (registers, shared memory, spills) of the build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Entry point -> argument types (pointers, then ints, then the stream).
+_ENTRY_POINTS = {
+    "ragged_paged_attention": [_P] * 7 + [_I] * 8 + [_P],
+    "paged_attention": [_P] * 6 + [_I] * 7 + [_P],
+    "quant_paged_attention": [_P] * 8 + [_I] * 6 + [_P],
+    "quant_ragged_paged_attention": [_P] * 9 + [_I] * 7 + [_P],
+}
 
 
 def _nvcc() -> str:
@@ -81,36 +154,58 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH) — the ragged paged-attention kernel is "
-                           "built from source at first use")
+                           "PATH) — the paged-attention kernels are built "
+                           "from source at first use")
     return found
 
 
 def kernel_library_path() -> Path:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"ragged_paged_attention_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"paged_attention_{h.hexdigest()[:16]}.so"
 
 
 def build_kernel_library() -> Path:
-    """Compile the kernel sources with nvcc unless a library for exactly
+    """Compile every kernel source with nvcc (one process per source, all
+    started together) and link one library, unless a library for exactly
     these sources and flags is already built. Returns its path."""
     global build_log
     out = kernel_library_path()
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = out.with_suffix(f".{os.getpid()}.build")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = []
+        for src in SOURCES:
+            obj = work / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for src, _, proc in jobs:
+            so, se = proc.communicate()
+            logs.append(f"== {src.name}\n{so}{se}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{so}\n{se}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = work / out.name
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        build_log = "\n".join(logs)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -120,20 +215,36 @@ def kernel_library() -> ctypes.CDLL:
     with _build_lock:
         if _library is None:
             lib = ctypes.CDLL(str(build_kernel_library()))
-            fn = lib.ragged_paged_attention
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            for name, argtypes in _ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.ragged_paged_attention_error_string.argtypes = [ctypes.c_int]
             lib.ragged_paged_attention_error_string.restype = ctypes.c_char_p
             _library = lib
         return _library
 
 
-def _check_cuda_args(q, k_pool, v_pool, tables, pos0, qlen) -> None:
+def _launch(name: str, device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise on a
+    refused launch (it never runs, and a synchronise would not show it)."""
+    lib = kernel_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.ragged_paged_attention_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_cuda_args(q, k_pool, v_pool, tables, rows, *, quant=False,
+                     scales=()) -> None:
+    """Device, contiguity, shape and dtype checks before a launch.
+    ``rows``: the (B,) int32 position vectors."""
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("pos0", pos0), ("qlen", qlen)):
+    named = (("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables),
+             *rows, *scales)
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -151,76 +262,212 @@ def _check_cuda_args(q, k_pool, v_pool, tables, pos0, qlen) -> None:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if not 1 <= bs <= 128:
         raise ValueError(f"block size {bs} outside 1..128")
-    if k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
+    if quant:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise ValueError(f"pool dtype {k_pool.dtype}/{v_pool.dtype}: "
+                             f"the quantized read takes int8")
+        for name, s in scales:
+            if s.dtype != torch.float32 or s.shape != k_pool.shape[:3]:
+                raise ValueError(f"{name} must be float32 of shape "
+                                 f"{tuple(k_pool.shape[:3])}, got "
+                                 f"{s.dtype} {tuple(s.shape)}")
+    elif k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype}/{v_pool.dtype} not "
                          f"supported (float32 or bfloat16)")
     if tables.dim() != 2 or tables.shape[0] != b:
         raise ValueError(f"tables {tuple(tables.shape)} for batch {b}")
-    for name, t in (("tables", tables), ("pos0", pos0), ("qlen", qlen)):
+    for name, t in (("tables", tables), *rows):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if tuple(pos0.shape) != (b,) or tuple(qlen.shape) != (b,):
-        raise ValueError("pos0 and qlen must be (B,)")
+    for name, t in rows:
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"{name} must be (B,) = ({b},), got "
+                             f"{tuple(t.shape)}")
+
+
+def _check_decode(q, k_pool) -> None:
+    if q.shape[1] != 1:
+        raise ValueError(f"the decode read takes one query slot, got "
+                         f"q {tuple(q.shape)}")
+    g = q.shape[2] // k_pool.shape[2]
+    if g * q.shape[3] > MAX_DECODE_GROUP_DIMS:
+        raise ValueError(f"G * D = {g * q.shape[3]} exceeds "
+                         f"{MAX_DECODE_GROUP_DIMS}")
+
+
+def _plain_or_cuda(fn, q) -> bool:
+    """True for CPU tensors (count a plain call); raise on other devices."""
+    if q.device.type == "cpu":
+        fn.plain_calls += 1
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return False
 
 
 def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     """Same contract as ``ragged_paged_attention_reference``. CUDA tensors
-    launch the kernel (q is taken in f32; the output has the pool's
-    dtype); CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        ragged_paged_attention.plain_calls += 1
+    launch the port of ``_ragged_kernel`` (q is taken in f32; the output
+    has the pool's dtype); CPU tensors take the plain version."""
+    if _plain_or_cuda(ragged_paged_attention, q):
         return ragged_paged_attention_reference(q, k_pool, v_pool, tables,
                                                 pos0, qlen)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_cuda_args(q, k_pool, v_pool, tables, pos0, qlen)
+    _check_cuda_args(q, k_pool, v_pool, tables,
+                     (("pos0", pos0), ("qlen", qlen)))
     b, w, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=k_pool.dtype, device=q.device)
-    lib = kernel_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ragged_paged_attention(
-            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), pos0.data_ptr(), qlen.data_ptr(),
-            out.data_ptr(), b, w, h, h_kv, d, bs, tables.shape[1],
-            _KV_DTYPES[k_pool.dtype], stream)
-    if rc != 0:
-        msg = lib.ragged_paged_attention_error_string(rc).decode()
-        raise RuntimeError(f"ragged paged-attention launch failed: CUDA "
-                           f"error {rc} ({msg})")
+    _launch("ragged_paged_attention", q.device, qf.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv,
+            d, bs, tables.shape[1], _KV_DTYPES[k_pool.dtype])
     ragged_paged_attention.launches += 1
     return out
+
+
+def paged_attention(q, k_pool, v_pool, tables, pos_vec):
+    """Same contract as ``paged_attention_reference``. CUDA tensors launch
+    the port of ``_paged_kernel`` (q is taken in f32; the output has the
+    pool's dtype); CPU tensors take the plain version."""
+    if _plain_or_cuda(paged_attention, q):
+        return paged_attention_reference(q, k_pool, v_pool, tables, pos_vec)
+    _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),))
+    _check_decode(q, k_pool)
+    b, _, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    qf = q.to(torch.float32).contiguous()
+    out = torch.empty((b, 1, h, d), dtype=k_pool.dtype, device=q.device)
+    _launch("paged_attention", q.device, qf.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
+            out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1],
+            _KV_DTYPES[k_pool.dtype])
+    paged_attention.launches += 1
+    return out
+
+
+def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
+                          pos_vec):
+    """Same contract as ``quant_paged_attention_reference``. CUDA tensors
+    launch the port of ``_quant_paged_kernel`` (the output has q's dtype);
+    CPU tensors take the plain version."""
+    if _plain_or_cuda(quant_paged_attention, q):
+        return quant_paged_attention_reference(q, k_pool, v_pool, k_scale,
+                                               v_scale, tables, pos_vec)
+    _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),),
+                     quant=True, scales=(("k_scale", k_scale),
+                                         ("v_scale", v_scale)))
+    _check_decode(q, k_pool)
+    b, _, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    qf = q.to(torch.float32).contiguous()
+    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    _launch("quant_paged_attention", q.device, qf.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
+            out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1])
+    quant_paged_attention.launches += 1
+    return out.to(q.dtype)
+
+
+def quant_ragged_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
+                                 tables, pos0, qlen):
+    """Same contract as ``quant_ragged_paged_attention_reference``. CUDA
+    tensors launch the port of ``_quant_ragged_kernel`` (the output has
+    q's dtype); CPU tensors take the plain version."""
+    if _plain_or_cuda(quant_ragged_paged_attention, q):
+        return quant_ragged_paged_attention_reference(
+            q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen)
+    _check_cuda_args(q, k_pool, v_pool, tables,
+                     (("pos0", pos0), ("qlen", qlen)), quant=True,
+                     scales=(("k_scale", k_scale), ("v_scale", v_scale)))
+    b, w, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    qf = q.to(torch.float32).contiguous()
+    out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    _launch("quant_ragged_paged_attention", q.device, qf.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), tables.data_ptr(), pos0.data_ptr(),
+            qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv, d, bs,
+            tables.shape[1])
+    quant_ragged_paged_attention.launches += 1
+    return out.to(q.dtype)
 
 
 # Launch counts: `launches` counts kernel launches, `plain_calls` counts
 # calls served by the plain version (CPU tensors). A run that resets both
 # to 0 and reads them after shows which path it went through.
-ragged_paged_attention.launches = 0
-ragged_paged_attention.plain_calls = 0
+WRAPPERS = (ragged_paged_attention, paged_attention, quant_paged_attention,
+            quant_ragged_paged_attention)
+for _fn in WRAPPERS:
+    _fn.launches = 0
+    _fn.plain_calls = 0
+
+
+def reset_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+        fn.plain_calls = 0
+
+
+# -- numpy-seeded parity inputs ------------------------------------------------
+
+def _random_tables(rng, rows, n_blocks, table_len):
+    """Distinct shuffled tables, one per row, never the null block."""
+    tables = np.zeros((rows, table_len), np.int32)
+    for r in range(rows):
+        tables[r] = 1 + rng.permutation(n_blocks - 1)[:table_len]
+    return tables
+
+
+def _random_pools(rng, n_blocks, block_size, n_kv_heads, d_head, quant):
+    """(k_pool, v_pool) f32 unit normals, or with ``quant`` the int8 pools
+    and f32 scales that the port's ``quantize_kv`` (the serving write path)
+    makes of them: (k_pool, v_pool, k_scale, v_scale)."""
+    shape = (n_blocks, block_size, n_kv_heads, d_head)
+    k = rng.standard_normal(shape, np.float32)
+    v = rng.standard_normal(shape, np.float32)
+    if not quant:
+        return k, v
+    qk, sk = quantize_kv(torch.from_numpy(k))
+    qv, sv = quantize_kv(torch.from_numpy(v))
+    return qk.numpy(), qv.numpy(), sk.numpy(), sv.numpy()
+
+
+def parity_inputs(batch: int = 2, n_heads: int = 4, n_kv_heads: int = 2,
+                  d_head: int = 8, block_size: int = 16, n_blocks: int = 9,
+                  table_len: int = 4, seed: int = 0, quant: bool = False):
+    """A random decode workload as numpy arrays at the shapes of the JAX
+    package's ``parity_check`` (``quant_parity_check`` with ``quant``):
+    (q, k_pool, v_pool, tables, pos), or (q, k_pool, v_pool, k_scale,
+    v_scale, tables, pos) over an int8 pool. Rows get distinct shuffled
+    tables and ragged lengths."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((batch, 1, n_heads, d_head), np.float32)
+    pools = _random_pools(rng, n_blocks, block_size, n_kv_heads, d_head,
+                          quant)
+    tables = _random_tables(rng, batch, n_blocks, table_len)
+    pos = rng.integers(0, table_len * block_size, batch).astype(np.int32)
+    return (q, *pools, tables, pos)
 
 
 def ragged_parity_inputs(q_lens=(1, 7, 16, 17), n_heads: int = 4,
                          n_kv_heads: int = 2, d_head: int = 8,
                          block_size: int = 16, n_blocks: int = 33,
-                         table_len: int = 6, seed: int = 0):
+                         table_len: int = 6, seed: int = 0,
+                         quant: bool = False):
     """A random ragged workload as numpy arrays, one row per entry of
-    ``q_lens`` (the shapes of the JAX package's ``ragged_parity_check``):
-    (q, k_pool, v_pool, tables, pos0, qlen), f32 unit normals and int32.
-    Rows get distinct shuffled tables and a random history that, with the
-    chunk, fits the table."""
-    import numpy as np
-
+    ``q_lens``, at the shapes of the JAX package's ``ragged_parity_check``
+    (``quant_ragged_parity_check`` with ``quant``): (q, k_pool, v_pool,
+    tables, pos0, qlen), with k_scale and v_scale after the pools over an
+    int8 pool. Rows get distinct shuffled tables and a random history that,
+    with the chunk, fits the table."""
     rng = np.random.default_rng(seed)
     batch, w = len(q_lens), max(q_lens)
     q = rng.standard_normal((batch, w, n_heads, d_head), np.float32)
-    shape = (n_blocks, block_size, n_kv_heads, d_head)
-    k_pool = rng.standard_normal(shape, np.float32)
-    v_pool = rng.standard_normal(shape, np.float32)
-    tables = np.zeros((batch, table_len), np.int32)
-    pos0 = np.zeros((batch,), np.int32)
-    for r, ql in enumerate(q_lens):
-        tables[r] = 1 + rng.permutation(n_blocks - 1)[:table_len]
-        pos0[r] = int(rng.integers(0, table_len * block_size - ql + 1))
-    return q, k_pool, v_pool, tables, pos0, np.asarray(q_lens, np.int32)
+    pools = _random_pools(rng, n_blocks, block_size, n_kv_heads, d_head,
+                          quant)
+    tables = _random_tables(rng, batch, n_blocks, table_len)
+    pos0 = np.array([rng.integers(0, table_len * block_size - ql + 1)
+                     for ql in q_lens], np.int32)
+    return (q, *pools, tables, pos0, np.asarray(q_lens, np.int32))

@@ -4,14 +4,13 @@ token counts, the repetition penalty and per-row sampling.
 
 Sampling. Greedy rows (temperature 0) take the argmax and are exact.
 Sampled rows filter in the JAX order — temperature, then top_p and top_k
-(tokens tied at the threshold are kept), then min_p — and draw with a
-per-row ``torch.Generator`` seeded from (seed, position): a row's draw
-depends on its own seed and the logical position of the token only, so a
-seeded stream is deterministic and independent of which rows share its
-batch. The draws are NOT JAX's: the JAX package folds the position into a
-threefry key (``fold_in(PRNGKey(seed), position)``), which this module
-does not reproduce, so seeded streams match the JAX package in
-distribution, not token for token.
+(tokens tied at the threshold are kept), then min_p — and draw
+``jax.random.categorical``'s Gumbel argmax with noise from the key
+``fold_in(PRNGKey(seed), position)`` (``utils.prng``, the threefry bits
+of jax 0.9.0): a row's draw depends on its own seed and the logical
+position of the token only, so a seeded stream is deterministic,
+independent of which rows share its batch, and the JAX package's token
+for token.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from tpu_engine_torch.utils import prng
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> int:
@@ -65,12 +66,6 @@ def apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor,
                                          logits * p), logits)
 
 
-def _row_generator_seed(seed: int, position: int) -> int:
-    """The (seed, position) -> generator seed rule: distinct for every
-    pair with 0 <= seed, position < 2**31."""
-    return (int(seed) & 0x7FFFFFFF) << 32 | (int(position) & 0xFFFFFFFF)
-
-
 def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
                   top_p: torch.Tensor, top_k: torch.Tensor,
                   min_p: torch.Tensor) -> torch.Tensor:
@@ -93,11 +88,13 @@ def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
 
 def _sample(logits: torch.Tensor, seeds, positions, temperature,
             top_p=None, top_k=None, min_p=None) -> torch.Tensor:
-    """Per-row sampling: logits (B, V) f32; the other arguments (B,)
-    host arrays (numpy) or sequences. Greedy where temperature == 0,
-    else a categorical draw from the filtered distribution by the Gumbel
-    argmax, with noise from the row's (seed, position) generator.
-    Returns (B,) int64 on the logits' device."""
+    """Per-row sampling: logits (B, V) f32; ``seeds`` and ``positions``
+    (B,) integers, as host arrays or as tensors (the decode chunk keeps
+    its positions on the device); the filters (B,) host arrays. Greedy
+    where temperature == 0, else a categorical draw from the filtered
+    distribution by the Gumbel argmax under the row's
+    ``fold_in(PRNGKey(seed), position)`` key. Returns (B,) int64 on the
+    logits' device."""
     greedy = torch.argmax(logits, dim=-1)
     temps = np.asarray(temperature, np.float32)
     sampled_rows = np.nonzero(temps > 0)[0]
@@ -118,14 +115,9 @@ def _sample(logits: torch.Tensor, seeds, positions, temperature,
         torch.as_tensor(top_p[sel], device=dev),
         torch.as_tensor(top_k[sel], device=dev),
         torch.as_tensor(min_p[sel], device=dev))
-    noise = torch.empty((len(sel), v), dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev)
-    for i, r in enumerate(sel):
-        gen.manual_seed(_row_generator_seed(seeds[r], positions[r]))
-        u = torch.rand((v,), generator=gen, device=dev,
-                       dtype=torch.float32)
-        noise[i] = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
-    drawn = torch.argmax(lg + noise, dim=-1)
+    key = prng.fold_in(prng.prng_key(torch.as_tensor(seeds, device=dev)[idx]),
+                       torch.as_tensor(positions, device=dev)[idx])
+    drawn = torch.argmax(lg + prng.gumbel(key, v), dim=-1)
     out = greedy.clone()
     out[idx] = drawn
     return out

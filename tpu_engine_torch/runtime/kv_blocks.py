@@ -1,6 +1,5 @@
 """Paged KV cache: a static block pool, page tables and a radix tree of
-shared prompt prefixes (counterpart of ``tpu_engine/runtime/kv_blocks.py``
-for the bf16/f32 pool).
+shared prompt prefixes (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
 
 - One static tensor per K/V of shape (L, num_blocks, block_size, H_kv, D)
   on the pool's device, allocated once and written in place by the mixed
@@ -12,11 +11,15 @@ for the bf16/f32 pool).
 - Radix tree over FULL token blocks; refcounts with copy-on-write
   (``ensure_writable``); LRU eviction of tree-only leaves when allocation
   runs dry.
+- Quantized block payloads (``quantize="int8"``): the pool tensors hold
+  int8, with one f32 scale per (layer, block slot, kv-head) in ``scales``
+  (a KVCache of (L, NB, bs, H_kv) tensors, ones when fresh, so unwritten
+  slots dequantize to exact zeros). A token quantizes once, at its block
+  write; copy-on-write moves payload and scales verbatim.
 
 The bookkeeping is the JAX package's, line for line, so both pools hand
 out the same block ids for the same sequence of calls. Not ported here:
-the host tier, chain export/import and the int8 pool, which refuse at
-construction.
+the host tier and chain export/import, which refuse at construction.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from tpu_engine_torch.models.transformer import KVCache, TransformerConfig
+from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 
 
 def dense_block_bytes(cfg: TransformerConfig, block_size: int,
@@ -36,6 +40,13 @@ def dense_block_bytes(cfg: TransformerConfig, block_size: int,
     itemsize = torch.empty((), dtype=dtype).element_size()
     return int(2 * cfg.n_layers * block_size * cfg.kv_heads * cfg.d_head
                * itemsize)
+
+
+def quant_block_bytes(cfg: TransformerConfig, block_size: int) -> int:
+    """Bytes of one quantized block: int8 K+V payload plus the f32 scale
+    per (layer, slot, kv-head) vector, 2 * L * bs * H_kv * (D + 4)."""
+    slot_heads = cfg.n_layers * block_size * cfg.kv_heads
+    return int(2 * slot_heads * (cfg.d_head + 4))
 
 
 class PoolExhausted(RuntimeError):
@@ -171,17 +182,22 @@ class BlockPool:
                  device="cpu", host_blocks: int = 0, quantize: str = ""):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
+        if quantize not in ("", "int8"):
+            raise ValueError(f"unsupported KV quantize mode {quantize!r} "
+                             "(only 'int8')")
         if host_blocks:
             raise NotImplementedError(
                 "the host KV tier is not yet ported to tpu_engine_torch")
-        if quantize:
-            raise NotImplementedError(
-                "the int8 KV pool is not yet ported to tpu_engine_torch")
         self.cfg = cfg
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
-        self.dtype = dtype
+        # `io_dtype` is the compute dtype (what gathers dequantize to);
+        # `dtype` is the payload's storage dtype (int8 when quantized).
+        self.quantized = quantize == "int8"
+        self.io_dtype = dtype
+        self.dtype = torch.int8 if self.quantized else dtype
         self.device = torch.device(device)
+        self.scales: Optional[KVCache] = None
         # Guards the bookkeeping. RLock: eviction runs inside alloc.
         self.lock = threading.RLock()
         # Bumped by reset(): pins taken against an older generation are
@@ -202,6 +218,12 @@ class BlockPool:
     def _init_device(self) -> KVCache:
         shape = (self.cfg.n_layers, self.num_blocks, self.block_size,
                  self.cfg.kv_heads, self.cfg.d_head)
+        if self.quantized:
+            self.scales = KVCache(
+                torch.ones(shape[:-1], dtype=torch.float32,
+                           device=self.device),
+                torch.ones(shape[:-1], dtype=torch.float32,
+                           device=self.device))
         return KVCache(torch.zeros(shape, dtype=self.dtype,
                                    device=self.device),
                        torch.zeros(shape, dtype=self.dtype,
@@ -265,8 +287,13 @@ class BlockPool:
         if self._ref[block_id] <= 1:
             return block_id, False
         new_id = self.alloc(1)[0]
-        self.caches.k[:, new_id] = self.caches.k[:, block_id]
-        self.caches.v[:, new_id] = self.caches.v[:, block_id]
+        # Payload and (int8 pool) scales move verbatim: a bit-exact clone,
+        # never a requantization.
+        pairs = (self.caches, self.scales) if self.quantized \
+            else (self.caches,)
+        for pair in pairs:
+            pair.k[:, new_id] = pair.k[:, block_id]
+            pair.v[:, new_id] = pair.v[:, block_id]
         self.release(block_id)
         self.cow_copies += 1
         return new_id, True
@@ -283,13 +310,21 @@ class BlockPool:
         self.radix = RadixTree(self)
 
     def bytes_per_block(self) -> int:
+        """Device bytes one block costs in this pool's layout: K+V payload
+        at the storage dtype, plus (int8) the per-slot f32 scales."""
+        if self.quantized:
+            return quant_block_bytes(self.cfg, self.block_size)
         return dense_block_bytes(self.cfg, self.block_size, self.dtype)
+
+    def dense_bytes_per_block(self) -> int:
+        """What the same block would cost unquantized (at io_dtype)."""
+        return dense_block_bytes(self.cfg, self.block_size, self.io_dtype)
 
     def stats(self) -> dict:
         with self.lock:
             shared = int(np.sum(self._ref[1:] > 1))
             hit, filled = self.prefix_hit_tokens, self.prefilled_tokens
-            return {
+            out = {
                 "blocks_total": self.num_blocks - 1,  # null excluded
                 "block_size": self.block_size,
                 "blocks_free": len(self._free),
@@ -304,3 +339,64 @@ class BlockPool:
                 "radix_lookups": self.radix_lookups,
                 "radix_hits": self.radix_hits,
             }
+            if self.quantized:
+                # Present only in quantized pools, as in the JAX pool.
+                bpb = self.bytes_per_block()
+                dense = self.dense_bytes_per_block()
+                out["quantized"] = "int8"
+                out["bytes_per_block"] = bpb
+                out["dense_bytes_per_block"] = dense
+                out["capacity_multiplier"] = round(dense / bpb, 3)
+            return out
+
+
+# -- device-side block movement (two-path admission) --------------------------
+
+def gather_blocks(pool_k, pool_v, ids) -> KVCache:
+    """(L, NB, bs, H, D) pools + (nb,) block ids -> one row cache
+    (L, 1, nb*bs, H, D): logical column j*bs+o reads pool[ids[j], o].
+    Null-block entries give columns the position mask must exclude."""
+    n_layers, _, bs, h, d = pool_k.shape
+    nb = ids.shape[0]
+    return KVCache(pool_k[:, ids].reshape(n_layers, 1, nb * bs, h, d),
+                   pool_v[:, ids].reshape(n_layers, 1, nb * bs, h, d))
+
+
+def scatter_blocks(caches: KVCache, row_k, row_v, ids) -> None:
+    """Write a prefilled (L, 1, nb*bs, H, D) row cache into pool blocks
+    ``ids``, in place. Radix-matched slots map to the null block 0, so a
+    shared block is never rewritten; those duplicate indices make the
+    write order into block 0 undefined, which is harmless because block 0
+    is never attended."""
+    n_layers, nb = caches.k.shape[0], ids.shape[0]
+    shape = (n_layers, nb) + tuple(caches.k.shape[2:])
+    caches.k[:, ids] = row_k.reshape(shape).to(caches.k.dtype)
+    caches.v[:, ids] = row_v.reshape(shape).to(caches.v.dtype)
+
+
+def gather_blocks_quant(pool_k, pool_v, k_scale, v_scale, ids, *,
+                        dtype) -> KVCache:
+    """``gather_blocks`` for the int8 pool: the gathered blocks dequantize
+    (payload * per-slot scale) to ``dtype``; the pool is untouched."""
+    n_layers, _, bs, h, d = pool_k.shape
+    nb = ids.shape[0]
+    k = dequantize_kv(pool_k[:, ids], k_scale[:, ids], dtype)
+    v = dequantize_kv(pool_v[:, ids], v_scale[:, ids], dtype)
+    return KVCache(k.reshape(n_layers, 1, nb * bs, h, d),
+                   v.reshape(n_layers, 1, nb * bs, h, d))
+
+
+def scatter_blocks_quant(caches: KVCache, scales: KVCache, row_k, row_v,
+                         ids) -> None:
+    """``scatter_blocks`` for the int8 pool, in place: the row cache
+    quantizes here, once, one int8 vector and f32 scale per (layer, slot,
+    kv-head), and payload and scales are written together (null-block
+    duplicates as in ``scatter_blocks``)."""
+    n_layers, nb = caches.k.shape[0], ids.shape[0]
+    shape = (n_layers, nb) + tuple(caches.k.shape[2:])
+    qk, sk = quantize_kv(row_k.reshape(shape))
+    qv, sv = quantize_kv(row_v.reshape(shape))
+    caches.k[:, ids] = qk
+    caches.v[:, ids] = qv
+    scales.k[:, ids] = sk
+    scales.v[:, ids] = sv

@@ -1,28 +1,41 @@
-"""Continuous-batching scheduler with mixed prefill+decode stepping over
-the paged KV cache (counterpart of ``ContinuousGenerator`` in
-``tpu_engine/runtime/scheduler.py``, restricted to
-``kv_block_size > 0, mixed_step=True``).
+"""Continuous-batching scheduler over the paged KV cache (counterpart of
+``ContinuousGenerator`` in ``tpu_engine/runtime/scheduler.py``, restricted
+to ``kv_block_size > 0``), in its two modes:
 
 - The batch is ``n_slots`` rows over one block pool
-  (``runtime.kv_blocks.BlockPool``) with per-row block tables and a radix
-  tree that maps shared prompt prefixes onto already-filled blocks.
-- The prefill thread is pure batch formation: bucket pick, radix lookup
-  (which pins the matched blocks) and penalty counts — no device work.
-- The decode thread admits formed requests into free rows and, each tick,
-  issues ONE forward (``transformer_step_rows_ragged``) over a ragged batch
-  of decode rows (one token each) and admitting rows' prefill chunks
-  (budgeted), then samples one token per row. The ``.cpu()`` of the
-  sampled tokens is the tick's one host sync.
-- Invariants kept from the JAX scheduler: ticks and dispatches are counted
-  at separate sites and stay equal; a prompt's blocks enter the radix tree
-  only when its prefill completes (a cancelled mid-prefill row never
+  (``runtime.kv_blocks.BlockPool``, bf16/f32 or int8 with
+  ``kv_quantize="int8"``) with per-row block tables and a radix tree that
+  maps shared prompt prefixes onto already-filled blocks.
+- **Mixed stepping** (``mixed_step=True``). The prefill thread is pure
+  batch formation: bucket pick, radix lookup (which pins the matched
+  blocks) and penalty counts, no device work. The decode thread admits
+  formed requests into free rows and, each tick, issues ONE forward
+  (``transformer_step_rows_ragged``) over a ragged batch of decode rows
+  (one token each) and admitting rows' prefill chunks (budgeted), then
+  samples one token per row. The ``.cpu()`` of the sampled tokens is the
+  tick's one host sync.
+- **Two-path** (``mixed_step=False``). The prefill thread runs each
+  prompt's forward: radix lookup, a gather of the matched prefix blocks
+  into the request's own dense row cache (dequantized for the int8 pool),
+  ``transformer_decode_window`` windows over the rest and the first
+  token's sample. The decode thread scatters the row cache into fresh pool
+  blocks at admission (quantizing there, once, for int8; matched slots
+  scatter into the null block) and runs decode chunks: ``step_chunk``
+  steps of ``transformer_decode_rows_paged`` and sampling on the device,
+  with one host sync per chunk. Both threads issue device work on the one
+  CUDA stream; the gather and every pool write are issued under the
+  pool's lock, so they run in the lock's order.
+- Invariants kept from the JAX scheduler: mixed ticks and dispatches are
+  counted at separate sites and stay equal; a prompt's blocks enter the
+  radix tree only once they are filled (a cancelled mid-prefill row never
   leaves half-written blocks indexed); every row-free path returns the
   row's blocks.
 
 A request is cancelled by cancelling the Future ``submit`` returned: its
-row frees between ticks and its stream ends. The dense, two-path paged,
-speculative, state-slab and stateless modes, the host tier, int8 pool,
-migration, handoff, deadlines and brownout are not yet ported and refuse.
+row frees between ticks (chunks) and its stream ends. The dense,
+speculative, state-slab and stateless modes, the host tier, migration,
+handoff, deadlines, brownout and tensor parallelism are not yet ported and
+refuse.
 """
 
 from __future__ import annotations
@@ -40,7 +53,11 @@ import torch
 
 from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.models.transformer import (
+    KVCache,
     TransformerConfig,
+    init_caches,
+    transformer_decode_rows_paged,
+    transformer_decode_window,
     transformer_step_rows_ragged,
 )
 from tpu_engine_torch.runtime.generator import (
@@ -50,7 +67,14 @@ from tpu_engine_torch.runtime.generator import (
     right_pad_prompt,
     token_counts,
 )
-from tpu_engine_torch.runtime.kv_blocks import BlockPool, PoolExhausted
+from tpu_engine_torch.runtime.kv_blocks import (
+    BlockPool,
+    PoolExhausted,
+    gather_blocks,
+    gather_blocks_quant,
+    scatter_blocks,
+    scatter_blocks_quant,
+)
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 from tpu_engine_torch.utils.sampling import (
     MAX_STOP_TOKENS,
@@ -81,14 +105,18 @@ class _Request:
 
 
 class _Formed(NamedTuple):
-    """A request after batch formation (prefill thread)."""
+    """A request after the prefill thread: batch formation (mixed mode),
+    or also the prompt's forward (two-path mode: ``row_caches`` and
+    ``first_tok``)."""
     req: _Request
     pb: int                 # prompt bucket
     L: int                  # prompt length after truncation to pb
-    row_counts: Optional[np.ndarray]  # prompt token counts (controls)
+    row_counts: Optional[np.ndarray]  # context token counts (controls)
     matched: List[int]      # radix-matched block ids, pinned for this row
     prompt: List[int]
     gen: int                # pool generation the pins belong to
+    row_caches: Optional[KVCache] = None  # (L, 1, pb, H_kv, D) row cache
+    first_tok: int = 0
 
 
 class _StaleAdmission(RuntimeError):
@@ -109,6 +137,7 @@ class ContinuousGenerator:
         rng_seed: int = 0,
         dtype: str = "bfloat16",
         n_slots: int = 8,
+        step_chunk: int = 8,
         max_seq: Optional[int] = None,
         device=None,
         prefill_chunk: int = 256,
@@ -124,24 +153,26 @@ class ContinuousGenerator:
         tp: int = 1,
     ):
         """Arguments keep the JAX scheduler's names and meanings; the ones
-        of modes not yet ported refuse when set. ``device`` defaults to the
-        CUDA card; pass ``device="cpu"`` to run the plain PyTorch paths on
-        the CPU."""
+        of modes not yet ported refuse when set. ``mixed_step`` picks the
+        mode; ``step_chunk`` is the two-path decode chunk's steps;
+        ``kv_quantize`` "int8" stores the pool int8 with per-(layer, slot,
+        kv-head) f32 scales in either mode. ``device`` defaults to the CUDA
+        card; pass ``device="cpu"`` to run the plain PyTorch paths on the
+        CPU."""
         if isinstance(model, str):
             model = create_model(model)
         if mixed_step and int(kv_block_size) <= 0:
             raise ValueError("mixed_step requires the paged KV cache "
                              "(set kv_block_size > 0)")
+        if kv_quantize and int(kv_block_size) <= 0:
+            raise ValueError("kv_quantize requires the paged KV cache "
+                             "(set kv_block_size > 0)")
         if int(kv_block_size) <= 0:
             _refuse("the dense-cache scheduler (kv_block_size 0)")
-        if not mixed_step:
-            _refuse("the two-path paged scheduler (mixed_step=False)")
         if int(spec_k) > 0:
             _refuse("continuous speculative decoding (spec_k)")
         if int(kv_host_blocks) > 0:
             _refuse("the host KV tier (kv_host_blocks)")
-        if kv_quantize:
-            _refuse("the int8 KV pool (kv_quantize)")
         if int(state_rows) > 0:
             _refuse("the state_slab family (state_rows)")
         if int(tp) > 1:
@@ -156,6 +187,14 @@ class ContinuousGenerator:
         self._dtype = resolve_dtype(dtype)
         self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
         self.n_slots = int(n_slots)
+        self._mixed = bool(mixed_step)
+        self._step_chunk = int(step_chunk)
+        if not self._mixed and self._step_chunk < 1:
+            raise ValueError(f"step_chunk must be >= 1, got {step_chunk}")
+        # Columns past `pos` the next tick may write for a decode row: one
+        # in mixed mode, a whole chunk in two-path mode. Block growth and
+        # admission headroom reserve exactly that.
+        self._decode_horizon = 1 if self._mixed else self._step_chunk
         b, buckets = 16, []
         while b < self.max_seq:
             buckets.append(b)
@@ -180,7 +219,8 @@ class ContinuousGenerator:
             raise ValueError(
                 f"kv_blocks={nb} cannot hold even one max_seq row "
                 f"({width} blocks + the null block)")
-        self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device)
+        self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device,
+                               quantize=str(kv_quantize))
         self._tables = np.zeros((self.n_slots, width), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in
                                              range(self.n_slots)]
@@ -211,8 +251,9 @@ class ContinuousGenerator:
         # holds radix pins.
         self._ready: "queue.Queue[Optional[_Formed]]" = queue.Queue(
             maxsize=max(1, n))
-        self._stats = {"admitted": 0, "completed": 0}
+        self._stats = {"admitted": 0, "completed": 0, "chunks": 0}
         self._stats_lock = threading.Lock()
+        self._prefill_chunk = int(prefill_chunk)
 
         budget = int(mixed_token_budget) or (int(prefill_chunk)
                                              if int(prefill_chunk) > 0
@@ -228,12 +269,13 @@ class ContinuousGenerator:
         self._row_prompt_toks: List[Optional[List[int]]] = [None] * n
         self._row_L = [0] * n
         self._row_w0 = [0] * n
-        self._stats["mixed"] = {
-            "ticks": 0, "dispatches": 0, "prefill_tokens": 0,
-            "decode_tokens": 0, "coscheduled_ticks": 0,
-            "token_budget": self._mixed_budget,
-            "chunk_cap": self._chunk_cap,
-        }
+        if self._mixed:
+            self._stats["mixed"] = {
+                "ticks": 0, "dispatches": 0, "prefill_tokens": 0,
+                "decode_tokens": 0, "coscheduled_ticks": 0,
+                "token_budget": self._mixed_budget,
+                "chunk_cap": self._chunk_cap,
+            }
         # Liveness: stamped at the top of every decode-loop iteration; the
         # prefill thread reports a busy-age while it forms a request.
         self._last_tick = time.monotonic()
@@ -299,7 +341,8 @@ class ContinuousGenerator:
                   (now - busy) if busy is not None else 0.0)
         with self._stats_lock:
             out = dict(self._stats)
-            out["mixed"] = dict(self._stats["mixed"])
+            if self._mixed:
+                out["mixed"] = dict(self._stats["mixed"])
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3))
@@ -337,6 +380,15 @@ class ContinuousGenerator:
     def _bump(self, key: str, n: int = 1) -> None:
         with self._stats_lock:
             self._stats[key] = self._stats.get(key, 0) + n
+
+    def _blocks_needed(self, pb: int, L: int) -> int:
+        """Blocks an admission holds (radix-matched ones included): the
+        prompt bucket's, and those of every column up to the first decode
+        write plus the decode horizon."""
+        bs = self._pool.block_size
+        cols = min(min(L, self.max_seq - 1) + self._decode_horizon + 1,
+                   self.max_seq)
+        return max(pb // bs, (cols - 1) // bs + 1)
 
     def _free_rows(self) -> List[int]:
         return [r for r in range(self.n_slots) if self._row_req[r] is None]
@@ -395,6 +447,20 @@ class ContinuousGenerator:
             req.stream.put(vis[req.streamed:])
             req.streamed = len(vis)
 
+    def _eos_and_controls(self):
+        """The rows' EOS ids ((B,), -1 for none and for free rows) and
+        whether any live row has a repetition penalty or stop tokens."""
+        eos_vec = np.full((self.n_slots,), -1, np.int64)
+        controls = False
+        for r, req in enumerate(self._row_req):
+            if req is None:
+                continue
+            if req.eos_id >= 0:
+                eos_vec[r] = req.eos_id
+            if req.rep_penalty != 1.0 or req.stop_tokens:
+                controls = True
+        return eos_vec, controls
+
     def _maybe_complete(self, row: int) -> None:
         req = self._row_req[row]
         if req is None:
@@ -427,7 +493,15 @@ class ContinuousGenerator:
 
     # -- prefill thread: batch formation -----------------------------------------
 
+    def _count_admission_dispatch(self) -> None:
+        """Device dispatches issued by the two-path admission side (prefix
+        gathers, prefill windows, row scatters), as the JAX scheduler
+        counts them; both threads increment."""
+        self._bump("admission_dispatches")
+
     def _prefill_loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         while self._running:
             req = self._queue.get()
             if req is None:
@@ -440,7 +514,8 @@ class ContinuousGenerator:
             self._prefill_busy_since = time.monotonic()
             try:
                 try:
-                    item = self._run_prefill_mixed(req)
+                    item = (self._run_prefill_mixed(req) if self._mixed
+                            else self._run_prefill_paged(req))
                 except Exception as exc:
                     self._fail_request(req, exc)
                     continue
@@ -490,7 +565,184 @@ class ContinuousGenerator:
         return _Formed(req, pb, len(prompt), row_counts, matched, prompt,
                        gen)
 
+    def _first_token(self, req: _Request, logits, prompt, L: int):
+        """Sample the request's first token from its prefill logits (V,) at
+        logical position L, penalized by the prompt's token counts.
+        Returns (first_tok, row_counts or None; the counts include the
+        first token)."""
+        row_counts = None
+        first_logits = logits[None, :]
+        if req.rep_penalty != 1.0 or req.stop_tokens:
+            row_counts = token_counts([prompt], 1, self.cfg.vocab)
+            if req.rep_penalty != 1.0:
+                first_logits = apply_repetition_penalty(
+                    first_logits,
+                    torch.from_numpy(row_counts).to(self.device),
+                    torch.tensor([req.rep_penalty], dtype=torch.float32,
+                                 device=self.device))
+        first = _sample(first_logits, [int(req.seed) & 0x7FFFFFFF], [L],
+                        [req.temperature], [req.top_p], [req.top_k],
+                        [req.min_p])
+        first_tok = int(first[0])
+        if row_counts is not None:
+            row_counts[0, first_tok] += 1  # the first token joins the context
+        return first_tok, row_counts
+
+    def _run_prefill_paged(self, req: _Request) -> _Formed:
+        """Two-path admission prefill (prefill thread): radix
+        longest-prefix match, a gather of the matched blocks into the
+        request's own 0-aligned (L, 1, pb, H_kv, D) row cache (dequantized
+        to the compute dtype for the int8 pool; the fresh prompt K/V stays
+        in that dtype through the windows), prefill windows resumed at the
+        block boundary at or below the match, and the first token. The
+        radix lookup and the gather run under the pool lock: the gather is
+        issued in the lock's order with the decode thread's pool writes."""
+        pool = self._pool
+        bs = pool.block_size
+        pb = pick_bucket(self._prompt_buckets, len(req.prompt))
+        prompt = req.prompt[-pb:]
+        L = len(prompt)
+        Leff = max(L, 1)  # empty prompts sample from the zero-token column
+        tokens = torch.from_numpy(right_pad_prompt(prompt, pb)).to(
+            self.device)
+        matched: List[int] = []
+        with pool.lock:
+            gen = pool.generation
+            if self._prefix_sharing:
+                matched = pool.radix.lookup(prompt)  # pins for this row
+        try:
+            if matched:
+                # The gather is the row cache on a hit: matched columns
+                # carry the shared prefix, the rest null-block values the
+                # windows overwrite or the position mask hides.
+                ids = np.zeros((pb // bs,), np.int64)
+                ids[:len(matched)] = matched
+                ids_t = torch.from_numpy(ids).to(self.device)
+                with pool.lock:
+                    if pool.quantized:
+                        row_caches = gather_blocks_quant(
+                            pool.caches.k, pool.caches.v, pool.scales.k,
+                            pool.scales.v, ids_t, dtype=self._dtype)
+                    else:
+                        row_caches = gather_blocks(pool.caches.k,
+                                                   pool.caches.v, ids_t)
+                self._count_admission_dispatch()
+            else:
+                row_caches = init_caches(self.cfg, 1, pb, self._dtype,
+                                         self.device)
+            # Resume at the block boundary at/below the match; the window
+            # holding position L-1 always runs, so the first sample's
+            # logits come from this request's own forward.
+            w = self._prefill_chunk if 0 < self._prefill_chunk < pb else pb
+            p0 = (min(len(matched) * bs, Leff - 1) // bs) * bs
+            zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            logits = None
+            w0 = p0
+            while w0 <= Leff - 1:
+                width = min(w, pb - w0)
+                head = "all" if w0 <= Leff - 1 < w0 + width else "none"
+                wlog, row_caches = transformer_decode_window(
+                    self.params, tokens[:, w0:w0 + width], row_caches,
+                    zero + w0, self.cfg, dtype=self._dtype, start_vec=zero,
+                    head=head)
+                self._count_admission_dispatch()
+                if head == "all":
+                    logits = wlog[0, Leff - 1 - w0]
+                w0 += width
+            with pool.lock:
+                pool.prefix_hit_tokens += p0
+                pool.prefilled_tokens += Leff - p0
+            first_tok, row_counts = self._first_token(req, logits, prompt, L)
+        except BaseException:
+            if matched:
+                with pool.lock:
+                    if pool.generation == gen:  # void after a pool reset
+                        pool.release_many(matched)
+            raise
+        return _Formed(req, pb, L, row_counts, matched, prompt, gen,
+                       row_caches, first_tok)
+
     # -- decode thread -----------------------------------------------------------
+
+    def _admit(self, item: _Formed, row: int) -> None:
+        if self._mixed:
+            self._admit_mixed(item, row)
+        else:
+            self._admit_paged(item, row)
+
+    def _set_row_params(self, req: _Request, row: int, pos: int) -> None:
+        """Per-row sampling and stopping state, shared by both admissions."""
+        self._pos[row] = pos
+        self._seeds[row] = int(req.seed) & 0x7FFFFFFF
+        self._temps[row] = req.temperature
+        self._topps[row] = req.top_p
+        self._topks[row] = req.top_k
+        self._minps[row] = req.min_p
+        self._pens[row] = req.rep_penalty
+        self._stops[row] = -1
+        self._stops[row, :len(req.stop_tokens)] = req.stop_tokens
+        self._row_req[row] = req
+        self._stats["admitted"] += 1
+
+    def _set_row_table(self, row: int, table: List[int],
+                       row_counts) -> None:
+        self._tables[row, :] = 0
+        self._tables[row, :len(table)] = table
+        self._row_blocks[row] = table
+        if row_counts is not None:
+            self._ensure_counts()[row] = torch.as_tensor(
+                row_counts[0], device=self.device)
+
+    def _admit_paged(self, item: _Formed, row: int) -> None:
+        """Two-path admission (decode thread): allocate the bucket's fresh
+        blocks and the first chunk's (radix-matched prefix blocks enter the
+        table pinned), make the append block private, scatter the row
+        cache into the fresh blocks (quantizing it there for the int8
+        pool; matched slots scatter into the null block, so shared bytes
+        are never rewritten), index the prompt's full blocks in the radix
+        tree and emit the first token. Raises PoolExhausted (nothing
+        consumed) to defer under pool pressure."""
+        req, pb, L, row_counts, matched = item[:5]
+        pool = self._pool
+        bs = pool.block_size
+        nb_bucket = pb // bs
+        m = len(matched)
+        first_col = min(L, self.max_seq - 1)  # first decode write column
+        with pool.lock:
+            if item.gen != pool.generation:
+                raise _StaleAdmission(
+                    "kv pool was rebuilt during this request's admission")
+            # PoolExhausted -> the admission defers
+            fresh = pool.alloc(self._blocks_needed(pb, L) - m)
+            ids = np.zeros((nb_bucket,), np.int64)
+            ids[m:] = fresh[:nb_bucket - m]  # matched slots -> null block
+            table = list(matched) + fresh
+            try:
+                wid, copied = pool.ensure_writable(table[first_col // bs])
+            except PoolExhausted:
+                pool.release_many(fresh)
+                raise
+            if copied:
+                table[first_col // bs] = wid
+            ids_t = torch.from_numpy(ids).to(self.device)
+            rc = item.row_caches
+            if pool.quantized:
+                scatter_blocks_quant(pool.caches, pool.scales, rc.k, rc.v,
+                                     ids_t)
+            else:
+                scatter_blocks(pool.caches, rc.k, rc.v, ids_t)
+            if self._prefix_sharing:
+                pool.radix.insert(item.prompt, table)
+        self._count_admission_dispatch()
+        self._set_row_table(row, table, row_counts)
+        self._set_row_params(req, row, first_col)
+        first_tok = item.first_tok
+        self._tok[row] = first_tok
+        self._row_emitted[row] = [first_tok]
+        self._done[row] = ((req.eos_id >= 0 and first_tok == req.eos_id)
+                           or first_tok in req.stop_tokens)
+        self._push_stream(row, req)  # the first token flushes at admission
+        self._maybe_complete(row)
 
     def _admit_mixed(self, item: _Formed, row: int) -> None:
         """Allocate the bucket's blocks up front (radix-matched prefix
@@ -512,9 +764,8 @@ class ContinuousGenerator:
             if item.gen != pool.generation:
                 raise _StaleAdmission(
                     "kv pool was rebuilt during this request's admission")
-            cols = min(first_col + 2, self.max_seq)  # decode horizon 1
-            need = max(pb // bs, (cols - 1) // bs + 1)
-            fresh = pool.alloc(need - m)  # PoolExhausted -> defer
+            # PoolExhausted -> the admission defers
+            fresh = pool.alloc(self._blocks_needed(pb, L) - m)
             table = list(matched) + fresh
             # Blocks this row will WRITE must be private: the resumed
             # window's first block (shared only on a whole-prompt match)
@@ -529,22 +780,8 @@ class ContinuousGenerator:
                 raise
             pool.prefix_hit_tokens += p0
             pool.prefilled_tokens += Leff - p0
-        self._tables[row, :] = 0
-        self._tables[row, :len(table)] = table
-        self._row_blocks[row] = table
-        if row_counts is not None:
-            self._ensure_counts()[row] = torch.as_tensor(
-                row_counts[0], device=self.device)
-        self._pos[row] = first_col
-        self._seeds[row] = int(req.seed) & 0x7FFFFFFF
-        self._temps[row] = req.temperature
-        self._topps[row] = req.top_p
-        self._topks[row] = req.top_k
-        self._minps[row] = req.min_p
-        self._pens[row] = req.rep_penalty
-        self._stops[row] = -1
-        self._stops[row, :len(req.stop_tokens)] = req.stop_tokens
-        self._row_req[row] = req
+        self._set_row_table(row, table, row_counts)
+        self._set_row_params(req, row, first_col)
         self._prefilling[row] = True
         self._row_prompt[row] = right_pad_prompt(item.prompt, pb)[0]
         self._row_prompt_toks[row] = item.prompt
@@ -552,19 +789,20 @@ class ContinuousGenerator:
         self._row_w0[row] = p0
         self._row_emitted[row] = []
         self._done[row] = False
-        self._stats["admitted"] += 1
 
     def _ensure_capacity_paged(self) -> None:
-        """Block growth before a tick: every live decode row must own the
-        block its next token writes. A row the pool cannot grow, even
-        after radix eviction, completes early with the tokens it has
-        (counted ``pool_starved``)."""
+        """Block growth before a tick or chunk: every live decode row must
+        own the blocks of the columns it may write next (its decode
+        horizon). A row the pool cannot grow, even after radix eviction,
+        completes early with the tokens it has (counted
+        ``pool_starved``)."""
         pool = self._pool
         bs = pool.block_size
         for r, req in enumerate(self._row_req):
             if req is None or self._done[r] or self._prefilling[r]:
                 continue
-            last_col = min(int(self._pos[r]) + 1, self.max_seq - 1)
+            last_col = min(int(self._pos[r]) + self._decode_horizon,
+                           self.max_seq - 1)
             need = last_col // bs + 1
             have = len(self._row_blocks[r])
             if need <= have:
@@ -604,17 +842,12 @@ class ContinuousGenerator:
         one token, so admission never deadlocks behind a full batch."""
         pool = self._pool
         B = self.n_slots
-        eos_vec = np.full((B,), -1, np.int64)
-        controls = False
+        eos_vec, controls = self._eos_and_controls()
         n_decode = 0
         prefill_rows: List[int] = []
         for r, req in enumerate(self._row_req):
             if req is None:
                 continue
-            if req.eos_id >= 0:
-                eos_vec[r] = req.eos_id
-            if req.rep_penalty != 1.0 or req.stop_tokens:
-                controls = True
             if self._prefilling[r]:
                 prefill_rows.append(r)
             else:
@@ -663,16 +896,17 @@ class ContinuousGenerator:
                 fold_pos[r] = int(self._pos[r]) + 1
                 active[r] = not self._done[r]
 
-        # ONE forward. The pool lock is not held: only this thread touches
-        # the pool tensors (the prefill thread's radix lookups are host
-        # bookkeeping).
+        # ONE forward. The pool lock is not held: in mixed mode only this
+        # thread touches the pool tensors (the prefill thread's radix
+        # lookups are host bookkeeping).
         dev = self.device
-        logits, _ = transformer_step_rows_ragged(
+        logits = transformer_step_rows_ragged(
             self.params, torch.from_numpy(tokens).to(dev), pool.caches,
             torch.from_numpy(self._tables).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(qlen).to(dev),
             self.cfg, dtype=self._dtype,
-            sample_slot=torch.from_numpy(sample_slot).to(dev))
+            sample_slot=torch.from_numpy(sample_slot).to(dev),
+            scales=pool.scales)[0]
         if controls:
             logits = apply_repetition_penalty(
                 logits, self._ensure_counts(),
@@ -724,6 +958,70 @@ class ContinuousGenerator:
             if req.max_new - len(self._row_emitted[r]) > 0:
                 self._row_emitted[r].append(tok_r)
             self._push_stream(r, req)
+            self._maybe_complete(r)
+
+    def _decode_chunk_paged(self) -> None:
+        """One two-path decode chunk: ``step_chunk`` steps of
+        ``transformer_decode_rows_paged`` over every row, each sampled on
+        the device (positions stay there), then ONE host sync for the
+        chunk's tokens. Done and free rows ride along masked: their sampled
+        tokens become their EOS id (or -1), their position stays, and
+        their writes land in their own next column or the null block. Each
+        step's pool writes are issued under the pool lock, so a prefix
+        gather the prefill thread issues runs between two steps, never
+        across one; taking the lock per step, not per chunk, lets the
+        prefill thread's lookups and gathers in between."""
+        pool = self._pool
+        dev = self.device
+        eos_vec, controls = self._eos_and_controls()
+        max_col = self.max_seq - 1
+        tables = torch.from_numpy(self._tables).to(dev)
+        tok = torch.from_numpy(self._tok.astype(np.int64)).to(dev)
+        pos = torch.from_numpy(self._pos.copy()).to(dev)
+        done = torch.from_numpy(self._done.copy()).to(dev)
+        seeds = torch.from_numpy(self._seeds).to(dev)
+        eos = torch.from_numpy(eos_vec).to(dev)
+        if controls:
+            counts = self._ensure_counts()
+            pens = torch.from_numpy(self._pens).to(dev)
+            stops = torch.from_numpy(self._stops.astype(np.int64)).to(dev)
+            rows = torch.arange(self.n_slots, device=dev)
+        toks = []
+        for _ in range(self._step_chunk):
+            with pool.lock:
+                logits = transformer_decode_rows_paged(
+                    self.params, tok, pool.caches, tables, pos, self.cfg,
+                    dtype=self._dtype, scales=pool.scales)[0]
+            if controls:
+                logits = apply_repetition_penalty(logits, counts, pens)
+            nxt = _sample(logits, seeds, pos + 1, self._temps, self._topps,
+                          self._topks, self._minps)
+            nxt = torch.where(done, eos, nxt)
+            if controls:
+                counts.index_put_((rows, nxt), (~done).to(torch.int32),
+                                  accumulate=True)
+            done = done | (nxt == eos)
+            if controls:
+                done = done | (nxt[:, None] == stops).any(dim=1)
+            pos = torch.where(done, pos, torch.clamp(pos + 1, max=max_col))
+            tok = nxt
+            toks.append(nxt)
+        host = torch.cat([pos.long(), done.long(),
+                          torch.stack(toks, 1).flatten()]).cpu().numpy()
+        n = self.n_slots  # the chunk's host sync, above
+        self._pos = host[:n].astype(np.int32)
+        self._done = host[n:2 * n].astype(bool)
+        toks_host = host[2 * n:].reshape(n, self._step_chunk)
+        self._tok = toks_host[:, -1].astype(np.int32)
+        self._stats["chunks"] += 1
+        for r, req in enumerate(self._row_req):
+            if req is None:
+                continue
+            need = req.max_new - len(self._row_emitted[r])
+            if need > 0:
+                self._row_emitted[r].extend(
+                    int(t) for t in toks_host[r, :need])
+            self._push_stream(r, req)  # fresh tokens flush per chunk
             self._maybe_complete(r)
 
     def _recover(self, exc: BaseException) -> None:
@@ -828,7 +1126,7 @@ class ContinuousGenerator:
                     self._bump("cancelled")
                     continue
                 try:
-                    self._admit_mixed(item, free[0])
+                    self._admit(item, free[0])
                     free.pop(0)
                     if from_pending:
                         self._pending.popleft()
@@ -837,10 +1135,7 @@ class ContinuousGenerator:
                     # A request larger than the whole pool can never
                     # admit: fail it; otherwise park it until completions
                     # free blocks.
-                    bs = self._pool.block_size
-                    cols = min(min(item.L, self.max_seq - 1) + 2,
-                               self.max_seq)
-                    nb_need = max(item.pb // bs, (cols - 1) // bs + 1)
+                    nb_need = self._blocks_needed(item.pb, item.L)
                     if nb_need > self._pool.num_blocks - 1:
                         if from_pending:
                             self._pending.popleft()
@@ -851,8 +1146,9 @@ class ContinuousGenerator:
                         continue
                     if not from_pending:
                         # Park WITHOUT the radix pins: pinned parked items
-                        # could starve each other forever; the retry just
-                        # re-prefills from position 0.
+                        # could starve each other forever. A two-path item
+                        # already holds the gathered prefix in its row
+                        # cache; a mixed one re-prefills from position 0.
                         self._discard_item(item)
                         self._pending.append(item._replace(matched=[]))
                     if all(r is None for r in self._row_req):
@@ -874,6 +1170,9 @@ class ContinuousGenerator:
             if all(r is None for r in self._row_req):
                 continue
             try:
-                self._tick_mixed()
+                if self._mixed:
+                    self._tick_mixed()
+                else:
+                    self._decode_chunk_paged()
             except Exception as exc:
                 self._recover(exc)

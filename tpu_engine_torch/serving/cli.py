@@ -2,9 +2,13 @@
 command of ``tpu_engine/serving/cli.py``):
 
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
-      --kv-block-size 16 --kv-blocks N --mixed-step
-      --mixed-token-budget N --prefill-chunk N
-      [--n-slots N] [--device cpu] [--dtype bfloat16] [--seed N]
+      --kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
+      [--mixed-step --mixed-token-budget N | --step-chunk N]
+      [--prefill-chunk N] [--n-slots N] [--device cpu]
+      [--dtype bfloat16] [--seed N]
+
+Without ``--mixed-step`` the lane runs the two-path scheduler (prefill
+windows on one thread, ``--step-chunk``-step decode chunks on the other).
 
 The worker serves /generate, /generate/stream, /health and /stats until
 SIGTERM or SIGINT. Without ``--device`` it runs on the CUDA card.
@@ -28,7 +32,11 @@ def _worker(argv) -> int:
     p.add_argument("model")
     p.add_argument("--kv-block-size", type=int, default=0)
     p.add_argument("--kv-blocks", type=int, default=0)
+    p.add_argument("--kv-quantize", default="",
+                   help="int8: quantized KV pool (needs --kv-block-size)")
     p.add_argument("--mixed-step", action="store_true")
+    p.add_argument("--step-chunk", type=int, default=16,
+                   help="decode steps per two-path chunk")
     p.add_argument("--mixed-token-budget", type=int, default=0)
     p.add_argument("--prefill-chunk", type=int, default=256)
     p.add_argument("--n-slots", type=int, default=8)
@@ -41,9 +49,11 @@ def _worker(argv) -> int:
     a = p.parse_args(argv)
     cfg = WorkerConfig(port=a.port, node_id=a.node_id, model=a.model,
                        dtype=a.dtype, gen_max_batch_size=a.n_slots,
+                       gen_step_chunk=a.step_chunk,
                        gen_prefill_chunk=a.prefill_chunk,
                        gen_kv_block_size=a.kv_block_size,
                        gen_kv_blocks=a.kv_blocks,
+                       gen_kv_quantize=a.kv_quantize,
                        gen_mixed_step=a.mixed_step,
                        gen_mixed_token_budget=a.mixed_token_budget,
                        device=a.device, seed=a.seed)

@@ -1,7 +1,8 @@
 """The port's generation worker (counterpart of the /generate half of
-``tpu_engine/serving/worker.py``): one continuous mixed-step scheduler
-behind ``/generate``, ``/generate/stream`` (SSE), ``/health`` and
-``/stats``, with the JAX worker's wire fields.
+``tpu_engine/serving/worker.py``): one continuous paged scheduler (mixed
+stepping or two-path, bf16/f32 or int8 pool) behind ``/generate``,
+``/generate/stream`` (SSE), ``/health`` and ``/stats``, with the JAX
+worker's wire fields.
 
 Wire: ``/generate`` takes ``{request_id, prompt_tokens, max_new_tokens?,
 eos_id?, temperature?, seed?, top_p?, top_k?, repetition_penalty?,
@@ -36,13 +37,24 @@ class WorkerNode:
         device."""
         self.config = config
         self.node_id = config.node_id
+        if config.gen_kv_quantize and config.gen_kv_block_size <= 0:
+            # The JAX worker's guard, with its message: a lane asked for
+            # the int8 pool never quietly serves the full-precision one.
+            raise RuntimeError(
+                "--kv-quantize requires the continuous scheduler with "
+                "the paged KV cache (--kv-block-size > 0)")
+        if config.gen_kv_quantize not in ("", "int8"):
+            raise RuntimeError(f"--kv-quantize must be 'int8', got "
+                               f"{config.gen_kv_quantize!r}")
         spec = create_model(config.model)
         self.generator = ContinuousGenerator(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             n_slots=config.gen_max_batch_size,
+            step_chunk=config.gen_step_chunk,
             prefill_chunk=config.gen_prefill_chunk,
             kv_block_size=config.gen_kv_block_size,
             kv_blocks=config.gen_kv_blocks,
+            kv_quantize=config.gen_kv_quantize,
             prefix_sharing=config.gen_prefix_sharing,
             mixed_step=config.gen_mixed_step,
             mixed_token_budget=config.gen_mixed_token_budget,
