@@ -10,12 +10,16 @@ Tolerances: 1e-5 with an f32 pool (only the summation order differs);
 softmax weights in f32 where the plain version rounds them to bf16);
 2e-4 with the int8 pool, the JAX package's bound for its int8 kernels
 (the kernel applies the K scales after the product, the plain version
-dequantizes first)."""
+dequantizes first). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
+round the weights to bf16, the kernel against its running maximum, the
+plain version against the row's), on out and on lse."""
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_engine_torch.ops import flash as tfl
+from tpu_engine_torch.ops import kernels
 from tpu_engine_torch.ops import paged_attention as tpa
 
 # (q_lens, n_heads, n_kv_heads): the JAX package's ragged_parity_check and
@@ -147,3 +151,89 @@ def test_slice2_kernels_refuse_bad_arguments(cuda_device):
                                          *rt[4:])
     with pytest.raises(ValueError, match="qlen"):
         tpa.quant_ragged_paged_attention(*rt[:7], rt[7][:2].contiguous())
+
+
+# name -> (parity_inputs kwargs, causal, valid keys per row or None, window)
+FLASH_CASES = {
+    "causal": (dict(sq=64), True, None, None),
+    "ragged-37-53": (dict(sq=37, sk=53), False, None, None),
+    "causal-ragged-200": (dict(sq=200), True, None, None),
+    "causal-left-pad": (dict(sq=130), True, (130, 71), None),
+    "padding-mask": (dict(sq=64), False, (40, 64), None),
+    "fully-masked": (dict(sq=64), False, (0, 0), None),
+    "window-7": (dict(sq=200), True, None, 7),
+    "window-64-pad": (dict(sq=200), True, (200, 90), 64),
+}
+
+
+def _flash_inputs(dev, case, d, dtype):
+    kw, causal, valid, window = FLASH_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in tfl.parity_inputs(d_head=d, seed=d, **kw))
+    mask = None
+    if valid is not None:
+        # Left padding as the dense prefill has it: the valid keys end at
+        # the row's last column.
+        sk = k.shape[1]
+        m = np.zeros((2, sk), np.int32)
+        for r, n in enumerate(valid):
+            m[r, sk - n:] = 1
+        mask = torch.from_numpy(m).to(dev)
+    return q, k, v, dict(causal=causal, mask=mask, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("d", tfl.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_matches_plain(cuda_device, case, d, dtype, tol):
+    q, k, v, kw = _flash_inputs(cuda_device, case, d, dtype)
+    out, lse = _launched(tfl.flash_attention_fwd,
+                         lambda: tfl.flash_attention_fwd(q, k, v, **kw))
+    ref, ref_lse = tfl.flash_attention_reference(q, k, v, **kw)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert float(torch.where(dead, 0.0, lse - ref_lse).abs().max()) < tol
+    if case == "fully-masked":
+        assert float(out.float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_operands(cuda_device):
+    """q, k, v as (B, H, S, D) tensors viewed as (B, S, H, D): the kernel
+    reads them through their strides, no copy."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).transpose(1, 2)
+               .contiguous().transpose(1, 2)
+               for a in tfl.parity_inputs(sq=100, d_head=64))
+    assert not q.is_contiguous()
+    out = _launched(tfl.flash_attention_fwd,
+                    lambda: tfl.flash_attention(q, k, v, causal=True))
+    ref = tfl.flash_attention_reference(q, k, v, causal=True)[0]
+    assert float((out - ref).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_bad_arguments(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in tfl.parity_inputs())
+    with pytest.raises(ValueError, match="head dim"):
+        tfl.flash_attention(q[..., :8], k[..., :8], v[..., :8])
+    with pytest.raises(ValueError, match="dtypes"):
+        tfl.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="is on"):
+        tfl.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="requires causal"):
+        tfl.flash_attention(q, k, v, window=4)
+    # A launch the library refuses (no batch) raises, it never runs.
+    out = torch.empty_like(q)
+    lse = torch.empty((2, 4, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        kernels.launch("flash_attention", q.device, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+                       lse.data_ptr(), 0, 64, 64, 4, 16,
+                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       1, 0, 0.25, 0)

@@ -166,14 +166,17 @@ def test_cpu_tensors_take_the_plain_path(wrapper, reference, inputs):
 
 
 def test_import_needs_neither_nvcc_nor_triton():
-    """Importing the module builds nothing: with no nvcc on PATH and no
-    CUDA_HOME it imports, names its library path, and loads no triton."""
+    """Importing the kernel modules builds nothing: with no nvcc on PATH
+    and no CUDA_HOME they import, the shared library names its path, and
+    no triton loads."""
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent",
                PYTHONPATH=REPO)
     code = ("import sys\n"
             "import tpu_engine_torch.ops.paged_attention as pa\n"
-            "assert pa._library is None\n"
-            "assert pa.kernel_library_path().suffix == '.so'\n"
+            "import tpu_engine_torch.ops.flash as fl\n"
+            "import tpu_engine_torch.ops.kernels as kl\n"
+            "assert kl._library is None\n"
+            "assert kl.kernel_library_path().suffix == '.so'\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

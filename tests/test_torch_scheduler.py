@@ -30,8 +30,8 @@ _ensure_builtin_models_imported()
 KW = dict(dtype="float32", n_slots=4, max_seq=128, kv_block_size=16,
           prefill_chunk=16, mixed_step=True, mixed_token_budget=16)
 # stats() keys of the JAX scheduler that belong to modes the port leaves
-# out: the dense scheduler's prefix cache.
-LEFT_OUT = {"prefix_cache"}
+# out: none (the prefix cache is carried, idle, in every mode).
+LEFT_OUT = set()
 
 SHARED = [(i * 11) % 90 + 1 for i in range(32)]
 WORKLOADS = {
@@ -128,6 +128,8 @@ def test_stats_schema_ticks_and_no_leaks(jax_gen, gen):
     assert set(st) == set(jst) - LEFT_OUT
     assert set(st["mixed"]) == set(jst["mixed"])
     assert set(st["kv_pool"]) == set(jst["kv_pool"])
+    assert st["prefix_cache"] == jst["prefix_cache"] == {
+        "entries": 0, "bytes": 0, "hits": 0, "misses": 0}
     m = st["mixed"]
     assert m["ticks"] == m["dispatches"] > 0
     pool = st["kv_pool"]
@@ -184,8 +186,8 @@ def test_construction_without_device_raises_here(spec, tparams):
 
 @pytest.mark.parametrize("overrides,exc,match", [
     (dict(kv_block_size=0), ValueError, "mixed_step requires"),
-    (dict(kv_block_size=0, mixed_step=False), NotImplementedError,
-     "dense-cache scheduler"),
+    (dict(kv_block_size=0, mixed_step=False, kv_quantize="int8"),
+     ValueError, "kv_quantize requires"),
     (dict(kv_host_blocks=4), NotImplementedError, "host KV tier"),
     (dict(spec_k=2), NotImplementedError, "speculative"),
     (dict(state_rows=4), NotImplementedError, "state_slab"),

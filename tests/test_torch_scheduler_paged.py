@@ -14,7 +14,7 @@ JAX scheduler's two-path configuration at ``step_chunk=4``:
   differently ordered f32 sums; the test allows it, though none has
   shown), with scales within 1e-5 relative;
 - seeded sampled streams equal JAX's token for token;
-- the stats() schema equals JAX's (but the dense prefix cache), chunks
+- the stats() schema equals JAX's (the idle prefix cache too), chunks
   count two-path decode chunks, and no block leaks once idle;
 - cancellation, a failed chunk's recovery (payload and scales rebuilt).
 """
@@ -40,7 +40,7 @@ _ensure_builtin_models_imported()
 
 KW = dict(dtype="float32", n_slots=4, step_chunk=4, max_seq=128,
           kv_block_size=16, prefill_chunk=16)
-LEFT_OUT = {"prefix_cache"}
+LEFT_OUT = set()
 SHARED = [(i * 7) % 90 + 1 for i in range(32)]
 QUANT_PROMPTS = [[5, 9, 3, 7], [7, 2], list(range(1, 20)), [42] * 9]
 QUANT_MODES = {"two-path": {}, "mixed": dict(mixed_step=True,

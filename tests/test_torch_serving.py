@@ -1,11 +1,12 @@
 """The port's worker over HTTP on the CPU (tpu_engine_torch.serving) against
 the JAX package's generator and worker, with the same weights: /generate
-and /generate/stream tokens equal the JAX mixed-step generator's, and a
-two-path lane's and an int8 lane's tokens equal the JAX generator's of the
-same mode; /health and /stats carry the JAX schemas for the ported
-blocks; the --kv-quantize guard refuses as the JAX worker's does; and
-neither the package nor chip_smoke.py imports jax or tpu_engine (a
-serving subprocess's sys.modules, and an AST scan of the sources)."""
+and /generate/stream tokens equal the JAX mixed-step generator's; a
+two-path lane's, an int8 lane's and the default (dense) lane's tokens
+equal the JAX generator's of the same mode; /health and /stats carry the
+JAX schemas for the ported blocks; the --kv-quantize guard refuses as the
+JAX worker's does; and neither the package nor chip_smoke.py imports jax
+or tpu_engine (a serving subprocess's sys.modules, and an AST scan of the
+sources)."""
 
 import ast
 import http.client
@@ -38,11 +39,10 @@ LANE = dict(gen_kv_block_size=16, gen_mixed_step=True, gen_prefill_chunk=16,
             gen_mixed_token_budget=16)
 # /health keys of the JAX worker that belong to lanes the port leaves out
 # (the /infer result cache and batcher), and generator stats of modes it
-# leaves out (the dense scheduler's prefix cache, and the unified
-# stateless one-shot rows).
+# leaves out (the unified stateless one-shot rows).
 HEALTH_LEFT_OUT = {"cache_hits", "cache_size", "cache_hit_rate",
                    "batch_processor"}
-GENERATOR_LEFT_OUT = {"prefix_cache", "stateless"}
+GENERATOR_LEFT_OUT = {"stateless"}
 # The slice-2 lanes: two-path (no --mixed-step) and the int8 pool.
 LANES = {"two-path": dict(gen_kv_block_size=16, gen_prefill_chunk=16,
                           gen_step_chunk=4),
@@ -196,6 +196,70 @@ def test_slice2_lanes_match_jax(params, lane):
         jw.stop()
 
 
+def test_default_lane_is_dense_and_matches_jax(params):
+    """A worker built with the default WorkerConfig (no --kv-block-size)
+    runs the dense scheduler: /generate and /generate/stream give the JAX
+    dense generator's tokens (the second /generate is a prefix-cache hit),
+    and /health and /stats have the JAX worker's generator schema."""
+    tparams = convert.params_from_jax(
+        jax.tree.map(np.asarray, params),
+        tcreate("gpt2-small-test").config, device="cpu")
+    worker, srv = serve_worker(WorkerConfig(
+        port=0, node_id="torch_3", model="gpt2-small-test", dtype="float32",
+        device="cpu"), params=tparams)
+    g = JaxGen(jcreate("gpt2-small-test"), params=params, dtype="float32",
+               n_slots=8, step_chunk=16)
+    jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test"))
+    try:
+        assert worker.generator._paged is False
+        for i, prompt in enumerate(PROMPTS + PROMPTS[:1]):
+            status, raw = _request(srv.port, "POST", "/generate", {
+                "request_id": f"dense-{i}", "prompt_tokens": prompt,
+                "max_new_tokens": 6})
+            assert status == 200
+            want = g.generate([prompt], max_new_tokens=6)[0]
+            assert json.loads(raw)["tokens"] == want
+        status, raw = _request(srv.port, "POST", "/generate/stream", {
+            "request_id": "dense-s", "prompt_tokens": PROMPTS[1],
+            "max_new_tokens": 6})
+        events = [json.loads(f[len(b"data: "):]) for f in raw.split(b"\n\n")
+                  if f]
+        streamed = [t for ev in events[:-1] for t in ev["tokens"]]
+        assert status == 200 and events[-1]["done"]
+        assert events[-1]["tokens"] == streamed == g.generate(
+            [PROMPTS[1]], max_new_tokens=6)[0]
+        jw.handle_generate({"request_id": "j", "prompt_tokens": [5, 9, 3],
+                            "max_new_tokens": 2})
+        status, raw = _request(srv.port, "GET", "/health")
+        health = json.loads(raw)
+        jhealth = jw.get_health()
+        assert set(health) == set(jhealth) - HEALTH_LEFT_OUT
+        assert (set(health["generator"])
+                == set(jhealth["generator"]) - GENERATOR_LEFT_OUT)
+        assert "kv_pool" not in health["generator"]
+        status, raw = _request(srv.port, "GET", "/stats")
+        stats = json.loads(raw)
+        assert set(stats) - {"node_id"} == set(health["generator"])
+        assert stats["prefix_cache"]["hits"] >= 2
+        assert stats["chunks"] > 0
+        assert stats["prefix_cache"] == g.stats()["prefix_cache"]
+    finally:
+        srv.stop()
+        worker.stop()
+        g.stop()
+        jw.stop()
+
+
+def test_default_lane_without_a_card_raises():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_worker(WorkerConfig(port=0, model="gpt2-small-test",
+                                  dtype="float32"))
+
+
 def test_kv_quantize_guard_matches_jax_worker():
     for kw, match in ((dict(gen_kv_quantize="int8"), "kv-quantize requires"),
                       (dict(gen_kv_block_size=16, gen_kv_quantize="fp8"),
@@ -212,23 +276,29 @@ def test_serving_subprocess_imports_no_jax():
         "import json, sys, urllib.request\n"
         "from tpu_engine_torch.serving.app import serve_worker\n"
         "from tpu_engine_torch.utils.config import WorkerConfig\n"
-        "w, s = serve_worker(WorkerConfig(port=0, model='gpt2-small-test',"
-        " dtype='float32', device='cpu', gen_kv_block_size=16,"
-        " gen_mixed_step=True, gen_prefill_chunk=16))\n"
-        "req = urllib.request.Request(f'http://127.0.0.1:{s.port}/generate',"
+        "lens = []\n"
+        "for lane in (dict(gen_kv_block_size=16, gen_mixed_step=True,"
+        " gen_prefill_chunk=16), {}):\n"
+        "    w, s = serve_worker(WorkerConfig(port=0,"
+        " model='gpt2-small-test', dtype='float32', device='cpu', **lane))\n"
+        "    req = urllib.request.Request("
+        "f'http://127.0.0.1:{s.port}/generate',"
         " data=json.dumps({'request_id': 'a', 'prompt_tokens': [1, 2],"
         " 'max_new_tokens': 3}).encode())\n"
-        "out = json.loads(urllib.request.urlopen(req, timeout=60).read())\n"
-        "s.stop(); w.stop()\n"
+        "    out = json.loads(urllib.request.urlopen(req, timeout=60)"
+        ".read())\n"
+        "    s.stop(); w.stop()\n"
+        "    lens.append(len(out['tokens']))\n"
+        "assert 'tpu_engine_torch.ops.flash' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'tpu_engine.')) or m == 'tpu_engine')\n"
-        "print(json.dumps({'tokens': len(out['tokens']), 'bad': bad}))\n")
+        "print(json.dumps({'tokens': lens, 'bad': bad}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=str(REPO)),
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {
-        "tokens": 3, "bad": []}
+        "tokens": [3, 3], "bad": []}
 
 
 def test_package_sources_import_no_jax():

@@ -290,3 +290,126 @@ def test_init_params_is_seeded_and_shaped():
                            jcreate("llama-small-test").init(
                                jax.random.PRNGKey(0)))
     assert sorted(a) == sorted(jshapes)
+
+
+# -- the dense scheduler's forwards and the full-sequence forward ----------
+
+SMALL = ["gpt2-small-test", "llama-small-test", "mistral-small-test"]
+
+
+def _left_padded(cfg, pb=32, lens=(32, 19), seed=5):
+    """A left-padded batch of two prompts (tokens, attn_mask, pos_ids) as
+    the dense scheduler builds one: row b's prompt at columns
+    [pb - lens[b], pb), positions from 0 at its first token."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    tokens = np.zeros((b, pb), np.int32)
+    attn = np.zeros((b, pb), np.int32)
+    pos_ids = np.zeros((b, pb), np.int32)
+    for r, n in enumerate(lens):
+        tokens[r, pb - n:] = rng.integers(1, cfg.vocab, n)
+        attn[r, pb - n:] = 1
+        pos_ids[r, pb - n:] = np.arange(n)
+    return tokens, attn, pos_ids
+
+
+def _prefill_both(name, pb=32):
+    jcfg, params, tcfg, tparams = _models(name)
+    tokens, attn, pos_ids = _left_padded(jcfg, pb)
+    jl, jc = jt.transformer_prefill(
+        params, jnp.asarray(tokens), jt.init_caches(jcfg, 2, 48, jnp.float32),
+        jcfg, dtype=jnp.float32, attn_mask=jnp.asarray(attn),
+        pos_ids=jnp.asarray(pos_ids))
+    tc = tt.init_caches(tcfg, 2, 48, torch.float32)
+    tl, tc2 = tt.transformer_prefill(
+        tparams, torch.from_numpy(tokens), tc, tcfg, dtype=torch.float32,
+        attn_mask=torch.from_numpy(attn), pos_ids=torch.from_numpy(pos_ids))
+    assert tc2.k is tc.k
+    assert tuple(tl.shape) == tuple(jl.shape) == (2, jcfg.vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)
+    # Every column: the prompt's K/V, the pad columns' (masked later by
+    # the row's start), and the untouched zeros past the bucket.
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_prefill_matches_jax(name):
+    _prefill_both(name)
+
+
+@pytest.mark.parametrize("name", ["llama-small-test", "mistral-small-test"])
+def test_prefill_matches_jax_flash_path(name, monkeypatch):
+    """The JAX side through its Pallas flash kernel (interpreted), as on a
+    TPU: the port's prefill equals it too."""
+    monkeypatch.setenv("TPU_ENGINE_FLASH", "1")
+    assert jt.default_attention().__module__ == "tpu_engine.ops.flash"
+    _prefill_both(name)
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_decode_rows_matches_jax(name):
+    """Per-row positions and starts over a dense cache: two steps, rows at
+    different depths, one row at the last cache column."""
+    jcfg, params, tcfg, tparams = _models(name)
+    rng = np.random.default_rng(6)
+    shape = (jcfg.n_layers, 4, 48, jcfg.kv_heads, jcfg.d_head)
+    k0 = rng.standard_normal(shape).astype(np.float32)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    pos = np.array([20, 33, 46, 5], np.int32)
+    start = np.array([3, 0, 10, 5], np.int32)
+    tok = rng.integers(0, jcfg.vocab, 4).astype(np.int32)
+    jc = JKV(jnp.asarray(k0), jnp.asarray(v0))
+    tc = tt.KVCache(torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy()))
+    for _ in range(2):
+        jl, jc = jt.transformer_decode_rows(
+            params, jnp.asarray(tok), jc, jnp.asarray(pos), jcfg,
+            dtype=jnp.float32, start_vec=jnp.asarray(start))
+        tl, tc2 = tt.transformer_decode_rows(
+            tparams, torch.from_numpy(tok), tc, torch.from_numpy(pos), tcfg,
+            dtype=torch.float32, start_vec=torch.from_numpy(start))
+        assert tc2.k is tc.k
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
+        tok = np.asarray(jl).argmax(-1).astype(np.int32)
+        pos = pos + 1
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("name", SMALL)
+@pytest.mark.parametrize("masked", [False, True])
+def test_apply_matches_jax(name, masked):
+    jcfg, params, tcfg, tparams = _models(name)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, jcfg.vocab, (2, 24)).astype(np.int32)
+    mask = np.ones((2, 24), np.int32)
+    mask[1, 18:] = 0
+    jl = jt.transformer_apply(params, jnp.asarray(tokens), jcfg,
+                              mask=jnp.asarray(mask) if masked else None,
+                              dtype=jnp.float32)
+    tl = tt.transformer_apply(tparams, torch.from_numpy(tokens), tcfg,
+                              mask=torch.from_numpy(mask) if masked
+                              else None, dtype=torch.float32)
+    assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)
+
+
+def test_dense_forwards_refuse_unported_dialects():
+    _, _, tcfg, tparams = _models("llama-small-test")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    for bad in (dict(post_ln=True), dict(embed_ln=True), dict(type_vocab=2),
+                dict(n_experts=2)):
+        cfg = dataclasses.replace(tcfg, **bad)
+        with pytest.raises(NotImplementedError, match="decoder dialects"):
+            tt.transformer_apply(tparams, tokens, cfg, dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="decoder dialects"):
+            tt.transformer_prefill(tparams, tokens,
+                                   tt.init_caches(tcfg, 1, 8, torch.float32),
+                                   cfg, dtype=torch.float32)

@@ -1,4 +1,5 @@
-// Device helpers shared by the paged-attention kernels of this directory:
+// Device helpers shared by the kernels of this directory (the paged reads
+// and the flash forward):
 // element conversions to f32, stores from f32, and the dynamic shared-memory
 // opt-in. Each translation unit gets its own copy (anonymous namespace).
 

@@ -44,8 +44,8 @@
 // split over long contexts (to fill 132 SMs at decode widths) are later
 // work.
 //
-// Build: tpu_engine_torch/ops/paged_attention.py compiles every source of
-//        this directory with nvcc -gencode arch=compute_90a,code=sm_90a at first
+// Build: tpu_engine_torch/ops/kernels.py compiles every source of this
+//        directory with nvcc -gencode arch=compute_90a,code=sm_90a at first
 //        use, links one library and loads it with ctypes.
 
 #include "paged_attention_common.cuh"
@@ -226,7 +226,9 @@ int ragged_paged_attention(const void* q, const void* k_pool, const void* v_pool
   return cudaErrorInvalidValue;
 }
 
-const char* ragged_paged_attention_error_string(int err) {
+// The library's one error-string entry point (every kernel of it returns a
+// cudaError_t); it lives here because a symbol may be defined only once.
+const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,7 +1,9 @@
 """Llama family configs (counterpart of ``tpu_engine/models/llama.py``;
 same names and values): RMSNorm, rotary positions, SwiGLU, grouped-query
 attention. ``llama`` is the TinyLlama-1.1B geometry. The mistral configs
-register too, but their sliding window refuses on the paged path."""
+(sliding window) serve on the dense lane, whose prefill band-masks through
+the flash kernel and whose decode band-masks the dense cache; the paged
+lanes refuse them."""
 
 from __future__ import annotations
 

@@ -1,7 +1,11 @@
-"""Transformer forwards of the paged serving paths (counterpart of
-``tpu_engine/models/transformer.py``): the ragged mixed step, the two-path
-scheduler's prefill windows over a row's own dense cache, and its decode
-step over the block pool, each over a bf16/f32 or an int8 pool.
+"""Transformer forwards of the serving paths (counterpart of
+``tpu_engine/models/transformer.py``): the full-sequence forward
+(``transformer_apply``); the dense scheduler's prompt pass
+(``transformer_prefill``, through the flash kernel) and its per-row decode
+step over the dense cache (``transformer_decode_rows``); prefill windows
+over a row's own dense cache (``transformer_decode_window``); and the paged
+paths, the ragged mixed step and the two-path decode step over the block
+pool, each over a bf16/f32 or an int8 pool.
 
 Parameters are a dict tree with the JAX package's names, except that the
 stacked (L, ...) ``blocks`` tree becomes a list of per-layer dicts: the
@@ -26,8 +30,10 @@ from tpu_engine_torch.ops import nn
 from tpu_engine_torch.ops.attention import (
     _split_heads,
     dot_product_attention,
+    repeat_kv,
     rope,
 )
+from tpu_engine_torch.ops.flash import flash_attention
 from tpu_engine_torch.ops.quant import quantize_kv
 
 
@@ -76,8 +82,9 @@ class KVCache(NamedTuple):
 def init_caches(cfg: TransformerConfig, batch: int,
                 max_seq: Optional[int] = None, dtype=torch.bfloat16,
                 device="cpu") -> KVCache:
-    """Zeroed dense cache (L, batch, max_seq, H_kv, D): the two-path
-    scheduler's per-request row cache during its prefill windows."""
+    """Zeroed dense cache (L, batch, max_seq, H_kv, D): the dense
+    scheduler's shared cache, and a request's own row cache during its
+    prefill (dense scheduler) or prefill windows (two-path scheduler)."""
     shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
              cfg.d_head)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -357,3 +364,128 @@ def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
     if head == "last":
         h = h[:, -1:]
     return _head(params, h, cfg, dtype), caches
+
+
+# -- full-sequence forward and the dense scheduler's paths ---------------------
+
+def _band(cfg: TransformerConfig) -> dict:
+    """The sliding band, passed only when the config has one, so an
+    ``attn_fn`` that cannot band-mask fails loudly rather than attending
+    full-causal."""
+    if cfg.sliding_window is None:
+        return {}
+    return {"window": cfg.sliding_window}
+
+
+def _attn(bp, x, cfg: TransformerConfig, *, mask, dtype, attn_fn,
+          positions):
+    """Full-sequence attention sublayer: grouped K/V expanded to the query
+    heads (the flash kernel takes equal head counts), causal per the
+    config, the padding mask, the band."""
+    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=positions)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    a = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                causal=cfg.causal, mask=mask, **_band(cfg))
+    b, s = a.shape[:2]
+    return nn.dense(bp["attn"]["wo"], a.reshape(b, s, -1), dtype=dtype)
+
+
+def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
+                      dtype=torch.bfloat16, attn_fn=None):
+    """Full-sequence forward of the decoder dialects. tokens: (B, S) int;
+    mask: optional (B, S) int, 1 = valid. Returns f32 logits
+    (B, S, vocab). ``attn_fn`` defaults to ``ops.flash.flash_attention``
+    (the CUDA kernel on CUDA tensors)."""
+    _check_dialect(cfg)
+    attn_fn = attn_fn or flash_attention
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)
+    h = _embed(params, tokens, positions[None, :], cfg, dtype)
+    for bp in params["blocks"]:
+        h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
+                      dtype=dtype, attn_fn=attn_fn, positions=positions)
+        h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+        h = h.to(dtype)
+    return _head(params, h, cfg, dtype)
+
+
+def transformer_prefill(params, tokens, caches: KVCache,
+                        cfg: TransformerConfig, *, dtype=torch.bfloat16,
+                        attn_mask=None, pos_ids=None, attn_fn=None):
+    """Causal forward over the prompt, writing every layer's K/V at
+    columns [0, S) of ``caches`` (L, B, >= S, H_kv, D), in place. Returns
+    (last-column logits (B, vocab) f32, caches).
+
+    Mixed-length batches are LEFT-padded: ``attn_mask`` (B, S) zeroes the
+    pad columns and ``pos_ids`` (B, S) gives each row logical positions
+    from 0 at its first real token, so every row ends at column S-1. Pad
+    query rows attend nothing and give 0; their K/V land in columns the
+    decode step masks (below the row's start). ``attn_fn`` defaults to
+    ``ops.flash.flash_attention``: causal, the padding mask and the band."""
+    _check_dialect(cfg)
+    attn_fn = attn_fn or flash_attention
+    s = tokens.shape[1]
+    positions = (torch.arange(s, device=tokens.device)[None, :]
+                 if pos_ids is None else pos_ids)
+    h = _embed(params, tokens, positions, cfg, dtype)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    for li, bp in enumerate(params["blocks"]):
+        x = _norm(bp["ln1"], h, cfg)
+        q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=positions)
+        caches.k[li][:, :s] = k.to(caches.k.dtype)
+        caches.v[li][:, :s] = v.to(caches.v.dtype)
+        a = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), causal=True,
+                    mask=attn_mask, **_band(cfg))
+        h = h + nn.dense(bp["attn"]["wo"], a.reshape(*a.shape[:2], -1),
+                         dtype=dtype)
+        h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+        h = h.to(dtype)
+    return _head(params, h[:, -1:], cfg, dtype)[:, 0], caches
+
+
+def _block_decode_rows(bp, h, ck, cv, pos_vec, start_vec,
+                       cfg: TransformerConfig, *, dtype):
+    """One decode step of one layer with per-row cache positions: ck/cv
+    (B, S, H_kv, D), updated in place. Row b writes its new K/V at column
+    pos_vec[b] (a column past the cache is dropped, as JAX's scatter drops
+    it) and attends columns start_vec[b] <= kpos <= pos_vec[b] (inside the
+    band), grouped against the unexpanded cache."""
+    b = h.shape[0]
+    x = _norm(bp["ln1"], h, cfg)
+    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype,
+                           positions=(pos_vec - start_vec).long()[:, None])
+    rows = torch.arange(b, device=h.device)
+    pos = pos_vec.long()
+    col = torch.clamp(pos, max=ck.shape[1] - 1)
+    inside = (pos < ck.shape[1])[:, None, None]
+    ck[rows, col] = torch.where(inside, k[:, 0].to(ck.dtype), ck[rows, col])
+    cv[rows, col] = torch.where(inside, v[:, 0].to(cv.dtype), cv[rows, col])
+    kpos = torch.arange(ck.shape[1], device=h.device)[None, :]
+    valid = (kpos <= pos[:, None]) & (kpos >= start_vec.long()[:, None])
+    if cfg.sliding_window is not None:
+        valid = valid & (kpos > pos[:, None] - cfg.sliding_window)
+    a = dot_product_attention(q, ck, cv, mask=valid.to(torch.int32))
+    h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, 1, -1), dtype=dtype)
+    h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+    return h.to(dtype)
+
+
+def transformer_decode_rows(params, token_t, caches: KVCache, pos_vec,
+                            cfg: TransformerConfig, *, dtype=torch.bfloat16,
+                            start_vec=None):
+    """One decode step where every row has its own cache position (the
+    dense scheduler's decode chunk runs ``step_chunk`` of them). token_t:
+    (B,) the rows' last tokens; caches: (L, B, S, H_kv, D), updated in
+    place; pos_vec: (B,) write columns; start_vec: (B,) first valid column
+    per row (default 0). Rope and learned positions (clipped to the table)
+    take the logical position pos - start. Returns (logits (B, vocab),
+    caches)."""
+    _check_dialect(cfg)
+    if start_vec is None:
+        start_vec = torch.zeros_like(pos_vec)
+    logical = (pos_vec - start_vec)[:, None]
+    h = _embed(params, token_t[:, None], logical, cfg, dtype)
+    for li, bp in enumerate(params["blocks"]):
+        h = _block_decode_rows(bp, h, caches.k[li], caches.v[li], pos_vec,
+                               start_vec, cfg, dtype=dtype)
+    return _head(params, h, cfg, dtype)[:, 0], caches

@@ -25,37 +25,19 @@ launches the hand-written kernel that ports the TPU kernel (``csrc/``:
 tensors, and only for them, it takes the plain version. It never falls
 back: a kernel that does not build or launch raises. Each wrapper counts
 its kernel launches (``launches``) and its plain calls (``plain_calls``).
-
-The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
-nvcc per source, all started together, and linked into one library in
-``build/torch_kernels/`` under the repository root, keyed by a hash of the
-sources and flags, loaded with ``ctypes``. Importing this module needs
-neither ``nvcc`` nor a card.
+The kernels are built and launched through ``ops.kernels``, the port's one
+kernel library; importing this module needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
 
 from tpu_engine_torch.ops.attention import dot_product_attention
+from tpu_engine_torch.ops.kernels import counted, launch, plain_or_cuda
 from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
-HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_DECODE_GROUP_DIMS = 2048   # G * D a decode thread block accumulates
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,113 +111,7 @@ def quant_ragged_paged_attention_reference(q, k_pool, v_pool, k_scale,
     return dot_product_attention(q, kk, vv, mask=mask)
 
 
-# -- the CUDA kernels: build, load, launch -------------------------------------
-
-_build_lock = threading.Lock()
-_library: Optional[ctypes.CDLL] = None
-build_log = ""  # nvcc's report (registers, shared memory, spills) of the build
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# Entry point -> argument types (pointers, then ints, then the stream).
-_ENTRY_POINTS = {
-    "ragged_paged_attention": [_P] * 7 + [_I] * 8 + [_P],
-    "paged_attention": [_P] * 6 + [_I] * 7 + [_P],
-    "quant_paged_attention": [_P] * 8 + [_I] * 6 + [_P],
-    "quant_ragged_paged_attention": [_P] * 9 + [_I] * 7 + [_P],
-}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH) — the paged-attention kernels are built "
-                           "from source at first use")
-    return found
-
-
-def kernel_library_path() -> Path:
-    """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256()
-    for src in SOURCES + HEADERS:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"paged_attention_{h.hexdigest()[:16]}.so"
-
-
-def build_kernel_library() -> Path:
-    """Compile every kernel source with nvcc (one process per source, all
-    started together) and link one library, unless a library for exactly
-    these sources and flags is already built. Returns its path."""
-    global build_log
-    out = kernel_library_path()
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    work = out.with_suffix(f".{os.getpid()}.build")
-    work.mkdir(parents=True, exist_ok=True)
-    try:
-        jobs = []
-        for src in SOURCES:
-            obj = work / f"{src.stem}.o"
-            jobs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        logs, failed = [], []
-        for src, _, proc in jobs:
-            so, se = proc.communicate()
-            logs.append(f"== {src.name}\n{so}{se}")
-            if proc.returncode != 0:
-                failed.append(f"{src.name} ({proc.returncode}):\n{so}\n{se}")
-        if failed:
-            raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        tmp = work / out.name
-        proc = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        build_log = "\n".join(logs)
-        os.replace(tmp, out)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return out
-
-
-def kernel_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use (thread-safe)."""
-    global _library
-    with _build_lock:
-        if _library is None:
-            lib = ctypes.CDLL(str(build_kernel_library()))
-            for name, argtypes in _ENTRY_POINTS.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.ragged_paged_attention_error_string.argtypes = [ctypes.c_int]
-            lib.ragged_paged_attention_error_string.restype = ctypes.c_char_p
-            _library = lib
-        return _library
-
-
-def _launch(name: str, device, *args) -> None:
-    """Call entry point ``name`` on ``device``'s current stream; raise on a
-    refused launch (it never runs, and a synchronise would not show it)."""
-    lib = kernel_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = lib.ragged_paged_attention_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-
+# -- the CUDA kernels -----------------------------------------------------------
 
 def _check_cuda_args(q, k_pool, v_pool, tables, rows, *, quant=False,
                      scales=()) -> None:
@@ -295,21 +171,12 @@ def _check_decode(q, k_pool) -> None:
                          f"{MAX_DECODE_GROUP_DIMS}")
 
 
-def _plain_or_cuda(fn, q) -> bool:
-    """True for CPU tensors (count a plain call); raise on other devices."""
-    if q.device.type == "cpu":
-        fn.plain_calls += 1
-        return True
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return False
-
-
+@counted
 def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     """Same contract as ``ragged_paged_attention_reference``. CUDA tensors
     launch the port of ``_ragged_kernel`` (q is taken in f32; the output
     has the pool's dtype); CPU tensors take the plain version."""
-    if _plain_or_cuda(ragged_paged_attention, q):
+    if plain_or_cuda(ragged_paged_attention, q):
         return ragged_paged_attention_reference(q, k_pool, v_pool, tables,
                                                 pos0, qlen)
     _check_cuda_args(q, k_pool, v_pool, tables,
@@ -318,7 +185,7 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=k_pool.dtype, device=q.device)
-    _launch("ragged_paged_attention", q.device, qf.data_ptr(),
+    launch("ragged_paged_attention", q.device, qf.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
             pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv,
             d, bs, tables.shape[1], _KV_DTYPES[k_pool.dtype])
@@ -326,11 +193,12 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     return out
 
 
+@counted
 def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     """Same contract as ``paged_attention_reference``. CUDA tensors launch
     the port of ``_paged_kernel`` (q is taken in f32; the output has the
     pool's dtype); CPU tensors take the plain version."""
-    if _plain_or_cuda(paged_attention, q):
+    if plain_or_cuda(paged_attention, q):
         return paged_attention_reference(q, k_pool, v_pool, tables, pos_vec)
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),))
     _check_decode(q, k_pool)
@@ -338,7 +206,7 @@ def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=k_pool.dtype, device=q.device)
-    _launch("paged_attention", q.device, qf.data_ptr(), k_pool.data_ptr(),
+    launch("paged_attention", q.device, qf.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
             out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1],
             _KV_DTYPES[k_pool.dtype])
@@ -346,12 +214,13 @@ def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     return out
 
 
+@counted
 def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
                           pos_vec):
     """Same contract as ``quant_paged_attention_reference``. CUDA tensors
     launch the port of ``_quant_paged_kernel`` (the output has q's dtype);
     CPU tensors take the plain version."""
-    if _plain_or_cuda(quant_paged_attention, q):
+    if plain_or_cuda(quant_paged_attention, q):
         return quant_paged_attention_reference(q, k_pool, v_pool, k_scale,
                                                v_scale, tables, pos_vec)
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),),
@@ -362,7 +231,7 @@ def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
-    _launch("quant_paged_attention", q.device, qf.data_ptr(),
+    launch("quant_paged_attention", q.device, qf.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
             out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1])
@@ -370,12 +239,13 @@ def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
     return out.to(q.dtype)
 
 
+@counted
 def quant_ragged_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
                                  tables, pos0, qlen):
     """Same contract as ``quant_ragged_paged_attention_reference``. CUDA
     tensors launch the port of ``_quant_ragged_kernel`` (the output has
     q's dtype); CPU tensors take the plain version."""
-    if _plain_or_cuda(quant_ragged_paged_attention, q):
+    if plain_or_cuda(quant_ragged_paged_attention, q):
         return quant_ragged_paged_attention_reference(
             q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen)
     _check_cuda_args(q, k_pool, v_pool, tables,
@@ -385,29 +255,13 @@ def quant_ragged_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
-    _launch("quant_ragged_paged_attention", q.device, qf.data_ptr(),
+    launch("quant_ragged_paged_attention", q.device, qf.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), tables.data_ptr(), pos0.data_ptr(),
             qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv, d, bs,
             tables.shape[1])
     quant_ragged_paged_attention.launches += 1
     return out.to(q.dtype)
-
-
-# Launch counts: `launches` counts kernel launches, `plain_calls` counts
-# calls served by the plain version (CPU tensors). A run that resets both
-# to 0 and reads them after shows which path it went through.
-WRAPPERS = (ragged_paged_attention, paged_attention, quant_paged_attention,
-            quant_ragged_paged_attention)
-for _fn in WRAPPERS:
-    _fn.launches = 0
-    _fn.plain_calls = 0
-
-
-def reset_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-        fn.plain_calls = 0
 
 
 # -- numpy-seeded parity inputs ------------------------------------------------

@@ -1,12 +1,25 @@
-"""Continuous-batching scheduler over the paged KV cache (counterpart of
-``ContinuousGenerator`` in ``tpu_engine/runtime/scheduler.py``, restricted
-to ``kv_block_size > 0``), in its two modes:
+"""Continuous-batching scheduler (counterpart of ``ContinuousGenerator`` in
+``tpu_engine/runtime/scheduler.py``) over the dense KV cache or the paged
+one, in three modes:
 
-- The batch is ``n_slots`` rows over one block pool
+- **Dense** (``kv_block_size`` 0, the worker's default lane). The batch is
+  ``n_slots`` rows of one dense (L, n_slots, max_seq, H_kv, D) cache. The
+  prefill thread runs each prompt's forward on the request's own
+  left-padded row cache: one ``transformer_prefill`` (its attention is the
+  flash kernel) when the prompt bucket is no wider than ``prefill_chunk``,
+  else ``transformer_decode_window`` windows; a byte-budget LRU prefix
+  cache (``prefix_cache_mb``) of (logits, row cache) skips the forward for
+  an exact repeat of a (bucket, prompt). The decode thread copies the row
+  cache into its row of the shared cache at admission (a cached entry is
+  copied, never aliased) and runs decode chunks: ``step_chunk`` steps of
+  ``transformer_decode_rows`` and sampling on the device, with one host
+  sync per chunk. A row's prompt sits at columns [pb - L, pb), so ``start``
+  = pb - L masks the padding and positions count from it.
+- **Paged**: the batch is ``n_slots`` rows over one block pool
   (``runtime.kv_blocks.BlockPool``, bf16/f32 or int8 with
   ``kv_quantize="int8"``) with per-row block tables and a radix tree that
   maps shared prompt prefixes onto already-filled blocks.
-- **Mixed stepping** (``mixed_step=True``). The prefill thread is pure
+- **Mixed stepping** (paged, ``mixed_step=True``). The prefill thread is pure
   batch formation: bucket pick, radix lookup (which pins the matched
   blocks) and penalty counts, no device work. The decode thread admits
   formed requests into free rows and, each tick, issues ONE forward
@@ -14,7 +27,7 @@ to ``kv_block_size > 0``), in its two modes:
   (one token each) and admitting rows' prefill chunks (budgeted), then
   samples one token per row. The ``.cpu()`` of the sampled tokens is the
   tick's one host sync.
-- **Two-path** (``mixed_step=False``). The prefill thread runs each
+- **Two-path** (paged, ``mixed_step=False``). The prefill thread runs each
   prompt's forward: radix lookup, a gather of the matched prefix blocks
   into the request's own dense row cache (dequantized for the int8 pool),
   ``transformer_decode_window`` windows over the rest and the first
@@ -32,10 +45,9 @@ to ``kv_block_size > 0``), in its two modes:
   row's blocks.
 
 A request is cancelled by cancelling the Future ``submit`` returned: its
-row frees between ticks (chunks) and its stream ends. The dense,
-speculative, state-slab and stateless modes, the host tier, migration,
-handoff, deadlines, brownout and tensor parallelism are not yet ported and
-refuse.
+row frees between ticks (chunks) and its stream ends. The speculative,
+state-slab and stateless modes, the host tier, migration, handoff,
+deadlines, brownout and tensor parallelism are not yet ported and refuse.
 """
 
 from __future__ import annotations
@@ -56,8 +68,10 @@ from tpu_engine_torch.models.transformer import (
     KVCache,
     TransformerConfig,
     init_caches,
+    transformer_decode_rows,
     transformer_decode_rows_paged,
     transformer_decode_window,
+    transformer_prefill,
     transformer_step_rows_ragged,
 )
 from tpu_engine_torch.runtime.generator import (
@@ -106,8 +120,8 @@ class _Request:
 
 class _Formed(NamedTuple):
     """A request after the prefill thread: batch formation (mixed mode),
-    or also the prompt's forward (two-path mode: ``row_caches`` and
-    ``first_tok``)."""
+    or also the prompt's forward (dense and two-path modes: ``row_caches``
+    and ``first_tok``)."""
     req: _Request
     pb: int                 # prompt bucket
     L: int                  # prompt length after truncation to pb
@@ -117,6 +131,57 @@ class _Formed(NamedTuple):
     gen: int                # pool generation the pins belong to
     row_caches: Optional[KVCache] = None  # (L, 1, pb, H_kv, D) row cache
     first_tok: int = 0
+
+
+class _PrefixCache:
+    """Byte-budget LRU of prefilled (logits, row cache) pairs keyed by the
+    exact (prompt bucket, prompt length, left-padded tokens): a repeated
+    prompt skips its forward at admission. Sampling parameters stay out of
+    the key: the logits do not depend on them, and the first token is
+    sampled per request from the cached logits, so a seeded stream is the
+    same hit or miss. Touched only by the prefill thread; ``stats`` reads
+    from other threads take plain ints. A budget of 0 disables it (no
+    misses counted); an entry larger than the budget is never stored."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = int(budget_bytes)
+        self._items: "collections.OrderedDict[tuple, tuple]" = \
+            collections.OrderedDict()
+        self.bytes = 0
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _nbytes(logits, caches) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in (logits, caches.k, caches.v)))
+
+    def get(self, key):
+        if self.budget <= 0:
+            return None
+        item = self._items.get(key)
+        if item is None:
+            self.misses += 1
+            return None
+        self._items.move_to_end(key)
+        self.hits += 1
+        return item[0], item[1]
+
+    def put(self, key, logits, caches) -> None:
+        if self.budget <= 0 or key in self._items:
+            return
+        nbytes = self._nbytes(logits, caches)
+        if nbytes > self.budget:
+            return  # one giant prompt must not flush the whole cache
+        while self.bytes + nbytes > self.budget and self._items:
+            _, (_, _, evicted) = self._items.popitem(last=False)
+            self.bytes -= evicted
+        self._items[key] = (logits, caches, nbytes)
+        self.bytes += nbytes
+
+    def stats(self) -> dict:
+        return {"entries": len(self._items), "bytes": self.bytes,
+                "hits": self.hits, "misses": self.misses}
 
 
 class _StaleAdmission(RuntimeError):
@@ -140,6 +205,7 @@ class ContinuousGenerator:
         step_chunk: int = 8,
         max_seq: Optional[int] = None,
         device=None,
+        prefix_cache_mb: int = 64,
         prefill_chunk: int = 256,
         kv_block_size: int = 0,
         kv_blocks: int = 0,
@@ -153,8 +219,11 @@ class ContinuousGenerator:
         tp: int = 1,
     ):
         """Arguments keep the JAX scheduler's names and meanings; the ones
-        of modes not yet ported refuse when set. ``mixed_step`` picks the
-        mode; ``step_chunk`` is the two-path decode chunk's steps;
+        of modes not yet ported refuse when set. ``kv_block_size`` 0 picks
+        the dense mode, > 0 the paged one, where ``mixed_step`` picks
+        mixed stepping over two-path; ``step_chunk`` is the dense and
+        two-path decode chunk's steps; ``prefix_cache_mb`` the dense
+        prefix cache's budget (0 disables it);
         ``kv_quantize`` "int8" stores the pool int8 with per-(layer, slot,
         kv-head) f32 scales in either mode. ``device`` defaults to the CUDA
         card; pass ``device="cpu"`` to run the plain PyTorch paths on the
@@ -167,8 +236,6 @@ class ContinuousGenerator:
         if kv_quantize and int(kv_block_size) <= 0:
             raise ValueError("kv_quantize requires the paged KV cache "
                              "(set kv_block_size > 0)")
-        if int(kv_block_size) <= 0:
-            _refuse("the dense-cache scheduler (kv_block_size 0)")
         if int(spec_k) > 0:
             _refuse("continuous speculative decoding (spec_k)")
         if int(kv_host_blocks) > 0:
@@ -187,6 +254,7 @@ class ContinuousGenerator:
         self._dtype = resolve_dtype(dtype)
         self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
         self.n_slots = int(n_slots)
+        self._paged = int(kv_block_size) > 0
         self._mixed = bool(mixed_step)
         self._step_chunk = int(step_chunk)
         if not self._mixed and self._step_chunk < 1:
@@ -202,34 +270,23 @@ class ContinuousGenerator:
         self._prompt_buckets = tuple(buckets) + (self.max_seq,)
         self.params = params if params is not None else model.init(
             rng_seed, device=self.device, dtype=self._dtype)
-
-        bs = int(kv_block_size)
-        if cfg.sliding_window is not None:
-            raise ValueError("paged KV cache does not support "
-                             "sliding_window models yet")
-        bad = [b for b in self._prompt_buckets if b % bs]
-        if bad:
-            raise ValueError(
-                f"kv_block_size={bs} must divide every prompt bucket "
-                f"(violates {bad}); pick a power of two <= "
-                f"{self._prompt_buckets[0]}")
-        width = -(-self.max_seq // bs)  # blocks per full-length row
-        nb = int(kv_blocks) if kv_blocks else self.n_slots * width + 1
-        if nb < width + 1:
-            raise ValueError(
-                f"kv_blocks={nb} cannot hold even one max_seq row "
-                f"({width} blocks + the null block)")
-        self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device,
-                               quantize=str(kv_quantize))
-        self._tables = np.zeros((self.n_slots, width), np.int32)
+        # Every mode carries the prefix cache (idle in the paged modes, as
+        # in the JAX scheduler), so stats() has one schema.
+        self._prefix_cache = _PrefixCache(int(prefix_cache_mb) * (1 << 20))
         self._row_blocks: List[List[int]] = [[] for _ in
                                              range(self.n_slots)]
-        self._prefix_sharing = bool(prefix_sharing)
         # Admissions deferred on pool pressure, retried as rows free.
         self._pending: "collections.deque[_Formed]" = collections.deque()
+        if self._paged:
+            self._init_pool(cfg, int(kv_block_size), int(kv_blocks),
+                            str(kv_quantize), bool(prefix_sharing))
+        else:
+            self._caches = init_caches(cfg, self.n_slots, self.max_seq,
+                                       self._dtype, self.device)
 
         n = self.n_slots
         self._pos = np.zeros((n,), np.int32)      # next write column
+        self._start = np.zeros((n,), np.int32)    # first valid column
         self._tok = np.zeros((n,), np.int32)      # last emitted token
         self._seeds = np.zeros((n,), np.int64)
         self._temps = np.zeros((n,), np.float32)
@@ -288,6 +345,29 @@ class ContinuousGenerator:
                                         name="continuous-decode", daemon=True)
         self._thread.start()
 
+    def _init_pool(self, cfg: TransformerConfig, bs: int, kv_blocks: int,
+                   kv_quantize: str, prefix_sharing: bool) -> None:
+        """The paged modes' block pool, block tables and radix sharing."""
+        if cfg.sliding_window is not None:
+            raise ValueError("paged KV cache does not support "
+                             "sliding_window models yet")
+        bad = [b for b in self._prompt_buckets if b % bs]
+        if bad:
+            raise ValueError(
+                f"kv_block_size={bs} must divide every prompt bucket "
+                f"(violates {bad}); pick a power of two <= "
+                f"{self._prompt_buckets[0]}")
+        width = -(-self.max_seq // bs)  # blocks per full-length row
+        nb = kv_blocks or self.n_slots * width + 1
+        if nb < width + 1:
+            raise ValueError(
+                f"kv_blocks={nb} cannot hold even one max_seq row "
+                f"({width} blocks + the null block)")
+        self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device,
+                               quantize=kv_quantize)
+        self._tables = np.zeros((self.n_slots, width), np.int32)
+        self._prefix_sharing = prefix_sharing
+
     # -- public API ------------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -345,9 +425,11 @@ class ContinuousGenerator:
                 out["mixed"] = dict(self._stats["mixed"])
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
-                   last_tick_age_s=round(age, 3))
-        out["kv_pool"] = self._pool.stats()
-        out["kv_pool"]["pending_admissions"] = len(self._pending)
+                   last_tick_age_s=round(age, 3),
+                   prefix_cache=self._prefix_cache.stats())
+        if self._paged:
+            out["kv_pool"] = self._pool.stats()
+            out["kv_pool"]["pending_admissions"] = len(self._pending)
         return out
 
     def stop(self) -> None:
@@ -493,11 +575,12 @@ class ContinuousGenerator:
 
     # -- prefill thread: batch formation -----------------------------------------
 
-    def _count_admission_dispatch(self) -> None:
-        """Device dispatches issued by the two-path admission side (prefix
-        gathers, prefill windows, row scatters), as the JAX scheduler
-        counts them; both threads increment."""
-        self._bump("admission_dispatches")
+    def _count_admission_dispatch(self, n: int = 1) -> None:
+        """Device dispatches issued by the admission side of the dense and
+        two-path modes (prompt forwards and windows, prefix gathers, row
+        splices and scatters), as the JAX scheduler counts them; both
+        threads increment."""
+        self._bump("admission_dispatches", n)
 
     def _prefill_loop(self) -> None:
         if self.device.type == "cuda":
@@ -514,8 +597,12 @@ class ContinuousGenerator:
             self._prefill_busy_since = time.monotonic()
             try:
                 try:
-                    item = (self._run_prefill_mixed(req) if self._mixed
-                            else self._run_prefill_paged(req))
+                    if not self._paged:
+                        item = self._run_prefill_dense(req)
+                    elif self._mixed:
+                        item = self._run_prefill_mixed(req)
+                    else:
+                        item = self._run_prefill_paged(req)
                 except Exception as exc:
                     self._fail_request(req, exc)
                     continue
@@ -587,6 +674,65 @@ class ContinuousGenerator:
         if row_counts is not None:
             row_counts[0, first_tok] += 1  # the first token joins the context
         return first_tok, row_counts
+
+    def _run_prefill_dense(self, req: _Request) -> _Formed:
+        """Dense admission prefill (prefill thread): the prompt LEFT-padded
+        to its bucket, so it ends at column pb - 1 and positions count from
+        its first token at column pb - L. An exact repeat of (bucket,
+        prompt) takes the prefix cache's logits and row cache; otherwise
+        the forward runs on the request's own (L, 1, pb, H_kv, D) row
+        cache: windows of ``prefill_chunk`` when that is narrower than the
+        bucket (interior windows skip the LM head), else one
+        ``transformer_prefill``. Then the first token."""
+        pb = pick_bucket(self._prompt_buckets, len(req.prompt))
+        prompt = req.prompt[-pb:]
+        L = len(prompt)
+        tokens = np.zeros((1, pb), np.int32)
+        attn = np.zeros((1, pb), np.int32)
+        pos_ids = np.zeros((1, pb), np.int32)
+        tokens[0, pb - L:] = prompt
+        attn[0, pb - L:] = 1
+        pos_ids[0, pb - L:] = np.arange(L)
+        # L is part of the key: token id 0 is a real token, so [5] and
+        # [0, 5] pad to the same bytes at one bucket. Take the cache object
+        # once, as the JAX scheduler does.
+        prefix_cache = self._prefix_cache
+        cached = None
+        if prefix_cache.budget > 0:
+            key = (pb, L, tokens.tobytes())
+            cached = prefix_cache.get(key)
+        if cached is not None:
+            logits, row_caches = cached
+        else:
+            dev = self.device
+            tok_t = torch.from_numpy(tokens).to(dev)
+            row_caches = init_caches(self.cfg, 1, pb, self._dtype, dev)
+            w = self._prefill_chunk
+            if 0 < w < pb:
+                start_vec = torch.tensor([pb - L], dtype=torch.int32,
+                                         device=dev)
+                starts = list(range(0, pb, w))
+                for w0 in starts:
+                    wlog, row_caches = transformer_decode_window(
+                        self.params, tok_t[:, w0:w0 + w], row_caches,
+                        torch.tensor([w0], dtype=torch.int32, device=dev),
+                        self.cfg, dtype=self._dtype, start_vec=start_vec,
+                        head="last" if w0 == starts[-1] else "none")
+                self._count_admission_dispatch(len(starts))
+                logits = wlog[0, -1]
+            else:
+                logits, row_caches = transformer_prefill(
+                    self.params, tok_t, row_caches, self.cfg,
+                    dtype=self._dtype,
+                    attn_mask=torch.from_numpy(attn).to(dev),
+                    pos_ids=torch.from_numpy(pos_ids).to(dev))
+                logits = logits[0]
+                self._count_admission_dispatch()
+            if prefix_cache.budget > 0:
+                prefix_cache.put(key, logits, row_caches)
+        first_tok, row_counts = self._first_token(req, logits, prompt, L)
+        return _Formed(req, pb, L, row_counts, [], prompt, 0, row_caches,
+                       first_tok)
 
     def _run_prefill_paged(self, req: _Request) -> _Formed:
         """Two-path admission prefill (prefill thread): radix
@@ -665,14 +811,19 @@ class ContinuousGenerator:
     # -- decode thread -----------------------------------------------------------
 
     def _admit(self, item: _Formed, row: int) -> None:
-        if self._mixed:
+        if not self._paged:
+            self._admit_dense(item, row)
+        elif self._mixed:
             self._admit_mixed(item, row)
         else:
             self._admit_paged(item, row)
 
-    def _set_row_params(self, req: _Request, row: int, pos: int) -> None:
-        """Per-row sampling and stopping state, shared by both admissions."""
+    def _set_row_params(self, req: _Request, row: int, pos: int,
+                        start: int = 0) -> None:
+        """Per-row sampling and stopping state, shared by every admission.
+        ``start``: the row's first valid cache column (dense rows)."""
         self._pos[row] = pos
+        self._start[row] = start
         self._seeds[row] = int(req.seed) & 0x7FFFFFFF
         self._temps[row] = req.temperature
         self._topps[row] = req.top_p
@@ -692,6 +843,34 @@ class ContinuousGenerator:
         if row_counts is not None:
             self._ensure_counts()[row] = torch.as_tensor(
                 row_counts[0], device=self.device)
+
+    def _emit_first_token(self, item: _Formed, row: int) -> None:
+        """A prefilled row's first token, at admission: emitted, streamed,
+        and the row completes at once if it ends there."""
+        req, first_tok = item.req, item.first_tok
+        self._tok[row] = first_tok
+        self._row_emitted[row] = [first_tok]
+        self._done[row] = ((req.eos_id >= 0 and first_tok == req.eos_id)
+                           or first_tok in req.stop_tokens)
+        self._push_stream(row, req)  # the first token flushes at admission
+        self._maybe_complete(row)
+
+    def _admit_dense(self, item: _Formed, row: int) -> None:
+        """Dense admission (decode thread): copy the row cache into columns
+        [0, pb) of the row in the shared cache (a copy, so a prefix-cache
+        entry is never the tensor a later write lands in), with the row's
+        token counts when it has controls; the row decodes from column pb
+        with start pb - L."""
+        req, pb, L, row_counts = item[:4]
+        rc = item.row_caches
+        self._caches.k[:, row, :pb] = rc.k[:, 0]
+        self._caches.v[:, row, :pb] = rc.v[:, 0]
+        if row_counts is not None:
+            self._ensure_counts()[row] = torch.as_tensor(
+                row_counts[0], device=self.device)
+        self._count_admission_dispatch()
+        self._set_row_params(req, row, pb, start=pb - L)
+        self._emit_first_token(item, row)
 
     def _admit_paged(self, item: _Formed, row: int) -> None:
         """Two-path admission (decode thread): allocate the bucket's fresh
@@ -736,13 +915,7 @@ class ContinuousGenerator:
         self._count_admission_dispatch()
         self._set_row_table(row, table, row_counts)
         self._set_row_params(req, row, first_col)
-        first_tok = item.first_tok
-        self._tok[row] = first_tok
-        self._row_emitted[row] = [first_tok]
-        self._done[row] = ((req.eos_id >= 0 and first_tok == req.eos_id)
-                           or first_tok in req.stop_tokens)
-        self._push_stream(row, req)  # the first token flushes at admission
-        self._maybe_complete(row)
+        self._emit_first_token(item, row)
 
     def _admit_mixed(self, item: _Formed, row: int) -> None:
         """Allocate the bucket's blocks up front (radix-matched prefix
@@ -960,24 +1133,46 @@ class ContinuousGenerator:
             self._push_stream(r, req)
             self._maybe_complete(r)
 
-    def _decode_chunk_paged(self) -> None:
-        """One two-path decode chunk: ``step_chunk`` steps of
-        ``transformer_decode_rows_paged`` over every row, each sampled on
-        the device (positions stay there), then ONE host sync for the
-        chunk's tokens. Done and free rows ride along masked: their sampled
-        tokens become their EOS id (or -1), their position stays, and
-        their writes land in their own next column or the null block. Each
-        step's pool writes are issued under the pool lock, so a prefix
-        gather the prefill thread issues runs between two steps, never
-        across one; taking the lock per step, not per chunk, lets the
-        prefill thread's lookups and gathers in between."""
+    def _decode_step_fn(self):
+        """One decode step of every row, (tok, pos, start) -> logits: over
+        the dense cache (``transformer_decode_rows``), or over the block
+        pool (``transformer_decode_rows_paged``, rows 0-aligned) with the
+        step's pool writes issued under the pool lock, so a prefix gather
+        the prefill thread issues runs between two steps, never across
+        one; taking the lock per step, not per chunk, lets the prefill
+        thread's lookups and gathers in between."""
+        if not self._paged:
+            def step(tok, pos, start):
+                return transformer_decode_rows(
+                    self.params, tok, self._caches, pos, self.cfg,
+                    dtype=self._dtype, start_vec=start)[0]
+            return step
         pool = self._pool
+        tables = torch.from_numpy(self._tables).to(self.device)
+
+        def step(tok, pos, start):
+            with pool.lock:
+                return transformer_decode_rows_paged(
+                    self.params, tok, pool.caches, tables, pos, self.cfg,
+                    dtype=self._dtype, scales=pool.scales)[0]
+        return step
+
+    def _decode_chunk(self) -> None:
+        """One decode chunk (dense and two-path modes): ``step_chunk``
+        steps over every row, each sampled on the device at logical
+        position pos + 1 - start (positions stay there), then ONE host sync
+        for the chunk's tokens. Done and free rows ride along masked: their
+        sampled tokens become their EOS id (or -1), their position stays,
+        and their writes land in their own next column (dense; a column
+        past the cache is dropped) or the null block (paged). Only live
+        rows advance, never past the last cache column."""
         dev = self.device
         eos_vec, controls = self._eos_and_controls()
         max_col = self.max_seq - 1
-        tables = torch.from_numpy(self._tables).to(dev)
+        step = self._decode_step_fn()
         tok = torch.from_numpy(self._tok.astype(np.int64)).to(dev)
         pos = torch.from_numpy(self._pos.copy()).to(dev)
+        start = torch.from_numpy(self._start.copy()).to(dev)
         done = torch.from_numpy(self._done.copy()).to(dev)
         seeds = torch.from_numpy(self._seeds).to(dev)
         eos = torch.from_numpy(eos_vec).to(dev)
@@ -988,14 +1183,11 @@ class ContinuousGenerator:
             rows = torch.arange(self.n_slots, device=dev)
         toks = []
         for _ in range(self._step_chunk):
-            with pool.lock:
-                logits = transformer_decode_rows_paged(
-                    self.params, tok, pool.caches, tables, pos, self.cfg,
-                    dtype=self._dtype, scales=pool.scales)[0]
+            logits = step(tok, pos, start)
             if controls:
                 logits = apply_repetition_penalty(logits, counts, pens)
-            nxt = _sample(logits, seeds, pos + 1, self._temps, self._topps,
-                          self._topks, self._minps)
+            nxt = _sample(logits, seeds, pos + 1 - start, self._temps,
+                          self._topps, self._topks, self._minps)
             nxt = torch.where(done, eos, nxt)
             if controls:
                 counts.index_put_((rows, nxt), (~done).to(torch.int32),
@@ -1025,10 +1217,11 @@ class ContinuousGenerator:
             self._maybe_complete(r)
 
     def _recover(self, exc: BaseException) -> None:
-        """Device-step failure: the pool may hold half-written blocks, so
-        every in-flight row fails with a RETRYABLE error carrying
-        ``tokens_emitted`` (a client can resume elsewhere from that
-        prefix), the pool is rebuilt, and the loop keeps serving."""
+        """Device-step failure: the cache or pool may hold half-written
+        columns, so every in-flight row fails with a RETRYABLE error
+        carrying ``tokens_emitted`` (a client can resume elsewhere from
+        that prefix), the dense cache or the pool is rebuilt, and the loop
+        keeps serving."""
         for r, req in enumerate(self._row_req):
             if req is not None:
                 n_emitted = len(self._visible_tokens(r, req))
@@ -1043,9 +1236,15 @@ class ContinuousGenerator:
             self._row_emitted[r] = []
             self._clear_mixed_row(r)
         self._pos[:] = 0
+        self._start[:] = 0
         self._tok[:] = 0
         self._done[:] = True
         self._bump("failures")
+        self._counts = None
+        if not self._paged:
+            self._caches = init_caches(self.cfg, self.n_slots, self.max_seq,
+                                       self._dtype, self.device)
+            return
         with self._pool.lock:
             self._pool.reset()
             pool = self._pool
@@ -1065,7 +1264,6 @@ class ContinuousGenerator:
             self._bump("recover_invariant_violations", len(violations))
             print(f"[scheduler] POST-RECOVER INVARIANT VIOLATED: "
                   f"{'; '.join(violations)}", flush=True)
-        self._counts = None
 
     def _loop(self) -> None:
         try:
@@ -1100,7 +1298,8 @@ class ContinuousGenerator:
             self._last_tick = time.monotonic()  # liveness heartbeat
             self._cancel_rows()
             # Live rows' block growth outranks new admissions.
-            self._ensure_capacity_paged()
+            if self._paged:
+                self._ensure_capacity_paged()
             free = self._free_rows()
             admitted_any = False
             while free:
@@ -1173,6 +1372,6 @@ class ContinuousGenerator:
                 if self._mixed:
                     self._tick_mixed()
                 else:
-                    self._decode_chunk_paged()
+                    self._decode_chunk()
             except Exception as exc:
                 self._recover(exc)

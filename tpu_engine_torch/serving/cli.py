@@ -2,13 +2,19 @@
 command of ``tpu_engine/serving/cli.py``):
 
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
-      --kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
-      [--mixed-step --mixed-token-budget N | --step-chunk N]
-      [--prefill-chunk N] [--n-slots N] [--device cpu]
+      [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
+       [--mixed-step --mixed-token-budget N]]
+      [--step-chunk N] [--prefill-chunk N] [--n-slots N] [--device cpu]
       [--dtype bfloat16] [--seed N]
 
-Without ``--mixed-step`` the lane runs the two-path scheduler (prefill
-windows on one thread, ``--step-chunk``-step decode chunks on the other).
+Without ``--kv-block-size`` the lane runs the dense scheduler, the JAX
+worker's default: each prompt's forward on the prefill thread (one
+flash-attention prefill up to ``--prefill-chunk`` tokens, windows beyond),
+a 64 MB prompt prefix cache, and ``--step-chunk``-step decode chunks over
+one dense KV cache on the decode thread. With ``--kv-block-size`` it runs
+over the paged KV cache: mixed stepping with ``--mixed-step``, else the
+two-path scheduler (prefill windows on one thread, decode chunks on the
+other). ``--kv-quantize`` needs ``--kv-block-size``.
 
 The worker serves /generate, /generate/stream, /health and /stats until
 SIGTERM or SIGINT. Without ``--device`` it runs on the CUDA card.
@@ -36,7 +42,7 @@ def _worker(argv) -> int:
                    help="int8: quantized KV pool (needs --kv-block-size)")
     p.add_argument("--mixed-step", action="store_true")
     p.add_argument("--step-chunk", type=int, default=16,
-                   help="decode steps per two-path chunk")
+                   help="decode steps per chunk (dense and two-path)")
     p.add_argument("--mixed-token-budget", type=int, default=0)
     p.add_argument("--prefill-chunk", type=int, default=256)
     p.add_argument("--n-slots", type=int, default=8)

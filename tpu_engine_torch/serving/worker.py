@@ -1,6 +1,7 @@
 """The port's generation worker (counterpart of the /generate half of
-``tpu_engine/serving/worker.py``): one continuous paged scheduler (mixed
-stepping or two-path, bf16/f32 or int8 pool) behind ``/generate``,
+``tpu_engine/serving/worker.py``): one continuous scheduler (dense, the
+default lane, or paged: mixed stepping or two-path, bf16/f32 or int8
+pool) behind ``/generate``,
 ``/generate/stream`` (SSE), ``/health`` and ``/stats``, with the JAX
 worker's wire fields.
 
@@ -52,6 +53,7 @@ class WorkerNode:
             n_slots=config.gen_max_batch_size,
             step_chunk=config.gen_step_chunk,
             prefill_chunk=config.gen_prefill_chunk,
+            prefix_cache_mb=config.gen_prefix_cache_mb,
             kv_block_size=config.gen_kv_block_size,
             kv_blocks=config.gen_kv_blocks,
             kv_quantize=config.gen_kv_quantize,
