@@ -7,19 +7,28 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
 
 1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc builds the five kernels of tpu_engine_torch/csrc (four
-              sources, one process per source, all started together) into
-              one library;
+2. build    — nvcc builds the seven kernels of tpu_engine_torch/csrc
+              (five sources, one process per source, all started together)
+              into one library;
 3. parity   — each kernel against its plain PyTorch version on the card:
               f32 at the JAX package's parity-check and flash-test shapes
               (tolerance 1e-5), bf16 at the main path's shapes (2e-2 on unit
               normals; for the flash forward on out and lse), int8 pools at
-              both (2e-4, the JAX package's bound for its int8 kernels);
+              both (2e-4, the JAX package's bound for its int8 kernels); the
+              flash backward (#6 dq, #7 dk and dv) at
+              tests/test_flash_backward.py's shapes and its window case in
+              f32 (1e-4 of the gradient's largest magnitude; also the
+              FlashAttention autograd Function as a whole) and at TinyLlama
+              prefill rows in bf16 (2e-2), each bit-identical over two runs;
               then a small llama (f32, TF32 off) served on the card through
               a mixed, a two-path, two int8 and a dense lane, and a small
               mistral (sliding window) through a dense lane, agrees token
               for token with the same weights served on the CPU through the
-              plain versions;
+              plain versions; three training steps of the small llama on
+              the card give the CPU's losses (1e-4 relative); the train
+              command trains it with --out, --resume continues the step
+              count, and the port's worker serving <out>/params gives the
+              in-process generator's greedy tokens;
 4. server   — the port's worker over HTTP on localhost serving
               TinyLlama-1.1B geometry (random weights from seed 0, bf16,
               shared by every lane, 256-token prefill chunks) in five lanes,
@@ -40,16 +49,27 @@ Phases (any failure exits non-zero and prints no result line):
               greedy repeat and one stream: flash launches == 22 x the
               monolithic prefills that missed the cache. In every lane the
               lane's kernel, and no plain version, served its attention;
-5. numbers  — each kernel's time at the main path's shapes beside its
+5. train    — after the server phase has stopped its lanes: full-width
+              training of TinyLlama-1.1B geometry (22 layers, f32 weights
+              from seed 0, f32 forward, AdamW) on the train command's
+              synthetic batch, 4 steps at B 4 x S 1024 (lr 1e-4; the loss
+              must fall) and 2 at B 8 x S 2048 with remat, the launch counts
+              set to 0 before the phase and read after every step: 22 flash
+              forwards (44 with remat) and 22 launches of each backward
+              kernel per step, no plain call; per step wall, host issue and
+              device busy time, the idle share, the flash kernels' shares,
+              tokens/s and peak memory;
+6. numbers  — each kernel's time at the main path's shapes beside its
               bound, the plain version's time and the library's
               (scaled_dot_product_attention; for the paged reads over K/V
               gathered dense, and dequantized for int8, beforehand; for the
-              flash forward over q, k, v transposed beforehand; neither
-              copy is timed, and the port never calls the library); one
-              full-width forward per step the lanes run (the two-path
-              prefill window and the dense prefill at 256 and 2048 tokens
-              included), the host's time to issue it, the card's busy time
-              in it (torch.profiler) and the attention kernel's share.
+              flash forward over q, k, v transposed beforehand, and for the
+              backward the device time of its autograd backward; no copy is
+              timed, and the port never calls the library); one full-width
+              forward per step the lanes run (the two-path prefill window
+              and the dense prefill at 256 and 2048 tokens included), the
+              host's time to issue it, the card's busy time in it
+              (torch.profiler) and the attention kernel's share.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON.
@@ -70,7 +90,14 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+# H100 SXM float32 outside the tensor cores: the roof of the port's f32
+# products, which run without TF32.
+PEAK_F32_FLOPS = 67e12
 F32_TOL = 1e-5
+# The flash backward, as max|got - ref| / max|ref| per gradient: f32 sums
+# in another order (1e-4); bf16 p and ds rounded from f32 values that
+# differ in their last bits (2e-2).
+BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
 QUANT_TOL = 2e-4
 OUT_DIR = Path("chiprun_out")
@@ -96,6 +123,12 @@ KERNELS = {
     "flash_attention": dict(
         source="tpu_engine_torch/csrc/flash_attention.cu",
         replaces="tpu_engine/ops/flash.py:53", lane="dense-bf16"),
+    "flash_attention_bwd_dq": dict(
+        source="tpu_engine_torch/csrc/flash_attention_bwd.cu",
+        replaces="tpu_engine/ops/flash.py:208", lane="train"),
+    "flash_attention_bwd_dkv": dict(
+        source="tpu_engine_torch/csrc/flash_attention_bwd.cu",
+        replaces="tpu_engine/ops/flash.py:255", lane="train"),
 }
 PAGED = dict(gen_kv_block_size=16)
 LANES = {
@@ -117,6 +150,8 @@ def wrapper(name: str):
 
     if name == "flash_attention":
         return flash.flash_attention_fwd
+    if name.startswith("flash_attention_bwd"):
+        return getattr(flash, name)
     return getattr(paged_attention, name)
 
 
@@ -408,9 +443,14 @@ def phase_parity(torch, pa) -> dict:
     dev = torch.device("cuda")
     errs = {name: {} for name in KERNELS}
 
-    def record(kernel, case, err, tol):
-        log(f"parity {kernel} {case}: max_abs_err {err:.3e} (tol {tol:g})")
-        check(err <= tol, f"{kernel} parity {case}: {err} > {tol}")
+    def record(kernel, case, err, tol, ref_max=None):
+        """``ref_max``: the tolerance is ``tol`` times the reference's
+        largest magnitude (the backward's gradients), else absolute."""
+        bound = tol if ref_max is None else tol * ref_max
+        scope = "" if ref_max is None else f" x max|ref| {ref_max:.3e}"
+        log(f"parity {kernel} {case}: max_abs_err {err:.3e} (tol "
+            f"{tol:g}{scope})")
+        check(err <= bound, f"{kernel} parity {case}: {err} > {bound}")
         errs[kernel][case] = err
 
     def run(kernel, t):
@@ -473,6 +513,7 @@ def phase_parity(torch, pa) -> dict:
     record("quant_paged_attention", "int8 main path decode",
            float((out - ref).abs().max()), QUANT_TOL)
     parity_flash(torch, dev, record)
+    parity_flash_bwd(torch, dev, record)
     return errs
 
 
@@ -539,6 +580,106 @@ def parity_flash(torch, dev, record) -> None:
         del ref, ref_lse
 
 
+# (case, parity_inputs kwargs, causal, mask, window): the shapes of
+# tests/test_flash_backward.py (mask: the valid leading keys of every row,
+# or "row 1 dead", a batch row with no valid key) and the window case of
+# tests/test_sliding_window.py.
+FLASH_BWD_F32_CASES = (
+    ("causal (2, 64, 2, 32)", dict(sq=64, n_heads=2, d_head=32), True, None,
+     None),
+    ("causal (1, 200, 4, 64)", dict(batch=1, sq=200, n_heads=4, d_head=64),
+     True, None, None),
+    ("padding mask (2, 96, 2, 32)", dict(sq=96, n_heads=2, d_head=32), True,
+     70, None),
+    ("non-causal (2, 48, 2, 32)", dict(sq=48, n_heads=2, d_head=32), False,
+     None, None),
+    ("fully masked row (2, 32, 2, 16)", dict(sq=32, n_heads=2, d_head=16),
+     True, "row 1 dead", None),
+    ("window 9 (1, 96, 2, 16)", dict(batch=1, sq=96, n_heads=2, d_head=16),
+     True, None, 9),
+)
+# (case, S, H, D, left padding): TinyLlama prefill rows, as the forward's.
+FLASH_BWD_BF16_CASES = (
+    ("TinyLlama S256", 256, 32, 64, 37),
+    ("TinyLlama S2048", 2048, 32, 64, 300),
+)
+
+
+def _bwd_mask(torch, dev, b, s, spec):
+    if spec is None:
+        return None
+    m = np.ones((b, s), np.int32)
+    if spec == "row 1 dead":
+        m[1] = 0
+    else:
+        m[:, spec:] = 0
+    return torch.from_numpy(m).to(dev)
+
+
+def parity_flash_bwd(torch, dev, record) -> None:
+    """#6 and #7 against their plain versions on the same inputs (the
+    forward kernel's out and lse, a unit-normal do), bit-identical over two
+    runs; then FlashAttention's autograd as a whole against the plain
+    backward (f32 cases)."""
+    from tpu_engine_torch.ops import flash as fl
+
+    def held(kernel, case, pairs, tol):
+        """Record the (got, want) pair whose error, relative to its
+        reference's largest magnitude, is the largest."""
+        errs = []
+        for got, want in pairs:
+            e = float((got.float() - want.float()).abs().max())
+            m = max(float(want.float().abs().max()), 1e-30)
+            errs.append((e / m, e, m))
+        _, e, m = max(errs)
+        record(kernel, case, e, tol, m)
+
+    def one(case, q, k, v, mask, causal, window, tol, function):
+        args = dict(causal=causal, window=window)
+        out, lse = fl.flash_attention_fwd(q, k, v, mask=mask, **args)
+        rng = np.random.default_rng(9)
+        do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(
+            dev, q.dtype)
+        a = (q, k, v, mask, lse, fl.bwd_delta(do, out), do)
+        runs = [(fl.flash_attention_bwd_dq(*a, **args),
+                 *fl.flash_attention_bwd_dkv(*a, **args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"flash backward {case}: two runs differ")
+        check(all(bool(torch.isfinite(g.float()).all()) for g in runs[0]),
+              f"flash backward {case}: non-finite gradient")
+        dq, dk, dv = runs[0]
+        ref = (fl.flash_attention_bwd_dq_reference(*a, **args),
+               *fl.flash_attention_bwd_dkv_reference(*a, **args))
+        held("flash_attention_bwd_dq", case, [(dq, ref[0])], tol)
+        held("flash_attention_bwd_dkv", case, [(dk, ref[1]), (dv, ref[2])],
+             tol)
+        if function:
+            t = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = fl.flash_attention(*t, mask=mask, **args)
+            check(o.grad_fn is not None, "FlashAttention: no grad_fn")
+            got = torch.autograd.grad(o, t, do)
+            ref_o, ref_lse = fl.flash_attention_reference(q, k, v, mask=mask,
+                                                          **args)
+            want = fl.flash_attention_bwd_reference(q, k, v, mask, ref_o,
+                                                    ref_lse, do, **args)
+            held("flash_attention_bwd_dq", f"FlashAttention {case}",
+                 [(got[0], want[0])], tol)
+            held("flash_attention_bwd_dkv", f"FlashAttention {case}",
+                 list(zip(got[1:], want[1:])), tol)
+
+    for case, kw, causal, mask, window in FLASH_BWD_F32_CASES:
+        q, k, v = (torch.from_numpy(x).to(dev)
+                   for x in fl.parity_inputs(seed=5, **kw))
+        one(f"f32 {case}", q, k, v,
+            _bwd_mask(torch, dev, q.shape[0], q.shape[1], mask), causal,
+            window, BWD_F32_TOL, True)
+    for case, s, h, d, pad in FLASH_BWD_BF16_CASES:
+        q, k, v, mask = flash_inputs(torch, dev, s, h, d, pad)
+        one(f"bf16 {case}", q, k, v, mask, True, None, BF16_TOL, False)
+        torch.cuda.empty_cache()
+
+
 def phase_small_model(torch) -> None:
     """A small llama served on the card (kernels) against the same f32
     weights served on the CPU (plain versions), in every lane's mode:
@@ -588,6 +729,236 @@ def phase_small_model(torch) -> None:
         check(outs["cuda"] == outs["cpu"],
               f"small-model greedy streams ({name} {mode}) differ between "
               f"card and CPU")
+
+
+def run_train(argv, params=None) -> str:
+    """The port's train command in-process; returns what it printed."""
+    import contextlib
+    import io
+
+    from tpu_engine_torch.serving import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.train(argv, params=params)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  train: {line}")
+    check(rc == 0, f"train {argv}: exit code {rc}")
+    return text
+
+
+def phase_train_small(torch) -> dict:
+    """llama-small-test in f32 (TF32 off): three make_train_step steps on
+    the card (the flash forward and backward kernels) against the same
+    steps on the CPU (plain versions), losses within 1e-4 relative; then
+    the train command with --out and --resume on the card, and the port's
+    worker serving <out>/params with a generator's greedy tokens."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+    from tpu_engine_torch.serving import cli
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.training.train import (
+        adamw,
+        cross_entropy_loss,
+        make_train_step,
+        tree_map,
+    )
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    spec = create_model("llama-small-test")
+    cfg = spec.config
+    params = init_params(cfg, seed=3, device="cpu", dtype="float32")
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(1, cfg.vocab, (4, 65)).astype(np.int32)
+               for _ in range(3)]
+    bwd = wrapper("flash_attention_bwd_dq")
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        init_state, step = make_train_step(
+            lambda p, x, dtype: transformer_apply(p, x, cfg, dtype=dtype),
+            loss_fn=cross_entropy_loss, optimizer=adamw(1e-3),
+            dtype=torch.float32)
+        state = init_state(tree_map(lambda t: t.clone().to(dev), params))
+        launches = bwd.launches
+        losses[dev] = []
+        for b in batches:
+            t = torch.from_numpy(b).to(dev)
+            state, loss = step(state, t[:, :-1], t[:, 1:])
+            losses[dev].append(float(loss))
+        if dev == "cuda":
+            check(bwd.launches == launches + 3 * cfg.n_layers,
+                  "small train: the dq kernel did not run once per layer")
+        del state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"train small llama f32: card losses {losses['cuda']} cpu "
+        f"{losses['cpu']} (max rel diff {rel:.2e}, tol 1e-4)")
+    check(rel <= 1e-4, f"small train: card and CPU losses differ by {rel}")
+
+    root = OUT_DIR / "train_small"
+    common = ["--model", "llama-small-test", "--batch", "4", "--seq", "64",
+              "--log-every", "1"]
+    text = run_train([*common, "--steps", "6", "--out", str(root / "ck1")])
+    cli_losses = [float(ln.split()[-1]) for ln in text.splitlines()
+                  if ln.startswith("step ")]
+    check(len(cli_losses) == 6 and cli_losses[-1] < cli_losses[0],
+          f"train command: the loss did not fall: {cli_losses}")
+    trained = spec.init(0, device="cuda", dtype="float32")
+    text = run_train([*common, "--steps", "2", "--resume",
+                      str(root / "ck1" / "state"), "--out",
+                      str(root / "ck2")], params=trained)
+    check("resumed at step 6" in text and "step 8:" in text,
+          f"train command: resume did not continue the step count: {text}")
+    name, served = cli.resolve_model(str(root / "ck2" / "params"),
+                                     device="cuda", dtype="float32")
+    check(name == "llama-small-test", f"sidecar names {name}")
+    worker, server = serve_worker(WorkerConfig(
+        port=0, node_id="chip-smoke-trained", model=name, dtype="float32",
+        device="cuda"), params=served)
+    gen = ContinuousGenerator(spec, device="cuda", dtype="float32",
+                              step_chunk=16,
+                              params=tree_map(lambda t: t.detach(), trained))
+    try:
+        prompt = [5, 9, 3, 7, 11]
+        got = post(server.port, "/generate", {
+            "request_id": "trained", "prompt_tokens": prompt,
+            "max_new_tokens": 8})["tokens"]
+        want = gen.generate([prompt], max_new_tokens=8)[0]
+    finally:
+        server.stop()
+        worker.stop()
+        gen.stop()
+    log(f"train small: worker on <out>/params greedy {got}, in-process "
+        f"{want}")
+    check(got == want, "the worker on the trained params differs from the "
+                       "in-process generator")
+    return {"card_losses": losses["cuda"], "cpu_losses": losses["cpu"],
+            "max_rel_loss_diff": rel, "cli_losses": cli_losses,
+            "served_tokens": got}
+
+
+def measured_step(torch, fn) -> dict:
+    """One training step under torch.profiler: wall ms (to the end of the
+    card's work), host issue ms (until fn returns), device busy ms (the
+    device events summed), and the flash kernels' device ms by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = fn()
+        issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in events) / 1e3
+
+    def kernel_ms(name):
+        return sum(e.device_time_total for e in events
+                   if f"{name}<" in e.name or e.name.endswith(name)) / 1e3
+    return {"loss": float(loss), "wall_ms": wall * 1e3,
+            "issue_ms": issue * 1e3, "busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "flash_fwd_ms": kernel_ms("flash_attention_kernel"),
+            "flash_bwd_ms": kernel_ms("flash_attention_bwd_dq_kernel")
+            + kernel_ms("flash_attention_bwd_dkv_kernel")}
+
+
+# The full-width training runs: (name, steps, batch, seq, lr, remat).
+TRAIN_RUNS = (("B4 S1024", 4, 4, 1024, 1e-4, False),
+              ("B8 S2048 remat", 2, 8, 2048, 1e-3, True))
+
+
+def phase_train(torch) -> dict:
+    """TinyLlama-1.1B geometry (llama, 22 layers), f32 weights from seed 0,
+    an f32 forward and AdamW, on the train command's fixed synthetic batch:
+    4 steps at B 4 x S 1024 (lr 1e-4) and 2 steps at the command's defaults,
+    B 8 x S 2048 with remat. The launch counts are set to 0 before the
+    phase and read after each step: 22 flash forwards per step (44 with
+    remat), 22 launches of each backward kernel, no plain call."""
+    import gc
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.training.train import (
+        adamw,
+        cross_entropy_loss,
+        make_train_step,
+    )
+
+    spec = create_model("llama")
+    cfg = spec.config
+    out = {"runs": {}}
+    kernels.reset_counts()  # the train phase: counts from 0, read after
+    for name, steps, batch, seq, lr, remat in TRAIN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def apply_fn(p, x, dtype, remat=remat):
+            return transformer_apply(p, x, cfg, dtype=dtype, remat=remat)
+
+        init_state, train_step = make_train_step(
+            apply_fn, loss_fn=cross_entropy_loss, optimizer=adamw(lr),
+            dtype=torch.float32)
+        state = init_state(spec.init(0, device="cuda", dtype="float32"))
+        # The train command's fixed synthetic batch (seed 0, offset 0).
+        tokens = np.random.default_rng(0).integers(
+            1, cfg.vocab, (batch, seq + 1)).astype(np.int32)
+        window = torch.from_numpy(tokens).cuda()
+        x, y = window[:, :-1], window[:, 1:]
+        recs = []
+        for k in range(steps):
+            before = launch_counts()
+            rec = measured_step(torch, lambda: train_step(state, x, y))
+            after = launch_counts()
+            n = {kk: after[kk][0] - before[kk][0] for kk in after}
+            want_fwd = cfg.n_layers * (2 if remat else 1)
+            check(n["flash_attention"] == want_fwd
+                  and n["flash_attention_bwd_dq"] == cfg.n_layers
+                  and n["flash_attention_bwd_dkv"] == cfg.n_layers
+                  and all(v == 0 for kk, v in n.items()
+                          if not kk.startswith("flash")),
+                  f"train {name} step {k + 1}: launches {n}")
+            check(np.isfinite(rec["loss"]),
+                  f"train {name} step {k + 1}: loss {rec['loss']}")
+            rec.update(launches=n, tokens_per_s=batch * seq
+                       / (rec["wall_ms"] / 1e3))
+            recs.append(rec)
+            log(f"train {name} step {k + 1}: loss {rec['loss']:.4f}, "
+                f"{rec['wall_ms']:.1f} ms (host issue "
+                f"{rec['issue_ms']:.1f} ms, device busy "
+                f"{rec['busy_ms']:.1f} ms, idle "
+                f"{100 * rec['idle_share']:.1f}%), flash forward "
+                f"{rec['flash_fwd_ms']:.1f} ms "
+                f"({100 * rec['flash_fwd_ms'] / rec['wall_ms']:.1f}%), "
+                f"backward {rec['flash_bwd_ms']:.1f} ms "
+                f"({100 * rec['flash_bwd_ms'] / rec['wall_ms']:.1f}%), "
+                f"{rec['tokens_per_s']:.0f} tokens/s; launches flash "
+                f"{n['flash_attention']}, dq {n['flash_attention_bwd_dq']}, "
+                f"dkv {n['flash_attention_bwd_dkv']}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"train {name}: max_memory_allocated {peak / 2**30:.2f} GiB")
+        if name == TRAIN_RUNS[0][0]:
+            check(recs[-1]["loss"] < recs[0]["loss"],
+                  f"train {name}: the loss did not fall")
+        out["runs"][name] = {"steps": recs, "max_memory_allocated": peak,
+                             "batch": batch, "seq": seq, "lr": lr,
+                             "remat": remat}
+        del state, x, y, window
+    counts = launch_counts()
+    check(all(p == 0 for _, p in counts.values()),
+          f"train: plain versions ran: {counts}")
+    out["launches"] = {k: n for k, (n, _) in counts.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def start_lane(torch, params, lane: str):
@@ -906,9 +1277,83 @@ def flash_numbers(torch, s: int) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
+def flash_bwd_bound_ms(torch, q, kernel: str) -> tuple:
+    """Least time for #6 or #7 over causal (B, S, H, D) inputs with no
+    mask: the larger of the bytes (q, k, v and do read once in their dtype,
+    lse and delta in f32, dq (#6) or dk and dv (#7) written once) over
+    3.35 TB/s and 6*D (#6: s, dp, dq) or 8*D (#7: s, dp, dv, dk) flops per
+    attended (query, key) pair, S(S+1)/2 per head, over the card's peak in
+    the inputs' type (bf16 tensor cores, or f32 CUDA cores: the port's f32
+    products run without TF32)."""
+    b, s, h, d = q.shape
+    n_out = 1 if kernel == "flash_attention_bwd_dq" else 2
+    nbytes = (4 + n_out) * q.numel() * q.element_size() + 2 * b * h * s * 4
+    pairs = b * h * s * (s + 1) // 2
+    flops = (6 if n_out == 1 else 8) * d * pairs
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def flash_bwd_numbers(torch, b: int, s: int, dtype) -> dict:
+    """#6 and #7 over one causal call (H 32, D 64, unit-normal inputs, the
+    forward kernel's out and lse): the kernels, their plain versions, and
+    the backward of scaled_dot_product_attention(is_causal=True) on the
+    same tensors transposed to (B, H, S, D) beforehand, its forward run
+    once beforehand and retained (neither timed): the device time of one
+    autograd backward call, its device events summed under torch.profiler.
+    (Events bracketing that call would also count the autograd engine's
+    host gaps between its kernels, which vary from run to run.) The
+    library call computes dq, dk and dv at once; it is set beside each
+    kernel and compares with #6 + #7 together."""
+    import torch.nn.functional as F
+
+    from tpu_engine_torch.ops import flash as fl
+
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, 32, 64), np.float32)).to("cuda", dtype) for _ in range(4))
+    out, lse = fl.flash_attention_fwd(q, k, v, causal=True)
+    a = (q, k, v, None, lse, fl.bwd_delta(do, out), do)
+    qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dd = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    library = busy_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qq, kk, vv), dd, retain_graph=True), iters=10)
+    res = {}
+    for kernel in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        fn = getattr(fl, kernel)
+        ref = getattr(fl, kernel + "_reference")
+        ms = time_ms(torch, lambda: fn(*a, causal=True))
+        plain = time_ms(torch, lambda: ref(*a, causal=True), iters=3)
+        bound, by = flash_bwd_bound_ms(torch, q, kernel)
+        log(f"numbers {kernel} (B {b}, S {s}, H 32, D 64, causal, "
+            f"{str(dtype).split('.')[-1]}): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa backward (dq, dk, dv) {library:.4f} ms, "
+            f"bound {bound:.5f} ms ({by})")
+        res[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                       "bound_ms": bound, "bound_by": by}
+    del a, out, lse, qq, kk, vv, sdpa_out
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_numbers(torch, pa) -> dict:
     res = {}
+    # The flash backward: the train phase's shape first (the row of the
+    # kernels line), then the forward's prefill rows.
+    shapes = (("train B=4 S=1024 f32", 4, 1024, torch.float32),
+              ("prefill S=256 bf16", 1, 256, torch.bfloat16),
+              ("prefill S=2048 bf16", 1, 2048, torch.bfloat16))
+    for key, b, s, dtype in shapes:
+        for kernel, r in flash_bwd_numbers(torch, b, s, dtype).items():
+            res.setdefault(kernel, {})[key] = r
     for kernel in KERNELS:
+        if kernel.startswith("flash_attention_bwd"):
+            continue
         if kernel == "flash_attention":
             res[kernel] = {f"prefill S={s}": flash_numbers(torch, s)
                            for s in (256, 2048)}
@@ -1080,7 +1525,9 @@ def main() -> int:
     (OUT_DIR / "build_log.txt").write_text(kl.build_log)
     errs = phase_parity(torch, pa)
     phase_small_model(torch)
+    train_small = phase_train_small(torch)
     server = phase_server(torch)
+    train = phase_train(torch)
     numbers = phase_numbers(torch, pa)
     rows = []
     for name, meta in KERNELS.items():
@@ -1088,15 +1535,17 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": server[meta["lane"]]["launches"],
+            "launches": (train["launches"][name] if meta["lane"] == "train"
+                         else server[meta["lane"]]["launches"]),
             "max_abs_err": max(errs[name].values()),
             **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
         })
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "parity": errs, "server": server,
-         "numbers": numbers, **kernels}, indent=1))
+        {"card": card, "parity": errs, "train_small": train_small,
+         "server": server, "train": train, "numbers": numbers, **kernels},
+        indent=1))
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

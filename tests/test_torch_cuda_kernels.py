@@ -12,7 +12,12 @@ softmax weights in f32 where the plain version rounds them to bf16);
 (the kernel applies the K scales after the product, the plain version
 dequantizes first). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
 round the weights to bf16, the kernel against its running maximum, the
-plain version against the row's), on out and on lse."""
+plain version against the row's), on out and on lse. The flash backward
+(dq; dk and dv): 1e-4 of the gradient's largest magnitude in f32 (f32
+sums in another order), 2e-2 in bf16 (p and ds rounded to bf16 from f32
+values that differ in their last bits); also the FlashAttention Function
+on the card against the CPU, run-to-run bit identity, and training
+gradients of a small llama on the card against the CPU."""
 
 import numpy as np
 import pytest
@@ -166,8 +171,8 @@ FLASH_CASES = {
 }
 
 
-def _flash_inputs(dev, case, d, dtype):
-    kw, causal, valid, window = FLASH_CASES[case]
+def _flash_inputs(dev, case, d, dtype, cases=None):
+    kw, causal, valid, window = (cases or FLASH_CASES)[case]
     q, k, v = (torch.from_numpy(a).to(dev, dtype)
                for a in tfl.parity_inputs(d_head=d, seed=d, **kw))
     mask = None
@@ -237,3 +242,160 @@ def test_flash_kernel_refuses_bad_arguments(cuda_device):
                        lse.data_ptr(), 0, 64, 64, 4, 16,
                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        1, 0, 0.25, 0)
+
+
+# The flash backward (#6 dq, #7 dk/dv): the forward's cases plus causal
+# with Sq < Sk (keys past the last query get dk = dv = 0).
+BWD_CASES = dict(FLASH_CASES,
+                 **{"causal-ragged-37-100": (dict(sq=37, sk=100), True, None,
+                                             None)})
+BWD_F32_TOL = 1e-4   # max|Δ| / max|ref|: differently ordered f32 sums
+BWD_BF16_TOL = 2e-2  # p and ds rounded to bf16 from f32 values that differ
+
+
+def _bwd_inputs(dev, case, d, dtype):
+    q, k, v, kw = _flash_inputs(dev, case, d, dtype, BWD_CASES)
+    out, lse = tfl.flash_attention_reference(q, k, v, **kw)
+    rng = np.random.default_rng(d + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(
+        dev, dtype)
+    delta = tfl.bwd_delta(do, out)
+    return (q, k, v, kw["mask"], lse, delta, do), kw
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp(min=1e-12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+@pytest.mark.parametrize("d", tfl.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, BWD_F32_TOL),
+                                       (torch.bfloat16, BWD_BF16_TOL)])
+def test_flash_bwd_kernels_match_plain(cuda_device, case, d, dtype, tol):
+    args, kw = _bwd_inputs(cuda_device, case, d, dtype)
+    kw = dict(causal=kw["causal"], window=kw["window"])
+    dq = _launched(tfl.flash_attention_bwd_dq,
+                   lambda: tfl.flash_attention_bwd_dq(*args, **kw))
+    dk, dv = _launched(tfl.flash_attention_bwd_dkv,
+                       lambda: tfl.flash_attention_bwd_dkv(*args, **kw))
+    ref_dq = tfl.flash_attention_bwd_dq_reference(*args, **kw)
+    ref_dk, ref_dv = tfl.flash_attention_bwd_dkv_reference(*args, **kw)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert bool(torch.isfinite(got.float()).all())
+        if float(ref.float().abs().max()) == 0.0:
+            assert float(got.float().abs().max()) == 0.0
+        else:
+            assert _rel_err(got, ref) < tol
+    if case == "causal-ragged-37-100":
+        assert float(dk[:, 37:].abs().max()) == 0.0
+        assert float(dv[:, 37:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_bwd_is_bit_identical_across_runs(cuda_device):
+    args, kw = _bwd_inputs(cuda_device, "causal-left-pad", 64,
+                           torch.bfloat16)
+    kw = dict(causal=kw["causal"], window=kw["window"])
+    first = (tfl.flash_attention_bwd_dq(*args, **kw),
+             *tfl.flash_attention_bwd_dkv(*args, **kw))
+    again = (tfl.flash_attention_bwd_dq(*args, **kw),
+             *tfl.flash_attention_bwd_dkv(*args, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal-left-pad", "window-64-pad",
+                                  "ragged-37-53"])
+def test_flash_function_grads_match_cpu(cuda_device, case):
+    """FlashAttention's autograd on the card (forward and both backward
+    kernels) against the same inputs through the plain path on the CPU."""
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v, kw = _flash_inputs(torch.device(dev), case, 64,
+                                    torch.float32)
+        t = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = tfl.flash_attention(*t, **kw)
+        assert out.grad_fn is not None
+        w = torch.sin(torch.arange(out.numel(), device=out.device,
+                                   dtype=torch.float32).reshape(out.shape))
+        (out * w).sum().backward()
+        grads[str(dev)] = [x.grad.cpu() for x in t]
+    for got, ref in zip(grads[str(cuda_device)], grads["cpu"]):
+        assert _rel_err(got, ref) < BWD_F32_TOL
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_bad_arguments(cuda_device):
+    args, _ = _bwd_inputs(cuda_device, "causal", 16, torch.float32)
+    q, k, v, mask, lse, delta, do = args
+    with pytest.raises(ValueError, match="do "):
+        tfl.flash_attention_bwd_dq(q, k, v, mask, lse, delta, do.bfloat16(),
+                                   causal=True)
+    with pytest.raises(ValueError, match="lse must be"):
+        tfl.flash_attention_bwd_dkv(q, k, v, mask, lse[:, :2].contiguous(),
+                                    delta, do, causal=True)
+    # A launch the library refuses (no batch) raises, it never runs.
+    dq = torch.empty_like(q)
+    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    with pytest.raises(RuntimeError,
+                       match="flash_attention_bwd_dq launch failed"):
+        kernels.launch("flash_attention_bwd_dq", q.device, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), None, do.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), 0,
+                       64, 64, 4, 16, *strides, 1, 0, 0.25, 0)
+
+
+def _small_llama_grads(dev, dtype="float32"):
+    from tpu_engine_torch.models.convert import init_params, params_to
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.training.train import (
+        cross_entropy_loss,
+        tree_leaves,
+    )
+
+    cfg = create_model("llama-small-test").config
+    params = params_to(init_params(cfg, seed=3, device="cpu", dtype=dtype),
+                       dev)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 33)).astype(np.int32)).to(dev)
+    loss = cross_entropy_loss(transformer_apply(
+        params, tok[:, :-1], cfg, dtype=getattr(torch, dtype)), tok[:, 1:])
+    loss.backward()
+    return params
+
+
+@pytest.mark.cuda
+def test_transformer_apply_grads_on_the_card(cuda_device):
+    """Repair: on the card the attention projections get their gradient
+    (through the flash backward kernels), equal to the plain path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bwd = tfl.flash_attention_bwd_dq
+    launches = bwd.launches
+    card = _small_llama_grads(cuda_device)
+    assert bwd.launches == launches + 2  # one per layer
+    cpu = _small_llama_grads(torch.device("cpu"))
+    for w in ("wq", "wk", "wv"):
+        got = card["blocks"][0]["attn"][w]["kernel"].grad
+        ref = cpu["blocks"][0]["attn"][w]["kernel"].grad
+        assert float(got.abs().max()) > 0
+        assert _rel_err(got.cpu(), ref) < BWD_F32_TOL
+
+
+@pytest.mark.cuda
+def test_bf16_apply_under_autograd_never_detaches(cuda_device):
+    """A bf16 forward on the card under autograd either trains the
+    attention projections or raises: it never returns a loss detached from
+    them."""
+    try:
+        params = _small_llama_grads(cuda_device, "bfloat16")
+    except (RuntimeError, NotImplementedError):
+        return
+    grad = params["blocks"][0]["attn"]["wq"]["kernel"].grad
+    assert grad is not None and float(grad.float().abs().max()) > 0

@@ -4,9 +4,9 @@ and /generate/stream tokens equal the JAX mixed-step generator's; a
 two-path lane's, an int8 lane's and the default (dense) lane's tokens
 equal the JAX generator's of the same mode; /health and /stats carry the
 JAX schemas for the ported blocks; the --kv-quantize guard refuses as the
-JAX worker's does; and neither the package nor chip_smoke.py imports jax
-or tpu_engine (a serving subprocess's sys.modules, and an AST scan of the
-sources)."""
+JAX worker's does; and neither the package nor chip_smoke.py imports jax,
+tpu_engine, optax or orbax (a serving subprocess's sys.modules, and an AST
+scan of the sources)."""
 
 import ast
 import http.client
@@ -314,6 +314,6 @@ def test_package_sources_import_no_jax():
                 continue
             for n in names:
                 root = n.split(".")[0]
-                if root in ("jax", "jaxlib", "tpu_engine"):
+                if root in ("jax", "jaxlib", "tpu_engine", "optax", "orbax"):
                     offenders.append(f"{path.relative_to(REPO)}: {n}")
     assert offenders == []

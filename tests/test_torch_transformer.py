@@ -247,7 +247,7 @@ def test_decode_window_matches_jax(name, head):
     pb, w = 32, 12
     tokens = rng.integers(0, jcfg.vocab, (2, pb)).astype(np.int32)
     jc = jt.init_caches(jcfg, 2, pb, jnp.float32)
-    tc = tt.init_caches(tcfg, 2, pb, torch.float32)
+    tc = tt.init_caches(tcfg, 2, pb, torch.float32, device="cpu")
     assert tuple(tc.k.shape) == tuple(jc.k.shape)
     start = np.array([0, 3], np.int32)
     # Three windows per row, the last one narrower (a prompt's tail).
@@ -320,7 +320,7 @@ def _prefill_both(name, pb=32):
         params, jnp.asarray(tokens), jt.init_caches(jcfg, 2, 48, jnp.float32),
         jcfg, dtype=jnp.float32, attn_mask=jnp.asarray(attn),
         pos_ids=jnp.asarray(pos_ids))
-    tc = tt.init_caches(tcfg, 2, 48, torch.float32)
+    tc = tt.init_caches(tcfg, 2, 48, torch.float32, device="cpu")
     tl, tc2 = tt.transformer_prefill(
         tparams, torch.from_numpy(tokens), tc, tcfg, dtype=torch.float32,
         attn_mask=torch.from_numpy(attn), pos_ids=torch.from_numpy(pos_ids))
@@ -411,5 +411,6 @@ def test_dense_forwards_refuse_unported_dialects():
             tt.transformer_apply(tparams, tokens, cfg, dtype=torch.float32)
         with pytest.raises(NotImplementedError, match="decoder dialects"):
             tt.transformer_prefill(tparams, tokens,
-                                   tt.init_caches(tcfg, 1, 8, torch.float32),
+                                   tt.init_caches(tcfg, 1, 8, torch.float32,
+                                                  device="cpu"),
                                    cfg, dtype=torch.float32)

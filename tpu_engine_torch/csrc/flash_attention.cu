@@ -11,6 +11,10 @@
 //   optional sliding window (keys j > i - window; causal only)
 //   ->  out (B, Sq, H, D) in v's dtype, lse (B, H, Sq) f32.
 //   A query row with no valid key gives out 0 and lse -inf, never NaN.
+//   lse is the residual of the backward: the two kernels of
+//   flash_attention_bwd.cu (the ports of `_bwd_dq_kernel` and
+//   `_bwd_dkv_kernel`) recompute the probabilities from it, and its -inf
+//   rows give them zero gradients.
 //
 // Rounding points are the TPU kernel's: scores are products of the input
 // values summed in f32 and scaled by 1/sqrt(D); the softmax runs in f32;

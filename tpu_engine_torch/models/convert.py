@@ -17,6 +17,12 @@ import numpy as np
 import torch
 
 from tpu_engine_torch.models.transformer import TransformerConfig
+from tpu_engine_torch.training.train import (
+    TrainState,
+    adamw,
+    tree_leaves,
+    tree_map,
+)
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
 
@@ -39,11 +45,12 @@ def _layer(tree, li: int):
     return tree[li]
 
 
-def params_from_jax(tree, cfg: TransformerConfig, device="cpu",
+def params_from_jax(tree, cfg: TransformerConfig, device=None,
                     dtype="float32"):
     """The JAX package's param pytree, as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), to the port's tree. The
-    stacked (L, ...) ``blocks`` leaves are split per layer."""
+    (``jax.tree.map(np.asarray, params)``), to the port's tree on
+    ``device`` (None = the CUDA card). The stacked (L, ...) ``blocks``
+    leaves are split per layer."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     out = {k: _convert(v, dev, dt) for k, v in tree.items()
@@ -54,12 +61,9 @@ def params_from_jax(tree, cfg: TransformerConfig, device="cpu",
 
 
 def params_to(params, device):
-    """A copy of a parameter tree on ``device`` (same dtypes)."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
+    """A parameter tree on ``device`` (same dtypes; leaves already there
+    are not copied)."""
+    return tree_map(lambda t: t.to(device), params)
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
@@ -116,3 +120,37 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
         params["pos_embed"] = {"table": normal((cfg.max_seq, d), 0.02,
                                                torch.float32)}
     return params
+
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def train_state_from_jax(state_np, cfg: TransformerConfig, device=None):
+    """The JAX package's ``TrainState`` as numpy arrays
+    (``jax.tree.map(np.asarray, state)``, or the dict of ``params``,
+    ``opt_state`` and ``step`` its checkpoint holds) to the port's, on
+    ``device`` (None = the CUDA card): the parameters through
+    ``params_from_jax`` in f32, and optax.adamw's state
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())`` into
+    the AdamW state of each leaf (``step`` = count, ``exp_avg`` = mu,
+    ``exp_avg_sq`` = nu), so a run resumed in the port continues the JAX
+    run. The optimizer is ``training.train.adamw()``, the counterpart of
+    ``optax.adamw(1e-3)``: optax's state does not carry the learning rate
+    (set ``opt_state.param_groups[0]["lr"]`` to continue at another)."""
+    params = params_from_jax(_field(state_np, "params"), cfg, device,
+                             "float32")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = adamw()(leaves)
+    adam = _field(state_np, "opt_state")[0]
+    count = int(np.asarray(_field(adam, "count")))
+    moments = [tree_leaves(params_from_jax(_field(adam, name), cfg, device,
+                                           "float32"))
+               for name in ("mu", "nu")]
+    for leaf, mu, nu in zip(leaves, *moments):
+        opt.state[leaf] = {"step": torch.tensor(float(count)),
+                           "exp_avg": mu, "exp_avg_sq": nu}
+    return TrainState(params=params, opt_state=opt,
+                      step=int(np.asarray(_field(state_np, "step"))))

@@ -1,6 +1,7 @@
-"""Transformer forwards of the serving paths (counterpart of
+"""Transformer forwards of the serving and training paths (counterpart of
 ``tpu_engine/models/transformer.py``): the full-sequence forward
-(``transformer_apply``); the dense scheduler's prompt pass
+(``transformer_apply``, differentiable, optionally rematerialized per
+block); the dense scheduler's prompt pass
 (``transformer_prefill``, through the flash kernel) and its per-row decode
 step over the dense cache (``transformer_decode_rows``); prefill windows
 over a row's own dense cache (``transformer_decode_window``); and the paged
@@ -25,6 +26,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from tpu_engine_torch.ops import nn
 from tpu_engine_torch.ops.attention import (
@@ -35,6 +37,7 @@ from tpu_engine_torch.ops.attention import (
 )
 from tpu_engine_torch.ops.flash import flash_attention
 from tpu_engine_torch.ops.quant import quantize_kv
+from tpu_engine_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,10 +84,12 @@ class KVCache(NamedTuple):
 
 def init_caches(cfg: TransformerConfig, batch: int,
                 max_seq: Optional[int] = None, dtype=torch.bfloat16,
-                device="cpu") -> KVCache:
+                device=None) -> KVCache:
     """Zeroed dense cache (L, batch, max_seq, H_kv, D): the dense
     scheduler's shared cache, and a request's own row cache during its
-    prefill (dense scheduler) or prefill windows (two-path scheduler)."""
+    prefill (dense scheduler) or prefill windows (two-path scheduler).
+    ``device`` None is the CUDA card."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
              cfg.d_head)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -391,21 +396,37 @@ def _attn(bp, x, cfg: TransformerConfig, *, mask, dtype, attn_fn,
 
 
 def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
-                      dtype=torch.bfloat16, attn_fn=None):
+                      dtype=torch.bfloat16, attn_fn=None, remat: bool = False):
     """Full-sequence forward of the decoder dialects. tokens: (B, S) int;
     mask: optional (B, S) int, 1 = valid. Returns f32 logits
     (B, S, vocab). ``attn_fn`` defaults to ``ops.flash.flash_attention``
-    (the CUDA kernel on CUDA tensors)."""
+    (the CUDA kernels on CUDA tensors, forward and backward).
+
+    Differentiable end to end: the gradient reaches every parameter
+    (embeddings, norms, projections, head) through autograd and the flash
+    backward. ``remat=True`` checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of
+    ``jax.checkpoint(body)``: the backward recomputes one block at a time
+    instead of keeping every layer's activations, so the flash forward runs
+    twice per layer per training step."""
     _check_dialect(cfg)
     attn_fn = attn_fn or flash_attention
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     h = _embed(params, tokens, positions[None, :], cfg, dtype)
-    for bp in params["blocks"]:
+
+    def block(bp, h):
         h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
                       dtype=dtype, attn_fn=attn_fn, positions=positions)
         h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
-        h = h.to(dtype)
+        return h.to(dtype)
+
+    for bp in params["blocks"]:
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(block, bp, h,
+                                                  use_reentrant=False)
+        else:
+            h = block(bp, h)
     return _head(params, h, cfg, dtype)
 
 

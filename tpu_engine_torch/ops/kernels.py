@@ -11,9 +11,10 @@ interface: device pointers, sizes and PyTorch's current stream in, a
 card.
 
 The op modules (``ops.paged_attention``, ``ops.flash``) register their
-wrappers here: ``launches`` counts kernel launches, ``plain_calls`` calls
-served by the plain PyTorch version (CPU tensors only). A run that resets
-both to 0 and reads them after shows which path it went through.
+wrappers here, one per kernel: ``launches`` counts kernel launches,
+``plain_calls`` calls served by the plain PyTorch version (CPU tensors
+only). A run that resets both to 0 and reads them after shows which
+path it went through.
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ ENTRY_POINTS = {
     # strides of q, k, v; causal, window; scale; dtype.
     "flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I] * 2 + [_F]
                        + [_I],
+    # q, k, v, mask, do, lse, delta, dq; B, Sq, Sk, H, D; the (b, s, h)
+    # element strides of q, k, v, do; causal, window; scale; dtype.
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I] * 2
+                              + [_F] + [_I],
+    # The same with dk, dv in place of dq.
+    "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I] * 2
+                               + [_F] + [_I],
 }
 
 _build_lock = threading.Lock()

@@ -25,6 +25,9 @@ launches the hand-written kernel that ports the TPU kernel (``csrc/``:
 tensors, and only for them, it takes the plain version. It never falls
 back: a kernel that does not build or launch raises. Each wrapper counts
 its kernel launches (``launches``) and its plain calls (``plain_calls``).
+None of the reads has a backward, here or in the JAX package: a wrapper
+called with grad mode on and a floating input that requires grad raises
+(on either device) rather than return an output detached from its inputs.
 The kernels are built and launched through ``ops.kernels``, the port's one
 kernel library; importing this module needs neither ``nvcc`` nor a card.
 """
@@ -161,6 +164,17 @@ def _check_cuda_args(q, k_pool, v_pool, tables, rows, *, quant=False,
                              f"{tuple(t.shape)}")
 
 
+def _refuse_grad(fn, *tensors) -> None:
+    """Raise if autograd would expect a gradient through ``fn``: the paged
+    reads have no backward (serving calls them on tensors that do not
+    require grad)."""
+    if torch.is_grad_enabled() and any(
+            t.is_floating_point() and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{fn.__name__} has no backward: call it under "
+                           f"torch.no_grad() or on tensors that do not "
+                           f"require grad")
+
+
 def _check_decode(q, k_pool) -> None:
     if q.shape[1] != 1:
         raise ValueError(f"the decode read takes one query slot, got "
@@ -175,7 +189,9 @@ def _check_decode(q, k_pool) -> None:
 def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     """Same contract as ``ragged_paged_attention_reference``. CUDA tensors
     launch the port of ``_ragged_kernel`` (q is taken in f32; the output
-    has the pool's dtype); CPU tensors take the plain version."""
+    has the pool's dtype); CPU tensors take the plain version. It has no
+    backward: inputs that require grad raise."""
+    _refuse_grad(ragged_paged_attention, q, k_pool, v_pool)
     if plain_or_cuda(ragged_paged_attention, q):
         return ragged_paged_attention_reference(q, k_pool, v_pool, tables,
                                                 pos0, qlen)
@@ -197,7 +213,9 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
 def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     """Same contract as ``paged_attention_reference``. CUDA tensors launch
     the port of ``_paged_kernel`` (q is taken in f32; the output has the
-    pool's dtype); CPU tensors take the plain version."""
+    pool's dtype); CPU tensors take the plain version. It has no
+    backward: inputs that require grad raise."""
+    _refuse_grad(paged_attention, q, k_pool, v_pool)
     if plain_or_cuda(paged_attention, q):
         return paged_attention_reference(q, k_pool, v_pool, tables, pos_vec)
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),))
@@ -219,7 +237,9 @@ def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
                           pos_vec):
     """Same contract as ``quant_paged_attention_reference``. CUDA tensors
     launch the port of ``_quant_paged_kernel`` (the output has q's dtype);
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version. It has no
+    backward: inputs that require grad raise."""
+    _refuse_grad(quant_paged_attention, q, k_scale, v_scale)
     if plain_or_cuda(quant_paged_attention, q):
         return quant_paged_attention_reference(q, k_pool, v_pool, k_scale,
                                                v_scale, tables, pos_vec)
@@ -244,7 +264,9 @@ def quant_ragged_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
                                  tables, pos0, qlen):
     """Same contract as ``quant_ragged_paged_attention_reference``. CUDA
     tensors launch the port of ``_quant_ragged_kernel`` (the output has
-    q's dtype); CPU tensors take the plain version."""
+    q's dtype); CPU tensors take the plain version. It has no
+    backward: inputs that require grad raise."""
+    _refuse_grad(quant_ragged_paged_attention, q, k_scale, v_scale)
     if plain_or_cuda(quant_ragged_paged_attention, q):
         return quant_ragged_paged_attention_reference(
             q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen)
