@@ -16,8 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
               normals; for the flash forward on out and lse), int8 pools at
               both (2e-4, the JAX package's bound for its int8 kernels); the
               flash backward (#6 dq, #7 dk and dv) at
-              tests/test_flash_backward.py's shapes and its window case in
-              f32 (1e-4 of the gradient's largest magnitude; also the
+              tests/test_flash_backward.py's shapes, its window case and
+              the train phase's shape in f32 (1e-4 of the gradient's
+              largest magnitude; also the
               FlashAttention autograd Function as a whole) and at TinyLlama
               prefill rows in bf16 (2e-2), each bit-identical over two runs;
               then a small llama (f32, TF32 off) served on the card through
@@ -25,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
               mistral (sliding window) through a dense lane, agrees token
               for token with the same weights served on the CPU through the
               plain versions; three training steps of the small llama on
-              the card give the CPU's losses (1e-4 relative); the train
+              the card give the CPU's losses (f32 1e-4 relative; bf16
+              compute 2e-2); the train
               command trains it with --out, --resume continues the step
               count, and the port's worker serving <out>/params gives the
               in-process generator's greedy tokens;
@@ -51,20 +53,25 @@ Phases (any failure exits non-zero and prints no result line):
               lane's kernel, and no plain version, served its attention;
 5. train    — after the server phase has stopped its lanes: full-width
               training of TinyLlama-1.1B geometry (22 layers, f32 weights
-              from seed 0, f32 forward, AdamW) on the train command's
-              synthetic batch, 4 steps at B 4 x S 1024 (lr 1e-4; the loss
-              must fall) and 2 at B 8 x S 2048 with remat, the launch counts
+              from seed 0, AdamW) on the train command's synthetic batch,
+              4 steps at B 4 x S 1024 with an f32 forward (lr 1e-4; the
+              loss must fall), 3 at the same shape in make_train_step's
+              default bf16 compute (the loss must fall) and 2 at
+              B 8 x S 2048 with remat in f32, the launch counts
               set to 0 before the phase and read after every step: 22 flash
               forwards (44 with remat) and 22 launches of each backward
               kernel per step, no plain call; per step wall, host issue and
-              device busy time, the idle share, the flash kernels' shares,
+              device busy time, the idle share, the flash kernels' shares
+              (and the device time of their f32 and bf16 variants),
               tokens/s and peak memory;
 6. numbers  — each kernel's time at the main path's shapes beside its
               bound, the plain version's time and the library's
               (scaled_dot_product_attention; for the paged reads over K/V
               gathered dense, and dequantized for int8, beforehand; for the
               flash forward over q, k, v transposed beforehand, and for the
-              backward the device time of its autograd backward; no copy is
+              backward the device time of its autograd backward, beside
+              which #6 and #7 are also timed as device time, both robust to
+              the profiler dropping a session's first events; no copy is
               timed, and the port never calls the library); one full-width
               forward per step the lanes run (the two-path prefill window
               and the dense prefill at 256 and 2048 tokens included), the
@@ -303,6 +310,35 @@ def busy_ms(torch, fn, iters: int = 3) -> float:
              if e.device_type == DeviceType.CUDA)
     check(us > 0, "the profiler saw no device time")
     return us / iters / 1e3
+
+
+def device_call_ms(torch, fn, iters: int = 20) -> tuple:
+    """Device time of one fn() call under torch.profiler, and the number of
+    calls whose device events it saw whole. The profiler can drop the first
+    events of a session, so a sum over the session would undercount: each
+    device event name (kernel, copy, fill) counts its mean duration times
+    its occurrences per call (its count over the fewest count of any name),
+    summed."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name].append(e.device_time_total)
+    check(len(by_name) > 0, "the profiler saw no device time")
+    calls = min(len(v) for v in by_name.values())
+    us = sum(sum(v) / len(v) * round(len(v) / calls) for v in by_name.values())
+    return us / 1e3, calls
 
 
 def sdpa_yardstick(torch, inp, int8: bool):
@@ -582,8 +618,8 @@ def parity_flash(torch, dev, record) -> None:
 
 # (case, parity_inputs kwargs, causal, mask, window): the shapes of
 # tests/test_flash_backward.py (mask: the valid leading keys of every row,
-# or "row 1 dead", a batch row with no valid key) and the window case of
-# tests/test_sliding_window.py.
+# or "row 1 dead", a batch row with no valid key), the window case of
+# tests/test_sliding_window.py, and the train phase's shape.
 FLASH_BWD_F32_CASES = (
     ("causal (2, 64, 2, 32)", dict(sq=64, n_heads=2, d_head=32), True, None,
      None),
@@ -597,6 +633,8 @@ FLASH_BWD_F32_CASES = (
      True, "row 1 dead", None),
     ("window 9 (1, 96, 2, 16)", dict(batch=1, sq=96, n_heads=2, d_head=16),
      True, None, 9),
+    ("train shape (4, 1024, 32, 64)",
+     dict(batch=4, sq=1024, n_heads=32, d_head=64), True, None, None),
 )
 # (case, S, H, D, left padding): TinyLlama prefill rows, as the forward's.
 FLASH_BWD_BF16_CASES = (
@@ -749,9 +787,10 @@ def run_train(argv, params=None) -> str:
 
 
 def phase_train_small(torch) -> dict:
-    """llama-small-test in f32 (TF32 off): three make_train_step steps on
-    the card (the flash forward and backward kernels) against the same
-    steps on the CPU (plain versions), losses within 1e-4 relative; then
+    """llama-small-test, f32 weights: three make_train_step steps on the
+    card (the flash forward and backward kernels) against the same steps on
+    the CPU (plain versions), in f32 (TF32 off; losses within 1e-4
+    relative) and in bf16 compute (within BF16_TOL); then
     the train command with --out and --resume on the card, and the port's
     worker serving <out>/params with a generator's greedy tokens."""
     from tpu_engine_torch.models.convert import init_params
@@ -775,28 +814,38 @@ def phase_train_small(torch) -> dict:
     batches = [rng.integers(1, cfg.vocab, (4, 65)).astype(np.int32)
                for _ in range(3)]
     bwd = wrapper("flash_attention_bwd_dq")
-    losses = {}
-    for dev in ("cpu", "cuda"):
-        init_state, step = make_train_step(
-            lambda p, x, dtype: transformer_apply(p, x, cfg, dtype=dtype),
-            loss_fn=cross_entropy_loss, optimizer=adamw(1e-3),
-            dtype=torch.float32)
-        state = init_state(tree_map(lambda t: t.clone().to(dev), params))
-        launches = bwd.launches
-        losses[dev] = []
-        for b in batches:
-            t = torch.from_numpy(b).to(dev)
-            state, loss = step(state, t[:, :-1], t[:, 1:])
-            losses[dev].append(float(loss))
-        if dev == "cuda":
-            check(bwd.launches == launches + 3 * cfg.n_layers,
-                  "small train: the dq kernel did not run once per layer")
-        del state
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                  losses["cpu"]))
-    log(f"train small llama f32: card losses {losses['cuda']} cpu "
-        f"{losses['cpu']} (max rel diff {rel:.2e}, tol 1e-4)")
-    check(rel <= 1e-4, f"small train: card and CPU losses differ by {rel}")
+    small = {}
+    # f32 (TF32 off): f32 sums in another order, 1e-4. bf16 compute
+    # (make_train_step's default): a value rounded to bf16 on one device may
+    # round one ulp (2^-8) away on the other, BF16_TOL.
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", BF16_TOL)):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            init_state, step = make_train_step(
+                lambda p, x, dtype: transformer_apply(p, x, cfg,
+                                                      dtype=dtype),
+                loss_fn=cross_entropy_loss, optimizer=adamw(1e-3),
+                dtype=getattr(torch, dtype))
+            state = init_state(tree_map(lambda t: t.clone().to(dev), params))
+            launches = bwd.launches
+            losses[dev] = []
+            for b in batches:
+                t = torch.from_numpy(b).to(dev)
+                state, loss = step(state, t[:, :-1], t[:, 1:])
+                losses[dev].append(float(loss))
+            if dev == "cuda":
+                check(bwd.launches == launches + 3 * cfg.n_layers,
+                      "small train: the dq kernel did not run once per "
+                      "layer")
+            del state
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        log(f"train small llama {dtype}: card losses {losses['cuda']} cpu "
+            f"{losses['cpu']} (max rel diff {rel:.2e}, tol {tol})")
+        check(rel <= tol and all(np.isfinite(losses["cuda"])),
+              f"small train {dtype}: card and CPU losses differ by {rel}")
+        small[dtype] = {"card_losses": losses["cuda"],
+                        "cpu_losses": losses["cpu"], "max_rel_loss_diff": rel}
 
     root = OUT_DIR / "train_small"
     common = ["--model", "llama-small-test", "--batch", "4", "--seq", "64",
@@ -835,9 +884,7 @@ def phase_train_small(torch) -> dict:
         f"{want}")
     check(got == want, "the worker on the trained params differs from the "
                        "in-process generator")
-    return {"card_losses": losses["cuda"], "cpu_losses": losses["cpu"],
-            "max_rel_loss_diff": rel, "cli_losses": cli_losses,
-            "served_tokens": got}
+    return {**small, "cli_losses": cli_losses, "served_tokens": got}
 
 
 def measured_step(torch, fn) -> dict:
@@ -858,29 +905,46 @@ def measured_step(torch, fn) -> dict:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in events) / 1e3
 
-    def kernel_ms(name):
+    def kernel_ms(*prefixes):
         return sum(e.device_time_total for e in events
-                   if f"{name}<" in e.name or e.name.endswith(name)) / 1e3
+                   if any(p in e.name for p in prefixes)) / 1e3
+
+    # The element type each flash kernel ran in, from its template
+    # arguments (flash_attention_bwd_dq_kernel<float, 64>, or
+    # <__nv_bfloat16, 64>).
+    names = {"fwd": ("flash_attention_kernel",),
+             "bwd": ("flash_attention_bwd_dq_kernel",
+                     "flash_attention_bwd_dkv_kernel")}
+    variants = {f"{k} {t}": kernel_ms(*(f"{n}<{ct}" for n in names[k]))
+                for k in names
+                for t, ct in (("f32", "float"), ("bf16", "__nv_bfloat16"))}
     return {"loss": float(loss), "wall_ms": wall * 1e3,
             "issue_ms": issue * 1e3, "busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
-            "flash_fwd_ms": kernel_ms("flash_attention_kernel"),
-            "flash_bwd_ms": kernel_ms("flash_attention_bwd_dq_kernel")
-            + kernel_ms("flash_attention_bwd_dkv_kernel")}
+            "flash_fwd_ms": kernel_ms("flash_attention_kernel<"),
+            "flash_bwd_ms": kernel_ms("flash_attention_bwd_dq_kernel<",
+                                      "flash_attention_bwd_dkv_kernel<"),
+            "flash_variant_ms": variants}
 
 
-# The full-width training runs: (name, steps, batch, seq, lr, remat).
-TRAIN_RUNS = (("B4 S1024", 4, 4, 1024, 1e-4, False),
-              ("B8 S2048 remat", 2, 8, 2048, 1e-3, True))
+# The full-width training runs: (name, steps, batch, seq, lr, remat,
+# compute dtype); f32 weights in all. The loss must fall in the runs
+# without remat.
+TRAIN_RUNS = (("B4 S1024", 4, 4, 1024, 1e-4, False, "float32"),
+              ("B4 S1024 bf16", 3, 4, 1024, 1e-4, False, "bfloat16"),
+              ("B8 S2048 remat", 2, 8, 2048, 1e-3, True, "float32"))
 
 
 def phase_train(torch) -> dict:
-    """TinyLlama-1.1B geometry (llama, 22 layers), f32 weights from seed 0,
-    an f32 forward and AdamW, on the train command's fixed synthetic batch:
-    4 steps at B 4 x S 1024 (lr 1e-4) and 2 steps at the command's defaults,
-    B 8 x S 2048 with remat. The launch counts are set to 0 before the
-    phase and read after each step: 22 flash forwards per step (44 with
-    remat), 22 launches of each backward kernel, no plain call."""
+    """TinyLlama-1.1B geometry (llama, 22 layers), f32 weights from seed 0
+    and AdamW, on the train command's fixed synthetic batch: 4 steps at
+    B 4 x S 1024 (lr 1e-4) with an f32 forward, 3 at the same shape with
+    make_train_step's default bf16 compute dtype, and 2 steps at the
+    command's defaults, B 8 x S 2048 with remat, in f32. The launch counts
+    are set to 0 before the phase and read after each step: 22 flash
+    forwards per step (44 with remat), 22 launches of each backward kernel,
+    no plain call; the device time of each flash kernel's f32 and bf16
+    variants is read off the profiler."""
     import gc
 
     from tpu_engine_torch.models.registry import create_model
@@ -896,7 +960,7 @@ def phase_train(torch) -> dict:
     cfg = spec.config
     out = {"runs": {}}
     kernels.reset_counts()  # the train phase: counts from 0, read after
-    for name, steps, batch, seq, lr, remat in TRAIN_RUNS:
+    for name, steps, batch, seq, lr, remat, dtype in TRAIN_RUNS:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -906,7 +970,7 @@ def phase_train(torch) -> dict:
 
         init_state, train_step = make_train_step(
             apply_fn, loss_fn=cross_entropy_loss, optimizer=adamw(lr),
-            dtype=torch.float32)
+            dtype=getattr(torch, dtype))
         state = init_state(spec.init(0, device="cuda", dtype="float32"))
         # The train command's fixed synthetic batch (seed 0, offset 0).
         tokens = np.random.default_rng(0).integers(
@@ -942,15 +1006,17 @@ def phase_train(torch) -> dict:
                 f"({100 * rec['flash_bwd_ms'] / rec['wall_ms']:.1f}%), "
                 f"{rec['tokens_per_s']:.0f} tokens/s; launches flash "
                 f"{n['flash_attention']}, dq {n['flash_attention_bwd_dq']}, "
-                f"dkv {n['flash_attention_bwd_dkv']}")
+                f"dkv {n['flash_attention_bwd_dkv']}; device ms by variant "
+                + ", ".join(f"{k} {v:.1f}"
+                            for k, v in rec["flash_variant_ms"].items()))
         peak = torch.cuda.max_memory_allocated()
         log(f"train {name}: max_memory_allocated {peak / 2**30:.2f} GiB")
-        if name == TRAIN_RUNS[0][0]:
+        if not remat:
             check(recs[-1]["loss"] < recs[0]["loss"],
                   f"train {name}: the loss did not fall")
         out["runs"][name] = {"steps": recs, "max_memory_allocated": peak,
                              "batch": batch, "seq": seq, "lr": lr,
-                             "remat": remat}
+                             "remat": remat, "dtype": dtype}
         del state, x, y, window
     counts = launch_counts()
     check(all(p == 0 for _, p in counts.values()),
@@ -1299,15 +1365,17 @@ def flash_bwd_bound_ms(torch, q, kernel: str) -> tuple:
 
 def flash_bwd_numbers(torch, b: int, s: int, dtype) -> dict:
     """#6 and #7 over one causal call (H 32, D 64, unit-normal inputs, the
-    forward kernel's out and lse): the kernels, their plain versions, and
-    the backward of scaled_dot_product_attention(is_causal=True) on the
-    same tensors transposed to (B, H, S, D) beforehand, its forward run
-    once beforehand and retained (neither timed): the device time of one
-    autograd backward call, its device events summed under torch.profiler.
-    (Events bracketing that call would also count the autograd engine's
-    host gaps between its kernels, which vary from run to run.) The
-    library call computes dq, dk and dv at once; it is set beside each
-    kernel and compares with #6 + #7 together."""
+    forward kernel's out and lse): the kernels, with events and a cold L2
+    (the wrapper's host time before the launch included) and as device
+    time (``device_call_ms``, the library's measure); their plain
+    versions; and the backward of scaled_dot_product_attention
+    (is_causal=True) on the same tensors transposed to (B, H, S, D)
+    beforehand, its forward run once beforehand and retained (neither
+    timed): the device time of one autograd backward call. (Events
+    bracketing that call would also count the autograd engine's host gaps
+    between its kernels, which vary from run to run.) The library call
+    computes dq, dk and dv at once; it is set beside each kernel and
+    compares with #6 + #7 together."""
     import torch.nn.functional as F
 
     from tpu_engine_torch.ops import flash as fl
@@ -1321,21 +1389,27 @@ def flash_bwd_numbers(torch, b: int, s: int, dtype) -> dict:
                   for t in (q, k, v))
     dd = do.transpose(1, 2).contiguous()
     sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-    library = busy_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qq, kk, vv), dd, retain_graph=True), iters=10)
+    library, library_calls = device_call_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), dd,
+                                           retain_graph=True))
     res = {}
     for kernel in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         fn = getattr(fl, kernel)
         ref = getattr(fl, kernel + "_reference")
         ms = time_ms(torch, lambda: fn(*a, causal=True))
+        device, seen = device_call_ms(torch, lambda: fn(*a, causal=True))
         plain = time_ms(torch, lambda: ref(*a, causal=True), iters=3)
         bound, by = flash_bwd_bound_ms(torch, q, kernel)
         log(f"numbers {kernel} (B {b}, S {s}, H 32, D 64, causal, "
-            f"{str(dtype).split('.')[-1]}): kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, sdpa backward (dq, dk, dv) {library:.4f} ms, "
-            f"bound {bound:.5f} ms ({by})")
-        res[kernel] = {"ms": ms, "plain_ms": plain, "library_ms": library,
-                       "bound_ms": bound, "bound_by": by}
+            f"{str(dtype).split('.')[-1]}): kernel {ms:.4f} ms (device "
+            f"time {device:.4f} ms, {seen} of 20 calls seen), plain "
+            f"{plain:.4f} ms, sdpa backward (dq, dk, dv) {library:.4f} ms "
+            f"({library_calls} of 20 calls seen), bound {bound:.5f} ms "
+            f"({by})")
+        res[kernel] = {"ms": ms, "device_ms": device, "device_calls": seen,
+                       "plain_ms": plain, "library_ms": library,
+                       "library_calls": library_calls, "bound_ms": bound,
+                       "bound_by": by}
     del a, out, lse, qq, kk, vv, sdpa_out
     torch.cuda.empty_cache()
     return res

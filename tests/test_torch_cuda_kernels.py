@@ -15,9 +15,12 @@ round the weights to bf16, the kernel against its running maximum, the
 plain version against the row's), on out and on lse. The flash backward
 (dq; dk and dv): 1e-4 of the gradient's largest magnitude in f32 (f32
 sums in another order), 2e-2 in bf16 (p and ds rounded to bf16 from f32
-values that differ in their last bits); also the FlashAttention Function
+values that differ in their last bits), over cases that cross the
+kernels' tiles (ragged tails, a band across tile edges, padding over whole
+tiles, strided and misaligned views); also the FlashAttention Function
 on the card against the CPU, run-to-run bit identity, and training
-gradients of a small llama on the card against the CPU."""
+gradients of a small llama on the card against the CPU, in f32 and in
+bf16."""
 
 import numpy as np
 import pytest
@@ -245,20 +248,50 @@ def test_flash_kernel_refuses_bad_arguments(cuda_device):
 
 
 # The flash backward (#6 dq, #7 dk/dv): the forward's cases plus causal
-# with Sq < Sk (keys past the last query get dk = dv = 0).
-BWD_CASES = dict(FLASH_CASES,
-                 **{"causal-ragged-37-100": (dict(sq=37, sk=100), True, None,
-                                             None)})
+# with Sq < Sk (keys past the last query get dk = dv = 0), and cases that
+# cross the tiling's boundaries: several swept tiles with ragged tails
+# (1000; 300 queries against 700 keys), a band crossing tile edges
+# (window 200 at 1024), left padding over whole 64-key tiles, and q, k, v
+# and do as a (B, H, S, D) tensor viewed as (B, S, H, D) (read through
+# strides, no copy) or as views whose rows are not 16-byte aligned (copied
+# by the wrapper before the launch).
+BWD_CASES = dict(FLASH_CASES, **{
+    "causal-ragged-37-100": (dict(sq=37, sk=100), True, None, None),
+    "causal-ragged-1000": (dict(sq=1000), True, None, None),
+    "causal-300-700": (dict(sq=300, sk=700), True, None, None),
+    "window-200-1024": (dict(sq=1024), True, None, 200),
+    "left-pad-tiles-300": (dict(sq=300), True, (300, 150), None),
+    "transposed-view": (dict(sq=200), True, None, None),
+    "misaligned-view": (dict(sq=200), True, (200, 130), None),
+})
+BWD_VIEWS = {"transposed-view", "misaligned-view"}
 BWD_F32_TOL = 1e-4   # max|Δ| / max|ref|: differently ordered f32 sums
 BWD_BF16_TOL = 2e-2  # p and ds rounded to bf16 from f32 values that differ
 
 
+def _view(t, case):
+    """t's values as the view ``case`` names."""
+    if case == "transposed-view":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                       device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
 def _bwd_inputs(dev, case, d, dtype):
     q, k, v, kw = _flash_inputs(dev, case, d, dtype, BWD_CASES)
+    if case in BWD_VIEWS:
+        q, k, v = (_view(t, case) for t in (q, k, v))
+        aligned = case == "transposed-view"
+        assert not q.is_contiguous()
+        assert all(tfl._rows_aligned(t) == aligned for t in (q, k, v))
     out, lse = tfl.flash_attention_reference(q, k, v, **kw)
     rng = np.random.default_rng(d + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(
         dev, dtype)
+    if case in BWD_VIEWS:
+        do = _view(do, case)
     delta = tfl.bwd_delta(do, out)
     return (q, k, v, kw["mask"], lse, delta, do), kw
 
@@ -295,9 +328,11 @@ def test_flash_bwd_kernels_match_plain(cuda_device, case, d, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_is_bit_identical_across_runs(cuda_device):
-    args, kw = _bwd_inputs(cuda_device, "causal-left-pad", 64,
-                           torch.bfloat16)
+@pytest.mark.parametrize("case,dtype", [
+    ("causal-left-pad", torch.bfloat16), ("window-200-1024", torch.bfloat16),
+    ("window-200-1024", torch.float32)])
+def test_flash_bwd_is_bit_identical_across_runs(cuda_device, case, dtype):
+    args, kw = _bwd_inputs(cuda_device, case, 64, dtype)
     kw = dict(causal=kw["causal"], window=kw["window"])
     first = (tfl.flash_attention_bwd_dq(*args, **kw),
              *tfl.flash_attention_bwd_dkv(*args, **kw))
@@ -390,12 +425,24 @@ def test_transformer_apply_grads_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_apply_under_autograd_never_detaches(cuda_device):
-    """A bf16 forward on the card under autograd either trains the
-    attention projections or raises: it never returns a loss detached from
-    them."""
-    try:
-        params = _small_llama_grads(cuda_device, "bfloat16")
-    except (RuntimeError, NotImplementedError):
-        return
-    grad = params["blocks"][0]["attn"]["wq"]["kernel"].grad
-    assert grad is not None and float(grad.float().abs().max()) > 0
+    """Repair: a bf16 forward on the card under autograd trains every
+    parameter, the attention projections included (dense's f32-output bf16
+    product has a backward), with the CPU's gradients: per leaf
+    max|Δ| / max|ref| within BWD_BF16_TOL, the denominator floored at 1e-3
+    of the largest gradient (a value rounded to bf16 on one side may round
+    one ulp, 2^-8, away on the other)."""
+    from tpu_engine_torch.training.train import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _small_llama_grads(cuda_device, "bfloat16")
+    cpu = _small_llama_grads(torch.device("cpu"), "bfloat16")
+    wq = card["blocks"][0]["attn"]["wq"]["kernel"].grad
+    assert wq is not None and float(wq.float().abs().max()) > 0
+    got = [t.grad for t in tree_leaves(card)]
+    want = [t.grad for t in tree_leaves(cpu)]
+    assert all(g is not None and g.dtype == t.dtype
+               for g, t in zip(got, tree_leaves(card)))
+    floor = 1e-3 * max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        err = float((g.cpu().float() - w.float()).abs().max())
+        assert err <= BWD_BF16_TOL * max(float(w.float().abs().max()), floor)

@@ -7,7 +7,9 @@ XLA ``dot_product_attention``. The cases are tests/test_flash_backward.py's
 (causal at two shapes with block_q 64 and block_k 128 on the JAX side, a
 padding mask, non-causal, fully masked rows), tests/test_sliding_window.py's
 window case and bf16. Also: ``flash_attention_bwd_reference`` against a
-float64 numpy formula, and the counts (no backward call under no_grad).
+float64 numpy formula, the counts (no backward call under no_grad), and the
+wrapper's rule for the kernels' 16-byte row copies (a view whose rows are
+not 16-byte aligned is copied, any other is passed as it is).
 
 Tolerances, as max|got - want| / max|want| per gradient: 1e-4 in f32
 (differently ordered f32 sums), 2e-2 in bf16 (p and ds are rounded to bf16
@@ -197,3 +199,37 @@ def test_backward_calls_each_kernel_once():
     assert _calls_since(before) == {"flash_attention_fwd": 1,
                                     "flash_attention_bwd_dq": 1,
                                     "flash_attention_bwd_dkv": 1}
+
+
+# (dtype, view) -> whether its rows are 16-byte aligned: the backward
+# kernels copy 16-byte rows, so the wrapper copies a tensor that is not.
+VIEWS = [(torch.float32, "contiguous", True),
+         (torch.bfloat16, "contiguous", True),
+         (torch.bfloat16, "transposed", True),
+         (torch.float32, "odd-stride", False),
+         (torch.bfloat16, "odd-stride", False),
+         (torch.bfloat16, "offset-4", False),
+         (torch.float32, "offset-4", True)]
+
+
+@pytest.mark.parametrize("dtype,view,aligned", VIEWS)
+def test_bwd_operand_copies_only_misaligned_rows(dtype, view, aligned):
+    b, s, h, d = 2, 24, 3, 16
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, s, h, d), np.float32)).to(dtype)
+    if view == "transposed":
+        t = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif view == "odd-stride":
+        t = torch.zeros((b, s, h, d + 1), dtype=dtype)[..., 1:]
+        t.copy_(x)
+    elif view == "offset-4":
+        flat = torch.zeros(x.numel() + 4, dtype=dtype)
+        t = flat[4:].view(b, s, h, d)
+        t.copy_(x)
+    else:
+        t = x
+    assert tf._rows_aligned(t) == aligned
+    got = tf._bwd_operand(t)
+    assert torch.equal(got, x)
+    assert (got.data_ptr() == t.data_ptr()) == aligned
+    assert tf._rows_aligned(got)

@@ -21,7 +21,10 @@ package's, on the CPU with the same weights and numpy-seeded batches:
   ``<out>/params`` gives the greedy tokens of a generator built on the
   trained parameters; a training subprocess imports no jax.
 - The repairs: the paged reads refuse inputs that require grad, and
-  ``params_from_jax`` and ``init_caches`` default to the card."""
+  ``params_from_jax`` and ``init_caches`` default to the card; bf16
+  training: ``dense``'s f32-output bf16 product has the JAX function's
+  gradient, and a bf16 ``make_train_step`` (both packages' default dtype)
+  matches the JAX package's, gradients within a few bf16 ulps."""
 
 import json
 import os
@@ -238,6 +241,89 @@ def test_train_steps_match_jax(name):
         assert abs(float(tloss) - float(jloss)) <= TOL * abs(float(jloss))
     assert tstate.step == int(jstate.step) == 3
     _assert_params_close(tstate, jstate, jcfg.n_layers)
+
+
+# bf16 training (the default compute dtype of both packages' make_train_step)
+# against the JAX package: per-leaf gradient bound (max|Δ| / max|ref|, the
+# denominator floored as in _assert_grads_match) of 1e-2, a few bf16 ulps
+# (2^-8 = 3.9e-3): both round at the same points, but bf16 einsums and the
+# attention weights round sums taken in another order.
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("shape", [(6, 32, 16), (2, 5, 64, 48)])
+def test_dense_bf16_backward_matches_jax(shape):
+    """Repair: dense's f32-output bf16 product is differentiable, with the
+    JAX function's gradient: the f32 cotangent times the other operand in
+    f32, rounded once to bf16 (then back to the f32 leaf)."""
+    from tpu_engine.ops import nn as jnn
+    from tpu_engine_torch.ops import nn as tnn
+
+    rng = np.random.default_rng(len(shape))
+    x = rng.standard_normal(shape[:-1], np.float32)
+    p = {"kernel": rng.standard_normal(shape[-2:], np.float32),
+         "bias": rng.standard_normal(shape[-1:], np.float32)}
+    w = rng.standard_normal((*shape[:-2], shape[-1]), np.float32)
+
+    def jloss(p, x):
+        return jnp.sum(jnn.dense(p, x, dtype=jnp.bfloat16) * w)
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out = tnn.dense(tp, tx, dtype=torch.bfloat16)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    for got, want in ((tx.grad, jgx), (tp["kernel"].grad, jgp["kernel"]),
+                      (tp["bias"].grad, jgp["bias"])):
+        assert got.dtype == torch.float32
+        assert _rel(got.numpy(), np.asarray(want)) <= BF16_TOL
+
+
+def test_bf16_grads_and_steps_match_jax():
+    """Repair: a bf16 make_train_step on llama-small-test (the port's dense
+    through MatmulF32Out, attention through FlashAttention's plain
+    versions) against the JAX package's make_train_step at its default
+    jnp.bfloat16: every leaf's gradient within BF16_TOL, then three AdamW
+    steps with losses within 1e-3 relative and every parameter within
+    3 * lr."""
+    jcfg, params, tcfg, tparams = _models("llama-small-test")
+    x, y = _batch(jcfg)
+
+    def loss(p):
+        return jtrain.cross_entropy_loss(jt.transformer_apply(
+            p, jnp.asarray(x), jcfg, dtype=jnp.bfloat16), jnp.asarray(y))
+    jgrads = _jax_leaves(jax.grad(loss)(params), jcfg.n_layers)
+    leaves = ttrain.tree_leaves(tparams)
+    for t in leaves:
+        t.requires_grad_(True)
+    tloss = ttrain.cross_entropy_loss(tt.transformer_apply(
+        tparams, torch.from_numpy(x), tcfg, dtype=torch.bfloat16),
+        torch.from_numpy(y))
+    tgrads = [g.numpy() for g in torch.autograd.grad(tloss, leaves)]
+    floor = 1e-3 * max(float(np.max(np.abs(w))) for w in jgrads)
+    for got, want in zip(tgrads, jgrads):
+        assert _rel(got, want, floor) <= BF16_TOL, _rel(got, want, floor)
+
+    jinit, jstep = jtrain.make_train_step(
+        lambda p, x, dtype: jt.transformer_apply(p, x, jcfg, dtype=dtype),
+        loss_fn=jtrain.cross_entropy_loss, optimizer=optax.adamw(LR))
+    tinit, tstep = ttrain.make_train_step(
+        lambda p, x, dtype: tt.transformer_apply(p, x, tcfg, dtype=dtype),
+        loss_fn=ttrain.cross_entropy_loss, optimizer=ttrain.adamw(LR))
+    jstate = jinit(params)
+    tstate = tinit(ttrain.tree_map(lambda t: t.detach().clone(), tparams))
+    jstep = jax.jit(jstep)
+    for i in range(3):
+        xb, yb = _batch(jcfg, seed=i)
+        jstate, jl = jstep(jstate, jnp.asarray(xb), jnp.asarray(yb))
+        tstate, tl = tstep(tstate, torch.from_numpy(xb),
+                           torch.from_numpy(yb))
+        assert abs(float(tl) - float(jl)) <= 1e-3 * abs(float(jl))
+    got = _port_leaves(tstate.params)
+    want = _jax_leaves(jstate.params, jcfg.n_layers)
+    assert max(float(np.abs(g - w).max()) for g, w in zip(got, want)) \
+        <= 3 * LR
 
 
 def test_train_state_from_jax_continues_the_jax_run():

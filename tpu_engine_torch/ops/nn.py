@@ -20,16 +20,48 @@ import torch
 import torch.nn.functional as F
 
 
+def _mm_f32_out(x2, kernel):
+    if x2.is_cuda:
+        return torch.mm(x2, kernel, out_dtype=torch.float32)
+    return x2.float() @ kernel.float()
+
+
+class MatmulF32Out(torch.autograd.Function):
+    """x2 @ kernel of two narrow (bf16) matrices with an f32 result, the
+    counterpart of ``dot_general(..., preferred_element_type=f32)``.
+
+    Forward: on the GPU the product runs on the tensor cores with an f32
+    output (``torch.mm(..., out_dtype=float32)``, which has no derivative
+    of its own); on the CPU the same values are multiplied in f32, which is
+    exact for bf16 inputs and sums in f32 likewise. Backward: JAX's
+    transpose rule for that ``dot_general``: the f32 cotangent times the
+    other operand in f32, rounded once to the operand's dtype (what
+    autograd of the CPU forward gives)."""
+
+    @staticmethod
+    def forward(ctx, x2, kernel):
+        ctx.save_for_backward(x2, kernel)
+        return _mm_f32_out(x2, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, kernel = ctx.saved_tensors
+        gx = gk = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ kernel.float().t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gk = (x2.float().t() @ g).to(kernel.dtype)
+        return gx, gk
+
+
 def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None
           ) -> torch.Tensor:
     """x @ kernel + bias with f32 accumulation and an f32 result.
 
-    In f32 this is a plain matmul. In a narrower compute dtype on the GPU
-    the product runs on the tensor cores with an f32 output
-    (``torch.mm(..., out_dtype=float32)``), so the result is not rounded
-    to the compute dtype before the bias add, as in the JAX function. On
-    the CPU the same values are multiplied in f32, which is exact for
-    bf16 inputs and sums in f32 likewise."""
+    In f32 this is a plain matmul. In a narrower compute dtype the product
+    is ``MatmulF32Out``, so the result is not rounded to the compute dtype
+    before the bias add, as in the JAX function, and its gradient is the
+    JAX function's."""
     kernel = params["kernel"]
     if dtype is not None:
         x = x.to(dtype)
@@ -38,10 +70,11 @@ def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32:
         y = x2 @ kernel
-    elif x2.is_cuda:
-        y = torch.mm(x2, kernel, out_dtype=torch.float32)
+    elif torch.is_grad_enabled() and (x2.requires_grad
+                                      or kernel.requires_grad):
+        y = MatmulF32Out.apply(x2, kernel)
     else:
-        y = x2.float() @ kernel.float()
+        y = _mm_f32_out(x2, kernel)
     return (y + params["bias"]).reshape(*lead, kernel.shape[-1])
 
 
