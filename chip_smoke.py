@@ -12,9 +12,13 @@ Phases (any failure exits non-zero and prints no result line):
               into one library;
 3. parity   — each kernel against its plain PyTorch version on the card:
               f32 at the JAX package's parity-check and flash-test shapes
-              (tolerance 1e-5), bf16 at the main path's shapes (2e-2 on unit
+              and the flash forward at the train phase's shape (tolerance
+              1e-5), bf16 at the main path's shapes (2e-2 on unit
               normals; for the flash forward on out and lse), int8 pools at
               both (2e-4, the JAX package's bound for its int8 kernels); the
+              flash forward and the ragged read bit-identical over two
+              runs, and each ragged row bit-identical alone and in its
+              batch (its split plan depends on its own data only); the
               flash backward (#6 dq, #7 dk and dv) at
               tests/test_flash_backward.py's shapes, its window case and
               the train phase's shape in f32 (1e-4 of the gradient's
@@ -64,11 +68,14 @@ Phases (any failure exits non-zero and prints no result line):
               device busy time, the idle share, the flash kernels' shares
               (and the device time of their f32 and bf16 variants),
               tokens/s and peak memory;
-6. numbers  — each kernel's time at the main path's shapes beside its
-              bound, the plain version's time and the library's
-              (scaled_dot_product_attention; for the paged reads over K/V
-              gathered dense, and dequantized for int8, beforehand; for the
-              flash forward over q, k, v transposed beforehand, and for the
+6. numbers  — each kernel's time at the main path's shapes (with events
+              and as device time) beside its bound, the plain version's
+              time and the library's (scaled_dot_product_attention; for the
+              paged reads over K/V gathered dense, and dequantized for
+              int8, beforehand; for the flash forward over q, k, v
+              transposed beforehand, its backend forced, in f32 at the
+              dense prefill's and the train phase's shapes and in bf16 at
+              prefill rows, and for the
               backward the device time of its autograd backward, beside
               which #6 and #7 are also timed as device time, both robust to
               the profiler dropping a session's first events; no copy is
@@ -76,10 +83,20 @@ Phases (any failure exits non-zero and prints no result line):
               forward per step the lanes run (the two-path prefill window
               and the dense prefill at 256 and 2048 tokens included), the
               host's time to issue it, the card's busy time in it
-              (torch.profiler) and the attention kernel's share.
+              (torch.profiler) and the attention kernel's share (22
+              launches at its isolated device time; for the dense prefill
+              the f32 flash variant, which that path launches).
 
 The last line of standard output is the JSON result; the line before it
-the card's name and power limit; the line before that the kernels' JSON.
+the card's name and power limit; the line before that the kernels' JSON
+("ms" and "library_ms" there are device times of one call).
+
+    python3 chip_smoke.py --kernel-times [--package-root DIR]
+
+runs only the kernels' device times (#1 and #5 at the main path's shapes,
+#6/#7 at the train shape and a bf16 S 2048 row) through the package under
+DIR (default: this checkout), so that two trees (a parent commit unpacked
+under build/, and this one) can be timed in turns in one call.
 """
 
 from __future__ import annotations
@@ -108,6 +125,15 @@ BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
 QUANT_TOL = 2e-4
 OUT_DIR = Path("chiprun_out")
+# (key, B, S, dtype) of the flash forward's readings: the dense lane's
+# prefill (f32, as every main path launches it: q, k, v come out of
+# nn.dense as f32) first, for the kernels line, then the train phase's
+# shape and the bf16 variant.
+FLASH_SHAPES = (("prefill S=256 f32", 1, 256, "float32"),
+                ("train B=4 S=1024 f32", 4, 1024, "float32"),
+                ("prefill S=2048 f32", 1, 2048, "float32"),
+                ("prefill S=256", 1, 256, "bfloat16"),
+                ("prefill S=2048", 1, 2048, "bfloat16"))
 MAX_NEW = 32
 # The TPU kernel each CUDA kernel replaces, and the lane whose path
 # launches it.
@@ -318,27 +344,36 @@ def device_call_ms(torch, fn, iters: int = 20) -> tuple:
     events of a session, so a sum over the session would undercount: each
     device event name (kernel, copy, fill) counts its mean duration times
     its occurrences per call (its count over the fewest count of any name),
-    summed."""
+    summed. A session that saw fewer than half the calls whole (it once
+    kept one of 20) is run again, up to three sessions; the reading of the
+    session that saw the most calls is returned."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    best = None
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    by_name = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name].append(e.device_time_total)
-    check(len(by_name) > 0, "the profiler saw no device time")
-    calls = min(len(v) for v in by_name.values())
-    us = sum(sum(v) / len(v) * round(len(v) / calls) for v in by_name.values())
-    return us / 1e3, calls
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name].append(e.device_time_total)
+        check(len(by_name) > 0, "the profiler saw no device time")
+        calls = min(len(v) for v in by_name.values())
+        us = sum(sum(v) / len(v) * round(len(v) / calls)
+                 for v in by_name.values())
+        if best is None or calls > best[1]:
+            best = (us / 1e3, calls)
+        if calls >= iters // 2:
+            break
+    return best
 
 
 def sdpa_yardstick(torch, inp, int8: bool):
@@ -376,17 +411,18 @@ def sdpa_yardstick(torch, inp, int8: bool):
 
 
 def flash_inputs(torch, dev, s: int, h: int, d: int, pad: int = 0,
-                 seed: int = 2):
+                 seed: int = 2, dtype=None, b: int = 1):
     """A prefill's flash call as the dense lane makes it: one row (B 1) of
-    unit-normal bf16 q, k, v (1, s, h, d), with a left-padding mask whose
-    first ``pad`` columns are padding (None for pad 0)."""
+    unit-normal q, k, v (b, s, h, d), bf16 unless ``dtype`` says otherwise,
+    with a left-padding mask whose first ``pad`` columns are padding (None
+    for pad 0); ``b`` rows for the train phase's shape."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, h, d),
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d),
                                                     np.float32))
-               .to(dev, torch.bfloat16) for _ in range(3))
+               .to(dev, dtype or torch.bfloat16) for _ in range(3))
     mask = None
     if pad:
-        m = np.ones((1, s), np.int32)
+        m = np.ones((b, s), np.int32)
         m[:, :pad] = 0
         mask = torch.from_numpy(m).to(dev)
     return q, k, v, mask
@@ -396,13 +432,15 @@ def flash_bound_ms(q, causal: bool = True) -> tuple:
     """Least time for a causal flash forward over (B, S, H, D) inputs with
     no mask: the larger of the bytes (q, k, v read once, out written once,
     in their dtype, and the f32 lse) over 3.35 TB/s and 4*D flops per
-    attended (query, key) pair, S(S+1)/2 per head, over the bf16
-    tensor-core rate."""
+    attended (query, key) pair, S(S+1)/2 per head, over the card's peak in
+    the inputs' type (bf16 tensor cores, or f32 CUDA cores: the port's f32
+    products run without TF32)."""
     b, s, h, d = q.shape
     nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 4 * d * pairs / PEAK_BF16_FLOPS * 1e3
+    t_ops = 4 * d * pairs / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -475,6 +513,25 @@ def _valid_err(torch, out, ref, qlen):
     return float(((out.float() - ref.float()).abs() * valid).max())
 
 
+def ragged_rows_identical(torch, pa, t, out, shape: str) -> None:
+    """#1 gives the same bits over two runs, and each row's output run
+    alone (a batch of one, W its own qlen) equals its output in the batch
+    bit for bit: a row's split plan and arithmetic depend on its own data
+    only."""
+    check(torch.equal(out, pa.ragged_paged_attention(*t)),
+          f"ragged_paged_attention {shape}: two runs differ")
+    q, k, v, tables, pos0, qlen = t
+    for r, ql in enumerate(qlen.tolist()):
+        alone = pa.ragged_paged_attention(
+            q[r:r + 1, :max(ql, 1)].contiguous(), k, v, tables[r:r + 1],
+            pos0[r:r + 1], qlen[r:r + 1])
+        check(torch.equal(alone[0, :ql], out[r, :ql]),
+              f"ragged_paged_attention {shape}: row {r} alone differs from "
+              f"the batch")
+    log(f"parity ragged_paged_attention bf16 main path {shape}: "
+        f"bit-identical over two runs and row by row alone")
+
+
 def phase_parity(torch, pa) -> dict:
     dev = torch.device("cuda")
     errs = {name: {} for name in KERNELS}
@@ -536,6 +593,7 @@ def phase_parity(torch, pa) -> dict:
         out, ref = run("ragged_paged_attention", t)
         record("ragged_paged_attention", f"bf16 main path {shape}",
                _valid_err(torch, out, ref, t[-1]), BF16_TOL)
+        ragged_rows_identical(torch, pa, t, out, shape)
         t = main_path_inputs(torch, dev, decode_only, int8=True)
         out, ref = run("quant_ragged_paged_attention", t)
         record("quant_ragged_paged_attention", f"int8 main path {shape}",
@@ -566,6 +624,8 @@ FLASH_F32_CASES = (
     ("fully masked", {}, False, 0, None),
     ("window 7 S200", dict(sq=200, n_heads=2, d_head=32), True, None, 7),
     ("window 64 S200", dict(sq=200, n_heads=2, d_head=32), True, None, 64),
+    ("train shape (4, 1024, 32, 64)",
+     dict(batch=4, sq=1024, n_heads=32, d_head=64), True, None, None),
 )
 # (case, S, H, D, left padding, window): TinyLlama prefills and a
 # Mistral-width band.
@@ -588,6 +648,13 @@ def flash_err(torch, out, lse, ref, ref_lse) -> float:
                float(lse_err))
 
 
+def flash_identical(torch, fl, q, k, v, args, out, lse, case) -> None:
+    """#5 gives the same bits over two runs."""
+    again = fl.flash_attention_fwd(q, k, v, **args)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash_attention {case}: two runs differ")
+
+
 def parity_flash(torch, dev, record) -> None:
     from tpu_engine_torch.ops import flash as fl
 
@@ -605,6 +672,7 @@ def parity_flash(torch, dev, record) -> None:
         torch.cuda.synchronize()
         record("flash_attention", f"f32 {case}",
                flash_err(torch, out, lse, ref, ref_lse), F32_TOL)
+        flash_identical(torch, fl, q, k, v, args, out, lse, f"f32 {case}")
     for case, s, h, d, pad, window in FLASH_BF16_CASES:
         q, k, v, mask = flash_inputs(torch, dev, s, h, d, pad)
         args = dict(causal=True, mask=mask, window=window)
@@ -613,6 +681,7 @@ def parity_flash(torch, dev, record) -> None:
         torch.cuda.synchronize()
         record("flash_attention", f"bf16 {case}",
                flash_err(torch, out, lse, ref, ref_lse), BF16_TOL)
+        flash_identical(torch, fl, q, k, v, args, out, lse, f"bf16 {case}")
         del ref, ref_lse
 
 
@@ -1305,42 +1374,79 @@ def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
     fn = getattr(pa, kernel)
     ref = getattr(pa, kernel + "_reference")
     ms = time_ms(torch, lambda: fn(*args))
+    device, seen = device_call_ms(torch, lambda: fn(*args))
     plain = time_ms(torch, lambda: ref(*args), iters=5)
-    library = time_ms(torch, sdpa_yardstick(torch, inp, int8))
+    sdpa = sdpa_yardstick(torch, inp, int8)
+    library = time_ms(torch, sdpa)
+    library_device, library_seen = device_call_ms(torch, sdpa)
     out_item = 4 if int8 else inp[1].element_size()
     bound, by = bound_ms(inp[0], inp[1], inp[-3], inp[-2], inp[-1],
                          out_item, scale_bytes=4 if int8 else 0)
     shape = "decode W=1" if decode_only else "mixed W=256"
     pool = "int8" if int8 else "bf16"
     log(f"numbers {kernel} ({shape}, B 8, H 32/4, D 64, bs 16, {pool} "
-        f"pool): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over "
-        f"pre-gathered K/V {library:.4f} ms, bound {bound:.5f} ms ({by})")
-    return {"ms": ms, "plain_ms": plain, "library_ms": library,
-            "bound_ms": bound, "bound_by": by}
+        f"pool): kernel {ms:.4f} ms (device time {device:.4f} ms, {seen} "
+        f"of 20 calls seen), plain {plain:.4f} ms, sdpa over pre-gathered "
+        f"K/V {library:.4f} ms (device time {library_device:.4f} ms, "
+        f"{library_seen} seen), bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "device_ms": device, "device_calls": seen,
+            "plain_ms": plain, "library_ms": library,
+            "library_device_ms": library_device, "bound_ms": bound,
+            "bound_by": by}
 
 
-def flash_numbers(torch, s: int) -> dict:
-    """The flash forward of one TinyLlama prefill row (B 1, H 32, D 64,
-    causal, bf16) at S tokens: the kernel, the plain version, and
-    scaled_dot_product_attention(is_causal=True) over the same tensors
-    transposed to (B, H, S, D) beforehand (the transpose is not timed)."""
+def sdpa_backend(torch, dtype):
+    """The scaled_dot_product_attention backend the flash yardstick forces:
+    FlashAttention for bf16; for f32, which it does not take, the
+    memory-efficient kernel (TF32 is off for the whole run)."""
+    from torch.nn.attention import SDPBackend
+
+    return (SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16
+            else SDPBackend.EFFICIENT_ATTENTION)
+
+
+def flash_numbers(torch, b: int, s: int, dtype) -> dict:
+    """The flash forward over unit-normal (B, S, 32, 64) q, k, v, causal: a
+    TinyLlama prefill row (B 1), or the train phase's shape (B 4, S 1024),
+    in f32 (the variant every main path launches: q, k, v come out of
+    nn.dense as f32) or bf16. The kernel, with events and a cold L2 (the
+    wrapper's host time included) and as device time (``device_call_ms``);
+    the plain version; and scaled_dot_product_attention(is_causal=True)
+    with its backend forced (``sdpa_backend``) over the same tensors
+    transposed to (B, H, S, D) beforehand (the transpose is not timed),
+    timed the same two ways."""
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     from tpu_engine_torch.ops import flash as fl
 
-    q, k, v, _ = flash_inputs(torch, torch.device("cuda"), s, 32, 64)
-    ms = time_ms(torch, lambda: fl.flash_attention(q, k, v, causal=True))
+    q, k, v, _ = flash_inputs(torch, torch.device("cuda"), s, 32, 64,
+                              dtype=dtype, b=b)
+    call = (lambda: fl.flash_attention(q, k, v, causal=True))
+    ms = time_ms(torch, call)
+    device, seen = device_call_ms(torch, call)
     plain = time_ms(torch, lambda: fl.flash_attention_reference(
-        q, k, v, causal=True), iters=5)
+        q, k, v, causal=True), iters=3)
     qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, is_causal=True))
+    backend = sdpa_backend(torch, dtype)
+
+    def library_call():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    library = time_ms(torch, library_call)
+    library_device, library_seen = device_call_ms(torch, library_call)
     bound, by = flash_bound_ms(q)
-    log(f"numbers flash_attention (prefill S={s}, B 1, H 32, D 64, causal, "
-        f"bf16): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-        f"{library:.4f} ms, bound {bound:.5f} ms ({by})")
-    return {"ms": ms, "plain_ms": plain, "library_ms": library,
-            "bound_ms": bound, "bound_by": by}
+    name = str(dtype).split(".")[-1]
+    log(f"numbers flash_attention (B {b}, S {s}, H 32, D 64, causal, "
+        f"{name}): kernel {ms:.4f} ms (device time {device:.4f} ms, {seen} "
+        f"of 20 calls seen), plain {plain:.4f} ms, sdpa {backend.name} "
+        f"{library:.4f} ms (device time {library_device:.4f} ms, "
+        f"{library_seen} seen), bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "device_ms": device, "device_calls": seen,
+            "plain_ms": plain, "library_ms": library,
+            "library_device_ms": library_device,
+            "library_backend": backend.name, "bound_ms": bound,
+            "bound_by": by}
 
 
 def flash_bwd_bound_ms(torch, q, kernel: str) -> tuple:
@@ -1429,8 +1535,8 @@ def phase_numbers(torch, pa) -> dict:
         if kernel.startswith("flash_attention_bwd"):
             continue
         if kernel == "flash_attention":
-            res[kernel] = {f"prefill S={s}": flash_numbers(torch, s)
-                           for s in (256, 2048)}
+            res[kernel] = {key: flash_numbers(torch, b, s, getattr(torch, dt))
+                           for key, b, s, dt in FLASH_SHAPES}
             continue
         shapes = ((True,) if kernel in ("paged_attention",
                                         "quant_paged_attention")
@@ -1445,7 +1551,7 @@ def forward_times(torch, kernel_res) -> dict:
     """One full-width forward (22 layers, bf16) per step the lanes run,
     timed on the card, beside the host's time to issue it and the card's
     busy time under the profiler, and the share of it the attention
-    kernel takes (22 launches at the isolated kernel time): the mixed
+    kernel takes (22 launches at the isolated kernel's device time): the mixed
     tick at W = 256 and W = 1 and the two-path decode step (8 rows), over
     the bf16 and the int8 pool, the two-path prefill thread's 256-token
     window of one request over its own dense row cache (no pool, no
@@ -1485,7 +1591,7 @@ def forward_times(torch, kernel_res) -> dict:
                 f"ms per step (host issue {host:.3f} ms, device busy "
                 f"{busy:.3f} ms, idle {100 * res['idle_share']:.1f}%)")
         if kernel is not None:
-            attn = cfg.n_layers * kernel_res[kernel][kshape]["ms"]
+            attn = cfg.n_layers * kernel_res[kernel][kshape]["device_ms"]
             res.update(kernel=kernel, attention_ms=attn,
                        attention_share=attn / ms)
             line += f", of which {kernel} {attn:.3f} ms " \
@@ -1560,7 +1666,7 @@ def forward_times(torch, kernel_res) -> dict:
                lambda: transformer_prefill(
                    params, tokens, row, cfg, dtype=torch.bfloat16,
                    attn_mask=attn, pos_ids=pos_ids)[0],
-               (1, cfg.vocab), "flash_attention", f"prefill S={pb}")
+               (1, cfg.vocab), "flash_attention", f"prefill S={pb} f32")
         del row
     # The dense decode step: 8 rows at the main path's depths over the
     # (22, 8, 2048, 4, 64) shared cache, each row's prompt from column 5.
@@ -1574,6 +1680,55 @@ def forward_times(torch, kernel_res) -> dict:
     return out
 
 
+def kernel_times(torch) -> dict:
+    """Device time of one call (``device_call_ms``) of #1 at the main
+    path's mixed and decode shapes, #5 at FLASH_SHAPES and #6/#7 at the
+    train phase's shape (f32) and a bf16 prefill row at S 2048, through
+    whichever tree of the package is imported: ``--kernel-times`` runs
+    only this, so that two trees can be timed in turns in one call."""
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    res = {}
+    for decode_only in (False, True):
+        inp = main_path_inputs(torch, dev, decode_only)
+        key = "decode W=1" if decode_only else "mixed W=256"
+        res[f"ragged {key}"] = device_call_ms(
+            torch, lambda: pa.ragged_paged_attention(*inp))[0]
+    for key, b, s, dt in FLASH_SHAPES:
+        q, k, v, _ = flash_inputs(torch, dev, s, 32, 64,
+                                  dtype=getattr(torch, dt), b=b)
+        res[f"flash {key}"] = device_call_ms(
+            torch, lambda: fl.flash_attention_fwd(q, k, v, causal=True))[0]
+    for key, b, s, dt in (("train B=4 S=1024 f32", 4, 1024, torch.float32),
+                          ("prefill S=2048", 1, 2048, torch.bfloat16)):
+        q, k, v, _ = flash_inputs(torch, dev, s, 32, 64, dtype=dt, b=b)
+        out, lse = fl.flash_attention_fwd(q, k, v, causal=True)
+        a = (q, k, v, None, lse, fl.bwd_delta(torch.ones_like(out), out),
+             torch.ones_like(out))
+        for kernel in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            fn = getattr(fl, kernel)
+            res[f"{kernel} {key}"] = device_call_ms(
+                torch, lambda: fn(*a, causal=True))[0]
+        del q, k, v, out, lse, a
+        torch.cuda.empty_cache()
+    return res
+
+
+def main_kernel_times(torch, root: str) -> int:
+    """``--kernel-times [--package-root DIR]``: kernel_times of the package
+    under DIR (default: this checkout), one JSON line, appended to
+    kernel_times.jsonl in OUT_DIR."""
+    card = card_line()
+    res = {"root": root, "card": card, "device_ms": kernel_times(torch)}
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "kernel_times.jsonl", "a") as f:
+        f.write(json.dumps(res) + "\n")
+    log(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1581,6 +1736,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if "--kernel-times" in sys.argv:
+        root = "."
+        if "--package-root" in sys.argv:
+            root = sys.argv[sys.argv.index("--package-root") + 1]
+            sys.path.insert(0, str(Path(root).resolve()))
+        return main_kernel_times(torch, root)
     from tpu_engine_torch.ops import kernels as kl
     from tpu_engine_torch.ops import paged_attention as pa
 
@@ -1612,8 +1773,14 @@ def main() -> int:
             "launches": (train["launches"][name] if meta["lane"] == "train"
                          else server[meta["lane"]]["launches"]),
             "max_abs_err": max(errs[name].values()),
-            **{k: main_shape[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+            # Device time of one call, the kernel's and the library's (the
+            # backward's library reading is device time already).
+            "ms": main_shape["device_ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape.get("library_device_ms",
+                                         main_shape["library_ms"]),
         })
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -6,8 +6,10 @@ jax, so the card's machine runs it without the JAX package:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances: 1e-5 with an f32 pool (only the summation order differs);
-2e-2 with a bf16 pool on unit-normal inputs (the kernel keeps the
-softmax weights in f32 where the plain version rounds them to bf16);
+2e-2 with a bf16 pool on unit-normal inputs (both round the softmax
+weights to bf16, the ragged kernel against its running maximum over each
+split, the plain version against the row's; the paged decode kernel
+keeps them in f32);
 2e-4 with the int8 pool, the JAX package's bound for its int8 kernels
 (the kernel applies the K scales after the product, the plain version
 dequantizes first). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
@@ -446,3 +448,109 @@ def test_bf16_apply_under_autograd_never_detaches(cuda_device):
     for g, w in zip(got, want):
         err = float((g.cpu().float() - w.float()).abs().max())
         assert err <= BWD_BF16_TOL * max(float(w.float().abs().max()), floor)
+
+
+# -- the flash forward at full width ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(1, 1024), (1, 2048), (4, 1024)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_full_width_causal(cuda_device, b, s, dtype, tol):
+    """TinyLlama-width causal prompts (32 heads, D 64: many query tiles,
+    swept key tiles, fully attended tiles that skip the masks), on out and
+    lse, and bit-identical over two runs."""
+    rng = np.random.default_rng(s + b)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, 32, 64),
+                                                    np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    out, lse = _launched(tfl.flash_attention_fwd,
+                         lambda: tfl.flash_attention_fwd(q, k, v,
+                                                         causal=True))
+    ref, ref_lse = tfl.flash_attention_reference(q, k, v, causal=True)
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    assert float((lse - ref_lse).abs().max()) < tol
+    again = tfl.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal-left-pad", "window-64-pad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_bit_identical_across_runs(cuda_device, case, dtype):
+    q, k, v, kw = _flash_inputs(cuda_device, case, 64, dtype)
+    first = tfl.flash_attention_fwd(q, k, v, **kw)
+    again = tfl.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+# -- the ragged read's split path -----------------------------------------------
+
+# name -> (q_lens, pos0, n_heads, n_kv_heads, d_head, block_size, table_len):
+# the main path's mixed tick (seven decode rows at contexts up to 2047 and a
+# 256-token chunk at pos0 1700, tables 128 wide: every tile takes up to four
+# splits, the chunk's tiles the tensor cores with 64 rows), its decode tick
+# (W * G = 8), a narrow tick (W * G = 8 at G 2, qlen 0 rows), D 8 (CUDA
+# cores), D 128 and 8-token blocks.
+RAGGED_WIDE = {
+    "mixed-tick": ((1, 1, 1, 1, 1, 1, 1, 256),
+                   (100, 500, 1000, 2046, 17, 1500, 0, 1700), 32, 4, 64,
+                   16, 128),
+    "decode-tick": ((1,) * 8, (100, 500, 1000, 2046, 17, 1500, 0, 1700), 32,
+                    4, 64, 16, 128),
+    "narrow-g2": ((4, 1, 3, 0), (600, 20, 700, 5), 4, 2, 32, 16, 48),
+    "d8": ((1, 9, 0, 33), (1100, 515, 3, 900), 4, 2, 8, 16, 80),
+    "d128": ((64, 1, 17), (700, 1023, 0), 8, 2, 128, 16, 64),
+    "bs8-d16": ((1, 40, 2), (1500, 470, 1021), 16, 2, 16, 8, 256),
+}
+
+
+def _wide_inputs(dev, case, dtype, seed=3):
+    q_lens, pos0, h, h_kv, d, bs, nb = RAGGED_WIDE[case]
+    rng = np.random.default_rng(seed)
+    b, w = len(q_lens), max(q_lens)
+    n_pool = b * nb + 1
+    q = rng.standard_normal((b, w, h, d), np.float32)
+    k = rng.standard_normal((n_pool, bs, h_kv, d), np.float32)
+    v = rng.standard_normal((n_pool, bs, h_kv, d), np.float32)
+    tables = (1 + rng.permutation(n_pool - 1)).reshape(b, nb)
+    t = [torch.from_numpy(x).to(dev) for x in (
+        q, k, v, tables.astype(np.int32), np.asarray(pos0, np.int32),
+        np.asarray(q_lens, np.int32))]
+    t[1], t[2] = t[1].to(dtype), t[2].to(dtype)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED_WIDE))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_ragged_kernel_splits_match_plain(cuda_device, case, dtype, tol):
+    t = _wide_inputs(cuda_device, case, dtype)
+    out = _launched(tpa.ragged_paged_attention,
+                    lambda: tpa.ragged_paged_attention(*t))
+    ref = tpa.ragged_paged_attention_reference(*t)
+    qlen = t[5].cpu().numpy()
+    assert out.dtype == dtype
+    assert _valid_err(out, ref, qlen) < tol
+    pad = np.arange(out.shape[1])[None, :] >= qlen[:, None]
+    assert float(out.float().abs().cpu().numpy()[pad].max(initial=0)) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed-tick", "narrow-g2", "d8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_rows_are_bit_identical_alone_and_across_runs(cuda_device,
+                                                             case, dtype):
+    """Two runs give the same bits, and each row's output is bit-identical
+    run alone (a batch of one, W its own qlen) and beside the other rows:
+    its split count and its arithmetic depend on its own data only."""
+    t = _wide_inputs(cuda_device, case, dtype)
+    out = tpa.ragged_paged_attention(*t)
+    assert torch.equal(out, tpa.ragged_paged_attention(*t))
+    for r, ql in enumerate(t[5].tolist()):
+        w = max(ql, 1)
+        alone = tpa.ragged_paged_attention(
+            t[0][r:r + 1, :w].contiguous(), t[1], t[2], t[3][r:r + 1],
+            t[4][r:r + 1], t[5][r:r + 1])
+        assert torch.equal(alone[0, :ql], out[r, :ql])

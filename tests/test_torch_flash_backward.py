@@ -229,7 +229,7 @@ def test_bwd_operand_copies_only_misaligned_rows(dtype, view, aligned):
     else:
         t = x
     assert tf._rows_aligned(t) == aligned
-    got = tf._bwd_operand(t)
+    got = tf._aligned(t)
     assert torch.equal(got, x)
     assert (got.data_ptr() == t.data_ptr()) == aligned
     assert tf._rows_aligned(got)

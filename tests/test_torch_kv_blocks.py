@@ -203,3 +203,17 @@ def test_scatter_then_gather_match_jax(quantize):
         np.testing.assert_array_equal(
             t.float().numpy()[:, :, :cols],
             np.asarray(j.astype(jnp.float32))[:, :, :cols])
+
+
+def test_pool_defaults_to_the_card():
+    """BlockPool with no device resolves to the card, like every other
+    entry point of the port: where no card exists it raises instead of
+    building a CPU pool; the CPU is used only when named."""
+    cfg = tcreate("gpt2-small-test").config
+    if torch.cuda.is_available():
+        assert tkv.BlockPool(cfg, 4, BS, torch.float32).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tkv.BlockPool(cfg, 4, BS, torch.float32)
+    assert tkv.BlockPool(cfg, 4, BS, torch.float32,
+                         "cpu").device == torch.device("cpu")

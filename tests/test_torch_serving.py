@@ -3,8 +3,11 @@ the JAX package's generator and worker, with the same weights: /generate
 and /generate/stream tokens equal the JAX mixed-step generator's; a
 two-path lane's, an int8 lane's and the default (dense) lane's tokens
 equal the JAX generator's of the same mode; /health and /stats carry the
-JAX schemas for the ported blocks; the --kv-quantize guard refuses as the
-JAX worker's does; and neither the package nor chip_smoke.py imports jax,
+JAX schemas (the idle /infer cache, batcher and stateless blocks
+included); the --kv-quantize guard refuses as the JAX worker's does; an
+expired deadline is a 503 with Retry-After, a bad deadline and a
+misaddressed model a 400, and a deadline passing mid-generation cancels
+the row, as in the JAX worker; and neither the package nor chip_smoke.py imports jax,
 tpu_engine, optax or orbax (a serving subprocess's sys.modules, and an AST
 scan of the sources)."""
 
@@ -14,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -37,12 +41,11 @@ _ensure_builtin_models_imported()
 REPO = Path(__file__).resolve().parent.parent
 LANE = dict(gen_kv_block_size=16, gen_mixed_step=True, gen_prefill_chunk=16,
             gen_mixed_token_budget=16)
-# /health keys of the JAX worker that belong to lanes the port leaves out
-# (the /infer result cache and batcher), and generator stats of modes it
-# leaves out (the unified stateless one-shot rows).
-HEALTH_LEFT_OUT = {"cache_hits", "cache_size", "cache_hit_rate",
-                   "batch_processor"}
-GENERATOR_LEFT_OUT = {"stateless"}
+# /health keys of the JAX worker, and generator stats, that the port's
+# worker leaves out: none (the /infer cache, the batcher and the stateless
+# block are carried idle).
+HEALTH_LEFT_OUT = set()
+GENERATOR_LEFT_OUT = set()
 # The slice-2 lanes: two-path (no --mixed-step) and the int8 pool.
 LANES = {"two-path": dict(gen_kv_block_size=16, gen_prefill_chunk=16,
                           gen_step_chunk=4),
@@ -81,14 +84,35 @@ def jax_tokens(params):
         g.stop()
 
 
-def _request(port, method, path, body=None):
+def _request(port, method, path, body=None, headers=False):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
         conn.request(method, path, json.dumps(body) if body else None)
         resp = conn.getresponse()
-        return resp.status, resp.read()
+        out = resp.status, resp.read()
+        return (*out, dict(resp.getheaders())) if headers else out
     finally:
         conn.close()
+
+
+@pytest.fixture(scope="module")
+def jax_server():
+    """The JAX worker of the same lane behind the JAX package's HTTP
+    server, for wire comparisons."""
+    from tpu_engine.serving.http import JsonHttpServer as JaxHttp
+
+    jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **LANE))
+    srv = JaxHttp(0)
+    srv.route("POST", "/generate",
+              lambda body: (200, jw.handle_generate(body)))
+    srv.route("POST", "/generate/stream",
+              lambda body: (200, jw.handle_generate_stream(body)))
+    srv.start(background=True)
+    try:
+        yield srv.port
+    finally:
+        srv.stop()
+        jw.stop()
 
 
 def test_generate_matches_jax(server, jax_tokens):
@@ -124,6 +148,118 @@ def test_bad_request_is_400(server):
     status, _ = _request(server, "POST", "/generate/stream", {
         "request_id": "x", "prompt_tokens": [1], "min_p": 2.0})
     assert status == 400
+
+
+@pytest.mark.parametrize("path", ["/generate", "/generate/stream"])
+def test_expired_deadline_is_503_like_jax(server, jax_server, path):
+    body = {"request_id": "dl", "prompt_tokens": [5, 9, 3],
+            "max_new_tokens": 4, "deadline_ms": 0}
+    got = _request(server, "POST", path, body, headers=True)
+    want = _request(jax_server, "POST", path, body, headers=True)
+    assert got[0] == want[0] == 503
+    assert got[2]["Retry-After"] == want[2]["Retry-After"] == "1"
+    assert json.loads(got[1]) == json.loads(want[1]) == {
+        "error": "deadline exceeded at admission",
+        "kind": "deadline_exceeded"}
+    body["deadline_ms"] = 60000
+    assert _request(server, "POST", path, body)[0] == 200
+
+
+@pytest.mark.parametrize("bad", [-5, float("nan"), "soon"])
+def test_bad_deadline_is_400_like_jax(server, jax_server, bad):
+    for path in ("/generate", "/generate/stream"):
+        body = {"request_id": "bd", "prompt_tokens": [5, 9, 3],
+                "max_new_tokens": 2, "deadline_ms": bad}
+        assert _request(server, "POST", path, body)[0] == 400
+        assert _request(jax_server, "POST", path, body)[0] == 400
+
+
+def test_misaddressed_model_is_400_like_jax(server, jax_server):
+    for path in ("/generate", "/generate/stream"):
+        body = {"request_id": "m", "prompt_tokens": [5, 9, 3],
+                "max_new_tokens": 2, "model": "llama"}
+        got = _request(server, "POST", path, body)
+        want = _request(jax_server, "POST", path, body)
+        assert got[0] == want[0] == 400
+        assert json.loads(got[1]) == json.loads(want[1]) == {
+            "error": "this lane serves model 'gpt2-small-test', not "
+                     "'llama'"}
+        body["model"] = "gpt2-small-test"
+        assert _request(server, "POST", path, body)[0] == 200
+
+
+def _stream_until_expired(worker, module, monkeypatch):
+    """Drive one /generate/stream through ``worker.handle_generate_stream``
+    with a deadline that passes once the first tokens have streamed
+    (``module``'s Deadline patched to hand out that one object). Returns
+    (tokens streamed, terminal event)."""
+    deadline = module.Deadline.after_ms(600000)
+    monkeypatch.setattr(module.Deadline, "from_request",
+                        classmethod(lambda cls, payload, *a: deadline))
+    events = worker.handle_generate_stream({
+        "request_id": "mid", "prompt_tokens": [5, 9, 3],
+        "max_new_tokens": 60, "deadline_ms": 600000})
+    streamed, final = [], None
+    for frame in events:
+        ev = json.loads(frame[len(b"data: "):])
+        if ev.get("done"):
+            final = ev
+        else:
+            streamed.extend(ev["tokens"])
+            deadline.at = 0.0  # the deadline passes mid-generation
+    return streamed, final
+
+
+def test_deadline_mid_generation_cancels_like_jax(params, monkeypatch):
+    """A row whose deadline passes mid-generation is cancelled between
+    ticks: the stream ends with the JAX lane's terminal error event (not
+    retryable, tokens_emitted = what streamed), the row's blocks return
+    to the pool, and the blocking endpoint raises DeadlineExceeded."""
+    import tpu_engine.serving.worker as jworker_mod
+    import tpu_engine.utils.deadline as jdeadline
+    import tpu_engine_torch.serving.worker as tworker_mod
+    import tpu_engine_torch.utils.deadline as tdeadline
+    from tpu_engine_torch.serving.worker import WorkerNode
+
+    tparams = convert.params_from_jax(
+        jax.tree.map(np.asarray, params),
+        tcreate("gpt2-small-test").config, device="cpu")
+    tw = WorkerNode(WorkerConfig(model="gpt2-small-test", dtype="float32",
+                                 device="cpu", **LANE), params=tparams)
+    jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **LANE))
+    try:
+        finals = []
+        for worker, mod in ((tw, tworker_mod), (jw, jworker_mod)):
+            streamed, final = _stream_until_expired(worker, mod,
+                                                    monkeypatch)
+            assert 0 < len(streamed) < 60
+            assert final["tokens_emitted"] == len(streamed)
+            assert "deadline exceeded mid-generation" in final["error"]
+            finals.append(final)
+        keys = {"done", "error", "retryable", "request_id",
+                "tokens_emitted"}
+        assert set(finals[0]) == keys <= set(finals[1])
+        assert finals[0]["retryable"] is finals[1]["retryable"] is False
+        st = tw.get_stats()
+        for _ in range(200):
+            if not st["active"]:
+                break
+            time.sleep(0.05)
+            st = tw.get_stats()
+        assert st["active"] == 0 and st["deadline_cancelled"] == 1
+        pool = st["kv_pool"]
+        assert pool["blocks_free"] + pool["radix_nodes"] >= \
+            pool["blocks_total"]
+        expired = tdeadline.Deadline.after_ms(600000)
+        fut = tw.generator.submit([5, 9, 3], max_new_tokens=60,
+                                  deadline=expired)
+        expired.at = 0.0
+        with pytest.raises(tdeadline.DeadlineExceeded):
+            fut.result(timeout=60)
+        assert issubclass(jdeadline.DeadlineExceeded, jdeadline.ShedError)
+    finally:
+        tw.stop()
+        jw.stop()
 
 
 def test_health_and_stats_schemas_match_jax(server):

@@ -88,56 +88,14 @@
 //        directory with nvcc -gencode arch=compute_90a,code=sm_90a at first
 //        use, links one library and loads it with ctypes.
 
-#include "paged_attention_common.cuh"
+#include "flash_common.cuh"
+#include "mma_common.cuh"
 
 #include <type_traits>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTile = 64;  // rows of the output tile, both kernels, both types
-
-struct Strides {
-  long long b, s, h;
-};
-
-// ---- copies -----------------------------------------------------------------
-
-// 16 bytes global -> shared without registers; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + ROWS) of one head of x into dst (row stride STRIDE
-// elements), 16 bytes per copy; rows past S are zeros.
-template <typename T, int D, int ROWS, int STRIDE, int THREADS>
-__device__ __forceinline__ void stage_async(T* dst, const T* x, long long ss, int r0,
-                                            int S, int tid) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per copy
-  constexpr int kChunks = D / kPer;     // copies per row
-  constexpr int kCopies = ROWS * kChunks;
-#pragma unroll
-  for (int i = 0; i < (kCopies + THREADS - 1) / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    if (kCopies % THREADS != 0 && idx >= kCopies) break;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * STRIDE + c * kPer, in ? x + (r0 + r) * ss + c * kPer : x, in);
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The lse and delta rows [row0, row0 + ROWS) of one head, lse in base 2
 // (times log2 e); rows past n_rows get lse -inf (p = 0) and delta 0.
@@ -149,16 +107,6 @@ __device__ __forceinline__ void stage_rows(float* lse_s, float* delta_s, const f
     const bool in = tid < n_rows;
     lse_s[tid] = in ? lse[row0 + tid] * kLog2e : -INFINITY;
     delta_s[tid] = in ? delta[row0 + tid] : 0.f;
-  }
-}
-
-// Which keys [k0, k0 + ROWS) exist and pass the padding mask.
-template <int ROWS>
-__device__ __forceinline__ void stage_keys(int* kvalid_s, const int* mb, int k0, int Sk,
-                                           int tid) {
-  if (tid < ROWS) {
-    const int kpos = k0 + tid;
-    kvalid_s[tid] = kpos < Sk && (mb == nullptr || mb[kpos] > 0);
   }
 }
 
@@ -175,89 +123,6 @@ __device__ __forceinline__ float recompute_p(float s, float scale2, float lse2, 
   bool keep = key_ok && lse2 != -INFINITY;
   if (causal) keep = keep && kpos <= qpos && (window == 0 || qpos - kpos < window);
   return keep ? p_of(s, scale2, lse2) : 0.f;
-}
-
-// Whether the forward attended every pair of queries [q0, q0 + nq) and keys
-// [k0, k0 + nk): both tiles full, no padding mask, and under causal the
-// key tile wholly on or below the diagonal and inside the band. Such a
-// tile (most of a long sequence's) skips the per-pair tests: every row
-// there has a valid key, so its lse is finite.
-__device__ __forceinline__ bool all_attended(int q0, int nq, int k0, int nk, int Sq, int Sk,
-                                             const int* mask, int causal, int window) {
-  if (mask != nullptr || q0 + nq > Sq || k0 + nk > Sk) return false;
-  return !causal || (k0 + nk - 1 <= q0 && (window == 0 || q0 + nq - 1 - k0 < window));
-}
-
-// The swept tiles a thread block visits. dq: the key tiles of `bn` keys the
-// forward visited for queries [q0, q0 + n); dk, dv: the query tiles of `bn`
-// queries that reach keys [k0, k0 + n).
-struct Range {
-  int begin, end;
-};
-__device__ __forceinline__ Range key_tiles(int q0, int n, int Sk, int bn, int causal,
-                                           int window) {
-  int end = (Sk + bn - 1) / bn;
-  if (causal) end = min(end, (q0 + n - 1) / bn + 1);
-  int begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) begin = (q0 - window + 1) / bn;
-  return {begin, end};
-}
-__device__ __forceinline__ Range query_tiles(int k0, int n, int Sq, int bn, int causal,
-                                             int window) {
-  const int nq = (Sq + bn - 1) / bn;
-  Range r{0, nq};
-  if (causal) {
-    r.begin = k0 / bn;
-    if (window > 0) r.end = min(nq, (k0 + n - 1 + window - 1) / bn + 1);
-  }
-  return r;
-}
-
-// ---- tensor-core helpers (bf16) -----------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-// c += a . b for one m16n8k16 tile, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Fragment addresses inside a row-major [rows][STRIDE] bf16 tile. The A
-// operand (16 rows x 16 columns at row0, col0) and, with .trans, the B
-// operand of a product whose k index runs down the rows (16 rows x two n8
-// column tiles at row0, col0) read the same addresses.
-template <int STRIDE>
-__device__ __forceinline__ const bf16* frag_a(const bf16* t, int row0, int col0, int lane) {
-  return t + (row0 + (lane & 15)) * STRIDE + col0 + (lane >> 4) * 8;
-}
-// The B operand of a product whose k index runs along the rows (x . t^T):
-// rows row0..row0+15 as two n8 tiles, columns col0..col0+15 as k.
-template <int STRIDE>
-__device__ __forceinline__ const bf16* frag_bt(const bf16* t, int row0, int col0,
-                                               int lane) {
-  return t + (row0 + (lane & 7) + ((lane >> 4) << 3)) * STRIDE + col0 +
-         ((lane >> 3) & 1) * 8;
 }
 
 template <int D>

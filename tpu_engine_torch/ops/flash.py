@@ -38,15 +38,15 @@ they take the plain versions. Nothing falls back: a kernel that does not
 build or launch raises. Each kernel's wrapper counts its launches
 (``launches``) and plain calls (``plain_calls``).
 
-The backward kernels own one 64-row output tile per thread block and sweep
-the other axis, so their gradients are bit-identical from run to run. In
-bf16 they multiply on the tensor cores (``mma.sync``, bf16 tiles
+Every kernel owns one 64-row output tile per thread block and sweeps the
+other axis, so its results are bit-identical from run to run. In bf16 the
+kernels multiply on the tensor cores (``mma.sync``, bf16 tiles
 double-buffered by 16-byte ``cp.async`` copies, p and ds kept in
 registers); in f32 on the CUDA cores, register-tiled (TF32 stays off). The
 copies need every (b, s, h) row of q, k, v and do 16-byte aligned: the
-wrapper passes such tensors as they are, strided views included, and
-copies any other to a contiguous tensor first (the same kernel then runs;
-the copy is not the plain version and is counted nowhere).
+wrappers pass such tensors as they are, strided views included, and copy
+any other to a contiguous tensor first (the same kernel then runs; the
+copy is not the plain version and is counted nowhere).
 """
 
 from __future__ import annotations
@@ -173,20 +173,15 @@ def flash_attention_bwd_reference(q, k, v, mask, out, lse, do, *,
     return dq, dk, dv
 
 
-def _operand(t):
-    """The kernels read (b, s, h) strides; the head dim must be dense."""
-    return t if t.stride(-1) == 1 else t.contiguous()
-
-
 def _rows_aligned(t) -> bool:
     """Whether every (b, s, h) row of t starts 16 bytes aligned, with its
-    head dim dense: what the backward kernels' 16-byte copies need."""
+    head dim dense: what the kernels' 16-byte copies need."""
     item = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(t.stride(i) * item % 16 == 0 for i in range(3)))
 
 
-def _bwd_operand(t):
+def _aligned(t):
     """t itself where its rows are 16-byte aligned, else a contiguous copy
     (the copy runs the same kernel; it is not the plain version)."""
     return t if _rows_aligned(t) else t.clone(
@@ -234,7 +229,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
     dev = q.device
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    q, k, v = _operand(q), _operand(k), _operand(v)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     m = _mask_arg(mask)
     out = torch.empty((b, sq, h, d), dtype=v.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
@@ -266,7 +261,7 @@ def _bwd_launch_args(q, k, v, mask, lse, delta, do, causal, window):
             raise ValueError(f"{name} must be contiguous float32 (B, H, Sq) ="
                              f" {(b, h, sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    q, k, v, do = (_bwd_operand(t) for t in (q, k, v, do))
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     m = _mask_arg(mask)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if m is None else m.data_ptr(), do.data_ptr(),

@@ -42,7 +42,9 @@ _L, _F = ctypes.c_int64, ctypes.c_float
 # Entry point -> argument types (the stream comes last, appended by
 # `launch`).
 ENTRY_POINTS = {
-    "ragged_paged_attention": [_P] * 7 + [_I] * 8,
+    # q, k_pool, v_pool, tables, pos0, qlen, out, part_acc, part_ml; B, W,
+    # H, H_kv, D, bs, nb, split, kv_dtype.
+    "ragged_paged_attention": [_P] * 9 + [_I] * 9,
     "paged_attention": [_P] * 6 + [_I] * 7,
     "quant_paged_attention": [_P] * 8 + [_I] * 6,
     "quant_ragged_paged_attention": [_P] * 9 + [_I] * 7,

@@ -17,7 +17,14 @@ int8 pool.
 
 Each read has a plain PyTorch version (``*_reference``: gather the row's
 blocks into a dense view, dequantized to f32 for int8, and run the grouped
-``dot_product_attention``) and a wrapper. For CUDA tensors the wrapper
+``dot_product_attention``) and a wrapper. The ragged read's kernel cuts
+each (row, query tile)'s causal key range into splits of
+``ragged_split_len(bs)`` keys and merges their partials by log-sum-exp
+(``ragged_split_plan`` gives the split counts, a function of each row's own
+pos0 and qlen; ``ragged_paged_attention_split_reference`` repeats the
+split and merge arithmetic in plain PyTorch, with q's f32 product against
+a bf16 pool taken as the kernel takes it, three bf16 terms of q from
+``split_bf16_terms``). For CUDA tensors the wrapper
 launches the hand-written kernel that ports the TPU kernel (``csrc/``:
 ``_paged_kernel`` and ``_quant_paged_kernel`` in ``paged_attention.cu``,
 ``_ragged_kernel`` in ``ragged_paged_attention.cu``,
@@ -34,6 +41,9 @@ kernel library; importing this module needs neither ``nvcc`` nor a card.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -44,6 +54,10 @@ from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_DECODE_GROUP_DIMS = 2048   # G * D a decode thread block accumulates
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The ragged kernel: query rows per thread block (row r of a (row, kv head)
+# is query slot r // G, group head r % G) and keys per split.
+RAGGED_TILE_ROWS = 64
+SPLIT_KEYS = 512
 
 
 # -- plain versions ------------------------------------------------------------
@@ -112,6 +126,115 @@ def quant_ragged_paged_attention_reference(q, k_pool, v_pool, k_scale,
                        _gather_rows(v_scale, tables))
     mask = _ragged_mask(q, tables, k_pool.shape[1], pos0)
     return dot_product_attention(q, kk, vv, mask=mask)
+
+
+# -- the ragged read's split and merge ----------------------------------------
+
+def ragged_split_len(block_size: int) -> int:
+    """Keys per split of the ragged kernel: SPLIT_KEYS rounded down to whole
+    blocks (at least one)."""
+    return max(1, SPLIT_KEYS // block_size) * block_size
+
+
+def ragged_split_plan(pos0, qlen, w: int, g: int, block_size: int,
+                      table_len: int, split: Optional[int] = None):
+    """(B, tiles) int numpy array: how many splits the ragged kernel takes
+    for each (row, tile of RAGGED_TILE_ROWS query rows), 0 for a tile of
+    padding slots. A tile's keys are [0, kend), kend = pos0 + the slot of
+    its last valid row + 1 (at most table_len * block_size), cut every
+    ``split`` keys: a function of the row's own pos0 and qlen only."""
+    split = ragged_split_len(block_size) if split is None else int(split)
+    p0 = np.asarray(pos0, np.int64)[:, None]
+    ql = np.minimum(np.asarray(qlen, np.int64), w)[:, None]
+    tiles = -(-w * g // RAGGED_TILE_ROWS)
+    row0 = RAGGED_TILE_ROWS * np.arange(tiles, dtype=np.int64)[None, :]
+    n_valid = np.minimum(RAGGED_TILE_ROWS, ql * g - row0)
+    kend = np.minimum(p0 + (row0 + np.maximum(n_valid, 1) - 1) // g + 1,
+                      table_len * block_size)
+    return np.where(n_valid > 0, -(-kend // split), 0)
+
+
+def split_bf16_terms(x):
+    """f32 x as three bf16 terms hi + mid + lo, each the bf16 rounding of
+    what the terms before it leave: their sum carries x's 24-bit
+    significand, so their products with an exact bf16 operand, summed in
+    f32, give x's f32 product."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def ragged_paged_attention_split_reference(q, k_pool, v_pool, tables, pos0,
+                                           qlen, split: Optional[int] = None):
+    """The ragged kernel's arithmetic in plain PyTorch, for the tests: per
+    (row, kv head, query tile) and split, the partial (base-2 maximum m,
+    sum l of the unrounded weights, f32 sum of the weights rounded to the
+    pool's dtype times V), merged in split order by log-sum-exp. Over a
+    bf16 pool q's product is the sum of its
+    three bf16 terms' products. Same contract as
+    ``ragged_paged_attention_reference``; padding slots give 0."""
+    b, w, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    g = h // h_kv
+    nb = tables.shape[1]
+    split = ragged_split_len(bs) if split is None else int(split)
+    plan = ragged_split_plan(pos0.cpu().numpy(), qlen.cpu().numpy(), w, g,
+                             bs, nb, split)
+    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    kk = _gather_rows(k_pool, tables)           # (B, nb * bs, H_kv, D)
+    vv = _gather_rows(v_pool, tables)
+    qr = (q.float().reshape(b, w, h_kv, g, d).transpose(1, 2)
+          .reshape(b, h_kv, w * g, d))          # row r: slot r // g, head r % g
+    out = torch.zeros((b, h_kv, w * g, d), dtype=torch.float32,
+                      device=q.device)
+    bf16 = k_pool.dtype == torch.bfloat16
+    for bi in range(b):
+        for t, ns in enumerate(plan[bi]):
+            if ns == 0:
+                continue
+            r0 = t * RAGGED_TILE_ROWS
+            n_valid = min(RAGGED_TILE_ROWS,
+                          min(int(qlen[bi]), w) * g - r0)
+            kend = int(min(int(pos0[bi]) + (r0 + n_valid - 1) // g + 1,
+                           nb * bs))
+            rows = torch.arange(r0, r0 + n_valid, device=q.device)
+            qpos = int(pos0[bi]) + rows // g
+            for kv in range(h_kv):
+                qt = qr[bi, kv, r0:r0 + n_valid]
+                parts = []
+                for sp in range(int(ns)):
+                    k0, k1 = sp * split, min(kend, (sp + 1) * split)
+                    kt = kk[bi, k0:k1, kv].float()
+                    if bf16:
+                        s = sum(t_.float() @ kt.T
+                                for t_ in reversed(split_bf16_terms(qt)))
+                    else:
+                        s = qt @ kt.T
+                    kpos = torch.arange(k0, k1, device=q.device)
+                    s = torch.where(kpos[None, :] <= qpos[:, None],
+                                    s * scale2, float("-inf"))
+                    m = s.amax(-1)
+                    m_use = torch.where(m == float("-inf"),
+                                        torch.zeros_like(m), m)
+                    p = torch.exp2(s - m_use[:, None])
+                    acc = (p.to(v_pool.dtype).float()
+                           @ vv[bi, k0:k1, kv].float())
+                    parts.append((m, p.sum(-1), acc))
+                # The merge (one split: weight 1, the partial normalised).
+                mx = torch.stack([m for m, _, _ in parts]).amax(0)
+                mx = torch.where(mx == float("-inf"), torch.zeros_like(mx),
+                                 mx)
+                wts = [torch.exp2(m - mx) for m, _, _ in parts]
+                den = sum(wt * l for wt, (_, l, _) in zip(wts, parts))
+                num = sum(wt[:, None] * acc
+                          for wt, (_, _, acc) in zip(wts, parts))
+                out[bi, kv, r0:r0 + n_valid] = num / torch.where(
+                    den > 0, den, torch.ones_like(den))[:, None]
+    out = (out.reshape(b, h_kv, w, g, d).transpose(1, 2)
+           .reshape(b, w, h, d))
+    return out.to(k_pool.dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------------
@@ -199,12 +322,24 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
                      (("pos0", pos0), ("qlen", qlen)))
     b, w, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
+    nb = tables.shape[1]
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=k_pool.dtype, device=q.device)
+    # Scratch for the partials of tiles that take more than one split.
+    split = ragged_split_len(bs)
+    n_split = -(-nb * bs // split)
+    rows_pad = -(-w * (h // h_kv) // RAGGED_TILE_ROWS) * RAGGED_TILE_ROWS
+    part_acc = part_ml = None
+    if n_split > 1:
+        rows = b * h_kv * n_split * rows_pad
+        part_acc = torch.empty(rows * d, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     launch("ragged_paged_attention", q.device, qf.data_ptr(),
-            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-            pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv,
-            d, bs, tables.shape[1], _KV_DTYPES[k_pool.dtype])
+           k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+           pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(),
+           None if part_acc is None else part_acc.data_ptr(),
+           None if part_ml is None else part_ml.data_ptr(), b, w, h, h_kv,
+           d, bs, nb, split, _KV_DTYPES[k_pool.dtype])
     ragged_paged_attention.launches += 1
     return out
 

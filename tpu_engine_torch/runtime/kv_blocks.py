@@ -32,6 +32,7 @@ import torch
 
 from tpu_engine_torch.models.transformer import KVCache, TransformerConfig
 from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
+from tpu_engine_torch.utils.device import resolve_device
 
 
 def dense_block_bytes(cfg: TransformerConfig, block_size: int,
@@ -179,7 +180,7 @@ class BlockPool:
 
     def __init__(self, cfg: TransformerConfig, num_blocks: int,
                  block_size: int, dtype: torch.dtype = torch.bfloat16,
-                 device="cpu", host_blocks: int = 0, quantize: str = ""):
+                 device=None, host_blocks: int = 0, quantize: str = ""):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         if quantize not in ("", "int8"):
@@ -196,7 +197,7 @@ class BlockPool:
         self.quantized = quantize == "int8"
         self.io_dtype = dtype
         self.dtype = torch.int8 if self.quantized else dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scales: Optional[KVCache] = None
         # Guards the bookkeeping. RLock: eviction runs inside alloc.
         self.lock = threading.RLock()

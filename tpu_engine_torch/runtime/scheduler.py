@@ -45,9 +45,13 @@ one, in three modes:
   row's blocks.
 
 A request is cancelled by cancelling the Future ``submit`` returned: its
-row frees between ticks (chunks) and its stream ends. The speculative,
-state-slab and stateless modes, the host tier, migration, handoff,
-deadlines, brownout and tensor parallelism are not yet ported and refuse.
+row frees between ticks (chunks) and its stream ends. A request submitted
+with a ``Deadline`` is failed with ``DeadlineExceeded`` where the JAX
+scheduler fails it: before its prefill, before its row admission, or
+between ticks once the deadline passes mid-generation (the cancel path
+above; tokens already streamed stand). The speculative, state-slab and
+stateless modes, the host tier, migration, handoff, brownout and tensor
+parallelism are not yet ported and refuse.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ from tpu_engine_torch.runtime.kv_blocks import (
     scatter_blocks,
     scatter_blocks_quant,
 )
+from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 from tpu_engine_torch.utils.sampling import (
     MAX_STOP_TOKENS,
@@ -116,6 +121,7 @@ class _Request:
     # the stream (the future then holds the result or the error).
     stream: Optional["queue.Queue"] = None
     streamed: int = 0
+    deadline: Optional[Deadline] = None
 
 
 class _Formed(NamedTuple):
@@ -374,11 +380,13 @@ class ContinuousGenerator:
                eos_id: int = -1, temperature: float = 0.0, seed: int = 0,
                top_p: float = 1.0, top_k: int = 0,
                repetition_penalty: float = 1.0, stop_tokens=None,
-               min_p: float = 0.0, stream=None) -> Future:
+               min_p: float = 0.0, stream=None,
+               deadline: Optional[Deadline] = None) -> Future:
         """Enqueue one request; the Future resolves to its generated token
         list. ``stream``: optional queue.Queue that receives fresh token
         lists as they decode, then a None sentinel. Cancelling the Future
-        cancels the request."""
+        cancels the request. ``deadline``: the request fails with
+        ``DeadlineExceeded`` once it passes (between ticks)."""
         if not self._running:
             raise RuntimeError("scheduler stopped")
         pens, stops = expand_stopping_params(1, repetition_penalty,
@@ -394,7 +402,7 @@ class ContinuousGenerator:
                        float(temperature), int(seed), float(top_p),
                        clamp_top_k(top_k), rep_penalty=pens[0],
                        stop_tokens=stops[0], min_p=float(min_p),
-                       stream=stream)
+                       stream=stream, deadline=deadline)
         self._queue.put(req)
         return req.future
 
@@ -564,14 +572,31 @@ class ContinuousGenerator:
             self._stats["completed"] += 1
 
     def _cancel_rows(self) -> None:
-        """Free the rows whose Future the client cancelled, between
-        ticks: their blocks return and their streams end."""
+        """Free the rows whose Future the client cancelled, or whose
+        deadline passed, between ticks: their blocks return and their
+        streams end (an expired row's future fails with
+        DeadlineExceeded)."""
         for r, req in enumerate(self._row_req):
-            if req is not None and req.future.cancelled():
+            if req is None:
+                continue
+            if req.future.cancelled():
                 if req.stream is not None:
                     req.stream.put(None)
                 self._free_row(r)
                 self._bump("cancelled")
+            elif self._expired(req, "deadline exceeded mid-generation "
+                               f"({len(self._row_emitted[r])} tokens "
+                               f"emitted)"):
+                self._free_row(r)
+
+    def _expired(self, req: _Request, message: str) -> bool:
+        """Fail ``req`` with DeadlineExceeded if its deadline has passed
+        (counted as ``deadline_cancelled``, as the JAX scheduler does)."""
+        if req.deadline is None or not req.deadline.expired():
+            return False
+        self._bump("deadline_cancelled")
+        self._fail_request(req, DeadlineExceeded(message))
+        return True
 
     # -- prefill thread: batch formation -----------------------------------------
 
@@ -593,6 +618,8 @@ class ContinuousGenerator:
                 if req.stream is not None:
                     req.stream.put(None)
                 self._bump("cancelled")
+                continue
+            if self._expired(req, "deadline expired before prefill"):
                 continue
             self._prefill_busy_since = time.monotonic()
             try:
@@ -1323,6 +1350,12 @@ class ContinuousGenerator:
                     if req.stream is not None:
                         req.stream.put(None)
                     self._bump("cancelled")
+                    continue
+                if self._expired(req, "deadline expired before row "
+                                 "admission"):
+                    if from_pending:
+                        self._pending.popleft()
+                    self._discard_item(item)
                     continue
                 try:
                     self._admit(item, free[0])

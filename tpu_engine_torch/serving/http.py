@@ -3,9 +3,11 @@ endpoints: the port's own copy of ``JsonHttpServer`` and ``sse_event``
 from ``tpu_engine/serving/http.py`` (stdlib only).
 
 Handlers return ``(status, payload)``; a payload that is an iterator of
-byte chunks is sent as a chunked Server-Sent-Events stream. KeyError,
-ValueError and TypeError map to 400, NotImplementedError and every other
-exception to 500, with ``{"error": ...}`` bodies.
+byte chunks is sent as a chunked Server-Sent-Events stream. A
+``ShedError`` (an expired deadline) maps to 503 with ``Retry-After`` and
+``{"error", "kind"}``; KeyError, ValueError and TypeError map to 400,
+NotImplementedError and every other exception to 500, with
+``{"error": ...}`` bodies.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
+
+from tpu_engine_torch.utils.deadline import ShedError
 
 Handler = Callable[[Optional[dict]], Tuple[int, dict]]
 
@@ -178,6 +182,17 @@ class JsonHttpServer:
                                       content_type=result[2])
                     else:
                         self._respond(result[0], result[1])
+                except ShedError as exc:
+                    # A refusal by policy (an expired deadline): 503 and
+                    # Retry-After so clients back off, and a "kind" so
+                    # upstream hops classify it without string matching.
+                    try:
+                        self._respond(
+                            503, {"error": str(exc), "kind": exc.kind},
+                            extra_headers={"Retry-After": str(max(
+                                1, int(exc.retry_after_s + 0.999)))})
+                    except Exception:
+                        pass
                 except (KeyError, ValueError, TypeError) as exc:
                     # Malformed/unsupported request → 400 so gateways can
                     # tell client errors from worker failures (the reference

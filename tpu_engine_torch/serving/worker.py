@@ -7,11 +7,22 @@ worker's wire fields.
 
 Wire: ``/generate`` takes ``{request_id, prompt_tokens, max_new_tokens?,
 eos_id?, temperature?, seed?, top_p?, top_k?, repetition_penalty?,
-stop_tokens?, min_p?}`` and answers ``{request_id, tokens, node_id,
-generate_time_us}``. ``/generate/stream`` sends ``{"tokens": [...]}``
-events as tokens decode, then a terminal ``{"done": true, ...}`` event
-with the blocking endpoint's fields, or with ``error``, ``retryable`` and
-``tokens_emitted`` when the stream failed.
+stop_tokens?, min_p?, deadline_ms?, model?}`` and answers ``{request_id,
+tokens, node_id, generate_time_us}``. ``/generate/stream`` sends
+``{"tokens": [...]}`` events as tokens decode, then a terminal
+``{"done": true, ...}`` event with the blocking endpoint's fields, or
+with ``error``, ``retryable`` and ``tokens_emitted`` when the stream
+failed. As in the JAX worker, a ``model`` other than the lane's is a 400;
+a negative or NaN ``deadline_ms`` is a 400; a request whose deadline has
+passed at admission is a 503 with ``Retry-After`` (before a stream
+commits to 200); and a row whose deadline passes mid-generation is
+cancelled between ticks (blocking: 503; stream: the terminal error
+event, not retryable).
+
+``/health`` carries the JAX lane's keys at defaults: the ``/infer``
+result cache's (``cache_hits``, ``cache_size``, ``cache_hit_rate``) and
+``batch_processor``, and the generator's ``stateless`` block, all idle
+with zero counts, since the port serves no one-shot rows yet.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from tpu_engine_torch.models.registry import create_model
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.utils.config import WorkerConfig
+from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
 from tpu_engine_torch.utils.sampling import (
     clamp_top_k,
     expand_stopping_params,
@@ -64,9 +76,20 @@ class WorkerNode:
         self._total_requests = 0
         self._counter_lock = threading.Lock()
 
+    def _check_model(self, request: dict) -> None:
+        """A request addressed to a specific model is never answered by a
+        lane serving another one (the JAX worker's check)."""
+        want = request.get("model")
+        have = getattr(self.generator.spec, "name", None)
+        if want is not None and have is not None and str(want) != have:
+            raise ValueError(
+                f"this lane serves model '{have}', not '{want}'")
+
     def _parse(self, request: dict) -> dict:
         """Validate a /generate payload eagerly: a malformed request must
-        400 before a stream commits to 200."""
+        400, and an expired one 503, before a stream commits to 200."""
+        self._check_model(request)
+        deadline = Deadline.from_request(request)
         if int(request.get("beam_width", 1)) != 1:
             raise ValueError("beam search is not yet ported to "
                              "tpu_engine_torch")
@@ -86,6 +109,9 @@ class WorkerNode:
         expand_stopping_params(1, kw["repetition_penalty"],
                                [kw["stop_tokens"]] if kw["stop_tokens"]
                                else None)
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded("deadline exceeded at admission")
+        kw["deadline"] = deadline
         return kw
 
     def _count_request(self) -> None:
@@ -146,11 +172,20 @@ class WorkerNode:
         request at fault."""
         retryable = getattr(exc, "retryable", None)
         if retryable is None:
-            retryable = not isinstance(exc, (KeyError, ValueError,
-                                             TypeError))
+            # A spent deadline, like a request at fault, no lane can help.
+            retryable = not isinstance(exc, (DeadlineExceeded, KeyError,
+                                             ValueError, TypeError))
         return {"done": True, "error": str(exc)[:300],
                 "retryable": bool(retryable), "request_id": request_id,
                 "tokens_emitted": int(tokens_emitted)}
+
+    def _generator_stats(self) -> dict:
+        """The scheduler's stats with the JAX lane's ``stateless`` block
+        (one-shot rows), idle: the port serves none yet."""
+        return {**self.generator.stats(), "stateless": {
+            "admitted": 0, "completed": 0, "failed": 0, "ticks": 0,
+            "dispatches": 0, "infer_rows": 0, "score_rows": 0,
+            "full_dispatches": 0, "deadline_dropped": 0}}
 
     def get_health(self) -> dict:
         with self._counter_lock:
@@ -158,10 +193,16 @@ class WorkerNode:
         return {"healthy": True, "node_id": self.node_id,
                 "model": self.generator.spec.name,
                 "total_requests": total,
-                "generator": self.generator.stats()}
+                # The /infer result cache and batcher, idle.
+                "cache_hits": 0, "cache_size": 0, "cache_hit_rate": 0.0,
+                "batch_processor": {"total_batches": 0,
+                                    "avg_batch_size": 0.0,
+                                    "timeout_batches": 0,
+                                    "full_batches": 0},
+                "generator": self._generator_stats()}
 
     def get_stats(self) -> dict:
-        return {"node_id": self.node_id, **self.generator.stats()}
+        return {"node_id": self.node_id, **self._generator_stats()}
 
     def stop(self) -> None:
         self.generator.stop()
