@@ -15,10 +15,13 @@ Phases (any failure exits non-zero and prints no result line):
               and the flash forward at the train phase's shape (tolerance
               1e-5), bf16 at the main path's shapes (2e-2 on unit
               normals; for the flash forward on out and lse), int8 pools at
-              both (2e-4, the JAX package's bound for its int8 kernels); the
-              flash forward and the ragged read bit-identical over two
-              runs, and each ragged row bit-identical alone and in its
-              batch (its split plan depends on its own data only); the
+              both (2e-4, the JAX package's bound for its int8 kernels);
+              the split reads also against the plain repetition of their
+              own split arithmetic (#2 bf16 8e-3, about one bf16 ulp; #4
+              2e-4); the flash forward and the split reads (#1, #2, #4)
+              bit-identical over two runs, and each row of a split read
+              bit-identical alone and in its batch (its split plan depends
+              on its own data only); the
               flash backward (#6 dq, #7 dk and dv) at
               tests/test_flash_backward.py's shapes, its window case and
               the train phase's shape in f32 (1e-4 of the gradient's
@@ -93,8 +96,10 @@ the card's name and power limit; the line before that the kernels' JSON
 
     python3 chip_smoke.py --kernel-times [--package-root DIR]
 
-runs only the kernels' device times (#1 and #5 at the main path's shapes,
-#6/#7 at the train shape and a bf16 S 2048 row) through the package under
+runs only the kernels' device times (#1-#4 and #5 at the main path's
+shapes, #6/#7 at the train shape and a bf16 S 2048 row; and the bf16
+decode read's difference from this checkout's split plain version)
+through the package under
 DIR (default: this checkout), so that two trees (a parent commit unpacked
 under build/, and this one) can be timed in turns in one call.
 """
@@ -124,6 +129,9 @@ F32_TOL = 1e-5
 BWD_F32_TOL = 1e-4
 BF16_TOL = 2e-2
 QUANT_TOL = 2e-4
+# The bf16 decode read against its split plain version: about one bf16 ulp
+# of an output of magnitude 1-2 (the weights round at the same points).
+PAGED_SPLIT_BF16_TOL = 8e-3
 OUT_DIR = Path("chiprun_out")
 # (key, B, S, dtype) of the flash forward's readings: the dense lane's
 # prefill (f32, as every main path launches it: q, k, v come out of
@@ -338,15 +346,16 @@ def busy_ms(torch, fn, iters: int = 3) -> float:
     return us / iters / 1e3
 
 
-def device_call_ms(torch, fn, iters: int = 20) -> tuple:
+def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
     """Device time of one fn() call under torch.profiler, and the number of
     calls whose device events it saw whole. The profiler can drop the first
     events of a session, so a sum over the session would undercount: each
     device event name (kernel, copy, fill) counts its mean duration times
     its occurrences per call (its count over the fewest count of any name),
     summed. A session that saw fewer than half the calls whole (it once
-    kept one of 20) is run again, up to three sessions; the reading of the
-    session that saw the most calls is returned."""
+    kept one of 20, and once none) is run again, up to three sessions;
+    the reading of the session that saw the most calls is returned; with
+    ``by_kernel`` (a dict) also its device time per event name, per call."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -365,14 +374,19 @@ def device_call_ms(torch, fn, iters: int = 20) -> tuple:
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name].append(e.device_time_total)
-        check(len(by_name) > 0, "the profiler saw no device time")
+        if not by_name:  # a session that kept no device event: run again
+            continue
         calls = min(len(v) for v in by_name.values())
-        us = sum(sum(v) / len(v) * round(len(v) / calls)
-                 for v in by_name.values())
+        per_name = {k: sum(v) / len(v) * round(len(v) / calls) / 1e3
+                    for k, v in by_name.items()}
         if best is None or calls > best[1]:
-            best = (us / 1e3, calls)
+            best = (sum(per_name.values()), calls)
+            if by_kernel is not None:
+                by_kernel.clear()
+                by_kernel.update(per_name)
         if calls >= iters // 2:
             break
+    check(best is not None, "the profiler saw no device time")
     return best
 
 
@@ -513,23 +527,29 @@ def _valid_err(torch, out, ref, qlen):
     return float(((out.float() - ref.float()).abs() * valid).max())
 
 
-def ragged_rows_identical(torch, pa, t, out, shape: str) -> None:
-    """#1 gives the same bits over two runs, and each row's output run
-    alone (a batch of one, W its own qlen) equals its output in the batch
-    bit for bit: a row's split plan and arithmetic depend on its own data
-    only."""
-    check(torch.equal(out, pa.ragged_paged_attention(*t)),
-          f"ragged_paged_attention {shape}: two runs differ")
-    q, k, v, tables, pos0, qlen = t
-    for r, ql in enumerate(qlen.tolist()):
-        alone = pa.ragged_paged_attention(
-            q[r:r + 1, :max(ql, 1)].contiguous(), k, v, tables[r:r + 1],
-            pos0[r:r + 1], qlen[r:r + 1])
-        check(torch.equal(alone[0, :ql], out[r, :ql]),
-              f"ragged_paged_attention {shape}: row {r} alone differs from "
-              f"the batch")
-    log(f"parity ragged_paged_attention bf16 main path {shape}: "
-        f"bit-identical over two runs and row by row alone")
+def rows_identical(torch, pa, kernel: str, t, out, shape: str) -> None:
+    """A split kernel (#1, #2 or #4) gives the same bits over two runs, and
+    each row's output run alone (a batch of one; for a ragged read W its
+    own qlen) equals its output in the batch bit for bit: a row's split
+    plan and arithmetic depend on its own data only."""
+    fn = getattr(pa, kernel)
+    check(torch.equal(out, fn(*t)), f"{kernel} {shape}: two runs differ")
+    if kernel == "paged_attention":
+        q, k, v, tables, pos = t
+        for r in range(q.shape[0]):
+            alone = fn(q[r:r + 1].contiguous(), k, v, tables[r:r + 1],
+                       pos[r:r + 1])
+            check(torch.equal(alone[0], out[r]),
+                  f"{kernel} {shape}: row {r} alone differs from the batch")
+    else:
+        q, pools, (tables, pos0, qlen) = t[0], t[1:-3], t[-3:]
+        for r, ql in enumerate(qlen.tolist()):
+            alone = fn(q[r:r + 1, :max(ql, 1)].contiguous(), *pools,
+                       tables[r:r + 1], pos0[r:r + 1], qlen[r:r + 1])
+            check(torch.equal(alone[0, :ql], out[r, :ql]),
+                  f"{kernel} {shape}: row {r} alone differs from the batch")
+    log(f"parity {kernel} {shape}: bit-identical over two runs and row by "
+        f"row alone")
 
 
 def phase_parity(torch, pa) -> dict:
@@ -586,22 +606,34 @@ def phase_parity(torch, pa) -> dict:
         out, ref = run("quant_ragged_paged_attention", t)
         record("quant_ragged_paged_attention", f"int8 {name}",
                _valid_err(torch, out, ref, t[-1]), QUANT_TOL)
-    # The main path's shapes: bf16 and int8 pools.
+    # The main path's shapes: bf16 and int8 pools; the split kernels also
+    # against the plain repetition of their own split arithmetic.
     for decode_only in (False, True):
         shape = "decode W=1" if decode_only else "mixed W=256"
         t = main_path_inputs(torch, dev, decode_only)
         out, ref = run("ragged_paged_attention", t)
         record("ragged_paged_attention", f"bf16 main path {shape}",
                _valid_err(torch, out, ref, t[-1]), BF16_TOL)
-        ragged_rows_identical(torch, pa, t, out, shape)
+        rows_identical(torch, pa, "ragged_paged_attention", t, out, shape)
         t = main_path_inputs(torch, dev, decode_only, int8=True)
         out, ref = run("quant_ragged_paged_attention", t)
         record("quant_ragged_paged_attention", f"int8 main path {shape}",
                _valid_err(torch, out, ref, t[-1]), QUANT_TOL)
-    out, ref = run("paged_attention",
-                   decode_args(main_path_inputs(torch, dev, True)))
+        split = pa.quant_ragged_paged_attention_split_reference(*t)
+        record("quant_ragged_paged_attention",
+               f"int8 main path {shape} against its split version",
+               _valid_err(torch, out, split, t[-1]), QUANT_TOL)
+        rows_identical(torch, pa, "quant_ragged_paged_attention", t, out,
+                       f"int8 {shape}")
+    t = decode_args(main_path_inputs(torch, dev, True))
+    out, ref = run("paged_attention", t)
     record("paged_attention", "bf16 main path decode",
            float((out.float() - ref.float()).abs().max()), BF16_TOL)
+    split = pa.paged_attention_split_reference(*t)
+    record("paged_attention", "bf16 main path decode against its split "
+           "version", float((out.float() - split.float()).abs().max()),
+           PAGED_SPLIT_BF16_TOL)
+    rows_identical(torch, pa, "paged_attention", t, out, "bf16 decode")
     out, ref = run("quant_paged_attention",
                    decode_args(main_path_inputs(torch, dev, True, True)))
     record("quant_paged_attention", "int8 main path decode",
@@ -1680,22 +1712,67 @@ def forward_times(torch, kernel_res) -> dict:
     return out
 
 
+def split_reference_module():
+    """This checkout's ops/paged_attention.py loaded on its own, for its
+    split plain versions, whichever tree of the package is imported (its
+    imports resolve to that tree's ops modules, whose API is the same)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tpu_engine_torch" / "ops" / \
+        "paged_attention.py"
+    spec = importlib.util.spec_from_file_location("split_reference", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def kernel_times(torch) -> dict:
-    """Device time of one call (``device_call_ms``) of #1 at the main
-    path's mixed and decode shapes, #5 at FLASH_SHAPES and #6/#7 at the
-    train phase's shape (f32) and a bf16 prefill row at S 2048, through
-    whichever tree of the package is imported: ``--kernel-times`` runs
-    only this, so that two trees can be timed in turns in one call."""
+    """Device time of one call (``device_call_ms``) of #1 and #4 at the
+    main path's mixed and decode shapes, #2 and #3 at its decode shape, #5
+    at FLASH_SHAPES and #6/#7 at the train phase's shape (f32) and a bf16
+    prefill row at S 2048, through whichever tree of the package is
+    imported: ``--kernel-times`` runs only this, so that two trees can be
+    timed in turns in one call. The paged reads' readings are also split by
+    kernel name (split and merge kernels). Also the bf16 decode read's largest
+    difference from this checkout's split plain version (p rounded to bf16
+    against each split's maximum before PV) at the main path's decode shape
+    and two parity shapes, against PAGED_SPLIT_BF16_TOL."""
     from tpu_engine_torch.ops import flash as fl
     from tpu_engine_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
     res = {}
     for decode_only in (False, True):
-        inp = main_path_inputs(torch, dev, decode_only)
         key = "decode W=1" if decode_only else "mixed W=256"
-        res[f"ragged {key}"] = device_call_ms(
-            torch, lambda: pa.ragged_paged_attention(*inp))[0]
+        for kernel, int8 in (("ragged_paged_attention", False),
+                             ("quant_ragged_paged_attention", True)):
+            inp = main_path_inputs(torch, dev, decode_only, int8)
+            parts = res[f"{kernel} {key} by kernel"] = {}
+            res[f"{kernel} {key}"] = device_call_ms(
+                torch, lambda: getattr(pa, kernel)(*inp), by_kernel=parts)[0]
+    for kernel, int8 in (("paged_attention", False),
+                         ("quant_paged_attention", True)):
+        args = decode_args(main_path_inputs(torch, dev, True, int8))
+        parts = res[f"{kernel} decode by kernel"] = {}
+        res[f"{kernel} decode"] = device_call_ms(
+            torch, lambda: getattr(pa, kernel)(*args), by_kernel=parts)[0]
+    ref = split_reference_module()
+    on = (lambda arrs: [torch.from_numpy(a).to(dev) for a in arrs])
+    cases = (("main path decode",
+              list(decode_args(main_path_inputs(torch, dev, True)))),
+             ("parity_check", on(pa.parity_inputs())),
+             ("G8 D64 nb33", on(pa.parity_inputs(
+                 n_heads=16, n_kv_heads=2, d_head=64, n_blocks=33,
+                 table_len=8))))
+    for name, t in cases:
+        t[1], t[2] = t[1].bfloat16(), t[2].bfloat16()
+        out = pa.paged_attention(*t)
+        err = float((out.float() - ref.paged_attention_split_reference(*t)
+                     .float()).abs().max())
+        res[f"paged_attention bf16 {name} err vs split version"] = err
+        log(f"paged_attention bf16 {name}: max |kernel - split version| "
+            f"{err:.3e} (tight tolerance {PAGED_SPLIT_BF16_TOL:g}: "
+            f"{'within' if err <= PAGED_SPLIT_BF16_TOL else 'OVER'})")
     for key, b, s, dt in FLASH_SHAPES:
         q, k, v, _ = flash_inputs(torch, dev, s, 32, 64,
                                   dtype=getattr(torch, dt), b=b)

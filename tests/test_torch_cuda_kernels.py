@@ -7,9 +7,12 @@ jax, so the card's machine runs it without the JAX package:
 
 Tolerances: 1e-5 with an f32 pool (only the summation order differs);
 2e-2 with a bf16 pool on unit-normal inputs (both round the softmax
-weights to bf16, the ragged kernel against its running maximum over each
-split, the plain version against the row's; the paged decode kernel
-keeps them in f32);
+weights to bf16, the ragged and decode kernels against the maximum of
+each split, the plain version against the row's); against the plain
+repetition of a split kernel's own arithmetic (``*_split_reference``),
+8e-3 for the bf16 decode read, about one bf16 ulp of an output of
+magnitude 1-2 (the weights round at the same points; a weight whose f32
+value differs in its last bit may round one bf16 ulp apart);
 2e-4 with the int8 pool, the JAX package's bound for its int8 kernels
 (the kernel applies the K scales after the product, the plain version
 dequantizes first). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
@@ -553,4 +556,131 @@ def test_ragged_rows_are_bit_identical_alone_and_across_runs(cuda_device,
         alone = tpa.ragged_paged_attention(
             t[0][r:r + 1, :w].contiguous(), t[1], t[2], t[3][r:r + 1],
             t[4][r:r + 1], t[5][r:r + 1])
+        assert torch.equal(alone[0, :ql], out[r, :ql])
+
+
+# -- the decode read's split path ------------------------------------------------
+
+# name -> (pos, n_heads, n_kv_heads, d_head, block_size, table_len): the
+# main path's decode step (8 rows at contexts up to 2047, up to 32 splits
+# of 64 keys), D 8 and D 128 past one split, G = 1 over 8-token blocks,
+# splits that end mid-block (48-token blocks), and G * D = 4096, past the
+# int8 decode kernel's 2048 (the split kernel holds no accumulator per
+# thread across tiles).
+PAGED_WIDE = {
+    "smoke-decode": ((100, 500, 1000, 2046, 17, 1500, 0, 1700), 32, 4, 64,
+                     16, 128),
+    "d8-long": ((2047, 5, 1000, 0), 4, 2, 8, 16, 128),
+    "d128": ((700, 1023, 0, 129), 8, 2, 128, 16, 64),
+    "g1-bs8": ((300, 1, 127, 128), 2, 2, 16, 8, 64),
+    "bs48-mid-block": ((400, 1000, 47), 4, 2, 32, 48, 24),
+    "g32-d128": ((900, 3), 64, 2, 128, 16, 64),
+}
+PAGED_SPLIT_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _paged_wide(dev, case, dtype, seed=5):
+    pos, h, h_kv, d, bs, nb = PAGED_WIDE[case]
+    rng = np.random.default_rng(seed)
+    b = len(pos)
+    n_pool = b * nb + 1
+    q = rng.standard_normal((b, 1, h, d), np.float32)
+    k = rng.standard_normal((n_pool, bs, h_kv, d), np.float32)
+    v = rng.standard_normal((n_pool, bs, h_kv, d), np.float32)
+    tables = (1 + rng.permutation(n_pool - 1)).reshape(b, nb)
+    t = [torch.from_numpy(x).to(dev) for x in (
+        q, k, v, tables.astype(np.int32), np.asarray(pos, np.int32))]
+    t[1], t[2] = t[1].to(dtype), t[2].to(dtype)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_WIDE))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_splits_match_plain(cuda_device, case, dtype, tol):
+    """The split decode kernel against its split plain version (tight)
+    and the dense plain version (the read's tolerance)."""
+    t = _paged_wide(cuda_device, case, dtype)
+    out = _launched(tpa.paged_attention, lambda: tpa.paged_attention(*t))
+    split = tpa.paged_attention_split_reference(*t)
+    dense = tpa.paged_attention_reference(*t)
+    assert out.dtype == dtype
+    assert float((out.float() - split.float()).abs().max()) \
+        < PAGED_SPLIT_TOL[dtype]
+    assert float((out.float() - dense.float()).abs().max()) < tol
+    plan = tpa.decode_split_plan(t[4].cpu().numpy(), t[1].shape[1],
+                                 t[3].shape[1])
+    assert plan.max() > 1  # the merge pass runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["smoke-decode", "d8-long", "g1-bs8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_rows_are_bit_identical_alone_and_across_runs(cuda_device,
+                                                            case, dtype):
+    """Two runs give the same bits, and each row's output is bit-identical
+    run alone and beside the other rows."""
+    t = _paged_wide(cuda_device, case, dtype)
+    out = tpa.paged_attention(*t)
+    assert torch.equal(out, tpa.paged_attention(*t))
+    for r in range(t[0].shape[0]):
+        alone = tpa.paged_attention(t[0][r:r + 1].contiguous(), t[1], t[2],
+                                    t[3][r:r + 1], t[4][r:r + 1])
+        assert torch.equal(alone[0], out[r])
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_what_shared_memory_cannot_hold(cuda_device):
+    """The cap that remains: a split's K and V rows, q and scores within a
+    thread block's shared memory (G 256 at D 128 over an f32 pool)."""
+    t = _on(cuda_device, tpa.parity_inputs(n_heads=256, n_kv_heads=1,
+                                           d_head=128))
+    assert tpa.decode_smem_bytes(256, 128, 4) > tpa.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.paged_attention(*t)
+
+
+# -- the int8 ragged read's split path ----------------------------------------------
+
+def _quant_wide(dev, case, seed=3):
+    """RAGGED_WIDE's inputs over the int8 pool the port's quantize_kv makes
+    of the same f32 values."""
+    from tpu_engine_torch.ops.quant import quantize_kv
+
+    q, k, v, tables, pos0, qlen = _wide_inputs(dev, case, torch.float32,
+                                               seed)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return [q, kq, vq, ks, vs, tables, pos0, qlen]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED_WIDE))
+def test_quant_ragged_kernel_splits_match_plain(cuda_device, case):
+    t = _quant_wide(cuda_device, case)
+    out = _launched(tpa.quant_ragged_paged_attention,
+                    lambda: tpa.quant_ragged_paged_attention(*t))
+    split = tpa.quant_ragged_paged_attention_split_reference(*t)
+    dense = tpa.quant_ragged_paged_attention_reference(*t)
+    qlen = t[7].cpu().numpy()
+    assert out.dtype == torch.float32
+    assert _valid_err(out, split, qlen) < QUANT_TOL
+    assert _valid_err(out, dense, qlen) < QUANT_TOL
+    pad = np.arange(out.shape[1])[None, :] >= qlen[:, None]
+    assert float(out.abs().cpu().numpy()[pad].max(initial=0)) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed-tick", "decode-tick", "narrow-g2",
+                                  "d8"])
+def test_quant_ragged_rows_are_bit_identical_alone_and_across_runs(
+        cuda_device, case):
+    t = _quant_wide(cuda_device, case)
+    out = tpa.quant_ragged_paged_attention(*t)
+    assert torch.equal(out, tpa.quant_ragged_paged_attention(*t))
+    for r, ql in enumerate(t[7].tolist()):
+        w = max(ql, 1)
+        alone = tpa.quant_ragged_paged_attention(
+            t[0][r:r + 1, :w].contiguous(), *t[1:5], t[5][r:r + 1],
+            t[6][r:r + 1], t[7][r:r + 1])
         assert torch.equal(alone[0, :ql], out[r, :ql])

@@ -45,9 +45,13 @@ ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, pos0, qlen, out, part_acc, part_ml; B, W,
     # H, H_kv, D, bs, nb, split, kv_dtype.
     "ragged_paged_attention": [_P] * 9 + [_I] * 9,
-    "paged_attention": [_P] * 6 + [_I] * 7,
+    # q, k_pool, v_pool, tables, pos, out, part_acc, part_ml; B, H, H_kv,
+    # D, bs, nb, split, kv_dtype.
+    "paged_attention": [_P] * 8 + [_I] * 8,
     "quant_paged_attention": [_P] * 8 + [_I] * 6,
-    "quant_ragged_paged_attention": [_P] * 9 + [_I] * 7,
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen, out,
+    # part_acc, part_ml; B, W, H, H_kv, D, bs, nb, split.
+    "quant_ragged_paged_attention": [_P] * 11 + [_I] * 8,
     # q, k, v, mask, out, lse; B, Sq, Sk, H, D; the (b, s, h) element
     # strides of q, k, v; causal, window; scale; dtype.
     "flash_attention": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I] * 2 + [_F]

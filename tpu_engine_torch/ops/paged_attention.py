@@ -17,21 +17,25 @@ int8 pool.
 
 Each read has a plain PyTorch version (``*_reference``: gather the row's
 blocks into a dense view, dequantized to f32 for int8, and run the grouped
-``dot_product_attention``) and a wrapper. The ragged read's kernel cuts
-each (row, query tile)'s causal key range into splits of
-``ragged_split_len(bs)`` keys and merges their partials by log-sum-exp
+``dot_product_attention``) and a wrapper. The ragged reads' kernels (bf16/f32
+and int8) cut each (row, query tile)'s causal key range into splits of
+``ragged_split_len(bs)`` keys and merge their partials by log-sum-exp
 (``ragged_split_plan`` gives the split counts, a function of each row's own
-pos0 and qlen; ``ragged_paged_attention_split_reference`` repeats the
-split and merge arithmetic in plain PyTorch, with q's f32 product against
-a bf16 pool taken as the kernel takes it, three bf16 terms of q from
-``split_bf16_terms``). For CUDA tensors the wrapper
+pos0 and qlen); the decode read's kernel cuts each row's range into splits
+of ``DECODE_SPLIT_KEYS`` keys (``decode_split_plan``, a function of the
+row's own pos). ``*_split_reference`` repeat each kernel's split and merge
+arithmetic in plain PyTorch, for the tests: with q's f32 product against a
+bf16 or int8 pool taken as the tensor-core kernels take it, three bf16 terms
+of q from ``split_bf16_terms`` (and, over the int8 pool, three terms of the
+f32 weights times the V scales). For CUDA tensors the wrapper
 launches the hand-written kernel that ports the TPU kernel (``csrc/``:
 ``_paged_kernel`` and ``_quant_paged_kernel`` in ``paged_attention.cu``,
 ``_ragged_kernel`` in ``ragged_paged_attention.cu``,
 ``_quant_ragged_kernel`` in ``quant_ragged_paged_attention.cu``); for CPU
 tensors, and only for them, it takes the plain version. It never falls
 back: a kernel that does not build or launch raises. Each wrapper counts
-its kernel launches (``launches``) and its plain calls (``plain_calls``).
+its kernel launches (``launches``, one per call, the merge pass included)
+and its plain calls (``plain_calls``).
 None of the reads has a backward, here or in the JAX package: a wrapper
 called with grad mode on and a floating input that requires grad raises
 (on either device) rather than return an output detached from its inputs.
@@ -52,7 +56,12 @@ from tpu_engine_torch.ops.kernels import counted, launch, plain_or_cuda
 from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-MAX_DECODE_GROUP_DIMS = 2048   # G * D a decode thread block accumulates
+# The int8 decode kernel's limit: G * D accumulators over 128 threads.
+MAX_DECODE_GROUP_DIMS = 2048
+# The decode kernel: keys per split, and the shared memory a thread block
+# may take (a split's K and V rows, q and scores).
+DECODE_SPLIT_KEYS = 64
+MAX_SMEM_BYTES = 232448
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The ragged kernel: query rows per thread block (row r of a (row, kv head)
 # is query slot r // G, group head r % G) and keys per split.
@@ -166,15 +175,50 @@ def split_bf16_terms(x):
     return hi, mid, lo
 
 
-def ragged_paged_attention_split_reference(q, k_pool, v_pool, tables, pos0,
-                                           qlen, split: Optional[int] = None):
-    """The ragged kernel's arithmetic in plain PyTorch, for the tests: per
-    (row, kv head, query tile) and split, the partial (base-2 maximum m,
-    sum l of the unrounded weights, f32 sum of the weights rounded to the
-    pool's dtype times V), merged in split order by log-sum-exp. Over a
-    bf16 pool q's product is the sum of its
-    three bf16 terms' products. Same contract as
-    ``ragged_paged_attention_reference``; padding slots give 0."""
+def _merge_splits(parts):
+    """Merge per-split partials (base-2 maximum m, weight sum l, f32
+    unnormalised output acc) in split order by log-sum-exp; one split
+    reduces to acc / l. A row with no weight gives 0."""
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    mx = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+    wts = [torch.exp2(m - mx) for m, _, _ in parts]
+    den = sum(wt * l for wt, (_, l, _) in zip(wts, parts))
+    num = sum(wt[:, None] * acc for wt, (_, _, acc) in zip(wts, parts))
+    return num / torch.where(den > 0, den, torch.ones_like(den))[:, None]
+
+
+def _split_partial(s, pv, *args):
+    """One split's partial from its base-2 scores s (rows, keys; -inf
+    masked): (m, l, acc), acc = ``pv(p, *args)``, the weights' product
+    with V."""
+    m = s.amax(-1)
+    m_use = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp2(s - m_use[:, None])
+    return m, p.sum(-1), pv(p, *args)
+
+
+def _rounded_pv(p, v_rows, dtype):
+    """PV with the weights rounded to the pool's dtype, summed in f32."""
+    return p.to(dtype).float() @ v_rows
+
+
+def _scaled_pv(p, v_rows, v_scale):
+    """The int8 read's PV: the f32 weights times the V scales, in three
+    bf16 terms, against the int8 V."""
+    return _three_term_product(p * v_scale[None, :], v_rows)
+
+
+def _three_term_product(x, y):
+    """x @ y with f32 x taken as the tensor cores take it: the sum of its
+    three bf16 terms' products with y (exact in bf16), smallest first."""
+    return sum(t.float() @ y for t in reversed(split_bf16_terms(x)))
+
+
+def _ragged_split(q, k_pool, v_pool, tables, pos0, qlen, split, scales):
+    """The ragged kernels' arithmetic: per (row, kv head, query tile) and
+    split, the partials merged in split order. ``scales``: (k_scale,
+    v_scale) over the int8 pool, else None. Returns f32 (B, W, H, D);
+    padding slots 0."""
     b, w, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
     g = h // h_kv
@@ -185,11 +229,14 @@ def ragged_paged_attention_split_reference(q, k_pool, v_pool, tables, pos0,
     scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
     kk = _gather_rows(k_pool, tables)           # (B, nb * bs, H_kv, D)
     vv = _gather_rows(v_pool, tables)
+    if scales is not None:
+        ks = _gather_rows(scales[0], tables)    # (B, nb * bs, H_kv)
+        vs = _gather_rows(scales[1], tables)
     qr = (q.float().reshape(b, w, h_kv, g, d).transpose(1, 2)
           .reshape(b, h_kv, w * g, d))          # row r: slot r // g, head r % g
     out = torch.zeros((b, h_kv, w * g, d), dtype=torch.float32,
                       device=q.device)
-    bf16 = k_pool.dtype == torch.bfloat16
+    three_terms = scales is not None or k_pool.dtype == torch.bfloat16
     for bi in range(b):
         for t, ns in enumerate(plan[bi]):
             if ns == 0:
@@ -207,34 +254,109 @@ def ragged_paged_attention_split_reference(q, k_pool, v_pool, tables, pos0,
                 for sp in range(int(ns)):
                     k0, k1 = sp * split, min(kend, (sp + 1) * split)
                     kt = kk[bi, k0:k1, kv].float()
-                    if bf16:
-                        s = sum(t_.float() @ kt.T
-                                for t_ in reversed(split_bf16_terms(qt)))
+                    s = (_three_term_product(qt, kt.T) if three_terms
+                         else qt @ kt.T)
+                    vt = vv[bi, k0:k1, kv].float()
+                    if scales is None:
+                        s = s * scale2
+                        pv = (_rounded_pv, vt, v_pool.dtype)
                     else:
-                        s = qt @ kt.T
+                        # (q . Kq) * (ks * scale); the weights p * vs in f32.
+                        s = s * (ks[bi, k0:k1, kv] * scale2)[None, :]
+                        pv = (_scaled_pv, vt, vs[bi, k0:k1, kv])
                     kpos = torch.arange(k0, k1, device=q.device)
-                    s = torch.where(kpos[None, :] <= qpos[:, None],
-                                    s * scale2, float("-inf"))
-                    m = s.amax(-1)
-                    m_use = torch.where(m == float("-inf"),
-                                        torch.zeros_like(m), m)
-                    p = torch.exp2(s - m_use[:, None])
-                    acc = (p.to(v_pool.dtype).float()
-                           @ vv[bi, k0:k1, kv].float())
-                    parts.append((m, p.sum(-1), acc))
-                # The merge (one split: weight 1, the partial normalised).
-                mx = torch.stack([m for m, _, _ in parts]).amax(0)
-                mx = torch.where(mx == float("-inf"), torch.zeros_like(mx),
-                                 mx)
-                wts = [torch.exp2(m - mx) for m, _, _ in parts]
-                den = sum(wt * l for wt, (_, l, _) in zip(wts, parts))
-                num = sum(wt[:, None] * acc
-                          for wt, (_, _, acc) in zip(wts, parts))
-                out[bi, kv, r0:r0 + n_valid] = num / torch.where(
-                    den > 0, den, torch.ones_like(den))[:, None]
-    out = (out.reshape(b, h_kv, w, g, d).transpose(1, 2)
-           .reshape(b, w, h, d))
+                    s = torch.where(kpos[None, :] <= qpos[:, None], s,
+                                    float("-inf"))
+                    parts.append(_split_partial(s, *pv))
+                out[bi, kv, r0:r0 + n_valid] = _merge_splits(parts)
+    return (out.reshape(b, h_kv, w, g, d).transpose(1, 2)
+            .reshape(b, w, h, d))
+
+
+def ragged_paged_attention_split_reference(q, k_pool, v_pool, tables, pos0,
+                                           qlen, split: Optional[int] = None):
+    """The ragged kernel's arithmetic in plain PyTorch, for the tests: per
+    (row, kv head, query tile) and split, the partial (base-2 maximum m,
+    sum l of the unrounded weights, f32 sum of the weights rounded to the
+    pool's dtype times V), merged in split order by log-sum-exp. Over a
+    bf16 pool q's product is the sum of its
+    three bf16 terms' products. Same contract as
+    ``ragged_paged_attention_reference``; padding slots give 0."""
+    out = _ragged_split(q, k_pool, v_pool, tables, pos0, qlen, split, None)
     return out.to(k_pool.dtype)
+
+
+def quant_ragged_paged_attention_split_reference(
+        q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen,
+        split: Optional[int] = None):
+    """The int8 ragged kernel's arithmetic in plain PyTorch, for the tests:
+    the splits and merge of ``ragged_paged_attention_split_reference`` over
+    the int8 pool, with q's product with Kq the sum of its three bf16
+    terms' products, scaled per column by ks / sqrt(D) after it, and the
+    f32 weights p * vs in three bf16 terms against Vq; l sums p. Same
+    contract as ``quant_ragged_paged_attention_reference`` (q's dtype out);
+    padding slots give 0."""
+    out = _ragged_split(q, k_pool, v_pool, tables, pos0, qlen, split,
+                        (k_scale, v_scale))
+    return out.to(q.dtype)
+
+
+# -- the decode read's split and merge ------------------------------------------
+
+def decode_split_plan(pos, block_size: int, table_len: int,
+                      split: Optional[int] = None):
+    """(B,) int numpy array: how many splits of ``split`` keys (default
+    DECODE_SPLIT_KEYS) the decode kernel takes for each row, whose keys are
+    [0, pos + 1) capped at table_len * block_size: a function of the row's
+    own pos only (0 for a row with no key)."""
+    split = DECODE_SPLIT_KEYS if split is None else int(split)
+    length = np.clip(np.asarray(pos, np.int64) + 1, 0,
+                     table_len * block_size)
+    return -(-length // split)
+
+
+def decode_smem_bytes(g: int, d: int, itemsize: int,
+                      split: int = DECODE_SPLIT_KEYS) -> int:
+    """Shared memory of one decode thread block: the split's K and V rows
+    (padded 16 bytes), q ([G][D] f32), the scores ([G][split] f32), each
+    head's maximum and sum, and the split's slice of the block table."""
+    return (2 * split * (d * itemsize + 16)
+            + 4 * (g * d + g * split + 2 * g) + 4 * (split + 1))
+
+
+def paged_attention_split_reference(q, k_pool, v_pool, tables, pos_vec,
+                                    split: Optional[int] = None):
+    """The decode kernel's arithmetic in plain PyTorch, for the tests: per
+    (row, kv head) and split of ``split`` keys (``decode_split_plan``), the
+    G query heads' f32 scores in base 2, the partial (maximum m, sum l of
+    the unrounded weights, f32 sum of the weights rounded to the pool's
+    dtype against the split's own maximum times V), merged in split order
+    by log-sum-exp. Same contract as ``paged_attention_reference``."""
+    b, _, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    g = h // h_kv
+    nb = tables.shape[1]
+    split = DECODE_SPLIT_KEYS if split is None else int(split)
+    plan = decode_split_plan(pos_vec.cpu().numpy(), bs, nb, split)
+    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    kk = _gather_rows(k_pool, tables)
+    vv = _gather_rows(v_pool, tables)
+    qr = q.float()[:, 0].reshape(b, h_kv, g, d)
+    out = torch.zeros((b, h_kv, g, d), dtype=torch.float32, device=q.device)
+
+    for bi in range(b):
+        length = min(int(pos_vec[bi]) + 1, nb * bs)
+        for kv in range(h_kv):
+            parts = []
+            for sp in range(int(plan[bi])):
+                k0, k1 = sp * split, min(length, (sp + 1) * split)
+                s = qr[bi, kv] @ kk[bi, k0:k1, kv].float().T * scale2
+                parts.append(_split_partial(s, _rounded_pv,
+                                            vv[bi, k0:k1, kv].float(),
+                                            v_pool.dtype))
+            if parts:
+                out[bi, kv] = _merge_splits(parts)
+    return out.reshape(b, 1, h, d).to(k_pool.dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------------
@@ -298,14 +420,41 @@ def _refuse_grad(fn, *tensors) -> None:
                            f"require grad")
 
 
-def _check_decode(q, k_pool) -> None:
+def _check_decode(q, k_pool, *, quant: bool = False) -> None:
+    """The decode reads' extra checks: one query slot; for the int8 kernel
+    G * D within its accumulators, for the split kernel a split's K and V
+    rows, q and scores within a thread block's shared memory."""
     if q.shape[1] != 1:
         raise ValueError(f"the decode read takes one query slot, got "
                          f"q {tuple(q.shape)}")
-    g = q.shape[2] // k_pool.shape[2]
-    if g * q.shape[3] > MAX_DECODE_GROUP_DIMS:
-        raise ValueError(f"G * D = {g * q.shape[3]} exceeds "
-                         f"{MAX_DECODE_GROUP_DIMS}")
+    g, d = q.shape[2] // k_pool.shape[2], q.shape[3]
+    if quant and g * d > MAX_DECODE_GROUP_DIMS:
+        raise ValueError(f"G * D = {g * d} exceeds {MAX_DECODE_GROUP_DIMS}")
+    smem = decode_smem_bytes(g, d, k_pool.element_size())
+    if not quant and smem > MAX_SMEM_BYTES:
+        raise ValueError(f"G = {g}, D = {d}: a split takes {smem} bytes of "
+                         f"shared memory, over {MAX_SMEM_BYTES}")
+
+
+def _ragged_scratch(q, k_pool, tables):
+    """(split, part_acc, part_ml) of a ragged launch: the scratch for the
+    partials of tiles that take more than one split (None when none can)."""
+    b, w, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    nb = tables.shape[1]
+    split = ragged_split_len(bs)
+    n_split = -(-nb * bs // split)
+    if n_split == 1:
+        return split, None, None
+    rows_pad = -(-w * (h // h_kv) // RAGGED_TILE_ROWS) * RAGGED_TILE_ROWS
+    rows = b * h_kv * n_split * rows_pad
+    return (split,
+            torch.empty(rows * d, dtype=torch.float32, device=q.device),
+            torch.empty(rows * 2, dtype=torch.float32, device=q.device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 @counted
@@ -325,21 +474,12 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, pos0, qlen):
     nb = tables.shape[1]
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=k_pool.dtype, device=q.device)
-    # Scratch for the partials of tiles that take more than one split.
-    split = ragged_split_len(bs)
-    n_split = -(-nb * bs // split)
-    rows_pad = -(-w * (h // h_kv) // RAGGED_TILE_ROWS) * RAGGED_TILE_ROWS
-    part_acc = part_ml = None
-    if n_split > 1:
-        rows = b * h_kv * n_split * rows_pad
-        part_acc = torch.empty(rows * d, dtype=torch.float32, device=q.device)
-        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+    split, part_acc, part_ml = _ragged_scratch(q, k_pool, tables)
     launch("ragged_paged_attention", q.device, qf.data_ptr(),
            k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-           pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(),
-           None if part_acc is None else part_acc.data_ptr(),
-           None if part_ml is None else part_ml.data_ptr(), b, w, h, h_kv,
-           d, bs, nb, split, _KV_DTYPES[k_pool.dtype])
+           pos0.data_ptr(), qlen.data_ptr(), out.data_ptr(), _ptr(part_acc),
+           _ptr(part_ml), b, w, h, h_kv, d, bs, nb, split,
+           _KV_DTYPES[k_pool.dtype])
     ragged_paged_attention.launches += 1
     return out
 
@@ -357,12 +497,22 @@ def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     _check_decode(q, k_pool)
     b, _, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
+    nb = tables.shape[1]
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=k_pool.dtype, device=q.device)
+    # Scratch for the partials of rows that take more than one split.
+    split = DECODE_SPLIT_KEYS
+    n_split = -(-nb * bs // split)
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty(b * h * n_split * d, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(b * h * n_split * 2, dtype=torch.float32,
+                              device=q.device)
     launch("paged_attention", q.device, qf.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
-            out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1],
-            _KV_DTYPES[k_pool.dtype])
+           v_pool.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
+           out.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, h, h_kv, d, bs,
+           nb, split, _KV_DTYPES[k_pool.dtype])
     paged_attention.launches += 1
     return out
 
@@ -381,7 +531,7 @@ def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),),
                      quant=True, scales=(("k_scale", k_scale),
                                          ("v_scale", v_scale)))
-    _check_decode(q, k_pool)
+    _check_decode(q, k_pool, quant=True)
     b, _, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
@@ -412,11 +562,12 @@ def quant_ragged_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, w, h, d), dtype=torch.float32, device=q.device)
+    split, part_acc, part_ml = _ragged_scratch(q, k_pool, tables)
     launch("quant_ragged_paged_attention", q.device, qf.data_ptr(),
-            k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), tables.data_ptr(), pos0.data_ptr(),
-            qlen.data_ptr(), out.data_ptr(), b, w, h, h_kv, d, bs,
-            tables.shape[1])
+           k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+           v_scale.data_ptr(), tables.data_ptr(), pos0.data_ptr(),
+           qlen.data_ptr(), out.data_ptr(), _ptr(part_acc), _ptr(part_ml),
+           b, w, h, h_kv, d, bs, tables.shape[1], split)
     quant_ragged_paged_attention.launches += 1
     return out.to(q.dtype)
 
