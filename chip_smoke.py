@@ -17,8 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
               normals; for the flash forward on out and lse), int8 pools at
               both (2e-4, the JAX package's bound for its int8 kernels);
               the split reads also against the plain repetition of their
-              own split arithmetic (#2 bf16 8e-3, about one bf16 ulp; #4
-              2e-4); the flash forward and the split reads (#1, #2, #4)
+              own split arithmetic (#2 bf16 8e-3, about one bf16 ulp; #3
+              1e-5, f32 at the same rounding points; #4 2e-4); the flash
+              forward and the split reads (#1-#4)
               bit-identical over two runs, and each row of a split read
               bit-identical alone and in its batch (its split plan depends
               on its own data only); the
@@ -46,8 +47,10 @@ Phases (any failure exits non-zero and prints no result line):
               over the bf16 pool (the ragged kernel), two-path with 16-step
               decode chunks (the decode kernel), mixed over the int8 pool
               (the int8 ragged kernel) and two-path over the int8 pool (the
-              int8 decode kernel); each answers a burst of concurrent
-              /generate requests and one /generate/stream, a shared-prefix
+              int8 decode kernel, which runs the decode kernel's split and
+              merge kernels over int8 rows and scales); each answers a
+              burst of concurrent /generate requests and one
+              /generate/stream, a shared-prefix
               request and a greedy repeat: every request completes, the
               repeat is token-identical, ticks == dispatches (mixed) or
               chunks > 0 (two-path), no block leaks once idle. The fifth,
@@ -88,7 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
               host's time to issue it, the card's busy time in it
               (torch.profiler) and the attention kernel's share (22
               launches at its isolated device time; for the dense prefill
-              the f32 flash variant, which that path launches).
+              the f32 flash variant, which that path launches). The paged
+              reads' device times are also given per kernel (split and
+              merge).
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -97,10 +102,10 @@ the card's name and power limit; the line before that the kernels' JSON
     python3 chip_smoke.py --kernel-times [--package-root DIR]
 
 runs only the kernels' device times (#1-#4 and #5 at the main path's
-shapes, #6/#7 at the train shape and a bf16 S 2048 row; and the bf16
-decode read's difference from this checkout's split plain version)
-through the package under
-DIR (default: this checkout), so that two trees (a parent commit unpacked
+shapes, #6/#7 at the train shape and a bf16 S 2048 row; #3 also at 64-
+and 128-key splits; and the bf16 decode read's difference from this
+checkout's split plain version) through the package under DIR (default:
+this checkout), so that two trees (a parent commit unpacked
 under build/, and this one) can be timed in turns in one call.
 """
 
@@ -528,16 +533,16 @@ def _valid_err(torch, out, ref, qlen):
 
 
 def rows_identical(torch, pa, kernel: str, t, out, shape: str) -> None:
-    """A split kernel (#1, #2 or #4) gives the same bits over two runs, and
+    """A split kernel (#1-#4) gives the same bits over two runs, and
     each row's output run alone (a batch of one; for a ragged read W its
     own qlen) equals its output in the batch bit for bit: a row's split
     plan and arithmetic depend on its own data only."""
     fn = getattr(pa, kernel)
     check(torch.equal(out, fn(*t)), f"{kernel} {shape}: two runs differ")
-    if kernel == "paged_attention":
-        q, k, v, tables, pos = t
+    if kernel in ("paged_attention", "quant_paged_attention"):
+        q, pools, (tables, pos) = t[0], t[1:-2], t[-2:]
         for r in range(q.shape[0]):
-            alone = fn(q[r:r + 1].contiguous(), k, v, tables[r:r + 1],
+            alone = fn(q[r:r + 1].contiguous(), *pools, tables[r:r + 1],
                        pos[r:r + 1])
             check(torch.equal(alone[0], out[r]),
                   f"{kernel} {shape}: row {r} alone differs from the batch")
@@ -594,10 +599,13 @@ def phase_parity(torch, pa) -> dict:
                      ("quant_parity_check G4 D64 nb33",
                       dict(n_heads=8, n_kv_heads=2, d_head=64,
                            n_blocks=33, table_len=8))):
-        out, ref = run("quant_paged_attention",
-                       on(pa.parity_inputs(quant=True, **kw)))
+        t = on(pa.parity_inputs(quant=True, **kw))
+        out, ref = run("quant_paged_attention", t)
         record("quant_paged_attention", f"int8 {name}",
                float((out - ref).abs().max()), QUANT_TOL)
+        split = pa.quant_paged_attention_split_reference(*t)
+        record("quant_paged_attention", f"int8 {name} against its split "
+               "version", float((out - split).abs().max()), F32_TOL)
     for name, kw in (("quant_ragged_parity_check", {}),
                      ("quant_ragged_parity_check G4 D32",
                       dict(q_lens=(1, 3, 16, 17), n_heads=8, n_kv_heads=2,
@@ -634,10 +642,14 @@ def phase_parity(torch, pa) -> dict:
            "version", float((out.float() - split.float()).abs().max()),
            PAGED_SPLIT_BF16_TOL)
     rows_identical(torch, pa, "paged_attention", t, out, "bf16 decode")
-    out, ref = run("quant_paged_attention",
-                   decode_args(main_path_inputs(torch, dev, True, True)))
+    t = decode_args(main_path_inputs(torch, dev, True, True))
+    out, ref = run("quant_paged_attention", t)
     record("quant_paged_attention", "int8 main path decode",
            float((out - ref).abs().max()), QUANT_TOL)
+    split = pa.quant_paged_attention_split_reference(*t)
+    record("quant_paged_attention", "int8 main path decode against its "
+           "split version", float((out - split).abs().max()), F32_TOL)
+    rows_identical(torch, pa, "quant_paged_attention", t, out, "int8 decode")
     parity_flash(torch, dev, record)
     parity_flash_bwd(torch, dev, record)
     return errs
@@ -1406,7 +1418,8 @@ def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
     fn = getattr(pa, kernel)
     ref = getattr(pa, kernel + "_reference")
     ms = time_ms(torch, lambda: fn(*args))
-    device, seen = device_call_ms(torch, lambda: fn(*args))
+    parts = {}
+    device, seen = device_call_ms(torch, lambda: fn(*args), by_kernel=parts)
     plain = time_ms(torch, lambda: ref(*args), iters=5)
     sdpa = sdpa_yardstick(torch, inp, int8)
     library = time_ms(torch, sdpa)
@@ -1420,11 +1433,12 @@ def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
         f"pool): kernel {ms:.4f} ms (device time {device:.4f} ms, {seen} "
         f"of 20 calls seen), plain {plain:.4f} ms, sdpa over pre-gathered "
         f"K/V {library:.4f} ms (device time {library_device:.4f} ms, "
-        f"{library_seen} seen), bound {bound:.5f} ms ({by})")
+        f"{library_seen} seen), bound {bound:.5f} ms ({by}); device time "
+        f"by kernel {json.dumps(parts)}")
     return {"ms": ms, "device_ms": device, "device_calls": seen,
-            "plain_ms": plain, "library_ms": library,
-            "library_device_ms": library_device, "bound_ms": bound,
-            "bound_by": by}
+            "device_by_kernel": parts, "plain_ms": plain,
+            "library_ms": library, "library_device_ms": library_device,
+            "bound_ms": bound, "bound_by": by}
 
 
 def sdpa_backend(torch, dtype):
@@ -1733,7 +1747,10 @@ def kernel_times(torch) -> dict:
     prefill row at S 2048, through whichever tree of the package is
     imported: ``--kernel-times`` runs only this, so that two trees can be
     timed in turns in one call. The paged reads' readings are also split by
-    kernel name (split and merge kernels). Also the bf16 decode read's largest
+    kernel name (split and merge kernels). #3 also at 64 and 128 keys a
+    split (the module's DECODE_SPLIT_KEYS set for the reading, then
+    restored; the wrapper reads it at each call; a tree whose #3 takes no
+    split reads the same twice). Also the bf16 decode read's largest
     difference from this checkout's split plain version (p rounded to bf16
     against each split's maximum before PV) at the main path's decode shape
     and two parity shapes, against PAGED_SPLIT_BF16_TOL."""
@@ -1756,6 +1773,18 @@ def kernel_times(torch) -> dict:
         parts = res[f"{kernel} decode by kernel"] = {}
         res[f"{kernel} decode"] = device_call_ms(
             torch, lambda: getattr(pa, kernel)(*args), by_kernel=parts)[0]
+    keys = pa.DECODE_SPLIT_KEYS
+    args = decode_args(main_path_inputs(torch, dev, True, True))
+    try:
+        for split in (64, 128):
+            pa.DECODE_SPLIT_KEYS = split
+            name = f"quant_paged_attention decode split {split}"
+            parts = res[f"{name} by kernel"] = {}
+            res[name] = device_call_ms(
+                torch, lambda: pa.quant_paged_attention(*args),
+                by_kernel=parts)[0]
+    finally:
+        pa.DECODE_SPLIT_KEYS = keys
     ref = split_reference_module()
     on = (lambda arrs: [torch.from_numpy(a).to(dev) for a in arrs])
     cases = (("main path decode",

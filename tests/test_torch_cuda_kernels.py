@@ -14,8 +14,11 @@ repetition of a split kernel's own arithmetic (``*_split_reference``),
 magnitude 1-2 (the weights round at the same points; a weight whose f32
 value differs in its last bit may round one bf16 ulp apart);
 2e-4 with the int8 pool, the JAX package's bound for its int8 kernels
-(the kernel applies the K scales after the product, the plain version
-dequantizes first). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
+(the kernel applies the K scales after the product, the dense plain
+version dequantizes first); 1e-5 for the int8 decode read against its
+split plain version (f32 on both sides at the same rounding points, only
+the summation order differs; measured at most 3.9e-7 on the card at the
+parity and main-path shapes). The flash forward: 1e-5 in f32, 2e-2 in bf16 (both
 round the weights to bf16, the kernel against its running maximum, the
 plain version against the row's), on out and on lse. The flash backward
 (dq; dk and dv): 1e-4 of the gradient's largest magnitude in f32 (f32
@@ -47,6 +50,7 @@ DECODE_CASES = [dict(),
                 dict(n_heads=16, n_kv_heads=2, d_head=64, n_blocks=33,
                      table_len=8)]
 QUANT_TOL = 2e-4
+QUANT_SPLIT_TOL = 1e-5
 
 
 @pytest.fixture
@@ -564,9 +568,8 @@ def test_ragged_rows_are_bit_identical_alone_and_across_runs(cuda_device,
 # name -> (pos, n_heads, n_kv_heads, d_head, block_size, table_len): the
 # main path's decode step (8 rows at contexts up to 2047, up to 32 splits
 # of 64 keys), D 8 and D 128 past one split, G = 1 over 8-token blocks,
-# splits that end mid-block (48-token blocks), and G * D = 4096, past the
-# int8 decode kernel's 2048 (the split kernel holds no accumulator per
-# thread across tiles).
+# splits that end mid-block (48-token blocks), and G * D = 4096 (the split
+# kernel holds no accumulator per thread across tiles, over any pool).
 PAGED_WIDE = {
     "smoke-decode": ((100, 500, 1000, 2046, 17, 1500, 0, 1700), 32, 4, 64,
                      16, 128),
@@ -684,3 +687,64 @@ def test_quant_ragged_rows_are_bit_identical_alone_and_across_runs(
             t[0][r:r + 1, :w].contiguous(), *t[1:5], t[5][r:r + 1],
             t[6][r:r + 1], t[7][r:r + 1])
         assert torch.equal(alone[0, :ql], out[r, :ql])
+
+
+# -- the int8 decode read's split path ----------------------------------------------
+
+def _quant_paged_wide(dev, case, seed=5):
+    """PAGED_WIDE's inputs over the int8 pool the port's quantize_kv makes
+    of the same f32 values: (q, k_pool, v_pool, k_scale, v_scale, tables,
+    pos)."""
+    from tpu_engine_torch.ops.quant import quantize_kv
+
+    q, k, v, tables, pos = _paged_wide(dev, case, torch.float32, seed)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return [q, kq, vq, ks, vs, tables, pos]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_WIDE))
+def test_quant_paged_kernel_splits_match_plain(cuda_device, case):
+    """The int8 decode read on the split kernel against its split plain
+    version and the dense plain version, G 32 x D 128 and D 8 included."""
+    t = _quant_paged_wide(cuda_device, case)
+    out = _launched(tpa.quant_paged_attention,
+                    lambda: tpa.quant_paged_attention(*t))
+    split = tpa.quant_paged_attention_split_reference(*t)
+    dense = tpa.quant_paged_attention_reference(*t)
+    assert out.dtype == torch.float32
+    assert float((out - split).abs().max()) < QUANT_SPLIT_TOL
+    assert float((out - dense).abs().max()) < QUANT_TOL
+    plan = tpa.decode_split_plan(t[6].cpu().numpy(), t[1].shape[1],
+                                 t[5].shape[1])
+    assert plan.max() > 1  # the merge pass runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["smoke-decode", "d8-long", "g1-bs8",
+                                  "g32-d128"])
+def test_quant_paged_rows_are_bit_identical_alone_and_across_runs(
+        cuda_device, case):
+    t = _quant_paged_wide(cuda_device, case)
+    out = tpa.quant_paged_attention(*t)
+    assert torch.equal(out, tpa.quant_paged_attention(*t))
+    for r in range(t[0].shape[0]):
+        alone = tpa.quant_paged_attention(t[0][r:r + 1].contiguous(),
+                                          *t[1:5], t[5][r:r + 1],
+                                          t[6][r:r + 1])
+        assert torch.equal(alone[0], out[r])
+
+
+@pytest.mark.cuda
+def test_quant_paged_kernel_refuses_what_shared_memory_cannot_hold(
+        cuda_device):
+    """The int8 read's one cap, as the bf16/f32 read's: a split's rows,
+    scales, q and scores within a thread block's shared memory (G 512 at
+    D 128: q alone takes 256 KB), refused by name before any launch."""
+    t = _on(cuda_device, tpa.parity_inputs(n_heads=512, n_kv_heads=1,
+                                           d_head=128, quant=True))
+    assert tpa.decode_smem_bytes(512, 128, 1) > tpa.MAX_SMEM_BYTES
+    launches = tpa.quant_paged_attention.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.quant_paged_attention(*t)
+    assert tpa.quant_paged_attention.launches == launches

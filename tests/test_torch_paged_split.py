@@ -1,12 +1,14 @@
-"""The split paths of the decode read and of the int8 ragged read
+"""The split paths of the decode reads and of the int8 ragged read
 (tpu_engine_torch.ops.paged_attention) on the CPU: the plain PyTorch
 repetitions of the CUDA kernels' split and merge arithmetic
 (``paged_attention_split_reference``,
+``quant_paged_attention_split_reference``,
 ``quant_ragged_paged_attention_split_reference``) against the JAX
 package's XLA references and its Pallas kernels (interpret mode), on the
 same numpy-seeded inputs, over valid query slots; the decode split plan of
-a row against the same row in other batches; and the three-term bf16 split
-of the int8 read's f32 weights.
+a row against the same row in other batches, over both pools; the decode
+kernel's shared memory; and the three-term bf16 split of the int8 ragged
+read's f32 weights.
 
 Tolerances: 1e-5 over f32 pools (f32 on both sides; the splits only change
 the order of the sums); 2e-2 over bf16 pools on unit-normal inputs, as in
@@ -33,13 +35,18 @@ TOLS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # name -> (pos, n_heads, n_kv_heads, d_head, block_size, table_len, split):
 # splits that end mid-block (24 keys over 16-token blocks, 12 over 8-token
 # ones), pos 0 rows, G = 8 at D 64, G = 1 at D 128, and the kernel's own
-# split length (DECODE_SPLIT_KEYS: five splits of the 300-token row).
+# split length (None: DECODE_SPLIT_KEYS, over every pool; five splits of
+# the 300-token row), D 8 (8-byte
+# int8 rows), and G 32 x D 128 (G * D = 4096: no cap in the port's kernel,
+# none in the JAX kernel).
 DECODE_CASES = {
     "mid-block-24": ((40, 3, 63, 0), 4, 2, 16, 16, 4, 24),
     "mid-block-12-bs8": ((30, 41, 0, 12), 4, 2, 8, 8, 6, 12),
     "g8-d64": ((100, 0, 250), 16, 2, 64, 16, 16, 48),
     "g1-d128": ((70, 5), 2, 2, 128, 8, 10, 32),
     "kernel-split-g8": ((300, 127, 128, 0), 8, 1, 32, 16, 20, None),
+    "d8-kernel-split": ((200, 0, 63), 4, 2, 8, 16, 16, None),
+    "g32-d128": ((150, 0), 64, 2, 128, 16, 12, None),
 }
 
 # name -> (q_lens, pos0, n_heads, n_kv_heads, block_size, table_len,
@@ -134,6 +141,81 @@ def test_decode_wrapper_on_the_cpu_still_takes_the_dense_plain_version():
     assert tpa.paged_attention.plain_calls == calls + 1
     split = tpa.paged_attention_split_reference(*t)
     assert float((got - split).abs().max()) < 1e-5
+
+
+def _quant_decode_inputs(case, seed=0):
+    """DECODE_CASES' inputs over the int8 pool and scales that the port's
+    quantize_kv makes of the same f32 values: (numpy arrays, tensors,
+    split), in the order (q, k_pool, v_pool, k_scale, v_scale, tables,
+    pos)."""
+    arrs, t, split = _decode_inputs(case, torch.float32, seed)
+    (kq, ks), (vq, vs) = quantize_kv(t[1]), quantize_kv(t[2])
+    arrs = (arrs[0], kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy(),
+            *arrs[3:])
+    return arrs, [torch.from_numpy(a) for a in arrs], split
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_quant_decode_split_matches_jax_kernel_and_reference(case):
+    arrs, t, split = _quant_decode_inputs(case)
+    got = tpa.quant_paged_attention_split_reference(*t, split=split)
+    assert got.dtype == torch.float32 and got.shape == t[0].shape
+    jargs = [jnp.asarray(a) for a in arrs]
+    for want in (jpa.quant_paged_attention_reference(*jargs),
+                 jpa.quant_paged_attention(*jargs, interpret=True)):
+        err = np.abs(got.numpy() - np.asarray(want, np.float32))
+        assert float(err.max()) < QUANT_TOL
+    plan = tpa.decode_split_plan(arrs[6], arrs[1].shape[1],
+                                 arrs[5].shape[1], split)
+    assert plan.max() > 1  # the merge runs
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_quant_decode_split_rows_ignore_the_other_rows(seed):
+    """At the kernel's split length a row's plan depends on its own pos
+    only, and its output from the int8 split version, run alone, equals
+    its output in the batch bit for bit."""
+    rng = np.random.default_rng(seed)
+    bs, nb = 16, 128
+    p = int(rng.integers(0, nb * bs))
+    alone = tpa.decode_split_plan([p], bs, nb)
+    for _ in range(3):
+        pos = rng.integers(0, nb * bs, 5)
+        pos[2] = p
+        assert tpa.decode_split_plan(pos, bs, nb)[2] == alone[0]
+    _, t, _ = _quant_decode_inputs("kernel-split-g8", seed)
+    out = tpa.quant_paged_attention_split_reference(*t)
+    for r in range(t[0].shape[0]):
+        one = tpa.quant_paged_attention_split_reference(
+            t[0][r:r + 1], *t[1:5], t[5][r:r + 1], t[6][r:r + 1])
+        assert torch.equal(one[0], out[r])
+
+
+def test_quant_decode_wrapper_on_the_cpu_takes_the_dense_plain_version():
+    _, t, _ = _quant_decode_inputs("kernel-split-g8")
+    calls = tpa.quant_paged_attention.plain_calls
+    got = tpa.quant_paged_attention(*t)
+    assert tpa.quant_paged_attention.plain_calls == calls + 1
+    assert torch.equal(got, tpa.quant_paged_attention_reference(*t))
+    split = tpa.quant_paged_attention_split_reference(*t)
+    assert float((got - split).abs().max()) < QUANT_TOL
+
+
+def test_quant_decode_smem_counts_int8_rows_and_scales():
+    """The int8 split's shared memory: D-byte rows padded 16 bytes, q,
+    scores, maxima and sums, 8 bytes of scales a key, the table slice. The
+    main path's split fits the default 48 KB, G 32 x D 128 fits a thread
+    block, G 512 x D 128 (q alone 256 KB) does not."""
+    g, d, split = 8, 64, tpa.DECODE_SPLIT_KEYS
+    assert tpa.decode_smem_bytes(g, d, 1) == (
+        2 * split * (d + 16) + 4 * (g * d + g * split + 2 * g)
+        + 8 * split + 4 * (split + 1))
+    assert tpa.decode_smem_bytes(g, d, 1) <= 48 * 1024
+    assert tpa.decode_smem_bytes(32, 128, 1) <= tpa.MAX_SMEM_BYTES
+    assert tpa.decode_smem_bytes(512, 128, 1) > tpa.MAX_SMEM_BYTES
+    # D 8 over an odd split: the 24-byte rows' region rounds up to 16 bytes.
+    assert tpa.decode_smem_bytes(1, 8, 1, 3) == (
+        2 * 80 + 4 * (8 + 3 + 2) + 24 + 16)
 
 
 def _quant_inputs(case, d=16, seed=0):

@@ -1,6 +1,7 @@
 // Tensor-core and copy helpers shared by the kernels of this directory that
-// stage tiles with cp.async and multiply on mma.sync (the flash forward, the
-// flash backward and the ragged paged read): 16-byte asynchronous copies,
+// stage tiles with cp.async (the flash forward, the flash backward, the
+// ragged paged reads and the decode reads) and multiply on mma.sync:
+// asynchronous copies of 16, 8 and 4 bytes,
 // ldmatrix fragment loads, the m16n8k16 bf16 -> f32 product, the fragment
 // addresses inside a staged row-major tile, and the online-softmax step.
 // Each translation unit gets its own copy (anonymous namespace).
@@ -36,6 +37,19 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8 and 4 bytes the same way (through L1: .cg takes 16 bytes only).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

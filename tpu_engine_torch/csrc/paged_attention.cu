@@ -21,18 +21,19 @@
 //   in f32 and scaled by 1/sqrt(D); the softmax is in f32; over a bf16 pool
 //   the weights are rounded to bf16 before the product with V, which sums in
 //   f32; the denominator sums the unrounded weights; l == 0 gives 0. With the
-//   int8 pool the K scales multiply the score columns and the V scales fold
-//   into the softmax weights: s = (q . Kq_c) * (ks_c / sqrt(D)),
-//   acc += (p_c * vs_c) Vq_c, l += p_c; the dequantized block never exists
-//   in device memory.
+//   int8 pool the K scales multiply the score columns after the product and
+//   the V scales fold into the softmax weights, unrounded:
+//   s = (q . Kq_c) * (ks_c / sqrt(D)), acc += (p_c * vs_c) Vq_c, l += p_c;
+//   the dequantized block never exists in device memory.
 //
 // What bounds it on an H100: device-memory bytes and their latency. A (row,
 // kv-head) pair reads the K and V of its pos + 1 columns once: 2 * D bytes
-// per column in bf16 (plus 8 bytes of scales per column in int8, at D bytes
-// each for K and V), at 3.35 TB/s; the arithmetic is 4 * D flops per (query
-// head, column), about 8 flops per byte, far below the card's ~295.
+// per column in bf16, 2 * (D + 4) in int8 (D int8 values and one f32 scale
+// for each of K and V), at 3.35 TB/s; the arithmetic is 4 * D flops per
+// (query head, column), a few flops per byte, far below the card's ~295.
 //
-// `paged_attention` (f32 and bf16 pools): a split read (flash-decoding).
+// Both entry points run one split read (flash-decoding) and one merge,
+// templated on the pool's element type (f32, bf16, int8):
 // - Each row's range [0, pos + 1) is cut into splits of `split` keys, one
 //   thread block per (split, kv head, row), so that the eight rows x four kv
 //   heads of a decode step become a few hundred thread blocks on 132 SMs. A
@@ -44,209 +45,31 @@
 //   own pos only, so its output is the same alone and in any batch.
 // - A thread block reads the K and V of its split once for all G query heads
 //   of its kv head: it stages its slice of the block table, then issues
-//   every 16-byte cp.async copy of the split at once (q, the K rows as one
-//   group, the V rows as a second), so the bytes of a whole split are in
-//   flight together and the scores are taken while V arrives.
+//   every cp.async copy of the split at once (q; the K rows and, over the
+//   int8 pool, both scale vectors as one group; the V rows as a second), so
+//   the bytes of a whole split are in flight together and the scores are
+//   taken while V arrives. A row is copied 16 bytes at a time (8 for the
+//   8-byte int8 rows of D 8); a key's scales lie H_kv floats apart in
+//   (NB, bs, H_kv), so they come by 4-byte copies.
 // - CUDA-core f32 products (the bytes bound it, not the arithmetic), 256
 //   threads: a thread takes the scores of one key for four query heads (its
-//   K row read in 16-byte pieces, q broadcast from shared memory); the
-//   scores of the split stay in shared memory, so the softmax is exact
-//   within the split (one warp per query head); the weights, rounded to the
-//   pool's dtype, multiply V with each output pair summed over the split by
-//   one thread. No accumulator is held across tiles: G * D is bounded only
-//   by shared memory.
-// - Splits of 64 keys (the wrapper's DECODE_SPLIT_KEYS): a thread block's
-//   time is mostly latency (the table, then K and V, then the partial), so
-//   shorter splits, more of them in flight, finish sooner; the merge gives
-//   each output its own thread, which keeps its cost low at 32 splits.
-//
-// `quant_paged_attention` (int8 pool): one thread block per (kv head, row)
-// walks the row's columns in 64-column tiles staged as f32 in shared memory;
-// scores through shared memory, one warp per query row for the softmax, the
-// G * D accumulators spread over 128 threads (G * D <= 2048). A split, a
-// cp.async ring and vectorised loads are its later work.
+//   K row read in 16-byte pieces and converted to f32, exactly for int8, q
+//   broadcast from shared memory); the scores of the split stay in shared
+//   memory, so the softmax is exact within the split (one warp per query
+//   head); the weights (rounded to bf16 over a bf16 pool, times the V scale
+//   over the int8 pool) multiply V with each output pair summed over the
+//   split by one thread. No accumulator is held across tiles: G * D is
+//   bounded only by shared memory.
+// - Splits of 64 keys over every pool (the wrapper's DECODE_SPLIT_KEYS): a
+//   thread block's time is mostly latency (the table, then K and V, then
+//   the partial), so shorter splits, more of them in flight, finish sooner,
+//   over the int8 pool too, whose split carries half the bytes; the merge
+//   gives each output its own thread, which keeps its cost low at 32
+//   splits.
 
 #include "mma_common.cuh"
 
 #include <type_traits>
-
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;      // columns staged per step
-constexpr int kMaxAcc = 16;    // accumulators a thread holds: G * D <= 2048
-
-template <typename KV, typename Out, bool kQuant, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q,
-                    const KV* __restrict__ k_pool,
-                    const KV* __restrict__ v_pool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ pos,
-                    Out* __restrict__ out,
-                    int H, int H_kv, int bs, int nb, float scale) {
-  constexpr int kStride = D + 1;        // pad: no bank conflicts on K rows
-  constexpr int kPStride = kTile + 1;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int G = H / H_kv;
-  const int length = min(pos[b] + 1, nb * bs);  // columns kpos < pos + 1
-  const int* row_table = tables + static_cast<int64_t>(b) * nb;
-  const int64_t qo_base = (static_cast<int64_t>(b) * H + h * G) * D;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // [G][kStride]
-  float* k_s = q_s + G * kStride;         // [kTile][kStride]
-  float* v_s = k_s + kTile * kStride;     // [kTile][kStride]
-  float* p_s = v_s + kTile * kStride;     // [G][kPStride] scores, then weights
-  float* ks_s = p_s + G * kPStride;       // [kTile] K scales (int8 pool)
-  float* vs_s = ks_s + kTile;             // [kTile] V scales
-  float* m_s = vs_s + kTile;              // [G] running max
-  float* l_s = m_s + G;                   // [G] running sum of weights
-  float* corr_s = l_s + G;                // [G] this step's rescale factor
-
-  for (int i = tid; i < G * D; i += kThreads) q_s[(i / D) * kStride + i % D] = q[qo_base + i];
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int e = 0; e < kMaxAcc; ++e) acc[e] = 0.f;
-
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  for (int t0 = 0; t0 < length; t0 += kTile) {
-    const int n_cols = min(kTile, length - t0);
-    __syncthreads();  // the previous step's readers are done with the tile
-    for (int i = tid; i < n_cols * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const int col = t0 + c;
-      const int64_t blk = row_table[col / bs];
-      const int64_t off = ((blk * bs + col % bs) * H_kv + h) * D + d;
-      k_s[c * kStride + d] = to_f32(k_pool[off]);
-      v_s[c * kStride + d] = to_f32(v_pool[off]);
-    }
-    if (kQuant) {
-      for (int c = tid; c < n_cols; c += kThreads) {
-        const int col = t0 + c;
-        const int64_t blk = row_table[col / bs];
-        const int64_t soff = (blk * bs + col % bs) * H_kv + h;
-        ks_s[c] = k_scale[soff];
-        vs_s[c] = v_scale[soff];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * n_cols; i += kThreads) {
-      const int g = i / n_cols, c = i % n_cols;
-      const float* qr = q_s + g * kStride;
-      const float* kc = k_s + c * kStride;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kc[d], dot);
-      p_s[g * kPStride + c] = kQuant ? dot * (ks_s[c] * scale) : dot * scale;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
-      float* sr = p_s + g * kPStride;
-      float mx = -INFINITY;
-      for (int c = lane; c < n_cols; c += 32) mx = fmaxf(mx, sr[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-      for (int c = lane; c < n_cols; c += 32) {
-        const float p = expf(sr[c] - safe);
-        sum += p;
-        sr[c] = kQuant ? p * vs_s[c] : p;  // V scales fold into the weights
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - safe);
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kMaxAcc; ++e) {
-      const int idx = tid + e * kThreads;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx % D;
-        const float* pr = p_s + g * kPStride;
-        float a = acc[e] * corr_s[g];
-        for (int c = 0; c < n_cols; ++c) a = fmaf(pr[c], v_s[c * kStride + d], a);
-        acc[e] = a;
-      }
-    }
-  }
-  __syncthreads();  // l_s complete (and initialised, for an empty row)
-
-#pragma unroll
-  for (int e = 0; e < kMaxAcc; ++e) {
-    const int idx = tid + e * kThreads;
-    if (idx < G * D) {
-      const float l = l_s[idx / D];
-      store(out + qo_base + idx, acc[e] / (l == 0.f ? 1.f : l));
-    }
-  }
-}
-
-size_t smem_bytes(int G, int D) {
-  return sizeof(float) * (G * (D + 1) + 2 * kTile * (D + 1) + G * (kTile + 1)
-                          + 2 * kTile + 3 * G);
-}
-
-template <typename KV, typename Out, bool kQuant, int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* k_scale, const void* v_scale, const void* tables,
-                   const void* pos, void* out, int B, int H, int H_kv, int bs,
-                   int nb, cudaStream_t stream) {
-  auto kernel = paged_decode_kernel<KV, Out, kQuant, D>;
-  const size_t smem = smem_bytes(H / H_kv, D);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<dim3(H_kv, B), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k_pool),
-      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<Out*>(out), H, H_kv, bs, nb, scale);
-  return cudaGetLastError();
-}
-
-template <typename KV, typename Out, bool kQuant>
-cudaError_t dispatch_d(const void* q, const void* k_pool, const void* v_pool,
-                       const void* k_scale, const void* v_scale,
-                       const void* tables, const void* pos, void* out, int B,
-                       int H, int H_kv, int D, int bs, int nb,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 8:   return launch<KV, Out, kQuant, 8>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, bs, nb, stream);
-    case 16:  return launch<KV, Out, kQuant, 16>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, bs, nb, stream);
-    case 32:  return launch<KV, Out, kQuant, 32>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, bs, nb, stream);
-    case 64:  return launch<KV, Out, kQuant, 64>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, bs, nb, stream);
-    case 128: return launch<KV, Out, kQuant, 128>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, bs, nb, stream);
-    default:  return cudaErrorInvalidValue;
-  }
-}
-
-bool bad_shape(int B, int H, int H_kv, int D, int bs, int nb) {
-  return B <= 0 || H_kv <= 0 || H % H_kv != 0 || bs <= 0 || nb <= 0
-         || (H / H_kv) * D > kThreads * kMaxAcc;
-}
-
-}  // namespace
-
-// ---- paged_attention: the split read (f32 and bf16 pools) ----------------------
 
 namespace {
 
@@ -259,6 +82,7 @@ constexpr size_t kMaxSmem = 232448;
 struct DecodeArgs {
   const float* q;
   const void *k_pool, *v_pool;
+  const float *k_scale, *v_scale;  // (NB, bs, H_kv): the int8 pool only
   const int *tables, *pos;
   void* out;
   float *part_acc, *part_ml;  // [B][H_kv][n_split][G][D], [B][H_kv][n_split][G][2]
@@ -268,18 +92,31 @@ struct DecodeArgs {
 
 template <typename T, int D>
 struct DecodeCfg {
-  static constexpr int kPer = 16 / sizeof(T);           // elements per 16-byte copy
-  static constexpr int kChunks = D / kPer;              // copies per K or V row
-  static constexpr int kRowBytes = D * sizeof(T) + 16;  // a staged row, padded 16 bytes
+  static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  static constexpr int kRowBytes = D * sizeof(T);               // one K or V row
+  static constexpr int kCopy = kRowBytes < 16 ? kRowBytes : 16;  // bytes per copy
+  static constexpr int kPer = kCopy / sizeof(T);                // elements per copy
+  static constexpr int kChunks = kRowBytes / kCopy;             // copies per row
+  static constexpr int kStride = kRowBytes + 16;                // a staged row, padded
 };
 
+// Bytes of a split's staged K (or V) rows, rounded up to 16 (the 24-byte
+// rows of an int8 pool at D 8 over an odd split).
+template <typename T, int D>
+__host__ __device__ __forceinline__ int rows_bytes(int split) {
+  return (split * DecodeCfg<T, D>::kStride + 15) & ~15;
+}
+
 // Shared memory of one split: its K and V rows, q ([G][D] f32), the scores
-// ([G][split] f32), each head's (maximum, sum) and the split's slice of the
-// block table (at most split + 1 entries).
+// ([G][split] f32), each head's (maximum, sum), over the int8 pool the K and
+// V scales of its keys, and the split's slice of the block table (at most
+// split + 1 entries).
 template <typename T, int D>
 size_t decode_smem(int G, int split) {
-  return 2 * static_cast<size_t>(split) * DecodeCfg<T, D>::kRowBytes +
+  using C = DecodeCfg<T, D>;
+  return 2 * static_cast<size_t>(rows_bytes<T, D>(split)) +
          sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(G) * split + 2 * G) +
+         (C::kQuant ? 2 * sizeof(float) * split : 0) +
          sizeof(int) * (static_cast<size_t>(split) + 1);
 }
 
@@ -288,68 +125,96 @@ __device__ __forceinline__ int decode_len(const DecodeArgs& a, int b) {
   return max(0, min(a.pos[b] + 1, a.nb * a.bs));
 }
 
-// 16 staged bytes of a K row as f32.
-__device__ __forceinline__ void unpack16(const unsigned char* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// One copy's staged bytes of a K row as f32 (int8 -> f32 is exact).
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const unsigned char* p, float (&f)[N]) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    using V = typename std::conditional<N == 16, int4, int2>::type;  // 16 or 8 bytes
+    const V u = *reinterpret_cast<const V*>(p);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 x = __bfloat1622float2(h[j]);
-    f[2 * j] = x.x;
-    f[2 * j + 1] = x.y;
+    for (int e = 0; e < N; ++e) f[e] = static_cast<float>(x[e]);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(h[j]);
+      f[2 * j] = x.x;
+      f[2 * j + 1] = x.y;
+    }
+  } else {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
   }
-}
-__device__ __forceinline__ void unpack16(const unsigned char* p, float (&f)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
 }
 
 // Two neighbouring staged V values as f32.
 template <typename T>
 __device__ __forceinline__ float2 load2(const unsigned char* p) {
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const char2 x = *reinterpret_cast<const char2*>(p);
+    return make_float2(x.x, x.y);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  else
+  } else {
     return *reinterpret_cast<const float2*>(p);
+  }
 }
 
-// p as the product with V takes it: rounded to the pool's dtype.
+// Key c's weight as the product with V takes it: p rounded to the pool's
+// dtype, or over the int8 pool p times the key's V scale, in f32.
 template <typename T>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (std::is_same<T, bf16>::value)
+__device__ __forceinline__ float weight(float p, const float* vs_s, int c) {
+  if constexpr (std::is_same<T, int8_t>::value)
+    return p * vs_s[c];
+  else if constexpr (std::is_same<T, bf16>::value)
     return __bfloat162float(__float2bfloat16(p));
   else
     return p;
+}
+
+// One row's bytes (16 or 8) global -> shared.
+template <int N>
+__device__ __forceinline__ void cp_async_row(void* smem, const void* gmem) {
+  if constexpr (N == 16)
+    cp_async16(smem, gmem, true);
+  else
+    cp_async8(smem, gmem, true);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kSplitThreads)
 paged_split_kernel(DecodeArgs a) {
   using C = DecodeCfg<T, D>;
-  constexpr int kPer = C::kPer, RB = C::kRowBytes;
+  using Out = OutOf<T>;
+  constexpr int kPer = C::kPer, RS = C::kStride;
   extern __shared__ __align__(16) unsigned char split_smem[];
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int G = a.G;
   const int len = decode_len(a, b);
   const int nsplit = (len + a.split - 1) / a.split;
   const long long qo = (static_cast<long long>(b) * a.H + kvh * G) * D;
-  T* out = static_cast<T*>(a.out) + qo;
+  Out* out = static_cast<Out*>(a.out) + qo;
   if (split >= nsplit) {
     if (split == 0)  // no valid key: 0, as the TPU kernel's l == 0
       for (int i = tid; i < G * D; i += kSplitThreads) store(out + i, 0.f);
     return;
   }
   const int k0 = split * a.split, n = min(a.split, len - k0);
-  unsigned char* k_s = split_smem;                            // [split][RB]
-  unsigned char* v_s = k_s + a.split * RB;                    // [split][RB]
-  float* q_s = reinterpret_cast<float*>(v_s + a.split * RB);  // [G][D]
-  float* s_s = q_s + G * D;                                   // [G][split] scores, weights
-  float* ml_s = s_s + G * a.split;                            // [G][2] maximum, sum
-  int* tbl_s = reinterpret_cast<int*>(ml_s + 2 * G);           // the split's table slice
+  const int rows = rows_bytes<T, D>(a.split);
+  unsigned char* k_s = split_smem;                       // [split][RS]
+  unsigned char* v_s = k_s + rows;                       // [split][RS]
+  float* q_s = reinterpret_cast<float*>(v_s + rows);     // [G][D]
+  float* s_s = q_s + G * D;                              // [G][split] scores, weights
+  float* ml_s = s_s + G * a.split;                       // [G][2] maximum, sum
+  float* ks_s = ml_s + 2 * G;                            // [split] K scales (int8 pool)
+  float* vs_s = ks_s + a.split;                          // [split] V scales
+  int* tbl_s = reinterpret_cast<int*>(C::kQuant ? vs_s + a.split : ks_s);  // table slice
 
   // q first; the split's slice of the block table, then every K row of the
-  // split as one group of copies and every V row as a second, so that the
-  // scores are taken while V is still arriving.
+  // split (with the scales) as one group of copies and every V row as a
+  // second, so that the scores are taken while V is still arriving.
   for (int i = tid; i < G * D / 4; i += kSplitThreads)
     cp_async16(q_s + 4 * i, a.q + qo + 4 * i, true);
   const int first = k0 / a.bs;
@@ -366,26 +231,35 @@ paged_split_kernel(DecodeArgs a) {
       const int kpos = k0 + c;
       const long long blk = tbl_s[kpos / a.bs - first];
       const long long off = ((blk * a.bs + kpos % a.bs) * a.H_kv + kvh) * D + j * kPer;
-      cp_async16(dst + c * RB + j * 16, src + off, true);
+      cp_async_row<C::kCopy>(dst + c * RS + j * C::kCopy, src + off);
     }
+    if (C::kQuant && pass == 0)
+      for (int c = tid; c < n; c += kSplitThreads) {
+        const int kpos = k0 + c;
+        const long long blk = tbl_s[kpos / a.bs - first];
+        const long long at = (blk * a.bs + kpos % a.bs) * a.H_kv + kvh;
+        cp_async4(ks_s + c, a.k_scale + at, true);
+        cp_async4(vs_s + c, a.v_scale + at, true);
+      }
     cp_async_commit();
   }
-  cp_async_wait<1>();  // q and K have arrived
+  cp_async_wait<1>();  // q, K and the scales have arrived
   __syncthreads();
 
   // Scores: one work item per (key, chunk of kHeadChunk query heads), its
-  // K row read in 16-byte pieces, q broadcast.
+  // K row read in 16-byte pieces, q broadcast; over the int8 pool the K
+  // scale multiplies the sum.
   const int n_chunks = (G + kHeadChunk - 1) / kHeadChunk;
   for (int w = tid; w < n * n_chunks; w += kSplitThreads) {
     const int c = w % n, g0 = w / n * kHeadChunk;
-    const unsigned char* kr = k_s + c * RB;
+    const unsigned char* kr = k_s + c * RS;
     float dot[kHeadChunk];
 #pragma unroll
     for (int h = 0; h < kHeadChunk; ++h) dot[h] = 0.f;
 #pragma unroll
     for (int j = 0; j < C::kChunks; ++j) {
       float kf[kPer];
-      unpack16(kr + j * 16, kf);
+      unpack<T>(kr + j * C::kCopy, kf);
 #pragma unroll
       for (int h = 0; h < kHeadChunk; ++h) {
         if (g0 + h < G) {
@@ -401,14 +275,15 @@ paged_split_kernel(DecodeArgs a) {
         }
       }
     }
+    const float sc = C::kQuant ? ks_s[c] * a.scale2 : a.scale2;
 #pragma unroll
     for (int h = 0; h < kHeadChunk; ++h)
-      if (g0 + h < G) s_s[(g0 + h) * a.split + c] = dot[h] * a.scale2;
+      if (g0 + h < G) s_s[(g0 + h) * a.split + c] = dot[h] * sc;
   }
   __syncthreads();
 
-  // The softmax of the split, one warp per query head; the weights replace
-  // the scores, rounded to the pool's dtype, the sum taken unrounded.
+  // The softmax of the split, one warp per query head; the weights
+  // (`weight`) replace the scores, the sum taken over the plain weights.
   const int warp = tid / 32, lane = tid % 32;
   for (int g = warp; g < G; g += kSplitWarps) {
     float* sr = s_s + g * a.split;
@@ -421,7 +296,7 @@ paged_split_kernel(DecodeArgs a) {
     for (int c = lane; c < n; c += 32) {
       const float p = exp2f(sr[c] - m_use);
       sum += p;
-      sr[c] = round_to<T>(p);
+      sr[c] = weight<T>(p, vs_s, c);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -443,7 +318,7 @@ paged_split_kernel(DecodeArgs a) {
     float a0 = 0.f, a1 = 0.f;
 #pragma unroll 4
     for (int c = 0; c < n; ++c) {
-      const float2 v = load2<T>(vc + c * RB);
+      const float2 v = load2<T>(vc + c * RS);
       a0 = fmaf(pr[c], v.x, a0);
       a1 = fmaf(pr[c], v.y, a1);
     }
@@ -475,7 +350,7 @@ paged_merge_kernel(DecodeArgs a) {
   const int ns = (decode_len(a, b) + a.split - 1) / a.split;
   if (ns <= 1) return;
   const long long base = (static_cast<long long>(b) * a.H_kv + kvh) * a.n_split;
-  T* out = static_cast<T*>(a.out) + (static_cast<long long>(b) * a.H + kvh * G) * D;
+  OutOf<T>* out = static_cast<OutOf<T>*>(a.out) + (static_cast<long long>(b) * a.H + kvh * G) * D;
   for (int i = threadIdx.x; i < G * D; i += kMergeThreads) {
     const int g = i / D;
     float mx = -INFINITY;
@@ -517,6 +392,35 @@ cudaError_t dispatch_split(const DecodeArgs& a, int B, int D, cudaStream_t strea
   }
 }
 
+// The checks and the launch both entry points share. kv_dtype: 0 = float32,
+// 1 = bfloat16, 2 = int8 (with its scales).
+cudaError_t decode(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                   const void* v_scale, const void* tables, const void* pos, void* out,
+                   void* part_acc, void* part_ml, int B, int H, int H_kv, int D, int bs, int nb,
+                   int split, int kv_dtype, void* stream) {
+  if (B <= 0 || H_kv <= 0 || H % H_kv != 0 || bs <= 0 || nb <= 0 || B > 65535 ||
+      H_kv > 65535 || split <= 0)
+    return cudaErrorInvalidValue;
+  const int n_split = (nb * bs + split - 1) / split;
+  if (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)) return cudaErrorInvalidValue;
+  for (const void* p : {q, k_pool, v_pool})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  if (kv_dtype == 2)
+    for (const void* p : {k_scale, v_scale})
+      if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 4 != 0) return cudaErrorInvalidValue;
+  const DecodeArgs a{static_cast<const float*>(q), k_pool, v_pool,
+                     static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                     static_cast<const int*>(tables), static_cast<const int*>(pos), out,
+                     static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, H_kv,
+                     H / H_kv, bs, nb, split, n_split,
+                     kLog2e / sqrtf(static_cast<float>(D))};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == 0) return dispatch_split<float>(a, B, D, s);
+  if (kv_dtype == 1) return dispatch_split<bf16>(a, B, D, s);
+  if (kv_dtype == 2) return dispatch_split<int8_t>(a, B, D, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -531,33 +435,20 @@ int paged_attention(const void* q, const void* k_pool, const void* v_pool,
                     const void* tables, const void* pos, void* out, void* part_acc,
                     void* part_ml, int B, int H, int H_kv, int D, int bs, int nb, int split,
                     int kv_dtype, void* stream) {
-  if (B <= 0 || H_kv <= 0 || H % H_kv != 0 || bs <= 0 || nb <= 0 || B > 65535 ||
-      H_kv > 65535 || split <= 0)
-    return cudaErrorInvalidValue;
-  const int n_split = (nb * bs + split - 1) / split;
-  if (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)) return cudaErrorInvalidValue;
-  for (const void* p : {q, k_pool, v_pool})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
-  const DecodeArgs a{static_cast<const float*>(q), k_pool, v_pool,
-                     static_cast<const int*>(tables), static_cast<const int*>(pos), out,
-                     static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, H_kv,
-                     H / H_kv, bs, nb, split, n_split,
-                     kLog2e / sqrtf(static_cast<float>(D))};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 0) return dispatch_split<float>(a, B, D, s);
-  if (kv_dtype == 1) return dispatch_split<bf16>(a, B, D, s);
-  return cudaErrorInvalidValue;
+  if (kv_dtype != 0 && kv_dtype != 1) return cudaErrorInvalidValue;
+  return decode(q, k_pool, v_pool, nullptr, nullptr, tables, pos, out, part_acc, part_ml, B, H,
+                H_kv, D, bs, nb, split, kv_dtype, stream);
 }
 
-// int8 pool with f32 scales; the output is f32. Returns the launch's
-// cudaError_t (0 = success).
+// The same over the int8 pool with its f32 scales (NB, bs, H_kv); the
+// output is f32. Split and scratch as for paged_attention (the split's
+// shared memory also holds its keys' scales).
 int quant_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                          const void* k_scale, const void* v_scale,
-                          const void* tables, const void* pos, void* out, int B,
-                          int H, int H_kv, int D, int bs, int nb, void* stream) {
-  if (bad_shape(B, H, H_kv, D, bs, nb)) return cudaErrorInvalidValue;
-  return dispatch_d<int8_t, float, true>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, B, H, H_kv, D, bs, nb,
-                                         static_cast<cudaStream_t>(stream));
+                          const void* k_scale, const void* v_scale, const void* tables,
+                          const void* pos, void* out, void* part_acc, void* part_ml, int B,
+                          int H, int H_kv, int D, int bs, int nb, int split, void* stream) {
+  return decode(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, part_acc, part_ml, B, H,
+                H_kv, D, bs, nb, split, 2, stream);
 }
 
 }  // extern "C"

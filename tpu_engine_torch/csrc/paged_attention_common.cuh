@@ -1,7 +1,7 @@
 // Device helpers shared by the kernels of this directory (the paged reads
-// and the flash forward):
-// element conversions to f32, stores from f32, and the dynamic shared-memory
-// opt-in. Each translation unit gets its own copy (anonymous namespace).
+// and the flash forward): element conversions to f32, stores from f32, a
+// pool's output type, and the dynamic shared-memory opt-in. Each
+// translation unit gets its own copy (anonymous namespace).
 
 #pragma once
 
@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -19,6 +20,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// The output type of a pool: the pool's own, f32 for the int8 pool.
+template <typename KV>
+using OutOf = typename std::conditional<std::is_same<KV, int8_t>::value, float, KV>::type;
 
 // Allows `kernel` `bytes` of dynamic shared memory when that exceeds the
 // default 48 KB (a launch asking for more without it is refused).

@@ -56,14 +56,6 @@
 
 namespace {
 
-// 4 bytes global -> shared without registers; zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 template <int D>
 struct QuantCfg {
   static constexpr int kStride = D + 8;    // bf16 elements per converted row

@@ -34,10 +34,6 @@ constexpr int kBN = 64;          // keys per staged tile
 constexpr int kMaxTable = 512;   // table entries of one split (split / bs)
 constexpr int kThreads = 128;
 
-// The output type of a pool: the pool's own, f32 for the int8 pool.
-template <typename KV>
-using OutOf = typename std::conditional<std::is_same<KV, int8_t>::value, float, KV>::type;
-
 // What a (row, kv head, tile) reads: its valid query rows (slots below
 // qlen) and its causal key range [0, kend) in `nsplit` splits. A function
 // of that row's pos0 and qlen alone.

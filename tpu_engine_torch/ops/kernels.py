@@ -48,7 +48,9 @@ ENTRY_POINTS = {
     # q, k_pool, v_pool, tables, pos, out, part_acc, part_ml; B, H, H_kv,
     # D, bs, nb, split, kv_dtype.
     "paged_attention": [_P] * 8 + [_I] * 8,
-    "quant_paged_attention": [_P] * 8 + [_I] * 6,
+    # q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, part_acc,
+    # part_ml; B, H, H_kv, D, bs, nb, split.
+    "quant_paged_attention": [_P] * 10 + [_I] * 7,
     # q, k_pool, v_pool, k_scale, v_scale, tables, pos0, qlen, out,
     # part_acc, part_ml; B, W, H, H_kv, D, bs, nb, split.
     "quant_ragged_paged_attention": [_P] * 11 + [_I] * 8,

@@ -21,13 +21,15 @@ blocks into a dense view, dequantized to f32 for int8, and run the grouped
 and int8) cut each (row, query tile)'s causal key range into splits of
 ``ragged_split_len(bs)`` keys and merge their partials by log-sum-exp
 (``ragged_split_plan`` gives the split counts, a function of each row's own
-pos0 and qlen); the decode read's kernel cuts each row's range into splits
-of ``DECODE_SPLIT_KEYS`` keys (``decode_split_plan``, a function of the
-row's own pos). ``*_split_reference`` repeat each kernel's split and merge
-arithmetic in plain PyTorch, for the tests: with q's f32 product against a
-bf16 or int8 pool taken as the tensor-core kernels take it, three bf16 terms
-of q from ``split_bf16_terms`` (and, over the int8 pool, three terms of the
-f32 weights times the V scales). For CUDA tensors the wrapper
+pos0 and qlen); the decode reads' kernel (bf16/f32 and int8 alike) cuts
+each row's range into splits of ``DECODE_SPLIT_KEYS`` keys
+(``decode_split_plan``, a function of the row's own pos).
+``*_split_reference`` repeat each kernel's split and merge arithmetic in
+plain PyTorch, for the tests: with the ragged kernels' f32 product against
+a bf16 or int8 pool taken as the tensor cores take it, three bf16 terms of
+q from ``split_bf16_terms`` (and, over the int8 pool, three terms of the
+f32 weights times the V scales); the decode kernel's products are f32 on
+the CUDA cores. For CUDA tensors the wrapper
 launches the hand-written kernel that ports the TPU kernel (``csrc/``:
 ``_paged_kernel`` and ``_quant_paged_kernel`` in ``paged_attention.cu``,
 ``_ragged_kernel`` in ``ragged_paged_attention.cu``,
@@ -56,10 +58,10 @@ from tpu_engine_torch.ops.kernels import counted, launch, plain_or_cuda
 from tpu_engine_torch.ops.quant import dequantize_kv, quantize_kv
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
-# The int8 decode kernel's limit: G * D accumulators over 128 threads.
-MAX_DECODE_GROUP_DIMS = 2048
-# The decode kernel: keys per split, and the shared memory a thread block
-# may take (a split's K and V rows, q and scores).
+# The decode kernel: keys per split (over every pool: at the main path's
+# decode shape 64 beat 128 for the int8 pool too), and the shared memory a
+# thread block may take (a split's K and V rows, q, scores and, over the
+# int8 pool, scales).
 DECODE_SPLIT_KEYS = 64
 MAX_SMEM_BYTES = 232448
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -317,11 +319,61 @@ def decode_split_plan(pos, block_size: int, table_len: int,
 
 def decode_smem_bytes(g: int, d: int, itemsize: int,
                       split: int = DECODE_SPLIT_KEYS) -> int:
-    """Shared memory of one decode thread block: the split's K and V rows
-    (padded 16 bytes), q ([G][D] f32), the scores ([G][split] f32), each
-    head's maximum and sum, and the split's slice of the block table."""
-    return (2 * split * (d * itemsize + 16)
-            + 4 * (g * d + g * split + 2 * g) + 4 * (split + 1))
+    """Shared memory of one decode thread block over a pool of
+    ``itemsize``-byte elements: the split's K and V rows (each row padded
+    16 bytes, each of the two regions rounded up to 16 bytes), q ([G][D]
+    f32), the scores ([G][split] f32), each head's maximum and sum, over
+    the int8 pool (itemsize 1) the K and V scales of the split's keys (8
+    bytes a key), and the split's slice of the block table."""
+    rows = -(-split * (d * itemsize + 16) // 16) * 16
+    return (2 * rows + 4 * (g * d + g * split + 2 * g)
+            + (8 * split if itemsize == 1 else 0) + 4 * (split + 1))
+
+
+def _weighted_pv(p, v_rows, v_scale):
+    """The int8 decode read's PV: the f32 weights times the V scales,
+    unrounded, against the int8 V, summed in f32."""
+    return (p * v_scale[None, :]) @ v_rows
+
+
+def _decode_split(q, k_pool, v_pool, tables, pos_vec, split, scales):
+    """The decode kernel's arithmetic: per (row, kv head) and split of
+    ``split`` keys, the partials merged in split order. ``scales``:
+    (k_scale, v_scale) over the int8 pool, else None. Returns f32
+    (B, 1, H, D)."""
+    b, _, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    g = h // h_kv
+    nb = tables.shape[1]
+    plan = decode_split_plan(pos_vec.cpu().numpy(), bs, nb, split)
+    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    kk = _gather_rows(k_pool, tables)
+    vv = _gather_rows(v_pool, tables)
+    if scales is not None:
+        ks = _gather_rows(scales[0], tables)    # (B, nb * bs, H_kv)
+        vs = _gather_rows(scales[1], tables)
+    qr = q.float()[:, 0].reshape(b, h_kv, g, d)
+    out = torch.zeros((b, h_kv, g, d), dtype=torch.float32, device=q.device)
+
+    for bi in range(b):
+        length = min(int(pos_vec[bi]) + 1, nb * bs)
+        for kv in range(h_kv):
+            parts = []
+            for sp in range(int(plan[bi])):
+                k0, k1 = sp * split, min(length, (sp + 1) * split)
+                s = qr[bi, kv] @ kk[bi, k0:k1, kv].float().T
+                vt = vv[bi, k0:k1, kv].float()
+                if scales is None:
+                    s = s * scale2
+                    pv = (_rounded_pv, vt, v_pool.dtype)
+                else:
+                    # (q . Kq) * (ks * scale); the weights p * vs in f32.
+                    s = s * (ks[bi, k0:k1, kv] * scale2)[None, :]
+                    pv = (_weighted_pv, vt, vs[bi, k0:k1, kv])
+                parts.append(_split_partial(s, *pv))
+            if parts:
+                out[bi, kv] = _merge_splits(parts)
+    return out.reshape(b, 1, h, d)
 
 
 def paged_attention_split_reference(q, k_pool, v_pool, tables, pos_vec,
@@ -332,31 +384,24 @@ def paged_attention_split_reference(q, k_pool, v_pool, tables, pos_vec,
     the unrounded weights, f32 sum of the weights rounded to the pool's
     dtype against the split's own maximum times V), merged in split order
     by log-sum-exp. Same contract as ``paged_attention_reference``."""
-    b, _, h, d = q.shape
-    _, bs, h_kv, _ = k_pool.shape
-    g = h // h_kv
-    nb = tables.shape[1]
     split = DECODE_SPLIT_KEYS if split is None else int(split)
-    plan = decode_split_plan(pos_vec.cpu().numpy(), bs, nb, split)
-    scale2 = 1.0 / math.sqrt(d) * math.log2(math.e)
-    kk = _gather_rows(k_pool, tables)
-    vv = _gather_rows(v_pool, tables)
-    qr = q.float()[:, 0].reshape(b, h_kv, g, d)
-    out = torch.zeros((b, h_kv, g, d), dtype=torch.float32, device=q.device)
+    return _decode_split(q, k_pool, v_pool, tables, pos_vec, split,
+                         None).to(k_pool.dtype)
 
-    for bi in range(b):
-        length = min(int(pos_vec[bi]) + 1, nb * bs)
-        for kv in range(h_kv):
-            parts = []
-            for sp in range(int(plan[bi])):
-                k0, k1 = sp * split, min(length, (sp + 1) * split)
-                s = qr[bi, kv] @ kk[bi, k0:k1, kv].float().T * scale2
-                parts.append(_split_partial(s, _rounded_pv,
-                                            vv[bi, k0:k1, kv].float(),
-                                            v_pool.dtype))
-            if parts:
-                out[bi, kv] = _merge_splits(parts)
-    return out.reshape(b, 1, h, d).to(k_pool.dtype)
+
+def quant_paged_attention_split_reference(q, k_pool, v_pool, k_scale,
+                                          v_scale, tables, pos_vec,
+                                          split: Optional[int] = None):
+    """The int8 decode kernel's arithmetic in plain PyTorch, for the tests:
+    the splits (default DECODE_SPLIT_KEYS keys) and merge of
+    ``paged_attention_split_reference`` over the int8 pool, with the f32
+    score q . f32(Kq) multiplied by ks * log2(e) / sqrt(D) after the
+    product, and the f32 weights p * vs, unrounded, against f32(Vq); l sums
+    p. Same contract as ``quant_paged_attention_reference`` (q's dtype
+    out)."""
+    split = DECODE_SPLIT_KEYS if split is None else int(split)
+    return _decode_split(q, k_pool, v_pool, tables, pos_vec, split,
+                         (k_scale, v_scale)).to(q.dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------------
@@ -420,20 +465,30 @@ def _refuse_grad(fn, *tensors) -> None:
                            f"require grad")
 
 
-def _check_decode(q, k_pool, *, quant: bool = False) -> None:
-    """The decode reads' extra checks: one query slot; for the int8 kernel
-    G * D within its accumulators, for the split kernel a split's K and V
-    rows, q and scores within a thread block's shared memory."""
+def _check_decode(q, k_pool, split: int) -> None:
+    """The decode reads' extra checks: one query slot, and a split's K and
+    V rows, q, scores and (int8) scales within a thread block's shared
+    memory."""
     if q.shape[1] != 1:
         raise ValueError(f"the decode read takes one query slot, got "
                          f"q {tuple(q.shape)}")
     g, d = q.shape[2] // k_pool.shape[2], q.shape[3]
-    if quant and g * d > MAX_DECODE_GROUP_DIMS:
-        raise ValueError(f"G * D = {g * d} exceeds {MAX_DECODE_GROUP_DIMS}")
-    smem = decode_smem_bytes(g, d, k_pool.element_size())
-    if not quant and smem > MAX_SMEM_BYTES:
+    smem = decode_smem_bytes(g, d, k_pool.element_size(), split)
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"G = {g}, D = {d}: a split takes {smem} bytes of "
                          f"shared memory, over {MAX_SMEM_BYTES}")
+
+
+def _decode_scratch(q, k_pool, tables, split: int):
+    """(part_acc, part_ml) of a decode launch: the scratch for the partials
+    of rows that take more than one split (None when none can)."""
+    b, _, h, d = q.shape
+    n_split = -(-tables.shape[1] * k_pool.shape[1] // split)
+    if n_split == 1:
+        return None, None
+    rows = b * h * n_split
+    return (torch.empty(rows * d, dtype=torch.float32, device=q.device),
+            torch.empty(rows * 2, dtype=torch.float32, device=q.device))
 
 
 def _ragged_scratch(q, k_pool, tables):
@@ -494,21 +549,14 @@ def paged_attention(q, k_pool, v_pool, tables, pos_vec):
     if plain_or_cuda(paged_attention, q):
         return paged_attention_reference(q, k_pool, v_pool, tables, pos_vec)
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),))
-    _check_decode(q, k_pool)
+    split = DECODE_SPLIT_KEYS
+    _check_decode(q, k_pool, split)
     b, _, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
     nb = tables.shape[1]
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=k_pool.dtype, device=q.device)
-    # Scratch for the partials of rows that take more than one split.
-    split = DECODE_SPLIT_KEYS
-    n_split = -(-nb * bs // split)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty(b * h * n_split * d, dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty(b * h * n_split * 2, dtype=torch.float32,
-                              device=q.device)
+    part_acc, part_ml = _decode_scratch(q, k_pool, tables, split)
     launch("paged_attention", q.device, qf.data_ptr(), k_pool.data_ptr(),
            v_pool.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
            out.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, h, h_kv, d, bs,
@@ -531,15 +579,18 @@ def quant_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
     _check_cuda_args(q, k_pool, v_pool, tables, (("pos_vec", pos_vec),),
                      quant=True, scales=(("k_scale", k_scale),
                                          ("v_scale", v_scale)))
-    _check_decode(q, k_pool, quant=True)
+    split = DECODE_SPLIT_KEYS
+    _check_decode(q, k_pool, split)
     b, _, h, d = q.shape
     _, bs, h_kv, _ = k_pool.shape
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    part_acc, part_ml = _decode_scratch(q, k_pool, tables, split)
     launch("quant_paged_attention", q.device, qf.data_ptr(),
-            k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
-            out.data_ptr(), b, h, h_kv, d, bs, tables.shape[1])
+           k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+           v_scale.data_ptr(), tables.data_ptr(), pos_vec.data_ptr(),
+           out.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, h, h_kv, d, bs,
+           tables.shape[1], split)
     quant_paged_attention.launches += 1
     return out.to(q.dtype)
 
