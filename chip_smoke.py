@@ -22,7 +22,14 @@ Phases (any failure exits non-zero and prints no result line):
               forward and the split reads (#1-#4)
               bit-identical over two runs, and each row of a split read
               bit-identical alone and in its batch (its split plan depends
-              on its own data only); the
+              on its own data only); #1 and #4 also at the speculative
+              lanes' shapes (spec_k 4: eight verify windows of q_len 1..5
+              at contexts about 1700, W = 5, and seven beside a 256-token
+              chunk, W = 256; a window across a block edge and one across
+              the 512-key split) over f32, bf16 and int8 pools, against
+              the plain and the split versions; #5 at the draft model's
+              prefill (one row of buckets 16, 32 and 64, left padding
+              masked, f32); the
               flash backward (#6 dq, #7 dk and dv) at
               tests/test_flash_backward.py's shapes, its window case and
               the train phase's shape in f32 (1e-4 of the gradient's
@@ -33,7 +40,10 @@ Phases (any failure exits non-zero and prints no result line):
               a mixed, a two-path, two int8 and a dense lane, and a small
               mistral (sliding window) through a dense lane, agrees token
               for token with the same weights served on the CPU through the
-              plain versions; three training steps of the small llama on
+              plain versions; so do three speculative lanes of the small
+              llama (spec_k 4: mixed, two-path over the int8 pool, and
+              mixed with a draft model), whose streams also equal the
+              card's plain lane of their mode; three training steps of the small llama on
               the card give the CPU's losses (f32 1e-4 relative; bf16
               compute 2e-2); the train
               command trains it with --out, --resume continues the step
@@ -59,8 +69,19 @@ Phases (any failure exits non-zero and prints no result line):
               (one flash prefill each), a 600-token prompt (prefill windows,
               no flash), an exact repeat (a prefix-cache hit, no flash), a
               greedy repeat and one stream: flash launches == 22 x the
-              monolithic prefills that missed the cache. In every lane the
-              lane's kernel, and no plain version, served its attention;
+              monolithic prefills that missed the cache. Then three
+              speculative lanes (spec_k 4): spec-mixed-bf16 (the n-gram
+              drafter, mixed, bf16 pool), spec-two-path-int8 (n-gram,
+              two-path, int8 pool) and spec-model-gpt2 (gpt2's 12 layers
+              at d 768 with its auto draft distilgpt2, both random from
+              seeds 0 and 1, mixed, bf16 pool), each answering the burst,
+              the stream, a shared-prefix request, a repetitive prompt
+              and its greedy repeat: spec ticks == dispatches, the ragged
+              kernel's launches == dispatches x layers, the flash
+              forward's == draft dispatches x the draft's 6 layers (zero
+              on the n-gram lanes), no decode read (#2, #3) launched.
+              In every lane the lane's kernels, and no plain version,
+              served its attention;
 5. train    — after the server phase has stopped its lanes: full-width
               training of TinyLlama-1.1B geometry (22 layers, f32 weights
               from seed 0, AdamW) on the train command's synthetic batch,
@@ -93,7 +114,10 @@ Phases (any failure exits non-zero and prints no result line):
               launches at its isolated device time; for the dense prefill
               the f32 flash variant, which that path launches). The paged
               reads' device times are also given per kernel (split and
-              merge).
+              merge). #1 and #4 also at the spec ticks' shapes, the spec
+              ticks' forwards among the forward rows, and the spec tick's
+              accept/emit loop apart from its forward (host issue time,
+              and time to the host copy).
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -148,6 +172,13 @@ FLASH_SHAPES = (("prefill S=256 f32", 1, 256, "float32"),
                 ("prefill S=256", 1, 256, "bfloat16"),
                 ("prefill S=2048", 1, 2048, "bfloat16"))
 MAX_NEW = 32
+# A spec_k = 4 tick's verify windows at the main path's geometry: q_len
+# 1..5 at contexts about 1700, row 1 across a 16-token block edge, row 3
+# across the 512-key split at 1536.
+SPEC_K = 4
+SPEC_QLEN = np.array([5, 5, 3, 5, 1, 5, 2, 5], np.int32)
+SPEC_POS0 = np.array([1700, 1694, 1710, 1533, 1699, 1721, 1730, 1689],
+                     np.int32)
 # The TPU kernel each CUDA kernel replaces, and the lane whose path
 # launches it.
 KERNELS = {
@@ -187,6 +218,22 @@ LANES = {
     # The worker's defaults: dense cache, 16-step chunks, 64 MB prefix
     # cache.
     "dense-bf16": dict(gen_step_chunk=16),
+}
+# The speculative lanes (spec_k 4): (model, the ragged kernel they launch,
+# worker overrides). The model-drafted lane's draft is the auto draft of
+# gpt2, distilgpt2 (6 layers), randomly initialised from seed 1.
+SPEC = dict(PAGED, gen_continuous_spec_k=SPEC_K)
+SPEC_LANES = {
+    "spec-mixed-bf16": ("llama", "ragged_paged_attention",
+                        dict(SPEC, gen_mixed_step=True,
+                             gen_mixed_token_budget=256)),
+    "spec-two-path-int8": ("llama", "quant_ragged_paged_attention",
+                           dict(SPEC, gen_step_chunk=16,
+                                gen_kv_quantize="int8")),
+    "spec-model-gpt2": ("gpt2", "ragged_paged_attention",
+                        dict(SPEC, gen_mixed_step=True,
+                             gen_mixed_token_budget=256,
+                             gen_spec_draft="model")),
 }
 
 
@@ -230,18 +277,23 @@ def card_line() -> str:
 # -- kernel inputs at the main path's shapes ----------------------------------
 
 def main_path_inputs(torch, dev, decode_only: bool, int8: bool = False,
-                     seed: int = 1):
+                     seed: int = 1, spec: bool = False, pool_dtype=None):
     """The batch a TinyLlama step hands the kernels: 8 rows, 32 query / 4
     KV heads, D 64, 16-token blocks, tables 128 wide (max_seq 2048). Mixed
     (W = 256): seven decode rows at contexts up to 2047 and one 256-token
-    chunk at pos0 1700; decode only: eight q_len-1 rows. A bf16 pool, or
-    the int8 pool and scales the port's quantize_kv makes of the same f32
-    values. Returns (q, k, v, [k_scale, v_scale,] tables, pos0, qlen)."""
+    chunk at pos0 1700; decode only: eight q_len-1 rows. With ``spec``, a
+    spec_k = 4 tick: the decode rows are verify windows of q_len 1..5 at
+    contexts about 1700 (SPEC_QLEN, SPEC_POS0: one across a 16-token block
+    edge, one across the 512-key split at 1536), W = 5 decode only, or
+    seven windows beside the 256-token chunk at W = 256. A bf16 pool
+    (``pool_dtype`` another), or the int8 pool and scales the port's
+    quantize_kv makes of the same f32 values. Returns (q, k, v, [k_scale,
+    v_scale,] tables, pos0, qlen)."""
     from tpu_engine_torch.ops.quant import quantize_kv
 
     rng = np.random.default_rng(seed)
     b, h, h_kv, d, bs, nb = 8, 32, 4, 64, 16, 128
-    w = 1 if decode_only else 256
+    w = (SPEC_K + 1 if spec else 1) if decode_only else 256
     n_pool = b * nb + 1
     q = torch.from_numpy(rng.standard_normal((b, w, h, d), np.float32))
     k = torch.from_numpy(rng.standard_normal((n_pool, bs, h_kv, d),
@@ -251,13 +303,16 @@ def main_path_inputs(torch, dev, decode_only: bool, int8: bool = False,
     tables = (1 + rng.permutation(n_pool - 1)[:b * nb]).reshape(b, nb)
     pos0 = np.array([100, 500, 1000, 2046, 17, 1500, 0, 1700], np.int32)
     qlen = np.ones((b,), np.int32)
+    if spec:
+        pos0, qlen = SPEC_POS0.copy(), SPEC_QLEN.copy()
     if not decode_only:
-        qlen[7] = 256
+        qlen[7], pos0[7] = 256, 1700
     if int8:
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
         pools = (k, v, ks, vs)
     else:
-        pools = (k.bfloat16(), v.bfloat16())
+        dt = pool_dtype or torch.bfloat16
+        pools = (k.to(dt), v.to(dt))
     return (q.to(dev), *pools,
             torch.from_numpy(tables.astype(np.int32)).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(qlen).to(dev))
@@ -650,6 +705,35 @@ def phase_parity(torch, pa) -> dict:
     record("quant_paged_attention", "int8 main path decode against its "
            "split version", float((out - split).abs().max()), F32_TOL)
     rows_identical(torch, pa, "quant_paged_attention", t, out, "int8 decode")
+    # The speculative lanes' shapes: verify windows alone (W = 5) and
+    # beside a 256-token chunk, over f32, bf16 and int8 pools.
+    for decode_only in (True, False):
+        shape = ("spec verify W=5" if decode_only
+                 else "spec mixed W=256")
+        for pool, tol in ((torch.float32, F32_TOL),
+                          (torch.bfloat16, BF16_TOL)):
+            name = str(pool).split(".")[-1]
+            t = main_path_inputs(torch, dev, decode_only, spec=True,
+                                 pool_dtype=pool)
+            out, ref = run("ragged_paged_attention", t)
+            record("ragged_paged_attention", f"{name} {shape}",
+                   _valid_err(torch, out, ref, t[-1]), tol)
+            split = pa.ragged_paged_attention_split_reference(*t)
+            record("ragged_paged_attention",
+                   f"{name} {shape} against its split version",
+                   _valid_err(torch, out, split, t[-1]), tol)
+            rows_identical(torch, pa, "ragged_paged_attention", t, out,
+                           f"{name} {shape}")
+        t = main_path_inputs(torch, dev, decode_only, int8=True, spec=True)
+        out, ref = run("quant_ragged_paged_attention", t)
+        record("quant_ragged_paged_attention", f"int8 {shape}",
+               _valid_err(torch, out, ref, t[-1]), QUANT_TOL)
+        split = pa.quant_ragged_paged_attention_split_reference(*t)
+        record("quant_ragged_paged_attention",
+               f"int8 {shape} against its split version",
+               _valid_err(torch, out, split, t[-1]), QUANT_TOL)
+        rows_identical(torch, pa, "quant_ragged_paged_attention", t, out,
+                       f"int8 {shape}")
     parity_flash(torch, dev, record)
     parity_flash_bwd(torch, dev, record)
     return errs
@@ -727,6 +811,20 @@ def parity_flash(torch, dev, record) -> None:
                flash_err(torch, out, lse, ref, ref_lse), BF16_TOL)
         flash_identical(torch, fl, q, k, v, args, out, lse, f"bf16 {case}")
         del ref, ref_lse
+    # The draft model's prefill on the model-drafted spec lane: one row of
+    # distilgpt2 width (12 heads, D 64) in its bucket, left padding masked,
+    # f32 q, k, v as nn.dense gives them.
+    for pb, pad in ((16, 3), (32, 20), (64, 20)):
+        q, k, v, mask = flash_inputs(torch, dev, pb, 12, 64, pad,
+                                     dtype=torch.float32)
+        args = dict(causal=True, mask=mask)
+        out, lse = fl.flash_attention_fwd(q, k, v, **args)
+        ref, ref_lse = fl.flash_attention_reference(q, k, v, **args)
+        torch.cuda.synchronize()
+        case = f"f32 draft prefill pb={pb} pad {pad}"
+        record("flash_attention", case,
+               flash_err(torch, out, lse, ref, ref_lse), F32_TOL)
+        flash_identical(torch, fl, q, k, v, args, out, lse, case)
 
 
 # (case, parity_inputs kwargs, causal, mask, window): the shapes of
@@ -833,8 +931,11 @@ def parity_flash_bwd(torch, dev, record) -> None:
 
 def phase_small_model(torch) -> None:
     """A small llama served on the card (kernels) against the same f32
-    weights served on the CPU (plain versions), in every lane's mode:
-    greedy streams equal."""
+    weights served on the CPU (plain versions), in every lane's mode and
+    through three speculative lanes (spec_k 4: mixed over the f32 pool,
+    two-path over the int8 pool, and mixed with a draft model, itself a
+    small llama of other seeded weights): greedy streams equal, and each
+    spec lane's equal the card's plain lane of its mode."""
     from tpu_engine_torch.models.convert import init_params, params_to
     from tpu_engine_torch.models.registry import create_model
     from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
@@ -853,26 +954,51 @@ def phase_small_model(torch) -> None:
             ("llama-small-test", "two-path int8",
              dict(paged, step_chunk=4, kv_quantize="int8")),
             ("llama-small-test", "dense", dense),
-            ("mistral-small-test", "dense (window 8)", dense)]
+            ("mistral-small-test", "dense (window 8)", dense),
+            ("llama-small-test", "spec mixed",
+             dict(paged, mixed_step=True, mixed_token_budget=16,
+                  spec_k=SPEC_K)),
+            ("llama-small-test", "spec two-path int8",
+             dict(paged, step_chunk=4, kv_quantize="int8", spec_k=SPEC_K)),
+            ("llama-small-test", "spec mixed model-drafted",
+             dict(paged, mixed_step=True, mixed_token_budget=16,
+                  spec_k=SPEC_K, spec_draft="model"))]
     shared = [(i * 11) % 200 + 1 for i in range(32)]
     prompts = [[5, 9, 3], [(i * 7) % 200 + 1 for i in range(40)],
-               shared + [91, 92, 93], shared + [81, 82]]
+               shared + [91, 92, 93], shared + [81, 82], [5, 6, 7] * 6]
     flash = wrapper("flash_attention")
+    plain_card = {}
     for name, mode, kw in runs:
         spec = create_model(name, max_seq=128)
         params = init_params(spec.config, seed=3, device="cpu",
                              dtype="float32")
+        draft = (init_params(spec.config, seed=4, device="cpu",
+                             dtype="float32")
+                 if kw.get("spec_draft") == "model" else None)
         outs = {}
         for dev in ("cpu", "cuda"):
             launches = flash.launches
+            extra = {}
+            if draft is not None:
+                extra = dict(spec_draft_model=spec,
+                             spec_draft_params=params_to(draft, dev))
             gen = ContinuousGenerator(spec, params=params_to(params, dev),
-                                      device=dev, **dict(base, **kw))
+                                      device=dev, **dict(base, **kw),
+                                      **extra)
             try:
                 outs[dev] = [gen.generate([p], max_new_tokens=8)[0]
                              for p in prompts]
+                # A penalty under 1 makes the random model repeat the
+                # prompt's tokens, so the n-gram drafter's windows hold
+                # (accepted proposals move a row several columns a tick).
+                outs[dev].append(gen.generate(
+                    [[5, 6, 7, 8] * 6], max_new_tokens=16,
+                    repetition_penalty=0.1)[0])
+                st = gen.stats()
             finally:
                 gen.stop()
-            if dev == "cuda" and mode.startswith("dense"):
+            if dev == "cuda" and (mode.startswith("dense")
+                                  or draft is not None):
                 check(flash.launches > launches,
                       f"small model {name} {mode}: no flash launch")
         log(f"small model {name} f32 {mode}: card {outs['cuda']} cpu "
@@ -880,6 +1006,20 @@ def phase_small_model(torch) -> None:
         check(outs["cuda"] == outs["cpu"],
               f"small-model greedy streams ({name} {mode}) differ between "
               f"card and CPU")
+        if not mode.startswith("spec"):
+            plain_card[(name, mode)] = outs["cuda"]
+            continue
+        sp = st["spec"]
+        check(sp["ticks"] == sp["dispatches"] > 0
+              and sp["proposed_tokens"] > 0
+              and (draft is not None or sp["accepted_tokens"] > 0),
+              f"small model {mode}: {sp}")
+        plain_mode = mode[len("spec "):].replace(" model-drafted", "")
+        check(outs["cuda"] == plain_card[(name, plain_mode)],
+              f"small model {mode}: the spec lane's streams differ from "
+              f"the card's plain {plain_mode} lane")
+        log(f"small model {name} f32 {mode}: equal to the card's plain "
+            f"{plain_mode} lane; spec {json.dumps(sp)}")
 
 
 def run_train(argv, params=None) -> str:
@@ -1140,24 +1280,29 @@ def phase_train(torch) -> dict:
     return out
 
 
-def start_lane(torch, params, lane: str):
+def start_lane(torch, params, lane: str, model: str = "llama",
+               overrides=None):
     """A worker of the main path's geometry for ``lane``, over HTTP."""
     from tpu_engine_torch.serving.app import serve_worker
     from tpu_engine_torch.utils.config import WorkerConfig
 
-    cfg = WorkerConfig(port=0, node_id=f"chip-smoke-{lane}", model="llama",
+    cfg = WorkerConfig(port=0, node_id=f"chip-smoke-{lane}", model=model,
                        dtype="bfloat16", gen_max_batch_size=8,
                        gen_prefill_chunk=256, device="cuda", seed=0,
-                       **LANES[lane])
+                       **(LANES[lane] if overrides is None else overrides))
     t0 = time.perf_counter()
     worker, server = serve_worker(cfg, params=params)
     torch.cuda.synchronize()
-    log(f"server {lane}: llama (TinyLlama-1.1B geometry) ready in "
+    geometry = ("TinyLlama-1.1B geometry" if model == "llama"
+                else f"{worker.generator.cfg.n_layers} layers, d "
+                     f"{worker.generator.cfg.d_model}")
+    log(f"server {lane}: {model} ({geometry}) ready in "
         f"{time.perf_counter() - t0:.1f} s on port {server.port}")
     return worker, server
 
 
-def burst(port: int, lane: str, reqs: dict, stream_prompt) -> tuple:
+def burst(port: int, lane: str, reqs: dict, stream_prompt,
+          vocab: int = 32000) -> tuple:
     """The requests of ``reqs`` on /generate and ``stream_prompt`` on
     /generate/stream, all at once. Checks that every one completes with
     MAX_NEW tokens; returns (results by name, stream tokens, stream TTFT,
@@ -1197,7 +1342,7 @@ def burst(port: int, lane: str, reqs: dict, stream_prompt) -> tuple:
     n_tokens = len(s_toks)
     for name, res in results.items():
         check(len(res["tokens"]) == MAX_NEW
-              and all(0 <= t < 32000 for t in res["tokens"]),
+              and all(0 <= t < vocab for t in res["tokens"]),
               f"{lane} {name}: {res}")
         n_tokens += len(res["tokens"])
     return results, s_toks, ttft, burst_s, n_tokens
@@ -1397,6 +1542,132 @@ def serve_dense_lane(torch, params) -> dict:
     return out
 
 
+def serve_spec_lane(torch, params, lane: str) -> dict:
+    """Drive one speculative lane over HTTP with the launch counts set to
+    0 just before and read just after: a burst of concurrent /generate
+    requests and one /generate/stream, a shared-prefix request, a
+    repetitive prompt the n-gram drafter can match, three times (the last
+    two a greedy repeat, from the same radix hit). That prompt is a 12-token motif repeated to 230 tokens, sent
+    with repetition_penalty 0.1: a penalty under 1 multiplies the seen
+    tokens' positive logits by 10, so the random model's greedy tokens
+    come from the motif, the drafter finds them in the history and
+    proposes, and the verify loop runs its penalty path.
+    Checks: every request completes, the repeat is token-identical,
+    spec ticks == dispatches (and mixed ticks == dispatches), the lane's
+    ragged kernel launched spec dispatches x layers times, the decode
+    reads (#2, #3) not at all and no plain version was called, the flash
+    forward (the draft's prefill) draft dispatches x the draft's layers
+    times, accepted <= proposed tokens, tokens per row dispatch >= 1, and
+    no block leaked once idle."""
+    from tpu_engine_torch.ops import kernels
+
+    model, kernel, overrides = SPEC_LANES[lane]
+    worker, server = start_lane(torch, params if model == "llama" else None,
+                                lane, model, overrides)
+    port = server.port
+    gen = worker.generator
+    vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
+    draft = gen._drafter
+    draft_layers = draft.cfg.n_layers if draft.name == "model" else 0
+    rng = np.random.default_rng(2)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+
+    prefix = toks(64)
+    motif = toks(12)
+    reqs = {"long": toks(300), "prefix_a": prefix + toks(20),
+            "mid": toks(100), "short": toks(17), "one": toks(1),
+            "motif": motif * 2}
+    repetitive = (motif * 20)[:230]
+    stream_prompt = toks(200)
+    try:
+        kernels.reset_counts()  # the lane's run: counts from 0, read after
+        warm = post(port, "/generate", {"request_id": "warm",
+                                        "prompt_tokens": reqs["short"],
+                                        "max_new_tokens": 4})
+        check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
+        _, _, ttft, burst_s, n_tokens = burst(port, lane, reqs,
+                                              stream_prompt, vocab)
+        hit0 = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"]
+        shared = post(port, "/generate", {
+            "request_id": "prefix_b", "prompt_tokens": prefix + toks(40),
+            "max_new_tokens": MAX_NEW})
+        hit = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"] - hit0
+        check(len(shared["tokens"]) == MAX_NEW and hit >= 64,
+              f"{lane} shared prefix: {hit} prefix-hit tokens")
+        # A spec lane in bf16 is held to its own greedy repeat, alone and
+        # from the same radix hit (a verify window changes the GEMM's M,
+        # so its tokens need not be the plain lane's; and the first run's
+        # prompt attends its own fresh K/V, the repeats' the pool's).
+        sp0 = get(port, "/stats")["spec"]
+        _, first, again = (post(port, "/generate", {
+            "request_id": f"repetitive-{i}", "prompt_tokens": repetitive,
+            "max_new_tokens": MAX_NEW, "repetition_penalty": 0.1})["tokens"]
+            for i in range(3))
+        check(first == again and len(first) == MAX_NEW,
+              f"{lane} greedy repeat differs: {first} {again}")
+        sp1 = get(port, "/stats")["spec"]
+        rep_proposed = sp1["proposed_tokens"] - sp0["proposed_tokens"]
+        rep_accepted = sp1["accepted_tokens"] - sp0["accepted_tokens"]
+        check(rep_proposed > 0, f"{lane}: the drafter proposed nothing on "
+                                f"the repetitive prompt: {sp0} {sp1}")
+        st, idle = wait_idle(port, paged=True)
+        counts = launch_counts()
+        pool, sp = st["kv_pool"], st["spec"]
+        check(idle, f"{lane}: not idle or blocks leaked: {pool}")
+        check(all(p == 0 for _, p in counts.values()),
+              f"{lane}: plain versions served attention: {counts}")
+        launches = counts[kernel][0]
+        flash_launches = counts["flash_attention"][0]
+        others = {k: n for k, (n, _) in counts.items()
+                  if k not in (kernel, "flash_attention") and n}
+        check(not others, f"{lane}: other kernels launched: {others}")
+        check(sp["ticks"] == sp["dispatches"] > 0, f"{lane}: {sp}")
+        check(launches == n_layers * sp["dispatches"],
+              f"{lane}: {launches} {kernel} launches for "
+              f"{sp['dispatches']} dispatches of {n_layers} layers")
+        check(flash_launches == draft_layers * sp["draft_dispatches"],
+              f"{lane}: {flash_launches} flash launches for "
+              f"{sp['draft_dispatches']} draft dispatches of "
+              f"{draft_layers} layers")
+        check(sp["proposed_tokens"] > 0
+              and sp["accepted_tokens"] <= sp["proposed_tokens"]
+              and sp["tokens_per_row_dispatch"] >= 1.0, f"{lane}: {sp}")
+        if "mixed" in st:
+            m = st["mixed"]
+            check(m["ticks"] == m["dispatches"] == sp["ticks"],
+                  f"{lane}: mixed {m} spec {sp}")
+        check(bool(pool.get("quantized")) == ("int8" in lane),
+              f"{lane}: pool {pool}")
+        health = get(port, "/health")
+        check(health["healthy"] and "spec" in health["generator"]
+              and health["generator"]["completed"] >= 12,
+              f"{lane} health: {health}")
+        out = {"model": model, "kernel": kernel, "launches": launches,
+               "flash_launches": flash_launches, "spec": sp,
+               "repetitive_proposed": rep_proposed,
+               "repetitive_accepted": rep_accepted,
+               "burst_tokens": n_tokens, "burst_s": burst_s,
+               "tokens_per_s": n_tokens / burst_s, "stream_ttft_s": ttft,
+               "prefix_hit_tokens": hit, "pool": pool}
+        log(f"server {lane}: {n_tokens} tokens in {burst_s:.3f} s "
+            f"({n_tokens / burst_s:.1f} tokens/s, 7 concurrent requests), "
+            f"stream TTFT {ttft * 1e3:.1f} ms; {kernel} launches "
+            f"{launches} == {n_layers} x {sp['dispatches']} dispatches, "
+            f"flash launches {flash_launches} == {draft_layers} x "
+            f"{sp['draft_dispatches']} draft dispatches, #2/#3 and plain "
+            f"calls 0; the repetitive prompt 3 times: {rep_proposed} "
+            f"proposed, "
+            f"{rep_accepted} accepted, greedy repeat identical; blocks free "
+            f"{pool['blocks_free']} + radix {pool['radix_nodes']} == total "
+            f"{pool['blocks_total']}; spec {json.dumps(sp)}")
+    finally:
+        server.stop()
+        worker.stop()
+    return out
+
+
 def phase_server(torch) -> dict:
     from tpu_engine_torch.models.convert import init_params
     from tpu_engine_torch.models.registry import create_model
@@ -1406,13 +1677,16 @@ def phase_server(torch) -> dict:
     out = {lane: serve_lane(torch, params, lane) for lane in LANES
            if lane != "dense-bf16"}
     out["dense-bf16"] = serve_dense_lane(torch, params)
+    for lane in SPEC_LANES:
+        out[lane] = serve_spec_lane(torch, params, lane)
     return out
 
 
-def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
+def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
+                   spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
     dev = torch.device("cuda")
-    inp = main_path_inputs(torch, dev, decode_only, int8)
+    inp = main_path_inputs(torch, dev, decode_only, int8, spec=spec)
     args = decode_args(inp) if kernel in ("paged_attention",
                                           "quant_paged_attention") else inp
     fn = getattr(pa, kernel)
@@ -1427,7 +1701,7 @@ def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
     out_item = 4 if int8 else inp[1].element_size()
     bound, by = bound_ms(inp[0], inp[1], inp[-3], inp[-2], inp[-1],
                          out_item, scale_bytes=4 if int8 else 0)
-    shape = "decode W=1" if decode_only else "mixed W=256"
+    shape = shape_key(decode_only, spec)
     pool = "int8" if int8 else "bf16"
     log(f"numbers {kernel} ({shape}, B 8, H 32/4, D 64, bs 16, {pool} "
         f"pool): kernel {ms:.4f} ms (device time {device:.4f} ms, {seen} "
@@ -1441,6 +1715,13 @@ def kernel_numbers(torch, pa, kernel: str, decode_only: bool) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
+def shape_key(decode_only: bool, spec: bool = False) -> str:
+    if spec:
+        return f"spec verify W={SPEC_K + 1}" if decode_only \
+            else "spec mixed W=256"
+    return "decode W=1" if decode_only else "mixed W=256"
+
+
 def sdpa_backend(torch, dtype):
     """The scaled_dot_product_attention backend the flash yardstick forces:
     FlashAttention for bf16; for f32, which it does not take, the
@@ -1451,10 +1732,10 @@ def sdpa_backend(torch, dtype):
             else SDPBackend.EFFICIENT_ATTENTION)
 
 
-def flash_numbers(torch, b: int, s: int, dtype) -> dict:
+def flash_numbers(torch, b: int, s: int, dtype, heads: int = 32) -> dict:
     """The flash forward over unit-normal (B, S, 32, 64) q, k, v, causal: a
-    TinyLlama prefill row (B 1), or the train phase's shape (B 4, S 1024),
-    in f32 (the variant every main path launches: q, k, v come out of
+    TinyLlama prefill row (B 1), or the train phase's shape (B 4, S 1024)
+    (or ``heads`` other than 32: the draft model's prefill), in f32 (the variant every main path launches: q, k, v come out of
     nn.dense as f32) or bf16. The kernel, with events and a cold L2 (the
     wrapper's host time included) and as device time (``device_call_ms``);
     the plain version; and scaled_dot_product_attention(is_causal=True)
@@ -1466,7 +1747,7 @@ def flash_numbers(torch, b: int, s: int, dtype) -> dict:
 
     from tpu_engine_torch.ops import flash as fl
 
-    q, k, v, _ = flash_inputs(torch, torch.device("cuda"), s, 32, 64,
+    q, k, v, _ = flash_inputs(torch, torch.device("cuda"), s, heads, 64,
                               dtype=dtype, b=b)
     call = (lambda: fl.flash_attention(q, k, v, causal=True))
     ms = time_ms(torch, call)
@@ -1483,7 +1764,7 @@ def flash_numbers(torch, b: int, s: int, dtype) -> dict:
     library_device, library_seen = device_call_ms(torch, library_call)
     bound, by = flash_bound_ms(q)
     name = str(dtype).split(".")[-1]
-    log(f"numbers flash_attention (B {b}, S {s}, H 32, D 64, causal, "
+    log(f"numbers flash_attention (B {b}, S {s}, H {heads}, D 64, causal, "
         f"{name}): kernel {ms:.4f} ms (device time {device:.4f} ms, {seen} "
         f"of 20 calls seen), plain {plain:.4f} ms, sdpa {backend.name} "
         f"{library:.4f} ms (device time {library_device:.4f} ms, "
@@ -1583,14 +1864,77 @@ def phase_numbers(torch, pa) -> dict:
         if kernel == "flash_attention":
             res[kernel] = {key: flash_numbers(torch, b, s, getattr(torch, dt))
                            for key, b, s, dt in FLASH_SHAPES}
+            # The model-drafted spec lane's draft prefill (distilgpt2
+            # width, its largest bucket).
+            res[kernel]["draft prefill S=64 H=12 f32"] = flash_numbers(
+                torch, 1, 64, torch.float32, heads=12)
             continue
-        shapes = ((True,) if kernel in ("paged_attention",
-                                        "quant_paged_attention")
-                  else (False, True))
-        res[kernel] = {("decode W=1" if d else "mixed W=256"):
-                       kernel_numbers(torch, pa, kernel, d) for d in shapes}
+        shapes = (((True, False),) if kernel in ("paged_attention",
+                                                 "quant_paged_attention")
+                  else ((False, False), (True, False), (True, True),
+                        (False, True)))
+        res[kernel] = {shape_key(d, sp): kernel_numbers(torch, pa, kernel,
+                                                        d, sp)
+                       for d, sp in shapes}
     res["forward"] = forward_times(torch, res)
+    res["spec_slots"] = spec_slot_times(torch)
     return res
+
+
+def spec_slot_times(torch) -> dict:
+    """The speculative tick's S-slot accept/emit loop
+    (``spec_accept_emit``) apart from its forward, at the spec lanes'
+    shape: 8 rows, S = 5 slots over TinyLlama's 32000-token vocabulary,
+    four proposals a row. Greedy rows without controls, greedy rows with
+    a penalty and stop lists, and drafted rows at temperature 0.8 (the
+    rejection rule): the host's time to issue the loop and its time to
+    the results on the host (the tick's one copy included)."""
+    from tpu_engine_torch.runtime.scheduler import spec_accept_emit
+
+    dev = torch.device("cuda")
+    b, S, vocab = 8, SPEC_K + 1, 32000
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.standard_normal((b, S, vocab),
+                                                  np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, vocab, (b, S)).astype(
+        np.int32)).to(dev)
+    zeros = torch.zeros((b,), dtype=torch.int64, device=dev)
+    base = dict(sample_slot=zeros, fold0=zeros + 1700,
+                n_draft=torch.full((b,), SPEC_K, device=dev),
+                active=torch.ones((b,), dtype=torch.bool, device=dev),
+                done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                seeds=np.arange(b), topps=np.ones(b, np.float32),
+                topks=np.zeros(b, np.int64), minps=np.zeros(b, np.float32),
+                eos=zeros - 1)
+    greedy = dict(base, stoch=np.zeros(b, bool),
+                  temps=np.zeros(b, np.float32))
+    variants = {
+        "greedy": greedy,
+        "greedy with controls": dict(
+            greedy, counts=torch.zeros((b, vocab), dtype=torch.int32,
+                                       device=dev),
+            pens=torch.full((b,), 1.2, device=dev),
+            stops=torch.full((b, 4), 7, dtype=torch.int64, device=dev)),
+        "sampled drafted": dict(base, stoch=np.ones(b, bool),
+                                temps=np.full(b, 0.8, np.float32)),
+    }
+    out = {}
+    for name, kw in variants.items():
+        def loop():
+            res = spec_accept_emit(logits, tokens, **kw)
+            return torch.cat([r.flatten().long() for r in res]).cpu()
+        loop()
+        host = issue_ms(torch, lambda: spec_accept_emit(logits, tokens,
+                                                        **kw))
+        t0 = time.perf_counter()
+        for _ in range(10):
+            loop()
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        out[name] = {"issue_ms": host, "wall_ms": wall}
+        log(f"numbers spec accept/emit loop ({name}, B {b}, S {S}, V "
+            f"{vocab}): host issue {host:.3f} ms, to the host copy "
+            f"{wall:.3f} ms")
+    return out
 
 
 def forward_times(torch, kernel_res) -> dict:
@@ -1598,8 +1942,10 @@ def forward_times(torch, kernel_res) -> dict:
     timed on the card, beside the host's time to issue it and the card's
     busy time under the profiler, and the share of it the attention
     kernel takes (22 launches at the isolated kernel's device time): the mixed
-    tick at W = 256 and W = 1 and the two-path decode step (8 rows), over
-    the bf16 and the int8 pool, the two-path prefill thread's 256-token
+    tick at W = 256 and W = 1, the two-path decode step (8 rows) and the
+    spec_k = 4 ticks (8 verify windows at W = 5, and 7 beside a 256-token
+    chunk; 5 slots a row through the head), over the bf16 and the int8
+    pool, the two-path prefill thread's 256-token
     window of one request over its own dense row cache (no pool, no
     paged kernel), and the dense lane's steps: the monolithic prefill of a
     left-padded prompt at buckets 256 and 2048 (the flash kernel) and the
@@ -1653,16 +1999,25 @@ def forward_times(torch, kernel_res) -> dict:
                           torch.ones(shape[:-1], device=dev))
                   if int8 else None)
         pool = "int8" if int8 else "bf16"
-        steps = (("mixed W=256", False, "ragged"),
-                 ("decode W=1", True, "ragged"),
-                 ("two-path decode step", True, "paged"))
-        for name, decode_only, read in steps:
-            inp = main_path_inputs(torch, dev, decode_only)
+        steps = (("mixed W=256", False, "ragged", False),
+                 ("decode W=1", True, "ragged", False),
+                 ("two-path decode step", True, "paged", False),
+                 (shape_key(True, True), True, "ragged", True),
+                 (shape_key(False, True), False, "ragged", True))
+        for name, decode_only, read, spec in steps:
+            inp = main_path_inputs(torch, dev, decode_only, spec=spec)
             tables, pos0, qlen = inp[-3:]
-            w = 1 if decode_only else 256
+            w = inp[0].shape[1]
             tokens = torch.randint(0, cfg.vocab, (8, w), device=dev,
                                    dtype=torch.int32)
+            # A spec tick gathers S = k + 1 slots from each verify window's
+            # first slot (and from the chunk's last token); a plain tick
+            # one slot, each row's last.
+            width = SPEC_K + 1 if spec else 1
             slot = (qlen - 1).clamp(min=0)
+            if spec:
+                slot = torch.where(qlen > width, slot, 0)
+            logits_shape = (8, width, cfg.vocab) if spec else (8, cfg.vocab)
             if read == "ragged":
                 kernel = ("quant_ragged_paged_attention" if int8
                           else "ragged_paged_attention")
@@ -1671,7 +2026,7 @@ def forward_times(torch, kernel_res) -> dict:
                     return transformer_step_rows_ragged(
                         params, tokens, caches, tables, pos0, qlen, cfg,
                         dtype=torch.bfloat16, sample_slot=slot,
-                        scales=scales)[0]
+                        sample_width=width, scales=scales)[0]
             else:
                 kernel = ("quant_paged_attention" if int8
                           else "paged_attention")
@@ -1680,8 +2035,9 @@ def forward_times(torch, kernel_res) -> dict:
                     return transformer_decode_rows_paged(
                         params, tokens[:, 0], caches, tables, pos0, cfg,
                         dtype=torch.bfloat16, scales=scales)[0]
-            kshape = "mixed W=256" if name == "mixed W=256" else "decode W=1"
-            record(f"{name} {pool}", fwd, (8, cfg.vocab), kernel, kshape)
+            kshape = (name if spec or name == "mixed W=256"
+                      else "decode W=1")
+            record(f"{name} {pool}", fwd, logits_shape, kernel, kshape)
         del caches, scales
 
     # The second window of a 300-token prompt (bucket 512): columns

@@ -28,7 +28,12 @@ kernels' tiles (ragged tails, a band across tile edges, padding over whole
 tiles, strided and misaligned views); also the FlashAttention Function
 on the card against the CPU, run-to-run bit identity, and training
 gradients of a small llama on the card against the CPU, in f32 and in
-bf16."""
+bf16. The speculative lanes' shapes: the ragged reads over a spec tick's
+verify windows (k 3, 4 and 7; G 1 and 8; one window across the 512-key
+split, one across a block edge) against the dense and split plain
+versions, bit-identical over two runs and row by row alone; the flash
+forward at the draft model's prefill (B 1 x S 64, 20 columns of left
+padding)."""
 
 import numpy as np
 import pytest
@@ -748,3 +753,96 @@ def test_quant_paged_kernel_refuses_what_shared_memory_cannot_hold(
     with pytest.raises(ValueError, match="shared memory"):
         tpa.quant_paged_attention(*t)
     assert tpa.quant_paged_attention.launches == launches
+
+
+# -- the reads on the speculative lanes' path ---------------------------------
+
+def _verify_inputs(dev, k, g, dtype=torch.float32, quant=False, seed=7):
+    """One ragged batch of a --spec-k tick at D 64 over 16-token blocks:
+    an undrafted decode row, two k+1 verify windows (one across the
+    512-key split, one across a block edge) and prefill chunks of 16 and
+    17 tokens, G = g query heads per KV head (two KV heads)."""
+    from tpu_engine_torch.ops.quant import quantize_kv
+
+    q_lens = (1, k + 1, k + 1, 16, 17)
+    pos0 = (100, 512 - k // 2 - 1, 30, 300, 600)
+    rng = np.random.default_rng(seed)
+    b, w, h_kv, d, bs, nb = len(q_lens), max(q_lens), 2, 64, 16, 48
+    n_pool = b * nb + 1
+    q = rng.standard_normal((b, w, g * h_kv, d), np.float32)
+    kv = [rng.standard_normal((n_pool, bs, h_kv, d), np.float32)
+          for _ in range(2)]
+    tables = (1 + rng.permutation(n_pool - 1)).reshape(b, nb)
+    meta = [torch.from_numpy(x).to(dev) for x in (
+        tables.astype(np.int32), np.asarray(pos0, np.int32),
+        np.asarray(q_lens, np.int32))]
+    kv = [torch.from_numpy(x).to(dev) for x in kv]
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(kv[0]), quantize_kv(kv[1])
+        return [torch.from_numpy(q).to(dev), kq, vq, ks, vs, *meta]
+    return [torch.from_numpy(q).to(dev), kv[0].to(dtype), kv[1].to(dtype),
+            *meta]
+
+
+def _rows_alone(fn, t, out):
+    qlen = t[-1]
+    for r, ql in enumerate(qlen.tolist()):
+        alone = fn(t[0][r:r + 1, :max(ql, 1)].contiguous(), *t[1:-3],
+                   t[-3][r:r + 1], t[-2][r:r + 1], t[-1][r:r + 1])
+        assert torch.equal(alone[0, :ql], out[r, :ql])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 4, 7])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_ragged_kernel_at_the_verify_shape(cuda_device, k, g, dtype, tol):
+    t = _verify_inputs(cuda_device, k, g, dtype)
+    out = _launched(tpa.ragged_paged_attention,
+                    lambda: tpa.ragged_paged_attention(*t))
+    qlen = t[-1].cpu().numpy()
+    for ref in (tpa.ragged_paged_attention_reference(*t),
+                tpa.ragged_paged_attention_split_reference(*t)):
+        assert _valid_err(out, ref, qlen) < tol
+    assert torch.equal(out, tpa.ragged_paged_attention(*t))
+    _rows_alone(tpa.ragged_paged_attention, t, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 4, 7])
+@pytest.mark.parametrize("g", [1, 8])
+def test_quant_ragged_kernel_at_the_verify_shape(cuda_device, k, g):
+    t = _verify_inputs(cuda_device, k, g, quant=True)
+    out = _launched(tpa.quant_ragged_paged_attention,
+                    lambda: tpa.quant_ragged_paged_attention(*t))
+    qlen = t[-1].cpu().numpy()
+    for ref in (tpa.quant_ragged_paged_attention_reference(*t),
+                tpa.quant_ragged_paged_attention_split_reference(*t)):
+        assert _valid_err(out, ref, qlen) < QUANT_TOL
+    assert torch.equal(out, tpa.quant_ragged_paged_attention(*t))
+    _rows_alone(tpa.quant_ragged_paged_attention, t, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_the_draft_prefill(cuda_device, dtype, tol):
+    """The draft model's prefill: B 1 x S 64 of gpt2 width (12 heads,
+    D 64), causal, its first 20 columns left padding."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 12, 64),
+                                                    np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    m = np.ones((1, 64), np.int32)
+    m[:, :20] = 0
+    kw = dict(causal=True, mask=torch.from_numpy(m).to(cuda_device))
+    out, lse = _launched(tfl.flash_attention_fwd,
+                         lambda: tfl.flash_attention_fwd(q, k, v, **kw))
+    ref, ref_lse = tfl.flash_attention_reference(q, k, v, **kw)
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert float(torch.where(dead, 0.0, lse - ref_lse).abs().max()) < tol
+    again = tfl.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])

@@ -8,8 +8,9 @@ included); the --kv-quantize guard refuses as the JAX worker's does; an
 expired deadline is a 503 with Retry-After, a bad deadline and a
 misaddressed model a 400, and a deadline passing mid-generation cancels
 the row, as in the JAX worker; and neither the package nor chip_smoke.py imports jax,
-tpu_engine, optax or orbax (a serving subprocess's sys.modules, and an AST
-scan of the sources)."""
+tpu_engine, optax or orbax (a serving subprocess's sys.modules over a
+mixed, a dense and two speculative lanes, n-gram and model-drafted, and an
+AST scan of the sources)."""
 
 import ast
 import http.client
@@ -413,8 +414,11 @@ def test_serving_subprocess_imports_no_jax():
         "from tpu_engine_torch.serving.app import serve_worker\n"
         "from tpu_engine_torch.utils.config import WorkerConfig\n"
         "lens = []\n"
+        "spec = dict(gen_kv_block_size=16, gen_prefill_chunk=16,"
+        " gen_continuous_spec_k=2)\n"
         "for lane in (dict(gen_kv_block_size=16, gen_mixed_step=True,"
-        " gen_prefill_chunk=16), {}):\n"
+        " gen_prefill_chunk=16), {}, spec, dict(spec, gen_mixed_step=True,"
+        " gen_spec_draft='model')):\n"
         "    w, s = serve_worker(WorkerConfig(port=0,"
         " model='gpt2-small-test', dtype='float32', device='cpu', **lane))\n"
         "    req = urllib.request.Request("
@@ -426,6 +430,7 @@ def test_serving_subprocess_imports_no_jax():
         "    s.stop(); w.stop()\n"
         "    lens.append(len(out['tokens']))\n"
         "assert 'tpu_engine_torch.ops.flash' in sys.modules\n"
+        "assert 'tpu_engine_torch.runtime.speculative' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'tpu_engine.')) or m == 'tpu_engine')\n"
         "print(json.dumps({'tokens': lens, 'bad': bad}))\n")
@@ -434,7 +439,7 @@ def test_serving_subprocess_imports_no_jax():
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {
-        "tokens": [3, 3], "bad": []}
+        "tokens": [3, 3, 3, 3], "bad": []}
 
 
 def test_package_sources_import_no_jax():

@@ -38,25 +38,44 @@ one, in three modes:
   with one host sync per chunk. Both threads issue device work on the one
   CUDA stream; the gather and every pool write are issued under the
   pool's lock, so they run in the lock's order.
-- Invariants kept from the JAX scheduler: mixed ticks and dispatches are
-  counted at separate sites and stay equal; a prompt's blocks enter the
-  radix tree only once they are filled (a cancelled mid-prefill row never
-  leaves half-written blocks indexed); every row-free path returns the
-  row's blocks.
+- **Continuous speculation** (paged, ``spec_k`` > 0, in either mode).
+  Each tick a drafter (``runtime.speculative``: n-gram prompt lookup, or a
+  draft model) proposes up to ``spec_k`` tokens per eligible decode row,
+  and ONE ragged forward (``transformer_step_rows_ragged`` with
+  ``sample_width`` spec_k + 1) scores every row's verify window: decode
+  rows carry [last token, proposals] (q_len = proposals + 1) beside the
+  mixed mode's prefill chunks. An S-slot accept/emit loop on the device
+  re-derives each token with the plain tick's ``_sample(fold_in(seed,
+  position))`` rule (penalty counts and stop lists evolving slot by
+  slot) and chains while the draft matches; drafted rows at temperature
+  > 0 without filters or controls take the rejection rule instead. Rows
+  advance 1..spec_k + 1 tokens a tick with one host copy of (tokens,
+  emitted, accepted, done). Greedy streams are the plain lane's for any
+  draft. A rejected tail's K/V stays past ``pos``, hidden by the position
+  mask and overwritten before it is read; blocks past a row's reachable
+  horizon return to the pool (``_trim_row_tail``). In two-path mode the
+  prefill thread still admits prompts; spec ticks replace the decode
+  chunks.
+- Invariants kept from the JAX scheduler: mixed (and spec) ticks and
+  dispatches are counted at separate sites and stay equal; a prompt's
+  blocks enter the radix tree only once they are filled (a cancelled
+  mid-prefill row never leaves half-written blocks indexed); every
+  row-free path returns the row's blocks.
 
 A request is cancelled by cancelling the Future ``submit`` returned: its
 row frees between ticks (chunks) and its stream ends. A request submitted
 with a ``Deadline`` is failed with ``DeadlineExceeded`` where the JAX
 scheduler fails it: before its prefill, before its row admission, or
 between ticks once the deadline passes mid-generation (the cancel path
-above; tokens already streamed stand). The speculative, state-slab and
-stateless modes, the host tier, migration, handoff, brownout and tensor
-parallelism are not yet ported and refuse.
+above; tokens already streamed stand). The state-slab and stateless
+modes, the host tier, migration, handoff, brownout and tensor parallelism
+are not yet ported and refuse.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import threading
 import time
@@ -92,6 +111,13 @@ from tpu_engine_torch.runtime.kv_blocks import (
     gather_blocks_quant,
     scatter_blocks,
     scatter_blocks_quant,
+)
+from tpu_engine_torch.runtime.speculative import (
+    _TAG_ACCEPT,
+    _TAG_RESID,
+    make_drafter,
+    tagged_categorical,
+    tagged_uniform,
 )
 from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
@@ -200,6 +226,92 @@ def _refuse(what: str):
                               f"tpu_engine_torch")
 
 
+def spec_accept_emit(logits, tokens, sample_slot, fold0, n_draft, stoch,
+                     active, done, seeds, temps, topps, topks, minps, eos,
+                     counts=None, pens=None, stops=None):
+    """The speculative tick's S-slot accept/emit loop on tensors, over the
+    ragged forward's (B, S, V) logits: slot j's logits are conditioned on
+    the draft prefix, which is the true stream while the chain holds, so
+
+    - deterministic rows re-derive each token by the plain tick's
+      ``_sample(fold_in(seed, position))`` rule, the penalty ``counts``
+      (updated in place) and ``stops`` evolving slot by slot, and chain
+      while the draft equals it;
+    - drafted rows at temperature > 0 (``stoch``, a (B,) host array) take
+      the rejection rule against the point-mass proposal: accept d with
+      probability p(d), else draw from p without d's mass, by the tagged
+      draws of ``runtime.speculative``;
+    - completing prefill rows (no draft) take the j = 0 sample only.
+
+    ``tokens`` (B, W) the window's tokens; ``sample_slot``, ``fold0`` (the
+    logical position of slot 0's token), ``n_draft``, ``active``, ``done``
+    and ``eos`` (B,) tensors; ``seeds`` and the filters (B,) host arrays.
+    Returns tensors (emitted (B, S), n_emit, n_acc, done). ``n_acc`` is
+    counted here: a row that stops ON an accepted draft token has no
+    corrected slot, so emitted - 1 would undercount it."""
+    b, S = logits.shape[0], logits.shape[1]
+    dev = logits.device
+    w = tokens.shape[1]
+    rows = torch.arange(b, device=dev)
+    tok_l, slot_l = tokens.long(), sample_slot.long()
+    seeds_t = torch.as_tensor(seeds, device=dev)
+    stochastic = bool(np.asarray(stoch).any())
+    use_sto = torch.as_tensor(stoch, device=dev) & (n_draft > 0)
+    # A drafted sampled row's token comes from the rejection rule, so its
+    # plain sample is never read: it is taken greedy, without the Gumbel
+    # noise that would cost the host a threefry pass over V per slot.
+    det_temps = (np.where(np.asarray(stoch), 0.0, temps).astype(np.float32)
+                 if stochastic else temps)
+    t_safe = torch.clamp(torch.as_tensor(temps, device=dev), min=1e-6)
+    controls = counts is not None
+    alive = active & ~done
+    new_done = done.clone()
+    n_emit = torch.zeros((b,), dtype=torch.int32, device=dev)
+    n_acc = torch.zeros((b,), dtype=torch.int32, device=dev)
+    emitted = []
+    for j in range(S):
+        lg = logits[:, j]
+        lg_p = apply_repetition_penalty(lg, counts, pens) if controls else lg
+        fold = fold0 + j
+        det = _sample(lg_p, seeds_t, fold, det_temps, topps, topks, minps)
+        # The draft token this slot must reproduce for the chain to go on
+        # (decode rows: window slot j + 1).
+        d_next = tok_l[rows, torch.clamp(slot_l + j + 1, max=w - 1)]
+        has_draft = n_draft > j
+        det_chain = has_draft & (d_next == det)
+        if stochastic:
+            p = torch.softmax(lg / t_safe[:, None], dim=-1)
+            u = tagged_uniform(seeds_t, fold, _TAG_ACCEPT)
+            acc = has_draft & (u < p[rows, d_next])
+            resid = p.index_put((rows, d_next), torch.zeros((b,),
+                                                            device=dev))
+            resid = torch.where(has_draft[:, None], resid, p)
+            tot = resid.sum(dim=-1, keepdim=True)
+            dist = torch.where(tot > 0, resid / torch.clamp(tot, min=1e-30),
+                               p)
+            corr = tagged_categorical(seeds_t, fold, _TAG_RESID,
+                                      torch.log(torch.clamp(dist,
+                                                            min=1e-30)))
+            tok_j = torch.where(use_sto, torch.where(acc, d_next, corr), det)
+            chain = torch.where(use_sto, acc, det_chain)
+        else:
+            tok_j, chain = det, det_chain
+        tok_j = torch.where(alive, tok_j, eos)
+        if controls:
+            # Rows past their chain add 0 (at token 0: their eos may be -1).
+            counts.index_put_((rows, torch.where(alive, tok_j, 0)),
+                              alive.to(torch.int32), accumulate=True)
+        emitted.append(tok_j)
+        n_emit += alive.to(torch.int32)
+        n_acc += (alive & chain).to(torch.int32)
+        stop_j = alive & (tok_j == eos)
+        if controls:
+            stop_j |= alive & (tok_j[:, None] == stops).any(dim=1)
+        new_done |= stop_j
+        alive = alive & ~stop_j & chain
+    return torch.stack(emitted, 1), n_emit, n_acc, new_done
+
+
 class ContinuousGenerator:
     def __init__(
         self,
@@ -221,6 +333,9 @@ class ContinuousGenerator:
         mixed_step: bool = False,
         mixed_token_budget: int = 0,
         spec_k: int = 0,
+        spec_draft: str = "ngram",
+        spec_draft_model=None,
+        spec_draft_params=None,
         state_rows: int = 0,
         tp: int = 1,
     ):
@@ -231,9 +346,12 @@ class ContinuousGenerator:
         two-path decode chunk's steps; ``prefix_cache_mb`` the dense
         prefix cache's budget (0 disables it);
         ``kv_quantize`` "int8" stores the pool int8 with per-(layer, slot,
-        kv-head) f32 scales in either mode. ``device`` defaults to the CUDA
-        card; pass ``device="cpu"`` to run the plain PyTorch paths on the
-        CPU."""
+        kv-head) f32 scales in either mode. ``spec_k`` > 0 (paged only,
+        either mode) turns on continuous speculation with the
+        ``spec_draft`` drafter ("ngram", or "model": ``spec_draft_model``
+        with ``spec_draft_params``, its own seeded init when None).
+        ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run
+        the plain PyTorch paths on the CPU."""
         if isinstance(model, str):
             model = create_model(model)
         if mixed_step and int(kv_block_size) <= 0:
@@ -242,8 +360,9 @@ class ContinuousGenerator:
         if kv_quantize and int(kv_block_size) <= 0:
             raise ValueError("kv_quantize requires the paged KV cache "
                              "(set kv_block_size > 0)")
-        if int(spec_k) > 0:
-            _refuse("continuous speculative decoding (spec_k)")
+        if int(spec_k) > 0 and int(kv_block_size) <= 0:
+            raise ValueError("speculative decoding (spec_k > 0) requires "
+                             "the paged KV cache (set kv_block_size > 0)")
         if int(kv_host_blocks) > 0:
             _refuse("the host KV tier (kv_host_blocks)")
         if int(state_rows) > 0:
@@ -265,10 +384,16 @@ class ContinuousGenerator:
         self._step_chunk = int(step_chunk)
         if not self._mixed and self._step_chunk < 1:
             raise ValueError(f"step_chunk must be >= 1, got {step_chunk}")
+        self._spec_k = int(spec_k)
+        self._spec = self._spec_k > 0
         # Columns past `pos` the next tick may write for a decode row: one
-        # in mixed mode, a whole chunk in two-path mode. Block growth and
-        # admission headroom reserve exactly that.
-        self._decode_horizon = 1 if self._mixed else self._step_chunk
+        # in mixed mode, a whole chunk in two-path mode, a verify window
+        # under speculation. Block growth and admission headroom reserve
+        # exactly that.
+        if self._spec:
+            self._decode_horizon = self._spec_k + 1
+        else:
+            self._decode_horizon = 1 if self._mixed else self._step_chunk
         b, buckets = 16, []
         while b < self.max_seq:
             buckets.append(b)
@@ -316,6 +441,29 @@ class ContinuousGenerator:
             maxsize=max(1, n))
         self._stats = {"admitted": 0, "completed": 0, "chunks": 0}
         self._stats_lock = threading.Lock()
+        self._drafter = None
+        if self._spec:
+            if self._spec_k > self.max_seq - 2:
+                raise ValueError(f"spec_k={self._spec_k} cannot fit a "
+                                 f"verify window in max_seq={self.max_seq}")
+            self._drafter = make_drafter(
+                spec_draft, self._spec_k, draft_model=spec_draft_model,
+                draft_params=spec_draft_params, dtype=self._dtype,
+                device=self.device)
+            dcfg = getattr(self._drafter, "cfg", None)
+            if dcfg is not None and dcfg.vocab != self.cfg.vocab:
+                raise ValueError(f"draft vocab {dcfg.vocab} != target "
+                                 f"vocab {self.cfg.vocab}")
+            self._stats["spec"] = {
+                "k": self._spec_k, "draft": self._drafter.name,
+                "ticks": 0, "dispatches": 0, "proposed_tokens": 0,
+                "accepted_tokens": 0, "emitted_tokens": 0,
+                # (row, tick) pairs that emitted: emitted / row_ticks is
+                # the mean advance of a row per dispatch (1.0 without
+                # speculation).
+                "row_ticks": 0,
+                "draft_dispatches": 0, "tail_blocks_released": 0,
+            }
         self._prefill_chunk = int(prefill_chunk)
 
         budget = int(mixed_token_budget) or (int(prefill_chunk)
@@ -431,6 +579,20 @@ class ContinuousGenerator:
             out = dict(self._stats)
             if self._mixed:
                 out["mixed"] = dict(self._stats["mixed"])
+            if self._spec:
+                spec = dict(self._stats["spec"])
+        if self._spec:
+            spec["accept_ratio"] = (
+                round(spec["accepted_tokens"]
+                      / max(1, spec["proposed_tokens"]), 4)
+                if spec["proposed_tokens"] else None)
+            spec["tokens_per_dispatch"] = (
+                round(spec["emitted_tokens"] / spec["dispatches"], 3)
+                if spec["dispatches"] else None)
+            spec["tokens_per_row_dispatch"] = (
+                round(spec["emitted_tokens"] / spec["row_ticks"], 3)
+                if spec["row_ticks"] else None)
+            out["spec"] = spec
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3),
@@ -941,6 +1103,9 @@ class ContinuousGenerator:
                 pool.radix.insert(item.prompt, table)
         self._count_admission_dispatch()
         self._set_row_table(row, table, row_counts)
+        if self._spec:
+            # The drafter's lookup corpus: prompt + emitted so far.
+            self._row_prompt_toks[row] = item.prompt
         self._set_row_params(req, row, first_col)
         self._emit_first_token(item, row)
 
@@ -1001,7 +1166,7 @@ class ContinuousGenerator:
         for r, req in enumerate(self._row_req):
             if req is None or self._done[r] or self._prefilling[r]:
                 continue
-            last_col = min(int(self._pos[r]) + self._decode_horizon,
+            last_col = min(int(self._pos[r]) + self._row_horizon(r, req),
                            self.max_seq - 1)
             need = last_col // bs + 1
             have = len(self._row_blocks[r])
@@ -1018,6 +1183,49 @@ class ContinuousGenerator:
             self._tables[r, have:need] = fresh
             self._row_blocks[r].extend(fresh)
 
+    def _row_horizon(self, r: int, req: _Request) -> int:
+        """Columns past `pos` the next tick may write for row r: the
+        static ``_decode_horizon``, except under speculation, where a row
+        near its token budget writes only its remaining tokens (the draft
+        cap shrinks the same way, so growth and the trim agree)."""
+        if not self._spec:
+            return self._decode_horizon
+        return min(self._decode_horizon,
+                   max(1, req.max_new - len(self._row_emitted[r])))
+
+    def _trim_row_tail(self, r: int, req: _Request) -> None:
+        """Return blocks past a row's reachable horizon: a verify window
+        that crossed a block edge may have grown a block the row, after
+        rejections and near its budget, can no longer write. Stale draft
+        K/V in the blocks it keeps stays hidden by the position mask.
+        Radix-shared prefix blocks lie below `pos` and are never touched;
+        the freed table entries are zeroed."""
+        bs = self._pool.block_size
+        last_col = min(int(self._pos[r]) + self._row_horizon(r, req),
+                       self.max_seq - 1)
+        need = last_col // bs + 1
+        blocks = self._row_blocks[r]
+        if len(blocks) <= need:
+            return
+        with self._pool.lock:
+            freed = self._pool.release_tail(blocks, need)
+        if freed:
+            self._tables[r, need:need + freed] = 0
+            with self._stats_lock:
+                self._stats["spec"]["tail_blocks_released"] += freed
+
+    @staticmethod
+    def _spec_eligible(req: _Request) -> bool:
+        """Rows the drafter may propose for: every greedy row (the verify
+        loop re-derives each token by the plain rule, controls included),
+        and rows at temperature > 0 only without filters, penalty or stop
+        list, none of which composes with the rejection residual (those
+        rows ride at q_len 1, as in the plain lane)."""
+        if req.temperature == 0.0:
+            return True
+        return (req.top_p >= 1.0 and req.top_k == 0 and req.min_p == 0.0
+                and req.rep_penalty == 1.0 and not req.stop_tokens)
+
     def _complete_prefill_row(self, r: int, req: _Request, first_tok: int,
                               done: bool) -> None:
         """Prompt consumed: index the filled prompt blocks in the radix
@@ -1032,6 +1240,21 @@ class ContinuousGenerator:
         self._row_emitted[r] = [first_tok]
         self._push_stream(r, req)
         self._maybe_complete(r)
+
+    def _prefill_chunks(self, prefill_rows: List[int],
+                        n_decode: int) -> np.ndarray:
+        """(B,) prefill tokens each admitting row takes this tick: the
+        token budget less one per decode row, split over the admitting
+        rows in row order, at most the chunk cap each; the first always
+        gets at least one token, so admission never deadlocks."""
+        chunk = np.zeros((self.n_slots,), np.int32)
+        budget_left = max(1, self._mixed_budget - n_decode)
+        for r in prefill_rows:
+            remaining = max(self._row_L[r], 1) - self._row_w0[r]
+            c = min(remaining, self._chunk_cap, budget_left)
+            chunk[r] = max(0, c)
+            budget_left -= chunk[r]
+        return chunk
 
     def _tick_mixed(self) -> None:
         """One mixed tick: form the ragged batch (decode rows x 1 token +
@@ -1052,13 +1275,7 @@ class ContinuousGenerator:
                 prefill_rows.append(r)
             else:
                 n_decode += 1
-        budget_left = max(1, self._mixed_budget - n_decode)
-        chunk = np.zeros((B,), np.int32)
-        for r in prefill_rows:
-            remaining = max(self._row_L[r], 1) - self._row_w0[r]
-            c = min(remaining, self._chunk_cap, budget_left)
-            chunk[r] = max(0, c)
-            budget_left -= chunk[r]
+        chunk = self._prefill_chunks(prefill_rows, n_decode)
         width = self._chunk_cap if prefill_rows and chunk.max() > 0 else 1
 
         tokens = np.zeros((B, width), np.int32)
@@ -1159,6 +1376,204 @@ class ContinuousGenerator:
                 self._row_emitted[r].append(tok_r)
             self._push_stream(r, req)
             self._maybe_complete(r)
+
+    def _tick_spec(self) -> None:
+        """One speculative tick, in place of the mixed tick (mixed mode)
+        or the decode chunk (two-path mode): ask the drafter for up to
+        ``spec_k`` proposals per eligible decode row, form ONE ragged
+        batch (decode rows: verify windows of q_len proposals + 1; mixed
+        mode's admitting rows: their budgeted prefill chunk), issue one
+        forward and the accept/emit loop (``_spec_step``), and
+        advance each row by its accepted prefix plus the corrected or
+        bonus token."""
+        B = self.n_slots
+        S = self._spec_k + 1
+        eos_vec, controls = self._eos_and_controls()
+        n_decode = 0
+        prefill_rows: List[int] = []
+        for r, req in enumerate(self._row_req):
+            if req is None:
+                continue
+            if self._prefilling[r]:  # mixed mode's admitting rows only
+                prefill_rows.append(r)
+            else:
+                n_decode += 1
+        # A decode row counts 1 against the budget: its window re-derives
+        # tokens, it does not widen the stream.
+        chunk = self._prefill_chunks(prefill_rows, n_decode)
+
+        # Drafting, on the host. The cap keeps a window inside the row's
+        # token budget and inside the cache (window columns < max_seq).
+        drafts: List[List[int]] = [[] for _ in range(B)]
+        proposed = 0
+        scan = getattr(self._drafter, "max_scan", 0)
+        for r, req in enumerate(self._row_req):
+            if req is None or self._done[r] or self._prefilling[r]:
+                continue
+            kcap = min(self._spec_k,
+                       req.max_new - len(self._row_emitted[r]) - 1,
+                       self.max_seq - 2 - int(self._pos[r]))
+            if kcap <= 0 or not self._spec_eligible(req):
+                continue
+            em = self._row_emitted[r]
+            pp = self._row_prompt_toks[r] or []
+            if scan:
+                # Slice the tails before concatenating: a long prompt
+                # costs O(max_scan) per drafted row per tick, not O(L).
+                need = scan - len(em)
+                ctx = (pp[-need:] if need > 0 else []) + em[-scan:]
+            else:
+                ctx = pp + em
+            d = self._drafter.propose(ctx, kcap)[:kcap]
+            if d:
+                drafts[r] = [int(t) for t in d]
+                proposed += len(drafts[r])
+
+        # Two ragged widths: S (decode-only ticks) and max(chunk cap, S)
+        # (mixed ticks that carry a prefill chunk).
+        width = S
+        if prefill_rows and chunk.max() > 0:
+            width = max(self._chunk_cap, S)
+        tokens = np.zeros((B, width), np.int32)
+        pos0 = np.zeros((B,), np.int32)
+        qlen = np.zeros((B,), np.int32)
+        sample_slot = np.zeros((B,), np.int32)
+        fold0 = np.zeros((B,), np.int64)
+        n_draft = np.zeros((B,), np.int32)
+        stoch = np.zeros((B,), bool)
+        active = np.zeros((B,), bool)
+        completing = [False] * B
+        prefill_tokens = 0
+        for r, req in enumerate(self._row_req):
+            if req is None:
+                continue  # free rows: qlen 0, inactive, null-block writes
+            if self._prefilling[r]:
+                w0 = self._row_w0[r]
+                c = int(chunk[r])
+                Leff = max(self._row_L[r], 1)
+                pos0[r] = w0
+                qlen[r] = c
+                prefill_tokens += c
+                if c > 0:
+                    tokens[r, :c] = self._row_prompt[r][w0:w0 + c]
+                    if w0 <= Leff - 1 < w0 + c:
+                        completing[r] = True
+                        active[r] = True
+                        sample_slot[r] = Leff - 1 - w0
+                        fold0[r] = self._row_L[r]
+            else:
+                nd = len(drafts[r])
+                pos0[r] = self._pos[r]
+                qlen[r] = 1 + nd
+                tokens[r, 0] = self._tok[r]
+                if nd:
+                    tokens[r, 1:1 + nd] = drafts[r]
+                fold0[r] = int(self._pos[r]) + 1
+                n_draft[r] = nd
+                # Only drafted rows at temperature > 0 take the rejection
+                # rule; an all-greedy tick skips its draws entirely.
+                stoch[r] = req.temperature > 0 and nd > 0
+                active[r] = not self._done[r]
+
+        emitted_h, n_emit_h, n_acc_h, done_new = self._spec_step(
+            tokens, pos0, qlen, sample_slot, fold0, n_draft, stoch, active,
+            eos_vec, controls)
+        # Dispatch counted past the host sync (a failed step surfaces
+        # there and must leave dispatches == ticks); a separate site from
+        # the tick counters below.
+        with self._stats_lock:
+            self._stats["spec"]["dispatches"] += 1
+            if self._mixed:
+                self._stats["mixed"]["dispatches"] += 1
+
+        with self._stats_lock:
+            sp = self._stats["spec"]
+            sp["ticks"] += 1
+            sp["proposed_tokens"] += proposed
+            sp["draft_dispatches"] = getattr(self._drafter, "dispatches", 0)
+            if self._mixed:
+                m = self._stats["mixed"]
+                m["ticks"] += 1
+                m["prefill_tokens"] += prefill_tokens
+                if prefill_tokens and n_decode:
+                    m["coscheduled_ticks"] += 1
+
+        accepted = decode_emitted = row_ticks = 0
+        for r in range(B):
+            req = self._row_req[r]
+            if req is None:
+                continue
+            if self._prefilling[r]:
+                self._row_w0[r] += int(chunk[r])
+                if completing[r]:
+                    self._complete_prefill_row(r, req, int(emitted_h[r, 0]),
+                                               bool(done_new[r]))
+                continue
+            ne = int(n_emit_h[r])
+            toks = [int(t) for t in emitted_h[r, :ne]]
+            accepted += int(n_acc_h[r])
+            decode_emitted += ne
+            row_ticks += ne > 0
+            self._done[r] = bool(done_new[r])
+            if ne:
+                self._tok[r] = toks[-1]
+                # The token that ends the row (EOS or stop) is never
+                # written to the cache: the plain lane's position freeze.
+                adv = ne - 1 if self._done[r] else ne
+                self._pos[r] = min(int(self._pos[r]) + adv, self.max_seq - 1)
+                need = req.max_new - len(self._row_emitted[r])
+                if need > 0:
+                    self._row_emitted[r].extend(toks[:need])
+            self._push_stream(r, req)
+            self._maybe_complete(r)
+            if self._row_req[r] is not None and not self._done[r]:
+                self._trim_row_tail(r, req)
+        with self._stats_lock:
+            sp = self._stats["spec"]
+            sp["accepted_tokens"] += accepted
+            sp["emitted_tokens"] += decode_emitted
+            sp["row_ticks"] += row_ticks
+            if self._mixed:
+                self._stats["mixed"]["decode_tokens"] += decode_emitted
+
+    def _spec_step(self, tokens, pos0, qlen, sample_slot, fold0, n_draft,
+                   stoch, active, eos_vec, controls: bool):
+        """ONE ragged forward scoring every row's window at S = spec_k + 1
+        slots from its ``sample_slot``, the S-slot accept/emit loop
+        (``spec_accept_emit``) and one host copy of its results: host
+        arrays (emitted (B, S), n_emit (B,), n_acc (B,), done (B,))."""
+        dev = self.device
+        pool = self._pool
+
+        def on(a):
+            return torch.from_numpy(a).to(dev)
+
+        tokens_t = on(tokens)
+        # Two-path mode: the prefill thread gathers from the pool under its
+        # lock, so the pool writes are issued under it too (mixed mode:
+        # only this thread touches the pool tensors).
+        lock = contextlib.nullcontext() if self._mixed else pool.lock
+        with lock:
+            logits = transformer_step_rows_ragged(
+                self.params, tokens_t, pool.caches, on(self._tables),
+                on(pos0), on(qlen), self.cfg, dtype=self._dtype,
+                sample_slot=on(sample_slot), sample_width=self._spec_k + 1,
+                scales=pool.scales)[0]                     # (B, S, V)
+        ctl = {}
+        if controls:
+            ctl = dict(counts=self._ensure_counts(), pens=on(self._pens),
+                       stops=on(self._stops.astype(np.int64)))
+        emitted, n_emit, n_acc, done = spec_accept_emit(
+            logits, tokens_t, on(sample_slot), on(fold0), on(n_draft),
+            stoch, on(active), on(self._done.copy()), self._seeds,
+            self._temps, self._topps, self._topks, self._minps, on(eos_vec),
+            **ctl)
+        b, S = emitted.shape
+        host = torch.cat([emitted.flatten(), n_emit.long(), n_acc.long(),
+                          done.long()]).cpu().numpy()
+        n = b * S  # the tick's one host sync, above
+        return (host[:n].reshape(b, S), host[n:n + b], host[n + b:n + 2 * b],
+                host[n + 2 * b:].astype(bool))
 
     def _decode_step_fn(self):
         """One decode step of every row, (tok, pos, start) -> logits: over
@@ -1402,7 +1817,9 @@ class ContinuousGenerator:
             if all(r is None for r in self._row_req):
                 continue
             try:
-                if self._mixed:
+                if self._spec:
+                    self._tick_spec()
+                elif self._mixed:
                     self._tick_mixed()
                 else:
                     self._decode_chunk()

@@ -3,7 +3,8 @@ commands of ``tpu_engine/serving/cli.py``):
 
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
       [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
-       [--mixed-step --mixed-token-budget N]]
+       [--mixed-step --mixed-token-budget N]
+       [--spec-k K [--spec-draft ngram|model] [--gen-draft-model NAME]]]
       [--step-chunk N] [--prefill-chunk N] [--n-slots N] [--device cpu]
       [--dtype bfloat16] [--seed N]
 
@@ -19,7 +20,11 @@ a 64 MB prompt prefix cache, and ``--step-chunk``-step decode chunks over
 one dense KV cache on the decode thread. With ``--kv-block-size`` it runs
 over the paged KV cache: mixed stepping with ``--mixed-step``, else the
 two-path scheduler (prefill windows on one thread, decode chunks on the
-other). ``--kv-quantize`` needs ``--kv-block-size``. ``<model>`` is a
+other). ``--kv-quantize`` needs ``--kv-block-size``. ``--spec-k K`` (paged
+lanes, either mode) turns on continuous speculation: up to K proposals per
+decode row per tick from the n-gram drafter, or with ``--spec-draft model``
+from a draft model (``--gen-draft-model``, default by the target: gpt2 ->
+distilgpt2, randomly initialised), verified in the tick's one ragged forward. ``<model>`` is a
 registry name (seeded random weights) or a checkpoint directory holding
 the ``tpu_engine_model.json`` sidecar the ``train`` command writes (its
 trained weights, served at ``--dtype``). The worker serves /generate,
@@ -81,6 +86,18 @@ def _worker(argv) -> int:
                    help="decode steps per chunk (dense and two-path)")
     p.add_argument("--mixed-token-budget", type=int, default=0)
     p.add_argument("--prefill-chunk", type=int, default=256)
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="continuous speculative decoding (needs "
+                        "--kv-block-size): up to this many proposals per "
+                        "decode row per tick, verified in the tick's one "
+                        "ragged forward. 0 = off")
+    p.add_argument("--spec-draft", choices=["ngram", "model"],
+                   default="ngram",
+                   help="drafter for --spec-k: ngram (prompt lookup, no "
+                        "second model) or model (--gen-draft-model)")
+    p.add_argument("--gen-draft-model", default=None,
+                   help="draft model for --spec-draft model (default: "
+                        "by the target, e.g. gpt2 -> distilgpt2)")
     p.add_argument("--n-slots", type=int, default=8)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
@@ -99,6 +116,9 @@ def _worker(argv) -> int:
                        gen_kv_quantize=a.kv_quantize,
                        gen_mixed_step=a.mixed_step,
                        gen_mixed_token_budget=a.mixed_token_budget,
+                       gen_continuous_spec_k=a.spec_k,
+                       gen_spec_draft=a.spec_draft,
+                       gen_draft_model=a.gen_draft_model,
                        device=a.device, seed=a.seed)
     worker, server = serve_worker(cfg, params=params)
     print(f"tpu_engine_torch worker {cfg.node_id} ({cfg.model}, "

@@ -1,7 +1,8 @@
 """The port's generation worker (counterpart of the /generate half of
 ``tpu_engine/serving/worker.py``): one continuous scheduler (dense, the
 default lane, or paged: mixed stepping or two-path, bf16/f32 or int8
-pool) behind ``/generate``,
+pool, with continuous speculation under ``gen_continuous_spec_k``) behind
+``/generate``,
 ``/generate/stream`` (SSE), ``/health`` and ``/stats``, with the JAX
 worker's wire fields.
 
@@ -19,6 +20,13 @@ commits to 200); and a row whose deadline passes mid-generation is
 cancelled between ticks (blocking: 503; stream: the terminal error
 event, not retryable).
 
+A speculative lane's ``/stats`` and ``/health`` carry the scheduler's
+``spec`` block. A misconfigured one refuses at startup with the JAX
+worker's messages (``--spec-k`` without ``--kv-block-size``, a k the
+model's max_seq cannot hold, an unknown ``--spec-draft``, no draft model
+for the target, a draft vocab other than the target's); a draft model
+without weights is randomly initialised, with the JAX worker's warning.
+
 ``/health`` carries the JAX lane's keys at defaults: the ``/infer``
 result cache's (``cache_hits``, ``cache_size``, ``cache_hit_rate``) and
 ``batch_processor``, and the generator's ``stateless`` block, all idle
@@ -31,7 +39,7 @@ import queue
 import threading
 import time
 
-from tpu_engine_torch.models.registry import create_model
+from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.utils.config import WorkerConfig
@@ -59,22 +67,89 @@ class WorkerNode:
         if config.gen_kv_quantize not in ("", "int8"):
             raise RuntimeError(f"--kv-quantize must be 'int8', got "
                                f"{config.gen_kv_quantize!r}")
+        if config.gen_draft_path:
+            raise RuntimeError(
+                "gen_draft_path (--gen-draft-path): loading draft weights "
+                "is not yet ported to tpu_engine_torch")
         spec = create_model(config.model)
-        self.generator = ContinuousGenerator(
-            spec, params=params, rng_seed=config.seed, dtype=config.dtype,
-            n_slots=config.gen_max_batch_size,
-            step_chunk=config.gen_step_chunk,
-            prefill_chunk=config.gen_prefill_chunk,
-            prefix_cache_mb=config.gen_prefix_cache_mb,
-            kv_block_size=config.gen_kv_block_size,
-            kv_blocks=config.gen_kv_blocks,
-            kv_quantize=config.gen_kv_quantize,
-            prefix_sharing=config.gen_prefix_sharing,
-            mixed_step=config.gen_mixed_step,
-            mixed_token_budget=config.gen_mixed_token_budget,
-            device=config.device)
+        spec_kw = self._continuous_spec_kwargs(spec)
+        try:
+            self.generator = ContinuousGenerator(
+                spec, params=params, rng_seed=config.seed,
+                dtype=config.dtype, n_slots=config.gen_max_batch_size,
+                step_chunk=config.gen_step_chunk,
+                prefill_chunk=config.gen_prefill_chunk,
+                prefix_cache_mb=config.gen_prefix_cache_mb,
+                kv_block_size=config.gen_kv_block_size,
+                kv_blocks=config.gen_kv_blocks,
+                kv_quantize=config.gen_kv_quantize,
+                prefix_sharing=config.gen_prefix_sharing,
+                mixed_step=config.gen_mixed_step,
+                mixed_token_budget=config.gen_mixed_token_budget,
+                device=config.device, **spec_kw)
+        except ValueError as exc:
+            if spec_kw:
+                # The operator asked for speculation: a construction
+                # failure (a draft that is no decoder, a draft max_seq too
+                # small for k) is a misconfiguration, named as such.
+                raise RuntimeError(
+                    f"speculative lane misconfigured: {exc}") from exc
+            raise
         self._total_requests = 0
         self._counter_lock = threading.Lock()
+
+    _AUTO_DRAFT = {"gpt2": "distilgpt2", "gpt2-small-test": "gpt2-small-test"}
+
+    def _resolve_draft_spec(self, target: ModelSpec) -> ModelSpec:
+        """The draft model's spec: ``gen_draft_model``, or the auto map's
+        draft for the target. Misconfiguration raises RuntimeError."""
+        draft_name = (self.config.gen_draft_model
+                      or self._AUTO_DRAFT.get(target.name))
+        if draft_name is None:
+            raise RuntimeError(
+                f"a draft model is required for '{target.name}': set "
+                f"gen_draft_model (--gen-draft-model)")
+        try:
+            return create_model(draft_name)
+        except KeyError as exc:
+            raise RuntimeError(f"speculative lane misconfigured: unknown "
+                               f"draft model {exc}")
+
+    def _continuous_spec_kwargs(self, target: ModelSpec) -> dict:
+        """Speculation kwargs for ContinuousGenerator (--spec-k,
+        --spec-draft), empty when off. Misconfiguration raises
+        RuntimeError with the JAX worker's messages."""
+        k = int(self.config.gen_continuous_spec_k)
+        if k <= 0:
+            return {}
+        if self.config.gen_kv_block_size <= 0:
+            raise RuntimeError(
+                "--spec-k requires the paged KV cache (--kv-block-size)")
+        max_seq = target.config.max_seq
+        if k > max_seq - 2:
+            raise RuntimeError(
+                f"--spec-k {k} cannot fit a verify window in the "
+                f"model's max_seq {max_seq}")
+        if self.config.gen_spec_draft not in ("ngram", "model"):
+            raise RuntimeError(
+                f"--spec-draft must be 'ngram' or 'model', got "
+                f"{self.config.gen_spec_draft!r}")
+        kw = {"spec_k": k, "spec_draft": self.config.gen_spec_draft}
+        if self.config.gen_spec_draft == "model":
+            draft_spec = self._resolve_draft_spec(target)
+            if draft_spec.config.vocab != target.config.vocab:
+                raise RuntimeError(
+                    f"speculative lane misconfigured: draft vocab "
+                    f"{draft_spec.config.vocab} != target "
+                    f"{target.config.vocab}")
+            # The port loads no draft checkpoint yet: always random.
+            print(f"[{self.node_id}] WARNING: --spec-draft model "
+                  f"'{draft_spec.name}' is randomly initialized (no "
+                  f"gen_draft_path); expect ~zero acceptance — the "
+                  f"ngram drafter is the better default", flush=True)
+            kw["spec_draft_model"] = draft_spec
+            kw["spec_draft_params"] = None
+        return kw
 
     def _check_model(self, request: dict) -> None:
         """A request addressed to a specific model is never answered by a

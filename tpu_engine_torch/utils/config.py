@@ -25,6 +25,15 @@ class WorkerConfig:
     gen_prefix_sharing: bool = True
     gen_mixed_step: bool = False        # paged only; False: two-path
     gen_mixed_token_budget: int = 0     # 0 = auto (gen_prefill_chunk)
+    # Continuous speculation (paged only, either mode): proposals per
+    # decode row per tick, 0 = off (--spec-k); the drafter, "ngram" or
+    # "model" (--spec-draft); the draft model, None = by the target
+    # (gpt2 -> distilgpt2) (--gen-draft-model); draft weights, which the
+    # port does not load yet (a non-empty value refuses).
+    gen_continuous_spec_k: int = 0
+    gen_spec_draft: str = "ngram"
+    gen_draft_model: Optional[str] = None
+    gen_draft_path: Optional[str] = None
     # The port's own: where the lane runs (None = the CUDA card) and the
     # seed of its random weights.
     device: Optional[str] = None

@@ -2,7 +2,8 @@
 keys, ``jax_threefry_partitionable`` on) that seeded sampling uses:
 ``PRNGKey(seed)``, ``fold_in(key, data)``, the partitionable
 ``random_bits`` of a (V,) shape, ``_uniform`` and the low-resolution
-``_gumbel`` that ``jax.random.categorical`` draws by default.
+``_gumbel`` that ``jax.random.categorical`` draws by default, the public
+``jax.random.uniform`` on [0, 1) and ``jax.random.categorical``.
 
 Keys are (..., 2) int64 tensors holding uint32 words; every word op masks
 to 32 bits, so the same code runs on the CPU and on CUDA and gives the
@@ -65,15 +66,28 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random._uniform`` on [tiny, 1) in float32: 23 random mantissa
-    bits under the exponent of 1.0, minus 1.0, scaled and clamped as JAX
-    does."""
+def _unit_floats(key: torch.Tensor, n: int) -> torch.Tensor:
+    """23 random mantissa bits under the exponent of 1.0, minus 1.0."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random._uniform`` on [tiny, 1) in float32: the unit floats,
+    scaled and clamped as JAX does."""
+    floats = _unit_floats(key, n)
     tiny = torch.tensor(_TINY_F32, dtype=torch.float32, device=key.device)
     span = torch.tensor(1.0, dtype=torch.float32, device=key.device) - tiny
     return torch.maximum(tiny, floats * span + tiny)
+
+
+def uniform01(key: torch.Tensor, n: int) -> torch.Tensor:
+    """The public ``jax.random.uniform(key, (n,))`` (minval 0, maxval 1):
+    the unit floats of ``uniform``, floored at 0 and not at ``tiny``. Bit
+    for bit JAX's; ``n`` = 1 gives the scalar ``uniform(key, ())`` (the
+    partitionable bits of shape () hash the counter 0, as those of shape
+    (1,) do)."""
+    return torch.clamp(_unit_floats(key, n), min=0.0)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -82,3 +96,12 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     noise agrees with JAX's to about an ulp, not bit for bit."""
     u = uniform(key, n)
     return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of logits plus ``gumbel`` noise. key (..., 2), logits (..., V)
+    float32; returns (...) int64. The noise agrees with JAX's to about an
+    ulp (``gumbel``), so a draw agrees with JAX's wherever the perturbed
+    top two differ by more than that."""
+    return torch.argmax(logits + gumbel(key, logits.shape[-1]), dim=-1)
