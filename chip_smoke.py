@@ -29,13 +29,20 @@ Phases (any failure exits non-zero and prints no result line):
               the 512-key split) over f32, bf16 and int8 pools, against
               the plain and the split versions; #5 at the draft model's
               prefill (one row of buckets 16, 32 and 64, left padding
-              masked, f32); the
+              masked, f32) and at the one-shot forwards of a TinyLlama
+              lane (/infer: 32 rows of 128, causal; /score: 8 rows
+              right-padded in 128; f32, 1e-5); the
               flash backward (#6 dq, #7 dk and dv) at
               tests/test_flash_backward.py's shapes, its window case and
               the train phase's shape in f32 (1e-4 of the gradient's
               largest magnitude; also the
               FlashAttention autograd Function as a whole) and at TinyLlama
               prefill rows in bf16 (2e-2), each bit-identical over two runs;
+              mlp, resnet50 and resnet50-v1 at 224 x 224 x 3 on the card
+              against the CPU on the same weights, in f32 (1e-4 of the
+              largest logit) and in the served bf16 with cuDNN's TF32 on
+              and off (1e-2), each model's bucket-1 engine output
+              bit-identical over two runs in f32 and bf16;
               then a small llama (f32, TF32 off) served on the card through
               a mixed, a two-path, two int8 and a dense lane, and a small
               mistral (sliding window) through a dense lane, agrees token
@@ -49,7 +56,19 @@ Phases (any failure exits non-zero and prints no result line):
               command trains it with --out, --resume continues the step
               count, and the port's worker serving <out>/params gives the
               in-process generator's greedy tokens;
-4. server   — the port's worker over HTTP on localhost serving
+4. server   — first two resnet50 /infer lanes, the JAX worker's default
+              configuration (224 x 224 x 3, bf16, 32-row batches, random
+              weights from seed 0): the unified lane (single-tick rows of
+              the continuous scheduler) and the batch lane
+              (--no-unified-stateless), each answering a burst of 64
+              concurrent distinct requests, 16 repeats (cached), 8
+              identical new requests (coalesced into fewer dispatched
+              rows) and the reference's 3-float payload, every answer
+              equal to the lane's engine alone (2e-2 of the largest
+              logit), the stateless counters balanced and /health's
+              batch_processor counting the dispatches; a single request
+              bit-identical on both lanes. Then
+              the port's worker over HTTP on localhost serving
               TinyLlama-1.1B geometry (random weights from seed 0, bf16,
               shared by every lane, 256-token prefill chunks) in five lanes,
               each driven with the launch counts set to 0 just before it
@@ -68,8 +87,11 @@ Phases (any failure exits non-zero and prints no result line):
               64 MB prefix cache), answers six prompts of at most 256 tokens
               (one flash prefill each), a 600-token prompt (prefill windows,
               no flash), an exact repeat (a prefix-cache hit, no flash), a
-              greedy repeat and one stream: flash launches == 22 x the
-              monolithic prefills that missed the cache. Then three
+              greedy repeat and one stream, and beside the burst five
+              /infer token-id payloads and four /score requests (one flash
+              forward of 22 layers per one-shot dispatch): flash launches
+              == 22 x (the one-shot dispatches + the monolithic prefills
+              that missed the cache). Then three
               speculative lanes (spec_k 4): spec-mixed-bf16 (the n-gram
               drafter, mixed, bf16 pool), spec-two-path-int8 (n-gram,
               two-path, int8 pool) and spec-model-gpt2 (gpt2's 12 layers
@@ -117,7 +139,12 @@ Phases (any failure exits non-zero and prints no result line):
               merge). #1 and #4 also at the spec ticks' shapes, the spec
               ticks' forwards among the forward rows, and the spec tick's
               accept/emit loop apart from its forward (host issue time,
-              and time to the host copy).
+              and time to the host copy). #5 also at the decoder /infer
+              shape (B 32 x S 128, f32) and a full /score bucket (B 8 x
+              S 128, f32); the resnet50 bf16 forward at
+              buckets 1, 8 and 32 by the forward rows' harness
+              (images/s beside it), at cuDNN's default TF32 setting as
+              served.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -131,10 +158,16 @@ and 128-key splits; and the bf16 decode read's difference from this
 checkout's split plain version) through the package under DIR (default:
 this checkout), so that two trees (a parent commit unpacked
 under build/, and this one) can be timed in turns in one call.
+
+    python3 chip_smoke.py --resnet-times [--package-root DIR]
+
+does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
+the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import subprocess
@@ -170,7 +203,9 @@ FLASH_SHAPES = (("prefill S=256 f32", 1, 256, "float32"),
                 ("train B=4 S=1024 f32", 4, 1024, "float32"),
                 ("prefill S=2048 f32", 1, 2048, "float32"),
                 ("prefill S=256", 1, 256, "bfloat16"),
-                ("prefill S=2048", 1, 2048, "bfloat16"))
+                ("prefill S=2048", 1, 2048, "bfloat16"),
+                ("infer B=32 S=128 f32", 32, 128, "float32"),
+                ("score B=8 S=128 f32", 8, 128, "float32"))
 MAX_NEW = 32
 # A spec_k = 4 tick's verify windows at the main path's geometry: q_len
 # 1..5 at contexts about 1700, row 1 across a 16-token block edge, row 3
@@ -222,6 +257,34 @@ LANES = {
 # The speculative lanes (spec_k 4): (model, the ragged kernel they launch,
 # worker overrides). The model-drafted lane's draft is the auto draft of
 # gpt2, distilgpt2 (6 layers), randomly initialised from seed 1.
+# The one-shot /infer lanes: the JAX worker's default configuration
+# (resnet50 at 224 x 224 x 3, bf16, 32-row batches, unified stateless
+# rows), and the same with the dedicated batch lane.
+INFER_LANES = {"infer-resnet50": dict(unified_stateless=True),
+               "infer-resnet50-batch-lane": dict(unified_stateless=False)}
+INFER_BURST = 64
+# mlp and the resnets in f32 on the card (TF32 off) against the CPU, as
+# max|card - cpu| / max|cpu|: the same products summed in another order
+# by cuDNN and by the CPU's convolutions, through 53 conv layers.
+INFER_F32_TOL = 1e-4
+# The served bf16 models on the card (cuDNN at its default TF32 setting,
+# as a worker process runs it, and with TF32 off) against the CPU's bf16
+# forward on the same weights, which the CPU tests hold against JAX: both
+# multiply the bf16-rounded operands exactly and sum in f32, so they
+# differ where a sum that differs in its last f32 bits rounds the next
+# conv's bf16 input the other way. Also the infer lanes' answers against
+# the lane's engine alone (another batch, another cuDNN algorithm).
+# Readings on the H100: resnet50 2.7e-3, v1 2.5e-3, the lanes' answers
+# 3.2e-3 (convs with a bf16 output, as cuDNN's bf16 conv gives, read
+# 5.3e-3 and 4.7e-3); a wrong padding or layout differs by > 0.1.
+INFER_BF16_TOL = 1e-2
+# TinyLlama one-shot rows answered over HTTP (co-batched with others)
+# against the same row alone, bf16, as max|diff| / max|alone| (/infer
+# logits) and |diff| / max(|alone|, 1e-3) per log-probability (/score).
+# Readings on the H100: /infer 8.8e-7, /score 4.9e-3; a wrong row,
+# position or mask differs by the order of the values themselves.
+ONESHOT_INFER_TOL = 1e-3
+ONESHOT_SCORE_TOL = 2e-2
 SPEC = dict(PAGED, gen_continuous_spec_k=SPEC_K)
 SPEC_LANES = {
     "spec-mixed-bf16": ("llama", "ragged_paged_attention",
@@ -521,10 +584,13 @@ def flash_bound_ms(q, causal: bool = True) -> tuple:
 
 # -- HTTP client ---------------------------------------------------------------
 
-def post(port: int, path: str, body: dict, timeout: float = 600.0) -> dict:
+def post(port: int, path: str, body, timeout: float = 600.0) -> dict:
+    """POST ``body`` (a dict, or JSON bytes already serialized); the
+    answer must be a 200."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request("POST", path, json.dumps(body),
+        conn.request("POST", path, body if isinstance(body, bytes)
+                     else json.dumps(body),
                      {"Content-Type": "application/json"})
         resp = conn.getresponse()
         data = resp.read()
@@ -825,6 +891,25 @@ def parity_flash(torch, dev, record) -> None:
         record("flash_attention", case,
                flash_err(torch, out, lse, ref, ref_lse), F32_TOL)
         flash_identical(torch, fl, q, k, v, args, out, lse, case)
+    # The one-shot forwards of a TinyLlama lane, f32 as nn.dense gives q,
+    # k, v: /infer's (32 rows of seq_len 128, causal, no mask) and a
+    # /score bucket's (8 rows right-padded in 128 columns).
+    lengths = (128, 100, 77, 50, 31, 17, 5, 1)
+    m = np.zeros((len(lengths), 128), np.int32)
+    for r, n in enumerate(lengths):
+        m[r, :n] = 1
+    for case, b, mask in (("f32 /infer B=32 S=128", 32, None),
+                          ("f32 /score B=8 S=128 right padding", 8,
+                           torch.from_numpy(m).to(dev))):
+        q, k, v, _ = flash_inputs(torch, dev, 128, 32, 64,
+                                  dtype=torch.float32, b=b)
+        args = dict(causal=True, mask=mask)
+        out, lse = fl.flash_attention_fwd(q, k, v, **args)
+        ref, ref_lse = fl.flash_attention_reference(q, k, v, **args)
+        torch.cuda.synchronize()
+        record("flash_attention", case,
+               flash_err(torch, out, lse, ref, ref_lse), F32_TOL)
+        flash_identical(torch, fl, q, k, v, args, out, lse, case)
 
 
 # (case, parity_inputs kwargs, causal, mask, window): the shapes of
@@ -929,6 +1014,93 @@ def parity_flash_bwd(torch, dev, record) -> None:
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def served_conv_precision(torch):
+    """cuDNN's default TF32 setting, the one a worker process serves with
+    (``main`` turns TF32 off for the f32 parity checks): the bf16 convs'
+    f32 convolutions run on the TF32 tensor cores."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def infer_model_errs(torch, name: str, dtype: str) -> dict:
+    """``name`` at 224 x 224 x 3 (two rows) on the card against the CPU on
+    the same weights (drawn on the CPU in f32) and inputs, in ``dtype``:
+    max|card - cpu| / max|cpu| at the current TF32 settings, and in bf16
+    also with cuDNN's TF32 on and off."""
+    from tpu_engine_torch.models.convert import params_to
+    from tpu_engine_torch.models.registry import create_model
+
+    spec = create_model(name)
+    params = spec.init(0, device="cpu", dtype="float32")
+    dt = getattr(torch, dtype)
+    x = np.random.default_rng(11).standard_normal(
+        (2,) + spec.input_shape).astype(np.float32)
+    card = params_to(params, "cuda")
+
+    def err():
+        with torch.inference_mode():
+            got = spec.apply(card, torch.from_numpy(x).cuda(), dtype=dt)
+        got = got.cpu()
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"{name} {dtype}: non-finite or misshapen card output")
+        return float((got - want).abs().max() / want.abs().max())
+
+    with torch.inference_mode():
+        want = spec.apply(params, torch.from_numpy(x), dtype=dt)
+    if dtype == "float32":
+        return {"": err()}
+    out = {}
+    for tf32 in (True, False):
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            out[f" tf32 {'on' if tf32 else 'off'}"] = err()
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    return out
+
+
+def parity_infer_models(torch) -> dict:
+    """mlp, resnet50 and resnet50-v1 at 224 x 224 x 3 on the card against
+    the CPU on the same weights and inputs (two rows): in f32 (cuDNN and
+    cuBLAS without TF32) within INFER_F32_TOL of the largest logit, and in
+    the served bf16, with cuDNN's TF32 on (its default) and off, within
+    INFER_BF16_TOL; and each model's bucket-1 output through the engine
+    bit-identical over two runs, in f32 and in bf16."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.runtime.engine import InferenceEngine
+
+    out = {}
+    for name in ("mlp", "resnet50", "resnet50-v1"):
+        spec = create_model(name)
+        for dtype, tol in (("float32", INFER_F32_TOL),
+                           ("bfloat16", INFER_BF16_TOL)):
+            short = "f32" if dtype == "float32" else "bf16"
+            for case, err in infer_model_errs(torch, name, dtype).items():
+                log(f"parity {name} {short}{case} (B 2, {spec.input_shape}): "
+                    f"card vs CPU max|diff|/max|cpu| {err:.3e} (tol {tol:g})")
+                check(err <= tol, f"{name} {short}{case} card vs CPU: {err}")
+                out[f"{name} {short}{case} card vs cpu"] = err
+        x = np.random.default_rng(11).standard_normal(
+            spec.input_shape).astype(np.float32)
+        for dtype in ("float32", "bfloat16"):
+            eng = InferenceEngine(spec, dtype=dtype, device="cuda",
+                                  rng_seed=0, batch_buckets=(1,))
+            first, again = (eng.predict(x) for _ in range(2))
+            check(np.array_equal(first, again) and np.isfinite(first).all(),
+                  f"{name} {dtype}: bucket-1 output differs over two runs")
+            log(f"parity {name} {dtype}: bucket-1 output bit-identical over "
+                f"two runs")
+            del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_small_model(torch) -> None:
     """A small llama served on the card (kernels) against the same f32
     weights served on the CPU (plain versions), in every lane's mode and
@@ -1024,7 +1196,6 @@ def phase_small_model(torch) -> None:
 
 def run_train(argv, params=None) -> str:
     """The port's train command in-process; returns what it printed."""
-    import contextlib
     import io
 
     from tpu_engine_torch.serving import cli
@@ -1464,14 +1635,75 @@ def serve_lane(torch, params, lane: str) -> dict:
     return out
 
 
+def oneshot_traffic(port: int, vocab: int, rng) -> tuple:
+    """Threads that send /infer token-id payloads (seq_len 128: shorter
+    ones zero-pad, a longer one truncates) and /score requests to a
+    decoder lane; returns (threads, results by name, errors). Start them
+    beside a /generate burst."""
+    results, errors = {}, []
+    infer = {f"infer{n}": [float(t) for t in rng.integers(1, vocab, n)]
+             for n in (1, 5, 40, 128, 200)}
+    score = {f"score{i}": ([int(t) for t in rng.integers(1, vocab, p)],
+                           [int(t) for t in rng.integers(1, vocab, c)])
+             for i, (p, c) in enumerate(((30, 10), (0, 5), (100, 20),
+                                         (7, 1)))}
+
+    def run(name, path, body):
+        try:
+            results[name] = post(port, path, dict(body, request_id=name))
+        except Exception as exc:  # reported by the caller
+            errors.append(f"{name}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(
+        n, "/infer", {"input_data": x})) for n, x in infer.items()]
+    threads += [threading.Thread(target=run, args=(
+        n, "/score", {"prompt_tokens": p, "completion_tokens": c}))
+        for n, (p, c) in score.items()]
+    return threads, results, errors, infer, score
+
+
+def check_oneshot(lane: str, worker, results, errors, infer, score,
+                  vocab: int) -> dict:
+    """The one-shot answers of ``oneshot_traffic``: /infer logits of the
+    vocab's width equal the lane's engine on the same input alone within
+    ONESHOT_INFER_TOL of the largest, /score log-probabilities of the
+    completion's length that are <= 0 and equal the lane's scorer alone
+    within ONESHOT_SCORE_TOL of their magnitude (at least 1e-3). Runs
+    forwards of its own: call after the launch counts are read."""
+    check(not errors, f"{lane} one-shot requests failed: {errors}")
+    worst = {"infer": 0.0, "score": 0.0}
+    for name, x in infer.items():
+        got = np.asarray(results[name]["output_data"], np.float32)
+        want = worker.engine.batch_predict([x])[0]
+        check(got.shape == (vocab,) and np.isfinite(got).all(),
+              f"{lane} {name}: {got.shape}")
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        worst["infer"] = max(worst["infer"], err)
+    scorer = worker._get_scorer()
+    for name, (p, c) in score.items():
+        got = np.asarray(results[name]["logprobs"])
+        want = np.asarray(scorer.score([p], [c])[0])
+        check(got.shape == (len(c),) and (got <= 0).all(),
+              f"{lane} {name}: {got}")
+        err = float((np.abs(got - want)
+                     / np.maximum(np.abs(want), 1e-3)).max())
+        worst["score"] = max(worst["score"], err)
+    check(worst["infer"] <= ONESHOT_INFER_TOL
+          and worst["score"] <= ONESHOT_SCORE_TOL,
+          f"{lane}: one-shot answers differ from the engine's: {worst}")
+    return worst
+
+
 def serve_dense_lane(torch, params) -> dict:
     """Drive the worker's default lane (dense cache) over HTTP with the
     launch counts set to 0 just before and read just after: six prompts of
     at most 256 tokens and a stream at once (each a monolithic prefill
-    through the flash kernel), an exact repeat (a prefix-cache hit), then a
-    600-token prompt (prefill windows, no flash) and its greedy repeat (a
-    hit). Flash launches == layers x the monolithic prefills that missed
-    the prefix cache."""
+    through the flash kernel), beside them five /infer token-id payloads
+    and four /score requests (single-tick rows: one flash forward of 22
+    layers per one-shot dispatch), an exact repeat (a prefix-cache hit),
+    then a 600-token prompt (prefill windows, no flash) and its greedy
+    repeat (a hit). Flash launches == layers x (the one-shot dispatches +
+    the monolithic prefills that missed the prefix cache)."""
     from tpu_engine_torch.ops import kernels
 
     lane, kernel = "dense-bf16", "flash_attention"
@@ -1489,14 +1721,22 @@ def serve_dense_lane(torch, params) -> dict:
     reqs = {f"len{n}": toks(n) for n in (1, 17, 64, 100, 200, 256)}
     stream_prompt = toks(180)
     long_prompt = toks(600)
+    oneshot, os_results, os_errors, infer, score = oneshot_traffic(
+        port, vocab, rng)
     try:
         kernels.reset_counts()  # the lane's run: counts from 0, read after
         warm = post(port, "/generate", {"request_id": "warm",
                                         "prompt_tokens": warm_prompt,
                                         "max_new_tokens": 4})
         check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
+        for t in oneshot:
+            t.start()
         results, _, ttft, burst_s, n_tokens = burst(port, lane, reqs,
                                                     stream_prompt)
+        for t in oneshot:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in oneshot),
+              f"{lane}: one-shot requests hung")
         repeat = post(port, "/generate", {
             "request_id": "len100-repeat", "prompt_tokens": reqs["len100"],
             "max_new_tokens": MAX_NEW})["tokens"]
@@ -1516,26 +1756,38 @@ def serve_dense_lane(torch, params) -> dict:
         pc = st["prefix_cache"]
         check(pc["misses"] == len(prompts) and pc["hits"] == 2,
               f"{lane}: prefix cache {pc}")
-        check(launches == n_layers * monolithic,
+        sl = st["stateless"]
+        check(sl["infer_rows"] == len(infer) and sl["score_rows"]
+              == len(score) and sl["failed"] == 0
+              and sl["admitted"] == sl["completed"]
+              == len(infer) + len(score) and sl["dispatches"] > 0,
+              f"{lane}: stateless {sl}")
+        check(launches == n_layers * (monolithic + sl["dispatches"]),
               f"{lane}: {launches} flash launches for {monolithic} "
-              f"monolithic prefills of {n_layers} layers")
+              f"monolithic prefills and {sl['dispatches']} one-shot "
+              f"dispatches of {n_layers} layers")
         check(st["chunks"] > 0, f"{lane}: no decode chunk ran")
         health = get(port, "/health")
-        check(health["healthy"] and health["generator"]["completed"] >= 11,
+        check(health["healthy"] and health["generator"]["completed"] >= 20,
               f"{lane} health: {health}")
+        worst = check_oneshot(lane, worker, os_results, os_errors, infer,
+                              score, vocab)
         out = {"kernel": kernel, "launches": launches,
                "burst_tokens": n_tokens, "burst_s": burst_s,
                "tokens_per_s": n_tokens / burst_s, "stream_ttft_s": ttft,
                "chunks": st["chunks"],
                "admission_dispatches": st["admission_dispatches"],
-               "monolithic_prefills": monolithic, "prefix_cache": pc}
+               "monolithic_prefills": monolithic, "prefix_cache": pc,
+               "stateless": sl, "oneshot_err": worst}
         log(f"server {lane}: {n_tokens} tokens in {burst_s:.3f} s "
             f"({n_tokens / burst_s:.1f} tokens/s, 7 concurrent requests), "
             f"stream TTFT {ttft * 1e3:.1f} ms; chunks {st['chunks']}, "
-            f"admission dispatches {st['admission_dispatches']}; {kernel} "
-            f"launches {launches} == {n_layers} x {monolithic} monolithic "
-            f"prefills, plain calls 0; prefix cache {pc}; exact and greedy "
-            f"repeats identical")
+            f"admission dispatches {st['admission_dispatches']}; one-shot "
+            f"rows beside them: {json.dumps(sl)}, against the engine and "
+            f"scorer alone {json.dumps(worst)}; {kernel} launches "
+            f"{launches} == {n_layers} x ({monolithic} monolithic prefills "
+            f"+ {sl['dispatches']} one-shot dispatches), plain calls 0; "
+            f"prefix cache {pc}; exact and greedy repeats identical")
     finally:
         server.stop()
         worker.stop()
@@ -1668,14 +1920,160 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
     return out
 
 
+def serve_infer_lane(torch, lane: str, single) -> dict:
+    """Drive one resnet50 /infer lane over HTTP (INFER_LANES; the weights
+    from seed 0): a warm-up, a burst of INFER_BURST concurrent requests
+    with distinct 224 x 224 x 3 inputs, 16 repeats of them (cache hits),
+    8 concurrent identical new inputs (they coalesce: fewer dispatched rows
+    than requests), the reference benchmark's 3-float payload and then
+    ``single`` alone. Every answer equals the lane's engine on the same
+    input alone within INFER_BF16_TOL of the largest logit; the stateless
+    counters balance (unified lane); /health's batch_processor block
+    counts the dispatches. Returns the readings and ``single``'s output."""
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    cfg = WorkerConfig(port=0, node_id=f"chip-smoke-{lane}",
+                       model="resnet50", dtype="bfloat16", max_batch_size=32,
+                       device="cuda", seed=0, **INFER_LANES[lane])
+    t0 = time.perf_counter()
+    worker, server = serve_worker(cfg)
+    port = server.port
+    log(f"server {lane}: resnet50 (224 x 224 x 3, bf16, max batch 32, "
+        f"unified {cfg.unified_stateless}) ready in "
+        f"{time.perf_counter() - t0:.1f} s on port {port}")
+    rng = np.random.default_rng(5)
+    n_in = 224 * 224 * 3
+
+    def image():
+        return np.round(rng.random(n_in, np.float32), 3)
+
+    inputs = [image() for _ in range(INFER_BURST)]
+    bodies = [json.dumps({"request_id": f"img{i}",
+                          "input_data": x.tolist()}).encode()
+              for i, x in enumerate(inputs)]
+    unified = cfg.unified_stateless
+
+    def dispatched_rows():
+        if unified:
+            return worker.generator.stats()["stateless"]["infer_rows"]
+        return worker.batch_processor.get_metrics().processed_requests
+
+    def fire(bodies_by_name):
+        res, errors, lat = {}, [], {}
+
+        def run(name, body):
+            t = time.perf_counter()
+            try:
+                res[name] = post(port, "/infer", body)
+                lat[name] = time.perf_counter() - t
+            except Exception as exc:  # reported below
+                errors.append(f"{name}: {exc!r}")
+
+        threads = [threading.Thread(target=run, args=kv)
+                   for kv in bodies_by_name.items()]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"{lane}: /infer failed: {errors}")
+        return res, wall, lat
+
+    try:
+        warm = post(port, "/infer", {"request_id": "warm",
+                                     "input_data": image().tolist()})
+        check(len(warm["output_data"]) == 1000, f"{lane} warm-up")
+        res, burst_s, lat = fire({f"img{i}": b for i, b in enumerate(bodies)})
+        check(all(not r["cached"] for r in res.values()),
+              f"{lane}: a burst input came back cached")
+        reps, _, _ = fire({f"rep{i}": json.dumps({
+            "request_id": f"rep{i}", "input_data": inputs[i].tolist()})
+            .encode() for i in range(16)})
+        check(all(r["cached"] and r["inference_time_us"] == 50
+                  and r["output_data"] == res[f"img{i}"]["output_data"]
+                  for i, r in ((int(k[3:]), v) for k, v in reps.items())),
+              f"{lane}: repeats not served from the cache")
+        same = image()
+        rows0 = dispatched_rows()
+        coalesced, _, _ = fire({f"same{i}": json.dumps({
+            "request_id": f"same{i}", "input_data": same.tolist()}).encode()
+            for i in range(8)})
+        rows = dispatched_rows() - rows0
+        check(rows < 8 and len({json.dumps(r["output_data"])
+                                for r in coalesced.values()}) == 1,
+              f"{lane}: 8 identical misses dispatched {rows} rows")
+        small = post(port, "/infer", {"request_id": "bench",
+                                      "input_data": [1.0, 2.0, 3.0]})
+        alone = post(port, "/infer", {"request_id": "single",
+                                      "input_data": single.tolist()})
+        health = get(port, "/health")
+        stats = worker.generator.stats() if unified else None
+        # Every answer against the lane's engine alone (bucket 1).
+        worst = 0.0
+        pairs = [(res[f"img{i}"], x) for i, x in enumerate(inputs)]
+        pairs += [(coalesced["same0"], same), (small, [1.0, 2.0, 3.0]),
+                  (alone, single)]
+        for r, x in pairs:
+            got = np.asarray(r["output_data"], np.float32)
+            want = worker.engine.batch_predict([x])[0]
+            check(got.shape == (1000,) and np.isfinite(got).all(),
+                  f"{lane}: misshapen or non-finite output")
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+        check(worst <= INFER_BF16_TOL,
+              f"{lane}: answers differ from the engine alone by {worst}")
+        bp = health["batch_processor"]
+        check(health["model"] == "resnet50" and "generator" not in health
+              and bp["total_batches"] > 0, f"{lane} health: {health}")
+        out = {"burst_s": burst_s, "images_per_s": INFER_BURST / burst_s,
+               "latency_p50_s": float(np.percentile(list(lat.values()), 50)),
+               "latency_max_s": max(lat.values()),
+               "coalesced_rows": rows, "max_rel_err": worst,
+               "health": health}
+        if unified:
+            sl = stats["stateless"]
+            check(sl["admitted"] == sl["completed"] + sl["failed"]
+                  and sl["failed"] == 0 and sl["ticks"] == sl["dispatches"]
+                  and bp["total_batches"] == sl["dispatches"],
+                  f"{lane}: stateless {sl} health {bp}")
+            out["stateless"] = sl
+        log(f"server {lane}: {INFER_BURST} concurrent /infer in "
+            f"{burst_s:.3f} s ({INFER_BURST / burst_s:.1f} images/s, p50 "
+            f"{out['latency_p50_s'] * 1e3:.1f} ms); 16 repeats cached; 8 "
+            f"identical misses -> {rows} dispatched rows; answers vs the "
+            f"engine alone max rel err {worst:.3e}; batch_processor "
+            f"{json.dumps(bp)}"
+            + (f"; stateless {json.dumps(out['stateless'])}" if unified
+               else ""))
+    finally:
+        server.stop()
+        worker.stop()
+    torch.cuda.empty_cache()
+    return out, alone["output_data"]
+
+
 def phase_server(torch) -> dict:
     from tpu_engine_torch.models.convert import init_params
     from tpu_engine_torch.models.registry import create_model
 
+    single = np.round(np.random.default_rng(6).random(224 * 224 * 3,
+                                                      np.float32), 3)
+    out, singles = {}, {}
+    with served_conv_precision(torch):
+        for lane in INFER_LANES:
+            out[lane], singles[lane] = serve_infer_lane(torch, lane, single)
+    check(len({json.dumps(o) for o in singles.values()}) == 1,
+          "a single /infer request differs between the unified and the "
+          "batch lane")
+    log("server: a single request's output is bit-identical on the "
+        "unified and the batch lane")
     params = init_params(create_model("llama").config, seed=0,
                          device="cuda", dtype="bfloat16")
-    out = {lane: serve_lane(torch, params, lane) for lane in LANES
-           if lane != "dense-bf16"}
+    out.update({lane: serve_lane(torch, params, lane) for lane in LANES
+                if lane != "dense-bf16"})
     out["dense-bf16"] = serve_dense_lane(torch, params)
     for lane in SPEC_LANES:
         out[lane] = serve_spec_lane(torch, params, lane)
@@ -1878,7 +2276,47 @@ def phase_numbers(torch, pa) -> dict:
                        for d, sp in shapes}
     res["forward"] = forward_times(torch, res)
     res["spec_slots"] = spec_slot_times(torch)
+    with served_conv_precision(torch):
+        res["resnet50_forward"] = resnet_forward_times(torch)
     return res
+
+
+def resnet_forward_times(torch) -> dict:
+    """The forward the resnet50 /infer lane runs (bf16, 224 x 224 x 3, the
+    wire already on the card, weights from seed 0) at batch buckets 1, 8
+    and 32, timed by the forward rows' harness: ms per forward (events,
+    cold L2), the host's time to issue it, the card's busy time in it
+    (torch.profiler), the idle share and images/s; at the current TF32
+    settings (``served_conv_precision`` gives the served ones)."""
+    from tpu_engine_torch.models.registry import create_model
+
+    spec = create_model("resnet50")
+    params = spec.init(0, device="cuda", dtype="bfloat16")
+    out = {}
+    for b in (1, 8, 32):
+        x = torch.rand((b, 224, 224, 3), device="cuda").to(torch.bfloat16)
+
+        def fwd():
+            with torch.inference_mode():
+                return spec.apply(params, x, dtype=torch.bfloat16)
+
+        y = fwd()
+        check(bool(torch.isfinite(y).all()) and tuple(y.shape) == (b, 1000),
+              f"resnet50 forward B {b}: non-finite or misshapen logits")
+        ms = time_ms(torch, fwd, iters=10)
+        host = issue_ms(torch, fwd)
+        busy = busy_ms(torch, fwd)
+        out[f"B={b}"] = res = {
+            "forward_ms": ms, "issue_ms": host, "busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / ms),
+            "images_per_s": b / ms * 1e3}
+        log(f"forward (resnet50 bf16, B {b}, 224 x 224 x 3): {ms:.3f} ms "
+            f"(host issue {host:.3f} ms, device busy {busy:.3f} ms, idle "
+            f"{100 * res['idle_share']:.1f}%), "
+            f"{res['images_per_s']:.1f} images/s")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def spec_slot_times(torch) -> dict:
@@ -2191,6 +2629,24 @@ def main_kernel_times(torch, root: str) -> int:
     return 0
 
 
+def main_resnet_times(torch, root: str) -> int:
+    """``--resnet-times [--package-root DIR]``: the package under DIR
+    (default: this checkout) at torch's default TF32 settings, as a worker
+    process serves: resnet_forward_times and the bf16 resnets' card vs CPU
+    errors (infer_model_errs), one JSON line, appended to
+    resnet_times.jsonl in OUT_DIR."""
+    res = {"root": root, "card": card_line(),
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "bf16_err": {name: infer_model_errs(torch, name, "bfloat16")
+                        for name in ("resnet50", "resnet50-v1")},
+           "forward": resnet_forward_times(torch)}
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "resnet_times.jsonl", "a") as f:
+        f.write(json.dumps(res) + "\n")
+    log(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2198,12 +2654,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    if "--kernel-times" in sys.argv:
-        root = "."
-        if "--package-root" in sys.argv:
-            root = sys.argv[sys.argv.index("--package-root") + 1]
-            sys.path.insert(0, str(Path(root).resolve()))
-        return main_kernel_times(torch, root)
+    for flag, mode in (("--kernel-times", main_kernel_times),
+                       ("--resnet-times", main_resnet_times)):
+        if flag in sys.argv:
+            root = "."
+            if "--package-root" in sys.argv:
+                root = sys.argv[sys.argv.index("--package-root") + 1]
+                sys.path.insert(0, str(Path(root).resolve()))
+            return mode(torch, root)
     from tpu_engine_torch.ops import kernels as kl
     from tpu_engine_torch.ops import paged_attention as pa
 
@@ -2221,6 +2679,7 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(kl.build_log)
     errs = phase_parity(torch, pa)
+    infer_parity = parity_infer_models(torch)
     phase_small_model(torch)
     train_small = phase_train_small(torch)
     server = phase_server(torch)
@@ -2246,7 +2705,8 @@ def main() -> int:
         })
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "parity": errs, "train_small": train_small,
+        {"card": card, "parity": errs, "infer_parity": infer_parity,
+         "train_small": train_small,
          "server": server, "train": train, "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

@@ -3,7 +3,7 @@ the JAX package's generator and worker, with the same weights: /generate
 and /generate/stream tokens equal the JAX mixed-step generator's; a
 two-path lane's, an int8 lane's and the default (dense) lane's tokens
 equal the JAX generator's of the same mode; /health and /stats carry the
-JAX schemas (the idle /infer cache, batcher and stateless blocks
+JAX schemas (the /infer cache, batcher and stateless blocks
 included); the --kv-quantize guard refuses as the JAX worker's does; an
 expired deadline is a 503 with Retry-After, a bad deadline and a
 misaddressed model a 400, and a deadline passing mid-generation cancels
@@ -44,7 +44,7 @@ LANE = dict(gen_kv_block_size=16, gen_mixed_step=True, gen_prefill_chunk=16,
             gen_mixed_token_budget=16)
 # /health keys of the JAX worker, and generator stats, that the port's
 # worker leaves out: none (the /infer cache, the batcher and the stateless
-# block are carried idle).
+# block included).
 HEALTH_LEFT_OUT = set()
 GENERATOR_LEFT_OUT = set()
 # The slice-2 lanes: two-path (no --mixed-step) and the int8 pool.

@@ -45,8 +45,9 @@ def test_config_fields_equal_jax(name):
 
 
 def test_registry_serves_the_dense_names_and_refuses_the_rest():
-    assert available_models() == sorted(DENSE_NAMES)
-    for name in ("gpt2-moe", "gpt2-moe-test", "mlp", "bert", "mamba2"):
+    assert available_models() == sorted(
+        DENSE_NAMES + ["mlp", "resnet50", "resnet50-v1"])
+    for name in ("gpt2-moe", "gpt2-moe-test", "bert", "mamba2", "yolov8n"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcreate(name)
     with pytest.raises(KeyError):

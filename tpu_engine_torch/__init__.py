@@ -13,8 +13,8 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (the tests do). Nothing falls back to the CPU quietly:
 ``utils.device.resolve_device`` raises when no card is present.
 
-The TPU kernel on this package's path, ``_ragged_kernel`` of
-``tpu_engine/ops/paged_attention.py``, is ported by hand to CUDA C++ for
-``sm_90a`` in ``csrc/ragged_paged_attention.cu``; ``ops.paged_attention``
-builds it with ``nvcc`` at first use and binds it with ``ctypes``.
+Every TPU kernel of the JAX package (each ``pallas_call`` of
+``tpu_engine/ops/paged_attention.py`` and ``tpu_engine/ops/flash.py``) is
+ported by hand to CUDA C++ for ``sm_90a`` in ``csrc/``; ``ops.kernels``
+builds them with ``nvcc`` at first use and binds them with ``ctypes``.
 """

@@ -11,6 +11,7 @@ casts, so the two packages compute the same function.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 
@@ -28,7 +29,12 @@ from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
 def _to_tensor(name: str, arr, device, dtype):
     t = torch.from_numpy(np.array(arr)).to(device)
-    return t.to(dtype if name == "kernel" else torch.float32)
+    if name != "kernel":
+        return t.to(torch.float32)
+    if t.dim() == 4:  # conv: HWIO -> OIHW, stored channels_last
+        return t.permute(3, 2, 0, 1).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    return t.to(dtype)
 
 
 def _convert(tree, device, dtype):
@@ -45,16 +51,22 @@ def _layer(tree, li: int):
     return tree[li]
 
 
-def params_from_jax(tree, cfg: TransformerConfig, device=None,
-                    dtype="float32"):
+def params_from_jax(tree, cfg: Optional[TransformerConfig] = None,
+                    device=None, dtype="float32"):
     """The JAX package's param pytree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), to the port's tree on
-    ``device`` (None = the CUDA card). The stacked (L, ...) ``blocks``
-    leaves are split per layer."""
+    ``device`` (None = the CUDA card). A transformer's (``cfg``) stacked
+    (L, ...) ``blocks`` leaves are split per layer. The trees of the
+    config-less models (mlp, resnets) keep their names: dense kernels as
+    they are, conv kernels from HWIO to OIHW (channels_last), both in
+    ``dtype``; biases and batch-norm ``scale``, ``bias``, ``mean`` and
+    ``var`` in f32."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     out = {k: _convert(v, dev, dt) for k, v in tree.items()
            if k != "blocks"}
+    if cfg is None:
+        return out
     out["blocks"] = [_convert(_layer(tree["blocks"], li), dev, dt)
                      for li in range(cfg.n_layers)]
     return out

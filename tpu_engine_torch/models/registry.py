@@ -1,32 +1,60 @@
 """Model registry: name -> factory (counterpart of
-``tpu_engine/models/registry.py``) for the dense decoder transformers
-this port serves. The names and config values are the JAX package's."""
+``tpu_engine/models/registry.py``). The names, config values and shapes
+are the JAX package's.
+
+A ``ModelSpec`` carries what serving needs: the decoder ``config`` for the
+generation lanes (None for config-less models: the mlp and the resnets),
+and for one-shot /infer serving ``apply(params, x, dtype)`` over a batch
+of ``input_shape`` samples with ``output_shape`` results, and the
+``state_family``: "kv_paged" for causal transformers, "stateless" for
+config-less models, which serve only one-shot rows.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 from tpu_engine_torch.models.transformer import TransformerConfig
 
 # Names the JAX package registers whose families the port does not serve
 # yet: asking for one is a loud refusal, never a silent stand-in.
 NOT_YET_PORTED = frozenset({
-    "gpt2-moe", "gpt2-moe-test", "mlp", "resnet50", "resnet50-v1", "bert",
-    "bert-small-test", "yolov8n", "yolov8n-small-test", "mamba2",
-    "ssd-small-test"})
+    "gpt2-moe", "gpt2-moe-test", "bert", "bert-small-test", "yolov8n",
+    "yolov8n-small-test", "mamba2", "ssd-small-test"})
 
 
 @dataclasses.dataclass
 class ModelSpec:
     name: str
-    config: TransformerConfig
+    config: Optional[TransformerConfig] = None
+    # (params, x (B, *input_shape), dtype) -> (B, *output_shape) f32.
+    apply: Optional[Callable] = None
+    input_shape: Tuple[int, ...] = ()
+    output_shape: Tuple[int, ...] = ()
+    # (seed, device, dtype) -> params, for config-less models.
+    init_fn: Optional[Callable] = None
+    state_family: str = ""
+
+    def __post_init__(self):
+        if not self.state_family:
+            causal = getattr(self.config, "causal", False)
+            self.state_family = "kv_paged" if causal else "stateless"
 
     def init(self, seed: int = 0, device=None, dtype="bfloat16"):
         """Seeded random parameters at full width (models.convert)."""
+        if self.config is None:
+            return self.init_fn(seed, device, dtype)
         from tpu_engine_torch.models.convert import init_params
 
         return init_params(self.config, seed, device=device, dtype=dtype)
+
+    @property
+    def input_size(self) -> int:
+        n = 1
+        for d in self.input_shape:
+            n *= d
+        return n
 
 
 _REGISTRY: Dict[str, Callable[..., ModelSpec]] = {}
@@ -40,7 +68,7 @@ def register(name: str):
 
 
 def _ensure_builtin_models_imported() -> None:
-    from tpu_engine_torch.models import gpt2, llama  # noqa: F401
+    from tpu_engine_torch.models import gpt2, llama, mlp, resnet  # noqa: F401
 
 
 def create_model(name: str, **kwargs) -> ModelSpec:
@@ -59,3 +87,20 @@ def available_models():
     return sorted(_REGISTRY)
 
 
+def model_from_path(path_or_name: str) -> str:
+    """Map a reference-style model path (e.g. models/resnet50-v2-7.onnx) to
+    a registry name, as the JAX package's ``serving.app.model_from_path``
+    does, over the same names (the not-yet-ported ones included: they
+    refuse at ``create_model``)."""
+    names = sorted(set(available_models()) | NOT_YET_PORTED)
+    if path_or_name in names:
+        return path_or_name
+    base = path_or_name.rsplit("/", 1)[-1].lower()
+    for name in names:
+        if name in base.replace("-", "").replace("_", ""):
+            return name
+    for name in names:  # resnet50-v2-7.onnx -> resnet50
+        if base.startswith(name[: max(4, len(name) - 2)]):
+            return name
+    raise ValueError(f"cannot map '{path_or_name}' to a registered model "
+                     f"{names}")

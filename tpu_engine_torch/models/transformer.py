@@ -396,11 +396,15 @@ def _attn(bp, x, cfg: TransformerConfig, *, mask, dtype, attn_fn,
 
 
 def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
-                      dtype=torch.bfloat16, attn_fn=None, remat: bool = False):
+                      dtype=torch.bfloat16, attn_fn=None, remat: bool = False,
+                      head_rows=None):
     """Full-sequence forward of the decoder dialects. tokens: (B, S) int;
     mask: optional (B, S) int, 1 = valid. Returns f32 logits
-    (B, S, vocab). ``attn_fn`` defaults to ``ops.flash.flash_attention``
-    (the CUDA kernels on CUDA tensors, forward and backward).
+    (B, S, vocab), or with ``head_rows`` ((B,) positions) only the logits
+    of those positions (B, vocab): the head is per position, so these are
+    the same rows of the full logits without the others' head product.
+    ``attn_fn`` defaults to ``ops.flash.flash_attention`` (the CUDA
+    kernels on CUDA tensors, forward and backward).
 
     Differentiable end to end: the gradient reaches every parameter
     (embeddings, norms, projections, head) through autograd and the flash
@@ -427,6 +431,8 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
                                                   use_reentrant=False)
         else:
             h = block(bp, h)
+    if head_rows is not None:
+        h = h[torch.arange(h.shape[0], device=h.device), head_rows]
     return _head(params, h, cfg, dtype)
 
 

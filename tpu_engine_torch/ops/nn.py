@@ -9,12 +9,15 @@ drop in unchanged. The rounding points follow the JAX functions exactly:
   in f32 and returns **f32** plus the (f32) bias;
 - ``rmsnorm`` computes in f32;
 - ``layernorm`` computes in its input's dtype and is promoted to f32 by
-  the f32 scale and bias.
+  the f32 scale and bias;
+- ``conv2d`` casts its input and kernel to the compute dtype and returns
+  **f32**; ``batchnorm``, the pools and the residual adds of a conv net
+  run in f32 on that result.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,3 +107,82 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def embedding(params, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+# -- convolutional nets -------------------------------------------------------
+#
+# Activations are NCHW tensors, in torch.channels_last memory when the
+# caller starts from NHWC data (``x.permute(0, 3, 1, 2)`` of an NHWC tensor
+# is channels_last without a copy); conv kernels are OIHW (converted from
+# the JAX package's HWIO once, in models.convert).
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis: out = ceil(size / stride),
+    total = max((out - 1) * stride + k - size, 0), lo = total // 2 and the
+    rest at the high end. At stride 2 it is asymmetric (the 7x7/2 stem at
+    224 pads (2, 3); a 3x3/2 at an even size (0, 1)), which torch's
+    symmetric ``padding=k // 2`` is not."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, k: int, stride: int, padding):
+    """((h_lo, h_hi), (w_lo, w_hi)) for "SAME" or an explicit pair."""
+    if padding == "SAME":
+        return (same_pads(x.shape[2], k, stride),
+                same_pads(x.shape[3], k, stride))
+    return tuple(tuple(p) for p in padding)
+
+
+def conv2d(params, x: torch.Tensor, stride: int = 1, padding="SAME",
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """2-D convolution with an f32 result, the counterpart of
+    ``conv_general_dilated(..., preferred_element_type=f32)``: x (B, C, H,
+    W), ``params["kernel"]`` (O, I, kh, kw); ``padding`` "SAME" (XLA's,
+    ``same_pads``) or ((h_lo, h_hi), (w_lo, w_hi)).
+
+    x and the kernel are rounded to ``dtype`` and then convolved in f32,
+    so a narrow dtype's products are exact and summed in f32, unrounded,
+    as in JAX. On the GPU cuDNN runs that f32 convolution on the TF32
+    tensor cores when ``torch.backends.cudnn.allow_tf32`` is on (its
+    default), and TF32 holds every bf16 value, so the products stay exact;
+    with it off the CUDA cores give the same values."""
+    kernel = params["kernel"]
+    if dtype is not None:
+        x = x.to(dtype)
+        kernel = kernel.to(dtype)
+    x, kernel = x.float(), kernel.float()
+    (hlo, hhi), (wlo, whi) = _pads(x, kernel.shape[-1], stride, padding)
+    if hlo == hhi and wlo == whi:
+        return F.conv2d(x, kernel, stride=stride, padding=(hlo, wlo))
+    return F.conv2d(F.pad(x, (wlo, whi, hlo, hhi)), kernel, stride=stride)
+
+
+def batchnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode batch norm with stored statistics over the channel
+    axis (1), in f32 as the JAX function computes it."""
+    inv = torch.rsqrt(params["var"] + eps) * params["scale"]
+    shift = params["bias"] - params["mean"] * inv
+    return x * inv[:, None, None] + shift[:, None, None]
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding="SAME") -> torch.Tensor:
+    """``reduce_window(max)`` over H and W: "SAME" (XLA's pads, filled with
+    -inf) or ((h_lo, h_hi), (w_lo, w_hi))."""
+    (hlo, hhi), (wlo, whi) = _pads(x, window, stride, padding)
+    if hlo == hhi and wlo == whi:  # max_pool2d pads with -inf itself
+        return F.max_pool2d(x, window, stride, padding=(hlo, wlo))
+    x = F.pad(x, (wlo, whi, hlo, hhi), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C): the mean over H and W."""
+    return x.mean(dim=(2, 3))

@@ -1,0 +1,396 @@
+"""Dynamic batch processor: the port's copy of ``BatchProcessor``,
+``BatchTiming`` and ``BatcherMetrics`` from
+``tpu_engine/runtime/batch_processor.py`` (same semantics, stdlib only).
+
+It serves /infer and /score when ``unified_stateless`` is off, and its
+metrics block is the ``/health`` ``batch_processor`` schema (on unified
+stateless lanes the scheduler's one-shot dispatch counters fold into it).
+
+A single background dispatch thread drains queued requests into batches of
+at most ``max_batch_size``; callers block on a future; metrics report
+``total_batches / timeout_batches / full_batches / avg_batch_size``. The
+dispatch thread wakes as soon as the queue is non-empty, so batches larger
+than 1 form from requests that pile up while a previous batch executes; an
+optional ``linger_ms`` delays dispatch of a non-full batch. Every
+successfully processed batch counts as either ``timeout_batches`` (woken by
+the timer, or the linger window expired) or ``full_batches`` (woken by an
+enqueue); a batch whose callback raised updates no counters;
+``total_requests`` counts enqueues. With split ``submit``/``collect``
+callbacks up to ``pipeline_depth`` batches are in flight at once.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass
+from typing import Any, Callable, Generic, List, Optional, Sequence, Tuple, TypeVar
+
+from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
+
+Request = TypeVar("Request")
+Response = TypeVar("Response")
+
+
+@dataclass
+class BatchTiming:
+    """Per-batch stage timing handed to the optional ``observer`` after a
+    successful batch (tracing layer): ``queue_wait_us[i]`` is request i's
+    submit→batch-formation wait; ``batch_form_us`` the window over which
+    the batch accumulated (formation time minus the oldest member's
+    enqueue); ``compute_us`` the device leg (callback wall for the
+    lockstep path, submit→collect residence for the pipelined path —
+    the same timing points ``inference_time_us`` divides by batch size)."""
+
+    queue_wait_us: List[float]
+    batch_form_us: float
+    compute_us: float = 0.0
+    timed_out: bool = False
+
+
+@dataclass
+class BatcherMetrics:
+    total_requests: int = 0       # enqueued (reference counts at process(), :96)
+    total_batches: int = 0
+    timeout_batches: int = 0
+    full_batches: int = 0
+    processed_requests: int = 0   # sum of processed batch sizes (drives the avg)
+
+    @property
+    def avg_batch_size(self) -> float:
+        return (self.processed_requests / self.total_batches) if self.total_batches else 0.0
+
+    def as_dict(self) -> dict:
+        """JSON schema consumed by ``benchmark.py:148-178`` / ``diagnostics.sh``."""
+        return {
+            "total_batches": self.total_batches,
+            "avg_batch_size": self.avg_batch_size,
+            "timeout_batches": self.timeout_batches,
+            "full_batches": self.full_batches,
+        }
+
+
+class BatchProcessor(Generic[Request, Response]):
+    """Size-or-timeout dynamic batcher with a single dispatch thread.
+
+    ``callback(requests) -> responses`` is invoked on the dispatch thread
+    with 1..max_batch_size requests and must return one response per request
+    (reference contract, ``batch_processor.h:131-155``). A callback exception
+    fans out to every blocked caller (``:171-180``).
+    """
+
+    def __init__(
+        self,
+        max_batch_size: int,
+        timeout_ms: float,
+        callback: Callable[[List[Request]], Sequence[Response]],
+        linger_ms: float = 0.0,
+        name: str = "batcher",
+        submit_callback: Optional[Callable[[List[Request]], Any]] = None,
+        collect_callback: Optional[Callable[[Any], Sequence[Response]]] = None,
+        ready_callback: Optional[Callable[[Any], bool]] = None,
+        pipeline_depth: int = 1,
+        observer: Optional[Callable[[List[Request], BatchTiming], None]] = None,
+    ):
+        """`submit_callback`/`collect_callback` (both or neither) enable
+        split-phase pipelining: the dispatch thread keeps up to
+        `pipeline_depth` submitted batches in flight and only blocks in
+        `collect_callback` for the oldest — new batches keep dispatching
+        while earlier ones execute. With a remote/async device whose
+        round-trip dwarfs its execute time, depth K
+        overlaps K round-trips; depth 1 or no split callbacks degrade to
+        the reference's strict batch-at-a-time loop."""
+        if max_batch_size <= 0:
+            raise ValueError("max_batch_size must be positive")
+        if (submit_callback is None) != (collect_callback is None):
+            raise ValueError("submit_callback and collect_callback go together")
+        self._max_batch_size = int(max_batch_size)
+        self._timeout_s = float(timeout_ms) / 1000.0
+        self._linger_s = float(linger_ms) / 1000.0
+        self._callback = callback
+        self._submit_cb = submit_callback
+        self._collect_cb = collect_callback
+        # Guarded: a readiness probe that raises (e.g. on an errored device
+        # buffer) must degrade to "not ready" — the real error surfaces in
+        # collect — never unwind the dispatch thread (which would hang every
+        # caller forever with _running still True).
+        if ready_callback is None:
+            self._ready_cb = None
+        else:
+            def _safe_ready(handle, _cb=ready_callback):
+                try:
+                    return bool(_cb(handle))
+                except Exception:
+                    return False
+            self._ready_cb = _safe_ready
+        self._depth = max(1, int(pipeline_depth)) if submit_callback else 1
+        self._name = name
+        # Tracing hook: called on the dispatch thread after each successful
+        # batch with (requests, BatchTiming). Guarded — a broken observer
+        # must never unwind the dispatch loop.
+        self._observer = observer
+        # Entries are (request, future, deadline-or-None, enqueue-perf-ts).
+        # Expired entries are failed at batch-formation time instead of
+        # burning a batch row on a client that already gave up (resilience
+        # layer); the timestamp feeds the queue_wait tracing span.
+        self._queue: List[Tuple[Request, Future, Optional[Deadline], float]] = []
+        self.deadline_dropped = 0  # expired-in-queue count (observability)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self._metrics = BatcherMetrics()
+        self._processed_requests = 0  # drives avg_batch_size, like reference :168
+        self._metrics_lock = threading.Lock()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        with self._lock:
+            if self._running:
+                return
+            self._running = True
+        self._thread = threading.Thread(
+            target=self._processing_loop, name=self._name, daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        # Fail any stragglers left in the queue (reference drains on stop
+        # implicitly by destructing promises; we fail them explicitly).
+        with self._lock:
+            pending, self._queue = self._queue, []
+        for _, fut, _dl, _t in pending:
+            if not fut.done():
+                fut.set_exception(RuntimeError("batch processor stopped"))
+
+    @property
+    def running(self) -> bool:
+        return self._running
+
+    # -- request path --------------------------------------------------------
+
+    def process(self, request: Request, timeout: Optional[float] = None,
+                deadline: Optional[Deadline] = None) -> Response:
+        """Enqueue and block until the batch containing this request returns
+        (reference ``batch_processor.h:91-103``)."""
+        fut = self.submit(request, deadline=deadline)
+        return fut.result(timeout=timeout)
+
+    def submit(self, request: Request,
+               deadline: Optional[Deadline] = None) -> "Future":
+        """Non-blocking enqueue returning the future (enables async callers —
+        capability the reference's blocking-only API lacks). An expired
+        ``deadline`` at batch-formation time fails the future with
+        ``DeadlineExceeded`` instead of occupying a batch row."""
+        fut: Future = Future()
+        with self._cv:
+            if not self._running:
+                raise RuntimeError("batch processor is not running")
+            self._queue.append((request, fut, deadline, time.perf_counter()))
+            self._cv.notify()
+        with self._metrics_lock:
+            self._metrics.total_requests += 1
+        return fut
+
+    # -- dispatch loop -------------------------------------------------------
+
+    def _processing_loop(self) -> None:
+        # Entries: (batch, queue_waits_us, handle, timed_out, t_submit).
+        inflight: List[tuple] = []
+        while True:
+            with self._cv:
+                if self._queue or inflight:
+                    # Work pending somewhere — don't sleep on the timer.
+                    timed_out = not bool(self._queue)
+                else:
+                    timed_out = not self._cv.wait_for(
+                        lambda: bool(self._queue) or not self._running,
+                        timeout=self._timeout_s,
+                    )
+                if not self._running:
+                    break
+                if (self._linger_s > 0 and not inflight and self._queue
+                        and len(self._queue) < self._max_batch_size):
+                    # Optional accumulation window for fuller device batches
+                    # (skipped while pipelining — in-flight work already
+                    # absorbs the arrival jitter linger exists for).
+                    deadline = time.monotonic() + self._linger_s
+                    while len(self._queue) < self._max_batch_size:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0 or not self._cv.wait(timeout=remaining):
+                            timed_out = True
+                            break
+                        if not self._running:
+                            return
+                # While batches are in flight, hold back partial batches —
+                # the device is busy anyway, and the queue fills to a whole
+                # batch in the meantime (fewer, fuller round-trips). The
+                # hold is bounded: with spare pipeline slots we linger at
+                # most timeout_ms (the batcher's documented dispatch bound)
+                # then dispatch whatever queued; with the pipeline full the
+                # collect below blocks anyway. An idle pipeline dispatches
+                # partials immediately (latency path).
+                if (self._submit_cb is not None and inflight
+                        and 0 < len(self._queue) < self._max_batch_size):
+                    if len(inflight) >= self._depth:
+                        batch = []
+                    else:
+                        # Bounded linger, cut short the moment the oldest
+                        # in-flight batch completes — its callers must not
+                        # wait out the fill window for ready results.
+                        deadline = time.monotonic() + self._timeout_s
+                        timed_out = False
+                        while (self._running
+                               and len(self._queue) < self._max_batch_size):
+                            if (self._ready_cb is not None
+                                    and self._ready_cb(inflight[0][2])):
+                                break
+                            remaining = deadline - time.monotonic()
+                            if remaining <= 0:
+                                timed_out = True
+                                break
+                            self._cv.wait(timeout=min(remaining, 0.002))
+                        if not self._running:
+                            break
+                        batch, waits = self._take_batch_locked()
+                else:
+                    batch, waits = self._take_batch_locked()
+            if batch:
+                if self._submit_cb is None:
+                    self._process_batch(batch, timed_out, waits)
+                    continue
+                t_submit = time.perf_counter()
+                handle = self._submit(batch)
+                if handle is not None:
+                    inflight.append((batch, waits, handle, timed_out,
+                                     t_submit))
+            # Collect the oldest unless queued work can dispatch into spare
+            # pipeline slots (the bounded linger above decides whether it
+            # goes out partial or full). A completed oldest batch is always
+            # collected first — it resolves callers without blocking.
+            while inflight:
+                oldest_ready = (self._ready_cb is not None
+                                and self._ready_cb(inflight[0][2]))
+                with self._lock:
+                    qlen = len(self._queue)
+                if qlen > 0 and len(inflight) < self._depth and not oldest_ready:
+                    break
+                self._collect(*inflight.pop(0))
+        for entry in inflight:  # shutdown: drain what was already dispatched
+            self._collect(*entry)
+
+    def _take_batch_locked(self) -> Tuple[List[Tuple[Request, Future]],
+                                          List[float]]:
+        """Take up to max_batch_size live entries off the queue (caller
+        holds the lock). Entries whose deadline expired while queued are
+        failed with DeadlineExceeded and never enter a batch — the
+        resilience layer's 'don't burn a batch row for a client that gave
+        up'. One del at the end keeps extraction O(queue) — per-element
+        pop(0) would shift the whole backlog per item inside this critical
+        section, exactly when the queue is deepest. Returns the batch and
+        each member's queue wait (µs, submit→now) for the tracing
+        observer."""
+        batch: List[Tuple[Request, Future]] = []
+        waits: List[float] = []
+        now = time.perf_counter()
+        taken = 0
+        for req, fut, dl, t_enq in self._queue:
+            taken += 1
+            if dl is not None and dl.expired():
+                self.deadline_dropped += 1
+                if not fut.done():
+                    fut.set_exception(DeadlineExceeded(
+                        "deadline expired while queued for batching"))
+                continue
+            batch.append((req, fut))
+            waits.append((now - t_enq) * 1e6)
+            if len(batch) >= self._max_batch_size:
+                break
+        del self._queue[:taken]
+        return batch, waits
+
+    def _submit(self, batch: List[Tuple[Request, Future]]):
+        try:
+            return self._submit_cb([r for r, _ in batch])
+        except Exception as exc:
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(exc)
+            return None
+
+    def _collect(self, batch: List[Tuple[Request, Future]],
+                 waits: List[float], handle, is_timeout: bool,
+                 t_submit: Optional[float] = None) -> None:
+        self._fan_out(batch, lambda: self._collect_cb(handle), is_timeout,
+                      waits, t0=t_submit)
+
+    def _process_batch(
+        self, batch: List[Tuple[Request, Future]], is_timeout: bool,
+        waits: List[float],
+    ) -> None:
+        self._fan_out(batch, lambda: self._callback([r for r, _ in batch]),
+                      is_timeout, waits)
+
+    def _fan_out(self, batch: List[Tuple[Request, Future]],
+                 produce: Callable[[], Sequence[Response]],
+                 is_timeout: bool, waits: List[float],
+                 t0: Optional[float] = None) -> None:
+        """Resolve one batch's futures from `produce()`: one response per
+        request, too-few responses fail the extras (reference
+        ``batch_processor.h:148-155``), an exception fans out to every
+        caller (``:171-180``) and updates no metrics (``:157-169`` sit
+        inside the reference's try block). ``t0``: dispatch start for the
+        pipelined path, so compute_us spans the batch's full device
+        residence (submit→collect), matching inference_time_us."""
+        t_start = t0 if t0 is not None else time.perf_counter()
+        try:
+            responses = produce()
+            compute_us = (time.perf_counter() - t_start) * 1e6
+            for i, (_, fut) in enumerate(batch):
+                if i < len(responses):
+                    fut.set_result(responses[i])
+                else:
+                    fut.set_exception(RuntimeError("no response for batched request"))
+        except Exception as exc:
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(exc)
+            return
+        self._record(len(batch), is_timeout)
+        if self._observer is not None:
+            try:
+                self._observer(
+                    [r for r, _ in batch],
+                    BatchTiming(queue_wait_us=waits,
+                                batch_form_us=max(waits) if waits else 0.0,
+                                compute_us=compute_us,
+                                timed_out=is_timeout))
+            except Exception:
+                pass  # telemetry must never unwind the dispatch thread
+
+    def _record(self, batch_size: int, is_timeout: bool) -> None:
+        with self._metrics_lock:
+            self._processed_requests += batch_size
+            self._metrics.total_batches += 1
+            if is_timeout:
+                self._metrics.timeout_batches += 1
+            else:
+                self._metrics.full_batches += 1
+
+    def get_metrics(self) -> BatcherMetrics:
+        with self._metrics_lock:
+            return BatcherMetrics(
+                total_requests=self._metrics.total_requests,
+                total_batches=self._metrics.total_batches,
+                timeout_batches=self._metrics.timeout_batches,
+                full_batches=self._metrics.full_batches,
+                processed_requests=self._processed_requests,
+            )

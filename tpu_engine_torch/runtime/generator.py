@@ -1,6 +1,8 @@
 """Decode helpers the continuous scheduler uses (counterpart of the
 helpers in ``tpu_engine/runtime/generator.py``): bucketing, right-padding,
-token counts, the repetition penalty and per-row sampling.
+token counts, the repetition penalty and per-row sampling; and ``Scorer``,
+the counterpart of ``Generator.score`` (teacher-forced scoring; the
+Generator's batch decode, beam search and fused decode are not ported).
 
 Sampling. Greedy rows (temperature 0) take the argmax and are exact.
 Sampled rows filter in the JAX order — temperature, then top_p and top_k
@@ -15,12 +17,15 @@ for token.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from tpu_engine_torch.models.registry import ModelSpec
+from tpu_engine_torch.models.transformer import transformer_apply
 from tpu_engine_torch.utils import prng
+from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> int:
@@ -121,3 +126,83 @@ def _sample(logits: torch.Tensor, seeds, positions, temperature,
     out = greedy.clone()
     out[idx] = drawn
     return out
+
+
+# The JAX Generator's default batch buckets, which its scorer pads to.
+SCORE_BATCH_BUCKETS = (1, 2, 4, 8)
+
+
+def power_of_two_buckets(max_seq: int) -> tuple:
+    """16, 32, ... below max_seq, then max_seq: the JAX generator's prompt
+    buckets."""
+    b, out = 16, []
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (max_seq,)
+
+
+class Scorer:
+    """Teacher-forced scoring of a decoder LM: per-token log P(completion
+    | prompt) in one forward (counterpart of ``Generator.score`` and
+    ``_score_batch``, with its batch and sequence buckets).
+
+    Each row is prompt (or [0] when empty) + completion, RIGHT-padded to
+    the group's sequence bucket (``power_of_two_buckets(max_seq)``);
+    batches pad to a bucket of ``SCORE_BATCH_BUCKETS`` and chunk at the
+    largest. The forward is one ``transformer_apply`` with the padding
+    mask (the flash kernel on the card); the result is the f32
+    ``log_softmax`` gathered at each completion token."""
+
+    def __init__(self, spec: ModelSpec, params, dtype: str = "bfloat16",
+                 device=None):
+        self.cfg = spec.config
+        self.device = resolve_device(device)
+        self._dtype = resolve_dtype(dtype)
+        self.prompt_buckets = power_of_two_buckets(self.cfg.max_seq)
+        self.params = params
+
+    def score(self, prompts: Sequence[Sequence[int]],
+              completions: Sequence[Sequence[int]]) -> List[List[float]]:
+        """len(completion) log-probabilities per row."""
+        if len(prompts) != len(completions):
+            raise ValueError("prompts and completions length mismatch")
+        out: List[List[float]] = []
+        max_bb = SCORE_BATCH_BUCKETS[-1]
+        for i in range(0, len(prompts), max_bb):
+            out.extend(self._score_batch(
+                [list(p) for p in prompts[i:i + max_bb]],
+                [list(c) for c in completions[i:i + max_bb]]))
+        return out
+
+    def _score_batch(self, prompts, completions) -> List[List[float]]:
+        n = len(prompts)
+        bb = pick_bucket(SCORE_BATCH_BUCKETS, n)
+        seqs = [(p or [0]) + c for p, c in zip(prompts, completions)]
+        longest = min(max(len(s) for s in seqs), self.cfg.max_seq)
+        sb = pick_bucket(self.prompt_buckets, longest)
+        tokens = np.zeros((bb, sb), np.int32)
+        attn = np.zeros((bb, sb), np.int32)
+        for r, s in enumerate(seqs):
+            if len(s) > sb:
+                raise ValueError(
+                    f"prompt+completion length {len(s)} exceeds the "
+                    f"largest sequence bucket {sb}")
+            tokens[r, :len(s)] = np.asarray(s, np.int32)
+            attn[r, :len(s)] = 1
+        with torch.inference_mode():
+            tok = torch.from_numpy(tokens).to(self.device)
+            logits = transformer_apply(
+                self.params, tok, self.cfg,
+                mask=torch.from_numpy(attn).to(self.device),
+                dtype=self._dtype)
+            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            # log P(tokens[:, i] | tokens[:, :i]) sits at row i - 1.
+            lp = logp.gather(-1, tok[:, 1:, None].long())[..., 0]
+            lp = lp.cpu().numpy()
+        results = []
+        for r in range(n):
+            start = max(len(prompts[r]), 1)  # an empty prompt scores pad 0
+            end = start + len(completions[r])
+            results.append([float(x) for x in lp[r, start - 1:end - 1]])
+        return results

@@ -67,9 +67,16 @@ row frees between ticks (chunks) and its stream ends. A request submitted
 with a ``Deadline`` is failed with ``DeadlineExceeded`` where the JAX
 scheduler fails it: before its prefill, before its row admission, or
 between ticks once the deadline passes mid-generation (the cancel path
-above; tokens already streamed stand). The state-slab and stateless
-modes, the host tier, migration, handoff, brownout and tensor parallelism
-are not yet ported and refuse.
+above; tokens already streamed stand).
+
+One-shot rows (``submit_infer``, ``submit_score``) ride the same loop as
+single-tick rows: each iteration, before the generative step, drains up to
+``n_slots`` pending one-shot requests, drops those whose deadline passed,
+and runs one grouped dispatch per kind (the engine's batched forward, the
+scorer's teacher-forced forward); a failed dispatch fails its group only.
+A stateless-family model (mlp, resnet) builds a lane whose rows are all
+one-shot. The state-slab mode, the host tier, migration, handoff,
+brownout and tensor parallelism are not yet ported and refuse.
 """
 
 from __future__ import annotations
@@ -101,6 +108,7 @@ from tpu_engine_torch.runtime.generator import (
     _sample,
     apply_repetition_penalty,
     pick_bucket,
+    power_of_two_buckets,
     right_pad_prompt,
     token_counts,
 )
@@ -148,6 +156,14 @@ class _Request:
     stream: Optional["queue.Queue"] = None
     streamed: int = 0
     deadline: Optional[Deadline] = None
+    # A one-shot row: ("infer", input_data, shape) or ("score", prompt,
+    # completion); None for a generation request.
+    oneshot: Optional[tuple] = None
+
+
+# Put on the ready queue by submit_infer/submit_score: wakes a decode loop
+# that waits for admissions, so one-shot work dispatches at once.
+_WAKE = object()
 
 
 class _Formed(NamedTuple):
@@ -338,6 +354,8 @@ class ContinuousGenerator:
         spec_draft_params=None,
         state_rows: int = 0,
         tp: int = 1,
+        infer_engine=None,
+        score_provider=None,
     ):
         """Arguments keep the JAX scheduler's names and meanings; the ones
         of modes not yet ported refuse when set. ``kv_block_size`` 0 picks
@@ -351,9 +369,21 @@ class ContinuousGenerator:
         ``spec_draft`` drafter ("ngram", or "model": ``spec_draft_model``
         with ``spec_draft_params``, its own seeded init when None).
         ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run
-        the plain PyTorch paths on the CPU."""
+        the plain PyTorch paths on the CPU.
+
+        One-shot rows: ``infer_engine`` (a ``runtime.engine.
+        InferenceEngine``) enables ``submit_infer``, ``score_provider`` (a
+        callable returning a ``runtime.generator.Scorer``) enables
+        ``submit_score``, on a generative lane beside its decode rows. A
+        model of the stateless family (no decoder config) builds a lane
+        whose rows are all one-shot."""
         if isinstance(model, str):
             model = create_model(model)
+        self._stateless = model.state_family == "stateless"
+        if self._stateless:
+            self._fence_stateless(kv_block_size, kv_blocks, kv_host_blocks,
+                                  kv_quantize, spec_k, mixed_step,
+                                  state_rows)
         if mixed_step and int(kv_block_size) <= 0:
             raise ValueError("mixed_step requires the paged KV cache "
                              "(set kv_block_size > 0)")
@@ -370,14 +400,20 @@ class ContinuousGenerator:
         if int(tp) > 1:
             _refuse("tensor-parallel serving (tp)")
         cfg = model.config
-        if not isinstance(cfg, TransformerConfig) or not cfg.causal:
+        if not self._stateless and (not isinstance(cfg, TransformerConfig)
+                                    or not cfg.causal):
             raise ValueError(f"model '{model.name}' is not a decoder "
                              f"transformer")
         self.spec = model
         self.cfg = cfg
         self.device = resolve_device(device)
         self._dtype = resolve_dtype(dtype)
-        self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
+        if self._stateless:
+            # One-shot rows have no sequence axis: max_seq only bounds the
+            # (never used) prompt buckets.
+            self.max_seq = int(max_seq) if max_seq else 16
+        else:
+            self.max_seq = min(max_seq or cfg.max_seq, cfg.max_seq)
         self.n_slots = int(n_slots)
         self._paged = int(kv_block_size) > 0
         self._mixed = bool(mixed_step)
@@ -394,13 +430,12 @@ class ContinuousGenerator:
             self._decode_horizon = self._spec_k + 1
         else:
             self._decode_horizon = 1 if self._mixed else self._step_chunk
-        b, buckets = 16, []
-        while b < self.max_seq:
-            buckets.append(b)
-            b *= 2
-        self._prompt_buckets = tuple(buckets) + (self.max_seq,)
-        self.params = params if params is not None else model.init(
-            rng_seed, device=self.device, dtype=self._dtype)
+        self._prompt_buckets = power_of_two_buckets(self.max_seq)
+        if self._stateless:
+            self.params = params  # the engine's; no generative forward
+        else:
+            self.params = params if params is not None else model.init(
+                rng_seed, device=self.device, dtype=self._dtype)
         # Every mode carries the prefix cache (idle in the paged modes, as
         # in the JAX scheduler), so stats() has one schema.
         self._prefix_cache = _PrefixCache(int(prefix_cache_mb) * (1 << 20))
@@ -411,7 +446,7 @@ class ContinuousGenerator:
         if self._paged:
             self._init_pool(cfg, int(kv_block_size), int(kv_blocks),
                             str(kv_quantize), bool(prefix_sharing))
-        else:
+        elif not self._stateless:
             self._caches = init_caches(cfg, self.n_slots, self.max_seq,
                                        self._dtype, self.device)
 
@@ -441,6 +476,26 @@ class ContinuousGenerator:
             maxsize=max(1, n))
         self._stats = {"admitted": 0, "completed": 0, "chunks": 0}
         self._stats_lock = threading.Lock()
+        self._infer_engine = infer_engine
+        self._score_provider = score_provider
+        # The stateless block exists iff one-shot rows can: a generative
+        # lane without them keeps its stats schema.
+        self._oneshot = (self._stateless or infer_engine is not None
+                         or score_provider is not None)
+        if self._oneshot:
+            self._stats["stateless"] = {
+                "admitted": 0, "completed": 0, "failed": 0,
+                "ticks": 0, "dispatches": 0, "infer_rows": 0,
+                "score_rows": 0, "full_dispatches": 0,
+                "deadline_dropped": 0,
+            }
+        # One-shot requests wait here (unbounded), not in the slot-bounded
+        # ready queue: they are members of the next tick's grouped
+        # dispatch and free their rows within it, so they never queue
+        # behind generative admissions that hold a row for a stream's
+        # life.
+        self._oneshot_ready: "queue.Queue[_Request]" = queue.Queue()
+        self._idle_wait = False  # the decode loop waits for admissions
         self._drafter = None
         if self._spec:
             if self._spec_k > self.max_seq - 2:
@@ -499,6 +554,37 @@ class ContinuousGenerator:
                                         name="continuous-decode", daemon=True)
         self._thread.start()
 
+    @staticmethod
+    def _fence_stateless(kv_block_size, kv_blocks, kv_host_blocks,
+                         kv_quantize, spec_k, mixed_step, state_rows) -> None:
+        """One-shot rows hold no generative state: every generative-state
+        knob refuses (the JAX scheduler's messages)."""
+        if int(kv_block_size) > 0 or int(kv_blocks) > 0:
+            raise ValueError(
+                "the stateless family has no KV cache: "
+                "kv_block_size/kv_blocks apply to kv_paged models")
+        if int(kv_host_blocks) > 0:
+            raise ValueError(
+                "kv_host_blocks applies to the kv_paged family's block "
+                "pool; the stateless family holds no KV blocks")
+        if kv_quantize:
+            raise ValueError(
+                "kv_quantize applies to the kv_paged family's block pool; "
+                "the stateless family holds no KV blocks")
+        if int(spec_k) > 0:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) requires the kv_paged "
+                "family: one-shot rows have no decode loop to speculate")
+        if mixed_step:
+            raise ValueError(
+                "mixed_step merges prefill and decode dispatches; the "
+                "stateless family has neither (one-shot rows already ride "
+                "one grouped dispatch per tick)")
+        if int(state_rows) > 0:
+            raise ValueError(
+                "state_rows applies to the state_slab family; the "
+                "stateless family has no recurrent state")
+
     def _init_pool(self, cfg: TransformerConfig, bs: int, kv_blocks: int,
                    kv_quantize: str, prefix_sharing: bool) -> None:
         """The paged modes' block pool, block tables and radix sharing."""
@@ -535,6 +621,11 @@ class ContinuousGenerator:
         lists as they decode, then a None sentinel. Cancelling the Future
         cancels the request. ``deadline``: the request fails with
         ``DeadlineExceeded`` once it passes (between ticks)."""
+        if self._stateless:
+            raise RuntimeError(
+                f"model '{self.spec.name}' serves the stateless family: no "
+                f"generation lane (the one-shot surfaces are "
+                f"submit_infer/submit_score)")
         if not self._running:
             raise RuntimeError("scheduler stopped")
         pens, stops = expand_stopping_params(1, repetition_penalty,
@@ -552,6 +643,63 @@ class ContinuousGenerator:
                        stop_tokens=stops[0], min_p=float(min_p),
                        stream=stream, deadline=deadline)
         self._queue.put(req)
+        return req.future
+
+    @property
+    def accepts_oneshot(self) -> bool:
+        """True when the scheduler serves one-shot /infer rows (it has an
+        infer_engine)."""
+        return self._infer_engine is not None
+
+    @property
+    def accepts_score(self) -> bool:
+        """True when the scheduler serves one-shot /score rows (it has a
+        score_provider)."""
+        return self._score_provider is not None
+
+    def submit_infer(self, input_data, shape=None,
+                     deadline: Optional[Deadline] = None) -> Future:
+        """Enqueue one stateless forward as a single-tick row: the next
+        tick's grouped dispatch runs it with the other pending /infer rows
+        through the engine's batched forward. Resolves to (output row,
+        per-request time in us); the row equals ``batch_predict``'s row
+        for the same co-batched inputs."""
+        if self._infer_engine is None:
+            raise RuntimeError(
+                "submit_infer requires an infer_engine: construct the "
+                "scheduler with infer_engine=<InferenceEngine>")
+        return self._submit_oneshot(("infer", input_data,
+                                     tuple(int(d) for d in shape)
+                                     if shape is not None else None),
+                                    deadline)
+
+    def submit_score(self, prompt_tokens, completion_tokens,
+                     deadline: Optional[Deadline] = None) -> Future:
+        """Enqueue one teacher-forced scoring request as a single-tick row
+        (per-token log P(completion | prompt), one forward per tick's
+        group). Resolves to (logprobs, per-request time in us)."""
+        if self._score_provider is None:
+            raise RuntimeError(
+                "submit_score requires a score_provider: construct the "
+                "scheduler with score_provider=<callable returning a "
+                "scoring Generator>")
+        return self._submit_oneshot(("score",
+                                     [int(t) for t in prompt_tokens],
+                                     [int(t) for t in completion_tokens]),
+                                    deadline)
+
+    def _submit_oneshot(self, oneshot: tuple,
+                        deadline: Optional[Deadline]) -> Future:
+        if not self._running:
+            raise RuntimeError("scheduler stopped")
+        req = _Request([], 0, -1, 0.0, 0, 1.0, 0, deadline=deadline,
+                       oneshot=oneshot)
+        self._oneshot_ready.put(req)
+        if self._idle_wait:
+            try:  # wake the loop from its wait for admissions
+                self._ready.put_nowait(_WAKE)
+            except queue.Full:
+                pass  # the loop is admitting anyway
         return req.future
 
     def generate(self, prompts, max_new_tokens: int = 32, eos_id: int = -1,
@@ -593,6 +741,9 @@ class ContinuousGenerator:
                 round(spec["emitted_tokens"] / spec["row_ticks"], 3)
                 if spec["row_ticks"] else None)
             out["spec"] = spec
+        if self._oneshot:
+            with self._stats_lock:
+                out["stateless"] = dict(self._stats["stateless"])
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3),
@@ -612,7 +763,7 @@ class ContinuousGenerator:
                 item = self._ready.get_nowait()
             except queue.Empty:
                 break
-            if item is not None:
+            if item is not None and item is not _WAKE:
                 self._discard_item(item)
                 self._fail_request(item.req,
                                    RuntimeError("scheduler stopped"))
@@ -724,14 +875,16 @@ class ContinuousGenerator:
         if hit_eos or budget or out_of_cache or self._done[row]:
             toks = self._visible_tokens(row, req)
             self._push_stream(row, req)
+            # Row freed and counted before the client sees the result, so
+            # stats() read after it never shows a half-finished request.
+            self._free_row(row)
+            self._bump("completed")
             try:
                 req.future.set_result(toks)
             except InvalidStateError:
                 pass  # cancelled by the client meanwhile
             if req.stream is not None:
                 req.stream.put(None)
-            self._free_row(row)
-            self._stats["completed"] += 1
 
     def _cancel_rows(self) -> None:
         """Free the rows whose Future the client cancelled, or whose
@@ -1683,6 +1836,8 @@ class ContinuousGenerator:
         self._done[:] = True
         self._bump("failures")
         self._counts = None
+        if self._stateless:
+            return
         if not self._paged:
             self._caches = init_caches(self.cfg, self.n_slots, self.max_seq,
                                        self._dtype, self.device)
@@ -1706,6 +1861,99 @@ class ContinuousGenerator:
             self._bump("recover_invariant_violations", len(violations))
             print(f"[scheduler] POST-RECOVER INVARIANT VIOLATED: "
                   f"{'; '.join(violations)}", flush=True)
+
+    # -- one-shot rows --------------------------------------------------------
+
+    def _tick_stateless(self) -> None:
+        """Drain up to ``n_slots`` pending one-shot requests, drop those
+        whose deadline passed (``deadline_dropped``), and run one grouped
+        dispatch per kind present: /infer rows through the engine's
+        batched forward, /score rows through the scorer's. Members take a
+        free row for the tick (overflow members ride the same dispatch
+        rowless) and free it within the tick."""
+        st = self._stats["stateless"]
+        pairs = []
+        free = self._free_rows()
+        while len(pairs) < self.n_slots:
+            try:
+                req = self._oneshot_ready.get_nowait()
+            except queue.Empty:
+                break
+            if req.future.cancelled():
+                self._bump("cancelled")
+                continue
+            if req.deadline is not None and req.deadline.expired():
+                with self._stats_lock:
+                    st["deadline_dropped"] += 1
+                self._bump("deadline_cancelled")
+                self._fail_request(req, DeadlineExceeded(
+                    "deadline expired before one-shot dispatch"))
+                continue
+            row = free.pop(0) if free else None
+            if row is not None:
+                self._row_req[row] = req
+            with self._stats_lock:
+                st["admitted"] += 1
+                self._stats["admitted"] += 1
+            pairs.append((row, req))
+        if not pairs:
+            return
+        with self._stats_lock:
+            st["ticks"] += 1
+        for kind in ("infer", "score"):
+            group = [(r, q) for r, q in pairs if q.oneshot[0] == kind]
+            if group:
+                self._dispatch_oneshot(kind, group, st)
+
+    def _dispatch_oneshot(self, kind: str, group, st: dict) -> None:
+        reqs = [q for _r, q in group]
+        t0 = time.perf_counter()
+        try:
+            if kind == "infer":
+                # Exactly the engine's batched forward, so a unified row
+                # equals the batch lane's for the same co-batched inputs.
+                shapes = [q.oneshot[2] for q in reqs]
+                eng = self._infer_engine
+                outs = eng.batch_collect(eng.batch_submit(
+                    [q.oneshot[1] for q in reqs],
+                    shapes=(shapes if any(s is not None for s in shapes)
+                            else None)))
+            else:
+                outs = self._score_provider().score(
+                    [q.oneshot[1] for q in reqs],
+                    [q.oneshot[2] for q in reqs])
+            if len(outs) != len(group):
+                raise RuntimeError(
+                    f"one-shot {kind} dispatch returned {len(outs)} "
+                    f"results for {len(group)} rows")
+        except Exception as exc:
+            # A failed dispatch fails exactly its group: no shared device
+            # state was written, so the scheduler keeps serving.
+            with self._stats_lock:
+                st["dispatches"] += 1
+                st["failed"] += len(group)
+            for r, q in group:
+                if r is not None:
+                    self._row_req[r] = None
+                self._fail_request(q, exc)
+            return
+        per_us = max(1, int((time.perf_counter() - t0) * 1e6
+                            / max(1, len(group))))
+        with self._stats_lock:
+            st["dispatches"] += 1
+            st[kind + "_rows"] += len(group)
+            if len(group) >= self.n_slots:
+                st["full_dispatches"] += 1
+        for (r, req), out in zip(group, outs):
+            if r is not None:
+                self._row_req[r] = None
+            with self._stats_lock:
+                st["completed"] += 1
+                self._stats["completed"] += 1
+            try:
+                req.future.set_result((out, per_us))
+            except InvalidStateError:
+                pass  # cancelled by the client meanwhile
 
     def _loop(self) -> None:
         try:
@@ -1731,9 +1979,15 @@ class ContinuousGenerator:
                     item = self._ready.get_nowait()
                 except queue.Empty:
                     break
-                if item is not None:
+                if item is not None and item is not _WAKE:
                     self._discard_item(item)
                     self._fail_request(item.req, exc)
+            while True:  # one-shot requests never dispatched
+                try:
+                    req = self._oneshot_ready.get_nowait()
+                except queue.Empty:
+                    break
+                self._fail_request(req, exc)
 
     def _loop_body(self) -> None:
         while self._running:
@@ -1749,14 +2003,26 @@ class ContinuousGenerator:
                 if from_pending:
                     item = self._pending[0]
                 else:
+                    # Idle: block briefly for an admission, or for a
+                    # one-shot submit's wake-up.
+                    idle = not admitted_any and len(free) == self.n_slots
+                    if idle:
+                        # Flag the wait before looking at the one-shot
+                        # queue: a submit that lands after the look sees
+                        # the flag and sends a wake-up.
+                        self._idle_wait = True
+                        idle = self._oneshot_ready.empty()
                     try:
-                        item = self._ready.get(
-                            timeout=0.02 if not admitted_any
-                            and len(free) == self.n_slots else 0.0)
+                        item = self._ready.get(timeout=0.02 if idle
+                                               else 0.0)
                     except queue.Empty:
                         break
+                    finally:
+                        self._idle_wait = False
                 if item is None:
                     return
+                if item is _WAKE:
+                    break  # one-shot work: dispatch it this tick
                 req = item.req
                 if req.future.cancelled():
                     if from_pending:
@@ -1814,6 +2080,10 @@ class ContinuousGenerator:
                     self._fail_request(req, exc)
                     self._recover(exc)
                     break
+            if self._oneshot:
+                # One-shot rows dispatch and free here, before the
+                # generative step, so they never meet its bookkeeping.
+                self._tick_stateless()
             if all(r is None for r in self._row_req):
                 continue
             try:

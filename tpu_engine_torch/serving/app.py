@@ -10,13 +10,24 @@ from tpu_engine_torch.serving.worker import WorkerNode
 from tpu_engine_torch.utils.config import WorkerConfig
 
 
-def serve_worker(config: WorkerConfig, params=None
+def serve_worker(config: WorkerConfig, params=None, warmup: bool = False
                  ) -> Tuple[WorkerNode, JsonHttpServer]:
     """Start a worker serving in a background thread on ``config.port``
-    (0 = any free port; the bound port is then ``server.port``). Returns
+    (0 = any free port; the bound port is then ``server.port``), after
+    running every /infer batch bucket once with ``warmup``. Returns
     (worker, server); the caller stops both."""
     worker = WorkerNode(config, params=params)
+    try:
+        if warmup:
+            worker.engine.warmup()
+    except BaseException:
+        worker.stop()
+        raise
     server = JsonHttpServer(config.port)
+    server.route("POST", "/infer",
+                 lambda body: (200, worker.handle_infer_raw(body)))
+    server.route("POST", "/score",
+                 lambda body: (200, worker.handle_score(body)))
     server.route("POST", "/generate",
                  lambda body: (200, worker.handle_generate(body)))
     server.route("POST", "/generate/stream",

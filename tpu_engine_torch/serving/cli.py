@@ -1,19 +1,29 @@
-"""Command line of the port (counterpart of the ``worker`` and ``train``
-commands of ``tpu_engine/serving/cli.py``):
+"""Command line of the port (counterpart of the ``worker``,
+``worker_node`` and ``train`` commands of ``tpu_engine/serving/cli.py``):
 
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
       [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
        [--mixed-step --mixed-token-budget N]
        [--spec-k K [--spec-draft ngram|model] [--gen-draft-model NAME]]]
-      [--step-chunk N] [--prefill-chunk N] [--n-slots N] [--device cpu]
-      [--dtype bfloat16] [--seed N]
+      [--step-chunk N] [--prefill-chunk N] [--n-slots N]
+      [--max-batch-size N] [--cache-capacity N] [--batch-timeout-ms MS]
+      [--pipeline-depth N] [--warmup] [--no-unified-stateless]
+      [--device cpu] [--dtype bfloat16] [--seed N]
+
+  python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
+      [<model_path>]] [--no-unified-stateless] [the worker's flags]
 
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
       [--out DIR] [--resume DIR/state] [--log-every N] [--seed N]
       [--device cpu]
 
-Worker: without ``--kv-block-size`` the lane runs the dense scheduler, the
+Worker: every lane serves /infer (the result cache, in-flight coalescing,
+and single-tick rows of its scheduler, or the dynamic batcher with
+``--no-unified-stateless``), /health and /stats. A config-less model
+(``mlp``, ``resnet50``, ``resnet50-v1``) serves /infer only. A decoder
+lane also serves /score, /generate and /generate/stream: without
+``--kv-block-size`` the lane runs the dense scheduler, the
 JAX worker's default: each prompt's forward on the prefill thread (one
 flash-attention prefill up to ``--prefill-chunk`` tokens, windows beyond),
 a 64 MB prompt prefix cache, and ``--step-chunk``-step decode chunks over
@@ -27,8 +37,15 @@ from a draft model (``--gen-draft-model``, default by the target: gpt2 ->
 distilgpt2, randomly initialised), verified in the tick's one ragged forward. ``<model>`` is a
 registry name (seeded random weights) or a checkpoint directory holding
 the ``tpu_engine_model.json`` sidecar the ``train`` command writes (its
-trained weights, served at ``--dtype``). The worker serves /generate,
-/generate/stream, /health and /stats until SIGTERM or SIGINT.
+trained weights, served at ``--dtype``). The worker serves until SIGTERM
+or SIGINT.
+
+worker_node: the argv of the reference's launch line (``worker_node 8001
+worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
+``worker_<port>``, the model to ``$MODEL_PATH`` or ``resnet50``, and a
+path names its registry model (``resnet50-v2-7.onnx`` -> ``resnet50``);
+the port loads no ONNX graph, so a path to an existing ``.onnx`` file
+refuses by name.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -69,14 +86,7 @@ def resolve_model(model_arg: str, device=None, dtype="bfloat16"):
     return name, load_params(model_arg, device=device, dtype=dtype)
 
 
-def _worker(argv) -> int:
-    from tpu_engine_torch.serving.app import serve_worker
-    from tpu_engine_torch.utils.config import WorkerConfig
-
-    p = argparse.ArgumentParser(prog="tpu_engine_torch.serving.cli worker")
-    p.add_argument("port", type=int)
-    p.add_argument("node_id")
-    p.add_argument("model")
+def _add_worker_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--kv-block-size", type=int, default=0)
     p.add_argument("--kv-blocks", type=int, default=0)
     p.add_argument("--kv-quantize", default="",
@@ -98,17 +108,41 @@ def _worker(argv) -> int:
     p.add_argument("--gen-draft-model", default=None,
                    help="draft model for --spec-draft model (default: "
                         "by the target, e.g. gpt2 -> distilgpt2)")
-    p.add_argument("--n-slots", type=int, default=8)
+    p.add_argument("--n-slots", type=int, default=8,
+                   help="decode rows of a decoder lane's scheduler")
+    p.add_argument("--max-batch-size", type=int, default=32,
+                   help="largest /infer batch: the batcher's cap and a "
+                        "stateless lane's rows per tick (default 32)")
+    p.add_argument("--cache-capacity", type=int, default=1000,
+                   help="result-cache entries per lane (default 1000)")
+    p.add_argument("--batch-timeout-ms", type=float, default=20.0,
+                   help="dynamic batcher flush timeout (default 20)")
+    p.add_argument("--pipeline-depth", type=int, default=4,
+                   help="submitted batches kept in flight on the miss "
+                        "path (default 4)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every batch bucket once before listening")
+    p.add_argument("--no-unified-stateless", action="store_true",
+                   help="serve /infer misses and /score through the "
+                        "dedicated batch processors instead of "
+                        "single-tick rows in the continuous scheduler")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"))
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
-    a = p.parse_args(argv)
-    model, params = resolve_model(a.model, device=a.device, dtype=a.dtype)
-    cfg = WorkerConfig(port=a.port, node_id=a.node_id, model=model,
-                       dtype=a.dtype, gen_max_batch_size=a.n_slots,
+
+
+def _serve(a, node_id: str, model: str, params=None,
+           model_path=None) -> int:
+    """Serve one worker from parsed flags until SIGTERM or SIGINT."""
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    cfg = WorkerConfig(port=a.port, node_id=node_id, model=model,
+                       model_path=model_path, dtype=a.dtype,
+                       gen_max_batch_size=a.n_slots,
                        gen_step_chunk=a.step_chunk,
                        gen_prefill_chunk=a.prefill_chunk,
                        gen_kv_block_size=a.kv_block_size,
@@ -119,10 +153,15 @@ def _worker(argv) -> int:
                        gen_continuous_spec_k=a.spec_k,
                        gen_spec_draft=a.spec_draft,
                        gen_draft_model=a.gen_draft_model,
+                       max_batch_size=a.max_batch_size,
+                       cache_capacity=a.cache_capacity,
+                       batch_timeout_ms=a.batch_timeout_ms,
+                       pipeline_depth=a.pipeline_depth,
+                       unified_stateless=not a.no_unified_stateless,
                        device=a.device, seed=a.seed)
-    worker, server = serve_worker(cfg, params=params)
+    worker, server = serve_worker(cfg, params=params, warmup=a.warmup)
     print(f"tpu_engine_torch worker {cfg.node_id} ({cfg.model}, "
-          f"{worker.generator.device}) listening on port {server.port}",
+          f"{worker.engine.device}) listening on port {server.port}",
           flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -136,6 +175,66 @@ def _worker(argv) -> int:
         server.stop()
         worker.stop()
     return 0
+
+
+def _worker(argv) -> int:
+    p = argparse.ArgumentParser(prog="tpu_engine_torch.serving.cli worker")
+    p.add_argument("port", type=int)
+    p.add_argument("node_id")
+    p.add_argument("model")
+    _add_worker_flags(p)
+    a = p.parse_args(argv)
+    model, params = resolve_model(a.model, device=a.device, dtype=a.dtype)
+    return _serve(a, a.node_id, model, params)
+
+
+def worker_node_args(argv):
+    """(parsed flags, node id, model, model path) of a ``worker_node``
+    command line, as the JAX command resolves them: the node id defaults
+    to ``worker_<port>``, the model argument to ``$MODEL_PATH`` or
+    ``resnet50``. A name or a path to nothing is named by
+    ``model_from_path`` (model path None); an existing path is the model
+    path (a checkpoint), except that an existing ``.onnx`` file refuses:
+    the port loads no ONNX graph."""
+    from tpu_engine_torch.models.registry import model_from_path
+
+    p = argparse.ArgumentParser(prog="worker_node")
+    p.add_argument("port", type=int)
+    p.add_argument("node_id", nargs="?", default=None)
+    p.add_argument("model_arg", nargs="?", default=None)
+    _add_worker_flags(p)
+    a = p.parse_args(argv)
+    node_id = a.node_id or f"worker_{a.port}"
+    model_arg = a.model_arg or os.environ.get("MODEL_PATH", "resnet50")
+    model_path = model_arg if os.path.exists(model_arg) else None
+    if model_path and model_path.endswith(".onnx"):
+        raise NotImplementedError(
+            f"serving the ONNX graph '{model_path}' (models/onnx_graph.py) "
+            f"is not yet ported to tpu_engine_torch; pass a registry model "
+            f"name instead")
+    if model_path:
+        return a, node_id, model_path, model_path
+    return a, node_id, model_from_path(model_arg), None
+
+
+def _worker_node(argv) -> int:
+    if not argv:
+        print("Usage: worker_node <port> <node_id> [model_path] "
+              "[--no-unified-stateless] [--kv-block-size N] ...")
+        return 1
+    a, node_id, model, model_path = worker_node_args(argv)
+    params = None
+    if model_path:
+        # A train checkpoint (with its sidecar) serves; other checkpoint
+        # formats are not loaded by the port.
+        model, params = resolve_model(model_path, device=a.device,
+                                      dtype=a.dtype)
+        if params is None:
+            raise NotImplementedError(
+                f"loading the checkpoint '{model_path}' is not yet ported "
+                f"to tpu_engine_torch (only the train command's "
+                f"<out>/params)")
+    return _serve(a, node_id, model, params)
 
 
 def train(argv, params=None) -> int:
@@ -256,6 +355,8 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "worker":
         return _worker(argv[1:])
+    if argv and argv[0] == "worker_node":
+        return _worker_node(argv[1:])
     if argv and argv[0] == "train":
         return train(argv[1:])
     print(__doc__)

@@ -2,8 +2,9 @@
 endpoints: the port's own copy of ``JsonHttpServer`` and ``sse_event``
 from ``tpu_engine/serving/http.py`` (stdlib only).
 
-Handlers return ``(status, payload)``; a payload that is an iterator of
-byte chunks is sent as a chunked Server-Sent-Events stream. A
+Handlers return ``(status, payload)``; a payload of bytes is sent as it
+is (the /infer response, already serialized), one that is an iterator of
+byte chunks as a chunked Server-Sent-Events stream. A
 ``ShedError`` (an expired deadline) maps to 503 with ``Retry-After`` and
 ``{"error", "kind"}``; KeyError, ValueError and TypeError map to 400,
 NotImplementedError and every other exception to 500, with

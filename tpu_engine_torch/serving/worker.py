@@ -1,49 +1,81 @@
-"""The port's generation worker (counterpart of the /generate half of
-``tpu_engine/serving/worker.py``): one continuous scheduler (dense, the
-default lane, or paged: mixed stepping or two-path, bf16/f32 or int8
-pool, with continuous speculation under ``gen_continuous_spec_k``) behind
-``/generate``,
-``/generate/stream`` (SSE), ``/health`` and ``/stats``, with the JAX
-worker's wire fields.
+"""The port's worker lane (counterpart of ``tpu_engine/serving/worker.py``):
+one engine and one continuous scheduler behind ``/infer``, ``/score``,
+``/generate``, ``/generate/stream``, ``/health`` and ``/stats``, with the
+JAX worker's wire fields.
 
-Wire: ``/generate`` takes ``{request_id, prompt_tokens, max_new_tokens?,
-eos_id?, temperature?, seed?, top_p?, top_k?, repetition_penalty?,
-stop_tokens?, min_p?, deadline_ms?, model?}`` and answers ``{request_id,
-tokens, node_id, generate_time_us}``. ``/generate/stream`` sends
-``{"tokens": [...]}`` events as tokens decode, then a terminal
-``{"done": true, ...}`` event with the blocking endpoint's fields, or
-with ``error``, ``retryable`` and ``tokens_emitted`` when the stream
-failed. As in the JAX worker, a ``model`` other than the lane's is a 400;
-a negative or NaN ``deadline_ms`` is a 400; a request whose deadline has
-passed at admission is a 503 with ``Retry-After`` (before a stream
-commits to 200); and a row whose deadline passes mid-generation is
-cancelled between ticks (blocking: 503; stream: the terminal error
-event, not retryable).
+Lanes. A decoder model (the gpt2 and llama families) gets the continuous
+scheduler: dense, the default lane, or paged (mixed stepping or two-path,
+bf16/f32 or int8 pool, with continuous speculation under
+``gen_continuous_spec_k``). A config-less model (``mlp``, ``resnet50``,
+``resnet50-v1``; the default ``resnet50``) serves only /infer: with
+``unified_stateless`` on (the default) its scheduler's rows are all
+one-shot (``n_slots = max_batch_size``, no prefix cache). With
+``unified_stateless`` on, /infer misses and /score requests ride the
+scheduler as single-tick rows; with it off, /infer goes through the
+dynamic batcher (``runtime.batch_processor``) and /score through a batcher
+of its own.
 
-A speculative lane's ``/stats`` and ``/health`` carry the scheduler's
-``spec`` block. A misconfigured one refuses at startup with the JAX
-worker's messages (``--spec-k`` without ``--kv-block-size``, a k the
-model's max_seq cannot hold, an unknown ``--spec-draft``, no draft model
-for the target, a draft vocab other than the target's); a draft model
-without weights is randomly initialised, with the JAX worker's warning.
+/infer: ``{request_id, input_data, shape?, model?, deadline_ms?}`` ->
+``{request_id, output_data, node_id, cached, inference_time_us}``. The
+result cache (an LRU of ``cache_capacity`` entries) is keyed by the input's
+float32 bytes (and its shape when given); a hit answers ``cached: true``
+with ``inference_time_us = fake_cached_latency_us``. Concurrent identical
+misses coalesce: one leader dispatches, followers wait for its result (a
+leader's ``DeadlineExceeded`` retires the entry and each follower retries
+on its own budget; any other error reaches the followers unchanged). The
+cached value is the response's pre-encoded ``output_data`` fragment
+(``_encode_output``: the JAX worker's native encoder's bytes).
 
-``/health`` carries the JAX lane's keys at defaults: the ``/infer``
-result cache's (``cache_hits``, ``cache_size``, ``cache_hit_rate``) and
-``batch_processor``, and the generator's ``stateless`` block, all idle
-with zero counts, since the port serves no one-shot rows yet.
+/score: ``{request_id, prompt_tokens, completion_tokens}`` ->
+``{request_id, logprobs, total_logprob, node_id, score_time_us}`` on
+decoder lanes; an empty completion and a row longer than the largest
+sequence bucket are 400s.
+
+/generate: ``{request_id, prompt_tokens, max_new_tokens?, eos_id?,
+temperature?, seed?, top_p?, top_k?, repetition_penalty?, stop_tokens?,
+min_p?, deadline_ms?, model?}`` -> ``{request_id, tokens, node_id,
+generate_time_us}``; ``/generate/stream`` sends ``{"tokens": [...]}``
+events, then a terminal ``{"done": true, ...}`` event with the blocking
+endpoint's fields, or with ``error``, ``retryable`` and ``tokens_emitted``.
+A stateless lane refuses /generate with the JAX worker's 400.
+
+As in the JAX worker, a ``model`` other than the lane's is a 400; a
+negative or NaN ``deadline_ms`` is a 400; a request whose deadline has
+passed at admission is a 503 with ``Retry-After``; a row whose deadline
+passes mid-generation is cancelled between ticks. Misconfigured lanes
+refuse at startup with the JAX worker's messages.
+
+``/health`` has the JAX lane's keys: ``cache_hits``, ``cache_size`` and
+``cache_hit_rate`` of the result cache, the batcher's four-key
+``batch_processor`` block (on a stateless lane the scheduler's one-shot
+dispatch counters fold into it, and no ``generator`` key appears), and on
+decoder lanes the scheduler's stats under ``generator``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 import time
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from tpu_engine_torch.core.lru_cache import LRUCache
 from tpu_engine_torch.models.registry import ModelSpec, create_model
+from tpu_engine_torch.runtime.batch_processor import BatchProcessor
+from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.utils.config import WorkerConfig
-from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
+from tpu_engine_torch.utils.deadline import (
+    Deadline,
+    DeadlineExceeded,
+    clamp_timeout,
+)
 from tpu_engine_torch.utils.sampling import (
     clamp_top_k,
     expand_stopping_params,
@@ -51,13 +83,65 @@ from tpu_engine_torch.utils.sampling import (
 )
 
 
+@dataclass
+class _BatchItem:
+    request_id: str
+    input_data: Sequence[float]
+    shape: Optional[tuple] = None
+
+
+@dataclass
+class _BatchResult:
+    output_data: np.ndarray
+    inference_time_us: int
+
+
+@dataclass
+class _ScoreItem:
+    request_id: str
+    prompt: List[int]
+    completion: List[int]
+
+
+class _Inflight:
+    """One in-flight computation shared by concurrent identical misses."""
+
+    __slots__ = ("event", "frag", "time_us", "error")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.frag: Optional[bytes] = None
+        self.time_us = 0
+        self.error: Optional[BaseException] = None
+
+
+def _format_f32(v: float) -> str:
+    if v != v:
+        return "NaN"
+    if v in (float("inf"), float("-inf")):
+        return "Infinity" if v > 0 else "-Infinity"
+    return "%.6g" % v
+
+
+def _encode_output(arr) -> bytes:
+    """The ``output_data`` JSON fragment of a float array: ``[a,b,...]``
+    with six significant digits (``%.6g``, locale-free), ``NaN``,
+    ``Infinity`` and ``-Infinity``: the bytes of the JAX worker's native
+    encoder (``tpu_json_encode_f32``)."""
+    a = np.ascontiguousarray(arr, dtype=np.float32).ravel()
+    vals = a.astype(np.float64).tolist()
+    fmt = "%.6g".__mod__ if bool(np.isfinite(a).all()) else _format_f32
+    return ("[" + ",".join(map(fmt, vals)) + "]").encode()
+
+
 class WorkerNode:
     def __init__(self, config: WorkerConfig, params=None):
-        """``params``: the model's parameter tree (``models.convert``);
-        None draws seeded random weights (``config.seed``) on the lane's
-        device."""
+        """``params``: the model's parameter tree (``models.convert``) on
+        the lane's device; None draws seeded random weights
+        (``config.seed``)."""
         self.config = config
         self.node_id = config.node_id
+        self._node_id_json = json.dumps(self.node_id).encode()
         if config.gen_kv_quantize and config.gen_kv_block_size <= 0:
             # The JAX worker's guard, with its message: a lane asked for
             # the int8 pool never quietly serves the full-precision one.
@@ -71,22 +155,102 @@ class WorkerNode:
             raise RuntimeError(
                 "gen_draft_path (--gen-draft-path): loading draft weights "
                 "is not yet ported to tpu_engine_torch")
+        path = config.model_path or ""
+        if path.endswith(".onnx") and os.path.exists(path):
+            raise NotImplementedError(
+                f"serving the ONNX graph '{path}' (models/onnx_graph.py) is "
+                f"not yet ported to tpu_engine_torch; name a registry model")
         spec = create_model(config.model)
+        if spec.state_family == "stateless":
+            self._fence_stateless(spec)
+        self.engine = InferenceEngine(
+            spec, params=params, rng_seed=config.seed, dtype=config.dtype,
+            batch_buckets=config.batch_buckets, device=config.device)
+        self.cache = LRUCache(config.cache_capacity)
+        self.batch_processor: BatchProcessor[_BatchItem, _BatchResult] = \
+            BatchProcessor(config.max_batch_size, config.batch_timeout_ms,
+                           lambda items: self._collect_batch(
+                               self._submit_batch(items)),
+                           linger_ms=config.batch_linger_ms,
+                           name=f"{self.node_id}-batcher",
+                           submit_callback=self._submit_batch,
+                           collect_callback=self._collect_batch,
+                           ready_callback=(lambda s: self.engine.handle_ready(
+                               s[0])),
+                           pipeline_depth=config.pipeline_depth)
+        self.batch_processor.start()
+        self._unified = bool(config.unified_stateless)
+        self._score_proc: Optional[BatchProcessor] = None
+        self._scorer = None
+        self._counter_lock = threading.Lock()
+        self.generator: Optional[ContinuousGenerator] = None
+        try:
+            self.generator = self._build_generator(spec)
+        except BaseException:
+            self.batch_processor.stop()
+            raise
+        self._total_requests = 0
+        self._cache_hits = 0
+        # Bumped by apply_weights: a result computed under older weights
+        # never enters the cleared cache (check and put under one lock).
+        self._weights_gen = 0
+        self._reload_lock = threading.Lock()
+        # In-flight coalescing: concurrent identical misses share one
+        # dispatch.
+        self._inflight: dict = {}
+        self._inflight_lock = threading.Lock()
+
+    def _fence_stateless(self, spec: ModelSpec) -> None:
+        """A stateless model refuses every generative knob (the JAX
+        worker's messages; --spec-k first, so a speculation request gets
+        the speculative diagnosis even with KV knobs set)."""
+        cfg = self.config
+        if cfg.gen_continuous_spec_k > 0:
+            raise RuntimeError(
+                f"speculative lane misconfigured: --spec-k requires a "
+                f"generation-capable family; model '{spec.name}' serves "
+                f"the stateless family (one-shot rows have no decode loop "
+                f"to speculate)")
+        if (cfg.gen_kv_block_size > 0 or cfg.gen_kv_blocks > 0
+                or cfg.gen_kv_quantize):
+            raise RuntimeError(
+                "stateless-family models have no KV cache: "
+                "--kv-block-size/--kv-blocks/--kv-host-blocks/"
+                "--kv-quantize apply to the kv_paged family")
+        if cfg.gen_mixed_step:
+            raise RuntimeError(
+                "--mixed-step merges prefill and decode dispatches; "
+                "stateless-family models have neither (one-shot rows "
+                "already ride one grouped dispatch per tick)")
+
+    def _build_generator(self, spec: ModelSpec
+                         ) -> Optional[ContinuousGenerator]:
+        cfg = self.config
+        if spec.state_family == "stateless":
+            if not self._unified:
+                return None
+            # All rows one-shot: the dispatch width is the batcher's.
+            return ContinuousGenerator(
+                spec, params=self.engine.params, dtype=cfg.dtype,
+                n_slots=cfg.max_batch_size, prefix_cache_mb=0,
+                infer_engine=self.engine, device=cfg.device)
         spec_kw = self._continuous_spec_kwargs(spec)
         try:
-            self.generator = ContinuousGenerator(
-                spec, params=params, rng_seed=config.seed,
-                dtype=config.dtype, n_slots=config.gen_max_batch_size,
-                step_chunk=config.gen_step_chunk,
-                prefill_chunk=config.gen_prefill_chunk,
-                prefix_cache_mb=config.gen_prefix_cache_mb,
-                kv_block_size=config.gen_kv_block_size,
-                kv_blocks=config.gen_kv_blocks,
-                kv_quantize=config.gen_kv_quantize,
-                prefix_sharing=config.gen_prefix_sharing,
-                mixed_step=config.gen_mixed_step,
-                mixed_token_budget=config.gen_mixed_token_budget,
-                device=config.device, **spec_kw)
+            return ContinuousGenerator(
+                spec, params=self.engine.params, dtype=cfg.dtype,
+                n_slots=cfg.gen_max_batch_size,
+                step_chunk=cfg.gen_step_chunk,
+                prefill_chunk=cfg.gen_prefill_chunk,
+                prefix_cache_mb=cfg.gen_prefix_cache_mb,
+                kv_block_size=cfg.gen_kv_block_size,
+                kv_blocks=cfg.gen_kv_blocks,
+                kv_quantize=cfg.gen_kv_quantize,
+                prefix_sharing=cfg.gen_prefix_sharing,
+                mixed_step=cfg.gen_mixed_step,
+                mixed_token_budget=cfg.gen_mixed_token_budget,
+                infer_engine=self.engine if self._unified else None,
+                score_provider=self._get_scorer if self._unified else None,
+                device=cfg.device, **spec_kw)
         except ValueError as exc:
             if spec_kw:
                 # The operator asked for speculation: a construction
@@ -95,8 +259,6 @@ class WorkerNode:
                 raise RuntimeError(
                     f"speculative lane misconfigured: {exc}") from exc
             raise
-        self._total_requests = 0
-        self._counter_lock = threading.Lock()
 
     _AUTO_DRAFT = {"gpt2": "distilgpt2", "gpt2-small-test": "gpt2-small-test"}
 
@@ -151,18 +313,250 @@ class WorkerNode:
             kw["spec_draft_params"] = None
         return kw
 
+    # -- common request checks ------------------------------------------------
+
     def _check_model(self, request: dict) -> None:
         """A request addressed to a specific model is never answered by a
         lane serving another one (the JAX worker's check)."""
         want = request.get("model")
-        have = getattr(self.generator.spec, "name", None)
-        if want is not None and have is not None and str(want) != have:
+        have = self.engine.spec.name
+        if want is not None and str(want) != have:
             raise ValueError(
                 f"this lane serves model '{have}', not '{want}'")
+
+    def _admit(self, request: dict) -> Optional[Deadline]:
+        """The request's deadline; one already passed refuses with 503."""
+        deadline = Deadline.from_request(request)
+        if deadline is not None and deadline.expired():
+            raise DeadlineExceeded("deadline exceeded at admission")
+        return deadline
+
+    def _count_request(self) -> None:
+        with self._counter_lock:
+            self._total_requests += 1
+
+    def apply_weights(self, params) -> dict:
+        """Swap in new weights of the served model (the engine's
+        ``set_params`` checks): every lane serves them from its next
+        dispatch, and the result cache is cleared; an in-flight result
+        computed under the old weights never enters it."""
+        self.engine.set_params(params)
+        if self.generator is not None:
+            self.generator.params = self.engine.params
+        with self._reload_lock:
+            self._weights_gen += 1
+            self.cache.clear()
+        return {"ok": True, "node_id": self.node_id}
+
+    # -- /infer ---------------------------------------------------------------
+
+    @staticmethod
+    def _cache_key(input_data, shape=None) -> bytes:
+        blob = np.asarray(input_data, dtype=np.float32).tobytes()
+        if shape is not None:
+            blob = np.asarray(shape, np.int64).tobytes() + b"|" + blob
+        return blob
+
+    def _infer_core(self, request: dict) -> Tuple[str, bytes, bool, int]:
+        """The /infer flow -> (request_id, output_data fragment, cached?,
+        inference_time_us)."""
+        self._check_model(request)
+        deadline = self._admit(request)
+        self._count_request()
+        return self._infer_admitted(request, deadline)
+
+    def _infer_admitted(self, request: dict, deadline: Optional[Deadline]
+                        ) -> Tuple[str, bytes, bool, int]:
+        request_id = request["request_id"]
+        input_data = request["input_data"]
+        shape = request.get("shape")
+        if shape is not None:
+            shape = tuple(int(d) for d in shape)
+        key = self._cache_key(input_data, shape)
+        frag = self.cache.get(key)
+        if frag is not None:
+            with self._counter_lock:
+                self._cache_hits += 1
+            return (request_id, frag, True,
+                    self.config.fake_cached_latency_us)
+        while True:
+            with self._inflight_lock:
+                entry = self._inflight.get(key)
+                leader = entry is None
+                if leader:
+                    entry = _Inflight()
+                    self._inflight[key] = entry
+            if leader:
+                break
+            if not entry.event.wait(timeout=clamp_timeout(deadline, 120.0)):
+                if deadline is not None and deadline.expired():
+                    raise DeadlineExceeded(
+                        "deadline expired waiting on coalesced result")
+                raise RuntimeError("coalesced request timed out")
+            if entry.error is not None:
+                if isinstance(entry.error, DeadlineExceeded):
+                    # The leader's budget ran out, not this request's:
+                    # retire the dead entry and go round again (join a
+                    # live leader or lead).
+                    with self._inflight_lock:
+                        if self._inflight.get(key) is entry:
+                            self._inflight.pop(key)
+                    continue
+                raise entry.error  # a bad input is a 400 for all of them
+            return request_id, entry.frag, False, entry.time_us
+        try:
+            gen0 = self._weights_gen  # stamped before the compute
+            result = self._dispatch_infer(
+                _BatchItem(request_id, input_data, shape), deadline)
+            frag = _encode_output(result.output_data)
+            with self._reload_lock:
+                if gen0 == self._weights_gen:
+                    self.cache.put(key, frag)
+            entry.frag = frag
+            entry.time_us = result.inference_time_us
+        except BaseException as exc:
+            entry.error = exc
+            raise
+        finally:
+            entry.event.set()
+            with self._inflight_lock:
+                self._inflight.pop(key, None)
+        return request_id, frag, False, result.inference_time_us
+
+    def handle_infer(self, request: dict) -> dict:
+        """One /infer request; the JAX worker's wire schema."""
+        request_id, frag, cached, time_us = self._infer_core(request)
+        return {"request_id": request_id, "output_data": json.loads(frag),
+                "node_id": self.node_id, "cached": cached,
+                "inference_time_us": time_us}
+
+    def handle_infer_raw(self, request: dict) -> bytes:
+        """``handle_infer``, serialized: the response JSON spliced around
+        the cached output fragment, no float re-encoding."""
+        request_id, frag, cached, time_us = self._infer_core(request)
+        return (b'{"request_id": ' + json.dumps(request_id).encode()
+                + b', "output_data": ' + frag
+                + b', "node_id": ' + self._node_id_json
+                + b', "cached": ' + (b"true" if cached else b"false")
+                + b', "inference_time_us": ' + str(time_us).encode() + b"}")
+
+    def _infer_unified(self) -> bool:
+        gen = self.generator
+        return self._unified and gen is not None and gen.accepts_oneshot
+
+    def _score_unified(self) -> bool:
+        gen = self.generator
+        return self._unified and gen is not None and gen.accepts_score
+
+    @staticmethod
+    def _oneshot_timeout(deadline: Optional[Deadline]) -> float:
+        return (600.0 if deadline is None
+                else max(5.0, deadline.remaining_s() + 5.0))
+
+    def _dispatch_infer(self, item: _BatchItem,
+                        deadline: Optional[Deadline]) -> _BatchResult:
+        """A miss: one single-tick scheduler row on a unified lane, else
+        the dynamic batcher. Results and errors are the same either
+        way."""
+        if not self._infer_unified():
+            return self.batch_processor.process(item, deadline=deadline)
+        fut = self.generator.submit_infer(item.input_data, shape=item.shape,
+                                          deadline=deadline)
+        out, time_us = fut.result(timeout=self._oneshot_timeout(deadline))
+        return _BatchResult(out, time_us)
+
+    def _submit_batch(self, items: List[_BatchItem]):
+        """The batcher's dispatch half: the device work enqueued, no
+        wait."""
+        start = time.perf_counter()
+        shapes = ([it.shape for it in items]
+                  if any(it.shape is not None for it in items) else None)
+        handle = self.engine.batch_submit([it.input_data for it in items],
+                                          shapes=shapes)
+        return handle, start, items
+
+    def _collect_batch(self, submitted) -> List[_BatchResult]:
+        """The blocking half: inference_time_us is the batch's submit ->
+        collect residence divided by its size."""
+        handle, start, items = submitted
+        outputs = self.engine.batch_collect(handle)
+        per_us = int((time.perf_counter() - start) * 1e6
+                     / max(1, len(items)))
+        return [_BatchResult(out, per_us) for out in outputs]
+
+    # -- /score ---------------------------------------------------------------
+
+    def handle_score(self, request: dict) -> dict:
+        """Teacher-forced scoring: per-token log P(completion | prompt) in
+        one forward."""
+        self._check_model(request)
+        if self.engine.spec.config is None:
+            raise ValueError(
+                f"model '{self.config.model}' does not support scoring")
+        deadline = self._admit(request)
+        self._count_request()
+        completion = [int(t) for t in request["completion_tokens"]]
+        if not completion:
+            raise ValueError("completion_tokens must be non-empty")
+        item = _ScoreItem(request["request_id"],
+                          [int(t) for t in request["prompt_tokens"]],
+                          completion)
+        total = max(len(item.prompt), 1) + len(completion)
+        largest = self._get_scorer().prompt_buckets[-1]
+        if total > largest:
+            # Refused before it joins a group: one over-long request must
+            # not fail its co-batched neighbours.
+            raise ValueError(
+                f"prompt+completion length {total} exceeds the largest "
+                f"sequence bucket {largest}")
+        t0 = time.perf_counter()
+        if self._score_unified():
+            fut = self.generator.submit_score(item.prompt, item.completion,
+                                              deadline=deadline)
+            lps, _us = fut.result(timeout=self._oneshot_timeout(deadline))
+        else:
+            lps = self._score_processor().process(item, deadline=deadline)
+        return {"request_id": item.request_id, "logprobs": lps,
+                "total_logprob": float(sum(lps)), "node_id": self.node_id,
+                "score_time_us": int((time.perf_counter() - t0) * 1e6)}
+
+    def _get_scorer(self):
+        """The lane's scorer, made at first use, on the engine's current
+        parameters."""
+        from tpu_engine_torch.runtime.generator import Scorer
+
+        with self._counter_lock:
+            if self._scorer is None:
+                self._scorer = Scorer(self.engine.spec,
+                                      params=self.engine.params,
+                                      dtype=self.config.dtype,
+                                      device=self.engine.device)
+            scorer = self._scorer
+        scorer.params = self.engine.params
+        return scorer
+
+    def _score_processor(self) -> BatchProcessor:
+        with self._counter_lock:
+            if self._score_proc is None:
+                self._score_proc = BatchProcessor(
+                    self.config.max_batch_size, self.config.batch_timeout_ms,
+                    self._process_score_batch,
+                    name=f"{self.node_id}-score-batcher")
+                self._score_proc.start()
+            return self._score_proc
+
+    def _process_score_batch(self, items: List[_ScoreItem]):
+        return self._get_scorer().score([it.prompt for it in items],
+                                        [it.completion for it in items])
+
+    # -- /generate ------------------------------------------------------------
 
     def _parse(self, request: dict) -> dict:
         """Validate a /generate payload eagerly: a malformed request must
         400, and an expired one 503, before a stream commits to 200."""
+        if self.generator is None or self.generator._stateless:
+            raise ValueError(
+                f"model '{self.config.model}' does not support generation")
         self._check_model(request)
         deadline = Deadline.from_request(request)
         if int(request.get("beam_width", 1)) != 1:
@@ -188,10 +582,6 @@ class WorkerNode:
             raise DeadlineExceeded("deadline exceeded at admission")
         kw["deadline"] = deadline
         return kw
-
-    def _count_request(self) -> None:
-        with self._counter_lock:
-            self._total_requests += 1
 
     def handle_generate(self, request: dict) -> dict:
         request_id = request["request_id"]
@@ -254,30 +644,42 @@ class WorkerNode:
                 "retryable": bool(retryable), "request_id": request_id,
                 "tokens_emitted": int(tokens_emitted)}
 
-    def _generator_stats(self) -> dict:
-        """The scheduler's stats with the JAX lane's ``stateless`` block
-        (one-shot rows), idle: the port serves none yet."""
-        return {**self.generator.stats(), "stateless": {
-            "admitted": 0, "completed": 0, "failed": 0, "ticks": 0,
-            "dispatches": 0, "infer_rows": 0, "score_rows": 0,
-            "full_dispatches": 0, "deadline_dropped": 0}}
+    # -- observability --------------------------------------------------------
 
     def get_health(self) -> dict:
         with self._counter_lock:
-            total = self._total_requests
-        return {"healthy": True, "node_id": self.node_id,
-                "model": self.generator.spec.name,
-                "total_requests": total,
-                # The /infer result cache and batcher, idle.
-                "cache_hits": 0, "cache_size": 0, "cache_hit_rate": 0.0,
-                "batch_processor": {"total_batches": 0,
-                                    "avg_batch_size": 0.0,
-                                    "timeout_batches": 0,
-                                    "full_batches": 0},
-                "generator": self._generator_stats()}
+            total, hits = self._total_requests, self._cache_hits
+        out = {"healthy": True, "node_id": self.node_id,
+               "model": self.engine.spec.name, "total_requests": total,
+               "cache_hits": hits, "cache_size": self.cache.size(),
+               "cache_hit_rate": self.cache.hit_rate(),
+               "batch_processor": self.batch_processor.get_metrics()
+               .as_dict()}
+        if self.generator is None:
+            return out
+        gstats = self.generator.stats()
+        if not self.generator._stateless:
+            out["generator"] = gstats
+            return out
+        # A stateless lane's scheduler is its batch lane: its one-shot
+        # dispatches fold into the four-key batch_processor block.
+        st = gstats["stateless"]
+        bp = out["batch_processor"]
+        rows = st["infer_rows"] + st["score_rows"]
+        prev_rows = bp["avg_batch_size"] * bp["total_batches"]
+        bp["total_batches"] += st["dispatches"]
+        bp["full_batches"] += st["full_dispatches"]
+        if bp["total_batches"] > 0:
+            bp["avg_batch_size"] = (prev_rows + rows) / bp["total_batches"]
+        return out
 
     def get_stats(self) -> dict:
-        return {"node_id": self.node_id, **self._generator_stats()}
+        gstats = self.generator.stats() if self.generator is not None else {}
+        return {"node_id": self.node_id, **gstats}
 
     def stop(self) -> None:
-        self.generator.stop()
+        self.batch_processor.stop()
+        if self._score_proc is not None:
+            self._score_proc.stop()
+        if self.generator is not None:
+            self.generator.stop()

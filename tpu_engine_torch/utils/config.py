@@ -1,20 +1,33 @@
 """Worker configuration: the fields of ``tpu_engine``'s ``WorkerConfig``
-that the port's /generate lane uses (same names and defaults, except
-``model``, which defaults to the one family the port serves at full
-width), plus the port's own ``device`` and ``seed``."""
+that the port's lanes use, with the same names and defaults (``model``
+defaults to ``"resnet50"``, the one-shot /infer lane a default launch
+serves), plus the port's own ``device`` and ``seed``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass
 class WorkerConfig:
     port: int = 8001
     node_id: str = "worker_1"
-    model: str = "llama"
+    model: str = "resnet50"             # registry name (models.registry)
+    # A reference-style model path (e.g. models/resnet50-v2-7.onnx) names
+    # the model only; the port loads no ONNX graph or HF checkpoint.
+    model_path: Optional[str] = None
+    # The /infer lane: result cache, dynamic batcher, engine buckets.
+    cache_capacity: int = 1000
+    max_batch_size: int = 32
+    batch_timeout_ms: float = 20.0
+    batch_linger_ms: float = 0.0        # accumulation window (0 = off)
     dtype: str = "bfloat16"
+    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
+    fake_cached_latency_us: int = 50    # inference_time_us of a cache hit
+    # Dispatched /infer batches in flight before the batcher collects the
+    # oldest (engine batch_submit / batch_collect); 1 = lockstep.
+    pipeline_depth: int = 4
     gen_max_batch_size: int = 8         # decode rows (scheduler slots)
     gen_step_chunk: int = 16            # two-path decode steps per chunk
     gen_prefill_chunk: int = 256
@@ -34,6 +47,10 @@ class WorkerConfig:
     gen_spec_draft: str = "ngram"
     gen_draft_model: Optional[str] = None
     gen_draft_path: Optional[str] = None
+    # One-shot /infer and /score requests ride the continuous scheduler as
+    # single-tick rows; False serves them through the dedicated batch lane
+    # (runtime.batch_processor) instead (--no-unified-stateless).
+    unified_stateless: bool = True
     # The port's own: where the lane runs (None = the CUDA card) and the
     # seed of its random weights.
     device: Optional[str] = None

@@ -56,3 +56,16 @@ class Deadline:
 
     def expired(self) -> bool:
         return time.monotonic() >= self.at
+
+    def remaining_s(self) -> float:
+        return self.at - time.monotonic()
+
+
+def clamp_timeout(deadline: Optional[Deadline],
+                  timeout_s: Optional[float]) -> Optional[float]:
+    """The tighter of a fixed timeout and the deadline's remaining budget
+    (floored at 0, so a blocking wait fails fast)."""
+    if deadline is None:
+        return timeout_s
+    rem = max(0.0, deadline.remaining_s())
+    return rem if timeout_s is None else min(timeout_s, rem)
