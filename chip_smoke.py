@@ -104,7 +104,34 @@ Phases (any failure exits non-zero and prints no result line):
               on the n-gram lanes), no decode read (#2, #3) launched.
               In every lane the lane's kernels, and no plain version,
               served its attention;
-5. train    — after the server phase has stopped its lanes: full-width
+5. gateway  — the port's gateway (serve_gateway) in front of port
+              workers on the card: three resnet50 workers (the default
+              WorkerConfig, bf16) under the reference benchmark's load
+              (2000 /infer from 50 closed-loop threads over 10 distinct
+              3-float inputs): req/s, p50/p99, each worker's cache hit
+              rate, the load split equal to the ring's over the
+              request_ids, no request failed, and 200 cache hits one at a
+              time direct to their owner and through the gateway (the
+              hop's p50/p99); then two mixed-bf16 lanes of TinyLlama
+              geometry (one weight tree) behind a gateway with a 1 s
+              breaker timeout: 16 streams, 8 /generate and 8 decoder
+              /infer at once, each answered by its request_id's ring
+              owner, and four streams one at a time token-identical
+              through the gateway and direct; faults: a lane's server
+              stopped (its requests fail over, its breaker OPEN after 5
+              failures), served again on its port (HALF_OPEN, then CLOSED
+              after two successes), drained (failover with no breaker
+              penalty, counted in its /health admission.shed_draining),
+              an expired deadline (503 deadline_exceeded, no worker counts
+              it), and a resnet50 /infer miss whose budget is below every
+              lane's warm service-time estimate (503 overloaded, shed by
+              each lane); and the gateway command as a process (one
+              /infer, one /generate, SIGTERM). The launch counts are set
+              to 0 before the generation lanes start and read at the
+              phase's end: the ragged kernel's == 22 x the lanes' mixed
+              ticks, the flash forward's == 22 x their one-shot
+              dispatches, no other kernel, no plain call;
+6. train    — after the server phase has stopped its lanes: full-width
               training of TinyLlama-1.1B geometry (22 layers, f32 weights
               from seed 0, AdamW) on the train command's synthetic batch,
               4 steps at B 4 x S 1024 with an f32 forward (lr 1e-4; the
@@ -117,7 +144,7 @@ Phases (any failure exits non-zero and prints no result line):
               device busy time, the idle share, the flash kernels' shares
               (and the device time of their f32 and bf16 variants),
               tokens/s and peak memory;
-6. numbers  — each kernel's time at the main path's shapes (with events
+7. numbers  — each kernel's time at the main path's shapes (with events
               and as device time) beside its bound, the plain version's
               time and the library's (scaled_dot_product_attention; for the
               paged reads over K/V gathered dense, and dequantized for
@@ -1452,12 +1479,13 @@ def phase_train(torch) -> dict:
 
 
 def start_lane(torch, params, lane: str, model: str = "llama",
-               overrides=None):
+               overrides=None, node_id=None):
     """A worker of the main path's geometry for ``lane``, over HTTP."""
     from tpu_engine_torch.serving.app import serve_worker
     from tpu_engine_torch.utils.config import WorkerConfig
 
-    cfg = WorkerConfig(port=0, node_id=f"chip-smoke-{lane}", model=model,
+    cfg = WorkerConfig(port=0, node_id=node_id or f"chip-smoke-{lane}",
+                       model=model,
                        dtype="bfloat16", gen_max_batch_size=8,
                        gen_prefill_chunk=256, device="cuda", seed=0,
                        **(LANES[lane] if overrides is None else overrides))
@@ -1519,12 +1547,18 @@ def burst(port: int, lane: str, reqs: dict, stream_prompt,
     return results, s_toks, ttft, burst_s, n_tokens
 
 
+def generator_stats(port: int) -> dict:
+    """The lane's scheduler stats: /health's generator block."""
+    return get(port, "/health")["generator"]
+
+
 def wait_idle(port: int, paged: bool) -> tuple:
-    """(/stats once the lane is idle, whether it got there in 30 s): no
-    active row and, over the paged pool, every block free or radix-held."""
+    """(the scheduler's stats once the lane is idle, whether it got there
+    in 30 s): no active row and, over the paged pool, every block free or
+    radix-held."""
     deadline = time.time() + 30
     while True:
-        st = get(port, "/stats")
+        st = generator_stats(port)
         idle = st["active"] == 0
         if paged:
             pool = st["kv_pool"]
@@ -1535,12 +1569,14 @@ def wait_idle(port: int, paged: bool) -> tuple:
         time.sleep(0.05)
 
 
-def check_counts(lane: str, kernel: str) -> int:
-    """The lane's launches of its kernel; no plain call, no other kernel."""
+def check_counts(lane: str, kernel: str, also=()) -> int:
+    """The lane's launches of its kernel; no plain call, and no other
+    kernel than those of ``also``."""
     counts = launch_counts()
     check(all(p == 0 for _, p in counts.values()),
           f"{lane}: plain versions served attention: {counts}")
-    check(all(n == 0 for k, (n, _) in counts.items() if k != kernel),
+    check(all(n == 0 for k, (n, _) in counts.items()
+              if k != kernel and k not in also),
           f"{lane}: other kernels launched: {counts}")
     return counts[kernel][0]
 
@@ -1575,11 +1611,11 @@ def serve_lane(torch, params, lane: str) -> dict:
         check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
         _, _, ttft, burst_s, n_tokens = burst(port, lane, reqs,
                                               stream_prompt)
-        hit0 = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"]
+        hit0 = generator_stats(port)["kv_pool"]["prefix_hit_tokens"]
         shared = post(port, "/generate", {
             "request_id": "prefix_b", "prompt_tokens": prefix + toks(40),
             "max_new_tokens": MAX_NEW})
-        hit = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"] - hit0
+        hit = generator_stats(port)["kv_pool"]["prefix_hit_tokens"] - hit0
         check(len(shared["tokens"]) == MAX_NEW and hit >= 64,
               f"{lane} shared prefix: {hit} prefix-hit tokens")
         # Greedy repeat under the same batch composition (alone, both
@@ -1841,25 +1877,25 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
         check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
         _, _, ttft, burst_s, n_tokens = burst(port, lane, reqs,
                                               stream_prompt, vocab)
-        hit0 = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"]
+        hit0 = generator_stats(port)["kv_pool"]["prefix_hit_tokens"]
         shared = post(port, "/generate", {
             "request_id": "prefix_b", "prompt_tokens": prefix + toks(40),
             "max_new_tokens": MAX_NEW})
-        hit = get(port, "/stats")["kv_pool"]["prefix_hit_tokens"] - hit0
+        hit = generator_stats(port)["kv_pool"]["prefix_hit_tokens"] - hit0
         check(len(shared["tokens"]) == MAX_NEW and hit >= 64,
               f"{lane} shared prefix: {hit} prefix-hit tokens")
         # A spec lane in bf16 is held to its own greedy repeat, alone and
         # from the same radix hit (a verify window changes the GEMM's M,
         # so its tokens need not be the plain lane's; and the first run's
         # prompt attends its own fresh K/V, the repeats' the pool's).
-        sp0 = get(port, "/stats")["spec"]
+        sp0 = generator_stats(port)["spec"]
         _, first, again = (post(port, "/generate", {
             "request_id": f"repetitive-{i}", "prompt_tokens": repetitive,
             "max_new_tokens": MAX_NEW, "repetition_penalty": 0.1})["tokens"]
             for i in range(3))
         check(first == again and len(first) == MAX_NEW,
               f"{lane} greedy repeat differs: {first} {again}")
-        sp1 = get(port, "/stats")["spec"]
+        sp1 = generator_stats(port)["spec"]
         rep_proposed = sp1["proposed_tokens"] - sp0["proposed_tokens"]
         rep_accepted = sp1["accepted_tokens"] - sp0["accepted_tokens"]
         check(rep_proposed > 0, f"{lane}: the drafter proposed nothing on "
@@ -2078,6 +2114,554 @@ def phase_server(torch) -> dict:
     for lane in SPEC_LANES:
         out[lane] = serve_spec_lane(torch, params, lane)
     return out
+
+
+# -- gateway phase -------------------------------------------------------------
+
+# The reference benchmark's load (bench.py, BASELINE.md): closed-loop client
+# threads, one request outstanding each; request i is "req_i" carrying the
+# (i % 10)-th of ten distinct 3-float inputs.
+GATEWAY_THREADS = 50
+GATEWAY_REQUESTS = 2000
+GATEWAY_DISTINCT = 10
+HOP_SAMPLES = 200
+# An /infer miss's budget against the resnet lanes' service-time
+# estimates (WorkerNode.service_estimate_us), warm from the reference
+# load: this share of the smallest, which must be at least
+# MIN_OVERLOAD_BUDGET_US to outlive three lanes' shed round trips through
+# the gateway (~2 ms each in one process).
+OVERLOAD_BUDGET_SHARE = 0.8
+MIN_OVERLOAD_BUDGET_US = 10000.0
+
+
+def call(port: int, method: str, path: str, body=None,
+         timeout: float = 120.0) -> tuple:
+    """(status, body bytes) of one request, whatever its status."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def reference_body(i: int) -> dict:
+    k = i % GATEWAY_DISTINCT
+    return {"request_id": f"req_{i}",
+            "input_data": [float(k), float(k + 1), float(k + 2)]}
+
+
+def ring_of(urls):
+    """The port's ring over the gateway's lane names."""
+    from tpu_engine_torch.core.consistent_hash import ConsistentHash
+
+    ring = ConsistentHash()
+    for u in urls:
+        ring.add_node(u)
+    return ring
+
+
+def owned(ring, url: str, n: int, prefix: str) -> list:
+    """``n`` request ids whose ring owner is ``url``."""
+    out, i = [], 0
+    while len(out) < n:
+        rid = f"{prefix}{i}"
+        if ring.get_node(rid) == url:
+            out.append(rid)
+        i += 1
+    return out
+
+
+def spread(ring, urls, n: int, prefix: str) -> list:
+    """``n`` request ids owned by the lanes of ``urls`` in turn. The ring
+    hashes ids that differ in their last characters close together, so
+    a run of ``{prefix}{i}`` may fall on one lane for some ports."""
+    per = [owned(ring, u, -(-n // len(urls)), prefix) for u in urls]
+    return [per[k % len(urls)][k // len(urls)] for k in range(n)]
+
+
+def p50_p99_ms(seconds) -> tuple:
+    a = np.asarray(seconds) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def closed_loop(port: int, n_requests: int, n_threads: int) -> tuple:
+    """The reference load against ``port``: (latencies s, failed request
+    indices, wall s). Each thread keeps one keep-alive connection and
+    takes the next index until ``n_requests`` are sent."""
+    lock = threading.Lock()
+    state = {"next": 0}
+    lat, failed = [], []
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while True:
+                with lock:
+                    i = state["next"]
+                    state["next"] += 1
+                if i >= n_requests:
+                    return
+                t = time.perf_counter()
+                try:
+                    conn.request("POST", "/infer",
+                                 json.dumps(reference_body(i)),
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    data = resp.read()
+                    ok = (resp.status == 200 and json.loads(data)
+                          ["request_id"] == f"req_{i}")
+                except Exception:  # counted as failed
+                    ok = False
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                dt = time.perf_counter() - t
+                with lock:
+                    if ok:
+                        lat.append(dt)
+                    else:
+                        failed.append(i)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return lat, failed, time.perf_counter() - t0
+
+
+def timed_hits(port: int, bodies) -> list:
+    """Seconds of each request of ``bodies``, sent one at a time over one
+    keep-alive connection; each must be a cache hit."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    out = []
+    try:
+        for body in bodies:
+            raw = json.dumps(body)
+            t = time.perf_counter()
+            conn.request("POST", "/infer", raw,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            out.append(time.perf_counter() - t)
+            check(resp.status == 200 and json.loads(data)["cached"],
+                  f"hop timing: {resp.status} {data[:200]!r}")
+    finally:
+        conn.close()
+    return out
+
+
+def gateway_reference(torch) -> dict:
+    """Three resnet50 port workers (the default WorkerConfig: bf16, seed-0
+    weights) behind the port's gateway under the reference load; then
+    200 cache hits one at a time, direct to their owner and through the
+    gateway. Returns the readings and the fleet (left running)."""
+    from tpu_engine_torch.serving.app import serve_gateway, serve_worker
+    from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+
+    workers, servers = [], []
+    for i in range(3):
+        w, s = serve_worker(WorkerConfig(port=0, node_id=f"worker_{i + 1}",
+                                         device="cuda"))
+        workers.append(w)
+        servers.append(s)
+    urls = [f"127.0.0.1:{s.port}" for s in servers]
+    node = {u: w.node_id for u, w in zip(urls, workers)}
+    gw, gsrv = serve_gateway(urls, GatewayConfig(port=0))
+    fleet = {"workers": workers, "servers": servers, "urls": urls,
+             "node": node, "gateway": gw, "gateway_server": gsrv}
+    # A warm-up miss per lane on an input the load never sends.
+    for s in servers:
+        post(s.port, "/infer", {"request_id": "warm",
+                                "input_data": [100.0, 101.0, 102.0]})
+    before = {w.node_id: get(s.port, "/health")["total_requests"]
+              for w, s in zip(workers, servers)}
+    lat, failed, wall = closed_loop(gsrv.port, GATEWAY_REQUESTS,
+                                    GATEWAY_THREADS)
+    check(not failed, f"gateway reference load: {len(failed)} requests "
+                      f"failed (first {failed[:5]})")
+    health = {w.node_id: get(s.port, "/health")
+              for w, s in zip(workers, servers)}
+    split = {n: health[n]["total_requests"] - before[n] for n in health}
+    ring = ring_of(urls)
+    want = {node[u]: c for u, c in ring.get_distribution(
+        [f"req_{i}" for i in range(GATEWAY_REQUESTS)]).items()}
+    stats = get(gsrv.port, "/stats")
+    check(split == want and stats["failovers"] == 0
+          and stats["total_requests"] == GATEWAY_REQUESTS,
+          f"gateway load split {split} != the ring's {want} "
+          f"(stats {stats})")
+    p50, p99 = p50_p99_ms(lat)
+    rate = {n: h["cache_hit_rate"] for n, h in health.items()}
+    # The hop: the same hits, direct to their owner and via the gateway,
+    # in turns.
+    hop_bodies = [dict(reference_body(j), request_id=f"hop_{j}")
+                  for j in range(HOP_SAMPLES)]
+    port_of = {u: s.port for u, s in zip(urls, servers)}
+    direct, via = [], []
+    for body in hop_bodies:
+        owner = port_of[ring.get_node(body["request_id"])]
+        direct += timed_hits(owner, [body])
+        via += timed_hits(gsrv.port, [body])
+    d50, d99 = p50_p99_ms(direct)
+    g50, g99 = p50_p99_ms(via)
+    out = {"requests": GATEWAY_REQUESTS, "threads": GATEWAY_THREADS,
+           "distinct_inputs": GATEWAY_DISTINCT, "failed": len(failed),
+           "wall_s": wall, "req_per_s": GATEWAY_REQUESTS / wall,
+           "p50_ms": p50, "p99_ms": p99, "cache_hit_rate": rate,
+           "load_split": split, "ring_split": want,
+           "direct_hit_p50_ms": d50, "direct_hit_p99_ms": d99,
+           "gateway_hit_p50_ms": g50, "gateway_hit_p99_ms": g99,
+           "hop_p50_ms": g50 - d50, "hop_p99_ms": g99 - d99}
+    log(f"gateway reference: 3 resnet50 workers (bf16), {GATEWAY_REQUESTS} "
+        f"/infer from {GATEWAY_THREADS} closed-loop threads over "
+        f"{GATEWAY_DISTINCT} distinct 3-float inputs: {out['req_per_s']:.1f}"
+        f" req/s, p50 {p50:.3f} ms, p99 {p99:.3f} ms, 0 failed; cache hit "
+        f"rate {json.dumps(rate)}; load split {json.dumps(split)} == the "
+        f"ring's; {HOP_SAMPLES} hits one at a time: direct p50 {d50:.3f} / "
+        f"p99 {d99:.3f} ms, via the gateway p50 {g50:.3f} / p99 {g99:.3f} "
+        f"ms, the hop +{g50 - d50:.3f} / +{g99 - d99:.3f} ms")
+    return out, fleet
+
+
+def gateway_generation(torch, params) -> tuple:
+    """Two mixed-bf16 lanes (TinyLlama geometry, one weight tree) behind
+    a gateway with a 1 s breaker timeout: 16 streams, 8 /generate and 8
+    decoder /infer at once, each answered by its request_id's ring owner;
+    then four streams one at a time, through the gateway and direct to
+    the owner, token-identical. Returns the readings and the fleet."""
+    from tpu_engine_torch.serving.app import serve_gateway
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    workers, servers = [], []
+    for i in range(2):
+        w, s = start_lane(torch, params, "mixed-bf16", node_id=f"gen_{i}")
+        workers.append(w)
+        servers.append(s)
+    urls = [f"127.0.0.1:{s.port}" for s in servers]
+    node = {u: w.node_id for u, w in zip(urls, workers)}
+    gw, gsrv = serve_gateway(urls, GatewayConfig(port=0,
+                                                 breaker_timeout_s=1.0))
+    fleet = {"workers": workers, "servers": servers, "urls": urls,
+             "node": node, "gateway": gw, "gateway_server": gsrv}
+    ring = ring_of(urls)
+    vocab = workers[0].generator.cfg.vocab
+    rng = np.random.default_rng(3)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+
+    # Every lane owns a share of each kind, so both run mixed ticks.
+    streams = {n: toks(int(rng.integers(8, 300)))
+               for n in spread(ring, urls, 16, "gs")}
+    gens = {n: toks(int(rng.integers(8, 300)))
+            for n in spread(ring, urls, 8, "gg")}
+    infers = {n: [float(t) for t in toks(int(rng.integers(4, 128)))]
+              for n in spread(ring, urls, 8, "gi")}
+    results, errors = {}, []
+
+    def run(name, fn):
+        try:
+            results[name] = fn()
+        except Exception as exc:  # reported below
+            errors.append(f"{name}: {exc!r}")
+
+    jobs = [(n, lambda n=n, p=p: stream(gsrv.port, {
+        "request_id": n, "prompt_tokens": p, "max_new_tokens": MAX_NEW}))
+        for n, p in streams.items()]
+    jobs += [(n, lambda n=n, p=p: post(gsrv.port, "/generate", {
+        "request_id": n, "prompt_tokens": p, "max_new_tokens": MAX_NEW}))
+        for n, p in gens.items()]
+    jobs += [(n, lambda n=n, x=x: post(gsrv.port, "/infer", {
+        "request_id": n, "input_data": x})) for n, x in infers.items()]
+    threads = [threading.Thread(target=run, args=j) for j in jobs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"gateway generation burst failed: {errors}")
+    for name in streams:
+        toks_, final, _ttft = results[name]
+        check(final is not None and "error" not in final
+              and final["tokens"] == toks_ and len(toks_) == MAX_NEW,
+              f"gateway stream {name}: {final}")
+    for name in gens:
+        check(len(results[name]["tokens"]) == MAX_NEW,
+              f"gateway /generate {name}: {results[name]}")
+    for name in infers:
+        got = np.asarray(results[name]["output_data"], np.float32)
+        check(got.shape == (vocab,) and np.isfinite(got).all(),
+              f"gateway /infer {name}: {got.shape}")
+
+    def served_by(name):
+        res = results[name]
+        return (res[1] if name in streams else res)["node_id"]
+
+    misplaced = [n for n in results if served_by(n) != node[ring.get_node(n)]]
+    check(not misplaced, f"gateway: answered off their ring owner: "
+                         f"{misplaced}")
+    split = {n: sum(served_by(r) == n for r in results)
+             for n in node.values()}
+    # Four streams one at a time, each after a warm run of its prompt on
+    # its owner, so both compared runs resume from the same prefix hit.
+    port_of = {u: s.port for u, s in zip(urls, servers)}
+    solos = []
+    for i in range(4):
+        rid, prompt = f"solo{i}", toks(40 + 37 * i)
+        body = {"request_id": rid, "prompt_tokens": prompt,
+                "max_new_tokens": MAX_NEW}
+        owner = port_of[ring.get_node(rid)]
+        stream(owner, body)
+        via = stream(gsrv.port, body)[0]
+        direct = stream(owner, body)[0]
+        check(via == direct and len(via) == MAX_NEW,
+              f"gateway stream {rid}: {via} != direct {direct}")
+        solos.append(node[ring.get_node(rid)])
+    out = {"streams": len(streams), "generates": len(gens),
+           "infers": len(infers), "burst_s": burst_s, "split": split,
+           "solo_owners": solos}
+    log(f"gateway generation: 2 mixed-bf16 lanes (TinyLlama geometry), "
+        f"{len(streams)} streams + {len(gens)} /generate + {len(infers)} "
+        f"decoder /infer through the gateway in {burst_s:.3f} s, each "
+        f"answered by its ring owner (split {json.dumps(split)}); 4 streams "
+        f"one at a time identical via the gateway and direct (owners "
+        f"{solos})")
+    return out, fleet
+
+
+def breaker_of(port: int, url: str) -> dict:
+    stats = get(port, "/stats")
+    return next(b for b in stats["circuit_breakers"] if b["node"] == url)
+
+
+def gateway_faults(gen: dict, ref: dict) -> dict:
+    """On the generation fleet: a stopped server's requests fail over and
+    its breaker opens after 5 failures, a server restarted on the same
+    port heals it (1 s timeout, two successes), a drained lane's requests
+    fail over with no penalty and count as shed_draining, an expired
+    deadline is a 503 that no worker counts. On the resnet fleet: a miss
+    whose budget is below every lane's warm service-time estimate is a 503
+    overloaded from every lane."""
+    from tpu_engine_torch.serving.app import worker_server
+
+    workers, servers, urls = gen["workers"], gen["servers"], gen["urls"]
+    node, gport = gen["node"], gen["gateway_server"].port
+    ring = ring_of(urls)
+    victim, heir = urls[0], urls[1]
+    vport = servers[0].port
+    rids = owned(ring, victim, 10, "fault")
+    body = {"input_data": [5.0, 6.0, 7.0]}
+
+    def via(rid):
+        return post(gport, "/infer", dict(body, request_id=rid))["node_id"]
+
+    out = {}
+    f0 = get(gport, "/stats")["failovers"]
+    servers[0].stop()
+    try:
+        served = [via(r) for r in rids[:5]]
+        br = breaker_of(gport, victim)
+        failovers = get(gport, "/stats")["failovers"] - f0
+        check(served == [node[heir]] * 5 and br["state"] == "OPEN"
+              and br["failures"] == 5 and failovers == 5,
+              f"gateway fault: served {served}, breaker {br}, failovers "
+              f"{failovers}")
+    finally:
+        servers[0] = worker_server(workers[0], vport)
+        servers[0].start()
+    time.sleep(1.05)  # past the breaker's 1 s timeout
+    heal = []
+    for rid in rids[5:7]:
+        check(via(rid) == node[victim], f"gateway heal: {rid} not served "
+                                        f"by its owner")
+        heal.append(breaker_of(gport, victim)["state"])
+    check(heal == ["HALF_OPEN", "CLOSED"], f"gateway heal: {heal}")
+    out["breaker"] = {"tripped_after": 5, "heal": heal}
+
+    def shed_draining():
+        return get(vport, "/health").get("admission", {}).get(
+            "shed_draining", 0)
+
+    d0 = shed_draining()
+    check(post(vport, "/admin/drain", {"action": "drain"})["status"]
+          == "draining", "gateway drain refused")
+    try:
+        served = [via(r) for r in rids[7:10]]
+        br = breaker_of(gport, victim)
+        drain_sheds = shed_draining() - d0
+        check(served == [node[heir]] * 3 and br["state"] == "CLOSED"
+              and br["failures"] == 0 and drain_sheds == 3,
+              f"gateway drain: served {served}, breaker {br}, "
+              f"shed_draining +{drain_sheds}")
+    finally:
+        undrain = post(vport, "/admin/drain", {"action": "undrain"})
+    check(undrain["status"] == "undrained", f"gateway undrain: {undrain}")
+    out["drain"] = {"failed_over": 3, "shed_draining": drain_sheds}
+
+    totals = [get(s.port, "/health")["total_requests"] for s in servers]
+    status, raw = call(gport, "POST", "/infer",
+                       dict(body, request_id="late", deadline_ms=0))
+    after = [get(s.port, "/health")["total_requests"] for s in servers]
+    check(status == 503 and json.loads(raw)["kind"] == "deadline_exceeded"
+          and after == totals,
+          f"gateway expired deadline: {status} {raw!r}, totals {totals} -> "
+          f"{after}")
+    out["expired"] = {"status": status, "kind": "deadline_exceeded"}
+
+    # A miss below every resnet lane's estimate, warm from the reference
+    # load.
+    est_us = [w.service_estimate_us for w in ref["workers"]]
+    check(all(e is not None for e in est_us)
+          and OVERLOAD_BUDGET_SHARE * min(est_us) >= MIN_OVERLOAD_BUDGET_US,
+          f"resnet lanes' service-time estimates {est_us} us leave no "
+          f"budget of {MIN_OVERLOAD_BUDGET_US} us under them")
+    budget_ms = OVERLOAD_BUDGET_SHARE * min(est_us) / 1e3
+
+    def shed_deadline(s):
+        return get(s.port, "/health").get("admission", {}).get(
+            "shed_deadline", 0)
+
+    s0 = [shed_deadline(s) for s in ref["servers"]]
+    status, raw = call(ref["gateway_server"].port, "POST", "/infer", {
+        "request_id": "tight", "input_data": [77.0, 78.0, 79.0],
+        "deadline_ms": budget_ms})
+    lane_sheds = [shed_deadline(s) - b for s, b in zip(ref["servers"], s0)]
+    check(status == 503 and json.loads(raw)["kind"] == "overloaded"
+          and lane_sheds == [1, 1, 1],
+          f"gateway overload: {status} {raw!r}, lanes shed {lane_sheds}, "
+          f"budget {budget_ms:.3f} ms, estimates {est_us} us")
+    out["overloaded"] = {"budget_ms": budget_ms, "estimates_us": est_us,
+                         "lanes_shed": lane_sheds}
+    log(f"gateway faults: a stopped lane's 5 requests failed over to "
+        f"{node[heir]}, its breaker OPEN after 5 failures, healed "
+        f"{' -> '.join(heal)} after 1 s; a drained lane's 3 requests failed "
+        f"over with no breaker penalty (shed_draining +{drain_sheds}); an "
+        f"expired deadline 503 deadline_exceeded with no worker counting "
+        f"it; a {budget_ms:.3f} ms budget under the resnet lanes' estimates "
+        f"{[round(e) for e in est_us]} us: 503 overloaded, shed by all 3")
+    return out
+
+
+def gateway_cli(gen: dict) -> dict:
+    """The gateway command as a process in front of the generation
+    fleet: one /infer and one /generate through it, then SIGTERM."""
+    import signal
+    import socket
+
+    urls = gen["urls"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
+         *urls, "--port", str(port)], cwd=str(Path(__file__).resolve()
+                                             .parent),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                check(get(port, "/stats")["total_workers"] == 2,
+                      "gateway command: lanes")
+                break
+            except (OSError, http.client.HTTPException):
+                check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                      f"gateway command did not start: {proc.poll()}")
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        ring = ring_of(urls)
+        inf = post(port, "/infer", {"request_id": "cli-i",
+                                    "input_data": [3.0, 4.0, 5.0]})
+        gen_ = post(port, "/generate", {"request_id": "cli-g",
+                                        "prompt_tokens": [1, 2, 3, 4],
+                                        "max_new_tokens": 8})
+        check(inf["node_id"] == gen["node"][ring.get_node("cli-i")]
+              and gen_["node_id"] == gen["node"][ring.get_node("cli-g")]
+              and len(gen_["tokens"]) == 8,
+              f"gateway command: {inf['node_id']} {gen_}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        stdout = proc.stdout.read()
+        check(rc == 0 and "Ready!" in stdout,
+              f"gateway command exited {rc}: {stdout[-500:]} "
+              f"{proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"gateway command: `python -m tpu_engine_torch.serving.cli gateway "
+        f"{' '.join(urls)} --port {port}` up in {ready_s:.1f} s, served "
+        f"one /infer and one /generate, exited 0 on SIGTERM")
+    return {"ready_s": ready_s, "rc": rc}
+
+
+def stop_fleet(fleet: dict) -> None:
+    fleet["gateway_server"].stop()
+    for w, s in zip(fleet["workers"], fleet["servers"]):
+        s.stop()
+        w.stop()
+
+
+def phase_gateway(torch) -> dict:
+    """The port's gateway in front of port workers on the card: the
+    reference deployment under the reference load, generation through a
+    gateway (the ragged kernel's and the one-shot rows' flash launches
+    counted from 0 over the phase and read at its end), faults, and the
+    gateway command."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import kernels
+
+    ref = gen = None
+    try:
+        with served_conv_precision(torch):
+            reference, ref = gateway_reference(torch)
+            params = init_params(create_model("llama").config, seed=0,
+                                 device="cuda", dtype="bfloat16")
+            kernels.reset_counts()  # the phase: counts from 0, read at end
+            generation, gen = gateway_generation(torch, params)
+            faults = gateway_faults(gen, ref)
+            cli_run = gateway_cli(gen)
+        idle = [wait_idle(s.port, paged=True) for s in gen["servers"]]
+        check(all(ok for _, ok in idle),
+              f"gateway lanes not idle or blocks leaked: {idle}")
+        ragged = check_counts("gateway", "ragged_paged_attention",
+                              also=("flash_attention",))
+        flash = launch_counts()["flash_attention"][0]
+        n_layers = gen["workers"][0].generator.cfg.n_layers
+        mixed = [st["mixed"] for st, _ in idle]
+        oneshot = [st["stateless"]["dispatches"] for st, _ in idle]
+        check(all(m["ticks"] == m["dispatches"] > 0 for m in mixed)
+              and ragged == n_layers * sum(m["dispatches"] for m in mixed)
+              and flash == n_layers * sum(oneshot) and sum(oneshot) > 0,
+              f"gateway: {ragged} ragged launches for mixed {mixed}, "
+              f"{flash} flash launches for one-shot dispatches {oneshot}, "
+              f"of {n_layers} layers")
+        log(f"gateway: ragged_paged_attention launches {ragged} == "
+            f"{n_layers} x {sum(m['dispatches'] for m in mixed)} mixed "
+            f"ticks, flash_attention {flash} == {n_layers} x {sum(oneshot)} "
+            f"one-shot dispatches, plain calls 0")
+    finally:
+        for fleet in (gen, ref):
+            if fleet is not None:
+                stop_fleet(fleet)
+        torch.cuda.empty_cache()
+    return {"reference": reference, "generation": generation,
+            "faults": faults, "cli": cli_run,
+            "launches": {"ragged_paged_attention": ragged,
+                         "flash_attention": flash},
+            "mixed_ticks": [m["ticks"] for m in mixed],
+            "oneshot_dispatches": oneshot}
 
 
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
@@ -2683,6 +3267,7 @@ def main() -> int:
     phase_small_model(torch)
     train_small = phase_train_small(torch)
     server = phase_server(torch)
+    gateway = phase_gateway(torch)
     train = phase_train(torch)
     numbers = phase_numbers(torch, pa)
     rows = []
@@ -2707,7 +3292,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
-         "server": server, "train": train, "numbers": numbers, **kernels},
+         "server": server, "gateway": gateway, "train": train,
+         "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))
     log(card)

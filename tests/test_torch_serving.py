@@ -2,9 +2,10 @@
 the JAX package's generator and worker, with the same weights: /generate
 and /generate/stream tokens equal the JAX mixed-step generator's; a
 two-path lane's, an int8 lane's and the default (dense) lane's tokens
-equal the JAX generator's of the same mode; /health and /stats carry the
-JAX schemas (the /infer cache, batcher and stateless blocks
-included); the --kv-quantize guard refuses as the JAX worker's does; an
+equal the JAX generator's of the same mode; /health carries the JAX
+schema (the /infer cache, batcher and stateless blocks included, the
+scheduler's stats under generator) and /stats is not routed, as in the JAX
+worker; the --kv-quantize guard refuses as the JAX worker's does; an
 expired deadline is a 503 with Retry-After, a bad deadline and a
 misaddressed model a 400, and a deadline passing mid-generation cancels
 the row, as in the JAX worker; and neither the package nor chip_smoke.py imports jax,
@@ -241,12 +242,12 @@ def test_deadline_mid_generation_cancels_like_jax(params, monkeypatch):
                 "tokens_emitted"}
         assert set(finals[0]) == keys <= set(finals[1])
         assert finals[0]["retryable"] is finals[1]["retryable"] is False
-        st = tw.get_stats()
+        st = tw.get_health()["generator"]
         for _ in range(200):
             if not st["active"]:
                 break
             time.sleep(0.05)
-            st = tw.get_stats()
+            st = tw.get_health()["generator"]
         assert st["active"] == 0 and st["deadline_cancelled"] == 1
         pool = st["kv_pool"]
         assert pool["blocks_free"] + pool["radix_nodes"] >= \
@@ -264,11 +265,21 @@ def test_deadline_mid_generation_cancels_like_jax(params, monkeypatch):
 
 
 def test_health_and_stats_schemas_match_jax(server):
+    """Both lanes have shed one expired request first (the module's port
+    server may have shed more): /health then carries the admission block
+    on both."""
+    from tpu_engine.utils.deadline import DeadlineExceeded as JaxExpired
+
+    expired = {"request_id": "x", "prompt_tokens": [1, 2],
+               "deadline_ms": 0}
     jw = JaxWorker(JaxWorkerConfig(model="gpt2-small-test", **LANE))
     try:
+        with pytest.raises(JaxExpired):
+            jw.handle_generate(dict(expired))
         jhealth = jw.get_health()
     finally:
         jw.stop()
+    assert _request(server, "POST", "/generate", expired)[0] == 503
     status, raw = _request(server, "GET", "/health")
     assert status == 200
     health = json.loads(raw)
@@ -277,12 +288,15 @@ def test_health_and_stats_schemas_match_jax(server):
             == set(jhealth["generator"]) - GENERATOR_LEFT_OUT)
     assert set(health["generator"]["mixed"]) == set(
         jhealth["generator"]["mixed"])
+    assert set(health["admission"]) == set(jhealth["admission"])
     assert set(health["generator"]["kv_pool"]) == set(
         jhealth["generator"]["kv_pool"])
+    # The JAX worker routes no /stats (its /stats is the gateway's); the
+    # scheduler's stats are /health's generator block.
     status, raw = _request(server, "GET", "/stats")
-    stats = json.loads(raw)
-    assert status == 200 and stats["node_id"] == "torch_1"
-    assert set(stats) - {"node_id"} == set(health["generator"])
+    assert status == 404
+    assert health["node_id"] == "torch_1"
+    stats = health["generator"]
     assert stats["mixed"]["ticks"] == stats["mixed"]["dispatches"]
 
 
@@ -337,7 +351,7 @@ def test_default_lane_is_dense_and_matches_jax(params):
     """A worker built with the default WorkerConfig (no --kv-block-size)
     runs the dense scheduler: /generate and /generate/stream give the JAX
     dense generator's tokens (the second /generate is a prefix-cache hit),
-    and /health and /stats have the JAX worker's generator schema."""
+    and /health has the JAX worker's generator schema."""
     tparams = convert.params_from_jax(
         jax.tree.map(np.asarray, params),
         tcreate("gpt2-small-test").config, device="cpu")
@@ -374,9 +388,7 @@ def test_default_lane_is_dense_and_matches_jax(params):
         assert (set(health["generator"])
                 == set(jhealth["generator"]) - GENERATOR_LEFT_OUT)
         assert "kv_pool" not in health["generator"]
-        status, raw = _request(srv.port, "GET", "/stats")
-        stats = json.loads(raw)
-        assert set(stats) - {"node_id"} == set(health["generator"])
+        stats = health["generator"]
         assert stats["prefix_cache"]["hits"] >= 2
         assert stats["chunks"] > 0
         assert stats["prefix_cache"] == g.stats()["prefix_cache"]

@@ -317,7 +317,7 @@ def test_batch_lane_equals_unified_lane():
         assert set(ha) == set(hb)
         assert ha["batch_processor"]["total_batches"] == \
             hb["batch_processor"]["total_batches"] == 3
-        assert legacy.get_stats() == {"node_id": "u"}
+        assert "generator" not in hb and legacy.generator is None
     finally:
         for w in lanes:
             w.stop()
@@ -330,8 +330,8 @@ def test_batch_lane_equals_unified_lane():
                 "completion_tokens": [5, 6]}
         a, b = (w.handle_score(dict(body)) for w in lanes)
         assert a["logprobs"] == b["logprobs"]
-        assert "stateless" in lanes[0].get_stats()
-        assert "stateless" not in lanes[1].get_stats()
+        assert "stateless" in lanes[0].get_health()["generator"]
+        assert "stateless" not in lanes[1].get_health()["generator"]
     finally:
         for w in lanes:
             w.stop()

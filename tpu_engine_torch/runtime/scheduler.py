@@ -476,6 +476,7 @@ class ContinuousGenerator:
             maxsize=max(1, n))
         self._stats = {"admitted": 0, "completed": 0, "chunks": 0}
         self._stats_lock = threading.Lock()
+        self._draining_flag = False
         self._infer_engine = infer_engine
         self._score_provider = score_provider
         # The stateless block exists iff one-shot rows can: a generative
@@ -751,7 +752,17 @@ class ContinuousGenerator:
         if self._paged:
             out["kv_pool"] = self._pool.stats()
             out["kv_pool"]["pending_admissions"] = len(self._pending)
+        if self._draining_flag:
+            # Live rows over slots of a draining lane (0.0: emptied).
+            out["drain_pressure"] = round(out["active"] / max(1, self.n_slots),
+                                          4)
         return out
+
+    def set_draining(self, draining: bool) -> None:
+        """Mark the lane draining (the worker's drain and undrain): while
+        set, stats() carries ``drain_pressure``. Admission is the worker's
+        job; the scheduler only reports."""
+        self._draining_flag = bool(draining)
 
     def stop(self) -> None:
         self._running = False

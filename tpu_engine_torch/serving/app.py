@@ -1,13 +1,20 @@
-"""Wire the port's worker to its HTTP server (counterpart of
-``serve_worker`` in ``tpu_engine/serving/app.py``)."""
+"""Wire the port's worker and gateway to HTTP servers (counterparts of
+``serve_worker`` and ``serve_gateway`` in ``tpu_engine/serving/app.py``).
+
+Worker routes: ``POST /infer``, ``/score``, ``/generate``,
+``/generate/stream``, ``/admin/drain``; ``GET /health``. Gateway routes:
+``POST /infer`` (the lane's bytes relayed), ``/generate``,
+``/generate/stream``, ``/score``; ``GET /stats``.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
+from tpu_engine_torch.serving.gateway import Gateway
 from tpu_engine_torch.serving.http import JsonHttpServer
 from tpu_engine_torch.serving.worker import WorkerNode
-from tpu_engine_torch.utils.config import WorkerConfig
+from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
 
 
 def serve_worker(config: WorkerConfig, params=None, warmup: bool = False
@@ -23,7 +30,19 @@ def serve_worker(config: WorkerConfig, params=None, warmup: bool = False
     except BaseException:
         worker.stop()
         raise
-    server = JsonHttpServer(config.port)
+    server = worker_server(worker, config.port)
+    try:
+        server.start(background=True)
+    except BaseException:
+        worker.stop()
+        raise
+    return worker, server
+
+
+def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
+    """An HTTP server (not yet started) with the worker's routes on
+    ``port``; a stopped server's worker can be served again this way."""
+    server = JsonHttpServer(port)
     server.route("POST", "/infer",
                  lambda body: (200, worker.handle_infer_raw(body)))
     server.route("POST", "/score",
@@ -33,10 +52,42 @@ def serve_worker(config: WorkerConfig, params=None, warmup: bool = False
     server.route("POST", "/generate/stream",
                  lambda body: (200, worker.handle_generate_stream(body)))
     server.route("GET", "/health", lambda _body: (200, worker.get_health()))
-    server.route("GET", "/stats", lambda _body: (200, worker.get_stats()))
-    try:
-        server.start(background=True)
-    except BaseException:
-        worker.stop()
-        raise
-    return worker, server
+
+    def admin_drain(body):
+        """Drain (lame-duck: new admissions shed 503 while in-flight work
+        completes) or undrain; ``status`` names the outcome (draining,
+        already-draining, undrained, not-draining)."""
+        action = (body or {}).get("action", "drain")
+        if action == "drain":
+            status = worker.drain()
+        elif action == "undrain":
+            status = worker.undrain()
+        else:
+            return 400, {"error": "action must be drain|undrain"}
+        return 200, {"ok": True, "node_id": worker.node_id,
+                     "draining": worker.draining, "status": status}
+
+    server.route("POST", "/admin/drain", admin_drain)
+    return server
+
+
+def serve_gateway(worker_urls: List[str],
+                  config: Optional[GatewayConfig] = None
+                  ) -> Tuple[Gateway, JsonHttpServer]:
+    """Start a gateway over the HTTP workers ``worker_urls`` serving in a
+    background thread on ``config.port`` (0 = any free port). Returns
+    (gateway, server); the caller stops the server."""
+    config = config or GatewayConfig()
+    gateway = Gateway(worker_urls, config)
+    server = JsonHttpServer(config.port)
+    server.route("POST", "/infer",
+                 lambda body: (200, gateway.route_request_raw(body)))
+    server.route("POST", "/generate",
+                 lambda body: (200, gateway.route_generate(body)))
+    server.route("POST", "/generate/stream",
+                 lambda body: (200, gateway.route_generate_stream(body)))
+    server.route("POST", "/score",
+                 lambda body: (200, gateway.route_score(body)))
+    server.route("GET", "/stats", lambda _body: (200, gateway.get_stats()))
+    server.start(background=True)
+    return gateway, server

@@ -1,5 +1,6 @@
 """Command line of the port (counterpart of the ``worker``,
-``worker_node`` and ``train`` commands of ``tpu_engine/serving/cli.py``):
+``worker_node``, ``gateway`` and ``train`` commands of
+``tpu_engine/serving/cli.py``):
 
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
       [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
@@ -13,6 +14,10 @@
   python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
       [<model_path>]] [--no-unified-stateless] [the worker's flags]
 
+  python -m tpu_engine_torch.serving.cli gateway <worker1_host:port>
+      [worker2_host:port ...] [--port 8000] [--breaker-timeout S]
+      [--drain-timeout S] [--retry-budget RATIO]
+
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
       [--out DIR] [--resume DIR/state] [--log-every N] [--seed N]
@@ -20,7 +25,7 @@
 
 Worker: every lane serves /infer (the result cache, in-flight coalescing,
 and single-tick rows of its scheduler, or the dynamic batcher with
-``--no-unified-stateless``), /health and /stats. A config-less model
+``--no-unified-stateless``), /health and /admin/drain. A config-less model
 (``mlp``, ``resnet50``, ``resnet50-v1``) serves /infer only. A decoder
 lane also serves /score, /generate and /generate/stream: without
 ``--kv-block-size`` the lane runs the dense scheduler, the
@@ -47,6 +52,18 @@ path names its registry model (``resnet50-v2-7.onnx`` -> ``resnet50``);
 the port loads no ONNX graph, so a path to an existing ``.onnx`` file
 refuses by name.
 
+gateway: the reference's gateway argv (``gateway 127.0.0.1:8001
+127.0.0.1:8002 127.0.0.1:8003``): consistent-hash routing of /infer,
+/generate, /generate/stream and /score over the workers, a circuit breaker
+per lane (``--breaker-timeout`` seconds OPEN before HALF_OPEN, default 30),
+ring-order failover, and /stats. ``--drain-timeout`` bounds a graceful
+removal's drain call, ``--retry-budget`` caps failover retries at that
+share of recent requests. The JAX command's other gateway flags (stream
+resume and migration, the health prober, prefix affinity and the prefix
+directory, overload control, disaggregated roles, the autoscaler, SLO
+objectives and trace stitching, standby workers) are accepted and refuse
+by name.
+
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
 from ``--seed + 1``), the same ``step k: loss x`` lines, an f32 forward
@@ -55,7 +72,8 @@ each block. ``--out`` writes ``<out>/state`` (the whole train state) and
 ``<out>/params`` (servable, with the sidecar); ``--resume`` continues a
 saved state's step count. ``--mesh`` (parallel training) is not ported.
 
-Both run on the CUDA card unless ``--device cpu``.
+The worker and train commands run on the CUDA card unless ``--device
+cpu``; the gateway never touches the card.
 """
 
 from __future__ import annotations
@@ -163,18 +181,23 @@ def _serve(a, node_id: str, model: str, params=None,
     print(f"tpu_engine_torch worker {cfg.node_id} ({cfg.model}, "
           f"{worker.engine.device}) listening on port {server.port}",
           flush=True)
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
     try:
-        # A bounded wait: the signal may land on another thread, and the
-        # main thread only runs the handler once it wakes.
-        while not stop.wait(0.5):
-            pass
+        _wait_for_signal()
     finally:
         server.stop()
         worker.stop()
     return 0
+
+
+def _wait_for_signal() -> None:
+    """Block until SIGTERM or SIGINT."""
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    # A bounded wait: the signal may land on another thread, and the main
+    # thread only runs the handler once it wakes.
+    while not stop.wait(0.5):
+        pass
 
 
 def _worker(argv) -> int:
@@ -235,6 +258,103 @@ def _worker_node(argv) -> int:
                 f"to tpu_engine_torch (only the train command's "
                 f"<out>/params)")
     return _serve(a, node_id, model, params)
+
+
+# The JAX gateway command's flags that map onto no ported feature:
+# (flag, takes a value, is repeatable). Each is accepted and refuses by
+# name.
+_UNPORTED_GATEWAY_FLAGS = (
+    ("--failover-streams", False, False),
+    ("--health-probe-interval", True, False),
+    ("--migrate-streams", False, False),
+    ("--migrate-timeout", True, False),
+    ("--prefix-affinity", False, False),
+    ("--affinity-block-size", True, False),
+    ("--affinity-prefix-blocks", True, False),
+    ("--affinity-max-imbalance", True, False),
+    ("--prefix-directory", False, False),
+    ("--prefix-dir-capacity", True, False),
+    ("--overload-control", False, False),
+    ("--overload-max-inflight", True, False),
+    ("--tenant-rate", True, False),
+    ("--disagg", False, False),
+    ("--handoff-timeout", True, False),
+    ("--autoscale", False, False),
+    ("--autoscale-interval", True, False),
+    ("--autoscale-min-lanes", True, False),
+    ("--autoscale-max-lanes", True, False),
+    ("--autoscale-up-pressure", True, False),
+    ("--autoscale-down-pressure", True, False),
+    ("--autoscale-cooldown", True, False),
+    ("--autoscale-spawn-timeout", True, False),
+    ("--autoscale-rebalance-band", True, False),
+    ("--trace-stitch", False, False),
+    ("--trace-ledger-capacity", True, False),
+    ("--slo-ttft-p99-ms", True, False),
+    ("--slo-itl-p99-ms", True, False),
+    ("--slo-completion-p99-ms", True, False),
+    ("--slo-target", True, False),
+    ("--slo-window-s", True, False),
+    ("--autoscale-slo-feed", False, False),
+    ("--standby-worker", True, True),
+)
+
+
+def gateway_config(argv):
+    """(worker URLs, GatewayConfig) of a ``gateway`` command line; a JAX
+    gateway flag the port lacks raises NotImplementedError naming it."""
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    p = argparse.ArgumentParser(prog="gateway")
+    p.add_argument("workers", nargs="+")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--breaker-timeout", type=float, default=30.0,
+                   help="circuit-breaker OPEN -> HALF_OPEN seconds")
+    p.add_argument("--drain-timeout", type=float, default=None,
+                   help="graceful removal's drain acknowledgment bound in "
+                        "seconds (default 10)")
+    p.add_argument("--retry-budget", type=float, default=None,
+                   help="cap failover retries at this fraction of recent "
+                        "requests (default: unlimited)")
+    for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
+        if repeat:
+            p.add_argument(flag, action="append", default=None)
+        elif value:
+            p.add_argument(flag, default=None)
+        else:
+            p.add_argument(flag, action="store_true", default=None)
+    a = p.parse_args(argv)
+    for flag, _value, _repeat in _UNPORTED_GATEWAY_FLAGS:
+        if getattr(a, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to tpu_engine_torch's gateway")
+    kw = {}
+    if a.drain_timeout is not None:
+        kw["drain_timeout_s"] = a.drain_timeout
+    if a.retry_budget is not None:
+        kw["retry_budget_ratio"] = a.retry_budget
+    return a.workers, GatewayConfig(port=a.port,
+                                    breaker_timeout_s=a.breaker_timeout,
+                                    **kw)
+
+
+def _gateway(argv) -> int:
+    if not argv:
+        print("Usage: gateway <worker1_host:port> [worker2_host:port] ...")
+        return 1
+    from tpu_engine_torch.serving.app import serve_gateway
+
+    workers, cfg = gateway_config(argv)
+    gateway, server = serve_gateway(workers, cfg)
+    print(f"Gateway listening on port {server.port}")
+    print(f"Workers: {len(gateway.worker_names())}")
+    print("Circuit breakers enabled")
+    print("Ready!", flush=True)
+    try:
+        _wait_for_signal()
+    finally:
+        server.stop()
+    return 0
 
 
 def train(argv, params=None) -> int:
@@ -357,6 +477,8 @@ def main(argv=None) -> int:
         return _worker(argv[1:])
     if argv and argv[0] == "worker_node":
         return _worker_node(argv[1:])
+    if argv and argv[0] == "gateway":
+        return _gateway(argv[1:])
     if argv and argv[0] == "train":
         return train(argv[1:])
     print(__doc__)

@@ -4,9 +4,11 @@ from ``tpu_engine/serving/http.py`` (stdlib only).
 
 Handlers return ``(status, payload)``; a payload of bytes is sent as it
 is (the /infer response, already serialized), one that is an iterator of
-byte chunks as a chunked Server-Sent-Events stream. A
-``ShedError`` (an expired deadline) maps to 503 with ``Retry-After`` and
-``{"error", "kind"}``; KeyError, ValueError and TypeError map to 400,
+byte chunks as a chunked Server-Sent-Events stream, each chunk written and
+flushed as it arrives, and the iterator closed when the response ends
+(a client that went away included). A ``ShedError`` (an expired
+deadline, an overloaded or draining lane) maps to 503 with ``Retry-After``
+and ``{"error", "kind"}``; KeyError, ValueError and TypeError map to 400,
 NotImplementedError and every other exception to 500, with
 ``{"error": ...}`` bodies.
 """
@@ -135,7 +137,16 @@ class JsonHttpServer:
                 cannot become a 500 — the connection closes WITHOUT the
                 terminal 0-chunk so clients see the truncation
                 (IncompleteRead) instead of a well-formed-but-short
-                stream."""
+                stream. The iterator is closed however the response
+                ends, so an abandoned stream's resources go at once."""
+                try:
+                    self._send_stream(status, chunks)
+                finally:
+                    close = getattr(chunks, "close", None)
+                    if close is not None:
+                        close()
+
+            def _send_stream(self, status: int, chunks) -> None:
                 self.send_response(status)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")

@@ -1,7 +1,7 @@
 """The port's worker lane (counterpart of ``tpu_engine/serving/worker.py``):
 one engine and one continuous scheduler behind ``/infer``, ``/score``,
-``/generate``, ``/generate/stream``, ``/health`` and ``/stats``, with the
-JAX worker's wire fields.
+``/generate``, ``/generate/stream`` and ``/health``, with the JAX worker's
+wire fields, and the admission plane in front of them.
 
 Lanes. A decoder model (the gpt2 and llama families) gets the continuous
 scheduler: dense, the default lane, or paged (mixed stepping or two-path,
@@ -40,20 +40,31 @@ endpoint's fields, or with ``error``, ``retryable`` and ``tokens_emitted``.
 A stateless lane refuses /generate with the JAX worker's 400.
 
 As in the JAX worker, a ``model`` other than the lane's is a 400; a
-negative or NaN ``deadline_ms`` is a 400; a request whose deadline has
-passed at admission is a 503 with ``Retry-After``; a row whose deadline
-passes mid-generation is cancelled between ticks. Misconfigured lanes
-refuse at startup with the JAX worker's messages.
+negative or NaN ``deadline_ms`` is a 400; a row whose deadline passes
+mid-generation is cancelled between ticks. Misconfigured lanes refuse at
+startup with the JAX worker's messages.
+
+Admission (``serving.resilience.AdmissionController``): every request is
+admitted before it counts in ``total_requests`` and released when it ends
+(a stream when its event iterator ends or is closed). A draining lane, one
+at ``max_queue_depth`` and an /infer miss whose budget is below the lane's
+service-time estimate (an EWMA of the misses' ``inference_time_us``) are
+503 ``overloaded``; a deadline already passed is 503
+``deadline_exceeded``; both carry ``Retry-After``. ``drain()`` and
+``undrain()`` answer named statuses.
 
 ``/health`` has the JAX lane's keys: ``cache_hits``, ``cache_size`` and
 ``cache_hit_rate`` of the result cache, the batcher's four-key
 ``batch_processor`` block (on a stateless lane the scheduler's one-shot
-dispatch counters fold into it, and no ``generator`` key appears), and on
-decoder lanes the scheduler's stats under ``generator``.
+dispatch counters fold into it, and no ``generator`` key appears), on
+decoder lanes the scheduler's stats under ``generator``, and once
+admission has anything to report (a bound, a drain, a shed or a row
+dropped at its deadline) the ``admission`` block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -70,6 +81,7 @@ from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.serving.http import sse_event
+from tpu_engine_torch.serving.resilience import AdmissionController
 from tpu_engine_torch.utils.config import WorkerConfig
 from tpu_engine_torch.utils.deadline import (
     Deadline,
@@ -101,6 +113,35 @@ class _ScoreItem:
     request_id: str
     prompt: List[int]
     completion: List[int]
+
+
+class _AdmittedStream:
+    """The SSE events of an admitted stream. Its admission slot is held
+    until the events end or fail, or the iterator is closed (the client
+    went away), whether or not iteration had started; it is released
+    once."""
+
+    def __init__(self, events, release):
+        self._events = events
+        self._release = release
+        self._lock = threading.Lock()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> bytes:
+        try:
+            return next(self._events)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        with self._lock:
+            release, self._release = self._release, None
+        self._events.close()
+        if release is not None:
+            release()
 
 
 class _Inflight:
@@ -191,6 +232,11 @@ class WorkerNode:
             raise
         self._total_requests = 0
         self._cache_hits = 0
+        self._admission = AdmissionController(config.max_queue_depth,
+                                              self.node_id)
+        # EWMA (0.8 / 0.2) of the misses' inference_time_us: the /infer
+        # miss path's early rejection estimate.
+        self._service_ewma_us: Optional[float] = None
         # Bumped by apply_weights: a result computed under older weights
         # never enters the cleared cache (check and put under one lock).
         self._weights_gen = 0
@@ -324,16 +370,48 @@ class WorkerNode:
             raise ValueError(
                 f"this lane serves model '{have}', not '{want}'")
 
-    def _admit(self, request: dict) -> Optional[Deadline]:
-        """The request's deadline; one already passed refuses with 503."""
-        deadline = Deadline.from_request(request)
-        if deadline is not None and deadline.expired():
-            raise DeadlineExceeded("deadline exceeded at admission")
-        return deadline
+    @contextlib.contextmanager
+    def _admitted(self, deadline: Optional[Deadline]):
+        """The admission scope of a blocking request: admit, then always
+        release."""
+        self._admission.admit(deadline)
+        try:
+            yield
+        finally:
+            self._admission.release()
 
     def _count_request(self) -> None:
         with self._counter_lock:
             self._total_requests += 1
+
+    # -- drain (lame-duck) ----------------------------------------------------
+
+    def drain(self) -> str:
+        """Refuse new admissions (503 ``overloaded``) while in-flight work
+        completes; ``"draining"``, or ``"already-draining"`` on a repeat."""
+        status = self._admission.drain()
+        if status == "draining" and self.generator is not None:
+            self.generator.set_draining(True)
+        return status
+
+    def undrain(self) -> str:
+        """``"undrained"``, or ``"not-draining"`` when the lane was not
+        draining."""
+        status = self._admission.undrain()
+        if status == "undrained" and self.generator is not None:
+            self.generator.set_draining(False)
+        return status
+
+    @property
+    def draining(self) -> bool:
+        return self._admission.draining
+
+    @property
+    def service_estimate_us(self) -> Optional[float]:
+        """The /infer miss path's service-time estimate (None before the
+        first miss): a miss whose budget is below it sheds 503
+        ``overloaded``."""
+        return self._service_ewma_us
 
     def apply_weights(self, params) -> dict:
         """Swap in new weights of the served model (the engine's
@@ -361,9 +439,10 @@ class WorkerNode:
         """The /infer flow -> (request_id, output_data fragment, cached?,
         inference_time_us)."""
         self._check_model(request)
-        deadline = self._admit(request)
-        self._count_request()
-        return self._infer_admitted(request, deadline)
+        deadline = Deadline.from_request(request)
+        with self._admitted(deadline):
+            self._count_request()
+            return self._infer_admitted(request, deadline)
 
     def _infer_admitted(self, request: dict, deadline: Optional[Deadline]
                         ) -> Tuple[str, bytes, bool, int]:
@@ -380,6 +459,11 @@ class WorkerNode:
             return (request_id, frag, True,
                     self.config.fake_cached_latency_us)
         while True:
+            # The miss path's early rejection, on this request's own
+            # budget each round.
+            est = self._service_ewma_us
+            self._admission.check_deadline(
+                deadline, None if est is None else est / 1e6)
             with self._inflight_lock:
                 entry = self._inflight.get(key)
                 leader = entry is None
@@ -414,6 +498,10 @@ class WorkerNode:
                     self.cache.put(key, frag)
             entry.frag = frag
             entry.time_us = result.inference_time_us
+            t = float(result.inference_time_us)
+            self._service_ewma_us = (t if self._service_ewma_us is None
+                                     else 0.8 * self._service_ewma_us
+                                     + 0.2 * t)
         except BaseException as exc:
             entry.error = exc
             raise
@@ -493,7 +581,12 @@ class WorkerNode:
         if self.engine.spec.config is None:
             raise ValueError(
                 f"model '{self.config.model}' does not support scoring")
-        deadline = self._admit(request)
+        deadline = Deadline.from_request(request)
+        with self._admitted(deadline):
+            return self._score_admitted(request, deadline)
+
+    def _score_admitted(self, request: dict,
+                        deadline: Optional[Deadline]) -> dict:
         self._count_request()
         completion = [int(t) for t in request["completion_tokens"]]
         if not completion:
@@ -551,14 +644,18 @@ class WorkerNode:
 
     # -- /generate ------------------------------------------------------------
 
-    def _parse(self, request: dict) -> dict:
-        """Validate a /generate payload eagerly: a malformed request must
-        400, and an expired one 503, before a stream commits to 200."""
+    def _generation_deadline(self, request: dict) -> Optional[Deadline]:
+        """The checks before a /generate request's admission: a lane that
+        generates, the lane's model; returns its deadline."""
         if self.generator is None or self.generator._stateless:
             raise ValueError(
                 f"model '{self.config.model}' does not support generation")
         self._check_model(request)
-        deadline = Deadline.from_request(request)
+        return Deadline.from_request(request)
+
+    def _parse(self, request: dict, deadline: Optional[Deadline]) -> dict:
+        """The scheduler's arguments of a /generate payload, validated: a
+        malformed request is a 400 (before a stream commits to 200)."""
         if int(request.get("beam_width", 1)) != 1:
             raise ValueError("beam search is not yet ported to "
                              "tpu_engine_torch")
@@ -578,30 +675,39 @@ class WorkerNode:
         expand_stopping_params(1, kw["repetition_penalty"],
                                [kw["stop_tokens"]] if kw["stop_tokens"]
                                else None)
-        if deadline is not None and deadline.expired():
-            raise DeadlineExceeded("deadline exceeded at admission")
         kw["deadline"] = deadline
         return kw
 
     def handle_generate(self, request: dict) -> dict:
-        request_id = request["request_id"]
-        kw = self._parse(request)
-        self._count_request()
-        t0 = time.perf_counter()
-        tokens = self.generator.submit(kw.pop("prompt"), **kw).result(
-            timeout=600)
-        return {"request_id": request_id, "tokens": tokens,
-                "node_id": self.node_id,
-                "generate_time_us": int((time.perf_counter() - t0) * 1e6)}
+        deadline = self._generation_deadline(request)
+        with self._admitted(deadline):
+            self._count_request()
+            request_id = request["request_id"]
+            kw = self._parse(request, deadline)
+            t0 = time.perf_counter()
+            tokens = self.generator.submit(kw.pop("prompt"), **kw).result(
+                timeout=600)
+            return {"request_id": request_id, "tokens": tokens,
+                    "node_id": self.node_id,
+                    "generate_time_us": int((time.perf_counter() - t0)
+                                            * 1e6)}
 
-    def handle_generate_stream(self, request: dict):
-        """Returns an iterator of SSE event byte chunks."""
+    def handle_generate_stream(self, request: dict) -> _AdmittedStream:
+        """Returns an iterator of SSE event byte chunks. Validation and
+        admission run before it is returned (a 400 or 503, not a 200
+        stream); the admission slot is held until the events end."""
+        deadline = self._generation_deadline(request)
         request_id = request["request_id"]
-        kw = self._parse(request)
-        self._count_request()
-        q: "queue.Queue" = queue.Queue()
-        t0 = time.perf_counter()
-        fut = self.generator.submit(kw.pop("prompt"), stream=q, **kw)
+        kw = self._parse(request, deadline)
+        self._admission.admit(deadline)
+        try:
+            self._count_request()
+            q: "queue.Queue" = queue.Queue()
+            t0 = time.perf_counter()
+            fut = self.generator.submit(kw.pop("prompt"), stream=q, **kw)
+        except BaseException:
+            self._admission.release()
+            raise
 
         def events():
             sent = 0
@@ -627,7 +733,7 @@ class WorkerNode:
                 "done": True, "request_id": request_id, "tokens": tokens,
                 "node_id": self.node_id,
                 "generate_time_us": int((time.perf_counter() - t0) * 1e6)})
-        return events()
+        return _AdmittedStream(events(), self._admission.release)
 
     @staticmethod
     def _stream_error(exc: BaseException, request_id: str,
@@ -655,27 +761,34 @@ class WorkerNode:
                "cache_hit_rate": self.cache.hit_rate(),
                "batch_processor": self.batch_processor.get_metrics()
                .as_dict()}
-        if self.generator is None:
-            return out
-        gstats = self.generator.stats()
-        if not self.generator._stateless:
+        gstats = (self.generator.stats() if self.generator is not None
+                  else {})
+        if self.generator is not None and not self.generator._stateless:
             out["generator"] = gstats
-            return out
-        # A stateless lane's scheduler is its batch lane: its one-shot
-        # dispatches fold into the four-key batch_processor block.
-        st = gstats["stateless"]
-        bp = out["batch_processor"]
-        rows = st["infer_rows"] + st["score_rows"]
-        prev_rows = bp["avg_batch_size"] * bp["total_batches"]
-        bp["total_batches"] += st["dispatches"]
-        bp["full_batches"] += st["full_dispatches"]
-        if bp["total_batches"] > 0:
-            bp["avg_batch_size"] = (prev_rows + rows) / bp["total_batches"]
+        elif self.generator is not None:
+            # A stateless lane's scheduler is its batch lane: its one-shot
+            # dispatches fold into the four-key batch_processor block.
+            st = gstats["stateless"]
+            bp = out["batch_processor"]
+            rows = st["infer_rows"] + st["score_rows"]
+            prev_rows = bp["avg_batch_size"] * bp["total_batches"]
+            bp["total_batches"] += st["dispatches"]
+            bp["full_batches"] += st["full_dispatches"]
+            if bp["total_batches"] > 0:
+                bp["avg_batch_size"] = ((prev_rows + rows)
+                                        / bp["total_batches"])
+        # Rows dropped at their deadline by the batchers and the
+        # scheduler's one-shot rows count with the admission sheds.
+        dropped = self.batch_processor.deadline_dropped
+        if self._score_proc is not None:
+            dropped += self._score_proc.deadline_dropped
+        if "stateless" in gstats:
+            dropped += gstats["stateless"]["deadline_dropped"]
+        if self._admission.active or dropped:
+            adm = self._admission.as_dict()
+            adm["deadline_dropped"] = dropped
+            out["admission"] = adm
         return out
-
-    def get_stats(self) -> dict:
-        gstats = self.generator.stats() if self.generator is not None else {}
-        return {"node_id": self.node_id, **gstats}
 
     def stop(self) -> None:
         self.batch_processor.stop()

@@ -1,7 +1,13 @@
-"""Worker configuration: the fields of ``tpu_engine``'s ``WorkerConfig``
-that the port's lanes use, with the same names and defaults (``model``
-defaults to ``"resnet50"``, the one-shot /infer lane a default launch
-serves), plus the port's own ``device`` and ``seed``."""
+"""Worker and gateway configuration: the fields of ``tpu_engine``'s
+``WorkerConfig`` and ``GatewayConfig`` that the port uses, with the same
+names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
+/infer lane a default launch serves), plus the worker's own ``device`` and
+``seed``. The JAX gateway's other features keep their fields here, off by
+default, and refuse by name when switched on (``refuse_unported``). The
+settings only the JAX ``serve`` command sets (a default deadline, failover
+backoff, the Retry-After of a gateway 503) wait for that command: failover
+is immediate, a request without ``deadline_ms`` has no deadline, and a
+gateway 503 carries Retry-After 1."""
 
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ class WorkerConfig:
     # Dispatched /infer batches in flight before the batcher collects the
     # oldest (engine batch_submit / batch_collect); 1 = lockstep.
     pipeline_depth: int = 4
+    # Admitted requests in flight before the lane sheds 503 "overloaded"
+    # (0 = unbounded).
+    max_queue_depth: int = 0
     gen_max_batch_size: int = 8         # decode rows (scheduler slots)
     gen_step_chunk: int = 16            # two-path decode steps per chunk
     gen_prefill_chunk: int = 256
@@ -55,3 +64,74 @@ class WorkerConfig:
     # seed of its random weights.
     device: Optional[str] = None
     seed: int = 0
+
+
+@dataclass
+class GatewayConfig:
+    port: int = 8000
+    virtual_nodes: int = 150
+    failure_threshold: int = 5
+    success_threshold: int = 2
+    breaker_timeout_s: float = 30.0
+    worker_timeout_s: float = 5.0
+    gen_timeout_s: float = 120.0        # /generate, /score, streams
+    default_worker_port: int = 8080
+    # The retry budget: retries allowed while retries <= ratio * requests
+    # + min over the window; None = unlimited (the breaker-only routing
+    # and /stats schema).
+    retry_budget_ratio: Optional[float] = None
+    retry_budget_min: int = 10
+    retry_budget_window_s: float = 10.0
+    # How long remove_worker(drain=True) waits for a lane to acknowledge
+    # its drain before counting the failure and removing it anyway.
+    drain_timeout_s: float = 10.0
+
+    # The JAX gateway's other features: not ported; each refuses by name
+    # when switched on (refuse_unported).
+    hedge_enabled: bool = False
+    failover_streams: bool = False
+    migrate_streams: bool = False
+    health_probe_interval_s: float = 0.0
+    disagg: bool = False
+    prefix_affinity: bool = False
+    prefix_directory: bool = False
+    overload_control: bool = False
+    tenant_rate: float = 0.0
+    autoscale: bool = False
+    slo_ttft_p99_ms: float = 0.0
+    slo_itl_p99_ms: float = 0.0
+    slo_completion_p99_ms: float = 0.0
+    trace_stitch: bool = False
+
+    def __post_init__(self):
+        refuse_unported(self)
+
+
+# (field, the JAX package's name of the feature) of every gateway feature
+# the port lacks.
+_UNPORTED_GATEWAY = (
+    ("hedge_enabled", "hedged dispatch"),
+    ("failover_streams", "crash-tolerant streaming (stream resume)"),
+    ("migrate_streams", "live stream migration"),
+    ("health_probe_interval_s", "the proactive health prober"),
+    ("disagg", "disaggregated prefill/decode serving"),
+    ("prefix_affinity", "prefix-affinity routing"),
+    ("prefix_directory", "the fleet prefix directory"),
+    ("overload_control", "gateway overload control"),
+    ("tenant_rate", "the per-tenant rate limiter"),
+    ("autoscale", "the elastic-fleet autoscaler"),
+    ("slo_ttft_p99_ms", "SLO objectives"),
+    ("slo_itl_p99_ms", "SLO objectives"),
+    ("slo_completion_p99_ms", "SLO objectives"),
+    ("trace_stitch", "cross-lane trace stitching"),
+)
+
+
+def refuse_unported(config: GatewayConfig) -> None:
+    """Raise NotImplementedError naming the first unported feature that
+    ``config`` switches on."""
+    for field, feature in _UNPORTED_GATEWAY:
+        if getattr(config, field):
+            raise NotImplementedError(
+                f"{field}: {feature} is not yet ported to "
+                f"tpu_engine_torch's gateway")

@@ -6,7 +6,12 @@ budget in milliseconds at the hop that wrote it. An absent field means no
 deadline. A request whose deadline has passed at admission is refused
 with 503 and ``Retry-After``; a row whose deadline passes mid-generation
 is cancelled between ticks and its future resolves with
-``DeadlineExceeded``.
+``DeadlineExceeded``. A lane that refuses work it could not serve in time,
+is draining or is at its queue depth raises ``Overloaded``: the lane is
+healthy, so a gateway fails over without a breaker penalty.
+
+The ``kind`` strings are the JAX package's letter for letter: a gateway
+reads them off a 503 body to tell a shed from a fault.
 """
 
 from __future__ import annotations
@@ -22,12 +27,22 @@ class ShedError(Exception):
 
     retry_after_s: float = 1.0
     kind: str = "shed"
+    # A deadline that ran out while a lane held the request unanswered
+    # (the hang signature): the gateway still penalises the lane.
+    lane_suspect: bool = False
 
 
 class DeadlineExceeded(ShedError):
     """The request's deadline expired (at admission or mid-flight)."""
 
     kind = "deadline_exceeded"
+
+
+class Overloaded(ShedError):
+    """Admission refused the request: queue depth reached, the lane
+    draining, or a budget below the lane's service-time estimate."""
+
+    kind = "overloaded"
 
 
 class Deadline:
@@ -59,6 +74,9 @@ class Deadline:
 
     def remaining_s(self) -> float:
         return self.at - time.monotonic()
+
+    def remaining_ms(self) -> float:
+        return self.remaining_s() * 1000.0
 
 
 def clamp_timeout(deadline: Optional[Deadline],
