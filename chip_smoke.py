@@ -131,7 +131,29 @@ Phases (any failure exits non-zero and prints no result line):
               phase's end: the ragged kernel's == 22 x the lanes' mixed
               ticks, the flash forward's == 22 x their one-shot
               dispatches, no other kernel, no plain call;
-6. train    — after the server phase has stopped its lanes: full-width
+6. kvtier   — the host KV tier and the KV chain wire format at TinyLlama
+              geometry (bf16 weights from seed 0, 16-token blocks): a pool
+              on the card with a 64-block pinned host tier, where a
+              64-block prefix of random data is demoted and promoted
+              (bf16, and int8 with its scales) and its chain exported into
+              a second pool, each held with torch.equal, the copies timed
+              beside their PCIe bound and one 256 MiB pinned copy's rate,
+              the swap-in beside the device time of recomputing the
+              prefix's prefill (four W = 256 ticks); a mixed-bf16 and a
+              two-path-int8 worker with --kv-blocks 192 --kv-host-blocks
+              512, each beside an untiered control (the auto pool), served
+              six 1024-token prompts and then each with a new 32-token
+              tail, one at a time: streams, prefix-hit and prefilled
+              tokens equal to the control's, swap_ins > 0 with no
+              deferral, no host eviction and no leaked scale slot, the
+              lane's kernel launched 22 x its ticks; then for each mode two
+              workers A and B: a greedy 64-token stream of a 1024-token
+              prompt on A, exported by /admin/migrate after >= 16 tokens
+              and continued on B by migrate_import, token-identical to the
+              same request's uninterrupted run alone on A, no token
+              prefilled on B, imported_chain_tokens == 16 x the chain's
+              blocks, no block leaked;
+7. train    — after the server phase has stopped its lanes: full-width
               training of TinyLlama-1.1B geometry (22 layers, f32 weights
               from seed 0, AdamW) on the train command's synthetic batch,
               4 steps at B 4 x S 1024 with an f32 forward (lr 1e-4; the
@@ -144,7 +166,7 @@ Phases (any failure exits non-zero and prints no result line):
               device busy time, the idle share, the flash kernels' shares
               (and the device time of their f32 and bf16 variants),
               tokens/s and peak memory;
-7. numbers  — each kernel's time at the main path's shapes (with events
+8. numbers  — each kernel's time at the main path's shapes (with events
               and as device time) beside its bound, the plain version's
               time and the library's (scaled_dot_product_attention; for the
               paged reads over K/V gathered dense, and dequantized for
@@ -1555,15 +1577,17 @@ def generator_stats(port: int) -> dict:
 def wait_idle(port: int, paged: bool) -> tuple:
     """(the scheduler's stats once the lane is idle, whether it got there
     in 30 s): no active row and, over the paged pool, every block free or
-    radix-held."""
+    held by a radix node resident on the card (a node demoted to the host
+    tier holds none)."""
     deadline = time.time() + 30
     while True:
         st = generator_stats(port)
         idle = st["active"] == 0
         if paged:
             pool = st["kv_pool"]
+            demoted = pool.get("host", {}).get("blocks_used", 0)
             idle = idle and (pool["blocks_free"] + pool["radix_nodes"]
-                             == pool["blocks_total"])
+                             - demoted == pool["blocks_total"])
         if idle or time.time() > deadline:
             return st, idle
         time.sleep(0.05)
@@ -2664,6 +2688,396 @@ def phase_gateway(torch) -> dict:
             "oneshot_dispatches": oneshot}
 
 
+# -- kvtier phase -------------------------------------------------------------
+
+# The host KV tier and the KV chain wire format at TinyLlama geometry.
+# PCIe Gen5 x16's nominal rate in each direction: the bound of a host-tier
+# copy (the phase also measures one large pinned copy's rate).
+PCIE_BYTES_PER_S = 64e9
+KVTIER_BLOCKS = 64            # a 1024-token prefix of 16-token blocks
+KVTIER_PROMPTS = 6
+KVTIER_PROMPT_LEN = 1024
+KVTIER_TAIL = 32
+KVTIER_MAX_NEW = 16
+# The tiered workers' pool: 192 device blocks (three 1024-token prompts'
+# worth) over a 512-block host tier; their controls take the auto pool
+# (8 rows x 128 blocks + the null block) and no tier.
+KVTIER_TIER = dict(gen_kv_blocks=192, gen_kv_host_blocks=512)
+KVTIER_LANES = {
+    "kvtier-mixed-bf16": ("ragged_paged_attention", "mixed-bf16"),
+    "kvtier-two-path-int8": ("quant_paged_attention", "two-path-int8"),
+}
+MIGRATE_MAX_NEW = 64
+MIGRATE_AT = 16
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def pinned_copy_rates(torch, nbytes: int = 256 << 20) -> dict:
+    """One large pinned copy's rate in each direction (GB/s, events over
+    five copies): the practical roof of the host tier's copies."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        out[name + "_gb_s"] = 5 * nbytes / (e0.elapsed_time(e1) / 1e3) / 1e9
+    return out
+
+
+def kvtier_pool(torch, params, cfg, dev="cuda",
+                card: str = "") -> dict:
+    """Pool-level round trips at the main path's geometry: a 64-block
+    prefix of random data demoted to a 64-block host tier and promoted
+    back (bf16, and int8 with its scales), each held with torch.equal;
+    the chain exported and imported into a second pool, bit-exact; the
+    copies timed beside their PCIe bound, and (bf16) the 64-block swap-in
+    beside the device time of recomputing that prefix's prefill in the
+    mixed lane's four 256-token ticks."""
+    from tpu_engine_torch.runtime.kv_blocks import BlockPool
+
+    n, bs = KVTIER_BLOCKS, 16
+    toks = list(range(1, n * bs + 1))
+    out = {}
+    for quant in ("", "int8"):
+        key = "int8" if quant else "bf16"
+        src, dst = (BlockPool(cfg, 2 * n + 1, bs, torch.bfloat16, dev,
+                              host_blocks=n, quantize=quant)
+                    for _ in range(2))
+        check(all(h.is_pinned() for h in src._host)
+              == (torch.device(dev).type == "cuda"),
+              f"kvtier pool {key}: host tier not pinned")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with src.lock:
+            ids = src.alloc(n)
+            idx = torch.tensor(ids, device=dev)
+            for t in src._pool_tensors():
+                shape = (t.shape[0], n) + tuple(t.shape[2:])
+                if t.dtype == torch.int8:
+                    vals = torch.randint(-127, 128, shape, device=dev,
+                                         generator=gen, dtype=torch.int8)
+                elif t.dtype == torch.float32:  # int8 scales: positive
+                    vals = torch.rand(shape, device=dev, generator=gen) + 0.01
+                else:
+                    vals = torch.randn(shape, device=dev, generator=gen,
+                                       dtype=t.dtype)
+                t[:, idx] = vals
+            want = [t[:, idx].clone() for t in src._pool_tensors()]
+            src.radix.insert(toks, ids)
+            src.release_many(ids)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            demoted = src.radix.evict(n)
+            sync(torch, dev)
+            demote_ms = (time.perf_counter() - t0) * 1e3
+            check(demoted == n == src.demotions,
+                  f"kvtier pool {key}: {demoted} of {n} blocks demoted")
+            for t in src._pool_tensors():  # the bytes must come back
+                t[:, idx] = 0
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            got = src.radix.lookup(toks, promote_reserve=0)
+            sync(torch, dev)
+            promote_ms = (time.perf_counter() - t0) * 1e3
+            gidx = torch.tensor(got, device=dev)
+            check(len(got) == n == src.swap_ins
+                  and src.swap_in_deferred == 0,
+                  f"kvtier pool {key}: {src.stats()['host']}")
+            check(all(torch.equal(t[:, gidx], w)
+                      for t, w in zip(src._pool_tensors(), want)),
+                  f"kvtier pool {key}: demote/promote not bit-exact")
+            t0 = time.perf_counter()
+            chain = src.export_chain(got)
+            export_ms = (time.perf_counter() - t0) * 1e3
+        wire = len(json.dumps(chain))
+        with dst.lock:
+            check(dst.chain_compatible(chain) is None
+                  and dst.verify_chain(chain),
+                  f"kvtier pool {key}: chain refused")
+            dids = dst.alloc(n)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            dst.import_chain(chain, chain["blocks"], dids)
+            sync(torch, dev)
+            import_ms = (time.perf_counter() - t0) * 1e3
+            didx = torch.tensor(dids, device=dev)
+            check(all(torch.equal(t[:, didx], w)
+                      for t, w in zip(dst._pool_tensors(), want)),
+                  f"kvtier pool {key}: chain round trip not bit-exact")
+        bpb = src.bytes_per_block()
+        res = {"bytes_per_block": bpb, "blocks": n,
+               "demote_ms_per_block": demote_ms / n,
+               "promote_ms_per_block": promote_ms / n,
+               "swap_in_ms": promote_ms,
+               "bound_ms_per_block": bpb / PCIE_BYTES_PER_S * 1e3,
+               "export_ms": export_ms, "import_ms": import_ms,
+               "wire_bytes": wire, "raw_bytes": n * bpb}
+        if not quant:
+            res.update(recompute_prefill(torch, params, cfg, src, gidx, dev))
+        out[key] = res
+        line = (f"kvtier pool {key}: {n} blocks of {bpb} B demoted "
+                f"{res['demote_ms_per_block']:.5f} ms/block (D2H) and "
+                f"promoted {res['promote_ms_per_block']:.5f} ms/block "
+                f"(H2D), bound {res['bound_ms_per_block']:.5f} ms/block at "
+                f"64 GB/s; swap-in of the {n}-block prefix {promote_ms:.3f}"
+                f" ms")
+        if not quant:
+            line += (f" vs recomputing its prefill "
+                     f"{res['recompute_busy_ms']:.3f} ms device busy "
+                     f"({res['recompute_ms']:.3f} ms events, 4 ticks of "
+                     f"W = 256)")
+        log(line + f"; chain export {export_ms:.3f} ms, import "
+            f"{import_ms:.3f} ms, wire {wire} B for {n * bpb} B raw "
+            f"({wire / (n * bpb):.4f}x); round trips bit-exact [{card}]")
+        src.release_many(got)
+    return out
+
+
+def recompute_prefill(torch, params, cfg, pool, blocks, dev) -> dict:
+    """Device time of recomputing a 64-block prefix as the mixed lane
+    prefills it: four ticks of W = 256 over 8 rows, one of them taking
+    256 prompt tokens a tick into ``blocks``."""
+    from tpu_engine_torch.models.transformer import \
+        transformer_step_rows_ragged
+
+    b, w = 8, min(256, len(blocks) * 16)
+    tables = torch.zeros((b, cfg.max_seq // 16), dtype=torch.int32,
+                         device=dev)
+    tables[0, :len(blocks)] = blocks.to(torch.int32)
+    tokens = torch.randint(1, cfg.vocab, (b, w), dtype=torch.int32,
+                           device=dev)
+    qlen = torch.zeros((b,), dtype=torch.int32, device=dev)
+    qlen[0] = w
+    slot = torch.zeros((b,), dtype=torch.int32, device=dev)
+    slot[0] = w - 1
+    pos0s = []
+    for c in range(len(blocks) * 16 // w):
+        p = torch.zeros((b,), dtype=torch.int32, device=dev)
+        p[0] = c * w
+        pos0s.append(p)
+
+    def prefill():
+        for p in pos0s:
+            logits = transformer_step_rows_ragged(
+                params, tokens, pool.caches, tables, p, qlen, cfg,
+                dtype=torch.bfloat16, sample_slot=slot)[0]
+        return logits
+
+    check(bool(torch.isfinite(prefill()).all()),
+          "kvtier recompute: non-finite logits")
+    return {"recompute_ms": time_ms(torch, prefill, iters=5),
+            "recompute_busy_ms": busy_ms(torch, prefill)}
+
+
+def kvtier_prompts(vocab: int) -> list:
+    """Six distinct 1024-token prompts, then each with a new 32-token
+    tail."""
+    rng = np.random.default_rng(12)
+    first = [[int(t) for t in rng.integers(1, vocab, KVTIER_PROMPT_LEN)]
+             for _ in range(KVTIER_PROMPTS)]
+    return first + [p + [int(t) for t in rng.integers(1, vocab, KVTIER_TAIL)]
+                    for p in first]
+
+
+def kvtier_lane(torch, params, lane: str, tier: bool) -> dict:
+    """One worker of ``lane`` (with the host tier, or its control) served
+    the kvtier prompts one at a time, the launch counts set to 0 before
+    and read after."""
+    from tpu_engine_torch.ops import kernels
+
+    kernel, base = KVTIER_LANES[lane]
+    overrides = dict(LANES[base], **(KVTIER_TIER if tier else {}))
+    name = lane if tier else lane + "-control"
+    worker, server = start_lane(torch, params, name, overrides=overrides)
+    port = server.port
+    try:
+        n_layers = worker.generator.cfg.n_layers
+        prompts = kvtier_prompts(worker.generator.cfg.vocab)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        toks = [post(port, "/generate", {
+            "request_id": f"{name}-{i}", "prompt_tokens": p,
+            "max_new_tokens": KVTIER_MAX_NEW})["tokens"]
+            for i, p in enumerate(prompts)]
+        seconds = time.perf_counter() - t0
+        st, idle = wait_idle(port, paged=True)
+        launches = check_counts(name, kernel)
+        check(idle, f"{name}: not idle or blocks leaked: {st['kv_pool']}")
+        check(all(len(t) == KVTIER_MAX_NEW for t in toks),
+              f"{name}: short streams {[len(t) for t in toks]}")
+        if overrides.get("gen_mixed_step"):
+            steps = st["mixed"]["dispatches"]
+            check(st["mixed"]["ticks"] == steps > 0
+                  and launches == n_layers * steps,
+                  f"{name}: {launches} launches for mixed {st['mixed']}")
+        else:
+            steps = st["chunks"] * overrides["gen_step_chunk"]
+            check(steps > 0 and launches == n_layers * steps,
+                  f"{name}: {launches} launches for {st['chunks']} chunks")
+        return {"tokens": toks, "pool": st["kv_pool"], "kernel": kernel,
+                "launches": launches, "steps": steps, "seconds": seconds}
+    finally:
+        server.stop()
+        worker.stop()
+
+
+def stream_migrate(port: int, body: dict, at: int, action) -> tuple:
+    """POST /generate/stream and call ``action()`` once ``at`` tokens have
+    streamed; returns (tokens, terminal event)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    toks, final, fired = [], None, False
+    try:
+        conn.request("POST", "/generate/stream", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"stream answered {resp.status}")
+        buf = b""
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                frame, buf = buf.split(b"\n\n", 1)
+                ev = json.loads(frame[len(b"data: "):])
+                if ev.get("done"):
+                    final = ev
+                    continue
+                toks.extend(ev["tokens"])
+                if action is not None and not fired and len(toks) >= at:
+                    fired = True
+                    action()
+    finally:
+        conn.close()
+    return toks, final
+
+
+def kvtier_migration(torch, params, lane: str, card: str = "") -> dict:
+    """A live row migrated between two workers of ``lane``: a greedy
+    64-token stream from a 1024-token prompt alone on A, exported by
+    /admin/migrate after >= 16 tokens and continued on B by
+    migrate_import, against the same request's uninterrupted run alone on
+    A (run first, twice: the second resumes from the first's radix hit,
+    as the migrated run does)."""
+    _kernel, base = KVTIER_LANES[lane]
+    workers = [start_lane(torch, params, f"{lane}-migrate-{x}",
+                          overrides=LANES[base]) for x in "AB"]
+    (wa, sa), (wb, sb) = workers
+    try:
+        prompt = [int(t) for t in np.random.default_rng(13).integers(
+            1, wa.generator.cfg.vocab, KVTIER_PROMPT_LEN)]
+        body = {"prompt_tokens": prompt, "max_new_tokens": MIGRATE_MAX_NEW}
+        runs = [post(sa.port, "/generate", dict(body, request_id=f"ctl{i}"))
+                ["tokens"] for i in range(2)]
+        want = runs[1]
+        pool_b = generator_stats(sb.port)["kv_pool"]
+        snap, rt = {}, []
+
+        def migrate():
+            t0 = time.perf_counter()
+            snap.update(post(sa.port, "/admin/migrate",
+                             {"request_id": "mig"}))
+            rt.append((time.perf_counter() - t0) * 1e3)
+
+        got, final = stream_migrate(sa.port, dict(body, request_id="mig"),
+                                    MIGRATE_AT, migrate)
+        check(snap.get("ok") and final is not None and final.get("migrated")
+              and final["tokens_emitted"] == len(got) == snap["streamed"]
+              and len(got) >= MIGRATE_AT,
+              f"{lane} migrate: {snap.get('reason')} {final}")
+        cont, done = stream_migrate(sb.port, {
+            "request_id": "mig-b", "prompt_tokens": [],
+            "migrate_import": snap}, 0, None)
+        check(done is not None and "error" not in done,
+              f"{lane} migrate_import: {done}")
+        st_b, idle_b = wait_idle(sb.port, paged=True)
+        st_a, idle_a = wait_idle(sa.port, paged=True)
+        n_chain = len(snap["chain"]["blocks"])
+        mig = st_b["migration"]
+        check(got + cont == want and done["tokens"] == want,
+              f"{lane} migrated stream differs: {got} + {cont} vs {want}")
+        check(st_b["kv_pool"]["prefilled_tokens"]
+              == pool_b["prefilled_tokens"],
+              f"{lane}: the importing worker prefilled "
+              f"{st_b['kv_pool']['prefilled_tokens']} tokens")
+        check(mig["imported_chain_tokens"] == 16 * n_chain
+              and mig["imported_rows"] == 1,
+              f"{lane}: imported {mig} for a {n_chain}-block chain")
+        check(idle_a and idle_b, f"{lane} migrate: blocks leaked "
+                                 f"{st_a['kv_pool']} {st_b['kv_pool']}")
+        res = {"streamed_before": len(got), "chain_blocks": n_chain,
+               "wire_bytes": len(json.dumps(snap["chain"])),
+               "migrate_ms": rt[0], "cold_equals_warm": runs[0] == runs[1],
+               "exported": st_a["migration"], "imported": mig}
+        log(f"kvtier migrate {lane}: {len(got)} tokens on A, /admin/migrate "
+            f"{rt[0]:.3f} ms round trip ({n_chain} blocks, "
+            f"{res['wire_bytes']} B of chain), {len(cont)} more on B "
+            f"token-identical to the uninterrupted run; B prefilled 0 "
+            f"tokens, imported_chain_tokens {mig['imported_chain_tokens']} "
+            f"== 16 x {n_chain}; no block leaked [{card}]")
+        return res
+    finally:
+        for w, s in workers:
+            s.stop()
+            w.stop()
+
+
+def phase_kvtier(torch, card: str) -> dict:
+    """The host KV tier and the chain wire format on the card at TinyLlama
+    geometry (bf16 weights from seed 0, 16-token blocks): the pool's round
+    trips and copy times, a mixed-bf16 and a two-path-int8 worker with a
+    host tier against untiered controls, and a live row migrated between
+    two workers of each. Each reading's line ends with ``card`` (the
+    card's name and power limit)."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+
+    cfg = create_model("llama").config
+    params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+    out = {"pinned_copy": pinned_copy_rates(torch)}
+    log(f"kvtier: one 256 MiB pinned copy "
+        f"{out['pinned_copy']['h2d_gb_s']:.2f} GB/s H2D, "
+        f"{out['pinned_copy']['d2h_gb_s']:.2f} GB/s D2H [{card}]")
+    out["pool"] = kvtier_pool(torch, params, cfg, card=card)
+    for lane in KVTIER_LANES:
+        tiered = kvtier_lane(torch, params, lane, tier=True)
+        control = kvtier_lane(torch, params, lane, tier=False)
+        tp, cp = tiered["pool"], control["pool"]
+        host = tp["host"]
+        check(tiered["tokens"] == control["tokens"],
+              f"{lane}: streams differ from the control's")
+        check(tp["prefix_hit_tokens"] == cp["prefix_hit_tokens"] > 0
+              and tp["prefilled_tokens"] == cp["prefilled_tokens"],
+              f"{lane}: tier {tp} vs control {cp}")
+        check(host["swap_ins"] > 0 and host["swap_in_deferred"] == 0
+              and host["host_evictions"] == 0
+              and host.get("scale_slots_leaked", 0) == 0,
+              f"{lane}: host tier {host}")
+        log(f"kvtier {lane}: {len(tiered['tokens'])} requests (6 x 1024 "
+            f"tokens, then each + 32) token-identical to the control "
+            f"(auto pool, no tier); prefix hit {tp['prefix_hit_tokens']} "
+            f"and prefilled {tp['prefilled_tokens']} tokens == the "
+            f"control's; host {host}; {tiered['kernel']} launches "
+            f"{tiered['launches']} == 22 x {tiered['steps']} (control "
+            f"{control['launches']}); {tiered['seconds']:.3f} s vs "
+            f"{control['seconds']:.3f} s [{card}]")
+        out[lane] = {"tiered": tiered, "control": control}
+        out[lane + "-migrate"] = kvtier_migration(torch, params, lane, card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -3268,6 +3682,7 @@ def main() -> int:
     train_small = phase_train_small(torch)
     server = phase_server(torch)
     gateway = phase_gateway(torch)
+    kvtier = phase_kvtier(torch, card)
     train = phase_train(torch)
     numbers = phase_numbers(torch, pa)
     rows = []
@@ -3292,7 +3707,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
-         "server": server, "gateway": gateway, "train": train,
+         "server": server, "gateway": gateway, "kvtier": kvtier,
+         "train": train,
          "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

@@ -120,8 +120,13 @@ def test_reset_rebuilds_and_unported_tiers_refuse():
     cfg = tcreate("gpt2-small-test").config
     assert tp.bytes_per_block() == jkv.dense_block_bytes(
         jcreate("gpt2-small-test").config, BS, jnp.float32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", host_blocks=4)
+    # The host tier is ported: the pool builds it (plain CPU buffers on a
+    # CPU pool) and reports it.
+    tiered = tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", host_blocks=4)
+    assert tiered.stats()["host"]["blocks_total"] == 4
+    assert [tuple(h.shape) for h in tiered._host] == [
+        (4, cfg.n_layers, BS, cfg.kv_heads, cfg.d_head)] * 2
+    assert not tiered._host[0].is_pinned()
     with pytest.raises(ValueError, match="unsupported KV quantize"):
         tkv.BlockPool(cfg, 10, BS, torch.float32, "cpu", quantize="fp4")
     # An int8 pool's reset rebuilds the scales (ones) with the payload.

@@ -188,7 +188,12 @@ def test_construction_without_device_raises_here(spec, tparams):
     (dict(kv_block_size=0), ValueError, "mixed_step requires"),
     (dict(kv_block_size=0, mixed_step=False, kv_quantize="int8"),
      ValueError, "kv_quantize requires"),
-    (dict(kv_host_blocks=4), NotImplementedError, "host KV tier"),
+    # The host tier is ported; what still refuses is the tier without
+    # prefix sharing, with the JAX scheduler's message. The case keeps the
+    # id it had while the tier refused as unported.
+    pytest.param(dict(kv_host_blocks=4, prefix_sharing=False), ValueError,
+                 "kv_host_blocks requires prefix_sharing",
+                 id="overrides2-NotImplementedError-host KV tier"),
     # Speculation is ported; what still refuses is speculation without the
     # paged pool, as in the JAX scheduler. The case keeps the id it had
     # while speculation refused as unported.

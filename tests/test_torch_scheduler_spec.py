@@ -359,8 +359,9 @@ def test_counters_of_one_request_at_a_time_equal_jax(lanes, mode):
 
 
 def test_spec_lane_refusals(spec, tparams):
-    """Speculation needs the paged pool and a window that fits; the host
-    tier, state_slab and tensor parallelism still refuse."""
+    """Speculation needs the paged pool and a window that fits; state_slab
+    and tensor parallelism still refuse; a spec lane builds with the host
+    tier."""
     for kw, match in ((dict(spec_k=2, kv_block_size=0),
                        "requires the paged KV cache"),
                       (dict(spec_k=127), "cannot fit a verify window"),
@@ -372,10 +373,18 @@ def test_spec_lane_refusals(spec, tparams):
         with pytest.raises(ValueError, match=match):
             ContinuousGenerator(spec, params=tparams, device="cpu",
                                 **dict(KW, **kw))
-    for kw in (dict(kv_host_blocks=4), dict(state_rows=2), dict(tp=2)):
+    for kw in (dict(state_rows=2), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ContinuousGenerator(spec, params=tparams, device="cpu",
                                 spec_k=2, **dict(KW, **kw))
+    # The host tier is ported: a spec lane builds with it.
+    tiered = ContinuousGenerator(spec, params=tparams, device="cpu",
+                                 spec_k=2, **dict(KW, kv_host_blocks=4))
+    try:
+        assert tiered.stats()["kv_pool"]["host"]["blocks_total"] == 4
+        assert tiered.stats()["spec"]["k"] == 2
+    finally:
+        tiered.stop()
 
 
 # -- the worker --------------------------------------------------------------

@@ -10,8 +10,9 @@ expired deadline is a 503 with Retry-After, a bad deadline and a
 misaddressed model a 400, and a deadline passing mid-generation cancels
 the row, as in the JAX worker; and neither the package nor chip_smoke.py imports jax,
 tpu_engine, optax or orbax (a serving subprocess's sys.modules over a
-mixed, a dense and two speculative lanes, n-gram and model-drafted, and an
-AST scan of the sources)."""
+mixed, a dense and two speculative lanes, n-gram and model-drafted, a
+paged lane with the host tier answering /admin/migrate, and an AST scan of
+the sources)."""
 
 import ast
 import http.client
@@ -430,7 +431,8 @@ def test_serving_subprocess_imports_no_jax():
         " gen_continuous_spec_k=2)\n"
         "for lane in (dict(gen_kv_block_size=16, gen_mixed_step=True,"
         " gen_prefill_chunk=16), {}, spec, dict(spec, gen_mixed_step=True,"
-        " gen_spec_draft='model')):\n"
+        " gen_spec_draft='model'), dict(gen_kv_block_size=16,"
+        " gen_kv_host_blocks=4, gen_prefill_chunk=16)):\n"
         "    w, s = serve_worker(WorkerConfig(port=0,"
         " model='gpt2-small-test', dtype='float32', device='cpu', **lane))\n"
         "    req = urllib.request.Request("
@@ -439,6 +441,11 @@ def test_serving_subprocess_imports_no_jax():
         " 'max_new_tokens': 3}).encode())\n"
         "    out = json.loads(urllib.request.urlopen(req, timeout=60)"
         ".read())\n"
+        "    mig = urllib.request.Request("
+        "f'http://127.0.0.1:{s.port}/admin/migrate',"
+        " data=json.dumps({'request_id': 'a'}).encode())\n"
+        "    assert not json.loads(urllib.request.urlopen(mig, timeout=60)"
+        ".read())['ok']\n"
         "    s.stop(); w.stop()\n"
         "    lens.append(len(out['tokens']))\n"
         "assert 'tpu_engine_torch.ops.flash' in sys.modules\n"
@@ -451,7 +458,7 @@ def test_serving_subprocess_imports_no_jax():
                          capture_output=True, text=True, timeout=180)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == {
-        "tokens": [3, 3, 3, 3], "bad": []}
+        "tokens": [3, 3, 3, 3, 3], "bad": []}
 
 
 def test_package_sources_import_no_jax():

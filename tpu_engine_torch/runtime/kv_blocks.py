@@ -1,13 +1,13 @@
-"""Paged KV cache: a static block pool, page tables and a radix tree of
-shared prompt prefixes (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
+"""Paged KV cache: a static block pool, page tables, a radix tree of
+shared prompt prefixes, a host tier for cold prefixes and the chain wire
+format (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
 
 - One static tensor per K/V of shape (L, num_blocks, block_size, H_kv, D)
-  on the pool's device, allocated once and written in place by the mixed
-  step. Block 0 is the reserved null block: unallocated page-table entries
-  point at it, padding writes land in it, and it is never attended.
-- Host bookkeeping (free list, per-block refcounts, the radix tree) under
-  one lock. The pool tensors themselves are read and written only by the
-  scheduler's decode thread, so no device work needs the lock.
+  on the pool's device, allocated once and written in place. Block 0 is
+  the reserved null block: unallocated page-table entries point at it,
+  padding writes land in it, and it is never attended.
+- Host bookkeeping (free list, per-block refcounts, the radix tree, the
+  host tier's free slots) under one lock.
 - Radix tree over FULL token blocks; refcounts with copy-on-write
   (``ensure_writable``); LRU eviction of tree-only leaves when allocation
   runs dry.
@@ -15,16 +15,38 @@ shared prompt prefixes (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
   int8, with one f32 scale per (layer, block slot, kv-head) in ``scales``
   (a KVCache of (L, NB, bs, H_kv) tensors, ones when fresh, so unwritten
   slots dequantize to exact zeros). A token quantizes once, at its block
-  write; copy-on-write moves payload and scales verbatim.
+  write; copy-on-write, demotion, promotion and the wire move payload and
+  scales verbatim.
+- Host tier (``host_blocks`` > 0): eviction DEMOTES a cold radix leaf's
+  block into a host buffer of shape (host_blocks, L, bs, H_kv, D) at the
+  pool's storage dtype (plus (host_blocks, L, bs, H_kv) f32 scales for
+  int8), pinned when the pool lives on the card. The node stays in the
+  tree; a later lookup with ``promote_reserve`` swaps the block back in
+  instead of recomputing its prefill. A round trip is bit-exact.
+- Chain wire format (``export_chain`` / ``chain_compatible`` /
+  ``verify_chain`` / ``import_chain``): a block chain as the JAX
+  package's JSON-safe dict, byte for byte: the blocks' bytes verbatim in
+  base64, a crc32 over them in chain order and the pool's generation.
+
+Device work and threads. Every pool copy (the tick's writes, copy-on-
+write, demotion, promotion, export, import) is issued on the pool
+device's current stream, the one default stream that every thread of
+the process shares, so copies run in the order they are issued. Two
+threads issue them: the decode thread (ticks, admissions, an ``alloc``
+that demotes a block) and the prefill thread (a lookup that promotes a
+block, or demotes colder ones to make room). Each is issued under the
+pool lock. Demotion waits for its copy (the host bytes are there when it
+returns); promotion does not.
 
 The bookkeeping is the JAX package's, line for line, so both pools hand
-out the same block ids for the same sequence of calls. Not ported here:
-the host tier and chain export/import, which refuse at construction.
+out the same block ids and host slots for the same sequence of calls.
 """
 
 from __future__ import annotations
 
+import base64
 import threading
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,14 +79,20 @@ class PoolExhausted(RuntimeError):
 
 
 class _RadixNode:
-    __slots__ = ("children", "parent", "key", "block_id", "last_used")
+    __slots__ = ("children", "parent", "key", "block_id", "last_used",
+                 "host_slot")
 
     def __init__(self, parent: Optional["_RadixNode"], key, block_id: int):
         self.children: Dict[tuple, _RadixNode] = {}
         self.parent = parent
         self.key = key            # the block's token tuple (len block_size)
-        self.block_id = block_id  # -1: root
+        self.block_id = block_id  # -1: root, or a node demoted to the host
         self.last_used = 0
+        self.host_slot = -1       # >= 0 while demoted to the host tier
+
+    @property
+    def demoted(self) -> bool:
+        return self.host_slot >= 0
 
 
 class RadixTree:
@@ -88,24 +116,42 @@ class RadixTree:
         return [tuple(tokens[i:i + bs])
                 for i in range(0, (len(tokens) // bs) * bs, bs)]
 
-    def lookup(self, tokens: Sequence[int]) -> List[int]:
+    def lookup(self, tokens: Sequence[int],
+               promote_reserve: Optional[int] = None) -> List[int]:
         """Longest-prefix match over full blocks. Returns the matched
         block ids in order, each retained once on behalf of the caller
         (release them when the row frees, or at once on a discarded
-        admission)."""
+        admission).
+
+        ``promote_reserve``: when not None, a match reaching a DEMOTED
+        node swaps its block back in (displacing LRU-colder resident
+        leaves if the free list is short) provided the pool keeps at
+        least that many free blocks afterwards; a refused promotion ends
+        the match at the resident prefix and counts ``swap_in_deferred``.
+        None never promotes: a demoted node is a miss."""
         pool = self._pool
         pool.radix_lookups += 1
         ids: List[int] = []
         node = self.root
         stamp = self._tick()
+        promoted = 0
         for key in self._full_blocks(tokens):
             child = node.children.get(key)
             if child is None:
                 break
+            if child.demoted:
+                if promote_reserve is None or not pool._promote_node(
+                        child, promote_reserve):
+                    if promote_reserve is not None:
+                        pool.swap_in_deferred += 1
+                    break
+                promoted += 1
             child.last_used = stamp
             pool.retain(child.block_id)
             ids.append(child.block_id)
             node = child
+        if promoted:
+            pool.swap_in_events += 1
         if ids:
             pool.radix_hits += 1
         return ids
@@ -114,7 +160,9 @@ class RadixTree:
         """Index a row's full prompt blocks; ``block_ids[j]`` holds prompt
         block j. New nodes retain their block (the tree's own reference);
         an existing node keeps its original block and the newcomer's
-        duplicate stays row-private. Returns nodes added."""
+        duplicate stays row-private. A DEMOTED node is re-adopted: it
+        points at the newcomer's block, which holds the same tokens' KV,
+        and its host slot frees. Returns nodes added."""
         added = 0
         node = self.root
         stamp = self._tick()
@@ -126,26 +174,62 @@ class RadixTree:
                 self._pool.retain(child.block_id)
                 self.nodes += 1
                 added += 1
+            elif child.demoted:
+                self._pool._host_free.append(child.host_slot)
+                child.host_slot = -1
+                child.block_id = int(block_ids[j])
+                self._pool.retain(child.block_id)
             child.last_used = stamp
             node = child
         return added
 
     def _evictable(self) -> List[_RadixNode]:
-        """Leaves whose block the tree alone references."""
+        """Nodes whose device block the tree alone references and whose
+        children (if any) are all demoted: each branch's device-resident
+        frontier, so demotion proceeds root-ward leaf by leaf."""
         out, stack = [], [self.root]
         while stack:
             n = stack.pop()
             for c in n.children.values():
                 if c.children:
                     stack.append(c)
-                elif self._pool.refcount(c.block_id) == 1:
+                if c.demoted:
+                    continue
+                if (all(g.demoted for g in c.children.values())
+                        and self._pool.refcount(c.block_id) == 1):
                     out.append(c)
         return out
 
+    def _demoted_leaves(self) -> List[_RadixNode]:
+        out, stack = [], [self.root]
+        while stack:
+            n = stack.pop()
+            for c in n.children.values():
+                if c.children:
+                    stack.append(c)
+                elif c.demoted:
+                    out.append(c)
+        return out
+
+    def chain_nodes(self, tokens: Sequence[int]) -> List[_RadixNode]:
+        """Longest-prefix node chain for ``tokens`` without promoting,
+        pinning or stamping anything: a demoted node stays in the chain
+        (``export_chain`` reads it from the host tier)."""
+        out: List[_RadixNode] = []
+        node = self.root
+        for key in self._full_blocks(tokens):
+            child = node.children.get(key)
+            if child is None:
+                break
+            out.append(child)
+            node = child
+        return out
+
     def evict(self, n_blocks: int) -> int:
-        """Free up to ``n_blocks`` pool blocks by dropping LRU leaves that
-        nothing but the tree references. Never touches a block a live row
-        or a pinned lookup holds. Returns blocks freed."""
+        """Free up to ``n_blocks`` device blocks by demoting (host tier
+        configured) or dropping LRU frontier nodes that nothing but the
+        tree references. Never touches a block a live row or a pinned
+        lookup holds. Returns device blocks freed."""
         freed = 0
         while freed < n_blocks:
             leaves = self._evictable()
@@ -155,6 +239,9 @@ class RadixTree:
             for leaf in leaves:
                 if freed >= n_blocks:
                     break
+                if self._pool._demote_leaf(leaf):
+                    freed += 1  # the node survives in the tree, demoted
+                    continue
                 del leaf.parent.children[leaf.key]
                 self._pool.release(leaf.block_id)
                 self.nodes -= 1
@@ -164,13 +251,18 @@ class RadixTree:
 
     def clear(self) -> None:
         """Drop every node (weight reload: cached KV is stale). Blocks
-        still referenced by live rows survive until those rows free."""
+        still referenced by live rows survive until those rows free;
+        demoted nodes' host slots free at once."""
         stack = [self.root]
         while stack:
             n = stack.pop()
             for c in n.children.values():
                 stack.append(c)
-                self._pool.release(c.block_id)
+                if c.demoted:
+                    self._pool._host_free.append(c.host_slot)
+                    c.host_slot = -1
+                else:
+                    self._pool.release(c.block_id)
         self.root = _RadixNode(None, None, -1)
         self.nodes = 0
 
@@ -186,9 +278,6 @@ class BlockPool:
         if quantize not in ("", "int8"):
             raise ValueError(f"unsupported KV quantize mode {quantize!r} "
                              "(only 'int8')")
-        if host_blocks:
-            raise NotImplementedError(
-                "the host KV tier is not yet ported to tpu_engine_torch")
         self.cfg = cfg
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
@@ -209,12 +298,31 @@ class BlockPool:
         self._ref[0] = 1  # null block: permanently pinned, never allocated
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self.radix = RadixTree(self)
+        # The host tier: one buffer per pool tensor, slot-major, at the
+        # pool's storage dtype; pinned when the pool is on the card (a
+        # failure to pin raises), so both copy directions are DMA.
+        self.host_blocks = int(host_blocks)
+        self._host: List[torch.Tensor] = []
+        self._host_free: List[int] = []
+        self._promoting: Optional[_RadixNode] = None
+        if self.host_blocks > 0:
+            pin = self.device.type == "cuda"
+            self._host = [torch.zeros((self.host_blocks,) + tuple(
+                t.shape[:1] + t.shape[2:]), dtype=t.dtype, pin_memory=pin)
+                for t in self._pool_tensors()]
+            self._host_free = list(range(self.host_blocks - 1, -1, -1))
         self.prefix_hit_tokens = 0
         self.prefilled_tokens = 0
         self.evictions = 0
         self.cow_copies = 0
         self.radix_lookups = 0
         self.radix_hits = 0
+        self.demotions = 0
+        self.swap_ins = 0          # blocks promoted host -> device
+        self.swap_in_events = 0    # lookups that promoted >= 1 block
+        self.swap_in_deferred = 0  # promotions refused by the reserve rule
+        self.host_evictions = 0    # demoted leaves destroyed (tier full)
+        self.swapped_in_tokens = 0
 
     def _init_device(self) -> KVCache:
         shape = (self.cfg.n_layers, self.num_blocks, self.block_size,
@@ -230,6 +338,14 @@ class BlockPool:
                        torch.zeros(shape, dtype=self.dtype,
                                    device=self.device))
 
+    def _pool_tensors(self) -> List[torch.Tensor]:
+        """The pool's tensors, block axis 1: k, v (and the int8 pool's k
+        and v scales), in the chain's entry order."""
+        out = [self.caches.k, self.caches.v]
+        if self.quantized:
+            out += [self.scales.k, self.scales.v]
+        return out
+
     # -- bookkeeping (hold self.lock) -----------------------------------------
 
     @property
@@ -238,6 +354,12 @@ class BlockPool:
 
     def refcount(self, block_id: int) -> int:
         return int(self._ref[block_id])
+
+    def evictable_blocks(self) -> int:
+        return len(self.radix._evictable())
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free) + self.evictable_blocks()
 
     def alloc(self, n: int) -> List[int]:
         """n fresh blocks (refcount 1 each), evicting radix leaves LRU
@@ -290,25 +412,270 @@ class BlockPool:
         new_id = self.alloc(1)[0]
         # Payload and (int8 pool) scales move verbatim: a bit-exact clone,
         # never a requantization.
-        pairs = (self.caches, self.scales) if self.quantized \
-            else (self.caches,)
-        for pair in pairs:
-            pair.k[:, new_id] = pair.k[:, block_id]
-            pair.v[:, new_id] = pair.v[:, block_id]
+        for t in self._pool_tensors():
+            t[:, new_id] = t[:, block_id]
         self.release(block_id)
         self.cow_copies += 1
         return new_id, True
 
+    # -- host tier (hold self.lock) -------------------------------------------
+    #
+    # Hazard: a promoted slot returns to `_host_free` while its host-to-
+    # device copy may still be in flight. Only copies issued on the pool
+    # device's stream may ever write into a host slot (they run after that
+    # read), never host code, or a later demotion could overwrite the
+    # bytes before the promotion has read them.
+
+    def _demote_leaf(self, leaf: _RadixNode) -> bool:
+        """Move a tree-only frontier node's block to the host tier instead
+        of destroying it: copy device -> host (verbatim, waited for), free
+        the device block, mark the node demoted. A full tier first
+        destroys its own LRU demoted leaf; no host tier, or only demoted
+        interior nodes -> False, and the caller destroys the node."""
+        if self.host_blocks <= 0:
+            return False
+        if not self._host_free:
+            victims = [v for v in self.radix._demoted_leaves()
+                       if v is not self._promoting]
+            if not victims:
+                return False  # demoted interior nodes only: can't destroy
+            victims.sort(key=lambda n: n.last_used)
+            v = victims[0]
+            del v.parent.children[v.key]
+            self._host_free.append(v.host_slot)
+            v.host_slot = -1
+            self.radix.nodes -= 1
+            self.host_evictions += 1
+        slot = self._host_free.pop()
+        bid = leaf.block_id
+        for host, t in zip(self._host, self._pool_tensors()):
+            host[slot].copy_(t[:, bid])
+        self.release(bid)
+        leaf.block_id = -1
+        leaf.host_slot = slot
+        self.demotions += 1
+        return True
+
+    def _promote_node(self, node: _RadixNode, reserve: int) -> bool:
+        """Swap a demoted node's block back onto the device: one host ->
+        device copy per pool tensor, not waited for. The block comes from
+        the free list, or by DISPLACING LRU-colder resident leaves
+        (evict(), which demotes them to this tier); either way at least
+        ``reserve`` free blocks must remain afterwards (live rows' growth
+        outranks a cold prefix), else the promotion defers (False)."""
+        need = 1 + max(0, int(reserve))
+        if len(self._free) < need:
+            # The walked chain's nodes are pinned (refcount >= 2), so the
+            # displacement never takes a block this lookup relies on; the
+            # node being promoted is stamped and shielded (_promoting) so
+            # a full tier cannot destroy it.
+            node.last_used = self.radix._tick()
+            self._promoting = node
+            try:
+                self.radix.evict(need - len(self._free))
+            finally:
+                self._promoting = None
+        if len(self._free) < need:
+            return False
+        bid = self._free.pop()
+        self._ref[bid] = 1  # the tree's own reference
+        for host, t in zip(self._host, self._pool_tensors()):
+            t[:, bid].copy_(host[node.host_slot], non_blocking=True)
+        self._host_free.append(node.host_slot)
+        node.host_slot = -1
+        node.block_id = bid
+        self.swap_ins += 1
+        self.swapped_in_tokens += self.block_size
+        return True
+
+    # -- chain export/import (hold self.lock) ---------------------------------
+    #
+    # The JAX package's wire format: one JSON-safe dict per chain, each
+    # block's C-order bytes (L, bs, H_kv, D) at the storage dtype (int8
+    # pools add their (L, bs, H_kv) f32 scales) in base64, a crc32 over
+    # every payload byte in chain order, and the pool's generation.
+
+    def _dtype_name(self) -> str:
+        """The storage dtype as numpy names it (``bfloat16``, ``int8``)."""
+        return str(self.dtype).replace("torch.", "")
+
+    def _export_device_arrays(self, bids: Sequence[int]
+                              ) -> List[torch.Tensor]:
+        """Device blocks ``bids`` -> host tensors [k, v(, ks, vs)], each
+        block-major (n, L, ...): one gather and one transfer per tensor,
+        not one per block."""
+        ids = torch.tensor(list(bids), dtype=torch.long, device=self.device)
+        return [t[:, ids].transpose(0, 1).contiguous().cpu()
+                for t in self._pool_tensors()]
+
+    def _export_host_arrays(self, slot: int) -> List[torch.Tensor]:
+        """A demoted node's block, straight from the host tier: no swap-
+        in, no device traffic."""
+        return [host[slot] for host in self._host]
+
+    def export_chain(self, sources: Sequence) -> dict:
+        """Serialize a block chain. Each source is a device block id or a
+        ``_RadixNode`` (a demoted one exports from the host tier). Returns
+        the wire dict; ``import_chain`` on any pool of the same geometry
+        (either package's) reproduces the exact bytes."""
+        resolved = []
+        dev_ids: List[int] = []
+        for src in sources:
+            if isinstance(src, _RadixNode) and src.demoted:
+                resolved.append(("host", src.host_slot))
+            else:
+                bid = src.block_id if isinstance(src, _RadixNode) \
+                    else int(src)
+                resolved.append(("dev", len(dev_ids)))
+                dev_ids.append(bid)
+        dev = self._export_device_arrays(dev_ids) if dev_ids else None
+        blocks = []
+        crc = 0
+        for kind, idx in resolved:
+            if kind == "host":
+                arrays = self._export_host_arrays(idx)
+            else:
+                arrays = [a[idx] for a in dev]
+            entry = {}
+            for name, arr in zip(("k", "v", "ks", "vs"), arrays):
+                # A bf16 block has no numpy dtype: its bytes go through a
+                # uint8 view of the contiguous tensor.
+                raw = arr.contiguous().view(torch.uint8).numpy().tobytes()
+                crc = zlib.crc32(raw, crc)
+                entry[name] = base64.b64encode(raw).decode("ascii")
+            blocks.append(entry)
+        return {
+            "version": 1,
+            "dtype": self._dtype_name(),
+            "quantized": self.quantized,
+            "block_size": self.block_size,
+            "n_layers": self.cfg.n_layers,
+            "kv_heads": self.cfg.kv_heads,
+            "d_head": self.cfg.d_head,
+            "blocks": blocks,
+            "checksum": crc,
+            "generation": self.generation,
+        }
+
+    def chain_compatible(self, chain: dict) -> Optional[str]:
+        """None when ``chain`` can be imported into this pool verbatim,
+        else the reason, as the JAX pool words it: the family (absent =
+        ``kv_paged``), the geometry and storage dtype (an import never
+        requantizes), the shard degree (the port's pools are tp 1), and
+        every block's structure (keys, exact decoded lengths), so a
+        malformed chain is refused here and never reaches a device
+        write. An additive ``trace`` key is ignored."""
+        fam = chain.get("family")
+        if fam not in (None, "kv_paged"):
+            return (f"chain family={fam!r} does not match destination "
+                    f"pool family 'kv_paged'")
+        want = {"dtype": self._dtype_name(),
+                "quantized": self.quantized,
+                "block_size": self.block_size,
+                "n_layers": self.cfg.n_layers,
+                "kv_heads": self.cfg.kv_heads,
+                "d_head": self.cfg.d_head}
+        for key, val in want.items():
+            if chain.get(key) != val:
+                return (f"chain {key}={chain.get(key)!r} does not match "
+                        f"destination pool {key}={val!r}")
+        try:
+            chain_tp = int(chain.get("tp", 1))
+        except (TypeError, ValueError):
+            return f"chain tp={chain.get('tp')!r} is not an integer"
+        if chain_tp != 1:
+            return (f"chain tp={chain_tp} does not match destination "
+                    f"pool tp=1 (tensor-parallel shard geometry)")
+        slots = self.cfg.n_layers * self.block_size * self.cfg.kv_heads
+        payload_len = slots * self.cfg.d_head * torch.empty(
+            (), dtype=self.dtype).element_size()
+        want_lens = {"k": payload_len, "v": payload_len}
+        if self.quantized:
+            want_lens.update({"ks": slots * 4, "vs": slots * 4})
+        blocks = chain.get("blocks")
+        if not isinstance(blocks, (list, tuple)):
+            return "chain carries no block list"
+        for i, entry in enumerate(blocks):
+            if not isinstance(entry, dict):
+                return f"chain block {i} is not an object"
+            for name, want_len in want_lens.items():
+                raw = entry.get(name)
+                if not isinstance(raw, str):
+                    return f"chain block {i} is missing {name!r}"
+                try:
+                    n = len(base64.b64decode(raw, validate=True))
+                except Exception:
+                    return f"chain block {i} {name!r} is not base64"
+                if n != want_len:
+                    return (f"chain block {i} {name!r} holds {n} bytes, "
+                            f"expected {want_len}")
+        return None
+
+    @staticmethod
+    def verify_chain(chain: dict) -> bool:
+        """Recompute the chain checksum over the decoded payload bytes:
+        the destination's first gate, before any block is allocated. A
+        structurally garbage chain is False, never an exception."""
+        crc = 0
+        try:
+            blocks = chain["blocks"]
+            if not isinstance(blocks, (list, tuple)):
+                return False
+            for entry in blocks:
+                if not isinstance(entry, dict):
+                    return False
+                for name in ("k", "v", "ks", "vs"):
+                    if name in entry:
+                        crc = zlib.crc32(
+                            base64.b64decode(entry[name]), crc)
+            return crc == int(chain["checksum"])
+        except Exception:
+            return False
+
+    def _chain_block_arrays(self, chain: dict, entry: dict
+                            ) -> List[torch.Tensor]:
+        """One wire block -> host tensors [k, v(, ks, vs)] shaped (L, bs,
+        H_kv, D) and (L, bs, H_kv)."""
+        shape = (self.cfg.n_layers, self.block_size, self.cfg.kv_heads,
+                 self.cfg.d_head)
+        out = [torch.frombuffer(bytearray(base64.b64decode(entry[name])),
+                                dtype=self.dtype).reshape(shape)
+               for name in ("k", "v")]
+        if self.quantized:
+            out += [torch.frombuffer(
+                bytearray(base64.b64decode(entry[name])),
+                dtype=torch.float32).reshape(shape[:-1])
+                for name in ("ks", "vs")]
+        return out
+
+    def import_chain(self, chain: dict, entries: Sequence[dict],
+                     ids: Sequence[int]) -> None:
+        """Write wire blocks ``entries`` into the already-allocated device
+        blocks ``ids`` verbatim: one batched write per pool tensor. The
+        caller holds the lock and has verified the checksum and
+        compatibility."""
+        if not ids:
+            return
+        per = [self._chain_block_arrays(chain, e) for e in entries]
+        dst = torch.tensor(list(ids), dtype=torch.long, device=self.device)
+        for i, t in enumerate(self._pool_tensors()):
+            # (n, L, ...) -> (L, n, ...): the pool's block axis.
+            t[:, dst] = torch.stack([p[i] for p in per], dim=1).to(
+                self.device)
+
     def reset(self) -> None:
         """Recovery after a failed device step: the pool tensors may hold
-        half-written blocks, so everything is rebuilt. Pins and page
-        tables taken against the old generation are void."""
+        half-written blocks, so everything is rebuilt, and the host tier
+        empties with the tree. Pins and page tables taken against the old
+        generation are void."""
         self.generation += 1
         self.caches = self._init_device()
         self._ref[:] = 0
         self._ref[0] = 1
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self.radix = RadixTree(self)
+        if self.host_blocks > 0:
+            self._host_free = list(range(self.host_blocks - 1, -1, -1))
 
     def bytes_per_block(self) -> int:
         """Device bytes one block costs in this pool's layout: K+V payload
@@ -320,6 +687,17 @@ class BlockPool:
     def dense_bytes_per_block(self) -> int:
         """What the same block would cost unquantized (at io_dtype)."""
         return dense_block_bytes(self.cfg, self.block_size, self.io_dtype)
+
+    def _demoted_nodes(self) -> int:
+        """Radix nodes holding a host slot: the pairing side of the host
+        scale-slot leak check (caller holds the lock)."""
+        n, stack = 0, [self.radix.root]
+        while stack:
+            node = stack.pop()
+            for c in node.children.values():
+                stack.append(c)
+                n += int(c.demoted)
+        return n
 
     def stats(self) -> dict:
         with self.lock:
@@ -348,6 +726,24 @@ class BlockPool:
                 out["bytes_per_block"] = bpb
                 out["dense_bytes_per_block"] = dense
                 out["capacity_multiplier"] = round(dense / bpb, 3)
+            if self.host_blocks > 0:
+                used = self.host_blocks - len(self._host_free)
+                out["host"] = {
+                    "blocks_total": self.host_blocks,
+                    "blocks_used": used,
+                    "demotions": self.demotions,
+                    "swap_ins": self.swap_ins,
+                    "swap_in_events": self.swap_in_events,
+                    "swap_in_deferred": self.swap_in_deferred,
+                    "host_evictions": self.host_evictions,
+                    "swapped_in_tokens": self.swapped_in_tokens,
+                }
+                if self.quantized:
+                    # Scale slots pair 1:1 with payload slots: a used slot
+                    # no demoted node holds (or the reverse) is a leak.
+                    out["host"]["scale_slots_used"] = used
+                    out["host"]["scale_slots_leaked"] = (
+                        used - self._demoted_nodes())
             return out
 
 

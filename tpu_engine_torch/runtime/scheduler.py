@@ -21,7 +21,8 @@ one, in three modes:
   maps shared prompt prefixes onto already-filled blocks.
 - **Mixed stepping** (paged, ``mixed_step=True``). The prefill thread is pure
   batch formation: bucket pick, radix lookup (which pins the matched
-  blocks) and penalty counts, no device work. The decode thread admits
+  blocks, and with a host tier swaps demoted ones back in) and penalty
+  counts, no forward. The decode thread admits
   formed requests into free rows and, each tick, issues ONE forward
   (``transformer_step_rows_ragged``) over a ragged batch of decode rows
   (one token each) and admitting rows' prefill chunks (budgeted), then
@@ -75,8 +76,18 @@ single-tick rows: each iteration, before the generative step, drains up to
 and runs one grouped dispatch per kind (the engine's batched forward, the
 scorer's teacher-forced forward); a failed dispatch fails its group only.
 A stateless-family model (mlp, resnet) builds a lane whose rows are all
-one-shot. The state-slab mode, the host tier, migration, handoff,
-brownout and tensor parallelism are not yet ported and refuse.
+one-shot.
+
+Paged lanes also carry the JAX scheduler's host KV tier
+(``kv_host_blocks``: cold radix blocks demote to host memory, and a radix
+lookup swaps them back in while the live-row reserve allows) and live-row
+migration: ``export_row`` quiesces a row between ticks and snapshots its
+stream state and KV chain (``kv_blocks`` wire format), ending the local
+stream with ``StreamMigratedAway``; ``submit_import`` adopts such a
+snapshot on another lane with zero re-prefilled tokens, or fails with a
+retryable ``ImportRefused``. The disaggregated handoff (``wait_prefill``,
+``cancel``), the state-slab mode, brownout and tensor parallelism are not
+yet ported and refuse.
 """
 
 from __future__ import annotations
@@ -159,6 +170,11 @@ class _Request:
     # A one-shot row: ("infer", input_data, shape) or ("score", prompt,
     # completion); None for a generation request.
     oneshot: Optional[tuple] = None
+    # The caller's name for the row (the worker's request_id): what
+    # export_row finds it by.
+    tag: Optional[str] = None
+    # A migration import's snapshot (submit_import); None otherwise.
+    migrate: Optional[dict] = None
 
 
 # Put on the ready queue by submit_infer/submit_score: wakes a decode loop
@@ -235,6 +251,30 @@ class _PrefixCache:
 class _StaleAdmission(RuntimeError):
     """A formed item's radix pins predate a pool rebuild (device
     recovery): that request fails, the scheduler keeps serving."""
+
+
+class StreamMigratedAway(RuntimeError):
+    """A live row was exported to another lane (``export_row``): its local
+    stream ends here and this resolves its future. Retryable, ``migrated``
+    marked: the continuation runs on the importing lane, or a client
+    resumes from ``tokens_emitted``."""
+
+    def __init__(self, message: str, tokens_emitted: int):
+        super().__init__(message)
+        self.retryable = True
+        self.migrated = True
+        self.tokens_emitted = int(tokens_emitted)
+
+
+class ImportRefused(RuntimeError):
+    """A migration import this lane could not honour: a checksum
+    mismatch, an incompatible pool, or a pool that cannot hold the chain
+    while keeping the live-row reserve free. Retryable (a replay resume
+    needs nothing from this lane); ``import_refused`` rides the terminal
+    stream event."""
+
+    retryable = True
+    import_refused = True
 
 
 def _refuse(what: str):
@@ -364,7 +404,9 @@ class ContinuousGenerator:
         two-path decode chunk's steps; ``prefix_cache_mb`` the dense
         prefix cache's budget (0 disables it);
         ``kv_quantize`` "int8" stores the pool int8 with per-(layer, slot,
-        kv-head) f32 scales in either mode. ``spec_k`` > 0 (paged only,
+        kv-head) f32 scales in either mode; ``kv_host_blocks`` > 0 (paged,
+        with ``prefix_sharing``) adds that many host blocks under the
+        pool for demoted radix prefixes. ``spec_k`` > 0 (paged only,
         either mode) turns on continuous speculation with the
         ``spec_draft`` drafter ("ngram", or "model": ``spec_draft_model``
         with ``spec_draft_params``, its own seeded init when None).
@@ -393,8 +435,9 @@ class ContinuousGenerator:
         if int(spec_k) > 0 and int(kv_block_size) <= 0:
             raise ValueError("speculative decoding (spec_k > 0) requires "
                              "the paged KV cache (set kv_block_size > 0)")
-        if int(kv_host_blocks) > 0:
-            _refuse("the host KV tier (kv_host_blocks)")
+        if int(kv_host_blocks) > 0 and int(kv_block_size) <= 0:
+            raise ValueError("kv_host_blocks requires the paged KV cache "
+                             "(set kv_block_size > 0)")
         if int(state_rows) > 0:
             _refuse("the state_slab family (state_rows)")
         if int(tp) > 1:
@@ -445,7 +488,8 @@ class ContinuousGenerator:
         self._pending: "collections.deque[_Formed]" = collections.deque()
         if self._paged:
             self._init_pool(cfg, int(kv_block_size), int(kv_blocks),
-                            str(kv_quantize), bool(prefix_sharing))
+                            int(kv_host_blocks), str(kv_quantize),
+                            bool(prefix_sharing))
         elif not self._stateless:
             self._caches = init_caches(cfg, self.n_slots, self.max_seq,
                                        self._dtype, self.device)
@@ -470,6 +514,9 @@ class ContinuousGenerator:
         self._row_emitted: List[List[int]] = [[] for _ in range(n)]
 
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        # Export commands (tag, Future) from export_row, served by the
+        # decode loop between ticks, where the row is quiescent.
+        self._migrate_q: "queue.Queue[tuple]" = queue.Queue()
         # Formed requests ready for row admission; bounded, since each
         # holds radix pins.
         self._ready: "queue.Queue[Optional[_Formed]]" = queue.Queue(
@@ -587,8 +634,10 @@ class ContinuousGenerator:
                 "stateless family has no recurrent state")
 
     def _init_pool(self, cfg: TransformerConfig, bs: int, kv_blocks: int,
-                   kv_quantize: str, prefix_sharing: bool) -> None:
-        """The paged modes' block pool, block tables and radix sharing."""
+                   host_blocks: int, kv_quantize: str,
+                   prefix_sharing: bool) -> None:
+        """The paged modes' block pool (with its host tier), block tables
+        and radix sharing."""
         if cfg.sliding_window is not None:
             raise ValueError("paged KV cache does not support "
                              "sliding_window models yet")
@@ -604,7 +653,11 @@ class ContinuousGenerator:
             raise ValueError(
                 f"kv_blocks={nb} cannot hold even one max_seq row "
                 f"({width} blocks + the null block)")
+        if host_blocks > 0 and not prefix_sharing:
+            raise ValueError("kv_host_blocks requires prefix_sharing "
+                             "(the host tier holds radix entries)")
         self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device,
+                               host_blocks=host_blocks,
                                quantize=kv_quantize)
         self._tables = np.zeros((self.n_slots, width), np.int32)
         self._prefix_sharing = prefix_sharing
@@ -616,12 +669,14 @@ class ContinuousGenerator:
                top_p: float = 1.0, top_k: int = 0,
                repetition_penalty: float = 1.0, stop_tokens=None,
                min_p: float = 0.0, stream=None,
-               deadline: Optional[Deadline] = None) -> Future:
+               deadline: Optional[Deadline] = None,
+               tag: Optional[str] = None) -> Future:
         """Enqueue one request; the Future resolves to its generated token
         list. ``stream``: optional queue.Queue that receives fresh token
         lists as they decode, then a None sentinel. Cancelling the Future
         cancels the request. ``deadline``: the request fails with
-        ``DeadlineExceeded`` once it passes (between ticks)."""
+        ``DeadlineExceeded`` once it passes (between ticks). ``tag``:
+        the name ``export_row`` finds the row by."""
         if self._stateless:
             raise RuntimeError(
                 f"model '{self.spec.name}' serves the stateless family: no "
@@ -642,9 +697,105 @@ class ContinuousGenerator:
                        float(temperature), int(seed), float(top_p),
                        clamp_top_k(top_k), rep_penalty=pens[0],
                        stop_tokens=stops[0], min_p=float(min_p),
-                       stream=stream, deadline=deadline)
+                       stream=stream, deadline=deadline,
+                       tag=str(tag) if tag is not None else None)
         self._queue.put(req)
         return req.future
+
+    # -- live-row migration ---------------------------------------------------
+
+    def export_row(self, tag: str, timeout_s: float = 10.0,
+                   wait_prefill: bool = False,
+                   cancel: bool = False) -> dict:
+        """Quiesce and export ONE live row by its ``submit`` tag: its
+        stream state (prompt, emitted tokens, position, pending token,
+        sampling and stopping parameters, remaining budget) and its KV
+        block chain (``BlockPool.export_chain``). The command runs on the
+        decode thread between ticks; on success the local stream ends with
+        ``StreamMigratedAway`` and the row's blocks return to the pool.
+        Thread-safe; returns ``{"ok": True, ...snapshot...}`` or
+        ``{"ok": False, "reason": ...}`` (a dense lane, an unknown tag, a
+        row mid-prefill or finishing). ``wait_prefill`` and ``cancel``
+        belong to the disaggregated handoff, which is not ported: they
+        refuse by name and park nothing."""
+        if not self._paged:
+            return {"ok": False,
+                    "reason": "migration requires the paged KV cache"}
+        if wait_prefill or cancel:
+            return {"ok": False,
+                    "reason": "disaggregated serving (wait_prefill, "
+                              "cancel) is not yet ported to "
+                              "tpu_engine_torch"}
+        if not self._running:
+            return {"ok": False, "reason": "scheduler stopped"}
+        fut: Future = Future()
+        self._migrate_q.put((str(tag), fut))
+        try:
+            return fut.result(timeout=timeout_s + 1.0)
+        except Exception as exc:
+            return {"ok": False, "reason": f"export failed: {exc}"}
+
+    def submit_import(self, snapshot: dict, stream=None,
+                      deadline: Optional[Deadline] = None,
+                      tag: Optional[str] = None) -> Future:
+        """Adopt an exported row mid-stream: the chain's bytes enter free
+        blocks verbatim (a prompt prefix this lane already caches is
+        re-adopted from its radix tree) and decoding resumes at the
+        exported position, with zero re-prefilled tokens; the stream
+        pushes only the tokens after those the source delivered. Raises
+        ValueError on a malformed snapshot (before any stream commits);
+        a checksum, geometry or pool-pressure refusal resolves the future
+        with ``ImportRefused``."""
+        if not self._running:
+            raise RuntimeError("scheduler stopped")
+        if not self._paged:
+            raise ValueError("migration import requires the paged KV "
+                             "cache (kv_block_size > 0)")
+        if not isinstance(snapshot, dict):
+            raise ValueError("migration snapshot must be an object")
+        missing = [k for k in ("prompt", "emitted", "pos", "tok",
+                               "max_new", "chain") if k not in snapshot]
+        if missing:
+            raise ValueError(f"migration snapshot missing {missing}")
+        stop_list = [int(t) for t in snapshot.get("stop_tokens", ())]
+        pens, stops = expand_stopping_params(
+            1, float(snapshot.get("repetition_penalty", 1.0)),
+            [stop_list] if stop_list else None)
+        emitted = [int(t) for t in snapshot["emitted"]]
+        req = _Request(
+            [int(t) for t in snapshot["prompt"]],
+            int(snapshot["max_new"]), int(snapshot.get("eos_id", -1)),
+            float(snapshot.get("temperature", 0.0)),
+            int(snapshot.get("seed", 0)),
+            float(snapshot.get("top_p", 1.0)),
+            clamp_top_k(snapshot.get("top_k", 0)),
+            rep_penalty=pens[0], stop_tokens=stops[0],
+            min_p=float(snapshot.get("min_p", 0.0)),
+            stream=stream, deadline=deadline,
+            tag=str(tag) if tag is not None else None, migrate=snapshot)
+        # Tokens the source already delivered: the continuation pushes
+        # only what comes after them.
+        req.streamed = min(int(snapshot.get("streamed", len(emitted))),
+                           len(emitted))
+        self._queue.put(req)
+        return req.future
+
+    def _migration_stats(self) -> dict:
+        """The ``migration`` stats block, created at its first count (a
+        lane that never migrated shows none). Callers hold _stats_lock."""
+        m = self._stats.get("migration")
+        if m is None:
+            m = self._stats["migration"] = {
+                "exported_rows": 0, "exported_tokens": 0,
+                "imported_rows": 0, "imported_tokens": 0,
+                "imported_chain_tokens": 0, "import_rejected": 0,
+                "export_refused": 0,
+            }
+        return m
+
+    def _bump_migration(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self._migration_stats()[key] += n
 
     @property
     def accepts_oneshot(self) -> bool:
@@ -745,6 +896,9 @@ class ContinuousGenerator:
         if self._oneshot:
             with self._stats_lock:
                 out["stateless"] = dict(self._stats["stateless"])
+        if "migration" in out:
+            with self._stats_lock:
+                out["migration"] = dict(self._stats["migration"])
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3),
@@ -803,6 +957,20 @@ class ContinuousGenerator:
         cols = min(min(L, self.max_seq - 1) + self._decode_horizon + 1,
                    self.max_seq)
         return max(pb // bs, (cols - 1) // bs + 1)
+
+    def _promote_reserve(self) -> int:
+        """Free blocks a host-tier promotion (or a migration import) must
+        leave behind: one per live row, so swapping a cold prefix in never
+        starves the next tick's live-row block growth. Read without the
+        pool lock: a reserve one row stale only shifts when a promotion
+        defers."""
+        return sum(1 for r in self._row_req if r is not None)
+
+    def _swap_reserve(self) -> int:
+        """The ``promote_reserve`` a radix lookup passes: the live-row
+        reserve (the JAX scheduler widens it to the whole pool under
+        brownout, which the port does not have)."""
+        return self._promote_reserve()
 
     def _free_rows(self) -> List[int]:
         return [r for r in range(self.n_slots) if self._row_req[r] is None]
@@ -952,6 +1120,8 @@ class ContinuousGenerator:
                 try:
                     if not self._paged:
                         item = self._run_prefill_dense(req)
+                    elif req.migrate is not None:
+                        item = self._run_prefill_import(req)
                     elif self._mixed:
                         item = self._run_prefill_mixed(req)
                     else:
@@ -986,9 +1156,10 @@ class ContinuousGenerator:
             pass
 
     def _run_prefill_mixed(self, req: _Request) -> _Formed:
-        """Pick the bucket, take the radix pins, precompute the penalty
-        counts. No device work: the prompt's forward runs inside the
-        decode thread's ragged ticks."""
+        """Pick the bucket, take the radix pins (promoting the host-tier
+        matches the live-row reserve allows), precompute the penalty
+        counts. No forward: the prompt's runs inside the decode thread's
+        ragged ticks."""
         pool = self._pool
         pb = pick_bucket(self._prompt_buckets, len(req.prompt))
         prompt = req.prompt[-pb:]
@@ -996,7 +1167,8 @@ class ContinuousGenerator:
         with pool.lock:
             gen = pool.generation
             if self._prefix_sharing:
-                matched = pool.radix.lookup(prompt)  # pins for this row
+                matched = pool.radix.lookup(          # pins for this row
+                    prompt, promote_reserve=self._swap_reserve())
         row_counts = None
         if req.rep_penalty != 1.0 or req.stop_tokens:
             # Prompt-token counts only; the first sampled token joins in
@@ -1004,6 +1176,57 @@ class ContinuousGenerator:
             row_counts = token_counts([prompt], 1, self.cfg.vocab)
         return _Formed(req, pb, len(prompt), row_counts, matched, prompt,
                        gen)
+
+    def _run_prefill_import(self, req: _Request) -> _Formed:
+        """Import-side formation (prefill thread): the chain, checksum,
+        geometry and ``max_seq`` gates run here, before any block is
+        allocated (a refusal is ``ImportRefused``), then a radix lookup
+        re-adopts a prompt prefix this lane already caches (demoted
+        matches swap in), so only the rest of the chain ships bytes at
+        admission. No prefill runs. The item's ``pb`` is the chain's
+        columns."""
+        pool = self._pool
+        snap = req.migrate
+        chain = snap.get("chain")
+        reason = None
+        if not isinstance(chain, dict) or "blocks" not in chain:
+            reason = "snapshot carries no block chain"
+        if reason is None:
+            reason = pool.chain_compatible(chain)
+        if reason is None and not pool.verify_chain(chain):
+            reason = "chain checksum mismatch"
+        prompt = req.prompt
+        bs = pool.block_size
+        pos = int(snap["pos"])
+        n_chain = (pos - 1) // bs + 1 if pos > 0 else 0
+        if reason is None and pos > self.max_seq - 1:
+            reason = (f"row position {pos} exceeds this lane's max_seq "
+                      f"{self.max_seq}")
+        if reason is None and len(chain["blocks"]) < n_chain:
+            reason = (f"chain holds {len(chain['blocks'])} blocks but "
+                      f"the row spans {n_chain}")
+        if reason is not None:
+            self._bump_migration("import_rejected")
+            raise ImportRefused(f"migration import rejected: {reason}")
+        matched: List[int] = []
+        with pool.lock:
+            gen = pool.generation
+            if self._prefix_sharing:
+                matched = pool.radix.lookup(
+                    prompt, promote_reserve=self._swap_reserve())
+                # The tree indexes full prompt blocks only, so a match
+                # never passes the chain; clamp as a backstop.
+                if len(matched) > n_chain:
+                    pool.release_many(matched[n_chain:])
+                    matched = matched[:n_chain]
+        row_counts = None
+        if req.rep_penalty != 1.0 or req.stop_tokens:
+            # The penalty counts replay from the whole context, prompt and
+            # every emitted token, as the source's counts held them.
+            ctx = prompt + [int(t) for t in snap["emitted"]]
+            row_counts = token_counts([ctx], 1, self.cfg.vocab)
+        return _Formed(req, n_chain * bs, len(prompt), row_counts, matched,
+                       prompt, gen)
 
     def _first_token(self, req: _Request, logits, prompt, L: int):
         """Sample the request's first token from its prefill logits (V,) at
@@ -1108,7 +1331,8 @@ class ContinuousGenerator:
         with pool.lock:
             gen = pool.generation
             if self._prefix_sharing:
-                matched = pool.radix.lookup(prompt)  # pins for this row
+                matched = pool.radix.lookup(          # pins for this row
+                    prompt, promote_reserve=self._swap_reserve())
         try:
             if matched:
                 # The gather is the row cache on a hit: matched columns
@@ -1166,6 +1390,8 @@ class ContinuousGenerator:
     def _admit(self, item: _Formed, row: int) -> None:
         if not self._paged:
             self._admit_dense(item, row)
+        elif item.req.migrate is not None:
+            self._admit_import(item, row)
         elif self._mixed:
             self._admit_mixed(item, row)
         else:
@@ -1318,6 +1544,72 @@ class ContinuousGenerator:
         self._row_w0[row] = p0
         self._row_emitted[row] = []
         self._done[row] = False
+
+    def _admit_import(self, item: _Formed, row: int) -> None:
+        """Decode-thread half of a migration import: allocate blocks for
+        the chain and the decode horizon (re-adopted prefix blocks enter
+        pinned), make the append block private, write the unmatched chain
+        tail verbatim into the fresh blocks, index the prompt in the radix
+        tree, and restore the row's host state: pos, pending token,
+        sampling parameters, emitted list and penalty counts. Raises
+        PoolExhausted (nothing consumed) when the pool cannot hold the
+        chain and keep the live-row reserve free; the loop then fails the
+        import with ImportRefused (imports never park)."""
+        req, _pb, L, row_counts, matched, prompt, gen = item[:7]
+        pool = self._pool
+        bs = pool.block_size
+        snap = req.migrate
+        chain = snap["chain"]
+        emitted = [int(t) for t in snap["emitted"]]
+        pos = min(int(snap["pos"]), self.max_seq - 1)
+        n_chain = (pos - 1) // bs + 1 if pos > 0 else 0
+        m = len(matched)
+        with pool.lock:
+            if gen != pool.generation:
+                raise _StaleAdmission(
+                    "kv pool was rebuilt during this import")
+            cols = min(pos + self._decode_horizon + 1, self.max_seq)
+            need = max(n_chain, (cols - 1) // bs + 1)
+            reserve = self._promote_reserve()
+            if not pool.can_alloc(need - m + reserve):
+                raise PoolExhausted(
+                    f"import needs {need - m} blocks + {reserve} "
+                    f"reserve; {pool.free_blocks} free of "
+                    f"{pool.num_blocks - 1}")
+            fresh = pool.alloc(need - m)
+            table = list(matched) + fresh
+            try:
+                wid, copied = pool.ensure_writable(table[pos // bs])
+            except PoolExhausted:
+                pool.release_many(fresh)
+                raise
+            if copied:
+                table[pos // bs] = wid
+            pool.import_chain(chain, chain["blocks"][m:n_chain],
+                              fresh[:n_chain - m])
+            if self._prefix_sharing:
+                pool.radix.insert(prompt, table)
+            pool.prefix_hit_tokens += m * bs
+        self._count_admission_dispatch()
+        self._set_row_table(row, table, row_counts)
+        self._set_row_params(req, row, pos)
+        self._tok[row] = int(snap["tok"])
+        self._done[row] = False
+        self._row_emitted[row] = emitted
+        if self._mixed:
+            self._prefilling[row] = False
+            self._row_prompt[row] = None
+            self._row_L[row] = L
+            self._row_w0[row] = 0
+        if self._mixed or self._spec:
+            self._row_prompt_toks[row] = prompt
+        with self._stats_lock:
+            mig = self._migration_stats()
+            mig["imported_rows"] += 1
+            mig["imported_tokens"] += len(emitted)
+            mig["imported_chain_tokens"] += (n_chain - m) * bs
+        self._push_stream(row, req)
+        self._maybe_complete(row)
 
     def _ensure_capacity_paged(self) -> None:
         """Block growth before a tick or chunk: every live decode row must
@@ -1477,9 +1769,10 @@ class ContinuousGenerator:
                 fold_pos[r] = int(self._pos[r]) + 1
                 active[r] = not self._done[r]
 
-        # ONE forward. The pool lock is not held: in mixed mode only this
-        # thread touches the pool tensors (the prefill thread's radix
-        # lookups are host bookkeeping).
+        # ONE forward. The pool lock is not held: in mixed mode the prefill
+        # thread's only pool copies are a lookup's host-tier promotions
+        # into free blocks and demotions of tree-only blocks, which no row
+        # of this tick reads or writes, issued on the same stream.
         dev = self.device
         logits = transformer_step_rows_ragged(
             self.params, torch.from_numpy(tokens).to(dev), pool.caches,
@@ -1714,8 +2007,9 @@ class ContinuousGenerator:
 
         tokens_t = on(tokens)
         # Two-path mode: the prefill thread gathers from the pool under its
-        # lock, so the pool writes are issued under it too (mixed mode:
-        # only this thread touches the pool tensors).
+        # lock, so the pool writes are issued under it too (mixed mode: the
+        # prefill thread copies only blocks no row holds, as in
+        # _tick_mixed).
         lock = contextlib.nullcontext() if self._mixed else pool.lock
         with lock:
             logits = transformer_step_rows_ragged(
@@ -1821,6 +2115,78 @@ class ContinuousGenerator:
                     int(t) for t in toks_host[r, :need])
             self._push_stream(r, req)  # fresh tokens flush per chunk
             self._maybe_complete(r)
+
+    def _serve_exports(self) -> None:
+        """Answer the pending export commands: called by the decode loop
+        at the top of every iteration, the tick boundary."""
+        while True:
+            try:
+                tag, fut = self._migrate_q.get_nowait()
+            except queue.Empty:
+                return
+            if fut.done():
+                continue
+            try:
+                result = self._do_export(tag)
+            except Exception as exc:  # an export never kills the loop
+                result = {"ok": False, "reason": f"export failed: {exc}"}
+            if not fut.done():
+                fut.set_result(result)
+
+    def _do_export(self, tag: str) -> dict:
+        """Decode-thread half of export_row (the row is quiescent here).
+        On success the row is gone from this lane: its stream flushed and
+        ended with StreamMigratedAway, its blocks released (radix-shared
+        prefix blocks stay in the tree), its slot free."""
+        row = next((r for r, req in enumerate(self._row_req)
+                    if req is not None and req.oneshot is None
+                    and req.tag == tag), None)
+        if row is None:
+            return {"ok": False, "reason": "no live row with this tag"}
+        req = self._row_req[row]
+        if self._mixed and self._prefilling[row]:
+            # Nothing emitted yet: a replay re-prefills exactly what an
+            # import would have to ship, so refusing costs nothing.
+            self._bump_migration("export_refused")
+            return {"ok": False, "reason": "row is mid-prefill"}
+        if self._done[row]:
+            self._bump_migration("export_refused")
+            return {"ok": False, "reason": "row already finishing"}
+        pool = self._pool
+        pos = int(self._pos[row])
+        n_chain = (pos - 1) // pool.block_size + 1 if pos > 0 else 0
+        with pool.lock:
+            chain = pool.export_chain(self._row_blocks[row][:n_chain])
+        # The bucket-truncated prompt is what the row's columns hold.
+        pb = pick_bucket(self._prompt_buckets, len(req.prompt))
+        prompt = req.prompt[-pb:]
+        emitted = list(self._row_emitted[row])
+        # Flush everything visible before the terminal, so the stream and
+        # the snapshot agree on the resume offset.
+        self._push_stream(row, req)
+        snap = {
+            "ok": True, "tag": tag,
+            "prompt": [int(t) for t in prompt],
+            "emitted": [int(t) for t in emitted],
+            "streamed": int(req.streamed),
+            "pos": pos, "tok": int(self._tok[row]),
+            "max_new": int(req.max_new), "eos_id": int(req.eos_id),
+            "temperature": float(req.temperature), "seed": int(req.seed),
+            "top_p": float(req.top_p), "top_k": int(req.top_k),
+            "min_p": float(req.min_p),
+            "repetition_penalty": float(req.rep_penalty),
+            "stop_tokens": [int(t) for t in req.stop_tokens],
+            "chain": chain,
+        }
+        self._fail_request(req, StreamMigratedAway(
+            f"stream migrated off this lane after {req.streamed} tokens",
+            tokens_emitted=req.streamed))
+        self._free_row(row)
+        with self._stats_lock:
+            m = self._migration_stats()
+            m["exported_rows"] += 1
+            m["exported_tokens"] += len(emitted)
+        return snap
 
     def _recover(self, exc: BaseException) -> None:
         """Device-step failure: the cache or pool may hold half-written
@@ -1999,13 +2365,24 @@ class ContinuousGenerator:
                 except queue.Empty:
                     break
                 self._fail_request(req, exc)
+            while True:  # export commands: answered, never stranded
+                try:
+                    _tag, fut = self._migrate_q.get_nowait()
+                except queue.Empty:
+                    break
+                if not fut.done():
+                    fut.set_result({"ok": False,
+                                    "reason": "scheduler stopped"})
 
     def _loop_body(self) -> None:
         while self._running:
             self._last_tick = time.monotonic()  # liveness heartbeat
             self._cancel_rows()
-            # Live rows' block growth outranks new admissions.
             if self._paged:
+                # Exports first: between ticks the row is quiescent, and
+                # ahead of admissions no export sees a half-admitted row.
+                self._serve_exports()
+                # Live rows' block growth outranks new admissions.
                 self._ensure_capacity_paged()
             free = self._free_rows()
             admitted_any = False
@@ -2055,7 +2432,18 @@ class ContinuousGenerator:
                     if from_pending:
                         self._pending.popleft()
                     admitted_any = True
-                except PoolExhausted:
+                except PoolExhausted as exc:
+                    if req.migrate is not None:
+                        # Imports never park: the replay resume needs
+                        # nothing from this lane. Fail retryable and drop
+                        # the radix pins.
+                        if from_pending:
+                            self._pending.popleft()
+                        self._discard_item(item)
+                        self._bump_migration("import_rejected")
+                        self._fail_request(req, ImportRefused(
+                            f"migration import refused: {exc}"))
+                        continue
                     # A request larger than the whole pool can never
                     # admit: fail it; otherwise park it until completions
                     # free blocks.

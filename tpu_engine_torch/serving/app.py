@@ -2,7 +2,8 @@
 ``serve_worker`` and ``serve_gateway`` in ``tpu_engine/serving/app.py``).
 
 Worker routes: ``POST /infer``, ``/score``, ``/generate``,
-``/generate/stream``, ``/admin/drain``; ``GET /health``. Gateway routes:
+``/generate/stream``, ``/admin/drain``, ``/admin/migrate``; ``GET
+/health``. Gateway routes:
 ``POST /infer`` (the lane's bytes relayed), ``/generate``,
 ``/generate/stream``, ``/score``; ``GET /stats``.
 """
@@ -68,6 +69,10 @@ def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
                      "draining": worker.draining, "status": status}
 
     server.route("POST", "/admin/drain", admin_drain)
+    # Live-row migration: export a stream's row; the continuation rides
+    # /generate/stream with a `migrate_import` body.
+    server.route("POST", "/admin/migrate",
+                 lambda body: (200, worker.handle_migrate_export(body or {})))
     return server
 
 

@@ -109,6 +109,10 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--kv-blocks", type=int, default=0)
     p.add_argument("--kv-quantize", default="",
                    help="int8: quantized KV pool (needs --kv-block-size)")
+    p.add_argument("--kv-host-blocks", type=int, default=0,
+                   help="host blocks under the paged pool for demoted "
+                        "radix prefixes, swapped back in on a hit (needs "
+                        "--kv-block-size). 0 = off")
     p.add_argument("--mixed-step", action="store_true")
     p.add_argument("--step-chunk", type=int, default=16,
                    help="decode steps per chunk (dense and two-path)")
@@ -166,6 +170,7 @@ def _serve(a, node_id: str, model: str, params=None,
                        gen_kv_block_size=a.kv_block_size,
                        gen_kv_blocks=a.kv_blocks,
                        gen_kv_quantize=a.kv_quantize,
+                       gen_kv_host_blocks=a.kv_host_blocks,
                        gen_mixed_step=a.mixed_step,
                        gen_mixed_token_budget=a.mixed_token_budget,
                        gen_continuous_spec_k=a.spec_k,

@@ -6,7 +6,8 @@ wire fields, and the admission plane in front of them.
 Lanes. A decoder model (the gpt2 and llama families) gets the continuous
 scheduler: dense, the default lane, or paged (mixed stepping or two-path,
 bf16/f32 or int8 pool, with continuous speculation under
-``gen_continuous_spec_k``). A config-less model (``mlp``, ``resnet50``,
+``gen_continuous_spec_k`` and a host KV tier under
+``gen_kv_host_blocks``). A config-less model (``mlp``, ``resnet50``,
 ``resnet50-v1``; the default ``resnet50``) serves only /infer: with
 ``unified_stateless`` on (the default) its scheduler's rows are all
 one-shot (``n_slots = max_batch_size``, no prefix cache). With
@@ -39,6 +40,14 @@ events, then a terminal ``{"done": true, ...}`` event with the blocking
 endpoint's fields, or with ``error``, ``retryable`` and ``tokens_emitted``.
 A stateless lane refuses /generate with the JAX worker's 400.
 
+Live-row migration: ``/admin/migrate {request_id, timeout_s?}`` exports a
+stream's row (its stream ends with a retryable ``migrated`` terminal
+event) and answers the snapshot, or ``{ok: false, reason}``; a
+``/generate/stream`` body carrying that snapshot as ``migrate_import``
+continues the row on this lane with no prefill (``import_refused`` marks a
+terminal event of an import the lane refused). The disaggregated handoff
+(``wait_prefill``, ``cancel``, ``handoff``) refuses by name.
+
 As in the JAX worker, a ``model`` other than the lane's is a 400; a
 negative or NaN ``deadline_ms`` is a 400; a row whose deadline passes
 mid-generation is cancelled between ticks. Misconfigured lanes refuse at
@@ -57,7 +66,9 @@ service-time estimate (an EWMA of the misses' ``inference_time_us``) are
 ``cache_hit_rate`` of the result cache, the batcher's four-key
 ``batch_processor`` block (on a stateless lane the scheduler's one-shot
 dispatch counters fold into it, and no ``generator`` key appears), on
-decoder lanes the scheduler's stats under ``generator``, and once
+decoder lanes the scheduler's stats under ``generator`` (with the pool's
+``host`` block on a lane with ``gen_kv_host_blocks``, and ``migration``
+once the lane exported or imported a row), and once
 admission has anything to report (a bound, a drain, a shed or a row
 dropped at its deadline) the ``admission`` block.
 """
@@ -183,6 +194,15 @@ class WorkerNode:
         self.config = config
         self.node_id = config.node_id
         self._node_id_json = json.dumps(self.node_id).encode()
+        if config.gen_kv_host_blocks > 0 and (
+                config.gen_kv_block_size <= 0
+                or not config.gen_prefix_sharing):
+            # The JAX worker's guard, with its message: a lane asked for
+            # the host tier never quietly recomputes every evicted prefix.
+            raise RuntimeError(
+                "--kv-host-blocks requires the continuous scheduler with "
+                "the paged KV cache and prefix sharing on "
+                "(--kv-block-size > 0, --prefix-sharing on)")
         if config.gen_kv_quantize and config.gen_kv_block_size <= 0:
             # The JAX worker's guard, with its message: a lane asked for
             # the int8 pool never quietly serves the full-precision one.
@@ -258,7 +278,7 @@ class WorkerNode:
                 f"the stateless family (one-shot rows have no decode loop "
                 f"to speculate)")
         if (cfg.gen_kv_block_size > 0 or cfg.gen_kv_blocks > 0
-                or cfg.gen_kv_quantize):
+                or cfg.gen_kv_host_blocks > 0 or cfg.gen_kv_quantize):
             raise RuntimeError(
                 "stateless-family models have no KV cache: "
                 "--kv-block-size/--kv-blocks/--kv-host-blocks/"
@@ -290,6 +310,7 @@ class WorkerNode:
                 prefix_cache_mb=cfg.gen_prefix_cache_mb,
                 kv_block_size=cfg.gen_kv_block_size,
                 kv_blocks=cfg.gen_kv_blocks,
+                kv_host_blocks=cfg.gen_kv_host_blocks,
                 kv_quantize=cfg.gen_kv_quantize,
                 prefix_sharing=cfg.gen_prefix_sharing,
                 mixed_step=cfg.gen_mixed_step,
@@ -405,6 +426,31 @@ class WorkerNode:
     @property
     def draining(self) -> bool:
         return self._admission.draining
+
+    # -- live-row migration ---------------------------------------------------
+
+    def handle_migrate_export(self, request: dict) -> dict:
+        """/admin/migrate ``{request_id, timeout_s?}``: export one live
+        stream's row (``ContinuousGenerator.export_row``) so another lane
+        can continue it with ``migrate_import``; the local stream ends
+        with a retryable ``migrated`` terminal event. Refusals (an
+        unknown stream, a row mid-prefill, a dense lane, the handoff's
+        ``wait_prefill`` and ``cancel``) answer ``{"ok": false,
+        "reason"}``, never an error."""
+        rid = request.get("request_id")
+        if not rid:
+            raise ValueError("request_id is required")
+        gen = self.generator
+        if gen is None or gen._stateless:
+            return {"ok": False, "node_id": self.node_id,
+                    "reason": "this lane has no continuous decode "
+                              "scheduler to export from"}
+        out = gen.export_row(
+            str(rid), timeout_s=float(request.get("timeout_s", 10.0)),
+            wait_prefill=bool(request.get("wait_prefill", False)),
+            cancel=bool(request.get("cancel", False)))
+        out["node_id"] = self.node_id
+        return out
 
     @property
     def service_estimate_us(self) -> Optional[float]:
@@ -685,8 +731,8 @@ class WorkerNode:
             request_id = request["request_id"]
             kw = self._parse(request, deadline)
             t0 = time.perf_counter()
-            tokens = self.generator.submit(kw.pop("prompt"), **kw).result(
-                timeout=600)
+            tokens = self.generator.submit(kw.pop("prompt"), tag=request_id,
+                                           **kw).result(timeout=600)
             return {"request_id": request_id, "tokens": tokens,
                     "node_id": self.node_id,
                     "generate_time_us": int((time.perf_counter() - t0)
@@ -695,16 +741,40 @@ class WorkerNode:
     def handle_generate_stream(self, request: dict) -> _AdmittedStream:
         """Returns an iterator of SSE event byte chunks. Validation and
         admission run before it is returned (a 400 or 503, not a 200
-        stream); the admission slot is held until the events end."""
+        stream); the admission slot is held until the events end. A body
+        with ``migrate_import`` continues an exported row
+        (``submit_import``); ``handoff`` (the disaggregated handoff)
+        refuses by name."""
         deadline = self._generation_deadline(request)
         request_id = request["request_id"]
+        if request.get("handoff"):
+            raise ValueError("the disaggregated handoff (handoff) is not "
+                             "yet ported to tpu_engine_torch")
+        if request.get("migrate_import") is not None:
+            # The continuation of a migrated row: no prefill, no re-sent
+            # prefix; a malformed snapshot raises here (a 400).
+            return self._open_stream(
+                deadline, request_id,
+                lambda q: self.generator.submit_import(
+                    request["migrate_import"], stream=q, deadline=deadline,
+                    tag=request_id))
         kw = self._parse(request, deadline)
+        return self._open_stream(
+            deadline, request_id,
+            lambda q: self.generator.submit(kw.pop("prompt"), stream=q,
+                                            tag=request_id, **kw))
+
+    def _open_stream(self, deadline: Optional[Deadline], request_id: str,
+                     submit) -> _AdmittedStream:
+        """Admit and count one scheduler stream, submitted by ``submit(q)``
+        (its Future; ``q`` takes the token lists): the SSE events hold the
+        admission slot until they end."""
         self._admission.admit(deadline)
         try:
             self._count_request()
             q: "queue.Queue" = queue.Queue()
             t0 = time.perf_counter()
-            fut = self.generator.submit(kw.pop("prompt"), stream=q, **kw)
+            fut = submit(q)
         except BaseException:
             self._admission.release()
             raise
@@ -740,15 +810,21 @@ class WorkerNode:
                       tokens_emitted: int) -> dict:
         """Terminal error event: ``retryable`` tells a lane fault (the
         stream can resume elsewhere from ``tokens_emitted`` tokens) from a
-        request at fault."""
+        request at fault; ``migrated`` marks a row exported to another
+        lane, ``import_refused`` a migration import this lane refused."""
         retryable = getattr(exc, "retryable", None)
         if retryable is None:
             # A spent deadline, like a request at fault, no lane can help.
             retryable = not isinstance(exc, (DeadlineExceeded, KeyError,
                                              ValueError, TypeError))
-        return {"done": True, "error": str(exc)[:300],
-                "retryable": bool(retryable), "request_id": request_id,
-                "tokens_emitted": int(tokens_emitted)}
+        out = {"done": True, "error": str(exc)[:300],
+               "retryable": bool(retryable), "request_id": request_id,
+               "tokens_emitted": int(tokens_emitted)}
+        if getattr(exc, "migrated", False):
+            out["migrated"] = True
+        if getattr(exc, "import_refused", False):
+            out["import_refused"] = True
+        return out
 
     # -- observability --------------------------------------------------------
 

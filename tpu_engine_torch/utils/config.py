@@ -44,6 +44,9 @@ class WorkerConfig:
     gen_kv_block_size: int = 0          # 0: dense KV cache; > 0: paged
     gen_kv_blocks: int = 0              # 0 = auto (dense-equivalent)
     gen_kv_quantize: str = ""           # "int8": quantized block pool
+    # Host blocks under the paged pool for demoted radix prefixes (needs
+    # the paged cache and prefix sharing; --kv-host-blocks), 0 = off.
+    gen_kv_host_blocks: int = 0
     gen_prefix_sharing: bool = True
     gen_mixed_step: bool = False        # paged only; False: two-path
     gen_mixed_token_budget: int = 0     # 0 = auto (gen_prefill_chunk)
