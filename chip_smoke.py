@@ -153,7 +153,40 @@ Phases (any failure exits non-zero and prints no result line):
               same request's uninterrupted run alone on A, no token
               prefilled on B, imported_chain_tokens == 16 x the chain's
               blocks, no block leaked;
-7. train    — after the server phase has stopped its lanes: full-width
+7. refmodels — the reference's other /infer deployments (BASELINE.json
+              configs 1-4), random weights from seed 0 at full width:
+              #5 at the bert lane's shape (B 32 x S 384 x 12 heads x D 64,
+              non-causal, varied right padding and an all-pad row) against
+              its plain version in f32 (as the lane launches it) and bf16
+              (out and lse; the all-pad row 0 and lse -inf; bit-identical
+              over two runs), timed beside its bound, the plain version
+              and SDPA over the same mask; a bert worker (bf16, 32-row
+              one-shot ticks) answering 40 distinct token-id payloads of
+              1-384 tokens and the 3-float all-pad payload at once and 8
+              repeats from the cache, with the launch counts set to 0
+              before and read after: #5 launched 12 x the dispatches, no
+              other kernel, no plain call, every answer as close to the
+              same forward with the plain attention as BERT_BF16_FACTOR x
+              bf16's own distance from f32, the same burst through a
+              worker in f32 within BERT_F32_TOL of the plain f32 forward,
+              the forward's times at B 1 and 32; a yolov8n worker (bf16,
+              shape buckets 320, 480, 640) answering 48 distinct 16-float
+              requests cycling the three shapes: n_anchors x 144 values
+              each, within YOLO_TOL of the plain f32 forward of each
+              canvas, the same burst through a worker in f32 within
+              YOLO_F32_TOL of it, the forward's times per bucket at B 1
+              and 8 and one 640 answer's JSON encoding; a
+              ResNet-50 v2 ONNX graph (seeded, in resnet50-v2-7.onnx's
+              shape) served by `worker_node <port> worker_1 <file>.onnx` as
+              a process, answering the 3-float payload and a full image
+              within ONNX_TOL of the port's executor on the CPU in f32, and
+              its forward's times; two gpt2 (124M) HF-layout checkpoints
+              of seeded tensors (config.json + model.safetensors;
+              pytorch_model.bin), the first served by `worker_node` as a
+              process, /admin/reload to the second (timed): the cache
+              empties, /infer changes, and a greedy stream equals a fresh
+              worker's on the second checkpoint;
+8. train    — after the server phase has stopped its lanes: full-width
               training of TinyLlama-1.1B geometry (22 layers, f32 weights
               from seed 0, AdamW) on the train command's synthetic batch,
               4 steps at B 4 x S 1024 with an f32 forward (lr 1e-4; the
@@ -166,7 +199,7 @@ Phases (any failure exits non-zero and prints no result line):
               device busy time, the idle share, the flash kernels' shares
               (and the device time of their f32 and bf16 variants),
               tokens/s and peak memory;
-8. numbers  — each kernel's time at the main path's shapes (with events
+9. numbers  — each kernel's time at the main path's shapes (with events
               and as device time) beside its bound, the plain version's
               time and the library's (scaled_dot_product_attention; for the
               paged reads over K/V gathered dense, and dequantized for
@@ -614,19 +647,32 @@ def flash_inputs(torch, dev, s: int, h: int, d: int, pad: int = 0,
     return q, k, v, mask
 
 
-def flash_bound_ms(q, causal: bool = True) -> tuple:
-    """Least time for a causal flash forward over (B, S, H, D) inputs with
-    no mask: the larger of the bytes (q, k, v read once, out written once,
-    in their dtype, and the f32 lse) over 3.35 TB/s and 4*D flops per
-    attended (query, key) pair, S(S+1)/2 per head, over the card's peak in
-    the inputs' type (bf16 tensor cores, or f32 CUDA cores: the port's f32
-    products run without TF32)."""
+def flash_bound_ms(q, causal: bool = True, mask=None) -> tuple:
+    """Least time for a flash forward over (B, S, H, D) inputs: the larger
+    of the bytes over 3.35 TB/s and the flops over the card's peak in the
+    inputs' type (bf16 tensor cores, or f32 CUDA cores: the port's f32
+    products run without TF32). Bytes, in the inputs' dtype: q read and
+    out written once, k and v read once for each key the (B, S) mask keeps
+    (every key without a mask), the f32 lse written, the int32 mask read.
+    Flops: 4*D per (query, key) pair the function needs: each query with
+    each key the mask keeps, causal ones only up to the query. A padded
+    key adds nothing to any output, so its pairs are not counted, whatever
+    the kernel itself computes."""
     b, s, h, d = q.shape
-    nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    peak = PEAK_BF16_FLOPS if q.element_size() == 2 else PEAK_F32_FLOPS
+    es = q.element_size()
+    if mask is None:
+        kept = b * s
+        rows = b * (s * (s + 1) // 2 if causal else s * s)
+    else:
+        m = (mask != 0).long()
+        kept = int(m.sum())
+        rows = int(m.cumsum(1).sum()) if causal else s * kept
+    nbytes = (2 * q.numel() + 2 * kept * h * d) * es + b * h * s * 4
+    if mask is not None:
+        nbytes += mask.numel() * 4
+    peak = PEAK_BF16_FLOPS if es == 2 else PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 4 * d * pairs / peak * 1e3
+    t_ops = 4 * d * h * rows / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -3078,6 +3124,833 @@ def phase_kvtier(torch, card: str) -> dict:
     return out
 
 
+# -- refmodels phase -----------------------------------------------------------
+#
+# The reference's other /infer deployments (BASELINE.json configs 1-4):
+# bert (BERT-base-squad, variable sequence lengths, the result LRU),
+# yolov8n with shape buckets (mixed input shapes), a raw ONNX graph served
+# by the reference's command line, and HF checkpoints with /admin/reload.
+
+BERT_SEQ = 384
+BERT_HEADS, BERT_D = 12, 64
+BERT_LAYERS = 12
+# The bert lane (bf16) against the same forward with the flash kernel's
+# plain version on the card, as max |diff| over the burst. The kernel and
+# the plain version differ in their f32 sums' last bits (~1e-6), and in
+# bf16 any such difference flips some residual-stream roundings at the
+# blocks' ends: with random weights from seed 0 the logits are small
+# (max ~0.2-0.7, the final hidden states' large entries cancel in the QA
+# head), and the plain forward in bf16 itself differs from the f32 forward
+# by 3-15% of them, on the card and on the CPU alike (measured). So the
+# bound is stated against bf16's own error: the lane may differ from the
+# plain bf16 forward by at most BERT_BF16_FACTOR x the largest difference
+# between the plain bf16 and the plain f32 forward (measured: 1.3x); a
+# wrong mask or a wrong row differs by the order of the logits themselves.
+# The same burst through a worker in f32 (f32 weights, TF32 off; its
+# ticks, rows and padding as the bf16 lane's) against the plain f32
+# forward is held to BERT_F32_TOL of each request's largest logit (the f32
+# sums' order only; card vs CPU read 1e-5).
+BERT_BF16_FACTOR = 3.0
+BERT_F32_TOL = 1e-4
+YOLO_SIZES = (320, 480, 640)
+YOLO_REQUESTS = 48
+YOLO_HEAD = 144
+# The yolov8n lane (bf16: every conv's operands rounded to bf16, f32
+# sums) against the plain f32 forward of each request's canvas on the same
+# weights (TF32 off), as max|diff| / max|ref| per request: bf16's own error, which depends on the
+# random weights (the card draws other numbers than the CPU; the bert
+# lane's bf16 reads 3-15% at seed 0). Measured on the CPU's weights at 320
+# and 480 on such inputs: up to 8.4e-3; a wrong padding, canvas, crop or
+# bucket differs by the order of the maps themselves (1).
+YOLO_TOL = 1e-1
+# The same burst through a worker in f32 (f32 wire, TF32 off) against the
+# plain f32 forward, as above: the f32 sums' order only, so a wrong row,
+# bucket or canvas shows at the order of the maps.
+YOLO_F32_TOL = 1e-4
+# The ONNX ResNet-50 v2 worker (the reference's command line: bf16, the
+# port's default) against the port's executor on the CPU in f32 on the same
+# graph, as max|diff| / max|ref|: bf16 operands in every conv and the
+# Gemm through 53 layers. Measured on the CPU (the worker in bf16 against
+# the executor in f32, these inputs): 3.8e-3.
+ONNX_TOL = 3e-2
+# The gpt2 (124M) HF checkpoints of the reload check: HF's geometry.
+GPT2_HF = dict(vocab_size=50257, n_layer=12, n_embd=768, n_head=12,
+               n_positions=1024)
+
+
+def concurrent_posts(port: int, path: str, bodies: dict) -> tuple:
+    """POST every body of ``bodies`` (name -> dict) at once; returns
+    (answers by name, the burst's seconds)."""
+    res, errors = {}, []
+
+    def run(name, body):
+        try:
+            res[name] = post(port, path, body)
+        except Exception as exc:  # reported below
+            errors.append(f"{name}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=kv)
+               for kv in bodies.items()]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"{path}: requests failed: {errors}")
+    return res, wall
+
+
+def forward_reading(torch, key: str, fwd, card: str, share=None) -> dict:
+    """One forward's ms (events, cold L2), the host's time to issue it,
+    the card's busy time in it and the idle share; ``share``: (kernel
+    name, launches, device ms of one launch) for the kernel's part."""
+    ms = time_ms(torch, fwd, iters=10)
+    host = issue_ms(torch, fwd)
+    busy = busy_ms(torch, fwd)
+    res = {"forward_ms": ms, "issue_ms": host, "busy_ms": busy,
+           "idle_share": max(0.0, 1 - busy / ms)}
+    line = (f"refmodels forward ({key}): {ms:.3f} ms (host issue "
+            f"{host:.3f} ms, device busy {busy:.3f} ms, idle "
+            f"{100 * res['idle_share']:.1f}%)")
+    if share is not None:
+        name, n, dev_ms = share
+        res["kernel_ms"] = n * dev_ms
+        line += (f"; {name} {n} x {dev_ms:.4f} ms = {n * dev_ms:.3f} ms, "
+                 f"{100 * n * dev_ms / ms:.1f}% of the forward")
+    log(f"{line} [{card}]")
+    return res
+
+
+def bert_masks(b: int, s: int, seed: int) -> np.ndarray:
+    """(b, s) int32 padding masks of the bert lane: valid prefixes of
+    varied lengths (1, 17, 63, s, random), the last row all pad."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, s + 1, b)
+    lens[:4] = [1, 17, 63, s][:min(4, b)]
+    lens[-1] = 0
+    return (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+
+
+def refmodels_flash(torch, card: str, errs: dict) -> dict:
+    """#5 at the bert lane's shape (B 32 x S 384, 12 heads, D 64,
+    non-causal, varied right padding, an all-pad row) against its plain
+    version, in f32 (what the lane launches: q, k, v come out of nn.dense
+    as f32) and bf16: out and lse within F32_TOL / BF16_TOL, the all-pad
+    row 0 with lse -inf, bit-identical over two runs; then its times
+    beside the bound, the plain version and SDPA over the same mask."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpu_engine_torch.ops import flash as fl
+
+    b, s = 32, BERT_SEQ
+    mask = torch.from_numpy(bert_masks(b, s, 3)).cuda()
+    out = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).split(".")[-1]
+        q, k, v, _ = flash_inputs(torch, torch.device("cuda"), s, BERT_HEADS,
+                                  BERT_D, dtype=dtype, b=b, seed=7)
+        kw = dict(causal=False, mask=mask)
+        got, lse = fl.flash_attention_fwd(q, k, v, **kw)
+        ref, ref_lse = fl.flash_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        dead = torch.isinf(ref_lse)
+        err = max(float((got.float() - ref.float()).abs().max()),
+                  float(torch.where(dead, 0.0, lse - ref_lse).abs().max()))
+        again = fl.flash_attention_fwd(q, k, v, **kw)
+        check(bool(torch.isfinite(got).all()) and err <= tol
+              and torch.equal(torch.isinf(lse), dead)
+              and bool(dead[-1].all())
+              and torch.equal(got[-1], torch.zeros_like(got[-1]))
+              and torch.equal(got, again[0]) and torch.equal(lse, again[1]),
+              f"flash at the bert shape ({name}): err {err}")
+        key = f"bert B=32 S=384 H=12 {name}"
+        errs["flash_attention"][key] = err
+        call = (lambda: fl.flash_attention(q, k, v, **kw))
+        ms = time_ms(torch, call)
+        device, seen = device_call_ms(torch, call)
+        plain = time_ms(torch, lambda: fl.flash_attention_reference(
+            q, k, v, **kw), iters=3)
+        qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        amask = (mask > 0)[:, None, None, :]
+
+        def library_call():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qq, kk, vv,
+                                                      attn_mask=amask)
+        library = time_ms(torch, library_call)
+        library_device, _ = device_call_ms(torch, library_call)
+        bound, by = flash_bound_ms(q, causal=False, mask=mask)
+        out[key] = {"max_abs_err": err, "ms": ms, "device_ms": device,
+                    "device_calls": seen, "plain_ms": plain,
+                    "library_ms": library,
+                    "library_device_ms": library_device,
+                    "library_backend": "EFFICIENT_ATTENTION",
+                    "bound_ms": bound, "bound_by": by}
+        log(f"refmodels flash_attention (B 32, S 384, H 12, D 64, "
+            f"non-causal, padding mask with an all-pad row, {name}): max "
+            f"abs err {err:.2e} (out and lse), all-pad row 0, bit-identical"
+            f" over two runs; kernel {ms:.4f} ms (device time {device:.4f} "
+            f"ms), plain {plain:.4f} ms, sdpa EFFICIENT_ATTENTION "
+            f"{library:.4f} ms (device time {library_device:.4f} ms), "
+            f"bound {bound:.5f} ms ({by}) [{card}]")
+    return out
+
+
+def bert_reference(torch, params, cfg, x, dtype):
+    """The bert forward of float token ids ``x`` (B, 384) on the card with
+    the flash kernel's plain version as attention: the lane's function
+    without the kernel."""
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops.flash import flash_attention_reference
+
+    tokens = torch.clamp(torch.trunc(x), 0, cfg.vocab - 1).to(torch.int32)
+    with torch.inference_mode():
+        return transformer_apply(
+            params, tokens, cfg, mask=(tokens > 0).to(torch.int32),
+            dtype=dtype,
+            attn_fn=lambda *a, **kw: flash_attention_reference(*a, **kw)[0])
+
+
+def refmodels_bert(torch, card: str, flash_dev_ms: float) -> dict:
+    """The bert lane (BASELINE config 3: BERT-base-squad, 384-token
+    requests zero-padded, the result LRU): a worker with model "bert",
+    bf16, 32-row one-shot ticks, random weights from seed 0. With the
+    launch counts set to 0 just before and read just after: a burst of 40
+    distinct token-id payloads of 1-384 tokens (24 under 64, one of 384)
+    and the reference's 3-float payload (all pad) at once, then 8 repeats
+    (cache hits): #5 launched 12 x the lane's dispatches (one forward a
+    dispatch), no other kernel, no plain call. Every answer against the
+    same forward with the plain attention on the card (BERT_BF16_FACTOR),
+    the all-pad answer finite; the same burst through a worker in f32 on
+    the same weights against the plain f32 forward (BERT_F32_TOL). Then
+    the forward's
+    ms, host issue, device busy and idle share at B 1 and B 32."""
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.training.train import tree_map
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    cfg = WorkerConfig(port=0, node_id="chip-smoke-bert", model="bert",
+                       dtype="bfloat16", max_batch_size=32, device="cuda",
+                       seed=0)
+    t0 = time.perf_counter()
+    worker, server = serve_worker(cfg)
+    port = server.port
+    log(f"refmodels bert: 12 layers, d 768, 384-token rows, bf16, ready in "
+        f"{time.perf_counter() - t0:.1f} s on port {port}")
+    rng = np.random.default_rng(13)
+    short = BERT_SEQ // 6  # 64 at 384
+    lens = ([int(n) for n in rng.integers(1, short, 24)]
+            + [int(n) for n in rng.integers(short, BERT_SEQ, 15)]
+            + [BERT_SEQ])
+    payloads = [rng.integers(1, 30522, n).astype(np.float32).tolist()
+                for n in lens] + [[0.1, 0.2, 0.3]]
+    try:
+        warm = post(port, "/infer", {"request_id": "bert-warm",
+                                     "input_data": [101.0, 2054.0, 102.0]})
+        check(len(warm["output_data"]) == 2 * BERT_SEQ, "bert warm-up")
+        eng, gen = worker.engine, worker.generator
+        st0, ex0 = gen.stats()["stateless"], eng.stats()["execute_count"]
+        kernels.reset_counts()  # the lane's run: counts from 0, read after
+        res, burst_s = concurrent_posts(port, "/infer", {
+            f"q{i}": {"request_id": f"bert{i}", "input_data": p}
+            for i, p in enumerate(payloads)})
+        reps, _ = concurrent_posts(port, "/infer", {
+            f"r{i}": {"request_id": f"bert-rep{i}", "input_data": payloads[i]}
+            for i in range(8)})
+        torch.cuda.synchronize()
+        launches = check_counts("refmodels bert", "flash_attention")
+        st1, ex1 = gen.stats()["stateless"], eng.stats()["execute_count"]
+        dispatches = st1["dispatches"] - st0["dispatches"]
+        check(all(not r["cached"] for r in res.values())
+              and all(r["cached"] and r["output_data"]
+                      == res[f"q{int(k[1:])}"]["output_data"]
+                      for k, r in reps.items()),
+              "bert: burst answers cached, or repeats not from the cache")
+        check(dispatches > 0 and ex1 - ex0 == dispatches
+              and launches == BERT_LAYERS * dispatches
+              and st1["failed"] == st0["failed"],
+              f"bert: {launches} flash launches for {dispatches} dispatches "
+              f"({ex1 - ex0} forwards)")
+        health = get(port, "/health")
+        check(health["cache_hits"] >= 8 and "generator" not in health,
+              f"bert health {health}")
+        # Every answer against the plain-attention forward on the card.
+        x = np.zeros((len(payloads), BERT_SEQ), np.float32)
+        for i, p in enumerate(payloads):
+            x[i, :len(p)] = p
+        p32 = tree_map(lambda t: t.float(), eng.params)
+
+        def plain(params, dtype):
+            return torch.cat([bert_reference(
+                torch, params, eng.spec.config,
+                torch.from_numpy(x[c:c + 16]).cuda(), dtype)
+                for c in range(0, len(x), 16)]).float().cpu().reshape(
+                    len(x), -1).numpy()
+
+        ref16, ref32 = plain(eng.params, torch.bfloat16), plain(
+            p32, torch.float32)
+        lane = np.stack([np.asarray(res[f"q{i}"]["output_data"], np.float32)
+                         for i in range(len(payloads))])
+        check(lane.shape == ref16.shape and np.isfinite(lane).all(),
+              "bert answers misshapen or non-finite")
+        lane_err = float(np.abs(lane - ref16).max())
+        bf16_err = float(np.abs(ref16 - ref32).max())
+        check(lane_err <= BERT_BF16_FACTOR * bf16_err,
+              f"bert answers vs the plain bf16 forward: {lane_err} > "
+              f"{BERT_BF16_FACTOR} x bf16's own {bf16_err}")
+        # The same burst through a worker in f32 on the same weights (its
+        # ticks, rows and padding as the bf16 lane's), held tightly.
+        w32, s32 = serve_worker(WorkerConfig(
+            port=0, node_id="chip-smoke-bert-f32", model="bert",
+            dtype="float32", max_batch_size=32, device="cuda", seed=0),
+            params=p32)
+        try:
+            res32, _ = concurrent_posts(s32.port, "/infer", {
+                f"q{i}": {"request_id": f"bert32-{i}", "input_data": p}
+                for i, p in enumerate(payloads)})
+            d32 = w32.generator.stats()["stateless"]["dispatches"]
+        finally:
+            s32.stop()
+            w32.stop()
+        k32 = np.stack([np.asarray(res32[f"q{i}"]["output_data"],
+                                   np.float32) for i in range(len(payloads))])
+        scale = np.maximum(np.abs(ref32).max(axis=1), 1e-30)
+        f32_err = float((np.abs(k32 - ref32).max(axis=1) / scale).max())
+        check(f32_err <= BERT_F32_TOL and np.isfinite(k32).all(),
+              f"bert f32 worker vs the plain f32 forward: {f32_err}")
+        del p32
+        log(f"refmodels bert: {len(payloads)} distinct /infer (lengths "
+            f"1-384, the 3-float all-pad payload among them) in "
+            f"{burst_s:.3f} s, 8 repeats cached; {dispatches} one-shot "
+            f"dispatches, flash_attention launches {launches} == 12 x "
+            f"{dispatches}, no other kernel, no plain call; answers vs the "
+            f"plain-attention bf16 forward max |diff| {lane_err:.3e} "
+            f"(bf16's own vs f32: {bf16_err:.3e}; the all-pad answer "
+            f"finite); the same burst through an f32 worker ({d32} "
+            f"dispatches) vs the plain f32 forward max rel err "
+            f"{f32_err:.3e} [{card}]")
+        out = {"burst_s": burst_s, "requests": len(payloads),
+               "dispatches": dispatches, "launches": launches,
+               "lane_vs_plain_bf16_abs": lane_err,
+               "plain_bf16_vs_f32_abs": bf16_err,
+               "f32_worker_rel_err": f32_err, "stateless": st1}
+        spec, params = eng.spec, eng.params
+        for b in (1, 32):
+            xb = torch.from_numpy(x[:b] if b <= len(x) else np.resize(
+                x, (b, BERT_SEQ))).cuda()
+
+            def fwd():
+                with torch.inference_mode():
+                    return spec.apply(params, xb, dtype=torch.bfloat16)
+
+            check(bool(torch.isfinite(fwd()).all()), f"bert forward B {b}")
+            out[f"forward B={b}"] = forward_reading(
+                torch, f"bert bf16, B {b} x 384", fwd, card,
+                share=(("flash_attention f32", BERT_LAYERS, flash_dev_ms)
+                       if b == 32 else None))
+    finally:
+        server.stop()
+        worker.stop()
+    torch.cuda.empty_cache()
+    return out
+
+
+def refmodels_yolo(torch, card: str) -> dict:
+    """yolov8n with shape buckets (BASELINE config 4; bench.py's mixed-shape
+    sizes 320, 480 and 640): a worker with model "yolov8n", bf16, random
+    weights from seed 0, shape_buckets (320, 320, 3), (480, 480, 3) and
+    (640, 640, 3), under cuDNN's default TF32 setting as served. 48
+    distinct 16-float /infer requests at once, cycling the three shapes
+    (each zero-padded onto its shape's canvas by the engine): every answer
+    has n_anchors x 144 values for its shape, finite, within YOLO_TOL of
+    the plain f32 forward of its canvas on the same weights (TF32 off);
+    the lane's forwards are one per (dispatch, bucket). Then the forward
+    per bucket at B 1 and B 8; the same burst through a worker in f32 on
+    the same weights, each answer within YOLO_F32_TOL of the plain f32
+    forward; and the host's JSON encoding of one 640 answer."""
+    from tpu_engine_torch.models.yolo import n_anchors
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.serving.worker import _encode_output
+    from tpu_engine_torch.training.train import tree_map
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    buckets = tuple((s, s, 3) for s in YOLO_SIZES)
+    rng = np.random.default_rng(21)
+    inputs = [rng.standard_normal(16).astype(np.float32)
+              for _ in range(YOLO_REQUESTS)]
+    shapes = [buckets[i % 3] for i in range(YOLO_REQUESTS)]
+    out = {}
+    with served_conv_precision(torch):
+        cfg = WorkerConfig(port=0, node_id="chip-smoke-yolo",
+                           model="yolov8n", dtype="bfloat16",
+                           max_batch_size=32, device="cuda", seed=0,
+                           shape_buckets=buckets)
+        t0 = time.perf_counter()
+        worker, server = serve_worker(cfg, warmup=True)
+        port = server.port
+        log(f"refmodels yolo: yolov8n bf16, shape buckets {YOLO_SIZES}, "
+            f"warmed up and ready in {time.perf_counter() - t0:.1f} s")
+        try:
+            eng, gen = worker.engine, worker.generator
+            st0, ex0 = gen.stats()["stateless"], eng.stats()["execute_count"]
+            res, burst_s = concurrent_posts(port, "/infer", {
+                i: {"request_id": f"yolo{i}", "input_data": x.tolist(),
+                    "shape": list(s)}
+                for i, (x, s) in enumerate(zip(inputs, shapes))})
+            st1, ex1 = gen.stats()["stateless"], eng.stats()["execute_count"]
+            dispatches = st1["dispatches"] - st0["dispatches"]
+            check(dispatches <= ex1 - ex0 <= 3 * dispatches,
+                  f"yolo: {ex1 - ex0} forwards for {dispatches} dispatches")
+            for i, s in enumerate(shapes):
+                n = len(res[i]["output_data"])
+                check(n == n_anchors(s[0], s[1]) * YOLO_HEAD,
+                      f"yolo answer {i} at {s}: {n} values")
+            stats = eng.stats()
+            check(stats["shape_buckets"] == [list(b) for b in buckets],
+                  f"yolo engine stats {stats}")
+            params = eng.params
+        finally:
+            server.stop()
+            worker.stop()
+        spec = eng.spec
+        for s in YOLO_SIZES:
+            for b in (1, 8):
+                x = torch.rand((b, s, s, 3), device="cuda")
+
+                def fwd():
+                    with torch.inference_mode():
+                        return spec.apply(params, x, dtype=torch.bfloat16)
+
+                y = fwd()
+                check(tuple(y.shape) == (b, n_anchors(s, s), YOLO_HEAD)
+                      and bool(torch.isfinite(y).all()),
+                      f"yolo forward {s} B {b}")
+                out[f"forward {s} B={b}"] = forward_reading(
+                    torch, f"yolov8n bf16, {s} x {s}, B {b}", fwd, card)
+    # The plain f32 forward (TF32 off) of each request's canvas, built here
+    # as bench.py builds it: the 16 floats first, zeros to (s, s, 3).
+    p32 = tree_map(lambda t: t.float(), params)
+    want = [None] * YOLO_REQUESTS
+    for b in buckets:
+        idx = [i for i, s in enumerate(shapes) if s == b]
+        canvas = np.zeros((len(idx), *b), np.float32)
+        for j, i in enumerate(idx):
+            canvas[j].flat[:inputs[i].size] = inputs[i]
+        with torch.inference_mode():
+            y = spec.apply(p32, torch.from_numpy(canvas).cuda(),
+                           dtype=torch.float32)
+        for j, i in enumerate(idx):
+            want[i] = y[j].reshape(-1).cpu().numpy()
+    # The same burst through a worker in f32 on the same weights.
+    w32, s32 = serve_worker(WorkerConfig(
+        port=0, node_id="chip-smoke-yolo-f32", model="yolov8n",
+        dtype="float32", max_batch_size=32, device="cuda", seed=0,
+        shape_buckets=buckets), params=p32)
+    try:
+        res32, _ = concurrent_posts(s32.port, "/infer", {
+            i: {"request_id": f"yolo32-{i}", "input_data": x.tolist(),
+                "shape": list(s)}
+            for i, (x, s) in enumerate(zip(inputs, shapes))})
+    finally:
+        s32.stop()
+        w32.stop()
+    worst, worst32 = {}, {}
+    for i, s in enumerate(shapes):
+        got = np.asarray(res[i]["output_data"], np.float32)
+        got32 = np.asarray(res32[i]["output_data"], np.float32)
+        check(np.isfinite(got).all() and got32.shape == want[i].shape,
+              f"yolo answer {i}: non-finite or misshapen")
+        scale = np.abs(want[i]).max()
+        worst[s[0]] = max(worst.get(s[0], 0.0),
+                          float(np.abs(got - want[i]).max() / scale))
+        worst32[s[0]] = max(worst32.get(s[0], 0.0),
+                            float(np.abs(got32 - want[i]).max() / scale))
+    check(max(worst.values()) <= YOLO_TOL,
+          f"yolo answers vs the plain f32 forward: {worst}")
+    check(max(worst32.values()) <= YOLO_F32_TOL,
+          f"yolo f32 worker vs the plain f32 forward: {worst32}")
+    big = want[2]
+    t0 = time.perf_counter()
+    frag = _encode_output(big)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    json.loads(frag)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    log(f"refmodels yolo: {YOLO_REQUESTS} distinct 16-float /infer cycling "
+        f"{YOLO_SIZES} at once in {burst_s:.3f} s; {dispatches} dispatches, "
+        f"{ex1 - ex0} bucket forwards; every answer n_anchors x 144 values "
+        f"(2100, 4725, 8400 anchors); vs the plain f32 forward max rel "
+        f"err {json.dumps(worst)}, the same burst through an f32 worker "
+        f"{json.dumps(worst32)}; one 640 answer ({big.size} floats) encodes "
+        f"to {len(frag)} JSON bytes in {enc_ms:.1f} ms, parses in "
+        f"{dec_ms:.1f} ms (host) [{card}]")
+    out.update({"burst_s": burst_s, "dispatches": dispatches,
+                "bucket_forwards": ex1 - ex0, "max_rel_err": worst,
+                "f32_worker_max_rel_err": worst32,
+                "answer_640": {"floats": int(big.size), "json_bytes":
+                               len(frag), "encode_ms": enc_ms,
+                               "parse_ms": dec_ms}})
+    del p32, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def onnx_writer():
+    """``tests/onnx_writer.py`` (a protobuf writer of ONNX ModelProtos that
+    imports only numpy and struct), loaded by its path beside this script:
+    an installed package may own the name ``tests``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "onnx_writer.py"
+    spec = importlib.util.spec_from_file_location("onnx_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_resnet50_v2_onnx(path: Path, seed: int = 0) -> None:
+    """A ResNet-50 v2 graph in the shape of the reference's
+    resnet50-v2-7.onnx (input "data" (N, 3, 224, 224), output (N, 1000),
+    NCHW, pre-activation bottlenecks [3, 4, 6, 3] at widths 64-512 x 4,
+    bias-free convs, BatchNormalization, MaxPool, GlobalAveragePool,
+    Flatten, Gemm), seeded random initializers (``onnx_writer``)."""
+    ow = onnx_writer()
+    rng = np.random.default_rng(seed)
+    inits, nodes = {}, []
+
+    def conv(x, cin, cout, k, stride, name, scale=1.0):
+        w = rng.standard_normal((cout, cin, k, k), np.float32)
+        inits[name + "_w"] = (w * scale * np.sqrt(2.0 / (cin * k * k))
+                              ).astype(np.float32)
+        p = k // 2
+        nodes.append(ow.node("Conv", [x, name + "_w"], [name], [
+            ow.attr_ints("kernel_shape", [k, k]),
+            ow.attr_ints("strides", [stride, stride]),
+            ow.attr_ints("pads", [p, p, p, p])]))
+        return name
+
+    def bn_relu(x, c, name):
+        inits[name + "_g"] = (1 + 0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        inits[name + "_b"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        inits[name + "_m"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        inits[name + "_v"] = (1 + 0.1 * rng.random(c)).astype(np.float32)
+        nodes.append(ow.node("BatchNormalization", [
+            x, name + "_g", name + "_b", name + "_m", name + "_v"],
+            [name + "_bn"], [ow.attr_float("epsilon", 1e-5)]))
+        nodes.append(ow.node("Relu", [name + "_bn"], [name + "_relu"]))
+        return name + "_relu"
+
+    x = conv("data", 3, 64, 7, 2, "stem")
+    x = bn_relu(x, 64, "stem_bn")
+    nodes.append(ow.node("MaxPool", [x], ["pool0"], [
+        ow.attr_ints("kernel_shape", [3, 3]), ow.attr_ints("strides", [2, 2]),
+        ow.attr_ints("pads", [1, 1, 1, 1])]))
+    x, cin = "pool0", 64
+    for s, (n, mid) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for blk in range(n):
+            stride = 2 if (blk == 0 and s > 0) else 1
+            name = f"stage{s + 1}_unit{blk + 1}"
+            act = bn_relu(x, cin, name + "_bn1")
+            short = x
+            if blk == 0:
+                short = conv(act, cin, 4 * mid, 1, stride, name + "_sc")
+            h = conv(act, cin, mid, 1, 1, name + "_conv1")
+            h = bn_relu(h, mid, name + "_bn2")
+            h = conv(h, mid, mid, 3, stride, name + "_conv2")
+            h = bn_relu(h, mid, name + "_bn3")
+            h = conv(h, mid, 4 * mid, 1, 1, name + "_conv3", scale=0.3)
+            nodes.append(ow.node("Add", [h, short], [name + "_out"]))
+            x, cin = name + "_out", 4 * mid
+    x = bn_relu(x, cin, "final_bn")
+    nodes.append(ow.node("GlobalAveragePool", [x], ["gap"]))
+    nodes.append(ow.node("Flatten", ["gap"], ["flat"]))
+    inits["fc_w"] = (rng.standard_normal((1000, cin), np.float32)
+                     * np.sqrt(1.0 / cin)).astype(np.float32)
+    inits["fc_b"] = np.zeros(1000, np.float32)
+    nodes.append(ow.node("Gemm", ["flat", "fc_w", "fc_b"],
+                         ["resnetv24_dense0_fwd"],
+                         [ow.attr_int("transB", 1)]))
+    path.write_bytes(ow.model(nodes, inits,
+                              ow.value_info("data", ["N", 3, 224, 224]),
+                              ow.value_info("resnetv24_dense0_fwd",
+                                            ["N", 1000])))
+
+
+def spawn_worker_node(args, timeout: float = 300.0) -> tuple:
+    """``python -m tpu_engine_torch.serving.cli worker_node <port> *args``
+    as a process on a free port; returns (process, port) once /health
+    answers."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_engine_torch.serving.cli",
+         "worker_node", str(port), *args],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while True:
+        try:
+            get(port, "/health")
+            return proc, port
+        except (OSError, http.client.HTTPException, SmokeFailure):
+            if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+                proc.kill()
+                _, err = proc.communicate(timeout=30)
+                raise SmokeFailure(f"worker_node {args} did not start "
+                                   f"({proc.returncode}): {err[-2000:]}")
+            time.sleep(0.5)
+
+
+def stop_process(proc) -> int:
+    """SIGTERM, then the exit code (killed after 60 s)."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        return -9
+
+
+def refmodels_onnx(torch, card: str, tmp: Path) -> dict:
+    """The reference's command line (BASELINE configs 1-2): `worker_node
+    <port> worker_1 <tmp>/resnet50-v2-7.onnx` as a process, serving the
+    graph (bf16, the port's default) on the card; the reference payload
+    (3 floats, zero-padded to 150,528) and a full 224 x 224 x 3 image over
+    /infer, each within ONNX_TOL of the port's executor on the CPU in f32;
+    SIGTERM ends it with 0. Then the graph's forward on the card (bf16)
+    at B 1 and B 32."""
+    from tpu_engine_torch.models.onnx_graph import build_onnx_model
+
+    path = tmp / "resnet50-v2-7.onnx"
+    t0 = time.perf_counter()
+    write_resnet50_v2_onnx(path)
+    write_s = time.perf_counter() - t0
+    n_in = 3 * 224 * 224
+    image = np.round(np.random.default_rng(8).random(n_in, np.float32), 3)
+    payloads = {"reference": [1.0, 2.0, 3.0], "image": image.tolist()}
+    cpu_spec, cpu_params = build_onnx_model(str(path), device="cpu")
+    check(cpu_spec.input_shape == (3, 224, 224)
+          and cpu_spec.output_shape == (1000,), f"onnx spec {cpu_spec}")
+    x = np.zeros((2, n_in), np.float32)
+    x[0, :3] = payloads["reference"]
+    x[1] = image
+    with torch.inference_mode():
+        want = cpu_spec.apply(cpu_params, torch.from_numpy(x).reshape(
+            2, 3, 224, 224), dtype=torch.float32).numpy()
+    out = {"graph_bytes": path.stat().st_size, "write_s": write_s}
+    t0 = time.perf_counter()
+    proc, port = spawn_worker_node(["worker_1", str(path)])
+    out["ready_s"] = time.perf_counter() - t0
+    try:
+        worst = 0.0
+        for i, (name, data) in enumerate(payloads.items()):
+            r = post(port, "/infer", {"request_id": f"onnx-{name}",
+                                      "input_data": data})
+            got = np.asarray(r["output_data"], np.float32)
+            check(got.shape == (1000,) and np.isfinite(got).all()
+                  and r["node_id"] == "worker_1",
+                  f"onnx worker answer {name}")
+            err = float(np.abs(got - want[i]).max() / np.abs(want[i]).max())
+            out[f"{name}_rel_err"] = err
+            worst = max(worst, err)
+        health = get(port, "/health")
+        check(health["model"] == "onnx:resnet50-v2-7.onnx",
+              f"onnx worker health {health}")
+    finally:
+        rc = stop_process(proc)
+    check(worst <= ONNX_TOL and rc == 0,
+          f"onnx worker: rel err {worst}, exit code {rc}")
+    log(f"refmodels onnx: `worker_node <port> worker_1 "
+        f"<tmp>/resnet50-v2-7.onnx` ({out['graph_bytes']} bytes, ResNet-50 "
+        f"v2, 1000 classes) up in {out['ready_s']:.1f} s; the 3-float "
+        f"payload and a full image vs the CPU executor in f32: max rel err "
+        f"{out['reference_rel_err']:.3e} / {out['image_rel_err']:.3e}; "
+        f"exited 0 on SIGTERM [{card}]")
+    spec, params = build_onnx_model(str(path), device="cuda")
+    with served_conv_precision(torch):
+        for b in (1, 32):
+            xb = torch.rand((b, 3, 224, 224), device="cuda")
+
+            def fwd():
+                with torch.inference_mode():
+                    return spec.apply(params, xb, dtype=torch.bfloat16)
+
+            check(bool(torch.isfinite(fwd()).all()), f"onnx forward B {b}")
+            out[f"forward B={b}"] = forward_reading(
+                torch, f"ONNX ResNet-50 v2 bf16, B {b}", fwd, card)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gpt2_hf_state(seed: int) -> dict:
+    """A gpt2 (124M) state dict under HF's names (GPT2LMHeadModel, the LM
+    head tied to wte), seeded: weights N(0, 0.02^2), LayerNorm scales 1,
+    biases 0."""
+    rng = np.random.default_rng(seed)
+    d, v, L = GPT2_HF["n_embd"], GPT2_HF["vocab_size"], GPT2_HF["n_layer"]
+
+    def w(*shape):
+        return (rng.standard_normal(shape, np.float32) * 0.02).astype(
+            np.float32)
+
+    sd = {"transformer.wte.weight": w(v, d),
+          "transformer.wpe.weight": w(GPT2_HF["n_positions"], d),
+          "transformer.ln_f.weight": np.ones(d, np.float32),
+          "transformer.ln_f.bias": np.zeros(d, np.float32)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        sd.update({p + "ln_1.weight": np.ones(d, np.float32),
+                   p + "ln_1.bias": np.zeros(d, np.float32),
+                   p + "attn.c_attn.weight": w(d, 3 * d),
+                   p + "attn.c_attn.bias": w(3 * d),
+                   p + "attn.c_proj.weight": w(d, d),
+                   p + "attn.c_proj.bias": w(d),
+                   p + "ln_2.weight": np.ones(d, np.float32),
+                   p + "ln_2.bias": np.zeros(d, np.float32),
+                   p + "mlp.c_fc.weight": w(d, 4 * d),
+                   p + "mlp.c_fc.bias": w(4 * d),
+                   p + "mlp.c_proj.weight": w(4 * d, d),
+                   p + "mlp.c_proj.bias": w(d)})
+    return sd
+
+
+def write_safetensors(path: Path, sd: dict) -> None:
+    """``sd`` (name -> f32 ndarray) as a .safetensors file: a little-endian
+    u64 header length, the JSON header, the tensors' raw bytes."""
+    header, offset, blobs = {}, 0, []
+    for name, arr in sd.items():
+        raw = np.ascontiguousarray(arr, np.float32).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def refmodels_reload(torch, card: str, tmp: Path) -> dict:
+    """The HF importers and /admin/reload: two gpt2 (124M) HF-layout
+    checkpoints of seeded tensors under HF's names, one a directory with
+    config.json and model.safetensors, the other with pytorch_model.bin.
+    `worker_node <port> w_hf <first>` (a process; the model and geometry
+    from config.json, bf16) serves the first; POST /admin/reload swaps in
+    the second: the answer is ok, the result cache is empty, an /infer
+    answered before now answers otherwise (not cached), and a greedy
+    /generate/stream equals a fresh worker's on the second checkpoint (in
+    process), as does its /infer answer."""
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    first, second = tmp / "gpt2-hf-safetensors", tmp / "gpt2_hf_bin"
+    first.mkdir()
+    second.mkdir()
+    t0 = time.perf_counter()
+    (first / "config.json").write_text(json.dumps(
+        {"model_type": "gpt2", "n_inner": None, **GPT2_HF}))
+    write_safetensors(first / "model.safetensors", gpt2_hf_state(1))
+    torch.save({k: torch.from_numpy(v) for k, v in gpt2_hf_state(2).items()},
+               second / "pytorch_model.bin")
+    out = {"write_s": time.perf_counter() - t0}
+    prompt = [464, 2068, 7586, 21831, 18045, 625, 262, 16931, 3290, 13]
+    infer = {"request_id": "hf-infer",
+             "input_data": [float(t) for t in prompt]}
+    gen = {"request_id": "hf-gen", "prompt_tokens": prompt,
+           "max_new_tokens": 16}
+    t0 = time.perf_counter()
+    proc, port = spawn_worker_node(["w_hf", str(first)])
+    out["ready_s"] = time.perf_counter() - t0
+    try:
+        health = get(port, "/health")
+        check(health["model"] == "gpt2", f"hf worker health {health}")
+        before = post(port, "/infer", dict(infer))
+        check(post(port, "/infer", dict(infer))["cached"], "hf: no cache hit")
+        toks_before, _, _ = stream(port, dict(gen))
+        t0 = time.perf_counter()
+        rel = post(port, "/admin/reload", {"model_path": str(second)})
+        out["reload_ms"] = (time.perf_counter() - t0) * 1e3
+        check(rel == {"ok": True, "node_id": "w_hf",
+                      "model_path": str(second)}, f"reload answered {rel}")
+        check(get(port, "/health")["cache_size"] == 0,
+              "the result cache survived the reload")
+        after = post(port, "/infer", dict(infer))
+        check(not after["cached"]
+              and after["output_data"] != before["output_data"],
+              "hf: /infer unchanged by the reload")
+        toks_after, final, _ = stream(port, dict(gen))
+        check(final is not None and final.get("done")
+              and final.get("tokens") == toks_after, f"hf stream {final}")
+    finally:
+        rc = stop_process(proc)
+    check(rc == 0, f"hf worker_node exited {rc}")
+    worker, server = serve_worker(WorkerConfig(
+        port=0, node_id="w_fresh", model="gpt2", model_path=str(second),
+        dtype="bfloat16", device="cuda"))
+    try:
+        fresh_toks, _, _ = stream(server.port, dict(gen))
+        fresh_inf = post(server.port, "/infer", dict(infer))
+    finally:
+        server.stop()
+        worker.stop()
+    a = np.asarray(after["output_data"], np.float32)
+    f = np.asarray(fresh_inf["output_data"], np.float32)
+    inf_err = float(np.abs(a - f).max() / np.abs(f).max())
+    check(fresh_toks == toks_after and toks_after != toks_before
+          and inf_err <= ONESHOT_INFER_TOL,
+          f"reloaded stream {toks_after} vs fresh {fresh_toks} (before "
+          f"{toks_before}); /infer vs fresh {inf_err}")
+    out["infer_vs_fresh_rel_err"] = inf_err
+    log(f"refmodels reload: `worker_node <port> w_hf <gpt2 HF dir: "
+        f"config.json + model.safetensors>` up in {out['ready_s']:.1f} s; "
+        f"/admin/reload of <pytorch_model.bin dir> in "
+        f"{out['reload_ms']:.1f} ms; the cache emptied, /infer changed, the "
+        f"greedy stream ({len(toks_after)} tokens) equals a fresh worker's "
+        f"on the second checkpoint, /infer within {inf_err:.2e} of its "
+        f"answer [{card}]")
+    out.update({"tokens_before": toks_before, "tokens_after": toks_after})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_refmodels(torch, card: str, errs: dict) -> dict:
+    """The reference's other /infer deployments on the card (see
+    the module docstring's refmodels entry)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"flash": refmodels_flash(torch, card, errs)}
+    flash_dev = out["flash"]["bert B=32 S=384 H=12 float32"]["device_ms"]
+    out["bert"] = refmodels_bert(torch, card, flash_dev)
+    out["yolo"] = refmodels_yolo(torch, card)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_refmodels_"))
+    try:
+        out["onnx"] = refmodels_onnx(torch, card, tmp)
+        out["reload"] = refmodels_reload(torch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"refmodels: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -3683,6 +4556,7 @@ def main() -> int:
     server = phase_server(torch)
     gateway = phase_gateway(torch)
     kvtier = phase_kvtier(torch, card)
+    refmodels = phase_refmodels(torch, card, errs)
     train = phase_train(torch)
     numbers = phase_numbers(torch, pa)
     rows = []
@@ -3703,12 +4577,23 @@ def main() -> int:
             "library_ms": main_shape.get("library_device_ms",
                                          main_shape["library_ms"]),
         })
+        if name == "flash_attention":
+            # This slice's path: the bert lane (non-causal, padding mask,
+            # f32 as launched), its launches from its own run.
+            bert = refmodels["flash"]["bert B=32 S=384 H=12 float32"]
+            rows[-1]["bert"] = {
+                "launches": refmodels["bert"]["launches"],
+                "max_abs_err": bert["max_abs_err"],
+                "ms": bert["device_ms"], "events_ms": bert["ms"],
+                "plain_ms": bert["plain_ms"], "bound_ms": bert["bound_ms"],
+                "bound_by": bert["bound_by"],
+                "library_ms": bert["library_device_ms"]}
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
          "server": server, "gateway": gateway, "kvtier": kvtier,
-         "train": train,
+         "refmodels": refmodels, "train": train,
          "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

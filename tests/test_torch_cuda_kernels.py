@@ -33,7 +33,10 @@ verify windows (k 3, 4 and 7; G 1 and 8; one window across the 512-key
 split, one across a block edge) against the dense and split plain
 versions, bit-identical over two runs and row by row alone; the flash
 forward at the draft model's prefill (B 1 x S 64, 20 columns of left
-padding)."""
+padding). The bert lane's shape: the flash forward non-causal under a
+padding mask at B 1 and 32 x S 384 x 12 heads x D 64 with an all-pad row,
+and bert-small-test's forward on the card against the CPU (1e-4: f32
+sums of two layers in another order)."""
 
 import numpy as np
 import pytest
@@ -846,3 +849,67 @@ def test_flash_kernel_at_the_draft_prefill(cuda_device, dtype, tol):
     assert float(torch.where(dead, 0.0, lse - ref_lse).abs().max()) < tol
     again = tfl.flash_attention_fwd(q, k, v, **kw)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# -- the bert lane (encoder: non-causal, padding mask) ------------------------
+
+def bert_masks(b: int, s: int, seed: int) -> np.ndarray:
+    """(b, s) int32 padding masks of the bert lane: valid prefixes of
+    varied lengths (1, short ones, s), the last row all pad."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, s + 1, b)
+    lens[:4] = [1, 17, 63, s][:min(4, b)]
+    lens[-1] = 0
+    return (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_at_the_bert_shape(cuda_device, b, dtype, tol):
+    """The bert lane's attention: B x 384 x 12 heads x D 64, non-causal,
+    right padding masked, an all-pad row (out 0, lse -inf, no NaN), on
+    out and lse, and bit-identical over two runs."""
+    s = 384
+    rng = np.random.default_rng(b)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, 12, 64),
+                                                    np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    m = torch.from_numpy(bert_masks(b, s, b + 1)).to(cuda_device)
+    kw = dict(causal=False, mask=m)
+    out, lse = _launched(tfl.flash_attention_fwd,
+                         lambda: tfl.flash_attention_fwd(q, k, v, **kw))
+    ref, ref_lse = tfl.flash_attention_reference(q, k, v, **kw)
+    assert torch.isfinite(out).all()
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead) and bool(dead[-1].all())
+    assert float(torch.where(dead, 0.0, lse - ref_lse).abs().max()) < tol
+    again = tfl.flash_attention_fwd(q, k, v, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+def test_bert_small_lane_on_the_card_matches_the_cpu(cuda_device):
+    """bert-small-test's forward in f32 (TF32 off) on the card, through
+    the flash kernel, against the same weights on the CPU, with an all-pad
+    row."""
+    from tpu_engine_torch.models.convert import params_to
+    from tpu_engine_torch.models.registry import create_model
+
+    spec = create_model("bert-small-test")
+    params = spec.init(0, device="cpu", dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        1, 512, (4, 32)).astype(np.float32))
+    x[1, 9:] = 0
+    x[3] = 0
+    want = spec.apply(params, x, dtype=torch.float32)
+    before = tfl.flash_attention_fwd.launches
+    got = spec.apply(params_to(params, cuda_device), x.to(cuda_device),
+                     dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention_fwd.launches == before + 2  # two layers
+    assert torch.isfinite(got).all()
+    assert float((got.cpu() - want).abs().max()) < 1e-4

@@ -180,10 +180,12 @@ def test_set_params_refusals_match_jax():
 
 
 def test_unported_options_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="shape_buckets"):
-        InferenceEngine("mlp", device="cpu", shape_buckets=[(8,)])
     with pytest.raises(NotImplementedError, match="quantize"):
         InferenceEngine("mlp", device="cpu", quantize="int8")
+    # Shape buckets are ported (tests/test_torch_yolo.py); the model's own
+    # shape is always one of them.
+    te = InferenceEngine("mlp", device="cpu", shape_buckets=[(8,)])
+    assert te.stats()["shape_buckets"] == [[8], [16]]
     # Without shape buckets a request's shape is ignored, as in JAX.
     te = InferenceEngine("mlp", device="cpu", dtype="float32")
     assert np.array_equal(te.batch_predict([[1.0]], shapes=[(1, 16)])[0],

@@ -413,11 +413,13 @@ def test_worker_node_argv_resolves_as_jax(monkeypatch, tmp_path):
     _, _, model, _ = cli.worker_node_args(["8003", "w3",
                                            "--no-unified-stateless"])
     assert model == "mlp"
+    # An existing .onnx file is served as its graph (as JAX: model
+    # "onnx"); this one holds no graph, which the parser refuses.
     onnx = tmp_path / "resnet50-v2-7.onnx"
     onnx.write_bytes(b"\x08\x07")
-    with pytest.raises(NotImplementedError, match="ONNX graph"):
-        cli.worker_node_args(["8004", "w4", str(onnx)])
-    with pytest.raises(NotImplementedError, match="ONNX graph"):
+    _, _, model, path = cli.worker_node_args(["8004", "w4", str(onnx)])
+    assert (model, path) == ("onnx", str(onnx))
+    with pytest.raises(ValueError, match="no data input"):
         WorkerNode(WorkerConfig(model_path=str(onnx), device="cpu", **MLP))
     defaults = WorkerConfig()
     assert defaults.model == JaxWorkerConfig().model == "resnet50"

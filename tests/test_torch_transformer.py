@@ -46,8 +46,9 @@ def test_config_fields_equal_jax(name):
 
 def test_registry_serves_the_dense_names_and_refuses_the_rest():
     assert available_models() == sorted(
-        DENSE_NAMES + ["mlp", "resnet50", "resnet50-v1"])
-    for name in ("gpt2-moe", "gpt2-moe-test", "bert", "mamba2", "yolov8n"):
+        DENSE_NAMES + ["mlp", "resnet50", "resnet50-v1", "bert",
+                       "bert-small-test", "yolov8n", "yolov8n-small-test"])
+    for name in ("gpt2-moe", "gpt2-moe-test", "mamba2", "ssd-small-test"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcreate(name)
     with pytest.raises(KeyError):
@@ -147,7 +148,7 @@ def test_step_refuses_unported_paths():
             torch.from_numpy(tables), torch.from_numpy(pos0),
             torch.from_numpy(qlen))
     moe = dataclasses.replace(tcfg, n_experts=2)
-    with pytest.raises(NotImplementedError, match="decoder dialects"):
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tt.transformer_step_rows_ragged(*args, moe)
     mcfg = tcreate("mistral-small-test").config
     with pytest.raises(NotImplementedError, match="sliding_window"):
@@ -405,12 +406,18 @@ def test_apply_matches_jax(name, masked):
 def test_dense_forwards_refuse_unported_dialects():
     _, _, tcfg, tparams = _models("llama-small-test")
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    for bad in (dict(post_ln=True), dict(embed_ln=True), dict(type_vocab=2),
-                dict(n_experts=2)):
+    # The encoder dialect serves only the full-sequence forward; MoE
+    # nothing.
+    for bad, why in ((dict(post_ln=True), "encoder"),
+                     (dict(embed_ln=True), "encoder"),
+                     (dict(type_vocab=2), "encoder"),
+                     (dict(n_experts=2), "mixture-of-experts")):
         cfg = dataclasses.replace(tcfg, **bad)
-        with pytest.raises(NotImplementedError, match="decoder dialects"):
-            tt.transformer_apply(tparams, tokens, cfg, dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="decoder dialects"):
+        if bad.get("n_experts"):
+            with pytest.raises(NotImplementedError, match=why):
+                tt.transformer_apply(tparams, tokens, cfg,
+                                     dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match=why):
             tt.transformer_prefill(tparams, tokens,
                                    tt.init_caches(tcfg, 1, 8, torch.float32,
                                                   device="cpu"),

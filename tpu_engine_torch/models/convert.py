@@ -39,9 +39,12 @@ def _to_tensor(name: str, arr, device, dtype):
 
 def _convert(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: (_convert(v, device, dtype) if isinstance(v, dict)
+        return {k: (_convert(v, device, dtype)
+                    if isinstance(v, (dict, list, tuple))
                     else _to_tensor(k, v, device, dtype))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):  # yolo's C2f "m" and "head" lists
+        return [_convert(v, device, dtype) for v in tree]
     raise TypeError(f"unexpected parameter node {type(tree).__name__}")
 
 
@@ -56,15 +59,17 @@ def params_from_jax(tree, cfg: Optional[TransformerConfig] = None,
     """The JAX package's param pytree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), to the port's tree on
     ``device`` (None = the CUDA card). A transformer's (``cfg``) stacked
-    (L, ...) ``blocks`` leaves are split per layer. The trees of the
-    config-less models (mlp, resnets) keep their names: dense kernels as
-    they are, conv kernels from HWIO to OIHW (channels_last), both in
+    (L, ...) ``blocks`` leaves are split per layer; the encoder's
+    ``type_embed``, ``embed_ln`` and QA ``head`` carry over as they are.
+    The trees of the other models (mlp, resnets, yolo with its nested
+    ``conv``/``bn`` dicts and its lists of C2f bottlenecks under ``"m"`` and
+    of head branches) keep their names and nesting: dense kernels as they
+    are, conv kernels from HWIO to OIHW (channels_last), both in
     ``dtype``; biases and batch-norm ``scale``, ``bias``, ``mean`` and
     ``var`` in f32."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
-    out = {k: _convert(v, dev, dt) for k, v in tree.items()
-           if k != "blocks"}
+    out = _convert({k: v for k, v in tree.items() if k != "blocks"}, dev, dt)
     if cfg is None:
         return out
     out["blocks"] = [_convert(_layer(tree["blocks"], li), dev, dt)
@@ -83,7 +88,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
     """Seeded random parameters at full width, drawn on ``device``. The
     distributions are ``transformer_init``'s (embeddings N(0, 0.02²),
     attention projections N(0, 1/d_model), MLP and head He-normal, zero
-    biases, unit norm scales); the numbers are not JAX's."""
+    biases, unit norm scales), and so is the tree: no ``ln_f`` in post-LN
+    dialects, ``embed_ln`` and ``type_embed`` where the config has them;
+    the numbers are not JAX's."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     g = torch.Generator(device=dev)
@@ -126,11 +133,17 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
     params = {"tok_embed": {"table": normal((cfg.vocab, d), 0.02,
                                             torch.float32)},
               "blocks": blocks,
-              "head": dense(d, cfg.vocab),
-              "ln_f": norm()}
+              "head": dense(d, cfg.vocab)}
     if cfg.pos == "learned":
         params["pos_embed"] = {"table": normal((cfg.max_seq, d), 0.02,
                                                torch.float32)}
+    if not cfg.post_ln:
+        params["ln_f"] = norm()
+    if cfg.embed_ln:
+        params["embed_ln"] = norm()
+    if cfg.type_vocab > 0:
+        params["type_embed"] = {"table": normal((cfg.type_vocab, d), 0.02,
+                                                torch.float32)}
     return params
 
 

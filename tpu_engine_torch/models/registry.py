@@ -2,12 +2,15 @@
 ``tpu_engine/models/registry.py``). The names, config values and shapes
 are the JAX package's.
 
-A ``ModelSpec`` carries what serving needs: the decoder ``config`` for the
-generation lanes (None for config-less models: the mlp and the resnets),
-and for one-shot /infer serving ``apply(params, x, dtype)`` over a batch
-of ``input_shape`` samples with ``output_shape`` results, and the
-``state_family``: "kv_paged" for causal transformers, "stateless" for
-config-less models, which serve only one-shot rows.
+A ``ModelSpec`` carries what serving needs: the model's ``config`` (a
+``TransformerConfig`` for the decoders, which the generation lanes run,
+and for the bert encoder; a ``YoloConfig``; None for the mlp, the resnets
+and ONNX graphs), and for one-shot /infer serving ``apply(params, x,
+dtype)`` over a batch of ``input_shape`` samples with ``output_shape``
+results, and the ``state_family``: "kv_paged" for causal transformers,
+"stateless" for every other model, which serves only one-shot rows.
+``init_fn`` draws a model's random parameters; a spec without one is a
+plain transformer of its config (``models.convert.init_params``).
 """
 
 from __future__ import annotations
@@ -20,30 +23,36 @@ from tpu_engine_torch.models.transformer import TransformerConfig
 # Names the JAX package registers whose families the port does not serve
 # yet: asking for one is a loud refusal, never a silent stand-in.
 NOT_YET_PORTED = frozenset({
-    "gpt2-moe", "gpt2-moe-test", "bert", "bert-small-test", "yolov8n",
-    "yolov8n-small-test", "mamba2", "ssd-small-test"})
+    "gpt2-moe", "gpt2-moe-test", "mamba2", "ssd-small-test"})
 
 
 @dataclasses.dataclass
 class ModelSpec:
     name: str
-    config: Optional[TransformerConfig] = None
+    config: Optional[object] = None
     # (params, x (B, *input_shape), dtype) -> (B, *output_shape) f32.
     apply: Optional[Callable] = None
     input_shape: Tuple[int, ...] = ()
     output_shape: Tuple[int, ...] = ()
-    # (seed, device, dtype) -> params, for config-less models.
+    # (seed, device, dtype) -> params; None: a plain transformer of config.
     init_fn: Optional[Callable] = None
     state_family: str = ""
 
     def __post_init__(self):
         if not self.state_family:
-            causal = getattr(self.config, "causal", False)
+            causal = (isinstance(self.config, TransformerConfig)
+                      and self.config.causal)
             self.state_family = "kv_paged" if causal else "stateless"
+
+    @property
+    def token_input(self) -> bool:
+        """Whether the one-shot input is token ids (a transformer's),
+        which the engine stages in f32: bf16 would round ids past 256."""
+        return isinstance(self.config, TransformerConfig)
 
     def init(self, seed: int = 0, device=None, dtype="bfloat16"):
         """Seeded random parameters at full width (models.convert)."""
-        if self.config is None:
+        if self.init_fn is not None:
             return self.init_fn(seed, device, dtype)
         from tpu_engine_torch.models.convert import init_params
 
@@ -68,7 +77,8 @@ def register(name: str):
 
 
 def _ensure_builtin_models_imported() -> None:
-    from tpu_engine_torch.models import gpt2, llama, mlp, resnet  # noqa: F401
+    from tpu_engine_torch.models import (  # noqa: F401
+        bert, gpt2, llama, mlp, resnet, yolo)
 
 
 def create_model(name: str, **kwargs) -> ModelSpec:

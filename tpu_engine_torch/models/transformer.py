@@ -1,7 +1,9 @@
 """Transformer forwards of the serving and training paths (counterpart of
 ``tpu_engine/models/transformer.py``): the full-sequence forward
 (``transformer_apply``, differentiable, optionally rematerialized per
-block); the dense scheduler's prompt pass
+block), of the decoder dialects and of the encoder dialect (BERT: post-LN
+blocks, LayerNorm'd embeddings with a segment table, erf GELU, a padding
+mask, no causal mask; one-shot forwards only); the dense scheduler's prompt pass
 (``transformer_prefill``, through the flash kernel) and its per-row decode
 step over the dense cache (``transformer_decode_rows``); prefill windows
 over a row's own dense cache (``transformer_decode_window``); and the paged
@@ -126,23 +128,46 @@ def _project_qkv(bp, x, cfg: TransformerConfig, *, dtype, positions):
 
 def _embed(params, tokens, logical, cfg: TransformerConfig, dtype):
     """Token embeddings plus, for learned positions, the table rows of the
-    (clipped) logical positions; cast to the compute dtype."""
+    (clipped) logical positions; for the encoder dialect also the segment
+    table's row 0 (every token type is 0) and the embedding LayerNorm, in
+    f32; cast to the compute dtype."""
     h = nn.embedding(params["tok_embed"], tokens.long())
     if cfg.pos == "learned":
         table = params["pos_embed"]["table"]
         h = h + table[torch.clamp(logical.long(), 0, table.shape[0] - 1)]
+    if cfg.type_vocab > 0:
+        h = h + params["type_embed"]["table"][0]
+    if cfg.embed_ln:
+        h = nn.layernorm(params["embed_ln"], h, eps=cfg.ln_eps)
     return h.to(dtype)
 
 
 def _head(params, h, cfg: TransformerConfig, dtype):
-    return nn.dense(params["head"], _norm(params["ln_f"], h, cfg),
-                    dtype=dtype).float()
+    """The output projection: after the final norm, except in post-LN
+    dialects, whose blocks end normalized and which have no ``ln_f``."""
+    if not cfg.post_ln:
+        h = _norm(params["ln_f"], h, cfg)
+    return nn.dense(params["head"], h, dtype=dtype).float()
 
 
-def _check_dialect(cfg: TransformerConfig) -> None:
-    if cfg.n_experts > 0 or cfg.post_ln or cfg.embed_ln or cfg.type_vocab:
+def _is_encoder(cfg: TransformerConfig) -> bool:
+    return bool(cfg.post_ln or cfg.embed_ln or cfg.type_vocab
+                or not cfg.causal)
+
+
+def _check_dialect(cfg: TransformerConfig, encoder: bool = False) -> None:
+    """Refuse what a forward does not serve: mixture-of-experts everywhere;
+    the encoder dialect everywhere but the full-sequence forward
+    (``encoder=True``), since an encoder has no generation lane."""
+    if cfg.n_experts > 0:
         raise NotImplementedError(
-            "only the decoder dialects (gpt2, llama) are ported")
+            "mixture-of-experts models are not yet ported to "
+            "tpu_engine_torch")
+    if not encoder and _is_encoder(cfg):
+        raise NotImplementedError(
+            "the encoder dialect (post_ln, embed_ln, type_vocab, "
+            "non-causal) serves only the full-sequence forward "
+            "(transformer_apply): an encoder has no generation lane")
 
 
 def _check_paged(cfg: TransformerConfig) -> None:
@@ -398,8 +423,10 @@ def _attn(bp, x, cfg: TransformerConfig, *, mask, dtype, attn_fn,
 def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
                       dtype=torch.bfloat16, attn_fn=None, remat: bool = False,
                       head_rows=None):
-    """Full-sequence forward of the decoder dialects. tokens: (B, S) int;
-    mask: optional (B, S) int, 1 = valid. Returns f32 logits
+    """Full-sequence forward of the decoder and encoder dialects. tokens:
+    (B, S) int; mask: optional (B, S) int, 1 = valid (the encoder's
+    padding mask: non-causal attention over the valid keys; a query row
+    with none attends nothing and gives 0). Returns f32 logits
     (B, S, vocab), or with ``head_rows`` ((B,) positions) only the logits
     of those positions (B, vocab): the head is per position, so these are
     the same rows of the full logits without the others' head product.
@@ -413,16 +440,22 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
     ``jax.checkpoint(body)``: the backward recomputes one block at a time
     instead of keeping every layer's activations, so the flash forward runs
     twice per layer per training step."""
-    _check_dialect(cfg)
+    _check_dialect(cfg, encoder=True)
     attn_fn = attn_fn or flash_attention
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     h = _embed(params, tokens, positions[None, :], cfg, dtype)
 
     def block(bp, h):
-        h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
-                      dtype=dtype, attn_fn=attn_fn, positions=positions)
-        h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+        if cfg.post_ln:  # sublayer, residual add, then LayerNorm
+            h = _norm(bp["ln1"], h + _attn(bp, h, cfg, mask=mask,
+                                           dtype=dtype, attn_fn=attn_fn,
+                                           positions=positions), cfg)
+            h = _norm(bp["ln2"], h + _mlp(bp["mlp"], h, dtype, cfg), cfg)
+        else:
+            h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
+                          dtype=dtype, attn_fn=attn_fn, positions=positions)
+            h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
         return h.to(dtype)
 
     for bp in params["blocks"]:

@@ -10,9 +10,19 @@ over flat float vectors, with the JAX engine's bucketing and wire rules.
   (bucket, wire) buffer only as wide as the widest sample, and the device
   zero-pads it to the input size and reshapes it to the model's input
   shape. The wire is staged in the compute dtype when that dtype is
-  narrower than f32 and the model takes no token ids (a bf16 resnet's
-  inputs round to bf16 on the host, as in JAX); token-id models always
-  stage f32, exact for any id below 2^24.
+  narrower than f32 and the model takes no token ids (a bf16 resnet's or
+  yolo's inputs round to bf16 on the host, as in JAX); token-id models
+  (the transformers, bert among them) always stage f32, exact for any id
+  below 2^24.
+- **Shape buckets** (``shape_buckets``, mixed-shape serving): a few
+  per-sample input shapes, the model's own among them. A request that
+  carries its ``shape`` runs on the smallest bucket that fits every dim
+  (else the largest): its values fill a zero canvas of the bucket, dims
+  too large cropped (``_coerce_shaped``). Requests group by bucket and
+  chunk by the largest batch bucket; answers come back in request order.
+  A canvas is staged as one full-width row of the same pinned wire (the
+  model's first op rounds its input to the compute dtype either way, as
+  the JAX engine's f32 canvas is rounded there).
 - **Split phases.** ``batch_submit`` stages the wire in pinned host memory,
   enqueues the copy to the card, the forward and a non-blocking copy of
   the result back to pinned memory, then records a CUDA event; nothing in
@@ -20,15 +30,15 @@ over flat float vectors, with the JAX engine's bucketing and wire rules.
   ``batch_collect`` waits on them and splits the rows. ``batch_predict``
   is the two in a row.
 
-Mixed-shape serving (``shape_buckets``) and weight quantization
-(``quantize``) are not yet ported and refuse by name.
+Weight quantization (``quantize``) is not yet ported and refuses by
+name.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,11 +77,10 @@ class InferenceEngine:
     ):
         """``params``: the model's parameter tree on ``device``; None draws
         seeded random weights (``rng_seed``). ``device`` defaults to the
-        CUDA card; pass ``device="cpu"`` to run on the CPU."""
-        if shape_buckets is not None:
-            raise NotImplementedError(
-                "mixed-shape serving (shape_buckets) is not yet ported to "
-                "tpu_engine_torch")
+        CUDA card; pass ``device="cpu"`` to run on the CPU.
+        ``shape_buckets``: per-sample input shapes for mixed-shape serving
+        (the model's apply must take each, as a fully convolutional model
+        does); the model's own shape is always one."""
         if quantize is not None:
             raise NotImplementedError(
                 "weight quantization (quantize) is not yet ported to "
@@ -84,6 +93,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self._dtype = resolve_dtype(dtype)
         self._buckets = tuple(sorted({max(1, int(b)) for b in batch_buckets}))
+        self._shape_buckets: Optional[Tuple[Tuple[int, ...], ...]] = None
+        if shape_buckets is not None:
+            shapes = {tuple(int(d) for d in sh) for sh in shape_buckets}
+            shapes.add(tuple(model.input_shape))
+            self._shape_buckets = tuple(sorted(
+                shapes, key=lambda sh: (int(np.prod(sh)), sh)))
         self.params = params if params is not None else model.init(
             rng_seed, device=self.device, dtype=self._dtype)
         self._cuda = self.device.type == "cuda"
@@ -99,10 +114,9 @@ class InferenceEngine:
             wb *= 8
         wire.append(n_in)
         self._wire_buckets = tuple(wire)
-        int_input = model.config is not None  # transformers take token ids
         self._wire_dtype = (torch.float32
-                            if self._dtype == torch.float32 or int_input
-                            else self._dtype)
+                            if self._dtype == torch.float32
+                            or model.token_input else self._dtype)
 
     def set_params(self, params) -> None:
         """Swap in a new parameter tree of the served one's structure,
@@ -147,6 +161,31 @@ class InferenceEngine:
         n = self.spec.input_size
         return arr[:n] if arr.size > n else arr
 
+    def _shape_bucket_for(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The smallest bucket that fits every dim; else the largest (the
+        sample is cropped)."""
+        for b in self._shape_buckets:
+            if len(b) == len(shape) and all(bd >= sd
+                                            for bd, sd in zip(b, shape)):
+                return b
+        return self._shape_buckets[-1]
+
+    @staticmethod
+    def _coerce_shaped(vec, shape: Tuple[int, ...],
+                       bucket: Tuple[int, ...]) -> np.ndarray:
+        """A sample of ``shape`` (zero-padded or truncated to its size) in
+        a zero canvas of ``bucket``, dims that exceed the bucket's
+        cropped; flat."""
+        arr = np.asarray(vec, dtype=np.float32).ravel()
+        n = int(np.prod(shape))
+        if arr.size < n:
+            arr = np.pad(arr, (0, n - arr.size))
+        arr = arr[:n].reshape(shape)
+        canvas = np.zeros(bucket, np.float32)
+        region = tuple(slice(0, min(bd, sd)) for bd, sd in zip(bucket, shape))
+        canvas[region] = arr[region]
+        return canvas.ravel()
+
     def _stage_wire(self, samples: List[np.ndarray], bucket: int,
                     wire: int) -> torch.Tensor:
         """The (bucket, wire) host buffer in the wire dtype (pinned when the
@@ -157,26 +196,33 @@ class InferenceEngine:
         host = torch.from_numpy(buf).to(self._wire_dtype)
         return host.pin_memory() if self._cuda else host
 
-    def _forward(self, xw: torch.Tensor, bucket: int) -> torch.Tensor:
-        """Zero-pad the wire to the input size on the device, reshape to
-        the model's input shape and run the forward: (bucket, out) f32."""
-        n_in = self.spec.input_size
+    def _forward(self, xw: torch.Tensor, bucket: int,
+                 shape: Tuple[int, ...]) -> torch.Tensor:
+        """Zero-pad the wire to the size of ``shape`` on the device,
+        reshape to (bucket, *shape) and run the forward: (bucket, ...)
+        f32."""
+        n_in = int(np.prod(shape))
         if xw.shape[1] < n_in:
             xw = F.pad(xw, (0, n_in - xw.shape[1]))
-        x = xw.reshape((bucket,) + tuple(self.spec.input_shape))
+        x = xw.reshape((bucket,) + tuple(shape))
         return self.spec.apply(self.params, x, dtype=self._dtype)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every batch bucket at the narrowest and widest wire bucket,
-        and the largest batch bucket at every wire bucket, once, so the
-        first requests meet built kernels and a warm allocator."""
+        and the largest batch bucket at every wire bucket and at every
+        shape bucket other than the model's own, once, so the first
+        requests meet built kernels and a warm allocator."""
         ends = sorted({self._wire_buckets[0], self._wire_buckets[-1]})
-        shapes = [(self._bucket_for(b), w) for b in buckets or self._buckets
-                  for w in ends]
-        shapes += [(self._buckets[-1], w) for w in self._wire_buckets]
-        for bucket, wire in dict.fromkeys(shapes):
-            self.batch_collect([self._submit_chunk(
-                [np.zeros((wire,), np.float32)] * bucket, bucket, wire)])
+        default = tuple(self.spec.input_shape)
+        runs = [(self._bucket_for(b), w, default)
+                for b in buckets or self._buckets for w in ends]
+        runs += [(self._buckets[-1], w, default) for w in self._wire_buckets]
+        runs += [(self._buckets[-1], int(np.prod(sh)), sh)
+                 for sh in self._shape_buckets or () if sh != default]
+        for bucket, wire, shape in dict.fromkeys(runs):
+            self.batch_collect((bucket, [self._submit_chunk(
+                [np.zeros((wire,), np.float32)] * bucket, bucket, wire,
+                shape, range(bucket))]))
 
     # -- inference ------------------------------------------------------------
 
@@ -193,27 +239,59 @@ class InferenceEngine:
     def batch_submit(self, inputs: Sequence,
                      shapes: Optional[Sequence] = None):
         """Enqueue the device work of ``inputs`` and return a handle for
-        ``batch_collect`` without waiting for the card. ``shapes`` (the
-        requests' ``shape`` fields) are ignored, as the JAX engine ignores
-        them without shape buckets."""
+        ``batch_collect`` without waiting for the card: (the number of
+        inputs, the chunks), each chunk (its rows' positions among the
+        inputs, the host output, the event). ``shapes`` (the
+        requests' ``shape`` fields, None entries for the model's own) take
+        the shape buckets when the engine has them; without, they are
+        ignored, as the JAX engine ignores them."""
+        if (self._shape_buckets is not None and shapes is not None
+                and any(sh is not None for sh in shapes)):
+            return self._batch_submit_shaped(inputs, shapes)
         samples = [self._coerce_sample(v) for v in inputs]
         max_bucket = self._buckets[-1]
+        default = tuple(self.spec.input_shape)
         pending = []
         for c0 in range(0, len(samples), max_bucket):
             chunk = samples[c0:c0 + max_bucket]
             wire = self._wire_bucket_for(max(s.size for s in chunk))
             pending.append(self._submit_chunk(
-                chunk, self._bucket_for(len(chunk)), wire))
-        return pending
+                chunk, self._bucket_for(len(chunk)), wire, default,
+                range(c0, c0 + len(chunk))))
+        return len(samples), pending
+
+    def _batch_submit_shaped(self, inputs: Sequence, shapes: Sequence):
+        """Mixed-shape dispatch: each sample on its shape bucket's canvas,
+        the samples grouped by bucket, each group's chunks enqueued;
+        ``batch_collect`` restores request order."""
+        default = tuple(self.spec.input_shape)
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        canvases: List[np.ndarray] = []
+        for i, (vec, shape) in enumerate(zip(inputs, shapes)):
+            shape = default if shape is None else tuple(int(d) for d in shape)
+            bucket = self._shape_bucket_for(shape)
+            canvases.append(self._coerce_shaped(vec, shape, bucket))
+            groups.setdefault(bucket, []).append(i)
+        max_bucket = self._buckets[-1]
+        pending = []
+        for shape_bucket, idxs in groups.items():
+            width = int(np.prod(shape_bucket))
+            for c0 in range(0, len(idxs), max_bucket):
+                chunk = idxs[c0:c0 + max_bucket]
+                pending.append(self._submit_chunk(
+                    [canvases[i] for i in chunk], self._bucket_for(len(chunk)),
+                    width, shape_bucket, chunk))
+        return len(inputs), pending
 
     def _submit_chunk(self, chunk: List[np.ndarray], bucket: int,
-                      wire: int):
-        """(rows, host output, event): one bucket's forward enqueued, its
-        output copied back to pinned host memory without blocking."""
+                      wire: int, shape: Tuple[int, ...], rows):
+        """(rows, host output, event): one bucket's forward on (bucket,
+        *shape) inputs enqueued, its output copied back to pinned host
+        memory without blocking; ``rows`` are the requests' positions."""
         host_in = self._stage_wire(chunk, bucket, wire)
         with torch.inference_mode():
             xw = host_in.to(self.device, non_blocking=True)
-            y = self._forward(xw, bucket).reshape(bucket, -1)
+            y = self._forward(xw, bucket, shape).reshape(bucket, -1)
             event = None
             if self._cuda:
                 out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
@@ -224,24 +302,26 @@ class InferenceEngine:
                 out = y
         with self._stats_lock:
             self._execute_count += 1
-        return len(chunk), out, event
+        return list(rows), out, event
 
     def handle_ready(self, handle) -> bool:
         """True when every chunk behind a ``batch_submit`` handle has
         finished on the card (non-blocking)."""
-        return all(ev is None or ev.query() for _n, _out, ev in handle)
+        return all(ev is None or ev.query() for _rows, _out, ev in handle[1])
 
     def batch_collect(self, handle) -> List[np.ndarray]:
         """Wait for a ``batch_submit`` handle's results and split them per
-        input."""
+        input, in request order."""
         t0 = time.perf_counter()
         try:
-            out: List[np.ndarray] = []
-            for n_real, host, ev in handle:
+            n, pending = handle
+            out: List[Optional[np.ndarray]] = [None] * n
+            for rows, host, ev in pending:
                 if ev is not None:
                     ev.synchronize()
-                rows = host.numpy()
-                out.extend(rows[i] for i in range(n_real))
+                y = host.numpy()
+                for j, i in enumerate(rows):
+                    out[i] = y[j]
             return out
         finally:
             with self._stats_lock:
@@ -255,6 +335,9 @@ class InferenceEngine:
         return {"model": self.spec.name,
                 "dtype": _dtype_name(self._dtype),
                 "buckets": list(self._buckets),
+                "shape_buckets": (None if self._shape_buckets is None
+                                  else [list(sh) for sh in
+                                        self._shape_buckets]),
                 "wire_buckets": list(self._wire_buckets),
                 "device": str(self.device),
                 "execute_count": count,

@@ -918,6 +918,19 @@ class ContinuousGenerator:
         job; the scheduler only reports."""
         self._draining_flag = bool(draining)
 
+    def set_params(self, params) -> None:
+        """Hot weight swap (the worker's reload). The prefix cache and the
+        radix tree hold KV computed under the old weights, so both empty
+        with the swap (blocks still pinned by live rows free as those rows
+        finish). A live row finishes its current tick or chunk on the
+        parameters that tick captured and runs its next on the new ones;
+        stop the lane first for a hard cut."""
+        self.params = params
+        self._prefix_cache = _PrefixCache(self._prefix_cache.budget)
+        if self._paged:
+            with self._pool.lock:
+                self._pool.radix.clear()
+
     def stop(self) -> None:
         self._running = False
         self._queue.put(None)  # wakes prefill; forwarded to decode via _ready

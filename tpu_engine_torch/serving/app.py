@@ -2,8 +2,8 @@
 ``serve_worker`` and ``serve_gateway`` in ``tpu_engine/serving/app.py``).
 
 Worker routes: ``POST /infer``, ``/score``, ``/generate``,
-``/generate/stream``, ``/admin/drain``, ``/admin/migrate``; ``GET
-/health``. Gateway routes:
+``/generate/stream``, ``/admin/drain``, ``/admin/migrate``,
+``/admin/reload``; ``GET /health``. Gateway routes:
 ``POST /infer`` (the lane's bytes relayed), ``/generate``,
 ``/generate/stream``, ``/score``; ``GET /stats``.
 """
@@ -73,6 +73,9 @@ def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
     # /generate/stream with a `migrate_import` body.
     server.route("POST", "/admin/migrate",
                  lambda body: (200, worker.handle_migrate_export(body or {})))
+    # Hot weight reload: {"model_path"} of the served architecture.
+    server.route("POST", "/admin/reload",
+                 lambda body: (200, worker.reload_weights(body["model_path"])))
     return server
 
 

@@ -14,6 +14,9 @@
   python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
       [<model_path>]] [--no-unified-stateless] [the worker's flags]
 
+  python -m tpu_engine_torch.serving.cli import-weights --model NAME
+      --src <HF dir | .safetensors | .bin> --out DIR [--device cpu]
+
   python -m tpu_engine_torch.serving.cli gateway <worker1_host:port>
       [worker2_host:port ...] [--port 8000] [--breaker-timeout S]
       [--drain-timeout S] [--retry-budget RATIO]
@@ -47,10 +50,20 @@ or SIGINT.
 
 worker_node: the argv of the reference's launch line (``worker_node 8001
 worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
-``worker_<port>``, the model to ``$MODEL_PATH`` or ``resnet50``, and a
-path names its registry model (``resnet50-v2-7.onnx`` -> ``resnet50``);
-the port loads no ONNX graph, so a path to an existing ``.onnx`` file
-refuses by name.
+``worker_<port>``, the model to ``$MODEL_PATH`` or ``resnet50``. An
+existing ``.onnx`` file is served as its graph (architecture and weights
+from the file); an HF checkpoint directory serves the registry model its
+``config.json`` names (``gpt2``, ``bert``, ``llama``, ``resnet50-v1``) at
+its geometry with its weights; a directory holding the
+``tpu_engine_model.json`` sidecar (the train and import-weights commands'
+output) serves the model it records with its weights; an HF checkpoint
+file, or a path to nothing, is named by its file name
+(``resnet50-v2-7.onnx`` -> ``resnet50``), the file's weights loaded. Any
+other directory (an orbax checkpoint) refuses by name.
+
+import-weights: an HF/torch checkpoint of ``--model``'s family to the
+port's checkpoint format (``<out>/params.pt`` and the sidecar, with the
+HF directory's geometry), which ``worker_node <port> <id> <out>`` serves.
 
 gateway: the reference's gateway argv (``gateway 127.0.0.1:8001
 127.0.0.1:8002 127.0.0.1:8003``): consistent-hash routing of /infer,
@@ -85,7 +98,7 @@ import signal
 import sys
 import threading
 
-SIDECAR = "tpu_engine_model.json"
+from tpu_engine_torch.utils.checkpoint import SIDECAR
 
 
 def resolve_model(model_arg: str, device=None, dtype="bfloat16"):
@@ -220,10 +233,12 @@ def worker_node_args(argv):
     """(parsed flags, node id, model, model path) of a ``worker_node``
     command line, as the JAX command resolves them: the node id defaults
     to ``worker_<port>``, the model argument to ``$MODEL_PATH`` or
-    ``resnet50``. A name or a path to nothing is named by
-    ``model_from_path`` (model path None); an existing path is the model
-    path (a checkpoint), except that an existing ``.onnx`` file refuses:
-    the port loads no ONNX graph."""
+    ``resnet50``. An existing path is the model path: an ``.onnx`` file
+    is the model ``"onnx"`` (its graph), a directory with the sidecar
+    the model it records, an HF directory the model its config.json
+    names; otherwise (a name, a path to nothing, an HF file)
+    ``model_from_path`` names the model."""
+    from tpu_engine_torch.models.import_weights import model_name_from_hf
     from tpu_engine_torch.models.registry import model_from_path
 
     p = argparse.ArgumentParser(prog="worker_node")
@@ -235,14 +250,17 @@ def worker_node_args(argv):
     node_id = a.node_id or f"worker_{a.port}"
     model_arg = a.model_arg or os.environ.get("MODEL_PATH", "resnet50")
     model_path = model_arg if os.path.exists(model_arg) else None
+    model = None
+    sidecar = os.path.join(model_arg, SIDECAR)
     if model_path and model_path.endswith(".onnx"):
-        raise NotImplementedError(
-            f"serving the ONNX graph '{model_path}' (models/onnx_graph.py) "
-            f"is not yet ported to tpu_engine_torch; pass a registry model "
-            f"name instead")
-    if model_path:
-        return a, node_id, model_path, model_path
-    return a, node_id, model_from_path(model_arg), None
+        model = "onnx"  # the architecture comes from the file
+    elif model_path and os.path.isdir(model_path) and os.path.exists(
+            sidecar):
+        with open(sidecar) as f:
+            model = json.load(f)["model"]
+    elif model_path:
+        model = model_name_from_hf(model_path)
+    return a, node_id, model or model_from_path(model_arg), model_path
 
 
 def _worker_node(argv) -> int:
@@ -251,18 +269,37 @@ def _worker_node(argv) -> int:
               "[--no-unified-stateless] [--kv-block-size N] ...")
         return 1
     a, node_id, model, model_path = worker_node_args(argv)
-    params = None
-    if model_path:
-        # A train checkpoint (with its sidecar) serves; other checkpoint
-        # formats are not loaded by the port.
-        model, params = resolve_model(model_path, device=a.device,
-                                      dtype=a.dtype)
-        if params is None:
-            raise NotImplementedError(
-                f"loading the checkpoint '{model_path}' is not yet ported "
-                f"to tpu_engine_torch (only the train command's "
-                f"<out>/params)")
-    return _serve(a, node_id, model, params)
+    return _serve(a, node_id, model, model_path=model_path)
+
+
+def import_weights(argv) -> int:
+    """The ``import-weights`` command: ``--src`` (an HF checkpoint
+    directory, ``.safetensors`` or torch ``.bin``) imported as ``--model``
+    and saved to ``--out`` in the port's checkpoint format (f32, with the
+    sidecar naming the model and, for an HF directory, its geometry)."""
+    from tpu_engine_torch.models.import_weights import (
+        hf_spec_kwargs,
+        load_pretrained,
+    )
+    from tpu_engine_torch.utils.checkpoint import save_params
+
+    p = argparse.ArgumentParser(prog="import-weights")
+    p.add_argument("--model", required=True,
+                   help="registry model name (gpt2, bert, llama, "
+                        "resnet50-v1)")
+    p.add_argument("--src", required=True,
+                   help="HF checkpoint dir, .safetensors, or torch .bin")
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    params = load_pretrained(args.model, args.src, device=args.device,
+                             dtype="float32")
+    path = save_params(args.out, params)
+    with open(os.path.join(path, SIDECAR), "w") as f:
+        json.dump({"model": args.model,
+                   "kwargs": hf_spec_kwargs(args.src)}, f)
+    print(f"imported {args.src} as {args.model} -> {path}")
+    return 0
 
 
 # The JAX gateway command's flags that map onto no ported feature:
@@ -486,6 +523,8 @@ def main(argv=None) -> int:
         return _gateway(argv[1:])
     if argv and argv[0] == "train":
         return train(argv[1:])
+    if argv and argv[0] == "import-weights":
+        return import_weights(argv[1:])
     print(__doc__)
     return 2
 

@@ -7,10 +7,27 @@ Lanes. A decoder model (the gpt2 and llama families) gets the continuous
 scheduler: dense, the default lane, or paged (mixed stepping or two-path,
 bf16/f32 or int8 pool, with continuous speculation under
 ``gen_continuous_spec_k`` and a host KV tier under
-``gen_kv_host_blocks``). A config-less model (``mlp``, ``resnet50``,
-``resnet50-v1``; the default ``resnet50``) serves only /infer: with
-``unified_stateless`` on (the default) its scheduler's rows are all
-one-shot (``n_slots = max_batch_size``, no prefix cache). With
+``gen_kv_host_blocks``). A stateless model (``mlp``, ``resnet50``,
+``resnet50-v1``, the ``bert`` encoder, ``yolov8n``, an ONNX graph; the
+default ``resnet50``) serves only /infer: with ``unified_stateless`` on
+(the default) its scheduler's rows are all one-shot (``n_slots =
+max_batch_size``, no prefix cache).
+
+The model comes from ``model`` (a registry name, seeded random weights)
+or ``model_path``: an existing ``.onnx`` file serves its graph
+(``models.onnx_graph``; ``quantize`` refuses with the JAX worker's
+message); an HF checkpoint (a ``config.json``/``model.safetensors``/
+``pytorch_model.bin`` directory, sharded or not, or a ``.safetensors``,
+``.bin``, ``.pt`` or ``.pth`` file) loads its weights into ``model``
+through ``models.import_weights.load_pretrained`` (an HF directory's
+``config.json`` sets the geometry); a directory of the port's own format
+(``utils.checkpoint``, the train command's ``<out>/params``) loads as
+saved; any other directory (an orbax checkpoint of the JAX package)
+refuses by name. ``shape_buckets`` turns on the engine's mixed-shape
+serving. ``reload_weights`` (``/admin/reload``) swaps in a checkpoint's
+weights of the served architecture: the engine and then the scheduler
+serve them from their next dispatch, the result cache is cleared, and a
+result computed under the old weights never enters it. With
 ``unified_stateless`` on, /infer misses and /score requests ride the
 scheduler as single-tick rows; with it off, /infer goes through the
 dynamic batcher (``runtime.batch_processor``) and /score through a batcher
@@ -186,6 +203,54 @@ def _encode_output(arr) -> bytes:
     return ("[" + ",".join(map(fmt, vals)) + "]").encode()
 
 
+_HF_FILES = ("config.json", "model.safetensors", "pytorch_model.bin",
+             "model.safetensors.index.json", "pytorch_model.bin.index.json")
+
+
+def _model_spec(model: str, model_path: str) -> ModelSpec:
+    """The registry spec of ``model``; for an HF checkpoint directory with
+    the checkpoint's own geometry (its config.json), for a directory with
+    the sidecar with the geometry it records."""
+    kwargs = {}
+    if model_path and os.path.isdir(model_path):
+        from tpu_engine_torch.models.import_weights import hf_spec_kwargs
+        from tpu_engine_torch.utils.checkpoint import SIDECAR
+
+        kwargs = hf_spec_kwargs(model_path)
+        sidecar = os.path.join(model_path, SIDECAR)
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                kwargs = json.load(f).get("kwargs", {})
+    return create_model(model, **kwargs)
+
+
+def _load_model_path(spec: ModelSpec, model_path: Optional[str], device,
+                     dtype):
+    """The parameter tree a ``model_path`` holds for ``spec`` on
+    ``device`` (kernels in ``dtype``), or None for no path, a path to
+    nothing or a file that only names the model: HF checkpoints through
+    ``load_pretrained``, the port's own checkpoint directories through
+    ``utils.checkpoint.load_params``; any other directory refuses."""
+    from tpu_engine_torch.models.import_weights import load_pretrained
+    from tpu_engine_torch.utils.checkpoint import PARAMS_FILE, load_params
+
+    path = model_path or ""
+    if os.path.isfile(path):
+        if not path.endswith((".safetensors", ".bin", ".pt", ".pth")):
+            return None
+    elif not os.path.isdir(path):
+        return None
+    elif not any(os.path.exists(os.path.join(path, f)) for f in _HF_FILES):
+        if os.path.exists(os.path.join(path, PARAMS_FILE)):
+            return load_params(path, device=device, dtype=dtype)
+        raise NotImplementedError(
+            f"'{path}' is neither an HF checkpoint nor a checkpoint of the "
+            f"port's format ({PARAMS_FILE}); loading orbax checkpoints is "
+            f"not yet ported to tpu_engine_torch")
+    return load_pretrained(spec.name, path, spec=spec, device=device,
+                           dtype=dtype)
+
+
 class WorkerNode:
     def __init__(self, config: WorkerConfig, params=None):
         """``params``: the model's parameter tree (``models.convert``) on
@@ -218,15 +283,23 @@ class WorkerNode:
                 "is not yet ported to tpu_engine_torch")
         path = config.model_path or ""
         if path.endswith(".onnx") and os.path.exists(path):
-            raise NotImplementedError(
-                f"serving the ONNX graph '{path}' (models/onnx_graph.py) is "
-                f"not yet ported to tpu_engine_torch; name a registry model")
-        spec = create_model(config.model)
+            # The graph itself is the model: architecture and weights.
+            from tpu_engine_torch.models.onnx_graph import build_onnx_model
+
+            spec, graph_params = build_onnx_model(path, device=config.device)
+            if params is None:
+                params = graph_params
+        else:
+            spec = _model_spec(config.model, path)
+            if params is None:
+                params = _load_model_path(spec, path, config.device,
+                                          config.dtype)
         if spec.state_family == "stateless":
             self._fence_stateless(spec)
         self.engine = InferenceEngine(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
-            batch_buckets=config.batch_buckets, device=config.device)
+            batch_buckets=config.batch_buckets,
+            shape_buckets=config.shape_buckets, device=config.device)
         self.cache = LRUCache(config.cache_capacity)
         self.batch_processor: BatchProcessor[_BatchItem, _BatchResult] = \
             BatchProcessor(config.max_batch_size, config.batch_timeout_ms,
@@ -459,18 +532,31 @@ class WorkerNode:
         ``overloaded``."""
         return self._service_ewma_us
 
-    def apply_weights(self, params) -> dict:
+    def reload_weights(self, model_path: str) -> dict:
+        """Hot weight reload (``/admin/reload``): load ``model_path``'s
+        weights for the served architecture (``_load_model_path``) and
+        swap them in (``apply_weights``). A checkpoint of another
+        architecture or dtype is refused while the old weights keep
+        serving."""
+        params = _load_model_path(self.engine.spec, model_path,
+                                  self.engine.device, self.config.dtype)
+        if params is None:
+            raise ValueError(f"no loadable weights at '{model_path}'")
+        return self.apply_weights(params, source=model_path)
+
+    def apply_weights(self, params, source: str = "<params>") -> dict:
         """Swap in new weights of the served model (the engine's
-        ``set_params`` checks): every lane serves them from its next
-        dispatch, and the result cache is cleared; an in-flight result
-        computed under the old weights never enters it."""
+        ``set_params`` checks), on the engine and then on the scheduler
+        (which drops its prefix caches): every lane serves them from its
+        next dispatch, and the result cache is cleared; an in-flight
+        result computed under the old weights never enters it."""
         self.engine.set_params(params)
         if self.generator is not None:
-            self.generator.params = self.engine.params
+            self.generator.set_params(self.engine.params)
         with self._reload_lock:
             self._weights_gen += 1
             self.cache.clear()
-        return {"ok": True, "node_id": self.node_id}
+        return {"ok": True, "node_id": self.node_id, "model_path": source}
 
     # -- /infer ---------------------------------------------------------------
 
@@ -624,7 +710,9 @@ class WorkerNode:
         """Teacher-forced scoring: per-token log P(completion | prompt) in
         one forward."""
         self._check_model(request)
-        if self.engine.spec.config is None:
+        if self.engine.spec.state_family != "kv_paged":
+            # Teacher-forced next-token logprobs are a decoder-LM notion:
+            # encoders and the config-less models refuse with this message.
             raise ValueError(
                 f"model '{self.config.model}' does not support scoring")
         deadline = Deadline.from_request(request)

@@ -32,6 +32,10 @@ from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
 PARAMS_FILE = "params.pt"
 STATE_FILE = "state.pt"
+# Beside a servable params.pt: {"model": registry name, "kwargs": its
+# factory's arguments (optional)}, written by the train and import-weights
+# commands.
+SIDECAR = "tpu_engine_model.json"
 
 
 def _save(path: str, name: str, payload, overwrite: bool) -> str:

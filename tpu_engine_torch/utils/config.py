@@ -20,8 +20,10 @@ class WorkerConfig:
     port: int = 8001
     node_id: str = "worker_1"
     model: str = "resnet50"             # registry name (models.registry)
-    # A reference-style model path (e.g. models/resnet50-v2-7.onnx) names
-    # the model only; the port loads no ONNX graph or HF checkpoint.
+    # A reference-style model path: an existing .onnx file is served as
+    # its graph (models.onnx_graph); an HF checkpoint (file or directory)
+    # or a checkpoint of the port's own format loads its weights; a path
+    # to nothing only names the model (registry.model_from_path).
     model_path: Optional[str] = None
     # The /infer lane: result cache, dynamic batcher, engine buckets.
     cache_capacity: int = 1000
@@ -30,6 +32,10 @@ class WorkerConfig:
     batch_linger_ms: float = 0.0        # accumulation window (0 = off)
     dtype: str = "bfloat16"
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
+    # Mixed-shape serving: per-sample input shapes of the engine's shape
+    # buckets; requests carry "shape": [h, w, c]. Set in code (the JAX
+    # package's serve --shape-buckets; the port has no serve command).
+    shape_buckets: Optional[Tuple[Tuple[int, ...], ...]] = None
     fake_cached_latency_us: int = 50    # inference_time_us of a cache hit
     # Dispatched /infer batches in flight before the batcher collects the
     # oldest (engine batch_submit / batch_collect); 1 = lockstep.

@@ -91,11 +91,17 @@ def uniform01(key: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random._gumbel`` in its default ("low") mode: -log(-log(u)) in
-    float32. Neither backend's float32 log is correctly rounded, so the
-    noise agrees with JAX's to about an ulp, not bit for bit."""
-    u = uniform(key, n)
-    return -torch.log(-torch.log(u))
+    """``jax.random._gumbel`` in its default ("low") mode: -log(-log(u)) of
+    JAX's float32 uniform draws, returned in float32.
+
+    The two logs are evaluated in float64 and the result is rounded once to
+    float32. In float32, torch's ``log`` and XLA's are each off by up to an
+    ulp, and the two roundings add up: some draws then differ from JAX's by
+    more than one ulp. Evaluated in float64, the only float32 rounding left
+    is the final one, so the noise agrees with JAX's to within an ulp (XLA's
+    own float32 error), not bit for bit."""
+    u = uniform(key, n).double()
+    return (-torch.log(-torch.log(u))).float()
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
