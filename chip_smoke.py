@@ -226,7 +226,49 @@ Phases (any failure exits non-zero and prints no result line):
               S 128, f32); the resnet50 bf16 forward at
               buckets 1, 8 and 32 by the forward rows' harness
               (images/s beside it), at cuDNN's default TF32 setting as
-              served.
+              served;
+10. overload — last, so that its processes and profiler sessions
+              come after every earlier timing: overload control and
+              crash-tolerant serving at TinyLlama geometry (random
+              weights from seed 0), each part with the
+              launch counts set to 0 before and read after: a mixed-bf16
+              spec_k 4 worker with --priority-admission --adaptive-depth
+              --brownout (max_queue_depth 8, the AIMD limit's start; a
+              brownout evaluation every 0.1 s) opens held streams in a
+              ladder against the tier caps (background sheds at depth 5,
+              batch at 6, interactive at 8) and fires a burst of each tier
+              beyond the limit: every shed a 503 overloaded with
+              Retry-After, shed_overloaded == the causes' sum, the
+              brownout climbing past stage 2 and restoring in reverse once
+              the streams end (escalations == restores), the spec
+              proposals flat while suspended and moving again after, the
+              AIMD limit moved by the requests that follow, the prefill
+              tokens of a tick <= max(1, budget_frac x the budget) (the
+              widest at 1.0 above the widest at 0.5), the ragged kernel's
+              launches == 22 x the spec ticks (== the mixed ticks); a
+              mixed-bf16 worker with --kv-blocks 160 --kv-host-blocks 256
+              whose demoted prompt promotes nothing under swap-in
+              deferral and swaps in once released; the mixed tick's
+              forward at budget_frac 1.0 and 0.25 (wall, host issue,
+              device busy, #1 alone) and #5 at a /score row; a mixed f32
+              spec_k 4 worker (TF32 off) whose greedy streams are
+              token-identical with spec running and suspended; then two
+              f32 mixed workers, P (the worker command as a process) and
+              L (in process), behind the gateway command as a process
+              with --failover-streams --health-probe-interval 0.2
+              --overload-control --tenant-rate 5: tenant A's burst of 20
+              sheds 503 with Retry-After while tenant B is untouched; P
+              stopped (SIGSTOP): a hedged /score through an in-process
+              gateway with hedge_enabled answered by L (hedge_wins, #5
+              launched on L), P ejected by the prober within 3 x (0.2 s
+              + the 5 s probe timeout) + 0.2 s with no breaker failure,
+              and restored after SIGCONT; two streams owned by P (greedy
+              and seeded sampled), P killed (SIGKILL) after 8 tokens of
+              each: both resume once on L, token for token the unbroken
+              runs, the kill to the first resumed token timed, the dead P
+              ejected within 0.8 s; on L the ragged kernel's launches ==
+              22 x its mixed ticks and the flash forward's == 22 x its
+              one-shot dispatches, no plain call.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -252,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -529,26 +572,44 @@ def issue_ms(torch, fn, iters: int = 10) -> float:
     return total / iters * 1e3
 
 
-def busy_ms(torch, fn, iters: int = 3) -> float:
+def busy_ms(torch, fn, iters: int = 3):
     """Mean device-busy time of fn(): the durations of the device-side
     events (kernels, copies, fills) under torch.profiler, summed; host
     ops are left out, since their device time repeats their kernels'.
     Against the wall time of fn() it gives the share of a step the card
-    sits idle."""
+    sits idle. The profiler can keep no device event in a session: up to
+    three sessions are run; None where none kept one (the reading is
+    then "not measured", see ``busy_text``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    log("busy_ms: three profiler sessions kept no device event; the busy "
+        "time is not measured")
+    return None
+
+
+def idle_share(busy, ms: float):
+    """The share of ms the card sat idle, or None where busy was not
+    measured."""
+    return None if busy is None else max(0.0, 1 - busy / ms)
+
+
+def busy_text(busy, idle) -> str:
+    if busy is None:
+        return "device busy not measured: the profiler kept no device event"
+    return f"device busy {busy:.3f} ms, idle {100 * idle:.1f}%"
 
 
 def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
@@ -560,7 +621,12 @@ def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
     summed. A session that saw fewer than half the calls whole (it once
     kept one of 20, and once none) is run again, up to three sessions;
     the reading of the session that saw the most calls is returned; with
-    ``by_kernel`` (a dict) also its device time per event name, per call."""
+    ``by_kernel`` (a dict) also its device time per event name, per call.
+    Where no session kept a device event at all (it happened to all three
+    sessions of an SDPA call), the time is taken with CUDA events over
+    ``iters`` calls issued back to back instead, and the count of calls
+    seen is 0: that reading also holds the host's gaps between launches
+    where the card outpaces the host."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -591,7 +657,19 @@ def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
                 by_kernel.update(per_name)
         if calls >= iters // 2:
             break
-    check(best is not None, "the profiler saw no device time")
+    if best is None:
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = (start.elapsed_time(end) / iters, 0)
+        log(f"device_call_ms: three profiler sessions kept no device "
+            f"event; CUDA events over {iters} calls read {best[0]:.4f} ms")
     return best
 
 
@@ -1547,14 +1625,14 @@ def phase_train(torch) -> dict:
 
 
 def start_lane(torch, params, lane: str, model: str = "llama",
-               overrides=None, node_id=None):
+               overrides=None, node_id=None, dtype: str = "bfloat16"):
     """A worker of the main path's geometry for ``lane``, over HTTP."""
     from tpu_engine_torch.serving.app import serve_worker
     from tpu_engine_torch.utils.config import WorkerConfig
 
     cfg = WorkerConfig(port=0, node_id=node_id or f"chip-smoke-{lane}",
                        model=model,
-                       dtype="bfloat16", gen_max_batch_size=8,
+                       dtype=dtype, gen_max_batch_size=8,
                        gen_prefill_chunk=256, device="cuda", seed=0,
                        **(LANES[lane] if overrides is None else overrides))
     t0 = time.perf_counter()
@@ -2206,14 +2284,15 @@ MIN_OVERLOAD_BUDGET_US = 10000.0
 
 def call(port: int, method: str, path: str, body=None,
          timeout: float = 120.0) -> tuple:
-    """(status, body bytes) of one request, whatever its status."""
+    """(status, body bytes, Retry-After header) of one request, whatever
+    its status."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         conn.request(method, path,
                      None if body is None else json.dumps(body),
                      {"Content-Type": "application/json"})
         resp = conn.getresponse()
-        return resp.status, resp.read()
+        return resp.status, resp.read(), resp.getheader("Retry-After")
     finally:
         conn.close()
 
@@ -2579,7 +2658,7 @@ def gateway_faults(gen: dict, ref: dict) -> dict:
     out["drain"] = {"failed_over": 3, "shed_draining": drain_sheds}
 
     totals = [get(s.port, "/health")["total_requests"] for s in servers]
-    status, raw = call(gport, "POST", "/infer",
+    status, raw, _ = call(gport, "POST", "/infer",
                        dict(body, request_id="late", deadline_ms=0))
     after = [get(s.port, "/health")["total_requests"] for s in servers]
     check(status == 503 and json.loads(raw)["kind"] == "deadline_exceeded"
@@ -2602,7 +2681,7 @@ def gateway_faults(gen: dict, ref: dict) -> dict:
             "shed_deadline", 0)
 
     s0 = [shed_deadline(s) for s in ref["servers"]]
-    status, raw = call(ref["gateway_server"].port, "POST", "/infer", {
+    status, raw, _ = call(ref["gateway_server"].port, "POST", "/infer", {
         "request_id": "tight", "input_data": [77.0, 78.0, 79.0],
         "deadline_ms": budget_ms})
     lane_sheds = [shed_deadline(s) - b for s, b in zip(ref["servers"], s0)]
@@ -2879,9 +2958,11 @@ def kvtier_pool(torch, params, cfg, dev="cuda",
                 f"64 GB/s; swap-in of the {n}-block prefix {promote_ms:.3f}"
                 f" ms")
         if not quant:
-            line += (f" vs recomputing its prefill "
-                     f"{res['recompute_busy_ms']:.3f} ms device busy "
-                     f"({res['recompute_ms']:.3f} ms events, 4 ticks of "
+            busy = res["recompute_busy_ms"]
+            line += (" vs recomputing its prefill "
+                     + ("(device busy not measured)" if busy is None
+                        else f"{busy:.3f} ms device busy")
+                     + f" ({res['recompute_ms']:.3f} ms events, 4 ticks of "
                      f"W = 256)")
         log(line + f"; chain export {export_ms:.3f} ms, import "
             f"{import_ms:.3f} ms, wire {wire} B for {n * bpb} B raw "
@@ -3210,10 +3291,9 @@ def forward_reading(torch, key: str, fwd, card: str, share=None) -> dict:
     host = issue_ms(torch, fwd)
     busy = busy_ms(torch, fwd)
     res = {"forward_ms": ms, "issue_ms": host, "busy_ms": busy,
-           "idle_share": max(0.0, 1 - busy / ms)}
+           "idle_share": idle_share(busy, ms)}
     line = (f"refmodels forward ({key}): {ms:.3f} ms (host issue "
-            f"{host:.3f} ms, device busy {busy:.3f} ms, idle "
-            f"{100 * res['idle_share']:.1f}%)")
+            f"{host:.3f} ms, {busy_text(busy, res['idle_share'])})")
     if share is not None:
         name, n, dev_ms = share
         res["kernel_ms"] = n * dev_ms
@@ -3951,6 +4031,836 @@ def phase_refmodels(torch, card: str, errs: dict) -> dict:
     return out
 
 
+# -- overload phase -------------------------------------------------------------
+
+# The burst worker: max_queue_depth 8, which the AIMD limit starts from,
+# so the tiers' caps are 5 (background), 6 (batch) and 8 (interactive);
+# a brownout evaluation every 0.1 s.
+OVERLOAD_DEPTH = 8
+OVERLOAD_INTERVAL_S = 0.1
+# Each held stream: a 12-token motif repeated to 230 tokens and sent with
+# repetition_penalty 0.1, so the n-gram drafter proposes from it (see
+# serve_spec_lane), generating 256 tokens.
+OVERLOAD_PROMPT = 230
+OVERLOAD_HOLD_NEW = 256
+# Per tier, the streams fired at once beyond the limit.
+OVERLOAD_BURST = 4
+# Requests after the burst, one at a time (300-token prompts, 4 new
+# tokens): they feed the AIMD limit and prefill under the shrunk budget.
+OVERLOAD_FEED = 16
+# The ladder of stream openings against the tier caps: (tier, admitted).
+OVERLOAD_LADDER = (("interactive", True),) * 5 + (
+    ("background", False), ("batch", True), ("batch", False),
+    ("interactive", True), ("interactive", True), ("interactive", False))
+# The gateway command's prober: --health-probe-interval 0.2 and the
+# default 3 failures; a probe waits up to HttpWorkerClient.probe_health's
+# 5 s, which a stopped (not dead) process makes it wait in full.
+PROBE_INTERVAL_S = 0.2
+PROBE_FAILURES = 3
+PROBE_TIMEOUT_S = 5.0
+TENANT_RATE = 5.0
+# The failover streams: 48 new tokens of a 64-token prompt, the serving
+# worker killed once each stream has 8.
+FAILOVER_NEW = 48
+FAILOVER_AT = 8
+
+
+class StreamReader(threading.Thread):
+    """One /generate/stream request in its own thread: the status and
+    Retry-After of the answer, the 503 body, and each token event with its
+    arrival time. ``ready`` is set once the status is known."""
+
+    def __init__(self, port: int, body: dict):
+        super().__init__(daemon=True)
+        self.port, self.body = port, body
+        self.status = None
+        self.retry_after = None
+        self.shed = {}
+        self.tokens, self.times = [], []
+        self.final = None
+        self.error = None
+        self.ready = threading.Event()
+
+    def run(self):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=600)
+        try:
+            conn.request("POST", "/generate/stream", json.dumps(self.body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            self.status = resp.status
+            self.retry_after = resp.getheader("Retry-After")
+            if resp.status != 200:
+                self.shed = json.loads(resp.read())
+                return
+            self.ready.set()
+            buf = b""
+            while True:
+                chunk = resp.read1(65536)
+                if not chunk:
+                    break
+                buf += chunk
+                while b"\n\n" in buf:
+                    frame, buf = buf.split(b"\n\n", 1)
+                    ev = json.loads(frame[len(b"data: "):])
+                    if ev.get("done"):
+                        self.final = ev
+                    else:
+                        now = time.perf_counter()
+                        for t in ev["tokens"]:
+                            self.tokens.append(t)
+                            self.times.append(now)
+        except Exception as exc:  # reported by the caller's checks
+            self.error = repr(exc)
+        finally:
+            self.ready.set()
+            conn.close()
+
+
+def motif_prompt(rng, vocab: int) -> list:
+    motif = [int(t) for t in rng.integers(1, vocab, 12)]
+    return (motif * (OVERLOAD_PROMPT // 12 + 1))[:OVERLOAD_PROMPT]
+
+
+def overload_worker(torch, params) -> dict:
+    """The worker's overload control on a mixed-bf16 spec_k 4 lane of
+    TinyLlama geometry (priority admission, the AIMD limit from depth 8,
+    brownout every 0.1 s), launch counts set to 0 just before and read
+    just after: the tier ladder, a burst beyond the limit, the held
+    streams' end, the ladder's restore and the AIMD feed."""
+    from tpu_engine_torch.ops import kernels
+
+    overrides = dict(PAGED, gen_mixed_step=True, gen_mixed_token_budget=256,
+                     gen_continuous_spec_k=SPEC_K,
+                     max_queue_depth=OVERLOAD_DEPTH, priority_admission=True,
+                     adaptive_depth=True, brownout=True,
+                     brownout_interval_s=OVERLOAD_INTERVAL_S)
+    worker, server = start_lane(torch, params, "overload-bf16",
+                                overrides=overrides)
+    port = server.port
+    gen = worker.generator
+    vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
+    budget = gen._mixed_budget
+    # Each mixed tick's prefill tokens under the budget fraction in force
+    # (an observer wrapped around the scheduler's split, nothing else).
+    chunks, real = [], gen._prefill_chunks
+
+    def observed(prefill_rows, n_decode):
+        f = gen._bo_budget_frac
+        chunk = real(prefill_rows, n_decode)
+        if f == gen._bo_budget_frac and prefill_rows:
+            chunks.append((f, int(chunk.sum())))
+        return chunk
+
+    gen._prefill_chunks = observed
+    rng = np.random.default_rng(14)
+    samples, sample_errors = [], []
+    stop_sampling = threading.Event()
+
+    def sampler():
+        while not stop_sampling.is_set():
+            try:
+                h = get(port, "/health")
+                g = h["generator"]
+                samples.append({
+                    "t": time.perf_counter(), "stage": h["brownout"]["stage"],
+                    "brownout": g.get("brownout"),
+                    "proposed": g["spec"]["proposed_tokens"],
+                    "depth": h["admission"]["queue_depth"],
+                    "limit": h["admission"]["adaptive"]["limit"]})
+            except Exception as exc:  # reported below, fails the phase
+                sample_errors.append(repr(exc))
+            stop_sampling.wait(0.05)
+
+    held, sheds = [], []
+    sampling = threading.Thread(target=sampler, daemon=True)
+    try:
+        kernels.reset_counts()  # the lane's run: counts from 0, read after
+        # Warm-up at stage 0 on a repetitive prompt: the drafter proposes.
+        warm = post(port, "/generate", {
+            "request_id": "warm", "prompt_tokens": motif_prompt(rng, vocab),
+            "max_new_tokens": 32, "repetition_penalty": 0.1})
+        warm_proposed = generator_stats(port)["spec"]["proposed_tokens"]
+        check(len(warm["tokens"]) == 32 and warm_proposed > 0,
+              f"overload warm-up: {warm}, {warm_proposed} proposals")
+        t0 = time.perf_counter()
+        sampling.start()
+        for i, (tier, admitted) in enumerate(OVERLOAD_LADDER):
+            depth = get(port, "/health")["admission"]["queue_depth"]
+            r = StreamReader(port, {
+                "request_id": f"hold-{i}",
+                "prompt_tokens": motif_prompt(rng, vocab),
+                "max_new_tokens": OVERLOAD_HOLD_NEW,
+                "repetition_penalty": 0.1, "priority": tier})
+            r.start()
+            check(r.ready.wait(120), f"overload ladder {i}: no answer")
+            check((r.status == 200) == admitted,
+                  f"overload ladder {i} ({tier} at depth {depth}): "
+                  f"{r.status} {r.shed}")
+            (held if admitted else sheds).append((tier, depth, r))
+        burst = []
+        for i in range(OVERLOAD_BURST * 3):
+            tier = ("background", "batch", "interactive")[i % 3]
+            r = StreamReader(port, {
+                "request_id": f"burst-{i}", "prompt_tokens": [1, 2, 3],
+                "max_new_tokens": 8, "priority": tier})
+            r.start()
+            burst.append((tier, OVERLOAD_DEPTH, r))
+        for _, _, r in burst:
+            r.join(timeout=120)
+        sheds.extend(burst)
+        for tier, depth, r in sheds:
+            check(r.status == 503 and r.shed.get("kind") == "overloaded"
+                  and r.retry_after is not None,
+                  f"overload shed of {tier} at depth {depth}: {r.status} "
+                  f"{r.retry_after} {r.shed} {r.error}")
+        first = {t: min(d for tt, d, _ in sheds if tt == t)
+                 for t in ("background", "batch", "interactive")}
+        check(first["background"] < first["batch"] < first["interactive"],
+              f"overload: tiers shed out of order: {first}")
+        per_tier = {t: sum(1 for tt, _, _ in sheds if tt == t)
+                    for t in first}
+        adm = get(port, "/health")["admission"]
+        check(adm["shed_overloaded"] == len(sheds)
+              == adm["shed_depth"] + adm["shed_tier"] + adm["shed_adaptive"]
+              and "adaptive" in adm,
+              f"overload admission block: {adm} for {len(sheds)} sheds")
+        for _, _, r in held:
+            r.join(timeout=600)
+            check(r.error is None and r.final is not None
+                  and "error" not in r.final
+                  and r.final["tokens"] == r.tokens
+                  and len(r.tokens) == OVERLOAD_HOLD_NEW,
+                  f"overload held stream: {r.error} {r.final}")
+        hold_s = time.perf_counter() - t0
+        limit0 = get(port, "/health")["admission"]["adaptive"]
+        feed = []
+        for i in range(OVERLOAD_FEED):
+            t1 = time.perf_counter()
+            out = post(port, "/generate", {
+                "request_id": f"feed-{i}",
+                "prompt_tokens": [int(t) for t in rng.integers(1, vocab,
+                                                               300)],
+                "max_new_tokens": 4, "priority": "interactive"})
+            check(len(out["tokens"]) == 4, f"overload feed {i}: {out}")
+            feed.append(time.perf_counter() - t1)
+        deadline = time.perf_counter() + 30
+        while get(port, "/health")["brownout"]["stage"] and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        stop_sampling.set()
+        sampling.join(timeout=30)
+        health = get(port, "/health")
+        bo, aimd = health["brownout"], health["admission"]["adaptive"]
+        check(bo["stage"] == 0 and bo["escalations"] == bo["restores"] >= 3
+              and "brownout" not in health["generator"],
+              f"overload: the brownout did not restore: {bo}")
+        check(not sample_errors, f"overload sampler: {sample_errors[:3]}")
+        stages = [s["stage"] for s in samples]
+        timeline = []
+        for s in samples:
+            if not timeline or timeline[-1][1] != s["stage"]:
+                timeline.append((round(s["t"] - t0, 3), s["stage"]))
+        steps = [b - a for (_, a), (_, b) in zip(timeline, timeline[1:])]
+        check(max(stages) >= 3 and set(steps) <= {1, -1},
+              f"overload: brownout climbed to {max(stages)} in {timeline}")
+        # Spec suspended: from the third sample of each suspended run (a
+        # tick already drafting when the stage moved may still count),
+        # the proposal count stays where it was.
+        flat, runs, run = True, [], []
+        for s in samples + [{"brownout": None}]:
+            if (s["brownout"] or {}).get("spec_suspended"):
+                run.append(s["proposed"])
+                continue
+            if run:
+                runs.append(run)
+                flat = flat and len(set(run[2:])) <= 1
+            run = []
+        check(flat and max((len(r) for r in runs), default=0) >= 4,
+              f"overload: proposals moved while spec was suspended: {runs}")
+        # After the restore, spec proposes again.
+        p0 = generator_stats(port)["spec"]["proposed_tokens"]
+        post(port, "/generate", {
+            "request_id": "resumed", "prompt_tokens": motif_prompt(rng, vocab),
+            "max_new_tokens": 32, "repetition_penalty": 0.1})
+        p1 = generator_stats(port)["spec"]["proposed_tokens"]
+        check(p1 > p0 >= warm_proposed,
+              f"overload: spec did not resume: {p0} {p1}")
+        check(aimd["increases"] + aimd["decreases"] > 0,
+              f"overload: the AIMD limit never moved: {aimd}")
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"overload: not idle or blocks leaked: {st['kv_pool']}")
+        launches = check_counts("overload", "ragged_paged_attention")
+        sp, m = st["spec"], st["mixed"]
+        check(sp["ticks"] == sp["dispatches"] == m["ticks"]
+              == m["dispatches"] > 0
+              and launches == n_layers * sp["dispatches"],
+              f"overload: {launches} ragged launches for spec {sp}, mixed "
+              f"{m}, of {n_layers} layers")
+        widest = {f: max(c for ff, c in chunks if ff == f)
+                  for f in sorted({f for f, _ in chunks})}
+        check(all(c <= max(1, int(f * budget)) for f, c in chunks)
+              and any(f < 1.0 for f in widest) and 1.0 in widest
+              and widest[1.0] > max(widest[f] for f in widest if f < 1.0),
+              f"overload: prefill tokens per tick by budget fraction "
+              f"{widest} (budget {budget})")
+    finally:
+        stop_sampling.set()
+        gen._prefill_chunks = real
+        server.stop()
+        worker.stop()
+    out = {"launches": launches, "spec_dispatches": sp["dispatches"],
+           "mixed_ticks": m["ticks"], "sheds_per_tier": per_tier,
+           "first_shed_depth": first, "admission": adm,
+           "aimd_before_feed": limit0, "aimd": aimd, "brownout": bo,
+           "stage_timeline_s": timeline, "suspended_runs": len(runs),
+           "widest_prefill_by_frac": widest, "hold_s": hold_s,
+           "feed_ms": [x * 1e3 for x in feed]}
+    log(f"overload worker: tier ladder shed background at depth "
+        f"{first['background']}, batch at {first['batch']}, interactive at "
+        f"{first['interactive']} of {OVERLOAD_DEPTH}; sheds per tier "
+        f"{per_tier}, every one 503 overloaded with Retry-After; admission "
+        f"{json.dumps(adm)}; brownout stages (s, stage) {timeline}, "
+        f"escalations {bo['escalations']} == restores {bo['restores']}; "
+        f"proposals flat over {len(runs)} suspended runs, resumed after; "
+        f"AIMD {limit0['limit']} -> {aimd['limit']} ({aimd['increases']} "
+        f"increases, {aimd['decreases']} decreases); widest prefill per "
+        f"tick by budget fraction {widest} of budget {budget}; "
+        f"ragged_paged_attention launches {launches} == {n_layers} x "
+        f"{sp['dispatches']} spec ticks (== mixed ticks), plain calls 0")
+    return out
+
+
+def overload_identity(torch, params32) -> dict:
+    """A mixed f32 spec_k 4 worker (TF32 off): greedy streams of a
+    repetitive prompt (the drafter proposes) and a random one, with spec
+    running and under the spec_off stage's degradations (budget halved,
+    spec suspended), token-identical; no proposal while suspended; the
+    ragged kernel launched 22 x the spec ticks."""
+    from tpu_engine_torch.ops import kernels
+
+    overrides = dict(PAGED, gen_mixed_step=True, gen_mixed_token_budget=256,
+                     gen_continuous_spec_k=SPEC_K)
+    worker, server = start_lane(torch, params32, "overload-f32-spec",
+                                overrides=overrides, dtype="float32")
+    port = server.port
+    gen = worker.generator
+    vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
+    rng = np.random.default_rng(15)
+    bodies = [{"prompt_tokens": motif_prompt(rng, vocab),
+               "repetition_penalty": 0.1},
+              {"prompt_tokens": [int(t) for t in rng.integers(1, vocab,
+                                                              200)]}]
+    try:
+        kernels.reset_counts()
+        runs = {}
+        for key, stage in (("spec", {}),
+                           ("spec_off", dict(budget_frac=0.5,
+                                             suspend_spec=True))):
+            gen.set_brownout(**stage)
+            p0 = generator_stats(port)["spec"]["proposed_tokens"]
+            runs[key] = [post(port, "/generate", dict(
+                b, request_id=f"{key}-{i}", max_new_tokens=64))["tokens"]
+                for i, b in enumerate(bodies)]
+            runs[key + "_proposed"] = (generator_stats(port)["spec"]
+                                       ["proposed_tokens"] - p0)
+        gen.set_brownout()
+        check(runs["spec"] == runs["spec_off"],
+              f"overload f32: greedy streams differ with spec suspended: "
+              f"{runs}")
+        check(runs["spec_proposed"] > 0 and runs["spec_off_proposed"] == 0,
+              f"overload f32: proposals {runs['spec_proposed']} with spec, "
+              f"{runs['spec_off_proposed']} suspended")
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"overload f32: blocks leaked: {st['kv_pool']}")
+        launches = check_counts("overload-f32", "ragged_paged_attention")
+        sp = st["spec"]
+        check(launches == n_layers * sp["dispatches"] > 0,
+              f"overload f32: {launches} launches for {sp}")
+    finally:
+        gen.set_brownout()
+        server.stop()
+        worker.stop()
+    log(f"overload f32: greedy streams (64 tokens, a repetitive and a "
+        f"random prompt) identical with spec running ({runs['spec_proposed']}"
+        f" proposals) and suspended (0 proposals, budget 0.5); "
+        f"ragged_paged_attention launches {launches} == {n_layers} x "
+        f"{sp['dispatches']} spec ticks")
+    return {"launches": launches, "spec_dispatches": sp["dispatches"],
+            "proposed": runs["spec_proposed"]}
+
+
+def overload_swap_defer(torch, params) -> dict:
+    """A mixed-bf16 worker with --kv-blocks 160 --kv-host-blocks 256: four
+    1024-token prompts (64 blocks each) demote the first ones to the
+    host; under the swap_defer stage's degradations a demoted prompt's
+    repeat promotes nothing (swap_in_deferred grows), and once released
+    another demoted prompt's repeat swaps in."""
+    from tpu_engine_torch.ops import kernels
+
+    overrides = dict(PAGED, gen_mixed_step=True, gen_mixed_token_budget=256,
+                     gen_kv_blocks=160, gen_kv_host_blocks=256)
+    worker, server = start_lane(torch, params, "overload-swap-defer",
+                                overrides=overrides)
+    port = server.port
+    gen = worker.generator
+    vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
+    rng = np.random.default_rng(16)
+    prompts = [[int(t) for t in rng.integers(1, vocab, 1024)]
+               for _ in range(4)]
+
+    def host():
+        return generator_stats(port)["kv_pool"]["host"]
+
+    def ask(name, prompt):
+        out = post(port, "/generate", {"request_id": name,
+                                       "prompt_tokens": prompt,
+                                       "max_new_tokens": 8})
+        check(len(out["tokens"]) == 8, f"overload swap {name}: {out}")
+
+    try:
+        kernels.reset_counts()
+        for i, p in enumerate(prompts):
+            ask(f"churn-{i}", p)
+        h0 = host()
+        check(h0["demotions"] > 0, f"overload swap: nothing demoted: {h0}")
+        gen.set_brownout(budget_frac=0.5, suspend_spec=True,
+                         defer_swap_in=True)
+        ask("deferred", prompts[0] + [int(t) for t in
+                                      rng.integers(1, vocab, 32)])
+        h1 = host()
+        gen.set_brownout()
+        ask("released", prompts[1] + [int(t) for t in
+                                      rng.integers(1, vocab, 32)])
+        h2 = host()
+        check(h1["swap_ins"] == h0["swap_ins"]
+              and h1["swap_in_deferred"] > h0["swap_in_deferred"]
+              and h2["swap_ins"] > h1["swap_ins"],
+              f"overload swap: before {h0}, deferred {h1}, released {h2}")
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"overload swap: blocks leaked: {st['kv_pool']}")
+        launches = check_counts("overload-swap", "ragged_paged_attention")
+        m = st["mixed"]
+        check(launches == n_layers * m["dispatches"] > 0,
+              f"overload swap: {launches} launches for {m}")
+    finally:
+        gen.set_brownout()
+        server.stop()
+        worker.stop()
+    log(f"overload swap-in deferral: {h0['demotions']} demotions; deferred: "
+        f"swap_ins {h0['swap_ins']} -> {h1['swap_ins']}, swap_in_deferred "
+        f"{h0['swap_in_deferred']} -> {h1['swap_in_deferred']}; released: "
+        f"swap_ins -> {h2['swap_ins']}; ragged launches {launches} == "
+        f"{n_layers} x {m['dispatches']} mixed ticks")
+    return {"before": h0, "deferred": h1, "released": h2,
+            "launches": launches}
+
+
+def spawn_worker(args, log_path: Path) -> tuple:
+    """``python -m tpu_engine_torch.serving.cli worker <port> *args`` as a
+    process on a free port, its output to ``log_path``: (process, port,
+    the log's file)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_engine_torch.serving.cli", "worker",
+         str(port), *args], cwd=str(Path(__file__).resolve().parent),
+        stdout=out, stderr=subprocess.STDOUT)
+    return proc, port, out
+
+
+def wait_health(proc, port: int, timeout: float = 300.0) -> float:
+    """Seconds until the process's /health answers."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            get(port, "/health")
+            return time.perf_counter() - t0
+        except (OSError, http.client.HTTPException, SmokeFailure):
+            check(proc.poll() is None and time.perf_counter() - t0 < timeout,
+                  f"process on port {port} did not start ({proc.poll()})")
+            time.sleep(0.2)
+
+
+def wait_stats(port: int, pred, timeout: float) -> tuple:
+    """(seconds until ``pred(/stats)`` holds, or None, the last /stats)."""
+    t0 = time.perf_counter()
+    while True:
+        st = get(port, "/stats")
+        if pred(st):
+            return time.perf_counter() - t0, st
+        if time.perf_counter() - t0 > timeout:
+            return None, st
+        time.sleep(0.02)
+
+
+def overload_gateway(torch, params32, proc, p_port: int) -> dict:
+    """Two f32 mixed workers (P: the worker command as a process, started
+    by the caller; L: in process, the same seeded weights) behind the
+    gateway command as a process with --failover-streams
+    --health-probe-interval 0.2 --overload-control --tenant-rate 5, the
+    launch counts set to 0 before and read after (L's): the tenant
+    bucket, P stopped (a hedged /score through an in-process gateway
+    with hedge_enabled answered by L; the prober's ejection with no
+    breaker penalty; restored once continued), then two streams owned by
+    P (greedy and seeded) with P killed after 8 tokens of each: both
+    continue on L, token for token the unbroken runs, and the dead P is
+    ejected."""
+    import signal
+    import socket
+
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.serving.gateway import Gateway
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    worker, server = start_lane(torch, params32, "overload-gw-l",
+                                overrides=dict(PAGED, gen_mixed_step=True,
+                                               gen_mixed_token_budget=256),
+                                dtype="float32", node_id="ov-l")
+    l_port = server.port
+    gen = worker.generator
+    n_layers, vocab = gen.cfg.n_layers, gen.cfg.vocab
+    p_url, l_url = f"127.0.0.1:{p_port}", f"127.0.0.1:{l_port}"
+    urls = [p_url, l_url]
+    ring = ring_of(urls)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        g_port = s.getsockname()[1]
+    g_log = open(OUT_DIR / "overload_gateway.log", "w")
+    gproc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
+         *urls, "--port", str(g_port), "--failover-streams",
+         "--health-probe-interval", str(PROBE_INTERVAL_S),
+         "--overload-control", "--tenant-rate", str(TENANT_RATE)],
+        cwd=str(Path(__file__).resolve().parent), stdout=g_log,
+        stderr=subprocess.STDOUT)
+    hedger = None
+    stopped = False
+    try:
+        p_ready_s = wait_health(proc, p_port)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                get(g_port, "/stats")
+                break
+            except (OSError, http.client.HTTPException, SmokeFailure):
+                check(gproc.poll() is None and time.perf_counter() - t0 < 120,
+                      f"gateway command did not start: {gproc.poll()}")
+                time.sleep(0.1)
+        g_ready_s = time.perf_counter() - t0
+        kernels.reset_counts()  # L's run: counts from 0, read after
+        base = generator_stats(l_port)
+        base_oneshot = base["stateless"]["dispatches"]
+        base_mixed = base["mixed"]["dispatches"]
+        # Warm both lanes directly.
+        for port in (p_port, l_port):
+            post(port, "/generate", {"request_id": "ov-warm",
+                                     "prompt_tokens": [1, 2, 3],
+                                     "max_new_tokens": 2})
+        rng = np.random.default_rng(17)
+
+        def score_body(rid, **extra):
+            return {"request_id": rid,
+                    "prompt_tokens": [int(t) for t in
+                                      rng.integers(1, vocab, 16)],
+                    "completion_tokens": [int(t) for t in
+                                          rng.integers(1, vocab, 4)],
+                    **extra}
+
+        # -- the tenant bucket (5/s, 10 deep): tenant A's burst of 20
+        # sheds with Retry-After, tenant B is untouched.
+        tenant = {}
+        threads, answers = [], []
+        rids = spread(ring, urls, 23, "tenant-")
+        for i, rid in enumerate(rids):
+            t = "A" if i < 20 else "B"
+            th = threading.Thread(target=lambda r=rid, tt=t: answers.append(
+                (tt, call(g_port, "POST", "/score",
+                          score_body(r, tenant=tt)))))
+            threads.append(th)
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        for t in ("A", "B"):
+            codes = [a for tt, a in answers if tt == t]
+            tenant[t] = {"ok": sum(1 for c, _, _ in codes if c == 200),
+                         "shed": sum(1 for c, _, _ in codes if c == 503)}
+            check(all(c == 200 or (c == 503 and ra is not None
+                                   and json.loads(b).get("kind")
+                                   == "overloaded")
+                      for c, b, ra in codes),
+                  f"overload tenant {t}: {codes}")
+        ov = get(g_port, "/stats")["overload"]
+        check(tenant["A"]["shed"] >= 8 and tenant["B"]["shed"] == 0
+              and ov["rate_limited"] == tenant["A"]["shed"]
+              and tenant["A"]["ok"] + tenant["A"]["shed"] == 20,
+              f"overload tenant bucket: {tenant} {ov}")
+        # -- P stopped: a hedged /score answered by L.
+        hedger = Gateway(urls, GatewayConfig(hedge_enabled=True,
+                                             gen_timeout_s=60.0))
+        for rid in owned(ring, l_url, 3, "hwarm-"):
+            hedger.route_score(score_body(rid))
+        res0 = hedger.get_stats()["resilience"]
+        os.kill(proc.pid, signal.SIGSTOP)
+        stopped = True
+        t_stop = time.perf_counter()
+        f0 = launch_counts()["flash_attention"][0]
+        t1 = time.perf_counter()
+        hedged = hedger.route_score(score_body(owned(ring, p_url, 1,
+                                                     "hedge-")[0]))
+        hedge_s = time.perf_counter() - t1
+        hedge_flash = launch_counts()["flash_attention"][0] - f0
+        res = hedger.get_stats()["resilience"]
+        check(hedged["node_id"] == "ov-l"
+              and res["hedges"] - res0["hedges"] == 1
+              and res["hedge_wins"] - res0["hedge_wins"] == 1
+              and hedge_flash >= n_layers,
+              f"overload hedge: {hedged.get('node_id')} {res0} -> {res}, "
+              f"{hedge_flash} flash launches")
+        # -- the prober ejects the stopped P, with no breaker penalty.
+        bound_stop = (PROBE_FAILURES * (PROBE_INTERVAL_S + PROBE_TIMEOUT_S)
+                      + PROBE_INTERVAL_S)
+        eject_s, st = wait_stats(
+            g_port, lambda s: p_url in s["failover"]["ejected_lanes"],
+            bound_stop + 5)
+        check(eject_s is not None and time.perf_counter() - t_stop
+              <= bound_stop + 1.0, f"overload prober: P not ejected "
+              f"within {bound_stop} s: {st}")
+        eject_stop_s = time.perf_counter() - t_stop
+        routed = post(g_port, "/generate", {
+            "request_id": owned(ring, p_url, 1, "ejected-")[0],
+            "prompt_tokens": [5, 6, 7], "max_new_tokens": 4})
+        st = get(g_port, "/stats")
+        breaker = next(b for b in st["circuit_breakers"]
+                       if b["node"] == p_url)
+        check(routed["node_id"] == "ov-l" and breaker["failures"] == 0
+              and breaker["state"] == "CLOSED",
+              f"overload prober: {routed.get('node_id')} {breaker}")
+        os.kill(proc.pid, signal.SIGCONT)
+        stopped = False
+        t_cont = time.perf_counter()
+        restore_s, st = wait_stats(
+            g_port, lambda s: not s["failover"]["ejected_lanes"], 30)
+        check(restore_s is not None, f"overload prober: no restore: {st}")
+        restore_s = time.perf_counter() - t_cont
+        # -- failover: two streams owned by P, P killed after 8 tokens.
+        bodies = [{"prompt_tokens": [int(t) for t in
+                                     rng.integers(1, vocab, 64)],
+                   "max_new_tokens": FAILOVER_NEW, **extra}
+                  for extra in ({}, {"temperature": 0.9, "seed": 11})]
+        controls = [StreamReader(l_port, dict(b, request_id=f"ctl-{i}"))
+                    for i, b in enumerate(bodies)]
+        for r in controls:
+            r.start()
+        for r in controls:
+            r.join(timeout=600)
+            check(r.final is not None and len(r.tokens) == FAILOVER_NEW,
+                  f"overload failover control: {r.final} {r.error}")
+        rids = owned(ring, p_url, 2, "failover-")
+        readers = [StreamReader(g_port, dict(b, request_id=rid))
+                   for b, rid in zip(bodies, rids)]
+        for r in readers:
+            r.start()
+        deadline = time.perf_counter() + 120
+        while (min(len(r.tokens) for r in readers) < FAILOVER_AT
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        at_kill = [len(r.tokens) for r in readers]
+        check(min(at_kill) >= FAILOVER_AT and max(at_kill) < FAILOVER_NEW,
+              f"overload failover: streamed {at_kill} before the kill")
+        proc.kill()
+        t_kill = time.perf_counter()
+        dead_s, st = wait_stats(
+            g_port, lambda s: p_url in s["failover"]["ejected_lanes"], 10)
+        dead_eject_s = time.perf_counter() - t_kill
+        for r in readers:
+            r.join(timeout=600)
+        resumed_ms = []
+        for r, ctl, n in zip(readers, controls, at_kill):
+            check(r.final is not None and r.final.get("resumed") == 1
+                  and r.tokens == ctl.tokens == r.final["tokens"],
+                  f"overload failover: {r.tokens} vs unbroken {ctl.tokens}: "
+                  f"{r.final} {r.error}")
+            # The resumed segment's first token: the first arrival after
+            # the largest gap since the kill.
+            after = [i for i, t in enumerate(r.times) if t >= t_kill]
+            gaps = [(r.times[i] - (r.times[i - 1] if i else t_kill), i)
+                    for i in after]
+            first = max(gaps)[1]
+            resumed_ms.append((r.times[first] - t_kill) * 1e3)
+        bound_dead = PROBE_INTERVAL_S * (PROBE_FAILURES + 1)
+        check(dead_s is not None and dead_eject_s <= bound_dead + 0.1,
+              f"overload prober: the dead P ejected after {dead_eject_s} s "
+              f"(bound {bound_dead}): {st}")
+        fo = get(g_port, "/stats")["failover"]
+        check(fo["resumes_succeeded"] == fo["resumes_attempted"] == 2
+              and fo["prober_ejections"] == 2 and fo["prober_restores"] == 1,
+              f"overload failover block: {fo}")
+        l_st, idle = wait_idle(l_port, paged=True)
+        check(idle, f"overload L: blocks leaked: {l_st['kv_pool']}")
+        counts = launch_counts()
+        check(all(p == 0 for _, p in counts.values()),
+              f"overload L: plain versions served attention: {counts}")
+        ragged = counts["ragged_paged_attention"][0]
+        flash = counts["flash_attention"][0]
+        mixed = l_st["mixed"]["dispatches"] - base_mixed
+        oneshot = l_st["stateless"]["dispatches"] - base_oneshot
+        check(ragged == n_layers * mixed and flash == n_layers * oneshot
+              and oneshot > 0,
+              f"overload L: {ragged} ragged launches for {mixed} mixed "
+              f"ticks, {flash} flash for {oneshot} one-shot dispatches")
+        gproc.send_signal(signal.SIGTERM)
+        g_rc = gproc.wait(timeout=60)
+        check(g_rc == 0, f"gateway command exited {g_rc}")
+    finally:
+        if stopped and proc.poll() is None:
+            os.kill(proc.pid, signal.SIGCONT)
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        if gproc.poll() is None:
+            gproc.kill()
+            gproc.wait(timeout=30)
+        g_log.close()
+        if hedger is not None:
+            hedger.stop()
+        server.stop()
+        worker.stop()
+    hedge = {"threshold_ms": res.get("hedge_threshold_ms"), "s": hedge_s,
+             "hedges": res["hedges"], "wins": res["hedge_wins"],
+             "losses": res["hedge_losses"],
+             "win_rate": res["hedge_wins"] / res["hedges"],
+             "flash_launches": hedge_flash}
+    out = {"p_ready_s": p_ready_s, "gateway_ready_s": g_ready_s,
+           "tenant": tenant, "overload": ov, "hedge": hedge,
+           "eject_stopped_s": eject_stop_s, "eject_stopped_bound_s":
+           bound_stop, "restore_s": restore_s, "eject_dead_s": dead_eject_s,
+           "eject_dead_bound_s": bound_dead, "streamed_at_kill": at_kill,
+           "kill_to_resumed_token_ms": resumed_ms, "failover": fo,
+           "launches": {"ragged_paged_attention": ragged,
+                        "flash_attention": flash},
+           "mixed_ticks": mixed, "oneshot_dispatches": oneshot}
+    log(f"overload gateway: P up in {p_ready_s:.1f} s, the gateway command "
+        f"in {g_ready_s:.1f} s; tenant A {tenant['A']} and B {tenant['B']} "
+        f"(rate {TENANT_RATE:g}/s); P stopped: hedged /score answered by L "
+        f"in {hedge_s * 1e3:.1f} ms (threshold {hedge['threshold_ms']} ms, "
+        f"hedges {hedge['hedges']}, wins {hedge['wins']}, {hedge_flash} "
+        f"flash launches), ejected after {eject_stop_s:.3f} s (bound "
+        f"{bound_stop:.1f} s: 3 probes of up to 5 s), breaker CLOSED with 0 "
+        f"failures, restored {restore_s:.3f} s after SIGCONT; P killed after "
+        f"{at_kill} tokens: both streams (greedy, seeded) resumed once on L, "
+        f"token-identical to their unbroken runs, kill -> first resumed "
+        f"token {[round(x, 1) for x in resumed_ms]} ms; the dead P ejected "
+        f"after {dead_eject_s:.3f} s (bound {bound_dead:.1f} s); L's "
+        f"ragged_paged_attention {ragged} == {n_layers} x {mixed} mixed "
+        f"ticks, flash_attention {flash} == {n_layers} x {oneshot} one-shot "
+        f"dispatches, plain calls 0")
+    return out
+
+
+def overload_tick_times(torch, params, pa) -> dict:
+    """The mixed tick at the main path's shape (seven decode rows beside a
+    prefill chunk, width 256, bf16) with the chunk the budget leaves at
+    budget_frac 1.0 (249 tokens) and 0.25 (57): the forward's time, host
+    issue and device busy time, and #1 alone at that tick's rows; #5 at
+    a hedged /score's dispatch (one row of 128, f32, causal)."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import (
+        KVCache,
+        transformer_step_rows_ragged,
+    )
+    from tpu_engine_torch.ops import flash as fl
+
+    cfg = create_model("llama").config
+    dev = torch.device("cuda")
+    q, k, v, tables, pos0, qlen = main_path_inputs(torch, dev, False)
+    shape = (cfg.n_layers, 8 * 128 + 1, 16, cfg.kv_heads, cfg.d_head)
+    caches = KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                     torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+    tokens = torch.randint(0, cfg.vocab, (8, 256), device=dev,
+                           dtype=torch.int32)
+    out = {}
+    for frac in (1.0, 0.25):
+        chunk = max(1, int(256 * frac) - 7)
+        ql = qlen.clone()
+        ql[7] = chunk
+        slot = (ql - 1).clamp(min=0)
+
+        def fwd():
+            return transformer_step_rows_ragged(
+                params, tokens, caches, tables, pos0, ql, cfg,
+                dtype=torch.bfloat16, sample_slot=slot)[0]
+
+        logits = fwd()
+        check(bool(torch.isfinite(logits).all()),
+              f"overload tick at {frac}: non-finite logits")
+        ms = time_ms(torch, fwd, iters=10)
+        busy = busy_ms(torch, fwd)
+        kernel = time_ms(torch, lambda: pa.ragged_paged_attention(
+            q, k, v, tables, pos0, ql))
+        out[f"budget_frac {frac}"] = {
+            "prefill_chunk": chunk, "forward_ms": ms,
+            "issue_ms": issue_ms(torch, fwd), "busy_ms": busy,
+            "idle_share": idle_share(busy, ms), "ragged_ms": kernel}
+    fq = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
+    fk = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
+    fv = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
+    out["flash score row f32"] = time_ms(
+        torch, lambda: fl.flash_attention_fwd(fq, fk, fv, causal=True))
+    for key in ("budget_frac 1.0", "budget_frac 0.25"):
+        r = out[key]
+        log(f"overload tick ({key}: 7 decode rows + a {r['prefill_chunk']}-"
+            f"token chunk, width 256, bf16): {r['forward_ms']:.3f} ms "
+            f"(host issue {r['issue_ms']:.3f} ms, "
+            f"{busy_text(r['busy_ms'], r['idle_share'])}), "
+            f"#1 {r['ragged_ms']:.4f} ms")
+    log(f"overload: #5 at a /score row (1 x 128, f32) "
+        f"{out['flash score row f32']:.4f} ms")
+    return out
+
+
+def phase_overload(torch, card: str, pa) -> dict:
+    """Overload control and crash-tolerant serving (see the module
+    docstring's overload entry). The gateway's P worker starts first, as
+    a process, and loads while the in-process parts run."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    proc, p_port, p_log = spawn_worker(
+        ["ov-p", "llama", "--dtype", "float32", "--kv-block-size", "16",
+         "--mixed-step", "--mixed-token-budget", "256", "--prefill-chunk",
+         "256", "--n-slots", "8"], OUT_DIR / "overload_worker.log")
+    out = {}
+    try:
+        cfg = create_model("llama").config
+        params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+        out["worker"] = overload_worker(torch, params)
+        out["swap_defer"] = overload_swap_defer(torch, params)
+        out["ticks"] = overload_tick_times(torch, params, pa)
+        del params
+        torch.cuda.empty_cache()
+        params32 = init_params(cfg, seed=0, device="cuda", dtype="float32")
+        out["identity"] = overload_identity(torch, params32)
+        out["gateway"] = overload_gateway(torch, params32, proc, p_port)
+        del params32
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        p_log.close()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"overload: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -4179,11 +5089,11 @@ def resnet_forward_times(torch) -> dict:
         busy = busy_ms(torch, fwd)
         out[f"B={b}"] = res = {
             "forward_ms": ms, "issue_ms": host, "busy_ms": busy,
-            "idle_share": max(0.0, 1 - busy / ms),
+            "idle_share": idle_share(busy, ms),
             "images_per_s": b / ms * 1e3}
         log(f"forward (resnet50 bf16, B {b}, 224 x 224 x 3): {ms:.3f} ms "
-            f"(host issue {host:.3f} ms, device busy {busy:.3f} ms, idle "
-            f"{100 * res['idle_share']:.1f}%), "
+            f"(host issue {host:.3f} ms, "
+            f"{busy_text(busy, res['idle_share'])}), "
             f"{res['images_per_s']:.1f} images/s")
     del params
     torch.cuda.empty_cache()
@@ -4287,10 +5197,10 @@ def forward_times(torch, kernel_res) -> dict:
         host = issue_ms(torch, fwd)
         busy = busy_ms(torch, fwd)
         res = {"forward_ms": ms, "issue_ms": host, "busy_ms": busy,
-               "idle_share": max(0.0, 1 - busy / ms)}
+               "idle_share": idle_share(busy, ms)}
         line = (f"forward ({key}, llama {cfg.n_layers} layers): {ms:.3f} "
-                f"ms per step (host issue {host:.3f} ms, device busy "
-                f"{busy:.3f} ms, idle {100 * res['idle_share']:.1f}%)")
+                f"ms per step (host issue {host:.3f} ms, "
+                f"{busy_text(busy, res['idle_share'])})")
         if kernel is not None:
             attn = cfg.n_layers * kernel_res[kernel][kshape]["device_ms"]
             res.update(kernel=kernel, attention_ms=attn,
@@ -4559,6 +5469,9 @@ def main() -> int:
     refmodels = phase_refmodels(torch, card, errs)
     train = phase_train(torch)
     numbers = phase_numbers(torch, pa)
+    # Last: its processes and profiler sessions run after every timing of
+    # the earlier phases.
+    overload = phase_overload(torch, card, pa)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -4588,12 +5501,27 @@ def main() -> int:
                 "plain_ms": bert["plain_ms"], "bound_ms": bert["bound_ms"],
                 "bound_by": bert["bound_by"],
                 "library_ms": bert["library_device_ms"]}
+        # The overload phase's launches of the two kernels on its path,
+        # each from its own run.
+        if name == "ragged_paged_attention":
+            ticks = overload["ticks"]
+            rows[-1]["overload"] = {
+                "launches": sum(overload[part]["launches"] for part in
+                                ("worker", "identity", "swap_defer"))
+                + overload["gateway"]["launches"][name],
+                "ms_by_budget_frac": {
+                    f: ticks[f"budget_frac {f}"]["ragged_ms"]
+                    for f in ("1.0", "0.25")}}
+        if name == "flash_attention":
+            rows[-1]["overload"] = {
+                "launches": overload["gateway"]["launches"][name],
+                "ms": overload["ticks"]["flash score row f32"]}
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
          "server": server, "gateway": gateway, "kvtier": kvtier,
-         "refmodels": refmodels, "train": train,
+         "refmodels": refmodels, "overload": overload, "train": train,
          "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

@@ -372,7 +372,7 @@ def test_bad_checksum_is_retryable_and_clean(fleets, mode):
         _, final = _run_stream(evs)
         assert final["import_refused"] is True and final["retryable"]
         events.append(final)
-    assert set(events[0]) == set(events[1]) - {"trace_id"}
+    assert set(events[0]) == set(events[1])
     assert _wait(lambda: _leak_free(dst))
 
 

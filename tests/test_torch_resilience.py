@@ -10,8 +10,10 @@ utils.deadline, utils.config.GatewayConfig) against the JAX package's:
 - the counters' FIELDS, the shed kinds, Deadline.from_request at JAX's
   default (no default deadline) and the ported GatewayConfig fields'
   defaults are JAX's;
-- tiered and adaptive admission, every gateway feature the port lacks,
-  and the settings only JAX's serve command sets, refuse by name.
+- every gateway feature the port lacks, and the settings only JAX's
+  serve command sets, refuse by name (tiered and adaptive admission, and
+  the overload, hedging, stream failover and prober fields are ported:
+  tests/test_torch_overload.py and tests/test_torch_failover.py).
 All comparisons are exact."""
 
 import dataclasses
@@ -28,11 +30,10 @@ from tpu_engine_torch.serving import resilience as tres
 from tpu_engine_torch.utils import deadline as tdl
 from tpu_engine_torch.utils.config import GatewayConfig
 
-REFUSED = {"hedge_enabled": True, "failover_streams": True,
-           "migrate_streams": True, "health_probe_interval_s": 0.5,
+REFUSED = {"migrate_streams": True,
            "disagg": True, "prefix_affinity": True,
-           "prefix_directory": True, "overload_control": True,
-           "tenant_rate": 2.0, "autoscale": True, "slo_ttft_p99_ms": 500.0,
+           "prefix_directory": True, "autoscale": True,
+           "slo_ttft_p99_ms": 500.0,
            "slo_itl_p99_ms": 200.0, "slo_completion_p99_ms": 900.0,
            "trace_stitch": True}
 
@@ -104,13 +105,6 @@ def test_drain_statuses_and_wait_idle_match_jax():
         ctl.release()
         assert ctl.wait_idle(0.01) is True
         assert ctl.active  # max_depth set
-
-
-def test_unported_admission_refuses_by_name():
-    with pytest.raises(NotImplementedError, match="tier_fracs"):
-        tres.AdmissionController(4, tier_fracs=(0.7, 0.85, 1.0))
-    with pytest.raises(NotImplementedError, match="limiter"):
-        tres.AdmissionController(4, limiter=object())
 
 
 @pytest.mark.parametrize("ratio,minimum", [(None, 10), (0.0, 0), (0.1, 2),

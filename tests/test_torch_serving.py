@@ -239,9 +239,10 @@ def test_deadline_mid_generation_cancels_like_jax(params, monkeypatch):
             assert final["tokens_emitted"] == len(streamed)
             assert "deadline exceeded mid-generation" in final["error"]
             finals.append(final)
-        keys = {"done", "error", "retryable", "request_id",
-                "tokens_emitted"}
-        assert set(finals[0]) == keys <= set(finals[1])
+        keys = {"done", "error", "retryable", "request_id", "trace_id",
+                "tokens_emitted", "shed"}
+        assert set(finals[0]) == keys == set(finals[1])
+        assert finals[0]["trace_id"] == finals[1]["trace_id"]
         assert finals[0]["retryable"] is finals[1]["retryable"] is False
         st = tw.get_health()["generator"]
         for _ in range(200):

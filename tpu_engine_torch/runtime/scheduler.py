@@ -86,8 +86,18 @@ stream state and KV chain (``kv_blocks`` wire format), ending the local
 stream with ``StreamMigratedAway``; ``submit_import`` adopts such a
 snapshot on another lane with zero re-prefilled tokens, or fails with a
 retryable ``ImportRefused``. The disaggregated handoff (``wait_prefill``,
-``cancel``), the state-slab mode, brownout and tensor parallelism are not
-yet ported and refuse.
+``cancel``), the state-slab mode and tensor parallelism are not yet
+ported and refuse.
+
+Brownout (``set_brownout``, driven by the worker's overload control
+loop) degrades the work's shape, never a stream's content: the mixed
+tick's token budget and the one-shot rows a tick drains scale by
+``budget_frac`` (floored at 1; the ragged batch's width, the chunk cap,
+is untouched), ``suspend_spec`` stops the drafter (every decode row rides
+the verify tick at q_len 1, so greedy streams are unchanged), and
+``defer_swap_in`` makes radix lookups stop at the resident prefix
+instead of promoting demoted blocks (counted as ``swap_in_deferred``).
+``stats()["brownout"]`` is present only while a degradation is engaged.
 """
 
 from __future__ import annotations
@@ -524,6 +534,10 @@ class ContinuousGenerator:
         self._stats = {"admitted": 0, "completed": 0, "chunks": 0}
         self._stats_lock = threading.Lock()
         self._draining_flag = False
+        # Brownout degradations (set_brownout), off at construction.
+        self._bo_budget_frac = 1.0
+        self._bo_spec_off = False
+        self._bo_defer_swap = False
         self._infer_engine = infer_engine
         self._score_provider = score_provider
         # The stateless block exists iff one-shot rows can: a generative
@@ -910,7 +924,34 @@ class ContinuousGenerator:
             # Live rows over slots of a draining lane (0.0: emptied).
             out["drain_pressure"] = round(out["active"] / max(1, self.n_slots),
                                           4)
+        if (self._bo_budget_frac < 1.0 or self._bo_spec_off
+                or self._bo_defer_swap):
+            out["brownout"] = {"budget_frac": self._bo_budget_frac,
+                               "spec_suspended": self._bo_spec_off,
+                               "swap_in_deferred": self._bo_defer_swap}
         return out
+
+    def set_brownout(self, budget_frac: float = 1.0,
+                     suspend_spec: bool = False,
+                     defer_swap_in: bool = False) -> None:
+        """Apply one brownout stage's degradations (idempotent; the
+        defaults restore): ``budget_frac`` (clamped to [0.05, 1]) scales
+        the mixed tick's token budget and the one-shot rows a tick
+        drains, ``suspend_spec`` stops drafting, ``defer_swap_in`` stops
+        host-tier promotions at lookup. Plain attribute writes, read once
+        a tick: a tick-stale read only moves when a stage takes hold."""
+        self._bo_budget_frac = min(1.0, max(0.05, float(budget_frac)))
+        self._bo_spec_off = bool(suspend_spec)
+        self._bo_defer_swap = bool(defer_swap_in)
+
+    def _effective_mixed_budget(self) -> int:
+        """The per-tick token budget in force: the configured one scaled
+        by the brownout fraction, floored at 1 (admission always
+        progresses)."""
+        f = self._bo_budget_frac
+        if f >= 1.0:
+            return self._mixed_budget
+        return max(1, int(self._mixed_budget * f))
 
     def set_draining(self, draining: bool) -> None:
         """Mark the lane draining (the worker's drain and undrain): while
@@ -981,8 +1022,11 @@ class ContinuousGenerator:
 
     def _swap_reserve(self) -> int:
         """The ``promote_reserve`` a radix lookup passes: the live-row
-        reserve (the JAX scheduler widens it to the whole pool under
-        brownout, which the port does not have)."""
+        reserve, or under brownout swap-in deferral the whole pool, which
+        no promotion can leave free, so a demoted hit stops at the
+        resident prefix and counts ``swap_in_deferred``."""
+        if self._bo_defer_swap:
+            return self._pool.num_blocks
         return self._promote_reserve()
 
     def _free_rows(self) -> List[int]:
@@ -1717,7 +1761,7 @@ class ContinuousGenerator:
         rows in row order, at most the chunk cap each; the first always
         gets at least one token, so admission never deadlocks."""
         chunk = np.zeros((self.n_slots,), np.int32)
-        budget_left = max(1, self._mixed_budget - n_decode)
+        budget_left = max(1, self._effective_mixed_budget() - n_decode)
         for r in prefill_rows:
             remaining = max(self._row_L[r], 1) - self._row_w0[r]
             c = min(remaining, self._chunk_cap, budget_left)
@@ -1878,7 +1922,10 @@ class ContinuousGenerator:
         proposed = 0
         scan = getattr(self._drafter, "max_scan", 0)
         for r, req in enumerate(self._row_req):
-            if req is None or self._done[r] or self._prefilling[r]:
+            if (req is None or self._done[r] or self._prefilling[r]
+                    or self._bo_spec_off):
+                # Brownout spec suspension: no proposals, every decode
+                # row rides q_len 1 through the same dispatch.
                 continue
             kcap = min(self._spec_k,
                        req.max_new - len(self._row_emitted[r]) - 1,
@@ -2255,16 +2302,22 @@ class ContinuousGenerator:
     # -- one-shot rows --------------------------------------------------------
 
     def _tick_stateless(self) -> None:
-        """Drain up to ``n_slots`` pending one-shot requests, drop those
+        """Drain up to ``n_slots`` (under brownout, ``budget_frac`` of
+        them) pending one-shot requests, drop those
         whose deadline passed (``deadline_dropped``), and run one grouped
         dispatch per kind present: /infer rows through the engine's
         batched forward, /score rows through the scorer's. Members take a
         free row for the tick (overflow members ride the same dispatch
         rowless) and free it within the tick."""
         st = self._stats["stateless"]
+        budget = self.n_slots
+        if self._bo_budget_frac < 1.0:
+            # Brownout: shrink the tick's one-shot dispatch as the mixed
+            # budget shrinks (floored at 1); the rest stay queued.
+            budget = max(1, int(budget * self._bo_budget_frac))
         pairs = []
         free = self._free_rows()
-        while len(pairs) < self.n_slots:
+        while len(pairs) < budget:
             try:
                 req = self._oneshot_ready.get_nowait()
             except queue.Empty:

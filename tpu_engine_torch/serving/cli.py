@@ -9,6 +9,8 @@
       [--step-chunk N] [--prefill-chunk N] [--n-slots N]
       [--max-batch-size N] [--cache-capacity N] [--batch-timeout-ms MS]
       [--pipeline-depth N] [--warmup] [--no-unified-stateless]
+      [--priority-admission] [--adaptive-depth]
+      [--brownout [--brownout-clamp-tokens N]]
       [--device cpu] [--dtype bfloat16] [--seed N]
 
   python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
@@ -19,7 +21,9 @@
 
   python -m tpu_engine_torch.serving.cli gateway <worker1_host:port>
       [worker2_host:port ...] [--port 8000] [--breaker-timeout S]
-      [--drain-timeout S] [--retry-budget RATIO]
+      [--drain-timeout S] [--retry-budget RATIO] [--failover-streams]
+      [--health-probe-interval S] [--overload-control
+      [--overload-max-inflight N]] [--tenant-rate R]
 
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
@@ -45,8 +49,16 @@ from a draft model (``--gen-draft-model``, default by the target: gpt2 ->
 distilgpt2, randomly initialised), verified in the tick's one ragged forward. ``<model>`` is a
 registry name (seeded random weights) or a checkpoint directory holding
 the ``tpu_engine_model.json`` sidecar the ``train`` command writes (its
-trained weights, served at ``--dtype``). The worker serves until SIGTERM
-or SIGINT.
+trained weights, served at ``--dtype``). Overload control (each off by
+default): ``--adaptive-depth`` bounds the requests in flight by an AIMD
+limit driven by their latency (from 32, at most 64), above which the
+lane sheds 503 ``overloaded``; ``--priority-admission`` sheds the lower
+``priority`` tiers of requests first (background at 70% of the limit,
+batch at 85%); and ``--brownout`` degrades the lane under
+pressure before it sheds (the mixed tick's token budget halved,
+speculation suspended, host-tier swap-ins deferred, then below-top-tier
+requests clamped to ``--brownout-clamp-tokens`` new tokens), restoring
+in reverse. The worker serves until SIGTERM or SIGINT.
 
 worker_node: the argv of the reference's launch line (``worker_node 8001
 worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
@@ -71,9 +83,17 @@ gateway: the reference's gateway argv (``gateway 127.0.0.1:8001
 per lane (``--breaker-timeout`` seconds OPEN before HALF_OPEN, default 30),
 ring-order failover, and /stats. ``--drain-timeout`` bounds a graceful
 removal's drain call, ``--retry-budget`` caps failover retries at that
-share of recent requests. The JAX command's other gateway flags (stream
-resume and migration, the health prober, prefix affinity and the prefix
-directory, overload control, disaggregated roles, the autoscaler, SLO
+share of recent requests. ``--failover-streams`` resumes a stream whose
+lane fails mid-generation on another lane (prompt plus the emitted
+tokens), ``--health-probe-interval S`` probes every lane's /health each S
+seconds and ejects a lane after 3 failed probes until one succeeds,
+``--overload-control`` validates the requests' ``priority`` and with
+``--overload-max-inflight N`` sheds the lower tiers first as N requests
+in flight fill (Retry-After growing with the pressure), ``--tenant-rate
+R`` holds each ``tenant`` to R requests/s (a bucket 2R deep). Hedged
+dispatch has no flag, as in JAX: it is ``GatewayConfig.hedge_enabled``.
+The JAX command's other gateway flags (stream migration, prefix affinity
+and the prefix directory, disaggregated roles, the autoscaler, SLO
 objectives and trace stitching, standby workers) are accepted and refuse
 by name.
 
@@ -167,6 +187,20 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
                    choices=("bfloat16", "float32"))
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    p.add_argument("--priority-admission", action="store_true",
+                   help="shed the lowest priority tier first under depth "
+                        "pressure (requests carry priority: "
+                        "interactive|batch|background)")
+    p.add_argument("--adaptive-depth", action="store_true",
+                   help="AIMD adaptive concurrency limit driven by the "
+                        "requests' latency against the window's baseline")
+    p.add_argument("--brownout", action="store_true",
+                   help="staged brownout: degrade (budget shrink, spec "
+                        "off, swap-in deferral, low-tier clamp) before "
+                        "shedding")
+    p.add_argument("--brownout-clamp-tokens", type=int, default=None,
+                   help="the clamp stage's max_new_tokens ceiling for "
+                        "below-top-tier requests (default 32)")
 
 
 def _serve(a, node_id: str, model: str, params=None,
@@ -194,7 +228,12 @@ def _serve(a, node_id: str, model: str, params=None,
                        batch_timeout_ms=a.batch_timeout_ms,
                        pipeline_depth=a.pipeline_depth,
                        unified_stateless=not a.no_unified_stateless,
+                       priority_admission=a.priority_admission,
+                       adaptive_depth=a.adaptive_depth,
+                       brownout=a.brownout,
                        device=a.device, seed=a.seed)
+    if a.brownout_clamp_tokens is not None:
+        cfg.brownout_clamp_tokens = a.brownout_clamp_tokens
     worker, server = serve_worker(cfg, params=params, warmup=a.warmup)
     print(f"tpu_engine_torch worker {cfg.node_id} ({cfg.model}, "
           f"{worker.engine.device}) listening on port {server.port}",
@@ -306,8 +345,6 @@ def import_weights(argv) -> int:
 # (flag, takes a value, is repeatable). Each is accepted and refuses by
 # name.
 _UNPORTED_GATEWAY_FLAGS = (
-    ("--failover-streams", False, False),
-    ("--health-probe-interval", True, False),
     ("--migrate-streams", False, False),
     ("--migrate-timeout", True, False),
     ("--prefix-affinity", False, False),
@@ -316,9 +353,6 @@ _UNPORTED_GATEWAY_FLAGS = (
     ("--affinity-max-imbalance", True, False),
     ("--prefix-directory", False, False),
     ("--prefix-dir-capacity", True, False),
-    ("--overload-control", False, False),
-    ("--overload-max-inflight", True, False),
-    ("--tenant-rate", True, False),
     ("--disagg", False, False),
     ("--handoff-timeout", True, False),
     ("--autoscale", False, False),
@@ -358,6 +392,23 @@ def gateway_config(argv):
     p.add_argument("--retry-budget", type=float, default=None,
                    help="cap failover retries at this fraction of recent "
                         "requests (default: unlimited)")
+    p.add_argument("--failover-streams", action="store_true",
+                   help="resume a stream whose lane fails mid-generation "
+                        "on another ring lane (prompt + emitted tokens), "
+                        "spliced into one stream")
+    p.add_argument("--health-probe-interval", type=float, default=0.0,
+                   help="probe every lane's /health at this interval and "
+                        "eject a lane after 3 failed probes until one "
+                        "succeeds (seconds; 0 = off)")
+    p.add_argument("--overload-control", action="store_true",
+                   help="priority-tiered gateway admission (the lowest "
+                        "tier sheds first as --overload-max-inflight "
+                        "fills) and a Retry-After growing with pressure")
+    p.add_argument("--overload-max-inflight", type=int, default=None,
+                   help="the in-flight gauge of tier admission (0 = none)")
+    p.add_argument("--tenant-rate", type=float, default=None,
+                   help="per-tenant token-bucket rate limit (requests/s; "
+                        "0 = off)")
     for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
         if repeat:
             p.add_argument(flag, action="append", default=None)
@@ -375,6 +426,16 @@ def gateway_config(argv):
         kw["drain_timeout_s"] = a.drain_timeout
     if a.retry_budget is not None:
         kw["retry_budget_ratio"] = a.retry_budget
+    if a.failover_streams:
+        kw["failover_streams"] = True
+    if a.health_probe_interval:
+        kw["health_probe_interval_s"] = a.health_probe_interval
+    if a.overload_control:
+        kw["overload_control"] = True
+    if a.overload_max_inflight is not None:
+        kw["overload_max_inflight"] = a.overload_max_inflight
+    if a.tenant_rate is not None:
+        kw["tenant_rate"] = a.tenant_rate
     return a.workers, GatewayConfig(port=a.port,
                                     breaker_timeout_s=a.breaker_timeout,
                                     **kw)
@@ -396,6 +457,7 @@ def _gateway(argv) -> int:
         _wait_for_signal()
     finally:
         server.stop()
+        gateway.stop()
     return 0
 
 

@@ -10,7 +10,8 @@ request's fault), a 503 whose body's ``kind`` is ``overloaded`` or
 the lane is healthy), and anything else (a refused connection, a timeout,
 a 500, another 503) is ``WorkerError`` (a lane fault: the breaker counts
 it). A socket timeout under a deadline-clamped read is
-``DeadlineExceeded`` marked ``lane_suspect``.
+``DeadlineExceeded`` marked ``lane_suspect``. The health prober's reads
+(``probe_health``) take a connection of their own, never a pool slot.
 """
 
 from __future__ import annotations
@@ -246,3 +247,25 @@ class HttpWorkerClient:
 
     def health(self) -> dict:
         return self._request("GET", "/health")
+
+    def probe_health(self, timeout_s: float = 5.0) -> dict:
+        """/health on a dedicated short-lived connection, outside the data
+        pool: a lane whose pooled connections are all held by streams is
+        busy, not dead, and the health prober must not read a starved
+        pool as a failed probe."""
+        conn = http.client.HTTPConnection(self.host, self.port,
+                                          timeout=timeout_s)
+        try:
+            conn.request("GET", "/health")
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                raise WorkerError(
+                    f"worker {self.url} /health returned {resp.status}")
+            return json.loads(data)
+        except WorkerError:
+            raise
+        except Exception as exc:
+            raise WorkerError(f"worker {self.url}: {exc}") from exc
+        finally:
+            conn.close()

@@ -1,4 +1,4 @@
-"""The gateway (the port's copy of the ``Gateway`` core of
+"""The gateway (the port's copy of the ``Gateway`` of
 ``tpu_engine/serving/gateway.py``): consistent-hash routing over HTTP
 workers, each lane guarded by a circuit breaker, with ring-order failover.
 
@@ -13,39 +13,87 @@ workers failed or unavailable". An expired deadline is a 503
 ``deadline_exceeded`` at admission, during failover or from a lane; each
 dispatch forwards the budget left; a request without ``deadline_ms`` has
 none. Failover is immediate, and its retries may be capped by a global
-retry budget (off by default). A
-request naming a ``model`` probes the ring: a lane's 400 for it moves on
-without a penalty.
+retry budget (off by default). A request naming a ``model`` probes the
+ring: a lane's 400 for it moves on without a penalty.
 
 Streams are relayed frame by frame; a mid-stream lane fault (the
 transport dying, or a retryable in-band error event that is not a
 ``shed``) counts against the lane's breaker.
 
-``get_stats`` is the reference's ``/stats`` schema (``total_workers``,
-``total_requests``, ``failovers``, ``circuit_breakers``), plus the
-``resilience`` block once the resilience layer is configured or has
-decided something, and the ``migration`` block once a bounded drain has
-failed.
+What the JAX gateway adds over the reference, each off by default:
 
-Lanes are HTTP workers only. In-process lanes, stream resume, migration,
-hedging, the health prober, disaggregated roles, prefix affinity and the
-prefix directory, overload control, the autoscaler, SLO objectives and
-trace stitching are not ported: each refuses by name
-(``utils.config.refuse_unported``).
+- **Overload control** (``overload_control``, ``overload_max_inflight``;
+  ``tenant_rate``): an in-flight gauge over each request's whole
+  residency (a stream's until its events end), the per-tenant token
+  bucket (the request's ``tenant``), priority-tiered admission against
+  the gauge (the request's ``priority``; an unknown value is a 400), and
+  a Retry-After on every gateway shed that grows with the measured
+  pressure (the gauge's fill, or the recent shed rate without a gauge).
+- **Hedged dispatch** (``hedge_enabled``) of ``/infer`` and ``/score``,
+  never of generation: once the primary has run longer than the best
+  other lane's ``hedge_quantile`` latency (at least ``hedge_min_ms``), the
+  next ring lane whose breaker admits is dispatched too; the first answer
+  wins, the loser's is discarded, and the hedge draws on the retry
+  budget.
+- **Crash-tolerant streaming** (``failover_streams``): the gateway
+  journals the tokens it relays, and a retryable mid-stream failure (a
+  truncated body, a transport fault, a retryable error event, a drain
+  shed) resumes the stream on another ring lane with the prompt plus
+  the emitted tokens, the budget offset and the deadline left, splicing
+  the continuation into one stream whose ``done`` event covers every
+  token (``resumed``: the resumes). An end that cannot resume (the resume
+  cap, the deadline, no lane) is the JAX terminal error event
+  (``retryable``, ``trace_id``, ``tokens_emitted``, ``tokens``).
+- **The health prober** (``health_probe_interval_s``): each interval
+  every lane's ``/health`` on a connection of its own;
+  ``health_probe_failures`` consecutive failures eject a lane from
+  dispatch with no breaker penalty, the next success restores it. While
+  every lane of the ring is ejected, ejection is ignored (fail open).
+
+``get_stats`` is the reference's ``/stats`` schema (``total_workers``,
+``total_requests``, ``failovers``, ``circuit_breakers``), plus, gated as
+in JAX: ``resilience`` once the layer is configured (a retry budget,
+hedging) or has decided something, ``failover`` once streams fail over,
+the prober runs or either decided something, ``overload`` once overload
+control or the tenant bucket is on, and ``migration`` once a bounded
+drain has failed. The JAX gateway's spans (``route``, ``attempt``,
+``resilience``, ``overload``, ``hedge``, ``resume``, ``prober``) come
+with the port's tracing (ROADMAP.md §A 16.3); their counters are here.
+
+Lanes are HTTP workers only. In-process lanes, stream migration,
+disaggregated roles, prefix affinity and the prefix directory, the
+autoscaler, SLO objectives and trace stitching are not ported: each
+refuses by name (``utils.config.refuse_unported``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import threading
+import time
 import uuid
 from typing import Dict, List, Optional
 
 from tpu_engine_torch.core.circuit_breaker import CircuitBreaker
 from tpu_engine_torch.core.consistent_hash import ConsistentHash
 from tpu_engine_torch.serving.clients import HttpWorkerClient, WorkerError
+from tpu_engine_torch.serving.http import request_trace_id, sse_event
+from tpu_engine_torch.serving.overload import (
+    OverloadCounters,
+    SheddingStats,
+    TenantRateLimiter,
+    TIER_ADMIT_FRAC,
+    TIER_NAMES,
+    load_retry_after,
+    parse_priority,
+    tier_limit,
+)
 from tpu_engine_torch.serving.resilience import (
+    FailoverCounters,
+    LatencyTracker,
     MigrationCounters,
+    ProbeStateMachine,
     ResilienceCounters,
     RetryBudget,
 )
@@ -61,6 +109,13 @@ from tpu_engine_torch.utils.deadline import (
 class GatewayError(Exception):
     pass
 
+
+# The idempotent ops hedged dispatch may fire twice; generation never.
+_HEDGEABLE_OPS = frozenset({"infer", "infer_raw", "score"})
+
+# The Retry-After base of a gateway shed: the JAX GatewayConfig's
+# shed_retry_after_s default, which only the JAX serve command sets.
+_SHED_RETRY_AFTER_S = 1.0
 
 # _try_node's answer for a lane that shed the request: a failure for
 # failover, but told apart from a fault so a ring that only sheds answers
@@ -99,12 +154,44 @@ class Gateway:
         self._total_requests = 0
         self._failovers = 0
         self.resilience = ResilienceCounters()
+        self.failover = FailoverCounters()
         self.migration = MigrationCounters()
         self._retry_budget = RetryBudget(self.config.retry_budget_ratio,
                                          self.config.retry_budget_min,
                                          self.config.retry_budget_window_s)
+        # Per-lane latency windows of hedged primaries: a lane's own
+        # slowness never raises the threshold it is judged by.
+        self._latency: Dict[str, LatencyTracker] = {}
+        self._hedge_pool: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        self.overload = OverloadCounters()
+        self._tenant_bucket: Optional[TenantRateLimiter] = (
+            TenantRateLimiter(self.config.tenant_rate,
+                              self.config.tenant_burst)
+            if self.config.tenant_rate > 0 else None)
+        # Requests inside the routing layer (under _lock): the gauge the
+        # tier fractions admit against.
+        self._inflight = 0
+        self._shed_stats = SheddingStats()
+        self._ejected: set = set()
+        self._probe_state = ProbeStateMachine(
+            self.config.health_probe_failures)
+        self._prober_stop = threading.Event()
+        self._prober_thread: Optional[threading.Thread] = None
         for w in workers or []:
             self.add_worker(w)
+        if self.config.health_probe_interval_s > 0:
+            self._prober_thread = threading.Thread(
+                target=self._probe_loop, name="gw-prober", daemon=True)
+            self._prober_thread.start()
+
+    def stop(self) -> None:
+        """Stop the health prober (idempotent; routing keeps working)."""
+        self._prober_stop.set()
+        t = self._prober_thread
+        if t is not None:
+            t.join(timeout=5)
+            self._prober_thread = None
 
     # -- membership -----------------------------------------------------------
 
@@ -143,6 +230,9 @@ class Gateway:
         with self._lock:
             self._clients.pop(name, None)
             self._breakers.pop(name, None)
+            self._latency.pop(name, None)
+            self._ejected.discard(name)
+        self._probe_state.forget(name)
 
     def _bounded_drain(self, client: HttpWorkerClient) -> bool:
         """Whether ``client.drain()`` answered within ``drain_timeout_s``
@@ -169,6 +259,46 @@ class Gateway:
         with self._lock:
             return self._breakers.get(name)
 
+    # -- the health prober ----------------------------------------------------
+
+    def _probe_loop(self) -> None:
+        """Each interval, every lane's /health on a dedicated connection:
+        a probe fails when the lane is unreachable or answers
+        ``healthy: false``; the state machine's eject and restore move
+        the lane out of and back into dispatch, with no breaker penalty
+        (the prober span comes with ROADMAP.md §A 16.3)."""
+        interval = self.config.health_probe_interval_s
+        while not self._prober_stop.wait(interval):
+            with self._lock:
+                clients = dict(self._clients)
+            for name, client in clients.items():
+                try:
+                    ok = bool(client.probe_health().get("healthy", False))
+                except Exception:
+                    ok = False
+                action = self._probe_state.record(name, ok)
+                with self._lock:
+                    present = name in self._clients
+                if not present:
+                    # Removed while this sweep held the stale snapshot.
+                    self._probe_state.forget(name)
+                    continue
+                if action is None:
+                    continue
+                with self._lock:
+                    if name not in self._clients:
+                        continue
+                    if action == "eject":
+                        self._ejected.add(name)
+                    else:
+                        self._ejected.discard(name)
+                self.failover.bump("prober_ejections" if action == "eject"
+                                   else "prober_restores")
+
+    def ejected_lanes(self) -> List[str]:
+        with self._lock:
+            return sorted(self._ejected)
+
     # -- routes ---------------------------------------------------------------
 
     def route_request(self, payload: dict) -> dict:
@@ -186,7 +316,11 @@ class Gateway:
 
     def route_generate_stream(self, payload: dict):
         """The serving lane's SSE frames, relayed as they arrive, its
-        breaker fed by a mid-stream fault."""
+        breaker fed by a mid-stream fault; with ``failover_streams`` a
+        retryable mid-stream failure resumes on another lane
+        (``_stream_with_failover``)."""
+        if self.config.failover_streams:
+            return self._stream_with_failover(payload)
         info: dict = {}
         it = self._route(payload, op="generate_stream", out_info=info)
         return self._breaker_watched(it, info.get("lane"))
@@ -222,27 +356,229 @@ class Gateway:
         if breaker is not None:
             breaker.record_failure()
 
+    # -- crash-tolerant streaming ---------------------------------------------
+
+    @staticmethod
+    def _resume_payload(payload: dict, emitted: List[int], max_new: int,
+                        deadline: Optional[Deadline]) -> dict:
+        """The resume request: the emitted tokens appended to the prompt,
+        the token budget offset by their count, and the deadline's budget
+        left now (a resume never restarts the client's clock). Sampling
+        folds the seed with the absolute position, so greedy and seeded
+        continuations equal an unbroken run."""
+        prompt = [int(t) for t in payload.get("prompt_tokens", ())]
+        resume = {**payload,
+                  "prompt_tokens": prompt + list(emitted),
+                  "max_new_tokens": max_new - len(emitted)}
+        if deadline is not None:
+            resume["deadline_ms"] = max(0.0, deadline.remaining_ms())
+        return resume
+
+    def _stream_with_failover(self, payload: dict):
+        """/generate/stream with the stream journal: the payload and every
+        token relayed so far. A retryable mid-stream failure resumes on
+        the next ring lane, skipping the lane that failed, through the
+        retry budget and within the original deadline; a failure that
+        cannot resume ends with the terminal error event (the resume
+        span comes with ROADMAP.md §A 16.3)."""
+        rid = payload.get("request_id")
+        if rid is None:
+            rid = uuid.uuid4().hex
+            payload = {**payload, "request_id": rid}
+        request_id = str(rid)
+        deadline = Deadline.from_request(payload)
+        try:
+            max_new = int(payload.get("max_new_tokens", 32))
+        except (TypeError, ValueError):
+            # A malformed budget: the plain path answers it with a 400.
+            return self._route(payload, op="generate_stream")
+        trace_id = request_trace_id(payload, request_id)
+        cfg = self.config
+        info: dict = {}
+        # The first segment's admission keeps every plain-path answer
+        # (shed, 400, no lane) before the 200 stream commits.
+        first = self._route(payload, op="generate_stream", out_info=info)
+
+        def terminal_error(reason: str, retryable: bool,
+                           emitted: List[int]) -> bytes:
+            return sse_event({
+                "done": True, "error": str(reason)[:300],
+                "retryable": bool(retryable),
+                "request_id": request_id, "trace_id": trace_id,
+                "tokens_emitted": len(emitted),
+                "tokens": list(emitted)})
+
+        def spliced():
+            emitted: List[int] = []
+            it = first
+            lane = info.get("lane")
+            resumes = 0
+            while True:
+                # (reason, retryable, lane_fault): lane_fault feeds the
+                # lane's breaker; sheds and spent budgets do not.
+                failure: Optional[tuple] = None
+                finished = False
+                try:
+                    try:
+                        for frame in it:
+                            evt = _parse_sse(frame)
+                            if evt is None:
+                                yield frame
+                                continue
+                            if not evt.get("done"):
+                                toks = evt.get("tokens")
+                                if isinstance(toks, list):
+                                    # Converted before the journal grows:
+                                    # a malformed token never leaves the
+                                    # journal ahead of the client.
+                                    emitted.extend([int(t) for t in toks])
+                                yield frame
+                                continue
+                            if "error" in evt:
+                                # The lane's own classification decides
+                                # (absent: not retryable); a `shed` lane
+                                # is healthy.
+                                retr = bool(evt.get("retryable", False))
+                                failure = (str(evt.get("error")), retr,
+                                           retr and not evt.get("shed",
+                                                                False))
+                            else:
+                                # The summary of the whole spliced stream.
+                                done = {**evt, "request_id": request_id,
+                                        "tokens": list(emitted)}
+                                if resumes:
+                                    done["resumed"] = resumes
+                                yield sse_event(done)
+                                finished = True
+                            break
+                        else:
+                            # No terminal event: the lane died between
+                            # frames (a killed process closes the socket).
+                            failure = ("stream truncated mid-generation",
+                                       True, True)
+                    finally:
+                        if finished:
+                            # Read one step past the done event so an
+                            # HTTP segment's connection returns clean.
+                            try:
+                                next(it)
+                            except Exception:
+                                pass
+                        try:
+                            it.close()
+                        except Exception:
+                            pass
+                except DeadlineExceeded as exc:
+                    failure = (str(exc), False, exc.lane_suspect)
+                except ShedError as exc:
+                    failure = (str(exc), True, False)
+                except Exception as exc:
+                    failure = (str(exc), True, True)
+                if finished:
+                    return
+                reason, retryable, lane_fault = failure
+                self.failover.bump("stream_failures")
+                if lane_fault:
+                    self._stream_fault_penalty(lane)
+                if len(emitted) >= max_new > 0:
+                    # The whole budget was delivered, only the terminal
+                    # frame was lost: nothing to resume.
+                    done = {"done": True, "request_id": request_id,
+                            "tokens": list(emitted)}
+                    if resumes:
+                        done["resumed"] = resumes
+                    yield sse_event(done)
+                    return
+                if not retryable:
+                    yield terminal_error(reason, False, emitted)
+                    return
+                if deadline is not None and deadline.expired():
+                    self.resilience.bump("deadline_expired")
+                    yield terminal_error(
+                        f"deadline exceeded after mid-stream failure "
+                        f"({reason})", False, emitted)
+                    return
+                if resumes >= cfg.failover_max_resumes:
+                    yield terminal_error(
+                        f"stream failed after {resumes} resumes "
+                        f"({reason})", True, emitted)
+                    return
+                # The resume's dispatch draws on the retry budget as any
+                # failover does (the failed lane is skipped, so the march
+                # charges one token per lane tried).
+                resumes += 1
+                replayed = len(emitted)
+                self.failover.bump("resumes_attempted")
+                self.failover.bump("tokens_replayed", replayed)
+                resume = self._resume_payload(payload, emitted, max_new,
+                                              deadline)
+                nxt_info: dict = {}
+                try:
+                    it = self._route(resume, op="generate_stream",
+                                     skip=(lane,) if lane else (),
+                                     out_info=nxt_info)
+                except Exception as exc:
+                    self.failover.bump("resumes_failed")
+                    yield terminal_error(
+                        f"resume dispatch failed ({exc})",
+                        not isinstance(exc, DeadlineExceeded), emitted)
+                    return
+                self.failover.bump("resumes_succeeded")
+                lane = nxt_info.get("lane")
+        return spliced()
+
     # -- routing --------------------------------------------------------------
 
-    def _route(self, payload: dict, op: str,
+    def _overload_on(self) -> bool:
+        return (self.config.overload_control
+                or self._tenant_bucket is not None)
+
+    def _route(self, payload: dict, op: str, skip: tuple = (),
                out_info: Optional[dict] = None):
-        """``out_info`` gets ``{"lane": name}`` of the lane that
-        answered."""
+        """``skip``: lanes this route may not use (a resume skips the lane
+        its stream just failed on). ``out_info`` gets ``{"lane": name}``
+        of the lane that answered. With overload control the in-flight
+        gauge holds the request for its whole residency: a stream's until
+        its events end."""
+        overload_on = self._overload_on()
         with self._lock:
             self._total_requests += 1
+            if overload_on:
+                self._inflight += 1
         self._retry_budget.record_request()
         rid = payload.get("request_id")
         if rid is None:
             rid = uuid.uuid4().hex
             payload = {**payload, "request_id": rid}
-        return self._route_inner(payload, op, str(rid), out_info)
+        outcome = "error"
+        handed_off = False
+        try:
+            result = self._route_inner(payload, op, str(rid), skip,
+                                       out_info)
+            outcome = "ok"
+            if overload_on and op == "generate_stream":
+                result = self._inflight_watched(result)
+                handed_off = True
+            return result
+        except ShedError as exc:
+            outcome = exc.kind
+            raise
+        finally:
+            if overload_on:
+                if not handed_off:
+                    with self._lock:
+                        self._inflight -= 1
+                self._shed_stats.record(outcome == "overloaded")
 
     def _route_inner(self, payload: dict, op: str, request_id: str,
-                     out_info: Optional[dict]):
+                     skip: tuple, out_info: Optional[dict]):
         deadline = Deadline.from_request(payload)
         if deadline is not None and deadline.expired():
             self.resilience.bump("deadline_rejected")
-            raise DeadlineExceeded("deadline exceeded at gateway admission")
+            raise self._shed(DeadlineExceeded(
+                "deadline exceeded at gateway admission"))
+        if self._overload_on():
+            self._overload_admit(payload)
         # HTTP lanes carry no model metadata: a request naming a model
         # probes the ring and each lane's model check decides, a mismatch
         # failing over without a penalty.
@@ -256,14 +592,24 @@ class Gateway:
             primary = ring.get_node(request_id)
         except RuntimeError:  # every lane was removed
             raise GatewayError(f"no workers available for model '{mdl}'")
+        if skip and primary in skip:
+            with self._lock:
+                self._failovers += 1
+            return self._failover(ring, primary, payload, op, probing,
+                                  deadline, skip=skip, out_info=out_info)
+        if self.config.hedge_enabled and op in _HEDGEABLE_OPS:
+            return self._route_hedged(ring, primary, payload, op, probing,
+                                      deadline)
         result = self._try_node(primary,
                                 self._with_deadline(payload, deadline),
-                                op=op, probing=probing, out_info=out_info)
+                                op=op, probing=probing, out_info=out_info,
+                                ring=ring)
         if not _ok(result):
             with self._lock:
                 self._failovers += 1
             result = self._failover(ring, primary, payload, op, probing,
-                                    deadline, shed_seen=result is _SHED,
+                                    deadline, skip=skip,
+                                    shed_seen=result is _SHED,
                                     out_info=out_info)
         return result
 
@@ -274,24 +620,35 @@ class Gateway:
             return payload
         return {**payload, "deadline_ms": max(0.0, deadline.remaining_ms())}
 
+    def _shed(self, exc):
+        """Stamp a gateway shed with its Retry-After: the base, or with
+        overload control the base scaled by the measured pressure."""
+        if self.config.overload_control:
+            exc.retry_after_s = load_retry_after(_SHED_RETRY_AFTER_S,
+                                                 self._overload_pressure())
+        else:
+            exc.retry_after_s = _SHED_RETRY_AFTER_S
+        return exc
+
     def _failover(self, ring: ConsistentHash, primary: str, payload: dict,
                   op: str, probing: bool, deadline: Optional[Deadline],
-                  shed_seen: bool = False,
+                  skip: tuple = (), shed_seen: bool = False,
                   out_info: Optional[dict] = None):
-        """Every other lane in ring order, within the deadline and the
-        retry budget."""
+        """Every other lane (not in ``skip``) in ring order, within the
+        deadline and the retry budget."""
         for node in ring.get_all_nodes():
-            if node == primary:
+            if node == primary or node in skip:
                 continue
             if deadline is not None and deadline.expired():
                 self.resilience.bump("deadline_expired")
-                raise DeadlineExceeded("deadline exceeded during failover")
+                raise self._shed(DeadlineExceeded(
+                    "deadline exceeded during failover"))
             if not self._retry_budget.try_acquire():
                 self.resilience.bump("retry_budget_exhausted")
                 if shed_seen:
-                    raise Overloaded(
+                    raise self._shed(Overloaded(
                         "retry budget exhausted after a lane shed the "
-                        "request (overloaded, not failed)")
+                        "request (overloaded, not failed)"))
                 raise GatewayError(
                     "retry budget exhausted (retries capped at "
                     f"{self.config.retry_budget_ratio:.0%} of recent "
@@ -300,24 +657,271 @@ class Gateway:
             result = self._try_node(node,
                                     self._with_deadline(payload, deadline),
                                     op=op, probing=probing,
-                                    out_info=out_info)
+                                    out_info=out_info, ring=ring)
             if _ok(result):
                 return result
             shed_seen = shed_seen or result is _SHED
         if shed_seen:
-            raise Overloaded(
-                "all lanes shed the request (overloaded or draining)")
+            raise self._shed(Overloaded(
+                "all lanes shed the request (overloaded or draining)"))
         raise GatewayError("All workers failed or unavailable")
 
+    # -- overload control -----------------------------------------------------
+
+    def _inflight_watched(self, it):
+        """Relay a stream unchanged; the in-flight gauge drops once when it
+        ends (exhausted, failed or closed by the client)."""
+        def watched():
+            try:
+                yield from it
+            finally:
+                with self._lock:
+                    self._inflight -= 1
+        return watched()
+
+    def _overload_pressure(self) -> float:
+        """The gauge's fill with ``overload_max_inflight``, else the recent
+        shed rate: 0 when idle, growing with refusals."""
+        if self.config.overload_max_inflight > 0:
+            with self._lock:
+                inflight = self._inflight
+            return inflight / self.config.overload_max_inflight
+        return self._shed_stats.pressure()
+
+    def _overload_admit(self, payload: dict) -> None:
+        """The tenant bucket first (fairness is not a question of
+        congestion), then tier admission against the gauge: below-top
+        tiers shed past their fraction, every tier at the full limit (the
+        overload span comes with ROADMAP.md §A 16.3)."""
+        cfg = self.config
+        if self._tenant_bucket is not None:
+            tenant = str(payload.get("tenant", "default"))
+            ok, wait = self._tenant_bucket.allow(tenant)
+            if not ok:
+                self.overload.bump("rate_limited")
+                exc = self._shed(Overloaded(
+                    f"tenant '{tenant}' over its rate limit "
+                    f"({cfg.tenant_rate:g} req/s)"))
+                # Never sooner than a token can exist.
+                exc.retry_after_s = max(exc.retry_after_s, wait)
+                exc.cause = "rate_limit"
+                raise exc
+        if not cfg.overload_control:
+            return
+        # Validated whenever the switch is on, gauge or no gauge.
+        tier = parse_priority(payload)
+        limit = cfg.overload_max_inflight
+        if limit <= 0:
+            return
+        with self._lock:
+            inflight = self._inflight  # this request included
+        if inflight > limit:
+            self.overload.bump("shed_depth")
+            exc = self._shed(Overloaded(
+                f"gateway at max in-flight {limit}"))
+            exc.cause = "depth"
+            raise exc
+        if (tier < len(TIER_ADMIT_FRAC) - 1
+                and inflight > tier_limit(limit, tier)):
+            self.overload.bump("shed_tier")
+            exc = self._shed(Overloaded(
+                f"gateway shedding priority tier '{TIER_NAMES[tier]}' "
+                f"at {inflight}/{limit} in flight"))
+            exc.cause = "tier"
+            raise exc
+
+    # -- hedged dispatch ------------------------------------------------------
+
+    def _pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        # Every hedged dispatch rides this pool (one or two threads per
+        # request in flight); threads start on demand.
+        with self._lock:
+            if self._hedge_pool is None:
+                self._hedge_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=256, thread_name_prefix="gw-hedge")
+            return self._hedge_pool
+
+    def _lane_tracker(self, node: str) -> LatencyTracker:
+        with self._lock:
+            tracker = self._latency.get(node)
+            if tracker is None:
+                tracker = self._latency[node] = LatencyTracker()
+            return tracker
+
+    def _hedge_threshold_s(self, primary: Optional[str] = None) -> float:
+        """How long to wait on ``primary`` before hedging: the lowest
+        ``hedge_quantile`` latency of the other lanes with at least
+        ``hedge_min_samples`` samples, floored at ``hedge_min_ms`` (None:
+        every lane, for /stats)."""
+        cfg = self.config
+        thr = cfg.hedge_min_ms / 1000.0
+        with self._lock:
+            trackers = [t for n, t in self._latency.items() if n != primary]
+        quantiles = [t.quantile(cfg.hedge_quantile) for t in trackers
+                     if len(t) >= cfg.hedge_min_samples]
+        quantiles = [q for q in quantiles if q is not None]
+        if quantiles:
+            thr = max(thr, min(quantiles))
+        return thr
+
+    def _route_hedged(self, ring: ConsistentHash, primary: str,
+                      payload: dict, op: str, probing: bool,
+                      deadline: Optional[Deadline]):
+        """Wait the threshold on the primary; if it is slow (not failed),
+        dispatch the next ring lane whose breaker admits as well and take
+        the first answer. Every primary answer feeds its lane's latency
+        window (the hedge span comes with ROADMAP.md §A 16.3)."""
+        pool = self._pool()
+        p_started = threading.Event()
+        t_start: list = [None]
+
+        def _primary_task():
+            t_start[0] = time.perf_counter()
+            p_started.set()
+            return self._try_node(primary,
+                                  self._with_deadline(payload, deadline),
+                                  op, probing, ring=ring)
+
+        p_fut = pool.submit(_primary_task)
+
+        def _record_primary(fut):
+            try:
+                r = fut.result()
+            except BaseException:
+                return
+            if _ok(r) and t_start[0] is not None:
+                self._lane_tracker(primary).record(
+                    time.perf_counter() - t_start[0])
+
+        p_fut.add_done_callback(_record_primary)
+        # The hedge timer starts once the primary really runs: hedging a
+        # dispatch still queued in a saturated pool would only add load.
+        if not p_started.wait(timeout=None if deadline is None
+                              else max(0.0, deadline.remaining_s())):
+            p_fut.cancel()
+            self.resilience.bump("deadline_expired")
+            raise self._shed(DeadlineExceeded(
+                "deadline exceeded before primary dispatch started"))
+        thr = self._hedge_threshold_s(primary)
+        deadline_clamped = (deadline is not None
+                            and deadline.remaining_s() < thr)
+        if deadline_clamped:
+            thr = max(0.0, deadline.remaining_s())
+        try:
+            result = p_fut.result(timeout=thr)
+        except concurrent.futures.TimeoutError:
+            if deadline_clamped:
+                # The client's budget ran out, not the lane's threshold:
+                # a hedge now would be shed on arrival.
+                return self._await_primary(p_fut, ring, primary, payload,
+                                           op, probing, deadline)
+        else:
+            if _ok(result):
+                return result
+            # The primary failed fast: plain failover.
+            with self._lock:
+                self._failovers += 1
+            return self._failover(ring, primary, payload, op, probing,
+                                  deadline, shed_seen=result is _SHED)
+
+        hedge_node = next(
+            (n for n in ring.get_all_nodes()
+             if n != primary and self._breaker_allows(n)), None)
+        if hedge_node is None or not self._retry_budget.try_acquire():
+            if hedge_node is not None:
+                self.resilience.bump("retry_budget_exhausted")
+            return self._await_primary(p_fut, ring, primary, payload, op,
+                                       probing, deadline)
+        self.resilience.bump("hedges")
+        h_fut = pool.submit(self._try_node, hedge_node,
+                            self._with_deadline(payload, deadline),
+                            op, probing, ring=ring)
+        pending = {p_fut: primary, h_fut: hedge_node}
+        first_error: Optional[BaseException] = None
+        shed_seen = False
+        while pending:
+            timeout = (None if deadline is None
+                       else max(0.0, deadline.remaining_s()))
+            done, _ = concurrent.futures.wait(
+                list(pending), timeout=timeout,
+                return_when=concurrent.futures.FIRST_COMPLETED)
+            if not done:
+                self.resilience.bump("deadline_expired")
+                raise self._shed(DeadlineExceeded(
+                    "deadline exceeded awaiting hedged dispatch"))
+            for fut in done:
+                pending.pop(fut)
+                try:
+                    result = fut.result()
+                except BaseException as exc:
+                    first_error = first_error or exc
+                    continue
+                if _ok(result):
+                    self.resilience.bump("hedge_wins" if fut is h_fut
+                                         else "hedge_losses")
+                    return result
+                shed_seen = shed_seen or result is _SHED
+        # Both failed or shed: failover over the rest.
+        with self._lock:
+            self._failovers += 1
+        try:
+            return self._failover(ring, primary, payload, op, probing,
+                                  deadline, skip=(hedge_node,),
+                                  shed_seen=shed_seen)
+        except GatewayError:
+            if first_error is not None:
+                raise first_error
+            raise
+
+    def _await_primary(self, p_fut, ring: ConsistentHash, primary: str,
+                       payload: dict, op: str, probing: bool,
+                       deadline: Optional[Deadline]):
+        """No hedge: wait on the primary alone (within the deadline), then
+        fail over if it failed."""
+        timeout = (None if deadline is None
+                   else max(0.0, deadline.remaining_s()))
+        try:
+            result = p_fut.result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            self.resilience.bump("deadline_expired")
+            raise self._shed(DeadlineExceeded(
+                "deadline exceeded awaiting primary lane"))
+        if _ok(result):
+            return result
+        with self._lock:
+            self._failovers += 1
+        return self._failover(ring, primary, payload, op, probing, deadline,
+                              shed_seen=result is _SHED)
+
+    def _breaker_allows(self, node: str) -> bool:
+        with self._lock:
+            breaker = self._breakers.get(node)
+        return breaker is not None and breaker.allow_request()
+
+    # -- one dispatch ---------------------------------------------------------
+
     def _try_node(self, node: str, payload: dict, op: str = "infer",
-                  probing: bool = False,
-                  out_info: Optional[dict] = None):
+                  probing: bool = False, out_info: Optional[dict] = None,
+                  ring: Optional[ConsistentHash] = None):
         """One breaker-gated dispatch: the response, None (failed: fail
-        over) or ``_SHED``."""
+        over) or ``_SHED``. A lane the prober ejected is skipped with no
+        penalty, unless every lane of ``ring`` is ejected (fail open: the
+        breakers decide a total outage)."""
         with self._lock:
             client = self._clients.get(node)
             breaker = self._breakers.get(node)
-        if client is None or breaker is None or not breaker.allow_request():
+            ejected = node in self._ejected
+        if client is None or breaker is None:
+            return None
+        if ejected:
+            peers = ring.get_all_nodes() if ring is not None else None
+            with self._lock:
+                if peers is None:
+                    peers = list(self._clients)
+                all_ejected = all(p in self._ejected for p in peers)
+            if not all_ejected:
+                return None
+        if not breaker.allow_request():
             return None
         try:
             response = getattr(client, op)(payload)
@@ -334,7 +938,8 @@ class Gateway:
             if exc.lane_suspect:
                 breaker.record_failure()
             self.resilience.bump("deadline_expired")
-            raise DeadlineExceeded(f"deadline exceeded at lane {node}")
+            raise self._shed(DeadlineExceeded(
+                f"deadline exceeded at lane {node}"))
         except ValueError:
             if probing:
                 return None  # a lane of another model: no penalty
@@ -350,6 +955,8 @@ class Gateway:
         with self._lock:
             items = list(self._breakers.items())
             total, failovers = self._total_requests, self._failovers
+            inflight = self._inflight
+        cfg = self.config
         out = {
             "total_workers": len(items),
             "total_requests": total,
@@ -360,13 +967,32 @@ class Gateway:
                  "successes": br.success_count}
                 for node, br in items],
         }
-        if self._retry_budget.enabled or self.resilience.any_nonzero():
+        if (self._retry_budget.enabled or cfg.hedge_enabled
+                or self.resilience.any_nonzero()):
             res = self.resilience.as_dict()
             if self._retry_budget.enabled:
                 res["retry_budget"] = self._retry_budget.stats()
+            if cfg.hedge_enabled:
+                res["hedge_threshold_ms"] = round(
+                    self._hedge_threshold_s() * 1000.0, 3)
             out["resilience"] = res
+        if (cfg.failover_streams or cfg.health_probe_interval_s > 0
+                or self.failover.any_nonzero()):
+            fo = self.failover.as_dict()
+            fo["ejected_lanes"] = self.ejected_lanes()
+            out["failover"] = fo
         if self.migration.any_nonzero():
             mig = self.migration.as_dict()
             mig["active_streams"] = 0
             out["migration"] = mig
+        if (cfg.overload_control or self._tenant_bucket is not None
+                or self.overload.any_nonzero()):
+            ov = self.overload.as_dict()
+            ov["pressure"] = round(self._overload_pressure(), 4)
+            ov["inflight"] = inflight
+            if cfg.overload_max_inflight > 0:
+                ov["max_inflight"] = cfg.overload_max_inflight
+            if self._tenant_bucket is not None:
+                ov["tenants"] = self._tenant_bucket.tenants()
+            out["overload"] = ov
         return out

@@ -15,7 +15,9 @@ NotImplementedError and every other exception to 500, with
 
 from __future__ import annotations
 
+import hashlib
 import json
+import re
 import socket
 import threading
 import time
@@ -72,6 +74,22 @@ class _TrackingServer(ThreadingHTTPServer):
                 s.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+
+
+_TRACEPARENT_RE = re.compile(r"^00-([0-9a-f]{32})-[0-9a-f]{16}-[0-9a-f]{2}$")
+
+
+def request_trace_id(payload: dict, request_id) -> str:
+    """The trace id the JAX package names in a request's terminal stream
+    events: the ``traceparent`` field's trace id, else the id every hop
+    derives from the request_id (``tpu_engine.utils.tracing``'s
+    ``derive_trace_id``). The port records no spans yet (ROADMAP.md §A
+    16.3); the id keeps the events' wire schema."""
+    tp = payload.get("traceparent") if isinstance(payload, dict) else None
+    m = _TRACEPARENT_RE.match(tp) if isinstance(tp, str) else None
+    if m is not None:
+        return m.group(1)
+    return hashlib.md5(b"tpu-trace:" + str(request_id).encode()).hexdigest()
 
 
 def sse_event(payload: dict) -> bytes:

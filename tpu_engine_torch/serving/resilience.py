@@ -1,23 +1,29 @@
 """Resilience policies of the serving layer (the port's copy of what it
 uses from ``tpu_engine/serving/resilience.py``): the global retry
-budget, the gateway's decision counters and the worker's admission
-controller.
+budget, the hedge quantiles, the gateway's decision counters, the health
+prober's state machine and the worker's admission controller.
 
 - ``RetryBudget``: retries allowed while the retries of a sliding window
   stay under ``ratio * requests + min_retries``; ``ratio=None`` is
   unlimited.
-- ``ResilienceCounters`` (and ``MigrationCounters``, whose
+- ``LatencyTracker``: sliding-window latency quantiles (hedged dispatch's
+  threshold, the AIMD limiter's baseline).
+- ``ResilienceCounters``, ``FailoverCounters`` (stream resumes and the
+  prober's ejections) and ``MigrationCounters`` (whose
   ``drain_failures`` counts bounded drains that timed out): every
   decision counted, under the JAX package's field names, so ``/stats``
   blocks carry its keys.
-- ``AdmissionController``: the worker's bounded in-flight depth, the
+- ``ProbeStateMachine``: ``fail_threshold`` consecutive failed probes
+  eject a lane, any success restores it.
+- ``AdmissionController``: the worker's bounded in-flight depth (static,
+  or an ``AIMDLimit``'s), priority-tiered admission (``tier_fracs``), the
   deadline-aware early rejection of the miss path and the drain
-  (lame-duck) mode. Tiered and adaptive admission (``tier_fracs``,
-  ``limiter``) are not ported and refuse by name.
+  (lame-duck) mode.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import threading
 import time
@@ -28,6 +34,14 @@ from tpu_engine_torch.utils.deadline import (
     DeadlineExceeded,
     Overloaded,
 )
+
+
+def tier_cap(limit: int, frac: float) -> int:
+    """The tier-admission rule: a tier may occupy up to its fraction of
+    the concurrency limit, floored at one slot. Shared by the worker's
+    AdmissionController and the gateway's in-flight gauge
+    (``overload.tier_limit``), so both shed at the same thresholds."""
+    return max(1, int(limit * frac))
 
 
 class RetryBudget:
@@ -82,6 +96,38 @@ class RetryBudget:
                     "ratio": self.ratio}
 
 
+class LatencyTracker:
+    """Latency quantiles over the last ``window`` samples (a sorted shadow
+    list beside the ring)."""
+
+    def __init__(self, window: int = 512):
+        self.window = max(8, int(window))
+        self._ring: Deque[float] = collections.deque()
+        self._sorted: list = []
+        self._lock = threading.Lock()
+
+    def record(self, latency_s: float) -> None:
+        v = float(latency_s)
+        with self._lock:
+            self._ring.append(v)
+            bisect.insort(self._sorted, v)
+            if len(self._ring) > self.window:
+                old = self._ring.popleft()
+                del self._sorted[bisect.bisect_left(self._sorted, old)]
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def quantile(self, q: float) -> Optional[float]:
+        """The q-quantile of the window, or None with no samples."""
+        with self._lock:
+            if not self._sorted:
+                return None
+            idx = min(len(self._sorted) - 1,
+                      int(q * (len(self._sorted) - 1) + 0.5))
+            return self._sorted[idx]
+
+
 class ResilienceCounters:
     """The gateway's resilience decisions, counted; ``any_nonzero`` gates
     the ``/stats`` ``resilience`` block."""
@@ -111,6 +157,17 @@ class ResilienceCounters:
             return dict(self._c)
 
 
+class FailoverCounters(ResilienceCounters):
+    """Crash-tolerant streaming's decisions (the ``/stats`` ``failover``
+    block): stream failures, resumes attempted, succeeded and failed,
+    tokens replayed into resumes, and the prober's ejections and
+    restores."""
+
+    FIELDS = ("stream_failures", "resumes_attempted", "resumes_succeeded",
+              "resumes_failed", "tokens_replayed", "prober_ejections",
+              "prober_restores")
+
+
 class MigrationCounters(ResilienceCounters):
     """The ``/stats`` ``migration`` block's fields. Stream migration is
     not ported, so only ``drain_failures`` (a bounded drain that timed
@@ -122,29 +179,68 @@ class MigrationCounters(ResilienceCounters):
               "tokens_migrated", "drain_failures")
 
 
+class ProbeStateMachine:
+    """Per-lane eject/restore decisions from probe outcomes:
+    ``fail_threshold`` consecutive failures eject a lane (once), any
+    success restores an ejected lane and zeroes its failure run."""
+
+    def __init__(self, fail_threshold: int = 3):
+        self.fail_threshold = max(1, int(fail_threshold))
+        self._fails: dict = {}     # lane -> consecutive probe failures
+        self._ejected: set = set()
+        self._lock = threading.Lock()
+
+    def record(self, lane: str, ok: bool) -> Optional[str]:
+        """One probe outcome: ``"eject"``, ``"restore"`` or None."""
+        with self._lock:
+            if ok:
+                self._fails[lane] = 0
+                if lane in self._ejected:
+                    self._ejected.discard(lane)
+                    return "restore"
+                return None
+            n = self._fails.get(lane, 0) + 1
+            self._fails[lane] = n
+            if n >= self.fail_threshold and lane not in self._ejected:
+                self._ejected.add(lane)
+                return "eject"
+            return None
+
+    def ejected(self, lane: str) -> bool:
+        with self._lock:
+            return lane in self._ejected
+
+    def forget(self, lane: str) -> None:
+        """Drop a removed lane's state (a later lane of that name starts
+        clean)."""
+        with self._lock:
+            self._fails.pop(lane, None)
+            self._ejected.discard(lane)
+
+
 class AdmissionController:
     """Worker-side admission: bounded in-flight depth (``max_depth`` 0 =
     unbounded), deadline-aware early rejection and the drain mode.
 
-    ``admit(deadline)`` raises ``Overloaded`` when draining or at depth
-    and ``DeadlineExceeded`` when the deadline has passed; a successful
-    admit is paired with ``release()``. ``check_deadline`` is the miss
-    path's early rejection against the lane's service-time estimate."""
+    ``admit(deadline, tier)`` raises ``Overloaded`` when draining, at the
+    limit or past the tier's share of it, and ``DeadlineExceeded`` when
+    the deadline has passed; a successful admit is paired with
+    ``release()``. ``check_deadline`` is the miss path's early rejection
+    against the lane's service-time estimate.
+
+    ``tier_fracs`` turns on tiered admission: tier t (below the top)
+    admits only while depth < ``tier_cap(limit, fracs[t])``. ``limiter``
+    (an ``AIMDLimit``) replaces the static ``max_depth``. Each
+    overload-class shed counts in ``shed_overloaded`` and in its cause
+    (``shed_depth``, ``shed_tier``, ``shed_adaptive``), which the raised
+    ``Overloaded`` names as its ``cause``."""
 
     def __init__(self, max_depth: int = 0, node_id: str = "?",
                  tier_fracs: Optional[tuple] = None, limiter=None):
-        if tier_fracs is not None:
-            raise NotImplementedError(
-                "priority-tiered admission (tier_fracs, "
-                "serving/overload.py) is not yet ported to "
-                "tpu_engine_torch")
-        if limiter is not None:
-            raise NotImplementedError(
-                "adaptive admission (limiter, AIMDLimit in "
-                "serving/overload.py) is not yet ported to "
-                "tpu_engine_torch")
         self.max_depth = max(0, int(max_depth))
         self.node_id = node_id
+        self._tier_fracs = tier_fracs
+        self.limiter = limiter
         self._depth = 0
         self._draining = False
         self._lock = threading.Lock()
@@ -152,6 +248,9 @@ class AdmissionController:
         self.shed_overloaded = 0
         self.shed_deadline = 0
         self.shed_draining = 0
+        self.shed_depth = 0
+        self.shed_tier = 0
+        self.shed_adaptive = 0
 
     # -- drain (lame-duck) ----------------------------------------------------
 
@@ -191,16 +290,49 @@ class AdmissionController:
 
     # -- admission ------------------------------------------------------------
 
-    def admit(self, deadline: Optional[Deadline] = None) -> None:
+    def effective_limit(self) -> int:
+        """The limit in force: the adaptive limiter's, else the static
+        cap (0 = unbounded)."""
+        if self.limiter is not None:
+            return self.limiter.limit
+        return self.max_depth
+
+    def admit(self, deadline: Optional[Deadline] = None,
+              tier: Optional[int] = None) -> None:
+        """``tier``: the request's priority tier (None, or no
+        ``tier_fracs``: admitted against the full limit)."""
+        limit = self.effective_limit()
         with self._lock:
             if self._draining:
                 self.shed_draining += 1
                 raise Overloaded(
                     f"lane {self.node_id} is draining (lame-duck)")
-            if self.max_depth and self._depth >= self.max_depth:
+            if limit and self._depth >= limit:
                 self.shed_overloaded += 1
-                raise Overloaded(f"lane {self.node_id} at max queue depth "
-                                 f"{self.max_depth}")
+                if self.limiter is not None:
+                    self.shed_adaptive += 1
+                    exc = Overloaded(
+                        f"lane {self.node_id} at adaptive queue depth "
+                        f"limit {limit}")
+                    exc.cause = "adaptive"
+                else:
+                    self.shed_depth += 1
+                    exc = Overloaded(
+                        f"lane {self.node_id} at max queue depth "
+                        f"{self.max_depth}")
+                    exc.cause = "depth"
+                raise exc
+            if (limit and tier is not None and self._tier_fracs
+                    and 0 <= tier < len(self._tier_fracs) - 1):
+                cap = tier_cap(limit, self._tier_fracs[tier])
+                if self._depth >= cap:
+                    self.shed_overloaded += 1
+                    self.shed_tier += 1
+                    exc = Overloaded(
+                        f"lane {self.node_id} shedding priority tier "
+                        f"{tier} at depth {self._depth}/{limit}")
+                    exc.cause = "tier"
+                    raise exc
             if deadline is not None and deadline.expired():
                 self.shed_deadline += 1
                 raise DeadlineExceeded("deadline exceeded at admission")
@@ -241,13 +373,24 @@ class AdmissionController:
         """Whether there is anything to report: gates ``/health``'s
         ``admission`` block."""
         return bool(self.max_depth or self._draining or self.shed_overloaded
-                    or self.shed_deadline or self.shed_draining)
+                    or self.shed_deadline or self.shed_draining
+                    or self._tier_fracs is not None
+                    or self.limiter is not None)
 
     def as_dict(self) -> dict:
         with self._lock:
-            return {"draining": self._draining,
-                    "queue_depth": self._depth,
-                    "max_queue_depth": self.max_depth,
-                    "shed_overloaded": self.shed_overloaded,
-                    "shed_deadline": self.shed_deadline,
-                    "shed_draining": self.shed_draining}
+            out = {"draining": self._draining,
+                   "queue_depth": self._depth,
+                   "max_queue_depth": self.max_depth,
+                   "shed_overloaded": self.shed_overloaded,
+                   "shed_deadline": self.shed_deadline,
+                   "shed_draining": self.shed_draining}
+            # The per-cause split only with an overload feature on: a
+            # plain max_queue_depth lane keeps its key set.
+            if self._tier_fracs is not None or self.limiter is not None:
+                out["shed_depth"] = self.shed_depth
+                out["shed_tier"] = self.shed_tier
+                out["shed_adaptive"] = self.shed_adaptive
+                if self.limiter is not None:
+                    out["adaptive"] = self.limiter.as_dict()
+            return out

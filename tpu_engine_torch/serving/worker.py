@@ -79,6 +79,23 @@ service-time estimate (an EWMA of the misses' ``inference_time_us``) are
 ``deadline_exceeded``; both carry ``Retry-After``. ``drain()`` and
 ``undrain()`` answer named statuses.
 
+Overload control (``serving.overload``, each off by default):
+``priority_admission`` reads a request's ``priority`` (interactive,
+batch, background; an unknown value is a 400) and admits each tier only
+up to its fraction of the limit; ``adaptive_depth`` replaces
+``max_queue_depth`` by an AIMD limit fed the admit-to-finish time of
+every completed request (streams included); ``brownout`` runs a control
+loop every ``brownout_interval_s`` over the lane's saturation signals
+(admitted depth against the limit, the decode loop's tick age, parked
+admissions and pool starvation, deadline misses) that walks the
+degradation ladder: the scheduler's budget shrink, spec suspension and
+swap-in deferral (``ContinuousGenerator.set_brownout``), then the
+``brownout_clamp_tokens`` cap on a below-top-tier request's
+``max_new_tokens``. With a feature on, ``/health``'s ``admission`` block
+splits ``shed_overloaded`` by cause (``shed_depth``, ``shed_tier``,
+``shed_adaptive``, and the limiter's ``adaptive`` block), and with
+brownout on ``/health`` carries the ``brownout`` block.
+
 ``/health`` has the JAX lane's keys: ``cache_hits``, ``cache_size`` and
 ``cache_hit_rate`` of the result cache, the batcher's four-key
 ``batch_processor`` block (on a stateless lane the scheduler's one-shot
@@ -86,8 +103,8 @@ dispatch counters fold into it, and no ``generator`` key appears), on
 decoder lanes the scheduler's stats under ``generator`` (with the pool's
 ``host`` block on a lane with ``gen_kv_host_blocks``, and ``migration``
 once the lane exported or imported a row), and once
-admission has anything to report (a bound, a drain, a shed or a row
-dropped at its deadline) the ``admission`` block.
+admission has anything to report (a bound, a drain, a shed, a row
+dropped at its deadline or an overload feature) the ``admission`` block.
 """
 
 from __future__ import annotations
@@ -108,12 +125,22 @@ from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
-from tpu_engine_torch.serving.http import sse_event
+from tpu_engine_torch.serving.http import request_trace_id, sse_event
+from tpu_engine_torch.serving.overload import (
+    AIMDLimit,
+    BROWNOUT_BUDGET_FRAC,
+    BROWNOUT_STAGES,
+    TIER_ADMIT_FRAC,
+    TOP_TIER,
+    BrownoutController,
+    parse_priority,
+)
 from tpu_engine_torch.serving.resilience import AdmissionController
 from tpu_engine_torch.utils.config import WorkerConfig
 from tpu_engine_torch.utils.deadline import (
     Deadline,
     DeadlineExceeded,
+    ShedError,
     clamp_timeout,
 )
 from tpu_engine_torch.utils.sampling import (
@@ -147,12 +174,14 @@ class _AdmittedStream:
     """The SSE events of an admitted stream. Its admission slot is held
     until the events end or fail, or the iterator is closed (the client
     went away), whether or not iteration had started; it is released
-    once."""
+    once. ``release(completed)`` is told whether the stream ran to its
+    ``done`` event."""
 
     def __init__(self, events, release):
         self._events = events
         self._release = release
         self._lock = threading.Lock()
+        self.completed = False
 
     def __iter__(self):
         return self
@@ -169,7 +198,7 @@ class _AdmittedStream:
             release, self._release = self._release, None
         self._events.close()
         if release is not None:
-            release()
+            release(self.completed)
 
 
 class _Inflight:
@@ -325,8 +354,15 @@ class WorkerNode:
             raise
         self._total_requests = 0
         self._cache_hits = 0
-        self._admission = AdmissionController(config.max_queue_depth,
-                                              self.node_id)
+        # The AIMD limit replaces the static cap, starting from it.
+        self._aimd = (AIMDLimit(max_limit=config.adaptive_depth_max,
+                                start=config.max_queue_depth or None)
+                      if config.adaptive_depth else None)
+        self._tiered = bool(config.priority_admission)
+        self._admission = AdmissionController(
+            config.max_queue_depth, self.node_id,
+            tier_fracs=TIER_ADMIT_FRAC if self._tiered else None,
+            limiter=self._aimd)
         # EWMA (0.8 / 0.2) of the misses' inference_time_us: the /infer
         # miss path's early rejection estimate.
         self._service_ewma_us: Optional[float] = None
@@ -338,6 +374,20 @@ class WorkerNode:
         # dispatch.
         self._inflight: dict = {}
         self._inflight_lock = threading.Lock()
+        # Staged brownout: the control loop's thread walks the ladder
+        # every brownout_interval_s (the brownout span of the JAX worker
+        # comes with the port's tracing, ROADMAP.md §A 16.3).
+        self._brownout: Optional[BrownoutController] = None
+        self._brownout_clamps = 0
+        self._brownout_prev = {"starved": 0, "missed": 0}
+        self._brownout_stop = threading.Event()
+        self._brownout_thread: Optional[threading.Thread] = None
+        if config.brownout:
+            self._brownout = BrownoutController()
+            self._brownout_thread = threading.Thread(
+                target=self._brownout_loop,
+                name=f"{self.node_id}-brownout", daemon=True)
+            self._brownout_thread.start()
 
     def _fence_stateless(self, spec: ModelSpec) -> None:
         """A stateless model refuses every generative knob (the JAX
@@ -465,14 +515,105 @@ class WorkerNode:
                 f"this lane serves model '{have}', not '{want}'")
 
     @contextlib.contextmanager
-    def _admitted(self, deadline: Optional[Deadline]):
-        """The admission scope of a blocking request: admit, then always
-        release."""
-        self._admission.admit(deadline)
+    def _admitted(self, deadline: Optional[Deadline],
+                  tier: Optional[int] = None):
+        """The admission scope of a blocking request: admit (at ``tier``
+        under tiered admission), then always release. A request that
+        completes feeds its admit-to-finish time, queueing included, to
+        the AIMD limiter."""
+        t0 = time.perf_counter()
+        self._admission.admit(deadline, tier=tier)
+        ok = False
         try:
             yield
+            ok = True
         finally:
             self._admission.release()
+            if ok and self._aimd is not None:
+                self._aimd.observe(time.perf_counter() - t0)
+
+    # -- overload control (priority tiers, staged brownout) -------------------
+
+    def _request_tier(self, request: dict) -> Optional[int]:
+        """The request's priority tier when an overload feature reads it
+        (tiered admission or the brownout clamp), else None: the field is
+        then ignored. An unknown value with a feature on is a 400."""
+        if not self._tiered and self._brownout is None:
+            return None
+        return parse_priority(request)
+
+    def _brownout_clamp(self, max_new: int, tier: Optional[int]) -> int:
+        """The clamp stage: a below-top-tier request's token budget is
+        capped at ``brownout_clamp_tokens``; the top tier never is."""
+        bo = self._brownout
+        if (bo is None or tier is None or tier >= TOP_TIER
+                or bo.stage < BROWNOUT_STAGES.index("clamp")):
+            return max_new
+        clamp = max(1, int(self.config.brownout_clamp_tokens))
+        if max_new > clamp:
+            with self._counter_lock:
+                self._brownout_clamps += 1
+            return clamp
+        return max_new
+
+    def n_gen_slots(self) -> int:
+        return max(1, int(self.config.gen_max_batch_size))
+
+    def _brownout_signals(self) -> dict:
+        """The saturation components of one control-loop evaluation, each
+        normalized so 1.0 is the red line: admitted depth against the
+        limit (or twice the decode slots when unbounded), the decode
+        loop's tick age against 2 s (the JAX worker's red line without a
+        stall threshold; the port has no stall watchdog), parked
+        admissions per slot, new pool starvation, new deadline misses."""
+        comps = {}
+        adm = self._admission
+        limit = adm.effective_limit()
+        nominal = limit or 2 * self.n_gen_slots()
+        comps["queue_depth"] = adm.depth / nominal
+        missed = adm.shed_deadline
+        gen = self.generator
+        st = gen.stats() if gen is not None else None
+        if st:
+            age = st.get("last_tick_age_s")
+            if age is not None:
+                comps["tick_age"] = age / 2.0
+            kv = st.get("kv_pool") or {}
+            if kv:
+                comps["pool_pending"] = (kv.get("pending_admissions", 0)
+                                         / self.n_gen_slots())
+                starved = st.get("pool_starved", 0)
+                if starved > self._brownout_prev["starved"]:
+                    comps["pool_starved"] = 1.0
+                self._brownout_prev["starved"] = starved
+            missed += st.get("deadline_cancelled", 0)
+        if missed > self._brownout_prev["missed"]:
+            comps["deadline_miss"] = 1.0
+        self._brownout_prev["missed"] = missed
+        return comps
+
+    def _apply_brownout(self) -> None:
+        """Apply the controller's stage to the scheduler: the budget
+        shrink from stage 1, spec suspension from 2, swap-in deferral
+        from 3 (the clamp, stage 4, applies at request parsing)."""
+        stage = self._brownout.stage
+        if self.generator is not None:
+            self.generator.set_brownout(
+                budget_frac=BROWNOUT_BUDGET_FRAC if stage >= 1 else 1.0,
+                suspend_spec=stage >= 2,
+                defer_swap_in=stage >= 3)
+
+    def _brownout_loop(self) -> None:
+        """Read the signals, walk the ladder, apply; a failed evaluation
+        (a torn stats read) skips the sample, never the loop."""
+        interval = max(0.05, float(self.config.brownout_interval_s))
+        while not self._brownout_stop.wait(interval):
+            try:
+                action = self._brownout.evaluate(self._brownout_signals())
+                if action is not None:
+                    self._apply_brownout()
+            except Exception:
+                continue
 
     def _count_request(self) -> None:
         with self._counter_lock:
@@ -572,7 +713,8 @@ class WorkerNode:
         inference_time_us)."""
         self._check_model(request)
         deadline = Deadline.from_request(request)
-        with self._admitted(deadline):
+        tier = self._request_tier(request)
+        with self._admitted(deadline, tier):
             self._count_request()
             return self._infer_admitted(request, deadline)
 
@@ -716,7 +858,8 @@ class WorkerNode:
             raise ValueError(
                 f"model '{self.config.model}' does not support scoring")
         deadline = Deadline.from_request(request)
-        with self._admitted(deadline):
+        tier = self._request_tier(request)
+        with self._admitted(deadline, tier):
             return self._score_admitted(request, deadline)
 
     def _score_admitted(self, request: dict,
@@ -787,15 +930,18 @@ class WorkerNode:
         self._check_model(request)
         return Deadline.from_request(request)
 
-    def _parse(self, request: dict, deadline: Optional[Deadline]) -> dict:
+    def _parse(self, request: dict, deadline: Optional[Deadline],
+               tier: Optional[int] = None) -> dict:
         """The scheduler's arguments of a /generate payload, validated: a
-        malformed request is a 400 (before a stream commits to 200)."""
+        malformed request is a 400 (before a stream commits to 200). The
+        brownout clamp applies to ``max_new_tokens`` at ``tier``."""
         if int(request.get("beam_width", 1)) != 1:
             raise ValueError("beam search is not yet ported to "
                              "tpu_engine_torch")
         kw = {
             "prompt": [int(t) for t in request["prompt_tokens"]],
-            "max_new_tokens": int(request.get("max_new_tokens", 32)),
+            "max_new_tokens": self._brownout_clamp(
+                int(request.get("max_new_tokens", 32)), tier),
             "eos_id": int(request.get("eos_id", -1)),
             "temperature": float(request.get("temperature", 0.0)),
             "seed": int(request.get("seed", 0)),
@@ -814,10 +960,11 @@ class WorkerNode:
 
     def handle_generate(self, request: dict) -> dict:
         deadline = self._generation_deadline(request)
-        with self._admitted(deadline):
+        tier = self._request_tier(request)
+        with self._admitted(deadline, tier):
             self._count_request()
             request_id = request["request_id"]
-            kw = self._parse(request, deadline)
+            kw = self._parse(request, deadline, tier)
             t0 = time.perf_counter()
             tokens = self.generator.submit(kw.pop("prompt"), tag=request_id,
                                            **kw).result(timeout=600)
@@ -838,26 +985,33 @@ class WorkerNode:
         if request.get("handoff"):
             raise ValueError("the disaggregated handoff (handoff) is not "
                              "yet ported to tpu_engine_torch")
+        tier = self._request_tier(request)
         if request.get("migrate_import") is not None:
             # The continuation of a migrated row: no prefill, no re-sent
             # prefix; a malformed snapshot raises here (a 400).
             return self._open_stream(
-                deadline, request_id,
+                request, deadline,
                 lambda q: self.generator.submit_import(
                     request["migrate_import"], stream=q, deadline=deadline,
-                    tag=request_id))
-        kw = self._parse(request, deadline)
+                    tag=request_id), tier)
+        kw = self._parse(request, deadline, tier)
         return self._open_stream(
-            deadline, request_id,
+            request, deadline,
             lambda q: self.generator.submit(kw.pop("prompt"), stream=q,
-                                            tag=request_id, **kw))
+                                            tag=request_id, **kw), tier)
 
-    def _open_stream(self, deadline: Optional[Deadline], request_id: str,
-                     submit) -> _AdmittedStream:
-        """Admit and count one scheduler stream, submitted by ``submit(q)``
-        (its Future; ``q`` takes the token lists): the SSE events hold the
-        admission slot until they end."""
-        self._admission.admit(deadline)
+    def _open_stream(self, request: dict, deadline: Optional[Deadline],
+                     submit, tier: Optional[int] = None) -> _AdmittedStream:
+        """Admit (at ``tier``) and count one scheduler stream of
+        ``request``, submitted
+        by ``submit(q)`` (its Future; ``q`` takes the token lists): the
+        SSE events hold the admission slot until they end, and a stream
+        that reaches its ``done`` event feeds its admit-to-finish time to
+        the AIMD limiter."""
+        request_id = request["request_id"]
+        trace_id = request_trace_id(request, request_id)
+        t_admit = time.perf_counter()
+        self._admission.admit(deadline, tier=tier)
         try:
             self._count_request()
             q: "queue.Queue" = queue.Queue()
@@ -866,6 +1020,11 @@ class WorkerNode:
         except BaseException:
             self._admission.release()
             raise
+
+        def release(completed: bool) -> None:
+            self._admission.release()
+            if completed and self._aimd is not None:
+                self._aimd.observe(time.perf_counter() - t_admit)
 
         def events():
             sent = 0
@@ -876,7 +1035,7 @@ class WorkerNode:
                     fut.cancel()
                     yield sse_event(self._stream_error(
                         RuntimeError("generation stalled (no tokens for "
-                                     "600s)"), request_id, sent))
+                                     "600s)"), request_id, trace_id, sent))
                     return
                 if item is None:
                     break
@@ -885,21 +1044,28 @@ class WorkerNode:
             try:
                 tokens = fut.result(timeout=10)
             except Exception as exc:
-                yield sse_event(self._stream_error(exc, request_id, sent))
+                yield sse_event(self._stream_error(exc, request_id,
+                                                   trace_id, sent))
                 return
+            stream.completed = True
             yield sse_event({
                 "done": True, "request_id": request_id, "tokens": tokens,
                 "node_id": self.node_id,
                 "generate_time_us": int((time.perf_counter() - t0) * 1e6)})
-        return _AdmittedStream(events(), self._admission.release)
+        stream = _AdmittedStream(events(), release)
+        return stream
 
     @staticmethod
-    def _stream_error(exc: BaseException, request_id: str,
+    def _stream_error(exc: BaseException, request_id: str, trace_id: str,
                       tokens_emitted: int) -> dict:
-        """Terminal error event: ``retryable`` tells a lane fault (the
-        stream can resume elsewhere from ``tokens_emitted`` tokens) from a
-        request at fault; ``migrated`` marks a row exported to another
-        lane, ``import_refused`` a migration import this lane refused."""
+        """Terminal error event (the JAX worker's): ``retryable`` tells a
+        lane fault or a shed (the stream can resume elsewhere from
+        ``tokens_emitted`` tokens) from a spent deadline or a request at
+        fault; ``trace_id`` joins it to the request's trace; ``migrated``
+        marks a row exported to another lane, ``import_refused`` a
+        migration import this lane refused, ``shed`` a refusal by policy
+        of a healthy lane (a gateway resumes it with no breaker
+        penalty)."""
         retryable = getattr(exc, "retryable", None)
         if retryable is None:
             # A spent deadline, like a request at fault, no lane can help.
@@ -907,11 +1073,13 @@ class WorkerNode:
                                              ValueError, TypeError))
         out = {"done": True, "error": str(exc)[:300],
                "retryable": bool(retryable), "request_id": request_id,
-               "tokens_emitted": int(tokens_emitted)}
+               "trace_id": trace_id, "tokens_emitted": int(tokens_emitted)}
         if getattr(exc, "migrated", False):
             out["migrated"] = True
         if getattr(exc, "import_refused", False):
             out["import_refused"] = True
+        if isinstance(exc, ShedError):
+            out["shed"] = True
         return out
 
     # -- observability --------------------------------------------------------
@@ -952,9 +1120,17 @@ class WorkerNode:
             adm = self._admission.as_dict()
             adm["deadline_dropped"] = dropped
             out["admission"] = adm
+        if self._brownout is not None:
+            bo = self._brownout.as_dict()
+            bo["clamped_requests"] = self._brownout_clamps
+            out["brownout"] = bo
         return out
 
     def stop(self) -> None:
+        self._brownout_stop.set()
+        if self._brownout_thread is not None:
+            self._brownout_thread.join(timeout=5)
+            self._brownout_thread = None
         self.batch_processor.stop()
         if self._score_proc is not None:
             self._score_proc.stop()

@@ -2,8 +2,10 @@
 ``WorkerConfig`` and ``GatewayConfig`` that the port uses, with the same
 names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
 /infer lane a default launch serves), plus the worker's own ``device`` and
-``seed``. The JAX gateway's other features keep their fields here, off by
-default, and refuse by name when switched on (``refuse_unported``). The
+``seed``. The JAX gateway's features the port lacks (stream migration,
+disaggregated roles, prefix affinity and the prefix directory, the
+autoscaler, SLO objectives, trace stitching) keep their fields here, off
+by default, and refuse by name when switched on (``refuse_unported``). The
 settings only the JAX ``serve`` command sets (a default deadline, failover
 backoff, the Retry-After of a gateway 503) wait for that command: failover
 is immediate, a request without ``deadline_ms`` has no deadline, and a
@@ -43,6 +45,23 @@ class WorkerConfig:
     # Admitted requests in flight before the lane sheds 503 "overloaded"
     # (0 = unbounded).
     max_queue_depth: int = 0
+    # Overload control (serving.overload), all off by default.
+    # Priority-tiered admission (--priority-admission): requests may carry
+    # "priority": interactive | batch | background; each tier admits only
+    # up to its fraction of the limit (70%, 85%, 100%).
+    priority_admission: bool = False
+    # AIMD adaptive concurrency (--adaptive-depth): a latency-driven limit
+    # replaces max_queue_depth (starting from it), at most this.
+    adaptive_depth: bool = False
+    adaptive_depth_max: int = 64
+    # Staged brownout (--brownout): every brownout_interval_s a control
+    # loop reads the lane's saturation signals and walks the degradation
+    # ladder (budget shrink, spec off, swap-in deferral, low-tier clamp)
+    # before any shed; brownout_clamp_tokens is the clamp stage's
+    # max_new_tokens ceiling below the top tier.
+    brownout: bool = False
+    brownout_interval_s: float = 0.25
+    brownout_clamp_tokens: int = 32
     gen_max_batch_size: int = 8         # decode rows (scheduler slots)
     gen_step_chunk: int = 16            # two-path decode steps per chunk
     gen_prefill_chunk: int = 256
@@ -94,18 +113,41 @@ class GatewayConfig:
     # How long remove_worker(drain=True) waits for a lane to acknowledge
     # its drain before counting the failure and removing it anyway.
     drain_timeout_s: float = 10.0
+    # Hedged dispatch of /infer and /score: once the primary lane exceeds
+    # the best other lane's hedge_quantile latency (at least hedge_min_ms;
+    # hedge_min_ms alone before hedge_min_samples samples), the next ring
+    # lane is dispatched too and the first answer wins.
+    hedge_enabled: bool = False
+    hedge_quantile: float = 0.95
+    hedge_min_ms: float = 50.0
+    hedge_min_samples: int = 20
+    # Crash-tolerant streaming (--failover-streams): a retryable
+    # mid-stream failure resumes the stream on another ring lane (prompt
+    # + emitted tokens, the budget offset), at most failover_max_resumes
+    # times.
+    failover_streams: bool = False
+    failover_max_resumes: int = 3
+    # The health prober (--health-probe-interval, 0 = off): every lane's
+    # /health each interval; health_probe_failures consecutive failures
+    # eject a lane from dispatch, the next success restores it.
+    health_probe_interval_s: float = 0.0
+    health_probe_failures: int = 3
+    # Gateway overload control (--overload-control): priority-tiered
+    # admission against an in-flight gauge of overload_max_inflight (0 =
+    # no gauge: the priority is validated only) and a load-derived
+    # Retry-After. The per-tenant token bucket (--tenant-rate, 0 = off):
+    # tenant_rate requests/s, tenant_burst deep (0 = 2x the rate).
+    overload_control: bool = False
+    overload_max_inflight: int = 0
+    tenant_rate: float = 0.0
+    tenant_burst: float = 0.0
 
     # The JAX gateway's other features: not ported; each refuses by name
     # when switched on (refuse_unported).
-    hedge_enabled: bool = False
-    failover_streams: bool = False
     migrate_streams: bool = False
-    health_probe_interval_s: float = 0.0
     disagg: bool = False
     prefix_affinity: bool = False
     prefix_directory: bool = False
-    overload_control: bool = False
-    tenant_rate: float = 0.0
     autoscale: bool = False
     slo_ttft_p99_ms: float = 0.0
     slo_itl_p99_ms: float = 0.0
@@ -119,15 +161,10 @@ class GatewayConfig:
 # (field, the JAX package's name of the feature) of every gateway feature
 # the port lacks.
 _UNPORTED_GATEWAY = (
-    ("hedge_enabled", "hedged dispatch"),
-    ("failover_streams", "crash-tolerant streaming (stream resume)"),
     ("migrate_streams", "live stream migration"),
-    ("health_probe_interval_s", "the proactive health prober"),
     ("disagg", "disaggregated prefill/decode serving"),
     ("prefix_affinity", "prefix-affinity routing"),
     ("prefix_directory", "the fleet prefix directory"),
-    ("overload_control", "gateway overload control"),
-    ("tenant_rate", "the per-tenant rate limiter"),
     ("autoscale", "the elastic-fleet autoscaler"),
     ("slo_ttft_p99_ms", "SLO objectives"),
     ("slo_itl_p99_ms", "SLO objectives"),
