@@ -69,7 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
               batch_processor counting the dispatches; a single request
               bit-identical on both lanes. Then
               the port's worker over HTTP on localhost serving
-              TinyLlama-1.1B geometry (random weights from seed 0, bf16,
+              TinyLlama-1.1B's width at half depth (11 of its 22 layers,
+              HALF_DEPTH_LLAMA; random weights from seed 0, bf16,
               shared by every lane, 256-token prefill chunks) in five lanes,
               each driven with the launch counts set to 0 just before it
               and read just after: over 16-token KV blocks, mixed stepping
@@ -89,8 +90,8 @@ Phases (any failure exits non-zero and prints no result line):
               no flash), an exact repeat (a prefix-cache hit, no flash), a
               greedy repeat and one stream, and beside the burst five
               /infer token-id payloads and four /score requests (one flash
-              forward of 22 layers per one-shot dispatch): flash launches
-              == 22 x (the one-shot dispatches + the monolithic prefills
+              forward of 11 layers per one-shot dispatch): flash launches
+              == 11 x (the one-shot dispatches + the monolithic prefills
               that missed the cache). Then three
               speculative lanes (spec_k 4): spec-mixed-bf16 (the n-gram
               drafter, mixed, bf16 pool), spec-two-path-int8 (n-gram,
@@ -112,8 +113,8 @@ Phases (any failure exits non-zero and prints no result line):
               rate, the load split equal to the ring's over the
               request_ids, no request failed, and 200 cache hits one at a
               time direct to their owner and through the gateway (the
-              hop's p50/p99); then two mixed-bf16 lanes of TinyLlama
-              geometry (one weight tree) behind a gateway with a 1 s
+              hop's p50/p99); then two mixed-bf16 lanes of TinyLlama's
+              width at half depth (one weight tree) behind a gateway with a 1 s
               breaker timeout: 16 streams, 8 /generate and 8 decoder
               /infer at once, each answered by its request_id's ring
               owner, and four streams one at a time token-identical
@@ -128,8 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
               each lane); and the gateway command as a process (one
               /infer, one /generate, SIGTERM). The launch counts are set
               to 0 before the generation lanes start and read at the
-              phase's end: the ragged kernel's == 22 x the lanes' mixed
-              ticks, the flash forward's == 22 x their one-shot
+              phase's end: the ragged kernel's == 11 x the lanes' mixed
+              ticks, the flash forward's == 11 x their one-shot
               dispatches, no other kernel, no plain call;
 6. kvtier   — the host KV tier and the KV chain wire format at TinyLlama
               geometry (bf16 weights from seed 0, 16-token blocks): a pool
@@ -139,14 +140,15 @@ Phases (any failure exits non-zero and prints no result line):
               a second pool, each held with torch.equal, the copies timed
               beside their PCIe bound and one 256 MiB pinned copy's rate,
               the swap-in beside the device time of recomputing the
-              prefix's prefill (four W = 256 ticks); a mixed-bf16 and a
+              prefix's prefill (four W = 256 ticks); at half depth, a
+              mixed-bf16 and a
               two-path-int8 worker with --kv-blocks 192 --kv-host-blocks
               512, each beside an untiered control (the auto pool), served
               six 1024-token prompts and then each with a new 32-token
               tail, one at a time: streams, prefix-hit and prefilled
               tokens equal to the control's, swap_ins > 0 with no
               deferral, no host eviction and no leaked scale slot, the
-              lane's kernel launched 22 x its ticks; then for each mode two
+              lane's kernel launched 11 x its ticks; then for each mode two
               workers A and B: a greedy 64-token stream of a 1024-token
               prompt on A, exported by /admin/migrate after >= 16 tokens
               and continued on B by migrate_import, token-identical to the
@@ -170,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
               bf16's own distance from f32, the same burst through a
               worker in f32 within BERT_F32_TOL of the plain f32 forward,
               the forward's times at B 1 and 32; a yolov8n worker (bf16,
-              shape buckets 320, 480, 640) answering 48 distinct 16-float
+              shape buckets 320, 480, 640) answering 24 distinct 16-float
               requests cycling the three shapes: n_anchors x 144 values
               each, within YOLO_TOL of the plain f32 forward of each
               canvas, the same burst through a worker in f32 within
@@ -268,7 +270,44 @@ Phases (any failure exits non-zero and prints no result line):
               runs, the kill to the first resumed token timed, the dead P
               ejected within 0.8 s; on L the ragged kernel's launches ==
               22 x its mixed ticks and the flash forward's == 22 x its
-              one-shot dispatches, no plain call.
+              one-shot dispatches, no plain call; its #1 and #5 readings
+              (device time, bound, SDPA's device time) at the 249- and
+              57-token ticks and the /score row;
+11. observe — last: spans, /metrics, the flight recorder and the
+              tick-bounded profile at TinyLlama geometry (random weights
+              from seed 0). A mixed-bf16 spec_k 4 lane as a worker_node
+              process of its own (``--serve-worker-node``, which writes
+              its launch counts when it exits) with --flight-recorder 256
+              and a --profile-dir: a burst of 16 streams and 8 /score, then
+              each stream has one generate_stream root and its queue_wait,
+              radix_lookup, kv_alloc and decode spans, each /score its
+              admission, queue_wait, batch_form and device_compute,
+              mixed_step == spec_verify spans == the ticks, the /metrics
+              exposition parses with tpu_engine_ttft_seconds_count == the
+              streams and the tpu_engine_spec_* counters == stats(); POST
+              /admin/profile {"ticks": 8} during a second burst (8 streams
+              of 112 tokens): the capture's Chrome trace holds 22 x 8
+              launches of each of #1's split and merge kernels (up to
+              three captures while one keeps no device event, then a
+              failure), the kernels' device time a tick beside the tick
+              spans' walls; POST /admin/timeline {"dump": "smoke"}: the
+              dump exists and its records have walls > 0; at exit #1's
+              launches == 22 x the ticks and #5's == 22 x the one-shot
+              dispatches, no plain call. A two-path-bf16 lane (in process,
+              counts from 0): no tick span (the JAX two-path lane records
+              none), each /generate's stage spans, #2 == 22 x 16 x the
+              chunks. A resnet50 /infer burst of 64 distinct misses: the
+              p50 and p99 of cache_lookup, queue_wait, batch_form,
+              device_compute and serialize. The mixed W = 1 tick's wall
+              (the flight recorder's eight-decode-row ticks) with
+              trace_capacity 2048 and 0, and one record()'s host time.
+              Two f32 workers (P the worker command as a process, L in
+              process) behind the gateway command with --trace-stitch and
+              two SLO objectives: P killed (SIGKILL) while a greedy stream
+              it owns runs; the stream resumes on L, the gateway's
+              /admin/trace/<rid> has zero orphans and the admit and
+              resume hops, /admin/slo answers, /metrics has
+              tpu_engine_slo_*.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -287,6 +326,11 @@ under build/, and this one) can be timed in turns in one call.
 
 does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
+
+    python3 chip_smoke.py --profiler-probe
+
+counts the device events torch.profiler sessions keep, by the thread
+that runs them (one JSON line).
 """
 
 from __future__ import annotations
@@ -367,6 +411,13 @@ KERNELS = {
         source="tpu_engine_torch/csrc/flash_attention_bwd.cu",
         replaces="tpu_engine/ops/flash.py:255", lane="train"),
 }
+# The TinyLlama lanes of the server, gateway and kvtier phases run at half
+# depth: 11 of TinyLlama-1.1B's 22 layers at its full width (d 2048, 32/4
+# heads, d_ff 5632, vocab 32000), so that the whole smoke, the observe
+# phase included, keeps to its time. The overload, observe, numbers and
+# train phases, and the kvtier phase's pool readings, run all 22.
+HALF_DEPTH_LLAMA = "llama-half-depth"
+HALF_DEPTH_LAYERS = 11
 PAGED = dict(gen_kv_block_size=16)
 LANES = {
     "mixed-bf16": dict(PAGED, gen_mixed_step=True,
@@ -1624,6 +1675,17 @@ def phase_train(torch) -> dict:
     return out
 
 
+def half_depth_llama() -> str:
+    """The registry name of TinyLlama's geometry at half depth,
+    registered at first use."""
+    from tpu_engine_torch.models import llama, registry
+
+    if HALF_DEPTH_LLAMA not in registry.available_models():
+        registry.register(HALF_DEPTH_LLAMA)(lambda **kw: llama.make_llama(
+            **{"n_layers": HALF_DEPTH_LAYERS, **kw}))
+    return HALF_DEPTH_LLAMA
+
+
 def start_lane(torch, params, lane: str, model: str = "llama",
                overrides=None, node_id=None, dtype: str = "bfloat16"):
     """A worker of the main path's geometry for ``lane``, over HTTP."""
@@ -1638,9 +1700,11 @@ def start_lane(torch, params, lane: str, model: str = "llama",
     t0 = time.perf_counter()
     worker, server = serve_worker(cfg, params=params)
     torch.cuda.synchronize()
-    geometry = ("TinyLlama-1.1B geometry" if model == "llama"
-                else f"{worker.generator.cfg.n_layers} layers, d "
-                     f"{worker.generator.cfg.d_model}")
+    geometry = {"llama": "TinyLlama-1.1B geometry",
+                HALF_DEPTH_LLAMA: f"TinyLlama-1.1B width, "
+                                  f"{HALF_DEPTH_LAYERS} of its 22 layers"}.get(
+        model, f"{worker.generator.cfg.n_layers} layers, d "
+               f"{worker.generator.cfg.d_model}")
     log(f"server {lane}: {model} ({geometry}) ready in "
         f"{time.perf_counter() - t0:.1f} s on port {server.port}")
     return worker, server
@@ -1738,7 +1802,7 @@ def serve_lane(torch, params, lane: str) -> dict:
     overrides = LANES[lane]
     kernel = next(k for k, v in KERNELS.items() if v["lane"] == lane)
     mixed = bool(overrides.get("gen_mixed_step"))
-    worker, server = start_lane(torch, params, lane)
+    worker, server = start_lane(torch, params, lane, half_depth_llama())
     port = server.port
     gcfg = worker.generator.cfg
     vocab, n_layers = gcfg.vocab, gcfg.n_layers
@@ -1891,7 +1955,7 @@ def serve_dense_lane(torch, params) -> dict:
     from tpu_engine_torch.ops import kernels
 
     lane, kernel = "dense-bf16", "flash_attention"
-    worker, server = start_lane(torch, params, lane)
+    worker, server = start_lane(torch, params, lane, half_depth_llama())
     port = server.port
     gcfg = worker.generator.cfg
     vocab, n_layers = gcfg.vocab, gcfg.n_layers
@@ -1998,8 +2062,10 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
     from tpu_engine_torch.ops import kernels
 
     model, kernel, overrides = SPEC_LANES[lane]
-    worker, server = start_lane(torch, params if model == "llama" else None,
-                                lane, model, overrides)
+    if model == "llama":
+        model = half_depth_llama()
+    worker, server = start_lane(torch, params if model == HALF_DEPTH_LLAMA
+                                else None, lane, model, overrides)
     port = server.port
     gen = worker.generator
     vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
@@ -2254,7 +2320,7 @@ def phase_server(torch) -> dict:
           "batch lane")
     log("server: a single request's output is bit-identical on the "
         "unified and the batch lane")
-    params = init_params(create_model("llama").config, seed=0,
+    params = init_params(create_model(half_depth_llama()).config, seed=0,
                          device="cuda", dtype="bfloat16")
     out.update({lane: serve_lane(torch, params, lane) for lane in LANES
                 if lane != "dense-bf16"})
@@ -2491,7 +2557,8 @@ def gateway_generation(torch, params) -> tuple:
 
     workers, servers = [], []
     for i in range(2):
-        w, s = start_lane(torch, params, "mixed-bf16", node_id=f"gen_{i}")
+        w, s = start_lane(torch, params, "mixed-bf16", half_depth_llama(),
+                          node_id=f"gen_{i}")
         workers.append(w)
         servers.append(s)
     urls = [f"127.0.0.1:{s.port}" for s in servers]
@@ -2775,8 +2842,8 @@ def phase_gateway(torch) -> dict:
     try:
         with served_conv_precision(torch):
             reference, ref = gateway_reference(torch)
-            params = init_params(create_model("llama").config, seed=0,
-                                 device="cuda", dtype="bfloat16")
+            params = init_params(create_model(half_depth_llama()).config,
+                                 seed=0, device="cuda", dtype="bfloat16")
             kernels.reset_counts()  # the phase: counts from 0, read at end
             generation, gen = gateway_generation(torch, params)
             faults = gateway_faults(gen, ref)
@@ -3026,7 +3093,8 @@ def kvtier_lane(torch, params, lane: str, tier: bool) -> dict:
     kernel, base = KVTIER_LANES[lane]
     overrides = dict(LANES[base], **(KVTIER_TIER if tier else {}))
     name = lane if tier else lane + "-control"
-    worker, server = start_lane(torch, params, name, overrides=overrides)
+    worker, server = start_lane(torch, params, name, half_depth_llama(),
+                                overrides=overrides)
     port = server.port
     try:
         n_layers = worker.generator.cfg.n_layers
@@ -3099,7 +3167,8 @@ def kvtier_migration(torch, params, lane: str, card: str = "") -> dict:
     as the migrated run does)."""
     _kernel, base = KVTIER_LANES[lane]
     workers = [start_lane(torch, params, f"{lane}-migrate-{x}",
-                          overrides=LANES[base]) for x in "AB"]
+                          half_depth_llama(), overrides=LANES[base])
+               for x in "AB"]
     (wa, sa), (wb, sb) = workers
     try:
         prompt = [int(t) for t in np.random.default_rng(13).integers(
@@ -3177,6 +3246,9 @@ def phase_kvtier(torch, card: str) -> dict:
         f"{out['pinned_copy']['h2d_gb_s']:.2f} GB/s H2D, "
         f"{out['pinned_copy']['d2h_gb_s']:.2f} GB/s D2H [{card}]")
     out["pool"] = kvtier_pool(torch, params, cfg, card=card)
+    del params
+    params = init_params(create_model(half_depth_llama()).config, seed=0,
+                         device="cuda", dtype="bfloat16")
     for lane in KVTIER_LANES:
         tiered = kvtier_lane(torch, params, lane, tier=True)
         control = kvtier_lane(torch, params, lane, tier=False)
@@ -3196,7 +3268,8 @@ def phase_kvtier(torch, card: str) -> dict:
             f"(auto pool, no tier); prefix hit {tp['prefix_hit_tokens']} "
             f"and prefilled {tp['prefilled_tokens']} tokens == the "
             f"control's; host {host}; {tiered['kernel']} launches "
-            f"{tiered['launches']} == 22 x {tiered['steps']} (control "
+            f"{tiered['launches']} == {HALF_DEPTH_LAYERS} x "
+            f"{tiered['steps']} (control "
             f"{control['launches']}); {tiered['seconds']:.3f} s vs "
             f"{control['seconds']:.3f} s [{card}]")
         out[lane] = {"tiered": tiered, "control": control}
@@ -3234,7 +3307,9 @@ BERT_LAYERS = 12
 BERT_BF16_FACTOR = 3.0
 BERT_F32_TOL = 1e-4
 YOLO_SIZES = (320, 480, 640)
-YOLO_REQUESTS = 48
+# 8 requests a bucket (16 before the observe phase came, cut for the
+# smoke's time: a 640 answer is 9 MB of JSON to encode on the host).
+YOLO_REQUESTS = 24
 YOLO_HEAD = 144
 # The yolov8n lane (bf16: every conv's operands rounded to bf16, f32
 # sums) against the plain f32 forward of each request's canvas on the same
@@ -4767,8 +4842,13 @@ def overload_tick_times(torch, params, pa) -> dict:
     """The mixed tick at the main path's shape (seven decode rows beside a
     prefill chunk, width 256, bf16) with the chunk the budget leaves at
     budget_frac 1.0 (249 tokens) and 0.25 (57): the forward's time, host
-    issue and device busy time, and #1 alone at that tick's rows; #5 at
-    a hedged /score's dispatch (one row of 128, f32, causal)."""
+    issue and device busy time, and #1 alone at that tick's rows (events,
+    device time, its bound and SDPA's device time over the same rows);
+    #5 at a hedged /score's dispatch (one row of 128, f32, causal), the
+    same four readings."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
     from tpu_engine_torch.models.registry import create_model
     from tpu_engine_torch.models.transformer import (
         KVCache,
@@ -4801,26 +4881,51 @@ def overload_tick_times(torch, params, pa) -> dict:
               f"overload tick at {frac}: non-finite logits")
         ms = time_ms(torch, fwd, iters=10)
         busy = busy_ms(torch, fwd)
-        kernel = time_ms(torch, lambda: pa.ragged_paged_attention(
+        call = (lambda ql=ql: pa.ragged_paged_attention(
             q, k, v, tables, pos0, ql))
+        kernel = time_ms(torch, call)
+        device, seen = device_call_ms(torch, call)
+        bound, by = bound_ms(q, k, tables, pos0, ql, k.element_size())
+        sdpa_dev, _ = device_call_ms(
+            torch, sdpa_yardstick(torch, (q, k, v, tables, pos0, ql),
+                                  False))
         out[f"budget_frac {frac}"] = {
             "prefill_chunk": chunk, "forward_ms": ms,
             "issue_ms": issue_ms(torch, fwd), "busy_ms": busy,
-            "idle_share": idle_share(busy, ms), "ragged_ms": kernel}
+            "idle_share": idle_share(busy, ms), "ragged_ms": kernel,
+            "ragged_device_ms": device, "ragged_device_calls": seen,
+            "ragged_bound_ms": bound, "ragged_bound_by": by,
+            "ragged_sdpa_device_ms": sdpa_dev}
     fq = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
     fk = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
     fv = torch.randn((1, 128, cfg.n_heads, cfg.d_head), device=dev)
-    out["flash score row f32"] = time_ms(
-        torch, lambda: fl.flash_attention_fwd(fq, fk, fv, causal=True))
+    score_call = (lambda: fl.flash_attention_fwd(fq, fk, fv, causal=True))
+    out["flash score row f32"] = time_ms(torch, score_call)
+    qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+
+    def score_sdpa():
+        with sdpa_kernel(sdpa_backend(torch, torch.float32)):
+            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    fbound, fby = flash_bound_ms(fq)
+    out["flash score row f32 readings"] = {
+        "device_ms": device_call_ms(torch, score_call)[0],
+        "bound_ms": fbound, "bound_by": fby,
+        "sdpa_device_ms": device_call_ms(torch, score_sdpa)[0]}
     for key in ("budget_frac 1.0", "budget_frac 0.25"):
         r = out[key]
         log(f"overload tick ({key}: 7 decode rows + a {r['prefill_chunk']}-"
             f"token chunk, width 256, bf16): {r['forward_ms']:.3f} ms "
             f"(host issue {r['issue_ms']:.3f} ms, "
             f"{busy_text(r['busy_ms'], r['idle_share'])}), "
-            f"#1 {r['ragged_ms']:.4f} ms")
+            f"#1 {r['ragged_ms']:.4f} ms (device {r['ragged_device_ms']:.4f}"
+            f" ms, bound {r['ragged_bound_ms']:.5f} ms "
+            f"({r['ragged_bound_by']}), sdpa device "
+            f"{r['ragged_sdpa_device_ms']:.4f} ms)")
+    fr = out["flash score row f32 readings"]
     log(f"overload: #5 at a /score row (1 x 128, f32) "
-        f"{out['flash score row f32']:.4f} ms")
+        f"{out['flash score row f32']:.4f} ms (device {fr['device_ms']:.4f} "
+        f"ms, bound {fr['bound_ms']:.5f} ms ({fr['bound_by']}), sdpa "
+        f"device {fr['sdpa_device_ms']:.4f} ms)")
     return out
 
 
@@ -4858,6 +4963,644 @@ def phase_overload(torch, card: str, pa) -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"overload: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# -- observe: spans, /metrics, the flight recorder and the profile ------------
+
+OBSERVE_STREAMS = 16
+OBSERVE_SCORES = 8
+OBSERVE_NEW = 32
+OBSERVE_PROFILE_TICKS = 8
+OBSERVE_PROFILE_STREAMS = 8
+OBSERVE_PROFILE_NEW = 112
+OBSERVE_INFER_BURST = 64
+# The /infer stage split's model and its input size.
+OBSERVE_INFER = ("resnet50", 224 * 224 * 3)
+OBSERVE_STAGES = ("cache_lookup", "queue_wait", "batch_form",
+                  "device_compute", "serialize")
+# #1's two CUDA kernels, as the profiler names them.
+RAGGED_KERNELS = ("ragged_split_kernel", "ragged_merge_kernel")
+OBSERVE_COST_NEW = 48
+_SAMPLE_LINE = (r'^[a-z_:][a-z0-9_:]*(\{[^}]*\})? '
+                r'(-?[0-9.]+(e[+-]?[0-9]+)?|NaN|[+-]Inf)$')
+
+
+def get_text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200, f"{path} answered {resp.status}")
+        return data.decode()
+    finally:
+        conn.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_counted_worker_node(args, log_path: Path, counts_path: Path):
+    """The worker_node command as a process of its own (``chip_smoke.py
+    --serve-worker-node``) that writes its kernels' launch counts to
+    ``counts_path`` when it exits: (process, port, the log's file)."""
+    port = free_port()
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serve-worker-node", str(counts_path), str(port), *args],
+        cwd=str(Path(__file__).resolve().parent), stdout=out,
+        stderr=subprocess.STDOUT)
+    return proc, port, out
+
+
+def main_serve_worker_node(argv) -> int:
+    """``--serve-worker-node COUNTS <worker_node argv>``: serve until
+    SIGTERM, then write the launch counts (kernel -> [launches, plain
+    calls]) to COUNTS."""
+    from tpu_engine_torch.serving import cli
+
+    code = cli.main(["worker_node", *argv[1:]])
+    Path(argv[0]).write_text(json.dumps(launch_counts()))
+    return code
+
+
+def spans_of(port: int) -> list:
+    """The lane's spans (the X events of /trace/export)."""
+    return [e for e in get(port, "/trace/export")["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+def parse_metrics(text: str) -> dict:
+    """{series: value} of a Prometheus exposition; every line must be a
+    comment or a sample."""
+    import re
+
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("#") or not ln:
+            continue
+        check(re.match(_SAMPLE_LINE, ln) is not None,
+              f"/metrics: malformed line {ln!r}")
+        key, val = ln.rsplit(" ", 1)
+        out[key] = float(val)
+    return out
+
+
+def stage_p50_p99(stages: dict, ops) -> dict:
+    return {op: {"count": stages[op]["count"],
+                 "p50_ms": stages[op]["p50_us"] / 1e3,
+                 "p99_ms": stages[op]["p99_us"] / 1e3} for op in ops}
+
+
+def profile_capture(port: int, ticks: int, readers) -> dict:
+    """POST /admin/profile {"ticks"} while ``readers`` stream, wait for
+    the capture to end and read its Chrome trace: #1's split and merge
+    kernels' launches, each device event name's count and summed
+    microseconds. Up to three captures while one keeps no device event;
+    none keeping one fails the phase."""
+    for attempt in range(1, 4):
+        check(all(r.final is None for r in readers),
+              "observe profile: the burst ended before the capture")
+        res = post(port, "/admin/profile", {"ticks": ticks})
+        check(res.get("ok") and res.get("ticks") == ticks,
+              f"observe profile: {res}")
+        t0 = time.perf_counter()
+        while True:
+            st = get(port, "/admin/profile")
+            if st["ticks_left"] == 0 and st["last_result"]:
+                break
+            check(time.perf_counter() - t0 < 120,
+                  f"observe profile: capture did not end: {st}")
+            time.sleep(0.05)
+        last = st["last_result"]
+        check(last.get("ok"), f"observe profile: {last}")
+        log(f"observe profile: capture {attempt}: {last['events']} events, "
+            f"{last['device_events']} on the card ({last['trace_file']})")
+        if last["device_events"] > 0:
+            break
+    check(last["device_events"] > 0,
+          "observe profile: three captures kept no device event")
+    with open(last["trace_file"]) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for ev in events:
+        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        c = by_name.setdefault(ev["name"], [0, 0.0])
+        c[0] += 1
+        c[1] += float(ev.get("dur", 0))
+    ragged = {k: sum(c[0] for n, c in by_name.items() if k in n)
+              for k in RAGGED_KERNELS}
+    return {"captures": attempt, "trace_file": last["trace_file"],
+            "events": last["events"], "device_events": last["device_events"],
+            "by_name": by_name, "ragged_launches": ragged,
+            "host_self_us": host_self_us(events)}
+
+
+def host_self_us(events) -> dict:
+    """Summed self time (microseconds) per CPU op name on the thread with
+    the most CPU ops (the decode thread, which opened the capture): each
+    op's duration less that of the ops nested in it."""
+    ops = [e for e in events if e.get("cat") == "cpu_op" and "dur" in e]
+    if not ops:
+        return {}
+    tids = {}
+    for e in ops:
+        tids[e["tid"]] = tids.get(e["tid"], 0) + 1
+    tid = max(tids, key=tids.get)
+    mine = sorted((e for e in ops if e["tid"] == tid),
+                  key=lambda e: (e["ts"], -e["dur"]))
+    self_us, stack = {}, []
+    for e in mine:
+        end = e["ts"] + e["dur"]
+        while stack and stack[-1][1] <= e["ts"]:
+            stack.pop()
+        if stack:  # nested: its time is not its parent's own
+            parent = stack[-1][0]
+            self_us[parent["name"]] = (self_us.get(parent["name"], 0.0)
+                                       - e["dur"])
+        self_us[e["name"]] = self_us.get(e["name"], 0.0) + e["dur"]
+        stack.append((e, end))
+    return self_us
+
+
+def observe_spec_lane(card: str, cfg) -> dict:
+    """Parts 1-3: the mixed-bf16 spec lane as a worker_node process
+    (``cfg``: the llama registry entry's geometry)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    counts_path = OUT_DIR / "observe_counts.json"
+    counts_path.unlink(missing_ok=True)
+    proc, port, out_f = spawn_counted_worker_node(
+        ["obs-spec", "llama", "--kv-block-size", "16", "--mixed-step",
+         "--mixed-token-budget", "256", "--prefill-chunk", "256",
+         "--n-slots", "8", "--spec-k", str(SPEC_K),
+         "--flight-recorder", "256",
+         "--flight-dump-dir", str((OUT_DIR / "flight").resolve()),
+         "--profile-dir", str((OUT_DIR / "profile").resolve())],
+        OUT_DIR / "observe_worker.log", counts_path)
+    out = {}
+    try:
+        out["ready_s"] = wait_health(proc, port)
+        rng = np.random.default_rng(7)
+        vocab, n_layers = cfg.vocab, cfg.n_layers
+
+        def toks(n):
+            return [int(t) for t in rng.integers(1, vocab, n)]
+        # Part 1: a burst of streams and /score rows.
+        streams = [StreamReader(port, {
+            "request_id": f"os{i}", "max_new_tokens": OBSERVE_NEW,
+            "prompt_tokens": toks(int(rng.integers(64, 200)))})
+            for i in range(OBSERVE_STREAMS)]
+        scores = {f"oc{i}": {"request_id": f"oc{i}",
+                             "prompt_tokens": toks(64),
+                             "completion_tokens": toks(16)}
+                  for i in range(OBSERVE_SCORES)}
+        t0 = time.perf_counter()
+        for r in streams:
+            r.start()
+        score_res, _ = concurrent_posts(port, "/score", scores)
+        for r in streams:
+            r.join(timeout=600)
+        out["burst_s"] = time.perf_counter() - t0
+        for r in streams:
+            check(r.final is not None and "error" not in r.final
+                  and len(r.tokens) == OBSERVE_NEW,
+                  f"observe stream {r.body['request_id']}: {r.final} "
+                  f"{r.error}")
+        check(all(len(s["logprobs"]) == 16 for s in score_res.values()),
+              "observe: /score answers")
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"observe: blocks leaked: {st['kv_pool']}")
+        spans = spans_of(port)
+        ops = {}
+        for e in spans:
+            ops.setdefault(e["args"]["request_id"], {}).setdefault(
+                e["name"], 0)
+            ops[e["args"]["request_id"]][e["name"]] += 1
+        for r in streams:
+            mine = ops.get(r.body["request_id"], {})
+            check(all(mine.get(op) == 1 for op in (
+                "generate_stream", "queue_wait", "radix_lookup",
+                "kv_alloc", "decode")),
+                f"observe: stream {r.body['request_id']} spans {mine}")
+        check(sum(m.get("generate_stream", 0) for m in ops.values())
+              == OBSERVE_STREAMS, f"observe: root spans {ops}")
+        for rid in scores:
+            mine = ops.get(rid, {})
+            check(all(mine.get(op) == 1 for op in (
+                "score", "admission", "queue_wait", "batch_form",
+                "device_compute")), f"observe: /score {rid} spans {mine}")
+        tick_ops = ops.get("tick", {})
+        mixed, spec = st["mixed"], st["spec"]
+        check(tick_ops.get("mixed_step") == mixed["ticks"]
+              == tick_ops.get("spec_verify") == spec["ticks"] > 0,
+              f"observe: tick spans {tick_ops} vs mixed {mixed['ticks']}, "
+              f"spec {spec['ticks']}")
+        metrics = parse_metrics(get_text(port, "/metrics"))
+        node = '{node="obs-spec"}'
+        lane = '{node="obs-spec",lane="continuous"}'
+        check(metrics[f"tpu_engine_ttft_seconds_count{node}"]
+              == OBSERVE_STREAMS, "observe: ttft count "
+              f"{metrics.get(f'tpu_engine_ttft_seconds_count{node}')}")
+        for key in ("dispatches", "proposed_tokens", "accepted_tokens",
+                    "emitted_tokens"):
+            name = f"tpu_engine_spec_{key}_total{lane}"
+            check(metrics[name] == spec[key],
+                  f"observe: {name} {metrics[name]} != {spec[key]}")
+        out["burst"] = {"ticks": mixed["ticks"],
+                        "spec": {k: spec[k] for k in (
+                            "dispatches", "proposed_tokens",
+                            "accepted_tokens", "emitted_tokens")},
+                        "metrics": len(metrics), "spans": len(spans)}
+        log(f"observe burst: {OBSERVE_STREAMS} streams and "
+            f"{OBSERVE_SCORES} /score in {out['burst_s']:.2f} s; "
+            f"{len(spans)} spans, mixed_step == spec_verify == "
+            f"{mixed['ticks']} ticks; /metrics {len(metrics)} series, "
+            f"ttft count {OBSERVE_STREAMS}, spec counters == stats")
+        # Part 2: a tick-bounded capture during a second burst.
+        b2_wall = time.time()
+        readers = [StreamReader(port, {
+            "request_id": f"op{i}", "max_new_tokens": OBSERVE_PROFILE_NEW,
+            "prompt_tokens": toks(128)})
+            for i in range(OBSERVE_PROFILE_STREAMS)]
+        for r in readers:
+            r.start()
+        t0 = time.perf_counter()
+        while min(len(r.tokens) for r in readers) < 2:
+            check(time.perf_counter() - t0 < 120,
+                  "observe profile: the second burst did not start")
+            time.sleep(0.005)
+        cap = profile_capture(port, OBSERVE_PROFILE_TICKS, readers)
+        for r in readers:
+            r.join(timeout=600)
+            check(r.final is not None and "error" not in r.final,
+                  f"observe profile stream: {r.final} {r.error}")
+        want = n_layers * OBSERVE_PROFILE_TICKS
+        check(all(cap["ragged_launches"][k] == want
+                  for k in RAGGED_KERNELS),
+              f"observe profile: #1 launches in the trace "
+              f"{cap['ragged_launches']}, want {want} of each")
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"observe: blocks leaked: {st['kv_pool']}")
+        walls = [e["dur"] / 1e3 for e in spans_of(port)
+                 if e["name"] == "spec_verify"
+                 and e["ts"] / 1e6 >= b2_wall]
+        per_tick = {n: {"launches": c[0],
+                        "ms_per_tick": c[1] / 1e3 / OBSERVE_PROFILE_TICKS}
+                    for n, c in cap["by_name"].items()}
+        host = {n: us / 1e3 / OBSERVE_PROFILE_TICKS
+                for n, us in cap["host_self_us"].items()}
+        busy = sum(v["ms_per_tick"] for v in per_tick.values())
+        ragged_ms = sum(v["ms_per_tick"] for n, v in per_tick.items()
+                        if any(k in n for k in RAGGED_KERNELS))
+        wall = float(np.mean(walls))
+        out["profile"] = {
+            "captures": cap["captures"], "events": cap["events"],
+            "device_events": cap["device_events"],
+            "ragged_launches": cap["ragged_launches"],
+            "tick_wall_ms_mean": wall, "tick_wall_ms_p50_p99":
+                p50_p99_ms(np.array(walls) / 1e3),
+            "ticks_in_burst": len(walls), "device_busy_ms_per_tick": busy,
+            "ragged_ms_per_tick": ragged_ms,
+            "top_kernels_ms_per_tick": dict(sorted(
+                ((n, v["ms_per_tick"]) for n, v in per_tick.items()),
+                key=lambda kv: -kv[1])[:8]),
+            "host_ops_self_ms_per_tick": sum(host.values()),
+            "top_host_ops_self_ms_per_tick": dict(sorted(
+                host.items(), key=lambda kv: -kv[1])[:10])}
+        log(f"observe profile: {OBSERVE_PROFILE_TICKS} ticks of "
+            f"{OBSERVE_PROFILE_STREAMS} decode rows (spec_k {SPEC_K}, "
+            f"bf16): #1 split/merge launches "
+            f"{cap['ragged_launches']} == {n_layers} x "
+            f"{OBSERVE_PROFILE_TICKS}; "
+            f"device busy {busy:.3f} ms a tick (#1 {ragged_ms:.3f} ms) "
+            f"against a tick span wall of {wall:.3f} ms (mean of "
+            f"{len(walls)} ticks; idle {100 * max(0, 1 - busy / wall):.1f}"
+            f"%); the decode thread's CPU ops {sum(host.values()):.3f} ms "
+            f"a tick (self time), the largest "
+            + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
+                host.items(), key=lambda kv: -kv[1])[:5]) + f" [{card}]")
+        # Part 3: a forced flight-recorder dump.
+        tl = get(port, "/admin/timeline")
+        check(tl["enabled"] and tl["capacity"] == 256 and tl["ticks"] > 0,
+              f"observe timeline: {dict(tl, timeline=len(tl['timeline']))}")
+        dump = post(port, "/admin/timeline", {"dump": "smoke"})["dumped"]
+        check(dump is not None and dump["path"]
+              and os.path.exists(dump["path"]), f"observe dump: {dump}")
+        with open(dump["path"]) as f:
+            ring = json.load(f)["timeline"]
+        busy_ticks = [r for r in ring if r["active"] > 0]
+        check(busy_ticks and all(r["tick_wall_ms"] > 0 for r in ring),
+              f"observe dump: {len(ring)} records, {len(busy_ticks)} busy")
+        out["dump"] = {"path": dump["path"], "records": len(ring),
+                       "busy_records": len(busy_ticks)}
+        health = get(port, "/health")["generator"]
+        oneshot = health["stateless"]["dispatches"]
+        ticks = health["mixed"]["ticks"]
+        check(health["spec"]["ticks"] == ticks, f"observe: {health}")
+        proc.send_signal(__import__("signal").SIGTERM)
+        check(proc.wait(timeout=120) == 0, "observe: worker exit code")
+        counts = json.loads(counts_path.read_text())
+        check(all(p == 0 for _n, p in counts.values()),
+              f"observe: plain versions served attention: {counts}")
+        ragged = counts["ragged_paged_attention"][0]
+        flash = counts["flash_attention"][0]
+        check(all(n == 0 for k, (n, _p) in counts.items()
+                  if k not in ("ragged_paged_attention", "flash_attention")),
+              f"observe: other kernels launched: {counts}")
+        check(ragged == n_layers * ticks and flash == n_layers * oneshot
+              and oneshot > 0,
+              f"observe: {ragged} #1 launches for {ticks} ticks, {flash} "
+              f"#5 for {oneshot} one-shot dispatches")
+        out.update(launches={"ragged_paged_attention": ragged,
+                             "flash_attention": flash},
+                   ticks=ticks, oneshot_dispatches=oneshot)
+        log(f"observe lane: #1 launches {ragged} == {n_layers} x {ticks} "
+            f"ticks, #5 {flash} == {n_layers} x {oneshot} one-shot "
+            f"dispatches, no plain "
+            f"call; flight dump {len(ring)} records")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        out_f.close()
+    return out
+
+
+def observe_two_path(torch, params, cfg) -> dict:
+    """Part 4: the two-path-bf16 lane with spans on, counts from 0: JAX's
+    two-path scheduler records no tick span (its ticks are decode chunks),
+    each stream's decode span covers its chunks, and #2 launches 22 x the
+    chunk's steps per chunk."""
+    from tpu_engine_torch.ops import kernels
+
+    worker, server = start_lane(torch, params, "two-path-bf16",
+                                node_id="obs-two-path")
+    port = server.port
+    rng = np.random.default_rng(8)
+    try:
+        kernels.reset_counts()
+        bodies = {f"ot{i}": {"request_id": f"ot{i}",
+                             "prompt_tokens": [int(t) for t in
+                                               rng.integers(1, cfg.vocab,
+                                                            100)],
+                             "max_new_tokens": OBSERVE_NEW}
+                  for i in range(4)}
+        res, wall = concurrent_posts(port, "/generate", bodies)
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"observe two-path: blocks leaked: {st['kv_pool']}")
+        launches = check_counts("observe two-path", "paged_attention")
+        spans = spans_of(port)
+        ops = {}
+        for e in spans:
+            key = (e["args"]["request_id"], e["name"])
+            ops[key] = ops.get(key, 0) + 1
+        check(not [k for k in ops if k[0] == "tick"],
+              f"observe two-path: tick spans {ops}")
+        for rid in bodies:
+            check(all(ops.get((rid, op)) == 1 for op in (
+                "generate", "queue_wait", "radix_lookup", "prefill",
+                "kv_alloc", "decode")), f"observe two-path {rid}: {ops}")
+        chunks = st["chunks"]
+        check(chunks > 0 and launches == cfg.n_layers * 16 * chunks,
+              f"observe two-path: {launches} #2 launches for {chunks} "
+              f"chunks of 16 steps")
+        decode_ms = [e["dur"] / 1e3 for e in spans if e["name"] == "decode"]
+    finally:
+        server.stop()
+        worker.stop()
+    log(f"observe two-path: #2 launches {launches} == {cfg.n_layers} x 16 "
+        f"x {chunks} "
+        f"chunks; no tick span (as JAX's two-path lane); decode spans "
+        f"{np.mean(decode_ms):.1f} ms mean over {len(decode_ms)} streams")
+    return {"launches": launches, "chunks": chunks, "burst_s": wall,
+            "decode_span_ms_mean": float(np.mean(decode_ms))}
+
+
+def observe_infer_stages(torch) -> dict:
+    """Part 5: a resnet50 /infer miss burst and its stage split."""
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    model, n_in = OBSERVE_INFER
+    with served_conv_precision(torch):
+        worker, server = serve_worker(WorkerConfig(
+            port=0, node_id="obs-infer", model=model,
+            dtype="bfloat16", max_batch_size=32, device="cuda", seed=0))
+        port = server.port
+        rng = np.random.default_rng(9)
+        try:
+            post(port, "/infer", {"request_id": "warm", "input_data":
+                                  np.round(rng.random(n_in), 3).tolist()})
+            bodies = {f"oi{i}": json.dumps({
+                "request_id": f"oi{i}",
+                "input_data": np.round(rng.random(n_in, np.float32),
+                                       3).tolist()
+            }).encode() for i in range(OBSERVE_INFER_BURST)}
+            res, wall = concurrent_posts(port, "/infer", bodies)
+            n_out = int(np.prod(worker.engine.spec.output_shape))
+            check(all(len(r["output_data"]) == n_out and not r["cached"]
+                      for r in res.values()), "observe /infer answers")
+            stages = get(port, "/trace")["stages"]["obs-infer"]
+        finally:
+            server.stop()
+            worker.stop()
+    split = stage_p50_p99(stages, OBSERVE_STAGES + ("infer",))
+    for op in OBSERVE_STAGES:
+        check(split[op]["count"] >= OBSERVE_INFER_BURST,
+              f"observe /infer: {op} {split[op]}")
+    log(f"observe /infer ({model} bf16, a burst of 64 distinct misses, "
+        f"{wall:.2f} s): " + ", ".join(
+            f"{op} p50 {v['p50_ms']:.3f} / p99 {v['p99_ms']:.3f} ms"
+            for op, v in split.items()))
+    return {"burst_s": wall, "stages": split}
+
+
+def observe_span_cost(torch, params, cfg) -> dict:
+    """Part 6: the mixed W = 1 tick (eight decode rows) with spans on
+    (trace_capacity 2048) and off (0), one lane after the other: the mean
+    wall of the flight recorder's ticks with eight decode rows and no
+    prefill."""
+    rng = np.random.default_rng(10)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, 16)]
+               for _ in range(8)]
+    out = {}
+    for cap in (2048, 0):
+        worker, server = start_lane(
+            torch, params, "mixed-bf16", node_id=f"obs-cost-{cap}",
+            overrides=dict(LANES["mixed-bf16"], trace_capacity=cap,
+                           flight_recorder=1024))
+        try:
+            concurrent_posts(server.port, "/generate", {
+                f"w{i}": {"request_id": f"w{i}", "prompt_tokens": p,
+                          "max_new_tokens": OBSERVE_COST_NEW}
+                for i, p in enumerate(prompts)})
+            ring = worker.generator.flight_timeline()["timeline"]
+        finally:
+            server.stop()
+            worker.stop()
+        w1 = [r["tick_wall_ms"] for r in ring
+              if r["active"] == 8 and r.get("prefilling") == 0
+              and r.get("decode_tokens") == 8]
+        check(len(w1) >= OBSERVE_COST_NEW // 2,
+              f"observe span cost: {len(w1)} W = 1 ticks at {cap}")
+        out[f"trace_capacity {cap}"] = {
+            "ticks": len(w1), "tick_ms_mean": float(np.mean(w1)),
+            "tick_ms_p50": float(np.median(w1))}
+    from tpu_engine_torch.utils.tracing import SpanRecorder
+
+    rec = SpanRecorder(2048)
+    t0 = time.perf_counter()
+    for i in range(20000):
+        rec.record("r", "decode", "n", 10.0, trace_id="t", span_id="s",
+                   parent_id="p", start_ts=1.0, attrs={"tokens": i})
+    out["record_us"] = (time.perf_counter() - t0) / 20000 * 1e6
+    on, off = (out[f"trace_capacity {c}"] for c in (2048, 0))
+    log(f"observe span cost: the mixed W = 1 tick {on['tick_ms_mean']:.3f} "
+        f"ms with spans (mean of {on['ticks']}), {off['tick_ms_mean']:.3f} "
+        f"ms without ({off['ticks']}); one record() "
+        f"{out['record_us']:.2f} us on the host")
+    return out
+
+
+def observe_gateway(torch, params32, cfg, proc, p_port: int) -> dict:
+    """Part 7: two f32 mixed workers (P the worker command as a process,
+    L in process) behind the gateway command with --trace-stitch and SLO
+    objectives; P killed (SIGKILL) while a greedy stream it owns runs: the
+    stream resumes on L and the gateway's stitch of it has zero
+    orphans; /admin/slo answers, /metrics has tpu_engine_slo_*."""
+    import signal
+
+    worker, server = start_lane(
+        torch, params32, "observe-gw-l", node_id="obs-l", dtype="float32",
+        overrides=dict(PAGED, gen_mixed_step=True,
+                       gen_mixed_token_budget=256, trace_stitch=True))
+    l_port = server.port
+    p_url, l_url = f"127.0.0.1:{p_port}", f"127.0.0.1:{l_port}"
+    ring = ring_of([p_url, l_url])
+    g_port = free_port()
+    g_log = open(OUT_DIR / "observe_gateway.log", "w")
+    gproc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
+         p_url, l_url, "--port", str(g_port), "--failover-streams",
+         "--health-probe-interval", str(PROBE_INTERVAL_S),
+         "--trace-stitch", "--slo-ttft-p99-ms", "500",
+         "--slo-completion-p99-ms", "5000"],
+        cwd=str(Path(__file__).resolve().parent), stdout=g_log,
+        stderr=subprocess.STDOUT)
+    try:
+        wait_health(proc, p_port)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                get(g_port, "/stats")
+                break
+            except (OSError, http.client.HTTPException, SmokeFailure):
+                check(gproc.poll() is None and time.perf_counter() - t0 < 120,
+                      f"gateway command did not start: {gproc.poll()}")
+                time.sleep(0.1)
+        post(p_port, "/generate", {"request_id": "warm-p",
+                                   "prompt_tokens": [5, 6, 7],
+                                   "max_new_tokens": 4})
+        rng = np.random.default_rng(11)
+        rid = owned(ring, p_url, 1, "obs-failover-")[0]
+        body = {"request_id": rid, "max_new_tokens": FAILOVER_NEW,
+                "prompt_tokens": [int(t) for t in rng.integers(1, cfg.vocab,
+                                                               64)]}
+        reader = StreamReader(g_port, body)
+        reader.start()
+        t0 = time.perf_counter()
+        while len(reader.tokens) < FAILOVER_AT:
+            check(time.perf_counter() - t0 < 120 and reader.final is None,
+                  f"observe failover: {len(reader.tokens)} tokens")
+            time.sleep(0.002)
+        proc.kill()
+        reader.join(timeout=600)
+        check(reader.final is not None and reader.final.get("resumed") == 1
+              and len(reader.tokens) == FAILOVER_NEW,
+              f"observe failover: {reader.final} {reader.error}")
+        stitched = get(g_port, f"/admin/trace/{rid}")
+        ops = {}
+        for s in stitched["spans"]:
+            ops[s["op"]] = ops.get(s["op"], 0) + 1
+        check(stitched["orphans"] == 0
+              and [h["kind"] for h in stitched["hops"]] == ["admit",
+                                                            "resume"]
+              and stitched["lanes"] == sorted(["gateway", l_url])
+              and ops.get("stream") == 1 and ops.get("resume") == 1
+              and ops.get("generate_stream") == 1,
+              f"observe stitch: orphans {stitched['orphans']}, hops "
+              f"{stitched['hops']}, lanes {stitched['lanes']}, ops {ops}")
+        slo = get(g_port, "/admin/slo")
+        check(set(slo.get("objectives", {})) == {"ttft", "completion"},
+              f"observe /admin/slo: {slo}")
+        metrics = parse_metrics(get_text(g_port, "/metrics"))
+        slo_series = sorted(k for k in metrics
+                            if k.startswith("tpu_engine_slo_"))
+        check(any(k.startswith("tpu_engine_slo_target") for k in slo_series)
+              and any(k.startswith("tpu_engine_slo_burn_rate")
+                      for k in slo_series),
+              f"observe: slo metrics {slo_series}")
+        gproc.send_signal(signal.SIGTERM)
+        check(gproc.wait(timeout=60) == 0, "observe gateway exit code")
+    finally:
+        if gproc.poll() is None:
+            gproc.kill()
+            gproc.wait(timeout=60)
+        g_log.close()
+        server.stop()
+        worker.stop()
+    log(f"observe gateway: a stream owned by the killed P resumed on L; "
+        f"its stitch has {len(stitched['spans'])} spans from "
+        f"{stitched['lanes']}, 0 orphans, hops admit + resume; /admin/slo "
+        f"objectives {sorted(slo['objectives'])}; {len(slo_series)} "
+        f"tpu_engine_slo_* series")
+    return {"spans": len(stitched["spans"]), "ops": ops,
+            "slo": slo, "slo_series": slo_series}
+
+
+def phase_observe(torch, card: str) -> dict:
+    """Spans, /metrics, the flight recorder and the tick-bounded profile
+    on the card (see the module docstring's observe entry)."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    # P of part 7 starts first and loads while the other parts run.
+    proc, p_port, p_log = spawn_worker(
+        ["obs-p", "llama", "--dtype", "float32", "--kv-block-size", "16",
+         "--mixed-step", "--mixed-token-budget", "256", "--prefill-chunk",
+         "256", "--n-slots", "8", "--trace-stitch"],
+        OUT_DIR / "observe_p_worker.log")
+    out = {}
+    cfg = create_model("llama").config
+    try:
+        out["spec_lane"] = observe_spec_lane(card, cfg)
+        params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+        out["two_path"] = observe_two_path(torch, params, cfg)
+        out["span_cost"] = observe_span_cost(torch, params, cfg)
+        del params
+        out["infer"] = observe_infer_stages(torch)
+        torch.cuda.empty_cache()
+        params32 = init_params(cfg, seed=0, device="cuda", dtype="float32")
+        out["gateway"] = observe_gateway(torch, params32, cfg, proc, p_port)
+        del params32
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        p_log.close()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"observe: every check passed in {out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -5428,6 +6171,156 @@ def main_resnet_times(torch, root: str) -> int:
     return 0
 
 
+def main_profiler_probe(torch) -> int:
+    """``--profiler-probe``: how often a torch.profiler session keeps no
+    device event, by where it runs and what ran before it in the
+    process. Each session runs 20 calls each of
+    SDPA (bf16 flash, f32 memory-efficient) and a bf16 matmul and
+    synchronises; a session's reading is its count of device events.
+    Scenarios: sessions back to back on the main thread (the numbers
+    phase's pattern), the same without a synchronise before the session
+    ends, sessions wholly on a second thread, a session stopped from
+    another thread than the one that opened it, and ``utils.tracing``
+    sessions on a thread of their own, started and stopped from other
+    threads while the main thread works (also their CPU ops from the
+    main thread); then the numbers phase's SDPA f32 yardstick and the
+    ragged kernel by ``device_call_ms`` (calls seen of 20): fresh, after
+    60 more sessions and 400 threads, after CUDA-event timing, after the
+    kernel library's launches. Prints one JSON line."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_engine_torch.utils import tracing
+
+    dev = torch.device("cuda")
+    q = torch.randn(8, 32, 128, 64, device=dev, dtype=torch.bfloat16)
+    q32 = q.float()
+    a = torch.randn(2048, 2048, device=dev, dtype=torch.bfloat16)
+
+    def work(sync=True):
+        for _ in range(20):
+            with sdpa_kernel(sdpa_backend(torch, torch.bfloat16)):
+                F.scaled_dot_product_attention(q, q, q, is_causal=True)
+            with sdpa_kernel(sdpa_backend(torch, torch.float32)):
+                F.scaled_dot_product_attention(q32, q32, q32,
+                                               is_causal=True)
+            a @ a
+        if sync:
+            torch.cuda.synchronize()
+
+    def session(sync_before_exit=True) -> int:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work(sync_before_exit)
+        return sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+
+    def in_thread(fn):
+        box = []
+
+        def run():
+            try:
+                box.append(("ok", fn()))
+            except Exception as exc:
+                box.append(("raised", exc))
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        kind, val = box[0]
+        if kind == "raised":
+            raise val
+        return val
+
+    def stop_elsewhere() -> str:
+        """A session opened on this thread, stopped from another: what
+        the stop raises."""
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+        work()
+        try:
+            in_thread(lambda: prof.__exit__(None, None, None))
+            return "stopped"
+        except Exception as exc:
+            return f"{type(exc).__name__}: {exc}"
+        finally:
+            try:
+                prof.__exit__(None, None, None)
+            except Exception:
+                pass
+
+    def own_thread(log_dir) -> tuple:
+        check(in_thread(lambda: tracing.profiler_start(log_dir))["ok"],
+              "probe: own-thread session did not start")
+        work()
+        res = in_thread(tracing.profiler_stop)
+        with open(res["trace_file"]) as f:
+            cpu = sum(1 for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "cpu_op")
+        return res["device_events"], cpu
+
+    # The numbers phase's SDPA f32 yardstick (B 1, S 256, H 32, D 64,
+    # memory-efficient backend), which late in a full smoke keeps no
+    # device event in three sessions running: its calls seen per session.
+    sq, sk, sv = (torch.randn(1, 32, 256, 64, device=dev) for _ in range(3))
+
+    def yardstick():
+        with sdpa_kernel(sdpa_backend(torch, torch.float32)):
+            return F.scaled_dot_product_attention(sq, sk, sv,
+                                                  is_causal=True)
+
+    def yardstick_seen() -> int:
+        return device_call_ms(torch, yardstick)[1]
+
+    work()
+    out = {"card": card_line(), "torch": torch.__version__}
+    out["sdpa f32 yardstick calls seen, fresh x3"] = [
+        yardstick_seen() for _ in range(3)]
+    out["main thread x12"] = [session() for _ in range(12)]
+    out["main thread, no sync before exit x4"] = [
+        session(sync_before_exit=False) for _ in range(4)]
+    out["second thread x4"] = [in_thread(session) for _ in range(4)]
+    out["a session stopped from another thread"] = stop_elsewhere()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["own thread (device events, main-thread cpu ops) x3"] = [
+            own_thread(tmp) for _ in range(3)]
+    out["main thread again x4"] = [session() for _ in range(4)]
+    # A process with a history: 60 more sessions and 400 threads that
+    # each launched work, then the yardstick again.
+    for _ in range(60):
+        session()
+    for _ in range(400):
+        in_thread(lambda: (a @ a).sum().item())
+    out["after 60 sessions and 400 threads: sessions x4"] = [
+        session() for _ in range(4)]
+    out["after them: sdpa f32 yardstick calls seen x3"] = [
+        yardstick_seen() for _ in range(3)]
+    # The numbers phase's order: events-timed calls, then the session.
+    out["yardstick after time_ms, calls seen x3"] = [
+        (time_ms(torch, yardstick), yardstick_seen())[1] for _ in range(3)]
+    # The port's kernels come from a library of their own (ctypes).
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.ops import paged_attention as pa
+
+    kl.kernel_library()
+    inp = main_path_inputs(torch, dev, False)
+
+    def ragged():
+        return pa.ragged_paged_attention(*inp)
+    out["ragged kernel, calls seen x3"] = [
+        device_call_ms(torch, ragged)[1] for _ in range(3)]
+    out["ragged kernel after time_ms, calls seen x3"] = [
+        (time_ms(torch, ragged), device_call_ms(torch, ragged))[1][1]
+        for _ in range(3)]
+    out["yardstick after the kernels, calls seen x3"] = [
+        yardstick_seen() for _ in range(3)]
+    log(json.dumps(out))
+    return 0
+
 def main() -> int:
     import torch
 
@@ -5435,6 +6328,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if "--profiler-probe" in sys.argv:
+        return main_profiler_probe(torch)
+    if "--serve-worker-node" in sys.argv:
+        i = sys.argv.index("--serve-worker-node")
+        return main_serve_worker_node(sys.argv[i + 1:])
     for flag, mode in (("--kernel-times", main_kernel_times),
                        ("--resnet-times", main_resnet_times)):
         if flag in sys.argv:
@@ -5459,19 +6357,31 @@ def main() -> int:
         f"{len(kl.SOURCES)} sources and {len(kl.HEADERS)} header)")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(kl.build_log)
-    errs = phase_parity(torch, pa)
-    infer_parity = parity_infer_models(torch)
-    phase_small_model(torch)
-    train_small = phase_train_small(torch)
-    server = phase_server(torch)
-    gateway = phase_gateway(torch)
-    kvtier = phase_kvtier(torch, card)
-    refmodels = phase_refmodels(torch, card, errs)
-    train = phase_train(torch)
-    numbers = phase_numbers(torch, pa)
-    # Last: its processes and profiler sessions run after every timing of
+    walls = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        walls[name] = time.perf_counter() - t
+        log(f"phase {name}: {walls[name]:.1f} s")
+        return res
+
+    errs = timed("parity", phase_parity, torch, pa)
+    infer_parity = timed("infer parity", parity_infer_models, torch)
+    timed("small model", phase_small_model, torch)
+    train_small = timed("train small", phase_train_small, torch)
+    server = timed("server", phase_server, torch)
+    gateway = timed("gateway", phase_gateway, torch)
+    kvtier = timed("kvtier", phase_kvtier, torch, card)
+    refmodels = timed("refmodels", phase_refmodels, torch, card, errs)
+    train = timed("train", phase_train, torch)
+    numbers = timed("numbers", phase_numbers, torch, pa)
+    # Late: its processes and profiler sessions run after every timing of
     # the earlier phases.
-    overload = phase_overload(torch, card, pa)
+    overload = timed("overload", phase_overload, torch, card, pa)
+    # Spans, /metrics, the flight recorder and the tick-bounded profile;
+    # its profile runs in a worker process of its own.
+    observe = timed("observe", phase_observe, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -5516,12 +6426,24 @@ def main() -> int:
             rows[-1]["overload"] = {
                 "launches": overload["gateway"]["launches"][name],
                 "ms": overload["ticks"]["flash score row f32"]}
+        # The observe phase's launches, each from its own run, and #1's
+        # device time per served tick from its profile.
+        lane = observe["spec_lane"]
+        if name in lane["launches"]:
+            rows[-1]["observe"] = {"launches": lane["launches"][name]}
+        if name == "ragged_paged_attention":
+            rows[-1]["observe"]["profile_ms_per_tick"] = \
+                lane["profile"]["ragged_ms_per_tick"]
+        if name == "paged_attention":
+            rows[-1]["observe"] = {
+                "launches": observe["two_path"]["launches"]}
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
          "server": server, "gateway": gateway, "kvtier": kvtier,
-         "refmodels": refmodels, "overload": overload, "train": train,
+         "refmodels": refmodels, "overload": overload,
+         "observe": observe, "train": train, "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

@@ -30,12 +30,11 @@ from tpu_engine_torch.serving import resilience as tres
 from tpu_engine_torch.utils import deadline as tdl
 from tpu_engine_torch.utils.config import GatewayConfig
 
+# SLO objectives and trace stitching are ported:
+# tests/test_torch_observability.py.
 REFUSED = {"migrate_streams": True,
            "disagg": True, "prefix_affinity": True,
-           "prefix_directory": True, "autoscale": True,
-           "slo_ttft_p99_ms": 500.0,
-           "slo_itl_p99_ms": 200.0, "slo_completion_p99_ms": 900.0,
-           "trace_stitch": True}
+           "prefix_directory": True, "autoscale": True}
 
 
 def _outcome(fn):

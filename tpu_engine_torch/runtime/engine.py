@@ -102,6 +102,11 @@ class InferenceEngine:
         self.params = params if params is not None else model.init(
             rng_seed, device=self.device, dtype=self._dtype)
         self._cuda = self.device.type == "cuda"
+        # Set by the owning worker, as on the JAX engine. The JAX engine
+        # records an ``xla_compile`` span per bucket it compiles; the
+        # eager port compiles nothing per bucket, so it records none.
+        self.tracer = None
+        self.trace_node = "engine"
         self._stats_lock = threading.Lock()
         self._execute_count = 0
         # Host time spent blocked in batch_collect waiting for the card:

@@ -513,11 +513,15 @@ class BlockPool:
         in, no device traffic."""
         return [host[slot] for host in self._host]
 
-    def export_chain(self, sources: Sequence) -> dict:
+    def export_chain(self, sources: Sequence,
+                     trace: Optional[dict] = None) -> dict:
         """Serialize a block chain. Each source is a device block id or a
         ``_RadixNode`` (a demoted one exports from the host tier). Returns
         the wire dict; ``import_chain`` on any pool of the same geometry
-        (either package's) reproduces the exact bytes."""
+        (either package's) reproduces the exact bytes. ``trace``: a
+        trace-context header carried as an additive ``"trace"`` key
+        (cross-lane trace stitching; the import checks ignore it); None
+        keeps the wire dict unchanged."""
         resolved = []
         dev_ids: List[int] = []
         for src in sources:
@@ -544,7 +548,7 @@ class BlockPool:
                 crc = zlib.crc32(raw, crc)
                 entry[name] = base64.b64encode(raw).decode("ascii")
             blocks.append(entry)
-        return {
+        out = {
             "version": 1,
             "dtype": self._dtype_name(),
             "quantized": self.quantized,
@@ -556,6 +560,9 @@ class BlockPool:
             "checksum": crc,
             "generation": self.generation,
         }
+        if trace:
+            out["trace"] = dict(trace)
+        return out
 
     def chain_compatible(self, chain: dict) -> Optional[str]:
         """None when ``chain`` can be imported into this pool verbatim,

@@ -98,12 +98,36 @@ the verify tick at q_len 1, so greedy streams are unchanged), and
 ``defer_swap_in`` makes radix lookups stop at the resident prefix
 instead of promoting demoted blocks (counted as ``swap_in_deferred``).
 ``stats()["brownout"]`` is present only while a degradation is engaged.
+
+Observability, as in the JAX scheduler. A request submitted with a
+``utils.tracing.TraceSink`` gets stage spans: ``queue_wait`` (submit to
+formation; one-shot rows: to their tick), ``prefill`` (dense and two-path:
+the formation forward; mixed: admission to prompt completion),
+``swap_in`` and ``radix_lookup`` (paged formation), ``kv_alloc`` or
+``kv_import`` (paged admission), ``decode`` (admission or prompt
+completion to completion), and on one-shot rows ``batch_form`` and
+``device_compute``. With ``tracer`` set, each mixed tick records a
+``mixed_step`` span and each speculative tick a ``spec_verify`` span (and
+a ``mixed_step`` in mixed mode), so those spans equal the ticks in
+``stats()``. ``ttft_hist`` and ``itl_hist`` take each row's first token
+and the gap between its deliveries. Every span closes after the host
+sync its tick or chunk already makes. ``configure_flight_recorder`` arms
+a ring of per-tick records (``flight_timeline``, ``flight_dump``; a
+burst of four deadline misses in 10 s or a ``_recover`` dumps it), and
+``start_profile`` runs a ``torch.profiler`` capture over the next N
+decode-loop iterations (or until ``stop_profile``), opened and closed on
+the decode thread, so the trace holds its CPU ops and the card's
+kernels. With
+``trace_stitch`` an export snapshot carries the stream's ``traceparent``
+and its chain a ``trace`` header.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
+import os
 import queue
 import threading
 import time
@@ -149,7 +173,9 @@ from tpu_engine_torch.runtime.speculative import (
     tagged_uniform,
 )
 from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
+from tpu_engine_torch.utils import tracing
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
+from tpu_engine_torch.utils.metrics import LatencyHistogram
 from tpu_engine_torch.utils.sampling import (
     MAX_STOP_TOKENS,
     clamp_top_k,
@@ -185,6 +211,11 @@ class _Request:
     tag: Optional[str] = None
     # A migration import's snapshot (submit_import); None otherwise.
     migrate: Optional[dict] = None
+    # Stage spans (utils.tracing.TraceSink) and their clocks: submit, and
+    # the start of the current admission-to-completion stage.
+    sink: Optional[object] = None
+    t_submit: float = 0.0
+    t_admit: float = 0.0
 
 
 # Put on the ready queue by submit_infer/submit_score: wakes a decode loop
@@ -608,6 +639,39 @@ class ContinuousGenerator:
         # prefill thread reports a busy-age while it forms a request.
         self._last_tick = time.monotonic()
         self._prefill_busy_since = None
+        # TTFT (submit to first token) and ITL (the gap between a row's
+        # deliveries), in every mode.
+        self.ttft_hist = LatencyHistogram()
+        self.itl_hist = LatencyHistogram()
+        self._row_last_emit = [0.0] * n
+        # Set by the worker: the ring the tick spans land in, its node
+        # name, and cross-lane trace stitching of exports.
+        self.tracer = None
+        self.trace_node = "scheduler"
+        self.trace_stitch = False
+        # The per-tick flight recorder (configure_flight_recorder):
+        # capacity 0 is off and costs nothing a tick. The decode thread
+        # writes the ring, scrapes read it under _flight_lock.
+        self._flight_capacity = 0
+        self._flight_ring: "collections.deque" = collections.deque(maxlen=1)
+        self._flight_lock = threading.Lock()
+        self._flight_dump_dir = None
+        self._flight_last_dump = None
+        self._flight_dumps = 0
+        self._flight_last_dump_ts = 0.0
+        # Decode-thread-owned: the previous counter readings (per-tick
+        # deltas) and a rolling 10 s window of deadline misses.
+        self._flight_prev: dict = {}
+        self._flight_miss_window: "collections.deque" = collections.deque()
+        # The torch.profiler capture, opened and closed on the decode
+        # thread: a pending start ((log_dir, ticks), Future), a pending
+        # stop (Future), whether one is open, the iterations left (0: until
+        # stopped).
+        self._profile_start_req = None
+        self._profile_stop_req: Optional[Future] = None
+        self._profile_open = False
+        self._profile_ticks_left = 0
+        self._profile_result = None
         self._running = True
         self._prefill_thread = threading.Thread(
             target=self._prefill_loop, name="continuous-prefill", daemon=True)
@@ -684,13 +748,14 @@ class ContinuousGenerator:
                repetition_penalty: float = 1.0, stop_tokens=None,
                min_p: float = 0.0, stream=None,
                deadline: Optional[Deadline] = None,
-               tag: Optional[str] = None) -> Future:
+               tag: Optional[str] = None, sink=None) -> Future:
         """Enqueue one request; the Future resolves to its generated token
         list. ``stream``: optional queue.Queue that receives fresh token
         lists as they decode, then a None sentinel. Cancelling the Future
         cancels the request. ``deadline``: the request fails with
         ``DeadlineExceeded`` once it passes (between ticks). ``tag``:
-        the name ``export_row`` finds the row by."""
+        the name ``export_row`` finds the row by. ``sink``: a
+        ``utils.tracing.TraceSink`` for the request's stage spans."""
         if self._stateless:
             raise RuntimeError(
                 f"model '{self.spec.name}' serves the stateless family: no "
@@ -712,7 +777,8 @@ class ContinuousGenerator:
                        clamp_top_k(top_k), rep_penalty=pens[0],
                        stop_tokens=stops[0], min_p=float(min_p),
                        stream=stream, deadline=deadline,
-                       tag=str(tag) if tag is not None else None)
+                       tag=str(tag) if tag is not None else None,
+                       sink=sink, t_submit=time.perf_counter())
         self._queue.put(req)
         return req.future
 
@@ -751,7 +817,7 @@ class ContinuousGenerator:
 
     def submit_import(self, snapshot: dict, stream=None,
                       deadline: Optional[Deadline] = None,
-                      tag: Optional[str] = None) -> Future:
+                      tag: Optional[str] = None, sink=None) -> Future:
         """Adopt an exported row mid-stream: the chain's bytes enter free
         blocks verbatim (a prompt prefix this lane already caches is
         re-adopted from its radix tree) and decoding resumes at the
@@ -786,7 +852,8 @@ class ContinuousGenerator:
             rep_penalty=pens[0], stop_tokens=stops[0],
             min_p=float(snapshot.get("min_p", 0.0)),
             stream=stream, deadline=deadline,
-            tag=str(tag) if tag is not None else None, migrate=snapshot)
+            tag=str(tag) if tag is not None else None, migrate=snapshot,
+            sink=sink, t_submit=time.perf_counter())
         # Tokens the source already delivered: the continuation pushes
         # only what comes after them.
         req.streamed = min(int(snapshot.get("streamed", len(emitted))),
@@ -824,7 +891,8 @@ class ContinuousGenerator:
         return self._score_provider is not None
 
     def submit_infer(self, input_data, shape=None,
-                     deadline: Optional[Deadline] = None) -> Future:
+                     deadline: Optional[Deadline] = None,
+                     sink=None) -> Future:
         """Enqueue one stateless forward as a single-tick row: the next
         tick's grouped dispatch runs it with the other pending /infer rows
         through the engine's batched forward. Resolves to (output row,
@@ -837,10 +905,11 @@ class ContinuousGenerator:
         return self._submit_oneshot(("infer", input_data,
                                      tuple(int(d) for d in shape)
                                      if shape is not None else None),
-                                    deadline)
+                                    deadline, sink)
 
     def submit_score(self, prompt_tokens, completion_tokens,
-                     deadline: Optional[Deadline] = None) -> Future:
+                     deadline: Optional[Deadline] = None,
+                     sink=None) -> Future:
         """Enqueue one teacher-forced scoring request as a single-tick row
         (per-token log P(completion | prompt), one forward per tick's
         group). Resolves to (logprobs, per-request time in us)."""
@@ -852,14 +921,15 @@ class ContinuousGenerator:
         return self._submit_oneshot(("score",
                                      [int(t) for t in prompt_tokens],
                                      [int(t) for t in completion_tokens]),
-                                    deadline)
+                                    deadline, sink)
 
-    def _submit_oneshot(self, oneshot: tuple,
-                        deadline: Optional[Deadline]) -> Future:
+    def _submit_oneshot(self, oneshot: tuple, deadline: Optional[Deadline],
+                        sink=None) -> Future:
         if not self._running:
             raise RuntimeError("scheduler stopped")
         req = _Request([], 0, -1, 0.0, 0, 1.0, 0, deadline=deadline,
-                       oneshot=oneshot)
+                       oneshot=oneshot, sink=sink,
+                       t_submit=time.perf_counter())
         self._oneshot_ready.put(req)
         if self._idle_wait:
             try:  # wake the loop from its wait for admissions
@@ -929,7 +999,210 @@ class ContinuousGenerator:
             out["brownout"] = {"budget_frac": self._bo_budget_frac,
                                "spec_suspended": self._bo_spec_off,
                                "swap_in_deferred": self._bo_defer_swap}
+        if self._flight_capacity:
+            # Only while the recorder is armed.
+            with self._flight_lock:
+                ticks_recorded = len(self._flight_ring)
+            fl = {"capacity": self._flight_capacity,
+                  "ticks_recorded": ticks_recorded,
+                  "dumps": self._flight_dumps}
+            last = self._flight_last_dump
+            if last is not None:
+                fl["last_anomaly"] = last["anomaly"]
+            out["flight"] = fl
         return out
+
+    # -- flight recorder and tick-bounded profiling -----------------------------
+
+    def configure_flight_recorder(self, capacity: int,
+                                  dump_dir: Optional[str] = None) -> None:
+        """Arm the per-tick flight recorder (before traffic): a ring of
+        ``capacity`` tick records, 0 = off (no per-tick work, no stats
+        block); anomaly dumps are written into ``dump_dir`` when set."""
+        capacity = max(0, int(capacity))
+        with self._flight_lock:
+            self._flight_capacity = capacity
+            self._flight_ring = collections.deque(maxlen=max(1, capacity))
+            self._flight_dump_dir = dump_dir
+
+    def _flight_sample(self, tick_wall_s: float) -> None:
+        """One record per decode-loop iteration (decode thread): the
+        iteration's wall time, rows, queues, counter deltas and pool
+        occupancy. A fourth deadline miss within 10 s dumps the ring
+        (``deadline_miss_burst``)."""
+        st = self._stats
+        cur = {"chunks": st.get("chunks", 0),
+               "admitted": st.get("admitted", 0),
+               "completed": st.get("completed", 0),
+               "deadline_cancelled": st.get("deadline_cancelled", 0)}
+        mixed = st.get("mixed")
+        if mixed:
+            cur["prefill_tokens"] = mixed["prefill_tokens"]
+            cur["decode_tokens"] = mixed["decode_tokens"]
+        prev, self._flight_prev = self._flight_prev, cur
+        rows = self._row_req
+        # "held" counts rows parked for a disaggregated handoff, which
+        # the port does not run: always 0, kept for the record's schema.
+        rec = {"ts": round(time.time(), 6),
+               "tick_wall_ms": round(tick_wall_s * 1e3, 3),
+               "active": int(sum(r is not None for r in rows)),
+               "held": 0,
+               "queued": self._queue.qsize(),
+               "ready": self._ready.qsize()}
+        for k, v in cur.items():
+            rec[k] = v - prev.get(k, 0)
+        if self._paged:
+            rec["parked"] = len(self._pending)
+        if self._mixed:
+            rec["prefilling"] = int(sum(1 for p in self._prefilling if p))
+        if self._paged:
+            ps = self._pool.stats()
+            pool = {"blocks_free": ps["blocks_free"],
+                    "blocks_total": ps["blocks_total"]}
+            host = ps.get("host")
+            if host:
+                pool["host_blocks_used"] = host["blocks_used"]
+            rec["pool"] = pool
+        if self._draining_flag:
+            rec["draining"] = True
+        if self._bo_budget_frac < 1.0 or self._bo_spec_off:
+            rec["brownout_budget_frac"] = self._bo_budget_frac
+        with self._flight_lock:
+            self._flight_ring.append(rec)
+        dmiss = rec.get("deadline_cancelled", 0)
+        if dmiss:
+            now_m = time.monotonic()
+            self._flight_miss_window.append((now_m, dmiss))
+            while (self._flight_miss_window
+                   and self._flight_miss_window[0][0] < now_m - 10.0):
+                self._flight_miss_window.popleft()
+            if sum(k for _, k in self._flight_miss_window) >= 4:
+                self._flight_miss_window.clear()
+                self._flight_anomaly("deadline_miss_burst")
+
+    def flight_dump(self, reason: str) -> Optional[dict]:
+        """Dump the ring now (an operator, a gateway resume); the dump's
+        descriptor, or None with the recorder off."""
+        return self._flight_anomaly(str(reason), force=True)
+
+    def _flight_anomaly(self, reason: str,
+                        force: bool = False) -> Optional[dict]:
+        """Write the ring as a postmortem dump named for the anomaly, at
+        most one per 10 s unless forced; the descriptor (its path None
+        without a dump directory or when the write failed)."""
+        if not self._flight_capacity:
+            return None
+        now_m = time.monotonic()
+        with self._flight_lock:
+            if not force and now_m - self._flight_last_dump_ts < 10.0:
+                return None
+            self._flight_last_dump_ts = now_m
+            ring = list(self._flight_ring)
+        scalars = {k: v for k, v in dict(self._stats).items()
+                   if not isinstance(v, dict)}
+        dump = {"anomaly": reason, "ts": time.time(),
+                "node": self.trace_node, "ticks": len(ring),
+                "stats": scalars, "timeline": ring}
+        path = None
+        if self._flight_dump_dir:
+            try:
+                os.makedirs(self._flight_dump_dir, exist_ok=True)
+                path = os.path.join(
+                    self._flight_dump_dir,
+                    f"flight_{self.trace_node}_"
+                    f"{int(dump['ts'] * 1e3)}_{reason}.json")
+                with open(path, "w") as f:
+                    json.dump(dump, f)
+            except OSError:
+                path = None  # a failed dump never fails serving
+        last = {"anomaly": reason, "ts": dump["ts"],
+                "ticks": len(ring), "path": path}
+        with self._flight_lock:
+            self._flight_dumps += 1
+            self._flight_last_dump = last
+        return last
+
+    def flight_timeline(self, n: Optional[int] = None) -> dict:
+        """The /admin/timeline payload: the ring (newest last, the last
+        ``n`` with n) and the dump bookkeeping."""
+        with self._flight_lock:
+            ring = list(self._flight_ring)
+        if n:
+            ring = ring[-int(n):]
+        return {"enabled": bool(self._flight_capacity),
+                "capacity": self._flight_capacity,
+                "ticks": len(ring),
+                "dumps": self._flight_dumps,
+                "last_dump": self._flight_last_dump,
+                "timeline": ring}
+
+    def start_profile(self, log_dir: str, ticks: int,
+                      timeout_s: float = 10.0) -> dict:
+        """A ``torch.profiler`` capture of the next ``ticks`` decode-loop
+        iterations into ``log_dir`` (``ticks`` 0: until ``stop_profile``):
+        the decode thread opens it at the top of its next iteration and
+        closes it ``ticks`` iterations later (``profile_status`` then holds
+        the trace file and its count of device events). Returns the
+        start's result."""
+        if not self._running:
+            return {"error": "scheduler stopped"}
+        fut: Future = Future()
+        self._profile_start_req = ((log_dir, max(0, int(ticks))), fut)
+        try:
+            return fut.result(timeout=timeout_s)
+        except Exception as exc:
+            return {"error": f"profile start failed: {exc}"}
+
+    def stop_profile(self, timeout_s: float = 30.0) -> dict:
+        """Stop a running capture now (on the decode thread)."""
+        if not self._running:
+            return {"error": "profiler not running"}
+        fut: Future = Future()
+        self._profile_stop_req = fut
+        try:
+            return fut.result(timeout=timeout_s)
+        except Exception as exc:
+            return {"error": f"profile stop failed: {exc}"}
+
+    def profile_status(self) -> dict:
+        return {"ticks_left": self._profile_ticks_left,
+                "last_result": self._profile_result}
+
+    def _profile_close(self) -> dict:
+        self._profile_open = False
+        self._profile_ticks_left = 0
+        try:
+            res = tracing.profiler_stop()
+        except Exception as exc:  # a failed capture never stops serving
+            res = {"error": f"profiler failed to stop: {exc}"}
+        self._profile_result = res
+        return res
+
+    def _profile_tick(self) -> None:
+        """Decode thread, top of every iteration: count a bounded capture
+        down (closing it at zero), then serve a pending stop or start."""
+        if self._profile_ticks_left > 0:
+            self._profile_ticks_left -= 1
+            if self._profile_ticks_left == 0:
+                self._profile_close()
+        stop, self._profile_stop_req = self._profile_stop_req, None
+        if stop is not None:
+            stop.set_result(self._profile_close() if self._profile_open
+                            else {"error": "profiler not running"})
+        start, self._profile_start_req = self._profile_start_req, None
+        if start is not None:
+            (log_dir, ticks), fut = start
+            try:
+                res = tracing.profiler_start(log_dir, on_caller=True)
+            except Exception as exc:  # a failed capture never stops serving
+                res = {"error": f"profiler failed to start: {exc}"}
+            if res.get("ok"):
+                self._profile_open = True
+                self._profile_result = None
+                self._profile_ticks_left = ticks
+                if ticks:
+                    res["ticks"] = ticks
+            fut.set_result(res)
 
     def set_brownout(self, budget_frac: float = 1.0,
                      suspend_spec: bool = False,
@@ -1002,6 +1275,34 @@ class ContinuousGenerator:
     def _bump(self, key: str, n: int = 1) -> None:
         with self._stats_lock:
             self._stats[key] = self._stats.get(key, 0) + n
+
+    @staticmethod
+    def _stage(req: _Request, op: str, t0: float, **attrs) -> None:
+        """A stage span of ``req`` from ``t0`` (perf_counter) to now."""
+        if req.sink is not None:
+            dur_us = (time.perf_counter() - t0) * 1e6
+            req.sink.stage(op, dur_us, start_ts=time.time() - dur_us / 1e6,
+                           **attrs)
+
+    def _first_token_metrics(self, req: _Request, row: int) -> None:
+        """The TTFT sample, taken when the row's first token exists."""
+        now = time.perf_counter()
+        self.ttft_hist.observe(max(0.0, now - req.t_submit))
+        self._row_last_emit[row] = now
+
+    def _itl_sample(self, row: int) -> None:
+        """An ITL sample: the gap since the row's previous delivery."""
+        now = time.perf_counter()
+        if self._row_last_emit[row] > 0:
+            self.itl_hist.observe(max(0.0, now - self._row_last_emit[row]))
+        self._row_last_emit[row] = now
+
+    def _tick_span(self, op: str, t0: float, start_ts: float,
+                   **attrs) -> None:
+        if self.tracer is not None:
+            self.tracer.record("tick", op, self.trace_node,
+                               (time.perf_counter() - t0) * 1e6,
+                               start_ts=start_ts, attrs=attrs)
 
     def _blocks_needed(self, pb: int, L: int) -> int:
         """Blocks an admission holds (radix-matched ones included): the
@@ -1111,6 +1412,10 @@ class ContinuousGenerator:
         if hit_eos or budget or out_of_cache or self._done[row]:
             toks = self._visible_tokens(row, req)
             self._push_stream(row, req)
+            if req.t_admit:
+                # The row's whole residence after admission (or after its
+                # prompt completed, in mixed mode).
+                self._stage(req, "decode", req.t_admit, tokens=len(toks))
             # Row freed and counted before the client sees the result, so
             # stats() read after it never shows a half-finished request.
             self._free_row(row)
@@ -1173,6 +1478,8 @@ class ContinuousGenerator:
             if self._expired(req, "deadline expired before prefill"):
                 continue
             self._prefill_busy_since = time.monotonic()
+            t0 = time.perf_counter()
+            self._stage(req, "queue_wait", req.t_submit)
             try:
                 try:
                     if not self._paged:
@@ -1186,6 +1493,11 @@ class ContinuousGenerator:
                 except Exception as exc:
                     self._fail_request(req, exc)
                     continue
+                if not self._mixed:
+                    # Mixed mode's prefill runs in the ticks: its span
+                    # closes at prompt completion.
+                    self._stage(req, "prefill", t0,
+                                prompt_len=len(req.prompt))
                 placed = False
                 while self._running:
                     try:
@@ -1221,11 +1533,18 @@ class ContinuousGenerator:
         pb = pick_bucket(self._prompt_buckets, len(req.prompt))
         prompt = req.prompt[-pb:]
         matched: List[int] = []
+        swapped = 0
+        t0 = time.perf_counter()
         with pool.lock:
             gen = pool.generation
             if self._prefix_sharing:
+                si0 = pool.swap_ins
                 matched = pool.radix.lookup(          # pins for this row
                     prompt, promote_reserve=self._swap_reserve())
+                swapped = pool.swap_ins - si0
+        self._record_swap_in(req, swapped, t0)
+        self._stage(req, "radix_lookup", t0,
+                    matched_tokens=len(matched) * pool.block_size)
         row_counts = None
         if req.rep_penalty != 1.0 or req.stop_tokens:
             # Prompt-token counts only; the first sampled token joins in
@@ -1266,16 +1585,21 @@ class ContinuousGenerator:
             self._bump_migration("import_rejected")
             raise ImportRefused(f"migration import rejected: {reason}")
         matched: List[int] = []
+        swapped = 0
+        t0 = time.perf_counter()
         with pool.lock:
             gen = pool.generation
             if self._prefix_sharing:
+                si0 = pool.swap_ins
                 matched = pool.radix.lookup(
                     prompt, promote_reserve=self._swap_reserve())
+                swapped = pool.swap_ins - si0
                 # The tree indexes full prompt blocks only, so a match
                 # never passes the chain; clamp as a backstop.
                 if len(matched) > n_chain:
                     pool.release_many(matched[n_chain:])
                     matched = matched[:n_chain]
+        self._record_swap_in(req, swapped, t0)
         row_counts = None
         if req.rep_penalty != 1.0 or req.stop_tokens:
             # The penalty counts replay from the whole context, prompt and
@@ -1284,6 +1608,13 @@ class ContinuousGenerator:
             row_counts = token_counts([ctx], 1, self.cfg.vocab)
         return _Formed(req, n_chain * bs, len(prompt), row_counts, matched,
                        prompt, gen)
+
+    def _record_swap_in(self, req: _Request, swapped: int,
+                        t0: float) -> None:
+        """A ``swap_in`` span for a lookup that promoted demoted blocks:
+        the radix hit was served from the host tier."""
+        if swapped:
+            self._stage(req, "swap_in", t0, blocks=swapped)
 
     def _first_token(self, req: _Request, logits, prompt, L: int):
         """Sample the request's first token from its prefill logits (V,) at
@@ -1385,11 +1716,16 @@ class ContinuousGenerator:
         tokens = torch.from_numpy(right_pad_prompt(prompt, pb)).to(
             self.device)
         matched: List[int] = []
+        swapped = 0
+        t0 = time.perf_counter()
         with pool.lock:
             gen = pool.generation
             if self._prefix_sharing:
+                si0 = pool.swap_ins
                 matched = pool.radix.lookup(          # pins for this row
                     prompt, promote_reserve=self._swap_reserve())
+                swapped = pool.swap_ins - si0
+        self._record_swap_in(req, swapped, t0)
         try:
             if matched:
                 # The gather is the row cache on a hit: matched columns
@@ -1410,6 +1746,8 @@ class ContinuousGenerator:
             else:
                 row_caches = init_caches(self.cfg, 1, pb, self._dtype,
                                          self.device)
+            self._stage(req, "radix_lookup", t0,
+                        matched_tokens=len(matched) * bs)
             # Resume at the block boundary at/below the match; the window
             # holding position L-1 always runs, so the first sample's
             # logits come from this request's own forward.
@@ -1488,6 +1826,7 @@ class ContinuousGenerator:
         self._row_emitted[row] = [first_tok]
         self._done[row] = ((req.eos_id >= 0 and first_tok == req.eos_id)
                            or first_tok in req.stop_tokens)
+        self._first_token_metrics(req, row)
         self._push_stream(row, req)  # the first token flushes at admission
         self._maybe_complete(row)
 
@@ -1498,6 +1837,7 @@ class ContinuousGenerator:
         token counts when it has controls; the row decodes from column pb
         with start pb - L."""
         req, pb, L, row_counts = item[:4]
+        req.t_admit = time.perf_counter()
         rc = item.row_caches
         self._caches.k[:, row, :pb] = rc.k[:, 0]
         self._caches.v[:, row, :pb] = rc.v[:, 0]
@@ -1522,6 +1862,8 @@ class ContinuousGenerator:
         bs = pool.block_size
         nb_bucket = pb // bs
         m = len(matched)
+        t0 = time.perf_counter()
+        req.t_admit = t0
         first_col = min(L, self.max_seq - 1)  # first decode write column
         with pool.lock:
             if item.gen != pool.generation:
@@ -1549,6 +1891,7 @@ class ContinuousGenerator:
             if self._prefix_sharing:
                 pool.radix.insert(item.prompt, table)
         self._count_admission_dispatch()
+        self._stage(req, "kv_alloc", t0, blocks=len(table), shared_blocks=m)
         self._set_row_table(row, table, row_counts)
         if self._spec:
             # The drafter's lookup corpus: prompt + emitted so far.
@@ -1572,6 +1915,8 @@ class ContinuousGenerator:
         # prompt block always recomputes, so the first sample's logits come
         # from this row's own forward.
         p0 = (min(m * bs, Leff - 1) // bs) * bs
+        t0 = time.perf_counter()
+        req.t_admit = t0
         with pool.lock:
             if item.gen != pool.generation:
                 raise _StaleAdmission(
@@ -1592,6 +1937,7 @@ class ContinuousGenerator:
                 raise
             pool.prefix_hit_tokens += p0
             pool.prefilled_tokens += Leff - p0
+        self._stage(req, "kv_alloc", t0, blocks=len(table), shared_blocks=m)
         self._set_row_table(row, table, row_counts)
         self._set_row_params(req, row, first_col)
         self._prefilling[row] = True
@@ -1621,6 +1967,8 @@ class ContinuousGenerator:
         pos = min(int(snap["pos"]), self.max_seq - 1)
         n_chain = (pos - 1) // bs + 1 if pos > 0 else 0
         m = len(matched)
+        t0 = time.perf_counter()
+        req.t_admit = t0
         with pool.lock:
             if gen != pool.generation:
                 raise _StaleAdmission(
@@ -1648,6 +1996,8 @@ class ContinuousGenerator:
                 pool.radix.insert(prompt, table)
             pool.prefix_hit_tokens += m * bs
         self._count_admission_dispatch()
+        self._stage(req, "kv_import", t0, blocks=len(table), shared_blocks=m,
+                    imported_blocks=n_chain - m)
         self._set_row_table(row, table, row_counts)
         self._set_row_params(req, row, pos)
         self._tok[row] = int(snap["tok"])
@@ -1660,6 +2010,9 @@ class ContinuousGenerator:
             self._row_w0[row] = 0
         if self._mixed or self._spec:
             self._row_prompt_toks[row] = prompt
+        # No TTFT sample (the first token came from the source lane); ITL
+        # resumes from here.
+        self._row_last_emit[row] = time.perf_counter()
         with self._stats_lock:
             mig = self._migration_stats()
             mig["imported_rows"] += 1
@@ -1748,9 +2101,14 @@ class ContinuousGenerator:
             with self._pool.lock:
                 self._pool.radix.insert(self._row_prompt_toks[r],
                                         self._row_blocks[r])
+        if req.sink is not None:
+            self._stage(req, "prefill", req.t_admit,
+                        prompt_len=self._row_L[r])
+            req.t_admit = time.perf_counter()  # the decode span's start
         self._tok[r] = first_tok
         self._done[r] = done
         self._row_emitted[r] = [first_tok]
+        self._first_token_metrics(req, r)
         self._push_stream(r, req)
         self._maybe_complete(r)
 
@@ -1776,6 +2134,8 @@ class ContinuousGenerator:
         always included; the remaining budget splits over prefilling rows
         in row order, and the first prefilling row always gets at least
         one token, so admission never deadlocks behind a full batch."""
+        t0 = time.perf_counter()
+        start_ts = time.time()
         pool = self._pool
         B = self.n_slots
         eos_vec, controls = self._eos_and_controls()
@@ -1888,8 +2248,12 @@ class ContinuousGenerator:
                 self._pos[r] = min(int(self._pos[r]) + 1, self.max_seq - 1)
             if req.max_new - len(self._row_emitted[r]) > 0:
                 self._row_emitted[r].append(tok_r)
+                self._itl_sample(r)
             self._push_stream(r, req)
             self._maybe_complete(r)
+        self._tick_span("mixed_step", t0, start_ts,
+                        prefill_tokens=int(prefill_tokens),
+                        decode_rows=int(n_decode), width=int(width))
 
     def _tick_spec(self) -> None:
         """One speculative tick, in place of the mixed tick (mixed mode)
@@ -1900,6 +2264,8 @@ class ContinuousGenerator:
         forward and the accept/emit loop (``_spec_step``), and
         advance each row by its accepted prefix plus the corrected or
         bonus token."""
+        t0 = time.perf_counter()
+        start_ts = time.time()
         B = self.n_slots
         S = self._spec_k + 1
         eos_vec, controls = self._eos_and_controls()
@@ -2041,6 +2407,7 @@ class ContinuousGenerator:
                 need = req.max_new - len(self._row_emitted[r])
                 if need > 0:
                     self._row_emitted[r].extend(toks[:need])
+                    self._itl_sample(r)
             self._push_stream(r, req)
             self._maybe_complete(r)
             if self._row_req[r] is not None and not self._done[r]:
@@ -2052,6 +2419,13 @@ class ContinuousGenerator:
             sp["row_ticks"] += row_ticks
             if self._mixed:
                 self._stats["mixed"]["decode_tokens"] += decode_emitted
+        self._tick_span("spec_verify", t0, start_ts,
+                        decode_rows=int(n_decode), proposed=int(proposed),
+                        accepted=int(accepted), width=int(width))
+        if self._mixed:
+            self._tick_span("mixed_step", t0, start_ts,
+                            prefill_tokens=int(prefill_tokens),
+                            decode_rows=int(n_decode), width=int(width))
 
     def _spec_step(self, tokens, pos0, qlen, sample_slot, fold0, n_draft,
                    stoch, active, eos_vec, controls: bool):
@@ -2173,6 +2547,7 @@ class ContinuousGenerator:
             if need > 0:
                 self._row_emitted[r].extend(
                     int(t) for t in toks_host[r, :need])
+                self._itl_sample(r)
             self._push_stream(r, req)  # fresh tokens flush per chunk
             self._maybe_complete(r)
 
@@ -2215,8 +2590,16 @@ class ContinuousGenerator:
         pool = self._pool
         pos = int(self._pos[row])
         n_chain = (pos - 1) // pool.block_size + 1 if pos > 0 else 0
+        # Cross-lane stitching of a traced stream: the chain carries the
+        # row's trace context and the snapshot its traceparent, so the
+        # importing lane's spans join this trace (both keys additive).
+        trace_hdr = None
+        if self.trace_stitch and req.sink is not None:
+            trace_hdr = {"trace_id": req.sink.ctx.trace_id,
+                         "parent_id": req.sink.ctx.span_id}
         with pool.lock:
-            chain = pool.export_chain(self._row_blocks[row][:n_chain])
+            chain = pool.export_chain(self._row_blocks[row][:n_chain],
+                                      trace=trace_hdr)
         # The bucket-truncated prompt is what the row's columns hold.
         pb = pick_bucket(self._prompt_buckets, len(req.prompt))
         prompt = req.prompt[-pb:]
@@ -2238,6 +2621,8 @@ class ContinuousGenerator:
             "stop_tokens": [int(t) for t in req.stop_tokens],
             "chain": chain,
         }
+        if trace_hdr is not None:
+            snap["traceparent"] = req.sink.ctx.to_traceparent()
         self._fail_request(req, StreamMigratedAway(
             f"stream migrated off this lane after {req.streamed} tokens",
             tokens_emitted=req.streamed))
@@ -2272,6 +2657,7 @@ class ContinuousGenerator:
         self._tok[:] = 0
         self._done[:] = True
         self._bump("failures")
+        self._flight_anomaly(f"recover:{type(exc).__name__}")
         self._counts = None
         if self._stateless:
             return
@@ -2332,6 +2718,10 @@ class ContinuousGenerator:
                 self._fail_request(req, DeadlineExceeded(
                     "deadline expired before one-shot dispatch"))
                 continue
+            # One-shot rows skip the prefill thread: their queue_wait is
+            # submit to this drain.
+            self._stage(req, "queue_wait", req.t_submit)
+            req.t_admit = time.perf_counter()
             row = free.pop(0) if free else None
             if row is not None:
                 self._row_req[row] = req
@@ -2380,14 +2770,27 @@ class ContinuousGenerator:
                     self._row_req[r] = None
                 self._fail_request(q, exc)
             return
-        per_us = max(1, int((time.perf_counter() - t0) * 1e6
-                            / max(1, len(group))))
+        elapsed_us = (time.perf_counter() - t0) * 1e6
+        per_us = max(1, int(elapsed_us / max(1, len(group))))
         with self._stats_lock:
             st["dispatches"] += 1
             st[kind + "_rows"] += len(group)
             if len(group) >= self.n_slots:
                 st["full_dispatches"] += 1
         for (r, req), out in zip(group, outs):
+            if req.sink is not None:
+                # The batch lane's spans: batch_form is the row's wait in
+                # its tick before the dispatch, device_compute the group's
+                # dispatch (submit to collect, the group size beside it).
+                bf_us = max(0.0, (t0 - req.t_admit) * 1e6)
+                req.sink.stage(
+                    "batch_form", bf_us,
+                    start_ts=time.time() - (elapsed_us + bf_us) / 1e6,
+                    batch_size=len(group))
+                req.sink.stage(
+                    "device_compute", elapsed_us,
+                    start_ts=time.time() - elapsed_us / 1e6,
+                    batch_size=len(group))
             if r is not None:
                 self._row_req[r] = None
             with self._stats_lock:
@@ -2439,10 +2842,26 @@ class ContinuousGenerator:
                 if not fut.done():
                     fut.set_result({"ok": False,
                                     "reason": "scheduler stopped"})
+            stop, self._profile_stop_req = self._profile_stop_req, None
+            if self._profile_open:
+                # A capture still open ends with the loop.
+                self._profile_close()
+            if stop is not None:
+                stop.set_result(self._profile_result
+                                or {"error": "profiler not running"})
+            start, self._profile_start_req = self._profile_start_req, None
+            if start is not None:
+                start[1].set_result({"error": "scheduler stopped"})
 
     def _loop_body(self) -> None:
         while self._running:
-            self._last_tick = time.monotonic()  # liveness heartbeat
+            now = time.monotonic()
+            if self._flight_capacity:
+                # The wall time since the last heartbeat is the previous
+                # iteration's, idle waits included.
+                self._flight_sample(now - self._last_tick)
+            self._profile_tick()
+            self._last_tick = now  # liveness heartbeat
             self._cancel_rows()
             if self._paged:
                 # Exports first: between ticks the row is quiescent, and

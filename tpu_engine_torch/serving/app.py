@@ -3,9 +3,15 @@
 
 Worker routes: ``POST /infer``, ``/score``, ``/generate``,
 ``/generate/stream``, ``/admin/drain``, ``/admin/migrate``,
-``/admin/reload``; ``GET /health``. Gateway routes:
+``/admin/reload``, ``/admin/timeline``, ``/admin/profile``; ``GET
+/health``, ``/metrics`` (Prometheus text, version 0.0.4), ``/trace``,
+``/trace/export`` (Chrome trace-event JSON), ``/admin/timeline``,
+``/admin/profile``, ``/admin/trace/<request_id>``. Gateway routes:
 ``POST /infer`` (the lane's bytes relayed), ``/generate``,
-``/generate/stream``, ``/score``; ``GET /stats``.
+``/generate/stream``, ``/score``; ``GET /stats``, ``/metrics``,
+``/trace``, ``/trace/export``, ``/admin/slo``,
+``/admin/trace/<request_id>`` (the stream's spans from every lane, one
+tree).
 """
 
 from __future__ import annotations
@@ -16,6 +22,22 @@ from tpu_engine_torch.serving.gateway import Gateway
 from tpu_engine_torch.serving.http import JsonHttpServer
 from tpu_engine_torch.serving.worker import WorkerNode
 from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+from tpu_engine_torch.utils.metrics import render_prometheus
+from tpu_engine_torch.utils.tracing import export_chrome, stitch_trace
+
+_PROMETHEUS = "text/plain; version=0.0.4"
+
+
+def _trace_routes(server: JsonHttpServer, node: str, tracer) -> None:
+    """``GET /trace`` (the ring's summaries and last 20 spans) and
+    ``/trace/export`` (its Chrome trace-event JSON)."""
+    server.route("GET", "/trace", lambda _body: (200, {
+        "summary": {node: tracer.summary()},
+        "recent": tracer.recent(20),
+        "stages": {node: tracer.stage_summary()},
+    }))
+    server.route("GET", "/trace/export",
+                 lambda _body: (200, export_chrome({node: tracer})))
 
 
 def serve_worker(config: WorkerConfig, params=None, warmup: bool = False
@@ -76,6 +98,27 @@ def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
     # Hot weight reload: {"model_path"} of the served architecture.
     server.route("POST", "/admin/reload",
                  lambda body: (200, worker.reload_weights(body["model_path"])))
+    server.route("GET", "/metrics", lambda _body: (
+        200, render_prometheus([worker.get_health()],
+                               recorders={worker.node_id: worker.tracer},
+                               named_hists=worker.latency_histograms()),
+        _PROMETHEUS))
+    _trace_routes(server, worker.node_id, worker.tracer)
+    # The flight recorder (GET: the ring; POST {"dump": reason}: a dump
+    # now) and the tick-bounded profile (POST {"ticks": N} | {"action":
+    # "stop"}; GET: its status).
+    server.route("GET", "/admin/timeline",
+                 lambda body: (200, worker.handle_timeline(body)))
+    server.route("POST", "/admin/timeline",
+                 lambda body: (200, worker.handle_timeline(body or {})))
+    server.route("POST", "/admin/profile",
+                 lambda body: (200, worker.handle_profile(body or {})))
+    server.route("GET", "/admin/profile", lambda _body: (
+        200, worker.handle_profile({"action": "status"})))
+    # This lane's fragment of a request's trace (the gateway's route
+    # merges every lane's).
+    server.route_prefix("GET", "/admin/trace/", lambda _body, rid: (
+        200, stitch_trace({worker.node_id: worker.tracer.snapshot()}, rid)))
     return server
 
 
@@ -97,5 +140,17 @@ def serve_gateway(worker_urls: List[str],
     server.route("POST", "/score",
                  lambda body: (200, gateway.route_score(body)))
     server.route("GET", "/stats", lambda _body: (200, gateway.get_stats()))
+    server.route("GET", "/metrics", lambda _body: (
+        200, render_prometheus([], gateway.get_stats(),
+                               recorders={"gateway": gateway.tracer}),
+        _PROMETHEUS))
+    _trace_routes(server, "gateway", gateway.tracer)
+    server.route_prefix("GET", "/admin/trace/", lambda _body, rid: (
+        200, gateway.stitched_trace(rid)))
+    server.route("GET", "/admin/slo", lambda _body: (
+        200, gateway.slo_status()
+        or {"error": "no objectives configured "
+                     "(set --slo-ttft-p99-ms / --slo-itl-p99-ms / "
+                     "--slo-completion-p99-ms)"}))
     server.start(background=True)
     return gateway, server

@@ -11,6 +11,8 @@
       [--pipeline-depth N] [--warmup] [--no-unified-stateless]
       [--priority-admission] [--adaptive-depth]
       [--brownout [--brownout-clamp-tokens N]]
+      [--trace-capacity N] [--trace-stitch] [--profile-dir DIR]
+      [--flight-recorder N [--flight-dump-dir DIR]]
       [--device cpu] [--dtype bfloat16] [--seed N]
 
   python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
@@ -23,7 +25,10 @@
       [worker2_host:port ...] [--port 8000] [--breaker-timeout S]
       [--drain-timeout S] [--retry-budget RATIO] [--failover-streams]
       [--health-probe-interval S] [--overload-control
-      [--overload-max-inflight N]] [--tenant-rate R]
+      [--overload-max-inflight N]] [--tenant-rate R] [--trace-stitch
+      [--trace-ledger-capacity N]] [--slo-ttft-p99-ms MS]
+      [--slo-itl-p99-ms MS] [--slo-completion-p99-ms MS]
+      [--slo-target F] [--slo-window-s S]
 
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
@@ -58,7 +63,15 @@ batch at 85%); and ``--brownout`` degrades the lane under
 pressure before it sheds (the mixed tick's token budget halved,
 speculation suspended, host-tier swap-ins deferred, then below-top-tier
 requests clamped to ``--brownout-clamp-tokens`` new tokens), restoring
-in reverse. The worker serves until SIGTERM or SIGINT.
+in reverse. Observability: every lane records spans into a ring of
+``--trace-capacity`` (default 2048, 0 = off) served at /trace,
+/trace/export and /admin/trace/<request_id>, with /metrics in the
+Prometheus text format; ``--trace-stitch`` makes a migration snapshot
+carry the stream's trace context; ``--flight-recorder N`` keeps the
+scheduler's last N ticks for /admin/timeline (anomaly dumps into
+``--flight-dump-dir``); ``--profile-dir`` arms /admin/profile's
+tick-bounded torch.profiler capture. The worker serves until SIGTERM or
+SIGINT.
 
 worker_node: the argv of the reference's launch line (``worker_node 8001
 worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
@@ -90,12 +103,15 @@ seconds and ejects a lane after 3 failed probes until one succeeds,
 ``--overload-control`` validates the requests' ``priority`` and with
 ``--overload-max-inflight N`` sheds the lower tiers first as N requests
 in flight fill (Retry-After growing with the pressure), ``--tenant-rate
-R`` holds each ``tenant`` to R requests/s (a bucket 2R deep). Hedged
-dispatch has no flag, as in JAX: it is ``GatewayConfig.hedge_enabled``.
-The JAX command's other gateway flags (stream migration, prefix affinity
-and the prefix directory, disaggregated roles, the autoscaler, SLO
-objectives and trace stitching, standby workers) are accepted and refuse
-by name.
+R`` holds each ``tenant`` to R requests/s (a bucket 2R deep),
+``--trace-stitch`` carries each stream's root trace context to every lane
+it touches and keeps the ledger /admin/trace/<request_id> stitches from,
+and the ``--slo-*`` objectives report their burn rates at /admin/slo.
+Hedged dispatch has no flag, as in JAX: it is
+``GatewayConfig.hedge_enabled``. The JAX command's other gateway flags
+(stream migration, prefix affinity and the prefix directory,
+disaggregated roles, the autoscaler and its SLO feed, standby workers)
+are accepted and refuse by name.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -201,6 +217,23 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--brownout-clamp-tokens", type=int, default=None,
                    help="the clamp stage's max_new_tokens ceiling for "
                         "below-top-tier requests (default 32)")
+    p.add_argument("--trace-capacity", type=int, default=2048,
+                   help="spans kept in the lane's ring (0 = no spans and "
+                        "no stage histograms)")
+    p.add_argument("--trace-stitch", action="store_true",
+                   help="migration snapshots carry the stream's trace "
+                        "context, so the importing lane's spans join the "
+                        "same trace")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler capture directory: arms POST "
+                        "/admin/profile {\"ticks\": N} (unset = refused)")
+    p.add_argument("--flight-recorder", type=int, default=0,
+                   help="keep the scheduler's last N per-tick records "
+                        "(GET /admin/timeline), dumped on an anomaly "
+                        "(0 = off)")
+    p.add_argument("--flight-dump-dir", default=None,
+                   help="directory of the flight recorder's dumps (unset "
+                        "= in memory only)")
 
 
 def _serve(a, node_id: str, model: str, params=None,
@@ -231,6 +264,11 @@ def _serve(a, node_id: str, model: str, params=None,
                        priority_admission=a.priority_admission,
                        adaptive_depth=a.adaptive_depth,
                        brownout=a.brownout,
+                       trace_capacity=a.trace_capacity,
+                       trace_stitch=a.trace_stitch,
+                       profile_dir=a.profile_dir,
+                       flight_recorder=a.flight_recorder,
+                       flight_dump_dir=a.flight_dump_dir,
                        device=a.device, seed=a.seed)
     if a.brownout_clamp_tokens is not None:
         cfg.brownout_clamp_tokens = a.brownout_clamp_tokens
@@ -364,13 +402,6 @@ _UNPORTED_GATEWAY_FLAGS = (
     ("--autoscale-cooldown", True, False),
     ("--autoscale-spawn-timeout", True, False),
     ("--autoscale-rebalance-band", True, False),
-    ("--trace-stitch", False, False),
-    ("--trace-ledger-capacity", True, False),
-    ("--slo-ttft-p99-ms", True, False),
-    ("--slo-itl-p99-ms", True, False),
-    ("--slo-completion-p99-ms", True, False),
-    ("--slo-target", True, False),
-    ("--slo-window-s", True, False),
     ("--autoscale-slo-feed", False, False),
     ("--standby-worker", True, True),
 )
@@ -409,6 +440,25 @@ def gateway_config(argv):
     p.add_argument("--tenant-rate", type=float, default=None,
                    help="per-tenant token-bucket rate limit (requests/s; "
                         "0 = off)")
+    p.add_argument("--trace-stitch", action="store_true",
+                   help="cross-lane trace stitching: each stream's root "
+                        "trace context rides every dispatch and the "
+                        "stream ledger records its lanes, so GET "
+                        "/admin/trace/<request_id> returns one tree")
+    p.add_argument("--trace-ledger-capacity", type=int, default=None,
+                   help="streams the stitch ledger remembers (default "
+                        "512)")
+    for flag, what in (("--slo-ttft-p99-ms", "time-to-first-token"),
+                       ("--slo-itl-p99-ms", "inter-token latency"),
+                       ("--slo-completion-p99-ms",
+                        "gateway-scope completion")):
+        p.add_argument(flag, type=float, default=None,
+                       help=f"{what} objective in ms (0/unset = off)")
+    p.add_argument("--slo-target", type=float, default=None,
+                   help="good-sample fraction the objectives demand "
+                        "(default 0.99)")
+    p.add_argument("--slo-window-s", type=float, default=None,
+                   help="burn-rate window in seconds (default 300)")
     for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
         if repeat:
             p.add_argument(flag, action="append", default=None)
@@ -436,6 +486,13 @@ def gateway_config(argv):
         kw["overload_max_inflight"] = a.overload_max_inflight
     if a.tenant_rate is not None:
         kw["tenant_rate"] = a.tenant_rate
+    if a.trace_stitch:
+        kw["trace_stitch"] = True
+    for name in ("trace_ledger_capacity", "slo_ttft_p99_ms",
+                 "slo_itl_p99_ms", "slo_completion_p99_ms", "slo_target",
+                 "slo_window_s"):
+        if getattr(a, name) is not None:
+            kw[name] = getattr(a, name)
     return a.workers, GatewayConfig(port=a.port,
                                     breaker_timeout_s=a.breaker_timeout,
                                     **kw)

@@ -248,6 +248,41 @@ class HttpWorkerClient:
     def health(self) -> dict:
         return self._request("GET", "/health")
 
+    def trace_spans(self) -> list:
+        """The lane's spans, rebuilt from GET /trace/export: each Chrome
+        ``X`` event back to the recorder's schema (op, start, duration and
+        the tree ids in ``args``), what the gateway's stitch needs."""
+        data = self._request("GET", "/trace/export")
+        spans = []
+        for ev in data.get("traceEvents") or []:
+            if ev.get("ph") != "X":
+                continue
+            args = ev.get("args") or {}
+            if args.get("evicted_parent"):
+                continue  # synthetic; the stitch makes its own
+            span = {
+                "request_id": args.get("request_id"),
+                "op": ev.get("name"),
+                "node": self.url,
+                "duration_us": int(ev.get("dur", 0)),
+                "start_ts": float(ev.get("ts", 0)) / 1e6,
+                "ts": (float(ev.get("ts", 0)) + ev.get("dur", 0)) / 1e6,
+            }
+            for k in ("trace_id", "span_id", "parent_id", "cached",
+                      "batch_size"):
+                if k in args:
+                    span[k] = args[k]
+            extra = {k: v for k, v in args.items()
+                     if k not in span and k != "request_id"}
+            if extra:
+                span["attrs"] = extra
+            spans.append(span)
+        return spans
+
+    def flight_dump(self, reason: str) -> dict:
+        """Dump the lane's flight recorder now."""
+        return self._request("POST", "/admin/timeline", {"dump": reason})
+
     def probe_health(self, timeout_s: float = 5.0) -> dict:
         """/health on a dedicated short-lived connection, outside the data
         pool: a lane whose pooled connections are all held by streams is

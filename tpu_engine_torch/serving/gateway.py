@@ -55,19 +55,32 @@ What the JAX gateway adds over the reference, each off by default:
 in JAX: ``resilience`` once the layer is configured (a retry budget,
 hedging) or has decided something, ``failover`` once streams fail over,
 the prober runs or either decided something, ``overload`` once overload
-control or the tenant bucket is on, and ``migration`` once a bounded
-drain has failed. The JAX gateway's spans (``route``, ``attempt``,
-``resilience``, ``overload``, ``hedge``, ``resume``, ``prober``) come
-with the port's tracing (ROADMAP.md §A 16.3); their counters are here.
+control or the tenant bucket is on, ``migration`` once a bounded drain
+has failed, ``slo`` with an objective and ``trace_ledger`` with
+stitching.
+
+Tracing (the JAX gateway's spans, in its ring ``tracer``): a ``route``
+span per request with an ``attempt`` child per dispatch (kind primary,
+retry or hedge) and zero-duration ``resilience`` and ``overload``
+markers, one per counted decision; a ``resume`` span per stream resume
+and a ``prober`` marker per ejection or restore. The request's context
+is forwarded to a lane only when the client sent a ``traceparent``.
+With ``trace_stitch`` a stream's dispatches carry its root context, the
+stream ledger records the lanes that served it (``admit`` and
+``resume`` hops) and a ``stream`` root span closes it, so
+``stitched_trace`` merges its spans from every lane into one tree. The
+``slo_*`` objectives (``serving.slo``) read the lanes' TTFT and ITL and
+the gateway's own stream completions: ``slo_status``.
 
 Lanes are HTTP workers only. In-process lanes, stream migration,
-disaggregated roles, prefix affinity and the prefix directory, the
-autoscaler, SLO objectives and trace stitching are not ported: each
-refuses by name (``utils.config.refuse_unported``).
+disaggregated roles, prefix affinity and the prefix directory and the
+autoscaler are not ported: each refuses by name
+(``utils.config.refuse_unported``).
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import threading
@@ -78,7 +91,7 @@ from typing import Dict, List, Optional
 from tpu_engine_torch.core.circuit_breaker import CircuitBreaker
 from tpu_engine_torch.core.consistent_hash import ConsistentHash
 from tpu_engine_torch.serving.clients import HttpWorkerClient, WorkerError
-from tpu_engine_torch.serving.http import request_trace_id, sse_event
+from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.serving.overload import (
     OverloadCounters,
     SheddingStats,
@@ -97,12 +110,22 @@ from tpu_engine_torch.serving.resilience import (
     ResilienceCounters,
     RetryBudget,
 )
+from tpu_engine_torch.serving.slo import (
+    OBJECTIVE_SOURCES,
+    SloTracker,
+    completion_hists,
+)
 from tpu_engine_torch.utils.config import GatewayConfig
 from tpu_engine_torch.utils.deadline import (
     Deadline,
     DeadlineExceeded,
     Overloaded,
     ShedError,
+)
+from tpu_engine_torch.utils.tracing import (
+    SpanRecorder,
+    TraceContext,
+    stitch_trace,
 )
 
 
@@ -142,6 +165,68 @@ def _parse_sse(frame: bytes) -> Optional[dict]:
     return evt if isinstance(evt, dict) else None
 
 
+class _RouteTrace:
+    """One request's trace state through the routing layers: the route
+    span's context (attempts and decision markers parent here) and
+    whether the client sent a traceparent (only then is the context
+    forwarded to lanes, so an untraced request's wire bytes stay the
+    same)."""
+
+    __slots__ = ("request_id", "parent", "ctx", "outcome")
+
+    def __init__(self, request_id: str, parent: Optional[TraceContext]):
+        self.request_id = request_id
+        self.parent = parent
+        self.ctx = (parent.child() if parent is not None
+                    else TraceContext.root(request_id))
+        self.outcome = "error"
+
+    @property
+    def traced(self) -> bool:
+        return self.parent is not None
+
+
+class _StreamLedger:
+    """The lanes that served each request_id, hop by hop (``admit``,
+    ``resume``): the index the stitch walks to know whose rings hold a
+    stream's spans. Entries outlive their streams (a stitch is read
+    afterwards); a bounded FIFO with its own lock."""
+
+    def __init__(self, capacity: int = 512):
+        self.capacity = max(1, int(capacity))
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+        self._llock = threading.Lock()
+
+    def hop(self, request_id: str, lane: str, kind: str,
+            trace_id: Optional[str] = None) -> None:
+        with self._llock:
+            ent = self._entries.get(request_id)
+            if ent is None:
+                while len(self._entries) >= self.capacity:
+                    self._entries.popitem(last=False)
+                ent = {"trace_id": trace_id, "hops": []}
+                self._entries[request_id] = ent
+            elif trace_id and not ent["trace_id"]:
+                ent["trace_id"] = trace_id
+            ent["hops"].append({"lane": lane, "kind": kind,
+                                "ts": round(time.time(), 6)})
+
+    def get(self, request_id: str) -> Optional[dict]:
+        with self._llock:
+            ent = self._entries.get(request_id)
+            if ent is None:
+                return None
+            return {"trace_id": ent["trace_id"],
+                    "hops": [dict(h) for h in ent["hops"]]}
+
+    def summary(self) -> dict:
+        with self._llock:
+            return {"streams": len(self._entries),
+                    "capacity": self.capacity,
+                    "hops": sum(len(e["hops"])
+                                for e in self._entries.values())}
+
+
 class Gateway:
     def __init__(self, workers=None, config: Optional[GatewayConfig] = None):
         """``workers``: worker URLs (``host``, ``host:port`` or
@@ -178,6 +263,13 @@ class Gateway:
             self.config.health_probe_failures)
         self._prober_stop = threading.Event()
         self._prober_thread: Optional[threading.Thread] = None
+        # The gateway's own span ring, the stream ledger (stitching on)
+        # and the SLO tracker (an objective set).
+        self.tracer = SpanRecorder(self.config.trace_capacity)
+        self._ledger: Optional[_StreamLedger] = (
+            _StreamLedger(self.config.trace_ledger_capacity)
+            if self.config.trace_stitch else None)
+        self._slo = SloTracker.from_config(self.config)
         for w in workers or []:
             self.add_worker(w)
         if self.config.health_probe_interval_s > 0:
@@ -255,6 +347,10 @@ class Gateway:
     def worker_names(self) -> List[str]:
         return self._ring.get_all_nodes()
 
+    def lane_clients(self) -> Dict[str, HttpWorkerClient]:
+        with self._lock:
+            return dict(self._clients)
+
     def breaker_for(self, name: str) -> Optional[CircuitBreaker]:
         with self._lock:
             return self._breakers.get(name)
@@ -266,7 +362,7 @@ class Gateway:
         a probe fails when the lane is unreachable or answers
         ``healthy: false``; the state machine's eject and restore move
         the lane out of and back into dispatch, with no breaker penalty
-        (the prober span comes with ROADMAP.md §A 16.3)."""
+        and a ``prober`` marker span per eject or restore."""
         interval = self.config.health_probe_interval_s
         while not self._prober_stop.wait(interval):
             with self._lock:
@@ -294,6 +390,15 @@ class Gateway:
                         self._ejected.discard(name)
                 self.failover.bump("prober_ejections" if action == "eject"
                                    else "prober_restores")
+                self._prober_span(name, action)
+
+    def _prober_span(self, lane: str, action: str) -> None:
+        """A zero-duration ``prober`` marker: which lane, when."""
+        ctx = TraceContext.root(f"prober:{lane}").child()
+        self.tracer.record(
+            "prober", "prober", "gateway", 0,
+            trace_id=ctx.trace_id, span_id=ctx.span_id,
+            start_ts=time.time(), attrs={"lane": lane, "action": action})
 
     def ejected_lanes(self) -> List[str]:
         with self._lock:
@@ -378,9 +483,12 @@ class Gateway:
         """/generate/stream with the stream journal: the payload and every
         token relayed so far. A retryable mid-stream failure resumes on
         the next ring lane, skipping the lane that failed, through the
-        retry budget and within the original deadline; a failure that
-        cannot resume ends with the terminal error event (the resume
-        span comes with ROADMAP.md §A 16.3)."""
+        retry budget and within the original deadline (a ``resume`` span
+        each; the resuming lane's flight recorder dumps); a failure that
+        cannot resume ends with the terminal error event. With
+        ``trace_stitch`` every dispatch carries the stream's root
+        context, the ledger records each lane (``admit``, ``resume``)
+        and a ``stream`` root span records when the stream ends."""
         rid = payload.get("request_id")
         if rid is None:
             rid = uuid.uuid4().hex
@@ -392,23 +500,34 @@ class Gateway:
         except (TypeError, ValueError):
             # A malformed budget: the plain path answers it with a 400.
             return self._route(payload, op="generate_stream")
-        trace_id = request_trace_id(payload, request_id)
+        parent = TraceContext.from_request(payload)
+        ctx = (parent.child() if parent is not None
+               else TraceContext.root(request_id))
         cfg = self.config
+        ledger = self._ledger
+        t_root = time.time()
+        if ledger is not None:
+            # Every segment (the first, each resume) joins the stream's
+            # root span; without stitching the payload is untouched.
+            payload = {**payload, "traceparent": ctx.to_traceparent()}
         info: dict = {}
         # The first segment's admission keeps every plain-path answer
         # (shed, 400, no lane) before the 200 stream commits.
         first = self._route(payload, op="generate_stream", out_info=info)
+        if ledger is not None:
+            ledger.hop(request_id, info.get("lane") or "?", "admit",
+                       ctx.trace_id)
 
         def terminal_error(reason: str, retryable: bool,
                            emitted: List[int]) -> bytes:
             return sse_event({
                 "done": True, "error": str(reason)[:300],
                 "retryable": bool(retryable),
-                "request_id": request_id, "trace_id": trace_id,
+                "request_id": request_id, "trace_id": ctx.trace_id,
                 "tokens_emitted": len(emitted),
                 "tokens": list(emitted)})
 
-        def spliced():
+        def spliced_inner():
             emitted: List[int] = []
             it = first
             lane = info.get("lane")
@@ -519,13 +638,56 @@ class Gateway:
                                      out_info=nxt_info)
                 except Exception as exc:
                     self.failover.bump("resumes_failed")
+                    self._resume_span(request_id, ctx, resumes, replayed,
+                                      "failed", lane)
                     yield terminal_error(
                         f"resume dispatch failed ({exc})",
                         not isinstance(exc, DeadlineExceeded), emitted)
                     return
                 self.failover.bump("resumes_succeeded")
                 lane = nxt_info.get("lane")
+                self._resume_span(request_id, ctx, resumes, replayed, "ok",
+                                  lane)
+                if ledger is not None:
+                    ledger.hop(request_id, lane or "?", "resume",
+                               ctx.trace_id)
+                # A lane death is an anomaly: the resuming lane's flight
+                # recorder dumps (a no-op without one).
+                client = self.lane_clients().get(lane or "")
+                if client is not None:
+                    try:
+                        client.flight_dump(f"failover_resume:{request_id}")
+                    except Exception:
+                        pass
+
+        def spliced():
+            try:
+                yield from spliced_inner()
+            finally:
+                if ledger is not None:
+                    # The stream's root span (span_id ctx.span_id): every
+                    # segment's route span and each resume parent here.
+                    self.tracer.record(
+                        request_id, "stream", "gateway",
+                        (time.time() - t_root) * 1e6,
+                        trace_id=ctx.trace_id, span_id=ctx.span_id,
+                        parent_id=(parent.span_id
+                                   if parent is not None else None),
+                        start_ts=t_root, attrs={"stitched": True})
         return spliced()
+
+    def _resume_span(self, request_id: str, ctx: TraceContext, index: int,
+                     replayed: int, outcome: str,
+                     lane: Optional[str]) -> None:
+        """One ``resume`` span per resume attempt, under the stream's
+        trace: resumes_attempted equals these spans."""
+        child = ctx.child()
+        self.tracer.record(
+            request_id, "resume", "gateway", 0,
+            trace_id=child.trace_id, span_id=child.span_id,
+            parent_id=ctx.span_id, start_ts=time.time(),
+            attrs={"resume": index, "tokens_replayed": replayed,
+                   "outcome": outcome, "lane": lane or "?"})
 
     # -- routing --------------------------------------------------------------
 
@@ -550,35 +712,58 @@ class Gateway:
         if rid is None:
             rid = uuid.uuid4().hex
             payload = {**payload, "request_id": rid}
-        outcome = "error"
+        request_id = str(rid)
+        trace = _RouteTrace(request_id, TraceContext.from_request(payload))
+        t0 = time.perf_counter()
+        start = time.time()
         handed_off = False
         try:
-            result = self._route_inner(payload, op, str(rid), skip,
-                                       out_info)
-            outcome = "ok"
+            result = self._route_inner(payload, op, request_id, trace,
+                                       skip, out_info)
+            trace.outcome = "ok"
             if overload_on and op == "generate_stream":
                 result = self._inflight_watched(result)
                 handed_off = True
             return result
         except ShedError as exc:
-            outcome = exc.kind
+            trace.outcome = exc.kind
             raise
         finally:
             if overload_on:
                 if not handed_off:
                     with self._lock:
                         self._inflight -= 1
-                self._shed_stats.record(outcome == "overloaded")
+                self._shed_stats.record(trace.outcome == "overloaded")
+            self.tracer.record(
+                request_id, "route", "gateway",
+                (time.perf_counter() - t0) * 1e6,
+                trace_id=trace.ctx.trace_id, span_id=trace.ctx.span_id,
+                parent_id=(trace.parent.span_id if trace.parent is not None
+                           else None),
+                start_ts=start, attrs={"op": op, "outcome": trace.outcome})
+
+    def _count(self, trace: Optional[_RouteTrace], decision: str) -> None:
+        """Bump a resilience counter and record a zero-duration
+        ``resilience`` marker under the request's route span."""
+        self.resilience.bump(decision)
+        if trace is not None:
+            child = trace.ctx.child()
+            self.tracer.record(
+                trace.request_id, "resilience", "gateway", 0,
+                trace_id=child.trace_id, span_id=child.span_id,
+                parent_id=trace.ctx.span_id, start_ts=time.time(),
+                attrs={"decision": decision})
 
     def _route_inner(self, payload: dict, op: str, request_id: str,
-                     skip: tuple, out_info: Optional[dict]):
+                     trace: _RouteTrace, skip: tuple,
+                     out_info: Optional[dict]):
         deadline = Deadline.from_request(payload)
         if deadline is not None and deadline.expired():
-            self.resilience.bump("deadline_rejected")
+            self._count(trace, "deadline_rejected")
             raise self._shed(DeadlineExceeded(
                 "deadline exceeded at gateway admission"))
         if self._overload_on():
-            self._overload_admit(payload)
+            self._overload_admit(payload, trace)
         # HTTP lanes carry no model metadata: a request naming a model
         # probes the ring and each lane's model check decides, a mismatch
         # failing over without a penalty.
@@ -596,19 +781,20 @@ class Gateway:
             with self._lock:
                 self._failovers += 1
             return self._failover(ring, primary, payload, op, probing,
-                                  deadline, skip=skip, out_info=out_info)
+                                  deadline, trace, skip=skip,
+                                  out_info=out_info)
         if self.config.hedge_enabled and op in _HEDGEABLE_OPS:
             return self._route_hedged(ring, primary, payload, op, probing,
-                                      deadline)
+                                      deadline, trace)
         result = self._try_node(primary,
                                 self._with_deadline(payload, deadline),
                                 op=op, probing=probing, out_info=out_info,
-                                ring=ring)
+                                ring=ring, trace=trace)
         if not _ok(result):
             with self._lock:
                 self._failovers += 1
             result = self._failover(ring, primary, payload, op, probing,
-                                    deadline, skip=skip,
+                                    deadline, trace, skip=skip,
                                     shed_seen=result is _SHED,
                                     out_info=out_info)
         return result
@@ -632,7 +818,8 @@ class Gateway:
 
     def _failover(self, ring: ConsistentHash, primary: str, payload: dict,
                   op: str, probing: bool, deadline: Optional[Deadline],
-                  skip: tuple = (), shed_seen: bool = False,
+                  trace: Optional[_RouteTrace] = None, skip: tuple = (),
+                  shed_seen: bool = False,
                   out_info: Optional[dict] = None):
         """Every other lane (not in ``skip``) in ring order, within the
         deadline and the retry budget."""
@@ -640,11 +827,11 @@ class Gateway:
             if node == primary or node in skip:
                 continue
             if deadline is not None and deadline.expired():
-                self.resilience.bump("deadline_expired")
+                self._count(trace, "deadline_expired")
                 raise self._shed(DeadlineExceeded(
                     "deadline exceeded during failover"))
             if not self._retry_budget.try_acquire():
-                self.resilience.bump("retry_budget_exhausted")
+                self._count(trace, "retry_budget_exhausted")
                 if shed_seen:
                     raise self._shed(Overloaded(
                         "retry budget exhausted after a lane shed the "
@@ -653,11 +840,12 @@ class Gateway:
                     "retry budget exhausted (retries capped at "
                     f"{self.config.retry_budget_ratio:.0%} of recent "
                     "requests)")
-            self.resilience.bump("retries")
+            self._count(trace, "retries")
             result = self._try_node(node,
                                     self._with_deadline(payload, deadline),
                                     op=op, probing=probing,
-                                    out_info=out_info, ring=ring)
+                                    out_info=out_info, ring=ring,
+                                    trace=trace, kind="retry")
             if _ok(result):
                 return result
             shed_seen = shed_seen or result is _SHED
@@ -688,17 +876,31 @@ class Gateway:
             return inflight / self.config.overload_max_inflight
         return self._shed_stats.pressure()
 
-    def _overload_admit(self, payload: dict) -> None:
+    def _overload_count(self, trace: Optional[_RouteTrace], decision: str,
+                        **attrs) -> None:
+        """Bump an overload counter and record a zero-duration
+        ``overload`` marker under the request's route span."""
+        self.overload.bump(decision)
+        if trace is not None:
+            child = trace.ctx.child()
+            self.tracer.record(
+                trace.request_id, "overload", "gateway", 0,
+                trace_id=child.trace_id, span_id=child.span_id,
+                parent_id=trace.ctx.span_id, start_ts=time.time(),
+                attrs={"decision": decision, **attrs})
+
+    def _overload_admit(self, payload: dict,
+                        trace: Optional[_RouteTrace] = None) -> None:
         """The tenant bucket first (fairness is not a question of
         congestion), then tier admission against the gauge: below-top
-        tiers shed past their fraction, every tier at the full limit (the
-        overload span comes with ROADMAP.md §A 16.3)."""
+        tiers shed past their fraction, every tier at the full limit.
+        Each refusal records an ``overload`` marker."""
         cfg = self.config
         if self._tenant_bucket is not None:
             tenant = str(payload.get("tenant", "default"))
             ok, wait = self._tenant_bucket.allow(tenant)
             if not ok:
-                self.overload.bump("rate_limited")
+                self._overload_count(trace, "rate_limited", tenant=tenant)
                 exc = self._shed(Overloaded(
                     f"tenant '{tenant}' over its rate limit "
                     f"({cfg.tenant_rate:g} req/s)"))
@@ -716,14 +918,14 @@ class Gateway:
         with self._lock:
             inflight = self._inflight  # this request included
         if inflight > limit:
-            self.overload.bump("shed_depth")
+            self._overload_count(trace, "shed_depth", tier=TIER_NAMES[tier])
             exc = self._shed(Overloaded(
                 f"gateway at max in-flight {limit}"))
             exc.cause = "depth"
             raise exc
         if (tier < len(TIER_ADMIT_FRAC) - 1
                 and inflight > tier_limit(limit, tier)):
-            self.overload.bump("shed_tier")
+            self._overload_count(trace, "shed_tier", tier=TIER_NAMES[tier])
             exc = self._shed(Overloaded(
                 f"gateway shedding priority tier '{TIER_NAMES[tier]}' "
                 f"at {inflight}/{limit} in flight"))
@@ -766,11 +968,13 @@ class Gateway:
 
     def _route_hedged(self, ring: ConsistentHash, primary: str,
                       payload: dict, op: str, probing: bool,
-                      deadline: Optional[Deadline]):
+                      deadline: Optional[Deadline],
+                      trace: Optional[_RouteTrace] = None):
         """Wait the threshold on the primary; if it is slow (not failed),
         dispatch the next ring lane whose breaker admits as well and take
-        the first answer. Every primary answer feeds its lane's latency
-        window (the hedge span comes with ROADMAP.md §A 16.3)."""
+        the first answer (the two are sibling ``attempt`` spans, kinds
+        primary and hedge). Every primary answer feeds its lane's latency
+        window."""
         pool = self._pool()
         p_started = threading.Event()
         t_start: list = [None]
@@ -780,7 +984,7 @@ class Gateway:
             p_started.set()
             return self._try_node(primary,
                                   self._with_deadline(payload, deadline),
-                                  op, probing, ring=ring)
+                                  op, probing, ring=ring, trace=trace)
 
         p_fut = pool.submit(_primary_task)
 
@@ -799,7 +1003,7 @@ class Gateway:
         if not p_started.wait(timeout=None if deadline is None
                               else max(0.0, deadline.remaining_s())):
             p_fut.cancel()
-            self.resilience.bump("deadline_expired")
+            self._count(trace, "deadline_expired")
             raise self._shed(DeadlineExceeded(
                 "deadline exceeded before primary dispatch started"))
         thr = self._hedge_threshold_s(primary)
@@ -814,7 +1018,7 @@ class Gateway:
                 # The client's budget ran out, not the lane's threshold:
                 # a hedge now would be shed on arrival.
                 return self._await_primary(p_fut, ring, primary, payload,
-                                           op, probing, deadline)
+                                           op, probing, deadline, trace)
         else:
             if _ok(result):
                 return result
@@ -822,20 +1026,22 @@ class Gateway:
             with self._lock:
                 self._failovers += 1
             return self._failover(ring, primary, payload, op, probing,
-                                  deadline, shed_seen=result is _SHED)
+                                  deadline, trace,
+                                  shed_seen=result is _SHED)
 
         hedge_node = next(
             (n for n in ring.get_all_nodes()
              if n != primary and self._breaker_allows(n)), None)
         if hedge_node is None or not self._retry_budget.try_acquire():
             if hedge_node is not None:
-                self.resilience.bump("retry_budget_exhausted")
+                self._count(trace, "retry_budget_exhausted")
             return self._await_primary(p_fut, ring, primary, payload, op,
-                                       probing, deadline)
-        self.resilience.bump("hedges")
+                                       probing, deadline, trace)
+        self._count(trace, "hedges")
         h_fut = pool.submit(self._try_node, hedge_node,
                             self._with_deadline(payload, deadline),
-                            op, probing, ring=ring)
+                            op, probing, ring=ring, trace=trace,
+                            kind="hedge")
         pending = {p_fut: primary, h_fut: hedge_node}
         first_error: Optional[BaseException] = None
         shed_seen = False
@@ -846,7 +1052,7 @@ class Gateway:
                 list(pending), timeout=timeout,
                 return_when=concurrent.futures.FIRST_COMPLETED)
             if not done:
-                self.resilience.bump("deadline_expired")
+                self._count(trace, "deadline_expired")
                 raise self._shed(DeadlineExceeded(
                     "deadline exceeded awaiting hedged dispatch"))
             for fut in done:
@@ -857,8 +1063,8 @@ class Gateway:
                     first_error = first_error or exc
                     continue
                 if _ok(result):
-                    self.resilience.bump("hedge_wins" if fut is h_fut
-                                         else "hedge_losses")
+                    self._count(trace, "hedge_wins" if fut is h_fut
+                                else "hedge_losses")
                     return result
                 shed_seen = shed_seen or result is _SHED
         # Both failed or shed: failover over the rest.
@@ -866,7 +1072,7 @@ class Gateway:
             self._failovers += 1
         try:
             return self._failover(ring, primary, payload, op, probing,
-                                  deadline, skip=(hedge_node,),
+                                  deadline, trace, skip=(hedge_node,),
                                   shed_seen=shed_seen)
         except GatewayError:
             if first_error is not None:
@@ -875,7 +1081,8 @@ class Gateway:
 
     def _await_primary(self, p_fut, ring: ConsistentHash, primary: str,
                        payload: dict, op: str, probing: bool,
-                       deadline: Optional[Deadline]):
+                       deadline: Optional[Deadline],
+                       trace: Optional[_RouteTrace] = None):
         """No hedge: wait on the primary alone (within the deadline), then
         fail over if it failed."""
         timeout = (None if deadline is None
@@ -883,7 +1090,7 @@ class Gateway:
         try:
             result = p_fut.result(timeout=timeout)
         except concurrent.futures.TimeoutError:
-            self.resilience.bump("deadline_expired")
+            self._count(trace, "deadline_expired")
             raise self._shed(DeadlineExceeded(
                 "deadline exceeded awaiting primary lane"))
         if _ok(result):
@@ -891,7 +1098,7 @@ class Gateway:
         with self._lock:
             self._failovers += 1
         return self._failover(ring, primary, payload, op, probing, deadline,
-                              shed_seen=result is _SHED)
+                              trace, shed_seen=result is _SHED)
 
     def _breaker_allows(self, node: str) -> bool:
         with self._lock:
@@ -902,11 +1109,15 @@ class Gateway:
 
     def _try_node(self, node: str, payload: dict, op: str = "infer",
                   probing: bool = False, out_info: Optional[dict] = None,
-                  ring: Optional[ConsistentHash] = None):
+                  ring: Optional[ConsistentHash] = None,
+                  trace: Optional[_RouteTrace] = None,
+                  kind: str = "primary"):
         """One breaker-gated dispatch: the response, None (failed: fail
         over) or ``_SHED``. A lane the prober ejected is skipped with no
         penalty, unless every lane of ``ring`` is ejected (fail open: the
-        breakers decide a total outage)."""
+        breakers decide a total outage). A dispatch records an
+        ``attempt`` span (``kind`` primary, retry or hedge) under the
+        route span; a traced request forwards the attempt's context."""
         with self._lock:
             client = self._clients.get(node)
             breaker = self._breakers.get(node)
@@ -923,27 +1134,48 @@ class Gateway:
                 return None
         if not breaker.allow_request():
             return None
+        ctx = None
+        if trace is not None:
+            ctx = trace.ctx.child()
+            if trace.traced:
+                payload = {**payload, "traceparent": ctx.to_traceparent()}
+        t0 = time.perf_counter()
+        start = time.time()
+        outcome = "error"
         try:
             response = getattr(client, op)(payload)
+            outcome = "ok"
         except WorkerError:
             breaker.record_failure()
+            outcome = "failed"
             return None
         except Overloaded:
             # Healthy but busy: fail over with no breaker penalty.
-            self.resilience.bump("shed_overloaded")
+            self._count(trace, "shed_overloaded")
+            outcome = "shed"
             return _SHED
         except DeadlineExceeded as exc:
             # No other lane can help a spent budget; a lane that held the
             # request past it unanswered is still penalised.
             if exc.lane_suspect:
                 breaker.record_failure()
-            self.resilience.bump("deadline_expired")
+            self._count(trace, "deadline_expired")
+            outcome = "deadline"
             raise self._shed(DeadlineExceeded(
                 f"deadline exceeded at lane {node}"))
         except ValueError:
             if probing:
+                outcome = "wrong_model"
                 return None  # a lane of another model: no penalty
             raise
+        finally:
+            if trace is not None:
+                self.tracer.record(
+                    trace.request_id, "attempt", "gateway",
+                    (time.perf_counter() - t0) * 1e6,
+                    trace_id=ctx.trace_id, span_id=ctx.span_id,
+                    parent_id=trace.ctx.span_id, start_ts=start,
+                    attrs={"lane": node, "kind": kind, "outcome": outcome})
         breaker.record_success()
         if out_info is not None:
             out_info["lane"] = node
@@ -995,4 +1227,64 @@ class Gateway:
             if self._tenant_bucket is not None:
                 ov["tenants"] = self._tenant_bucket.tenants()
             out["overload"] = ov
+        if self._slo is not None:
+            slo = self.slo_status()
+            if slo is not None:
+                out["slo"] = slo
+        if self._ledger is not None:
+            out["trace_ledger"] = self._ledger.summary()
+        return out
+
+    def slo_status(self, named_hists: Optional[dict] = None
+                   ) -> Optional[dict]:
+        """The /admin/slo payload, or None without an objective. TTFT and
+        ITL read ``named_hists`` (``{family: {node: histogram}}``); the
+        port's lanes are HTTP workers, whose histograms live behind their
+        /metrics text, so without it those objectives see no samples.
+        Completion reads the gateway's own stream spans (failover time
+        included)."""
+        if self._slo is None:
+            return None
+        named_hists = named_hists or {}
+        by_objective = {}
+        for name, family in OBJECTIVE_SOURCES.items():
+            if family is None:
+                by_objective[name] = completion_hists([self.tracer])
+            else:
+                by_objective[name] = list(
+                    (named_hists.get(family) or {}).values())
+        return self._slo.status(by_objective)
+
+    def slo_pressure(self, named_hists: Optional[dict] = None) -> float:
+        """The worst objective's burn in [0, 1] (0.0 without a
+        tracker)."""
+        if self._slo is None:
+            return 0.0
+        return SloTracker.pressure(self.slo_status(named_hists) or {})
+
+    def stitched_trace(self, request_id: str) -> dict:
+        """The /admin/trace/<request_id> body: the request's spans from
+        the gateway and every lane (each lane's /trace/export; a lane the
+        ledger names that left the ring is asked directly) merged into
+        one tree, with the ledger's trace id and hops when it has the
+        stream. A lane that does not answer contributes nothing."""
+        entry = (self._ledger.get(request_id)
+                 if self._ledger is not None else None)
+        fragments = {"gateway": self.tracer.snapshot()}
+        lanes = self.lane_clients()
+        for hop in (entry or {}).get("hops", ()):
+            lane = hop.get("lane") or ""
+            if lane and lane not in lanes and ":" in lane:
+                lanes[lane] = HttpWorkerClient(lane, timeout_s=3.0)
+        for lane, client in lanes.items():
+            try:
+                spans = client.trace_spans()
+            except Exception:
+                continue
+            if spans:
+                fragments.setdefault(lane, spans)
+        out = stitch_trace(fragments, request_id,
+                           trace_id=(entry or {}).get("trace_id"))
+        if entry is not None:
+            out["hops"] = entry["hops"]
         return out

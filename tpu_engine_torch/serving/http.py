@@ -15,9 +15,7 @@ NotImplementedError and every other exception to 500, with
 
 from __future__ import annotations
 
-import hashlib
 import json
-import re
 import socket
 import threading
 import time
@@ -76,22 +74,6 @@ class _TrackingServer(ThreadingHTTPServer):
                 pass
 
 
-_TRACEPARENT_RE = re.compile(r"^00-([0-9a-f]{32})-[0-9a-f]{16}-[0-9a-f]{2}$")
-
-
-def request_trace_id(payload: dict, request_id) -> str:
-    """The trace id the JAX package names in a request's terminal stream
-    events: the ``traceparent`` field's trace id, else the id every hop
-    derives from the request_id (``tpu_engine.utils.tracing``'s
-    ``derive_trace_id``). The port records no spans yet (ROADMAP.md §A
-    16.3); the id keeps the events' wire schema."""
-    tp = payload.get("traceparent") if isinstance(payload, dict) else None
-    m = _TRACEPARENT_RE.match(tp) if isinstance(tp, str) else None
-    if m is not None:
-        return m.group(1)
-    return hashlib.md5(b"tpu-trace:" + str(request_id).encode()).hexdigest()
-
-
 def sse_event(payload: dict) -> bytes:
     """One Server-Sent-Events frame. The single definition of the SSE wire
     format — worker streams, cross-host degraded streams, and any future
@@ -102,6 +84,9 @@ def sse_event(payload: dict) -> bytes:
 class JsonHttpServer:
     def __init__(self, port: int, host: str = "0.0.0.0"):
         self._routes: Dict[Tuple[str, str], Handler] = {}
+        # (method, prefix) -> handler(body, suffix), tried only when the
+        # exact table misses.
+        self._prefix_routes: Dict[Tuple[str, str], Callable] = {}
         self.host = host
         self.port = port
         self._server: Optional[ThreadingHTTPServer] = None
@@ -110,10 +95,19 @@ class JsonHttpServer:
     def route(self, method: str, path: str, handler: Handler) -> None:
         self._routes[(method.upper(), path)] = handler
 
+    def route_prefix(self, method: str, prefix: str, handler) -> None:
+        """A parameterized route: a path that starts with ``prefix`` (and
+        misses the exact table) calls ``handler(body, suffix)``, the
+        suffix being the rest of the path."""
+        self._prefix_routes[(method.upper(), prefix)] = handler
+
     # -- lifecycle ------------------------------------------------------------
 
     def _make_handler(self):
         routes = self._routes
+        # Longest prefix first.
+        prefix_routes = sorted(self._prefix_routes.items(),
+                               key=lambda kv: -len(kv[0][1]))
 
         class _Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -193,6 +187,13 @@ class JsonHttpServer:
             def _dispatch(self, method: str) -> None:
                 path = self.path.split("?", 1)[0]
                 handler = routes.get((method, path))
+                if handler is None:
+                    for (pm, prefix), ph in prefix_routes:
+                        if pm == method and path.startswith(prefix):
+                            suffix = path[len(prefix):]
+                            handler = (lambda body, _h=ph, _s=suffix:
+                                       _h(body, _s))
+                            break
                 if handler is None:
                     self._respond(404, {"error": f"no route {method} {self.path}"})
                     return

@@ -96,6 +96,21 @@ splits ``shed_overloaded`` by cause (``shed_depth``, ``shed_tier``,
 ``shed_adaptive``, and the limiter's ``adaptive`` block), and with
 brownout on ``/health`` carries the ``brownout`` block.
 
+Observability, as in the JAX worker: every request records a root span
+(``infer``, ``score``, ``generate``, ``generate_stream``; parented under a
+``traceparent`` field when the request carries one, else under the trace
+id derived from its request_id) with stage children: ``admission``,
+``cache_lookup``, ``coalesced_wait``, ``serialize``, ``queue_wait``,
+``batch_form`` and ``device_compute`` on /infer, and the scheduler's
+stages on /score and the generation paths. A brownout stage change
+records an ``overload`` marker. The ring holds ``trace_capacity`` spans
+(0 records none); ``latency_histograms`` exposes the scheduler's TTFT and
+ITL histograms, ``handle_timeline`` its flight recorder
+(``flight_recorder`` ticks) and ``handle_profile`` a torch.profiler
+capture bounded in scheduler ticks (needs ``profile_dir``). Span times are
+host walls: ``device_compute`` runs from the dispatch's submit to its
+collect; device time comes from the profile.
+
 ``/health`` has the JAX lane's keys: ``cache_hits``, ``cache_size`` and
 ``cache_hit_rate`` of the result cache, the batcher's four-key
 ``batch_processor`` block (on a stateless lane the scheduler's one-shot
@@ -125,7 +140,7 @@ from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
-from tpu_engine_torch.serving.http import request_trace_id, sse_event
+from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.serving.overload import (
     AIMDLimit,
     BROWNOUT_BUDGET_FRAC,
@@ -136,6 +151,7 @@ from tpu_engine_torch.serving.overload import (
     parse_priority,
 )
 from tpu_engine_torch.serving.resilience import AdmissionController
+from tpu_engine_torch.utils import tracing
 from tpu_engine_torch.utils.config import WorkerConfig
 from tpu_engine_torch.utils.deadline import (
     Deadline,
@@ -148,6 +164,7 @@ from tpu_engine_torch.utils.sampling import (
     expand_stopping_params,
     validate_min_p,
 )
+from tpu_engine_torch.utils.tracing import SpanRecorder, TraceContext, TraceSink
 
 
 @dataclass
@@ -155,6 +172,9 @@ class _BatchItem:
     request_id: str
     input_data: Sequence[float]
     shape: Optional[tuple] = None
+    # The request's worker-root span context: the batch lane's stage
+    # spans parent here.
+    trace: Optional[TraceContext] = None
 
 
 @dataclass
@@ -168,6 +188,20 @@ class _ScoreItem:
     request_id: str
     prompt: List[int]
     completion: List[int]
+
+
+class _RootSpan:
+    """A worker-root span while its request runs: its context (stage
+    children parent here) and the cached flag and attrs the request path
+    fills in before the span records."""
+
+    __slots__ = ("ctx", "request_id", "attrs", "cached")
+
+    def __init__(self, ctx: TraceContext, request_id: str):
+        self.ctx = ctx
+        self.request_id = request_id
+        self.attrs = {"outcome": "error"}
+        self.cached = False
 
 
 class _AdmittedStream:
@@ -329,6 +363,11 @@ class WorkerNode:
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             batch_buckets=config.batch_buckets,
             shape_buckets=config.shape_buckets, device=config.device)
+        # The lane's span ring, made before the batcher whose observer
+        # records into it.
+        self.tracer = SpanRecorder(config.trace_capacity)
+        self.engine.tracer = self.tracer
+        self.engine.trace_node = self.node_id
         self.cache = LRUCache(config.cache_capacity)
         self.batch_processor: BatchProcessor[_BatchItem, _BatchResult] = \
             BatchProcessor(config.max_batch_size, config.batch_timeout_ms,
@@ -340,7 +379,8 @@ class WorkerNode:
                            collect_callback=self._collect_batch,
                            ready_callback=(lambda s: self.engine.handle_ready(
                                s[0])),
-                           pipeline_depth=config.pipeline_depth)
+                           pipeline_depth=config.pipeline_depth,
+                           observer=self._batch_observer)
         self.batch_processor.start()
         self._unified = bool(config.unified_stateless)
         self._score_proc: Optional[BatchProcessor] = None
@@ -352,6 +392,15 @@ class WorkerNode:
         except BaseException:
             self.batch_processor.stop()
             raise
+        gen = self.generator
+        if gen is not None:
+            gen.tracer = self.tracer
+            gen.trace_node = self.node_id
+            if not gen._stateless:
+                gen.trace_stitch = bool(config.trace_stitch)
+            if config.flight_recorder > 0:
+                gen.configure_flight_recorder(config.flight_recorder,
+                                              config.flight_dump_dir)
         self._total_requests = 0
         self._cache_hits = 0
         # The AIMD limit replaces the static cap, starting from it.
@@ -375,8 +424,7 @@ class WorkerNode:
         self._inflight: dict = {}
         self._inflight_lock = threading.Lock()
         # Staged brownout: the control loop's thread walks the ladder
-        # every brownout_interval_s (the brownout span of the JAX worker
-        # comes with the port's tracing, ROADMAP.md §A 16.3).
+        # every brownout_interval_s.
         self._brownout: Optional[BrownoutController] = None
         self._brownout_clamps = 0
         self._brownout_prev = {"starved": 0, "missed": 0}
@@ -515,14 +563,63 @@ class WorkerNode:
                 f"this lane serves model '{have}', not '{want}'")
 
     @contextlib.contextmanager
+    def _traced_request(self, request: dict, op: str):
+        """The worker-root span of a blocking request: parse the caller's
+        traceparent (else derive the trace from the request_id), yield a
+        ``_RootSpan`` whose context parents every stage span, and record
+        the root (wall time, outcome: ok, the shed kind or error, and the
+        attrs the body added) however the body exits."""
+        parent = TraceContext.from_request(request)
+        request_id = str(request.get("request_id", ""))
+        ctx = (parent.child() if parent is not None
+               else TraceContext.root(request_id))
+        span = _RootSpan(ctx, request_id)
+        t0 = time.perf_counter()
+        start = time.time()
+        try:
+            yield span
+            span.attrs["outcome"] = "ok"
+        except ShedError as exc:
+            span.attrs["outcome"] = exc.kind
+            raise
+        finally:
+            self.tracer.record(
+                request_id, op, self.node_id,
+                (time.perf_counter() - t0) * 1e6,
+                cached=span.cached, trace_id=ctx.trace_id,
+                span_id=ctx.span_id,
+                parent_id=parent.span_id if parent is not None else None,
+                start_ts=start, attrs=span.attrs)
+
+    @contextlib.contextmanager
     def _admitted(self, deadline: Optional[Deadline],
-                  tier: Optional[int] = None):
+                  tier: Optional[int] = None,
+                  trace: Optional[_RootSpan] = None):
         """The admission scope of a blocking request: admit (at ``tier``
         under tiered admission), then always release. A request that
         completes feeds its admit-to-finish time, queueing included, to
-        the AIMD limiter."""
+        the AIMD limiter. With ``trace`` an ``admission`` span (its
+        outcome: admitted, or the shed kind) joins the root."""
         t0 = time.perf_counter()
-        self._admission.admit(deadline, tier=tier)
+        start = time.time()
+
+        def span(outcome):
+            if trace is None:
+                return
+            child = trace.ctx.child()
+            self.tracer.record(
+                trace.request_id, "admission", self.node_id,
+                (time.perf_counter() - t0) * 1e6,
+                trace_id=child.trace_id, span_id=child.span_id,
+                parent_id=trace.ctx.span_id, start_ts=start,
+                attrs={"outcome": outcome})
+
+        try:
+            self._admission.admit(deadline, tier=tier)
+        except ShedError as exc:
+            span(exc.kind)
+            raise
+        span("admitted")
         ok = False
         try:
             yield
@@ -592,16 +689,27 @@ class WorkerNode:
         self._brownout_prev["missed"] = missed
         return comps
 
-    def _apply_brownout(self) -> None:
+    def _apply_brownout(self, action: str, comps: dict) -> None:
         """Apply the controller's stage to the scheduler: the budget
         shrink from stage 1, spec suspension from 2, swap-in deferral
-        from 3 (the clamp, stage 4, applies at request parsing)."""
+        from 3 (the clamp, stage 4, applies at request parsing), and
+        record one ``overload`` marker per transition, so escalations
+        plus restores equal those spans."""
         stage = self._brownout.stage
         if self.generator is not None:
             self.generator.set_brownout(
                 budget_frac=BROWNOUT_BUDGET_FRAC if stage >= 1 else 1.0,
                 suspend_spec=stage >= 2,
                 defer_swap_in=stage >= 3)
+        ctx = TraceContext.root(f"brownout:{self.node_id}").child()
+        binding = max(comps, key=comps.get) if comps else ""
+        self.tracer.record(
+            "brownout", "overload", self.node_id, 0,
+            trace_id=ctx.trace_id, span_id=ctx.span_id,
+            start_ts=time.time(),
+            attrs={"action": action, "stage": stage,
+                   "stage_name": BROWNOUT_STAGES[stage],
+                   "binding_signal": binding})
 
     def _brownout_loop(self) -> None:
         """Read the signals, walk the ladder, apply; a failed evaluation
@@ -609,9 +717,10 @@ class WorkerNode:
         interval = max(0.05, float(self.config.brownout_interval_s))
         while not self._brownout_stop.wait(interval):
             try:
-                action = self._brownout.evaluate(self._brownout_signals())
+                comps = self._brownout_signals()
+                action = self._brownout.evaluate(comps)
                 if action is not None:
-                    self._apply_brownout()
+                    self._apply_brownout(action, comps)
             except Exception:
                 continue
 
@@ -714,11 +823,28 @@ class WorkerNode:
         self._check_model(request)
         deadline = Deadline.from_request(request)
         tier = self._request_tier(request)
-        with self._admitted(deadline, tier):
-            self._count_request()
-            return self._infer_admitted(request, deadline)
+        with self._traced_request(request, "infer") as span:
+            with self._admitted(deadline, tier, trace=span):
+                self._count_request()
+                out = self._infer_admitted(request, deadline, span.ctx)
+                span.cached = out[2]
+                span.attrs["inference_time_us"] = out[3]
+                return out
 
-    def _infer_admitted(self, request: dict, deadline: Optional[Deadline]
+    def _child_span(self, request_id: str, tctx: TraceContext, op: str,
+                    t0: float, start: float,
+                    attrs: Optional[dict] = None) -> None:
+        """A stage span under the worker root ``tctx`` from ``t0``
+        (perf_counter; wall ``start``) to now."""
+        child = tctx.child()
+        self.tracer.record(request_id, op, self.node_id,
+                           (time.perf_counter() - t0) * 1e6,
+                           trace_id=child.trace_id, span_id=child.span_id,
+                           parent_id=tctx.span_id, start_ts=start,
+                           attrs=attrs)
+
+    def _infer_admitted(self, request: dict, deadline: Optional[Deadline],
+                        tctx: TraceContext
                         ) -> Tuple[str, bytes, bool, int]:
         request_id = request["request_id"]
         input_data = request["input_data"]
@@ -726,7 +852,10 @@ class WorkerNode:
         if shape is not None:
             shape = tuple(int(d) for d in shape)
         key = self._cache_key(input_data, shape)
+        cl0, cl_start = time.perf_counter(), time.time()
         frag = self.cache.get(key)
+        self._child_span(request_id, tctx, "cache_lookup", cl0, cl_start,
+                         {"hit": frag is not None})
         if frag is not None:
             with self._counter_lock:
                 self._cache_hits += 1
@@ -746,6 +875,7 @@ class WorkerNode:
                     self._inflight[key] = entry
             if leader:
                 break
+            w0, w_start = time.perf_counter(), time.time()
             if not entry.event.wait(timeout=clamp_timeout(deadline, 120.0)):
                 if deadline is not None and deadline.expired():
                     raise DeadlineExceeded(
@@ -761,12 +891,17 @@ class WorkerNode:
                             self._inflight.pop(key)
                     continue
                 raise entry.error  # a bad input is a 400 for all of them
+            self._child_span(request_id, tctx, "coalesced_wait", w0,
+                             w_start, {"leader_time_us": entry.time_us})
             return request_id, entry.frag, False, entry.time_us
         try:
             gen0 = self._weights_gen  # stamped before the compute
             result = self._dispatch_infer(
-                _BatchItem(request_id, input_data, shape), deadline)
+                _BatchItem(request_id, input_data, shape, trace=tctx),
+                deadline)
+            s0, s_start = time.perf_counter(), time.time()
             frag = _encode_output(result.output_data)
+            self._child_span(request_id, tctx, "serialize", s0, s_start)
             with self._reload_lock:
                 if gen0 == self._weights_gen:
                     self.cache.put(key, frag)
@@ -822,8 +957,10 @@ class WorkerNode:
         way."""
         if not self._infer_unified():
             return self.batch_processor.process(item, deadline=deadline)
+        sink = (TraceSink(self.tracer, self.node_id, item.request_id,
+                          item.trace) if item.trace is not None else None)
         fut = self.generator.submit_infer(item.input_data, shape=item.shape,
-                                          deadline=deadline)
+                                          deadline=deadline, sink=sink)
         out, time_us = fut.result(timeout=self._oneshot_timeout(deadline))
         return _BatchResult(out, time_us)
 
@@ -842,9 +979,52 @@ class WorkerNode:
         collect residence divided by its size."""
         handle, start, items = submitted
         outputs = self.engine.batch_collect(handle)
-        per_us = int((time.perf_counter() - start) * 1e6
-                     / max(1, len(items)))
+        elapsed_us = (time.perf_counter() - start) * 1e6
+        per_us = int(elapsed_us / max(1, len(items)))
+        self._record_device_spans(items, elapsed_us)
         return [_BatchResult(out, per_us) for out in outputs]
+
+    def _batch_observer(self, items, timing) -> None:
+        """The batcher's tracing hook (its dispatch thread): a
+        ``queue_wait`` span per traced member and a ``batch_form`` span
+        each for the batch they shared, placed back from the observer's
+        call time."""
+        end_wall = time.time()
+        formed_at = end_wall - timing.compute_us / 1e6
+        for it, wait_us in zip(items, timing.queue_wait_us):
+            ctx = getattr(it, "trace", None)
+            if ctx is None:
+                continue
+            qw = ctx.child()
+            self.tracer.record(
+                it.request_id, "queue_wait", self.node_id, wait_us,
+                trace_id=qw.trace_id, span_id=qw.span_id,
+                parent_id=ctx.span_id, start_ts=formed_at - wait_us / 1e6)
+            bf = ctx.child()
+            self.tracer.record(
+                it.request_id, "batch_form", self.node_id,
+                timing.batch_form_us, batch_size=len(items),
+                trace_id=bf.trace_id, span_id=bf.span_id,
+                parent_id=ctx.span_id,
+                start_ts=formed_at - timing.batch_form_us / 1e6,
+                attrs={"timed_out": timing.timed_out})
+
+    def _record_device_spans(self, items, elapsed_us: float) -> None:
+        """A ``device_compute`` span per traced batch member: the whole
+        batch's submit -> collect (what inference_time_us divides), the
+        batch's size beside it."""
+        start_wall = time.time() - elapsed_us / 1e6
+        n = len(items)
+        for it in items:
+            ctx = getattr(it, "trace", None)
+            if ctx is None:
+                continue
+            child = ctx.child()
+            self.tracer.record(
+                it.request_id, "device_compute", self.node_id, elapsed_us,
+                batch_size=n, trace_id=child.trace_id,
+                span_id=child.span_id, parent_id=ctx.span_id,
+                start_ts=start_wall)
 
     # -- /score ---------------------------------------------------------------
 
@@ -859,11 +1039,12 @@ class WorkerNode:
                 f"model '{self.config.model}' does not support scoring")
         deadline = Deadline.from_request(request)
         tier = self._request_tier(request)
-        with self._admitted(deadline, tier):
-            return self._score_admitted(request, deadline)
+        with self._traced_request(request, "score") as span:
+            with self._admitted(deadline, tier, trace=span):
+                return self._score_admitted(request, deadline, span.ctx)
 
-    def _score_admitted(self, request: dict,
-                        deadline: Optional[Deadline]) -> dict:
+    def _score_admitted(self, request: dict, deadline: Optional[Deadline],
+                        tctx: TraceContext) -> dict:
         self._count_request()
         completion = [int(t) for t in request["completion_tokens"]]
         if not completion:
@@ -881,8 +1062,10 @@ class WorkerNode:
                 f"sequence bucket {largest}")
         t0 = time.perf_counter()
         if self._score_unified():
-            fut = self.generator.submit_score(item.prompt, item.completion,
-                                              deadline=deadline)
+            fut = self.generator.submit_score(
+                item.prompt, item.completion, deadline=deadline,
+                sink=TraceSink(self.tracer, self.node_id, item.request_id,
+                               tctx))
             lps, _us = fut.result(timeout=self._oneshot_timeout(deadline))
         else:
             lps = self._score_processor().process(item, deadline=deadline)
@@ -961,13 +1144,16 @@ class WorkerNode:
     def handle_generate(self, request: dict) -> dict:
         deadline = self._generation_deadline(request)
         tier = self._request_tier(request)
-        with self._admitted(deadline, tier):
+        with self._traced_request(request, "generate") as span, \
+                self._admitted(deadline, tier, trace=span):
             self._count_request()
             request_id = request["request_id"]
             kw = self._parse(request, deadline, tier)
             t0 = time.perf_counter()
-            tokens = self.generator.submit(kw.pop("prompt"), tag=request_id,
-                                           **kw).result(timeout=600)
+            tokens = self.generator.submit(
+                kw.pop("prompt"), tag=request_id,
+                sink=TraceSink(self.tracer, self.node_id, request_id,
+                               span.ctx), **kw).result(timeout=600)
             return {"request_id": request_id, "tokens": tokens,
                     "node_id": self.node_id,
                     "generate_time_us": int((time.perf_counter() - t0)
@@ -986,40 +1172,63 @@ class WorkerNode:
             raise ValueError("the disaggregated handoff (handoff) is not "
                              "yet ported to tpu_engine_torch")
         tier = self._request_tier(request)
-        if request.get("migrate_import") is not None:
+        parent = TraceContext.from_request(request)
+        snap = request.get("migrate_import")
+        if snap is not None:
+            if parent is None and isinstance(snap, dict):
+                # A snapshot from a stitching lane carries the exported
+                # row's trace: the continuation's spans join it.
+                parent = TraceContext.from_request(snap)
             # The continuation of a migrated row: no prefill, no re-sent
             # prefix; a malformed snapshot raises here (a 400).
             return self._open_stream(
                 request, deadline,
-                lambda q: self.generator.submit_import(
-                    request["migrate_import"], stream=q, deadline=deadline,
-                    tag=request_id), tier)
+                lambda q, sink: self.generator.submit_import(
+                    snap, stream=q, deadline=deadline, tag=request_id,
+                    sink=sink), tier, parent)
         kw = self._parse(request, deadline, tier)
         return self._open_stream(
             request, deadline,
-            lambda q: self.generator.submit(kw.pop("prompt"), stream=q,
-                                            tag=request_id, **kw), tier)
+            lambda q, sink: self.generator.submit(
+                kw.pop("prompt"), stream=q, tag=request_id, sink=sink,
+                **kw), tier, parent)
 
     def _open_stream(self, request: dict, deadline: Optional[Deadline],
-                     submit, tier: Optional[int] = None) -> _AdmittedStream:
+                     submit, tier: Optional[int],
+                     parent: Optional[TraceContext]) -> _AdmittedStream:
         """Admit (at ``tier``) and count one scheduler stream of
-        ``request``, submitted
-        by ``submit(q)`` (its Future; ``q`` takes the token lists): the
-        SSE events hold the admission slot until they end, and a stream
-        that reaches its ``done`` event feeds its admit-to-finish time to
-        the AIMD limiter."""
+        ``request``, submitted by ``submit(q, sink)`` (its Future; ``q``
+        takes the token lists, ``sink`` the stage spans): the SSE events
+        hold the admission slot until they end, and a stream that
+        reaches its ``done`` event feeds its admit-to-finish time to the
+        AIMD limiter. Its ``generate_stream`` root span (under
+        ``parent``) records when the stream ends; a segment that ends
+        another way (exported, failed, stalled) records it with a
+        ``segment`` attr, so its stage spans never dangle."""
         request_id = request["request_id"]
-        trace_id = request_trace_id(request, request_id)
+        tctx = (parent.child() if parent is not None
+                else TraceContext.root(request_id))
+        trace_id = tctx.trace_id
+        t_start_wall = time.time()
         t_admit = time.perf_counter()
         self._admission.admit(deadline, tier=tier)
         try:
             self._count_request()
             q: "queue.Queue" = queue.Queue()
             t0 = time.perf_counter()
-            fut = submit(q)
+            fut = submit(q, TraceSink(self.tracer, self.node_id, request_id,
+                                      tctx))
         except BaseException:
             self._admission.release()
             raise
+
+        def root_span(attrs=None):
+            self.tracer.record(
+                request_id, "generate_stream", self.node_id,
+                (time.perf_counter() - t0) * 1e6, trace_id=tctx.trace_id,
+                span_id=tctx.span_id,
+                parent_id=parent.span_id if parent is not None else None,
+                start_ts=t_start_wall, attrs=attrs)
 
         def release(completed: bool) -> None:
             self._admission.release()
@@ -1033,6 +1242,7 @@ class WorkerNode:
                     item = q.get(timeout=600)
                 except queue.Empty:
                     fut.cancel()
+                    root_span({"segment": "stalled"})
                     yield sse_event(self._stream_error(
                         RuntimeError("generation stalled (no tokens for "
                                      "600s)"), request_id, trace_id, sent))
@@ -1041,17 +1251,20 @@ class WorkerNode:
                     break
                 sent += len(item)
                 yield sse_event({"tokens": item})
+            elapsed_us = int((time.perf_counter() - t0) * 1e6)
             try:
                 tokens = fut.result(timeout=10)
             except Exception as exc:
+                root_span({"segment": "exported"
+                           if getattr(exc, "migrated", False) else "error"})
                 yield sse_event(self._stream_error(exc, request_id,
                                                    trace_id, sent))
                 return
+            root_span()
             stream.completed = True
             yield sse_event({
                 "done": True, "request_id": request_id, "tokens": tokens,
-                "node_id": self.node_id,
-                "generate_time_us": int((time.perf_counter() - t0) * 1e6)})
+                "node_id": self.node_id, "generate_time_us": elapsed_us})
         stream = _AdmittedStream(events(), release)
         return stream
 
@@ -1083,6 +1296,72 @@ class WorkerNode:
         return out
 
     # -- observability --------------------------------------------------------
+
+    def latency_histograms(self) -> dict:
+        """The scheduler's TTFT and ITL histograms as /metrics families
+        (node -> histogram); none on a lane without generation."""
+        gen = self.generator
+        if gen is None or gen._stateless:
+            return {}
+        return {"tpu_engine_ttft_seconds": {self.node_id: gen.ttft_hist},
+                "tpu_engine_itl_seconds": {self.node_id: gen.itl_hist}}
+
+    def handle_timeline(self, request: Optional[dict] = None) -> dict:
+        """/admin/timeline: the flight recorder's ring (GET) or, with
+        ``{"dump": reason}``, a dump now (POST); ``{"n": k}`` the last k
+        records."""
+        gen = self.generator
+        if gen is None:
+            return {"node_id": self.node_id, "enabled": False,
+                    "reason": "this lane has no continuous scheduler"}
+        if request and request.get("dump"):
+            dump = gen.flight_dump(str(request["dump"]))
+            return {"node_id": self.node_id,
+                    "enabled": dump is not None, "dumped": dump}
+        n = int(request.get("n", 0)) if request else 0
+        out = gen.flight_timeline(n or None)
+        out["node_id"] = self.node_id
+        return out
+
+    def flight_dump(self, reason: str) -> Optional[dict]:
+        """Dump the scheduler's flight recorder now (None when the lane
+        runs none)."""
+        gen = self.generator
+        return gen.flight_dump(reason) if gen is not None else None
+
+    def handle_profile(self, request: Optional[dict] = None) -> dict:
+        """/admin/profile: a torch.profiler capture bounded in scheduler
+        ticks, written under ``profile_dir``. ``{"ticks": N}`` starts one
+        the decode loop stops after N ticks, ``{"action": "stop"}`` stops
+        it early, ``{"action": "status"}`` (GET) reports the count down
+        and the last capture (its trace file and device events). Without
+        ``ticks`` the capture runs until stopped; on a lane without a
+        scheduler it lives on a thread of its own (the card's kernels,
+        not the request threads' CPU ops)."""
+        profile_dir = self.config.profile_dir
+        request = request or {}
+        action = request.get("action")
+        gen = self.generator
+        if action == "status":
+            out = {"node_id": self.node_id, "profile_dir": profile_dir}
+            if gen is not None:
+                out.update(gen.profile_status())
+            return out
+        if action == "stop":
+            res = (gen.stop_profile() if gen is not None
+                   else tracing.profiler_stop())
+            return {"node_id": self.node_id, **res}
+        if not profile_dir:
+            return {"node_id": self.node_id,
+                    "error": "profiling not configured "
+                             "(start the worker with --profile-dir)"}
+        log_dir = request.get("log_dir") or profile_dir
+        ticks = int(request.get("ticks", 0) or 0)
+        if gen is not None:
+            res = gen.start_profile(log_dir, ticks)
+        else:
+            res = tracing.profiler_start(log_dir)
+        return {"node_id": self.node_id, **res}
 
     def get_health(self) -> dict:
         with self._counter_lock:

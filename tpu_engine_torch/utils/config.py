@@ -4,8 +4,8 @@ names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
 /infer lane a default launch serves), plus the worker's own ``device`` and
 ``seed``. The JAX gateway's features the port lacks (stream migration,
 disaggregated roles, prefix affinity and the prefix directory, the
-autoscaler, SLO objectives, trace stitching) keep their fields here, off
-by default, and refuse by name when switched on (``refuse_unported``). The
+autoscaler) keep their fields here, off by default, and refuse by name
+when switched on (``refuse_unported``). The
 settings only the JAX ``serve`` command sets (a default deadline, failover
 backoff, the Retry-After of a gateway 503) wait for that command: failover
 is immediate, a request without ``deadline_ms`` has no deadline, and a
@@ -88,6 +88,23 @@ class WorkerConfig:
     # single-tick rows; False serves them through the dedicated batch lane
     # (runtime.batch_processor) instead (--no-unified-stateless).
     unified_stateless: bool = True
+    # Observability (utils.tracing), as in the JAX worker. Spans kept in
+    # the lane's ring (--trace-capacity); 0 records no span and renders
+    # no stage histogram.
+    trace_capacity: int = 2048
+    # Cross-lane trace stitching (--trace-stitch): an export snapshot
+    # carries the stream's traceparent and its KV chain a "trace" header,
+    # so the importing lane's spans join the same trace. Off: snapshot
+    # and chain bytes unchanged.
+    trace_stitch: bool = False
+    # Directory of /admin/profile's torch.profiler captures
+    # (--profile-dir); None: the endpoint answers unconfigured.
+    profile_dir: Optional[str] = None
+    # The scheduler's per-tick flight recorder (--flight-recorder): ring
+    # length in ticks, 0 = off; anomaly dumps go to flight_dump_dir
+    # (--flight-dump-dir; None keeps them in memory).
+    flight_recorder: int = 0
+    flight_dump_dir: Optional[str] = None
     # The port's own: where the lane runs (None = the CUDA card) and the
     # seed of its random weights.
     device: Optional[str] = None
@@ -141,6 +158,24 @@ class GatewayConfig:
     overload_max_inflight: int = 0
     tenant_rate: float = 0.0
     tenant_burst: float = 0.0
+    # The gateway's own span ring (route, attempt and decision spans);
+    # 0 records nothing.
+    trace_capacity: int = 2048
+    # Cross-lane trace stitching (--trace-stitch): a stream's dispatches
+    # carry its root traceparent and the stream ledger records which lanes
+    # served it (admit and resume hops, trace_ledger_capacity streams), so
+    # /admin/trace/<rid> merges every lane's fragments into one tree.
+    trace_stitch: bool = False
+    trace_ledger_capacity: int = 512
+    # SLO objectives in ms, 0 = not set (--slo-ttft-p99-ms,
+    # --slo-itl-p99-ms, --slo-completion-p99-ms): burn rates over the
+    # latency histograms at /admin/slo, in /stats and /metrics, with
+    # slo_target the good-sample fraction and slo_window_s the window.
+    slo_ttft_p99_ms: float = 0.0
+    slo_itl_p99_ms: float = 0.0
+    slo_completion_p99_ms: float = 0.0
+    slo_target: float = 0.99
+    slo_window_s: float = 300.0
 
     # The JAX gateway's other features: not ported; each refuses by name
     # when switched on (refuse_unported).
@@ -149,10 +184,6 @@ class GatewayConfig:
     prefix_affinity: bool = False
     prefix_directory: bool = False
     autoscale: bool = False
-    slo_ttft_p99_ms: float = 0.0
-    slo_itl_p99_ms: float = 0.0
-    slo_completion_p99_ms: float = 0.0
-    trace_stitch: bool = False
 
     def __post_init__(self):
         refuse_unported(self)
@@ -166,10 +197,6 @@ _UNPORTED_GATEWAY = (
     ("prefix_affinity", "prefix-affinity routing"),
     ("prefix_directory", "the fleet prefix directory"),
     ("autoscale", "the elastic-fleet autoscaler"),
-    ("slo_ttft_p99_ms", "SLO objectives"),
-    ("slo_itl_p99_ms", "SLO objectives"),
-    ("slo_completion_p99_ms", "SLO objectives"),
-    ("trace_stitch", "cross-lane trace stitching"),
 )
 
 

@@ -1,0 +1,792 @@
+"""Prometheus text exposition (version 0.0.4) of the serving metrics: the
+port's own copy of ``tpu_engine/utils/metrics.py``; given the same health
+and stats dicts and histograms, its text equals the JAX package's byte
+for byte.
+
+The JSON schemas of ``/health`` and ``/stats`` stay the reference's;
+``/metrics`` renders the same counters for standard scrapers.
+`LatencyHistogram` is the cumulative-bucket accumulator the tracing layer
+(``utils.tracing.SpanRecorder``) feeds per op, rendered as
+``tpu_engine_stage_latency_seconds``; TTFT and ITL render as their own
+histogram families (`render_named_histograms`).
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from typing import Dict, List, Optional, Sequence
+
+_BREAKER_STATE_IDS = {"CLOSED": 0, "OPEN": 1, "HALF_OPEN": 2}
+
+# Serving latencies span ~10 µs (cache hit bookkeeping) to seconds (cold
+# compiles, decode loops): log-ish spacing, ~5 buckets per decade. Chosen
+# once for every stage so lane-to-lane and stage-to-stage quantiles are
+# comparable; DESIGN.md "Tracing" documents the choice.
+DEFAULT_LATENCY_BUCKETS_S = (
+    1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
+    1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+class LatencyHistogram:
+    """Prometheus-style histogram: fixed upper bounds, per-bucket counts,
+    running sum. `observe` is one bisect + two adds under a lock — cheap
+    enough for the per-request tracing hot path. Rendering cumulates."""
+
+    __slots__ = ("bounds", "_counts", "_sum", "_count", "_lock")
+
+    def __init__(self, bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS_S):
+        self.bounds = tuple(float(b) for b in bounds)
+        self._counts = [0] * (len(self.bounds) + 1)  # +1: the +Inf bucket
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float) -> None:
+        idx = bisect.bisect_left(self.bounds, seconds)
+        with self._lock:
+            self._counts[idx] += 1
+            self._sum += seconds
+            self._count += 1
+
+    def snapshot(self) -> dict:
+        """Cumulative bucket counts keyed by `le` (upper bound), plus sum
+        and count — the exact numbers the exposition format wants."""
+        with self._lock:
+            counts = list(self._counts)
+            total, s = self._count, self._sum
+        cum, acc = [], 0
+        for c in counts:
+            acc += c
+            cum.append(acc)
+        return {"le": self.bounds, "cumulative": cum[:-1],
+                "inf": cum[-1], "sum": s, "count": total}
+
+
+def _fmt_le(bound: float) -> str:
+    """Prometheus-conventional bound label: no exponent notation."""
+    s = f"{bound:.10f}".rstrip("0").rstrip(".")
+    return s if s else "0"
+
+
+def render_stage_histograms(recorders: Dict[str, "object"]) -> List[str]:
+    """Exposition lines for every (node, stage) latency histogram.
+    `recorders`: node name -> SpanRecorder (duck-typed: anything with
+    ``histograms() -> {stage: LatencyHistogram}``)."""
+    lines: List[str] = []
+    series = []
+    for node in sorted(recorders):
+        hists = recorders[node].histograms()
+        for stage in sorted(hists):
+            series.append((node, stage, hists[stage].snapshot()))
+    if not series:
+        return lines
+    name = "tpu_engine_stage_latency_seconds"
+    lines.append(f"# HELP {name} Per-stage serving latency "
+                 "(tracing span durations)")
+    lines.append(f"# TYPE {name} histogram")
+    for node, stage, snap in series:
+        lbl = f'node="{_esc(node)}",stage="{_esc(stage)}"'
+        for bound, cum in zip(snap["le"], snap["cumulative"]):
+            lines.append(f'{name}_bucket{{{lbl},le="{_fmt_le(bound)}"}} '
+                         f"{cum}")
+        lines.append(f'{name}_bucket{{{lbl},le="+Inf"}} {snap["inf"]}')
+        lines.append(f"{name}_sum{{{lbl}}} {snap['sum']:.9f}")
+        lines.append(f"{name}_count{{{lbl}}} {snap['count']}")
+    return lines
+
+
+def _esc(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", " ")
+
+
+def render_named_histograms(
+        named: Dict[str, Dict[str, "LatencyHistogram"]],
+        help_texts: Optional[Dict[str, str]] = None) -> List[str]:
+    """Exposition lines for standalone named histograms (metric name ->
+    node -> LatencyHistogram) — TTFT / inter-token latency live here,
+    outside the stage-latency family, because they are request-level
+    distributions a dashboard alerts on directly. Unobserved histograms
+    are skipped (additive exposition: keys appear once there is data)."""
+    lines: List[str] = []
+    help_texts = help_texts or {}
+    for name in sorted(named):
+        series = [(node, named[name][node].snapshot())
+                  for node in sorted(named[name])]
+        series = [(n, s) for n, s in series if s["count"]]
+        if not series:
+            continue
+        lines.append(f"# HELP {name} "
+                     f"{help_texts.get(name, 'Latency distribution')}")
+        lines.append(f"# TYPE {name} histogram")
+        for node, snap in series:
+            lbl = f'node="{_esc(node)}"'
+            for bound, cum in zip(snap["le"], snap["cumulative"]):
+                lines.append(
+                    f'{name}_bucket{{{lbl},le="{_fmt_le(bound)}"}} {cum}')
+            lines.append(f'{name}_bucket{{{lbl},le="+Inf"}} {snap["inf"]}')
+            lines.append(f"{name}_sum{{{lbl}}} {snap['sum']:.9f}")
+            lines.append(f"{name}_count{{{lbl}}} {snap['count']}")
+    return lines
+
+
+_NAMED_HIST_HELP = {
+    "tpu_engine_ttft_seconds":
+        "Time to first token (submit -> first sampled token), decode lane",
+    "tpu_engine_itl_seconds":
+        "Inter-token latency (gap between a row's token deliveries), "
+        "decode lane",
+}
+
+
+def render_prometheus(healths: List[Dict], stats: Optional[Dict] = None,
+                      recorders: Optional[Dict[str, object]] = None,
+                      named_hists: Optional[
+                          Dict[str, Dict[str, object]]] = None) -> bytes:
+    """healths: per-lane WorkerNode.get_health() dicts; stats: optional
+    Gateway.get_stats(); recorders: optional node -> SpanRecorder map for
+    the per-stage latency histograms; named_hists: optional metric name
+    -> node -> LatencyHistogram map (TTFT / ITL). Returns the exposition
+    body (text/plain 0.0.4)."""
+    lines: List[str] = []
+
+    def metric(name, mtype, help_text, samples):
+        # samples: list of (labels-dict, value); skip metrics with no data.
+        vals = [(lbl, v) for lbl, v in samples if v is not None]
+        if not vals:
+            return
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {mtype}")
+        for lbl, v in vals:
+            label_s = ",".join(f'{k}="{_esc(val)}"' for k, val in lbl.items())
+            label_s = "{" + label_s + "}" if label_s else ""
+            lines.append(f"{name}{label_s} {v}")
+
+    def node(h):
+        return {"node": h.get("node_id", "?")}
+
+    metric("tpu_engine_healthy", "gauge", "1 = lane serving, 0 = faulted",
+           [(node(h), int(bool(h.get("healthy")))) for h in healths])
+    metric("tpu_engine_requests_total", "counter",
+           "Requests handled (reference /health total_requests)",
+           [(node(h), h.get("total_requests")) for h in healths])
+    metric("tpu_engine_cache_hits_total", "counter",
+           "LRU result-cache hits (reference /health cache_hits)",
+           [(node(h), h.get("cache_hits")) for h in healths])
+    metric("tpu_engine_cache_size", "gauge", "Entries in the result cache",
+           [(node(h), h.get("cache_size")) for h in healths])
+    metric("tpu_engine_cache_hit_rate", "gauge",
+           "Result-cache hit rate [0,1]",
+           [(node(h), h.get("cache_hit_rate")) for h in healths])
+    bp = [(h, h.get("batch_processor") or {}) for h in healths]
+    metric("tpu_engine_batches_total", "counter", "Batches executed",
+           [(node(h), m.get("total_batches")) for h, m in bp])
+    metric("tpu_engine_batches_timeout_total", "counter",
+           "Batches flushed by the timeout timer",
+           [(node(h), m.get("timeout_batches")) for h, m in bp])
+    metric("tpu_engine_batches_full_total", "counter",
+           "Batches flushed at max size",
+           [(node(h), m.get("full_batches")) for h, m in bp])
+    metric("tpu_engine_batch_size_avg", "gauge", "Mean batch size",
+           [(node(h), m.get("avg_batch_size")) for h, m in bp])
+    gen = [(h, h.get("generator")) for h in healths if h.get("generator")]
+    metric("tpu_engine_decode_scheduler_info", "gauge",
+           "Decode lane present (labels carry scheduler metadata)",
+           [({**node(h), "model": g.get("model", g.get("target", "?"))}, 1)
+            for h, g in gen])
+
+    # Paged KV cache pool (continuous scheduler with kv_block_size > 0):
+    # capacity/sharing gauges plus the prefix-sharing compute counters.
+    kv = [(h, g.get("kv_pool")) for h, g in gen
+          if isinstance(g, dict) and g.get("kv_pool")]
+    metric("tpu_engine_kv_blocks_total", "gauge",
+           "Paged KV pool capacity in blocks (null block excluded)",
+           [(node(h), p.get("blocks_total")) for h, p in kv])
+    metric("tpu_engine_kv_blocks_free", "gauge",
+           "Paged KV pool blocks currently free",
+           [(node(h), p.get("blocks_free")) for h, p in kv])
+    metric("tpu_engine_kv_blocks_shared", "gauge",
+           "Paged KV pool blocks referenced more than once "
+           "(radix prefix sharing)",
+           [(node(h), p.get("blocks_shared")) for h, p in kv])
+    metric("tpu_engine_kv_radix_nodes", "gauge",
+           "Radix-tree nodes indexing shared prompt prefixes",
+           [(node(h), p.get("radix_nodes")) for h, p in kv])
+    metric("tpu_engine_kv_evictions_total", "counter",
+           "Radix leaves evicted under pool pressure",
+           [(node(h), p.get("evictions")) for h, p in kv])
+    metric("tpu_engine_kv_prefix_hit_tokens_total", "counter",
+           "Prompt tokens served from shared KV blocks (prefill skipped)",
+           [(node(h), p.get("prefix_hit_tokens")) for h, p in kv])
+    metric("tpu_engine_kv_prefilled_tokens_total", "counter",
+           "Prompt tokens actually prefilled on the device",
+           [(node(h), p.get("prefilled_tokens")) for h, p in kv])
+    metric("tpu_engine_kv_radix_lookups_total", "counter",
+           "Radix prefix lookups at admission",
+           [(node(h), p.get("radix_lookups")) for h, p in kv])
+    metric("tpu_engine_kv_radix_hits_total", "counter",
+           "Radix lookups that matched at least one full block",
+           [(node(h), p.get("radix_hits")) for h, p in kv])
+
+    # Recurrent state slab pool (state_slab-family models: SSD/Mamba —
+    # the continuous scheduler's O(1)-state workload class). Rows are
+    # the family's capacity unit: one fixed-size state row per live
+    # stream, constant in sequence length.
+    spl = [(h, g.get("state_pool")) for h, g in gen
+           if isinstance(g, dict) and g.get("state_pool")]
+    metric("tpu_engine_state_rows_total", "gauge",
+           "Recurrent state slab pool capacity in rows "
+           "(null row excluded)",
+           [(node(h), p.get("rows_total")) for h, p in spl])
+    metric("tpu_engine_state_rows_free", "gauge",
+           "State slab rows currently free",
+           [(node(h), p.get("rows_free")) for h, p in spl])
+    metric("tpu_engine_state_bytes_per_row", "gauge",
+           "HBM bytes one stream's WHOLE autoregressive state costs "
+           "(constant in sequence length)",
+           [(node(h), p.get("bytes_per_row")) for h, p in spl])
+    metric("tpu_engine_state_dim", "gauge",
+           "Flattened per-layer recurrent state width",
+           [(node(h), p.get("state_dim")) for h, p in spl])
+    metric("tpu_engine_state_rows_admitted_total", "counter",
+           "State rows allocated to admitted streams",
+           [(node(h), p.get("rows_admitted")) for h, p in spl])
+    metric("tpu_engine_state_rows_released_total", "counter",
+           "State rows returned to the pool (must track admissions: "
+           "the zero-slab-leak invariant)",
+           [(node(h), p.get("rows_released")) for h, p in spl])
+    metric("tpu_engine_state_exports_total", "counter",
+           "State rows exported as one-pseudo-block chains "
+           "(migration/handoff)",
+           [(node(h), p.get("exports")) for h, p in spl])
+    metric("tpu_engine_state_imports_total", "counter",
+           "State rows imported verbatim from chains (zero re-prefill)",
+           [(node(h), p.get("imports")) for h, p in spl])
+    metric("tpu_engine_state_pending_admissions", "gauge",
+           "Admissions deferred on state-row exhaustion",
+           [(node(h), p.get("pending_admissions")) for h, p in spl])
+
+    # Quantized KV blocks (--kv-quantize int8): capacity-economics gauges
+    # for the int8 pool — bytes per block vs the full-precision layout
+    # and the resulting block-count multiplier at equal HBM.
+    kq = [(h, p) for h, p in kv
+          if isinstance(p, dict) and p.get("quantized")]
+    metric("tpu_engine_kv_quant_info", "gauge",
+           "Quantized KV pool present (mode label carries the format)",
+           [({**node(h), "mode": str(p.get("quantized"))}, 1)
+            for h, p in kq])
+    metric("tpu_engine_kv_quant_bytes_per_block", "gauge",
+           "HBM bytes per block in the quantized pool (int8 payload "
+           "+ f32 scales)",
+           [(node(h), p.get("bytes_per_block")) for h, p in kq])
+    metric("tpu_engine_kv_quant_dense_bytes_per_block", "gauge",
+           "Bytes the same block would cost at the full-precision dtype",
+           [(node(h), p.get("dense_bytes_per_block")) for h, p in kq])
+    metric("tpu_engine_kv_quant_capacity_multiplier", "gauge",
+           "Blocks the quantized pool fits per full-precision block at "
+           "equal HBM",
+           [(node(h), p.get("capacity_multiplier")) for h, p in kq])
+
+    # Hierarchical host-RAM KV tier (--kv-host-blocks): demotions keep
+    # cold prefixes resident in host RAM; swap-ins resurrect them on a
+    # radix hit instead of recomputing prefill.
+    kvh = [(h, p.get("host")) for h, p in kv
+           if isinstance(p, dict) and p.get("host")]
+    metric("tpu_engine_kv_host_blocks_total", "gauge",
+           "Host-RAM KV tier capacity in blocks",
+           [(node(h), t.get("blocks_total")) for h, t in kvh])
+    metric("tpu_engine_kv_host_blocks_used", "gauge",
+           "Host-tier blocks holding demoted radix prefixes",
+           [(node(h), t.get("blocks_used")) for h, t in kvh])
+    metric("tpu_engine_kv_host_demotions_total", "counter",
+           "Device blocks demoted to the host tier (LRU eviction)",
+           [(node(h), t.get("demotions")) for h, t in kvh])
+    metric("tpu_engine_kv_host_swap_ins_total", "counter",
+           "Demoted blocks swapped back onto the device on a radix hit",
+           [(node(h), t.get("swap_ins")) for h, t in kvh])
+    metric("tpu_engine_kv_host_swap_in_deferred_total", "counter",
+           "Promotions refused by the live-row reserve rule",
+           [(node(h), t.get("swap_in_deferred")) for h, t in kvh])
+    metric("tpu_engine_kv_host_evictions_total", "counter",
+           "Demoted prefixes destroyed because the host tier filled",
+           [(node(h), t.get("host_evictions")) for h, t in kvh])
+    metric("tpu_engine_kv_swapped_in_tokens_total", "counter",
+           "Prompt tokens served by host-tier swap-in instead of prefill",
+           [(node(h), t.get("swapped_in_tokens")) for h, t in kvh])
+    metric("tpu_engine_kv_quant_scale_slots_leaked", "gauge",
+           "Host scale slots not paired with a demoted radix node "
+           "(quantized pools; must stay 0)",
+           [(node(h), t.get("scale_slots_leaked")) for h, t in kvh])
+
+    # Mixed prefill+decode stepping (continuous scheduler --mixed-step):
+    # one ragged dispatch per tick — ticks and dispatches are counted at
+    # different sites precisely so scrapers can assert they stay equal.
+    mx = [(h, g.get("mixed")) for h, g in gen
+          if isinstance(g, dict) and g.get("mixed")]
+    metric("tpu_engine_mixed_ticks_total", "counter",
+           "Mixed scheduler ticks executed",
+           [(node(h), m.get("ticks")) for h, m in mx])
+    metric("tpu_engine_mixed_dispatches_total", "counter",
+           "Device dispatches issued by mixed ticks (== ticks by design)",
+           [(node(h), m.get("dispatches")) for h, m in mx])
+    metric("tpu_engine_mixed_prefill_tokens_total", "counter",
+           "Prompt tokens consumed inside mixed ticks",
+           [(node(h), m.get("prefill_tokens")) for h, m in mx])
+    metric("tpu_engine_mixed_decode_tokens_total", "counter",
+           "Decode tokens produced by mixed ticks",
+           [(node(h), m.get("decode_tokens")) for h, m in mx])
+    metric("tpu_engine_mixed_coscheduled_ticks_total", "counter",
+           "Ticks that carried BOTH decode rows and prefill chunks",
+           [(node(h), m.get("coscheduled_ticks")) for h, m in mx])
+    metric("tpu_engine_mixed_token_budget", "gauge",
+           "Per-tick new-token budget (--mixed-token-budget)",
+           [(node(h), m.get("token_budget")) for h, m in mx])
+
+    # Speculative decoding — one family for BOTH lanes (the continuous
+    # scheduler's --spec-k per-tick verify windows and the batch
+    # gen_scheduler=speculative generator expose the same "spec" stats
+    # schema; the `lane` label tells them apart). accept_ratio is the
+    # headline: accepted draft tokens / proposed, lifetime.
+    sp = [(h, g.get("spec")) for h, g in gen
+          if isinstance(g, dict) and g.get("spec")]
+    metric("tpu_engine_spec_k", "gauge",
+           "Speculation depth (draft tokens per window)",
+           [({**node(h), "lane": s.get("lane", "continuous")}, s.get("k"))
+            for h, s in sp])
+    metric("tpu_engine_spec_dispatches_total", "counter",
+           "Verify dispatches issued (continuous: == scheduler ticks)",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("dispatches")) for h, s in sp])
+    metric("tpu_engine_spec_proposed_tokens_total", "counter",
+           "Draft tokens proposed for verification",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("proposed_tokens")) for h, s in sp])
+    metric("tpu_engine_spec_accepted_tokens_total", "counter",
+           "Draft tokens accepted by the target",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("accepted_tokens")) for h, s in sp])
+    metric("tpu_engine_spec_emitted_tokens_total", "counter",
+           "Tokens emitted by speculative verification "
+           "(accepted + corrected/bonus)",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("emitted_tokens")) for h, s in sp])
+    metric("tpu_engine_spec_accept_ratio", "gauge",
+           "Lifetime draft acceptance ratio (accepted / proposed)",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("accept_ratio")) for h, s in sp])
+    metric("tpu_engine_spec_tokens_per_dispatch", "gauge",
+           "Mean tokens per verify dispatch (co-batched rows included)",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("tokens_per_dispatch")) for h, s in sp])
+    metric("tpu_engine_spec_tokens_per_row_dispatch", "gauge",
+           "Mean per-row stream advance per verify dispatch "
+           "(1.0 = no speculation win)",
+           [({**node(h), "lane": s.get("lane", "continuous")},
+             s.get("tokens_per_row_dispatch")) for h, s in sp])
+
+    # Live stream migration, lane side (the scheduler's additive
+    # "migration" stats block — present once a row was exported or
+    # imported on the lane).
+    mg = [(h, g.get("migration")) for h, g in gen
+          if isinstance(g, dict) and g.get("migration")]
+    metric("tpu_engine_migration_exported_rows_total", "counter",
+           "Live rows exported off this lane (migrate-mode drain)",
+           [(node(h), m.get("exported_rows")) for h, m in mg])
+    metric("tpu_engine_migration_exported_tokens_total", "counter",
+           "Tokens already emitted by rows at export",
+           [(node(h), m.get("exported_tokens")) for h, m in mg])
+    metric("tpu_engine_migration_export_refused_total", "counter",
+           "Export requests this lane refused (finished or mid-prefill "
+           "rows) — each fell back to a replay resume",
+           [(node(h), m.get("export_refused")) for h, m in mg])
+    metric("tpu_engine_migration_imported_rows_total", "counter",
+           "Migrated rows adopted by this lane (zero re-prefill)",
+           [(node(h), m.get("imported_rows")) for h, m in mg])
+    metric("tpu_engine_migration_imported_tokens_total", "counter",
+           "Tokens already emitted by rows at import (the stream "
+           "position adopted — reconciles with exported_tokens "
+           "fleet-wide)",
+           [(node(h), m.get("imported_tokens")) for h, m in mg])
+    metric("tpu_engine_migration_imported_chain_tokens_total", "counter",
+           "KV tokens written verbatim from imported chains "
+           "(radix-matched prefix blocks excluded)",
+           [(node(h), m.get("imported_chain_tokens")) for h, m in mg])
+    metric("tpu_engine_migration_import_rejected_total", "counter",
+           "Imports this lane refused (checksum, geometry, pool "
+           "pressure) — each fell back to a replay resume",
+           [(node(h), m.get("import_rejected")) for h, m in mg])
+
+    # Disaggregated handoff, lane side (the scheduler's additive
+    # "handoff" stats block — present once a row parked for export).
+    hol = [(h, g.get("handoff")) for h, g in gen
+           if isinstance(g, dict) and g.get("handoff")]
+    metric("tpu_engine_handoff_holds_total", "counter",
+           "Rows parked after prefill awaiting the export-after-prefill "
+           "command (disaggregated serving)",
+           [(node(h), m.get("holds")) for h, m in hol])
+    metric("tpu_engine_handoff_park_expired_total", "counter",
+           "Parked rows whose export never came — resumed local decode "
+           "(the colocated fallback)",
+           [(node(h), m.get("park_expired")) for h, m in hol])
+    metric("tpu_engine_handoff_hold_cancelled_total", "counter",
+           "Parked rows released by an orchestrator cancel (no "
+           "destination lane)",
+           [(node(h), m.get("hold_cancelled")) for h, m in hol])
+    metric("tpu_engine_handoff_held_rows", "gauge",
+           "Rows currently parked awaiting export",
+           [(node(h), m.get("held_rows")) for h, m in hol])
+
+    # Resilience layer, lane side (the "admission" /health block appears
+    # only once admission control has made a decision).
+    adm = [(h, h.get("admission")) for h in healths if h.get("admission")]
+    metric("tpu_engine_lane_draining", "gauge",
+           "1 = lane refusing new admissions (lame-duck)",
+           [(node(h), int(bool(a.get("draining")))) for h, a in adm])
+    metric("tpu_engine_lane_queue_depth", "gauge",
+           "Concurrently admitted requests on the lane",
+           [(node(h), a.get("queue_depth")) for h, a in adm])
+    metric("tpu_engine_shed_total", "counter",
+           "Requests shed by lane admission control, by reason "
+           "(overloaded = depth + tier + adaptive, the wire-compat total)",
+           [({**node(h), "reason": r}, a.get(f"shed_{r}"))
+            for h, a in adm
+            for r in ("overloaded", "deadline", "draining",
+                      "depth", "tier", "adaptive")])
+    metric("tpu_engine_deadline_dropped_total", "counter",
+           "Queued requests dropped at batch formation (deadline expired)",
+           [(node(h), a.get("deadline_dropped")) for h, a in adm])
+    metric("tpu_engine_adaptive_depth_limit", "gauge",
+           "AIMD adaptive concurrency limit currently in force",
+           [(node(h), (a.get("adaptive") or {}).get("limit"))
+            for h, a in adm])
+
+    # Staged brownout (worker --brownout): the degradation ladder's
+    # current stage and transition counters.
+    bo = [(h, h.get("brownout")) for h in healths if h.get("brownout")]
+    metric("tpu_engine_brownout_stage", "gauge",
+           "Brownout ladder stage (0 = normal .. 4 = low-tier clamp)",
+           [(node(h), b.get("stage")) for h, b in bo])
+    metric("tpu_engine_brownout_pressure", "gauge",
+           "Max normalized saturation signal at the last evaluation",
+           [(node(h), b.get("pressure")) for h, b in bo])
+    metric("tpu_engine_brownout_escalations_total", "counter",
+           "Brownout ladder escalations",
+           [(node(h), b.get("escalations")) for h, b in bo])
+    metric("tpu_engine_brownout_restores_total", "counter",
+           "Brownout ladder restores",
+           [(node(h), b.get("restores")) for h, b in bo])
+    metric("tpu_engine_brownout_clamped_total", "counter",
+           "Below-top-tier requests whose token budget was clamped",
+           [(node(h), b.get("clamped_requests")) for h, b in bo])
+
+    if stats:
+        metric("tpu_engine_gateway_requests_total", "counter",
+               "Requests routed by the gateway",
+               [({}, stats.get("total_requests"))])
+        metric("tpu_engine_gateway_failovers_total", "counter",
+               "Requests that failed over off their primary worker",
+               [({}, stats.get("failovers"))])
+        workers = stats.get("circuit_breakers") or []
+        metric("tpu_engine_breaker_state", "gauge",
+               "Circuit breaker: 0=CLOSED 1=OPEN 2=HALF_OPEN",
+               [({"node": w.get("node", "?")},
+                 _BREAKER_STATE_IDS.get(w.get("state"), -1))
+                for w in workers])
+        metric("tpu_engine_breaker_failures", "gauge",
+               "Consecutive failures recorded by the breaker",
+               [({"node": w.get("node", "?")}, w.get("failures"))
+                for w in workers])
+        metric("tpu_engine_breaker_successes", "gauge",
+               "Successes recorded by the breaker",
+               [({"node": w.get("node", "?")}, w.get("successes"))
+                for w in workers])
+        res = stats.get("resilience")
+        if res:
+            # Gateway-side resilience decisions (the /stats "resilience"
+            # block; present once configured or first exercised).
+            for key, help_text in (
+                    ("deadline_rejected",
+                     "Requests shed at gateway admission (expired deadline)"),
+                    ("deadline_expired",
+                     "Requests whose deadline expired mid-route"),
+                    ("retries", "Failover retry attempts dispatched"),
+                    ("retry_budget_exhausted",
+                     "Retries refused by the global retry budget"),
+                    ("backoff_waits", "Backoff sleeps before a retry"),
+                    ("hedges", "Hedged dispatches fired"),
+                    ("hedge_wins", "Hedged dispatches won by the hedge lane"),
+                    ("hedge_losses",
+                     "Hedged dispatches won by the primary lane"),
+                    ("shed_overloaded",
+                     "Dispatches shed by an overloaded/draining lane")):
+                metric(f"tpu_engine_{key}_total", "counter", help_text,
+                       [({}, res.get(key))])
+            metric("tpu_engine_hedge_threshold_ms", "gauge",
+                   "Current hedge latency threshold",
+                   [({}, res.get("hedge_threshold_ms"))])
+        fo = stats.get("failover")
+        if fo:
+            # Crash-tolerant streaming + proactive lane health (the
+            # /stats "failover" block; present once configured or first
+            # exercised — same gating as the resilience family).
+            for key, help_text in (
+                    ("stream_failures",
+                     "Mid-stream failures observed by the stream journal"),
+                    ("resumes_attempted",
+                     "Stream resume dispatches attempted"),
+                    ("resumes_succeeded",
+                     "Stream resumes admitted on another lane"),
+                    ("resumes_failed",
+                     "Stream resumes no lane could admit"),
+                    ("tokens_replayed",
+                     "Tokens re-prefixed into resume prompts"),
+                    ("prober_ejections",
+                     "Lanes ejected from routing by the health prober"),
+                    ("prober_restores",
+                     "Ejected lanes restored by the health prober")):
+                metric(f"tpu_engine_failover_{key}_total", "counter",
+                       help_text, [({}, fo.get(key))])
+            metric("tpu_engine_failover_ejected_lanes", "gauge",
+                   "Lanes currently ejected from routing",
+                   [({}, len(fo.get("ejected_lanes", ())))])
+        mig = stats.get("migration")
+        if mig:
+            # Live stream migration (the /stats "migration" block;
+            # present once configured or first exercised).
+            for key, help_text in (
+                    ("migrations_attempted",
+                     "Per-stream migrations started by a migrate-mode "
+                     "drain"),
+                    ("streams_migrated",
+                     "Streams spliced onto their migration destination "
+                     "(zero re-prefilled tokens)"),
+                    ("migration_fallbacks",
+                     "Migrations that fell back to the replay resume"),
+                    ("export_refusals",
+                     "Source-side export refusals (finished row, "
+                     "mid-prefill row, wedged lane)"),
+                    ("destination_unavailable",
+                     "Migrations with no admitting destination lane"),
+                    ("import_dispatch_failed",
+                     "Continuation dispatches the destination refused "
+                     "or failed"),
+                    ("tokens_migrated",
+                     "Tokens carried across migration splices"),
+                    ("drain_failures",
+                     "Graceful-drain calls that timed out or errored "
+                     "(removal proceeded)")):
+                metric(f"tpu_engine_migration_{key}_total", "counter",
+                       help_text, [({}, mig.get(key))])
+            metric("tpu_engine_migration_active_streams", "gauge",
+                   "Journaled streams the migrate registry tracks",
+                   [({}, mig.get("active_streams"))])
+        ho = stats.get("handoff")
+        if ho:
+            # Disaggregated prefill/decode serving (the /stats
+            # "handoff" block; present once configured or exercised).
+            for key, help_text in (
+                    ("prefill_routed",
+                     "Fresh generate dispatches landed on a "
+                     "prefill-capable lane"),
+                    ("prefill_unavailable",
+                     "No admittable prefill lane: ring order took over "
+                     "(colocated)"),
+                    ("handoffs_attempted",
+                     "Steady-state prefill→decode handoffs started"),
+                    ("handoffs_spliced",
+                     "Handoffs spliced onto their decode lane (zero "
+                     "re-prefilled tokens)"),
+                    ("export_refusals",
+                     "Export-after-prefill refusals (row finished "
+                     "first, wedged lane) — local decode continued"),
+                    ("destination_unavailable",
+                     "Handoffs with no decode-capable destination "
+                     "lane"),
+                    ("dispatch_failed",
+                     "Continuation dispatches every decode lane "
+                     "refused or failed"),
+                    ("handoff_fallbacks",
+                     "Handoffs that fell back to the replay resume"),
+                    ("holds_cancelled",
+                     "Source holds released after a failed handoff"),
+                    ("tokens_handed_off",
+                     "Tokens carried across handoff splices"),
+                    ("role_flips",
+                     "Runtime /admin/role rebalances")):
+                metric(f"tpu_engine_handoff_{key}_total", "counter",
+                       help_text, [({}, ho.get(key))])
+            metric("tpu_engine_handoff_prefill_lanes", "gauge",
+                   "Lanes currently prefill-capable (role prefill|both)",
+                   [({}, sum(1 for r in (ho.get("roles") or {}).values()
+                             if r != "decode"))])
+        aff = stats.get("affinity")
+        if aff:
+            # Prefix-affinity routing (the /stats "affinity" block;
+            # present once configured or first exercised).
+            for key, name, help_text in (
+                    ("affinity_routed", "routed",
+                     "Generate dispatches routed to the prefix-affinity "
+                     "lane"),
+                    ("no_fingerprint", "no_fingerprint",
+                     "Generate requests with no full prompt block to "
+                     "fingerprint (ring order)"),
+                    ("ejected_fallbacks", "ejected_fallbacks",
+                     "Affinity lane ejected/broken: fell back to ring "
+                     "order"),
+                    ("imbalance_fallbacks", "imbalance_fallbacks",
+                     "Affinity lane too hot: fell back to ring order"),
+                    ("resume_skips", "resume_skips",
+                     "Stream resumes that skipped the dead affinity "
+                     "lane (ring order)")):
+                metric(f"tpu_engine_affinity_{name}_total", "counter",
+                       help_text, [({}, aff.get(key))])
+            metric("tpu_engine_affinity_assigned_total", "counter",
+                   "Affinity-routed dispatches per lane",
+                   [({"node": lane}, n)
+                    for lane, n in sorted(
+                        (aff.get("assigned") or {}).items())])
+        pd = stats.get("prefix_directory")
+        if pd:
+            # Fleet prefix directory (the /stats "prefix_directory"
+            # block; present only with the directory configured).
+            for key, help_text in (
+                    ("seeded",
+                     "Prober sweeps that recorded directory entries "
+                     "from a lane's radix summaries"),
+                    ("recorded",
+                     "Post-completion owner updates (lane served the "
+                     "fingerprint)"),
+                    ("evictions",
+                     "Directory entries dropped by the LRU capacity "
+                     "bound"),
+                    ("invalidations",
+                     "Per-lane generation bumps (removal/eject/recover) "
+                     "voiding entries"),
+                    ("hints_attached",
+                     "Generate dispatches stamped with a peer-fetch "
+                     "owner hint"),
+                    ("lookup_misses",
+                     "Fingerprinted dispatches with no live directory "
+                     "owner")):
+                metric(f"tpu_engine_prefix_dir_{key}_total", "counter",
+                       help_text, [({}, pd.get(key))])
+            metric("tpu_engine_prefix_dir_entries", "gauge",
+                   "Live directory entries (bounded by capacity)",
+                   [({}, pd.get("entries"))])
+            metric("tpu_engine_prefix_dir_lane_entries", "gauge",
+                   "Live directory entries per owner lane",
+                   [({"node": lane}, n)
+                    for lane, n in sorted(
+                        (pd.get("lanes") or {}).items())])
+        ovl = stats.get("overload")
+        if ovl:
+            # Adaptive overload control (the /stats "overload" block;
+            # present once configured or first exercised).
+            for key, help_text in (
+                    ("rate_limited",
+                     "Requests refused by a tenant's token bucket"),
+                    ("shed_tier",
+                     "Below-top-tier requests shed by gateway tier "
+                     "admission (lowest tier first)"),
+                    ("shed_depth",
+                     "Requests shed with the gateway in-flight gauge at "
+                     "its full limit")):
+                metric(f"tpu_engine_overload_{key}_total", "counter",
+                       help_text, [({}, ovl.get(key))])
+            metric("tpu_engine_overload_inflight", "gauge",
+                   "Requests currently inside the gateway routing layer",
+                   [({}, ovl.get("inflight"))])
+            metric("tpu_engine_overload_pressure", "gauge",
+                   "Measured congestion feeding the load-derived "
+                   "Retry-After",
+                   [({}, ovl.get("pressure"))])
+            metric("tpu_engine_overload_tenants", "gauge",
+                   "Tenants with live token buckets",
+                   [({}, ovl.get("tenants"))])
+        fl = stats.get("fleet")
+        if fl:
+            # Elastic fleet (the /stats "fleet" block; present once
+            # --autoscale is set or /admin/fleet first actuates).
+            for key, help_text in (
+                    ("scale_up_attempted",
+                     "Scale-up actuations started (spawn + probe gate)"),
+                    ("scale_up_completed",
+                     "Lanes probed healthy and registered on the ring"),
+                    ("scale_up_failed",
+                     "Scale-ups that never probed healthy "
+                     "(spawn-wedged) or found no capacity"),
+                    ("scale_down_attempted",
+                     "Scale-down actuations started (drain + migrate "
+                     "ladder)"),
+                    ("scale_down_completed",
+                     "Lanes retired through the drain + stream-"
+                     "migration ladder"),
+                    ("scale_down_failed",
+                     "Scale-downs that timed out or errored "
+                     "(drain-wedged)"),
+                    ("rebalance_attempted",
+                     "Role-rebalance flips started"),
+                    ("rebalance_completed",
+                     "Role flips completed through /admin/role"),
+                    ("rebalance_failed",
+                     "Role flips refused or failed (state restored)"),
+                    ("decisions_held",
+                     "Control-loop decisions suppressed by cooldown or "
+                     "the min/max lane clamps"),
+                    ("degraded_entered",
+                     "Named degraded-but-serving states latched"),
+                    ("degraded_cleared",
+                     "Degraded states cleared (recovery or operator)")):
+                metric(f"tpu_engine_fleet_{key}_total", "counter",
+                       help_text, [({}, fl.get(key))])
+            metric("tpu_engine_fleet_lanes", "gauge",
+                   "Lanes currently on the routing ring",
+                   [({}, fl.get("lanes"))])
+            metric("tpu_engine_fleet_degraded_lanes", "gauge",
+                   "Lanes in a named degraded state",
+                   [({}, len(fl.get("degraded") or {}))])
+            if fl.get("pressure") is not None:
+                metric("tpu_engine_fleet_pressure", "gauge",
+                       "Mean fleet pressure the control loop last "
+                       "observed (1.0 = lanes saturated)",
+                       [({}, fl.get("pressure"))])
+        slo = stats.get("slo")
+        if slo:
+            # SLO burn-rate accounting (the /stats "slo" block; present
+            # once any --slo-*-p99-ms objective is configured). One
+            # sample set per objective, labelled like the latency
+            # histograms the numbers derive from.
+            objectives = slo.get("objectives") or {}
+            rows = sorted(objectives.items())
+            metric("tpu_engine_slo_target", "gauge",
+                   "Configured SLO target (good-sample fraction)",
+                   [({}, slo.get("target"))])
+            metric("tpu_engine_slo_objective_ms", "gauge",
+                   "Configured latency objective per SLO dimension",
+                   [({"objective": name}, obj.get("objective_ms"))
+                    for name, obj in rows])
+            metric("tpu_engine_slo_burn_rate", "gauge",
+                   "Windowed error-budget burn rate (1.0 = budget "
+                   "spent exactly at the sustainable rate)",
+                   [({"objective": name}, obj.get("burn_rate"))
+                    for name, obj in rows])
+            metric("tpu_engine_slo_good_fraction", "gauge",
+                   "Lifetime fraction of samples inside the objective",
+                   [({"objective": name}, obj.get("good_fraction"))
+                    for name, obj in rows])
+            metric("tpu_engine_slo_violations_total", "counter",
+                   "Samples observed over the latency objective",
+                   [({"objective": name}, obj.get("violations"))
+                    for name, obj in rows])
+            metric("tpu_engine_slo_samples_total", "counter",
+                   "Samples evaluated against the latency objective",
+                   [({"objective": name}, obj.get("samples"))
+                    for name, obj in rows])
+    if recorders:
+        lines.extend(render_stage_histograms(recorders))
+    if named_hists:
+        lines.extend(render_named_histograms(named_hists,
+                                             _NAMED_HIST_HELP))
+    return ("\n".join(lines) + "\n").encode()
