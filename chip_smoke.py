@@ -308,6 +308,43 @@ Phases (any failure exits non-zero and prints no result line):
               /admin/trace/<rid> has zero orphans and the admit and
               resume hops, /admin/slo answers, /metrics has
               tpu_engine_slo_*.
+12. handoff — after observe: the handoff family. Three worker_node
+              processes of TinyLlama-1.1B at all 22 layers (bf16, random
+              weights from seed 0, mixed stepping, 16-token blocks,
+              256-token chunks, --prefix-fetch): P of --role prefill, D1
+              and D2 of --role decode, behind the port's gateway
+              (serve_gateway, in this process) with disagg,
+              migrate_streams, prefix_affinity and prefix_directory on.
+              A burst of 16 greedy streams (8 sharing a 512-token prefix,
+              8 distinct, prompts of 520-600 tokens, 32 new tokens): all
+              16 spliced from P to a decode lane with no fallback, the
+              decode lanes' prefilled tokens unmoved, P's decode tokens
+              0, the handoff counters equal to the kv_handoff spans.
+              Three streams one at a time through the handoff equal the
+              same requests sent straight to P. One handoff by hand
+              (/generate/stream with handoff, /admin/migrate with
+              wait_prefill, migrate_import on D1): the chain's wire bytes,
+              export and import times. A migrate-mode drain: a 128-token
+              stream on D1 behind a gateway of D1 and D2 with
+              migrate_streams; remove_worker(D1, drain=True) after 16
+              tokens splices it onto D2, equal to the undrained run, with
+              nothing replayed; D1 goes back. POST /admin/role flips D2
+              to prefill (a stream then decodes on D1) and back:
+              role_flips 2. A gateway with the prefix directory alone: A
+              (a new 512-token prefix + a suffix) on D1, then A' with an
+              id the ring sends to D2, which fetches the prefix from D1,
+              prefills only its suffix, and equals A' on D1; with prefix
+              affinity on, 8 requests of the prefix land on one lane.
+              Each lane ends idle with no leaked block and #1 launches ==
+              22 x its ticks (the process's counts, written at its exit).
+              In this process, two int8 mixed generators hand a row off
+              with export_row(wait_prefill=True) and submit_import: the
+              stream equals the colocated int8 run (sent twice, the
+              second resuming from the radix as the handoff's prefill
+              does), the adopted chain's bytes equal the exported ones,
+              #4 launches == 22 x ticks. Readings: TTFT, the handoff gap,
+              the chain's bytes and times, the prefix fetch against the
+              local prefill, the drain's splice gap.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -326,6 +363,11 @@ under build/, and this one) can be timed in turns in one call.
 
 does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
+
+    python3 chip_smoke.py --phase handoff|observe|overload
+
+runs the build and that one phase, and writes its readings to
+chiprun_out/phase_<name>.json (no result lines).
 
     python3 chip_smoke.py --profiler-probe
 
@@ -5068,9 +5110,12 @@ def profile_capture(port: int, ticks: int, readers) -> dict:
     for attempt in range(1, 4):
         check(all(r.final is None for r in readers),
               "observe profile: the burst ended before the capture")
+        t_start = time.perf_counter()
         res = post(port, "/admin/profile", {"ticks": ticks})
         check(res.get("ok") and res.get("ticks") == ticks,
               f"observe profile: {res}")
+        log(f"observe profile: capture {attempt} opened in "
+            f"{(time.perf_counter() - t_start) * 1e3:.1f} ms")
         t0 = time.perf_counter()
         while True:
             st = get(port, "/admin/profile")
@@ -5601,6 +5646,519 @@ def phase_observe(torch, card: str) -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"observe: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# -- the handoff phase ---------------------------------------------------------
+
+HANDOFF_PREFIX = 512          # the shared prefix of half the burst
+HANDOFF_STREAMS = 16
+HANDOFF_NEW = 32
+HANDOFF_IDENTITY = 3
+HANDOFF_DRAIN_NEW = 128
+HANDOFF_DRAIN_AT = 16
+HANDOFF_AFFINITY = 8
+HANDOFF_LANES = (("hand-p", "prefill"), ("hand-d1", "decode"),
+                 ("hand-d2", "decode"))
+HANDOFF_LANE_ARGS = ("llama", "--kv-block-size", "16", "--mixed-step",
+                     "--mixed-token-budget", "256", "--prefill-chunk",
+                     "256", "--n-slots", "8", "--prefix-fetch")
+
+
+def kv_handoff_spans_match(gw) -> dict:
+    """The gateway's handoff counters, each checked equal to its
+    kv_handoff marker spans."""
+    from tpu_engine_torch.serving.resilience import HandoffCounters
+
+    ho = gw.get_stats()["handoff"]
+    spans = [s["attrs"]["decision"] for s in gw.tracer.snapshot()
+             if s["op"] == "kv_handoff"]
+    for field in HandoffCounters.SPAN_FIELDS:
+        check(spans.count(field) == ho[field],
+              f"handoff: {field} {ho[field]} != {spans.count(field)} spans")
+    return ho
+
+
+def gateway_stream(gw, body: dict, out=None) -> dict:
+    """One stream through an in-process gateway: tokens, their arrival
+    times, the terminal event, filled into ``out`` as they arrive."""
+    out = {} if out is None else out
+    out.update(tokens=[], times=[], final=None)
+    for frame in gw.route_generate_stream(dict(body)):
+        ev = json.loads(frame[len(b"data: "):])
+        if ev.get("done"):
+            out["final"] = ev
+            break
+        now = time.perf_counter()
+        for t in ev.get("tokens", ()):
+            out["tokens"].append(t)
+            out["times"].append(now)
+    return out
+
+
+def handoff_burst(gw, g_port: int, ports: dict, toks) -> dict:
+    """16 greedy streams through the disaggregating gateway: 8 share a
+    512-token prefix, 8 are distinct, prompts of 520-600 tokens."""
+    rng = np.random.default_rng(16)
+    shared = toks(HANDOFF_PREFIX)
+    prompts = ([shared + toks(int(rng.integers(8, 89))) for _ in range(8)]
+               + [toks(int(rng.integers(520, 601))) for _ in range(8)])
+    before = {n: generator_stats(p) for n, p in ports.items()}
+    readers = [StreamReader(g_port, {"request_id": f"hb{i}",
+                                     "prompt_tokens": p,
+                                     "max_new_tokens": HANDOFF_NEW})
+               for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in readers:
+        r.t0 = time.perf_counter()
+        r.start()
+    for r in readers:
+        r.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for r in readers:
+        check(r.final is not None and "error" not in r.final
+              and len(r.tokens) == HANDOFF_NEW
+              and r.final.get("node_id") in ("hand-d1", "hand-d2"),
+              f"handoff burst {r.body['request_id']}: {r.final} {r.error}")
+    ho = kv_handoff_spans_match(gw)
+    check(ho["handoffs_attempted"] == HANDOFF_STREAMS
+          and ho["handoffs_spliced"] == HANDOFF_STREAMS
+          and ho["prefill_routed"] == HANDOFF_STREAMS
+          and all(ho[f] == 0 for f in (
+              "handoff_fallbacks", "export_refusals", "dispatch_failed",
+              "destination_unavailable", "prefill_unavailable")),
+          f"handoff burst: {ho}")
+    after = {n: generator_stats(p) for n, p in ports.items()}
+    for n in ("hand-d1", "hand-d2"):
+        moved = (after[n]["kv_pool"]["prefilled_tokens"]
+                 - before[n]["kv_pool"]["prefilled_tokens"])
+        check(moved == 0, f"handoff: {n} re-prefilled {moved} tokens")
+    p_decode = (after["hand-p"]["mixed"]["decode_tokens"]
+                - before["hand-p"]["mixed"]["decode_tokens"])
+    check(p_decode == 0, f"handoff: P decoded {p_decode} tokens")
+    held = after["hand-p"]["handoff"]
+    check(held["holds"] >= HANDOFF_STREAMS and held["held_rows"] == 0
+          and held["park_expired"] == 0, f"handoff: P holds {held}")
+    ttft = [r.times[0] - r.t0 for r in readers]
+    gap = [r.times[1] - r.times[0] for r in readers]
+    decoded_on = {}
+    for r in readers:
+        decoded_on[r.final["node_id"]] = (
+            decoded_on.get(r.final["node_id"], 0) + 1)
+    return {"wall_s": wall, "ttft_ms": p50_p99_ms(ttft)
+            + (float(max(ttft)) * 1e3,),
+            "handoff_gap_ms": {"p50": float(np.median(gap)) * 1e3,
+                               "max": float(max(gap)) * 1e3},
+            "decoded_on": decoded_on, "counters": ho, "p_holds": held}
+
+
+def handoff_identity(gw, ports: dict, toks) -> list:
+    """Three streams one at a time through the handoff, each equal to the
+    same request straight to P without the handoff flag (sent twice: the
+    second, the control, resumes from P's radix as the handoff's prefill
+    does)."""
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(HANDOFF_IDENTITY):
+        prompt = toks(int(rng.integers(520, 601)))
+        body = {"prompt_tokens": prompt, "max_new_tokens": HANDOFF_NEW}
+        post(ports["hand-p"], "/generate", dict(body, request_id=f"hw{i}"))
+        control = post(ports["hand-p"], "/generate",
+                       dict(body, request_id=f"hc{i}"))["tokens"]
+        got = gateway_stream(gw, dict(body, request_id=f"hi{i}"))
+        check(got["tokens"] == control and got["final"]["node_id"]
+              in ("hand-d1", "hand-d2"),
+              f"handoff identity {i}: {got['tokens']} != {control} "
+              f"({got['final']})")
+        out.append(got["final"]["node_id"])
+    return out
+
+
+def handoff_chain(ports: dict, toks) -> dict:
+    """One handoff by hand over HTTP: a parked row's export after prefill
+    from P (its wire bytes and round trip) and its import on D1 (to the
+    first continued token)."""
+    prompt = toks(560)
+    rid = "hx-chain"
+    src = StreamReader(ports["hand-p"], {
+        "request_id": rid, "prompt_tokens": prompt,
+        "max_new_tokens": HANDOFF_NEW, "handoff": True,
+        "handoff_park_ms": 60000.0})
+    src.start()
+    t0 = time.perf_counter()
+    snap = post(ports["hand-p"], "/admin/migrate",
+                {"request_id": rid, "wait_prefill": True, "timeout_s": 60})
+    export_ms = (time.perf_counter() - t0) * 1e3
+    check(snap.get("ok") and len(snap["emitted"]) == 1,
+          f"handoff chain: export {str(snap)[:300]}")
+    src.join(timeout=60)
+    check(src.final is not None and src.final.get("migrated"),
+          f"handoff chain: source stream {src.final}")
+    cont = {k: v for k, v in snap.items() if k not in ("ok", "node_id")}
+    body = json.dumps({"request_id": rid + "-b", "prompt_tokens": [],
+                       "migrate_import": cont})
+    pre = generator_stats(ports["hand-d1"])["kv_pool"]["prefilled_tokens"]
+    dst = StreamReader(ports["hand-d1"], json.loads(body))
+    t1 = time.perf_counter()
+    dst.start()
+    dst.join(timeout=120)
+    check(dst.final is not None and "error" not in dst.final
+          and len(src.tokens) + len(dst.tokens) == HANDOFF_NEW,
+          f"handoff chain: import {dst.final} {dst.error}")
+    check(generator_stats(ports["hand-d1"])["kv_pool"]["prefilled_tokens"]
+          == pre, "handoff chain: the import prefilled")
+    return {"prompt_tokens": len(prompt),
+            "chain_blocks": len(snap["chain"]["blocks"]),
+            "wire_bytes": len(json.dumps(snap)),
+            "export_ms": export_ms,
+            "import_to_first_token_ms": (dst.times[0] - t1) * 1e3}
+
+
+def handoff_drain(urls: dict, ports: dict, toks) -> dict:
+    """A 128-token stream on D1 behind a gateway of D1 and D2 with
+    migrate_streams; remove_worker(D1, drain=True) after 16 tokens: the
+    stream splices onto D2 and equals the undrained run (sent to D2
+    first); then D1 goes back."""
+    from tpu_engine_torch.serving.gateway import Gateway
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    d1, d2 = urls["hand-d1"], urls["hand-d2"]
+    gw = Gateway([d1, d2], GatewayConfig(failover_streams=True,
+                                         migrate_streams=True,
+                                         migrate_timeout_s=60.0))
+    try:
+        prompt = toks(300)
+        control = post(ports["hand-d2"], "/generate", {
+            "request_id": "hd-ctl", "prompt_tokens": prompt,
+            "max_new_tokens": HANDOFF_DRAIN_NEW})["tokens"]
+        rid = owned(gw._ring, d1, 1, "hd-")[0]
+        res = {"tokens": []}
+
+        def run():
+            gateway_stream(gw, {"request_id": rid, "prompt_tokens": prompt,
+                                "max_new_tokens": HANDOFF_DRAIN_NEW}, res)
+        pre = generator_stats(ports["hand-d2"])["kv_pool"][
+            "prefilled_tokens"]
+        th = threading.Thread(target=run, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        while len(res.get("tokens", ())) < HANDOFF_DRAIN_AT:
+            check(time.perf_counter() - t0 < 120 and th.is_alive(),
+                  f"handoff drain: {len(res.get('tokens', ()))} tokens")
+            time.sleep(0.002)
+        check(gw.active_streams().get(rid) == d1,
+              f"handoff drain: stream on {gw.active_streams()}")
+        t_drain = time.perf_counter()
+        gw.remove_worker(d1, drain=True)
+        drain_s = time.perf_counter() - t_drain
+        th.join(timeout=600)
+        final = res["final"]
+        st = gw.get_stats()
+        check(final is not None and "error" not in final
+              and "resumed" not in final and res["tokens"] == control
+              and final["node_id"] == "hand-d2",
+              f"handoff drain: {final}; equal {res['tokens'] == control}")
+        check(st["migration"]["streams_migrated"] == 1
+              and st["migration"]["migration_fallbacks"] == 0
+              and st["failover"]["tokens_replayed"] == 0,
+              f"handoff drain: {st['migration']} {st['failover']}")
+        check(generator_stats(ports["hand-d2"])["kv_pool"][
+            "prefilled_tokens"] == pre, "handoff drain: D2 re-prefilled")
+        gaps = np.diff(res["times"])
+        at = int(np.argmax(gaps))
+        out = {"remove_worker_s": drain_s, "splice_gap_ms":
+               float(gaps[at]) * 1e3, "splice_after_token": at + 1,
+               "median_itl_ms": float(np.median(gaps)) * 1e3,
+               "migration": st["migration"]}
+    finally:
+        gw.stop()
+    post(ports["hand-d1"], "/admin/drain", {"action": "undrain"})
+    return out
+
+
+def handoff_role_flip(gw, g_port: int, urls: dict, toks) -> dict:
+    """POST /admin/role on the gateway flips D2 to prefill and back; while
+    flipped, a stream hands off to D1, the only decode lane."""
+    d2 = urls["hand-d2"]
+    flip = post(g_port, "/admin/role", {"node": d2, "role": "prefill"})
+    check(flip == {"ok": True, "node_id": d2, "role": "prefill",
+                   "drained": True}, f"role flip: {flip}")
+    check(gw.worker_roles()[d2] == "prefill",
+          f"role flip: {gw.worker_roles()}")
+    got = gateway_stream(gw, {"request_id": "hr1", "prompt_tokens":
+                              toks(300), "max_new_tokens": 8})
+    check(got["final"] is not None and got["final"].get("node_id")
+          == "hand-d1" and len(got["tokens"]) == 8,
+          f"role flip: the stream {got['final']}")
+    back = post(g_port, "/admin/role", {"node": d2, "role": "decode"})
+    check(back.get("ok"), f"role flip back: {back}")
+    ho = kv_handoff_spans_match(gw)
+    check(ho["role_flips"] == 2
+          and ho["roles"] == {u: r for (n, r), u in
+                              zip(HANDOFF_LANES, urls.values())},
+          f"role flip: {ho}")
+    return {"role_flips": ho["role_flips"], "flipped_stream_on":
+            got["final"]["node_id"]}
+
+
+def span_ms(port: int, rid: str, op: str) -> float:
+    hits = [e for e in spans_of(port) if e["name"] == op
+            and e["args"].get("request_id") == rid]
+    check(len(hits) == 1, f"{op} spans of {rid}: {len(hits)}")
+    return float(hits[0]["dur"]) / 1e3
+
+
+def handoff_prefix_tier(urls: dict, ports: dict, toks) -> dict:
+    """A gateway with the prefix directory (no disagg, no affinity): A
+    (a new 512-token prefix + a suffix) on X = D1, then A' (the prefix +
+    another suffix) with an id the ring sends to Y = D2: Y fetches the
+    prefix from X and prefills only its suffix, and A' equals its run on
+    X. Then with affinity on, 8 requests of the prefix land on one
+    lane."""
+    from tpu_engine_torch.serving.gateway import Gateway
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    lanes = list(urls.values())
+    x, y = urls["hand-d1"], urls["hand-d2"]
+    prefix = toks(HANDOFF_PREFIX)
+    a, a2 = prefix + toks(40), prefix + toks(44)
+    gw = Gateway(lanes, GatewayConfig(prefix_directory=True))
+    try:
+        rx = owned(gw._ring, x, 1, "hpx-")[0]
+        ry = owned(gw._ring, y, 1, "hpy-")[0]
+        out_x = gw.route_generate({"request_id": rx, "prompt_tokens": a,
+                                   "max_new_tokens": 16})
+        check(out_x["node_id"] == "hand-d1", f"prefix tier: A {out_x}")
+        before = generator_stats(ports["hand-d2"])
+        out_y = gw.route_generate({"request_id": ry, "prompt_tokens": a2,
+                                   "max_new_tokens": 16})
+        after = generator_stats(ports["hand-d2"])
+        pf0 = before.get("prefix_fetch") or {}
+        pf = after["prefix_fetch"]
+        spliced = pf["spliced"] - pf0.get("spliced", 0)
+        prefilled = (after["kv_pool"]["prefilled_tokens"]
+                     - before["kv_pool"]["prefilled_tokens"])
+        check(out_y["node_id"] == "hand-d2" and spliced == 1
+              and prefilled == len(a2) - HANDOFF_PREFIX,
+              f"prefix tier: A' on {out_y['node_id']}, spliced {spliced}, "
+              f"prefilled {prefilled} of {len(a2)}")
+        pd = gw.get_stats()["prefix_directory"]
+        check(pd["hints_attached"] == 1, f"prefix tier: {pd}")
+        colocated = post(ports["hand-d1"], "/generate", {
+            "request_id": "hp-ctl", "prompt_tokens": a2,
+            "max_new_tokens": 16})["tokens"]
+        check(out_y["tokens"] == colocated,
+              f"prefix tier: A' {out_y['tokens']} != {colocated}")
+        readings = {"fetch_ms": span_ms(ports["hand-d2"], ry,
+                                        "prefix_fetch"),
+                    "fetched_blocks": pf["blocks_spliced"]
+                    - pf0.get("blocks_spliced", 0),
+                    "local_prefill_ms": span_ms(ports["hand-d1"], rx,
+                                                "prefill"),
+                    "local_prefill_tokens": len(a), "directory": pd}
+    finally:
+        gw.stop()
+    gw = Gateway(lanes, GatewayConfig(prefix_directory=True,
+                                      prefix_affinity=True))
+    try:
+        served = [gw.route_generate({
+            "request_id": f"ha{i}", "prompt_tokens": prefix + toks(8 + i),
+            "max_new_tokens": 4})["node_id"]
+            for i in range(HANDOFF_AFFINITY)]
+        aff = gw.get_stats()["affinity"]
+        check(len(set(served)) == 1
+              and aff["affinity_routed"] == HANDOFF_AFFINITY,
+              f"prefix tier affinity: {served} {aff}")
+        readings["affinity_lane"] = served[0]
+    finally:
+        gw.stop()
+    return readings
+
+
+def handoff_int8(torch, cfg) -> dict:
+    """Two int8 mixed generators in this process: a row handed off with
+    export_row(wait_prefill=True) and submit_import equals the colocated
+    run, its chain is adopted verbatim, and #4 launches == 22 x ticks."""
+    import queue as queue_mod
+
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+
+    params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+    kw = dict(dtype="bfloat16", n_slots=8, kv_block_size=16,
+              kv_quantize="int8", mixed_step=True, mixed_token_budget=256,
+              prefill_chunk=256)
+    a = ContinuousGenerator("llama", params=params, **kw)
+    b = ContinuousGenerator("llama", params=params, **kw)
+    try:
+        rng = np.random.default_rng(18)
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab, 560)]
+        kernels.reset_counts()  # the part: counts from 0, read after
+        # The control twice: the second resumes from A's radix, as the
+        # handoff's prefill does.
+        a.generate([prompt], max_new_tokens=HANDOFF_NEW)
+        control = a.generate([prompt], max_new_tokens=HANDOFF_NEW)[0]
+        q: "queue_mod.Queue" = queue_mod.Queue()
+        a.submit(prompt, max_new_tokens=HANDOFF_NEW, stream=q, tag="h8",
+                 handoff=True, handoff_park_s=60.0)
+        t0 = time.perf_counter()
+        while (a.stats().get("handoff") or {}).get("held_rows", 0) == 0:
+            check(time.perf_counter() - t0 < 60, "int8 handoff: no hold")
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        snap = a.export_row("h8", timeout_s=30.0, wait_prefill=True)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        check(snap.get("ok") and len(snap["emitted"]) == 1,
+              f"int8 handoff: {str(snap)[:200]}")
+        got = []
+        while True:
+            item = q.get(timeout=60)
+            if item is None:
+                break
+            got.extend(item)
+        q2: "queue_mod.Queue" = queue_mod.Queue()
+        t0 = time.perf_counter()
+        b.submit_import(snap, stream=q2, tag="h8-b")
+        first = None
+        while True:
+            item = q2.get(timeout=120)
+            if item is None:
+                break
+            if first is None:
+                first = time.perf_counter()
+            got.extend(item)
+        check(got == control, f"int8 handoff: {got} != {control}")
+        st_b = b.stats()
+        check(st_b["migration"]["imported_rows"] == 1
+              and st_b["kv_pool"]["prefilled_tokens"] == 0,
+              f"int8 handoff: {st_b['migration']}")
+        # Verbatim: B's radix now serves the prompt's blocks with the
+        # exported bytes and scales.
+        chain = b.export_prefix(prompt)["chain"]
+        n = len(prompt) // 16
+        check(chain["quantized"] and chain["blocks"][:n]
+              == snap["chain"]["blocks"][:n],
+              "int8 handoff: the adopted chain differs from the export")
+        ticks = a.stats()["mixed"]["ticks"] + b.stats()["mixed"]["ticks"]
+        launches = check_counts("int8 handoff",
+                                "quant_ragged_paged_attention")
+        check(launches == cfg.n_layers * ticks,
+              f"int8 handoff: #4 launches {launches} != "
+              f"{cfg.n_layers} x {ticks} ticks")
+        return {"launches": launches, "ticks": ticks,
+                "export_ms": export_ms,
+                "import_to_first_token_ms": (first - t0) * 1e3,
+                "wire_bytes": len(json.dumps(snap)),
+                "chain_blocks": len(snap["chain"]["blocks"])}
+    finally:
+        a.stop()
+        b.stop()
+        del params
+        torch.cuda.empty_cache()
+
+
+def phase_handoff(torch, card: str) -> dict:
+    """The handoff family on the card (see the module docstring's handoff
+    entry): three worker_node processes of TinyLlama-1.1B (22 layers,
+    bf16, mixed, 16-token blocks, --prefix-fetch), P of role prefill, D1
+    and D2 of role decode, behind the port's gateway with disagg,
+    migrate_streams, prefix_affinity and prefix_directory on."""
+    import signal
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.serving.app import serve_gateway
+    from tpu_engine_torch.utils.config import GatewayConfig
+
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    cfg = create_model("llama").config
+    lanes = {}
+    for name, role in HANDOFF_LANES:
+        counts_path = OUT_DIR / f"handoff_counts_{name}.json"
+        counts_path.unlink(missing_ok=True)
+        proc, port, log_f = spawn_counted_worker_node(
+            [name, *HANDOFF_LANE_ARGS, "--role", role],
+            OUT_DIR / f"handoff_{name}.log", counts_path)
+        lanes[name] = (proc, port, log_f, counts_path)
+    out = {}
+    gsrv = None
+    try:
+        ports = {n: lanes[n][1] for n, _ in HANDOFF_LANES}
+        urls = {n: f"127.0.0.1:{p}" for n, p in ports.items()}
+        out["ready_s"] = max(wait_health(lanes[n][0], p)
+                             for n, p in ports.items())
+        rng = np.random.default_rng(15)
+
+        def toks(n):
+            return [int(t) for t in rng.integers(1, cfg.vocab, n)]
+        gw, gsrv = serve_gateway(list(urls.values()), GatewayConfig(
+            port=0, disagg=True, migrate_streams=True,
+            prefix_affinity=True, prefix_directory=True,
+            handoff_timeout_s=60.0))
+        check(gw.worker_roles() == {urls[n]: r for n, r in HANDOFF_LANES},
+              f"handoff: roles {gw.worker_roles()}")
+        out["burst"] = handoff_burst(gw, gsrv.port, ports, toks)
+        out["identity"] = handoff_identity(gw, ports, toks)
+        out["chain"] = handoff_chain(ports, toks)
+        out["drain"] = handoff_drain(urls, ports, toks)
+        out["role_flip"] = handoff_role_flip(gw, gsrv.port, urls, toks)
+        out["prefix"] = handoff_prefix_tier(urls, ports, toks)
+        out["gateway"] = gw.get_stats()
+        gsrv.stop()
+        gw.stop()
+        gsrv = None
+        # Every lane idle with no leaked block; #1 == 22 x its ticks.
+        ticks = {}
+        for name, port in ports.items():
+            st, idle = wait_idle(port, paged=True)
+            check(idle, f"handoff: {name} leaked blocks: {st['kv_pool']}")
+            ticks[name] = st["mixed"]["ticks"]
+            check(st["mixed"]["ticks"] == st["mixed"]["dispatches"],
+                  f"handoff: {name} {st['mixed']}")
+        launches = {}
+        for name, (proc, port, log_f, counts_path) in lanes.items():
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=120) == 0, f"handoff: {name} exit code")
+            counts = json.loads(counts_path.read_text())
+            check(all(p == 0 for _, p in counts.values()),
+                  f"handoff {name}: plain versions served: {counts}")
+            check(all(c[0] == 0 for k, c in counts.items()
+                      if k != "ragged_paged_attention"),
+                  f"handoff {name}: other kernels launched: {counts}")
+            launches[name] = counts["ragged_paged_attention"][0]
+            check(launches[name] == cfg.n_layers * ticks[name],
+                  f"handoff {name}: #1 launches {launches[name]} != "
+                  f"{cfg.n_layers} x {ticks[name]} ticks")
+        out["launches"], out["ticks"] = launches, ticks
+    finally:
+        if gsrv is not None:
+            gsrv.stop()
+        for proc, _port, log_f, _c in lanes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log_f.close()
+    out["int8"] = handoff_int8(torch, cfg)
+    out["seconds"] = time.perf_counter() - t0
+    b, ch, dr, pr = (out["burst"], out["chain"], out["drain"],
+                     out["prefix"])
+    log(f"handoff: {HANDOFF_STREAMS}/{HANDOFF_STREAMS} spliced in "
+        f"{b['wall_s']:.1f} s (decoded on {b['decoded_on']}); TTFT p50/p99 "
+        f"{b['ttft_ms'][0]:.1f}/{b['ttft_ms'][1]:.1f} ms; handoff gap p50 "
+        f"{b['handoff_gap_ms']['p50']:.1f} max "
+        f"{b['handoff_gap_ms']['max']:.1f} ms; chain {ch['chain_blocks']} "
+        f"blocks {ch['wire_bytes']} wire bytes, export {ch['export_ms']:.1f}"
+        f" ms, import to first token {ch['import_to_first_token_ms']:.1f} "
+        f"ms; prefix fetch {pr['fetch_ms']:.1f} ms ({pr['fetched_blocks']} "
+        f"blocks) against a {pr['local_prefill_tokens']}-token local "
+        f"prefill {pr['local_prefill_ms']:.1f} ms; drain splice gap "
+        f"{dr['splice_gap_ms']:.1f} ms (median ITL "
+        f"{dr['median_itl_ms']:.1f}); #1 launches {out['launches']} == "
+        f"{cfg.n_layers} x ticks {out['ticks']}; int8: #4 "
+        f"{out['int8']['launches']} == {cfg.n_layers} x "
+        f"{out['int8']['ticks']}; every check passed in "
+        f"{out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -6366,6 +6924,18 @@ def main() -> int:
         log(f"phase {name}: {walls[name]:.1f} s")
         return res
 
+    if "--phase" in sys.argv:
+        # One phase alone (after the build), for iterating on it: prints
+        # its readings, not the contract's result lines.
+        name = sys.argv[sys.argv.index("--phase") + 1]
+        only = {"handoff": lambda: phase_handoff(torch, card),
+                "observe": lambda: phase_observe(torch, card),
+                "overload": lambda: phase_overload(torch, card, pa)}
+        res = timed(name, only[name])
+        (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
+            res, indent=1, default=str))
+        log(f"phase {name} passed [{card}]")
+        return 0
     errs = timed("parity", phase_parity, torch, pa)
     infer_parity = timed("infer parity", parity_infer_models, torch)
     timed("small model", phase_small_model, torch)
@@ -6382,6 +6952,8 @@ def main() -> int:
     # Spans, /metrics, the flight recorder and the tick-bounded profile;
     # its profile runs in a worker process of its own.
     observe = timed("observe", phase_observe, torch, card)
+    # The handoff family: three worker_node processes behind the gateway.
+    handoff = timed("handoff", phase_handoff, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -6437,13 +7009,21 @@ def main() -> int:
         if name == "paged_attention":
             rows[-1]["observe"] = {
                 "launches": observe["two_path"]["launches"]}
+        # The handoff phase's launches per lane (#1) and in process (#4).
+        if name == "ragged_paged_attention":
+            rows[-1]["handoff"] = {"launches": handoff["launches"],
+                                   "ticks": handoff["ticks"]}
+        if name == "quant_ragged_paged_attention":
+            rows[-1]["handoff"] = {"launches": handoff["int8"]["launches"],
+                                   "ticks": handoff["int8"]["ticks"]}
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
          "server": server, "gateway": gateway, "kvtier": kvtier,
          "refmodels": refmodels, "overload": overload,
-         "observe": observe, "train": train, "phase_seconds": walls,
+         "observe": observe, "handoff": handoff, "train": train,
+         "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))
     log(json.dumps(kernels))

@@ -346,6 +346,80 @@ def test_unported_gateway_flag_refuses_by_name(flag, value, _repeat):
         cli.gateway_config(argv)
 
 
+# The JAX gateway command's flags of migration, disaggregation, prefix
+# affinity and the prefix directory: (flag, argv value, the
+# GatewayConfig field and the value it takes).
+PORTED_GATEWAY_FLAGS = (
+    ("--migrate-streams", None, "migrate_streams", True),
+    ("--migrate-timeout", "7.5", "migrate_timeout_s", 7.5),
+    ("--prefix-affinity", None, "prefix_affinity", True),
+    ("--affinity-block-size", "8", "affinity_block_size", 8),
+    ("--affinity-prefix-blocks", "2", "affinity_prefix_blocks", 2),
+    ("--affinity-max-imbalance", "3", "affinity_max_imbalance", 3),
+    ("--prefix-directory", None, "prefix_directory", True),
+    ("--prefix-dir-capacity", "64", "prefix_directory_capacity", 64),
+    ("--disagg", None, "disagg", True),
+    ("--handoff-timeout", "12", "handoff_timeout_s", 12.0),
+)
+
+
+@pytest.mark.parametrize("flag,value,field,want", PORTED_GATEWAY_FLAGS,
+                         ids=[f[0] for f in PORTED_GATEWAY_FLAGS])
+def test_gateway_flag_reaches_its_config_field(flag, value, field, want):
+    """Each flag is the JAX command's, sets the field JAX's sets, and the
+    field keeps JAX's default without it."""
+    jax_cli = (REPO / "tpu_engine/serving/cli.py").read_text()
+    assert f'"{flag}"' in jax_cli and f'gw_kw["{field}"]' in jax_cli
+    argv = ["127.0.0.1:8001", flag] + ([value] if value else [])
+    cfg = cli.gateway_config(argv)[1]
+    assert getattr(cfg, field) == want
+    assert type(getattr(cfg, field)) is type(want)
+    assert (getattr(GatewayConfig(), field)
+            == getattr(JaxGatewayConfig(), field))
+    # Every other field keeps its default.
+    assert cfg == GatewayConfig(**{field: want})
+
+
+# The worker flags of the handoff family: (flag, argv value, the
+# WorkerConfig field and the value it takes).
+PORTED_WORKER_FLAGS = (
+    ("--role", "decode", "role", "decode"),
+    ("--prefix-fetch", None, "gen_prefix_fetch", True),
+    ("--prefix-fetch-timeout", "2.5", "gen_prefix_fetch_timeout_s", 2.5),
+    ("--prefix-fetch-inflight", "4", "gen_prefix_fetch_inflight", 4),
+)
+
+
+@pytest.mark.parametrize("flag,value,field,want", PORTED_WORKER_FLAGS,
+                         ids=[f[0] for f in PORTED_WORKER_FLAGS])
+@pytest.mark.parametrize("command", ["worker", "worker_node"])
+def test_worker_flag_reaches_its_config_field(command, flag, value, field,
+                                              want):
+    from tpu_engine.utils.config import WorkerConfig as JaxWorkerConfig
+
+    jax_cli = (REPO / "tpu_engine/serving/cli.py").read_text()
+    assert f'"{flag}"' in jax_cli
+    extra = [flag] + ([value] if value else [])
+    if command == "worker_node":
+        a, node_id, model, path = cli.worker_node_args(
+            ["8001", "w1", "gpt2-small-test", "--kv-block-size", "16"]
+            + extra)
+    else:
+        import argparse
+
+        p = argparse.ArgumentParser()
+        for name in ("port", "node_id", "model"):
+            p.add_argument(name)
+        cli._add_worker_flags(p)
+        a = p.parse_args(["8001", "w1", "gpt2-small-test"] + extra)
+        a.port = int(a.port)
+        node_id, model, path = a.node_id, a.model, None
+    cfg = cli.worker_config(a, node_id, model, path)
+    assert getattr(cfg, field) == want
+    assert (getattr(WorkerConfig(), field)
+            == getattr(JaxWorkerConfig(), field))
+
+
 def test_gateway_argv_and_in_process_lanes():
     workers, cfg = cli.gateway_config(
         ["127.0.0.1:8001", "127.0.0.1:8002", "--port", "8100",

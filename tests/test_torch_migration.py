@@ -10,19 +10,27 @@ on the CPU, with the same weights:
   schedulers and through the workers (the port's over its HTTP server,
   the JAX worker's handlers in process);
 - refusals: a dense lane (JAX's answer), a row mid-prefill, an unknown
-  tag, a finished row, and the disaggregated handoff's ``wait_prefill``,
-  ``cancel`` and ``handoff``, each by name;
+  tag and a finished row, each by name;
 - retryable ``ImportRefused`` for a bad checksum, another geometry and a
   pool that cannot keep the live-row reserve, with no block leaked;
 - a radix re-adoption ships only the chain's unmatched tail;
 - the ``migration`` stats block and the terminal SSE events carry the JAX
-  keys (less ``trace_id``: tracing is not ported).
+  keys (less ``trace_id``: tracing is not ported);
+- the gateway's migrate-mode drain (``migrate_streams``), port and JAX in
+  turn in front of three port lanes over HTTP: a drained lane's stream
+  continues on another lane byte-identically with nothing replayed, the
+  ``migration`` block agreeing with JAX's; its three replay fallbacks
+  (a corrupted transfer, a dead destination, a transfer past its
+  budget); a drain during a failover; the bounded drain call; and the
+  defaults.
 """
 
 import base64
+import contextlib
 import http.client
 import json
 import queue
+import threading
 import time
 
 import jax
@@ -31,6 +39,8 @@ import pytest
 
 from tpu_engine.models.registry import _ensure_builtin_models_imported
 from tpu_engine.runtime.scheduler import ImportRefused as JaxImportRefused
+from tpu_engine.serving.gateway import Gateway as JaxGateway
+from tpu_engine.utils.config import GatewayConfig as JaxGatewayConfig
 from tpu_engine.serving.worker import WorkerNode as JaxWorker
 from tpu_engine.utils.config import WorkerConfig as JaxWorkerConfig
 from tpu_engine_torch.models import convert
@@ -41,8 +51,10 @@ from tpu_engine_torch.runtime.scheduler import (
     StreamMigratedAway,
 )
 from tpu_engine_torch.serving.app import serve_worker
+from tpu_engine_torch.serving.gateway import Gateway, _parse_sse
+from tpu_engine_torch.serving.resilience import MigrationCounters
 from tpu_engine_torch.serving.worker import WorkerNode
-from tpu_engine_torch.utils.config import WorkerConfig
+from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
 
 _ensure_builtin_models_imported()
 
@@ -321,20 +333,6 @@ def test_mid_prefill_unknown_and_finished_rows_refuse(fleets):
         "ok": False, "reason": "no live row with this tag"}
 
 
-def test_handoff_options_refuse_by_name(fleets):
-    fleet = fleets("two-path")
-    w, port = fleet["port"][0], fleet["http"][0]
-    for opt in ("wait_prefill", "cancel"):
-        out = w.handle_migrate_export({"request_id": "x", opt: True})
-        assert out["ok"] is False and "disaggregated" in out["reason"]
-        assert "not yet ported" in out["reason"]
-    status, body = _post(port, "/generate/stream", {
-        "request_id": "h", "prompt_tokens": PROMPT, "max_new_tokens": 4,
-        "handoff": True})
-    assert status == 400 and "handoff" in body["error"]
-    assert w.generator.stats()["active"] == 0
-
-
 # -- retryable import refusals ------------------------------------------------
 
 def _snapshot(fleet, tag):
@@ -467,3 +465,333 @@ def test_migration_block_and_health_schema(fleets):
     if "migration" not in fresh.stats():
         assert "migration" not in fleet["port"][1].get_health()["generator"]
     assert isinstance(StreamMigratedAway("x", 1), RuntimeError)
+
+
+# -- the gateway's migrate-mode drain -----------------------------------------
+
+DRAIN_PROMPT = [5, 9, 3, 17, 4, 22, 8]
+
+
+@pytest.fixture(scope="module")
+def lanes3(fleets):
+    """Three port lanes (two-path) over HTTP on the JAX lane's weights;
+    node ids t0..t2, named on the gateways by their URLs."""
+    fleet = fleets("two-path")
+    kw = dict(BASE, **MODES["two-path"])
+    made = [serve_worker(WorkerConfig(port=0, node_id=f"t{i}", device="cpu",
+                                      **kw), params=fleet["tparams"])
+            for i in range(3)]
+    yield {"workers": [w for w, _ in made],
+           "urls": [f"127.0.0.1:{s.port}" for _, s in made],
+           "jax": fleet["jax"]}
+    for w, srv in made:
+        srv.stop(drain_s=0)
+        w.stop()
+
+
+@pytest.fixture(autouse=True)
+def _undrain(request):
+    yield
+    if "lanes3" in request.fixturenames:
+        for w in request.getfixturevalue("lanes3")["workers"]:
+            w.undrain()
+
+
+@contextlib.contextmanager
+def _slowed(workers, s=0.03):
+    """Each decode chunk of ``workers`` sleeps ``s`` first, so a drain
+    finds the stream still running on the CPU."""
+    saved = []
+    for w in workers:
+        gen = w.generator
+        orig = gen._decode_chunk
+
+        def slow(orig=orig):
+            time.sleep(s)
+            orig()
+        gen._decode_chunk = slow
+        saved.append((gen, orig))
+    try:
+        yield
+    finally:
+        for gen, orig in saved:
+            gen._decode_chunk = orig
+
+
+def _gw(cls, cfg_cls, urls, **kw):
+    kw.setdefault("failover_streams", True)
+    kw.setdefault("migrate_streams", True)
+    kw.setdefault("migrate_timeout_s", 20.0)
+    return cls(list(urls), cfg_cls(**kw))
+
+
+def _rid_for(gw, lane, tag):
+    return next(f"{tag}{i}" for i in range(2000)
+                if gw._ring.get_node(f"{tag}{i}") == lane)
+
+
+def _drain_control(l3, **params):
+    body = {"request_id": "gctl", "prompt_tokens": DRAIN_PROMPT,
+            "max_new_tokens": 32, **params}
+    want = l3["jax"].handle_generate(body)["tokens"]
+    assert l3["workers"][2].handle_generate(body)["tokens"] == want
+    return want
+
+
+def _stream_with_drain(gw, req, drain_lane, min_tokens=3, drain_fn=None):
+    """Consume a gateway stream on a thread; once ``min_tokens`` are
+    relayed, drain ``drain_lane`` (the migrate-mode removal) and join."""
+    toks, final = [], [None]
+    armed = threading.Event()
+
+    def consume():
+        for frame in gw.route_generate_stream(dict(req)):
+            evt = _parse_sse(frame)
+            if evt is None:
+                continue
+            if evt.get("done"):
+                final[0] = evt
+                break
+            toks.extend(evt.get("tokens", ()))
+            if len(toks) >= min_tokens:
+                armed.set()
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    assert armed.wait(120), "stream never reached the drain point"
+    (drain_fn or (lambda: gw.remove_worker(drain_lane, drain=True)))()
+    t.join(timeout=120)
+    assert final[0] is not None, "stream never terminated"
+    return toks, final[0]
+
+
+def _assert_counters_match_spans(gw):
+    mig = gw.get_stats()["migration"]
+    spans = [s for s in gw.tracer.snapshot() if s["op"] == "migration"]
+    for field in MigrationCounters.SPAN_FIELDS:
+        n = sum(1 for s in spans if s["attrs"]["decision"] == field)
+        assert n == mig[field], (field, mig, [s["attrs"] for s in spans])
+
+
+@pytest.mark.parametrize("params", [{}, {"temperature": 0.9, "seed": 31}],
+                         ids=["greedy", "seeded"])
+def test_migrate_mode_drain_splices_like_jax(lanes3, params):
+    control = _drain_control(lanes3, **params)
+    blocks = []
+    for cls, cfg_cls in ((Gateway, GatewayConfig),
+                         (JaxGateway, JaxGatewayConfig)):
+        urls = lanes3["urls"]
+        gw = _gw(cls, cfg_cls, urls)
+        try:
+            rid = _rid_for(gw, urls[0], "gd")
+            req = {"request_id": rid, "prompt_tokens": DRAIN_PROMPT,
+                   "max_new_tokens": 32, **params}
+            pre = [w.generator.stats()["kv_pool"]["prefilled_tokens"]
+                   for w in lanes3["workers"]]
+            with _slowed(lanes3["workers"]):
+                toks, final = _stream_with_drain(gw, req, urls[0])
+            assert "error" not in final, final
+            assert toks == control and final["tokens"] == control
+            assert "resumed" not in final
+            post = [w.generator.stats()["kv_pool"]["prefilled_tokens"]
+                    for w in lanes3["workers"]]
+            assert post[1:] == pre[1:]  # the import prefilled nothing
+            st = gw.get_stats()
+            assert st["failover"]["tokens_replayed"] == 0
+            assert urls[0] not in gw.worker_names()
+            if cls is Gateway:
+                _assert_counters_match_spans(gw)
+            blocks.append(st["migration"])
+        finally:
+            gw.stop()
+        lanes3["workers"][0].undrain()
+        assert _wait(lambda: all(_leak_free(w.generator)
+                                 for w in lanes3["workers"]))
+    assert blocks[0] == blocks[1]
+    assert blocks[0]["streams_migrated"] == 1
+    assert blocks[0]["migration_fallbacks"] == 0
+
+
+def _corrupting(client):
+    real = client.migrate
+
+    def migrate(payload, timeout_s=None):
+        out = real(payload, timeout_s)
+        if out.get("ok"):
+            blk = out["chain"]["blocks"][0]
+            raw = bytearray(base64.b64decode(blk["k"]))
+            raw[0] ^= 0xFF
+            blk["k"] = base64.b64encode(bytes(raw)).decode()
+        return out
+    return migrate
+
+
+def _slow_export(client):
+    real = client.migrate
+
+    def migrate(payload, timeout_s=None):
+        out = real(payload, timeout_s)
+        time.sleep(2.5)  # past the 0.3 s budget and its 1 s slack
+        return out
+    return migrate
+
+
+@pytest.mark.parametrize("fault", ["corrupted", "dead-destination",
+                                   "timeout"])
+def test_migration_fallbacks_land_on_replay(lanes3, fault):
+    urls = lanes3["urls"]
+    kw = {"migrate_timeout_s": 0.3} if fault == "timeout" else {}
+    gw = _gw(Gateway, GatewayConfig, urls, **kw)
+    dead = None
+    try:
+        if fault == "corrupted":
+            gw._clients[urls[0]].migrate = _corrupting(gw._clients[urls[0]])
+        elif fault == "timeout":
+            gw._clients[urls[0]].migrate = _slow_export(
+                gw._clients[urls[0]])
+        else:
+            # A destination that refuses the connection.
+            import socket
+            sk = socket.socket()
+            sk.bind(("127.0.0.1", 0))
+            dead = f"127.0.0.1:{sk.getsockname()[1]}"
+            sk.close()
+            gw.add_worker(dead)
+            gw._pick_migration_dest = lambda record, source: dead
+        control = _drain_control(lanes3)
+        rid = _rid_for(gw, urls[0], "fb")
+        req = {"request_id": rid, "prompt_tokens": DRAIN_PROMPT,
+               "max_new_tokens": 32}
+        with _slowed(lanes3["workers"]):
+            toks, final = _stream_with_drain(gw, req, urls[0])
+        assert "error" not in final, final
+        assert toks == control and final["tokens"] == control
+        mig = gw.get_stats()["migration"]
+        assert mig["migration_fallbacks"] >= 1
+        assert {"corrupted": mig["migration_fallbacks"],
+                "dead-destination": mig["import_dispatch_failed"],
+                "timeout": mig["export_refusals"]}[fault] >= 1, mig
+        assert gw.get_stats()["failover"]["resumes_succeeded"] == 1
+        _assert_counters_match_spans(gw)
+        assert _wait(lambda: all(_leak_free(w.generator)
+                                 for w in lanes3["workers"]))
+    finally:
+        gw.stop()
+
+
+def test_drain_during_active_failover(lanes3):
+    """A stream's first lane dies mid-stream (the replay resume moves it),
+    then its new lane is drained with migration: the twice-moved stream
+    equals the unbroken one."""
+    urls = lanes3["urls"]
+    gw = _gw(Gateway, GatewayConfig, urls)
+    try:
+        client = gw._clients[urls[0]]
+        orig = client.generate_stream
+        calls = {"n": 0}
+
+        def dying_stream(payload):
+            calls["n"] += 1
+            inner = orig(payload)
+            if calls["n"] > 1:
+                return inner
+
+            def gen():
+                for n, frame in enumerate(inner):
+                    if n >= 3:
+                        inner.close()
+                        raise ConnectionResetError("lane died")
+                    yield frame
+            return gen()
+
+        client.generate_stream = dying_stream
+        control = _drain_control(lanes3)
+        rid = _rid_for(gw, urls[0], "ip")
+        req = {"request_id": rid, "prompt_tokens": DRAIN_PROMPT,
+               "max_new_tokens": 32}
+        toks, final = [], [None]
+        resumed = threading.Event()
+
+        def consume():
+            for frame in gw.route_generate_stream(dict(req)):
+                evt = _parse_sse(frame)
+                if evt is None:
+                    continue
+                if evt.get("done"):
+                    final[0] = evt
+                    break
+                toks.extend(evt.get("tokens", ()))
+                if gw.active_streams().get(rid) not in (None, urls[0]):
+                    resumed.set()
+
+        with _slowed(lanes3["workers"]):
+            t = threading.Thread(target=consume, daemon=True)
+            t.start()
+            assert resumed.wait(120), "stream never resumed off its lane"
+            new_lane = gw.active_streams().get(rid)
+            assert new_lane in urls[1:]
+            gw.remove_worker(new_lane, drain=True)
+            t.join(timeout=120)
+        assert final[0] is not None and "error" not in final[0], final[0]
+        assert toks == control and final[0]["tokens"] == control
+        assert final[0]["resumed"] == 1  # one replay, one migration
+        assert gw.get_stats()["migration"]["streams_migrated"] == 1
+        _assert_counters_match_spans(gw)
+        assert _wait(lambda: all(_leak_free(w.generator)
+                                 for w in lanes3["workers"]))
+    finally:
+        gw.stop()
+
+
+def test_bounded_drain_call_timeout_like_jax(lanes3):
+    """A wedged lane's drain call is abandoned after drain_timeout_s,
+    counted with its span, and the removal proceeds, as in JAX."""
+    out = []
+    for cls, cfg_cls in ((Gateway, GatewayConfig),
+                         (JaxGateway, JaxGatewayConfig)):
+        gw = cls(list(lanes3["urls"]), cfg_cls(drain_timeout_s=0.3))
+        try:
+            blocked = threading.Event()
+            client = gw._clients[lanes3["urls"][1]]
+
+            def wedged():
+                blocked.set()
+                time.sleep(5)
+            client.drain = wedged
+            t0 = time.monotonic()
+            gw.remove_worker(lanes3["urls"][1], drain=True)
+            assert time.monotonic() - t0 < 3.0 and blocked.is_set()
+            spans = [s["attrs"]["decision"] for s in gw.tracer.snapshot()
+                     if s["op"] == "migration"]
+            out.append((gw.get_stats()["migration"], spans,
+                        lanes3["urls"][1] in gw.worker_names()))
+        finally:
+            gw.stop()
+    assert out[0] == out[1]
+    assert out[0][0]["drain_failures"] == 1
+    assert out[0][1] == ["drain_failures"] and out[0][2] is False
+
+
+def test_migrate_defaults_off_like_jax(lanes3):
+    """Without migrate_streams: no migration block, no stream registry,
+    and a drained removal is the plain shed and replay."""
+    out = []
+    for cls, cfg_cls in ((Gateway, GatewayConfig),
+                         (JaxGateway, JaxGatewayConfig)):
+        gw = cls(list(lanes3["urls"]), cfg_cls())
+        try:
+            it = gw.route_generate_stream(
+                {"request_id": "off2", "prompt_tokens": [4, 2, 7],
+                 "max_new_tokens": 4})
+            for _ in it:
+                pass
+            assert gw.active_streams() == {}
+            gw.remove_worker(lanes3["urls"][2], drain=True)
+            out.append(gw.get_stats())
+        finally:
+            gw.stop()
+        lanes3["workers"][2].undrain()
+    assert out[0] == out[1]
+    assert "migration" not in out[0]
+    assert lanes3["urls"][2] not in [b["node"]
+                                     for b in out[0]["circuit_breakers"]]

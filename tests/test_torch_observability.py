@@ -14,7 +14,8 @@
 - ``trace_capacity=0`` records nothing and /metrics carries no stage
   histogram, as in JAX; ``stats()["flight"]`` only while armed; a forced
   dump lands in the dump directory; the tick-bounded profile counts down
-  and refuses without a profile directory with JAX's error dict;
+  and refuses without a profile directory with JAX's error dict; a start
+  the decode loop does not take within its bound is withdrawn;
 - stitching: a row moved twice (/admin/migrate + migrate_import over
   three --trace-stitch port lanes) gives one trace id on every lane, each
   lane's fragment dangling only its cross-lane link, and the gateway's
@@ -344,6 +345,25 @@ def test_profile_and_dump_endpoints(capacity_zero, tmp_path):
     with open(dump["path"]) as f:
         assert json.load(f)["node"] == "w1"
     assert gen.stats()["flight"]["dumps"] == 1
+
+
+def test_untaken_profile_start_is_withdrawn(capacity_zero, tmp_path,
+                                            monkeypatch):
+    """A start the decode loop does not take within its bound answers an
+    error and never opens a capture later; the next start works."""
+    _, (tw, _) = capacity_zero
+    gen = tw.generator
+    monkeypatch.setattr(gen, "_profile_tick", lambda: None)
+    res = gen.start_profile(str(tmp_path), 2, timeout_s=0.05)
+    assert res == {"error": "profile start failed: the decode loop took "
+                            "no request in 0.05 s"}
+    monkeypatch.undo()
+    time.sleep(0.2)  # idle iterations: the withdrawn request is dropped
+    assert gen._profile_start_req is None and not gen._profile_open
+    res = gen.start_profile(str(tmp_path), 2)
+    assert res["ok"] and res["ticks"] == 2
+    assert _wait(lambda: gen.profile_status()["last_result"] is not None)
+    assert gen.profile_status()["last_result"]["ok"]
 
 
 # -- stitching ----------------------------------------------------------------

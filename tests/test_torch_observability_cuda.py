@@ -1,15 +1,16 @@
 """The tick-bounded profile on the card: a small llama's mixed lane (f32,
 TF32 off) serves a burst, a capture of 4 scheduler ticks is taken while
-it runs, and the Chrome trace holds the ragged kernel's split and merge
-kernels by name, 4 ticks x layers launches of each, with the tick spans
-and the ticks in stats() equal. The test carries the ``cuda`` marker and
+its rows decode past one 512-key split (the merge kernel runs only when a
+call has more than one split), and the Chrome trace holds the ragged
+kernel's split and merge kernels by name, 4 ticks x layers launches of
+each, with the tick spans and the ticks in stats() equal. The test carries the ``cuda`` marker and
 skips where no CUDA device is present. This file imports no jax:
 
     python -m pytest --noconftest -q tests/test_torch_observability_cuda.py
 """
 
 import json
-import threading
+import time
 
 import pytest
 import torch
@@ -20,6 +21,7 @@ from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.utils.tracing import SpanRecorder
 
 TICKS = 4
+PROMPT = 530  # keys past one split, so every decode call merges
 SPLIT, MERGE = "ragged_split_kernel", "ragged_merge_kernel"
 
 
@@ -38,23 +40,22 @@ def f32_card():
 
 @pytest.mark.cuda
 def test_tick_bounded_capture_holds_the_ragged_kernels(f32_card, tmp_path):
-    spec = create_model("llama-small-test", max_seq=256)
+    spec = create_model("llama-small-test", max_seq=1024)
     params = init_params(spec.config, seed=0, device=f32_card,
                          dtype="float32")
     gen = ContinuousGenerator(spec, params=params, dtype="float32",
-                              n_slots=4, max_seq=256, kv_block_size=16,
-                              prefill_chunk=16, mixed_step=True,
-                              mixed_token_budget=32, device=f32_card)
+                              n_slots=4, max_seq=1024, kv_block_size=16,
+                              prefill_chunk=256, mixed_step=True,
+                              mixed_token_budget=256, device=f32_card)
     gen.tracer = SpanRecorder(4096)
     layers = spec.config.n_layers
     try:
-        futs = [gen.submit([(i * 37 + k) % 250 + 1 for k in range(20)],
+        futs = [gen.submit([(i * 37 + k) % 250 + 1 for k in range(PROMPT)],
                            max_new_tokens=200) for i in range(4)]
-        started = threading.Event()
-        while not started.is_set():
-            started.wait(0.01)
-            if gen.stats()["mixed"]["ticks"] > 4:
-                started.set()
+        end = time.monotonic() + 120
+        while gen.stats()["mixed"]["prefill_tokens"] < 4 * PROMPT:
+            assert time.monotonic() < end, "the prompts did not prefill"
+            time.sleep(0.01)
         res = gen.start_profile(str(tmp_path), TICKS)
         assert res["ok"] and res["ticks"] == TICKS
         for f in futs:

@@ -31,10 +31,11 @@ from tpu_engine_torch.utils import deadline as tdl
 from tpu_engine_torch.utils.config import GatewayConfig
 
 # SLO objectives and trace stitching are ported:
-# tests/test_torch_observability.py.
-REFUSED = {"migrate_streams": True,
-           "disagg": True, "prefix_affinity": True,
-           "prefix_directory": True, "autoscale": True}
+# tests/test_torch_observability.py; stream migration, disaggregated
+# serving, prefix affinity and the prefix directory:
+# tests/test_torch_disagg.py, test_torch_affinity.py,
+# test_torch_fleet_prefix.py and test_torch_migration.py.
+REFUSED = {"autoscale": True}
 
 
 def _outcome(fn):

@@ -225,6 +225,40 @@ class RadixTree:
             node = child
         return out
 
+    def top_chains(self, top_k: int = 8, max_tokens: int = 256
+                   ) -> List[dict]:
+        """The ``top_k`` deepest root-to-leaf chains (ties: the most
+        recently used first) as ``{"tokens", "blocks"}`` summaries of at
+        most ``max_tokens`` tokens each: the fleet prefix tier's /health
+        seed, never a dump of the tree. Demoted nodes count like resident
+        ones (an export serves both)."""
+        leaves: List[tuple] = []
+        stack = [(self.root, 0)]
+        while stack:
+            n, d = stack.pop()
+            if not n.children:
+                if d:
+                    leaves.append((d, n))
+                continue
+            for c in n.children.values():
+                stack.append((c, d + 1))
+        leaves.sort(key=lambda t: (-t[0], -t[1].last_used))
+        out: List[dict] = []
+        for depth, leaf in leaves[:max(0, int(top_k))]:
+            keys = []
+            node = leaf
+            while node is not None and node.key is not None:
+                keys.append(node.key)
+                node = node.parent
+            keys.reverse()
+            toks: List[int] = []
+            for key in keys:
+                toks.extend(int(t) for t in key)
+                if len(toks) >= max_tokens:
+                    break
+            out.append({"tokens": toks[:max_tokens], "blocks": int(depth)})
+        return out
+
     def evict(self, n_blocks: int) -> int:
         """Free up to ``n_blocks`` device blocks by demoting (host tier
         configured) or dropping LRU frontier nodes that nothing but the

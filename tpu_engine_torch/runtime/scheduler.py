@@ -85,9 +85,18 @@ migration: ``export_row`` quiesces a row between ticks and snapshots its
 stream state and KV chain (``kv_blocks`` wire format), ending the local
 stream with ``StreamMigratedAway``; ``submit_import`` adopts such a
 snapshot on another lane with zero re-prefilled tokens, or fails with a
-retryable ``ImportRefused``. The disaggregated handoff (``wait_prefill``,
-``cancel``), the state-slab mode and tensor parallelism are not yet
-ported and refuse.
+retryable ``ImportRefused``. The disaggregated handoff: a request
+submitted with ``handoff`` parks after prefill (first token emitted, the
+row riding every tick inactive) until ``export_row(wait_prefill=True)``
+ships it, ``export_row(cancel=True)`` releases it, or its park window
+passes and it decodes locally. The fleet prefix tier: ``export_prefix``
+serves a peer the longest radix chain of a token prefix,
+``prefix_fingerprints`` summarises the deepest chains for the gateway's
+directory, and a miss carrying a ``prefix_hint`` fetches the hinted
+peer's chain (the ``prefix_fetch`` callable the worker installs) and
+splices it past the local match before prefilling the rest
+(``_fetch_prefix_splice``; every failure prefills locally). The
+state-slab mode and tensor parallelism are not yet ported and refuse.
 
 Brownout (``set_brownout``, driven by the worker's overload control
 loop) degrades the work's shape, never a stream's content: the mixed
@@ -132,6 +141,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence, Union
 
@@ -211,6 +221,17 @@ class _Request:
     tag: Optional[str] = None
     # A migration import's snapshot (submit_import); None otherwise.
     migrate: Optional[dict] = None
+    # The fleet prefix tier: the gateway's hint naming the lane whose
+    # radix tree holds the deepest known chain of this prompt; a miss
+    # with a hint fetches that chain before prefilling (prefix_fetch).
+    prefix_hint: Optional[dict] = None
+    # Disaggregated serving: a handoff row parks after prefill (first
+    # token emitted, decode ticks skipped) until the export command ships
+    # it, or park_s passes and it decodes locally; park_until is stamped
+    # when it parks.
+    handoff: bool = False
+    park_s: float = 5.0
+    park_until: float = 0.0
     # Stage spans (utils.tracing.TraceSink) and their clocks: submit, and
     # the start of the current admission-to-completion stage.
     sink: Optional[object] = None
@@ -553,11 +574,21 @@ class ContinuousGenerator:
         self._done = np.ones((n,), bool)
         self._row_req: List[Optional[_Request]] = [None] * n
         self._row_emitted: List[List[int]] = [[] for _ in range(n)]
+        # Rows parked for a disaggregated handoff: excluded from decode
+        # work until exported, cancelled or their park window passes.
+        # Decode-thread-owned.
+        self._held: List[bool] = [False] * n
 
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
-        # Export commands (tag, Future) from export_row, served by the
-        # decode loop between ticks, where the row is quiescent.
+        # Export commands (tag, Future, opts) from export_row, served by
+        # the decode loop between ticks, where the row is quiescent; those
+        # waiting on a row's prefill (wait_prefill) are re-checked at each
+        # tick boundary; cancels that arrive before their row parked are
+        # remembered (bounded). Decode-thread-owned.
         self._migrate_q: "queue.Queue[tuple]" = queue.Queue()
+        self._export_waiting: List[tuple] = []
+        self._hold_cancel_tags: "collections.deque" = collections.deque(
+            maxlen=64)
         # Formed requests ready for row admission; bounded, since each
         # holds radix pins.
         self._ready: "queue.Queue[Optional[_Formed]]" = queue.Queue(
@@ -649,6 +680,11 @@ class ContinuousGenerator:
         self.tracer = None
         self.trace_node = "scheduler"
         self.trace_stitch = False
+        # The fleet prefix tier's fetch callable, set by the worker with
+        # prefix fetch on: (hint, tokens, max_blocks) -> dict or None. The
+        # worker owns the transport, timeout and in-flight cap; the
+        # scheduler verifies and splices. None leaves every hint inert.
+        self.prefix_fetch = None
         # The per-tick flight recorder (configure_flight_recorder):
         # capacity 0 is off and costs nothing a tick. The decode thread
         # writes the ring, scrapes read it under _flight_lock.
@@ -748,14 +784,23 @@ class ContinuousGenerator:
                repetition_penalty: float = 1.0, stop_tokens=None,
                min_p: float = 0.0, stream=None,
                deadline: Optional[Deadline] = None,
-               tag: Optional[str] = None, sink=None) -> Future:
+               tag: Optional[str] = None, sink=None,
+               handoff: bool = False, handoff_park_s: float = 5.0,
+               prefix_hint: Optional[dict] = None) -> Future:
         """Enqueue one request; the Future resolves to its generated token
         list. ``stream``: optional queue.Queue that receives fresh token
         lists as they decode, then a None sentinel. Cancelling the Future
         cancels the request. ``deadline``: the request fails with
         ``DeadlineExceeded`` once it passes (between ticks). ``tag``:
         the name ``export_row`` finds the row by. ``sink``: a
-        ``utils.tracing.TraceSink`` for the request's stage spans."""
+        ``utils.tracing.TraceSink`` for the request's stage spans.
+        ``handoff`` (paged lanes): park the row after prefill, first token
+        emitted and decode ticks skipped, for up to ``handoff_park_s``
+        seconds (clamped to [0.1, 300]) awaiting
+        ``export_row(wait_prefill=True)``; past the window it decodes
+        locally. ``prefix_hint``: the gateway's ``{"lane", "addr",
+        "fingerprint", "blocks"}`` of the peer holding this prompt's
+        chain, inert without a ``prefix_fetch`` callable."""
         if self._stateless:
             raise RuntimeError(
                 f"model '{self.spec.name}' serves the stateless family: no "
@@ -778,7 +823,11 @@ class ContinuousGenerator:
                        stop_tokens=stops[0], min_p=float(min_p),
                        stream=stream, deadline=deadline,
                        tag=str(tag) if tag is not None else None,
-                       sink=sink, t_submit=time.perf_counter())
+                       sink=sink, t_submit=time.perf_counter(),
+                       prefix_hint=dict(prefix_hint)
+                       if isinstance(prefix_hint, dict) else None,
+                       handoff=bool(handoff) and self._paged,
+                       park_s=min(300.0, max(0.1, float(handoff_park_s))))
         self._queue.put(req)
         return req.future
 
@@ -795,21 +844,28 @@ class ContinuousGenerator:
         ``StreamMigratedAway`` and the row's blocks return to the pool.
         Thread-safe; returns ``{"ok": True, ...snapshot...}`` or
         ``{"ok": False, "reason": ...}`` (a dense lane, an unknown tag, a
-        row mid-prefill or finishing). ``wait_prefill`` and ``cancel``
-        belong to the disaggregated handoff, which is not ported: they
-        refuse by name and park nothing."""
+        row mid-prefill or finishing).
+
+        ``wait_prefill`` (the disaggregated handoff): a row not yet
+        admitted or still prefilling is not refused; the command waits on
+        the decode loop and exports at the first tick boundary past the
+        row's prefill, refusing only at ``timeout_s``. ``cancel``: release
+        the row's handoff hold instead of exporting (``cancelled`` says
+        whether a hold existed or was pre-empted): it decodes on at the
+        next tick."""
         if not self._paged:
             return {"ok": False,
                     "reason": "migration requires the paged KV cache"}
-        if wait_prefill or cancel:
-            return {"ok": False,
-                    "reason": "disaggregated serving (wait_prefill, "
-                              "cancel) is not yet ported to "
-                              "tpu_engine_torch"}
         if not self._running:
             return {"ok": False, "reason": "scheduler stopped"}
         fut: Future = Future()
-        self._migrate_q.put((str(tag), fut))
+        opts: dict = {}
+        if cancel:
+            opts["cancel"] = True
+        elif wait_prefill:
+            opts["wait_until"] = time.monotonic() + max(0.1,
+                                                        float(timeout_s))
+        self._migrate_q.put((str(tag), fut, opts))
         try:
             return fut.result(timeout=timeout_s + 1.0)
         except Exception as exc:
@@ -860,6 +916,207 @@ class ContinuousGenerator:
                            len(emitted))
         self._queue.put(req)
         return req.future
+
+    # -- the fleet prefix tier -------------------------------------------------
+
+    def export_prefix(self, tokens: Sequence[int],
+                      max_blocks: Optional[int] = None) -> dict:
+        """A peer's prefix fetch (/admin/export_prefix): the longest radix
+        chain matching ``tokens`` (at most ``max_blocks`` blocks),
+        serialized under one pool-lock pass (``chain_nodes`` +
+        ``export_chain``: device-resident and host-demoted blocks alike;
+        eviction runs only inside alloc under the same lock, so nothing
+        needs a pin). No stream state: a cache read, not a migration.
+        Refusals answer ``{"ok": False, "reason"}`` and never raise."""
+        if not self._paged or not self._prefix_sharing:
+            return {"ok": False,
+                    "reason": "prefix export requires the paged KV "
+                              "cache with prefix sharing on"}
+        if not self._running:
+            return {"ok": False, "reason": "scheduler stopped"}
+        toks = [int(t) for t in tokens]
+        pool = self._pool
+        with pool.lock:
+            nodes = pool.radix.chain_nodes(toks)
+            if max_blocks is not None:
+                nodes = nodes[:max(0, int(max_blocks))]
+            if not nodes:
+                return {"ok": False, "reason": "no matching prefix chain"}
+            chain = pool.export_chain(nodes)
+        return {"ok": True, "blocks": len(nodes), "chain": chain}
+
+    def prefix_fingerprints(self, top_k: int = 8,
+                            max_tokens: int = 256) -> List[dict]:
+        """The radix tree's ``top_k`` deepest chains as ``{"tokens",
+        "blocks"}`` summaries (``RadixTree.top_chains``): the gateway
+        prober's directory seed. Empty off the paged sharing layouts."""
+        if not self._paged or not self._prefix_sharing:
+            return []
+        pool = self._pool
+        with pool.lock:
+            return pool.radix.top_chains(top_k=top_k, max_tokens=max_tokens)
+
+    def _prefix_fetch_stats(self) -> dict:
+        """The ``prefix_fetch`` stats block, created at the first fetch
+        attempt (a lane that never fetched shows none). Callers hold
+        _stats_lock."""
+        p = self._stats.get("prefix_fetch")
+        if p is None:
+            p = self._stats["prefix_fetch"] = {
+                "attempted": 0, "spliced": 0, "blocks_spliced": 0,
+                "prefill_tokens_skipped_remote": 0,
+                "peer_unreachable": 0, "peer_refused": 0, "timeout": 0,
+                "inflight_capped": 0, "checksum_failed": 0,
+                "geometry_mismatch": 0, "stale_generation": 0,
+                "pool_full": 0, "no_gain": 0,
+            }
+        return p
+
+    def _fetch_prefix_splice(self, req: _Request, prompt: List[int],
+                             matched: List[int], gen: int,
+                             pb: int) -> List[int]:
+        """The fleet prefix tier's fetch (prefill thread): pull the hinted
+        peer's radix chain of this prompt and splice it past the local
+        match, so only the unmatched tail prefills (counted
+        ``prefill_tokens_skipped_remote``). Geometry and checksum are
+        verified before any allocation; the splice holds the pool lock
+        once (generation check, live-row reserve, alloc, verbatim import,
+        radix insert). Every failure rung returns the local match
+        unchanged: the stream prefills locally. One ``prefix_fetch``
+        stage span per attempt, so ``attempted`` equals the spans."""
+        hint = req.prefix_hint
+        if not self._prefix_sharing or not isinstance(hint, dict):
+            return matched
+        pool = self._pool
+        bs = pool.block_size
+        Leff = max(len(prompt), 1)
+        # The last prompt block always recomputes (its logits seed the
+        # first sample), and the row table holds at most pb // bs blocks.
+        max_useful = min((Leff - 1) // bs, pb // bs)
+        m = len(matched)
+        promised = int(hint.get("blocks") or 0)
+        if max_useful <= m or (promised and promised <= m):
+            return matched  # nothing a fetch could add: no attempt
+        t0 = time.perf_counter()
+        outcome = "spliced"
+        spliced = 0
+        chain = None
+        try:
+            res = self.prefix_fetch(hint, prompt, max_useful)
+        except Exception:  # the transport never kills the prefill thread
+            res = {"ok": False, "rung": "peer_unreachable"}
+        if res is None:
+            return matched  # a self-hint: the request is on the owner
+        if not res.get("ok"):
+            rung = str(res.get("rung") or "peer_refused")
+            outcome = rung if rung in ("peer_unreachable", "peer_refused",
+                                       "timeout", "inflight_capped") \
+                else "peer_refused"
+        else:
+            chain = res.get("chain")
+            if not isinstance(chain, dict) or "blocks" not in chain:
+                outcome = "geometry_mismatch"
+            elif pool.chain_compatible(chain) is not None:
+                outcome = "geometry_mismatch"
+            elif not pool.verify_chain(chain):
+                outcome = "checksum_failed"
+        if outcome == "spliced":
+            n_fetch = min(len(chain["blocks"]), max_useful)
+            if n_fetch <= m:
+                outcome = "no_gain"
+            else:
+                with pool.lock:
+                    if pool.generation != gen:
+                        outcome = "stale_generation"
+                    elif not pool.can_alloc(n_fetch - m
+                                            + self._promote_reserve()):
+                        outcome = "pool_full"
+                    else:
+                        fresh = pool.alloc(n_fetch - m)
+                        pool.import_chain(chain,
+                                          chain["blocks"][m:n_fetch], fresh)
+                        # The spliced tail joins the tree (the tree's own
+                        # reference); the row keeps the alloc reference,
+                        # the shape of a lookup's pins.
+                        pool.radix.insert(prompt[:n_fetch * bs],
+                                          list(matched) + fresh)
+                        matched = list(matched) + fresh
+                        spliced = n_fetch - m
+        with self._stats_lock:
+            p = self._prefix_fetch_stats()
+            p["attempted"] += 1
+            if spliced:
+                p["spliced"] += 1
+                p["blocks_spliced"] += spliced
+                p["prefill_tokens_skipped_remote"] += spliced * bs
+            else:
+                p[outcome] += 1
+        self._stage(req, "prefix_fetch", t0, outcome=outcome,
+                    blocks=spliced, peer=str(hint.get("lane") or ""))
+        return matched
+
+    # -- disaggregated handoff holds --------------------------------------------
+
+    def _bump_handoff(self, key: str, n: int = 1) -> None:
+        """The ``handoff`` stats block (created at the first hold: a lane
+        that never parked shows none)."""
+        with self._stats_lock:
+            h = self._stats.get("handoff")
+            if h is None:
+                h = self._stats["handoff"] = {
+                    "holds": 0, "park_expired": 0, "hold_cancelled": 0}
+            h[key] += n
+
+    def _maybe_hold(self, row: int, req: _Request) -> None:
+        """Park a handoff row that just finished prefill (decode thread):
+        it keeps its first token and KV chain and skips decode ticks until
+        the export command arrives or the park window passes. A row that
+        already completed has nothing to hand off."""
+        if not req.handoff or self._row_req[row] is not req:
+            return
+        if req.tag is not None and req.tag in self._hold_cancel_tags:
+            # Cancelled while queued or prefilling: no park at all.
+            self._hold_cancel_tags.remove(req.tag)
+            self._bump_handoff("hold_cancelled")
+            return
+        self._held[row] = True
+        req.park_until = time.monotonic() + req.park_s
+        self._bump_handoff("holds")
+
+    def _unpark_expired(self) -> None:
+        """A held row whose park window passed decodes on (the colocated
+        fallback when the export never came); its stream continues from
+        this lane unchanged."""
+        now = time.monotonic()
+        for r, req in enumerate(self._row_req):
+            if req is not None and self._held[r] and now >= req.park_until:
+                self._held[r] = False
+                self._bump_handoff("park_expired")
+
+    def _cancel_hold(self, tag: str) -> dict:
+        """Release a handoff hold (no destination is coming): the row
+        decodes on at the next tick. A row not parked yet (queued,
+        prefilling) skips its park instead. ``ok`` is False (there is no
+        snapshot); ``cancelled`` says whether a hold existed or was
+        pre-empted."""
+        row = next((r for r, req in enumerate(self._row_req)
+                    if req is not None and req.oneshot is None
+                    and req.tag == tag), None)
+        if row is not None:
+            req = self._row_req[row]
+            was_held = self._held[row]
+            self._held[row] = False
+            cancelled = was_held or req.handoff
+            req.handoff = False  # mid-prefill: skip the park too
+            if cancelled:
+                self._bump_handoff("hold_cancelled")
+            return {"ok": False, "cancelled": cancelled,
+                    "reason": "handoff hold cancelled" if cancelled
+                    else "no held row with this tag"}
+        if tag not in self._hold_cancel_tags:
+            self._hold_cancel_tags.append(tag)
+        return {"ok": False, "cancelled": False,
+                "reason": "no live row with this tag; park pre-cancelled"}
 
     def _migration_stats(self) -> dict:
         """The ``migration`` stats block, created at its first count (a
@@ -983,6 +1240,14 @@ class ContinuousGenerator:
         if "migration" in out:
             with self._stats_lock:
                 out["migration"] = dict(self._stats["migration"])
+        if "handoff" in out:
+            with self._stats_lock:
+                ho = dict(self._stats["handoff"])
+            ho["held_rows"] = int(sum(1 for h in self._held if h))
+            out["handoff"] = ho
+        if "prefix_fetch" in out:
+            with self._stats_lock:
+                out["prefix_fetch"] = dict(self._stats["prefix_fetch"])
         out.update(n_slots=self.n_slots,
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3),
@@ -1041,12 +1306,10 @@ class ContinuousGenerator:
             cur["decode_tokens"] = mixed["decode_tokens"]
         prev, self._flight_prev = self._flight_prev, cur
         rows = self._row_req
-        # "held" counts rows parked for a disaggregated handoff, which
-        # the port does not run: always 0, kept for the record's schema.
         rec = {"ts": round(time.time(), 6),
                "tick_wall_ms": round(tick_wall_s * 1e3, 3),
                "active": int(sum(r is not None for r in rows)),
-               "held": 0,
+               "held": int(sum(1 for h in self._held if h)),
                "queued": self._queue.qsize(),
                "ready": self._ready.qsize()}
         for k, v in cur.items():
@@ -1137,21 +1400,31 @@ class ContinuousGenerator:
                 "timeline": ring}
 
     def start_profile(self, log_dir: str, ticks: int,
-                      timeout_s: float = 10.0) -> dict:
+                      timeout_s: float = 120.0) -> dict:
         """A ``torch.profiler`` capture of the next ``ticks`` decode-loop
         iterations into ``log_dir`` (``ticks`` 0: until ``stop_profile``):
         the decode thread opens it at the top of its next iteration and
         closes it ``ticks`` iterations later (``profile_status`` then holds
         the trace file and its count of device events). Returns the
-        start's result."""
+        start's result. The first session in a process initialises the
+        card's activity tracing, which can take seconds, hence the long
+        bound; a request the decode thread has not taken by then is
+        withdrawn, so no capture opens unseen."""
         if not self._running:
             return {"error": "scheduler stopped"}
         fut: Future = Future()
         self._profile_start_req = ((log_dir, max(0, int(ticks))), fut)
         try:
             return fut.result(timeout=timeout_s)
-        except Exception as exc:
-            return {"error": f"profile start failed: {exc}"}
+        except FutureTimeout:
+            if fut.cancel():
+                return {"error": "profile start failed: the decode loop "
+                                 f"took no request in {timeout_s} s"}
+        try:  # the decode thread is opening the profiler: wait it out
+            return fut.result(timeout=timeout_s)
+        except FutureTimeout:
+            return {"error": "profile start failed: the profiler did not "
+                             f"open in {2 * timeout_s} s"}
 
     def stop_profile(self, timeout_s: float = 30.0) -> dict:
         """Stop a running capture now (on the decode thread)."""
@@ -1190,7 +1463,7 @@ class ContinuousGenerator:
             stop.set_result(self._profile_close() if self._profile_open
                             else {"error": "profiler not running"})
         start, self._profile_start_req = self._profile_start_req, None
-        if start is not None:
+        if start is not None and start[1].set_running_or_notify_cancel():
             (log_dir, ticks), fut = start
             try:
                 res = tracing.profiler_start(log_dir, on_caller=True)
@@ -1359,6 +1632,9 @@ class ContinuousGenerator:
         self._tables[row, :] = 0
 
     def _clear_mixed_row(self, row: int) -> None:
+        """Drop a freed row's prefill, speculative and handoff state (a
+        freed slot never stays parked)."""
+        self._held[row] = False
         self._prefilling[row] = False
         self._row_prompt[row] = None
         self._row_prompt_toks[row] = None
@@ -1545,6 +1821,12 @@ class ContinuousGenerator:
         self._record_swap_in(req, swapped, t0)
         self._stage(req, "radix_lookup", t0,
                     matched_tokens=len(matched) * pool.block_size)
+        if self.prefix_fetch is not None and req.prefix_hint is not None:
+            # The fleet prefix tier: the splice extends the match before
+            # formation, so the ragged ticks resume past it as past a
+            # deeper local hit.
+            matched = self._fetch_prefix_splice(req, prompt, matched, gen,
+                                                pb)
         row_counts = None
         if req.rep_penalty != 1.0 or req.stop_tokens:
             # Prompt-token counts only; the first sampled token joins in
@@ -1725,7 +2007,15 @@ class ContinuousGenerator:
                 matched = pool.radix.lookup(          # pins for this row
                     prompt, promote_reserve=self._swap_reserve())
                 swapped = pool.swap_ins - si0
+        m_tok = len(matched) * bs
         self._record_swap_in(req, swapped, t0)
+        if self.prefix_fetch is not None and req.prefix_hint is not None:
+            # The fleet prefix tier: a hinted (partial) miss pulls the
+            # peer's deeper chain before the gather; spliced blocks ride
+            # the row cache as local radix hits do. The radix_lookup span
+            # keeps the local match.
+            matched = self._fetch_prefix_splice(req, prompt, matched, gen,
+                                                pb)
         try:
             if matched:
                 # The gather is the row cache on a hit: matched columns
@@ -1746,8 +2036,7 @@ class ContinuousGenerator:
             else:
                 row_caches = init_caches(self.cfg, 1, pb, self._dtype,
                                          self.device)
-            self._stage(req, "radix_lookup", t0,
-                        matched_tokens=len(matched) * bs)
+            self._stage(req, "radix_lookup", t0, matched_tokens=m_tok)
             # Resume at the block boundary at/below the match; the window
             # holding position L-1 always runs, so the first sample's
             # logits come from this request's own forward.
@@ -1898,6 +2187,7 @@ class ContinuousGenerator:
             self._row_prompt_toks[row] = item.prompt
         self._set_row_params(req, row, first_col)
         self._emit_first_token(item, row)
+        self._maybe_hold(row, req)
 
     def _admit_mixed(self, item: _Formed, row: int) -> None:
         """Allocate the bucket's blocks up front (radix-matched prefix
@@ -2030,8 +2320,9 @@ class ContinuousGenerator:
         pool = self._pool
         bs = pool.block_size
         for r, req in enumerate(self._row_req):
-            if req is None or self._done[r] or self._prefilling[r]:
-                continue
+            if (req is None or self._done[r] or self._prefilling[r]
+                    or self._held[r]):
+                continue  # parked handoff rows decode nothing this tick
             last_col = min(int(self._pos[r]) + self._row_horizon(r, req),
                            self.max_seq - 1)
             need = last_col // bs + 1
@@ -2111,6 +2402,7 @@ class ContinuousGenerator:
         self._first_token_metrics(req, r)
         self._push_stream(r, req)
         self._maybe_complete(r)
+        self._maybe_hold(r, req)
 
     def _prefill_chunks(self, prefill_rows: List[int],
                         n_decode: int) -> np.ndarray:
@@ -2144,6 +2436,8 @@ class ContinuousGenerator:
         for r, req in enumerate(self._row_req):
             if req is None:
                 continue
+            if self._held[r]:
+                continue  # parked handoff rows: no budget, no decode slot
             if self._prefilling[r]:
                 prefill_rows.append(r)
             else:
@@ -2184,7 +2478,10 @@ class ContinuousGenerator:
                 qlen[r] = 1
                 tokens[r, 0] = self._tok[r]
                 fold_pos[r] = int(self._pos[r]) + 1
-                active[r] = not self._done[r]
+                # Parked handoff rows ride inactive, as done rows do: the
+                # write stays in the not-yet-valid column `pos`, the
+                # sample is discarded, the host state untouched below.
+                active[r] = not self._done[r] and not self._held[r]
 
         # ONE forward. The pool lock is not held: in mixed mode the prefill
         # thread's only pool copies are a lookup's host-tier promotions
@@ -2233,8 +2530,8 @@ class ContinuousGenerator:
 
         for r in range(B):
             req = self._row_req[r]
-            if req is None:
-                continue
+            if req is None or self._held[r]:
+                continue  # parked: nothing was dispatched for this row
             if self._prefilling[r]:
                 self._row_w0[r] += int(chunk[r])
                 if completing[r]:
@@ -2274,6 +2571,8 @@ class ContinuousGenerator:
         for r, req in enumerate(self._row_req):
             if req is None:
                 continue
+            if self._held[r]:
+                continue  # parked handoff rows: no budget, no proposals
             if self._prefilling[r]:  # mixed mode's admitting rows only
                 prefill_rows.append(r)
             else:
@@ -2289,7 +2588,7 @@ class ContinuousGenerator:
         scan = getattr(self._drafter, "max_scan", 0)
         for r, req in enumerate(self._row_req):
             if (req is None or self._done[r] or self._prefilling[r]
-                    or self._bo_spec_off):
+                    or self._held[r] or self._bo_spec_off):
                 # Brownout spec suspension: no proposals, every decode
                 # row rides q_len 1 through the same dispatch.
                 continue
@@ -2356,7 +2655,7 @@ class ContinuousGenerator:
                 # Only drafted rows at temperature > 0 take the rejection
                 # rule; an all-greedy tick skips its draws entirely.
                 stoch[r] = req.temperature > 0 and nd > 0
-                active[r] = not self._done[r]
+                active[r] = not self._done[r] and not self._held[r]
 
         emitted_h, n_emit_h, n_acc_h, done_new = self._spec_step(
             tokens, pos0, qlen, sample_slot, fold0, n_draft, stoch, active,
@@ -2384,8 +2683,8 @@ class ContinuousGenerator:
         accepted = decode_emitted = row_ticks = 0
         for r in range(B):
             req = self._row_req[r]
-            if req is None:
-                continue
+            if req is None or self._held[r]:
+                continue  # parked: nothing was dispatched for this row
             if self._prefilling[r]:
                 self._row_w0[r] += int(chunk[r])
                 if completing[r]:
@@ -2507,7 +2806,16 @@ class ContinuousGenerator:
         tok = torch.from_numpy(self._tok.astype(np.int64)).to(dev)
         pos = torch.from_numpy(self._pos.copy()).to(dev)
         start = torch.from_numpy(self._start.copy()).to(dev)
-        done = torch.from_numpy(self._done.copy()).to(dev)
+        # Parked handoff rows ride the chunk as done rows (position
+        # frozen, samples discarded, writes in the not-yet-valid column
+        # `pos`) and get their host state back after it.
+        held_rows = [r for r in range(self.n_slots)
+                     if self._row_req[r] is not None and self._held[r]]
+        saved = [(r, int(self._tok[r]), int(self._pos[r]))
+                 for r in held_rows]
+        done_in = self._done.copy()
+        done_in[held_rows] = True
+        done = torch.from_numpy(done_in).to(dev)
         seeds = torch.from_numpy(self._seeds).to(dev)
         eos = torch.from_numpy(eos_vec).to(dev)
         if controls:
@@ -2539,9 +2847,13 @@ class ContinuousGenerator:
         self._done = host[n:2 * n].astype(bool)
         toks_host = host[2 * n:].reshape(n, self._step_chunk)
         self._tok = toks_host[:, -1].astype(np.int32)
+        for r, tok_r, pos_r in saved:
+            self._tok[r] = tok_r
+            self._pos[r] = pos_r
+            self._done[r] = False
         self._stats["chunks"] += 1
         for r, req in enumerate(self._row_req):
-            if req is None:
+            if req is None or self._held[r]:
                 continue
             need = req.max_new - len(self._row_emitted[r])
             if need > 0:
@@ -2553,33 +2865,54 @@ class ContinuousGenerator:
 
     def _serve_exports(self) -> None:
         """Answer the pending export commands: called by the decode loop
-        at the top of every iteration, the tick boundary."""
+        at the top of every iteration, the tick boundary. A command whose
+        row has not finished prefill yet (wait_prefill) waits for the
+        next boundary, bounded by its own deadline."""
+        pending = self._export_waiting
+        self._export_waiting = []
         while True:
             try:
-                tag, fut = self._migrate_q.get_nowait()
+                pending.append(self._migrate_q.get_nowait())
             except queue.Empty:
-                return
+                break
+        for tag, fut, opts in pending:
             if fut.done():
                 continue
             try:
-                result = self._do_export(tag)
+                if opts.get("cancel"):
+                    result = self._cancel_hold(tag)
+                else:
+                    result = self._do_export(tag, opts)
             except Exception as exc:  # an export never kills the loop
                 result = {"ok": False, "reason": f"export failed: {exc}"}
+            if result is None:  # not exportable yet: next boundary
+                self._export_waiting.append((tag, fut, opts))
+                continue
             if not fut.done():
                 fut.set_result(result)
 
-    def _do_export(self, tag: str) -> dict:
+    def _do_export(self, tag: str, opts: Optional[dict] = None
+                   ) -> Optional[dict]:
         """Decode-thread half of export_row (the row is quiescent here).
         On success the row is gone from this lane: its stream flushed and
         ended with StreamMigratedAway, its blocks released (radix-shared
-        prefix blocks stay in the tree), its slot free."""
+        prefix blocks stay in the tree), its slot free. None: a
+        ``wait_until`` command whose row is still queued or prefilling,
+        before its bound."""
+        waiting = (opts is not None
+                   and opts.get("wait_until") is not None
+                   and time.monotonic() < opts["wait_until"])
         row = next((r for r, req in enumerate(self._row_req)
                     if req is not None and req.oneshot is None
                     and req.tag == tag), None)
         if row is None:
+            if waiting:
+                return None  # not admitted yet
             return {"ok": False, "reason": "no live row with this tag"}
         req = self._row_req[row]
         if self._mixed and self._prefilling[row]:
+            if waiting:
+                return None  # its prefill chunks still run
             # Nothing emitted yet: a replay re-prefills exactly what an
             # import would have to ship, so refusing costs nothing.
             self._bump_migration("export_refused")
@@ -2834,11 +3167,16 @@ class ContinuousGenerator:
                 except queue.Empty:
                     break
                 self._fail_request(req, exc)
-            while True:  # export commands: answered, never stranded
+            # Export commands, queued and waiting: answered, never
+            # stranded.
+            stranded = list(self._export_waiting)
+            self._export_waiting = []
+            while True:
                 try:
-                    _tag, fut = self._migrate_q.get_nowait()
+                    stranded.append(self._migrate_q.get_nowait())
                 except queue.Empty:
                     break
+            for _tag, fut, _opts in stranded:
                 if not fut.done():
                     fut.set_result({"ok": False,
                                     "reason": "scheduler stopped"})
@@ -2850,7 +3188,7 @@ class ContinuousGenerator:
                 stop.set_result(self._profile_result
                                 or {"error": "profiler not running"})
             start, self._profile_start_req = self._profile_start_req, None
-            if start is not None:
+            if start is not None and start[1].set_running_or_notify_cancel():
                 start[1].set_result({"error": "scheduler stopped"})
 
     def _loop_body(self) -> None:
@@ -2964,11 +3302,22 @@ class ContinuousGenerator:
                     self._fail_request(req, exc)
                     self._recover(exc)
                     break
+            if self._paged:
+                # Holds past their park window decode on (the colocated
+                # fallback: the export never came).
+                self._unpark_expired()
             if self._oneshot:
                 # One-shot rows dispatch and free here, before the
                 # generative step, so they never meet its bookkeeping.
                 self._tick_stateless()
-            if all(r is None for r in self._row_req):
+            live = [r for r in range(self.n_slots)
+                    if self._row_req[r] is not None]
+            if not live:
+                continue
+            if self._paged and all(self._held[r] for r in live):
+                # Only parked rows: nothing to dispatch until the export
+                # command (or the park bound) arrives.
+                time.sleep(0.002)
                 continue
             try:
                 if self._spec:

@@ -3,15 +3,16 @@
 
 Worker routes: ``POST /infer``, ``/score``, ``/generate``,
 ``/generate/stream``, ``/admin/drain``, ``/admin/migrate``,
-``/admin/reload``, ``/admin/timeline``, ``/admin/profile``; ``GET
-/health``, ``/metrics`` (Prometheus text, version 0.0.4), ``/trace``,
-``/trace/export`` (Chrome trace-event JSON), ``/admin/timeline``,
-``/admin/profile``, ``/admin/trace/<request_id>``. Gateway routes:
-``POST /infer`` (the lane's bytes relayed), ``/generate``,
-``/generate/stream``, ``/score``; ``GET /stats``, ``/metrics``,
+``/admin/export_prefix``, ``/admin/role``, ``/admin/reload``,
+``/admin/timeline``, ``/admin/profile``; ``GET /health``, ``/metrics``
+(Prometheus text, version 0.0.4), ``/trace``, ``/trace/export`` (Chrome
+trace-event JSON), ``/admin/timeline``, ``/admin/profile``,
+``/admin/trace/<request_id>``. Gateway routes: ``POST /infer`` (the
+lane's bytes relayed), ``/generate``, ``/generate/stream``, ``/score``,
+``/admin/role`` (``{node, role}``); ``GET /stats``, ``/metrics``,
 ``/trace``, ``/trace/export``, ``/admin/slo``,
 ``/admin/trace/<request_id>`` (the stream's spans from every lane, one
-tree).
+tree). ``/admin/fleet`` (the autoscaler's) is not routed.
 """
 
 from __future__ import annotations
@@ -95,6 +96,14 @@ def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
     # /generate/stream with a `migrate_import` body.
     server.route("POST", "/admin/migrate",
                  lambda body: (200, worker.handle_migrate_export(body or {})))
+    # The fleet prefix tier: a peer's fetch of this lane's radix chain.
+    server.route("POST", "/admin/export_prefix",
+                 lambda body: (200, worker.handle_export_prefix(body or {})))
+    # Disaggregated serving: flip the lane's role (the gateway drains and
+    # migrates around it).
+    server.route("POST", "/admin/role",
+                 lambda body: (200, worker.set_role((body or {}).get(
+                     "role", ""))))
     # Hot weight reload: {"model_path"} of the served architecture.
     server.route("POST", "/admin/reload",
                  lambda body: (200, worker.reload_weights(body["model_path"])))
@@ -140,6 +149,10 @@ def serve_gateway(worker_urls: List[str],
     server.route("POST", "/score",
                  lambda body: (200, gateway.route_score(body)))
     server.route("GET", "/stats", lambda _body: (200, gateway.get_stats()))
+    # Disaggregated serving: flip a lane's role fleet-side.
+    server.route("POST", "/admin/role", lambda body: (
+        200, gateway.set_worker_role((body or {}).get("node", ""),
+                                     (body or {}).get("role", ""))))
     server.route("GET", "/metrics", lambda _body: (
         200, render_prometheus([], gateway.get_stats(),
                                recorders={"gateway": gateway.tracer}),

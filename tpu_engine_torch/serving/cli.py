@@ -13,6 +13,8 @@
       [--brownout [--brownout-clamp-tokens N]]
       [--trace-capacity N] [--trace-stitch] [--profile-dir DIR]
       [--flight-recorder N [--flight-dump-dir DIR]]
+      [--role prefill|decode|both] [--prefix-fetch
+      [--prefix-fetch-timeout S] [--prefix-fetch-inflight N]]
       [--device cpu] [--dtype bfloat16] [--seed N]
 
   python -m tpu_engine_torch.serving.cli worker_node <port> [<node_id>
@@ -29,6 +31,10 @@
       [--trace-ledger-capacity N]] [--slo-ttft-p99-ms MS]
       [--slo-itl-p99-ms MS] [--slo-completion-p99-ms MS]
       [--slo-target F] [--slo-window-s S]
+      [--migrate-streams [--migrate-timeout S]] [--disagg
+      [--handoff-timeout S]] [--prefix-affinity [--affinity-block-size N]
+      [--affinity-prefix-blocks N] [--affinity-max-imbalance N]]
+      [--prefix-directory [--prefix-dir-capacity N]]
 
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
@@ -70,8 +76,12 @@ Prometheus text format; ``--trace-stitch`` makes a migration snapshot
 carry the stream's trace context; ``--flight-recorder N`` keeps the
 scheduler's last N ticks for /admin/timeline (anomaly dumps into
 ``--flight-dump-dir``); ``--profile-dir`` arms /admin/profile's
-tick-bounded torch.profiler capture. The worker serves until SIGTERM or
-SIGINT.
+tick-bounded torch.profiler capture. ``--role`` (a dedicated role needs
+``--kv-block-size``) is the lane's disaggregated serving role, shown in
+/health and flipped by /admin/role; ``--prefix-fetch`` serves
+/admin/export_prefix, publishes the radix tree's deepest chains in
+/health and fetches a gateway-hinted peer's chain before prefilling a
+miss. The worker serves until SIGTERM or SIGINT.
 
 worker_node: the argv of the reference's launch line (``worker_node 8001
 worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
@@ -107,11 +117,15 @@ R`` holds each ``tenant`` to R requests/s (a bucket 2R deep),
 ``--trace-stitch`` carries each stream's root trace context to every lane
 it touches and keeps the ledger /admin/trace/<request_id> stitches from,
 and the ``--slo-*`` objectives report their burn rates at /admin/slo.
-Hedged dispatch has no flag, as in JAX: it is
-``GatewayConfig.hedge_enabled``. The JAX command's other gateway flags
-(stream migration, prefix affinity and the prefix directory,
-disaggregated roles, the autoscaler and its SLO feed, standby workers)
-are accepted and refuse by name.
+``--migrate-streams`` continues a drained lane's streams on another lane
+from their exported KV chains, ``--disagg`` lands generate work on
+``--role prefill`` lanes and hands each stream's chain to a decode lane,
+``--prefix-affinity`` routes generate requests on the prompt's leading
+full blocks, and ``--prefix-directory`` stamps them with the owner lane
+of their prefix for ``--prefix-fetch`` workers. Hedged dispatch has no
+flag, as in JAX: it is ``GatewayConfig.hedge_enabled``. The JAX
+command's other gateway flags (the autoscaler and its SLO feed, standby
+workers) are accepted and refuse by name.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -234,12 +248,27 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--flight-dump-dir", default=None,
                    help="directory of the flight recorder's dumps (unset "
                         "= in memory only)")
+    p.add_argument("--role", default=None,
+                   choices=("prefill", "decode", "both"),
+                   help="disaggregated serving role (a dedicated role "
+                        "needs --kv-block-size): a --disagg gateway lands "
+                        "fresh generate work on prefill lanes and ships "
+                        "their KV chains to decode lanes; flippable via "
+                        "/admin/role (default: both)")
+    p.add_argument("--prefix-fetch", action="store_true",
+                   help="fleet prefix tier (needs --kv-block-size): serve "
+                        "/admin/export_prefix to peers, publish radix "
+                        "summaries in /health, and fetch a gateway-hinted "
+                        "peer's KV chain before prefilling a local miss")
+    p.add_argument("--prefix-fetch-timeout", type=float, default=None,
+                   help="per-fetch peer budget in seconds (default 5)")
+    p.add_argument("--prefix-fetch-inflight", type=int, default=None,
+                   help="concurrent peer fetches per lane; excess misses "
+                        "prefill locally (default 2)")
 
 
-def _serve(a, node_id: str, model: str, params=None,
-           model_path=None) -> int:
-    """Serve one worker from parsed flags until SIGTERM or SIGINT."""
-    from tpu_engine_torch.serving.app import serve_worker
+def worker_config(a, node_id: str, model: str, model_path=None):
+    """The WorkerConfig of parsed worker flags."""
     from tpu_engine_torch.utils.config import WorkerConfig
 
     cfg = WorkerConfig(port=a.port, node_id=node_id, model=model,
@@ -272,6 +301,23 @@ def _serve(a, node_id: str, model: str, params=None,
                        device=a.device, seed=a.seed)
     if a.brownout_clamp_tokens is not None:
         cfg.brownout_clamp_tokens = a.brownout_clamp_tokens
+    if a.role is not None:
+        cfg.role = a.role
+    if a.prefix_fetch:
+        cfg.gen_prefix_fetch = True
+    if a.prefix_fetch_timeout is not None:
+        cfg.gen_prefix_fetch_timeout_s = a.prefix_fetch_timeout
+    if a.prefix_fetch_inflight is not None:
+        cfg.gen_prefix_fetch_inflight = a.prefix_fetch_inflight
+    return cfg
+
+
+def _serve(a, node_id: str, model: str, params=None,
+           model_path=None) -> int:
+    """Serve one worker from parsed flags until SIGTERM or SIGINT."""
+    from tpu_engine_torch.serving.app import serve_worker
+
+    cfg = worker_config(a, node_id, model, model_path)
     worker, server = serve_worker(cfg, params=params, warmup=a.warmup)
     print(f"tpu_engine_torch worker {cfg.node_id} ({cfg.model}, "
           f"{worker.engine.device}) listening on port {server.port}",
@@ -383,16 +429,6 @@ def import_weights(argv) -> int:
 # (flag, takes a value, is repeatable). Each is accepted and refuses by
 # name.
 _UNPORTED_GATEWAY_FLAGS = (
-    ("--migrate-streams", False, False),
-    ("--migrate-timeout", True, False),
-    ("--prefix-affinity", False, False),
-    ("--affinity-block-size", True, False),
-    ("--affinity-prefix-blocks", True, False),
-    ("--affinity-max-imbalance", True, False),
-    ("--prefix-directory", False, False),
-    ("--prefix-dir-capacity", True, False),
-    ("--disagg", False, False),
-    ("--handoff-timeout", True, False),
     ("--autoscale", False, False),
     ("--autoscale-interval", True, False),
     ("--autoscale-min-lanes", True, False),
@@ -459,6 +495,44 @@ def gateway_config(argv):
                         "(default 0.99)")
     p.add_argument("--slo-window-s", type=float, default=None,
                    help="burn-rate window in seconds (default 300)")
+    p.add_argument("--migrate-streams", action="store_true",
+                   help="live stream migration: a graceful removal "
+                        "exports each in-flight stream's KV chain and "
+                        "state and continues it on another lane with zero "
+                        "re-prefilled tokens (the replay resume is the "
+                        "fallback; implies the stream journal)")
+    p.add_argument("--migrate-timeout", type=float, default=None,
+                   help="per-stream migration budget in seconds, clamped "
+                        "to the stream's deadline (default 30)")
+    p.add_argument("--prefix-affinity", action="store_true",
+                   help="route /generate(+/stream) on a block-aligned "
+                        "prompt-prefix fingerprint instead of request_id "
+                        "(ring order under ejection or imbalance)")
+    p.add_argument("--affinity-block-size", type=int, default=None,
+                   help="fingerprint block size; must match the workers' "
+                        "--kv-block-size (default 16)")
+    p.add_argument("--affinity-prefix-blocks", type=int, default=None,
+                   help="leading blocks the fingerprint covers "
+                        "(default 4)")
+    p.add_argument("--affinity-max-imbalance", type=int, default=None,
+                   help="skip the affinity lane once it has this many "
+                        "more recent dispatches than its least-loaded "
+                        "peer (0 = always honour affinity)")
+    p.add_argument("--prefix-directory", action="store_true",
+                   help="fleet prefix tier (gateway side): a bounded "
+                        "fingerprint -> owner directory that stamps "
+                        "generate requests with a prefix_hint for "
+                        "--prefix-fetch lanes")
+    p.add_argument("--prefix-dir-capacity", type=int, default=None,
+                   help="directory LRU bound in entries (default 512)")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill/decode serving: with "
+                        "--role prefill lanes in the fleet, generate work "
+                        "lands on a prefill lane and its finished KV "
+                        "chain ships to a decode lane picked by load")
+    p.add_argument("--handoff-timeout", type=float, default=None,
+                   help="per-stream prefill -> decode handoff budget in "
+                        "seconds, clamped to the deadline (default 30)")
     for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
         if repeat:
             p.add_argument(flag, action="append", default=None)
@@ -488,9 +562,20 @@ def gateway_config(argv):
         kw["tenant_rate"] = a.tenant_rate
     if a.trace_stitch:
         kw["trace_stitch"] = True
-    for name in ("trace_ledger_capacity", "slo_ttft_p99_ms",
-                 "slo_itl_p99_ms", "slo_completion_p99_ms", "slo_target",
-                 "slo_window_s"):
+    for flag in ("migrate_streams", "prefix_affinity", "prefix_directory",
+                 "disagg"):
+        if getattr(a, flag):
+            kw[flag] = True
+    if a.migrate_timeout is not None:
+        kw["migrate_timeout_s"] = a.migrate_timeout
+    if a.prefix_dir_capacity is not None:
+        kw["prefix_directory_capacity"] = a.prefix_dir_capacity
+    if a.handoff_timeout is not None:
+        kw["handoff_timeout_s"] = a.handoff_timeout
+    for name in ("affinity_block_size", "affinity_prefix_blocks",
+                 "affinity_max_imbalance", "trace_ledger_capacity",
+                 "slo_ttft_p99_ms", "slo_itl_p99_ms",
+                 "slo_completion_p99_ms", "slo_target", "slo_window_s"):
         if getattr(a, name) is not None:
             kw[name] = getattr(a, name)
     return a.workers, GatewayConfig(port=a.port,

@@ -245,6 +245,30 @@ class HttpWorkerClient:
     def undrain(self) -> dict:
         return self._request("POST", "/admin/drain", {"action": "undrain"})
 
+    def set_role(self, role: str) -> dict:
+        """POST /admin/role: flip the lane's serving role."""
+        return self._request("POST", "/admin/role", {"role": role})
+
+    def migrate(self, payload: dict,
+                timeout_s: Optional[float] = None) -> dict:
+        """POST /admin/migrate: export one live stream's row. The export
+        waits for a tick boundary and its chain can be large, so the
+        socket timeout is the caller's budget (the generation timeout
+        when none is given); the worker's own wait is half a second
+        less."""
+        if timeout_s is not None:
+            payload = {**payload, "timeout_s": max(0.5, timeout_s - 0.5)}
+        return self._request("POST", "/admin/migrate", payload,
+                             timeout_s=(timeout_s if timeout_s is not None
+                                        else self._gen_timeout))
+
+    def export_prefix(self, payload: dict,
+                      timeout_s: Optional[float] = None) -> dict:
+        """POST /admin/export_prefix: a peer lane's radix chain of a token
+        prefix, within ``timeout_s`` (the fetch budget)."""
+        return self._request("POST", "/admin/export_prefix", payload,
+                             timeout_s=timeout_s)
+
     def health(self) -> dict:
         return self._request("GET", "/health")
 

@@ -9,10 +9,13 @@ prober's state machine and the worker's admission controller.
 - ``LatencyTracker``: sliding-window latency quantiles (hedged dispatch's
   threshold, the AIMD limiter's baseline).
 - ``ResilienceCounters``, ``FailoverCounters`` (stream resumes and the
-  prober's ejections) and ``MigrationCounters`` (whose
-  ``drain_failures`` counts bounded drains that timed out): every
-  decision counted, under the JAX package's field names, so ``/stats``
-  blocks carry its keys.
+  prober's ejections), ``MigrationCounters`` (migrate-mode drains and
+  bounded drains that timed out), ``HandoffCounters`` (disaggregated
+  serving), ``AffinityCounters`` (prefix-affinity routing) and
+  ``PrefixDirCounters`` (the fleet prefix directory): every decision
+  counted, under the JAX package's field names, so ``/stats`` blocks
+  carry its keys; ``SPAN_FIELDS`` are the fields each paired with a
+  gateway marker span.
 - ``ProbeStateMachine``: ``fail_threshold`` consecutive failed probes
   eject a lane, any success restores it.
 - ``AdmissionController``: the worker's bounded in-flight depth (static,
@@ -169,14 +172,77 @@ class FailoverCounters(ResilienceCounters):
 
 
 class MigrationCounters(ResilienceCounters):
-    """The ``/stats`` ``migration`` block's fields. Stream migration is
-    not ported, so only ``drain_failures`` (a bounded drain that timed
-    out or failed during ``remove_worker(drain=True)``) ever moves."""
+    """Live stream migration's decisions (the ``/stats`` ``migration``
+    block). Each field of ``SPAN_FIELDS`` pairs one to one with a gateway
+    ``migration`` marker span; ``tokens_migrated`` (tokens carried across
+    a splice) is a value with no span. ``drain_failures``: bounded drains
+    that timed out or failed during ``remove_worker(drain=True)`` or a
+    role flip (the membership change proceeds)."""
 
     FIELDS = ("migrations_attempted", "streams_migrated",
               "migration_fallbacks", "export_refusals",
               "destination_unavailable", "import_dispatch_failed",
               "tokens_migrated", "drain_failures")
+
+    SPAN_FIELDS = ("migrations_attempted", "streams_migrated",
+                   "migration_fallbacks", "export_refusals",
+                   "destination_unavailable", "import_dispatch_failed",
+                   "drain_failures")
+
+
+class HandoffCounters(ResilienceCounters):
+    """Disaggregated serving's decisions (the ``/stats`` ``handoff``
+    block); each field of ``SPAN_FIELDS`` pairs one to one with a gateway
+    ``kv_handoff`` marker span, ``tokens_handed_off`` is a value with no
+    span. ``prefill_routed``: fresh generate dispatches sent to a
+    prefill-capable lane (``prefill_unavailable``: none admitted, ring
+    order took over). ``handoffs_attempted`` then exactly one of
+    ``handoffs_spliced`` (the decode lane adopted the chain),
+    ``export_refusals``, ``destination_unavailable``, ``dispatch_failed``
+    (the source row decodes locally, or the relay replays) or
+    ``handoff_fallbacks`` (exported but not spliced: the replay resume
+    finished the stream). ``holds_cancelled``: source holds released;
+    ``role_flips``: /admin/role flips."""
+
+    FIELDS = ("prefill_routed", "prefill_unavailable",
+              "handoffs_attempted", "handoffs_spliced",
+              "export_refusals", "destination_unavailable",
+              "dispatch_failed", "handoff_fallbacks", "holds_cancelled",
+              "tokens_handed_off", "role_flips")
+
+    SPAN_FIELDS = ("prefill_routed", "prefill_unavailable",
+                   "handoffs_attempted", "handoffs_spliced",
+                   "export_refusals", "destination_unavailable",
+                   "dispatch_failed", "handoff_fallbacks",
+                   "holds_cancelled", "role_flips")
+
+
+class AffinityCounters(ResilienceCounters):
+    """Prefix-affinity routing's decisions (the ``/stats`` ``affinity``
+    block), each with an ``affinity`` marker span: ``affinity_routed``
+    dispatches went to the fingerprint's lane; the others say why ring
+    order took over (no full block to fingerprint, the lane ejected or
+    its breaker open, it ran too hot, or a resume skipped it)."""
+
+    FIELDS = ("affinity_routed", "no_fingerprint", "ejected_fallbacks",
+              "imbalance_fallbacks", "resume_skips")
+
+
+class PrefixDirCounters(ResilienceCounters):
+    """The fleet prefix directory's decisions (the ``/stats``
+    ``prefix_directory`` block); each field of ``SPAN_FIELDS`` pairs one
+    to one with a gateway ``prefix_dir`` marker span. ``seeded``: prober
+    sweeps that recorded entries from a lane's /health summaries (one
+    span a sweep); ``recorded``: completions that made a lane the owner;
+    ``invalidations``: a lane's entries voided (removal, eject, restore);
+    ``hints_attached``; ``lookup_misses``. ``evictions`` (LRU drops) is a
+    value with no span."""
+
+    FIELDS = ("seeded", "recorded", "evictions", "invalidations",
+              "hints_attached", "lookup_misses")
+
+    SPAN_FIELDS = ("seeded", "recorded", "invalidations",
+                   "hints_attached", "lookup_misses")
 
 
 class ProbeStateMachine:

@@ -62,8 +62,27 @@ stream's row (its stream ends with a retryable ``migrated`` terminal
 event) and answers the snapshot, or ``{ok: false, reason}``; a
 ``/generate/stream`` body carrying that snapshot as ``migrate_import``
 continues the row on this lane with no prefill (``import_refused`` marks a
-terminal event of an import the lane refused). The disaggregated handoff
-(``wait_prefill``, ``cancel``, ``handoff``) refuses by name.
+terminal event of an import the lane refused).
+
+Disaggregated serving: ``role`` ("prefill", "decode" or "both"; a
+dedicated role needs the paged cache) is advisory routing metadata, shown
+in ``/health`` when not "both" and flipped at runtime by ``set_role``
+(``/admin/role``); a lane of any role serves whatever it receives. A
+gateway-stamped ``/generate/stream`` with ``handoff: true`` parks its row
+after prefill for up to ``handoff_park_ms`` (clamped to [0.1, 120] s)
+awaiting ``/admin/migrate {request_id, wait_prefill: true}``, which
+exports it at the first tick past its prefill; ``cancel: true`` releases
+the hold instead.
+
+The fleet prefix tier (``gen_prefix_fetch``): ``/admin/export_prefix
+{tokens, max_blocks?}`` serves a peer the longest radix chain of a token
+prefix (a draining lane refuses by name), ``/health`` carries the radix
+tree's deepest chains as ``prefix_fingerprints``, and a generate request
+carrying the gateway's ``prefix_hint`` fetches the hinted peer's chain
+before prefilling a local miss (``_fetch_prefix_peer``: at most
+``gen_prefix_fetch_inflight`` fetches in flight, each bounded by
+``gen_prefix_fetch_timeout_s``; every failure prefills locally). With
+the flag off the hint is ignored and ``/health`` is unchanged.
 
 As in the JAX worker, a ``model`` other than the lane's is a 400; a
 negative or NaN ``deadline_ms`` is a 400; a row whose deadline passes
@@ -128,6 +147,7 @@ import contextlib
 import json
 import os
 import queue
+import socket
 import threading
 import time
 from dataclasses import dataclass
@@ -140,6 +160,7 @@ from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+from tpu_engine_torch.serving.clients import HttpWorkerClient
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.serving.overload import (
     AIMDLimit,
@@ -340,6 +361,25 @@ class WorkerNode:
         if config.gen_kv_quantize not in ("", "int8"):
             raise RuntimeError(f"--kv-quantize must be 'int8', got "
                                f"{config.gen_kv_quantize!r}")
+        if config.gen_prefix_fetch and (config.gen_kv_block_size <= 0
+                                        or not config.gen_prefix_sharing):
+            # The JAX worker's guard: a lane asked for the fleet prefix
+            # tier never quietly ignores every hint.
+            raise RuntimeError(
+                "--prefix-fetch requires the continuous scheduler with "
+                "the paged KV cache and prefix sharing on "
+                "(--kv-block-size > 0, --prefix-sharing on)")
+        if config.role not in ("prefill", "decode", "both"):
+            raise RuntimeError(
+                f"--role must be prefill|decode|both, got "
+                f"{config.role!r}")
+        if config.role != "both" and config.gen_kv_block_size <= 0:
+            # A dedicated role without the paged cache could never export
+            # or adopt a chain: it would serve colocated, silently.
+            raise RuntimeError(
+                "--role prefill|decode requires the continuous "
+                "scheduler with the paged KV cache "
+                "(--kv-block-size > 0)")
         if config.gen_draft_path:
             raise RuntimeError(
                 "gen_draft_path (--gen-draft-path): loading draft weights "
@@ -401,6 +441,18 @@ class WorkerNode:
             if config.flight_recorder > 0:
                 gen.configure_flight_recorder(config.flight_recorder,
                                               config.flight_dump_dir)
+            if config.gen_prefix_fetch and not gen._stateless:
+                # The scheduler calls it on its prefill thread for hinted
+                # misses; the worker owns the transport, the in-flight cap
+                # and the timeout.
+                gen.prefix_fetch = self._fetch_prefix_peer
+        # The prefix fetch's in-flight cap, its cached peer clients, and
+        # an optional in-process transport (set_prefix_fetch_transport).
+        self._prefix_fetch_sem = threading.BoundedSemaphore(
+            max(1, int(config.gen_prefix_fetch_inflight or 1)))
+        self._prefix_fetch_transport = None
+        self._prefix_peers: dict = {}
+        self._prefix_peers_lock = threading.Lock()
         self._total_requests = 0
         self._cache_hits = 0
         # The AIMD limit replaces the static cap, starting from it.
@@ -753,13 +805,15 @@ class WorkerNode:
     # -- live-row migration ---------------------------------------------------
 
     def handle_migrate_export(self, request: dict) -> dict:
-        """/admin/migrate ``{request_id, timeout_s?}``: export one live
-        stream's row (``ContinuousGenerator.export_row``) so another lane
-        can continue it with ``migrate_import``; the local stream ends
-        with a retryable ``migrated`` terminal event. Refusals (an
-        unknown stream, a row mid-prefill, a dense lane, the handoff's
-        ``wait_prefill`` and ``cancel``) answer ``{"ok": false,
-        "reason"}``, never an error."""
+        """/admin/migrate ``{request_id, timeout_s?, wait_prefill?,
+        cancel?}``: export one live stream's row
+        (``ContinuousGenerator.export_row``) so another lane can continue
+        it with ``migrate_import``; the local stream ends with a retryable
+        ``migrated`` terminal event. ``wait_prefill`` exports at the first
+        tick past the row's prefill (the handoff); ``cancel`` releases its
+        handoff hold. Refusals (an unknown stream, a row mid-prefill, a
+        dense lane) answer ``{"ok": false, "reason"}``, never an
+        error."""
         rid = request.get("request_id")
         if not rid:
             raise ValueError("request_id is required")
@@ -774,6 +828,123 @@ class WorkerNode:
             cancel=bool(request.get("cancel", False)))
         out["node_id"] = self.node_id
         return out
+
+    # -- the fleet prefix tier --------------------------------------------------
+
+    def handle_export_prefix(self, request: dict) -> dict:
+        """/admin/export_prefix ``{tokens, max_blocks?}``: a peer's prefix
+        fetch, the longest radix chain matching ``tokens``
+        (``ContinuousGenerator.export_prefix``; no stream state).
+        Refusals (no scheduler, a draining lane, no prefix, no matching
+        chain) answer ``{"ok": false, "node_id", "reason"}`` and never
+        raise; the drain refusal names this lane."""
+        gen = self.generator
+        if gen is None or gen._stateless:
+            return {"ok": False, "node_id": self.node_id,
+                    "reason": "this lane has no continuous decode "
+                              "scheduler to export from"}
+        if self.draining:
+            return {"ok": False, "node_id": self.node_id,
+                    "reason": f"lane {self.node_id} is draining"}
+        tokens = request.get("tokens")
+        if not isinstance(tokens, list) or not tokens:
+            return {"ok": False, "node_id": self.node_id,
+                    "reason": "request carries no token prefix"}
+        max_blocks = request.get("max_blocks")
+        out = gen.export_prefix(
+            tokens, max_blocks=(int(max_blocks)
+                                if max_blocks is not None else None))
+        out["node_id"] = self.node_id
+        return out
+
+    def set_prefix_fetch_transport(self, fn) -> None:
+        """Install an in-process peer transport ``(hint, payload) ->
+        dict`` in place of the HTTP POST to the hint's address."""
+        self._prefix_fetch_transport = fn
+
+    def _fetch_prefix_peer(self, hint: dict, tokens,
+                           max_blocks: int) -> Optional[dict]:
+        """The scheduler's fetch callable (prefill thread): pull the
+        hinted peer's chain, each transport outcome classified as the
+        rung the scheduler counts (``peer_unreachable``,
+        ``peer_refused``, ``timeout``, ``inflight_capped``). The in-flight
+        cap is taken without blocking, so a herd on one hot prefix
+        prefills locally instead of queueing. None for a hint naming this
+        lane (nothing to fetch)."""
+        if hint.get("lane") == self.node_id:
+            return None
+        if not self._prefix_fetch_sem.acquire(blocking=False):
+            return {"ok": False, "rung": "inflight_capped"}
+        try:
+            payload = {"tokens": [int(t) for t in tokens],
+                       "max_blocks": int(max_blocks)}
+            timeout_s = max(0.1, float(
+                self.config.gen_prefix_fetch_timeout_s))
+            if self._prefix_fetch_transport is not None:
+                try:
+                    out = self._prefix_fetch_transport(hint, payload)
+                except Exception:
+                    return {"ok": False, "rung": "peer_unreachable"}
+            else:
+                addr = hint.get("addr")
+                if not addr:
+                    return {"ok": False, "rung": "peer_unreachable",
+                            "reason": "hint carries no peer address"}
+                try:
+                    out = self._prefix_peer_client(addr).export_prefix(
+                        payload, timeout_s=timeout_s)
+                except (socket.timeout, TimeoutError):
+                    return {"ok": False, "rung": "timeout"}
+                except Exception as exc:
+                    if "timed out" in str(exc).lower():
+                        return {"ok": False, "rung": "timeout"}
+                    return {"ok": False, "rung": "peer_unreachable"}
+            if not isinstance(out, dict) or not out.get("ok"):
+                return {"ok": False, "rung": "peer_refused",
+                        "reason": (out.get("reason")
+                                   if isinstance(out, dict)
+                                   else "malformed reply")}
+            return {"ok": True, "chain": out.get("chain"),
+                    "blocks": out.get("blocks")}
+        finally:
+            self._prefix_fetch_sem.release()
+
+    def _prefix_peer_client(self, addr: str) -> HttpWorkerClient:
+        """One cached HTTP client per peer address (at most 64)."""
+        with self._prefix_peers_lock:
+            client = self._prefix_peers.get(addr)
+            if client is None:
+                if len(self._prefix_peers) >= 64:
+                    self._prefix_peers.clear()
+                client = HttpWorkerClient(
+                    addr, timeout_s=max(0.1, float(
+                        self.config.gen_prefix_fetch_timeout_s)),
+                    pool_size=max(1, int(
+                        self.config.gen_prefix_fetch_inflight or 1)))
+                self._prefix_peers[addr] = client
+            return client
+
+    # -- disaggregated roles ----------------------------------------------------
+
+    def set_role(self, role: str) -> dict:
+        """/admin/role: flip this lane's serving role (the gateway drains
+        and migrates around the flip). The role is advisory routing
+        metadata, so the flip is safe mid-traffic; a dedicated role needs
+        the paged cache (a ValueError, the 400)."""
+        role = str(role)
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be prefill|decode|both, "
+                             f"got {role!r}")
+        if role != "both" and self.config.gen_kv_block_size <= 0:
+            raise ValueError(
+                "a dedicated role requires the continuous scheduler "
+                "with the paged KV cache (--kv-block-size > 0)")
+        self.config.role = role
+        return {"ok": True, "node_id": self.node_id, "role": role}
+
+    @property
+    def role(self) -> str:
+        return self.config.role
 
     @property
     def service_estimate_us(self) -> Optional[float]:
@@ -1153,7 +1324,9 @@ class WorkerNode:
             tokens = self.generator.submit(
                 kw.pop("prompt"), tag=request_id,
                 sink=TraceSink(self.tracer, self.node_id, request_id,
-                               span.ctx), **kw).result(timeout=600)
+                               span.ctx),
+                prefix_hint=self._prefix_hint(request),
+                **kw).result(timeout=600)
             return {"request_id": request_id, "tokens": tokens,
                     "node_id": self.node_id,
                     "generate_time_us": int((time.perf_counter() - t0)
@@ -1164,13 +1337,11 @@ class WorkerNode:
         admission run before it is returned (a 400 or 503, not a 200
         stream); the admission slot is held until the events end. A body
         with ``migrate_import`` continues an exported row
-        (``submit_import``); ``handoff`` (the disaggregated handoff)
-        refuses by name."""
+        (``submit_import``); a gateway-stamped ``handoff`` parks the row
+        after prefill for ``handoff_park_ms`` (clamped to [0.1, 120] s)
+        awaiting its export."""
         deadline = self._generation_deadline(request)
         request_id = request["request_id"]
-        if request.get("handoff"):
-            raise ValueError("the disaggregated handoff (handoff) is not "
-                             "yet ported to tpu_engine_torch")
         tier = self._request_tier(request)
         parent = TraceContext.from_request(request)
         snap = request.get("migrate_import")
@@ -1187,11 +1358,22 @@ class WorkerNode:
                     snap, stream=q, deadline=deadline, tag=request_id,
                     sink=sink), tier, parent)
         kw = self._parse(request, deadline, tier)
+        if request.get("handoff"):
+            # A client-supplied park window never pins a slot and its
+            # chain for long (the scheduler clamps again).
+            kw["handoff"] = True
+            kw["handoff_park_s"] = min(120.0, max(0.1, float(
+                request.get("handoff_park_ms", 5000.0)) / 1000.0))
         return self._open_stream(
             request, deadline,
             lambda q, sink: self.generator.submit(
                 kw.pop("prompt"), stream=q, tag=request_id, sink=sink,
-                **kw), tier, parent)
+                prefix_hint=self._prefix_hint(request), **kw), tier, parent)
+
+    def _prefix_hint(self, request: dict) -> Optional[dict]:
+        """The gateway's ``prefix_hint``, inert without prefix fetch."""
+        return (request.get("prefix_hint")
+                if self.config.gen_prefix_fetch else None)
 
     def _open_stream(self, request: dict, deadline: Optional[Deadline],
                      submit, tier: Optional[int],
@@ -1372,6 +1554,10 @@ class WorkerNode:
                "cache_hit_rate": self.cache.hit_rate(),
                "batch_processor": self.batch_processor.get_metrics()
                .as_dict()}
+        if self.config.role != "both":
+            # Only on dedicated-role lanes (absent reads "both"): a
+            # default lane's /health keeps its keys.
+            out["role"] = self.config.role
         gstats = (self.generator.stats() if self.generator is not None
                   else {})
         if self.generator is not None and not self.generator._stateless:
@@ -1388,6 +1574,12 @@ class WorkerNode:
             if bp["total_batches"] > 0:
                 bp["avg_batch_size"] = ((prev_rows + rows)
                                         / bp["total_batches"])
+        if (self.config.gen_prefix_fetch and self.generator is not None
+                and not self.generator._stateless):
+            # The fleet prefix tier's seed: the radix tree's deepest
+            # chains, bounded, for the gateway prober's directory.
+            out["prefix_fingerprints"] = \
+                self.generator.prefix_fingerprints()
         # Rows dropped at their deadline by the batchers and the
         # scheduler's one-shot rows count with the admission sheds.
         dropped = self.batch_processor.deadline_dropped

@@ -2,10 +2,9 @@
 ``WorkerConfig`` and ``GatewayConfig`` that the port uses, with the same
 names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
 /infer lane a default launch serves), plus the worker's own ``device`` and
-``seed``. The JAX gateway's features the port lacks (stream migration,
-disaggregated roles, prefix affinity and the prefix directory, the
-autoscaler) keep their fields here, off by default, and refuse by name
-when switched on (``refuse_unported``). The
+``seed``. The JAX gateway's feature the port lacks (the autoscaler) keeps
+its field here, off by default, and refuses by name when switched on
+(``refuse_unported``). The
 settings only the JAX ``serve`` command sets (a default deadline, failover
 backoff, the Retry-After of a gateway 503) wait for that command: failover
 is immediate, a request without ``deadline_ms`` has no deadline, and a
@@ -62,6 +61,10 @@ class WorkerConfig:
     brownout: bool = False
     brownout_interval_s: float = 0.25
     brownout_clamp_tokens: int = 32
+    # Disaggregated serving role (--role): "prefill" | "decode" | "both".
+    # Advisory for the gateway's role-aware routing; a lane of any role
+    # serves whatever it receives. Flippable at runtime (/admin/role).
+    role: str = "both"
     gen_max_batch_size: int = 8         # decode rows (scheduler slots)
     gen_step_chunk: int = 16            # two-path decode steps per chunk
     gen_prefill_chunk: int = 256
@@ -69,6 +72,16 @@ class WorkerConfig:
     gen_kv_block_size: int = 0          # 0: dense KV cache; > 0: paged
     gen_kv_blocks: int = 0              # 0 = auto (dense-equivalent)
     gen_kv_quantize: str = ""           # "int8": quantized block pool
+    # The fleet prefix tier (--prefix-fetch; needs the paged cache with
+    # prefix sharing): a miss whose request carries the gateway's
+    # prefix_hint pulls the owner lane's radix chain over
+    # /admin/export_prefix instead of prefilling it; every failure
+    # prefills locally. gen_prefix_fetch_timeout_s bounds one fetch,
+    # gen_prefix_fetch_inflight the fetches in flight (excess misses
+    # prefill locally).
+    gen_prefix_fetch: bool = False
+    gen_prefix_fetch_timeout_s: float = 5.0
+    gen_prefix_fetch_inflight: int = 2
     # Host blocks under the paged pool for demoted radix prefixes (needs
     # the paged cache and prefix sharing; --kv-host-blocks), 0 = off.
     gen_kv_host_blocks: int = 0
@@ -176,13 +189,43 @@ class GatewayConfig:
     slo_completion_p99_ms: float = 0.0
     slo_target: float = 0.99
     slo_window_s: float = 300.0
-
-    # The JAX gateway's other features: not ported; each refuses by name
-    # when switched on (refuse_unported).
+    # Live stream migration (--migrate-streams): remove_worker(drain=True)
+    # exports each journaled stream off the draining lane and continues it
+    # on another with zero re-prefilled tokens (the replay resume is the
+    # fallback; implies the stream journal). migrate_timeout_s bounds one
+    # stream's transfer, clamped to its deadline.
     migrate_streams: bool = False
+    migrate_timeout_s: float = 30.0
+    # Disaggregated prefill/decode serving (--disagg): while the fleet
+    # has a "prefill" lane and a decode-capable one beside it, a
+    # /generate(/stream) lands on a prefill lane, parks after prefill, and
+    # its KV chain ships to the decode lane with the fewest journaled
+    # streams. handoff_timeout_s bounds one handoff and the source row's
+    # park window.
     disagg: bool = False
+    handoff_timeout_s: float = 30.0
+    # Prefix-affinity routing (--prefix-affinity): generate requests route
+    # on a fingerprint of the prompt's leading full blocks
+    # (affinity_block_size tokens, at most affinity_prefix_blocks
+    # blocks), so shared prefixes converge on one lane; ring order when
+    # there is no full block, the lane is ejected or broken, or it is
+    # affinity_max_imbalance dispatches hotter than its least-loaded peer
+    # within affinity_window_s (0 = never).
     prefix_affinity: bool = False
+    affinity_block_size: int = 16
+    affinity_prefix_blocks: int = 4
+    affinity_max_imbalance: int = 0
+    # The fleet prefix directory (--prefix-directory): a bounded
+    # (prefix_directory_capacity fingerprints, LRU) fingerprint -> owner
+    # lane map, seeded from the lanes' /health summaries and completions;
+    # a generate request whose owner is another lane carries a
+    # prefix_hint.
     prefix_directory: bool = False
+    prefix_directory_capacity: int = 512
+    affinity_window_s: float = 10.0
+
+    # The JAX gateway's autoscaler: not ported; refuses by name when
+    # switched on (refuse_unported).
     autoscale: bool = False
 
     def __post_init__(self):
@@ -192,10 +235,6 @@ class GatewayConfig:
 # (field, the JAX package's name of the feature) of every gateway feature
 # the port lacks.
 _UNPORTED_GATEWAY = (
-    ("migrate_streams", "live stream migration"),
-    ("disagg", "disaggregated prefill/decode serving"),
-    ("prefix_affinity", "prefix-affinity routing"),
-    ("prefix_directory", "the fleet prefix directory"),
     ("autoscale", "the elastic-fleet autoscaler"),
 )
 
