@@ -345,6 +345,33 @@ Phases (any failure exits non-zero and prints no result line):
               #4 launches == 22 x ticks. Readings: TTFT, the handoff gap,
               the chain's bytes and times, the prefix fetch against the
               local prefill, the drain's splice gap.
+11. recurrent — the state_slab family (mamba2: 24 layers, d_model 768,
+              d_inner 1536, 24 heads of 64, d_state 64, d_conv 4, vocab
+              50257; f32) and its window-scan kernel (#8,
+              csrc/ssd_scan.cu), which replaces no Pallas kernel (JAX
+              runs the recurrence as XLA's lax.scan). #8 against its plain
+              version (the loop over the slots) at mamba2's shapes: B 8 x
+              W 1 (a decode tick), B 1 x W 256 (a prefill window) and a
+              mixed B 8 x W 256 batch with ragged qlen (1e-4 of
+              max(1, the plain version's largest magnitude), on y and the
+              states), bit-identical over two runs, partition-invariant
+              (one W-slot launch against W one-slot launches, bit-equal),
+              qlen-0 rows and the null row untouched; ssd-small-test
+              served on the card through a mixed and a two-path lane
+              gives the CPU's greedy streams (plain versions there); then
+              mamba2 at full width as a worker_node process (mixed,
+              256-token budget, 8 slots): 16 /generate streams (prompts of
+              100 to 600 tokens, 32 new) and 8 /infer rows of 128 at once,
+              every answer complete and finite, ticks == dispatches, no
+              leaked slab row, #8 launches == 24 x window scans and no
+              plain call; in this process at full width, a two-path lane
+              migrates one live row to a second one, and a mixed prefill
+              lane hands one row off to a mixed decode lane (0 prefill
+              tokens there), each stream token-identical to the unmoved
+              one under the same batch composition. Readings: #8's device
+              ms against its bound, a B 8 decode tick's wall, host issue
+              and device busy, a 512-token prompt's TTFT with #8 and with
+              the plain loop, the slab row's bytes.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -364,7 +391,7 @@ under build/, and this one) can be timed in turns in one call.
 does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
-    python3 chip_smoke.py --phase handoff|observe|overload
+    python3 chip_smoke.py --phase handoff|observe|overload|recurrent
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -453,6 +480,15 @@ KERNELS = {
         source="tpu_engine_torch/csrc/flash_attention_bwd.cu",
         replaces="tpu_engine/ops/flash.py:255", lane="train"),
 }
+# The recurrent family's kernel: it replaces no Pallas kernel (the JAX
+# package runs the recurrence as XLA's lax.scan in ssd_window_scan), and
+# its lane is the recurrent phase's.
+RECURRENT_KERNELS = {
+    "ssd_scan": dict(
+        source="tpu_engine_torch/csrc/ssd_scan.cu",
+        replaces="tpu_engine/models/ssd.py:218 (no Pallas kernel: the "
+                 "lax.scan of ssd_window_scan)", lane="recurrent"),
+}
 # The TinyLlama lanes of the server, gateway and kvtier phases run at half
 # depth: 11 of TinyLlama-1.1B's 22 layers at its full width (d 2048, 32/4
 # heads, d_ff 5632, vocab 32000), so that the whole smoke, the observe
@@ -520,8 +556,10 @@ SPEC_LANES = {
 
 def wrapper(name: str):
     """The counted wrapper that launches kernel ``name``."""
-    from tpu_engine_torch.ops import flash, paged_attention
+    from tpu_engine_torch.ops import flash, paged_attention, ssd
 
+    if name == "ssd_scan":
+        return ssd.ssd_scan
     if name == "flash_attention":
         return flash.flash_attention_fwd
     if name.startswith("flash_attention_bwd"):
@@ -531,7 +569,7 @@ def wrapper(name: str):
 
 def launch_counts() -> dict:
     return {k: (wrapper(k).launches, wrapper(k).plain_calls)
-            for k in KERNELS}
+            for k in (*KERNELS, *RECURRENT_KERNELS)}
 
 
 class SmokeFailure(RuntimeError):
@@ -5068,8 +5106,12 @@ def main_serve_worker_node(argv) -> int:
     calls]) to COUNTS."""
     from tpu_engine_torch.serving import cli
 
+    from tpu_engine_torch.models.ssd import ssd_window_scan_rows
+
     code = cli.main(["worker_node", *argv[1:]])
     Path(argv[0]).write_text(json.dumps(launch_counts()))
+    # The recurrent family's window scans: each launches #8 per layer.
+    Path(argv[0] + ".scans").write_text(str(ssd_window_scan_rows.calls))
     return code
 
 
@@ -6162,6 +6204,426 @@ def phase_handoff(torch, card: str) -> dict:
     return out
 
 
+# -- the recurrent phase ----------------------------------------------------
+
+RECURRENT_LANE_ARGS = ("mamba2", "--mixed-step", "--mixed-token-budget",
+                       "256", "--prefill-chunk", "256", "--n-slots", "8",
+                       "--dtype", "float32")
+RECURRENT_STREAMS = 16
+RECURRENT_NEW = 32
+RECURRENT_INFER = 8
+# #8 against its plain version: 1e-4 of max(1, the plain version's
+# largest magnitude), on y and on the states. The two sum the conv, the
+# state update and the readout in other orders (the kernel contracts
+# multiply-adds; the plain version's einsum reduces by its own tree).
+SCAN_TOL = 1e-4
+# mamba2's mixer geometry: d_inner, d_state, heads, d_conv.
+SCAN_GEOMETRY = (1536, 64, 24, 4)
+SCAN_CASES = {"B8 W1": (8, 1, [1] * 8),
+              "B1 W256": (1, 256, [256]),
+              "B8 W256 ragged": (8, 256, [256, 1, 0, 100, 37, 1, 256, 5])}
+H100_BYTES_S = 3.35e12
+H100_F32_FLOPS = 67e12
+
+
+def scan_bound_ms(b: int, w: int, qlen) -> tuple:
+    """Least time of one #8 call: the larger of its bytes (each live row's
+    state read and written once, the valid slots' projections read, y
+    written, the weights and the row vectors) over 3.35 TB/s and its f32
+    operations (per valid slot, four per state value for the update and
+    the readout, and the conv, softplus, gate and skip per channel) over
+    67 TFLOP/s, the H100's peak outside the tensor cores."""
+    di, n, h, k = SCAN_GEOMETRY
+    sd = (k - 1) * di + di * n
+    slots = int(sum(min(int(q), w) for q in qlen))
+    live = sum(1 for q in qlen if q > 0)
+    pw = 2 * di + 2 * n + h
+    nbytes = 4 * (2 * live * sd + slots * pw + b * w * di
+                  + k * di + di + 3 * h + 2 * b)
+    ops = slots * (4 * di * n + di * (2 * k + 12))
+    t_bytes, t_ops = nbytes / H100_BYTES_S, ops / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def recurrent_kernel(torch) -> dict:
+    """#8 at mamba2's shapes against its plain version: error, two runs,
+    partition invariance, untouched rows, and the device times."""
+    from tpu_engine_torch.ops import ssd as so
+
+    di, n, h, k = SCAN_GEOMETRY
+    out = {}
+    for seed, (case, (b, w, qlen)) in enumerate(SCAN_CASES.items()):
+        arrs = so.scan_parity_inputs(b, w, di, n, h, k, seed=seed)
+        proj, state, ids, *weights = (torch.from_numpy(a).cuda()
+                                      for a in arrs)
+        ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
+
+        def run(fn, st):
+            return fn(proj, st, ids, ql, *weights, n, h)
+
+        st_k, st_p = state.clone(), state.clone()
+        y_k, y_p = run(so.ssd_scan, st_k), run(so.ssd_scan_reference, st_p)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want in ((y_k, y_p), (st_k, st_p)):
+            e = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            check(e <= SCAN_TOL * scale,
+                  f"recurrent: #8 {case} differs from its plain version by "
+                  f"{e} (bound {SCAN_TOL * scale})")
+            err = max(err, e)
+        st2 = state.clone()
+        check(torch.equal(run(so.ssd_scan, st2), y_k)
+              and torch.equal(st2, st_k),
+              f"recurrent: #8 {case} not bit-identical over two runs")
+        steps, ys = state.clone(), []
+        for j in range(w):
+            ys.append(so.ssd_scan(proj[:, j:j + 1].contiguous(), steps, ids,
+                                  (ql > j).to(torch.int32), *weights, n, h))
+        torch.cuda.synchronize()
+        check(torch.equal(steps, st_k) and torch.equal(torch.cat(ys, 1), y_k),
+              f"recurrent: #8 {case}: {w} one-slot launches differ from "
+              f"one {w}-slot launch")
+        live = set(ids[ql > 0].tolist())
+        check(all(torch.equal(st_k[r], state[r])
+                  for r in range(state.shape[0]) if r not in live),
+              f"recurrent: #8 {case} wrote a qlen-0 or outside row")
+        scratch = state.clone()
+        ms, seen = device_call_ms(torch, lambda: run(so.ssd_scan, scratch))
+        events_ms = time_ms(torch, lambda: run(so.ssd_scan, scratch))
+        plain_ms = time_ms(torch, lambda: run(so.ssd_scan_reference, scratch),
+                           iters=3)
+        bound, by, nbytes, ops = scan_bound_ms(b, w, qlen)
+        out[case] = {"max_abs_err": err, "device_ms": ms,
+                     "profiled_calls": seen, "events_ms": events_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "bytes": nbytes, "ops": ops, "library_ms": None}
+        log(f"recurrent: #8 {case}: err {err:.2e}, device {ms:.4f} ms "
+            f"(cold-L2 events {events_ms:.4f}), plain {plain_ms:.3f} ms, "
+            f"bound {bound:.4f} ms by {by}")
+    return out
+
+
+def recurrent_small_lanes(torch) -> dict:
+    """ssd-small-test (seeded f32 weights) through a mixed and a two-path
+    lane on the card (#8) and on the CPU (plain versions): greedy streams
+    equal, 2 launches (its layers) per window scan on the card."""
+    from tpu_engine_torch.models import ssd as tssd
+    from tpu_engine_torch.models.convert import params_to
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+
+    spec = create_model("ssd-small-test")
+    params = spec.init(3, "cpu", "float32")
+    prompts = [[5, 9, 3], [(i * 7) % 200 + 1 for i in range(40)], [7] * 20]
+    scan = wrapper("ssd_scan")
+    out = {}
+    for mode, kw in (("mixed", dict(mixed_step=True, mixed_token_budget=8)),
+                     ("two-path", dict(step_chunk=4))):
+        streams = {}
+        for dev in ("cpu", "cuda"):
+            kl.reset_counts()
+            tssd.ssd_window_scan_rows.calls = 0
+            gen = ContinuousGenerator(spec, params=params_to(params, dev),
+                                      device=dev, dtype="float32", n_slots=4,
+                                      prefill_chunk=8, **kw)
+            try:
+                streams[dev] = gen.generate(prompts, max_new_tokens=12)
+            finally:
+                gen.stop()
+        calls = tssd.ssd_window_scan_rows.calls
+        check(scan.plain_calls == 0 and scan.launches == 2 * calls > 0,
+              f"recurrent small {mode}: #8 launches {scan.launches}, plain "
+              f"{scan.plain_calls}, window scans {calls}")
+        check(streams["cuda"] == streams["cpu"],
+              f"recurrent small {mode}: card {streams['cuda']} != CPU "
+              f"{streams['cpu']}")
+        out[mode] = {"launches": scan.launches, "window_scans": calls}
+        log(f"recurrent small {mode}: card == CPU {streams['cuda']}")
+    return out
+
+
+def recurrent_worker(torch, card: str) -> dict:
+    """mamba2 at full width as a worker_node process (mixed, f32): 16
+    /generate streams and 8 /infer rows at once, then the lane's counts."""
+    import signal
+
+    OUT_DIR.mkdir(exist_ok=True)
+    counts_path = OUT_DIR / "recurrent_counts.json"
+    counts_path.unlink(missing_ok=True)
+    proc, port, log_f = spawn_counted_worker_node(
+        ["mamba2-w", *RECURRENT_LANE_ARGS], OUT_DIR / "recurrent_worker.log",
+        counts_path)
+    rng = np.random.default_rng(17)
+    vocab = 50257
+    out = {}
+    try:
+        out["ready_s"] = wait_health(proc, port)
+        gens = {f"g{i}": [int(t) for t in rng.integers(
+            1, vocab, int(rng.integers(100, 601)))]
+            for i in range(RECURRENT_STREAMS)}
+        infers = {f"i{i}": [float(t) for t in rng.integers(1, vocab, 128)]
+                  for i in range(RECURRENT_INFER)}
+        results, errors, walls = {}, [], {}
+
+        def send(name, path, body):
+            t0 = time.perf_counter()
+            try:
+                results[name] = post(port, path, body)
+            except Exception as exc:  # reported below, never swallowed
+                errors.append(f"{name}: {exc}")
+            walls[name] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=send, args=(
+            name, "/generate", {"request_id": name, "prompt_tokens": p,
+                                "max_new_tokens": RECURRENT_NEW}))
+            for name, p in gens.items()]
+        threads += [threading.Thread(target=send, args=(
+            name, "/infer", {"request_id": name, "input_data": x}))
+            for name, x in infers.items()]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["burst_wall_s"] = time.perf_counter() - t0
+        check(not errors, f"recurrent worker: {errors[:3]}")
+        for name in gens:
+            check(len(results[name]["tokens"]) == RECURRENT_NEW,
+                  f"recurrent worker: {name} gave "
+                  f"{len(results[name]['tokens'])} tokens")
+        for name in infers:
+            o = np.asarray(results[name]["output_data"], np.float32)
+            check(o.shape == (vocab,) and np.isfinite(o).all(),
+                  f"recurrent worker: /infer {name} shape {o.shape}")
+        deadline = time.time() + 30
+        while True:
+            st = generator_stats(port)
+            sp = st["state_pool"]
+            idle = st["active"] == 0 and sp["rows_free"] == sp["rows_total"]
+            if idle or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        check(idle, f"recurrent worker: leaked slab rows: {sp}")
+        m = st["mixed"]
+        check(m["ticks"] == m["dispatches"] > 0,
+              f"recurrent worker: ticks {m}")
+        check("kv_pool" not in st, "recurrent worker: a kv_pool block")
+        out.update(stats=st, generate_wall_s=walls)
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "recurrent worker: exit code")
+        counts = json.loads(counts_path.read_text())
+        scans = int(Path(str(counts_path) + ".scans").read_text())
+        check(all(p == 0 for _, p in counts.values()),
+              f"recurrent worker: plain versions served: {counts}")
+        check(all(c[0] == 0 for k, c in counts.items() if k != "ssd_scan"),
+              f"recurrent worker: other kernels launched: {counts}")
+        launches = counts["ssd_scan"][0]
+        check(launches == 24 * scans > 0,
+              f"recurrent worker: #8 launches {launches} != 24 x {scans} "
+              f"window scans")
+        out.update(launches=launches, window_scans=scans,
+                   ticks=m["ticks"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log_f.close()
+    log(f"recurrent worker: {RECURRENT_STREAMS} streams and "
+        f"{RECURRENT_INFER} /infer rows in {out['burst_wall_s']:.1f} s; "
+        f"ticks {out['ticks']} == dispatches; #8 launches "
+        f"{out['launches']} == 24 x {out['window_scans']} window scans; "
+        f"rows_free == rows_total [{card}]")
+    return out
+
+
+def _stream_of(q) -> list:
+    out = []
+    while True:
+        item = q.get(timeout=300)
+        if item is None:
+            return out
+        out.extend(item)
+
+
+def recurrent_moves(torch, params) -> dict:
+    """At full width in this process: a two-path row migrated between two
+    two-path lanes, and a handoff from a mixed prefill lane to a mixed
+    decode lane, each token-identical to the unmoved stream."""
+    import queue
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+
+    spec = create_model("mamba2")
+    rng = np.random.default_rng(5)
+    out = {}
+    two = dict(dtype="float32", n_slots=4, prefill_chunk=256, step_chunk=8)
+    a = ContinuousGenerator(spec, params=params, **two)
+    b = ContinuousGenerator(spec, params=params, **two)
+    try:
+        prompt = [int(t) for t in rng.integers(1, spec.config.vocab, 300)]
+        control = a.generate([prompt], max_new_tokens=32)[0]
+        q = queue.Queue()
+        a.submit(prompt, max_new_tokens=32, stream=q, tag="mv")
+        got = []
+        while len(got) < 8:
+            got += q.get(timeout=300)
+        snap = a.export_row("mv", timeout_s=60)
+        check(snap.get("ok"), f"recurrent migrate: {snap.get('reason')}")
+        got += _stream_of(q)
+        q2 = queue.Queue()
+        fut = b.submit_import(snap, stream=q2)
+        got += _stream_of(q2)
+        check(got == control and fut.result(timeout=60) == control,
+              f"recurrent migrate: spliced {got} != unmoved {control}")
+        check(b.stats()["admission_dispatches"] == 1,
+              f"recurrent migrate: the import prefilled "
+              f"({b.stats()['admission_dispatches']} dispatches)")
+        out["migrate"] = {"exported_at": snap["pos"],
+                          "chain_bytes": len(snap["chain"]["blocks"][0]["k"])}
+    finally:
+        a.stop()
+        b.stop()
+    mixed = dict(dtype="float32", n_slots=4, prefill_chunk=256,
+                 mixed_step=True, mixed_token_budget=256)
+    p = ContinuousGenerator(spec, params=params, **mixed)
+    d = ContinuousGenerator(spec, params=params, **mixed)
+    try:
+        prompt = [int(t) for t in rng.integers(1, spec.config.vocab, 400)]
+        control = p.generate([prompt], max_new_tokens=32)[0]
+        q = queue.Queue()
+        p.submit(prompt, max_new_tokens=32, stream=q, tag="ho",
+                 handoff=True, handoff_park_s=60.0)
+        snap = p.export_row("ho", timeout_s=120, wait_prefill=True)
+        check(snap.get("ok"), f"recurrent handoff: {snap.get('reason')}")
+        got = _stream_of(q)
+        on_p = len(got)
+        pre = d.stats()["mixed"]["prefill_tokens"]
+        q2 = queue.Queue()
+        fut = d.submit_import(snap, stream=q2)
+        got += _stream_of(q2)
+        check(got == control and fut.result(timeout=60) == control,
+              f"recurrent handoff: {got} != colocated {control}")
+        re_prefilled = d.stats()["mixed"]["prefill_tokens"] - pre
+        check(re_prefilled == 0,
+              f"recurrent handoff: {re_prefilled} tokens re-prefilled")
+        check(p.stats()["handoff"]["holds"] == 1, "recurrent handoff: hold")
+        for g in (p, d):
+            sp = g.stats()["state_pool"]
+            check(sp["rows_free"] == sp["rows_total"],
+                  f"recurrent handoff: leaked rows {sp}")
+        out["handoff"] = {"tokens_on_prefill_lane": on_p,
+                          "re_prefilled_tokens": re_prefilled}
+    finally:
+        p.stop()
+        d.stop()
+    return out
+
+
+def recurrent_readings(torch, params) -> dict:
+    """A B 8 decode tick of mamba2 (one-slot window scan over 8 slab
+    rows) and a 512-token prompt's TTFT through a two-path lane, with #8
+    and with the plain loop in its place."""
+    import queue
+
+    from tpu_engine_torch.models import ssd as tssd
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import ssd as so
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+
+    spec = create_model("mamba2")
+    cfg = spec.config
+    sd = tssd.ssd_state_dim(cfg)
+    slab = torch.zeros((cfg.n_layers, 9, sd), device="cuda")
+    tok = torch.randint(1, cfg.vocab, (8, 1), device="cuda")
+    ids = torch.arange(1, 9, dtype=torch.int32, device="cuda")
+    ones = torch.ones((8,), dtype=torch.int32, device="cuda")
+    zero = torch.zeros((8,), dtype=torch.long, device="cuda")
+
+    def tick():
+        return tssd.ssd_window_scan_rows(params, tok, slab, ids, ones, zero,
+                                         cfg)
+
+    tick()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    issue = issue_ms(torch, tick)
+    busy = busy_ms(torch, tick)
+    out = {"decode_tick_B8": {"wall_ms": wall, "issue_ms": issue,
+                              "busy_ms": busy,
+                              "idle_share": idle_share(busy, wall),
+                              "launches_per_tick": cfg.n_layers}}
+    log(f"recurrent: mamba2 B 8 decode tick wall {wall:.3f} ms, host issue "
+        f"{issue:.3f} ms, {busy_text(busy, idle_share(busy, wall))}")
+    rng = np.random.default_rng(9)
+    prompt = [int(t) for t in rng.integers(1, cfg.vocab, 512)]
+    ttft = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            tssd.ssd_scan = so.ssd_scan_reference
+        try:
+            gen = ContinuousGenerator(spec, params=params, dtype="float32",
+                                      n_slots=2, prefill_chunk=256,
+                                      step_chunk=4)
+            try:
+                q = queue.Queue()
+                t0 = time.perf_counter()
+                gen.submit(prompt, max_new_tokens=1, stream=q)
+                first = q.get(timeout=600)
+                ttft[route] = ((time.perf_counter() - t0) * 1e3, first)
+            finally:
+                gen.stop()
+        finally:
+            tssd.ssd_scan = so.ssd_scan
+    check(ttft["kernel"][1] == ttft["plain"][1],
+          f"recurrent TTFT: first tokens {ttft}")
+    out["ttft_512_ms"] = {k: v[0] for k, v in ttft.items()}
+    out["slab_row_bytes"] = cfg.n_layers * sd * 4
+    log(f"recurrent: 512-token TTFT {ttft['kernel'][0]:.1f} ms with #8, "
+        f"{ttft['plain'][0]:.1f} ms with the plain loop; a slab row "
+        f"{out['slab_row_bytes']} bytes")
+    return out
+
+
+def phase_recurrent(torch, card: str) -> dict:
+    """The state_slab family on the card (the module docstring's recurrent
+    entry)."""
+    from tpu_engine_torch.models import ssd as tssd
+    from tpu_engine_torch.models.convert import init_ssd_params
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import kernels as kl
+
+    t0 = time.perf_counter()
+    out = {"kernel": recurrent_kernel(torch)}
+    out["small"] = recurrent_small_lanes(torch)
+    # The main path: counts to 0 just before the worker, read just after.
+    kl.reset_counts()
+    out["worker"] = recurrent_worker(torch, card)
+    params = init_ssd_params(create_model("mamba2").config, seed=0,
+                             device="cuda")
+    kl.reset_counts()
+    tssd.ssd_window_scan_rows.calls = 0
+    out["moves"] = recurrent_moves(torch, params)
+    scan = wrapper("ssd_scan")
+    calls = tssd.ssd_window_scan_rows.calls
+    check(scan.plain_calls == 0 and scan.launches == 24 * calls > 0,
+          f"recurrent moves: #8 launches {scan.launches} != 24 x {calls}")
+    out["moves"]["launches"] = scan.launches
+    out["readings"] = recurrent_readings(torch, params)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"recurrent: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -6911,7 +7373,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kl.kernel_library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"({kl.kernel_library_path().name}, {len(KERNELS)} kernels from "
+        f"({kl.kernel_library_path().name}, "
+        f"{len(KERNELS) + len(RECURRENT_KERNELS)} kernels from "
         f"{len(kl.SOURCES)} sources and {len(kl.HEADERS)} header)")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(kl.build_log)
@@ -6930,7 +7393,8 @@ def main() -> int:
         name = sys.argv[sys.argv.index("--phase") + 1]
         only = {"handoff": lambda: phase_handoff(torch, card),
                 "observe": lambda: phase_observe(torch, card),
-                "overload": lambda: phase_overload(torch, card, pa)}
+                "overload": lambda: phase_overload(torch, card, pa),
+                "recurrent": lambda: phase_recurrent(torch, card)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -6954,6 +7418,8 @@ def main() -> int:
     observe = timed("observe", phase_observe, torch, card)
     # The handoff family: three worker_node processes behind the gateway.
     handoff = timed("handoff", phase_handoff, torch, card)
+    # The recurrent family (mamba2) and its window-scan kernel (#8).
+    recurrent = timed("recurrent", phase_recurrent, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -7016,13 +7482,32 @@ def main() -> int:
         if name == "quant_ragged_paged_attention":
             rows[-1]["handoff"] = {"launches": handoff["int8"]["launches"],
                                    "ticks": handoff["int8"]["ticks"]}
+    # #8's row: its launches from the recurrent phase's worker (the main
+    # path), its times at the decode tick's shape (B 8 x W 1), the other
+    # shapes beside them. No single PyTorch call computes the scan, so
+    # library_ms is null.
+    scan = recurrent["kernel"]
+    decode = scan["B8 W1"]
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": RECURRENT_KERNELS["ssd_scan"]["source"],
+        "replaces": RECURRENT_KERNELS["ssd_scan"]["replaces"],
+        "launches": recurrent["worker"]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in scan.values()),
+        "ms": decode["device_ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": None,
+        "shapes": {k: {f: v[f] for f in ("device_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+                   for k, v in scan.items()}})
     kernels = {"kernels": rows}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "parity": errs, "infer_parity": infer_parity,
          "train_small": train_small,
          "server": server, "gateway": gateway, "kvtier": kvtier,
          "refmodels": refmodels, "overload": overload,
-         "observe": observe, "handoff": handoff, "train": train,
+         "observe": observe, "handoff": handoff, "recurrent": recurrent,
+         "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))

@@ -359,9 +359,10 @@ def test_counters_of_one_request_at_a_time_equal_jax(lanes, mode):
 
 
 def test_spec_lane_refusals(spec, tparams):
-    """Speculation needs the paged pool and a window that fits; state_slab
-    and tensor parallelism still refuse; a spec lane builds with the host
-    tier."""
+    """Speculation needs the paged pool and a window that fits; state_rows
+    refuses on this family (the JAX scheduler's message) and tensor
+    parallelism still refuses as unported; a spec lane builds with the
+    host tier."""
     for kw, match in ((dict(spec_k=2, kv_block_size=0),
                        "requires the paged KV cache"),
                       (dict(spec_k=127), "cannot fit a verify window"),
@@ -373,10 +374,13 @@ def test_spec_lane_refusals(spec, tparams):
         with pytest.raises(ValueError, match=match):
             ContinuousGenerator(spec, params=tparams, device="cpu",
                                 **dict(KW, **kw))
-    for kw in (dict(state_rows=2), dict(tp=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ContinuousGenerator(spec, params=tparams, device="cpu",
-                                spec_k=2, **dict(KW, **kw))
+    with pytest.raises(ValueError,
+                       match="state_rows applies to the state_slab family"):
+        ContinuousGenerator(spec, params=tparams, device="cpu", spec_k=2,
+                            **dict(KW, state_rows=2))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ContinuousGenerator(spec, params=tparams, device="cpu", spec_k=2,
+                            **dict(KW, tp=2))
     # The host tier is ported: a spec lane builds with it.
     tiered = ContinuousGenerator(spec, params=tparams, device="cpu",
                                  spec_k=2, **dict(KW, kv_host_blocks=4))

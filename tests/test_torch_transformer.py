@@ -47,8 +47,9 @@ def test_config_fields_equal_jax(name):
 def test_registry_serves_the_dense_names_and_refuses_the_rest():
     assert available_models() == sorted(
         DENSE_NAMES + ["mlp", "resnet50", "resnet50-v1", "bert",
-                       "bert-small-test", "yolov8n", "yolov8n-small-test"])
-    for name in ("gpt2-moe", "gpt2-moe-test", "mamba2", "ssd-small-test"):
+                       "bert-small-test", "yolov8n", "yolov8n-small-test",
+                       "mamba2", "ssd-small-test"])
+    for name in ("gpt2-moe", "gpt2-moe-test"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tcreate(name)
     with pytest.raises(KeyError):

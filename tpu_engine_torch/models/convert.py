@@ -77,6 +77,53 @@ def params_from_jax(tree, cfg: Optional[TransformerConfig] = None,
     return out
 
 
+def ssd_params_from_jax(tree, cfg, device=None):
+    """The JAX package's ``ssd_init`` tree as numpy arrays to the port's
+    recurrent-decoder tree on ``device``: the stacked (L, ...) ``blocks``
+    split per layer (``in_proj``/``out_proj`` as ``{"kernel", "bias"}``,
+    ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``, the norms), and
+    every leaf f32, as the mixer computes (``cfg``: an ``SSDConfig``)."""
+    return params_from_jax(tree, cfg, device, "float32")
+
+
+def init_ssd_params(cfg, seed: int = 0, device=None):
+    """Seeded random parameters at full width, all f32, drawn on
+    ``device``: ``ssd_init``'s distributions (embedding N(0, 0.02²),
+    He-normal projections and head, conv_w N(0, 1/d_conv), A_log =
+    log(1..H), dt_bias N(0, 0.01), D and norm scales ones, zero biases)
+    and tree; the numbers are not JAX's."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    f32 = torch.float32
+    di, N, H = cfg.d_inner, cfg.d_state, cfg.n_heads
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g, device=dev, dtype=f32) * std
+
+    def dense(n_in, n_out):
+        return {"kernel": normal((n_in, n_out), math.sqrt(2.0 / n_in)),
+                "bias": torch.zeros((n_out,), dtype=f32, device=dev)}
+
+    def ones(n):
+        return {"scale": torch.ones((n,), dtype=f32, device=dev)}
+
+    blocks = [{
+        "ln": ones(cfg.d_model),
+        "in_proj": dense(cfg.d_model, 2 * di + 2 * N + H),
+        "conv_w": normal((cfg.d_conv, di), 1.0 / math.sqrt(cfg.d_conv)),
+        "conv_b": torch.zeros((di,), dtype=f32, device=dev),
+        "A_log": torch.log(torch.arange(1, H + 1, dtype=f32, device=dev)),
+        "dt_bias": normal((H,), 0.1),
+        "D": torch.ones((H,), dtype=f32, device=dev),
+        "gate_norm": ones(di),
+        "out_proj": dense(di, cfg.d_model),
+    } for _ in range(cfg.n_layers)]
+    return {"tok_embed": {"table": normal((cfg.vocab, cfg.d_model), 0.02)},
+            "blocks": blocks, "ln_f": ones(cfg.d_model),
+            "head": dense(cfg.d_model, cfg.vocab)}
+
+
 def params_to(params, device):
     """A parameter tree on ``device`` (same dtypes; leaves already there
     are not copied)."""

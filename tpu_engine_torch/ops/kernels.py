@@ -10,8 +10,8 @@ interface: device pointers, sizes and PyTorch's current stream in, a
 ``cudaError_t`` out. Importing this module needs neither ``nvcc`` nor a
 card.
 
-The op modules (``ops.paged_attention``, ``ops.flash``) register their
-wrappers here, one per kernel: ``launches`` counts kernel launches,
+The op modules (``ops.paged_attention``, ``ops.flash``, ``ops.ssd``)
+register their wrappers here, one per kernel: ``launches`` counts kernel launches,
 ``plain_calls`` calls served by the plain PyTorch version (CPU tensors
 only). A run that resets both to 0 and reads them after shows which
 path it went through.
@@ -65,6 +65,9 @@ ENTRY_POINTS = {
     # The same with dk, dv in place of dq.
     "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_I] * 2
                                + [_F] + [_I],
+    # proj, state, row_ids, qlen, conv_w, conv_b, dt_bias, A_log, D, y; B,
+    # W, di, N, H, K, state_dim.
+    "ssd_scan": [_P] * 10 + [_I] * 7,
 }
 
 _build_lock = threading.Lock()

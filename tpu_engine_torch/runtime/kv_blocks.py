@@ -27,6 +27,9 @@ format (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
   ``verify_chain`` / ``import_chain``): a block chain as the JAX
   package's JSON-safe dict, byte for byte: the blocks' bytes verbatim in
   base64, a crc32 over them in chain order and the pool's generation.
+- ``StateSlabPool``: the state_slab family's pool, one fixed-size f32 row
+  per stream, with the same lock, null row and generation discipline and
+  a one-pseudo-block chain of the same wire format.
 
 Device work and threads. Every pool copy (the tick's writes, copy-on-
 write, demotion, promotion, export, import) is issued on the pool
@@ -786,6 +789,188 @@ class BlockPool:
                     out["host"]["scale_slots_leaked"] = (
                         used - self._demoted_nodes())
             return out
+
+
+class StateSlabPool:
+    """Fixed-size recurrent-state rows for the state_slab family
+    (``models.ssd``; counterpart of the JAX package's ``StateSlabPool``):
+    one ``(n_layers, state_dim)`` f32 row per live stream, constant in
+    sequence length, in one ``slab`` tensor (L, num_rows, state_dim) on the
+    pool's device, written in place.
+
+    The ``BlockPool`` discipline: one lock over the free list and
+    refcounts under which every slab-touching device write and read is
+    issued (the ticks, admission writes, exports and imports), a reserved
+    null row 0 that free scheduler slots point at (a window scan leaves a
+    row with no valid slot untouched), and a generation stamp that voids
+    row ids across ``reset``. No radix tree and no prefix sharing: a
+    recurrent prefix is a dense state, not a block-addressable chain, and
+    ``stats()`` says so.
+
+    Chain wire format, byte for byte the JAX pool's: a row serializes as a
+    one-pseudo-block chain ``{"k": base64 of slab[:, rid]'s raw f32
+    bytes}`` with a crc32 checksum, ``"dtype": "float32"`` and the pool's
+    generation, so ``BlockPool.verify_chain`` verifies it unchanged and a
+    chain crosses between the two packages in both directions."""
+
+    def __init__(self, n_layers: int, state_dim: int, num_rows: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        if num_rows < 2:
+            raise ValueError("need >= 2 state rows (row 0 is the null row)")
+        self.n_layers = int(n_layers)
+        self.state_dim = int(state_dim)
+        self.num_rows = int(num_rows)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.lock = threading.RLock()
+        self.generation = 0
+        self.slab = self._init_device()
+        self._ref = np.zeros((self.num_rows,), np.int32)
+        self._ref[0] = 1  # null row: permanently pinned, never allocated
+        self._free: List[int] = list(range(self.num_rows - 1, 0, -1))
+        # Counters of the state_pool stats block and tpu_engine_state_*.
+        self.rows_admitted = 0
+        self.rows_released = 0
+        self.exports = 0
+        self.imports = 0
+
+    def _init_device(self) -> torch.Tensor:
+        return torch.zeros((self.n_layers, self.num_rows, self.state_dim),
+                           dtype=self.dtype, device=self.device)
+
+    def _dtype_name(self) -> str:
+        return str(self.dtype).replace("torch.", "")
+
+    # -- bookkeeping (hold self.lock) -----------------------------------------
+
+    @property
+    def rows_free(self) -> int:
+        return len(self._free)
+
+    def refcount(self, row_id: int) -> int:
+        return int(self._ref[row_id])
+
+    def alloc_row(self) -> int:
+        """One fresh state row (refcount 1). Raises PoolExhausted (state
+        unchanged) when none is free: the scheduler defers the admission."""
+        if not self._free:
+            raise PoolExhausted(
+                f"no free state rows ({self.num_rows - 1} total)")
+        rid = self._free.pop()
+        self._ref[rid] = 1
+        self.rows_admitted += 1
+        return rid
+
+    def release_row(self, row_id: int) -> None:
+        if row_id == 0:
+            return  # null row: permanent
+        self._ref[row_id] -= 1
+        assert self._ref[row_id] >= 0, "double free of a state row"
+        if self._ref[row_id] == 0:
+            self._free.append(row_id)
+            self.rows_released += 1
+
+    def write_row(self, row_id: int, flat: Optional[torch.Tensor]) -> None:
+        """Set row ``row_id`` to ``flat`` (L, state_dim), or to zeros for
+        None (a fresh stream's state). Caller holds the lock."""
+        if flat is None:
+            self.slab[:, row_id] = 0.0
+        else:
+            self.slab[:, row_id] = flat.to(device=self.device,
+                                           dtype=self.dtype)
+
+    # -- chain export/import (one-pseudo-block wire format) -------------------
+
+    def export_row_chain(self, row_id: int) -> dict:
+        """Serialize one state row as a one-pseudo-block chain: its
+        verbatim f32 bytes (the device read is issued after every write
+        that produced them, in the lock's order), so an import on any
+        same-geometry pool of either package is bit-exact."""
+        raw = self.slab[:, row_id].contiguous().cpu().numpy().tobytes()
+        self.exports += 1
+        return {
+            "version": 1,
+            "family": "state_slab",
+            "dtype": self._dtype_name(),
+            "n_layers": self.n_layers,
+            "state_dim": self.state_dim,
+            "blocks": [{"k": base64.b64encode(raw).decode("ascii")}],
+            "checksum": zlib.crc32(raw),
+            "generation": self.generation,
+        }
+
+    def chain_compatible(self, chain: dict) -> Optional[str]:
+        """None when ``chain`` can be imported into this pool verbatim, else
+        the refusal: family, geometry and dtype must match, and the one
+        pseudo-block's payload must hold exactly one row's bytes. Refused
+        here, before any row is allocated."""
+        want = {"family": "state_slab", "dtype": self._dtype_name(),
+                "n_layers": self.n_layers, "state_dim": self.state_dim}
+        for key, val in want.items():
+            if chain.get(key) != val:
+                return (f"chain {key}={chain.get(key)!r} does not match "
+                        f"destination state pool {key}={val!r}")
+        blocks = chain.get("blocks")
+        if not isinstance(blocks, (list, tuple)) or len(blocks) != 1:
+            return "state chain must carry exactly one pseudo-block"
+        entry = blocks[0]
+        if not isinstance(entry, dict) or not isinstance(entry.get("k"),
+                                                         str):
+            return "state chain block 0 is missing its payload"
+        try:
+            n = len(base64.b64decode(entry["k"], validate=True))
+        except Exception:
+            return "state chain block 0 payload is not base64"
+        if n != self.bytes_per_row():
+            return (f"state chain block 0 holds {n} bytes, expected "
+                    f"{self.bytes_per_row()}")
+        return None
+
+    # The checksum gate does not depend on the payload's shape.
+    verify_chain = staticmethod(BlockPool.verify_chain)
+
+    def import_row_chain(self, chain: dict, row_id: int) -> None:
+        """Write a verified chain's payload into an allocated row verbatim.
+        The caller holds the lock and has run ``chain_compatible`` and
+        ``verify_chain``."""
+        raw = base64.b64decode(chain["blocks"][0]["k"])
+        flat = torch.from_numpy(np.frombuffer(raw, dtype=np.float32).copy())
+        self.slab[:, row_id] = flat.reshape(
+            self.n_layers, self.state_dim).to(self.device)
+        self.imports += 1
+
+    def reset(self) -> None:
+        """Recovery after a failed device step: the slab may hold
+        half-written rows, so it is rebuilt, and every row id issued against
+        the old generation is void."""
+        self.generation += 1
+        self.slab = self._init_device()
+        self._ref[:] = 0
+        self._ref[0] = 1
+        self._free = list(range(self.num_rows - 1, 0, -1))
+
+    def bytes_per_row(self) -> int:
+        """Device bytes one stream's whole state costs, constant in
+        sequence length."""
+        return int(self.n_layers * self.state_dim
+                   * torch.empty((), dtype=self.dtype).element_size())
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {
+                "rows_total": self.num_rows - 1,  # null row excluded
+                "rows_free": len(self._free),
+                "state_dim": self.state_dim,
+                "n_layers": self.n_layers,
+                "bytes_per_row": self.bytes_per_row(),
+                "rows_admitted": self.rows_admitted,
+                "rows_released": self.rows_released,
+                "exports": self.exports,
+                "imports": self.imports,
+                "prefix_sharing":
+                    "unsupported: recurrent state is not "
+                    "block-addressable",
+            }
 
 
 # -- device-side block movement (two-path admission) --------------------------

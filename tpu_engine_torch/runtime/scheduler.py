@@ -95,8 +95,25 @@ serves a peer the longest radix chain of a token prefix,
 directory, and a miss carrying a ``prefix_hint`` fetches the hinted
 peer's chain (the ``prefix_fetch`` callable the worker installs) and
 splices it past the local match before prefilling the rest
-(``_fetch_prefix_splice``; every failure prefills locally). The
-state-slab mode and tensor parallelism are not yet ported and refuse.
+(``_fetch_prefix_splice``; every failure prefills locally). Tensor
+parallelism is not yet ported and refuses.
+
+The state_slab family (``models.ssd``: mamba2, ssd-small-test) runs the
+same loop over a ``StateSlabPool`` instead of a KV cache: one fixed-size
+f32 state row per stream, allocated at admission, freed on every row-free
+path, the null row 0 under free slots. Two-path: the prefill thread runs
+the prompt through ``ssd_window_scan_rows`` in ``prefill_chunk`` windows
+from a zero state of its own, the admission writes it into the row, and
+decode chunks take one-slot window scans over the slab. Mixed: admission
+zeroes the row, and each tick's ONE window scan advances decode rows one
+slot and admitting rows their budgeted chunk, in place. A done or parked
+row rides every scan with qlen 0, its state frozen. Each window scan is
+one ``ops.ssd.ssd_scan`` per layer (the kernel on the card). Rows defer
+under row exhaustion; a row exports as a one-pseudo-block chain
+(``state_export``) and imports verbatim (``state_import``), with zero
+re-prefilled tokens, for migration and the disaggregated handoff. The
+family refuses the KV knobs, speculation and tensor parallelism with the
+JAX scheduler's messages.
 
 Brownout (``set_brownout``, driven by the worker's overload control
 loop) degrades the work's shape, never a stream's content: the mixed
@@ -148,7 +165,16 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from tpu_engine_torch.models.registry import ModelSpec, create_model
+from tpu_engine_torch.models.registry import (
+    ModelSpec,
+    create_model,
+    tp_unshardable_reason,
+)
+from tpu_engine_torch.models.ssd import (
+    SSDConfig,
+    ssd_state_dim,
+    ssd_window_scan_rows,
+)
 from tpu_engine_torch.models.transformer import (
     KVCache,
     TransformerConfig,
@@ -170,6 +196,7 @@ from tpu_engine_torch.runtime.generator import (
 from tpu_engine_torch.runtime.kv_blocks import (
     BlockPool,
     PoolExhausted,
+    StateSlabPool,
     gather_blocks,
     gather_blocks_quant,
     scatter_blocks,
@@ -255,7 +282,9 @@ class _Formed(NamedTuple):
     matched: List[int]      # radix-matched block ids, pinned for this row
     prompt: List[int]
     gen: int                # pool generation the pins belong to
-    row_caches: Optional[KVCache] = None  # (L, 1, pb, H_kv, D) row cache
+    # The two-path forward's result: the (L, 1, pb, H_kv, D) row cache, or
+    # on a slab lane the prompt's (L, state_dim) state.
+    row_caches: Optional[Union[KVCache, torch.Tensor]] = None
     first_tok: int = 0
 
 
@@ -483,12 +512,24 @@ class ContinuousGenerator:
         whose rows are all one-shot."""
         if isinstance(model, str):
             model = create_model(model)
+        # The model's declared state family selects the autoregressive
+        # state machinery: "kv_paged" (dense cache or block pool),
+        # "state_slab" (one StateSlabPool row per stream) or "stateless"
+        # (one-shot rows only).
         self._stateless = model.state_family == "stateless"
+        self._slab = model.state_family == "state_slab"
         if self._stateless:
             self._fence_stateless(kv_block_size, kv_blocks, kv_host_blocks,
                                   kv_quantize, spec_k, mixed_step,
                                   state_rows)
-        if mixed_step and int(kv_block_size) <= 0:
+        elif self._slab:
+            self._fence_slab(model, kv_block_size, kv_blocks,
+                             kv_host_blocks, kv_quantize, spec_k, tp)
+        elif int(state_rows) > 0:
+            raise ValueError(
+                "state_rows applies to the state_slab family; model "
+                f"'{model.name}' serves the {model.state_family} family")
+        if mixed_step and int(kv_block_size) <= 0 and not self._slab:
             raise ValueError("mixed_step requires the paged KV cache "
                              "(set kv_block_size > 0)")
         if kv_quantize and int(kv_block_size) <= 0:
@@ -500,13 +541,11 @@ class ContinuousGenerator:
         if int(kv_host_blocks) > 0 and int(kv_block_size) <= 0:
             raise ValueError("kv_host_blocks requires the paged KV cache "
                              "(set kv_block_size > 0)")
-        if int(state_rows) > 0:
-            _refuse("the state_slab family (state_rows)")
         if int(tp) > 1:
             _refuse("tensor-parallel serving (tp)")
         cfg = model.config
-        if not self._stateless and (not isinstance(cfg, TransformerConfig)
-                                    or not cfg.causal):
+        if not (self._stateless or self._slab) and (
+                not isinstance(cfg, TransformerConfig) or not cfg.causal):
             raise ValueError(f"model '{model.name}' is not a decoder "
                              f"transformer")
         self.spec = model
@@ -548,7 +587,16 @@ class ContinuousGenerator:
                                              range(self.n_slots)]
         # Admissions deferred on pool pressure, retried as rows free.
         self._pending: "collections.deque[_Formed]" = collections.deque()
-        if self._paged:
+        if self._slab:
+            # One fixed-size f32 row per live stream, constant in sequence
+            # length: the family's capacity is rows, not blocks. No radix
+            # tree (a recurrent prefix is not block-addressable).
+            self._spool = StateSlabPool(
+                cfg.n_layers, ssd_state_dim(cfg),
+                int(state_rows) or self.n_slots + 1, device=self.device)
+            self._slab_rows: List[int] = [-1] * self.n_slots  # -1: none
+            self._prefix_sharing = False
+        elif self._paged:
             self._init_pool(cfg, int(kv_block_size), int(kv_blocks),
                             int(kv_host_blocks), str(kv_quantize),
                             bool(prefix_sharing))
@@ -747,6 +795,41 @@ class ContinuousGenerator:
                 "state_rows applies to the state_slab family; the "
                 "stateless family has no recurrent state")
 
+    @staticmethod
+    def _fence_slab(model, kv_block_size, kv_blocks, kv_host_blocks,
+                    kv_quantize, spec_k, tp) -> None:
+        """The state_slab family has no KV blocks and no verify window:
+        those knobs refuse (the JAX scheduler's messages), and so does
+        tensor parallelism, by the config's pinned rule."""
+        if not isinstance(model.config, SSDConfig):
+            raise ValueError(
+                f"model '{model.name}' declares state family "
+                f"'state_slab' but its config is not an SSDConfig "
+                f"(the slab step functions are models.ssd's)")
+        if int(tp) > 1:
+            reason = (tp_unshardable_reason(model)
+                      or "the state_slab family declares no shardable "
+                         "heads axis")
+            raise RuntimeError(f"model '{model.name}' cannot serve "
+                               f"tensor-parallel (tp={int(tp)}): {reason}")
+        if int(kv_block_size) > 0 or int(kv_blocks) > 0:
+            raise ValueError(
+                "the state_slab family has no paged KV cache: "
+                "kv_block_size/kv_blocks apply to kv_paged models "
+                "(state capacity is state_rows)")
+        if int(kv_host_blocks) > 0:
+            raise ValueError(
+                "kv_host_blocks applies to the kv_paged family's block "
+                "pool; the state_slab family has no demotable KV blocks")
+        if kv_quantize:
+            raise ValueError(
+                "kv_quantize applies to the kv_paged family's block pool; "
+                "the state_slab family's slab stays full precision")
+        if int(spec_k) > 0:
+            raise ValueError(
+                "speculative decoding (spec_k > 0) requires the kv_paged "
+                "family: the state_slab recurrence has no KV verify window")
+
     def _init_pool(self, cfg: TransformerConfig, bs: int, kv_blocks: int,
                    host_blocks: int, kv_quantize: str,
                    prefix_sharing: bool) -> None:
@@ -794,9 +877,9 @@ class ContinuousGenerator:
         ``DeadlineExceeded`` once it passes (between ticks). ``tag``:
         the name ``export_row`` finds the row by. ``sink``: a
         ``utils.tracing.TraceSink`` for the request's stage spans.
-        ``handoff`` (paged lanes): park the row after prefill, first token
-        emitted and decode ticks skipped, for up to ``handoff_park_s``
-        seconds (clamped to [0.1, 300]) awaiting
+        ``handoff`` (paged and slab lanes): park the row after prefill,
+        first token emitted and decode ticks skipped, for up to
+        ``handoff_park_s`` seconds (clamped to [0.1, 300]) awaiting
         ``export_row(wait_prefill=True)``; past the window it decodes
         locally. ``prefix_hint``: the gateway's ``{"lane", "addr",
         "fingerprint", "blocks"}`` of the peer holding this prompt's
@@ -826,7 +909,8 @@ class ContinuousGenerator:
                        sink=sink, t_submit=time.perf_counter(),
                        prefix_hint=dict(prefix_hint)
                        if isinstance(prefix_hint, dict) else None,
-                       handoff=bool(handoff) and self._paged,
+                       handoff=bool(handoff) and (self._paged
+                                                  or self._slab),
                        park_s=min(300.0, max(0.1, float(handoff_park_s))))
         self._queue.put(req)
         return req.future
@@ -853,7 +937,7 @@ class ContinuousGenerator:
         the row's handoff hold instead of exporting (``cancelled`` says
         whether a hold existed or was pre-empted): it decodes on at the
         next tick."""
-        if not self._paged:
+        if not (self._paged or self._slab):
             return {"ok": False,
                     "reason": "migration requires the paged KV cache"}
         if not self._running:
@@ -884,7 +968,7 @@ class ContinuousGenerator:
         with ``ImportRefused``."""
         if not self._running:
             raise RuntimeError("scheduler stopped")
-        if not self._paged:
+        if not (self._paged or self._slab):
             raise ValueError("migration import requires the paged KV "
                              "cache (kv_block_size > 0)")
         if not isinstance(snapshot, dict):
@@ -1255,6 +1339,10 @@ class ContinuousGenerator:
         if self._paged:
             out["kv_pool"] = self._pool.stats()
             out["kv_pool"]["pending_admissions"] = len(self._pending)
+        if self._slab:
+            # The slab lanes' block, beside which no kv_pool appears.
+            out["state_pool"] = self._spool.stats()
+            out["state_pool"]["pending_admissions"] = len(self._pending)
         if self._draining_flag:
             # Live rows over slots of a draining lane (0.0: emptied).
             out["drain_pressure"] = round(out["active"] / max(1, self.n_slots),
@@ -1314,7 +1402,7 @@ class ContinuousGenerator:
                "ready": self._ready.qsize()}
         for k, v in cur.items():
             rec[k] = v - prev.get(k, 0)
-        if self._paged:
+        if self._paged or self._slab:
             rec["parked"] = len(self._pending)
         if self._mixed:
             rec["prefilling"] = int(sum(1 for p in self._prefilling if p))
@@ -1326,6 +1414,10 @@ class ContinuousGenerator:
             if host:
                 pool["host_blocks_used"] = host["blocks_used"]
             rec["pool"] = pool
+        elif self._slab:
+            ss = self._spool.stats()
+            rec["pool"] = {"rows_free": ss["rows_free"],
+                           "rows_total": ss["rows_total"]}
         if self._draining_flag:
             rec["draining"] = True
         if self._bo_budget_frac < 1.0 or self._bo_spec_off:
@@ -1623,7 +1715,15 @@ class ContinuousGenerator:
     def _release_row_blocks(self, row: int) -> None:
         """Return a freed row's block references to the pool (blocks the
         radix tree also references survive). Every row-free path
-        (completion, cancel, shutdown) funnels here."""
+        (completion, cancel, shutdown) funnels here; a slab row frees its
+        one state row the same way."""
+        if self._slab:
+            rid = self._slab_rows[row]
+            if rid >= 0:
+                with self._spool.lock:
+                    self._spool.release_row(rid)
+                self._slab_rows[row] = -1
+            return
         if not self._row_blocks[row]:
             return
         with self._pool.lock:
@@ -1758,7 +1858,9 @@ class ContinuousGenerator:
             self._stage(req, "queue_wait", req.t_submit)
             try:
                 try:
-                    if not self._paged:
+                    if self._slab:
+                        item = self._run_prefill_slab(req)
+                    elif not self._paged:
                         item = self._run_prefill_dense(req)
                     elif req.migrate is not None:
                         item = self._run_prefill_import(req)
@@ -1890,6 +1992,84 @@ class ContinuousGenerator:
             row_counts = token_counts([ctx], 1, self.cfg.vocab)
         return _Formed(req, n_chain * bs, len(prompt), row_counts, matched,
                        prompt, gen)
+
+    # -- the state_slab family's formation -----------------------------------
+
+    def _run_prefill_slab(self, req: _Request) -> _Formed:
+        """Formation on a slab lane (prefill thread). A migration import
+        checks its chain; mixed mode forms the request with no device work
+        (the prompt's recurrence runs in the ticks, in the row's slab row);
+        two-path mode consumes the prompt through the recurrence in
+        windows of ``prefill_chunk`` tokens from a zero state of its own
+        (no slab row is read: a recurrent prefix is not shared), one
+        ``ssd_window_scan_rows`` per window, and samples the first token.
+        The prompt is not cut to a bucket; ``pb`` is its length."""
+        if req.migrate is not None:
+            return self._run_prefill_import_slab(req)
+        spool = self._spool
+        prompt = list(req.prompt)
+        L = len(prompt)
+        with spool.lock:
+            gen = spool.generation
+        if self._mixed:
+            row_counts = None
+            if req.rep_penalty != 1.0 or req.stop_tokens:
+                row_counts = token_counts([prompt], 1, self.cfg.vocab)
+            return _Formed(req, L, L, row_counts, [], prompt, gen)
+        Leff = max(L, 1)  # an empty prompt consumes one pad-token step
+        W = self._prefill_chunk if self._prefill_chunk > 0 else 64
+        W = max(1, min(W, self.max_seq))
+        dev = self.device
+        state = torch.zeros((self.cfg.n_layers, 1, ssd_state_dim(self.cfg)),
+                            dtype=torch.float32, device=dev)
+        row0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+        tokens = np.zeros((1, W), np.int32)
+        logits = None
+        for w0 in range(0, Leff, W):
+            n_valid = min(W, Leff - w0)
+            tokens[:] = 0
+            if L:
+                tokens[0, :n_valid] = prompt[w0:w0 + n_valid]
+            logits = ssd_window_scan_rows(
+                self.params, torch.from_numpy(tokens).to(dev), state, row0,
+                torch.tensor([n_valid], dtype=torch.int32, device=dev),
+                torch.tensor([n_valid - 1], device=dev), self.cfg)
+            self._count_admission_dispatch()
+        first_tok, row_counts = self._first_token(req, logits[0], prompt, L)
+        return _Formed(req, L, L, row_counts, [], prompt, gen, state[:, 0],
+                       first_tok)
+
+    def _run_prefill_import_slab(self, req: _Request) -> _Formed:
+        """A slab import's gates (prefill thread), before any row is
+        allocated: the one-pseudo-block chain's geometry and checksum and
+        the position against ``max_seq`` (a refusal is ``ImportRefused``).
+        No prefill runs: the whole state arrives in the chain."""
+        spool = self._spool
+        snap = req.migrate
+        chain = snap.get("chain")
+        reason = None
+        if not isinstance(chain, dict) or "blocks" not in chain:
+            reason = "snapshot carries no state chain"
+        if reason is None:
+            reason = spool.chain_compatible(chain)
+        if reason is None and not spool.verify_chain(chain):
+            reason = "chain checksum mismatch"
+        pos = int(snap["pos"])
+        if reason is None and pos > self.max_seq - 1:
+            reason = (f"row position {pos} exceeds this lane's max_seq "
+                      f"{self.max_seq}")
+        if reason is not None:
+            self._bump_migration("import_rejected")
+            raise ImportRefused(f"migration import rejected: {reason}")
+        prompt = [int(t) for t in snap["prompt"]]
+        row_counts = None
+        if req.rep_penalty != 1.0 or req.stop_tokens:
+            ctx = prompt + [int(t) for t in snap["emitted"]]
+            row_counts = token_counts([ctx], 1, self.cfg.vocab)
+        with spool.lock:
+            gen = spool.generation
+        return _Formed(req, len(prompt), len(prompt), row_counts, [], prompt,
+                       gen)
 
     def _record_swap_in(self, req: _Request, swapped: int,
                         t0: float) -> None:
@@ -2072,7 +2252,9 @@ class ContinuousGenerator:
     # -- decode thread -----------------------------------------------------------
 
     def _admit(self, item: _Formed, row: int) -> None:
-        if not self._paged:
+        if self._slab:
+            self._admit_slab(item, row)
+        elif not self._paged:
             self._admit_dense(item, row)
         elif item.req.migrate is not None:
             self._admit_import(item, row)
@@ -2311,6 +2493,88 @@ class ContinuousGenerator:
         self._push_stream(row, req)
         self._maybe_complete(row)
 
+    def _alloc_slab_row(self, item: _Formed, row: int, state,
+                        what: str) -> int:
+        """Allocate the row's one slab row and write its state (``state``:
+        (L, state_dim), None for zeros, or a chain dict to import), under
+        the pool lock. Raises PoolExhausted (nothing consumed) when no row
+        is free, _StaleAdmission across a pool rebuild."""
+        spool = self._spool
+        with spool.lock:
+            if item.gen != spool.generation:
+                raise _StaleAdmission(
+                    f"state slab pool was rebuilt during this {what}")
+            rid = spool.alloc_row()
+            if isinstance(state, dict):
+                spool.import_row_chain(state, rid)
+            else:
+                spool.write_row(rid, state)
+        self._slab_rows[row] = rid
+        if item.row_counts is not None:
+            self._ensure_counts()[row] = torch.as_tensor(
+                item.row_counts[0], device=self.device)
+        return rid
+
+    def _admit_slab(self, item: _Formed, row: int) -> None:
+        """Slab admission (decode thread): ONE slab row for the stream's
+        whole life. Two-path: the prefill thread's state lands in it and
+        the first token is emitted. Mixed: the row is zeroed (the prompt's
+        recurrence accumulates in it across ticks; a previous occupant's
+        bytes never leak into a fresh state) and marked PREFILLING. An
+        import writes the chain's bytes verbatim and restores the stream's
+        host state: zero re-prefilled tokens. Raises PoolExhausted (nothing
+        consumed) when no row is free."""
+        req, _pb, L, _counts, _m, prompt = item[:6]
+        t0 = time.perf_counter()
+        req.t_admit = t0
+        if req.migrate is not None:
+            snap = req.migrate
+            rid = self._alloc_slab_row(item, row, snap["chain"], "import")
+            self._count_admission_dispatch()
+            self._stage(req, "state_import", t0, state_row=rid,
+                        state_bytes=self._spool.bytes_per_row())
+            emitted = [int(t) for t in snap["emitted"]]
+            self._set_row_params(req, row, min(int(snap["pos"]),
+                                               self.max_seq - 1))
+            self._tok[row] = int(snap["tok"])
+            self._done[row] = False
+            self._row_emitted[row] = emitted
+            if self._mixed:
+                self._prefilling[row] = False
+                self._row_prompt[row] = None
+                self._row_prompt_toks[row] = prompt
+                self._row_L[row] = L
+                self._row_w0[row] = 0
+            # No TTFT sample (the first token came from the source lane).
+            self._row_last_emit[row] = time.perf_counter()
+            with self._stats_lock:
+                mig = self._migration_stats()
+                mig["imported_rows"] += 1
+                mig["imported_tokens"] += len(emitted)
+            self._push_stream(row, req)
+            self._maybe_complete(row)
+            return
+        first_col = min(L, self.max_seq - 1)
+        if not self._mixed:
+            rid = self._alloc_slab_row(item, row, item.row_caches,
+                                       "request's admission")
+            self._count_admission_dispatch()
+            self._stage(req, "state_alloc", t0, state_row=rid)
+            self._set_row_params(req, row, first_col)
+            self._emit_first_token(item, row)
+            self._maybe_hold(row, req)
+            return
+        rid = self._alloc_slab_row(item, row, None, "request's admission")
+        self._stage(req, "state_alloc", t0, state_row=rid)
+        self._set_row_params(req, row, first_col)
+        self._prefilling[row] = True
+        self._row_prompt[row] = right_pad_prompt(prompt, max(L, 1))[0]
+        self._row_prompt_toks[row] = prompt
+        self._row_L[row] = L
+        self._row_w0[row] = 0  # no prefix resume: the prompt runs whole
+        self._row_emitted[row] = []
+        self._done[row] = False
+
     def _ensure_capacity_paged(self) -> None:
         """Block growth before a tick or chunk: every live decode row must
         own the blocks of the columns it may write next (its decode
@@ -2428,7 +2692,7 @@ class ContinuousGenerator:
         one token, so admission never deadlocks behind a full batch."""
         t0 = time.perf_counter()
         start_ts = time.time()
-        pool = self._pool
+        pool = None if self._slab else self._pool
         B = self.n_slots
         eos_vec, controls = self._eos_and_controls()
         n_decode = 0
@@ -2488,13 +2752,22 @@ class ContinuousGenerator:
         # into free blocks and demotions of tree-only blocks, which no row
         # of this tick reads or writes, issued on the same stream.
         dev = self.device
-        logits = transformer_step_rows_ragged(
-            self.params, torch.from_numpy(tokens).to(dev), pool.caches,
-            torch.from_numpy(self._tables).to(dev),
-            torch.from_numpy(pos0).to(dev), torch.from_numpy(qlen).to(dev),
-            self.cfg, dtype=self._dtype,
-            sample_slot=torch.from_numpy(sample_slot).to(dev),
-            scales=pool.scales)[0]
+        if self._slab:
+            # The window scan over the slab rows: decode rows take one
+            # step, admitting rows their chunk; a done or parked row rides
+            # with qlen 0, its state frozen.
+            step_ok = np.array([self._prefilling[r] or active[r]
+                                for r in range(B)])
+            logits = self._slab_forward(tokens, np.where(step_ok, qlen, 0),
+                                        sample_slot)
+        else:
+            logits = transformer_step_rows_ragged(
+                self.params, torch.from_numpy(tokens).to(dev), pool.caches,
+                torch.from_numpy(self._tables).to(dev),
+                torch.from_numpy(pos0).to(dev),
+                torch.from_numpy(qlen).to(dev), self.cfg, dtype=self._dtype,
+                sample_slot=torch.from_numpy(sample_slot).to(dev),
+                scales=pool.scales)[0]
         if controls:
             logits = apply_repetition_penalty(
                 logits, self._ensure_counts(),
@@ -2766,16 +3039,52 @@ class ContinuousGenerator:
         return (host[:n].reshape(b, S), host[n:n + b], host[n + b:n + 2 * b],
                 host[n + 2 * b:].astype(bool))
 
+    def _slab_row_ids(self) -> np.ndarray:
+        """(n_slots,) int32 slab row of each slot, the null row 0 for a
+        slot that holds none."""
+        return np.asarray([rid if rid >= 0 else 0
+                           for rid in self._slab_rows], np.int32)
+
+    def _slab_forward(self, tokens, qlen, sample_slot, row_ids=None):
+        """ONE window scan over the slab rows (``ssd_window_scan_rows``,
+        the kernel on the card) under the pool lock: tokens (B, W), qlen
+        and sample_slot (B,) host arrays or device tensors. Returns the
+        (B, vocab) logits."""
+        dev = self.device
+
+        def on(a):
+            return a if isinstance(a, torch.Tensor) else \
+                torch.from_numpy(np.asarray(a)).to(dev)
+
+        if row_ids is None:
+            row_ids = on(self._slab_row_ids())
+        spool = self._spool
+        with spool.lock:
+            return ssd_window_scan_rows(
+                self.params, on(tokens), spool.slab, row_ids,
+                on(qlen).to(torch.int32), on(sample_slot), self.cfg)
+
     def _decode_step_fn(self):
-        """One decode step of every row, (tok, pos, start) -> logits: over
-        the dense cache (``transformer_decode_rows``), or over the block
-        pool (``transformer_decode_rows_paged``, rows 0-aligned) with the
-        step's pool writes issued under the pool lock, so a prefix gather
-        the prefill thread issues runs between two steps, never across
-        one; taking the lock per step, not per chunk, lets the prefill
-        thread's lookups and gathers in between."""
+        """One decode step of every row, (tok, pos, start, done) ->
+        logits: over the dense cache (``transformer_decode_rows``), over
+        the block pool (``transformer_decode_rows_paged``, rows 0-aligned)
+        with the step's pool writes issued under the pool lock, so a
+        prefix gather the prefill thread issues runs between two steps,
+        never across one (taking the lock per step, not per chunk, lets the
+        prefill thread's lookups and gathers in between), or over the slab
+        (one-slot window scans; done rows ride with qlen 0, their state
+        frozen)."""
+        if self._slab:
+            dev = self.device
+            row_ids = torch.from_numpy(self._slab_row_ids()).to(dev)
+            zero = torch.zeros((self.n_slots,), dtype=torch.long, device=dev)
+
+            def step(tok, pos, start, done):
+                return self._slab_forward(tok[:, None], ~done, zero,
+                                          row_ids=row_ids)
+            return step
         if not self._paged:
-            def step(tok, pos, start):
+            def step(tok, pos, start, done):
                 return transformer_decode_rows(
                     self.params, tok, self._caches, pos, self.cfg,
                     dtype=self._dtype, start_vec=start)[0]
@@ -2783,7 +3092,7 @@ class ContinuousGenerator:
         pool = self._pool
         tables = torch.from_numpy(self._tables).to(self.device)
 
-        def step(tok, pos, start):
+        def step(tok, pos, start, done):
             with pool.lock:
                 return transformer_decode_rows_paged(
                     self.params, tok, pool.caches, tables, pos, self.cfg,
@@ -2825,7 +3134,7 @@ class ContinuousGenerator:
             rows = torch.arange(self.n_slots, device=dev)
         toks = []
         for _ in range(self._step_chunk):
-            logits = step(tok, pos, start)
+            logits = step(tok, pos, start, done)
             if controls:
                 logits = apply_repetition_penalty(logits, counts, pens)
             nxt = _sample(logits, seeds, pos + 1 - start, self._temps,
@@ -2920,9 +3229,7 @@ class ContinuousGenerator:
         if self._done[row]:
             self._bump_migration("export_refused")
             return {"ok": False, "reason": "row already finishing"}
-        pool = self._pool
         pos = int(self._pos[row])
-        n_chain = (pos - 1) // pool.block_size + 1 if pos > 0 else 0
         # Cross-lane stitching of a traced stream: the chain carries the
         # row's trace context and the snapshot its traceparent, so the
         # importing lane's spans join this trace (both keys additive).
@@ -2930,12 +3237,27 @@ class ContinuousGenerator:
         if self.trace_stitch and req.sink is not None:
             trace_hdr = {"trace_id": req.sink.ctx.trace_id,
                          "parent_id": req.sink.ctx.span_id}
-        with pool.lock:
-            chain = pool.export_chain(self._row_blocks[row][:n_chain],
-                                      trace=trace_hdr)
-        # The bucket-truncated prompt is what the row's columns hold.
-        pb = pick_bucket(self._prompt_buckets, len(req.prompt))
-        prompt = req.prompt[-pb:]
+        if self._slab:
+            # The whole state is ONE slab row: it ships as a
+            # one-pseudo-block chain of the same wire format.
+            t0 = time.perf_counter()
+            spool = self._spool
+            with spool.lock:
+                chain = spool.export_row_chain(self._slab_rows[row])
+            if trace_hdr is not None:
+                chain = dict(chain, trace=trace_hdr)
+            self._stage(req, "state_export", t0,
+                        state_bytes=spool.bytes_per_row())
+            prompt = list(req.prompt)
+        else:
+            pool = self._pool
+            n_chain = (pos - 1) // pool.block_size + 1 if pos > 0 else 0
+            with pool.lock:
+                chain = pool.export_chain(self._row_blocks[row][:n_chain],
+                                          trace=trace_hdr)
+            # The bucket-truncated prompt is what the row's columns hold.
+            pb = pick_bucket(self._prompt_buckets, len(req.prompt))
+            prompt = req.prompt[-pb:]
         emitted = list(self._row_emitted[row])
         # Flush everything visible before the terminal, so the stream and
         # the snapshot agree on the resume offset.
@@ -2994,6 +3316,21 @@ class ContinuousGenerator:
         self._counts = None
         if self._stateless:
             return
+        if self._slab:
+            # The slab may hold half-written rows: rebuild it; row ids of
+            # the old generation are void.
+            with self._spool.lock:
+                self._spool.reset()
+                spool = self._spool
+                violations = []
+                if len(spool._free) != spool.num_rows - 1:
+                    violations.append(f"free list {len(spool._free)} != "
+                                      f"{spool.num_rows - 1}")
+                if int(np.sum(spool._ref[1:])) != 0:
+                    violations.append("nonzero refcounts after reset")
+            self._slab_rows = [-1] * self.n_slots
+            self._report_violations(violations)
+            return
         if not self._paged:
             self._caches = init_caches(self.cfg, self.n_slots, self.max_seq,
                                        self._dtype, self.device)
@@ -3013,6 +3350,9 @@ class ContinuousGenerator:
         self._tables[:, :] = 0
         for r in range(self.n_slots):
             self._row_blocks[r] = []
+        self._report_violations(violations)
+
+    def _report_violations(self, violations: List[str]) -> None:
         if violations:
             self._bump("recover_invariant_violations", len(violations))
             print(f"[scheduler] POST-RECOVER INVARIANT VIOLATED: "
@@ -3201,10 +3541,11 @@ class ContinuousGenerator:
             self._profile_tick()
             self._last_tick = now  # liveness heartbeat
             self._cancel_rows()
-            if self._paged:
+            if self._paged or self._slab:
                 # Exports first: between ticks the row is quiescent, and
                 # ahead of admissions no export sees a half-admitted row.
                 self._serve_exports()
+            if self._paged:
                 # Live rows' block growth outranks new admissions.
                 self._ensure_capacity_paged()
             free = self._free_rows()
@@ -3267,6 +3608,15 @@ class ContinuousGenerator:
                         self._fail_request(req, ImportRefused(
                             f"migration import refused: {exc}"))
                         continue
+                    if self._slab:
+                        # A slab request needs exactly one row and the
+                        # pool holds at least one: park it (no pins to
+                        # drop) until a completion frees a row.
+                        if not from_pending:
+                            self._pending.append(item)
+                        if all(r is None for r in self._row_req):
+                            time.sleep(0.005)
+                        break
                     # A request larger than the whole pool can never
                     # admit: fail it; otherwise park it until completions
                     # free blocks.
@@ -3302,7 +3652,7 @@ class ContinuousGenerator:
                     self._fail_request(req, exc)
                     self._recover(exc)
                     break
-            if self._paged:
+            if self._paged or self._slab:
                 # Holds past their park window decode on (the colocated
                 # fallback: the export never came).
                 self._unpark_expired()
@@ -3314,7 +3664,8 @@ class ContinuousGenerator:
                     if self._row_req[r] is not None]
             if not live:
                 continue
-            if self._paged and all(self._held[r] for r in live):
+            if (self._paged or self._slab) and all(self._held[r]
+                                                   for r in live):
                 # Only parked rows: nothing to dispatch until the export
                 # command (or the park bound) arrives.
                 time.sleep(0.002)

@@ -6,7 +6,7 @@
       [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
        [--mixed-step --mixed-token-budget N]
        [--spec-k K [--spec-draft ngram|model] [--gen-draft-model NAME]]]
-      [--step-chunk N] [--prefill-chunk N] [--n-slots N]
+      [--state-rows N] [--step-chunk N] [--prefill-chunk N] [--n-slots N]
       [--max-batch-size N] [--cache-capacity N] [--batch-timeout-ms MS]
       [--pipeline-depth N] [--warmup] [--no-unified-stateless]
       [--priority-admission] [--adaptive-depth]
@@ -53,7 +53,12 @@ a 64 MB prompt prefix cache, and ``--step-chunk``-step decode chunks over
 one dense KV cache on the decode thread. With ``--kv-block-size`` it runs
 over the paged KV cache: mixed stepping with ``--mixed-step``, else the
 two-path scheduler (prefill windows on one thread, decode chunks on the
-other). ``--kv-quantize`` needs ``--kv-block-size``. ``--spec-k K`` (paged
+other). A recurrent decoder (``mamba2``, ``ssd-small-test``: the
+state_slab family) serves the same surfaces from a slab of fixed-size
+state rows, one per stream (``--state-rows``, default ``--n-slots`` + 1),
+in the two-path or (``--mixed-step``) the mixed mode; it refuses the KV
+flags and ``--spec-k``. ``--kv-quantize`` needs ``--kv-block-size``.
+``--spec-k K`` (paged
 lanes, either mode) turns on continuous speculation: up to K proposals per
 decode row per tick from the n-gram drafter, or with ``--spec-draft model``
 from a draft model (``--gen-draft-model``, default by the target: gpt2 ->
@@ -176,6 +181,11 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
                    help="host blocks under the paged pool for demoted "
                         "radix prefixes, swapped back in on a hit (needs "
                         "--kv-block-size). 0 = off")
+    p.add_argument("--state-rows", type=int, default=0,
+                   help="state slab rows of a recurrent (state_slab) "
+                        "model, e.g. mamba2: one fixed-size row per live "
+                        "stream, constant in sequence length. 0 = auto "
+                        "(--n-slots + the null row)")
     p.add_argument("--mixed-step", action="store_true")
     p.add_argument("--step-chunk", type=int, default=16,
                    help="decode steps per chunk (dense and two-path)")
@@ -280,6 +290,7 @@ def worker_config(a, node_id: str, model: str, model_path=None):
                        gen_kv_blocks=a.kv_blocks,
                        gen_kv_quantize=a.kv_quantize,
                        gen_kv_host_blocks=a.kv_host_blocks,
+                       gen_state_rows=a.state_rows,
                        gen_mixed_step=a.mixed_step,
                        gen_mixed_token_budget=a.mixed_token_budget,
                        gen_continuous_spec_k=a.spec_k,

@@ -7,7 +7,12 @@ Lanes. A decoder model (the gpt2 and llama families) gets the continuous
 scheduler: dense, the default lane, or paged (mixed stepping or two-path,
 bf16/f32 or int8 pool, with continuous speculation under
 ``gen_continuous_spec_k`` and a host KV tier under
-``gen_kv_host_blocks``). A stateless model (``mlp``, ``resnet50``,
+``gen_kv_host_blocks``). A recurrent decoder (``mamba2``,
+``ssd-small-test``: the state_slab family) gets the continuous scheduler
+over a slab of fixed-size state rows (``gen_state_rows``), two-path or
+mixed, with migration and the handoff; it refuses the KV knobs and
+speculation, and every other family refuses ``gen_state_rows``, with the
+JAX worker's messages. A stateless model (``mlp``, ``resnet50``,
 ``resnet50-v1``, the ``bert`` encoder, ``yolov8n``, an ONNX graph; the
 default ``resnet50``) serves only /infer: with ``unified_stateless`` on
 (the default) its scheduler's rows are all one-shot (``n_slots =
@@ -65,9 +70,10 @@ continues the row on this lane with no prefill (``import_refused`` marks a
 terminal event of an import the lane refused).
 
 Disaggregated serving: ``role`` ("prefill", "decode" or "both"; a
-dedicated role needs the paged cache) is advisory routing metadata, shown
-in ``/health`` when not "both" and flipped at runtime by ``set_role``
-(``/admin/role``); a lane of any role serves whatever it receives. A
+dedicated role needs the paged cache or the slab) is advisory routing
+metadata, shown in ``/health`` when not "both" and flipped at runtime by
+``set_role`` (``/admin/role``); a lane of any role serves whatever it
+receives. A
 gateway-stamped ``/generate/stream`` with ``handoff: true`` parks its row
 after prefill for up to ``handoff_park_ms`` (clamped to [0.1, 120] s)
 awaiting ``/admin/migrate {request_id, wait_prefill: true}``, which
@@ -373,13 +379,6 @@ class WorkerNode:
             raise RuntimeError(
                 f"--role must be prefill|decode|both, got "
                 f"{config.role!r}")
-        if config.role != "both" and config.gen_kv_block_size <= 0:
-            # A dedicated role without the paged cache could never export
-            # or adopt a chain: it would serve colocated, silently.
-            raise RuntimeError(
-                "--role prefill|decode requires the continuous "
-                "scheduler with the paged KV cache "
-                "(--kv-block-size > 0)")
         if config.gen_draft_path:
             raise RuntimeError(
                 "gen_draft_path (--gen-draft-path): loading draft weights "
@@ -397,8 +396,7 @@ class WorkerNode:
             if params is None:
                 params = _load_model_path(spec, path, config.device,
                                           config.dtype)
-        if spec.state_family == "stateless":
-            self._fence_stateless(spec)
+        self._fence_family(spec)
         self.engine = InferenceEngine(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             batch_buckets=config.batch_buckets,
@@ -489,6 +487,42 @@ class WorkerNode:
                 name=f"{self.node_id}-brownout", daemon=True)
             self._brownout_thread.start()
 
+    def _fence_family(self, spec: ModelSpec) -> None:
+        """The serving-state family's fences, with the JAX worker's
+        messages: a slab model refuses the KV knobs and --spec-k, another
+        family --state-rows, a stateless one every generative knob; and a
+        dedicated --role needs a family whose rows export (the paged
+        cache, or the slab)."""
+        cfg = self.config
+        fam = spec.state_family
+        if fam == "state_slab":
+            if (cfg.gen_kv_block_size > 0 or cfg.gen_kv_blocks > 0
+                    or cfg.gen_kv_host_blocks > 0 or cfg.gen_kv_quantize):
+                raise RuntimeError(
+                    "state_slab-family models have no paged KV cache: "
+                    "--kv-block-size/--kv-blocks/--kv-host-blocks/"
+                    "--kv-quantize apply to the kv_paged family "
+                    "(state capacity is --state-rows)")
+            if cfg.gen_continuous_spec_k > 0:
+                raise RuntimeError(
+                    "--spec-k requires a kv_paged-family model: the "
+                    "state_slab recurrence has no KV verify window")
+        elif cfg.gen_state_rows > 0:
+            raise RuntimeError(
+                f"--state-rows applies to state_slab-family models; model "
+                f"'{spec.name}' serves the {fam} family")
+        if fam == "stateless":
+            self._fence_stateless(spec)
+        if cfg.role != "both" and cfg.gen_kv_block_size <= 0 \
+                and fam != "state_slab":
+            # A dedicated role whose rows cannot export would serve
+            # colocated, silently. (Slab rows export as one-pseudo-block
+            # chains, so slab lanes qualify.)
+            raise RuntimeError(
+                "--role prefill|decode requires the continuous "
+                "scheduler with the paged KV cache "
+                "(--kv-block-size > 0)")
+
     def _fence_stateless(self, spec: ModelSpec) -> None:
         """A stateless model refuses every generative knob (the JAX
         worker's messages; --spec-k first, so a speculation request gets
@@ -538,6 +572,7 @@ class WorkerNode:
                 prefix_sharing=cfg.gen_prefix_sharing,
                 mixed_step=cfg.gen_mixed_step,
                 mixed_token_budget=cfg.gen_mixed_token_budget,
+                state_rows=cfg.gen_state_rows,
                 infer_engine=self.engine if self._unified else None,
                 score_provider=self._get_scorer if self._unified else None,
                 device=cfg.device, **spec_kw)
@@ -930,12 +965,13 @@ class WorkerNode:
         """/admin/role: flip this lane's serving role (the gateway drains
         and migrates around the flip). The role is advisory routing
         metadata, so the flip is safe mid-traffic; a dedicated role needs
-        the paged cache (a ValueError, the 400)."""
+        the paged cache or the slab (a ValueError, the 400)."""
         role = str(role)
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be prefill|decode|both, "
                              f"got {role!r}")
-        if role != "both" and self.config.gen_kv_block_size <= 0:
+        if role != "both" and self.config.gen_kv_block_size <= 0 \
+                and self.engine.spec.state_family != "state_slab":
             raise ValueError(
                 "a dedicated role requires the continuous scheduler "
                 "with the paged KV cache (--kv-block-size > 0)")

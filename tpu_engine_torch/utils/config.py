@@ -86,8 +86,13 @@ class WorkerConfig:
     # the paged cache and prefix sharing; --kv-host-blocks), 0 = off.
     gen_kv_host_blocks: int = 0
     gen_prefix_sharing: bool = True
-    gen_mixed_step: bool = False        # paged only; False: two-path
+    gen_mixed_step: bool = False        # paged or slab; False: two-path
     gen_mixed_token_budget: int = 0     # 0 = auto (gen_prefill_chunk)
+    # State slab rows of a state_slab-family model (mamba2; --state-rows):
+    # one fixed-size f32 row per live stream, constant in sequence length.
+    # 0 = auto (gen_max_batch_size + the null row). Refused on other
+    # families.
+    gen_state_rows: int = 0
     # Continuous speculation (paged only, either mode): proposals per
     # decode row per tick, 0 = off (--spec-k); the drafter, "ngram" or
     # "model" (--spec-draft); the draft model, None = by the target
