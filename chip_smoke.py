@@ -372,6 +372,34 @@ Phases (any failure exits non-zero and prints no result line):
               ms against its bound, a B 8 decode tick's wall, host issue
               and device busy, a 512-token prompt's TTFT with #8 and with
               the plain loop, the slab row's bytes.
+13. moe    — last: the mixture-of-experts family and weight-only int8
+              (no kernel of their own: plain products). gpt2-moe at full
+              width and depth (12 layers, d_model 768, 12 heads of 64,
+              d_ff 3072, 8 experts, top-2, capacity factor 1.25, vocab
+              50257; random weights from seed 0) as a worker_node process
+              (bf16, mixed, 16-token blocks, 256-token budget, 8 slots):
+              16 /generate/stream streams (prompts of 100 to 600 tokens,
+              32 new) and 8 /score rows of 128 at once, every answer
+              complete; four greedy streams sent alone three times, the
+              second and third passes token-identical (the first fills
+              the prefix cache, so those two tick the same compositions);
+              ticks == dispatches, 0 leaked blocks, #1 launches == 12 x
+              ticks and #5 launches == 12 x one-shot dispatches (the
+              process's counts), no plain call. In this process, a
+              WorkerNode with quantize="int8" over int8 KV blocks (mixed):
+              8 streams, #4 launches == 12 x ticks, 0 leaked blocks; its
+              int8 trees, quantized on the card, bit-equal to
+              quantize_params on the CPU from the same f32 draw, the
+              router gates f32. A 2 x 128 f32 forward at full width
+              through the int8 tree against its dequantized tree and on
+              the card against the CPU: within 1e-4 of max(1, |ref|),
+              the same routing (a difference fails with its layer,
+              tokens and router margins). Readings: the param bytes of
+              the f32, bf16 and int8 trees, moe_apply alone at a mixed
+              tick's 8 x 256 tokens (640 slots an expert: device and host
+              issue ms, the share of dropped (token, choice) pairs), a B
+              8 decode tick of the bf16 and of the int8 forward (wall,
+              host issue, device busy and idle).
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -391,7 +419,7 @@ under build/, and this one) can be timed in turns in one call.
 does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
-    python3 chip_smoke.py --phase handoff|observe|overload|recurrent
+    python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -6624,6 +6652,433 @@ def phase_recurrent(torch, card: str) -> dict:
     return out
 
 
+# -- the moe phase ---------------------------------------------------------
+
+MOE_LAYERS = 12
+MOE_LANE_ARGS = ("gpt2-moe", "--kv-block-size", "16", "--mixed-step",
+                 "--mixed-token-budget", "256", "--prefill-chunk", "256",
+                 "--n-slots", "8", "--dtype", "bfloat16")
+MOE_STREAMS = 16
+MOE_SCORES = 8
+MOE_NEW = 32
+MOE_IDENTITY = 4
+MOE_INT8_STREAMS = 8
+# The full-width f32 forwards of the exactness and card-vs-CPU checks:
+# 2 x 128 tokens, within 1e-4 of max(1, the reference's largest logit).
+MOE_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Every ``ops.moe.route`` call of the block: (router probabilities,
+    dispatch tensor), in call order (one per layer of a forward)."""
+    from tpu_engine_torch.ops import moe as tmoe
+
+    calls = []
+    route = tmoe.route
+
+    def rec(probs, cfg, n_tokens):
+        d, c = route(probs, cfg, n_tokens)
+        calls.append((probs.detach(), d.detach()))
+        return d, c
+
+    tmoe.route = rec
+    try:
+        yield calls
+    finally:
+        tmoe.route = route
+
+
+def router_margins(probs, k: int = 2):
+    """Per token, the smallest gap between consecutive sorted router
+    probabilities among the top k + 1 (a choice or a rank another rounding
+    could flip)."""
+    s = probs.float().sort(dim=-1, descending=True).values[:, :k + 1]
+    return (s[:, :-1] - s[:, 1:]).amin(-1)
+
+
+def routing_diff(torch, what: str, a, b) -> float:
+    """Fail where two forwards' routings differ, naming the layer, the
+    tokens and their margins; return the smallest margin of ``a``."""
+    check(len(a) == len(b), f"{what}: {len(a)} against {len(b)} routings")
+    for li, ((pa, da), (_, db)) in enumerate(zip(a, b)):
+        da, db = da.cpu(), db.cpu()
+        if not torch.equal(da, db):
+            bad = (da != db).flatten(1).any(-1).nonzero()[:, 0]
+            m = router_margins(pa.cpu())[bad]
+            check(False, f"{what}: routing differs in layer {li} at tokens "
+                         f"{bad[:8].tolist()} (margins {m[:8].tolist()})")
+    return min(float(router_margins(p.cpu()).min()) for p, _ in a)
+
+
+def moe_worker(torch, card: str) -> dict:
+    """gpt2-moe at full width as a worker_node process (bf16, mixed,
+    16-token blocks): a burst of streams and /score rows, then greedy
+    streams one at a time, then the lane's counts."""
+    import signal
+
+    OUT_DIR.mkdir(exist_ok=True)
+    counts_path = OUT_DIR / "moe_counts.json"
+    counts_path.unlink(missing_ok=True)
+    proc, port, log_f = spawn_counted_worker_node(
+        ["moe-w", *MOE_LANE_ARGS], OUT_DIR / "moe_worker.log", counts_path)
+    rng = np.random.default_rng(18)
+    vocab = 50257
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    out = {}
+    try:
+        out["ready_s"] = wait_health(proc, port)
+        streams = [StreamReader(port, {
+            "request_id": f"ms{i}", "max_new_tokens": MOE_NEW,
+            "prompt_tokens": toks(int(rng.integers(100, 601)))})
+            for i in range(MOE_STREAMS)]
+        scores = {f"mc{i}": {"request_id": f"mc{i}",
+                             "prompt_tokens": toks(112),
+                             "completion_tokens": toks(16)}
+                  for i in range(MOE_SCORES)}
+        t0 = time.perf_counter()
+        for r in streams:
+            r.start()
+        score_res, _ = concurrent_posts(port, "/score", scores)
+        for r in streams:
+            r.join(timeout=600)
+        out["burst_s"] = time.perf_counter() - t0
+        for r in streams:
+            check(r.final is not None and "error" not in r.final
+                  and len(r.tokens) == MOE_NEW,
+                  f"moe stream {r.body['request_id']}: {r.final} "
+                  f"{r.error}")
+        for name, s in score_res.items():
+            lp = np.asarray(s["logprobs"], np.float64)
+            check(lp.shape == (16,) and np.isfinite(lp).all()
+                  and (lp <= 0).all(), f"moe /score {name}: {s}")
+        # Greedy streams, each alone. The first pass fills the prefix
+        # cache, so the second and third admit through the same radix hit
+        # and tick the same compositions: they must be token-identical.
+        prompts = [toks(int(rng.integers(100, 400)))
+                   for _ in range(MOE_IDENTITY)]
+        passes = []
+        for _ in range(3):
+            passes.append([post(port, "/generate", {
+                "request_id": f"mi{i}", "prompt_tokens": p,
+                "max_new_tokens": MOE_NEW})["tokens"]
+                for i, p in enumerate(prompts)])
+        check(passes[1] == passes[2],
+              f"moe identity: repeats differ: {passes[1]} != {passes[2]}")
+        out["identity"] = {"streams": MOE_IDENTITY,
+                           "first_pass_equal": passes[0] == passes[1]}
+        st, idle = wait_idle(port, paged=True)
+        check(idle, f"moe worker: blocks leaked: {st['kv_pool']}")
+        m = st["mixed"]
+        check(m["ticks"] == m["dispatches"] > 0, f"moe worker: ticks {m}")
+        sl = st["stateless"]
+        out.update(ticks=m["ticks"], oneshot_dispatches=sl["dispatches"],
+                   score_rows=sl["score_rows"], kv_pool=st["kv_pool"])
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "moe worker: exit code")
+        counts = json.loads(counts_path.read_text())
+        check(all(p == 0 for _, p in counts.values()),
+              f"moe worker: plain versions served: {counts}")
+        lane = ("ragged_paged_attention", "flash_attention")
+        check(all(c[0] == 0 for k, c in counts.items() if k not in lane),
+              f"moe worker: other kernels launched: {counts}")
+        ragged = counts["ragged_paged_attention"][0]
+        flash = counts["flash_attention"][0]
+        check(ragged == MOE_LAYERS * m["ticks"],
+              f"moe worker: #1 launches {ragged} != {MOE_LAYERS} x "
+              f"{m['ticks']} ticks")
+        check(flash == MOE_LAYERS * sl["dispatches"] > 0,
+              f"moe worker: #5 launches {flash} != {MOE_LAYERS} x "
+              f"{sl['dispatches']} one-shot dispatches")
+        out["launches"] = {"ragged_paged_attention": ragged,
+                           "flash_attention": flash}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log_f.close()
+    log(f"moe worker: {MOE_STREAMS} streams and {MOE_SCORES} /score in "
+        f"{out['burst_s']:.1f} s; {MOE_IDENTITY} greedy streams alone "
+        f"identical on repeat; ticks {out['ticks']} == dispatches; #1 "
+        f"{out['launches']['ragged_paged_attention']} == {MOE_LAYERS} x "
+        f"ticks, #5 {out['launches']['flash_attention']} == {MOE_LAYERS} x "
+        f"{out['oneshot_dispatches']} one-shot dispatches; 0 leaked blocks "
+        f"[{card}]")
+    return out
+
+
+def moe_int8_lane(torch, card: str):
+    """A quantized worker in this process: int8 weights (the router gate
+    full precision) and int8 KV blocks, mixed. Returns (its readings, the
+    worker, still running)."""
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.serving.worker import WorkerNode
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    kernels.reset_counts()  # the lane: counts from 0, read after
+    w = WorkerNode(WorkerConfig(
+        node_id="moe-q8", model="gpt2-moe", dtype="bfloat16",
+        quantize="int8", gen_kv_block_size=16, gen_kv_quantize="int8",
+        gen_mixed_step=True, gen_mixed_token_budget=256,
+        gen_prefill_chunk=256, gen_max_batch_size=8))
+    try:
+        rng = np.random.default_rng(19)
+        res, errors = {}, []
+
+        def run(i, prompt):
+            try:
+                res[i] = w.handle_generate({
+                    "request_id": f"mq{i}", "prompt_tokens": prompt,
+                    "max_new_tokens": MOE_NEW})["tokens"]
+            except Exception as exc:  # reported below
+                errors.append(f"mq{i}: {exc!r}")
+
+        threads = [threading.Thread(target=run, args=(i, [
+            int(t) for t in rng.integers(1, 50257,
+                                         int(rng.integers(100, 601)))]))
+            for i in range(MOE_INT8_STREAMS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        burst = time.perf_counter() - t0
+        check(not errors and all(len(res.get(i, [])) == MOE_NEW
+                                 for i in range(MOE_INT8_STREAMS)),
+              f"moe int8: {errors[:3]} {sorted(res)}")
+        deadline = time.time() + 30
+        while True:
+            st = w.generator.stats()
+            pool = st["kv_pool"]
+            idle = st["active"] == 0 and (pool["blocks_free"]
+                                          + pool["radix_nodes"]
+                                          == pool["blocks_total"])
+            if idle or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        check(idle, f"moe int8: blocks leaked: {pool}")
+        m = st["mixed"]
+        check(m["ticks"] == m["dispatches"] > 0, f"moe int8: ticks {m}")
+        launches = check_counts("moe int8", "quant_ragged_paged_attention")
+        check(launches == MOE_LAYERS * m["ticks"],
+              f"moe int8: #4 launches {launches} != {MOE_LAYERS} x "
+              f"{m['ticks']} ticks")
+        check(pool.get("quantized"), f"moe int8: pool {pool}")
+        log(f"moe int8: {MOE_INT8_STREAMS} streams in {burst:.1f} s; #4 "
+            f"{launches} == {MOE_LAYERS} x {m['ticks']} ticks; 0 leaked "
+            f"blocks [{card}]")
+        return {"burst_s": burst, "ticks": m["ticks"], "launches": launches,
+                "bytes_per_block": pool.get("bytes_per_block")}, w
+    except BaseException:
+        w.stop()
+        raise
+
+
+def moe_trees(torch, w) -> dict:
+    """The lane's int8 trees (quantized on the card) against
+    ``quantize_params`` on the CPU from the same f32 draw, bit for bit;
+    the router gate in f32; the three trees' bytes. Returns the readings
+    and the bf16 tree (for the tick readings)."""
+    from tpu_engine_torch.models.convert import init_params, params_to
+    from tpu_engine_torch.ops import quant as tq
+    from tpu_engine_torch.training.train import tree_leaves
+
+    cfg = w.engine.spec.config
+    q = w.engine.params
+    f32 = init_params(cfg, seed=0, device="cuda", dtype="float32")
+    cpu = tq.quantize_params(params_to(f32, "cpu"))
+    got, want = tree_leaves(q), tree_leaves(cpu)
+    check(len(got) == len(want), "moe trees: leaf counts differ")
+    n_int8 = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+              f"moe trees: leaf {i} ({a.dtype}) differs from the CPU's")
+        n_int8 += a.dtype == torch.int8
+    check(tq.tree_is_quantized(q), "moe trees: the lane is not quantized")
+    for li, bp in enumerate(q["blocks"]):
+        check(bp["mlp"]["gate"]["kernel"].dtype == torch.float32
+              and "kernel_q" not in bp["mlp"]["gate"]
+              and bp["mlp"]["wi_q"].dtype == torch.int8,
+              f"moe trees: layer {li}'s router or experts")
+    bf16 = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
+    out = {"leaves": len(got), "int8_leaves": int(n_int8),
+           "param_bytes": {"f32": tq.param_bytes(f32),
+                           "bf16": tq.param_bytes(bf16),
+                           "int8": tq.param_bytes(q)}}
+    del f32, cpu
+    torch.cuda.empty_cache()
+    log(f"moe trees: {n_int8} int8 leaves of {len(got)} bit-equal to the "
+        f"CPU's quantize_params; router gates f32; param bytes "
+        f"{out['param_bytes']}")
+    return out, bf16
+
+
+def moe_exactness(torch, q) -> dict:
+    """A full-width 2 x 128 f32 forward: through the int8 tree against
+    its dequantized tree (X @ (Wq s) == (X @ Wq) s), and on the card
+    against the CPU (#5 there, its plain version here)."""
+    from tpu_engine_torch.models.convert import params_to
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops import quant as tq
+
+    cfg = create_model("gpt2-moe").config
+    tokens = torch.from_numpy(np.random.default_rng(20).integers(
+        1, cfg.vocab, (2, 128)).astype(np.int32))
+
+    def forward(params, dev):
+        with recorded_routing() as calls, torch.no_grad():
+            out = transformer_apply(params, tokens.to(dev), cfg,
+                                    dtype=torch.float32)
+        return out.float().cpu(), calls
+
+    got, r_q = forward(q, "cuda")
+    deq = tq.dequantize_params(q)
+    ref, r_deq = forward(deq, "cuda")
+    del deq
+    margin = routing_diff(torch, "moe exactness", r_q, r_deq)
+    err = float((got - ref).abs().max())
+    bound = MOE_TOL * max(1.0, float(ref.abs().max()))
+    check(err <= bound, f"moe exactness: int8 {err} from dequantized "
+                        f"(bound {bound})")
+    cpu, r_cpu = forward(params_to(q, "cpu"), "cpu")
+    cpu_margin = routing_diff(torch, "moe card vs CPU", r_q, r_cpu)
+    cerr = float((got - cpu).abs().max())
+    cbound = MOE_TOL * max(1.0, float(cpu.abs().max()))
+    check(cerr <= cbound, f"moe card vs CPU: {cerr} (bound {cbound})")
+    log(f"moe exactness: int8 forward vs dequantized {err:.3e} (bound "
+        f"{bound:.3e}), card vs CPU {cerr:.3e} (bound {cbound:.3e}); "
+        f"routing equal, smallest top-2 router margin {margin:.3e}")
+    return {"int8_vs_dequantized": err, "bound": bound,
+            "card_vs_cpu": cerr, "cpu_bound": cbound,
+            "min_router_margin": margin, "cpu_min_router_margin": cpu_margin}
+
+
+def moe_readings(torch, bf16, q, card: str) -> dict:
+    """moe_apply alone at a mixed tick's shape, and a B 8 decode tick of
+    the bf16 and of the int8 lane's forward."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import (
+        KVCache,
+        transformer_step_rows_ragged,
+    )
+    from tpu_engine_torch.ops import moe as tmoe
+    from tpu_engine_torch.ops.quant import quantize_kv
+
+    from tpu_engine_torch.models import transformer as tt
+
+    cfg = create_model("gpt2-moe").config
+    mc = cfg.moe
+    # A bf16 forward of 8 x 256 tokens (a mixed tick's shape): each
+    # layer's dropped share, and layer 0's FFN input for moe_apply alone.
+    tokens = torch.from_numpy(np.random.default_rng(21).integers(
+        1, cfg.vocab, (8, 256)).astype(np.int32)).cuda()
+    inputs = []
+    apply = tt.moe_apply
+
+    def captured(params, x, moe_cfg, dtype):
+        inputs.append(x)
+        return apply(params, x, moe_cfg, dtype=dtype)
+
+    tt.moe_apply = captured
+    try:
+        with recorded_routing() as calls, torch.no_grad():
+            tt.transformer_apply(bf16, tokens, cfg, dtype=torch.bfloat16)
+    finally:
+        tt.moe_apply = apply
+    pairs = tokens.numel() * mc.top_k
+    dropped = [1.0 - float(d.sum()) / pairs for _, d in calls]
+    x, mlp = inputs[0], bf16["blocks"][0]["mlp"]
+
+    def moe():
+        return tmoe.moe_apply(mlp, x, mc, dtype=torch.bfloat16)
+
+    with torch.no_grad():
+        ms, seen = device_call_ms(torch, moe)
+        issue = issue_ms(torch, moe)
+    out = {"moe_apply_8x256": {"capacity": mc.capacity(tokens.numel()),
+                               "dropped_share_by_layer": dropped,
+                               "device_ms": ms, "profiled_calls": seen,
+                               "issue_ms": issue}}
+    log(f"moe: moe_apply at 8 x 256 tokens ({mc.capacity(tokens.numel())} "
+        f"slots an expert): device {ms:.3f} ms, host issue {issue:.3f} ms; "
+        f"(token, choice) pairs dropped by layer "
+        f"{', '.join(f'{100 * v:.1f}%' for v in dropped)} [{card}]")
+    rng = np.random.default_rng(22)
+    b, bs, h, dh = 8, 16, cfg.n_heads, cfg.d_head
+    ctx = rng.integers(100, 600, b)
+    nb = int(ctx.max()) // bs + 2
+    n_pool = b * nb + 1
+    tables = torch.from_numpy((1 + np.arange(b * nb)).reshape(b, nb).astype(
+        np.int32)).cuda()
+    pos0 = torch.from_numpy(ctx.astype(np.int32)).cuda()
+    qlen = torch.ones((b,), dtype=torch.int32, device="cuda")
+    slot = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (b, 1)).astype(
+        np.int32)).cuda()
+    shape = (cfg.n_layers, n_pool, bs, h, dh)
+    kf = torch.randn(shape, device="cuda")
+    vf = torch.randn(shape, device="cuda")
+    for lane, params in (("bf16", bf16), ("int8", q)):
+        if lane == "bf16":
+            caches = KVCache(kf.bfloat16(), vf.bfloat16())
+            scales = None
+        else:
+            (qk, sk), (qv, sv) = quantize_kv(kf), quantize_kv(vf)
+            caches, scales = KVCache(qk, qv), KVCache(sk, sv)
+
+        def tick():
+            return transformer_step_rows_ragged(
+                params, tok, caches, tables, pos0, qlen, cfg,
+                dtype=torch.bfloat16, sample_slot=slot, scales=scales)
+
+        with torch.no_grad():
+            tick()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                tick()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = float(np.median(walls))
+            issue = issue_ms(torch, tick)
+            busy = busy_ms(torch, tick)
+        idle = idle_share(busy, wall)
+        out[f"decode_tick_B8_{lane}"] = {"wall_ms": wall, "issue_ms": issue,
+                                         "busy_ms": busy, "idle_share": idle}
+        log(f"moe: {lane} lane's B 8 decode tick wall {wall:.3f} ms, host "
+            f"issue {issue:.3f} ms, {busy_text(busy, idle)} [{card}]")
+        del caches, scales
+    return out
+
+
+def phase_moe(torch, card: str) -> dict:
+    """The mixture-of-experts family and weight-only int8 on the card (the
+    module docstring's moe entry)."""
+    from tpu_engine_torch.ops import kernels as kl
+
+    t0 = time.perf_counter()
+    # The main path: counts to 0 just before the worker, read just after.
+    kl.reset_counts()
+    out = {"worker": moe_worker(torch, card)}
+    int8, w = moe_int8_lane(torch, card)
+    out["int8"] = int8
+    try:
+        out["trees"], bf16 = moe_trees(torch, w)
+        out["exactness"] = moe_exactness(torch, w.engine.params)
+        out["readings"] = moe_readings(torch, bf16, w.engine.params, card)
+    finally:
+        w.stop()
+    del bf16
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"moe: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -7394,7 +7849,8 @@ def main() -> int:
         only = {"handoff": lambda: phase_handoff(torch, card),
                 "observe": lambda: phase_observe(torch, card),
                 "overload": lambda: phase_overload(torch, card, pa),
-                "recurrent": lambda: phase_recurrent(torch, card)}
+                "recurrent": lambda: phase_recurrent(torch, card),
+                "moe": lambda: phase_moe(torch, card)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -7420,6 +7876,9 @@ def main() -> int:
     handoff = timed("handoff", phase_handoff, torch, card)
     # The recurrent family (mamba2) and its window-scan kernel (#8).
     recurrent = timed("recurrent", phase_recurrent, torch, card)
+    # The MoE family (gpt2-moe) and weight-only int8: #1 and #5 in a
+    # worker_node process, #4 in a quantized lane in this process.
+    moe = timed("moe", phase_moe, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -7482,6 +7941,16 @@ def main() -> int:
         if name == "quant_ragged_paged_attention":
             rows[-1]["handoff"] = {"launches": handoff["int8"]["launches"],
                                    "ticks": handoff["int8"]["ticks"]}
+        # The moe phase's launches, each from its own run: #1 and #5 in
+        # the bf16 worker process, #4 in the quantized lane.
+        if name in moe["worker"]["launches"]:
+            rows[-1]["moe"] = {"launches": moe["worker"]["launches"][name],
+                               "ticks": moe["worker"]["ticks"],
+                               "oneshot_dispatches":
+                                   moe["worker"]["oneshot_dispatches"]}
+        if name == "quant_ragged_paged_attention":
+            rows[-1]["moe"] = {"launches": moe["int8"]["launches"],
+                               "ticks": moe["int8"]["ticks"]}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -7507,6 +7976,7 @@ def main() -> int:
          "server": server, "gateway": gateway, "kvtier": kvtier,
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
+         "moe": moe,
          "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},

@@ -151,9 +151,16 @@ def test_encoder_refused_on_generation_lanes(models):
     with pytest.raises(NotImplementedError, match="encoder"):
         tt.transformer_decode_rows_paged(tp, tokens[:, 0], pool, tables, pos,
                                          cfg, dtype=torch.float32)
+    # Mixture-of-experts blocks are ported: an encoder with experts runs
+    # the full-sequence forward (and still no generation lane).
+    from tpu_engine_torch.models.convert import init_params
+
     moe = dataclasses.replace(cfg, n_experts=2)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tt.transformer_apply(tp, tokens, moe, dtype=torch.float32)
+    mp = init_params(moe, seed=0, device="cpu", dtype="float32")
+    out = tt.transformer_apply(mp, tokens, moe, dtype=torch.float32)
+    assert out.shape == (1, 8, moe.vocab) and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="encoder"):
+        tt.transformer_prefill(mp, tokens, caches, moe, dtype=torch.float32)
     for knobs in (dict(gen_kv_block_size=16), dict(gen_mixed_step=True),
                   dict(gen_continuous_spec_k=2)):
         with pytest.raises(RuntimeError):

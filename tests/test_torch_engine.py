@@ -180,8 +180,13 @@ def test_set_params_refusals_match_jax():
 
 
 def test_unported_options_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="quantize"):
-        InferenceEngine("mlp", device="cpu", quantize="int8")
+    # Weight quantization is ported (tests/test_torch_weight_quant.py):
+    # int8 serves, an unknown mode raises JAX's ValueError.
+    te = InferenceEngine("mlp", device="cpu", quantize="int8")
+    assert te.params["layer_0"]["kernel_q"].dtype == torch.int8
+    assert np.isfinite(te.predict(np.ones(16, np.float32))).all()
+    with pytest.raises(ValueError, match="unsupported quantize mode"):
+        InferenceEngine("mlp", device="cpu", quantize="int4")
     # Shape buckets are ported (tests/test_torch_yolo.py); the model's own
     # shape is always one of them.
     te = InferenceEngine("mlp", device="cpu", shape_buckets=[(8,)])

@@ -39,7 +39,6 @@ from tpu_engine.serving.worker import WorkerNode as JaxWorker
 from tpu_engine.utils.config import WorkerConfig as JaxWorkerConfig
 from tpu_engine_torch.models.convert import params_from_jax
 from tpu_engine_torch.models.registry import (
-    NOT_YET_PORTED,
     available_models,
     model_from_path,
 )
@@ -390,7 +389,7 @@ def test_encode_output_is_the_native_encoders_bytes():
     "/srv/models/GPT2.onnx", "llama", "bert-base.onnx", "tiny_mlp.bin",
     "resnet50_v1.onnx", "nothing-known"])
 def test_model_from_path_matches_jax(arg):
-    assert set(available_models()) | NOT_YET_PORTED == set(javailable())
+    assert set(available_models()) == set(javailable())
     try:
         want = jax_model_from_path(arg)
     except ValueError:

@@ -42,6 +42,7 @@ import torch
 from tpu_engine.models import ssd as jssd
 from tpu_engine.models.registry import (
     _ensure_builtin_models_imported,
+    available_models as javailable,
     create_model as jcreate,
 )
 from tpu_engine.ops import ssd as jops
@@ -51,7 +52,6 @@ from tpu_engine_torch.models import convert
 from tpu_engine_torch.models import ssd as tssd
 from tpu_engine_torch.models.registry import (
     FAMILY_CAPABILITIES,
-    NOT_YET_PORTED,
     available_models,
     create_model as tcreate,
 )
@@ -333,7 +333,8 @@ def test_margin_prompts_clear_the_bound(jspec, jparams):
 # -- registry -----------------------------------------------------------------
 
 def test_registry_declares_families_and_capabilities():
-    assert NOT_YET_PORTED == {"gpt2-moe", "gpt2-moe-test"}
+    # Every JAX registry name is ported (the MoE pair since its slice).
+    assert available_models() == sorted(javailable())
     for name in available_models():
         m = tcreate(name)
         assert m.state_family in FAMILY_CAPABILITIES, name

@@ -45,13 +45,15 @@ def test_config_fields_equal_jax(name):
 
 
 def test_registry_serves_the_dense_names_and_refuses_the_rest():
+    # Every name of the JAX registry is served, the MoE pair included
+    # (tests/test_torch_moe.py); an unknown name still refuses.
     assert available_models() == sorted(
         DENSE_NAMES + ["mlp", "resnet50", "resnet50-v1", "bert",
                        "bert-small-test", "yolov8n", "yolov8n-small-test",
-                       "mamba2", "ssd-small-test"])
+                       "mamba2", "ssd-small-test", "gpt2-moe",
+                       "gpt2-moe-test"])
     for name in ("gpt2-moe", "gpt2-moe-test"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tcreate(name)
+        assert tcreate(name).config.n_experts > 0
     with pytest.raises(KeyError):
         tcreate("no-such-model")
 
@@ -148,9 +150,6 @@ def test_step_refuses_unported_paths():
     args = (tparams, torch.from_numpy(tokens), caches,
             torch.from_numpy(tables), torch.from_numpy(pos0),
             torch.from_numpy(qlen))
-    moe = dataclasses.replace(tcfg, n_experts=2)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tt.transformer_step_rows_ragged(*args, moe)
     mcfg = tcreate("mistral-small-test").config
     with pytest.raises(NotImplementedError, match="sliding_window"):
         tt.transformer_step_rows_ragged(*args, mcfg)
@@ -407,17 +406,18 @@ def test_apply_matches_jax(name, masked):
 def test_dense_forwards_refuse_unported_dialects():
     _, _, tcfg, tparams = _models("llama-small-test")
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    # The encoder dialect serves only the full-sequence forward; MoE
-    # nothing.
+    # The encoder dialect serves only the full-sequence forward. MoE
+    # blocks serve every forward (tests/test_torch_moe.py).
+    moe = dataclasses.replace(tcfg, n_experts=2)
+    mp = convert.init_params(moe, seed=0, device="cpu", dtype="float32")
+    logits, _ = tt.transformer_prefill(
+        mp, tokens, tt.init_caches(moe, 1, 8, torch.float32, device="cpu"),
+        moe, dtype=torch.float32)
+    assert torch.isfinite(logits).all()
     for bad, why in ((dict(post_ln=True), "encoder"),
                      (dict(embed_ln=True), "encoder"),
-                     (dict(type_vocab=2), "encoder"),
-                     (dict(n_experts=2), "mixture-of-experts")):
+                     (dict(type_vocab=2), "encoder")):
         cfg = dataclasses.replace(tcfg, **bad)
-        if bad.get("n_experts"):
-            with pytest.raises(NotImplementedError, match=why):
-                tt.transformer_apply(tparams, tokens, cfg,
-                                     dtype=torch.float32)
         with pytest.raises(NotImplementedError, match=why):
             tt.transformer_prefill(tparams, tokens,
                                    tt.init_caches(tcfg, 1, 8, torch.float32,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from tpu_engine_torch.models.transformer import TransformerConfig
+from tpu_engine_torch.ops.moe import moe_init
 from tpu_engine_torch.training.train import (
     TrainState,
     adamw,
@@ -27,14 +28,25 @@ from tpu_engine_torch.training.train import (
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
 
+# Matmul weights, stored in the compute dtype: dense and conv kernels and
+# the MoE expert stacks. Their int8 forms keep int8; the rest is f32.
+_KERNELS = ("kernel", "wi", "wo")
+_INT8 = ("kernel_q", "wi_q", "wo_q")
+
+
 def _to_tensor(name: str, arr, device, dtype):
     t = torch.from_numpy(np.array(arr)).to(device)
-    if name != "kernel":
+    if name in _INT8:
+        dt = torch.int8
+    elif name in _KERNELS:
+        dt = dtype
+    else:
         return t.to(torch.float32)
-    if t.dim() == 4:  # conv: HWIO -> OIHW, stored channels_last
-        return t.permute(3, 2, 0, 1).to(dtype).contiguous(
+    if name in ("kernel", "kernel_q") and t.dim() == 4:
+        # conv: HWIO -> OIHW, stored channels_last
+        return t.permute(3, 2, 0, 1).to(dt).contiguous(
             memory_format=torch.channels_last)
-    return t.to(dtype)
+    return t.to(dt)
 
 
 def _convert(tree, device, dtype):
@@ -66,7 +78,11 @@ def params_from_jax(tree, cfg: Optional[TransformerConfig] = None,
     of head branches) keep their names and nesting: dense kernels as they
     are, conv kernels from HWIO to OIHW (channels_last), both in
     ``dtype``; biases and batch-norm ``scale``, ``bias``, ``mean`` and
-    ``var`` in f32."""
+    ``var`` in f32. An MoE block's ``mlp`` (``{"gate": {"kernel"}, "wi"
+    (L, E, d, f), "wo" (L, E, f, d)}``) splits per layer like the rest,
+    its expert stacks in ``dtype``. Weight-quantized trees
+    (``ops.quant``) carry across as they are: ``kernel_q``, ``wi_q`` and
+    ``wo_q`` int8 (conv ``kernel_q`` to OIHW), their scales f32."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     out = _convert({k: v for k, v in tree.items() if k != "blocks"}, dev, dt)
@@ -134,8 +150,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
                 dtype="bfloat16"):
     """Seeded random parameters at full width, drawn on ``device``. The
     distributions are ``transformer_init``'s (embeddings N(0, 0.02²),
-    attention projections N(0, 1/d_model), MLP and head He-normal, zero
-    biases, unit norm scales), and so is the tree: no ``ln_f`` in post-LN
+    attention projections N(0, 1/d_model), MLP and head He-normal, the
+    MoE gate and expert stacks ``moe_init``'s, zero biases, unit norm
+    scales), and so is the tree: no ``ln_f`` in post-LN
     dialects, ``embed_ln`` and ``type_embed`` where the config has them;
     the numbers are not JAX's."""
     dev = resolve_device(device)
@@ -171,7 +188,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
                        "wk": dense(d, kv_inner, attn_std),
                        "wv": dense(d, kv_inner, attn_std),
                        "wo": dense(inner, d, attn_std)}}
-        if cfg.mlp_act == "swiglu":
+        if cfg.n_experts > 0:
+            bp["mlp"] = moe_init(cfg.moe, g, dev, dt)
+        elif cfg.mlp_act == "swiglu":
             bp["mlp"] = {"gate": dense(d, cfg.d_ff), "up": dense(d, cfg.d_ff),
                          "proj": dense(cfg.d_ff, d)}
         else:

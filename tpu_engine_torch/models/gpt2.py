@@ -1,6 +1,5 @@
 """GPT-2 family configs (counterpart of ``tpu_engine/models/gpt2.py``;
-same names and values). The MoE variants are not yet ported and refuse in
-``models.registry``.
+same names and values), the mixture-of-experts variants included.
 
 One-shot /infer contract (``decoder_spec``): input = token ids as floats,
 shape (seq_len,); output = the logits of the last non-pad position, shape
@@ -71,3 +70,27 @@ def make_gpt2_chaos(seq_len: int = 16, vocab: int = 1024, n_layers: int = 4,
                     max_seq: int = 128):
     return _gpt2("gpt2-chaos-test", vocab, n_layers, d_model, n_heads, d_ff,
                  max_seq, seq_len)
+
+
+@register("gpt2-moe")
+def make_gpt2_moe(seq_len: int = 128, vocab: int = 50257, n_layers: int = 12,
+                  d_model: int = 768, n_heads: int = 12, d_ff: int = 3072,
+                  max_seq: int = 1024, n_experts: int = 8, top_k: int = 2,
+                  capacity_factor: float = 1.25):
+    """GPT-2 with a mixture-of-experts FFN in every block (``ops.moe``);
+    the same /infer and /generate contracts as gpt2."""
+    return decoder_spec("gpt2-moe", TransformerConfig(
+        vocab=vocab, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        d_ff=d_ff, max_seq=max_seq, causal=True, n_experts=n_experts,
+        moe_top_k=top_k, moe_capacity_factor=capacity_factor), seq_len)
+
+
+@register("gpt2-moe-test")
+def make_gpt2_moe_test(seq_len: int = 16, vocab: int = 256, n_layers: int = 2,
+                       d_model: int = 64, n_heads: int = 4, d_ff: int = 128,
+                       max_seq: int = 64, n_experts: int = 4):
+    """Tiny MoE config; capacity factor 4, so it drops no token."""
+    return decoder_spec("gpt2-moe-test", TransformerConfig(
+        vocab=vocab, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        d_ff=d_ff, max_seq=max_seq, causal=True, n_experts=n_experts,
+        moe_capacity_factor=4.0), seq_len)

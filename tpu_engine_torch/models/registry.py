@@ -26,10 +26,6 @@ from typing import Callable, Dict, Optional, Tuple
 
 from tpu_engine_torch.models.transformer import TransformerConfig
 
-# Names the JAX package registers whose families the port does not serve
-# yet: asking for one is a loud refusal, never a silent stand-in.
-NOT_YET_PORTED = frozenset({"gpt2-moe", "gpt2-moe-test"})
-
 # Serving-capability flags per state family, the JAX registry's: the
 # registry, not the serving machinery, declares what a family can do, and
 # the scheduler and worker fence mismatches loudly.
@@ -140,9 +136,6 @@ def _ensure_builtin_models_imported() -> None:
 
 def create_model(name: str, **kwargs) -> ModelSpec:
     _ensure_builtin_models_imported()
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model '{name}' is not yet ported to tpu_engine_torch")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: "
                        f"{available_models()}")
@@ -157,9 +150,8 @@ def available_models():
 def model_from_path(path_or_name: str) -> str:
     """Map a reference-style model path (e.g. models/resnet50-v2-7.onnx) to
     a registry name, as the JAX package's ``serving.app.model_from_path``
-    does, over the same names (the not-yet-ported ones included: they
-    refuse at ``create_model``)."""
-    names = sorted(set(available_models()) | NOT_YET_PORTED)
+    does, over the same names."""
+    names = available_models()
     if path_or_name in names:
         return path_or_name
     base = path_or_name.rsplit("/", 1)[-1].lower()

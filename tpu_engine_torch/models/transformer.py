@@ -17,6 +17,12 @@ stored in the compute dtype (``models.convert`` does so); ``nn.dense``
 casts them at use, so a stored cast and an apply-time cast round alike.
 Embedding tables, biases and norm scales stay f32, as in JAX.
 
+A config with experts (``n_experts > 0``, the gpt2-moe family) runs the
+mixture-of-experts FFN (``ops.moe``) in every forward. Its capacity
+slots are shared by every token of a call, padding and free slots
+included, so each forward hands it the same (B, T) tensor as its JAX
+twin.
+
 The rounding points follow the JAX forward: the residual adds promote to
 f32 (``nn.dense`` returns f32) and the carry is cast back to the compute
 dtype only at each block's end.
@@ -38,6 +44,7 @@ from tpu_engine_torch.ops.attention import (
     rope,
 )
 from tpu_engine_torch.ops.flash import flash_attention
+from tpu_engine_torch.ops.moe import MoEConfig, moe_apply
 from tpu_engine_torch.ops.quant import quantize_kv
 from tpu_engine_torch.utils.device import resolve_device
 
@@ -76,6 +83,12 @@ class TransformerConfig:
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
+    @property
+    def moe(self) -> MoEConfig:
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.n_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor)
+
 
 class KVCache(NamedTuple):
     """A K/V pair: pool tensors (L, NB, bs, H_kv, D), their int8 pool's
@@ -104,6 +117,11 @@ def _norm(params, x, cfg: TransformerConfig):
 
 
 def _mlp(params, h, dtype, cfg: TransformerConfig):
+    """The block's FFN; a mixture of experts (``ops.moe``) over every
+    token of ``h`` (B, T, d), padding included, when the config has
+    experts."""
+    if cfg.n_experts > 0:
+        return moe_apply(params, h, cfg.moe, dtype=dtype)
     if cfg.mlp_act == "swiglu":
         gate = nn.silu(nn.dense(params["gate"], h, dtype=dtype))
         return nn.dense(params["proj"],
@@ -156,13 +174,8 @@ def _is_encoder(cfg: TransformerConfig) -> bool:
 
 
 def _check_dialect(cfg: TransformerConfig, encoder: bool = False) -> None:
-    """Refuse what a forward does not serve: mixture-of-experts everywhere;
-    the encoder dialect everywhere but the full-sequence forward
+    """Refuse the encoder dialect everywhere but the full-sequence forward
     (``encoder=True``), since an encoder has no generation lane."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts models are not yet ported to "
-            "tpu_engine_torch")
     if not encoder and _is_encoder(cfg):
         raise NotImplementedError(
             "the encoder dialect (post_ln, embed_ln, type_vocab, "

@@ -13,6 +13,13 @@ drop in unchanged. The rounding points follow the JAX functions exactly:
 - ``conv2d`` casts its input and kernel to the compute dtype and returns
   **f32**; ``batchnorm``, the pools and the residual adds of a conv net
   run in f32 on that result.
+
+Weight-only int8 trees (``ops.quant``: ``kernel_q`` and ``kernel_scale``
+in place of ``kernel``) take JAX's branch in ``dense`` and ``conv2d``:
+the int8 kernel goes to the compute dtype (x's dtype without one; int8
+values are exact in bf16), the product sums in f32, and the
+per-output-channel scale multiplies its result before the bias. The
+int8 kernel is converted to a full copy at every call.
 """
 
 from __future__ import annotations
@@ -64,20 +71,26 @@ def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None
     In f32 this is a plain matmul. In a narrower compute dtype the product
     is ``MatmulF32Out``, so the result is not rounded to the compute dtype
     before the bias add, as in the JAX function, and its gradient is the
-    JAX function's."""
-    kernel = params["kernel"]
+    JAX function's. A quantized kernel (``kernel_q``) scales the f32
+    product by ``kernel_scale``; such trees serve and do not train."""
+    quantized = "kernel_q" in params
+    kernel = params["kernel_q"] if quantized else params["kernel"]
     if dtype is not None:
         x = x.to(dtype)
         kernel = kernel.to(dtype)
+    elif quantized:
+        kernel = kernel.to(x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32:
         y = x2 @ kernel
-    elif torch.is_grad_enabled() and (x2.requires_grad
-                                      or kernel.requires_grad):
+    elif not quantized and torch.is_grad_enabled() and (
+            x2.requires_grad or kernel.requires_grad):
         y = MatmulF32Out.apply(x2, kernel)
     else:
         y = _mm_f32_out(x2, kernel)
+    if quantized:
+        y = y * params["kernel_scale"]
     return (y + params["bias"]).reshape(*lead, kernel.shape[-1])
 
 
@@ -152,16 +165,25 @@ def conv2d(params, x: torch.Tensor, stride: int = 1, padding="SAME",
     as in JAX. On the GPU cuDNN runs that f32 convolution on the TF32
     tensor cores when ``torch.backends.cudnn.allow_tf32`` is on (its
     default), and TF32 holds every bf16 value, so the products stay exact;
-    with it off the CUDA cores give the same values."""
-    kernel = params["kernel"]
+    with it off the CUDA cores give the same values. A quantized kernel
+    (``kernel_q``, OIHW int8) scales the result per output channel by
+    ``kernel_scale``."""
+    quantized = "kernel_q" in params
+    kernel = params["kernel_q"] if quantized else params["kernel"]
     if dtype is not None:
         x = x.to(dtype)
         kernel = kernel.to(dtype)
+    elif quantized:
+        kernel = kernel.to(x.dtype)
     x, kernel = x.float(), kernel.float()
     (hlo, hhi), (wlo, whi) = _pads(x, kernel.shape[-1], stride, padding)
     if hlo == hhi and wlo == whi:
-        return F.conv2d(x, kernel, stride=stride, padding=(hlo, wlo))
-    return F.conv2d(F.pad(x, (wlo, whi, hlo, hhi)), kernel, stride=stride)
+        y = F.conv2d(x, kernel, stride=stride, padding=(hlo, wlo))
+    else:
+        y = F.conv2d(F.pad(x, (wlo, whi, hlo, hhi)), kernel, stride=stride)
+    if quantized:
+        y = y * params["kernel_scale"][:, None, None]
+    return y
 
 
 def batchnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -30,8 +30,14 @@ over flat float vectors, with the JAX engine's bucketing and wire rules.
   ``batch_collect`` waits on them and splits the rows. ``batch_predict``
   is the two in a row.
 
-Weight quantization (``quantize``) is not yet ported and refuses by
-name.
+- **Weight-only int8** (``quantize="int8"``): the engine's tree goes
+  through ``ops.quant.quantize_params`` (dense and conv kernels and MoE
+  expert stacks int8 with per-output-channel f32 scales; the MoE router
+  stays full precision), at construction and at every ``set_params``.
+  The generation lanes share the engine's params, so one flag quantizes
+  every serving path of a worker. Random weights are drawn in f32 and
+  quantized from f32, as JAX quantizes its f32 tree; a given tree is
+  quantized as it is.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_engine_torch.models.registry import ModelSpec, create_model
+from tpu_engine_torch.ops.quant import quantize_params
 from tpu_engine_torch.training.train import tree_leaves
 from tpu_engine_torch.utils.device import resolve_device, resolve_dtype
 
@@ -80,11 +87,11 @@ class InferenceEngine:
         CUDA card; pass ``device="cpu"`` to run on the CPU.
         ``shape_buckets``: per-sample input shapes for mixed-shape serving
         (the model's apply must take each, as a fully convolutional model
-        does); the model's own shape is always one."""
-        if quantize is not None:
-            raise NotImplementedError(
-                "weight quantization (quantize) is not yet ported to "
-                "tpu_engine_torch")
+        does); the model's own shape is always one. ``quantize``: None or
+        "int8" (weight-only, ``ops.quant``)."""
+        if quantize is not None and quantize != "int8":
+            raise ValueError(f"unsupported quantize mode '{quantize}' "
+                             "(supported: int8)")
         if isinstance(model, str):
             model = create_model(model)
         if model.apply is None:
@@ -99,8 +106,12 @@ class InferenceEngine:
             shapes.add(tuple(model.input_shape))
             self._shape_buckets = tuple(sorted(
                 shapes, key=lambda sh: (int(np.prod(sh)), sh)))
+        self.quantize = quantize
         self.params = params if params is not None else model.init(
-            rng_seed, device=self.device, dtype=self._dtype)
+            rng_seed, device=self.device,
+            dtype=torch.float32 if quantize else self._dtype)
+        if quantize is not None:
+            self.params = quantize_params(self.params)
         self._cuda = self.device.type == "cuda"
         # Set by the owning worker, as on the JAX engine. The JAX engine
         # records an ``xla_compile`` span per bucket it compiles; the
@@ -126,7 +137,10 @@ class InferenceEngine:
     def set_params(self, params) -> None:
         """Swap in a new parameter tree of the served one's structure,
         leaf shapes and dtypes (refused otherwise, with the JAX engine's
-        messages), placed on the engine's device."""
+        messages), placed on the engine's device. A quantizing engine
+        quantizes the new tree first, so a reload serves int8 weights."""
+        if self.quantize is not None:
+            params = quantize_params(params)
         if _structure(params) != _structure(self.params):
             raise ValueError(
                 "reload rejected: parameter tree structure differs from "

@@ -668,12 +668,7 @@ def train(argv, params=None) -> int:
         print("--mesh (parallel training) is not yet ported to "
               "tpu_engine_torch")
         return 2
-    try:
-        spec = create_model(args.model)
-    except NotImplementedError as exc:
-        print(f"'{args.model}' is not a causal-LM transformer the port "
-              f"trains ({exc})")
-        return 2
+    spec = create_model(args.model)
     cfg = spec.config
     if not isinstance(cfg, TransformerConfig) or not cfg.causal:
         print(f"'{args.model}' is not a causal-LM transformer")

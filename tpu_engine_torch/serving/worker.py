@@ -20,8 +20,9 @@ max_batch_size``, no prefix cache).
 
 The model comes from ``model`` (a registry name, seeded random weights)
 or ``model_path``: an existing ``.onnx`` file serves its graph
-(``models.onnx_graph``; ``quantize`` refuses with the JAX worker's
-message); an HF checkpoint (a ``config.json``/``model.safetensors``/
+(``models.onnx_graph``; ``quantize`` refuses any ``.onnx`` path with the
+JAX worker's message, whose worker opens every such path as a graph);
+an HF checkpoint (a ``config.json``/``model.safetensors``/
 ``pytorch_model.bin`` directory, sharded or not, or a ``.safetensors``,
 ``.bin``, ``.pt`` or ``.pth`` file) loads its weights into ``model``
 through ``models.import_weights.load_pretrained`` (an HF directory's
@@ -384,6 +385,16 @@ class WorkerNode:
                 "gen_draft_path (--gen-draft-path): loading draft weights "
                 "is not yet ported to tpu_engine_torch")
         path = config.model_path or ""
+        if path.endswith(".onnx") and config.quantize is not None:
+            # ONNX initializers are flat named arrays, not the kernel
+            # dicts ops.quant rewrites: quantizing would quantize nothing.
+            raise RuntimeError(
+                "quantize is not supported for raw .onnx graphs "
+                "(import the checkpoint into a registry "
+                "architecture to serve quantized)")
+        # Quantized lanes load f32 weights and quantize those, as JAX
+        # quantizes its f32 tree.
+        load_dtype = "float32" if config.quantize else config.dtype
         if path.endswith(".onnx") and os.path.exists(path):
             # The graph itself is the model: architecture and weights.
             from tpu_engine_torch.models.onnx_graph import build_onnx_model
@@ -395,12 +406,13 @@ class WorkerNode:
             spec = _model_spec(config.model, path)
             if params is None:
                 params = _load_model_path(spec, path, config.device,
-                                          config.dtype)
+                                          load_dtype)
         self._fence_family(spec)
         self.engine = InferenceEngine(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             batch_buckets=config.batch_buckets,
-            shape_buckets=config.shape_buckets, device=config.device)
+            shape_buckets=config.shape_buckets, device=config.device,
+            quantize=config.quantize)
         # The lane's span ring, made before the batcher whose observer
         # records into it.
         self.tracer = SpanRecorder(config.trace_capacity)
@@ -995,8 +1007,9 @@ class WorkerNode:
         swap them in (``apply_weights``). A checkpoint of another
         architecture or dtype is refused while the old weights keep
         serving."""
-        params = _load_model_path(self.engine.spec, model_path,
-                                  self.engine.device, self.config.dtype)
+        params = _load_model_path(
+            self.engine.spec, model_path, self.engine.device,
+            "float32" if self.config.quantize else self.config.dtype)
         if params is None:
             raise ValueError(f"no loadable weights at '{model_path}'")
         return self.apply_weights(params, source=model_path)

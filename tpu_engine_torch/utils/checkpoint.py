@@ -70,7 +70,8 @@ def save_params(path: str, params: Any, overwrite: bool = False) -> str:
 def load_params(path: str, device=None, dtype=None) -> Any:
     """Restore a parameter tree onto ``device`` (None = the CUDA card).
     ``dtype``, if given, is the matmul kernels' dtype (the
-    ``models.convert`` convention: everything else stays as saved)."""
+    ``models.convert`` convention, MoE expert stacks included: everything
+    else, int8 kernels and their scales too, stays as saved)."""
     tree = torch.load(os.path.join(os.path.abspath(path), PARAMS_FILE),
                       map_location=resolve_device(device), weights_only=True)
     return tree if dtype is None else _cast_kernels(tree,
@@ -79,7 +80,8 @@ def load_params(path: str, device=None, dtype=None) -> Any:
 
 def _cast_kernels(tree, dtype):
     if isinstance(tree, dict):
-        return {k: (v.to(dtype) if k == "kernel" and torch.is_tensor(v)
+        return {k: (v.to(dtype) if k in ("kernel", "wi", "wo")
+                    and torch.is_tensor(v)
                     else _cast_kernels(v, dtype)) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast_kernels(v, dtype) for v in tree]

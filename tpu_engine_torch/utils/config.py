@@ -32,6 +32,11 @@ class WorkerConfig:
     batch_timeout_ms: float = 20.0
     batch_linger_ms: float = 0.0        # accumulation window (0 = off)
     dtype: str = "bfloat16"
+    # Weight-only quantization ("int8" | None): dense/conv kernels and MoE
+    # expert stacks stored int8 with per-output-channel f32 scales
+    # (ops.quant). The engine quantizes; the generation lanes share its
+    # params. Set in code (the JAX package's serve --quantize).
+    quantize: Optional[str] = None
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
     # Mixed-shape serving: per-sample input shapes of the engine's shape
     # buckets; requests carry "shape": [h, w, c]. Set in code (the JAX
