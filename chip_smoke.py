@@ -400,6 +400,51 @@ Phases (any failure exits non-zero and prints no result line):
               issue ms, the share of dropped (token, choice) pairs), a B
               8 decode tick of the bf16 and of the int8 forward (wall,
               host issue, device busy and idle).
+14. batch  — last: the batch lanes (gen_scheduler batch and
+              speculative; no kernel of their own: #5 at every prefill
+              and /score forward, plain decode steps and verify windows).
+              llama-small-test in f32 (TF32 off) on the card against the
+              same weights on the CPU: the Generator with and without
+              fused (one decode loop serves both; greedy, seeded at
+              temperature 0.8 with top_p 0.9, a repetition penalty of 1.2
+              with stop tokens), beam width 4, score (1e-4), the
+              SpeculativeGenerator (k 3) with a self-draft and a random
+              draft, token for token; on the card fused == chunked and
+              speculative greedy == plain greedy. #5 at the batch
+              prefill: B 8 with 3 live rows left-padded at 512 (5 rows
+              fully masked), 12 heads of 64, f32 (1e-5) and bf16 (2e-2)
+              on out and lse, the masked rows 0 and lse -inf, no NaN,
+              bit-identical over two runs, timed beside its plain
+              version, scaled_dot_product_attention with the same mask
+              and the bound. gpt2 at full width and
+              depth (random weights from seed 0, bf16) as a worker_node
+              process with --gen-scheduler batch (8 rows a group, 200 ms
+              window): 16 /generate (prompts of 100-480 tokens, 32 new,
+              half greedy, half seeded at 0.8, two with stop tokens and a
+              penalty of 1.2), 4 streams, 4 beam-4 requests of 16 tokens
+              and 8 /score rows of 128 at once; then a 600-token prompt
+              alone (exactly 1 token: the 1024 bucket's clamp), a group
+              of four greedy requests twice (identical), a stream against
+              its blocking answer, beam_width 9 (a 400), /health's
+              generator block with JAX's Generator.stats() keys, and the
+              process's counts: #5 only, a multiple of 12, no plain call.
+              In this process on the same weights: fused == chunked over
+              8 prompts greedy and seeded, #5 launches == 12 x the
+              prefill and score forwards. The speculative lane as two
+              f32 worker_node processes (--gen-spec-k 4): one serving
+              gpt2 from a checkpoint of the port's format with the same
+              checkpoint as its draft (--gen-draft-model gpt2
+              --gen-draft-path), whose tokens per live round must pass
+              0.9 x k, and one with the auto draft (distilgpt2, random),
+              whose accept ratio is printed; each answers 8 greedy
+              requests (32 new), reads lane="batch" in /health and
+              /metrics and refuses top_p with a 400, and its streams are
+              held against an in-process f32 Generator: a stream may part
+              only at a top-2 margin of at most 1e-3. Readings: a B 8
+              decode step (wall, host issue, device busy and idle), the
+              decode loop's done-flag reads (8 x 64 tokens reading it
+              every 16 steps against every 64), one beam-4 step and the
+              bytes of its cache gather, one speculative round.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -420,6 +465,7 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
+    python3 chip_smoke.py --phase batch
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -888,23 +934,29 @@ def flash_bound_ms(q, causal: bool = True, mask=None) -> tuple:
     """Least time for a flash forward over (B, S, H, D) inputs: the larger
     of the bytes over 3.35 TB/s and the flops over the card's peak in the
     inputs' type (bf16 tensor cores, or f32 CUDA cores: the port's f32
-    products run without TF32). Bytes, in the inputs' dtype: q read and
-    out written once, k and v read once for each key the (B, S) mask keeps
-    (every key without a mask), the f32 lse written, the int32 mask read.
-    Flops: 4*D per (query, key) pair the function needs: each query with
-    each key the mask keeps, causal ones only up to the query. A padded
-    key adds nothing to any output, so its pairs are not counted, whatever
-    the kernel itself computes."""
+    products run without TF32). Bytes, in the inputs' dtype: q read once
+    for each query row with at least one key to attend (a row with none
+    gives 0 and -inf whatever its q holds), out written once for every
+    row, k and v read once for each key the (B, S) mask keeps (every key
+    without a mask), the f32 lse written, the int32 mask read. Flops: 4*D
+    per (query, key) pair the function needs: each query with each key
+    the mask keeps, causal ones only up to the query. A padded key adds
+    nothing to any output, so its pairs are not counted, whatever the
+    kernel itself computes."""
     b, s, h, d = q.shape
     es = q.element_size()
     if mask is None:
-        kept = b * s
+        kept = live = b * s
         rows = b * (s * (s + 1) // 2 if causal else s * s)
     else:
         m = (mask != 0).long()
         kept = int(m.sum())
-        rows = int(m.cumsum(1).sum()) if causal else s * kept
-    nbytes = (2 * q.numel() + 2 * kept * h * d) * es + b * h * s * 4
+        if causal:
+            seen = m.cumsum(1)
+            rows, live = int(seen.sum()), int((seen > 0).sum())
+        else:
+            rows, live = s * kept, s * int((m.sum(1) > 0).sum())
+    nbytes = ((live + b * s + 2 * kept) * h * d) * es + b * h * s * 4
     if mask is not None:
         nbytes += mask.numel() * 4
     peak = PEAK_BF16_FLOPS if es == 2 else PEAK_F32_FLOPS
@@ -7079,6 +7131,623 @@ def phase_moe(torch, card: str) -> dict:
     return out
 
 
+# -- the batch lanes -----------------------------------------------------------
+
+# gpt2 at full width and depth (12 layers, d 768, 12 heads of 64, d_ff 3072,
+# vocab 50257, max_seq 1024), random weights from seed 0.
+BATCH_LAYERS = 12
+BATCH_VOCAB = 50257
+# A 200 ms batching window: four requests sent at once form one group.
+BATCH_LANE_ARGS = ("gpt2", "--gen-scheduler", "batch", "--n-slots", "8",
+                   "--batch-timeout-ms", "200", "--dtype", "bfloat16")
+SPEC_LANE_ARGS = ("--gen-scheduler", "speculative", "--gen-spec-k", "4",
+                  "--n-slots", "8", "--batch-timeout-ms", "200",
+                  "--dtype", "float32")
+BATCH_GENERATE = 16
+BATCH_NEW = 32
+BATCH_STREAMS = 4
+BATCH_BEAMS = 4
+BATCH_BEAM_NEW = 16
+BATCH_SCORES = 8
+BATCH_IDENTITY = 4
+# Prompts of 100-480 tokens keep every group in the 512 bucket; the one
+# 600-token prompt lands in the 1024 bucket and gets one token.
+BATCH_PROMPT = (100, 481)
+BATCH_CLAMP_PROMPT = 600
+BATCH_SPEC_K = 4
+# Where the lanes' greedy streams may part from the in-process f32
+# Generator's: the verify window and the single step are other GEMM
+# shapes, so a top-2 margin below this can flip.
+BATCH_SPEC_MARGIN = 1e-3
+# The keys of the JAX Generator's stats() (tpu_engine/runtime/
+# generator.py:862), /health's generator block on a batch lane.
+JAX_GENERATOR_STATS_KEYS = {"model", "max_seq", "batch_buckets",
+                            "prompt_buckets", "step_chunk",
+                            "compiled_prefill", "compiled_decode"}
+# llama-small-test on the card against the CPU (f32, TF32 off): the
+# /score log-probabilities of a 2-layer forward summed in another order.
+BATCH_SCORE_TOL = 1e-4
+
+
+def batch_small(torch) -> dict:
+    """llama-small-test in f32 on the card (kernels) against the same
+    weights on the CPU (plain versions): the Generator with and without
+    fused (one loop; greedy; seeded at temperature 0.8, top_p 0.9; a
+    repetition penalty with stops), beam width 4, score, and the
+    SpeculativeGenerator (k 3) with a self-draft and a random draft."""
+    from tpu_engine_torch.models.convert import params_to
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.runtime.generator import Generator
+    from tpu_engine_torch.runtime.speculative import SpeculativeGenerator
+
+    spec = create_model("llama-small-test")
+    cpu_p = spec.init(0, device="cpu", dtype="float32")
+    draft_p = spec.init(1, device="cpu", dtype="float32")
+    gpu_p, gpu_d = params_to(cpu_p, "cuda"), params_to(draft_p, "cuda")
+    gen = {"cuda": Generator(spec, params=gpu_p, dtype="float32",
+                             step_chunk=4, device="cuda"),
+           "cpu": Generator(spec, params=cpu_p, dtype="float32",
+                            step_chunk=4, device="cpu")}
+    rng = np.random.default_rng(23)
+    prompts = [[int(t) for t in rng.integers(1, spec.config.vocab, n)]
+               for n in (5, 12, 3, 30, 9)]
+    greedy = gen["cpu"].generate(prompts, max_new_tokens=24)
+    cases = {"greedy": {},
+             "seeded": dict(temperature=0.8, top_p=0.9,
+                            seed=[31, 32, 33, 34, 35]),
+             "penalty+stops": dict(repetition_penalty=1.2,
+                                   stop_tokens=[greedy[0][6],
+                                                greedy[2][9]])}
+    out = {}
+    for case, kw in cases.items():
+        want = gen["cpu"].generate(prompts, max_new_tokens=24, **kw)
+        got = gen["cuda"].generate(prompts, max_new_tokens=24, **kw)
+        fused = gen["cuda"].generate(prompts, max_new_tokens=24, fused=True,
+                                     **kw)
+        check(got == want, f"batch small {case}: card {got} != CPU {want}")
+        check(fused == got, f"batch small {case}: fused {fused} != "
+                            f"chunked {got}")
+        out[case] = sum(len(r) for r in got)
+    beams = [g.beam_search(prompts[1], beam_width=4, max_new_tokens=16)
+             for g in (gen["cuda"], gen["cpu"])]
+    check(beams[0] == beams[1], f"batch small beam: {beams}")
+    completions = [p[:4] for p in prompts]
+    sc = [np.concatenate(g.score(prompts, completions))
+          for g in (gen["cuda"], gen["cpu"])]
+    out["score_err"] = float(np.abs(sc[0] - sc[1]).max())
+    check(out["score_err"] <= BATCH_SCORE_TOL,
+          f"batch small score: {out['score_err']} > {BATCH_SCORE_TOL}")
+    for draft, (dc, dg) in (("self", (cpu_p, gpu_p)),
+                            ("random", (draft_p, gpu_d))):
+        sg = {d: SpeculativeGenerator(spec, spec, params=p, draft_params=q,
+                                      k=3, dtype="float32", device=d)
+              for d, p, q in (("cuda", gpu_p, dg), ("cpu", cpu_p, dc))}
+        for case, kw in (("greedy", {}),
+                         ("t0.8", dict(temperature=0.8, seed=7))):
+            want = sg["cpu"].generate(prompts, max_new_tokens=24, **kw)
+            got = sg["cuda"].generate(prompts, max_new_tokens=24, **kw)
+            check(got == want, f"batch small spec {draft} {case}: card "
+                               f"{got} != CPU {want}")
+            if case == "greedy":
+                check(got == gen["cuda"].generate(prompts,
+                                                  max_new_tokens=24),
+                      f"batch small spec {draft}: greedy != plain greedy")
+        out[f"spec_{draft}"] = sg["cuda"].last_stats
+    log(f"batch: llama-small-test f32 on the card == CPU: Generator "
+        f"with and without fused ({', '.join(cases)}), beam 4, score (max err "
+        f"{out['score_err']:.2e}), SpeculativeGenerator k 3 self-draft "
+        f"and random draft; fused == chunked, spec greedy == plain greedy")
+    return out
+
+
+def batch_flash(torch, card: str) -> dict:
+    """#5 at the batch lanes' prefill: a bucket of 8 rows with 3 live ones
+    left-padded at 512 (5 rows fully masked), 12 heads of 64, in f32 (as
+    the served lanes launch it) and bf16, against the plain version; the
+    kernel's device time beside the plain version's, the library's and
+    the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.runtime.generator import left_pad_batch
+
+    _, mask, _, _ = left_pad_batch([[1] * n for n in (480, 300, 100)], 8,
+                                   512)
+    m = torch.from_numpy(mask).cuda()
+    out = {}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v, _ = flash_inputs(torch, "cuda", 512, 12, 64, dtype=dtype,
+                                  b=8, seed=24)
+        args = dict(causal=True, mask=m)
+        got, lse = fl.flash_attention_fwd(q, k, v, **args)
+        ref, ref_lse = fl.flash_attention_reference(q, k, v, **args)
+        torch.cuda.synchronize()
+        name = "f32" if dtype == torch.float32 else "bf16"
+        err = flash_err(torch, got, lse, ref, ref_lse)
+        check(err <= tol, f"#5 batch prefill {name}: err {err} > {tol}")
+        dead = m.sum(1) == 0
+        check(int(dead.sum()) == 5 and bool((got[dead] == 0).all())
+              and bool((lse[dead] == float("-inf")).all()),
+              f"#5 batch prefill {name}: fully masked rows not 0 / -inf")
+        check(not bool(torch.isnan(got.float()).any())
+              and not bool(torch.isnan(lse).any()),
+              f"#5 batch prefill {name}: NaN")
+        flash_identical(torch, fl, q, k, v, args, got, lse,
+                        f"batch prefill {name}")
+        ms, seen = device_call_ms(
+            torch, lambda: fl.flash_attention_fwd(q, k, v, **args))
+        plain = time_ms(torch, lambda: fl.flash_attention_reference(
+            q, k, v, **args), iters=5)
+        # The library: scaled_dot_product_attention on the memory-efficient
+        # backend (the flash backend takes no mask) with the causal and
+        # key mask as one dense (B, 1, S, S) bool mask, built and the
+        # inputs transposed beforehand (not timed). It gives out only, no
+        # lse; its fully masked rows are recorded, not checked.
+        qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        amask = (torch.ones(512, 512, dtype=torch.bool, device="cuda")
+                 .tril()[None, None] & (m > 0)[:, None, None, :])
+
+        def library_call():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qq, kk, vv,
+                                                      attn_mask=amask)
+        lib_dead = library_call()[dead].float()
+        library, _ = device_call_ms(torch, library_call)
+        bound, by = flash_bound_ms(q, causal=True, mask=m)
+        out[name] = {"max_abs_err": err, "device_ms": ms,
+                     "profiled_calls": seen, "plain_ms": plain,
+                     "library_ms": library,
+                     "library_backend": "EFFICIENT_ATTENTION",
+                     "library_masked_rows": (
+                         "nan" if bool(torch.isnan(lib_dead).any()) else
+                         "0" if bool((lib_dead == 0).all()) else "other"),
+                     "bound_ms": bound, "bound_by": by}
+        log(f"#5 at the batch prefill (B 8, 3 live rows, pb 512, 12 x 64, "
+            f"{name}): err {err:.2e}, masked rows 0 and lse -inf, "
+            f"bit-identical; device {ms:.4f} ms, plain {plain:.3f} ms, "
+            f"sdpa EFFICIENT_ATTENTION {library:.4f} ms (device time; its "
+            f"fully masked rows {out[name]['library_masked_rows']}), bound "
+            f"{bound:.5f} ms ({by}) [{card}]")
+        del q, k, v, got, lse, ref, ref_lse, qq, kk, vv, amask
+    return out
+
+
+def batch_tokens(rng, n: int) -> list:
+    return [int(t) for t in rng.integers(1, BATCH_VOCAB, n)]
+
+
+def batch_worker(torch, card: str) -> dict:
+    """gpt2 at full width as a worker_node process on the batch lane (bf16,
+    8 rows a group): a burst of /generate, /generate/stream, beam and
+    /score requests at once, the 1024 bucket's clamp, repeats of one
+    group of four, a stream against its blocking answer, an invalid beam;
+    then the process's launch counts."""
+    import signal
+
+    OUT_DIR.mkdir(exist_ok=True)
+    counts_path = OUT_DIR / "batch_counts.json"
+    counts_path.unlink(missing_ok=True)
+    proc, port, log_f = spawn_counted_worker_node(
+        ["batch-w", *BATCH_LANE_ARGS], OUT_DIR / "batch_worker.log",
+        counts_path)
+    rng = np.random.default_rng(25)
+
+    def prompt():
+        return batch_tokens(rng, int(rng.integers(*BATCH_PROMPT)))
+    out = {}
+    try:
+        out["ready_s"] = wait_health(proc, port)
+        gens = {}
+        for i in range(BATCH_GENERATE):
+            b = {"request_id": f"bg{i}", "prompt_tokens": prompt(),
+                 "max_new_tokens": BATCH_NEW}
+            if i % 2:
+                b.update(temperature=0.8, seed=1000 + i)
+            if i in (3, 4):
+                b.update(repetition_penalty=1.2,
+                         stop_tokens=batch_tokens(rng, 2))
+            gens[b["request_id"]] = b
+        beams = {f"bb{i}": {"request_id": f"bb{i}",
+                            "prompt_tokens": prompt(), "beam_width": 4,
+                            "max_new_tokens": BATCH_BEAM_NEW}
+                 for i in range(BATCH_BEAMS)}
+        scores = {f"bc{i}": {"request_id": f"bc{i}",
+                             "prompt_tokens": batch_tokens(rng, 112),
+                             "completion_tokens": batch_tokens(rng, 16)}
+                  for i in range(BATCH_SCORES)}
+        streams = [StreamReader(port, {"request_id": f"bs{i}",
+                                       "prompt_tokens": prompt(),
+                                       "max_new_tokens": BATCH_NEW})
+                   for i in range(BATCH_STREAMS)]
+        res = {}
+
+        def burst(name, path, bodies):
+            res[name] = concurrent_posts(port, path, bodies)[0]
+        posts = [threading.Thread(target=burst, args=a) for a in
+                 (("gens", "/generate", gens), ("beams", "/generate", beams),
+                  ("scores", "/score", scores))]
+        t0 = time.perf_counter()
+        for th in [*streams, *posts]:
+            th.start()
+        for th in [*streams, *posts]:
+            th.join(timeout=600)
+        out["burst_s"] = time.perf_counter() - t0
+        check(len(res) == 3, f"batch burst: {sorted(res)}")
+        answers = {k: v for r in res.values() for k, v in r.items()}
+        for name, b in gens.items():
+            n = len(answers[name]["tokens"])
+            check(n == BATCH_NEW or ("stop_tokens" in b and n < BATCH_NEW),
+                  f"batch /generate {name}: {n} tokens")
+        for name in beams:
+            check(len(answers[name]["tokens"]) == BATCH_BEAM_NEW,
+                  f"batch beam {name}: {answers[name]}")
+        for name in scores:
+            lp = np.asarray(answers[name]["logprobs"], np.float64)
+            check(lp.shape == (16,) and np.isfinite(lp).all()
+                  and (lp <= 0).all(), f"batch /score {name}")
+        for r in streams:
+            check(r.final is not None and "error" not in r.final
+                  and r.tokens == r.final["tokens"]
+                  and len(r.tokens) == BATCH_NEW,
+                  f"batch stream {r.body['request_id']}: {r.final} "
+                  f"{r.error}")
+        # The 1024 bucket: max_new clamps to max_seq - 1024 = 0, so 1.
+        clamp = post(port, "/generate", {
+            "request_id": "bclamp", "max_new_tokens": BATCH_NEW,
+            "prompt_tokens": batch_tokens(rng, BATCH_CLAMP_PROMPT)})
+        check(len(clamp["tokens"]) == 1,
+              f"batch clamp: {len(clamp['tokens'])} tokens")
+        # One group of four greedy requests, twice: the same composition.
+        # An idle batcher dispatches what has queued at once, so four
+        # requests sent together may split; each pass sends them while a
+        # blocker holds the batcher, and they queue into one batch.
+        group = {f"bi{i}": {"request_id": f"bi{i}",
+                            "prompt_tokens": prompt(),
+                            "max_new_tokens": BATCH_NEW}
+                 for i in range(BATCH_IDENTITY)}
+        blocker = {"request_id": "bblock", "prompt_tokens": prompt(),
+                   "max_new_tokens": BATCH_NEW}
+
+        def one_batch():
+            ended = []
+            th = threading.Thread(target=lambda: (
+                post(port, "/generate", blocker),
+                ended.append(time.perf_counter())))
+            th.start()
+            time.sleep(0.1)
+            sent = time.perf_counter()
+            answers = concurrent_posts(port, "/generate", group)[0]
+            th.join(timeout=600)
+            check(ended and ended[0] - sent > 0.2,
+                  "batch identity: the blocker ended before the group "
+                  "had queued")
+            return answers
+        passes = [one_batch() for _ in range(2)]
+        check(all(passes[0][k]["tokens"] == passes[1][k]["tokens"]
+                  for k in group), "batch identity: repeats differ")
+        # A stream against the same request's blocking answer (alone).
+        body = {"request_id": "bsx", "prompt_tokens": prompt(),
+                "max_new_tokens": BATCH_NEW, "temperature": 0.8,
+                "seed": 77}
+        toks, final, _ = stream(port, body)
+        check(final is not None and toks == final["tokens"]
+              == post(port, "/generate", body)["tokens"],
+              "batch stream != blocking answer")
+        st, raw, _ = call(port, "POST", "/generate", {
+            "request_id": "bad", "prompt_tokens": [1, 2],
+            "beam_width": 9})
+        check(st == 400 and b"beam_width" in raw,
+              f"batch invalid beam: {st} {raw[:200]!r}")
+        gstats = get(port, "/health")["generator"]
+        check(set(gstats) == JAX_GENERATOR_STATS_KEYS,
+              f"batch /health generator keys {sorted(gstats)}")
+        out.update(compiled_prefill=gstats["compiled_prefill"],
+                   compiled_decode=gstats["compiled_decode"])
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "batch worker: exit code")
+        counts = json.loads(counts_path.read_text())
+        check(all(p == 0 for _, p in counts.values()),
+              f"batch worker: plain versions served: {counts}")
+        check(all(c[0] == 0 for k, c in counts.items()
+                  if k != "flash_attention"),
+              f"batch worker: other kernels launched: {counts}")
+        flash = counts["flash_attention"][0]
+        check(flash > 0 and flash % BATCH_LAYERS == 0,
+              f"batch worker: #5 launches {flash}")
+        out["launches"] = flash
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log_f.close()
+    log(f"batch worker (gpt2 bf16): {BATCH_GENERATE} /generate, "
+        f"{BATCH_STREAMS} streams, {BATCH_BEAMS} beam-4 and {BATCH_SCORES} "
+        f"/score at once in {out['burst_s']:.1f} s; the 600-token prompt "
+        f"got 1 token; a group of {BATCH_IDENTITY} identical on repeat; a "
+        f"stream == its blocking answer; beam_width 9 a 400; #5 "
+        f"{out['launches']} launches = {BATCH_LAYERS} x "
+        f"{out['launches'] // BATCH_LAYERS} forwards, no plain call [{card}]")
+    return out
+
+
+def batch_in_process(torch, card: str, params) -> dict:
+    """An in-process Generator on gpt2 bf16 (the worker's weights): fused
+    == chunked over 8 prompts, greedy and seeded; #5 launched exactly
+    12 x the prefill and score forwards; then the readings."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import init_caches
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.runtime import generator as tg
+
+    spec = create_model("gpt2")
+    gen = tg.Generator(spec, params=params, dtype="bfloat16", step_chunk=16,
+                       device="cuda")
+    rng = np.random.default_rng(26)
+    prompts = [batch_tokens(rng, int(rng.integers(*BATCH_PROMPT)))
+               for _ in range(8)]
+    kl.reset_counts()
+    forwards = 0
+    out = {}
+    for case, kw in (("greedy", {}),
+                     ("seeded", dict(temperature=0.8,
+                                     seed=list(range(50, 58))))):
+        chunked = gen.generate(prompts, max_new_tokens=BATCH_NEW, **kw)
+        fused = gen.generate(prompts, max_new_tokens=BATCH_NEW, fused=True,
+                             **kw)
+        forwards += 2
+        same = sum(a == b for a, b in zip(chunked, fused))
+        check(same == len(prompts), f"batch fused != chunked ({case}): "
+                                    f"{same} of {len(prompts)} equal")
+        out[f"fused_equal_{case}"] = same
+    gen.beam_search(prompts[0], beam_width=4, max_new_tokens=BATCH_BEAM_NEW)
+    gen.score([p[:112] for p in prompts], [p[112:128] for p in prompts])
+    forwards += 2
+    launches, plain = fl.flash_attention_fwd.launches, \
+        fl.flash_attention_fwd.plain_calls
+    check(plain == 0 and launches == BATCH_LAYERS * forwards,
+          f"batch in process: #5 launches {launches} != {BATCH_LAYERS} x "
+          f"{forwards} forwards (plain {plain})")
+    out["launches"], out["forwards"] = launches, forwards
+    log(f"batch in process (gpt2 bf16): fused == chunked over 8 prompts "
+        f"greedy and seeded; #5 {launches} == {BATCH_LAYERS} x {forwards} "
+        f"prefill and score forwards [{card}]")
+
+    # Readings. A B 8 chunked decode step (decode, sampling, bookkeeping).
+    caches = init_caches(spec.config, 8, spec.config.max_seq,
+                         torch.bfloat16, "cuda")
+    start = np.full((8,), 100, np.int32)
+    rows = tg._Rows(gen, 8, 8, 512, start, -1, [0.0] * 8, [0] * 8,
+                    [1.0] * 8, [0] * 8, [1.0] * 8, [[]] * 8, [0.0] * 8)
+    tok = torch.ones((8,), dtype=torch.int64, device="cuda")
+    done = torch.zeros((8,), dtype=torch.bool, device="cuda")
+
+    def step():
+        return tg._decode_step_sampled(params, spec.config, torch.bfloat16,
+                                       rows, tok, caches, 600, done, None)
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls))
+        issue = issue_ms(torch, step)
+        busy = busy_ms(torch, step)
+    idle = idle_share(busy, wall)
+    out["decode_step_B8"] = {"wall_ms": wall, "issue_ms": issue,
+                             "busy_ms": busy, "idle_share": idle}
+    log(f"batch: gpt2 bf16 B 8 decode step (pos 600) wall {wall:.3f} ms, "
+        f"host issue {issue:.3f} ms, {busy_text(busy, idle)} [{card}]")
+    del caches
+    # The decode loop's host reads, 8 x 64 tokens in turns: the done flag
+    # read every 16 steps (the lane's step_chunk: 5 reads) against every
+    # 64 (2 reads: before the first step and after the last). Both run
+    # the same 64 steps. The second Generator's cache is warmed first.
+    few = tg.Generator(spec, params=params, dtype="bfloat16",
+                       step_chunk=64, device="cuda")
+    few.generate(prompts, max_new_tokens=2)
+    walls = {"every_16": [], "every_64": []}
+    for mode, g in (("every_16", gen), ("every_64", few),
+                    ("every_64", few), ("every_16", gen)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.generate(prompts, max_new_tokens=64)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3)
+    del few
+    out["done_reads_8x64_ms"] = walls
+    log(f"batch: 8 x 64 tokens with the done flag read every 16 steps (5 "
+        f"reads) {walls['every_16']} ms, every 64 (2 reads) "
+        f"{walls['every_64']} ms [{card}]")
+    # One beam-4 step: the wall of 32 - 16 steps over 16, and its gather.
+    bw = {}
+    for n in (17, 33, 17, 33):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.beam_search(prompts[1], beam_width=4, max_new_tokens=n)
+        torch.cuda.synchronize()
+        bw.setdefault(n, []).append((time.perf_counter() - t0) * 1e3)
+    step_ms = (min(bw[33]) - min(bw[17])) / 16
+    cfg = spec.config
+    gather = 2 * cfg.n_layers * 4 * cfg.max_seq * cfg.kv_heads * cfg.d_head \
+        * 2
+    out["beam4_step"] = {"wall_ms": step_ms, "gather_bytes": gather,
+                         "gather_bound_ms": 2 * gather / PEAK_BYTES_PER_S
+                         * 1e3}
+    log(f"batch: one beam-4 step {step_ms:.3f} ms; its cache gather moves "
+        f"{gather / 2**20:.1f} MiB (read and written: bound "
+        f"{out['beam4_step']['gather_bound_ms']:.3f} ms) [{card}]")
+    return out
+
+
+def batch_spec_lanes(torch, card: str, tmp: Path) -> dict:
+    """The speculative lane with draft weights from a path (the target's
+    own, in the port's checkpoint format: a perfect draft) and with the
+    auto draft (distilgpt2, random), each a worker_node process in f32;
+    both lanes' greedy streams against an in-process f32 Generator."""
+    import signal
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.runtime.generator import Generator
+    from tpu_engine_torch.runtime.speculative import SpeculativeGenerator
+    from tpu_engine_torch.utils.checkpoint import SIDECAR, save_params
+
+    spec = create_model("gpt2")
+    p32 = spec.init(0, device="cuda", dtype="float32")
+    ckpt = tmp / "gpt2-f32"
+    save_params(str(ckpt), p32)
+    (ckpt / SIDECAR).write_text(json.dumps({"model": "gpt2"}))
+    lanes = {"self": (["spec-self", str(ckpt), "--gen-draft-model", "gpt2",
+                       "--gen-draft-path", str(ckpt)], BATCH_LAYERS),
+             "auto": (["spec-auto", "gpt2"], 6)}
+    procs = {}
+    for lane, (args, _) in lanes.items():
+        path = OUT_DIR / f"spec_{lane}_counts.json"
+        path.unlink(missing_ok=True)
+        procs[lane] = (*spawn_counted_worker_node(
+            [*args, *SPEC_LANE_ARGS], OUT_DIR / f"spec_{lane}.log", path),
+            path)
+    rng = np.random.default_rng(27)
+    prompts = [batch_tokens(rng, int(rng.integers(*BATCH_PROMPT)))
+               for _ in range(8)]
+    ref = Generator(spec, params=p32, dtype="float32", device="cuda")
+    want = ref.generate(prompts, max_new_tokens=BATCH_NEW)
+    out = {}
+    try:
+        for lane, (proc, port, log_f, counts_path) in procs.items():
+            out[lane] = {"ready_s": wait_health(proc, port)}
+            bodies = {f"sp{i}": {"request_id": f"sp{i}", "prompt_tokens": p,
+                                 "max_new_tokens": BATCH_NEW}
+                      for i, p in enumerate(prompts)}
+            got = concurrent_posts(port, "/generate", bodies)[0]
+            streams = [got[f"sp{i}"]["tokens"] for i in range(8)]
+            gst = get(port, "/health")["generator"]
+            sp = gst["spec"]
+            check(sp["lane"] == "batch", f"spec {lane}: {sp}")
+            metrics = get_text(port, "/metrics")
+            node = "spec-self" if lane == "self" else "spec-auto"
+            check(f'tpu_engine_spec_k{{node="{node}",lane="batch"}} '
+                  f'{BATCH_SPEC_K}' in metrics,
+                  f"spec {lane}: /metrics has no batch spec_k line")
+            st, raw, _ = call(port, "POST", "/generate", {
+                "request_id": "tp", "prompt_tokens": [1, 2, 3],
+                "top_p": 0.9})
+            check(st == 400, f"spec {lane}: top_p answered {st}")
+            out[lane].update(
+                mean_tokens_per_round=gst.get("mean_tokens_per_round"),
+                tokens_per_row_dispatch=sp["tokens_per_row_dispatch"],
+                accept_ratio=sp["accept_ratio"],
+                dispatches=sp["dispatches"])
+            if lane == "self":
+                # JAX's bar for a perfect draft (tests/test_speculative.py:
+                # 52); a draft left random advances about 1 a round.
+                for key in ("tokens_per_row_dispatch",
+                            "mean_tokens_per_round"):
+                    check(out[lane][key] > 0.9 * BATCH_SPEC_K,
+                          f"spec self-draft: {key} {out[lane][key]} <= "
+                          f"0.9 x {BATCH_SPEC_K}")
+            # Streams that part from the in-process Generator's: the
+            # top-2 margin at the first difference.
+            margins = []
+            for p, w, g in zip(prompts, want, streams):
+                if w == g:
+                    continue
+                i = next((j for j, (a, b) in enumerate(zip(w, g))
+                          if a != b), min(len(w), len(g)))
+                seq = torch.tensor([p + w[:i]], device="cuda")
+                with torch.inference_mode():
+                    lg = transformer_apply(p32, seq, spec.config,
+                                           dtype=torch.float32,
+                                           head_rows=torch.tensor(
+                                               [seq.shape[1] - 1],
+                                               device="cuda"))[0]
+                top2 = torch.topk(lg.float(), 2).values
+                margins.append(float(top2[0] - top2[1]))
+            out[lane]["streams_differing"] = len(margins)
+            out[lane]["margins_at_first_difference"] = margins
+            check(all(m <= BATCH_SPEC_MARGIN for m in margins),
+                  f"spec {lane}: a stream parts at top-2 margins "
+                  f"{margins} > {BATCH_SPEC_MARGIN}")
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=120) == 0, f"spec {lane}: exit code")
+            counts = json.loads(counts_path.read_text())
+            check(all(p == 0 for _, p in counts.values()),
+                  f"spec {lane}: plain versions served: {counts}")
+            flash = counts["flash_attention"][0]
+            per_group = BATCH_LAYERS + lanes[lane][1]
+            check(flash > 0 and flash % per_group == 0,
+                  f"spec {lane}: #5 launches {flash} not a multiple of "
+                  f"{per_group}")
+            out[lane]["launches"] = flash
+            log(f"spec lane {lane} (gpt2 f32, k {BATCH_SPEC_K}, "
+                f"{'draft weights from ' + str(ckpt.name) if lane == 'self' else 'distilgpt2 random'}): "
+                f"{sp['tokens_per_row_dispatch']} tokens a live round, "
+                f"accept ratio {sp['accept_ratio']}; {len(margins)} of 8 "
+                f"greedy streams part from the in-process Generator's "
+                f"(margins {margins}); spec block lane=batch in /health "
+                f"and /metrics; top_p a 400; #5 {flash} launches [{card}]")
+    finally:
+        for proc, _, log_f, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log_f.close()
+    # One speculative round in this process (self-draft, f32).
+    sg = SpeculativeGenerator(spec, spec, params=p32, draft_params=p32,
+                              k=BATCH_SPEC_K, dtype="float32",
+                              device="cuda")
+    sg.generate(prompts, max_new_tokens=BATCH_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg.generate(prompts, max_new_tokens=BATCH_NEW)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rounds = sg.last_stats["rounds"]
+    out["round"] = {"call_ms": wall, "rounds": rounds,
+                    "ms_per_round": wall / max(1, rounds),
+                    "mean_tokens_per_round":
+                        sg.last_stats["mean_tokens_per_round"]}
+    log(f"batch: one speculative round (gpt2 f32 self-draft, k "
+        f"{BATCH_SPEC_K}, B 8) {out['round']['ms_per_round']:.2f} ms, "
+        f"{sg.last_stats['mean_tokens_per_round']} tokens a round "
+        f"(prefills included in the call's {wall:.1f} ms) [{card}]")
+    return out
+
+
+def phase_batch(torch, card: str) -> dict:
+    """The batch lanes on the card (the module docstring's batch entry)."""
+    import shutil
+    import tempfile
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import kernels as kl
+
+    t0 = time.perf_counter()
+    out = {"small": batch_small(torch)}
+    out["flash"] = batch_flash(torch, card)
+    # The main path: counts to 0 just before the worker, read just after.
+    kl.reset_counts()
+    out["worker"] = batch_worker(torch, card)
+    params = create_model("gpt2").init(0, device="cuda", dtype="bfloat16")
+    out["in_process"] = batch_in_process(torch, card, params)
+    del params
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_batch_"))
+    try:
+        out["spec"] = batch_spec_lanes(torch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"batch: every check passed in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -7850,7 +8519,8 @@ def main() -> int:
                 "observe": lambda: phase_observe(torch, card),
                 "overload": lambda: phase_overload(torch, card, pa),
                 "recurrent": lambda: phase_recurrent(torch, card),
-                "moe": lambda: phase_moe(torch, card)}
+                "moe": lambda: phase_moe(torch, card),
+                "batch": lambda: phase_batch(torch, card)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -7879,6 +8549,9 @@ def main() -> int:
     # The MoE family (gpt2-moe) and weight-only int8: #1 and #5 in a
     # worker_node process, #4 in a quantized lane in this process.
     moe = timed("moe", phase_moe, torch, card)
+    # The batch lanes: the Generator (chunked, fused, beam, score) and the
+    # batch SpeculativeGenerator; #5 at their prefills.
+    batch = timed("batch", phase_batch, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -7951,6 +8624,21 @@ def main() -> int:
         if name == "quant_ragged_paged_attention":
             rows[-1]["moe"] = {"launches": moe["int8"]["launches"],
                                "ticks": moe["int8"]["ticks"]}
+        # The batch phase's #5: the batch lane's launches (the worker
+        # process's counts), at the left-padded B 8 x 512 prefill with 5
+        # fully masked rows (f32, as the lane launches it).
+        if name == "flash_attention":
+            pre = batch["flash"]["f32"]
+            rows[-1]["batch"] = {
+                "launches": batch["worker"]["launches"],
+                "in_process_launches": batch["in_process"]["launches"],
+                "spec_launches": {k: batch["spec"][k]["launches"]
+                                  for k in ("self", "auto")},
+                "max_abs_err": max(batch["flash"][d]["max_abs_err"]
+                                   for d in ("f32", "bf16")),
+                "ms": pre["device_ms"], "plain_ms": pre["plain_ms"],
+                "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+                "library_ms": pre["library_ms"]}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -7976,7 +8664,7 @@ def main() -> int:
          "server": server, "gateway": gateway, "kvtier": kvtier,
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
-         "moe": moe,
+         "moe": moe, "batch": batch,
          "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},

@@ -49,6 +49,7 @@ from tpu_engine_torch.runtime.generator import filter_logits
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
 from tpu_engine_torch.serving.app import serve_worker
 from tpu_engine_torch.utils import prng
+from tpu_engine_torch.utils.checkpoint import save_params
 from tpu_engine_torch.utils.config import WorkerConfig
 from tpu_engine_torch.utils.deadline import Deadline, DeadlineExceeded
 
@@ -480,10 +481,38 @@ def test_worker_misconfiguration_raises_the_jax_message(overrides):
     assert str(got.value) == str(want.value)
 
 
-def test_worker_refuses_draft_weights_by_name():
-    with pytest.raises(RuntimeError, match="gen_draft_path"):
-        serve_worker(WorkerConfig(port=0, model="gpt2-small-test",
-                                  dtype="float32", device="cpu",
-                                  gen_spec_draft="model",
-                                  gen_draft_path="/nonexistent",
-                                  **WORKER_LANE))
+def test_worker_refuses_draft_weights_by_name(tmp_path, capsys):
+    """gen_draft_path feeds the model drafter, as in the JAX worker: a
+    path to nothing gives a random draft with the JAX warning, a
+    checkpoint of the port's format gives the drafter its weights. The
+    name is older than this behaviour: the worker once refused the
+    option by name, and the test keeps its id."""
+    lane = dict(port=0, model="gpt2-small-test", dtype="float32",
+                device="cpu", gen_spec_draft="model", **WORKER_LANE)
+    worker, srv = serve_worker(WorkerConfig(gen_draft_path="/nonexistent",
+                                            **lane))
+    try:
+        assert "'gpt2-small-test' is randomly initialized (no " \
+            "gen_draft_path)" in capsys.readouterr().out
+        saved = worker.engine.params
+    finally:
+        srv.stop()
+        worker.stop()
+    save_params(str(tmp_path / "draft"), saved)
+    worker, srv = serve_worker(WorkerConfig(
+        gen_draft_path=str(tmp_path / "draft"), **lane))
+    try:
+        assert "randomly initialized" not in capsys.readouterr().out
+        got = worker.generator._drafter.params
+        assert torch.equal(got["blocks"][1]["mlp"]["proj"]["kernel"],
+                           saved["blocks"][1]["mlp"]["proj"]["kernel"])
+        status, out = _post(srv.port, "/generate", {
+            "request_id": "r", "prompt_tokens": [3, 3, 3],
+            "max_new_tokens": 12})
+        assert status == 200 and len(out["tokens"]) == 12
+        # The draft is the target: every proposal is accepted.
+        sp = worker.get_health()["generator"]["spec"]
+        assert sp["accepted_tokens"] == sp["proposed_tokens"] > 0
+    finally:
+        srv.stop()
+        worker.stop()

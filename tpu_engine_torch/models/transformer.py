@@ -5,8 +5,10 @@ block), of the decoder dialects and of the encoder dialect (BERT: post-LN
 blocks, LayerNorm'd embeddings with a segment table, erf GELU, a padding
 mask, no causal mask; one-shot forwards only); the dense scheduler's prompt pass
 (``transformer_prefill``, through the flash kernel) and its per-row decode
-step over the dense cache (``transformer_decode_rows``); prefill windows
-over a row's own dense cache (``transformer_decode_window``); and the paged
+step over the dense cache (``transformer_decode_rows``; the batch
+Generator's one-column-for-all form, ``transformer_decode_step``); prefill
+windows over a row's own dense cache and the batch speculative loop's
+draft and verify windows (``transformer_decode_window``); and the paged
 paths, the ragged mixed step and the two-path decode step over the block
 pool, each over a bf16/f32 or an int8 pool.
 
@@ -353,12 +355,13 @@ def transformer_decode_rows_paged(params, token_t, caches: KVCache, tables,
 
 
 def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
-                         cfg: TransformerConfig, *, dtype):
+                         cfg: TransformerConfig, *, dtype, drop_past):
     """One layer of a W-token window per row against a dense row cache:
     ck/cv (B, S, H_kv, D), updated in place. Row b writes columns
-    [pos_vec[b], pos_vec[b] + W) before the attention read, and window
-    slot i attends columns start_vec[b] <= kpos <= pos_vec[b] + i (inside
-    the sliding band, for models that have one)."""
+    [pos_vec[b], pos_vec[b] + W) before the attention read (with
+    ``drop_past`` a column past the cache is dropped), and window slot i
+    attends columns start_vec[b] <= kpos <= pos_vec[b] + i (inside the
+    sliding band, for models that have one)."""
     b, w = h.shape[:2]
     x = _norm(bp["ln1"], h, cfg)
     offs = torch.arange(w, device=h.device)[None, :]
@@ -366,8 +369,18 @@ def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
     q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=logical)
     rows = torch.arange(b, device=h.device)[:, None]
     cols = pos_vec.long()[:, None] + offs                    # (B, W)
-    ck[rows, cols] = k.to(ck.dtype)
-    cv[rows, cols] = v.to(cv.dtype)
+    if drop_past:
+        # A column past the cache is dropped, as JAX's scatter drops it:
+        # its write lands on column - W instead (below the row's window,
+        # so no two writes of a row meet there) with the value already
+        # there.
+        inside = (cols < ck.shape[1])[..., None, None]
+        at = torch.where(cols < ck.shape[1], cols, cols - w)
+        ck[rows, at] = torch.where(inside, k.to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(inside, v.to(cv.dtype), cv[rows, at])
+    else:
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
     kpos = torch.arange(ck.shape[1], device=h.device)[None, None, :]
     valid = ((kpos <= cols[:, :, None])
              & (kpos >= start_vec.long()[:, None, None]))
@@ -382,7 +395,7 @@ def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
 def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
                               cfg: TransformerConfig, *,
                               dtype=torch.bfloat16, start_vec=None,
-                              head: str = "all"):
+                              head: str = "all", drop_past: bool = False):
     """Consume a W-token window per row against a dense row cache in one
     pass (the two-path scheduler's prefill windows). tokens: (B, W), row
     b's tokens at cache columns [pos_vec[b], pos_vec[b] + W); caches:
@@ -391,7 +404,9 @@ def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
     through the LM head ((B, W, vocab)), "last" only the final slot
     ((B, 1, vocab)), "none" none (logits None). Returns (logits, caches),
     where logits[:, i] predicts the token after tokens[:, i]. Callers keep
-    pos_vec + W <= S."""
+    pos_vec + W <= S, or pass ``drop_past`` to drop the writes past the
+    cache (the batch speculative loop's finished rows make such writes;
+    their outputs are discarded)."""
     _check_dialect(cfg)
     if start_vec is None:
         start_vec = torch.zeros_like(pos_vec)
@@ -401,7 +416,8 @@ def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
     h = _embed(params, tokens, logical, cfg, dtype)
     for li, bp in enumerate(params["blocks"]):
         h = _block_decode_window(bp, h, caches.k[li], caches.v[li],
-                                 pos_vec, start_vec, cfg, dtype=dtype)
+                                 pos_vec, start_vec, cfg, dtype=dtype,
+                                 drop_past=drop_past)
     if head == "none":
         return None, caches
     if head == "last":
@@ -517,7 +533,7 @@ def transformer_prefill(params, tokens, caches: KVCache,
 
 
 def _block_decode_rows(bp, h, ck, cv, pos_vec, start_vec,
-                       cfg: TransformerConfig, *, dtype):
+                       cfg: TransformerConfig, *, dtype, logical):
     """One decode step of one layer with per-row cache positions: ck/cv
     (B, S, H_kv, D), updated in place. Row b writes its new K/V at column
     pos_vec[b] (a column past the cache is dropped, as JAX's scatter drops
@@ -525,8 +541,7 @@ def _block_decode_rows(bp, h, ck, cv, pos_vec, start_vec,
     band), grouped against the unexpanded cache."""
     b = h.shape[0]
     x = _norm(bp["ln1"], h, cfg)
-    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype,
-                           positions=(pos_vec - start_vec).long()[:, None])
+    q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=logical)
     rows = torch.arange(b, device=h.device)
     pos = pos_vec.long()
     col = torch.clamp(pos, max=ck.shape[1] - 1)
@@ -545,20 +560,40 @@ def _block_decode_rows(bp, h, ck, cv, pos_vec, start_vec,
 
 def transformer_decode_rows(params, token_t, caches: KVCache, pos_vec,
                             cfg: TransformerConfig, *, dtype=torch.bfloat16,
-                            start_vec=None):
+                            start_vec=None, pos_ids=None):
     """One decode step where every row has its own cache position (the
     dense scheduler's decode chunk runs ``step_chunk`` of them). token_t:
     (B,) the rows' last tokens; caches: (L, B, S, H_kv, D), updated in
     place; pos_vec: (B,) write columns; start_vec: (B,) first valid column
     per row (default 0). Rope and learned positions (clipped to the table)
-    take the logical position pos - start. Returns (logits (B, vocab),
-    caches)."""
+    take the logical positions ``pos_ids`` (B,), by default pos - start.
+    Returns (logits (B, vocab), caches)."""
     _check_dialect(cfg)
     if start_vec is None:
         start_vec = torch.zeros_like(pos_vec)
-    logical = (pos_vec - start_vec)[:, None]
+    logical = ((pos_vec - start_vec) if pos_ids is None
+               else pos_ids).long()[:, None]
     h = _embed(params, token_t[:, None], logical, cfg, dtype)
     for li, bp in enumerate(params["blocks"]):
         h = _block_decode_rows(bp, h, caches.k[li], caches.v[li], pos_vec,
-                               start_vec, cfg, dtype=dtype)
+                               start_vec, cfg, dtype=dtype, logical=logical)
     return _head(params, h, cfg, dtype)[:, 0], caches
+
+
+def transformer_decode_step(params, token_t, caches: KVCache, pos: int,
+                            cfg: TransformerConfig, *, dtype=torch.bfloat16,
+                            start=None, pos_ids=None):
+    """One decode step of a left-padded batch at one write column ``pos``
+    for every row (the batch Generator's decode loops): token_t (B,);
+    caches (L, B, S, H_kv, D), updated in place; ``start`` (B,) each
+    row's first valid column; ``pos_ids`` (B,) the logical positions
+    (default pos - start). ``transformer_decode_rows`` with ``pos``
+    broadcast to every row. A write at pos >= S is dropped (JAX's
+    ``dynamic_update_slice`` clamps it onto the last column instead);
+    only tokens a caller discards come from such steps. Returns
+    (logits (B, vocab), caches)."""
+    pos_vec = torch.full((token_t.shape[0],), int(pos), dtype=torch.int32,
+                         device=token_t.device)
+    return transformer_decode_rows(params, token_t, caches, pos_vec, cfg,
+                                   dtype=dtype, start_vec=start,
+                                   pos_ids=pos_ids)

@@ -5,7 +5,10 @@
   python -m tpu_engine_torch.serving.cli worker <port> <node_id> <model>
       [--kv-block-size 16 [--kv-blocks N] [--kv-quantize int8]
        [--mixed-step --mixed-token-budget N]
-       [--spec-k K [--spec-draft ngram|model] [--gen-draft-model NAME]]]
+       [--spec-k K [--spec-draft ngram|model] [--gen-draft-model NAME]
+       [--gen-draft-path DIR]]]
+      [--gen-scheduler batch|continuous|speculative [--gen-decode-fused]
+       [--gen-spec-k K] [--gen-draft-model NAME] [--gen-draft-path DIR]]
       [--state-rows N] [--step-chunk N] [--prefill-chunk N] [--n-slots N]
       [--max-batch-size N] [--cache-capacity N] [--batch-timeout-ms MS]
       [--pipeline-depth N] [--warmup] [--no-unified-stateless]
@@ -62,7 +65,20 @@ flags and ``--spec-k``. ``--kv-quantize`` needs ``--kv-block-size``.
 lanes, either mode) turns on continuous speculation: up to K proposals per
 decode row per tick from the n-gram drafter, or with ``--spec-draft model``
 from a draft model (``--gen-draft-model``, default by the target: gpt2 ->
-distilgpt2, randomly initialised), verified in the tick's one ragged forward. ``<model>`` is a
+distilgpt2; its weights from ``--gen-draft-path``, an HF checkpoint or a
+checkpoint of the port's format, else randomly initialised), verified in
+the tick's one ragged forward. ``--gen-scheduler batch`` serves a decoder
+through the batch Generator instead: requests batched by the lane's
+batcher (up to ``--n-slots``) and each group decoded to completion with
+the tokens kept on the card and the done flag read once per
+``--step-chunk`` steps (``--gen-decode-fused``, JAX's one-dispatch loop,
+takes the same loop here: the streams are one); it also serves
+``beam_width`` 2-8 and streams a request's whole result as one event.
+``--gen-scheduler speculative`` is the batch lane with draft-model
+speculation (``--gen-spec-k`` proposals a round from ``--gen-draft-model``
+with ``--gen-draft-path``'s weights; temperature sampling only). The batch
+lanes refuse the paged-cache, host-tier, prefix-fetch, ``--spec-k`` and
+dedicated ``--role`` flags and the recurrent family. ``<model>`` is a
 registry name (seeded random weights) or a checkpoint directory holding
 the ``tpu_engine_model.json`` sidecar the ``train`` command writes (its
 trained weights, served at ``--dtype``). Overload control (each off by
@@ -200,9 +216,26 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
                    default="ngram",
                    help="drafter for --spec-k: ngram (prompt lookup, no "
                         "second model) or model (--gen-draft-model)")
+    p.add_argument("--gen-scheduler",
+                   choices=["batch", "continuous", "speculative"],
+                   default="continuous",
+                   help="decode scheduling: continuous (iteration-level "
+                        "admission), batch-to-completion, or speculative "
+                        "(draft-model proposals verified by the target in "
+                        "one windowed pass; temperature sampling only)")
     p.add_argument("--gen-draft-model", default=None,
-                   help="draft model for --spec-draft model (default: "
-                        "by the target, e.g. gpt2 -> distilgpt2)")
+                   help="draft model for --gen-scheduler speculative and "
+                        "--spec-draft model (default: auto, e.g. gpt2 -> "
+                        "distilgpt2)")
+    p.add_argument("--gen-draft-path", default=None,
+                   help="draft model weights checkpoint")
+    p.add_argument("--gen-spec-k", type=int, default=4,
+                   help="speculation depth: draft tokens proposed per "
+                        "verify round")
+    p.add_argument("--gen-decode-fused", action="store_true",
+                   help="batch scheduler: whole decode loop with the "
+                        "tokens on the card (no per-chunk token copies; "
+                        "identical streams)")
     p.add_argument("--n-slots", type=int, default=8,
                    help="decode rows of a decoder lane's scheduler")
     p.add_argument("--max-batch-size", type=int, default=32,
@@ -296,6 +329,10 @@ def worker_config(a, node_id: str, model: str, model_path=None):
                        gen_continuous_spec_k=a.spec_k,
                        gen_spec_draft=a.spec_draft,
                        gen_draft_model=a.gen_draft_model,
+                       gen_scheduler=a.gen_scheduler,
+                       gen_draft_path=a.gen_draft_path,
+                       gen_spec_k=a.gen_spec_k,
+                       gen_decode_fused=a.gen_decode_fused,
                        max_batch_size=a.max_batch_size,
                        cache_capacity=a.cache_capacity,
                        batch_timeout_ms=a.batch_timeout_ms,

@@ -1,13 +1,27 @@
 """The port's worker lane (counterpart of ``tpu_engine/serving/worker.py``):
-one engine and one continuous scheduler behind ``/infer``, ``/score``,
+one engine and one generation lane behind ``/infer``, ``/score``,
 ``/generate``, ``/generate/stream`` and ``/health``, with the JAX worker's
 wire fields, and the admission plane in front of them.
 
 Lanes. A decoder model (the gpt2 and llama families) gets the continuous
-scheduler: dense, the default lane, or paged (mixed stepping or two-path,
-bf16/f32 or int8 pool, with continuous speculation under
-``gen_continuous_spec_k`` and a host KV tier under
-``gen_kv_host_blocks``). A recurrent decoder (``mamba2``,
+scheduler (``gen_scheduler="continuous"``, the default): dense, the
+default lane, or paged (mixed stepping or two-path, bf16/f32 or int8
+pool, with continuous speculation under ``gen_continuous_spec_k`` and a
+host KV tier under ``gen_kv_host_blocks``; its model drafter loads
+``gen_draft_path``). ``gen_scheduler="batch"`` serves it through the batch
+``Generator`` behind a batcher of its own (``gen_max_batch_size`` rows a
+group, decoded to completion; ``gen_decode_fused`` takes the same loop),
+which also serves ``beam_width`` 2-8 (``MAX_BEAM_WIDTH``; each beam
+request alone) and ``/score``; ``"speculative"`` through the batch
+``SpeculativeGenerator`` (``gen_spec_k``, the draft ``gen_draft_model``
+with ``gen_draft_path``'s weights, or a random draft with the JAX
+warning; temperature sampling only: top_p, top_k, min_p and a penalty are
+400s before they join a batch). On both batch lanes a stream is one
+``tokens`` event and the ``done`` event, unified stateless serving is
+off (``/infer`` and ``/score`` keep their batchers), the continuous
+scheduler's knobs and a dedicated role refuse with the JAX worker's
+messages, and the ``/admin`` routes of the continuous scheduler answer
+JAX's "no continuous scheduler" bodies. A recurrent decoder (``mamba2``,
 ``ssd-small-test``: the state_slab family) gets the continuous scheduler
 over a slab of fixed-size state rows (``gen_state_rows``), two-path or
 mixed, with migration and the handoff; it refuses the KV knobs and
@@ -152,13 +166,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import queue
 import socket
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -166,7 +181,9 @@ from tpu_engine_torch.core.lru_cache import LRUCache
 from tpu_engine_torch.models.registry import ModelSpec, create_model
 from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
+from tpu_engine_torch.runtime.generator import Generator
 from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+from tpu_engine_torch.runtime.speculative import SpeculativeGenerator
 from tpu_engine_torch.serving.clients import HttpWorkerClient
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.serving.overload import (
@@ -216,6 +233,33 @@ class _ScoreItem:
     request_id: str
     prompt: List[int]
     completion: List[int]
+
+
+@dataclass
+class _GenItem:
+    """One /generate request, validated (a batch lane's batcher takes it
+    as it is; the continuous scheduler takes its fields)."""
+    request_id: str
+    prompt: List[int]
+    max_new_tokens: int
+    eos_id: int
+    temperature: float
+    seed: int
+    top_p: float = 1.0
+    top_k: int = 0
+    repetition_penalty: float = 1.0
+    stop_tokens: tuple = ()
+    beam_width: int = 1
+    length_penalty: float = 1.0
+    min_p: float = 0.0
+    # The request's worker-root span context (its stage spans).
+    trace: Optional[TraceContext] = None
+
+
+@dataclass
+class _GenResult:
+    tokens: List[int]
+    generate_time_us: int
 
 
 class _RootSpan:
@@ -350,8 +394,21 @@ class WorkerNode:
         self.config = config
         self.node_id = config.node_id
         self._node_id_json = json.dumps(self.node_id).encode()
+        # The generation lane: the continuous scheduler, or one of the
+        # batch lanes, each behind a batcher of its own ("batch": the
+        # Generator; "speculative": the SpeculativeGenerator).
+        self._continuous = config.gen_scheduler == "continuous"
+        self._speculative = config.gen_scheduler == "speculative"
+        if config.gen_continuous_spec_k > 0 and not self._continuous:
+            # --spec-k is the continuous scheduler's knob: another lane
+            # would serve without speculation, silently.
+            raise RuntimeError(
+                f"--spec-k requires gen_scheduler=continuous, got "
+                f"{config.gen_scheduler!r} (batch-lane speculation "
+                f"is gen_scheduler=speculative)")
         if config.gen_kv_host_blocks > 0 and (
-                config.gen_kv_block_size <= 0
+                not self._continuous
+                or config.gen_kv_block_size <= 0
                 or not config.gen_prefix_sharing):
             # The JAX worker's guard, with its message: a lane asked for
             # the host tier never quietly recomputes every evicted prefix.
@@ -359,7 +416,8 @@ class WorkerNode:
                 "--kv-host-blocks requires the continuous scheduler with "
                 "the paged KV cache and prefix sharing on "
                 "(--kv-block-size > 0, --prefix-sharing on)")
-        if config.gen_kv_quantize and config.gen_kv_block_size <= 0:
+        if config.gen_kv_quantize and (not self._continuous
+                                       or config.gen_kv_block_size <= 0):
             # The JAX worker's guard, with its message: a lane asked for
             # the int8 pool never quietly serves the full-precision one.
             raise RuntimeError(
@@ -368,7 +426,8 @@ class WorkerNode:
         if config.gen_kv_quantize not in ("", "int8"):
             raise RuntimeError(f"--kv-quantize must be 'int8', got "
                                f"{config.gen_kv_quantize!r}")
-        if config.gen_prefix_fetch and (config.gen_kv_block_size <= 0
+        if config.gen_prefix_fetch and (not self._continuous
+                                        or config.gen_kv_block_size <= 0
                                         or not config.gen_prefix_sharing):
             # The JAX worker's guard: a lane asked for the fleet prefix
             # tier never quietly ignores every hint.
@@ -380,10 +439,6 @@ class WorkerNode:
             raise RuntimeError(
                 f"--role must be prefill|decode|both, got "
                 f"{config.role!r}")
-        if config.gen_draft_path:
-            raise RuntimeError(
-                "gen_draft_path (--gen-draft-path): loading draft weights "
-                "is not yet ported to tpu_engine_torch")
         path = config.model_path or ""
         if path.endswith(".onnx") and config.quantize is not None:
             # ONNX initializers are flat named arrays, not the kernel
@@ -432,17 +487,21 @@ class WorkerNode:
                            pipeline_depth=config.pipeline_depth,
                            observer=self._batch_observer)
         self.batch_processor.start()
-        self._unified = bool(config.unified_stateless)
+        # Unified stateless serving is the continuous scheduler's: a batch
+        # lane keeps the dedicated /infer and /score batchers.
+        self._unified = bool(config.unified_stateless) and self._continuous
         self._score_proc: Optional[BatchProcessor] = None
+        self._gen_processor: Optional[BatchProcessor] = None
         self._scorer = None
         self._counter_lock = threading.Lock()
-        self.generator: Optional[ContinuousGenerator] = None
+        self.generator: Optional[Union[ContinuousGenerator, Generator,
+                                       SpeculativeGenerator]] = None
         try:
             self.generator = self._build_generator(spec)
         except BaseException:
             self.batch_processor.stop()
             raise
-        gen = self.generator
+        gen = self._sched
         if gen is not None:
             gen.tracer = self.tracer
             gen.trace_node = self.node_id
@@ -508,6 +567,12 @@ class WorkerNode:
         cfg = self.config
         fam = spec.state_family
         if fam == "state_slab":
+            if not self._continuous:
+                raise RuntimeError(
+                    f"model '{spec.name}' serves the state_slab family, "
+                    f"which requires gen_scheduler=continuous (got "
+                    f"{cfg.gen_scheduler!r}: the batch and speculative "
+                    f"lanes serve only kv_paged models)")
             if (cfg.gen_kv_block_size > 0 or cfg.gen_kv_blocks > 0
                     or cfg.gen_kv_host_blocks > 0 or cfg.gen_kv_quantize):
                 raise RuntimeError(
@@ -525,8 +590,9 @@ class WorkerNode:
                 f"'{spec.name}' serves the {fam} family")
         if fam == "stateless":
             self._fence_stateless(spec)
-        if cfg.role != "both" and cfg.gen_kv_block_size <= 0 \
-                and fam != "state_slab":
+        if cfg.role != "both" and (
+                not self._continuous
+                or (cfg.gen_kv_block_size <= 0 and fam != "state_slab")):
             # A dedicated role whose rows cannot export would serve
             # colocated, silently. (Slab rows export as one-pseudo-block
             # chains, so slab lanes qualify.)
@@ -558,8 +624,21 @@ class WorkerNode:
                 "stateless-family models have neither (one-shot rows "
                 "already ride one grouped dispatch per tick)")
 
-    def _build_generator(self, spec: ModelSpec
-                         ) -> Optional[ContinuousGenerator]:
+    @property
+    def _sched(self) -> Optional[ContinuousGenerator]:
+        """The lane's continuous scheduler (a decoder's, or a stateless
+        lane's one-shot rows), None on a batch lane or without one."""
+        gen = self.generator
+        return gen if isinstance(gen, ContinuousGenerator) else None
+
+    def _gen_lane(self) -> Optional[ContinuousGenerator]:
+        """The continuous scheduler of a generation lane (None on a
+        stateless lane, whose rows are all one-shot, and on a batch
+        lane)."""
+        gen = self._sched
+        return None if gen is None or gen._stateless else gen
+
+    def _build_generator(self, spec: ModelSpec):
         cfg = self.config
         if spec.state_family == "stateless":
             if not self._unified:
@@ -569,6 +648,22 @@ class WorkerNode:
                 spec, params=self.engine.params, dtype=cfg.dtype,
                 n_slots=cfg.max_batch_size, prefix_cache_mb=0,
                 infer_engine=self.engine, device=cfg.device)
+        if not self._continuous:
+            try:
+                gen = (self._build_speculative(spec) if self._speculative
+                       else Generator(spec, params=self.engine.params,
+                                      dtype=cfg.dtype,
+                                      step_chunk=cfg.gen_step_chunk,
+                                      device=self.engine.device))
+            except ValueError:
+                return None  # this model cannot generate
+            # The lane's batcher: one group decode at a time.
+            self._gen_processor = BatchProcessor(
+                cfg.gen_max_batch_size, cfg.batch_timeout_ms,
+                self._process_gen_batch, name=f"{self.node_id}-gen-batcher",
+                observer=self._batch_observer)
+            self._gen_processor.start()
+            return gen
         spec_kw = self._continuous_spec_kwargs(spec)
         try:
             return ContinuousGenerator(
@@ -599,20 +694,33 @@ class WorkerNode:
 
     _AUTO_DRAFT = {"gpt2": "distilgpt2", "gpt2-small-test": "gpt2-small-test"}
 
-    def _resolve_draft_spec(self, target: ModelSpec) -> ModelSpec:
-        """The draft model's spec: ``gen_draft_model``, or the auto map's
-        draft for the target. Misconfiguration raises RuntimeError."""
+    def _resolve_draft_spec(self, target: ModelSpec) -> tuple:
+        """(the draft model's spec, its weights or None): the model is
+        ``gen_draft_model`` or the auto map's draft for the target, at the
+        geometry of the checkpoint at ``gen_draft_path`` (an HF
+        directory's config.json, a port checkpoint's sidecar); the weights
+        are that checkpoint's (``_load_model_path``), None without a path
+        or for a path to nothing (a random draft). Shared by the batch
+        speculative lane and the continuous scheduler's model drafter.
+        Misconfiguration raises RuntimeError."""
         draft_name = (self.config.gen_draft_model
                       or self._AUTO_DRAFT.get(target.name))
         if draft_name is None:
             raise RuntimeError(
                 f"a draft model is required for '{target.name}': set "
                 f"gen_draft_model (--gen-draft-model)")
+        path = self.config.gen_draft_path or ""
         try:
-            return create_model(draft_name)
+            draft_spec = _model_spec(draft_name, path)
         except KeyError as exc:
             raise RuntimeError(f"speculative lane misconfigured: unknown "
                                f"draft model {exc}")
+        draft_params = None
+        if path:
+            draft_params = _load_model_path(draft_spec, path,
+                                            self.engine.device,
+                                            self.config.dtype)
+        return draft_spec, draft_params
 
     def _continuous_spec_kwargs(self, target: ModelSpec) -> dict:
         """Speculation kwargs for ContinuousGenerator (--spec-k,
@@ -635,20 +743,44 @@ class WorkerNode:
                 f"{self.config.gen_spec_draft!r}")
         kw = {"spec_k": k, "spec_draft": self.config.gen_spec_draft}
         if self.config.gen_spec_draft == "model":
-            draft_spec = self._resolve_draft_spec(target)
+            draft_spec, draft_params = self._resolve_draft_spec(target)
             if draft_spec.config.vocab != target.config.vocab:
                 raise RuntimeError(
                     f"speculative lane misconfigured: draft vocab "
                     f"{draft_spec.config.vocab} != target "
                     f"{target.config.vocab}")
-            # The port loads no draft checkpoint yet: always random.
-            print(f"[{self.node_id}] WARNING: --spec-draft model "
-                  f"'{draft_spec.name}' is randomly initialized (no "
-                  f"gen_draft_path); expect ~zero acceptance — the "
-                  f"ngram drafter is the better default", flush=True)
+            if draft_params is None:
+                print(f"[{self.node_id}] WARNING: --spec-draft model "
+                      f"'{draft_spec.name}' is randomly initialized (no "
+                      f"gen_draft_path); expect ~zero acceptance — the "
+                      f"ngram drafter is the better default", flush=True)
             kw["spec_draft_model"] = draft_spec
-            kw["spec_draft_params"] = None
+            kw["spec_draft_params"] = draft_params
         return kw
+
+    def _build_speculative(self, spec: ModelSpec) -> SpeculativeGenerator:
+        """The speculative lane's generator, sharing the engine's params.
+        A target that is no decoder raises ValueError (the lane then has
+        no generator, as for the other lanes); every misconfiguration of
+        the draft or of k raises RuntimeError, so startup fails loudly."""
+        if spec.state_family != "kv_paged":
+            raise ValueError(f"model '{spec.name}' is not a decoder "
+                             "transformer; generation unsupported")
+        draft_spec, draft_params = self._resolve_draft_spec(spec)
+        if draft_params is None:
+            # A random draft accepts about nothing; a test fixture, not an
+            # error.
+            print(f"[{self.node_id}] WARNING: speculative draft "
+                  f"'{draft_spec.name}' is randomly initialized (no "
+                  f"gen_draft_path); expect ~zero acceptance and worse "
+                  f"throughput than gen_scheduler=batch", flush=True)
+        try:
+            return SpeculativeGenerator(
+                spec, draft_spec, params=self.engine.params,
+                draft_params=draft_params, k=self.config.gen_spec_k,
+                dtype=self.config.dtype, device=self.engine.device)
+        except ValueError as exc:
+            raise RuntimeError(f"speculative lane misconfigured: {exc}")
 
     # -- common request checks ------------------------------------------------
 
@@ -795,8 +927,8 @@ class WorkerNode:
         record one ``overload`` marker per transition, so escalations
         plus restores equal those spans."""
         stage = self._brownout.stage
-        if self.generator is not None:
-            self.generator.set_brownout(
+        if self._sched is not None:
+            self._sched.set_brownout(
                 budget_frac=BROWNOUT_BUDGET_FRAC if stage >= 1 else 1.0,
                 suspend_spec=stage >= 2,
                 defer_swap_in=stage >= 3)
@@ -833,16 +965,16 @@ class WorkerNode:
         """Refuse new admissions (503 ``overloaded``) while in-flight work
         completes; ``"draining"``, or ``"already-draining"`` on a repeat."""
         status = self._admission.drain()
-        if status == "draining" and self.generator is not None:
-            self.generator.set_draining(True)
+        if status == "draining" and self._sched is not None:
+            self._sched.set_draining(True)
         return status
 
     def undrain(self) -> str:
         """``"undrained"``, or ``"not-draining"`` when the lane was not
         draining."""
         status = self._admission.undrain()
-        if status == "undrained" and self.generator is not None:
-            self.generator.set_draining(False)
+        if status == "undrained" and self._sched is not None:
+            self._sched.set_draining(False)
         return status
 
     @property
@@ -864,8 +996,8 @@ class WorkerNode:
         rid = request.get("request_id")
         if not rid:
             raise ValueError("request_id is required")
-        gen = self.generator
-        if gen is None or gen._stateless:
+        gen = self._gen_lane()
+        if gen is None:
             return {"ok": False, "node_id": self.node_id,
                     "reason": "this lane has no continuous decode "
                               "scheduler to export from"}
@@ -885,8 +1017,8 @@ class WorkerNode:
         Refusals (no scheduler, a draining lane, no prefix, no matching
         chain) answer ``{"ok": false, "node_id", "reason"}`` and never
         raise; the drain refusal names this lane."""
-        gen = self.generator
-        if gen is None or gen._stateless:
+        gen = self._gen_lane()
+        if gen is None:
             return {"ok": False, "node_id": self.node_id,
                     "reason": "this lane has no continuous decode "
                               "scheduler to export from"}
@@ -982,8 +1114,10 @@ class WorkerNode:
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be prefill|decode|both, "
                              f"got {role!r}")
-        if role != "both" and self.config.gen_kv_block_size <= 0 \
-                and self.engine.spec.state_family != "state_slab":
+        if role != "both" and (
+                not self._continuous
+                or (self.config.gen_kv_block_size <= 0
+                    and self.engine.spec.state_family != "state_slab")):
             raise ValueError(
                 "a dedicated role requires the continuous scheduler "
                 "with the paged KV cache (--kv-block-size > 0)")
@@ -1017,12 +1151,16 @@ class WorkerNode:
     def apply_weights(self, params, source: str = "<params>") -> dict:
         """Swap in new weights of the served model (the engine's
         ``set_params`` checks), on the engine and then on the scheduler
-        (which drops its prefix caches): every lane serves them from its
-        next dispatch, and the result cache is cleared; an in-flight
-        result computed under the old weights never enters it."""
+        (which drops its prefix caches) or the batch lane's generator:
+        every lane serves them from its next dispatch, and the result
+        cache is cleared; an in-flight result computed under the old
+        weights never enters it."""
         self.engine.set_params(params)
-        if self.generator is not None:
-            self.generator.set_params(self.engine.params)
+        if self._sched is not None:
+            self._sched.set_params(self.engine.params)
+        elif self.generator is not None:
+            # A batch lane's generator reads its params at each group.
+            self.generator.params = self.engine.params
         with self._reload_lock:
             self._weights_gen += 1
             self.cache.clear()
@@ -1158,11 +1296,11 @@ class WorkerNode:
                 + b', "inference_time_us": ' + str(time_us).encode() + b"}")
 
     def _infer_unified(self) -> bool:
-        gen = self.generator
+        gen = self._sched
         return self._unified and gen is not None and gen.accepts_oneshot
 
     def _score_unified(self) -> bool:
-        gen = self.generator
+        gen = self._sched
         return self._unified and gen is not None and gen.accepts_score
 
     @staticmethod
@@ -1293,17 +1431,17 @@ class WorkerNode:
                 "total_logprob": float(sum(lps)), "node_id": self.node_id,
                 "score_time_us": int((time.perf_counter() - t0) * 1e6)}
 
-    def _get_scorer(self):
-        """The lane's scorer, made at first use, on the engine's current
-        parameters."""
-        from tpu_engine_torch.runtime.generator import Scorer
-
+    def _get_scorer(self) -> Generator:
+        """The lane's scorer: the batch lane's own Generator, else one made
+        at first use; on the engine's current parameters."""
+        if isinstance(self.generator, Generator):
+            return self.generator
         with self._counter_lock:
             if self._scorer is None:
-                self._scorer = Scorer(self.engine.spec,
-                                      params=self.engine.params,
-                                      dtype=self.config.dtype,
-                                      device=self.engine.device)
+                self._scorer = Generator(self.engine.spec,
+                                         params=self.engine.params,
+                                         dtype=self.config.dtype,
+                                         device=self.engine.device)
             scorer = self._scorer
         scorer.params = self.engine.params
         return scorer
@@ -1322,44 +1460,143 @@ class WorkerNode:
         return self._get_scorer().score([it.prompt for it in items],
                                         [it.completion for it in items])
 
+    def _process_gen_batch(self, items: List[_GenItem]) -> List[_GenResult]:
+        """A batch lane's batch: each beam request alone (its beams ride
+        the batch axis), the others grouped by ``eos_id``, each group run
+        to its largest ``max_new_tokens`` (``gen_decode_fused`` is passed
+        on, as in JAX, though the Generator runs one loop for both; the
+        speculative generator takes no such flag) and each row cut to its
+        own. A request's time is its
+        group's divided by the group's size."""
+        results: List[Optional[_GenResult]] = [None] * len(items)
+        groups: dict = {}
+        for idx, it in enumerate(items):
+            if it.beam_width > 1:
+                t0 = time.perf_counter()
+                row = self.generator.beam_search(
+                    it.prompt, beam_width=it.beam_width,
+                    max_new_tokens=it.max_new_tokens, eos_id=it.eos_id,
+                    length_penalty=it.length_penalty)
+                results[idx] = _GenResult(
+                    row[:it.max_new_tokens],
+                    int((time.perf_counter() - t0) * 1e6))
+                continue
+            groups.setdefault(it.eos_id, []).append(idx)
+        for eos_id, idxs in groups.items():
+            t0 = time.perf_counter()
+            group = [items[i] for i in idxs]
+            toks = self.generator.generate(
+                [it.prompt for it in group],
+                max_new_tokens=max(it.max_new_tokens for it in group),
+                eos_id=eos_id,
+                temperature=[it.temperature for it in group],
+                seed=[it.seed for it in group],
+                top_p=[it.top_p for it in group],
+                top_k=[it.top_k for it in group],
+                repetition_penalty=[it.repetition_penalty for it in group],
+                stop_tokens=[list(it.stop_tokens) for it in group],
+                min_p=[it.min_p for it in group],
+                **({} if self._speculative
+                   else {"fused": self.config.gen_decode_fused}))
+            group_us = (time.perf_counter() - t0) * 1e6
+            self._record_device_spans(group, group_us)
+            per_us = int(group_us / max(1, len(idxs)))
+            for i, row in zip(idxs, toks):
+                results[i] = _GenResult(row[:items[i].max_new_tokens],
+                                        per_us)
+        return results
+
     # -- /generate ------------------------------------------------------------
 
     def _generation_deadline(self, request: dict) -> Optional[Deadline]:
         """The checks before a /generate request's admission: a lane that
         generates, the lane's model; returns its deadline."""
-        if self.generator is None or self.generator._stateless:
+        if self.generator is None or getattr(self.generator, "_stateless",
+                                             False):
             raise ValueError(
                 f"model '{self.config.model}' does not support generation")
         self._check_model(request)
         return Deadline.from_request(request)
 
-    def _parse(self, request: dict, deadline: Optional[Deadline],
-               tier: Optional[int] = None) -> dict:
-        """The scheduler's arguments of a /generate payload, validated: a
-        malformed request is a 400 (before a stream commits to 200). The
-        brownout clamp applies to ``max_new_tokens`` at ``tier``."""
-        if int(request.get("beam_width", 1)) != 1:
-            raise ValueError("beam search is not yet ported to "
-                             "tpu_engine_torch")
-        kw = {
-            "prompt": [int(t) for t in request["prompt_tokens"]],
-            "max_new_tokens": self._brownout_clamp(
+    # Wire-facing beam cap: the beams multiply the cache by the width.
+    MAX_BEAM_WIDTH = 8
+
+    def _validate_beam(self, beam_width: int, temperature: float,
+                       top_p: float, top_k: int, rep_penalty: float,
+                       stop_tokens, length_penalty: float = 1.0,
+                       min_p: float = 0.0) -> None:
+        """A beam request (``beam_width`` > 1) checked as the JAX worker
+        checks it: a finite ``length_penalty`` in [-10, 10], a width in
+        [1, MAX_BEAM_WIDTH], a batch lane, and no sampling control (beam
+        search is deterministic). A ValueError is the 400."""
+        if beam_width == 1:
+            return
+        if not math.isfinite(length_penalty) or abs(length_penalty) > 10:
+            raise ValueError(
+                f"length_penalty must be finite in [-10, 10], got "
+                f"{length_penalty}")
+        if not 1 <= beam_width <= self.MAX_BEAM_WIDTH:
+            raise ValueError(
+                f"beam_width must be in [1, {self.MAX_BEAM_WIDTH}], got "
+                f"{beam_width}")
+        if self._continuous or self._speculative:
+            raise ValueError("beam_width > 1 needs gen_scheduler=batch")
+        if (temperature > 0 or top_p < 1.0 or top_k > 0
+                or rep_penalty != 1.0 or stop_tokens or min_p > 0):
+            raise ValueError(
+                "beam_width is deterministic: temperature/top_p/top_k/"
+                "min_p/repetition_penalty/stop_tokens do not apply")
+
+    def _parse(self, request: dict, tier: Optional[int] = None) -> _GenItem:
+        """A /generate payload, validated before it joins a batch or a
+        stream commits to 200 (a malformed request is a 400): the beam
+        checks, the stop list, and on the speculative lane the sampling
+        controls it cannot serve. The brownout clamp applies to
+        ``max_new_tokens`` at ``tier``."""
+        item = _GenItem(
+            request_id=request["request_id"],
+            prompt=[int(t) for t in request["prompt_tokens"]],
+            max_new_tokens=self._brownout_clamp(
                 int(request.get("max_new_tokens", 32)), tier),
-            "eos_id": int(request.get("eos_id", -1)),
-            "temperature": float(request.get("temperature", 0.0)),
-            "seed": int(request.get("seed", 0)),
-            "top_p": float(request.get("top_p", 1.0)),
-            "top_k": clamp_top_k(request.get("top_k", 0)),
-            "repetition_penalty": float(
-                request.get("repetition_penalty", 1.0)),
-            "stop_tokens": [int(t) for t in request.get("stop_tokens", ())],
-            "min_p": validate_min_p(request.get("min_p", 0.0)),
-        }
-        expand_stopping_params(1, kw["repetition_penalty"],
-                               [kw["stop_tokens"]] if kw["stop_tokens"]
-                               else None)
-        kw["deadline"] = deadline
-        return kw
+            eos_id=int(request.get("eos_id", -1)),
+            temperature=float(request.get("temperature", 0.0)),
+            seed=int(request.get("seed", 0)),
+            top_p=float(request.get("top_p", 1.0)),
+            top_k=clamp_top_k(request.get("top_k", 0)),
+            repetition_penalty=float(request.get("repetition_penalty",
+                                                 1.0)),
+            stop_tokens=tuple(int(t)
+                              for t in request.get("stop_tokens", ())),
+            beam_width=int(request.get("beam_width", 1)),
+            length_penalty=float(request.get("length_penalty", 1.0)),
+            min_p=validate_min_p(request.get("min_p", 0.0)))
+        self._validate_beam(item.beam_width, item.temperature, item.top_p,
+                            item.top_k, item.repetition_penalty,
+                            item.stop_tokens, item.length_penalty,
+                            item.min_p)
+        expand_stopping_params(1, item.repetition_penalty,
+                               [list(item.stop_tokens)]
+                               if item.stop_tokens else None)
+        if self._speculative and (item.top_p < 1.0 or item.top_k > 0
+                                  or item.repetition_penalty != 1.0
+                                  or item.min_p > 0):
+            # Rejection sampling is exact for the temperature distribution
+            # only; one filtered request must not fail its batch.
+            raise ValueError(
+                "speculative scheduler supports temperature sampling only "
+                "(top_p/top_k/repetition_penalty unavailable; use "
+                "gen_scheduler=continuous)")
+        return item
+
+    @staticmethod
+    def _submit_kwargs(item: _GenItem, deadline: Optional[Deadline]) -> dict:
+        """The continuous scheduler's ``submit`` arguments of an item."""
+        return {"max_new_tokens": item.max_new_tokens,
+                "eos_id": item.eos_id, "temperature": item.temperature,
+                "seed": item.seed, "top_p": item.top_p, "top_k": item.top_k,
+                "repetition_penalty": item.repetition_penalty,
+                "stop_tokens": list(item.stop_tokens), "min_p": item.min_p,
+                "deadline": deadline}
 
     def handle_generate(self, request: dict) -> dict:
         deadline = self._generation_deadline(request)
@@ -1368,33 +1605,44 @@ class WorkerNode:
                 self._admitted(deadline, tier, trace=span):
             self._count_request()
             request_id = request["request_id"]
-            kw = self._parse(request, deadline, tier)
+            item = self._parse(request, tier)
+            if not self._continuous:
+                item.trace = span.ctx
+                result = self._gen_processor.process(item, deadline=deadline)
+                return {"request_id": request_id, "tokens": result.tokens,
+                        "node_id": self.node_id,
+                        "generate_time_us": result.generate_time_us}
             t0 = time.perf_counter()
             tokens = self.generator.submit(
-                kw.pop("prompt"), tag=request_id,
+                item.prompt, tag=request_id,
                 sink=TraceSink(self.tracer, self.node_id, request_id,
                                span.ctx),
                 prefix_hint=self._prefix_hint(request),
-                **kw).result(timeout=600)
+                **self._submit_kwargs(item, deadline)).result(timeout=600)
             return {"request_id": request_id, "tokens": tokens,
                     "node_id": self.node_id,
                     "generate_time_us": int((time.perf_counter() - t0)
                                             * 1e6)}
 
-    def handle_generate_stream(self, request: dict) -> _AdmittedStream:
+    def handle_generate_stream(self, request: dict):
         """Returns an iterator of SSE event byte chunks. Validation and
         admission run before it is returned (a 400 or 503, not a 200
         stream); the admission slot is held until the events end. A body
         with ``migrate_import`` continues an exported row
         (``submit_import``); a gateway-stamped ``handoff`` parks the row
         after prefill for ``handoff_park_ms`` (clamped to [0.1, 120] s)
-        awaiting its export."""
+        awaiting its export. On a batch lane the whole result arrives as
+        one ``tokens`` event and the ``done`` event."""
         deadline = self._generation_deadline(request)
         request_id = request["request_id"]
         tier = self._request_tier(request)
         parent = TraceContext.from_request(request)
         snap = request.get("migrate_import")
         if snap is not None:
+            if self._gen_lane() is None:
+                raise ValueError(
+                    "migrate_import requires a continuous-scheduler lane "
+                    "with the paged KV cache")
             if parent is None and isinstance(snap, dict):
                 # A snapshot from a stitching lane carries the exported
                 # row's trace: the continuation's spans join it.
@@ -1406,7 +1654,11 @@ class WorkerNode:
                 lambda q, sink: self.generator.submit_import(
                     snap, stream=q, deadline=deadline, tag=request_id,
                     sink=sink), tier, parent)
-        kw = self._parse(request, deadline, tier)
+        item = self._parse(request, tier)
+        if not self._continuous:
+            return self._one_shot_stream(request, item, deadline, tier,
+                                         parent)
+        kw = self._submit_kwargs(item, deadline)
         if request.get("handoff"):
             # A client-supplied park window never pins a slot and its
             # chain for long (the scheduler clamps again).
@@ -1416,8 +1668,48 @@ class WorkerNode:
         return self._open_stream(
             request, deadline,
             lambda q, sink: self.generator.submit(
-                kw.pop("prompt"), stream=q, tag=request_id, sink=sink,
+                item.prompt, stream=q, tag=request_id, sink=sink,
                 prefix_hint=self._prefix_hint(request), **kw), tier, parent)
+
+    def _one_shot_stream(self, request: dict, item: _GenItem,
+                         deadline: Optional[Deadline], tier: Optional[int],
+                         parent: Optional[TraceContext]):
+        """A batch lane's stream, as the JAX worker's: an admission now
+        and released at once (a shed or an expired deadline is a 503
+        before the 200), then ``handle_generate`` of the normalized
+        payload on the first iteration (admitted there for real), giving
+        one ``tokens`` event and the ``done`` event, or the terminal
+        error event."""
+        self._admission.admit(deadline, tier=tier)
+        self._admission.release()
+        request_id = item.request_id
+        normalized = {
+            "request_id": request_id, "prompt_tokens": item.prompt,
+            "max_new_tokens": item.max_new_tokens, "eos_id": item.eos_id,
+            "temperature": item.temperature, "seed": item.seed,
+            "top_p": item.top_p, "top_k": item.top_k,
+            "repetition_penalty": item.repetition_penalty,
+            "stop_tokens": list(item.stop_tokens),
+            "beam_width": item.beam_width,
+            "length_penalty": item.length_penalty, "min_p": item.min_p}
+        if "priority" in request:
+            normalized["priority"] = request["priority"]
+        if deadline is not None:
+            # The remaining budget travels on.
+            normalized["deadline_ms"] = max(0.0, deadline.remaining_ms())
+        trace_id = (parent.child() if parent is not None
+                    else TraceContext.root(request_id)).trace_id
+
+        def one_shot():
+            try:
+                result = self.handle_generate(normalized)
+            except Exception as exc:
+                yield sse_event(self._stream_error(exc, request_id,
+                                                   trace_id, 0))
+                return
+            yield sse_event({"tokens": result["tokens"]})
+            yield sse_event({"done": True, **result})
+        return one_shot()
 
     def _prefix_hint(self, request: dict) -> Optional[dict]:
         """The gateway's ``prefix_hint``, inert without prefix fetch."""
@@ -1530,9 +1822,10 @@ class WorkerNode:
 
     def latency_histograms(self) -> dict:
         """The scheduler's TTFT and ITL histograms as /metrics families
-        (node -> histogram); none on a lane without generation."""
-        gen = self.generator
-        if gen is None or gen._stateless:
+        (node -> histogram); none on a lane without a continuous
+        scheduler's generation."""
+        gen = self._gen_lane()
+        if gen is None:
             return {}
         return {"tpu_engine_ttft_seconds": {self.node_id: gen.ttft_hist},
                 "tpu_engine_itl_seconds": {self.node_id: gen.itl_hist}}
@@ -1541,7 +1834,7 @@ class WorkerNode:
         """/admin/timeline: the flight recorder's ring (GET) or, with
         ``{"dump": reason}``, a dump now (POST); ``{"n": k}`` the last k
         records."""
-        gen = self.generator
+        gen = self._sched
         if gen is None:
             return {"node_id": self.node_id, "enabled": False,
                     "reason": "this lane has no continuous scheduler"}
@@ -1557,7 +1850,7 @@ class WorkerNode:
     def flight_dump(self, reason: str) -> Optional[dict]:
         """Dump the scheduler's flight recorder now (None when the lane
         runs none)."""
-        gen = self.generator
+        gen = self._sched
         return gen.flight_dump(reason) if gen is not None else None
 
     def handle_profile(self, request: Optional[dict] = None) -> dict:
@@ -1572,7 +1865,7 @@ class WorkerNode:
         profile_dir = self.config.profile_dir
         request = request or {}
         action = request.get("action")
-        gen = self.generator
+        gen = self._sched
         if action == "status":
             out = {"node_id": self.node_id, "profile_dir": profile_dir}
             if gen is not None:
@@ -1609,7 +1902,8 @@ class WorkerNode:
             out["role"] = self.config.role
         gstats = (self.generator.stats() if self.generator is not None
                   else {})
-        if self.generator is not None and not self.generator._stateless:
+        if self.generator is not None and not getattr(
+                self.generator, "_stateless", False):
             out["generator"] = gstats
         elif self.generator is not None:
             # A stateless lane's scheduler is its batch lane: its one-shot
@@ -1623,17 +1917,17 @@ class WorkerNode:
             if bp["total_batches"] > 0:
                 bp["avg_batch_size"] = ((prev_rows + rows)
                                         / bp["total_batches"])
-        if (self.config.gen_prefix_fetch and self.generator is not None
-                and not self.generator._stateless):
+        if self.config.gen_prefix_fetch and self._gen_lane() is not None:
             # The fleet prefix tier's seed: the radix tree's deepest
             # chains, bounded, for the gateway prober's directory.
             out["prefix_fingerprints"] = \
-                self.generator.prefix_fingerprints()
+                self._gen_lane().prefix_fingerprints()
         # Rows dropped at their deadline by the batchers and the
         # scheduler's one-shot rows count with the admission sheds.
         dropped = self.batch_processor.deadline_dropped
-        if self._score_proc is not None:
-            dropped += self._score_proc.deadline_dropped
+        for proc in (self._score_proc, self._gen_processor):
+            if proc is not None:
+                dropped += proc.deadline_dropped
         if "stateless" in gstats:
             dropped += gstats["stateless"]["deadline_dropped"]
         if self._admission.active or dropped:
@@ -1654,5 +1948,7 @@ class WorkerNode:
         self.batch_processor.stop()
         if self._score_proc is not None:
             self._score_proc.stop()
-        if self.generator is not None:
-            self.generator.stop()
+        if self._gen_processor is not None:
+            self._gen_processor.stop()
+        if self._sched is not None:
+            self._sched.stop()

@@ -98,15 +98,30 @@ class WorkerConfig:
     # 0 = auto (gen_max_batch_size + the null row). Refused on other
     # families.
     gen_state_rows: int = 0
+    # "batch": collect a batch, decode it to completion
+    # (runtime.generator). "continuous": iteration-level scheduling,
+    # requests join and leave the running decode batch between ticks
+    # (runtime.scheduler); the default. "speculative": batch-mode lane
+    # where a DRAFT model proposes gen_spec_k tokens per round and the
+    # target verifies them in one windowed pass (runtime.speculative);
+    # temperature sampling only.
+    gen_scheduler: str = "continuous"
     # Continuous speculation (paged only, either mode): proposals per
     # decode row per tick, 0 = off (--spec-k); the drafter, "ngram" or
-    # "model" (--spec-draft); the draft model, None = by the target
-    # (gpt2 -> distilgpt2) (--gen-draft-model); draft weights, which the
-    # port does not load yet (a non-empty value refuses).
+    # "model" (--spec-draft).
     gen_continuous_spec_k: int = 0
     gen_spec_draft: str = "ngram"
+    # Draft model for the speculative scheduler and the continuous model
+    # drafter. None = auto by target (gpt2 -> distilgpt2); set explicitly
+    # for other families.
     gen_draft_model: Optional[str] = None
-    gen_draft_path: Optional[str] = None
+    gen_draft_path: Optional[str] = None  # draft weights checkpoint
+    gen_spec_k: int = 4                 # speculation depth (draft tokens/round)
+    # Batch scheduler only: keep each group's tokens on the card until its
+    # decode ends (the host reads the all-done flag once per
+    # gen_step_chunk steps; identical streams). The port's Generator runs
+    # that one loop for both values.
+    gen_decode_fused: bool = False
     # One-shot /infer and /score requests ride the continuous scheduler as
     # single-tick rows; False serves them through the dedicated batch lane
     # (runtime.batch_processor) instead (--no-unified-stateless).

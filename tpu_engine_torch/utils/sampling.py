@@ -87,6 +87,14 @@ def expand_stopping_params(n, repetition_penalty, stop_tokens):
     return pens, stops
 
 
+def stop_matrix(stops, n_rows):
+    """(n_rows, MAX_STOP_TOKENS) int32 padded with -1 (matches no token)."""
+    out = np.full((n_rows, MAX_STOP_TOKENS), -1, np.int32)
+    for r, row in enumerate(stops[:n_rows]):
+        out[r, :len(row)] = row
+    return out
+
+
 def truncate_at_stops(row, eos_id, stops):
     """Client-visible tokens: cut (exclusive) at the first EOS or stop
     token. The ONE truncation rule all decode lanes share."""
