@@ -69,8 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
               batch_processor counting the dispatches; a single request
               bit-identical on both lanes. Then
               the port's worker over HTTP on localhost serving
-              TinyLlama-1.1B's width at half depth (11 of its 22 layers,
-              HALF_DEPTH_LLAMA; random weights from seed 0, bf16,
+              TinyLlama-1.1B's width at cut depth (4 of its 22 layers,
+              CUT_LLAMA; random weights from seed 0, bf16,
               shared by every lane, 256-token prefill chunks) in five lanes,
               each driven with the launch counts set to 0 just before it
               and read just after: over 16-token KV blocks, mixed stepping
@@ -90,8 +90,8 @@ Phases (any failure exits non-zero and prints no result line):
               no flash), an exact repeat (a prefix-cache hit, no flash), a
               greedy repeat and one stream, and beside the burst five
               /infer token-id payloads and four /score requests (one flash
-              forward of 11 layers per one-shot dispatch): flash launches
-              == 11 x (the one-shot dispatches + the monolithic prefills
+              forward of 4 layers per one-shot dispatch): flash launches
+              == 4 x (the one-shot dispatches + the monolithic prefills
               that missed the cache). Then three
               speculative lanes (spec_k 4): spec-mixed-bf16 (the n-gram
               drafter, mixed, bf16 pool), spec-two-path-int8 (n-gram,
@@ -114,7 +114,7 @@ Phases (any failure exits non-zero and prints no result line):
               request_ids, no request failed, and 200 cache hits one at a
               time direct to their owner and through the gateway (the
               hop's p50/p99); then two mixed-bf16 lanes of TinyLlama's
-              width at half depth (one weight tree) behind a gateway with a 1 s
+              width at cut depth (one weight tree) behind a gateway with a 1 s
               breaker timeout: 16 streams, 8 /generate and 8 decoder
               /infer at once, each answered by its request_id's ring
               owner, and four streams one at a time token-identical
@@ -129,8 +129,8 @@ Phases (any failure exits non-zero and prints no result line):
               each lane); and the gateway command as a process (one
               /infer, one /generate, SIGTERM). The launch counts are set
               to 0 before the generation lanes start and read at the
-              phase's end: the ragged kernel's == 11 x the lanes' mixed
-              ticks, the flash forward's == 11 x their one-shot
+              phase's end: the ragged kernel's == 4 x the lanes' mixed
+              ticks, the flash forward's == 4 x their one-shot
               dispatches, no other kernel, no plain call;
 6. kvtier   — the host KV tier and the KV chain wire format at TinyLlama
               geometry (bf16 weights from seed 0, 16-token blocks): a pool
@@ -140,7 +140,7 @@ Phases (any failure exits non-zero and prints no result line):
               a second pool, each held with torch.equal, the copies timed
               beside their PCIe bound and one 256 MiB pinned copy's rate,
               the swap-in beside the device time of recomputing the
-              prefix's prefill (four W = 256 ticks); at half depth, a
+              prefix's prefill (four W = 256 ticks); at cut depth, a
               mixed-bf16 and a
               two-path-int8 worker with --kv-blocks 192 --kv-host-blocks
               512, each beside an untiered control (the auto pool), served
@@ -148,7 +148,7 @@ Phases (any failure exits non-zero and prints no result line):
               tail, one at a time: streams, prefix-hit and prefilled
               tokens equal to the control's, swap_ins > 0 with no
               deferral, no host eviction and no leaked scale slot, the
-              lane's kernel launched 11 x its ticks; then for each mode two
+              lane's kernel launched 4 x its ticks; then for each mode two
               workers A and B: a greedy 64-token stream of a 1024-token
               prompt on A, exported by /admin/migrate after >= 16 tokens
               and continued on B by migrate_import, token-identical to the
@@ -172,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
               bf16's own distance from f32, the same burst through a
               worker in f32 within BERT_F32_TOL of the plain f32 forward,
               the forward's times at B 1 and 32; a yolov8n worker (bf16,
-              shape buckets 320, 480, 640) answering 24 distinct 16-float
+              shape buckets 320, 480, 640) answering 12 distinct 16-float
               requests cycling the three shapes: n_anchors x 144 values
               each, within YOLO_TOL of the plain f32 forward of each
               canvas, the same burst through a worker in f32 within
@@ -274,8 +274,10 @@ Phases (any failure exits non-zero and prints no result line):
               (device time, bound, SDPA's device time) at the 249- and
               57-token ticks and the /score row;
 11. observe — last: spans, /metrics, the flight recorder and the
-              tick-bounded profile at TinyLlama geometry (random weights
-              from seed 0). A mixed-bf16 spec_k 4 lane as a worker_node
+              tick-bounded profile at TinyLlama's width at cut depth
+              (CUT_LLAMA, random weights from seed 0); the lanes' processes
+              load while the in-process parts run. A mixed-bf16 spec_k 4
+              lane as a worker_node
               process of its own (``--serve-worker-node``, which writes
               its launch counts when it exits) with --flight-recorder 256
               and a --profile-dir: a burst of 16 streams and 8 /score, then
@@ -286,16 +288,16 @@ Phases (any failure exits non-zero and prints no result line):
               exposition parses with tpu_engine_ttft_seconds_count == the
               streams and the tpu_engine_spec_* counters == stats(); POST
               /admin/profile {"ticks": 8} during a second burst (8 streams
-              of 112 tokens): the capture's Chrome trace holds 22 x 8
+              of 112 tokens): the capture's Chrome trace holds 4 x 8
               launches of each of #1's split and merge kernels (up to
               three captures while one keeps no device event, then a
               failure), the kernels' device time a tick beside the tick
               spans' walls; POST /admin/timeline {"dump": "smoke"}: the
               dump exists and its records have walls > 0; at exit #1's
-              launches == 22 x the ticks and #5's == 22 x the one-shot
+              launches == 4 x the ticks and #5's == 4 x the one-shot
               dispatches, no plain call. A two-path-bf16 lane (in process,
               counts from 0): no tick span (the JAX two-path lane records
-              none), each /generate's stage spans, #2 == 22 x 16 x the
+              none), each /generate's stage spans, #2 == 4 x 16 x the
               chunks. A resnet50 /infer burst of 64 distinct misses: the
               p50 and p99 of cache_lookup, queue_wait, batch_form,
               device_compute and serialize. The mixed W = 1 tick's wall
@@ -309,7 +311,7 @@ Phases (any failure exits non-zero and prints no result line):
               resume hops, /admin/slo answers, /metrics has
               tpu_engine_slo_*.
 12. handoff — after observe: the handoff family. Three worker_node
-              processes of TinyLlama-1.1B at all 22 layers (bf16, random
+              processes of TinyLlama-1.1B's width at cut depth (bf16, random
               weights from seed 0, mixed stepping, 16-token blocks,
               256-token chunks, --prefix-fetch): P of --role prefill, D1
               and D2 of --role decode, behind the port's gateway
@@ -336,13 +338,13 @@ Phases (any failure exits non-zero and prints no result line):
               prefills only its suffix, and equals A' on D1; with prefix
               affinity on, 8 requests of the prefix land on one lane.
               Each lane ends idle with no leaked block and #1 launches ==
-              22 x its ticks (the process's counts, written at its exit).
+              4 x its ticks (the process's counts, written at its exit).
               In this process, two int8 mixed generators hand a row off
               with export_row(wait_prefill=True) and submit_import: the
               stream equals the colocated int8 run (sent twice, the
               second resuming from the radix as the handoff's prefill
               does), the adopted chain's bytes equal the exported ones,
-              #4 launches == 22 x ticks. Readings: TTFT, the handoff gap,
+              #4 launches == 4 x ticks. Readings: TTFT, the handoff gap,
               the chain's bytes and times, the prefix fetch against the
               local prefill, the drain's splice gap.
 11. recurrent — the state_slab family (mamba2: 24 layers, d_model 768,
@@ -445,6 +447,30 @@ Phases (any failure exits non-zero and prints no result line):
               decode loop's done-flag reads (8 x 64 tokens reading it
               every 16 steps against every 64), one beam-4 step and the
               bytes of its cache gather, one speculative round.
+15. combined — last: the combined serve command (in-process lanes behind
+              the gateway and the C++ front, its library built from
+              tpu_engine_torch/native by g++) as a process of its own.
+              First resnet50 at full width (bf16, 224 x 224 x 3, --lanes
+              2 --native-front on --breaker-timeout 1): 200 /infer
+              requests from 8 client threads over 10 distinct inputs with
+              fresh request ids (the reference benchmark's load): the
+              C++ front answers at least 180 of them from the lanes'
+              native caches (/health's requests less the gateway's),
+              /health counts 200 requests and cache_hits equal to the
+              cached answers, every hit's output_data is byte for byte
+              its (input, lane)'s miss fragment; then
+              /admin/fault fails worker_1: its requests fail over to
+              worker_2 and its /health counters stand still, and after
+              heal (and the breaker's timeout) its hits are C++ hits
+              again. Then TinyLlama at full width and depth (llama: 22
+              layers, bf16, random weights from seed 0) on two mixed
+              lanes split prefill/decode with --disagg: 8 streams
+              (prompts 64-512, 32 new tokens) each handed off in
+              process to the decode lane with no token prefilled there,
+              8 /score rows, 4 greedy streams sent alone twice
+              token-identical; the process's counts: #1 == 22 x the
+              lanes' mixed ticks, #5 == 22 x their one-shot dispatches,
+              no other kernel and no plain call.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -465,7 +491,7 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
-    python3 chip_smoke.py --phase batch
+    python3 chip_smoke.py --phase batch|combined
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -479,6 +505,8 @@ that runs them (one JSON line).
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import functools
 import http.client
 import json
 import os
@@ -563,13 +591,13 @@ RECURRENT_KERNELS = {
         replaces="tpu_engine/models/ssd.py:218 (no Pallas kernel: the "
                  "lax.scan of ssd_window_scan)", lane="recurrent"),
 }
-# The TinyLlama lanes of the server, gateway and kvtier phases run at half
-# depth: 11 of TinyLlama-1.1B's 22 layers at its full width (d 2048, 32/4
-# heads, d_ff 5632, vocab 32000), so that the whole smoke, the observe
-# phase included, keeps to its time. The overload, observe, numbers and
-# train phases, and the kvtier phase's pool readings, run all 22.
-HALF_DEPTH_LLAMA = "llama-half-depth"
-HALF_DEPTH_LAYERS = 11
+# The TinyLlama lanes of the server, gateway, kvtier, observe and handoff
+# phases run at cut depth: 4 of TinyLlama-1.1B's 22 layers at its full
+# width (d 2048, 32/4 heads, d_ff 5632, vocab 32000), so that the whole
+# smoke keeps to half its time. The overload, numbers, train and combined
+# phases, and the kvtier phase's pool readings, run all 22.
+CUT_LLAMA = "llama-cut-depth"
+CUT_LAYERS = 4
 PAGED = dict(gen_kv_block_size=16)
 LANES = {
     "mixed-bf16": dict(PAGED, gen_mixed_step=True,
@@ -646,8 +674,34 @@ def launch_counts() -> dict:
             for k in (*KERNELS, *RECURRENT_KERNELS)}
 
 
+# Every thread's stack goes to stderr if the whole run is still going
+# this long after it started (a whole run must end within 1200 s).
+SMOKE_STACKS_AFTER_S = 1000
+
+
 class SmokeFailure(RuntimeError):
     pass
+
+
+_CHILDREN = []
+
+
+def popen(*args, **kwargs):
+    """subprocess.Popen, remembered so that ``kill_children`` can end any
+    process a failed phase left running."""
+    proc = subprocess.Popen(*args, **kwargs)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def kill_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
 
 
 def check(cond, msg: str) -> None:
@@ -777,6 +831,20 @@ def issue_ms(torch, fn, iters: int = 10) -> float:
     return total / iters * 1e3
 
 
+def device_events(torch, prof) -> list:
+    """(name, us) of each device-side event (kernel, copy, fill) of a
+    finished torch.profiler session, read off the session's raw results
+    as ``prof.events()`` reads them (synchronous events only, names
+    demangled), without building its tree of every host op, which takes
+    seconds of host time for a session over a whole forward."""
+    from torch.autograd import DeviceType
+
+    return [(torch._C._demangle(e.name()), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_async()
+            and e.start_thread_id() == e.end_thread_id()]
+
+
 def busy_ms(torch, fn, iters: int = 3):
     """Mean device-busy time of fn(): the durations of the device-side
     events (kernels, copies, fills) under torch.profiler, summed; host
@@ -785,7 +853,6 @@ def busy_ms(torch, fn, iters: int = 3):
     sits idle. The profiler can keep no device event in a session: up to
     three sessions are run; None where none kept one (the reading is
     then "not measured", see ``busy_text``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -796,8 +863,7 @@ def busy_ms(torch, fn, iters: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+        us = sum(d for _, d in device_events(torch, prof))
         if us > 0:
             return us / iters / 1e3
     log("busy_ms: three profiler sessions kept no device event; the busy "
@@ -834,7 +900,6 @@ def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
     where the card outpaces the host."""
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     best = None
@@ -847,9 +912,8 @@ def device_call_ms(torch, fn, iters: int = 20, by_kernel=None) -> tuple:
                 fn()
             torch.cuda.synchronize()
         by_name = defaultdict(list)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name].append(e.device_time_total)
+        for name, us in device_events(torch, prof):
+            by_name[name].append(us)
         if not by_name:  # a session that kept no device event: run again
             continue
         calls = min(len(v) for v in by_name.values())
@@ -1699,7 +1763,6 @@ def measured_step(torch, fn) -> dict:
     """One training step under torch.profiler: wall ms (to the end of the
     card's work), host issue ms (until fn returns), device busy ms (the
     device events summed), and the flash kernels' device ms by name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1710,12 +1773,12 @@ def measured_step(torch, fn) -> dict:
         issue = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in events) / 1e3
+    events = device_events(torch, prof)
+    busy = sum(us for _, us in events) / 1e3
 
     def kernel_ms(*prefixes):
-        return sum(e.device_time_total for e in events
-                   if any(p in e.name for p in prefixes)) / 1e3
+        return sum(us for name, us in events
+                   if any(p in name for p in prefixes)) / 1e3
 
     # The element type each flash kernel ran in, from its template
     # arguments (flash_attention_bwd_dq_kernel<float, 64>, or
@@ -1835,15 +1898,15 @@ def phase_train(torch) -> dict:
     return out
 
 
-def half_depth_llama() -> str:
-    """The registry name of TinyLlama's geometry at half depth,
+def cut_llama() -> str:
+    """The registry name of TinyLlama's geometry at cut depth (CUT_LAYERS),
     registered at first use."""
     from tpu_engine_torch.models import llama, registry
 
-    if HALF_DEPTH_LLAMA not in registry.available_models():
-        registry.register(HALF_DEPTH_LLAMA)(lambda **kw: llama.make_llama(
-            **{"n_layers": HALF_DEPTH_LAYERS, **kw}))
-    return HALF_DEPTH_LLAMA
+    if CUT_LLAMA not in registry.available_models():
+        registry.register(CUT_LLAMA)(lambda **kw: llama.make_llama(
+            **{"n_layers": CUT_LAYERS, **kw}))
+    return CUT_LLAMA
 
 
 def start_lane(torch, params, lane: str, model: str = "llama",
@@ -1861,8 +1924,8 @@ def start_lane(torch, params, lane: str, model: str = "llama",
     worker, server = serve_worker(cfg, params=params)
     torch.cuda.synchronize()
     geometry = {"llama": "TinyLlama-1.1B geometry",
-                HALF_DEPTH_LLAMA: f"TinyLlama-1.1B width, "
-                                  f"{HALF_DEPTH_LAYERS} of its 22 layers"}.get(
+                CUT_LLAMA: f"TinyLlama-1.1B width, "
+                           f"{CUT_LAYERS} of its 22 layers"}.get(
         model, f"{worker.generator.cfg.n_layers} layers, d "
                f"{worker.generator.cfg.d_model}")
     log(f"server {lane}: {model} ({geometry}) ready in "
@@ -1962,7 +2025,7 @@ def serve_lane(torch, params, lane: str) -> dict:
     overrides = LANES[lane]
     kernel = next(k for k, v in KERNELS.items() if v["lane"] == lane)
     mixed = bool(overrides.get("gen_mixed_step"))
-    worker, server = start_lane(torch, params, lane, half_depth_llama())
+    worker, server = start_lane(torch, params, lane, cut_llama())
     port = server.port
     gcfg = worker.generator.cfg
     vocab, n_layers = gcfg.vocab, gcfg.n_layers
@@ -2115,7 +2178,7 @@ def serve_dense_lane(torch, params) -> dict:
     from tpu_engine_torch.ops import kernels
 
     lane, kernel = "dense-bf16", "flash_attention"
-    worker, server = start_lane(torch, params, lane, half_depth_llama())
+    worker, server = start_lane(torch, params, lane, cut_llama())
     port = server.port
     gcfg = worker.generator.cfg
     vocab, n_layers = gcfg.vocab, gcfg.n_layers
@@ -2223,8 +2286,8 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
 
     model, kernel, overrides = SPEC_LANES[lane]
     if model == "llama":
-        model = half_depth_llama()
-    worker, server = start_lane(torch, params if model == HALF_DEPTH_LLAMA
+        model = cut_llama()
+    worker, server = start_lane(torch, params if model == CUT_LLAMA
                                 else None, lane, model, overrides)
     port = server.port
     gen = worker.generator
@@ -2330,6 +2393,30 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def infer_traffic() -> tuple:
+    """The resnet50 lanes' requests (seed 5), encoded once for both lanes:
+    (the warm-up input, the burst's INFER_BURST inputs and bodies, the 16
+    repeats' bodies, the identical input and its 8 bodies)."""
+    rng = np.random.default_rng(5)
+    n_in = 224 * 224 * 3
+
+    def image():
+        return np.round(rng.random(n_in, np.float32), 3)
+
+    def body(rid, x):
+        return json.dumps({"request_id": rid,
+                           "input_data": x.tolist()}).encode()
+
+    warm_x = image()
+    inputs = [image() for _ in range(INFER_BURST)]
+    bodies = [body(f"img{i}", x) for i, x in enumerate(inputs)]
+    reps = {f"rep{i}": body(f"rep{i}", inputs[i]) for i in range(16)}
+    same = image()
+    same_bodies = {f"same{i}": body(f"same{i}", same) for i in range(8)}
+    return warm_x, inputs, bodies, reps, same, same_bodies
+
+
 def serve_infer_lane(torch, lane: str, single) -> dict:
     """Drive one resnet50 /infer lane over HTTP (INFER_LANES; the weights
     from seed 0): a warm-up, a burst of INFER_BURST concurrent requests
@@ -2352,16 +2439,7 @@ def serve_infer_lane(torch, lane: str, single) -> dict:
     log(f"server {lane}: resnet50 (224 x 224 x 3, bf16, max batch 32, "
         f"unified {cfg.unified_stateless}) ready in "
         f"{time.perf_counter() - t0:.1f} s on port {port}")
-    rng = np.random.default_rng(5)
-    n_in = 224 * 224 * 3
-
-    def image():
-        return np.round(rng.random(n_in, np.float32), 3)
-
-    inputs = [image() for _ in range(INFER_BURST)]
-    bodies = [json.dumps({"request_id": f"img{i}",
-                          "input_data": x.tolist()}).encode()
-              for i, x in enumerate(inputs)]
+    warm_x, inputs, bodies, reps_bodies, same, same_bodies = infer_traffic()
     unified = cfg.unified_stateless
 
     def dispatched_rows():
@@ -2394,23 +2472,18 @@ def serve_infer_lane(torch, lane: str, single) -> dict:
 
     try:
         warm = post(port, "/infer", {"request_id": "warm",
-                                     "input_data": image().tolist()})
+                                     "input_data": warm_x.tolist()})
         check(len(warm["output_data"]) == 1000, f"{lane} warm-up")
         res, burst_s, lat = fire({f"img{i}": b for i, b in enumerate(bodies)})
         check(all(not r["cached"] for r in res.values()),
               f"{lane}: a burst input came back cached")
-        reps, _, _ = fire({f"rep{i}": json.dumps({
-            "request_id": f"rep{i}", "input_data": inputs[i].tolist()})
-            .encode() for i in range(16)})
+        reps, _, _ = fire(reps_bodies)
         check(all(r["cached"] and r["inference_time_us"] == 50
                   and r["output_data"] == res[f"img{i}"]["output_data"]
                   for i, r in ((int(k[3:]), v) for k, v in reps.items())),
               f"{lane}: repeats not served from the cache")
-        same = image()
         rows0 = dispatched_rows()
-        coalesced, _, _ = fire({f"same{i}": json.dumps({
-            "request_id": f"same{i}", "input_data": same.tolist()}).encode()
-            for i in range(8)})
+        coalesced, _, _ = fire(same_bodies)
         rows = dispatched_rows() - rows0
         check(rows < 8 and len({json.dumps(r["output_data"])
                                 for r in coalesced.values()}) == 1,
@@ -2480,7 +2553,7 @@ def phase_server(torch) -> dict:
           "batch lane")
     log("server: a single request's output is bit-identical on the "
         "unified and the batch lane")
-    params = init_params(create_model(half_depth_llama()).config, seed=0,
+    params = init_params(create_model(cut_llama()).config, seed=0,
                          device="cuda", dtype="bfloat16")
     out.update({lane: serve_lane(torch, params, lane) for lane in LANES
                 if lane != "dense-bf16"})
@@ -2717,7 +2790,7 @@ def gateway_generation(torch, params) -> tuple:
 
     workers, servers = [], []
     for i in range(2):
-        w, s = start_lane(torch, params, "mixed-bf16", half_depth_llama(),
+        w, s = start_lane(torch, params, "mixed-bf16", cut_llama(),
                           node_id=f"gen_{i}")
         workers.append(w)
         servers.append(s)
@@ -2938,7 +3011,7 @@ def gateway_cli(gen: dict) -> dict:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    proc = subprocess.Popen(
+    proc = popen(
         [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
          *urls, "--port", str(port)], cwd=str(Path(__file__).resolve()
                                              .parent),
@@ -3002,7 +3075,7 @@ def phase_gateway(torch) -> dict:
     try:
         with served_conv_precision(torch):
             reference, ref = gateway_reference(torch)
-            params = init_params(create_model(half_depth_llama()).config,
+            params = init_params(create_model(cut_llama()).config,
                                  seed=0, device="cuda", dtype="bfloat16")
             kernels.reset_counts()  # the phase: counts from 0, read at end
             generation, gen = gateway_generation(torch, params)
@@ -3253,7 +3326,7 @@ def kvtier_lane(torch, params, lane: str, tier: bool) -> dict:
     kernel, base = KVTIER_LANES[lane]
     overrides = dict(LANES[base], **(KVTIER_TIER if tier else {}))
     name = lane if tier else lane + "-control"
-    worker, server = start_lane(torch, params, name, half_depth_llama(),
+    worker, server = start_lane(torch, params, name, cut_llama(),
                                 overrides=overrides)
     port = server.port
     try:
@@ -3327,7 +3400,7 @@ def kvtier_migration(torch, params, lane: str, card: str = "") -> dict:
     as the migrated run does)."""
     _kernel, base = KVTIER_LANES[lane]
     workers = [start_lane(torch, params, f"{lane}-migrate-{x}",
-                          half_depth_llama(), overrides=LANES[base])
+                          cut_llama(), overrides=LANES[base])
                for x in "AB"]
     (wa, sa), (wb, sb) = workers
     try:
@@ -3407,7 +3480,7 @@ def phase_kvtier(torch, card: str) -> dict:
         f"{out['pinned_copy']['d2h_gb_s']:.2f} GB/s D2H [{card}]")
     out["pool"] = kvtier_pool(torch, params, cfg, card=card)
     del params
-    params = init_params(create_model(half_depth_llama()).config, seed=0,
+    params = init_params(create_model(cut_llama()).config, seed=0,
                          device="cuda", dtype="bfloat16")
     for lane in KVTIER_LANES:
         tiered = kvtier_lane(torch, params, lane, tier=True)
@@ -3428,7 +3501,7 @@ def phase_kvtier(torch, card: str) -> dict:
             f"(auto pool, no tier); prefix hit {tp['prefix_hit_tokens']} "
             f"and prefilled {tp['prefilled_tokens']} tokens == the "
             f"control's; host {host}; {tiered['kernel']} launches "
-            f"{tiered['launches']} == {HALF_DEPTH_LAYERS} x "
+            f"{tiered['launches']} == {CUT_LAYERS} x "
             f"{tiered['steps']} (control "
             f"{control['launches']}); {tiered['seconds']:.3f} s vs "
             f"{control['seconds']:.3f} s [{card}]")
@@ -3467,9 +3540,10 @@ BERT_LAYERS = 12
 BERT_BF16_FACTOR = 3.0
 BERT_F32_TOL = 1e-4
 YOLO_SIZES = (320, 480, 640)
-# 8 requests a bucket (16 before the observe phase came, cut for the
-# smoke's time: a 640 answer is 9 MB of JSON to encode on the host).
-YOLO_REQUESTS = 24
+# 4 requests a bucket (16 before the observe phase came, 8 before the
+# combined phase, cut for the smoke's time: a 640 answer is 9 MB of JSON
+# to encode on the host).
+YOLO_REQUESTS = 12
 YOLO_HEAD = 144
 # The yolov8n lane (bf16: every conv's operands rounded to bf16, f32
 # sums) against the plain f32 forward of each request's canvas on the same
@@ -3778,15 +3852,17 @@ def refmodels_yolo(torch, card: str) -> dict:
     """yolov8n with shape buckets (BASELINE config 4; bench.py's mixed-shape
     sizes 320, 480 and 640): a worker with model "yolov8n", bf16, random
     weights from seed 0, shape_buckets (320, 320, 3), (480, 480, 3) and
-    (640, 640, 3), under cuDNN's default TF32 setting as served. 48
-    distinct 16-float /infer requests at once, cycling the three shapes
+    (640, 640, 3), under cuDNN's default TF32 setting as served.
+    YOLO_REQUESTS distinct 16-float /infer requests at once, cycling the
+    three shapes
     (each zero-padded onto its shape's canvas by the engine): every answer
     has n_anchors x 144 values for its shape, finite, within YOLO_TOL of
     the plain f32 forward of its canvas on the same weights (TF32 off);
     the lane's forwards are one per (dispatch, bucket). Then the forward
     per bucket at B 1 and B 8; the same burst through a worker in f32 on
     the same weights, each answer within YOLO_F32_TOL of the plain f32
-    forward; and the host's JSON encoding of one 640 answer."""
+    forward; and the host's JSON encoding of one 640 answer. (The burst is
+    YOLO_REQUESTS requests.)"""
     from tpu_engine_torch.models.yolo import n_anchors
     from tpu_engine_torch.serving.app import serve_worker
     from tpu_engine_torch.serving.worker import _encode_output
@@ -4000,16 +4076,32 @@ def spawn_worker_node(args, timeout: float = 300.0) -> tuple:
     """``python -m tpu_engine_torch.serving.cli worker_node <port> *args``
     as a process on a free port; returns (process, port) once /health
     answers."""
+    proc, port = start_worker_node(args)
+    return await_worker_node(proc, port, args, timeout)
+
+
+def start_worker_node(args) -> tuple:
+    """The process of ``spawn_worker_node``, not waited for: (process,
+    port). Its output goes to a file, so that nobody need read it while
+    it loads."""
     import socket
+    import tempfile
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    proc = subprocess.Popen(
+    err = tempfile.TemporaryFile("w+")
+    proc = popen(
         [sys.executable, "-m", "tpu_engine_torch.serving.cli",
          "worker_node", str(port), *args],
-        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+        cwd=str(Path(__file__).resolve().parent),
+        stdout=subprocess.DEVNULL, stderr=err, text=True)
+    proc.err_file = err
+    return proc, port
+
+
+def await_worker_node(proc, port: int, args, timeout: float = 300.0) -> tuple:
+    """(process, port) of ``start_worker_node`` once /health answers."""
     t0 = time.perf_counter()
     while True:
         try:
@@ -4018,10 +4110,12 @@ def spawn_worker_node(args, timeout: float = 300.0) -> tuple:
         except (OSError, http.client.HTTPException, SmokeFailure):
             if proc.poll() is not None or time.perf_counter() - t0 > timeout:
                 proc.kill()
-                _, err = proc.communicate(timeout=30)
+                proc.wait(timeout=30)
+                proc.err_file.seek(0)
+                err = proc.err_file.read()
                 raise SmokeFailure(f"worker_node {args} did not start "
                                    f"({proc.returncode}): {err[-2000:]}")
-            time.sleep(0.5)
+            time.sleep(0.2)
 
 
 def stop_process(proc) -> int:
@@ -4038,9 +4132,22 @@ def stop_process(proc) -> int:
         return -9
 
 
-def refmodels_onnx(torch, card: str, tmp: Path) -> dict:
+def start_onnx(tmp: Path) -> dict:
+    """The graph written to <tmp>/resnet50-v2-7.onnx and the worker_node
+    process of ``refmodels_onnx`` started on it (not waited for)."""
+    path = tmp / "resnet50-v2-7.onnx"
+    t0 = time.perf_counter()
+    write_resnet50_v2_onnx(path)
+    write_s = time.perf_counter() - t0
+    proc, port = start_worker_node(["worker_1", str(path)])
+    return {"path": path, "write_s": write_s, "proc": proc, "port": port,
+            "args": ["worker_1", str(path)]}
+
+
+def refmodels_onnx(torch, card: str, started: dict) -> dict:
     """The reference's command line (BASELINE configs 1-2): `worker_node
-    <port> worker_1 <tmp>/resnet50-v2-7.onnx` as a process, serving the
+    <port> worker_1 <tmp>/resnet50-v2-7.onnx` as a process (``start_onnx``
+    starts it), serving the
     graph (bf16, the port's default) on the card; the reference payload
     (3 floats, zero-padded to 150,528) and a full 224 x 224 x 3 image over
     /infer, each within ONNX_TOL of the port's executor on the CPU in f32;
@@ -4048,10 +4155,7 @@ def refmodels_onnx(torch, card: str, tmp: Path) -> dict:
     at B 1 and B 32."""
     from tpu_engine_torch.models.onnx_graph import build_onnx_model
 
-    path = tmp / "resnet50-v2-7.onnx"
-    t0 = time.perf_counter()
-    write_resnet50_v2_onnx(path)
-    write_s = time.perf_counter() - t0
+    path, write_s = started["path"], started["write_s"]
     n_in = 3 * 224 * 224
     image = np.round(np.random.default_rng(8).random(n_in, np.float32), 3)
     payloads = {"reference": [1.0, 2.0, 3.0], "image": image.tolist()}
@@ -4066,7 +4170,8 @@ def refmodels_onnx(torch, card: str, tmp: Path) -> dict:
             2, 3, 224, 224), dtype=torch.float32).numpy()
     out = {"graph_bytes": path.stat().st_size, "write_s": write_s}
     t0 = time.perf_counter()
-    proc, port = spawn_worker_node(["worker_1", str(path)])
+    proc, port = await_worker_node(started["proc"], started["port"],
+                                   started["args"])
     out["ready_s"] = time.perf_counter() - t0
     try:
         worst = 0.0
@@ -4089,7 +4194,8 @@ def refmodels_onnx(torch, card: str, tmp: Path) -> dict:
           f"onnx worker: rel err {worst}, exit code {rc}")
     log(f"refmodels onnx: `worker_node <port> worker_1 "
         f"<tmp>/resnet50-v2-7.onnx` ({out['graph_bytes']} bytes, ResNet-50 "
-        f"v2, 1000 classes) up in {out['ready_s']:.1f} s; the 3-float "
+        f"v2, 1000 classes) up after a further {out['ready_s']:.1f} s; "
+        f"the 3-float "
         f"payload and a full image vs the CPU executor in f32: max rel err "
         f"{out['reference_rel_err']:.3e} / {out['image_rel_err']:.3e}; "
         f"exited 0 on SIGTERM [{card}]")
@@ -4161,19 +4267,9 @@ def write_safetensors(path: Path, sd: dict) -> None:
             f.write(raw)
 
 
-def refmodels_reload(torch, card: str, tmp: Path) -> dict:
-    """The HF importers and /admin/reload: two gpt2 (124M) HF-layout
-    checkpoints of seeded tensors under HF's names, one a directory with
-    config.json and model.safetensors, the other with pytorch_model.bin.
-    `worker_node <port> w_hf <first>` (a process; the model and geometry
-    from config.json, bf16) serves the first; POST /admin/reload swaps in
-    the second: the answer is ok, the result cache is empty, an /infer
-    answered before now answers otherwise (not cached), and a greedy
-    /generate/stream equals a fresh worker's on the second checkpoint (in
-    process), as does its /infer answer."""
-    from tpu_engine_torch.serving.app import serve_worker
-    from tpu_engine_torch.utils.config import WorkerConfig
-
+def start_reload(torch, tmp: Path) -> dict:
+    """The two checkpoints of ``refmodels_reload`` written under ``tmp``
+    and its worker_node process started on the first (not waited for)."""
     first, second = tmp / "gpt2-hf-safetensors", tmp / "gpt2_hf_bin"
     first.mkdir()
     second.mkdir()
@@ -4183,14 +4279,36 @@ def refmodels_reload(torch, card: str, tmp: Path) -> dict:
     write_safetensors(first / "model.safetensors", gpt2_hf_state(1))
     torch.save({k: torch.from_numpy(v) for k, v in gpt2_hf_state(2).items()},
                second / "pytorch_model.bin")
-    out = {"write_s": time.perf_counter() - t0}
+    write_s = time.perf_counter() - t0
+    proc, port = start_worker_node(["w_hf", str(first)])
+    return {"first": first, "second": second, "write_s": write_s,
+            "proc": proc, "port": port, "args": ["w_hf", str(first)]}
+
+
+def refmodels_reload(torch, card: str, started: dict) -> dict:
+    """The HF importers and /admin/reload: two gpt2 (124M) HF-layout
+    checkpoints of seeded tensors under HF's names, one a directory with
+    config.json and model.safetensors, the other with pytorch_model.bin.
+    `worker_node <port> w_hf <first>` (a process, which ``start_reload``
+    starts; the model and geometry from config.json, bf16) serves the
+    first; POST /admin/reload swaps in
+    the second: the answer is ok, the result cache is empty, an /infer
+    answered before now answers otherwise (not cached), and a greedy
+    /generate/stream equals a fresh worker's on the second checkpoint (in
+    process), as does its /infer answer."""
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    first, second = started["first"], started["second"]
+    out = {"write_s": started["write_s"]}
     prompt = [464, 2068, 7586, 21831, 18045, 625, 262, 16931, 3290, 13]
     infer = {"request_id": "hf-infer",
              "input_data": [float(t) for t in prompt]}
     gen = {"request_id": "hf-gen", "prompt_tokens": prompt,
            "max_new_tokens": 16}
     t0 = time.perf_counter()
-    proc, port = spawn_worker_node(["w_hf", str(first)])
+    proc, port = await_worker_node(started["proc"], started["port"],
+                                   started["args"])
     out["ready_s"] = time.perf_counter() - t0
     try:
         health = get(port, "/health")
@@ -4233,7 +4351,8 @@ def refmodels_reload(torch, card: str, tmp: Path) -> dict:
           f"{toks_before}); /infer vs fresh {inf_err}")
     out["infer_vs_fresh_rel_err"] = inf_err
     log(f"refmodels reload: `worker_node <port> w_hf <gpt2 HF dir: "
-        f"config.json + model.safetensors>` up in {out['ready_s']:.1f} s; "
+        f"config.json + model.safetensors>` up after a further "
+        f"{out['ready_s']:.1f} s; "
         f"/admin/reload of <pytorch_model.bin dir> in "
         f"{out['reload_ms']:.1f} ms; the cache emptied, /infer changed, the "
         f"greedy stream ({len(toks_after)} tokens) equals a fresh worker's "
@@ -4253,13 +4372,23 @@ def phase_refmodels(torch, card: str, errs: dict) -> dict:
     t0 = time.perf_counter()
     out = {"flash": refmodels_flash(torch, card, errs)}
     flash_dev = out["flash"]["bert B=32 S=384 H=12 float32"]["device_ms"]
-    out["bert"] = refmodels_bert(torch, card, flash_dev)
-    out["yolo"] = refmodels_yolo(torch, card)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_refmodels_"))
+    started = []
     try:
-        out["onnx"] = refmodels_onnx(torch, card, tmp)
-        out["reload"] = refmodels_reload(torch, card, tmp)
+        # The onnx and reload workers load while bert and yolo run.
+        onnx = start_onnx(tmp)
+        started.append(onnx["proc"])
+        reload = start_reload(torch, tmp)
+        started.append(reload["proc"])
+        out["bert"] = refmodels_bert(torch, card, flash_dev)
+        out["yolo"] = refmodels_yolo(torch, card)
+        out["onnx"] = refmodels_onnx(torch, card, onnx)
+        out["reload"] = refmodels_reload(torch, card, reload)
     finally:
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
     log(f"refmodels: every check passed in {out['seconds']:.1f} s [{card}]")
@@ -4692,20 +4821,26 @@ def overload_swap_defer(torch, params) -> dict:
 
 
 def spawn_worker(args, log_path: Path) -> tuple:
-    """``python -m tpu_engine_torch.serving.cli worker <port> *args`` as a
-    process on a free port, its output to ``log_path``: (process, port,
+    """The worker command (``cli worker <port> *args``, through
+    ``chip_smoke.py --serve-worker``, so that CUT_LLAMA names a model) as
+    a process on a free port, its output to ``log_path``: (process, port,
     the log's file)."""
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     out = open(log_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "tpu_engine_torch.serving.cli", "worker",
+    proc = popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-worker",
          str(port), *args], cwd=str(Path(__file__).resolve().parent),
         stdout=out, stderr=subprocess.STDOUT)
     return proc, port, out
+
+
+def main_serve_worker(argv) -> int:
+    """``--serve-worker <worker argv>``: the worker command, with the
+    cut-depth TinyLlama registered."""
+    from tpu_engine_torch.serving import cli
+
+    cut_llama()
+    return cli.main(["worker", *argv])
 
 
 def wait_health(proc, port: int, timeout: float = 300.0) -> float:
@@ -4766,7 +4901,7 @@ def overload_gateway(torch, params32, proc, p_port: int) -> dict:
         s.bind(("127.0.0.1", 0))
         g_port = s.getsockname()[1]
     g_log = open(OUT_DIR / "overload_gateway.log", "w")
-    gproc = subprocess.Popen(
+    gproc = popen(
         [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
          *urls, "--port", str(g_port), "--failover-streams",
          "--health-probe-interval", str(PROBE_INTERVAL_S),
@@ -5172,12 +5307,23 @@ def spawn_counted_worker_node(args, log_path: Path, counts_path: Path):
     ``counts_path`` when it exits: (process, port, the log's file)."""
     port = free_port()
     out = open(log_path, "w")
-    proc = subprocess.Popen(
+    proc = popen(
         [sys.executable, str(Path(__file__).resolve()),
          "--serve-worker-node", str(counts_path), str(port), *args],
         cwd=str(Path(__file__).resolve().parent), stdout=out,
         stderr=subprocess.STDOUT)
     return proc, port, out
+
+
+def start_counted_worker_node(args, log_name: str, counts_name: str):
+    """``spawn_counted_worker_node`` with its log and counts under OUT_DIR
+    (the counts file cleared first): (process, port, the log's file, the
+    counts' path)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    counts_path = OUT_DIR / counts_name
+    counts_path.unlink(missing_ok=True)
+    return (*spawn_counted_worker_node(args, OUT_DIR / log_name,
+                                       counts_path), counts_path)
 
 
 def main_serve_worker_node(argv) -> int:
@@ -5188,6 +5334,7 @@ def main_serve_worker_node(argv) -> int:
 
     from tpu_engine_torch.models.ssd import ssd_window_scan_rows
 
+    cut_llama()  # the cut-depth TinyLlama, by its registry name
     code = cli.main(["worker_node", *argv[1:]])
     Path(argv[0]).write_text(json.dumps(launch_counts()))
     # The recurrent family's window scans: each launches #8 per layer.
@@ -5298,20 +5445,22 @@ def host_self_us(events) -> dict:
     return self_us
 
 
-def observe_spec_lane(card: str, cfg) -> dict:
-    """Parts 1-3: the mixed-bf16 spec lane as a worker_node process
-    (``cfg``: the llama registry entry's geometry)."""
-    OUT_DIR.mkdir(exist_ok=True)
-    counts_path = OUT_DIR / "observe_counts.json"
-    counts_path.unlink(missing_ok=True)
-    proc, port, out_f = spawn_counted_worker_node(
-        ["obs-spec", "llama", "--kv-block-size", "16", "--mixed-step",
+def start_observe_spec_lane() -> tuple:
+    return start_counted_worker_node(
+        ["obs-spec", CUT_LLAMA, "--kv-block-size", "16", "--mixed-step",
          "--mixed-token-budget", "256", "--prefill-chunk", "256",
          "--n-slots", "8", "--spec-k", str(SPEC_K),
          "--flight-recorder", "256",
          "--flight-dump-dir", str((OUT_DIR / "flight").resolve()),
          "--profile-dir", str((OUT_DIR / "profile").resolve())],
-        OUT_DIR / "observe_worker.log", counts_path)
+        "observe_worker.log", "observe_counts.json")
+
+
+def observe_spec_lane(card: str, cfg, started: tuple) -> dict:
+    """Parts 1-3: the mixed-bf16 spec lane as a worker_node process
+    (``start_observe_spec_lane`` starts it; ``cfg``: the llama registry
+    entry's geometry)."""
+    proc, port, out_f, counts_path = started
     out = {}
     try:
         out["ready_s"] = wait_health(proc, port)
@@ -5504,12 +5653,12 @@ def observe_spec_lane(card: str, cfg) -> dict:
 def observe_two_path(torch, params, cfg) -> dict:
     """Part 4: the two-path-bf16 lane with spans on, counts from 0: JAX's
     two-path scheduler records no tick span (its ticks are decode chunks),
-    each stream's decode span covers its chunks, and #2 launches 22 x the
-    chunk's steps per chunk."""
+    each stream's decode span covers its chunks, and #2 launches layers x
+    the chunk's steps per chunk."""
     from tpu_engine_torch.ops import kernels
 
     worker, server = start_lane(torch, params, "two-path-bf16",
-                                node_id="obs-two-path")
+                                model=cut_llama(), node_id="obs-two-path")
     port = server.port
     rng = np.random.default_rng(8)
     try:
@@ -5601,7 +5750,8 @@ def observe_span_cost(torch, params, cfg) -> dict:
     out = {}
     for cap in (2048, 0):
         worker, server = start_lane(
-            torch, params, "mixed-bf16", node_id=f"obs-cost-{cap}",
+            torch, params, "mixed-bf16", model=cut_llama(),
+            node_id=f"obs-cost-{cap}",
             overrides=dict(LANES["mixed-bf16"], trace_capacity=cap,
                            flight_recorder=1024))
         try:
@@ -5646,7 +5796,8 @@ def observe_gateway(torch, params32, cfg, proc, p_port: int) -> dict:
     import signal
 
     worker, server = start_lane(
-        torch, params32, "observe-gw-l", node_id="obs-l", dtype="float32",
+        torch, params32, "observe-gw-l", model=cut_llama(), node_id="obs-l",
+        dtype="float32",
         overrides=dict(PAGED, gen_mixed_step=True,
                        gen_mixed_token_budget=256, trace_stitch=True))
     l_port = server.port
@@ -5654,7 +5805,7 @@ def observe_gateway(torch, params32, cfg, proc, p_port: int) -> dict:
     ring = ring_of([p_url, l_url])
     g_port = free_port()
     g_log = open(OUT_DIR / "observe_gateway.log", "w")
-    gproc = subprocess.Popen(
+    gproc = popen(
         [sys.executable, "-m", "tpu_engine_torch.serving.cli", "gateway",
          p_url, l_url, "--port", str(g_port), "--failover-streams",
          "--health-probe-interval", str(PROBE_INTERVAL_S),
@@ -5743,20 +5894,22 @@ def phase_observe(torch, card: str) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     # P of part 7 starts first and loads while the other parts run.
     proc, p_port, p_log = spawn_worker(
-        ["obs-p", "llama", "--dtype", "float32", "--kv-block-size", "16",
+        ["obs-p", CUT_LLAMA, "--dtype", "float32", "--kv-block-size", "16",
          "--mixed-step", "--mixed-token-budget", "256", "--prefill-chunk",
          "256", "--n-slots", "8", "--trace-stitch"],
         OUT_DIR / "observe_p_worker.log")
     out = {}
-    cfg = create_model("llama").config
+    cfg = create_model(cut_llama()).config
     try:
-        out["spec_lane"] = observe_spec_lane(card, cfg)
+        # The spec lane's process loads while parts 4-6 run in process.
+        started = start_observe_spec_lane()
         params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
         out["two_path"] = observe_two_path(torch, params, cfg)
         out["span_cost"] = observe_span_cost(torch, params, cfg)
         del params
         out["infer"] = observe_infer_stages(torch)
         torch.cuda.empty_cache()
+        out["spec_lane"] = observe_spec_lane(card, cfg, started)
         params32 = init_params(cfg, seed=0, device="cuda", dtype="float32")
         out["gateway"] = observe_gateway(torch, params32, cfg, proc, p_port)
         del params32
@@ -5782,7 +5935,7 @@ HANDOFF_DRAIN_AT = 16
 HANDOFF_AFFINITY = 8
 HANDOFF_LANES = (("hand-p", "prefill"), ("hand-d1", "decode"),
                  ("hand-d2", "decode"))
-HANDOFF_LANE_ARGS = ("llama", "--kv-block-size", "16", "--mixed-step",
+HANDOFF_LANE_ARGS = (CUT_LLAMA, "--kv-block-size", "16", "--mixed-step",
                      "--mixed-token-budget", "256", "--prefill-chunk",
                      "256", "--n-slots", "8", "--prefix-fetch")
 
@@ -6100,7 +6253,8 @@ def handoff_prefix_tier(urls: dict, ports: dict, toks) -> dict:
 def handoff_int8(torch, cfg) -> dict:
     """Two int8 mixed generators in this process: a row handed off with
     export_row(wait_prefill=True) and submit_import equals the colocated
-    run, its chain is adopted verbatim, and #4 launches == 22 x ticks."""
+    run, its chain is adopted verbatim, and #4 launches == layers x
+    ticks."""
     import queue as queue_mod
 
     from tpu_engine_torch.models.convert import init_params
@@ -6111,8 +6265,8 @@ def handoff_int8(torch, cfg) -> dict:
     kw = dict(dtype="bfloat16", n_slots=8, kv_block_size=16,
               kv_quantize="int8", mixed_step=True, mixed_token_budget=256,
               prefill_chunk=256)
-    a = ContinuousGenerator("llama", params=params, **kw)
-    b = ContinuousGenerator("llama", params=params, **kw)
+    a = ContinuousGenerator(cut_llama(), params=params, **kw)
+    b = ContinuousGenerator(cut_llama(), params=params, **kw)
     try:
         rng = np.random.default_rng(18)
         prompt = [int(t) for t in rng.integers(1, cfg.vocab, 560)]
@@ -6182,10 +6336,10 @@ def handoff_int8(torch, cfg) -> dict:
 
 def phase_handoff(torch, card: str) -> dict:
     """The handoff family on the card (see the module docstring's handoff
-    entry): three worker_node processes of TinyLlama-1.1B (22 layers,
-    bf16, mixed, 16-token blocks, --prefix-fetch), P of role prefill, D1
-    and D2 of role decode, behind the port's gateway with disagg,
-    migrate_streams, prefix_affinity and prefix_directory on."""
+    entry): three worker_node processes of TinyLlama-1.1B's width at cut
+    depth (CUT_LLAMA, bf16, mixed, 16-token blocks, --prefix-fetch), P of
+    role prefill, D1 and D2 of role decode, behind the port's gateway with
+    disagg, migrate_streams, prefix_affinity and prefix_directory on."""
     import signal
 
     from tpu_engine_torch.models.registry import create_model
@@ -6194,7 +6348,7 @@ def phase_handoff(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     OUT_DIR.mkdir(exist_ok=True)
-    cfg = create_model("llama").config
+    cfg = create_model(cut_llama()).config
     lanes = {}
     for name, role in HANDOFF_LANES:
         counts_path = OUT_DIR / f"handoff_counts_{name}.json"
@@ -6206,6 +6360,9 @@ def phase_handoff(torch, card: str) -> dict:
     out = {}
     gsrv = None
     try:
+        # The in-process int8 part runs while the three lanes load.
+        out["int8"] = handoff_int8(torch, cfg)
+        torch.cuda.empty_cache()
         ports = {n: lanes[n][1] for n, _ in HANDOFF_LANES}
         urls = {n: f"127.0.0.1:{p}" for n, p in ports.items()}
         out["ready_s"] = max(wait_health(lanes[n][0], p)
@@ -6230,7 +6387,7 @@ def phase_handoff(torch, card: str) -> dict:
         gsrv.stop()
         gw.stop()
         gsrv = None
-        # Every lane idle with no leaked block; #1 == 22 x its ticks.
+        # Every lane idle with no leaked block; #1 == layers x its ticks.
         ticks = {}
         for name, port in ports.items():
             st, idle = wait_idle(port, paged=True)
@@ -6261,7 +6418,6 @@ def phase_handoff(torch, card: str) -> dict:
                 proc.kill()
                 proc.wait(timeout=60)
             log_f.close()
-    out["int8"] = handoff_int8(torch, cfg)
     out["seconds"] = time.perf_counter() - t0
     b, ch, dr, pr = (out["burst"], out["chain"], out["drain"],
                      out["prefix"])
@@ -6425,17 +6581,19 @@ def recurrent_small_lanes(torch) -> dict:
     return out
 
 
-def recurrent_worker(torch, card: str) -> dict:
-    """mamba2 at full width as a worker_node process (mixed, f32): 16
-    /generate streams and 8 /infer rows at once, then the lane's counts."""
+def start_recurrent_worker() -> tuple:
+    return start_counted_worker_node(["mamba2-w", *RECURRENT_LANE_ARGS],
+                                     "recurrent_worker.log",
+                                     "recurrent_counts.json")
+
+
+def recurrent_worker(torch, card: str, started: tuple) -> dict:
+    """mamba2 at full width as a worker_node process (mixed, f32;
+    ``start_recurrent_worker`` starts it): 16 /generate streams and 8
+    /infer rows at once, then the lane's counts."""
     import signal
 
-    OUT_DIR.mkdir(exist_ok=True)
-    counts_path = OUT_DIR / "recurrent_counts.json"
-    counts_path.unlink(missing_ok=True)
-    proc, port, log_f = spawn_counted_worker_node(
-        ["mamba2-w", *RECURRENT_LANE_ARGS], OUT_DIR / "recurrent_worker.log",
-        counts_path)
+    proc, port, log_f, counts_path = started
     rng = np.random.default_rng(17)
     vocab = 50257
     out = {}
@@ -6684,10 +6842,9 @@ def phase_recurrent(torch, card: str) -> dict:
 
     t0 = time.perf_counter()
     out = {"kernel": recurrent_kernel(torch)}
+    # The worker process loads while the in-process parts run.
+    started = start_recurrent_worker()
     out["small"] = recurrent_small_lanes(torch)
-    # The main path: counts to 0 just before the worker, read just after.
-    kl.reset_counts()
-    out["worker"] = recurrent_worker(torch, card)
     params = init_ssd_params(create_model("mamba2").config, seed=0,
                              device="cuda")
     kl.reset_counts()
@@ -6699,6 +6856,11 @@ def phase_recurrent(torch, card: str) -> dict:
           f"recurrent moves: #8 launches {scan.launches} != 24 x {calls}")
     out["moves"]["launches"] = scan.launches
     out["readings"] = recurrent_readings(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    # The main path: counts to 0 just before the worker, read just after.
+    kl.reset_counts()
+    out["worker"] = recurrent_worker(torch, card, started)
     out["seconds"] = time.perf_counter() - t0
     log(f"recurrent: every check passed in {out['seconds']:.1f} s [{card}]")
     return out
@@ -6763,17 +6925,13 @@ def routing_diff(torch, what: str, a, b) -> float:
     return min(float(router_margins(p.cpu()).min()) for p, _ in a)
 
 
-def moe_worker(torch, card: str) -> dict:
+def moe_worker(torch, card: str, started: tuple) -> dict:
     """gpt2-moe at full width as a worker_node process (bf16, mixed,
-    16-token blocks): a burst of streams and /score rows, then greedy
+    16-token blocks; ``phase_moe`` starts it): a burst of streams and /score rows, then greedy
     streams one at a time, then the lane's counts."""
     import signal
 
-    OUT_DIR.mkdir(exist_ok=True)
-    counts_path = OUT_DIR / "moe_counts.json"
-    counts_path.unlink(missing_ok=True)
-    proc, port, log_f = spawn_counted_worker_node(
-        ["moe-w", *MOE_LANE_ARGS], OUT_DIR / "moe_worker.log", counts_path)
+    proc, port, log_f, counts_path = started
     rng = np.random.default_rng(18)
     vocab = 50257
 
@@ -7113,9 +7271,10 @@ def phase_moe(torch, card: str) -> dict:
     from tpu_engine_torch.ops import kernels as kl
 
     t0 = time.perf_counter()
-    # The main path: counts to 0 just before the worker, read just after.
-    kl.reset_counts()
-    out = {"worker": moe_worker(torch, card)}
+    # The worker process loads while the in-process parts run.
+    started = start_counted_worker_node(["moe-w", *MOE_LANE_ARGS],
+                                        "moe_worker.log", "moe_counts.json")
+    out = {}
     int8, w = moe_int8_lane(torch, card)
     out["int8"] = int8
     try:
@@ -7126,6 +7285,9 @@ def phase_moe(torch, card: str) -> dict:
         w.stop()
     del bf16
     torch.cuda.empty_cache()
+    # The main path: counts to 0 just before the worker, read just after.
+    kl.reset_counts()
+    out["worker"] = moe_worker(torch, card, started)
     out["seconds"] = time.perf_counter() - t0
     log(f"moe: every check passed in {out['seconds']:.1f} s [{card}]")
     return out
@@ -7317,20 +7479,15 @@ def batch_tokens(rng, n: int) -> list:
     return [int(t) for t in rng.integers(1, BATCH_VOCAB, n)]
 
 
-def batch_worker(torch, card: str) -> dict:
+def batch_worker(torch, card: str, started: tuple) -> dict:
     """gpt2 at full width as a worker_node process on the batch lane (bf16,
-    8 rows a group): a burst of /generate, /generate/stream, beam and
+    8 rows a group; ``phase_batch`` starts it): a burst of /generate, /generate/stream, beam and
     /score requests at once, the 1024 bucket's clamp, repeats of one
     group of four, a stream against its blocking answer, an invalid beam;
     then the process's launch counts."""
     import signal
 
-    OUT_DIR.mkdir(exist_ok=True)
-    counts_path = OUT_DIR / "batch_counts.json"
-    counts_path.unlink(missing_ok=True)
-    proc, port, log_f = spawn_counted_worker_node(
-        ["batch-w", *BATCH_LANE_ARGS], OUT_DIR / "batch_worker.log",
-        counts_path)
+    proc, port, log_f, counts_path = started
     rng = np.random.default_rng(25)
 
     def prompt():
@@ -7585,10 +7742,32 @@ def batch_in_process(torch, card: str, params) -> dict:
     return out
 
 
-def batch_spec_lanes(torch, card: str, tmp: Path) -> dict:
+def start_spec_lanes(torch, tmp: Path) -> tuple:
+    """The two speculative lanes' worker_node processes of
+    ``batch_spec_lanes``, started (not waited for) after the target's f32
+    weights are saved under ``tmp``: (the lanes, their processes, the
+    weights, their checkpoint's path)."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.utils.checkpoint import SIDECAR, save_params
+
+    p32 = create_model("gpt2").init(0, device="cuda", dtype="float32")
+    ckpt = tmp / "gpt2-f32"
+    save_params(str(ckpt), p32)
+    (ckpt / SIDECAR).write_text(json.dumps({"model": "gpt2"}))
+    lanes = {"self": (["spec-self", str(ckpt), "--gen-draft-model", "gpt2",
+                       "--gen-draft-path", str(ckpt)], BATCH_LAYERS),
+             "auto": (["spec-auto", "gpt2"], 6)}
+    procs = {lane: start_counted_worker_node(
+        [*args, *SPEC_LANE_ARGS], f"spec_{lane}.log",
+        f"spec_{lane}_counts.json") for lane, (args, _) in lanes.items()}
+    return lanes, procs, p32, ckpt
+
+
+def batch_spec_lanes(torch, card: str, started: tuple) -> dict:
     """The speculative lane with draft weights from a path (the target's
     own, in the port's checkpoint format: a perfect draft) and with the
-    auto draft (distilgpt2, random), each a worker_node process in f32;
+    auto draft (distilgpt2, random), each a worker_node process in f32
+    (``start_spec_lanes`` starts them);
     both lanes' greedy streams against an in-process f32 Generator."""
     import signal
 
@@ -7596,23 +7775,9 @@ def batch_spec_lanes(torch, card: str, tmp: Path) -> dict:
     from tpu_engine_torch.models.transformer import transformer_apply
     from tpu_engine_torch.runtime.generator import Generator
     from tpu_engine_torch.runtime.speculative import SpeculativeGenerator
-    from tpu_engine_torch.utils.checkpoint import SIDECAR, save_params
 
     spec = create_model("gpt2")
-    p32 = spec.init(0, device="cuda", dtype="float32")
-    ckpt = tmp / "gpt2-f32"
-    save_params(str(ckpt), p32)
-    (ckpt / SIDECAR).write_text(json.dumps({"model": "gpt2"}))
-    lanes = {"self": (["spec-self", str(ckpt), "--gen-draft-model", "gpt2",
-                       "--gen-draft-path", str(ckpt)], BATCH_LAYERS),
-             "auto": (["spec-auto", "gpt2"], 6)}
-    procs = {}
-    for lane, (args, _) in lanes.items():
-        path = OUT_DIR / f"spec_{lane}_counts.json"
-        path.unlink(missing_ok=True)
-        procs[lane] = (*spawn_counted_worker_node(
-            [*args, *SPEC_LANE_ARGS], OUT_DIR / f"spec_{lane}.log", path),
-            path)
+    lanes, procs, p32, ckpt = started
     rng = np.random.default_rng(27)
     prompts = [batch_tokens(rng, int(rng.integers(*BATCH_PROMPT)))
                for _ in range(8)]
@@ -7729,23 +7894,390 @@ def phase_batch(torch, card: str) -> dict:
     from tpu_engine_torch.ops import kernels as kl
 
     t0 = time.perf_counter()
-    out = {"small": batch_small(torch)}
-    out["flash"] = batch_flash(torch, card)
-    # The main path: counts to 0 just before the worker, read just after.
-    kl.reset_counts()
-    out["worker"] = batch_worker(torch, card)
-    params = create_model("gpt2").init(0, device="cuda", dtype="bfloat16")
-    out["in_process"] = batch_in_process(torch, card, params)
-    del params
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_batch_"))
     try:
-        out["spec"] = batch_spec_lanes(torch, card, tmp)
+        # The three worker processes load while the in-process parts run.
+        started = start_counted_worker_node(
+            ["batch-w", *BATCH_LANE_ARGS], "batch_worker.log",
+            "batch_counts.json")
+        spec_started = start_spec_lanes(torch, tmp)
+        out = {"small": batch_small(torch)}
+        out["flash"] = batch_flash(torch, card)
+        params = create_model("gpt2").init(0, device="cuda",
+                                           dtype="bfloat16")
+        out["in_process"] = batch_in_process(torch, card, params)
+        del params
+        # The main path: counts to 0 just before the worker, read just
+        # after.
+        kl.reset_counts()
+        out["worker"] = batch_worker(torch, card, started)
+        out["spec"] = batch_spec_lanes(torch, card, spec_started)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"batch: every check passed in {out['seconds']:.1f} s [{card}]")
     return out
+
+
+# -- the combined serve command ----------------------------------------------
+
+# The one-shot load: the reference benchmark's (200 requests, 8 threads,
+# 10 distinct inputs) at resnet50's full width.
+COMBINED_INFER_ARGS = ("--model", "resnet50", "--lanes", "2",
+                       "--native-front", "on", "--breaker-timeout", "1",
+                       "--warmup")
+COMBINED_REQUESTS = 200
+COMBINED_THREADS = 8
+COMBINED_DISTINCT = 10
+# Fault check: requests owned by worker_1 while it is faulted, and after.
+COMBINED_FAULT_REQUESTS = 8
+COMBINED_DECODER_ARGS = (
+    "--model", "llama", "--lanes", "2", "--lane-roles", "prefill,decode",
+    "--disagg", "--kv-block-size", "16", "--mixed-step", "--native-front",
+    "on", "--default-deadline-ms", "60000", "--retry-backoff-ms", "5")
+COMBINED_STREAMS = 8
+COMBINED_PROMPT = (64, 513)
+COMBINED_NEW = 32
+COMBINED_SCORES = 8
+COMBINED_IDENTITY = 4
+
+
+def spawn_counted_serve(args, log_path: Path, counts_path: Path):
+    """The serve command as a process of its own (``chip_smoke.py
+    --serve-combined``) on a free port, writing its kernels' launch counts
+    to ``counts_path`` when it exits: (process, port, the log's file)."""
+    port = free_port()
+    out = open(log_path, "w")
+    proc = popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-combined",
+         str(counts_path), "--port", str(port), *args],
+        cwd=str(Path(__file__).resolve().parent), stdout=out,
+        stderr=subprocess.STDOUT)
+    return proc, port, out
+
+
+def main_serve_combined(argv) -> int:
+    """``--serve-combined COUNTS <serve argv>``: serve until SIGTERM, then
+    write the launch counts (kernel -> [launches, plain calls])."""
+    from tpu_engine_torch.serving import cli
+
+    code = cli.main(["serve", *argv[1:]])
+    Path(argv[0]).write_text(json.dumps(launch_counts()))
+    return code
+
+
+def stop_counted(proc, counts_path: Path, what: str) -> dict:
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    check(proc.wait(timeout=120) == 0, f"{what}: exit code")
+    return json.loads(counts_path.read_text())
+
+
+def raw_post(port: int, body: bytes, conn=None) -> tuple:
+    """(status, raw body, seconds) of one POST /infer of ``body``."""
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/infer", body,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, time.perf_counter() - t0
+    finally:
+        if own:
+            conn.close()
+
+
+def infer_fragment(raw: bytes) -> bytes:
+    """The output_data fragment of an /infer answer, as sent."""
+    a = raw.index(b'"output_data": ') + len(b'"output_data": ')
+    return raw[a:raw.index(b', "node_id"', a)]
+
+
+def combined_one_shot(card: str, proc, port: int, counts_path: Path) -> dict:
+    """resnet50 on two lanes behind the C++ front (the serve process on
+    ``port``): the reference load, the hits' counters and bytes, a lane
+    fault and its heal, then the process's counts."""
+    rng = np.random.default_rng(20)
+    inputs = [json.dumps(np.round(rng.standard_normal(224 * 224 * 3), 4)
+                         .tolist()).encode() for _ in range(COMBINED_DISTINCT)]
+
+    def body(rid: str, k: int) -> bytes:
+        return (b'{"request_id": "' + rid.encode() + b'", "input_data": '
+                + inputs[k] + b"}")
+    # Fresh ids, in blocks of COMBINED_DISTINCT per lane in turn. The first
+    # two blocks (each input's miss on each lane) complete before a thread
+    # takes a later request: a repeat sent while its miss is in flight
+    # would wait on it in Python (coalesced), not hit in C++.
+    ring = ring_of(["worker_1", "worker_2"])
+    per_lane = {n: owned(ring, n, COMBINED_REQUESTS, f"cb{n[-1]}-")
+                for n in ("worker_1", "worker_2")}
+    rids = [per_lane[f"worker_{(i // COMBINED_DISTINCT) % 2 + 1}"][i]
+            for i in range(COMBINED_REQUESTS)]
+    out = {"ready_s": wait_health(proc, port)}
+    lock = threading.Lock()
+    answers, errors = [], []
+    nxt = [0]
+    cold = 2 * COMBINED_DISTINCT
+    cold_done = threading.Semaphore(0)
+    warm = threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=300)
+        try:
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= COMBINED_REQUESTS:
+                    return
+                if i >= cold:
+                    warm.wait(timeout=600)
+                k = i % COMBINED_DISTINCT
+                try:
+                    st, raw, sec = raw_post(port, body(rids[i], k),
+                                            conn)
+                except Exception as exc:  # reported below
+                    errors.append(f"{i}: {exc!r}")
+                    conn.close()
+                    conn = http.client.HTTPConnection(
+                        "127.0.0.1", port, timeout=300)
+                    continue
+                with lock:
+                    answers.append((i, k, st, raw, sec))
+                if i < cold:
+                    cold_done.release()
+        finally:
+            conn.close()
+
+    def open_warm():
+        for _ in range(cold):
+            cold_done.acquire(timeout=600)
+        warm.set()
+    threads = [threading.Thread(target=client)
+               for _ in range(COMBINED_THREADS)]
+    t0 = time.perf_counter()
+    for th in [threading.Thread(target=open_warm), *threads]:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and len(answers) == COMBINED_REQUESTS
+          and all(a[2] == 200 for a in answers),
+          f"combined load: {errors[:3]} "
+          f"{[a[3][:200] for a in answers if a[2] != 200][:3]}")
+    frags, cached, hit_s = {}, 0, []
+    for i, k, _, raw, sec in answers:
+        ans = json.loads(raw)
+        out_data = np.asarray(ans["output_data"], np.float64)
+        check(out_data.shape == (1000,) and np.isfinite(out_data).all(),
+              f"combined answer {i}: {out_data.shape}")
+        frag = infer_fragment(raw)
+        first = frags.setdefault((k, ans["node_id"]), frag)
+        check(frag == first, f"combined answer {i}: its fragment is "
+                             f"not its input's miss fragment")
+        if ans["cached"]:
+            cached += 1
+            hit_s.append(sec)
+    health, stats = get(port, "/health"), get(port, "/stats")
+    cpp_hits = health["total_requests"] - stats["total_requests"]
+    check(health["total_requests"] == COMBINED_REQUESTS,
+          f"combined /health total_requests {health['total_requests']}")
+    check(health["cache_hits"] == cached,
+          f"combined /health cache_hits {health['cache_hits']} != "
+          f"{cached} cached answers")
+    check(cpp_hits >= COMBINED_REQUESTS - 2 * COMBINED_DISTINCT,
+          f"combined: {cpp_hits} C++ hits of {COMBINED_REQUESTS}")
+    check(all(health["lanes"][n]["total_requests"] > 0
+              for n in ("worker_1", "worker_2")),
+          f"combined: a lane served nothing {health['lanes']}")
+    p50, p99 = p50_p99_ms(hit_s)
+    out.update(wall_s=wall, req_per_s=COMBINED_REQUESTS / wall,
+               cpp_hits=cpp_hits, python_hits=cached - cpp_hits,
+               misses=COMBINED_REQUESTS - cached,
+               hit_p50_ms=p50, hit_p99_ms=p99,
+               lanes={n: {k: h[k] for k in ("total_requests",
+                                            "cache_hits")}
+                      for n, h in health["lanes"].items()})
+    log(f"combined resnet50 (bf16, 2 lanes, C++ front): "
+        f"{COMBINED_REQUESTS} /infer from {COMBINED_THREADS} threads "
+        f"over {COMBINED_DISTINCT} inputs in {wall:.2f} s "
+        f"({out['req_per_s']:.1f} req/s), {cpp_hits} C++ hits, "
+        f"{cached - cpp_hits} Python hits, {out['misses']} misses; "
+        f"hits p50 {p50:.2f} ms p99 {p99:.2f} ms [{card}]")
+    # A fault on worker_1: its requests fail over, its counters stand
+    # still (no C++ hit); healed, its hits come back through C++.
+    rids = owned(ring, "worker_1", 2 * COMBINED_FAULT_REQUESTS, "cf")
+    post(port, "/admin/fault", {"node": "worker_1", "action": "fail"})
+    w1 = get(port, "/health/worker_1")
+    check(w1["healthy"] is False, "combined: faulted lane healthy")
+    for rid in rids[:COMBINED_FAULT_REQUESTS]:
+        st, raw, _ = raw_post(port, body(rid, 0))
+        check(st == 200 and json.loads(raw)["node_id"] == "worker_2",
+              f"combined fault: {rid} {st} {raw[:200]!r}")
+    w1b = get(port, "/health/worker_1")
+    check(w1b["total_requests"] == w1["total_requests"]
+          and w1b["cache_hits"] == w1["cache_hits"],
+          f"combined fault: worker_1 counted {w1} -> {w1b}")
+    post(port, "/admin/fault", {"node": "worker_1", "action": "heal"})
+    time.sleep(1.2)  # the breaker's timeout: it half-opens
+    gw_before = get(port, "/stats")["total_requests"]
+    for rid in rids[COMBINED_FAULT_REQUESTS:]:
+        st, raw, _ = raw_post(port, body(rid, 0))
+        ans = json.loads(raw)
+        check(st == 200 and ans["node_id"] == "worker_1"
+              and ans["cached"], f"combined heal: {rid} {raw[:200]!r}")
+    w1c = get(port, "/health/worker_1")
+    check(w1c["total_requests"] - w1b["total_requests"]
+          == COMBINED_FAULT_REQUESTS
+          and get(port, "/stats")["total_requests"] == gw_before,
+          f"combined heal: worker_1's hits were not C++ hits "
+          f"({w1b} -> {w1c})")
+    out["fault"] = {"failed_over": COMBINED_FAULT_REQUESTS,
+                    "cpp_hits_after_heal": COMBINED_FAULT_REQUESTS}
+    log(f"combined fault: worker_1 failed, {COMBINED_FAULT_REQUESTS} "
+        f"of its requests served by worker_2, its counters still; "
+        f"healed, {COMBINED_FAULT_REQUESTS} C++ hits again")
+    counts = stop_counted(proc, counts_path, "combined resnet50")
+    check(all(c == [0, 0] for c in counts.values()),
+          f"combined resnet50 launched kernels: {counts}")
+    return out
+
+
+def combined_decoder(card: str, proc, port: int, counts_path: Path) -> dict:
+    """TinyLlama on a prefill and a decode lane behind the C++ front (the
+    serve process on ``port``): streams handed off in process, /score
+    rows, greedy identity, and the process's launch counts against the
+    lanes' ticks and dispatches."""
+    from tpu_engine_torch.models.registry import create_model
+
+    layers = create_model("llama").config.n_layers
+    vocab = create_model("llama").config.vocab
+    rng = np.random.default_rng(21)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    out = {"ready_s": wait_health(proc, port, timeout=600)}
+    prompts = [toks(int(rng.integers(*COMBINED_PROMPT)))
+               for _ in range(COMBINED_STREAMS)]
+    readers = [StreamReader(port, {"request_id": f"cs{i}",
+                                   "prompt_tokens": p,
+                                   "max_new_tokens": COMBINED_NEW})
+               for i, p in enumerate(prompts)]
+    scores = {f"cc{i}": {"request_id": f"cc{i}",
+                         "prompt_tokens": toks(112),
+                         "completion_tokens": toks(16)}
+              for i in range(COMBINED_SCORES)}
+    res = {}
+    sc = threading.Thread(target=lambda: res.update(
+        concurrent_posts(port, "/score", scores)[0]))
+    t0 = time.perf_counter()
+    for th in [*readers, sc]:
+        th.start()
+    for th in [*readers, sc]:
+        th.join(timeout=600)
+    out["burst_s"] = time.perf_counter() - t0
+    for r in readers:
+        check(r.final is not None and "error" not in r.final
+              and r.tokens == r.final["tokens"]
+              and len(r.tokens) == COMBINED_NEW
+              and r.final["node_id"] == "worker_2",
+              f"combined stream {r.body['request_id']}: {r.final} "
+              f"{r.error}")
+    check(len(res) == COMBINED_SCORES, f"combined /score: {len(res)}")
+    for name, ans in res.items():
+        lp = np.asarray(ans["logprobs"], np.float64)
+        check(lp.shape == (16,) and np.isfinite(lp).all()
+              and (lp <= 0).all(), f"combined /score {name}")
+    # Greedy identity under one composition: prompts the prefill lane
+    # has seen, each alone, twice.
+    passes = [[stream(port, {"request_id": f"ci{j}-{i}",
+                             "prompt_tokens": prompts[i],
+                             "max_new_tokens": COMBINED_NEW})[0]
+               for i in range(COMBINED_IDENTITY)] for j in range(2)]
+    check(passes[0] == passes[1],
+          "combined: greedy streams differ on repeat")
+    stats = get(port, "/stats")
+    ho = stats["handoff"]
+    n_streams = COMBINED_STREAMS + 2 * COMBINED_IDENTITY
+    check(ho["handoffs_spliced"] == n_streams
+          and ho["handoff_fallbacks"] == 0
+          and ho["roles"] == {"worker_1": "prefill",
+                              "worker_2": "decode"},
+          f"combined handoff: {ho}")
+    lanes = {n: get(port, f"/health/{n}")["generator"]
+             for n in ("worker_1", "worker_2")}
+    check(lanes["worker_2"]["kv_pool"]["prefilled_tokens"] == 0,
+          f"combined: the decode lane prefilled "
+          f"{lanes['worker_2']['kv_pool']}")
+    ticks = {n: g["mixed"]["ticks"] for n, g in lanes.items()}
+    oneshot = {n: g["stateless"]["dispatches"] for n, g in lanes.items()}
+    counts = stop_counted(proc, counts_path, "combined llama")
+    ragged, flash = (counts["ragged_paged_attention"][0],
+                     counts["flash_attention"][0])
+    check(all(c[1] == 0 for c in counts.values()),
+          f"combined llama: plain versions served: {counts}")
+    check(all(c[0] == 0 for k, c in counts.items()
+              if k not in ("ragged_paged_attention",
+                           "flash_attention")),
+          f"combined llama: other kernels launched: {counts}")
+    check(ragged == layers * sum(ticks.values()) > 0,
+          f"combined llama: #1 {ragged} != {layers} x {ticks}")
+    check(flash == layers * sum(oneshot.values()) > 0,
+          f"combined llama: #5 {flash} != {layers} x {oneshot}")
+    out.update(launches={"ragged_paged_attention": ragged,
+                         "flash_attention": flash},
+               ticks=ticks, oneshot_dispatches=oneshot,
+               handoffs_spliced=ho["handoffs_spliced"],
+               tokens_handed_off=ho.get("tokens_handed_off"))
+    log(f"combined llama ({layers} layers, bf16, prefill + decode lanes, "
+        f"C++ front): {COMBINED_STREAMS} streams handed off in process "
+        f"(0 tokens prefilled on the decode lane) and {COMBINED_SCORES} "
+        f"/score rows in {out['burst_s']:.1f} s; {COMBINED_IDENTITY} greedy "
+        f"streams identical on repeat; #1 {ragged} = {layers} x "
+        f"{sum(ticks.values())} ticks {ticks}, #5 {flash} = {layers} x "
+        f"{sum(oneshot.values())} one-shot dispatches, no plain call "
+        f"[{card}]")
+    return out
+
+
+def phase_combined(torch, card: str) -> dict:
+    """The combined serve command: its native library's build, the
+    one-shot load on resnet50, the decoder lanes on TinyLlama."""
+    from tpu_engine_torch.core import native
+
+    OUT_DIR.mkdir(exist_ok=True)
+    # Both serve processes start together: the decoder's starts up while
+    # the one-shot load runs; the library builds here while they import.
+    procs = {}
+    try:
+        for name, args in (("infer", COMBINED_INFER_ARGS),
+                           ("llama", COMBINED_DECODER_ARGS)):
+            counts_path = OUT_DIR / f"combined_{name}_counts.json"
+            counts_path.unlink(missing_ok=True)
+            proc, port, log_f = spawn_counted_serve(
+                args, OUT_DIR / f"combined_{name}.log", counts_path)
+            procs[name] = (proc, port, log_f, counts_path)
+        t0 = time.perf_counter()
+        lib = native.load()
+        build_s = time.perf_counter() - t0
+        log(f"combined: {Path(lib._name).name} ready in {build_s:.1f} s")
+        return {"native_build_s": build_s,
+                "one_shot": combined_one_shot(
+                    card, *(procs["infer"][i] for i in (0, 1, 3))),
+                "decoder": combined_decoder(
+                    card, *(procs["llama"][i] for i in (0, 1, 3)))}
+    finally:
+        for proc, _, log_f, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log_f.close()
 
 
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
@@ -8472,11 +9004,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if len(sys.argv) == 1:
+        # A run that outlives its time shows where it stood.
+        faulthandler.dump_traceback_later(SMOKE_STACKS_AFTER_S)
     if "--profiler-probe" in sys.argv:
         return main_profiler_probe(torch)
     if "--serve-worker-node" in sys.argv:
         i = sys.argv.index("--serve-worker-node")
         return main_serve_worker_node(sys.argv[i + 1:])
+    if "--serve-worker" in sys.argv:
+        i = sys.argv.index("--serve-worker")
+        return main_serve_worker(sys.argv[i + 1:])
+    if "--serve-combined" in sys.argv:
+        i = sys.argv.index("--serve-combined")
+        return main_serve_combined(sys.argv[i + 1:])
     for flag, mode in (("--kernel-times", main_kernel_times),
                        ("--resnet-times", main_resnet_times)):
         if flag in sys.argv:
@@ -8520,7 +9061,8 @@ def main() -> int:
                 "overload": lambda: phase_overload(torch, card, pa),
                 "recurrent": lambda: phase_recurrent(torch, card),
                 "moe": lambda: phase_moe(torch, card),
-                "batch": lambda: phase_batch(torch, card)}
+                "batch": lambda: phase_batch(torch, card),
+                "combined": lambda: phase_combined(torch, card)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -8552,6 +9094,9 @@ def main() -> int:
     # The batch lanes: the Generator (chunked, fused, beam, score) and the
     # batch SpeculativeGenerator; #5 at their prefills.
     batch = timed("batch", phase_batch, torch, card)
+    # The combined serve command: resnet50 behind the C++ front, then
+    # TinyLlama on a prefill and a decode lane (#1 and #5).
+    combined = timed("combined", phase_combined, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -8639,6 +9184,17 @@ def main() -> int:
                 "ms": pre["device_ms"], "plain_ms": pre["plain_ms"],
                 "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
                 "library_ms": pre["library_ms"]}
+        # The combined phase's launches (its serve process's counts):
+        # #1 at the two lanes' mixed ticks, #5 at their one-shot /score
+        # dispatches.
+        dec = combined["decoder"]
+        if name in dec["launches"]:
+            rows[-1]["combined"] = {
+                "launches": dec["launches"][name],
+                "ticks" if name == "ragged_paged_attention"
+                else "oneshot_dispatches":
+                    dec["ticks"] if name == "ragged_paged_attention"
+                    else dec["oneshot_dispatches"]}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -8664,7 +9220,7 @@ def main() -> int:
          "server": server, "gateway": gateway, "kvtier": kvtier,
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
-         "moe": moe, "batch": batch,
+         "moe": moe, "batch": batch, "combined": combined,
          "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
@@ -8683,4 +9239,6 @@ if __name__ == "__main__":
     except Exception:
         traceback.print_exc()
         code = 1
+    finally:
+        kill_children()
     sys.exit(code)

@@ -430,8 +430,27 @@ def test_gateway_argv_and_in_process_lanes():
             cfg.retry_budget_ratio) == (8100, 0.5, 2.0, 0.1)
     assert cli.gateway_config(["h:1"])[1] == GatewayConfig()
     assert cli.main(["gateway"]) == 1
-    with pytest.raises(NotImplementedError, match="LocalWorkerClient"):
-        Gateway([object()])
+    # An in-process lane joins the ring under its node_id, typed by its
+    # model, beside an HTTP lane (untyped).
+    from tpu_engine_torch.serving.clients import LocalWorkerClient
+    from tpu_engine_torch.serving.worker import WorkerNode
+
+    lane = WorkerNode(WorkerConfig(model="mlp", node_id="lane_a",
+                                   device="cpu", dtype="float32"))
+    try:
+        gw = Gateway([lane, "127.0.0.1:8001"])
+        assert sorted(gw.worker_names()) == ["127.0.0.1:8001", "lane_a"]
+        assert isinstance(gw.lane_clients()["lane_a"], LocalWorkerClient)
+        assert gw.default_model == "mlp"
+        assert gw.breaker_for("lane_a") is not None
+        got = gw.route_request({"request_id": "r", "model": "mlp",
+                                "input_data": [0.5] * 8})
+        assert got["node_id"] == "lane_a" and got["cached"] is False
+        gw.remove_worker("lane_a")
+        assert gw.worker_names() == ["127.0.0.1:8001"]
+        assert gw.default_model is None
+    finally:
+        lane.stop()
 
 
 def test_remove_worker_drains_within_its_bound(fleet):

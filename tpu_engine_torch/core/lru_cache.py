@@ -1,6 +1,7 @@
 """Thread-safe LRU result cache: the port's copy of ``LRUCache`` and
 ``compute_hit_rate`` from ``tpu_engine/core/lru_cache.py`` (pure Python;
-the JAX package's native byte-blob cache is not ported).
+the native byte-blob cache, whose entries the combined server's C++ front
+serves, is ``core.native.NativeLRUCache``).
 
 ``get``/``put``/``clear``, capacity-bounded eviction from the LRU end, and
 hit/miss counters surfaced as ``cache_hit_rate`` in the worker's

@@ -39,6 +39,12 @@
       [--affinity-prefix-blocks N] [--affinity-max-imbalance N]]
       [--prefix-directory [--prefix-dir-capacity N]]
 
+  python -m tpu_engine_torch.serving.cli serve [--model NAME[,NAME...]]
+      [--lanes N] [--port 8000] [--native-front auto|on|off]
+      [--lane-roles prefill,decode] [--model-path PATH] [--warmup]
+      [the JAX serve command's worker and gateway flags]
+      [--device cpu] [--dtype bfloat16] [--seed N]
+
   python -m tpu_engine_torch.serving.cli train [--model NAME] [--steps N]
       [--batch N] [--seq N] [--lr X] [--remat] [--data tokens.npy]
       [--out DIR] [--resume DIR/state] [--log-every N] [--seed N]
@@ -147,6 +153,21 @@ of their prefix for ``--prefix-fetch`` workers. Hedged dispatch has no
 flag, as in JAX: it is ``GatewayConfig.hedge_enabled``. The JAX
 command's other gateway flags (the autoscaler and its SLO feed, standby
 workers) are accepted and refuse by name.
+
+serve: one process, one front door, in-process lanes behind the gateway
+(``app.serve_combined``): ``--lanes N`` lanes named worker_1..N (default
+one per card; with ``--device cpu`` one on the CPU), each its own engine,
+cache, batcher and scheduler; ``--model a,b`` assigns models round-robin
+and routes requests by their ``model``. The front is the C++ one
+(``--native-front auto``, the default, for one model; ``on`` requires it)
+that answers /infer cache hits from the lanes' native caches without the
+GIL, or the Python one (``off``, and always for several models). Its
+library builds with g++ at first use into ``build/tpu_engine_torch/native/``;
+a failed build stops the command with the compiler's output. The JAX
+command's flags map onto the same WorkerConfig and GatewayConfig fields
+(``--default-deadline-ms``, ``--retry-backoff-ms`` among them);
+``--mesh``, ``--tp``, ``--scheduler-stall-s`` and the autoscaler's flags
+refuse by name. SIGTERM stops the front, the gateway and every lane.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -651,6 +672,276 @@ def _gateway(argv) -> int:
     return 0
 
 
+# The JAX serve command's flags that map onto no ported feature: each is
+# accepted and refuses by name (--mesh and --tp: parallel serving; the
+# stall watchdog: the port's scheduler has none).
+_UNPORTED_SERVE_FLAGS = (
+    ("--mesh", "mesh-sharded serving"),
+    ("--tp", "tensor-parallel serving"),
+    ("--scheduler-stall-s", "the decode-loop stall watchdog"),
+)
+
+
+def serve_args(argv) -> dict:
+    """The keyword arguments of ``app.serve_combined`` for a ``serve``
+    command line, mapped as the JAX command maps them; an unported flag
+    (``--mesh``, ``--tp``, ``--scheduler-stall-s``, the autoscaler's)
+    raises NotImplementedError naming it."""
+    from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+
+    p = argparse.ArgumentParser(prog="serve")
+    p.add_argument("--model", default="resnet50",
+                   help="registry name, or a,b for several (lanes "
+                        "round-robin, requests routed by their model)")
+    p.add_argument("--model-path", default=None,
+                   help="checkpoint of real weights, loaded once and shared "
+                        "(default: random weights from --seed)")
+    p.add_argument("--lanes", type=int, default=0,
+                   help="in-process lanes (default: one per card, or one "
+                        "on --device)")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--warmup", action="store_true",
+                   help="run every batch bucket and a short generation on "
+                        "each lane before listening")
+    p.add_argument("--shape-buckets", default=None,
+                   help="mixed-shape serving: comma-separated HxWxC list, "
+                        "e.g. 320x320x3,640x640x3")
+    p.add_argument("--batch-buckets", default=None,
+                   help="comma-separated batch sizes, e.g. 1,8,32,128; the "
+                        "batcher flushes at the largest")
+    p.add_argument("--pipeline-depth", type=int, default=None)
+    p.add_argument("--cache-capacity", type=int, default=None)
+    p.add_argument("--batch-timeout-ms", type=float, default=None)
+    p.add_argument("--breaker-timeout", type=float, default=None)
+    p.add_argument("--default-deadline-ms", type=float, default=None,
+                   help="deadline of requests without deadline_ms; an "
+                        "expired one sheds 503 + Retry-After")
+    p.add_argument("--retry-budget", type=float, default=None)
+    p.add_argument("--retry-backoff-ms", type=float, default=None,
+                   help="base exponential backoff between failover "
+                        "attempts, with +/-50%% jitter (default 0: "
+                        "immediate)")
+    p.add_argument("--hedge", action="store_true",
+                   help="hedged dispatch of /infer and /score")
+    p.add_argument("--hedge-quantile", type=float, default=None)
+    p.add_argument("--hedge-min-ms", type=float, default=None)
+    p.add_argument("--max-queue-depth", type=int, default=None,
+                   help="per-lane admission cap (0 = unbounded)")
+    p.add_argument("--overload-control", action="store_true")
+    p.add_argument("--overload-max-inflight", type=int, default=None)
+    p.add_argument("--tenant-rate", type=float, default=None)
+    p.add_argument("--tenant-burst", type=float, default=None)
+    p.add_argument("--priority-admission", action="store_true")
+    p.add_argument("--adaptive-depth", action="store_true")
+    p.add_argument("--brownout", action="store_true")
+    p.add_argument("--brownout-clamp-tokens", type=int, default=None)
+    p.add_argument("--failover-streams", action="store_true")
+    p.add_argument("--migrate-streams", action="store_true")
+    p.add_argument("--migrate-timeout", type=float, default=None)
+    p.add_argument("--drain-timeout", type=float, default=None)
+    p.add_argument("--health-probe-interval", type=float, default=None)
+    p.add_argument("--native-front", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="the serving edge: the C++ front (auto: for one "
+                        "model; on: required) or the Python front (off, "
+                        "and always for several models; streams flush "
+                        "incrementally only there, the C++ front sends a "
+                        "stream as one body)")
+    p.add_argument("--gen-scheduler",
+                   choices=["batch", "continuous", "speculative"],
+                   default="continuous")
+    p.add_argument("--gen-draft-model", default=None)
+    p.add_argument("--gen-draft-path", default=None)
+    p.add_argument("--gen-spec-k", type=int, default=4)
+    p.add_argument("--gen-decode-fused", action="store_true")
+    p.add_argument("--no-unified-stateless", action="store_true")
+    p.add_argument("--gen-prefill-chunk", type=int, default=256)
+    p.add_argument("--gen-prefix-cache-mb", type=int, default=64)
+    p.add_argument("--kv-block-size", type=int, default=0)
+    p.add_argument("--kv-blocks", type=int, default=0)
+    p.add_argument("--kv-host-blocks", type=int, default=0)
+    p.add_argument("--kv-quantize", default="", choices=("", "int8"))
+    p.add_argument("--state-rows", type=int, default=0)
+    p.add_argument("--prefix-affinity", action="store_true")
+    p.add_argument("--affinity-block-size", type=int, default=None)
+    p.add_argument("--affinity-prefix-blocks", type=int, default=None)
+    p.add_argument("--affinity-max-imbalance", type=int, default=None)
+    p.add_argument("--prefix-sharing", choices=["on", "off"], default="on")
+    p.add_argument("--prefix-fetch", action="store_true",
+                   help="the fleet prefix tier, both halves: the gateway's "
+                        "directory and the lanes' in-process fetch")
+    p.add_argument("--prefix-fetch-timeout", type=float, default=None)
+    p.add_argument("--mixed-step", action="store_true")
+    p.add_argument("--mixed-token-budget", type=int, default=0)
+    p.add_argument("--spec-k", type=int, default=0)
+    p.add_argument("--spec-draft", choices=["ngram", "model"],
+                   default="ngram")
+    p.add_argument("--quantize", choices=["int8"], default=None)
+    p.add_argument("--role", default="both",
+                   choices=("prefill", "decode", "both"))
+    p.add_argument("--lane-roles", default=None,
+                   help="per-lane roles round-robin, e.g. "
+                        "prefill,decode (pair with --disagg)")
+    p.add_argument("--disagg", action="store_true")
+    p.add_argument("--handoff-timeout", type=float, default=None)
+    p.add_argument("--trace-stitch", action="store_true",
+                   help="both halves: the gateway's stream ledger and the "
+                        "lanes' snapshot trace headers")
+    p.add_argument("--trace-ledger-capacity", type=int, default=None)
+    for flag in ("--slo-ttft-p99-ms", "--slo-itl-p99-ms",
+                 "--slo-completion-p99-ms", "--slo-target",
+                 "--slo-window-s"):
+        p.add_argument(flag, type=float, default=None)
+    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--flight-recorder", type=int, default=None)
+    p.add_argument("--flight-dump-dir", default=None)
+    p.add_argument("--device", default=None,
+                   help="cuda (default: every card) or cpu")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights")
+    for flag, _what in _UNPORTED_SERVE_FLAGS:
+        p.add_argument(flag, default=None)
+    for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
+        if flag == "--standby-worker":
+            continue  # a gateway command flag only
+        if value:
+            p.add_argument(flag, default=None)
+        else:
+            p.add_argument(flag, action="store_true", default=None)
+    a = p.parse_args(argv)
+    for flag, what in _UNPORTED_SERVE_FLAGS:
+        if getattr(a, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"{flag} ({what}) is not yet ported to tpu_engine_torch")
+    for flag, _value, _repeat in _UNPORTED_GATEWAY_FLAGS:
+        if getattr(a, flag[2:].replace("-", "_"), None) is not None:
+            raise NotImplementedError(
+                f"{flag} is not yet ported to tpu_engine_torch's gateway")
+    gw = {}
+    for name, field in (
+            ("breaker_timeout", "breaker_timeout_s"),
+            ("default_deadline_ms", "default_deadline_ms"),
+            ("retry_budget", "retry_budget_ratio"),
+            ("retry_backoff_ms", "retry_backoff_base_ms"),
+            ("hedge_quantile", "hedge_quantile"),
+            ("hedge_min_ms", "hedge_min_ms"),
+            ("migrate_timeout", "migrate_timeout_s"),
+            ("drain_timeout", "drain_timeout_s"),
+            ("health_probe_interval", "health_probe_interval_s"),
+            ("overload_max_inflight", "overload_max_inflight"),
+            ("tenant_rate", "tenant_rate"),
+            ("tenant_burst", "tenant_burst"),
+            ("handoff_timeout", "handoff_timeout_s"),
+            ("trace_ledger_capacity", "trace_ledger_capacity"),
+            ("slo_ttft_p99_ms", "slo_ttft_p99_ms"),
+            ("slo_itl_p99_ms", "slo_itl_p99_ms"),
+            ("slo_completion_p99_ms", "slo_completion_p99_ms"),
+            ("slo_target", "slo_target"),
+            ("slo_window_s", "slo_window_s")):
+        if getattr(a, name) is not None:
+            gw[field] = getattr(a, name)
+    for name, field in (("hedge", "hedge_enabled"),
+                        ("failover_streams", "failover_streams"),
+                        ("migrate_streams", "migrate_streams"),
+                        ("overload_control", "overload_control"),
+                        ("disagg", "disagg"),
+                        ("trace_stitch", "trace_stitch")):
+        if getattr(a, name):
+            gw[field] = True
+    if a.prefix_affinity:
+        gw["prefix_affinity"] = True
+        # The fingerprint's block defaults to the lanes' real block size.
+        if a.affinity_block_size is not None:
+            gw["affinity_block_size"] = a.affinity_block_size
+        elif a.kv_block_size > 0:
+            gw["affinity_block_size"] = a.kv_block_size
+        if a.affinity_prefix_blocks is not None:
+            gw["affinity_prefix_blocks"] = a.affinity_prefix_blocks
+        if a.affinity_max_imbalance is not None:
+            gw["affinity_max_imbalance"] = a.affinity_max_imbalance
+    if a.prefix_fetch:
+        gw["prefix_directory"] = True
+        if "affinity_block_size" not in gw and a.kv_block_size > 0:
+            gw["affinity_block_size"] = a.kv_block_size
+    wk = {}
+    if a.shape_buckets:
+        wk["shape_buckets"] = tuple(
+            tuple(int(d) for d in sh.split("x"))
+            for sh in a.shape_buckets.split(","))
+    if a.batch_buckets:
+        wk["batch_buckets"] = tuple(int(b)
+                                    for b in a.batch_buckets.split(","))
+        wk["max_batch_size"] = max(wk["batch_buckets"])
+    for name, field in (("pipeline_depth", "pipeline_depth"),
+                        ("cache_capacity", "cache_capacity"),
+                        ("batch_timeout_ms", "batch_timeout_ms"),
+                        ("max_queue_depth", "max_queue_depth"),
+                        ("brownout_clamp_tokens", "brownout_clamp_tokens"),
+                        ("prefix_fetch_timeout",
+                         "gen_prefix_fetch_timeout_s"),
+                        ("profile_dir", "profile_dir"),
+                        ("flight_recorder", "flight_recorder"),
+                        ("flight_dump_dir", "flight_dump_dir")):
+        if getattr(a, name) is not None:
+            wk[field] = getattr(a, name)
+    for name, field in (("priority_admission", "priority_admission"),
+                        ("adaptive_depth", "adaptive_depth"),
+                        ("brownout", "brownout"),
+                        ("trace_stitch", "trace_stitch"),
+                        ("prefix_fetch", "gen_prefix_fetch")):
+        if getattr(a, name):
+            wk[field] = True
+    if a.no_unified_stateless:
+        wk["unified_stateless"] = False
+    worker_config = WorkerConfig(
+        **wk, gen_scheduler=a.gen_scheduler,
+        gen_draft_model=a.gen_draft_model, gen_draft_path=a.gen_draft_path,
+        gen_spec_k=a.gen_spec_k, gen_prefix_cache_mb=a.gen_prefix_cache_mb,
+        gen_prefill_chunk=a.gen_prefill_chunk,
+        gen_kv_block_size=a.kv_block_size, gen_kv_blocks=a.kv_blocks,
+        gen_kv_host_blocks=a.kv_host_blocks, gen_kv_quantize=a.kv_quantize,
+        gen_prefix_sharing=a.prefix_sharing == "on",
+        gen_mixed_step=a.mixed_step,
+        gen_mixed_token_budget=a.mixed_token_budget,
+        gen_continuous_spec_k=a.spec_k, gen_state_rows=a.state_rows,
+        gen_spec_draft=a.spec_draft, gen_decode_fused=a.gen_decode_fused,
+        quantize=a.quantize, role=a.role, model_path=a.model_path,
+        dtype=a.dtype, device=a.device, seed=a.seed)
+    lane_roles = None
+    if a.lane_roles:
+        lane_roles = [r.strip() for r in a.lane_roles.split(",")
+                      if r.strip()]
+    return {"model": a.model, "lanes": a.lanes, "port": a.port,
+            "warmup": a.warmup, "worker_config": worker_config,
+            "gateway_config": (GatewayConfig(port=a.port, **gw)
+                               if gw else None),
+            "native_front": {"auto": None, "on": True,
+                             "off": False}[a.native_front],
+            "lane_roles": lane_roles}
+
+
+def _serve_combined(argv) -> int:
+    """The ``serve`` command: the combined server until SIGTERM or
+    SIGINT, then the front, the gateway and every lane stop."""
+    from tpu_engine_torch.serving.app import serve_combined, stop_combined
+    from tpu_engine_torch.serving.http import JsonHttpServer
+
+    kw = serve_args(argv)
+    gateway, workers, server = serve_combined(**kw)
+    kind = ("python front" if isinstance(server, JsonHttpServer)
+            else "native C++ front")
+    print(f"tpu_engine_torch combined serving: {len(workers)} lanes "
+          f"({', '.join(sorted({str(w.engine.device) for w in workers}))})"
+          f", port {server.port} ({kind})", flush=True)
+    try:
+        _wait_for_signal()
+    finally:
+        stop_combined(gateway, workers, server)
+    return 0
+
+
 def train(argv, params=None) -> int:
     """The ``train`` command on ``argv`` (its flags, without the command
     name). ``params``: the initial parameter tree (the port's, in f32 on
@@ -768,6 +1059,8 @@ def main(argv=None) -> int:
         return _worker_node(argv[1:])
     if argv and argv[0] == "gateway":
         return _gateway(argv[1:])
+    if argv and argv[0] == "serve":
+        return _serve_combined(argv[1:])
     if argv and argv[0] == "train":
         return train(argv[1:])
     if argv and argv[0] == "import-weights":

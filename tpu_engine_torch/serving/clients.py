@@ -1,8 +1,17 @@
-"""How the gateway reaches a worker over HTTP (the port's copy of
-``HttpWorkerClient`` and ``parse_worker_url`` from
-``tpu_engine/serving/clients.py``): a persistent-connection pool to one
-worker with the reference's 5 s timeout (``gen_timeout_s`` for /generate,
-/score and streams, clamped to a request's remaining budget).
+"""How the gateway reaches a lane (the port's copy of
+``LocalWorkerClient``, ``HttpWorkerClient`` and ``parse_worker_url`` from
+``tpu_engine/serving/clients.py``).
+
+``LocalWorkerClient``: a lane in the same process (the combined server's):
+each call is the ``WorkerNode``'s own method, with no HTTP hop and no JSON
+re-encode (a stream's iterator passes straight through). A malformed
+request (``KeyError``, ``TypeError``, ``ValueError``) and a shed
+(``ShedError``) pass through unchanged; any other exception is a lane
+fault, ``WorkerError``.
+
+``HttpWorkerClient``: a persistent-connection pool to one worker with the
+reference's 5 s timeout (``gen_timeout_s`` for /generate, /score and
+streams, clamped to a request's remaining budget).
 
 Errors are classified for the gateway: a 4xx is ``ValueError`` (the
 request's fault), a 503 whose body's ``kind`` is ``overloaded`` or
@@ -22,11 +31,86 @@ import queue
 import socket
 from typing import Optional, Tuple
 
-from tpu_engine_torch.utils.deadline import DeadlineExceeded, Overloaded
+from tpu_engine_torch.utils.deadline import (
+    DeadlineExceeded,
+    Overloaded,
+    ShedError,
+)
 
 
 class WorkerError(Exception):
     """Dispatch failure: connection error, timeout, non-200, device error."""
+
+
+class LocalWorkerClient:
+    """An in-process lane: ``worker`` is a ``serving.worker.WorkerNode``."""
+
+    def __init__(self, worker):
+        self.worker = worker
+
+    def _call(self, fn, *args):
+        try:
+            return fn(*args)
+        except (KeyError, TypeError, ValueError, ShedError):
+            raise  # the request's fault, or a healthy lane's shed
+        except Exception as exc:
+            raise WorkerError(str(exc)) from exc
+
+    def infer(self, payload: dict) -> dict:
+        return self._call(self.worker.handle_infer, payload)
+
+    def infer_raw(self, payload: dict) -> bytes:
+        """The response's bytes (the worker splices its cached output
+        fragment)."""
+        return self._call(self.worker.handle_infer_raw, payload)
+
+    def generate(self, payload: dict) -> dict:
+        return self._call(self.worker.handle_generate, payload)
+
+    def score(self, payload: dict) -> dict:
+        return self._call(self.worker.handle_score, payload)
+
+    def generate_stream(self, payload: dict):
+        """The worker's SSE event iterator, unbuffered."""
+        return self._call(self.worker.handle_generate_stream, payload)
+
+    def drain(self) -> dict:
+        status = self.worker.drain()
+        return {"ok": True, "node_id": self.worker.node_id,
+                "draining": True, "status": status}
+
+    def undrain(self) -> dict:
+        status = self.worker.undrain()
+        return {"ok": True, "node_id": self.worker.node_id,
+                "draining": False, "status": status}
+
+    def set_role(self, role: str) -> dict:
+        return self._call(self.worker.set_role, role)
+
+    def migrate(self, payload: dict,
+                timeout_s: Optional[float] = None) -> dict:
+        """Export one live stream's row; ``timeout_s`` rides in the
+        payload for the scheduler's export wait."""
+        if timeout_s is not None:
+            payload = {**payload, "timeout_s": timeout_s}
+        return self._call(self.worker.handle_migrate_export, payload)
+
+    def export_prefix(self, payload: dict,
+                      timeout_s: Optional[float] = None) -> dict:
+        """The lane's longest radix chain of a token prefix (refusals
+        answer ``ok: false``)."""
+        return self._call(self.worker.handle_export_prefix, payload)
+
+    def health(self) -> dict:
+        return self.worker.get_health()
+
+    def trace_spans(self) -> list:
+        """The lane's span ring (the recorder's schema)."""
+        return self.worker.tracer.snapshot()
+
+    def flight_dump(self, reason: str):
+        """Dump the lane's flight recorder now (None without one)."""
+        return self.worker.flight_dump(reason)
 
 
 def parse_worker_url(url: str, default_port: int = 8080) -> Tuple[str, int]:

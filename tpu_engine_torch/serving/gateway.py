@@ -1,6 +1,9 @@
 """The gateway (the port's copy of the ``Gateway`` of
-``tpu_engine/serving/gateway.py``): consistent-hash routing over HTTP
-workers, each lane guarded by a circuit breaker, with ring-order failover.
+``tpu_engine/serving/gateway.py``): consistent-hash routing over lanes,
+each guarded by a circuit breaker, with ring-order failover. A lane is an
+HTTP worker (a URL; its name ``host:port``) or an in-process
+``WorkerNode`` (``LocalWorkerClient``; its name the worker's
+``node_id``), which brings its model and role along.
 
 A request goes to the ring's owner of its ``request_id`` (one is minted
 when absent). When that lane fails, every other lane is tried in ring
@@ -12,9 +15,19 @@ shed and found no lane ends as 503 ``overloaded``, never as the 500 "All
 workers failed or unavailable". An expired deadline is a 503
 ``deadline_exceeded`` at admission, during failover or from a lane; each
 dispatch forwards the budget left; a request without ``deadline_ms`` has
-none. Failover is immediate, and its retries may be capped by a global
-retry budget (off by default). A request naming a ``model`` probes the
-ring: a lane's 400 for it moves on without a penalty.
+``default_deadline_ms`` (none by default). Each failover attempt waits
+``backoff_delay`` (``retry_backoff_base_ms``, 0 by default: immediate;
+each wait counted as ``backoff_waits``), and retries may be capped by a
+global retry budget (off by default). A gateway shed carries Retry-After
+``shed_retry_after_s``.
+
+Models: in-process lanes are typed, and each model has a sub-ring of its
+lanes. A request's ``model`` routes and fails over on that model's ring
+(an unknown model is a 400); without one, a multi-model gateway uses the
+first model registered (``default_model``). HTTP lanes carry no model: a
+request naming a model none of the typed lanes serves probes the whole
+ring while untyped lanes exist, and a lane's 400 for it moves on without
+a penalty.
 
 Streams are relayed frame by frame; a mid-stream lane fault (the
 transport dying, or a retryable in-band error event that is not a
@@ -81,8 +94,8 @@ What the JAX gateway adds over the reference, each off by default:
 
 ``get_stats`` is the reference's ``/stats`` schema (``total_workers``,
 ``total_requests``, ``failovers``, ``circuit_breakers``), plus, gated as
-in JAX: ``resilience`` once the layer is configured (a retry budget,
-hedging) or has decided something, ``failover`` once streams fail over,
+in JAX: ``resilience`` once the layer is configured (a default deadline,
+backoff, a retry budget, hedging) or has decided something, ``failover`` once streams fail over,
 the prober runs or either decided something, ``migration``,
 ``handoff`` (with the ``roles`` map), ``affinity`` (with ``assigned``)
 and ``prefix_directory`` (with the directory's entries) once their
@@ -105,9 +118,10 @@ from every lane into one tree. The ``slo_*`` objectives
 (``serving.slo``) read the lanes' TTFT and ITL and the gateway's own
 stream completions: ``slo_status``.
 
-Lanes are HTTP workers only. In-process lanes and the autoscaler are not
-ported: in-process lanes refuse at ``add_worker``, the autoscaler by
-name (``utils.config.refuse_unported``).
+``native_breakers=True`` makes every lane's breaker the C++ one
+(``core.native.NativeCircuitBreaker``), which the combined server's native
+front shares for its hit path. The autoscaler is not ported: it refuses
+by name (``utils.config.refuse_unported``).
 """
 
 from __future__ import annotations
@@ -122,7 +136,11 @@ from typing import Dict, List, Optional
 
 from tpu_engine_torch.core.circuit_breaker import CircuitBreaker
 from tpu_engine_torch.core.consistent_hash import ConsistentHash
-from tpu_engine_torch.serving.clients import HttpWorkerClient, WorkerError
+from tpu_engine_torch.serving.clients import (
+    HttpWorkerClient,
+    LocalWorkerClient,
+    WorkerError,
+)
 from tpu_engine_torch.serving.http import sse_event
 from tpu_engine_torch.serving.overload import (
     OverloadCounters,
@@ -145,6 +163,7 @@ from tpu_engine_torch.serving.resilience import (
     ProbeStateMachine,
     ResilienceCounters,
     RetryBudget,
+    backoff_delay,
 )
 from tpu_engine_torch.serving.slo import (
     OBJECTIVE_SOURCES,
@@ -171,10 +190,6 @@ class GatewayError(Exception):
 
 # The idempotent ops hedged dispatch may fire twice; generation never.
 _HEDGEABLE_OPS = frozenset({"infer", "infer_raw", "score"})
-
-# The Retry-After base of a gateway shed: the JAX GatewayConfig's
-# shed_retry_after_s default, which only the JAX serve command sets.
-_SHED_RETRY_AFTER_S = 1.0
 
 # _try_node's answer for a lane that shed the request: a failure for
 # failover, but told apart from a fault so a ring that only sheds answers
@@ -354,12 +369,21 @@ class _StreamLedger:
 
 
 class Gateway:
-    def __init__(self, workers=None, config: Optional[GatewayConfig] = None):
+    def __init__(self, workers=None, config: Optional[GatewayConfig] = None,
+                 native_breakers: bool = False):
         """``workers``: worker URLs (``host``, ``host:port`` or
-        ``http://host:port``)."""
+        ``http://host:port``) and in-process ``WorkerNode`` lanes.
+        ``native_breakers``: every lane's breaker is the C++ one."""
         self.config = config or GatewayConfig()
+        self._native_breakers = bool(native_breakers)
         self._ring = ConsistentHash(self.config.virtual_nodes)
-        self._clients: Dict[str, HttpWorkerClient] = {}
+        # One sub-ring per model of the typed (in-process) lanes, the
+        # untyped (HTTP) lanes, and the model of a request without one
+        # on a multi-model gateway (the first registered).
+        self._model_rings: Dict[str, ConsistentHash] = {}
+        self._untyped: set = set()
+        self.default_model: Optional[str] = None
+        self._clients: Dict[str, object] = {}
         self._breakers: Dict[str, CircuitBreaker] = {}
         self._lock = threading.Lock()
         self._total_requests = 0
@@ -435,39 +459,66 @@ class Gateway:
     # -- membership -----------------------------------------------------------
 
     def add_worker(self, worker) -> str:
-        """Register an HTTP worker; its lane name is ``client.url``
-        (``"host:port"``)."""
-        if not isinstance(worker, str):
-            raise NotImplementedError(
-                "in-process lanes (LocalWorkerClient) are not yet ported to "
-                "tpu_engine_torch's gateway (queued with the combined serve "
-                "command, ROADMAP.md §A 16.7); pass worker URLs")
+        """Register a lane: an HTTP worker's URL (lane name
+        ``"host:port"``, untyped) or an in-process ``WorkerNode`` (lane
+        name its ``node_id``, typed by its model, with its role)."""
         cfg = self.config
-        client = HttpWorkerClient(worker, timeout_s=cfg.worker_timeout_s,
-                                  default_port=cfg.default_worker_port,
-                                  gen_timeout_s=cfg.gen_timeout_s)
-        name = client.url
+        model_name = None
         role = "both"
-        if cfg.disagg:
-            # Role discovery (a URL carries none): one best-effort /health
-            # read; no key or no answer reads "both".
-            try:
-                role = str(client.health().get("role", "both"))
-            except Exception:
-                role = "both"
+        if isinstance(worker, str):
+            client = HttpWorkerClient(worker, timeout_s=cfg.worker_timeout_s,
+                                      default_port=cfg.default_worker_port,
+                                      gen_timeout_s=cfg.gen_timeout_s)
+            name = client.url
+            if cfg.disagg:
+                # Role discovery (a URL carries none): one best-effort
+                # /health read; no key or no answer reads "both".
+                try:
+                    role = str(client.health().get("role", "both"))
+                except Exception:
+                    role = "both"
+        else:
+            client = LocalWorkerClient(worker)
+            name = worker.node_id
+            model_name = worker.engine.spec.name
+            role = str(worker.config.role or "both")
         if role not in ("prefill", "decode", "both"):
             role = "both"
         with self._lock:
             self._clients[name] = client
-            self._breakers[name] = CircuitBreaker(cfg.failure_threshold,
-                                                  cfg.success_threshold,
-                                                  cfg.breaker_timeout_s)
+            self._breakers[name] = self._make_breaker()
             if role != "both":
                 self._roles[name] = role
+            if model_name is None:
+                self._untyped.add(name)
         self._ring.add_node(name)
         if role != "decode":
             self._prefill_ring.add_node(name)
+        if model_name is not None:
+            with self._lock:
+                ring = self._model_rings.get(model_name)
+                if ring is None:
+                    # Filled before it is published: a concurrent route
+                    # never sees an empty ring of a registered model.
+                    ring = ConsistentHash(cfg.virtual_nodes)
+                    ring.add_node(name)
+                    self._model_rings[model_name] = ring
+                else:
+                    ring.add_node(name)
+                if self.default_model is None:
+                    self.default_model = model_name
         return name
+
+    def _make_breaker(self):
+        cfg = self.config
+        if self._native_breakers:
+            from tpu_engine_torch.core.native import NativeCircuitBreaker
+
+            return NativeCircuitBreaker(cfg.failure_threshold,
+                                        cfg.success_threshold,
+                                        cfg.breaker_timeout_s)
+        return CircuitBreaker(cfg.failure_threshold, cfg.success_threshold,
+                              cfg.breaker_timeout_s)
 
     def remove_worker(self, name: str, drain: bool = False) -> None:
         """Take a lane off the ring. ``drain=True`` first asks it to drain
@@ -482,7 +533,7 @@ class Gateway:
             with self._lock:
                 client = self._clients.get(name)
             if client is not None:
-                err = self._bounded_drain(client)
+                err = self._bounded_drain(client, name)
                 if err is not None:
                     self._migration_count(None, "drain_failures",
                                           lane=name, error=err[:120])
@@ -491,10 +542,12 @@ class Gateway:
         self._ring.remove_node(name)
         self._prefill_ring.remove_node(name)
         with self._lock:
+            rings = list(self._model_rings.values())
             self._clients.pop(name, None)
             self._breakers.pop(name, None)
             self._latency.pop(name, None)
             self._lane_recent.pop(name, None)
+            self._untyped.discard(name)
             self._ejected.discard(name)
             self._roles.pop(name, None)
             # The departing lane's radix tree leaves with it: every
@@ -505,8 +558,19 @@ class Gateway:
             self._prefix_dir_count("invalidations", lane=name,
                                    action="remove", dropped=pd_dropped)
         self._probe_state.forget(name)
+        for ring in rings:
+            ring.remove_node(name)
+        with self._lock:
+            # Emptied sub-rings go, and the default moves off a model
+            # whose last lane left.
+            for mdl, ring in list(self._model_rings.items()):
+                if not ring.get_all_nodes():
+                    del self._model_rings[mdl]
+            if self.default_model not in self._model_rings:
+                self.default_model = (sorted(self._model_rings)[0]
+                                      if self._model_rings else None)
 
-    def _bounded_drain(self, client: HttpWorkerClient) -> Optional[str]:
+    def _bounded_drain(self, client, name: str) -> Optional[str]:
         """None when ``client.drain()`` answered within
         ``drain_timeout_s``, else why not (the call is abandoned to its
         daemon thread)."""
@@ -519,7 +583,7 @@ class Gateway:
             except Exception as exc:
                 err[0] = str(exc) or type(exc).__name__
 
-        t = threading.Thread(target=run, name=f"gw-drain-{client.url}",
+        t = threading.Thread(target=run, name=f"gw-drain-{name}",
                              daemon=True)
         t.start()
         t.join(timeout=self.config.drain_timeout_s)
@@ -528,7 +592,7 @@ class Gateway:
     def worker_names(self) -> List[str]:
         return self._ring.get_all_nodes()
 
-    def lane_clients(self) -> Dict[str, HttpWorkerClient]:
+    def lane_clients(self) -> Dict[str, object]:
         with self._lock:
             return dict(self._clients)
 
@@ -550,7 +614,8 @@ class Gateway:
                 clients = dict(self._clients)
             for name, client in clients.items():
                 try:
-                    body = client.probe_health()
+                    body = getattr(client, "probe_health",
+                                   client.health)()
                     ok = bool(body.get("healthy", False))
                     # Directory seeding rides the same read: the lane's
                     # bounded radix summaries (with prefix fetch on).
@@ -703,7 +768,8 @@ class Gateway:
             rid = uuid.uuid4().hex
             payload = {**payload, "request_id": rid}
         request_id = str(rid)
-        deadline = Deadline.from_request(payload)
+        deadline = Deadline.from_request(
+            payload, default_ms=self.config.default_deadline_ms)
         try:
             max_new = int(payload.get("max_new_tokens", 32))
         except (TypeError, ValueError):
@@ -1137,7 +1203,7 @@ class Gateway:
         the request_id's ring lane, then ring order; the first that is a
         member, not ejected and admitted by its breaker, never the
         source."""
-        ring = self._ring
+        ring = self._payload_ring(record.payload)
         candidates: List[str] = []
         fp = self._affinity_fingerprint(record.payload)
         if fp is not None:
@@ -1158,6 +1224,17 @@ class Gateway:
             if self._lane_admits(lane):
                 return lane
         return None
+
+    def _payload_ring(self, payload: dict) -> ConsistentHash:
+        """The ring of the payload's model (the default model's on a
+        multi-model gateway without one), else the whole ring."""
+        mdl = payload.get("model")
+        with self._lock:
+            if mdl is None and len(self._model_rings) > 1:
+                mdl = self.default_model
+            ring = (self._model_rings.get(str(mdl))
+                    if mdl is not None else None)
+        return ring if ring is not None else self._ring
 
     def _dispose_iter(self, it) -> None:
         """Run an orphaned stream iterator to its end in the background:
@@ -1287,7 +1364,7 @@ class Gateway:
             client = self._clients.get(name)
         if client is None:
             raise ValueError(f"unknown worker '{name}'")
-        err = self._bounded_drain(client)
+        err = self._bounded_drain(client, name)
         drained = err is None
         if err is not None:
             # remove_worker's contract: counted, and the flip goes on.
@@ -1442,7 +1519,7 @@ class Gateway:
         streams, ring order on ties; never the source, an ejected lane or
         one whose breaker is open (a draining lane sheds at dispatch and
         the caller walks on)."""
-        ring = self._ring
+        ring = self._payload_ring(record.payload)
         split = self._disagg_split(ring)
         decode = split[1] if split else ring.get_all_nodes()
         with self._lock:
@@ -1659,9 +1736,12 @@ class Gateway:
             return
         if entry["lane"] == primary:
             return
-        payload["prefix_hint"] = {"lane": entry["lane"], "fingerprint": fp,
-                                  "blocks": int(entry["blocks"]),
-                                  "addr": client.url}
+        hint = {"lane": entry["lane"], "fingerprint": fp,
+                "blocks": int(entry["blocks"])}
+        addr = getattr(client, "url", None)  # in-process lanes have none
+        if addr:
+            hint["addr"] = addr
+        payload["prefix_hint"] = hint
         self._prefix_dir_count("hints_attached", trace=trace,
                                lane=entry["lane"],
                                blocks=int(entry["blocks"]))
@@ -1758,22 +1838,33 @@ class Gateway:
     def _route_inner(self, payload: dict, op: str, request_id: str,
                      trace: _RouteTrace, skip: tuple,
                      out_info: Optional[dict]):
-        deadline = Deadline.from_request(payload)
+        deadline = Deadline.from_request(
+            payload, default_ms=self.config.default_deadline_ms)
         if deadline is not None and deadline.expired():
             self._count(trace, "deadline_rejected")
             raise self._shed(DeadlineExceeded(
                 "deadline exceeded at gateway admission"))
         if self._overload_on():
             self._overload_admit(payload, trace)
-        # HTTP lanes carry no model metadata: a request naming a model
-        # probes the ring and each lane's model check decides, a mismatch
+        # A request's model picks its sub-ring, for routing and failover;
+        # without one a multi-model gateway uses its default model. A
+        # model no typed lane serves probes the whole ring while untyped
+        # (HTTP) lanes exist: each lane's model check decides, a mismatch
         # failing over without a penalty.
         mdl = payload.get("model")
-        probing = mdl is not None
+        probing = False
         with self._lock:
-            if probing and not self._clients:
-                raise ValueError(f"unknown model '{mdl}'; serving []")
-        ring = self._ring
+            if mdl is None and len(self._model_rings) > 1:
+                mdl = self.default_model
+            if mdl is not None:
+                ring = self._model_rings.get(str(mdl))
+                if ring is None and self._untyped:
+                    ring, probing = self._ring, True
+            else:
+                ring = self._ring
+            known = sorted(self._model_rings) if ring is None else ()
+        if ring is None:
+            raise ValueError(f"unknown model '{mdl}'; serving {known}")
         try:
             primary = ring.get_node(request_id)
         except RuntimeError:  # every lane was removed
@@ -1822,13 +1913,15 @@ class Gateway:
         return {**payload, "deadline_ms": max(0.0, deadline.remaining_ms())}
 
     def _shed(self, exc):
-        """Stamp a gateway shed with its Retry-After: the base, or with
-        overload control the base scaled by the measured pressure."""
+        """Stamp a gateway shed with its Retry-After:
+        ``shed_retry_after_s``, or with overload control that base scaled
+        by the measured pressure."""
+        base = self.config.shed_retry_after_s
         if self.config.overload_control:
-            exc.retry_after_s = load_retry_after(_SHED_RETRY_AFTER_S,
+            exc.retry_after_s = load_retry_after(base,
                                                  self._overload_pressure())
         else:
-            exc.retry_after_s = _SHED_RETRY_AFTER_S
+            exc.retry_after_s = base
         return exc
 
     def _failover(self, ring: ConsistentHash, primary: str, payload: dict,
@@ -1837,7 +1930,11 @@ class Gateway:
                   shed_seen: bool = False,
                   out_info: Optional[dict] = None):
         """Every other lane (not in ``skip``) in ring order, within the
-        deadline and the retry budget."""
+        deadline and the retry budget, each attempt after its
+        ``backoff_delay`` (clamped to the deadline; counted as
+        ``backoff_waits``)."""
+        cfg = self.config
+        attempt = 0
         for node in ring.get_all_nodes():
             if node == primary or node in skip:
                 continue
@@ -1853,8 +1950,15 @@ class Gateway:
                         "request (overloaded, not failed)"))
                 raise GatewayError(
                     "retry budget exhausted (retries capped at "
-                    f"{self.config.retry_budget_ratio:.0%} of recent "
+                    f"{cfg.retry_budget_ratio:.0%} of recent "
                     "requests)")
+            delay = backoff_delay(attempt, cfg.retry_backoff_base_ms,
+                                  cfg.retry_backoff_max_ms, cfg.retry_jitter)
+            if delay > 0:
+                if deadline is not None:
+                    delay = min(delay, max(0.0, deadline.remaining_s()))
+                self._count(trace, "backoff_waits")
+                time.sleep(delay)
             self._count(trace, "retries")
             result = self._try_node(node,
                                     self._with_deadline(payload, deadline),
@@ -1864,6 +1968,7 @@ class Gateway:
             if _ok(result):
                 return result
             shed_seen = shed_seen or result is _SHED
+            attempt += 1
         if shed_seen:
             raise self._shed(Overloaded(
                 "all lanes shed the request (overloaded or draining)"))
@@ -2227,8 +2332,7 @@ class Gateway:
                  "successes": br.success_count}
                 for node, br in items],
         }
-        if (self._retry_budget.enabled or cfg.hedge_enabled
-                or self.resilience.any_nonzero()):
+        if self._resilience_configured() or self.resilience.any_nonzero():
             res = self.resilience.as_dict()
             if self._retry_budget.enabled:
                 res["retry_budget"] = self._retry_budget.stats()
@@ -2275,6 +2379,12 @@ class Gateway:
         if self._ledger is not None:
             out["trace_ledger"] = self._ledger.summary()
         return out
+
+    def _resilience_configured(self) -> bool:
+        cfg = self.config
+        return (cfg.default_deadline_ms is not None or cfg.hedge_enabled
+                or cfg.retry_budget_ratio is not None
+                or cfg.retry_backoff_base_ms > 0)
 
     def slo_status(self, named_hists: Optional[dict] = None
                    ) -> Optional[dict]:

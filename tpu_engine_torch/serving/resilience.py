@@ -3,6 +3,8 @@ uses from ``tpu_engine/serving/resilience.py``): the global retry
 budget, the hedge quantiles, the gateway's decision counters, the health
 prober's state machine and the worker's admission controller.
 
+- ``backoff_delay``: the wait before a failover attempt, exponential
+  with jitter (0 with no base: immediate failover).
 - ``RetryBudget``: retries allowed while the retries of a sliding window
   stay under ``ratio * requests + min_retries``; ``ratio=None`` is
   unlimited.
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import random
 import threading
 import time
 from typing import Deque, Optional
@@ -45,6 +48,24 @@ def tier_cap(limit: int, frac: float) -> int:
     AdmissionController and the gateway's in-flight gauge
     (``overload.tier_limit``), so both shed at the same thresholds."""
     return max(1, int(limit * frac))
+
+
+def backoff_delay(attempt: int, base_ms: float, max_ms: float,
+                  jitter: float = 0.5,
+                  rng: Optional[random.Random] = None) -> float:
+    """Seconds to wait before failover attempt ``attempt`` (0-based):
+    ``min(base * 2^attempt, max)`` spread uniformly over [1 - jitter,
+    1 + jitter] of itself (jitter clamped to [0, 1], one ``random()``
+    draw from ``rng`` or the module's generator). ``base_ms <= 0`` is 0.0,
+    immediate failover."""
+    if base_ms <= 0:
+        return 0.0
+    d_ms = min(float(base_ms) * (2.0 ** max(0, int(attempt))),
+               float(max_ms))
+    j = min(max(float(jitter), 0.0), 1.0)
+    if j > 0:
+        d_ms *= 1.0 - j + 2.0 * j * (rng or random).random()
+    return d_ms / 1000.0
 
 
 class RetryBudget:

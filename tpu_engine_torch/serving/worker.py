@@ -119,6 +119,17 @@ service-time estimate (an EWMA of the misses' ``inference_time_us``) are
 ``deadline_exceeded``; both carry ``Retry-After``. ``drain()`` and
 ``undrain()`` answer named statuses.
 
+Faults (the combined server's ``/admin/fault``): ``inject_fault`` fails
+every request with a lane fault until ``heal`` (``/health`` reads
+``healthy: false``), ``inject_latency`` sleeps each admitted request
+without failing it. ``on_fault_change`` listeners hear a fault, a heal,
+a drain and an undrain (``healthy`` False while the lane is faulted or
+draining): the native front stops and resumes the lane's C++ hits by
+them. ``external_counters`` (requests, hits) served outside this Python
+path (the C++ hits) are summed into ``/health``. The result cache is the
+``cache`` the constructor is given (the front's lanes: a raw-mode native
+one) or an ``LRUCache``; both hold the same bytes under the same keys.
+
 Overload control (``serving.overload``, each off by default):
 ``priority_admission`` reads a request's ``priority`` (interactive,
 batch, background; an unknown value is a 400) and admits each tier only
@@ -387,10 +398,13 @@ def _load_model_path(spec: ModelSpec, model_path: Optional[str], device,
 
 
 class WorkerNode:
-    def __init__(self, config: WorkerConfig, params=None):
+    def __init__(self, config: WorkerConfig, params=None, cache=None):
         """``params``: the model's parameter tree (``models.convert``) on
         the lane's device; None draws seeded random weights
-        (``config.seed``)."""
+        (``config.seed``). ``cache``: the /infer result cache (an
+        ``LRUCache`` of ``cache_capacity`` by default; the combined
+        server's native front gives its lanes a raw-mode
+        ``core.native.NativeLRUCache``, whose entries it serves in C++)."""
         self.config = config
         self.node_id = config.node_id
         self._node_id_json = json.dumps(self.node_id).encode()
@@ -473,7 +487,8 @@ class WorkerNode:
         self.tracer = SpanRecorder(config.trace_capacity)
         self.engine.tracer = self.tracer
         self.engine.trace_node = self.node_id
-        self.cache = LRUCache(config.cache_capacity)
+        self.cache = (cache if cache is not None
+                      else LRUCache(config.cache_capacity))
         self.batch_processor: BatchProcessor[_BatchItem, _BatchResult] = \
             BatchProcessor(config.max_batch_size, config.batch_timeout_ms,
                            lambda items: self._collect_batch(
@@ -544,6 +559,16 @@ class WorkerNode:
         # dispatch.
         self._inflight: dict = {}
         self._inflight_lock = threading.Lock()
+        # Fault injection (the combined server's /admin/fault): a faulted
+        # lane fails every request, a slowed one sleeps before serving;
+        # listener(healthy) hears faults, heals, drains and undrains.
+        self._injected_fault: Optional[str] = None
+        self._injected_latency_s = 0.0
+        self._fault_listeners: list = []
+        # () -> (requests, hits) served on this lane's behalf outside
+        # this Python path (the native front's C++ hits), summed into
+        # /health.
+        self.external_counters = None
         # Staged brownout: the control loop's thread walks the ladder
         # every brownout_interval_s.
         self._brownout: Optional[BrownoutController] = None
@@ -850,9 +875,10 @@ class WorkerNode:
         except ShedError as exc:
             span(exc.kind)
             raise
-        span("admitted")
         ok = False
         try:
+            self._maybe_slow()
+            span("admitted")
             yield
             ok = True
         finally:
@@ -963,19 +989,64 @@ class WorkerNode:
 
     def drain(self) -> str:
         """Refuse new admissions (503 ``overloaded``) while in-flight work
-        completes; ``"draining"``, or ``"already-draining"`` on a repeat."""
+        completes; ``"draining"``, or ``"already-draining"`` on a repeat.
+        The fault listeners hear it (the native front stops answering the
+        lane's hits, which never reach the admission check)."""
         status = self._admission.drain()
-        if status == "draining" and self._sched is not None:
+        if status == "already-draining":
+            return status
+        if self._sched is not None:
             self._sched.set_draining(True)
+        for listener in self._fault_listeners:
+            listener(False)
         return status
 
     def undrain(self) -> str:
         """``"undrained"``, or ``"not-draining"`` when the lane was not
-        draining."""
+        draining. A faulted lane stays disabled for its listeners."""
         status = self._admission.undrain()
-        if status == "undrained" and self._sched is not None:
+        if status == "not-draining":
+            return status
+        if self._sched is not None:
             self._sched.set_draining(False)
+        if self._injected_fault is None:
+            for listener in self._fault_listeners:
+                listener(True)
         return status
+
+    # -- fault injection --------------------------------------------------------
+
+    def inject_fault(self, reason: str = "injected") -> None:
+        """Fail every request (a lane fault: RuntimeError) until
+        ``heal``; /health reads ``healthy: false``."""
+        self._injected_fault = reason
+        for listener in self._fault_listeners:
+            listener(False)
+
+    def inject_latency(self, seconds: float) -> None:
+        """The slow-lane fault: each admitted request sleeps ``seconds``
+        first; the lane stays healthy (no breaker sees it)."""
+        self._injected_latency_s = max(0.0, float(seconds))
+
+    def heal(self) -> None:
+        """Clear both faults; a draining lane stays disabled for its
+        listeners (the drain outranks health)."""
+        self._injected_fault = None
+        self._injected_latency_s = 0.0
+        for listener in self._fault_listeners:
+            listener(not self._admission.draining)
+
+    def on_fault_change(self, listener) -> None:
+        """Register ``listener(healthy: bool)``."""
+        self._fault_listeners.append(listener)
+
+    def _check_fault(self) -> None:
+        if self._injected_fault is not None:
+            raise RuntimeError(f"fault injected: {self._injected_fault}")
+
+    def _maybe_slow(self) -> None:
+        if self._injected_latency_s > 0:
+            time.sleep(self._injected_latency_s)
 
     @property
     def draining(self) -> bool:
@@ -1178,6 +1249,7 @@ class WorkerNode:
     def _infer_core(self, request: dict) -> Tuple[str, bytes, bool, int]:
         """The /infer flow -> (request_id, output_data fragment, cached?,
         inference_time_us)."""
+        self._check_fault()
         self._check_model(request)
         deadline = Deadline.from_request(request)
         tier = self._request_tier(request)
@@ -1389,6 +1461,7 @@ class WorkerNode:
     def handle_score(self, request: dict) -> dict:
         """Teacher-forced scoring: per-token log P(completion | prompt) in
         one forward."""
+        self._check_fault()
         self._check_model(request)
         if self.engine.spec.state_family != "kv_paged":
             # Teacher-forced next-token logprobs are a decoder-LM notion:
@@ -1515,6 +1588,7 @@ class WorkerNode:
                                              False):
             raise ValueError(
                 f"model '{self.config.model}' does not support generation")
+        self._check_fault()
         self._check_model(request)
         return Deadline.from_request(request)
 
@@ -1736,6 +1810,7 @@ class WorkerNode:
         t_admit = time.perf_counter()
         self._admission.admit(deadline, tier=tier)
         try:
+            self._maybe_slow()
             self._count_request()
             q: "queue.Queue" = queue.Queue()
             t0 = time.perf_counter()
@@ -1890,7 +1965,12 @@ class WorkerNode:
     def get_health(self) -> dict:
         with self._counter_lock:
             total, hits = self._total_requests, self._cache_hits
-        out = {"healthy": True, "node_id": self.node_id,
+        if self.external_counters is not None:
+            ext_total, ext_hits = self.external_counters()
+            total += ext_total
+            hits += ext_hits
+        out = {"healthy": self._injected_fault is None,
+               "node_id": self.node_id,
                "model": self.engine.spec.name, "total_requests": total,
                "cache_hits": hits, "cache_size": self.cache.size(),
                "cache_hit_rate": self.cache.hit_rate(),

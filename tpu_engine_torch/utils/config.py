@@ -4,11 +4,7 @@ names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
 /infer lane a default launch serves), plus the worker's own ``device`` and
 ``seed``. The JAX gateway's feature the port lacks (the autoscaler) keeps
 its field here, off by default, and refuses by name when switched on
-(``refuse_unported``). The
-settings only the JAX ``serve`` command sets (a default deadline, failover
-backoff, the Retry-After of a gateway 503) wait for that command: failover
-is immediate, a request without ``deadline_ms`` has no deadline, and a
-gateway 503 carries Retry-After 1."""
+(``refuse_unported``)."""
 
 from __future__ import annotations
 
@@ -159,6 +155,19 @@ class GatewayConfig:
     worker_timeout_s: float = 5.0
     gen_timeout_s: float = 120.0        # /generate, /score, streams
     default_worker_port: int = 8080
+    # A deadline for requests that carry no "deadline_ms" (None: none);
+    # an expired request sheds 503 with Retry-After at admission, and
+    # expiry mid-route ends the failover march.
+    default_deadline_ms: Optional[float] = None
+    # The Retry-After (seconds) of a gateway shed; with overload control
+    # the base that the measured pressure scales.
+    shed_retry_after_s: float = 1.0
+    # Backoff before each failover attempt (serving.resilience
+    # backoff_delay): min(base * 2^attempt, max), spread by +/- jitter.
+    # base 0: immediate ring-order failover.
+    retry_backoff_base_ms: float = 0.0
+    retry_backoff_max_ms: float = 1000.0
+    retry_jitter: float = 0.5
     # The retry budget: retries allowed while retries <= ratio * requests
     # + min over the window; None = unlimited (the breaker-only routing
     # and /stats schema).

@@ -58,12 +58,17 @@ class Deadline:
         return cls(time.monotonic() + float(budget_ms) / 1000.0)
 
     @classmethod
-    def from_request(cls, payload: dict) -> Optional["Deadline"]:
-        """Deadline from a request dict's ``deadline_ms``, else None. A
-        negative or NaN value is a client error (ValueError, wire 400)."""
+    def from_request(cls, payload: dict,
+                     default_ms: Optional[float] = None
+                     ) -> Optional["Deadline"]:
+        """Deadline from a request dict's ``deadline_ms`` (the budget left
+        at this hop), else from ``default_ms``, else None. A negative or
+        NaN value is a client error (ValueError, wire 400)."""
         raw = payload.get("deadline_ms")
         if raw is None:
-            return None
+            if default_ms is None:
+                return None
+            return cls.after_ms(default_ms)
         budget = float(raw)
         if budget != budget or budget < 0:  # NaN or negative
             raise ValueError(f"deadline_ms must be >= 0, got {raw!r}")
