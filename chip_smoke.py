@@ -60,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
               configuration (224 x 224 x 3, bf16, 32-row batches, random
               weights from seed 0): the unified lane (single-tick rows of
               the continuous scheduler) and the batch lane
-              (--no-unified-stateless), each answering a burst of 64
+              (--no-unified-stateless), each answering a burst of 32
               concurrent distinct requests, 16 repeats (cached), 8
               identical new requests (coalesced into fewer dispatched
               rows) and the reference's 3-float payload, every answer
@@ -231,8 +231,9 @@ Phases (any failure exits non-zero and prints no result line):
               served;
 10. overload — last, so that its processes and profiler sessions
               come after every earlier timing: overload control and
-              crash-tolerant serving at TinyLlama geometry (random
-              weights from seed 0), each part with the
+              crash-tolerant serving at TinyLlama's width at cut depth
+              (CUT_LLAMA, random weights from seed 0; the tick readings
+              at all 22 layers), each part with the
               launch counts set to 0 before and read after: a mixed-bf16
               spec_k 4 worker with --priority-admission --adaptive-depth
               --brownout (max_queue_depth 8, the AIMD limit's start; a
@@ -244,10 +245,11 @@ Phases (any failure exits non-zero and prints no result line):
               brownout climbing past stage 2 and restoring in reverse once
               the streams end (escalations == restores), the spec
               proposals flat while suspended and moving again after, the
-              AIMD limit moved by the requests that follow, the prefill
+              AIMD limit moved by the 8 requests that follow, the prefill
               tokens of a tick <= max(1, budget_frac x the budget) (the
               widest at 1.0 above the widest at 0.5), the ragged kernel's
-              launches == 22 x the spec ticks (== the mixed ticks); a
+              launches == the layers x the spec ticks (== the mixed
+              ticks); a
               mixed-bf16 worker with --kv-blocks 160 --kv-host-blocks 256
               whose demoted prompt promotes nothing under swap-in
               deferral and swaps in once released; the mixed tick's
@@ -269,8 +271,8 @@ Phases (any failure exits non-zero and prints no result line):
               each: both resume once on L, token for token the unbroken
               runs, the kill to the first resumed token timed, the dead P
               ejected within 0.8 s; on L the ragged kernel's launches ==
-              22 x its mixed ticks and the flash forward's == 22 x its
-              one-shot dispatches, no plain call; its #1 and #5 readings
+              the layers x its mixed ticks and the flash forward's == the
+              layers x its one-shot dispatches, no plain call; its #1 and #5 readings
               (device time, bound, SDPA's device time) at the 249- and
               57-token ticks and the /score row;
 11. observe — last: spans, /metrics, the flight recorder and the
@@ -447,7 +449,7 @@ Phases (any failure exits non-zero and prints no result line):
               decode loop's done-flag reads (8 x 64 tokens reading it
               every 16 steps against every 64), one beam-4 step and the
               bytes of its cache gather, one speculative round.
-15. combined — last: the combined serve command (in-process lanes behind
+15. combined — after batch: the combined serve command (in-process lanes behind
               the gateway and the C++ front, its library built from
               tpu_engine_torch/native by g++) as a process of its own.
               First resnet50 at full width (bf16, 224 x 224 x 3, --lanes
@@ -471,6 +473,33 @@ Phases (any failure exits non-zero and prints no result line):
               token-identical; the process's counts: #1 == 22 x the
               lanes' mixed ticks, #5 == 22 x their one-shot dispatches,
               no other kernel and no plain call.
+16. elastic — last: the elastic fleet and the stall watchdog, in this
+              process: serve_combined over TinyLlama's width at cut depth
+              (4 of 22 layers, f32, paged mixed lanes, C++ front) with
+              the controller on (2 to 3 lanes, pressure up 0.30, down
+              0.20, ticks of 0.25 s, cooldown 0.5 s, spawn timeout 5 s,
+              prober every 0.1 s). Every request first runs on a static
+              two-lane fleet of the same seeded weights (the control).
+              A burst of 12 streams (4 sampled with seeds) mints
+              worker_3 on the static lanes' weight tensors, through its
+              /health probe, onto the gateway's and the C++ front's
+              rings; one long stream on each lane as the burst drains
+              retires a lane through the drain and the live migration
+              of its stream. Every stream equals the control token for
+              token, no block leaks on any pool, and the memory the card
+              holds after the retire is within one lane's KV pool of the
+              reading before the spawn. /admin/fleet add of a dead
+              address latches spawn-wedged while a stream completes, and
+              clear answers cleared; a standby worker served over HTTP
+              in this process joins a second gateway through
+              StandbyLaneProvider's probe gate and serves a stream. One
+              lane's scheduler_stall_s at 1e-9 s: /health reads
+              scheduler_stalled, the prober ejects it, its streams
+              complete on the peer, and back at 0 it is restored. Fleet
+              counters == fleet spans, /stats carries fleet.lanes,
+              pressure and degraded, the C++ ring equals the gateway's
+              membership at every step, and #1 == 4 x the mixed ticks
+              of every lane, minted, retired and standby alike.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -491,7 +520,7 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
-    python3 chip_smoke.py --phase batch|combined
+    python3 chip_smoke.py --phase batch|combined|elastic
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -591,11 +620,12 @@ RECURRENT_KERNELS = {
         replaces="tpu_engine/models/ssd.py:218 (no Pallas kernel: the "
                  "lax.scan of ssd_window_scan)", lane="recurrent"),
 }
-# The TinyLlama lanes of the server, gateway, kvtier, observe and handoff
-# phases run at cut depth: 4 of TinyLlama-1.1B's 22 layers at its full
-# width (d 2048, 32/4 heads, d_ff 5632, vocab 32000), so that the whole
-# smoke keeps to half its time. The overload, numbers, train and combined
-# phases, and the kvtier phase's pool readings, run all 22.
+# The TinyLlama lanes of the server, gateway, kvtier, overload, observe,
+# handoff and elastic phases run at cut depth: 4 of TinyLlama-1.1B's 22
+# layers at its full width (d 2048, 32/4 heads, d_ff 5632, vocab 32000),
+# so that the whole smoke keeps to half its time. The numbers, train and
+# combined phases, the kvtier phase's pool readings and the overload
+# phase's tick readings run all 22.
 CUT_LLAMA = "llama-cut-depth"
 CUT_LAYERS = 4
 PAGED = dict(gen_kv_block_size=16)
@@ -618,7 +648,7 @@ LANES = {
 # rows), and the same with the dedicated batch lane.
 INFER_LANES = {"infer-resnet50": dict(unified_stateless=True),
                "infer-resnet50-batch-lane": dict(unified_stateless=False)}
-INFER_BURST = 64
+INFER_BURST = 32
 # mlp and the resnets in f32 on the card (TF32 off) against the CPU, as
 # max|card - cpu| / max|cpu|: the same products summed in another order
 # by cuDNN and by the CPU's convolutions, through 53 conv layers.
@@ -4411,7 +4441,7 @@ OVERLOAD_HOLD_NEW = 256
 OVERLOAD_BURST = 4
 # Requests after the burst, one at a time (300-token prompts, 4 new
 # tokens): they feed the AIMD limit and prefill under the shrunk budget.
-OVERLOAD_FEED = 16
+OVERLOAD_FEED = 8
 # The ladder of stream openings against the tier caps: (tier, admitted).
 OVERLOAD_LADDER = (("interactive", True),) * 5 + (
     ("background", False), ("batch", True), ("batch", False),
@@ -4500,7 +4530,7 @@ def overload_worker(torch, params) -> dict:
                      adaptive_depth=True, brownout=True,
                      brownout_interval_s=OVERLOAD_INTERVAL_S)
     worker, server = start_lane(torch, params, "overload-bf16",
-                                overrides=overrides)
+                                model=CUT_LLAMA, overrides=overrides)
     port = server.port
     gen = worker.generator
     vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
@@ -4540,13 +4570,25 @@ def overload_worker(torch, params) -> dict:
     sampling = threading.Thread(target=sampler, daemon=True)
     try:
         kernels.reset_counts()  # the lane's run: counts from 0, read after
+        # The lane's first tick pays one-time costs that the brownout may
+        # read as a stalled loop: a short request first, and the warm-up
+        # once the ladder is back at stage 0.
+        post(port, "/generate", {"request_id": "first",
+                                 "prompt_tokens": [1, 2, 3],
+                                 "max_new_tokens": 2})
+        wait_for(lambda: get(port, "/health")["brownout"]["stage"] == 0,
+                 "the brownout did not settle before the warm-up", 30.0,
+                 phase="overload")
+        first_bo = get(port, "/health")["brownout"]
         # Warm-up at stage 0 on a repetitive prompt: the drafter proposes.
         warm = post(port, "/generate", {
             "request_id": "warm", "prompt_tokens": motif_prompt(rng, vocab),
             "max_new_tokens": 32, "repetition_penalty": 0.1})
         warm_proposed = generator_stats(port)["spec"]["proposed_tokens"]
         check(len(warm["tokens"]) == 32 and warm_proposed > 0,
-              f"overload warm-up: {warm}, {warm_proposed} proposals")
+              f"overload warm-up: {warm}, {warm_proposed} proposals; "
+              f"brownout before it {first_bo}, after it "
+              f"{get(port, '/health')['brownout']}")
         t0 = time.perf_counter()
         sampling.start()
         for i, (tier, admitted) in enumerate(OVERLOAD_LADDER):
@@ -4700,13 +4742,14 @@ def overload_identity(torch, params32) -> dict:
     repetitive prompt (the drafter proposes) and a random one, with spec
     running and under the spec_off stage's degradations (budget halved,
     spec suspended), token-identical; no proposal while suspended; the
-    ragged kernel launched 22 x the spec ticks."""
+    ragged kernel launched once a layer for each spec tick."""
     from tpu_engine_torch.ops import kernels
 
     overrides = dict(PAGED, gen_mixed_step=True, gen_mixed_token_budget=256,
                      gen_continuous_spec_k=SPEC_K)
     worker, server = start_lane(torch, params32, "overload-f32-spec",
-                                overrides=overrides, dtype="float32")
+                                model=CUT_LLAMA, overrides=overrides,
+                                dtype="float32")
     port = server.port
     gen = worker.generator
     vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
@@ -4765,7 +4808,7 @@ def overload_swap_defer(torch, params) -> dict:
     overrides = dict(PAGED, gen_mixed_step=True, gen_mixed_token_budget=256,
                      gen_kv_blocks=160, gen_kv_host_blocks=256)
     worker, server = start_lane(torch, params, "overload-swap-defer",
-                                overrides=overrides)
+                                model=CUT_LLAMA, overrides=overrides)
     port = server.port
     gen = worker.generator
     vocab, n_layers = gen.cfg.vocab, gen.cfg.n_layers
@@ -4888,6 +4931,7 @@ def overload_gateway(torch, params32, proc, p_port: int) -> dict:
     from tpu_engine_torch.utils.config import GatewayConfig
 
     worker, server = start_lane(torch, params32, "overload-gw-l",
+                                model=CUT_LLAMA,
                                 overrides=dict(PAGED, gen_mixed_step=True,
                                                gen_mixed_token_budget=256),
                                 dtype="float32", node_id="ov-l")
@@ -5234,15 +5278,20 @@ def phase_overload(torch, card: str, pa) -> dict:
     t0 = time.perf_counter()
     OUT_DIR.mkdir(exist_ok=True)
     proc, p_port, p_log = spawn_worker(
-        ["ov-p", "llama", "--dtype", "float32", "--kv-block-size", "16",
+        ["ov-p", CUT_LLAMA, "--dtype", "float32", "--kv-block-size", "16",
          "--mixed-step", "--mixed-token-budget", "256", "--prefill-chunk",
          "256", "--n-slots", "8"], OUT_DIR / "overload_worker.log")
     out = {}
     try:
-        cfg = create_model("llama").config
+        cfg = create_model(cut_llama()).config
         params = init_params(cfg, seed=0, device="cuda", dtype="bfloat16")
         out["worker"] = overload_worker(torch, params)
         out["swap_defer"] = overload_swap_defer(torch, params)
+        del params
+        torch.cuda.empty_cache()
+        # The tick readings stay at all 22 layers: one full-depth forward.
+        params = init_params(create_model("llama").config, seed=0,
+                             device="cuda", dtype="bfloat16")
         out["ticks"] = overload_tick_times(torch, params, pa)
         del params
         torch.cuda.empty_cache()
@@ -8280,6 +8329,496 @@ def phase_combined(torch, card: str) -> dict:
             log_f.close()
 
 
+# -- the elastic phase ---------------------------------------------------------
+
+# The elastic fleet: the combined server's controller on TinyLlama's width
+# at cut depth, f32 (streams compared token for token), paged mixed lanes.
+ELASTIC_LANE = dict(dtype="float32", gen_kv_block_size=16,
+                    gen_mixed_step=True, gen_mixed_token_budget=256,
+                    gen_prefill_chunk=256, gen_max_batch_size=8, seed=0)
+ELASTIC_GATEWAY = dict(autoscale=True, migrate_streams=True,
+                       autoscale_min_lanes=2, autoscale_max_lanes=3,
+                       autoscale_interval_s=0.25, autoscale_cooldown_s=0.5,
+                       autoscale_spawn_timeout_s=5.0,
+                       autoscale_up_pressure=0.30,
+                       autoscale_down_pressure=0.20,
+                       health_probe_interval_s=0.1)
+ELASTIC_BURST = 12            # 12 of the 16 slots of two lanes: 0.75
+ELASTIC_SEEDED = 4            # of them sampled at 0.8 with a seed
+ELASTIC_NEW = 32
+ELASTIC_TRICKLE_NEW = 256     # one per lane, alive through the retire
+ELASTIC_STALL_STREAMS = 4
+ELASTIC_STALL_NEW = 16
+ELASTIC_STALL_ATTEMPTS = 3    # the stall drill's, if one flaps
+# Port 9 (discard): nothing answers its /health.
+DEAD_WORKER = "127.0.0.1:9"
+
+
+def elastic_requests(vocab: int) -> dict:
+    """Every request of the phase by label: the burst (b*), the trickle
+    (t*), the wedge's control stream (w0), the standby lane's (s0) and the
+    stall drill's (st*), each with its prompt, budget and sampling."""
+    rng = np.random.default_rng(31)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    reqs = {}
+    for i in range(ELASTIC_BURST):
+        body = {"prompt_tokens": toks(int(rng.integers(64, 257))),
+                "max_new_tokens": ELASTIC_NEW}
+        if i >= ELASTIC_BURST - ELASTIC_SEEDED:
+            body.update(temperature=0.8, seed=1000 + i)
+        reqs[f"b{i}"] = body
+    for i in range(3):
+        reqs[f"t{i}"] = {"prompt_tokens": toks(96),
+                         "max_new_tokens": ELASTIC_TRICKLE_NEW}
+    reqs["w0"] = {"prompt_tokens": toks(80), "max_new_tokens": ELASTIC_NEW}
+    reqs["s0"] = {"prompt_tokens": toks(80), "max_new_tokens": ELASTIC_NEW}
+    for i in range(ELASTIC_STALL_STREAMS):
+        reqs[f"st{i}"] = {"prompt_tokens": toks(64),
+                          "max_new_tokens": ELASTIC_STALL_NEW}
+    return reqs
+
+
+def elastic_control(model: str, reqs: dict) -> dict:
+    """Every request on a static two-lane fleet (no controller) on the
+    same seeded weights, in the groups the elastic run sends together:
+    tokens by label."""
+    from tpu_engine_torch.serving.app import serve_combined, stop_combined
+    from tpu_engine_torch.utils.config import WorkerConfig
+
+    gw, workers, srv = serve_combined(
+        model=model, lanes=2, port=0, native_front=False,
+        worker_config=WorkerConfig(model=model, device="cuda",
+                                   **ELASTIC_LANE))
+    out = {}
+    try:
+        for group in ("b", "t", "ws"):
+            labels = [k for k in reqs if k[0] in group]
+            res = {k: {} for k in labels}
+            threads = [threading.Thread(target=gateway_stream, args=(
+                gw, dict(reqs[k], request_id=f"ctl-{k}"), res[k]))
+                for k in labels]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            for k in labels:
+                check(res[k].get("final") is not None
+                      and "error" not in res[k]["final"],
+                      f"elastic control {k}: {res[k].get('final')}")
+                out[k] = res[k]["tokens"]
+    finally:
+        stop_combined(gw, workers, srv)
+    return out
+
+
+def owned_rid(gw, lane: str, prefix: str) -> str:
+    """A request id the gateway's ring gives to ``lane``."""
+    return next(r for r in (f"{prefix}{i}" for i in range(10000))
+                if gw._ring.get_node(r) == lane)
+
+
+def wait_for(pred, what: str, timeout: float = 60.0,
+             phase: str = "elastic") -> float:
+    """Seconds until ``pred()`` held; fails ``phase`` after ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"{phase}: {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def fleet_decisions(gw) -> list:
+    """(decision, its wall-clock time in s, attrs) of every fleet marker
+    span, in order."""
+    return [(s["attrs"]["decision"], s.get("start_ts", s["ts"]),
+             s["attrs"])
+            for s in gw.tracer.snapshot() if s["op"] == "fleet"]
+
+
+def decision_walls_ms(decisions: list) -> dict:
+    """Each actuated decision's wall: from its *_attempted marker to the
+    *_completed or *_failed that ends it, in ms."""
+    out, open_at = {}, {}
+    for name, ts, attrs in decisions:
+        kind, _, what = name.rpartition("_")
+        if what == "attempted":
+            open_at[kind] = (ts, attrs.get("worker"))
+        elif what in ("completed", "failed") and kind in open_at:
+            t0, worker = open_at.pop(kind)
+            out[f"{kind} {worker} {what}"] = (ts - t0) * 1e3
+    return out
+
+
+def elastic_standby(model: str, params, reqs: dict, control: dict) -> dict:
+    """A standby worker served over HTTP in this process joins a gateway
+    through StandbyLaneProvider (the HTTP probe gate), serves a stream
+    equal to the control's, and goes back to the pool when retired."""
+    from tpu_engine_torch.serving.app import serve_gateway, worker_server
+    from tpu_engine_torch.serving.worker import WorkerNode
+    from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+
+    sw = WorkerNode(WorkerConfig(model=model, node_id="standby",
+                                 device="cuda", **ELASTIC_LANE),
+                    params=params)
+    ssrv = worker_server(sw, 0)
+    ssrv.start(background=True)
+    addr = f"127.0.0.1:{ssrv.port}"
+    gw2, srv2 = serve_gateway([], GatewayConfig(port=0, migrate_streams=True),
+                              standby_workers=[addr])
+    try:
+        ctl = gw2._autoscaler
+        check(ctl is not None and not ctl.running
+              and ctl.provider.capacity() == 1,
+              "elastic standby: the provider was not engaged")
+        t0 = time.perf_counter()
+        up = ctl.scale_up()
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        check(up == {"ok": True, "status": "registered", "worker": addr}
+              and gw2.worker_names() == [addr],
+              f"elastic standby: {up}")
+        toks, final, _ttft = stream(srv2.port, dict(reqs["s0"],
+                                                    request_id="s0"))
+        check(final is not None and final.get("node_id") == "standby"
+              and toks == control["s0"],
+              f"elastic standby stream: {final}; equal "
+              f"{toks == control['s0']}")
+        down = ctl.scale_down(name=addr)
+        check(down["status"] == "removed" and gw2.worker_names() == []
+              and ctl.provider.capacity() == 1,
+              f"elastic standby retire: {down}")
+        ticks = sw.generator.stats()["mixed"]["ticks"]
+        return {"probe_gate_ms": probe_ms, "ticks": ticks,
+                "fleet": gw2.get_stats()["fleet"]}
+    finally:
+        srv2.stop()
+        gw2.stop()
+        ssrv.stop()
+        sw.stop()
+
+
+def elastic_stall(gw, srv, reqs: dict, control: dict) -> dict:
+    """One lane's stall threshold at 1e-9 s: its /health reads
+    scheduler_stalled, the prober ejects it, streams whose ring owner it
+    is complete on the peer; back at 0 the lane is restored.
+
+    ``last_tick_age_s`` is rounded to 1 ms, so a probe within half a
+    millisecond of a tick reads 0, healthy, and restores the lane until
+    the next probe ejects it again (a flap): a stream may then land on
+    the stalled lane. An attempt with one ejection and the lane still
+    ejected after its streams ended had none, and its streams must all
+    be on the peer; a flapped attempt is run again, at most
+    ELASTIC_STALL_ATTEMPTS in all, and the phase fails if none is clean."""
+    lanes = sorted(gw.worker_names())
+    stalled, peer = lanes[0], lanes[1]
+    worker = gw.lane_clients()[stalled].worker
+    attempts = []
+    for attempt in range(ELASTIC_STALL_ATTEMPTS):
+        ej0 = gw.failover.get("prober_ejections")
+        rs0 = gw.failover.get("prober_restores")
+        worker.config.scheduler_stall_s = 1e-9
+        try:
+            eject_s = wait_for(lambda: stalled in gw.ejected_lanes(),
+                               "the stalled lane was not ejected", 20.0)
+            # A read within half a millisecond of a tick reads healthy:
+            # read until one lands later.
+            for _ in range(10):
+                health = get(srv.port, "/health")
+                if health["lanes"][stalled].get("scheduler_stalled"):
+                    break
+                time.sleep(0.02)
+            readers = [StreamReader(srv.port, dict(
+                reqs[f"st{i}"],
+                request_id=owned_rid(gw, stalled, f"st{attempt}.{i}-")))
+                for i in range(ELASTIC_STALL_STREAMS)]
+            for r in readers:
+                r.start()
+            for r in readers:
+                r.join(timeout=600)
+            ejected_through = stalled in gw.ejected_lanes()
+        finally:
+            worker.config.scheduler_stall_s = 0.0
+        restore_s = wait_for(lambda: stalled not in gw.ejected_lanes(),
+                             "the lane was not restored", 20.0)
+        ej = gw.failover.get("prober_ejections") - ej0
+        rs = gw.failover.get("prober_restores") - rs0
+        nodes = [r.final.get("node_id") if r.final else None
+                 for r in readers]
+        for i, r in enumerate(readers):
+            check(r.final is not None and "error" not in r.final
+                  and r.tokens == control[f"st{i}"],
+                  f"elastic stall stream {i}: {r.final} {r.error}")
+        lane_h = health["lanes"][stalled]
+        check(lane_h.get("scheduler_stalled") is True
+              and lane_h["healthy"] is False and health["healthy"] is False,
+              f"elastic stall: /health {lane_h.get('healthy')}, "
+              f"{lane_h.get('scheduler_stalled')}")
+        check(ej >= 1 and rs == ej, f"elastic stall: {ej} ejections, "
+                                    f"{rs} restores")
+        attempts.append({"eject_s": eject_s, "restore_s": restore_s,
+                         "prober_ejections": ej, "prober_restores": rs,
+                         "stream_nodes": nodes})
+        if ej == 1 and ejected_through:
+            break
+    check(ej == 1 and ejected_through, f"elastic stall: every attempt "
+                                       f"flapped: {attempts}")
+    check(nodes == [peer] * ELASTIC_STALL_STREAMS,
+          f"elastic stall: streams on {nodes}, not {peer}")
+    return {"stalled": stalled, "peer": peer, "attempts": attempts,
+            **attempts[-1]}
+
+
+def phase_elastic(torch, card: str) -> dict:
+    """The elastic fleet on the card (see the module docstring's elastic
+    entry)."""
+    import gc
+
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.ops import kernels
+    from tpu_engine_torch.serving.app import serve_combined, stop_combined
+    from tpu_engine_torch.serving.resilience import FleetCounters
+    from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+
+    t_phase = time.perf_counter()
+    model = cut_llama()
+    cfg = create_model(model).config
+    reqs = elastic_requests(cfg.vocab)
+    out = {}
+    t0 = time.perf_counter()
+    control = elastic_control(model, reqs)
+    out["control_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    gw, workers, srv = serve_combined(
+        model=model, lanes=2, port=0, native_front=True,
+        worker_config=WorkerConfig(model=model, device="cuda",
+                                   **ELASTIC_LANE),
+        gateway_config=GatewayConfig(port=0, **ELASTIC_GATEWAY))
+    lanes_seen = list(workers)
+    rings = []
+
+    def rings_agree(step: str) -> None:
+        cpp, py = sorted(srv.ring_nodes()), sorted(gw.worker_names())
+        rings.append((step, py))
+        check(cpp == py, f"elastic {step}: C++ ring {cpp} != gateway {py}")
+
+    def memory() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    try:
+        ctl = gw._autoscaler
+        check(ctl is not None and ctl.running,
+              "elastic: the controller is not running")
+        rings_agree("start")
+        provider = ctl.provider
+        factory, spawned = provider._factory, {}
+
+        def timed_factory(idx):
+            t = time.time()
+            w = factory(idx)
+            spawned[w.node_id] = {"start": t, "built": time.time()}
+            lanes_seen.append(w)
+            return w
+        provider._factory = timed_factory
+        pool = workers[0].generator._pool
+        pool_bytes = sum(t.numel() * t.element_size() for t in pool.caches)
+        mem_before = memory()
+        kernels.reset_counts()  # the main path: counts from 0
+        # 1. Ramp up: the burst reads above 0.30 and mints worker_3.
+        burst = [StreamReader(srv.port, dict(reqs[f"b{i}"],
+                                             request_id=f"b{i}"))
+                 for i in range(ELASTIC_BURST)]
+        t_burst = time.perf_counter()
+        for r in burst:
+            r.start()
+        up_s = wait_for(lambda: gw.fleet.get("scale_up_completed") >= 1,
+                        f"no scale-up: {gw.fleet.as_dict()}")
+        minted = lanes_seen[-1]
+        check(minted.node_id == "worker_3" and len(lanes_seen) == 3
+              and sorted(gw.worker_names())
+              == ["worker_1", "worker_2", "worker_3"],
+              f"elastic: minted {minted.node_id}, lanes "
+              f"{gw.worker_names()}")
+        rings_agree("scaled up")
+        shared = [a.data_ptr() == b.data_ptr() for a, b in zip(
+            leaves(minted.engine.params), leaves(workers[0].engine.params))]
+        check(shared and all(shared),
+              "elastic: the minted lane drew weights of its own")
+        mem_three = memory()
+        # 2. Ramp down: one long stream on each lane; as the burst drains
+        # the mean falls below 0.20 and a lane retires through the drain
+        # and the migration of its stream. The loop waits (paused within
+        # its cooldown) until every lane holds its long stream.
+        ctl.stop()
+        trickle = [StreamReader(srv.port, dict(
+            reqs[f"t{i}"], request_id=owned_rid(gw, lane, f"t{i}-")))
+            for i, lane in enumerate(sorted(gw.worker_names()))]
+        for r in trickle:
+            r.start()
+        wait_for(lambda: set(gw.active_streams().values()) == set(
+            gw.worker_names()) and all(
+            r.body["request_id"] in gw.active_streams() for r in trickle),
+            "the trickle's streams did not start")
+        ctl.start()
+        for r in burst:
+            r.join(timeout=600)
+        burst_s = time.perf_counter() - t_burst
+        down_s = wait_for(
+            lambda: gw.fleet.get("scale_down_completed") >= 1,
+            f"no scale-down: {gw.fleet.as_dict()}")
+        for r in trickle:
+            r.join(timeout=600)
+        rings_agree("scaled down")
+        retired = [w for w in lanes_seen
+                   if w.node_id not in gw.worker_names()]
+        check(len(retired) == 1 and retired[0] not in workers
+              and len(workers) == 2
+              and retired[0].generator._pool.caches is None,
+              f"elastic: retired {[w.node_id for w in retired]}, serving "
+              f"{[w.node_id for w in workers]}")
+        for i, r in enumerate(burst):
+            check(r.final is not None and "error" not in r.final
+                  and r.tokens == control[f"b{i}"],
+                  f"elastic burst b{i}: {r.final} {r.error}; equal "
+                  f"{r.tokens == control[f'b{i}']}")
+        for i, r in enumerate(trickle):
+            check(r.final is not None and "error" not in r.final
+                  and "resumed" not in r.final
+                  and r.tokens == control[f"t{i}"],
+                  f"elastic trickle t{i}: {r.final} {r.error}; equal "
+                  f"{r.tokens == control[f't{i}']}")
+        mig = gw.get_stats()["migration"]
+        check(mig["streams_migrated"] >= 1
+              and mig["migration_fallbacks"] == 0
+              and gw.failover.get("tokens_replayed") == 0,
+              f"elastic: migration {mig}; decisions "
+              f"{[(d, a.get('worker'), a.get('reason')) for d, _t, a in fleet_decisions(gw)]}")
+        for w in lanes_seen:
+            st = w.generator.stats()
+            kp = st["kv_pool"]
+            check(st["active"] == 0 and kp["blocks_free"]
+                  + kp["radix_nodes"] == kp["blocks_total"],
+                  f"elastic: {w.node_id} leaked blocks: {kp}")
+        mem_after = memory()
+        check(abs(mem_after - mem_before) < pool_bytes,
+              f"elastic: memory {mem_before} before the spawn, "
+              f"{mem_after} after the retire, one lane's pool "
+              f"{pool_bytes}")
+        # What stays is cuBLAS's workspace of the retired decode thread's
+        # handle, which the next thread to take the handle reuses: read
+        # once more without any (every lane is idle).
+        torch._C._cuda_clearCublasWorkspaces()
+        mem_cleared = memory()
+        # 3. Wedges: a dead address latches spawn-wedged while a control
+        # stream completes (and the standby drill runs); clear answers
+        # cleared.
+        add = {}
+        adder = threading.Thread(target=lambda: add.update(post(
+            srv.port, "/admin/fleet",
+            {"action": "add", "worker": DEAD_WORKER})))
+        t_add = time.perf_counter()
+        adder.start()
+        toks, final, _ttft = stream(srv.port, dict(reqs["w0"],
+                                                   request_id="w0"))
+        out["standby"] = elastic_standby(model, workers[0].engine.params,
+                                         reqs, control)
+        adder.join(timeout=60)
+        wedge_s = time.perf_counter() - t_add
+        check(final is not None and "error" not in final
+              and toks == control["w0"],
+              f"elastic wedge control stream: {final}")
+        check(add == {"ok": False, "status": "spawn-wedged",
+                      "worker": DEAD_WORKER}, f"elastic add: {add}")
+        status = post(srv.port, "/admin/fleet", {"action": "status"})
+        fleet = get(srv.port, "/stats")["fleet"]
+        check(status["state"] == "degraded:spawn-wedged"
+              and fleet["degraded"] == {DEAD_WORKER: "spawn-wedged"},
+              f"elastic: wedged status {status}")
+        rings_agree("spawn-wedged")
+        cleared = post(srv.port, "/admin/fleet",
+                       {"action": "clear", "worker": DEAD_WORKER})
+        check(cleared == {"ok": True, "status": "cleared"}
+              and post(srv.port, "/admin/fleet", {})["state"] == "steady",
+              f"elastic clear: {cleared}")
+        # 4. The stall drill.
+        out["stall"] = elastic_stall(gw, srv, reqs, control)
+        rings_agree("after the stall drill")
+        # Invariants: counters == spans, the /stats block, #1's count.
+        fl = gw.fleet.as_dict()
+        spans = [d for d, _ts, _a in fleet_decisions(gw)]
+        for f in FleetCounters.SPAN_FIELDS:
+            check(spans.count(f) == fl[f],
+                  f"elastic: {f} {fl[f]} != {spans.count(f)} spans")
+        stats_fleet = get(srv.port, "/stats")["fleet"]
+        check({"lanes", "pressure", "degraded"} <= set(stats_fleet)
+              and stats_fleet["lanes"] == 2,
+              f"elastic /stats fleet: {stats_fleet}")
+        ticks = {w.node_id: w.generator.stats()["mixed"]["ticks"]
+                 for w in lanes_seen}
+        ticks["standby"] = out["standby"]["ticks"]
+        launches = check_counts("elastic", "ragged_paged_attention")
+        check(launches == cfg.n_layers * sum(ticks.values()) > 0,
+              f"elastic: #1 {launches} != {cfg.n_layers} x {ticks}")
+        decisions = fleet_decisions(gw)
+        walls = decision_walls_ms(decisions)
+        up_done = next(ts for d, ts, _a in decisions
+                       if d == "scale_up_completed")
+        spawn = spawned["worker_3"]
+        out.update(
+            lanes=sorted(gw.worker_names()), retired=retired[0].node_id,
+            minted="worker_3", launches=launches, ticks=ticks,
+            layers=cfg.n_layers, rings=rings,
+            spawn_build_ms=(spawn["built"] - spawn["start"]) * 1e3,
+            spawn_to_probe_pass_ms=(up_done - spawn["start"]) * 1e3,
+            decision_walls_ms=walls, burst_to_scale_up_s=up_s,
+            burst_s=burst_s, scale_down_wait_s=down_s, wedge_s=wedge_s,
+            memory={"before_spawn": mem_before, "three_lanes": mem_three,
+                    "after_retire": mem_after,
+                    "after_retire_no_cublas_workspaces": mem_cleared,
+                    "lane_kv_pool": pool_bytes},
+            migration=mig, fleet=stats_fleet,
+            decisions=[d for d, _ts, _a in decisions])
+    finally:
+        stop_combined(gw, workers, srv)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    retire_ms = next((v for k, v in out["decision_walls_ms"].items()
+                      if k.startswith("scale_down")), None)
+    log(f"elastic ({cfg.n_layers} layers, f32, paged mixed lanes, C++ "
+        f"front): 2 -> 3 -> 2 lanes; spawn to probe-pass "
+        f"{out['spawn_to_probe_pass_ms']:.1f} ms (lane build "
+        f"{out['spawn_build_ms']:.1f} ms), retire {out['retired']} to "
+        f"drain-complete {retire_ms:.1f} ms, "
+        f"{out['migration']['streams_migrated']} stream(s) migrated; "
+        f"{len(control)} streams identical to the static fleet's [{card}]")
+    log(f"elastic memory: {mem_before} B allocated before the spawn, "
+        f"{mem_three} B with three lanes, {mem_after} B after the retire "
+        f"(difference {mem_after - mem_before} B, one lane's KV pool "
+        f"{pool_bytes} B; {mem_cleared} B with cuBLAS's workspaces "
+        f"dropped) [{card}]")
+    log(f"elastic decisions (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
+        f"stall drill: ejected in {out['stall']['eject_s']:.2f} s, "
+        f"restored in {out['stall']['restore_s']:.2f} s "
+        f"({out['stall']['prober_ejections']} ejection(s), attempt "
+        f"{len(out['stall']['attempts'])} of {ELASTIC_STALL_ATTEMPTS}); "
+        f"standby probe gate {out['standby']['probe_gate_ms']:.1f} ms; #1 "
+        f"{launches} = {cfg.n_layers} x {sum(ticks.values())} ticks "
+        f"{ticks}; phase {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def leaves(tree) -> list:
+    """A parameter tree's tensors, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
 def kernel_numbers(torch, pa, kernel: str, decode_only: bool,
                    spec: bool = False) -> dict:
     int8 = kernel.startswith("quant")
@@ -9062,7 +9601,8 @@ def main() -> int:
                 "recurrent": lambda: phase_recurrent(torch, card),
                 "moe": lambda: phase_moe(torch, card),
                 "batch": lambda: phase_batch(torch, card),
-                "combined": lambda: phase_combined(torch, card)}
+                "combined": lambda: phase_combined(torch, card),
+                "elastic": lambda: phase_elastic(torch, card)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -9097,6 +9637,8 @@ def main() -> int:
     # The combined serve command: resnet50 behind the C++ front, then
     # TinyLlama on a prefill and a decode lane (#1 and #5).
     combined = timed("combined", phase_combined, torch, card)
+    # The elastic fleet and the stall watchdog over in-process lanes (#1).
+    elastic = timed("elastic", phase_elastic, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -9195,6 +9737,11 @@ def main() -> int:
                 else "oneshot_dispatches":
                     dec["ticks"] if name == "ragged_paged_attention"
                     else dec["oneshot_dispatches"]}
+        # The elastic phase's #1: every lane's mixed ticks, minted,
+        # retired and standby alike.
+        if name == "ragged_paged_attention":
+            rows[-1]["elastic"] = {"launches": elastic["launches"],
+                                   "ticks": elastic["ticks"]}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -9221,7 +9768,7 @@ def main() -> int:
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
          "moe": moe, "batch": batch, "combined": combined,
-         "train": train,
+         "elastic": elastic, "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))

@@ -276,7 +276,11 @@ def test_metrics_trace_and_unrouted_paths_through_the_cpp_front(mlp):
     assert _call(mlp.srv.port, "GET", "/trace")[0] == 200
     events = _json(mlp.srv.port, "GET", "/trace/export")[1]["traceEvents"]
     assert any(e.get("name") == "infer" for e in events)
-    assert _call(mlp.srv.port, "POST", "/admin/fleet", {})[0] == 404
+    status, fleet = _json(mlp.srv.port, "POST", "/admin/fleet", {})
+    jstatus, jfleet = _json(mlp.jsrv.port, "POST", "/admin/fleet", {})
+    assert status == jstatus == 200 and fleet == jfleet
+    assert fleet["state"] == "steady" and fleet["autoscale"] is False
+    assert fleet["lanes"] == ["worker_1", "worker_2"]
     timeline = _json(mlp.srv.port, "GET", "/admin/timeline")[1]
     assert set(timeline["lanes"]) == {"worker_1", "worker_2"}
     status, prof = _json(mlp.srv.port, "GET", "/admin/profile")
@@ -667,8 +671,26 @@ def test_serve_argv_maps_onto_the_jax_fields(monkeypatch, case):
     ["--mesh", "data=1"], ["--tp", "2"], ["--scheduler-stall-s", "5"],
     ["--autoscale"], ["--autoscale-max-lanes", "3"], ["--autoscale-slo-feed"],
 ], ids=lambda a: a[0])
-def test_serve_unported_flags_refuse_by_name(argv):
-    with pytest.raises(NotImplementedError, match=argv[0]):
-        cli.serve_args(argv)
-    with pytest.raises(NotImplementedError, match=argv[0]):
-        cli.main(["serve", *argv])
+def test_serve_unported_flags_refuse_by_name(monkeypatch, argv):
+    """``--mesh`` and ``--tp`` refuse by name. The others refused until
+    the stall watchdog and the elastic fleet were ported: each now
+    reaches the WorkerConfig or GatewayConfig field the JAX command
+    sets."""
+    if argv[0] in ("--mesh", "--tp"):
+        with pytest.raises(NotImplementedError, match=argv[0]):
+            cli.serve_args(argv)
+        with pytest.raises(NotImplementedError, match=argv[0]):
+            cli.main(["serve", *argv])
+        return
+    want = _jax_serve_kwargs(monkeypatch, argv)
+    got = cli.serve_args(argv)
+    for k in ("worker_config", "gateway_config"):
+        g, w = _fields(got[k]), _fields(want[k])
+        assert (g is None) == (w is None), k
+        if g is not None:
+            shared = set(g) & set(w)
+            assert {f: g[f] for f in shared} == {f: w[f] for f in shared}, k
+    if argv[0] == "--scheduler-stall-s":
+        assert got["worker_config"].scheduler_stall_s == 5.0
+    else:
+        assert got["gateway_config"] != GatewayConfig(port=8000)

@@ -627,7 +627,7 @@ def test_real_lane_resume_equals_the_unbroken_stream(shared_worker, params,
 
 
 def test_gateway_command_flags_reach_the_config():
-    workers, cfg = cli.gateway_config(
+    workers, cfg, _standby = cli.gateway_args(
         ["127.0.0.1:8001", "127.0.0.1:8002", "--failover-streams",
          "--health-probe-interval", "0.2", "--overload-control",
          "--overload-max-inflight", "16", "--tenant-rate", "5"])
@@ -635,7 +635,7 @@ def test_gateway_command_flags_reach_the_config():
     assert (cfg.failover_streams, cfg.health_probe_interval_s,
             cfg.overload_control, cfg.overload_max_inflight,
             cfg.tenant_rate) == (True, 0.2, True, 16, 5.0)
-    _w, d = cli.gateway_config(["h:1"])
+    _w, d, _standby = cli.gateway_args(["h:1"])
     assert d == GatewayConfig() and not d.failover_streams
     for field in ("hedge_enabled", "hedge_quantile", "hedge_min_ms",
                   "hedge_min_samples", "failover_max_resumes",

@@ -16,9 +16,9 @@ port workers on the CPU, with the same lane strings ("127.0.0.1:<port>"):
   same bytes through both, up to the measured times (generate_time_us and
   score_time_us masked); a retryable in-band stream error penalises the
   lane's breaker at both;
-- each JAX gateway flag the port lacks and in-process lanes refuse by
-  name; the gateway command's process serves /infer and imports no jax
-  and no tpu_engine.
+- each flag of the JAX gateway command reaches the config field JAX's
+  command sets (the elastic fleet's among them); the gateway command's
+  process serves /infer and imports no jax and no tpu_engine.
 Comparisons are exact except where a measured time is masked."""
 
 import concurrent.futures
@@ -337,13 +337,52 @@ def test_generation_relay_matches_jax(decoder):
         jgw.stop()
 
 
-@pytest.mark.parametrize("flag,value,_repeat", cli._UNPORTED_GATEWAY_FLAGS,
-                         ids=[f[0] for f in cli._UNPORTED_GATEWAY_FLAGS])
-def test_unported_gateway_flag_refuses_by_name(flag, value, _repeat):
-    assert f'"{flag}"' in (REPO / "tpu_engine/serving/cli.py").read_text()
-    argv = ["127.0.0.1:8001", flag] + (["1"] if value else [])
-    with pytest.raises(NotImplementedError, match=re.escape(flag)):
-        cli.gateway_config(argv)
+# The elastic fleet's gateway flags, each with an argv value (None: a
+# switch).
+ELASTIC_GATEWAY_FLAGS = (
+    ("--autoscale", None),
+    ("--autoscale-interval", "0.5"),
+    ("--autoscale-min-lanes", "2"),
+    ("--autoscale-max-lanes", "3"),
+    ("--autoscale-up-pressure", "0.6"),
+    ("--autoscale-down-pressure", "0.1"),
+    ("--autoscale-cooldown", "2"),
+    ("--autoscale-spawn-timeout", "9"),
+    ("--autoscale-rebalance-band", "3"),
+    ("--autoscale-slo-feed", None),
+    ("--standby-worker", "127.0.0.1:8009"),
+)
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag,value", ELASTIC_GATEWAY_FLAGS,
+                         ids=[f[0] for f in ELASTIC_GATEWAY_FLAGS])
+def test_unported_gateway_flag_refuses_by_name(monkeypatch, flag, value):
+    """Named for the refusal these flags met before the elastic fleet was
+    ported: each now reaches the GatewayConfig (and the standby list)
+    that the JAX gateway command hands its serve_gateway."""
+    from tpu_engine.serving import app as japp
+    from tpu_engine.serving import cli as jcli
+
+    argv = ["127.0.0.1:8001", flag] + ([value] if value else [])
+    seen = {}
+
+    def capture(workers, config, background=True, standby_workers=None):
+        seen.update(workers=workers, config=config, standby=standby_workers)
+        raise _Captured
+
+    monkeypatch.setattr(japp, "serve_gateway", capture)
+    with pytest.raises(_Captured):
+        jcli.main(["gateway", *argv])
+    workers, cfg, standby = cli.gateway_args(argv)
+    assert (workers, standby) == (seen["workers"], seen["standby"])
+    jf, tf = vars(seen["config"]), vars(cfg)
+    shared = set(jf) & set(tf)
+    assert {f: tf[f] for f in shared} == {f: jf[f] for f in shared}
+    assert (cfg == GatewayConfig()) == (flag == "--standby-worker")
 
 
 # The JAX gateway command's flags of migration, disaggregation, prefix
@@ -371,7 +410,7 @@ def test_gateway_flag_reaches_its_config_field(flag, value, field, want):
     jax_cli = (REPO / "tpu_engine/serving/cli.py").read_text()
     assert f'"{flag}"' in jax_cli and f'gw_kw["{field}"]' in jax_cli
     argv = ["127.0.0.1:8001", flag] + ([value] if value else [])
-    cfg = cli.gateway_config(argv)[1]
+    cfg = cli.gateway_args(argv)[1]
     assert getattr(cfg, field) == want
     assert type(getattr(cfg, field)) is type(want)
     assert (getattr(GatewayConfig(), field)
@@ -421,14 +460,15 @@ def test_worker_flag_reaches_its_config_field(command, flag, value, field,
 
 
 def test_gateway_argv_and_in_process_lanes():
-    workers, cfg = cli.gateway_config(
+    workers, cfg, standby = cli.gateway_args(
         ["127.0.0.1:8001", "127.0.0.1:8002", "--port", "8100",
          "--breaker-timeout", "0.5", "--drain-timeout", "2",
          "--retry-budget", "0.1"])
     assert workers == ["127.0.0.1:8001", "127.0.0.1:8002"]
     assert (cfg.port, cfg.breaker_timeout_s, cfg.drain_timeout_s,
             cfg.retry_budget_ratio) == (8100, 0.5, 2.0, 0.1)
-    assert cli.gateway_config(["h:1"])[1] == GatewayConfig()
+    assert standby is None
+    assert cli.gateway_args(["h:1"])[1] == GatewayConfig()
     assert cli.main(["gateway"]) == 1
     # An in-process lane joins the ring under its node_id, typed by its
     # model, beside an HTTP lane (untyped).

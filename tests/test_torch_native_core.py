@@ -4,7 +4,8 @@
 it) and against the port's pure-Python core: FNV-1a, ring assignments, LRU
 eviction, breaker transitions, the batch queue, the JSON encoder; where the
 library lands and how a failed build fails; and the C++ front's cache keys
-and ring against the worker's keys and the gateway's Python ring."""
+and ring against the worker's keys and the gateway's Python ring, through
+a lane's removal."""
 
 import http.client
 import json
@@ -378,6 +379,47 @@ def test_cpp_ring_agrees_with_the_gateway_ring(front):
     rid = next(f"req_{i}" for i in range(300)
                if ring.get_node(f"req_{i}") == "worker_1")
     assert _post(f.port, (body % rid).encode()) == {"fallback": "/infer"}
+
+
+def test_removed_lane_answers_and_counts_no_hit(front):
+    """``remove_lane`` takes a lane off the front's ring: its request ids
+    go where the gateway's ring sends them once the lane is removed (a
+    hit there, from that lane's cache), none is answered or counted for
+    it, its cache is emptied, and the front's ring equals the gateway's
+    after each change."""
+    f, lanes = front
+    ring = ConsistentHash(150)
+    for name in lanes:
+        ring.add_node(name)
+    assert sorted(f.ring_nodes()) == sorted(ring.get_all_nodes())
+    body = '{"request_id": "%s", "input_data": [3.0]}'
+    key = WorkerNode._cache_key([3.0])
+    for name, cache in lanes.items():
+        cache.put(key, json.dumps(name).encode())
+    rids = [f"rm_{i}" for i in range(200)
+            if ring.get_node(f"rm_{i}") == "worker_1"][:5]
+    for rid in rids:
+        assert _post(f.port, (body % rid).encode())["node_id"] == "worker_1"
+    assert f.lane_counters("worker_1") == (5, 5)
+    f.remove_lane("worker_1")
+    ring.remove_node("worker_1")
+    assert sorted(f.ring_nodes()) == sorted(ring.get_all_nodes()) \
+        == ["worker_2", "worker_3"]
+    before = sum(f.lane_counters(n)[1] for n in ("worker_2", "worker_3"))
+    for rid in rids:
+        got = _post(f.port, (body % rid).encode())
+        assert got["node_id"] == got["output_data"] == ring.get_node(rid)
+    assert f.lane_counters("worker_1") == (0, 0)
+    assert lanes["worker_1"].size() == 0  # its answers are dropped
+    assert sum(f.lane_counters(n)[1]
+               for n in ("worker_2", "worker_3")) == before + len(rids)
+    f.remove_lane("worker_9")  # not a lane: nothing changes
+    f.add_lane("worker_1", lanes["worker_1"],
+               native.NativeCircuitBreaker(5, 2, 30.0))
+    lanes["worker_1"].put(key, json.dumps("worker_1").encode())
+    ring.add_node("worker_1")
+    assert f.ring_nodes() == ring.get_all_nodes()
+    assert _post(f.port, (body % rids[0]).encode())["node_id"] == "worker_1"
 
 
 def test_front_fallback_errors_never_cross_the_callback():

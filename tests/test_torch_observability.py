@@ -593,7 +593,7 @@ def test_observability_gateway_fields_are_accepted(field, value):
     ("--slo-window-s", "30", "slo_window_s")])
 def test_gateway_observability_flags_reach_the_config(flag, value, field):
     argv = ["127.0.0.1:8001", flag] + ([value] if value else [])
-    _workers, cfg = cli.gateway_config(argv)
+    _workers, cfg, _standby = cli.gateway_args(argv)
     assert getattr(cfg, field) == (True if value is None
                                    else type(getattr(cfg, field))(value))
 
@@ -606,8 +606,11 @@ def test_worker_observability_flags_reach_the_config():
     assert (a.trace_capacity, a.trace_stitch, a.profile_dir,
             a.flight_recorder, a.flight_dump_dir) == (0, True, "/p", 64,
                                                       "/d")
-    assert "--autoscale-slo-feed" in [f for f, _v, _r in
-                                      cli._UNPORTED_GATEWAY_FLAGS]
+    cfg = cli.gateway_args(["127.0.0.1:8001", "--autoscale",
+                            "--autoscale-slo-feed",
+                            "--slo-ttft-p99-ms", "250"])[1]
+    assert cfg.autoscale_slo_feed and cfg.autoscale
+    assert not cli.gateway_args(["127.0.0.1:8001"])[1].autoscale_slo_feed
 
 
 class _ScriptLane:

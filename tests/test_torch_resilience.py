@@ -13,9 +13,10 @@ utils.deadline, utils.config.GatewayConfig) against the JAX package's:
 - the settings only JAX's serve command sets (a default deadline, the
   failover backoff and its jitter, the shed Retry-After) have JAX's
   effect on the port's gateway;
-- every gateway feature the port lacks refuses by name (tiered and
+- the elastic fleet's GatewayConfig fields have JAX's defaults, field
+  by field (the fleet itself: tests/test_torch_autoscaler.py; tiered and
   adaptive admission, and the overload, hedging, stream failover and
-  prober fields are ported: tests/test_torch_overload.py and
+  prober fields: tests/test_torch_overload.py and
   tests/test_torch_failover.py).
 All comparisons are exact."""
 
@@ -42,7 +43,9 @@ from tpu_engine_torch.utils.config import GatewayConfig
 # serving, prefix affinity and the prefix directory:
 # tests/test_torch_disagg.py, test_torch_affinity.py,
 # test_torch_fleet_prefix.py and test_torch_migration.py.
-REFUSED = {"autoscale": True}
+# The elastic fleet's fields (serving.autoscaler), which refused by name
+# until the fleet was ported.
+ELASTIC = {"autoscale": True}
 
 
 def _outcome(fn):
@@ -330,8 +333,18 @@ def test_serve_only_gateway_setting_refuses_by_name(field):
         assert header[0] == header[1]
 
 
-@pytest.mark.parametrize("field", sorted(REFUSED))
+@pytest.mark.parametrize("field", sorted(ELASTIC))
 def test_unported_gateway_feature_refuses_by_name(field):
-    assert getattr(JaxGatewayConfig(), field) in (False, 0.0)
-    with pytest.raises(NotImplementedError, match=field):
-        GatewayConfig(**{field: REFUSED[field]})
+    """Named for the refusal it checked: the port's GatewayConfig() now
+    has every elastic field with JAX's default, field by field, and
+    switching the fleet on is accepted."""
+    elastic = sorted(f.name for f in dataclasses.fields(JaxGatewayConfig)
+                     if f.name.startswith("autoscale"))
+    assert len(elastic) == 10 and field in elastic
+    for name in elastic:
+        assert getattr(GatewayConfig(), name) == getattr(
+            JaxGatewayConfig(), name), name
+        assert type(getattr(GatewayConfig(), name)) is type(
+            getattr(JaxGatewayConfig(), name)), name
+    assert getattr(GatewayConfig(**{field: ELASTIC[field]}), field) \
+        == ELASTIC[field]

@@ -465,8 +465,10 @@ def test_serving_subprocess_imports_no_jax():
 def test_package_sources_import_no_jax():
     offenders = []
     sources = sorted((REPO / "tpu_engine_torch").rglob("*.py"))
-    # The port's own copy of the fleet prefix directory is scanned too.
+    # The port's own copies of the fleet prefix directory and the elastic
+    # fleet's controller are scanned too.
     assert REPO / "tpu_engine_torch/serving/prefix_directory.py" in sources
+    assert REPO / "tpu_engine_torch/serving/autoscaler.py" in sources
     for path in sources + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

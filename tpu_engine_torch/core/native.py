@@ -156,6 +156,9 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      ctypes.c_int]
     lib.tpu_front_destroy.argtypes = [P]
     lib.tpu_front_add_lane.argtypes = [P, ctypes.c_char_p, P, P]
+    lib.tpu_front_remove_lane.argtypes = [P, ctypes.c_char_p]
+    lib.tpu_front_ring_nodes.restype = ctypes.c_int
+    lib.tpu_front_ring_nodes.argtypes = [P, PP, ctypes.POINTER(c_size)]
     lib.tpu_front_set_lane_enabled.argtypes = [P, ctypes.c_char_p,
                                                ctypes.c_int]
     lib.tpu_front_set_handler.argtypes = [P, HANDLER_FN]
@@ -177,6 +180,22 @@ def _take_bytes(lib, ptr, length: int) -> bytes:
         return ctypes.string_at(ptr, length)
     finally:
         lib.tpu_free(ptr)
+
+
+def _take_names(lib, fn, h) -> List[str]:
+    """The names ``fn(h, &buf, &len)`` returns as repeated <uint32 LE
+    length><bytes> records."""
+    out = ctypes.c_void_p()
+    n = ctypes.c_size_t()
+    fn(h, ctypes.byref(out), ctypes.byref(n))
+    buf = _take_bytes(lib, out, n.value)
+    names, pos = [], 0
+    while pos < len(buf):
+        ln = int.from_bytes(buf[pos:pos + 4], "little")
+        pos += 4
+        names.append(buf[pos:pos + ln].decode())
+        pos += ln
+    return names
 
 
 def json_encode_f32(arr) -> bytes:
@@ -314,19 +333,7 @@ class NativeConsistentHash(_Handle):
         return _take_bytes(self._lib, out, n.value).decode()
 
     def get_all_nodes(self) -> List[str]:
-        out = ctypes.c_void_p()
-        n = ctypes.c_size_t()
-        self._lib.tpu_ring_all_nodes(self._h, ctypes.byref(out),
-                                     ctypes.byref(n))
-        buf = _take_bytes(self._lib, out, n.value)
-        # Repeated <uint32 LE length><bytes> records.
-        nodes, pos = [], 0
-        while pos < len(buf):
-            ln = int.from_bytes(buf[pos:pos + 4], "little")
-            pos += 4
-            nodes.append(buf[pos:pos + ln].decode())
-            pos += ln
-        return nodes
+        return _take_names(self._lib, self._lib.tpu_ring_all_nodes, self._h)
 
     def size(self) -> int:
         return self._lib.tpu_ring_num_nodes(self._h)
@@ -434,8 +441,8 @@ class NativeHttpFront:
                                        fake_cached_latency_us)
         self.port = port
         # The C side only borrows the lanes' caches and breakers: they
-        # live as long as the front (a lane the gateway drops keeps its).
-        self._held: list = []
+        # live as long as the front (a removed lane keeps its), by name.
+        self._held: dict = {}
 
         def handler(reply_ctx, method, path, body, body_len):
             ctype = None
@@ -472,10 +479,24 @@ class NativeHttpFront:
                                                   NativeCircuitBreaker):
             raise ValueError("front lanes need a NativeCircuitBreaker "
                              "(the hit path gates on it)")
-        self._held.append((cache, breaker))
+        self._held.setdefault(name, []).append((cache, breaker))
         self._lib.tpu_front_add_lane(
             self._h, name.encode(), cache.handle,
             breaker._h if breaker is not None else None)
+
+    def remove_lane(self, name: str) -> None:
+        """Take lane ``name`` out of the front's ring: no hit is answered
+        or counted for it afterwards. Its cache and breaker stay held, since
+        a hit in flight may still read them, but the cache is emptied, so
+        that a fleet that retires lanes keeps no answers of theirs."""
+        self._lib.tpu_front_remove_lane(self._h, name.encode())
+        for cache, _breaker in self._held.get(name, ()):
+            cache.clear()
+
+    def ring_nodes(self) -> List[str]:
+        """The lanes of the front's ring, in failover order."""
+        return _take_names(self._lib, self._lib.tpu_front_ring_nodes,
+                           self._h)
 
     def set_lane_enabled(self, name: str, enabled: bool) -> None:
         self._lib.tpu_front_set_lane_enabled(self._h, name.encode(),

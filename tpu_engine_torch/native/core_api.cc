@@ -37,6 +37,21 @@ static char* AllocCopy(const std::string& s) {
   return out;
 }
 
+// Names as repeated <uint32 length><bytes> records into a malloc-ed
+// buffer (caller frees with tpu_free).
+static int JoinNames(const std::vector<std::string>& names, char** out,
+                     std::size_t* len_out) {
+  std::string joined;
+  for (const auto& n : names) {
+    std::uint32_t len = static_cast<std::uint32_t>(n.size());
+    joined.append(reinterpret_cast<const char*>(&len), sizeof(len));
+    joined += n;
+  }
+  *out = AllocCopy(joined);
+  *len_out = joined.size();
+  return 1;
+}
+
 // ----- fast JSON float encode ------------------------------------------------
 
 // "[a,b,...]" with %.6g — six significant digits, the noise floor of the
@@ -146,15 +161,7 @@ int tpu_ring_get(void* h, const char* key, char** node_out,
 // <uint32 little-endian length><bytes> records so arbitrary node names
 // (including '\n') round-trip exactly. Caller frees with tpu_free.
 int tpu_ring_all_nodes(void* h, char** out, std::size_t* len_out) {
-  std::string joined;
-  for (const auto& n : static_cast<HashRing*>(h)->AllNodes()) {
-    std::uint32_t len = static_cast<std::uint32_t>(n.size());
-    joined.append(reinterpret_cast<const char*>(&len), sizeof(len));
-    joined += n;
-  }
-  *out = AllocCopy(joined);
-  *len_out = joined.size();
-  return 1;
+  return JoinNames(static_cast<HashRing*>(h)->AllNodes(), out, len_out);
 }
 
 std::size_t tpu_ring_num_nodes(void* h) {
@@ -242,6 +249,13 @@ void tpu_front_add_lane(void* h, const char* name, void* lru_handle,
   static_cast<HttpFront*>(h)->AddLane(name,
                                       static_cast<LruCache*>(lru_handle),
                                       static_cast<Breaker*>(breaker_handle));
+}
+void tpu_front_remove_lane(void* h, const char* name) {
+  static_cast<HttpFront*>(h)->RemoveLane(name);
+}
+// The front ring's lanes, as tpu_ring_all_nodes gives a ring's.
+int tpu_front_ring_nodes(void* h, char** out, std::size_t* len_out) {
+  return JoinNames(static_cast<HttpFront*>(h)->RingNodes(), out, len_out);
 }
 void tpu_front_set_lane_enabled(void* h, const char* name, int enabled) {
   static_cast<HttpFront*>(h)->SetLaneEnabled(name, enabled != 0);

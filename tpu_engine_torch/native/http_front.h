@@ -76,6 +76,22 @@ class HttpFront {
     ring_.AddNode(name);
   }
 
+  // Takes the lane out of the ring and the index: no hit is answered or
+  // counted for it afterwards. Its Lane stays allocated (a hit that found
+  // it just before reads a live object, and sees it disabled), as do the
+  // cache and breaker it borrows, which the Python side keeps.
+  void RemoveLane(const std::string& name) {
+    std::lock_guard<std::mutex> lk(mu_);
+    auto it = index_.find(name);
+    if (it == index_.end()) return;
+    it->second->enabled.store(false);
+    index_.erase(it);
+    ring_.RemoveNode(name);
+  }
+
+  // The ring's lanes in failover order.
+  std::vector<std::string> RingNodes() const { return ring_.AllNodes(); }
+
   void SetLaneEnabled(const std::string& name, bool enabled) {
     std::lock_guard<std::mutex> lk(mu_);
     auto it = index_.find(name);

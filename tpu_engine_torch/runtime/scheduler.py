@@ -1625,6 +1625,29 @@ class ContinuousGenerator:
                 self._fail_request(item.req,
                                    RuntimeError("scheduler stopped"))
 
+    def release(self) -> bool:
+        """Drop the stopped lane's device state: the block pool's and the
+        slab's tensors, the dense caches, the penalty counts, the drafter
+        and the prefix cache's entries (the weights are the caller's).
+        Done only once both loop threads have ended, so no tick reads a
+        freed block; True if it was done. ``stats()`` still answers."""
+        if self._running or self._thread.is_alive() \
+                or self._prefill_thread.is_alive():
+            return False
+        if self._paged:
+            with self._pool.lock:
+                self._pool.caches = None
+                self._pool.scales = None
+                self._pool._host = []
+        if self._slab:
+            with self._spool.lock:
+                self._spool.slab = None
+        self._caches = None
+        self._counts = None
+        self._drafter = None
+        self._prefix_cache = _PrefixCache(self._prefix_cache.budget)
+        return True
+
     # -- helpers ---------------------------------------------------------------
 
     @staticmethod

@@ -10,7 +10,9 @@ Worker routes: ``POST /infer``, ``/score``, ``/generate``,
 trace-event JSON), ``/admin/timeline``, ``/admin/profile``,
 ``/admin/trace/<request_id>``. Gateway routes: ``POST /infer`` (the
 lane's bytes relayed), ``/generate``, ``/generate/stream``, ``/score``,
-``/admin/role`` (``{node, role}``); ``GET /stats``, ``/metrics``,
+``/admin/role`` (``{node, role}``), ``/admin/fleet`` (the elastic fleet:
+``{action: status|add|remove|rebalance|clear, worker, role}``); ``GET
+/stats``, ``/metrics``,
 ``/trace``, ``/trace/export``, ``/admin/slo``,
 ``/admin/trace/<request_id>`` (the stream's spans from every lane, one
 tree).
@@ -25,12 +27,16 @@ the lanes, and each lane's under ``lanes``), ``/health/<node>``,
 /admin/fault`` (``{node, action: fail|slow|heal, latency_s}``),
 ``/admin/drain`` (``{node, action, remove}``), ``/admin/reload`` (every
 lane, or ``node``/``model``), and ``/admin/profile`` and
-``/admin/timeline`` per lane. The front is the C++ one
+``/admin/timeline`` per lane. With ``autoscale`` the fleet controller
+mints in-process lanes ``worker_{n+1}...`` on the weights the static lanes
+share and retires them through the drain and migration. The front is the
+C++ one
 (``core.native.NativeHttpFront``: /infer hits answered in C++ from each
 lane's raw-mode native cache, gated by the lane's native breaker) for a
 single-model fleet unless ``native_front=False``; a multi-model fleet
 gets the Python ``JsonHttpServer`` (the C++ hit path knows no model).
-``/admin/fleet`` (the autoscaler's) is not routed.
+The C++ front's ring follows the gateway's membership: a lane added or
+removed later joins or leaves it too.
 """
 
 from __future__ import annotations
@@ -41,6 +47,10 @@ import os
 import tempfile
 from typing import List, Optional, Tuple
 
+from tpu_engine_torch.serving.autoscaler import (
+    InProcessLaneProvider,
+    StandbyLaneProvider,
+)
 from tpu_engine_torch.serving.gateway import Gateway
 from tpu_engine_torch.serving.http import JsonHttpServer
 from tpu_engine_torch.serving.worker import (
@@ -159,11 +169,14 @@ def worker_server(worker: WorkerNode, port: int) -> JsonHttpServer:
 
 
 def serve_gateway(worker_urls: List[str],
-                  config: Optional[GatewayConfig] = None
+                  config: Optional[GatewayConfig] = None,
+                  standby_workers: Optional[List[str]] = None
                   ) -> Tuple[Gateway, JsonHttpServer]:
     """Start a gateway over the HTTP workers ``worker_urls`` serving in a
-    background thread on ``config.port`` (0 = any free port). Returns
-    (gateway, server); the caller stops the server."""
+    background thread on ``config.port`` (0 = any free port).
+    ``standby_workers``: worker addresses the fleet controller may bring
+    in (after a passing /health probe) and retire; not registered at
+    start. Returns (gateway, server); the caller stops the server."""
     config = config or GatewayConfig()
     gateway = Gateway(worker_urls, config)
     server = JsonHttpServer(config.port)
@@ -180,6 +193,8 @@ def serve_gateway(worker_urls: List[str],
     server.route("POST", "/admin/role", lambda body: (
         200, gateway.set_worker_role((body or {}).get("node", ""),
                                      (body or {}).get("role", ""))))
+    server.route("POST", "/admin/fleet", lambda body: (
+        200, gateway.fleet_admin(body or {})))
     server.route("GET", "/metrics", lambda _body: (
         200, render_prometheus([], gateway.get_stats(),
                                recorders={"gateway": gateway.tracer}),
@@ -192,6 +207,9 @@ def serve_gateway(worker_urls: List[str],
         or {"error": "no objectives configured "
                      "(set --slo-ttft-p99-ms / --slo-itl-p99-ms / "
                      "--slo-completion-p99-ms)"}))
+    if config.autoscale or standby_workers:
+        gateway.engage_autoscaler(
+            provider=StandbyLaneProvider(list(standby_workers or [])))
     server.start(background=True)
     return gateway, server
 
@@ -247,7 +265,10 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
     (default ``worker_config.role``). ``warmup`` runs each lane's batch
     buckets and a short generation before serving. ``native_front``: None
     = the C++ front for one model, True = require it, False = the Python
-    front. A library that does not build raises. Returns (gateway,
+    front. A library that does not build raises. With
+    ``gateway_config.autoscale`` the fleet controller mints lanes
+    ``worker_{N+1}...`` (``make_lane``'s, at most ``autoscale_max_lanes``
+    live) and retires them; ``workers`` follows. Returns (gateway,
     workers, server), serving in the background; stop them with
     ``stop_combined``."""
     cfg = worker_config or WorkerConfig()
@@ -278,29 +299,35 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
     path = cfg.model_path or ""
     shared: dict = {}
     workers: List[WorkerNode] = []
+
+    def make_lane(i: int) -> WorkerNode:
+        """Lane ``worker_{i+1}``: its model and device round-robin, on the
+        weights of its (model, device), which the first such lane draws
+        when there is no checkpoint (a quantized lane draws its own)."""
+        over = {"node_id": f"worker_{i + 1}",
+                "model": models[i % len(models)],
+                "device": devices[i % len(devices)], "port": port}
+        if lane_roles:
+            over["role"] = lane_roles[i % len(lane_roles)]
+        lane_cfg = dataclasses.replace(cfg, **over)
+        key = (lane_cfg.model, lane_cfg.device)
+        if key not in shared:
+            shared[key] = (None if path.endswith(".onnx") else
+                           _load_model_path(
+                               _model_spec(lane_cfg.model, path), path,
+                               lane_cfg.device, load_dtype))
+        cache = None
+        if use_native:
+            cache = native.NativeLRUCache(lane_cfg.cache_capacity, raw=True)
+        w = WorkerNode(lane_cfg, params=shared[key], cache=cache)
+        if (shared[key] is None and cfg.quantize is None
+                and not path.endswith(".onnx")):
+            shared[key] = w.engine.params
+        return w
+
     try:
         for i in range(n_lanes):
-            over = {"node_id": f"worker_{i + 1}",
-                    "model": models[i % len(models)],
-                    "device": devices[i % len(devices)], "port": port}
-            if lane_roles:
-                over["role"] = lane_roles[i % len(lane_roles)]
-            lane_cfg = dataclasses.replace(cfg, **over)
-            key = (lane_cfg.model, lane_cfg.device)
-            if key not in shared:
-                shared[key] = (None if path.endswith(".onnx") else
-                               _load_model_path(
-                                   _model_spec(lane_cfg.model, path), path,
-                                   lane_cfg.device, load_dtype))
-            cache = None
-            if use_native:
-                cache = native.NativeLRUCache(lane_cfg.cache_capacity,
-                                              raw=True)
-            w = WorkerNode(lane_cfg, params=shared[key], cache=cache)
-            workers.append(w)
-            if (shared[key] is None and cfg.quantize is None
-                    and not path.endswith(".onnx")):
-                shared[key] = w.engine.params
+            workers.append(make_lane(i))
         if warmup:
             for w in workers:
                 w.engine.warmup()
@@ -315,16 +342,17 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
             w.stop()
         raise
     gateway = Gateway(workers, gateway_config, native_breakers=use_native)
-    if cfg.gen_prefix_fetch:
-        # The fleet prefix tier in process: a peer fetch is the owner
-        # lane's handle_export_prefix, called directly.
-        def peer_export(hint, payload):
-            lane = hint.get("lane")
-            for w in list(workers):
-                if w.node_id == lane:
-                    return w.handle_export_prefix(payload)
-            raise KeyError(f"no in-process lane named {lane!r}")
 
+    # The fleet prefix tier in process: a peer fetch is the owner lane's
+    # handle_export_prefix, called directly.
+    def peer_export(hint, payload):
+        lane = hint.get("lane")
+        for w in list(workers):
+            if w.node_id == lane:
+                return w.handle_export_prefix(payload)
+        raise KeyError(f"no in-process lane named {lane!r}")
+
+    if cfg.gen_prefix_fetch:
         for w in workers:
             w.set_prefix_fetch_transport(peer_export)
     routes, prefix_routes = _combined_routes(gateway, workers)
@@ -334,6 +362,28 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
     except BaseException:
         stop_combined(gateway, workers, None)
         raise
+    if gateway_config.autoscale:
+        # The elastic fleet: minted lanes continue the static lanes'
+        # names and round-robin, and a retired one leaves the per-lane
+        # surfaces. Engaged once the front follows the membership.
+        def spawn_lane(idx: int) -> WorkerNode:
+            w = make_lane(n_lanes + idx)
+            if cfg.gen_prefix_fetch:
+                w.set_prefix_fetch_transport(peer_export)
+            workers.append(w)
+            return w
+
+        def drop_lane(w) -> None:
+            if w in workers:
+                workers.remove(w)
+
+        provider = InProcessLaneProvider(
+            spawn_lane, max_lanes=gateway_config.autoscale_max_lanes,
+            on_retire=drop_lane)
+        # A retired static lane stops and gives its memory back too.
+        for w in workers:
+            provider.adopt(w)
+        gateway.engage_autoscaler(provider=provider)
     return gateway, workers, server
 
 
@@ -565,6 +615,8 @@ def _combined_routes(gateway: Gateway, workers: List[WorkerNode]):
         ("POST", "/admin/fault"): admin_fault,
         ("POST", "/admin/drain"): admin_drain,
         ("POST", "/admin/role"): admin_role,
+        ("POST", "/admin/fleet"): lambda body: (
+            200, gateway.fleet_admin(body or {})),
         ("POST", "/admin/reload"): admin_reload,
         ("GET", "/trace"): trace,
         ("GET", "/trace/export"): trace_export,
@@ -599,7 +651,9 @@ def _make_front_server(port: int, routes: dict, prefix_routes: dict,
     sent as one buffered SSE body; a content type rides
     ``tpu_front_reply2``). Each lane joins the C++ front with its cache
     and its gateway breaker, its C++ counters feed its /health, and its
-    fault listener enables and disables it there."""
+    fault listener enables and disables it there; a lane the gateway adds
+    later joins the same way (an HTTP lane joins the ring disabled, its
+    hits left to Python), and one it removes leaves the front's ring."""
     if not use_native:
         server = JsonHttpServer(port)
         for (method, path), handler in routes.items():
@@ -609,7 +663,7 @@ def _make_front_server(port: int, routes: dict, prefix_routes: dict,
         server.start(background=True)
         return server
 
-    from tpu_engine_torch.core.native import NativeHttpFront
+    from tpu_engine_torch.core.native import NativeHttpFront, NativeLRUCache
 
     def fallback(method: str, path: str, body: bytes):
         handler = routes.get((method, path))
@@ -653,11 +707,28 @@ def _make_front_server(port: int, routes: dict, prefix_routes: dict,
                             virtual_nodes=gateway.config.virtual_nodes,
                             fake_cached_latency_us=(
                                 workers[0].config.fake_cached_latency_us))
-    for w in workers:
+
+    def join(w: WorkerNode) -> None:
         front.add_lane(w.node_id, w.cache, gateway.breaker_for(w.node_id))
         w.external_counters = (lambda name=w.node_id:
                                front.lane_counters(name))
         w.on_fault_change(lambda healthy, name=w.node_id:
                           front.set_lane_enabled(name, healthy))
+
+    def follow(event: str, name: str, worker) -> None:
+        if event == "remove":
+            front.remove_lane(name)
+        elif isinstance(worker, WorkerNode):
+            join(worker)
+        else:
+            # An HTTP lane: on the ring, so that C++ routes as the gateway
+            # does, but disabled: its requests go to Python.
+            front.add_lane(name, NativeLRUCache(1, raw=True),
+                           gateway.breaker_for(name))
+            front.set_lane_enabled(name, False)
+
+    for w in workers:
+        join(w)
+    gateway.on_membership(follow)
     front.start()
     return front

@@ -108,7 +108,9 @@ tick-bounded torch.profiler capture. ``--role`` (a dedicated role needs
 /health and flipped by /admin/role; ``--prefix-fetch`` serves
 /admin/export_prefix, publishes the radix tree's deepest chains in
 /health and fetches a gateway-hinted peer's chain before prefilling a
-miss. The worker serves until SIGTERM or SIGINT.
+miss; ``--scheduler-stall-s S`` makes /health read unhealthy
+(``scheduler_stalled``) once the decode loop has not ticked for S
+seconds. The worker serves until SIGTERM or SIGINT.
 
 worker_node: the argv of the reference's launch line (``worker_node 8001
 worker_1 models/resnet50-v2-7.onnx``): the node id defaults to
@@ -150,9 +152,11 @@ from their exported KV chains, ``--disagg`` lands generate work on
 ``--prefix-affinity`` routes generate requests on the prompt's leading
 full blocks, and ``--prefix-directory`` stamps them with the owner lane
 of their prefix for ``--prefix-fetch`` workers. Hedged dispatch has no
-flag, as in JAX: it is ``GatewayConfig.hedge_enabled``. The JAX
-command's other gateway flags (the autoscaler and its SLO feed, standby
-workers) are accepted and refuse by name.
+flag, as in JAX: it is ``GatewayConfig.hedge_enabled``. ``--autoscale``
+(and its ``--autoscale-*`` knobs, with ``--autoscale-slo-feed``) runs the
+elastic fleet's controller over the ``--standby-worker`` addresses, each
+brought in after a passing /health probe; it implies
+``--migrate-streams``. /admin/fleet is its operator surface.
 
 serve: one process, one front door, in-process lanes behind the gateway
 (``app.serve_combined``): ``--lanes N`` lanes named worker_1..N (default
@@ -166,8 +170,10 @@ library builds with g++ at first use into ``build/tpu_engine_torch/native/``;
 a failed build stops the command with the compiler's output. The JAX
 command's flags map onto the same WorkerConfig and GatewayConfig fields
 (``--default-deadline-ms``, ``--retry-backoff-ms`` among them);
-``--mesh``, ``--tp``, ``--scheduler-stall-s`` and the autoscaler's flags
-refuse by name. SIGTERM stops the front, the gateway and every lane.
+``--autoscale`` mints in-process lanes and retires them with the load,
+``--scheduler-stall-s`` arms every lane's stall watchdog; ``--mesh`` and
+``--tp`` refuse by name. SIGTERM stops the front, the gateway and every
+lane.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -329,6 +335,10 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefix-fetch-inflight", type=int, default=None,
                    help="concurrent peer fetches per lane; excess misses "
                         "prefill locally (default 2)")
+    p.add_argument("--scheduler-stall-s", type=float, default=None,
+                   help="decode-loop liveness threshold: /health reads "
+                        "unhealthy when the loop has not ticked for this "
+                        "long (0/unset = report the age only)")
 
 
 def worker_config(a, node_id: str, model: str, model_path=None):
@@ -378,6 +388,8 @@ def worker_config(a, node_id: str, model: str, model_path=None):
         cfg.gen_prefix_fetch_timeout_s = a.prefix_fetch_timeout
     if a.prefix_fetch_inflight is not None:
         cfg.gen_prefix_fetch_inflight = a.prefix_fetch_inflight
+    if a.scheduler_stall_s is not None:
+        cfg.scheduler_stall_s = a.scheduler_stall_s
     return cfg
 
 
@@ -494,27 +506,65 @@ def import_weights(argv) -> int:
     return 0
 
 
-# The JAX gateway command's flags that map onto no ported feature:
-# (flag, takes a value, is repeatable). Each is accepted and refuses by
-# name.
-_UNPORTED_GATEWAY_FLAGS = (
-    ("--autoscale", False, False),
-    ("--autoscale-interval", True, False),
-    ("--autoscale-min-lanes", True, False),
-    ("--autoscale-max-lanes", True, False),
-    ("--autoscale-up-pressure", True, False),
-    ("--autoscale-down-pressure", True, False),
-    ("--autoscale-cooldown", True, False),
-    ("--autoscale-spawn-timeout", True, False),
-    ("--autoscale-rebalance-band", True, False),
-    ("--autoscale-slo-feed", False, False),
-    ("--standby-worker", True, True),
-)
+def _add_autoscale_flags(p: argparse.ArgumentParser) -> None:
+    """The elastic fleet's flags of ``gateway`` and ``serve``, the JAX
+    commands'; unset, GatewayConfig keeps its defaults."""
+    p.add_argument("--autoscale", action="store_true",
+                   help="the elastic fleet: a control loop spawns a lane "
+                        "(registered after a passing /health probe) or "
+                        "retires one (drain and live stream migration) "
+                        "with the lanes' pressure (implies "
+                        "--migrate-streams)")
+    for flag, kind, what in (
+            ("--autoscale-interval", float,
+             "control-loop tick seconds (default 1)"),
+            ("--autoscale-min-lanes", int,
+             "never retire below this many lanes (default 1)"),
+            ("--autoscale-max-lanes", int,
+             "never spawn above this many lanes (default 0: the "
+             "provider's capacity)"),
+            ("--autoscale-up-pressure", float,
+             "mean pressure above which a lane is spawned (default 0.75)"),
+            ("--autoscale-down-pressure", float,
+             "mean pressure below which a lane is retired (default 0.25)"),
+            ("--autoscale-cooldown", float,
+             "least seconds between actuated decisions (default 5)"),
+            ("--autoscale-spawn-timeout", float,
+             "a spawned lane not healthy within this many seconds is "
+             "handed back and latches spawn-wedged (default 30)"),
+            ("--autoscale-rebalance-band", float,
+             "with --disagg, flip a lane's role when the prefill:decode "
+             "pressure ratio leaves this band (> 1; default 0: off)")):
+        p.add_argument(flag, type=kind, default=None, help=what)
+    p.add_argument("--autoscale-slo-feed", action="store_true",
+                   help="feed the worst SLO burn into the fleet pressure: "
+                        "max(lane pressure, burn / 2) (needs --autoscale "
+                        "and an --slo-* objective)")
 
 
-def gateway_config(argv):
-    """(worker URLs, GatewayConfig) of a ``gateway`` command line; a JAX
-    gateway flag the port lacks raises NotImplementedError naming it."""
+def _apply_autoscale_flags(a, kw: dict) -> None:
+    if a.autoscale:
+        kw["autoscale"] = True
+        # A retirement rides the live migration, never the replay.
+        kw["migrate_streams"] = True
+    for name, field in (
+            ("autoscale_interval", "autoscale_interval_s"),
+            ("autoscale_min_lanes", "autoscale_min_lanes"),
+            ("autoscale_max_lanes", "autoscale_max_lanes"),
+            ("autoscale_up_pressure", "autoscale_up_pressure"),
+            ("autoscale_down_pressure", "autoscale_down_pressure"),
+            ("autoscale_cooldown", "autoscale_cooldown_s"),
+            ("autoscale_spawn_timeout", "autoscale_spawn_timeout_s"),
+            ("autoscale_rebalance_band", "autoscale_rebalance_band")):
+        if getattr(a, name) is not None:
+            kw[field] = getattr(a, name)
+    if a.autoscale_slo_feed:
+        kw["autoscale_slo_feed"] = True
+
+
+def gateway_args(argv):
+    """(worker URLs, GatewayConfig, standby worker addresses) of a
+    ``gateway`` command line."""
     from tpu_engine_torch.utils.config import GatewayConfig
 
     p = argparse.ArgumentParser(prog="gateway")
@@ -602,18 +652,13 @@ def gateway_config(argv):
     p.add_argument("--handoff-timeout", type=float, default=None,
                    help="per-stream prefill -> decode handoff budget in "
                         "seconds, clamped to the deadline (default 30)")
-    for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
-        if repeat:
-            p.add_argument(flag, action="append", default=None)
-        elif value:
-            p.add_argument(flag, default=None)
-        else:
-            p.add_argument(flag, action="store_true", default=None)
+    _add_autoscale_flags(p)
+    p.add_argument("--standby-worker", action="append", default=None,
+                   metavar="HOST:PORT",
+                   help="a pre-launched worker the elastic fleet may bring "
+                        "in (after a passing /health probe) and retire "
+                        "(repeatable)")
     a = p.parse_args(argv)
-    for flag, _value, _repeat in _UNPORTED_GATEWAY_FLAGS:
-        if getattr(a, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to tpu_engine_torch's gateway")
     kw = {}
     if a.drain_timeout is not None:
         kw["drain_timeout_s"] = a.drain_timeout
@@ -635,6 +680,7 @@ def gateway_config(argv):
                  "disagg"):
         if getattr(a, flag):
             kw[flag] = True
+    _apply_autoscale_flags(a, kw)
     if a.migrate_timeout is not None:
         kw["migrate_timeout_s"] = a.migrate_timeout
     if a.prefix_dir_capacity is not None:
@@ -649,7 +695,7 @@ def gateway_config(argv):
             kw[name] = getattr(a, name)
     return a.workers, GatewayConfig(port=a.port,
                                     breaker_timeout_s=a.breaker_timeout,
-                                    **kw)
+                                    **kw), a.standby_worker
 
 
 def _gateway(argv) -> int:
@@ -658,8 +704,8 @@ def _gateway(argv) -> int:
         return 1
     from tpu_engine_torch.serving.app import serve_gateway
 
-    workers, cfg = gateway_config(argv)
-    gateway, server = serve_gateway(workers, cfg)
+    workers, cfg, standby = gateway_args(argv)
+    gateway, server = serve_gateway(workers, cfg, standby_workers=standby)
     print(f"Gateway listening on port {server.port}")
     print(f"Workers: {len(gateway.worker_names())}")
     print("Circuit breakers enabled")
@@ -673,20 +719,17 @@ def _gateway(argv) -> int:
 
 
 # The JAX serve command's flags that map onto no ported feature: each is
-# accepted and refuses by name (--mesh and --tp: parallel serving; the
-# stall watchdog: the port's scheduler has none).
+# accepted and refuses by name (parallel serving).
 _UNPORTED_SERVE_FLAGS = (
     ("--mesh", "mesh-sharded serving"),
     ("--tp", "tensor-parallel serving"),
-    ("--scheduler-stall-s", "the decode-loop stall watchdog"),
 )
 
 
 def serve_args(argv) -> dict:
     """The keyword arguments of ``app.serve_combined`` for a ``serve``
     command line, mapped as the JAX command maps them; an unported flag
-    (``--mesh``, ``--tp``, ``--scheduler-stall-s``, the autoscaler's)
-    raises NotImplementedError naming it."""
+    (``--mesh``, ``--tp``) raises NotImplementedError naming it."""
     from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
 
     p = argparse.ArgumentParser(prog="serve")
@@ -801,24 +844,17 @@ def serve_args(argv) -> dict:
                    choices=("bfloat16", "float32"))
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    p.add_argument("--scheduler-stall-s", type=float, default=None,
+                   help="decode-loop liveness threshold of every lane "
+                        "(0/unset = report the age only)")
+    _add_autoscale_flags(p)
     for flag, _what in _UNPORTED_SERVE_FLAGS:
         p.add_argument(flag, default=None)
-    for flag, value, repeat in _UNPORTED_GATEWAY_FLAGS:
-        if flag == "--standby-worker":
-            continue  # a gateway command flag only
-        if value:
-            p.add_argument(flag, default=None)
-        else:
-            p.add_argument(flag, action="store_true", default=None)
     a = p.parse_args(argv)
     for flag, what in _UNPORTED_SERVE_FLAGS:
         if getattr(a, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(
                 f"{flag} ({what}) is not yet ported to tpu_engine_torch")
-    for flag, _value, _repeat in _UNPORTED_GATEWAY_FLAGS:
-        if getattr(a, flag[2:].replace("-", "_"), None) is not None:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to tpu_engine_torch's gateway")
     gw = {}
     for name, field in (
             ("breaker_timeout", "breaker_timeout_s"),
@@ -865,6 +901,7 @@ def serve_args(argv) -> dict:
         gw["prefix_directory"] = True
         if "affinity_block_size" not in gw and a.kv_block_size > 0:
             gw["affinity_block_size"] = a.kv_block_size
+    _apply_autoscale_flags(a, gw)
     wk = {}
     if a.shape_buckets:
         wk["shape_buckets"] = tuple(
@@ -883,7 +920,8 @@ def serve_args(argv) -> dict:
                          "gen_prefix_fetch_timeout_s"),
                         ("profile_dir", "profile_dir"),
                         ("flight_recorder", "flight_recorder"),
-                        ("flight_dump_dir", "flight_dump_dir")):
+                        ("flight_dump_dir", "flight_dump_dir"),
+                        ("scheduler_stall_s", "scheduler_stall_s")):
         if getattr(a, name) is not None:
             wk[field] = getattr(a, name)
     for name, field in (("priority_admission", "priority_admission"),

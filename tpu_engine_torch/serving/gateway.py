@@ -118,10 +118,19 @@ from every lane into one tree. The ``slo_*`` objectives
 (``serving.slo``) read the lanes' TTFT and ITL and the gateway's own
 stream completions: ``slo_status``.
 
+The elastic fleet (``serving.autoscaler``): ``engage_autoscaler`` starts
+the controller with ``autoscale`` (and a lane provider); ``fleet_admin``
+is ``/admin/fleet`` (``status``, ``add``, ``remove``, ``rebalance``,
+``clear``), served by an unstarted controller when none is engaged. Every
+fleet decision is a ``fleet`` counter with a ``fleet`` marker span; a
+wedged spawn or drain latches a named degraded state (``fleet_status``),
+which also dumps every lane's flight recorder. ``/stats`` carries a
+``fleet`` block with ``autoscale`` or once a decision was counted.
+
 ``native_breakers=True`` makes every lane's breaker the C++ one
 (``core.native.NativeCircuitBreaker``), which the combined server's native
-front shares for its hit path. The autoscaler is not ported: it refuses
-by name (``utils.config.refuse_unported``).
+front shares for its hit path. ``on_membership`` listeners hear every
+lane added and removed (the front keeps its ring equal to the gateway's).
 """
 
 from __future__ import annotations
@@ -156,6 +165,7 @@ from tpu_engine_torch.serving.prefix_directory import PrefixDirectory
 from tpu_engine_torch.serving.resilience import (
     AffinityCounters,
     FailoverCounters,
+    FleetCounters,
     HandoffCounters,
     LatencyTracker,
     MigrationCounters,
@@ -441,6 +451,16 @@ class Gateway:
             _StreamLedger(self.config.trace_ledger_capacity)
             if self.config.trace_stitch else None)
         self._slo = SloTracker.from_config(self.config)
+        # The elastic fleet: its decisions, the named degraded states
+        # (lane -> reason) and the last observed pressure (under _lock),
+        # and the controller, None until engaged or first asked.
+        self.fleet = FleetCounters()
+        self._fleet_degraded: Dict[str, str] = {}
+        self._fleet_pressure: Optional[float] = None
+        self._autoscaler = None
+        # Called as fn("add", name, worker) after a lane joins the rings
+        # and fn("remove", name, None) after one leaves them.
+        self._membership_listeners: List = []
         for w in workers or []:
             self.add_worker(w)
         if self.config.health_probe_interval_s > 0:
@@ -449,7 +469,11 @@ class Gateway:
             self._prober_thread.start()
 
     def stop(self) -> None:
-        """Stop the health prober (idempotent; routing keeps working)."""
+        """Stop the fleet controller and the health prober (idempotent;
+        routing keeps working)."""
+        scaler = self._autoscaler
+        if scaler is not None:
+            scaler.stop()
         self._prober_stop.set()
         t = self._prober_thread
         if t is not None:
@@ -507,7 +531,18 @@ class Gateway:
                     ring.add_node(name)
                 if self.default_model is None:
                     self.default_model = model_name
+        self._notify_membership("add", name, worker)
         return name
+
+    def on_membership(self, listener) -> None:
+        """Call ``listener(event, name, worker)`` after every lane added
+        (``"add"``, the worker as given) and removed (``"remove"``,
+        None)."""
+        self._membership_listeners.append(listener)
+
+    def _notify_membership(self, event: str, name: str, worker) -> None:
+        for listener in list(self._membership_listeners):
+            listener(event, name, worker)
 
     def _make_breaker(self):
         cfg = self.config
@@ -543,7 +578,7 @@ class Gateway:
         self._prefill_ring.remove_node(name)
         with self._lock:
             rings = list(self._model_rings.values())
-            self._clients.pop(name, None)
+            was_member = self._clients.pop(name, None) is not None
             self._breakers.pop(name, None)
             self._latency.pop(name, None)
             self._lane_recent.pop(name, None)
@@ -569,6 +604,8 @@ class Gateway:
             if self.default_model not in self._model_rings:
                 self.default_model = (sorted(self._model_rings)[0]
                                       if self._model_rings else None)
+        if was_member:
+            self._notify_membership("remove", name, None)
 
     def _bounded_drain(self, client, name: str) -> Optional[str]:
         """None when ``client.drain()`` answered within
@@ -663,6 +700,126 @@ class Gateway:
     def ejected_lanes(self) -> List[str]:
         with self._lock:
             return sorted(self._ejected)
+
+    # -- the elastic fleet ----------------------------------------------------
+
+    def _fleet_count(self, decision: str, **attrs) -> None:
+        """Bump a fleet counter and drop its zero-duration ``fleet``
+        marker span."""
+        self.fleet.bump(decision)
+        ctx = TraceContext.root(f"fleet:{decision}").child()
+        self.tracer.record(
+            "fleet", "fleet", "gateway", 0,
+            trace_id=ctx.trace_id, span_id=ctx.span_id,
+            start_ts=time.time(), attrs={"decision": decision, **attrs})
+
+    def fleet_observe(self, pressure: float) -> None:
+        """Publish the controller's latest fleet pressure (the /stats
+        ``fleet.pressure`` gauge)."""
+        with self._lock:
+            self._fleet_pressure = round(float(pressure), 4)
+
+    def fleet_enter_degraded(self, lane: str, reason: str) -> None:
+        """Latch the named degraded state ``reason`` for ``lane`` (serving
+        goes on; the state shows in /stats and /admin/fleet until
+        cleared) and dump every lane's flight recorder. Idempotent per
+        (lane, reason)."""
+        with self._lock:
+            if self._fleet_degraded.get(lane) == reason:
+                return
+            self._fleet_degraded[lane] = reason
+        self._fleet_count("degraded_entered", lane=lane, reason=reason)
+        for _name, client in self.lane_clients().items():
+            if hasattr(client, "flight_dump"):
+                try:
+                    client.flight_dump(f"fleet_degraded:{reason}")
+                except Exception:
+                    pass
+
+    def fleet_clear_degraded(self, lane: str) -> bool:
+        """Clear ``lane``'s degraded state; True if one was latched."""
+        with self._lock:
+            reason = self._fleet_degraded.pop(lane, None)
+        if reason is None:
+            return False
+        self._fleet_count("degraded_cleared", lane=lane, reason=reason)
+        return True
+
+    def fleet_status(self) -> dict:
+        """The /admin/fleet status body: the lanes, the degraded states,
+        whether the controller runs, and the last observed pressure."""
+        with self._lock:
+            degraded = dict(self._fleet_degraded)
+            pressure = self._fleet_pressure
+        out = {
+            "state": ("degraded:" + ",".join(sorted(set(degraded.values())))
+                      if degraded else "steady"),
+            "lanes": sorted(self.worker_names()),
+            "degraded": degraded,
+            "autoscale": self._autoscaler is not None
+            and self._autoscaler.running,
+        }
+        if pressure is not None:
+            out["pressure"] = pressure
+        return out
+
+    def engage_autoscaler(self, provider=None):
+        """The fleet controller over ``provider``, started with
+        ``autoscale``; an engaged one is reused."""
+        if self._autoscaler is None:
+            from tpu_engine_torch.serving.autoscaler import FleetAutoscaler
+
+            self._autoscaler = FleetAutoscaler(self, provider=provider,
+                                               config=self.config)
+        if self.config.autoscale:
+            self._autoscaler.start()
+        return self._autoscaler
+
+    def _fleet_controller(self):
+        """The engaged controller, else an unstarted one with no provider:
+        manual actions run the same ladders with no thread."""
+        if self._autoscaler is None:
+            from tpu_engine_torch.serving.autoscaler import FleetAutoscaler
+
+            self._autoscaler = FleetAutoscaler(self, provider=None,
+                                               config=self.config)
+        return self._autoscaler
+
+    def fleet_admin(self, payload: dict) -> dict:
+        """/admin/fleet: ``status`` (with the counters), ``add`` (a worker
+        address, registered after a passing /health probe), ``remove``
+        (a member, through the drain and migration), ``rebalance`` (a
+        lane's role), ``clear`` (a lane's degraded state). Every failure
+        answers a named status; nothing raises."""
+        action = str(payload.get("action", "status"))
+        ctl = self._fleet_controller()
+        if action == "status":
+            out = {"ok": True, **self.fleet_status()}
+            out["counters"] = self.fleet.as_dict()
+            return out
+        if action == "add":
+            worker = payload.get("worker")
+            if not worker:
+                return {"ok": False, "status": "missing-worker"}
+            return ctl.scale_up(worker=worker)
+        if action == "remove":
+            name = payload.get("worker")
+            if not name:
+                return {"ok": False, "status": "missing-worker"}
+            return ctl.scale_down(name=str(name), manual=True)
+        if action == "rebalance":
+            name, role = payload.get("worker"), payload.get("role")
+            if not name or not role:
+                return {"ok": False, "status": "missing-worker-or-role"}
+            return ctl.rebalance(str(name), str(role))
+        if action == "clear":
+            name = payload.get("worker")
+            if not name:
+                return {"ok": False, "status": "missing-worker"}
+            cleared = self.fleet_clear_degraded(str(name))
+            return {"ok": True,
+                    "status": "cleared" if cleared else "not-degraded"}
+        return {"ok": False, "status": f"unknown-action:{action}"[:80]}
 
     # -- routes ---------------------------------------------------------------
 
@@ -2316,11 +2473,13 @@ class Gateway:
             total, failovers = self._total_requests, self._failovers
             inflight = self._inflight
             active_streams = len(self._streams)
-            roles = {n: self._roles.get(n, "both")
-                     for n in sorted(self._clients)}
+            lanes = sorted(self._clients)
+            roles = {n: self._roles.get(n, "both") for n in lanes}
             aff_assigned = dict(self._affinity_assigned)
             prefix_dir_state = (self._prefix_dir.stats()
                                 if self._prefix_dir is not None else None)
+            fleet_degraded = dict(self._fleet_degraded)
+            fleet_pressure = self._fleet_pressure
         cfg = self.config
         out = {
             "total_workers": len(items),
@@ -2372,6 +2531,13 @@ class Gateway:
             if self._tenant_bucket is not None:
                 ov["tenants"] = self._tenant_bucket.tenants()
             out["overload"] = ov
+        if cfg.autoscale or self.fleet.any_nonzero():
+            fl = self.fleet.as_dict()
+            fl["lanes"] = len(lanes)
+            fl["degraded"] = fleet_degraded
+            if fleet_pressure is not None:
+                fl["pressure"] = fleet_pressure
+            out["fleet"] = fl
         if self._slo is not None:
             slo = self.slo_status()
             if slo is not None:
@@ -2389,14 +2555,20 @@ class Gateway:
     def slo_status(self, named_hists: Optional[dict] = None
                    ) -> Optional[dict]:
         """The /admin/slo payload, or None without an objective. TTFT and
-        ITL read ``named_hists`` (``{family: {node: histogram}}``); the
-        port's lanes are HTTP workers, whose histograms live behind their
-        /metrics text, so without it those objectives see no samples.
-        Completion reads the gateway's own stream spans (failover time
-        included)."""
+        ITL read ``named_hists`` (``{family: {node: histogram}}``);
+        without it, the in-process lanes' own histograms (an HTTP lane's
+        live behind its /metrics text and contribute none). Completion
+        reads the gateway's own stream spans (failover time included)."""
         if self._slo is None:
             return None
-        named_hists = named_hists or {}
+        if named_hists is None:
+            named_hists = {}
+            for client in self.lane_clients().values():
+                w = getattr(client, "worker", None)
+                if w is None:
+                    continue
+                for name, by_node in w.latency_histograms().items():
+                    named_hists.setdefault(name, {}).update(by_node)
         by_objective = {}
         for name, family in OBJECTIVE_SOURCES.items():
             if family is None:

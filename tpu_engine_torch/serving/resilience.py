@@ -13,8 +13,9 @@ prober's state machine and the worker's admission controller.
 - ``ResilienceCounters``, ``FailoverCounters`` (stream resumes and the
   prober's ejections), ``MigrationCounters`` (migrate-mode drains and
   bounded drains that timed out), ``HandoffCounters`` (disaggregated
-  serving), ``AffinityCounters`` (prefix-affinity routing) and
-  ``PrefixDirCounters`` (the fleet prefix directory): every decision
+  serving), ``AffinityCounters`` (prefix-affinity routing),
+  ``PrefixDirCounters`` (the fleet prefix directory) and
+  ``FleetCounters`` (the elastic fleet): every decision
   counted, under the JAX package's field names, so ``/stats`` blocks
   carry its keys; ``SPAN_FIELDS`` are the fields each paired with a
   gateway marker span.
@@ -264,6 +265,30 @@ class PrefixDirCounters(ResilienceCounters):
 
     SPAN_FIELDS = ("seeded", "recorded", "invalidations",
                    "hints_attached", "lookup_misses")
+
+
+class FleetCounters(ResilienceCounters):
+    """The elastic fleet's decisions, autoscaler and ``/admin/fleet``
+    alike (the ``/stats`` ``fleet`` block); every field pairs one to one
+    with a gateway ``fleet`` marker span. ``scale_up_attempted`` ends in
+    ``scale_up_completed`` (the lane passed its /health probe and joined
+    the rings) or ``scale_up_failed`` (no capacity, or no passing probe
+    within the spawn timeout: the ``spawn-wedged`` state);
+    ``scale_down_attempted`` in ``scale_down_completed`` or
+    ``scale_down_failed`` (the actuator timed out: ``drain-wedged``);
+    ``rebalance_*`` likewise for a role flip. ``decisions_held``: a
+    decision the controller wanted but held (cooldown, a lane clamp, no
+    observation, no victim); ``degraded_entered``/``degraded_cleared``
+    bracket every named degraded state."""
+
+    FIELDS = ("scale_up_attempted", "scale_up_completed",
+              "scale_up_failed", "scale_down_attempted",
+              "scale_down_completed", "scale_down_failed",
+              "rebalance_attempted", "rebalance_completed",
+              "rebalance_failed", "decisions_held",
+              "degraded_entered", "degraded_cleared")
+
+    SPAN_FIELDS = FIELDS
 
 
 class ProbeStateMachine:

@@ -917,9 +917,9 @@ class WorkerNode:
         """The saturation components of one control-loop evaluation, each
         normalized so 1.0 is the red line: admitted depth against the
         limit (or twice the decode slots when unbounded), the decode
-        loop's tick age against 2 s (the JAX worker's red line without a
-        stall threshold; the port has no stall watchdog), parked
-        admissions per slot, new pool starvation, new deadline misses."""
+        loop's tick age against ``scheduler_stall_s`` (2 s without one),
+        parked admissions per slot, new pool starvation, new deadline
+        misses."""
         comps = {}
         adm = self._admission
         limit = adm.effective_limit()
@@ -930,8 +930,9 @@ class WorkerNode:
         st = gen.stats() if gen is not None else None
         if st:
             age = st.get("last_tick_age_s")
+            stall = float(self.config.scheduler_stall_s or 0.0) or 2.0
             if age is not None:
-                comps["tick_age"] = age / 2.0
+                comps["tick_age"] = age / stall
             kv = st.get("kv_pool") or {}
             if kv:
                 comps["pool_pending"] = (kv.get("pending_admissions", 0)
@@ -1997,6 +1998,14 @@ class WorkerNode:
             if bp["total_batches"] > 0:
                 bp["avg_batch_size"] = ((prev_rows + rows)
                                         / bp["total_batches"])
+        # The stall watchdog: a decode loop that has not ticked for
+        # scheduler_stall_s is alive but serves nothing; the lane reads
+        # unhealthy, and the gateway's prober ejects it.
+        age = gstats.get("last_tick_age_s")
+        stall = float(self.config.scheduler_stall_s or 0.0)
+        if stall > 0 and age is not None and age > stall:
+            out["healthy"] = False
+            out["scheduler_stalled"] = True
         if self.config.gen_prefix_fetch and self._gen_lane() is not None:
             # The fleet prefix tier's seed: the radix tree's deepest
             # chains, bounded, for the gateway prober's directory.
@@ -2032,3 +2041,6 @@ class WorkerNode:
             self._gen_processor.stop()
         if self._sched is not None:
             self._sched.stop()
+            # A stopped lane gives its device memory back (a retired
+            # lane of an elastic fleet, above all).
+            self._sched.release()

@@ -2,9 +2,7 @@
 ``WorkerConfig`` and ``GatewayConfig`` that the port uses, with the same
 names and defaults (``model`` defaults to ``"resnet50"``, the one-shot
 /infer lane a default launch serves), plus the worker's own ``device`` and
-``seed``. The JAX gateway's feature the port lacks (the autoscaler) keeps
-its field here, off by default, and refuses by name when switched on
-(``refuse_unported``)."""
+``seed``."""
 
 from __future__ import annotations
 
@@ -139,6 +137,12 @@ class WorkerConfig:
     # (--flight-dump-dir; None keeps them in memory).
     flight_recorder: int = 0
     flight_dump_dir: Optional[str] = None
+    # The decode loop's stall watchdog (--scheduler-stall-s): with a
+    # threshold > 0, a continuous lane whose loop has not ticked for this
+    # many seconds answers /health unhealthy (scheduler_stalled), so the
+    # gateway's prober ejects it. 0 reports the tick age only. Set it
+    # above the longest first-use kernel build.
+    scheduler_stall_s: float = 0.0
     # The port's own: where the lane runs (None = the CUDA card) and the
     # seed of its random weights.
     device: Optional[str] = None
@@ -258,26 +262,26 @@ class GatewayConfig:
     prefix_directory_capacity: int = 512
     affinity_window_s: float = 10.0
 
-    # The JAX gateway's autoscaler: not ported; refuses by name when
-    # switched on (refuse_unported).
+    # The elastic fleet (--autoscale; serving.autoscaler): a control loop
+    # every autoscale_interval_s reads each lane's pressure and spawns a
+    # lane above autoscale_up_pressure or retires one below
+    # autoscale_down_pressure (through the drain and live migration),
+    # within [autoscale_min_lanes, autoscale_max_lanes] (0 = no upper
+    # clamp) and at most once per autoscale_cooldown_s. A spawned lane
+    # joins only after a passing /health probe within
+    # autoscale_spawn_timeout_s. autoscale_rebalance_band (> 1, with
+    # disagg) flips a lane's role when the prefill:decode pressure ratio
+    # leaves the band. Off: no controller thread and no /stats "fleet"
+    # block; /admin/fleet works either way.
     autoscale: bool = False
-
-    def __post_init__(self):
-        refuse_unported(self)
-
-
-# (field, the JAX package's name of the feature) of every gateway feature
-# the port lacks.
-_UNPORTED_GATEWAY = (
-    ("autoscale", "the elastic-fleet autoscaler"),
-)
-
-
-def refuse_unported(config: GatewayConfig) -> None:
-    """Raise NotImplementedError naming the first unported feature that
-    ``config`` switches on."""
-    for field, feature in _UNPORTED_GATEWAY:
-        if getattr(config, field):
-            raise NotImplementedError(
-                f"{field}: {feature} is not yet ported to "
-                f"tpu_engine_torch's gateway")
+    autoscale_interval_s: float = 1.0
+    autoscale_min_lanes: int = 1
+    autoscale_max_lanes: int = 0
+    autoscale_up_pressure: float = 0.75
+    autoscale_down_pressure: float = 0.25
+    autoscale_cooldown_s: float = 5.0
+    autoscale_spawn_timeout_s: float = 30.0
+    autoscale_rebalance_band: float = 0.0
+    # Feed the worst SLO burn into the fleet pressure
+    # (--autoscale-slo-feed): max(lane pressure, min(1, burn / 2)).
+    autoscale_slo_feed: bool = False
