@@ -172,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
               bf16's own distance from f32, the same burst through a
               worker in f32 within BERT_F32_TOL of the plain f32 forward,
               the forward's times at B 1 and 32; a yolov8n worker (bf16,
-              shape buckets 320, 480, 640) answering 12 distinct 16-float
+              shape buckets 320, 480, 640) answering 6 distinct 16-float
               requests cycling the three shapes: n_anchors x 144 values
               each, within YOLO_TOL of the plain f32 forward of each
               canvas, the same burst through a worker in f32 within
@@ -473,9 +473,10 @@ Phases (any failure exits non-zero and prints no result line):
               token-identical; the process's counts: #1 == 22 x the
               lanes' mixed ticks, #5 == 22 x their one-shot dispatches,
               no other kernel and no plain call.
-16. elastic — last: the elastic fleet and the stall watchdog, in this
-              process: serve_combined over TinyLlama's width at cut depth
-              (4 of 22 layers, f32, paged mixed lanes, C++ front) with
+16. elastic — after combined: the elastic fleet and the stall watchdog,
+              in this process: serve_combined over TinyLlama's width at
+              cut depth (4 of 22 layers, f32, paged mixed lanes, C++
+              front) with
               the controller on (2 to 3 lanes, pressure up 0.30, down
               0.20, ticks of 0.25 s, cooldown 0.5 s, spawn timeout 5 s,
               prober every 0.1 s). Every request first runs on a static
@@ -493,13 +494,41 @@ Phases (any failure exits non-zero and prints no result line):
               clear answers cleared; a standby worker served over HTTP
               in this process joins a second gateway through
               StandbyLaneProvider's probe gate and serves a stream. One
-              lane's scheduler_stall_s at 1e-9 s: /health reads
+              lane's scheduler_stall_s at 1e-9 s and its prefill
+              wedged (so no read lands within the tick age's rounding
+              of a heartbeat): /health reads
               scheduler_stalled, the prober ejects it, its streams
               complete on the peer, and back at 0 it is restored. Fleet
               counters == fleet spans, /stats carries fleet.lanes,
               pressure and degraded, the C++ ring equals the gateway's
               membership at every step, and #1 == 4 x the mixed ticks
               of every lane, minted, retired and standby alike.
+17. tp      — last: tensor-parallel serving, in this process, every rank
+              on the one card (cuda:0; one scheduler drives its ranks,
+              so no process group is needed). #1-#4 at the ranks' shapes
+              of tp 2 and 4 (TinyLlama: 16/2 and 8/1 query/KV heads a
+              rank) on every rank's heads against their plain versions
+              (bf16 2e-2, int8 2e-4), with rank 0's device time, plain
+              time, bound and SDPA's device time. The bf16 mixed tick
+              (7 decode rows + a 249-token chunk) and decode tick (8
+              rows) at 22 layers at tp 1, 2 and 4: wall, host issue,
+              device busy, and each rank's param and pool bytes. A bf16
+              tp 2 forward over int8 blocks against tp 1 (mixed #4,
+              decode #3): max|diff| / max|tp 1| within 5e-2. TinyLlama
+              (llama, 22 layers, random weights from seed 0) lanes, each
+              prompt (24, 100, 300 tokens) sent alone, 8 new tokens:
+              f32 mixed at tp 1, 2, 4 and f32 two-path at tp 1, 2 give
+              token-identical greedy streams across degrees; bf16 mixed
+              and two-path lanes over int8 blocks at tp 2; on every lane
+              #1 (#2, #3, #4) == tp x 22 x its ticks (two-path: chunks x
+              8), no other kernel, no plain call, no block leaked. A
+              parked row of a tp 2 lane moves to another tp 2 lane (its
+              tokens the destination's own run, 0 prefilled there) and
+              the snapshot is refused by a tp 1 lane by name. A
+              WorkerNode(tp=2, device="cuda:0") behind its HTTP server
+              streams /generate/stream (the in-process tp 2 tokens, #1 ==
+              2 x 22 x its ticks), its /health carries topology, and a
+              gateway over it and a tp 1 lane reads ring_weights 2 and 1.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -520,7 +549,7 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
-    python3 chip_smoke.py --phase batch|combined|elastic
+    python3 chip_smoke.py --phase batch|combined|elastic|tp
 
 runs the build and that one phase, and writes its readings to
 chiprun_out/phase_<name>.json (no result lines).
@@ -539,6 +568,7 @@ import functools
 import http.client
 import json
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -627,6 +657,7 @@ RECURRENT_KERNELS = {
 # combined phases, the kvtier phase's pool readings and the overload
 # phase's tick readings run all 22.
 CUT_LLAMA = "llama-cut-depth"
+TP_DEGREES = (1, 2, 4)
 CUT_LAYERS = 4
 PAGED = dict(gen_kv_block_size=16)
 LANES = {
@@ -3570,10 +3601,10 @@ BERT_LAYERS = 12
 BERT_BF16_FACTOR = 3.0
 BERT_F32_TOL = 1e-4
 YOLO_SIZES = (320, 480, 640)
-# 4 requests a bucket (16 before the observe phase came, 8 before the
-# combined phase, cut for the smoke's time: a 640 answer is 9 MB of JSON
-# to encode on the host).
-YOLO_REQUESTS = 12
+# 2 requests a bucket (16 before the observe phase came, 8 before the
+# combined phase, 4 before the tp phase, cut for the smoke's time: a 640
+# answer is 9 MB of JSON to encode on the host).
+YOLO_REQUESTS = 6
 YOLO_HEAD = 144
 # The yolov8n lane (bf16: every conv's operands rounded to bf16, f32
 # sums) against the plain f32 forward of each request's canvas on the same
@@ -8503,13 +8534,17 @@ def elastic_stall(gw, srv, reqs: dict, control: dict) -> dict:
     scheduler_stalled, the prober ejects it, streams whose ring owner it
     is complete on the peer; back at 0 the lane is restored.
 
-    ``last_tick_age_s`` is rounded to 1 ms, so a probe within half a
-    millisecond of a tick reads 0, healthy, and restores the lane until
-    the next probe ejects it again (a flap): a stream may then land on
-    the stalled lane. An attempt with one ejection and the lane still
-    ejected after its streams ended had none, and its streams must all
-    be on the peer; a flapped attempt is run again, at most
-    ELASTIC_STALL_ATTEMPTS in all, and the phase fails if none is clean."""
+    ``last_tick_age_s`` is rounded to 1 ms, and the idle lane's decode
+    loop beats every 20 ms, so a probe within half a millisecond of a
+    beat would read 0, healthy, and restore the lane until the next probe
+    ejects it again (a flap; every attempt of one smoke on a slow host
+    flapped so). The drill therefore also wedges the lane's prefill
+    (``_prefill_busy_since`` 123 s back), which the age takes as its
+    maximum: every probe reads the lane stalled. An attempt with one
+    ejection and the lane still ejected after its streams ended had no
+    flap, and its streams must all be on the peer; a flapped attempt is
+    run again, at most ELASTIC_STALL_ATTEMPTS in all, and the phase fails
+    if none is clean."""
     lanes = sorted(gw.worker_names())
     stalled, peer = lanes[0], lanes[1]
     worker = gw.lane_clients()[stalled].worker
@@ -8518,6 +8553,7 @@ def elastic_stall(gw, srv, reqs: dict, control: dict) -> dict:
         ej0 = gw.failover.get("prober_ejections")
         rs0 = gw.failover.get("prober_restores")
         worker.config.scheduler_stall_s = 1e-9
+        worker.generator._prefill_busy_since = time.monotonic() - 123
         try:
             eject_s = wait_for(lambda: stalled in gw.ejected_lanes(),
                                "the stalled lane was not ejected", 20.0)
@@ -8539,6 +8575,7 @@ def elastic_stall(gw, srv, reqs: dict, control: dict) -> dict:
             ejected_through = stalled in gw.ejected_lanes()
         finally:
             worker.config.scheduler_stall_s = 0.0
+            worker.generator._prefill_busy_since = None
         restore_s = wait_for(lambda: stalled not in gw.ejected_lanes(),
                              "the lane was not restored", 20.0)
         ej = gw.failover.get("prober_ejections") - ej0
@@ -8808,6 +8845,466 @@ def phase_elastic(torch, card: str) -> dict:
         f"{launches} = {cfg.n_layers} x {sum(ticks.values())} ticks "
         f"{ticks}; phase {out['seconds']:.1f} s [{card}]")
     return out
+
+
+# -- tensor-parallel serving ------------------------------------------------
+
+# The tp phase's ranks: every rank on the one card (a process group of
+# NCCL ranks cannot share a card; one scheduler driving its ranks can).
+TP_DEVICE = "cuda:0"
+# Greedy prompts of the tp lanes, each sent alone (one batch composition
+# for every degree): lengths 24, 100 and 300 (two prefill chunks).
+TP_PROMPT_LENS = (24, 100, 300)
+TP_NEW = 8
+# A bf16 tp 2 forward over int8 blocks against the tp 1 forward on the
+# same inputs, as max|diff| / max|tp 1|: the ranks' row-parallel partials
+# sum in another order than one product's, so the residual stream's bf16
+# rounding at each block end may differ by an ulp (2^-8), and 22 layers
+# of random weights carry it to the logits.
+TP_BF16_LOGIT_TOL = 5e-2
+TP_KERNELS = {"ragged_paged_attention": (False, False),
+              "paged_attention": (True, False),
+              "quant_paged_attention": (True, True),
+              "quant_ragged_paged_attention": (False, True)}
+
+
+def tp_rank_inputs(inp, n: int, r: int):
+    """Rank r's share of ``main_path_inputs`` at degree n: its H/n query
+    heads and H_kv/n KV heads (payload and int8 scales), contiguous."""
+    q, pools, rows = inp[0], inp[1:-3], inp[-3:]
+    h, hk = q.shape[2] // n, pools[0].shape[2] // n
+    return (q[:, :, r * h:(r + 1) * h].contiguous(),
+            *[p[:, :, r * hk:(r + 1) * hk].contiguous() for p in pools],
+            *rows)
+
+
+def tp_kernel_readings(torch, pa) -> dict:
+    """#1-#4 at the ranks' shapes of tp 2 and 4 (TinyLlama: 16/2 and 8/1
+    query/KV heads a rank, G 8, D 64): each rank's output against the
+    plain version (bf16 2e-2, int8 2e-4, as at tp 1), and rank 0's device
+    time, plain time, bound and SDPA's device time."""
+    dev = torch.device(TP_DEVICE)
+    out = {}
+    for kernel, (decode_only, int8) in TP_KERNELS.items():
+        inp = main_path_inputs(torch, dev, decode_only, int8)
+        fn, ref = getattr(pa, kernel), getattr(pa, kernel + "_reference")
+        tol = QUANT_TOL if int8 else BF16_TOL
+        ragged = "ragged" in kernel
+        for n in (2, 4):
+            err = 0.0
+            for r in range(n):
+                t = tp_rank_inputs(inp, n, r)
+                args = t if ragged else decode_args(t)
+                got, want = fn(*args), ref(*args)
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"tp {kernel} at tp {n} rank {r}: non-finite")
+                err = max(err, _valid_err(torch, got, want, t[-1]) if ragged
+                          else float((got.float() - want.float()).abs()
+                                     .max()))
+            check(err <= tol, f"tp {kernel} at tp {n}: {err} > {tol}")
+            t = tp_rank_inputs(inp, n, 0)
+            args = t if ragged else decode_args(t)
+            device, seen = device_call_ms(torch, lambda: fn(*args),
+                                          iters=10)
+            plain = time_ms(torch, lambda: ref(*args), iters=3)
+            library, _ = device_call_ms(torch, sdpa_yardstick(torch, t,
+                                                              int8),
+                                        iters=10)
+            bound, by = bound_ms(t[0], t[1], t[-3], t[-2], t[-1],
+                                 4 if int8 else t[1].element_size(),
+                                 scale_bytes=4 if int8 else 0)
+            key = f"tp {n} rank shape H {t[0].shape[2]}/{t[1].shape[2]}"
+            out.setdefault(kernel, {})[key] = {
+                "max_abs_err": err, "device_ms": device,
+                "device_calls": seen, "plain_ms": plain,
+                "library_device_ms": library, "bound_ms": bound,
+                "bound_by": by}
+            log(f"tp {kernel} ({shape_key(decode_only)}, {key}, "
+                f"{'int8' if int8 else 'bf16'} pool): max_abs_err over "
+                f"{n} ranks {err:.3e} (tol {tol:g}); rank 0 device "
+                f"{device:.4f} ms ({seen} of 10 seen), plain {plain:.4f} "
+                f"ms, sdpa device {library:.4f} ms, bound {bound:.5f} ms "
+                f"({by})")
+    return out
+
+
+def tp_params(spec, params, n: int):
+    """``params`` sharded over n ranks on the card (n 1: as it is)."""
+    from tpu_engine_torch.models.registry import tp_rank_trees
+    from tpu_engine_torch.models.transformer import TPParams
+    from tpu_engine_torch.parallel.mesh import TPGroup
+
+    if n == 1:
+        return params
+    group = TPGroup([TP_DEVICE] * n)
+    return TPParams(tp_rank_trees(spec, params, group.devices), group)
+
+
+def tp_pool(torch, cfg, n: int, dtype, nb: int = 8 * 128 + 1,
+            src=None):
+    """A (L, nb, 16, H_kv, D) K/V pair (or ``src``'s copy), as n
+    contiguous head shards for n > 1."""
+    from tpu_engine_torch.models.transformer import KVCache
+
+    shape = (cfg.n_layers, nb, 16, cfg.kv_heads, cfg.d_head)
+    whole = src or KVCache(*(torch.zeros(shape, dtype=dtype,
+                                         device=TP_DEVICE)
+                             for _ in range(2)))
+    if n == 1:
+        return KVCache(*(t.clone() for t in whole))
+    return KVCache(*([c.contiguous() for c in t.chunk(n, dim=3)]
+                     for t in whole))
+
+
+def tp_tick_readings(torch, spec, params16) -> dict:
+    """The bf16 mixed tick (seven decode rows beside a 249-token chunk,
+    width 256) and decode tick (eight rows, width 1) at full TinyLlama
+    depth, at tp 1, 2 and 4: the forward's wall (CUDA events around it),
+    host issue and device busy, and each rank's memory."""
+    from tpu_engine_torch.models.transformer import (
+        transformer_step_rows_ragged,
+    )
+
+    cfg = spec.config
+    dev = torch.device(TP_DEVICE)
+    _, _, _, tables, pos0, qlen = main_path_inputs(torch, dev, False)
+    qlen[7] = 249
+    tokens = torch.randint(0, cfg.vocab, (8, 256), device=dev,
+                           dtype=torch.int32)
+    out = {}
+    for n in TP_DEGREES:
+        prm = tp_params(spec, params16, n)
+        caches = tp_pool(torch, cfg, n, torch.bfloat16)
+        for shape, w in (("mixed W=256", 256), ("decode W=1", 1)):
+            ql = qlen.clone() if w > 1 else torch.ones_like(qlen)
+            slot = (ql - 1).clamp(min=0)
+
+            def fwd(ql=ql, slot=slot, w=w):
+                return transformer_step_rows_ragged(
+                    prm, tokens[:, :w].contiguous(), caches, tables, pos0,
+                    ql, cfg, dtype=torch.bfloat16, sample_slot=slot)[0]
+
+            check(bool(torch.isfinite(fwd()).all()),
+                  f"tp {n} {shape}: non-finite logits")
+            ms = time_ms(torch, fwd, iters=3)
+            busy = busy_ms(torch, fwd, iters=2)
+            r = {"forward_ms": ms, "issue_ms": issue_ms(torch, fwd, 3),
+                 "busy_ms": busy, "idle_share": idle_share(busy, ms)}
+            out[f"tp {n} {shape}"] = r
+            log(f"tp tick ({shape}, bf16, {cfg.n_layers} layers, tp {n} on "
+                f"one card): "
+                f"{ms:.3f} ms (host issue {r['issue_ms']:.3f} ms, "
+                f"{busy_text(busy, r['idle_share'])})")
+        ranks = prm.ranks if n > 1 else [prm]
+        k = caches.k if n > 1 else [caches.k]
+        out[f"tp {n} memory"] = {
+            "param_bytes_per_rank": [sum(x.numel() * x.element_size()
+                                         for x in leaves(t)) for t in ranks],
+            "kv_bytes_per_rank": [2 * s.numel() * s.element_size()
+                                  for s in k]}
+        log(f"tp {n} memory per rank (bf16): params "
+            f"{out[f'tp {n} memory']['param_bytes_per_rank']} B, K/V pool "
+            f"of {k[0].shape[1]} blocks "
+            f"{out[f'tp {n} memory']['kv_bytes_per_rank']} B")
+        del prm, caches
+    return out
+
+
+def tp_int8_logits(torch, spec, params16) -> dict:
+    """A bf16 tp 2 forward over int8 blocks against tp 1 on the same
+    inputs (the pool is main_path_inputs' quantized K/V in every layer):
+    the mixed tick (#4) and the two-path decode step (#3)."""
+    from tpu_engine_torch.models.transformer import (
+        KVCache,
+        transformer_decode_rows_paged,
+        transformer_step_rows_ragged,
+    )
+
+    cfg = spec.config
+    dev = torch.device(TP_DEVICE)
+    out = {}
+    for decode_only in (False, True):
+        q, k, v, ks, vs, tables, pos0, qlen = main_path_inputs(
+            torch, dev, decode_only, int8=True)
+        layers = (lambda t: t[None].expand(cfg.n_layers, *t.shape)
+                  .contiguous())
+        pool, scales = (KVCache(layers(k), layers(v)),
+                        KVCache(layers(ks), layers(vs)))
+        tokens = torch.randint(0, cfg.vocab, (8, q.shape[1]), device=dev,
+                               dtype=torch.int32, generator=torch.Generator(
+                                   device=dev).manual_seed(5))
+        logits = []
+        for n in (1, 2):
+            prm = tp_params(spec, params16, n)
+            c, s = tp_pool(torch, cfg, n, None, src=pool), tp_pool(
+                torch, cfg, n, None, src=scales)
+            if decode_only:
+                logits.append(transformer_decode_rows_paged(
+                    prm, tokens[:, 0], c, tables, pos0, cfg,
+                    dtype=torch.bfloat16, scales=s)[0])
+            else:
+                logits.append(transformer_step_rows_ragged(
+                    prm, tokens, c, tables, pos0, qlen, cfg,
+                    dtype=torch.bfloat16, sample_slot=(qlen - 1),
+                    scales=s)[0])
+        err = float((logits[1] - logits[0]).abs().max()
+                    / logits[0].abs().max())
+        key = "decode W=1 (#3)" if decode_only else "mixed W=256 (#4)"
+        check(err <= TP_BF16_LOGIT_TOL,
+              f"tp 2 bf16 int8 logits {key}: {err} > {TP_BF16_LOGIT_TOL}")
+        out[key] = {"rel_err": err,
+                    "argmax_equal": float((logits[1].argmax(-1)
+                                           == logits[0].argmax(-1))
+                                          .float().mean())}
+        log(f"tp 2 bf16 logits over int8 blocks against tp 1 ({key}): "
+            f"max|diff| / max|tp 1| {err:.3e} (bound "
+            f"{TP_BF16_LOGIT_TOL:g}); argmax equal in "
+            f"{out[key]['argmax_equal']:.3f} of rows")
+    return out
+
+
+def tp_generator(spec, params, n: int, dtype: str, **kw):
+    from tpu_engine_torch.runtime.scheduler import ContinuousGenerator
+
+    kw = dict(dict(kv_block_size=16, kv_blocks=8 * 40 + 1, n_slots=8,
+                   prefill_chunk=256), **kw)
+    if n > 1:
+        kw["tp_devices"] = [TP_DEVICE] * n
+    else:
+        kw["device"] = TP_DEVICE
+    return ContinuousGenerator(spec, params=params, dtype=dtype, tp=n, **kw)
+
+
+def tp_lane_run(torch, gen, name: str, n: int, prompts, kernel: str,
+                steps_per_tick: int = 1, new: int = TP_NEW) -> dict:
+    """Each prompt alone through ``gen`` with the launch counts reset
+    before and read after: #kernel == n x 22 x the lane's forward steps
+    (mixed ticks, or two-path chunks x step_chunk), no other kernel, no
+    plain call, no block leaked."""
+    from tpu_engine_torch.ops import kernels as kl
+
+    torch.cuda.synchronize()
+    kl.reset_counts()
+    t0 = time.perf_counter()
+    toks = [gen.generate([p], max_new_tokens=new)[0] for p in prompts]
+    wall = time.perf_counter() - t0
+    launches = check_counts(f"tp {name}", kernel)
+    st = gen.stats()
+    steps = (st["mixed"]["ticks"] if "mixed" in st
+             else st["chunks"] * steps_per_tick)
+    layers = gen.cfg.n_layers
+    check(launches == n * layers * steps,
+          f"tp {name}: {kernel} launched {launches} times, not {n} x "
+          f"{layers} x {steps} steps")
+    pool = st["kv_pool"]
+    check(pool["blocks_free"] + pool["radix_nodes"] == pool["blocks_total"],
+          f"tp {name}: blocks leaked: {pool}")
+    check(st.get("tp", {}).get("tp", 1) == n and pool.get("tp", 1) == n,
+          f"tp {name}: stats carry tp {st.get('tp')}, pool {pool.get('tp')}")
+    ntok = sum(len(t) for t in toks)
+    log(f"tp {name}: {len(prompts)} prompts alone, {ntok} tokens in "
+        f"{wall:.2f} s ({wall / steps * 1e3:.1f} ms a step over {steps} "
+        f"steps); {kernel} {launches} = {n} x {layers} x {steps}; no "
+        f"block leaked")
+    return {"tokens": toks, "kernel": kernel, "launches": launches,
+            "steps": steps, "wall_s": wall,
+            "ms_per_step": wall / steps * 1e3}
+
+
+def tp_migration(gen_src, gen_dst, gen_one, prompt) -> dict:
+    """A live row of a tp 2 lane, parked after its prefill, exported and
+    spliced onto another tp 2 lane (its tokens the destination's own
+    uninterrupted run of the prompt, sent alone first, nothing prefilled
+    for the import), and the same snapshot refused by a tp 1 lane by
+    name."""
+    from tpu_engine_torch.runtime.scheduler import ImportRefused
+
+    control = gen_dst.generate([prompt], max_new_tokens=TP_NEW)[0]
+    q = queue.Queue()
+    gen_src.submit(prompt, max_new_tokens=TP_NEW, stream=q, tag="tp-mig",
+                   handoff=True, handoff_park_s=60.0)
+    t0 = time.perf_counter()
+    snap = gen_src.export_row("tp-mig", timeout_s=60, wait_prefill=True)
+    export_s = time.perf_counter() - t0
+    check(snap.get("ok") and snap["chain"].get("tp") == 2,
+          f"tp migration export: {str(snap)[:300]}")
+    body = {k: v for k, v in snap.items() if k != "ok"}
+    before = gen_dst.stats()["kv_pool"]["prefilled_tokens"]
+    got = gen_dst.submit_import(body).result(300)
+    check(got == control, f"tp migration: {got} != {control}")
+    check(gen_dst.stats()["kv_pool"]["prefilled_tokens"] == before,
+          "tp migration: the destination prefilled tokens")
+    refused = ""
+    try:
+        gen_one.submit_import(body).result(300)
+    except ImportRefused as exc:
+        refused = str(exc)
+    check("shard geometry" in refused,
+          f"tp migration: the tp 1 lane did not refuse by name: {refused!r}")
+    log(f"tp migration: a parked tp 2 row ({len(snap['chain']['blocks'])} "
+        f"blocks, export {export_s * 1e3:.1f} ms) spliced onto a tp 2 lane "
+        f"equal to the uninterrupted run, 0 tokens prefilled there; the tp "
+        f"1 lane refused: {refused[:90]}")
+    return {"export_ms": export_s * 1e3,
+            "blocks": len(snap["chain"]["blocks"]), "refused": refused}
+
+
+def tp_http(torch, spec, params32, prompt, control) -> dict:
+    """A WorkerNode(tp=2, device=cuda:0) behind its HTTP server streams
+    /generate/stream (the in-process tp 2 lane's tokens) and carries the
+    topology label in /health; a gateway over it and an in-process tp 1
+    lane weights their vnodes 2 and 1 once its prober has read the
+    label."""
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.serving.app import serve_worker
+    from tpu_engine_torch.serving.gateway import Gateway
+    from tpu_engine_torch.serving.worker import WorkerNode
+    from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
+
+    lane = dict(model="llama", dtype="float32", device=TP_DEVICE,
+                gen_max_batch_size=8, gen_kv_block_size=16,
+                gen_kv_blocks=8 * 40 + 1,
+                gen_mixed_step=True, gen_mixed_token_budget=256,
+                gen_prefill_chunk=256)
+    worker, server = serve_worker(WorkerConfig(port=0, node_id="tp2-http",
+                                               tp=2, **lane),
+                                  params=params32)
+    one = WorkerNode(WorkerConfig(node_id="tp1-local", **lane),
+                     params=params32)
+    gw = None
+    try:
+        kl.reset_counts()
+        toks, final, ttft = stream(server.port, {
+            "request_id": "tp-stream", "prompt_tokens": prompt,
+            "max_new_tokens": TP_NEW})
+        ticks = worker.generator.stats()["mixed"]["ticks"]
+        launches = check_counts("tp http", "ragged_paged_attention")
+        check(toks == control and final and final.get("tokens") == toks,
+              f"tp http stream: {toks} != {control} ({final})")
+        check(launches == 2 * spec.config.n_layers * ticks,
+              f"tp http: #1 {launches} != 2 x layers x {ticks}")
+        health = get(server.port, "/health")
+        check(health.get("topology") == {"tp": 2, "mesh_shape": {"model": 2},
+                                         "devices": 2},
+              f"tp http /health topology: {health.get('topology')}")
+        url = f"127.0.0.1:{server.port}"
+        gw = Gateway([url, one], GatewayConfig(health_probe_interval_s=0.1))
+        deadline = time.monotonic() + 30
+        while "topology" not in gw.get_stats():
+            check(time.monotonic() < deadline,
+                  "tp http: the gateway's prober read no topology label")
+            time.sleep(0.05)
+        weights = gw.get_stats()["topology"]["ring_weights"]
+        check(weights == {url: 2, "tp1-local": 1},
+              f"tp http ring weights: {weights}")
+        log(f"tp http: a tp 2 WorkerNode on {TP_DEVICE} streamed "
+            f"{len(toks)} tokens over /generate/stream (TTFT "
+            f"{ttft * 1e3:.1f} ms) equal to the in-process tp 2 lane; #1 "
+            f"{launches} = 2 x {spec.config.n_layers} x {ticks} ticks; "
+            f"/health topology "
+            f"{health['topology']}; gateway ring_weights {weights}")
+        return {"tokens": len(toks), "ttft_ms": ttft * 1e3,
+                "launches": launches, "ticks": ticks,
+                "topology": health["topology"], "ring_weights": weights}
+    finally:
+        if gw is not None:
+            gw.stop()
+        server.stop()
+        worker.stop()
+        one.stop()
+
+
+def phase_tp(torch, card: str, pa) -> dict:
+    """Tensor-parallel serving (see the module docstring's tp entry)."""
+    from tpu_engine_torch.models.convert import init_params
+    from tpu_engine_torch.models.registry import create_model
+
+    spec = create_model("llama")
+    cfg = spec.config
+    walls = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    res = {"card": card, "walls_s": walls,
+           "kernels": tp_kernel_readings(torch, pa)}
+    lap("kernels")
+    rng = np.random.default_rng(22)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in TP_PROMPT_LENS]
+    params16 = init_params(cfg, 0, device=TP_DEVICE, dtype="bfloat16")
+    res["ticks"] = tp_tick_readings(torch, spec, params16)
+    lap("ticks")
+    res["int8_logits"] = tp_int8_logits(torch, spec, params16)
+    # The bf16 lanes over int8 blocks: #4 (mixed) and #3 (two-path).
+    for name, kw, kernel, per in (
+            ("mixed int8 bf16 tp 2", dict(mixed_step=True,
+                                         mixed_token_budget=256),
+             "quant_ragged_paged_attention", 1),
+            ("two-path int8 bf16 tp 2", dict(step_chunk=TP_NEW),
+             "quant_paged_attention", TP_NEW)):
+        gen = tp_generator(spec, params16, 2, "bfloat16", kv_quantize="int8",
+                           **kw)
+        try:
+            run = tp_lane_run(torch, gen, name, 2, prompts[1:2], kernel, per)
+        finally:
+            gen.stop()
+        res[name] = {k: v for k, v in run.items() if k != "tokens"}
+    del params16
+    lap("int8")
+    params32 = init_params(cfg, 0, device=TP_DEVICE, dtype="float32")
+    mixed = dict(mixed_step=True, mixed_token_budget=256)
+    gens = {}
+    try:
+        for name, n, kw, kernel, per in (
+                ("mixed f32 tp 1", 1, mixed, "ragged_paged_attention", 1),
+                ("mixed f32 tp 2", 2, mixed, "ragged_paged_attention", 1),
+                ("mixed f32 tp 4", 4, mixed, "ragged_paged_attention", 1),
+                ("two-path f32 tp 1", 1, dict(step_chunk=TP_NEW),
+                 "paged_attention", TP_NEW),
+                ("two-path f32 tp 2", 2, dict(step_chunk=TP_NEW),
+                 "paged_attention", TP_NEW)):
+            gens[name] = tp_generator(spec, params32, n, "float32", **kw)
+            res[name] = tp_lane_run(torch, gens[name], name, n, prompts,
+                                    kernel, per)
+        base = res["mixed f32 tp 1"]["tokens"]
+        for name in ("mixed f32 tp 2", "mixed f32 tp 4"):
+            check(res[name]["tokens"] == base,
+                  f"tp {name}: streams differ from tp 1: "
+                  f"{res[name]['tokens']} != {base}")
+        check(res["two-path f32 tp 2"]["tokens"]
+              == res["two-path f32 tp 1"]["tokens"],
+              "tp two-path f32 tp 2: streams differ from tp 1")
+        log(f"tp: f32 greedy streams at tp 2 and 4 (mixed) and tp 2 "
+            f"(two-path) token-identical to tp 1 ({len(prompts)} prompts "
+            f"x {TP_NEW} tokens, each alone); two-path equal to mixed: "
+            f"{res['two-path f32 tp 1']['tokens'] == base}")
+        lap("lanes")
+        gens["dst"] = tp_generator(spec, params32, 2, "float32", **mixed)
+        res["migration"] = tp_migration(
+            gens["mixed f32 tp 2"], gens["dst"], gens["mixed f32 tp 1"],
+            prompts[1][::-1])
+        for name, gen in gens.items():
+            pool = gen.stats()["kv_pool"]
+            check(pool["blocks_free"] + pool["radix_nodes"]
+                  == pool["blocks_total"], f"tp {name}: blocks leaked")
+    finally:
+        for gen in gens.values():
+            gen.stop()
+    lap("migration")
+    res["http"] = tp_http(torch, spec, params32, prompts[0],
+                          res["mixed f32 tp 2"]["tokens"][0])
+    lap("http")
+    log(f"tp phase walls (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+    for name in list(res):
+        if isinstance(res[name], dict) and "tokens" in res[name]:
+            res[name] = {k: v for k, v in res[name].items()
+                         if k != "tokens"}
+    return res
 
 
 def leaves(tree) -> list:
@@ -9602,7 +10099,8 @@ def main() -> int:
                 "moe": lambda: phase_moe(torch, card),
                 "batch": lambda: phase_batch(torch, card),
                 "combined": lambda: phase_combined(torch, card),
-                "elastic": lambda: phase_elastic(torch, card)}
+                "elastic": lambda: phase_elastic(torch, card),
+                "tp": lambda: phase_tp(torch, card, pa)}
         res = timed(name, only[name])
         (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
             res, indent=1, default=str))
@@ -9639,6 +10137,9 @@ def main() -> int:
     combined = timed("combined", phase_combined, torch, card)
     # The elastic fleet and the stall watchdog over in-process lanes (#1).
     elastic = timed("elastic", phase_elastic, torch, card)
+    # Tensor-parallel serving: TinyLlama lanes at tp 1, 2 and 4 with every
+    # rank on the one card (#1-#4 at the ranks' shapes).
+    tp = timed("tp", phase_tp, torch, card, pa)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -9742,6 +10243,18 @@ def main() -> int:
         if name == "ragged_paged_attention":
             rows[-1]["elastic"] = {"launches": elastic["launches"],
                                    "ticks": elastic["ticks"]}
+        # The tp phase's launches (tp x 22 a step) and the kernel's
+        # readings at the ranks' shapes.
+        if name in tp["kernels"]:
+            runs = {lane: {f: tp[lane][f] for f in ("launches", "steps")}
+                    for lane in tp if isinstance(tp[lane], dict)
+                    and "launches" in tp[lane] and "steps" in tp[lane]
+                    and tp[lane].get("kernel") == name}
+            rows[-1]["tp"] = {"lanes": runs, "rank_shapes": {
+                k: {f: v[f] for f in ("max_abs_err", "device_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_device_ms")}
+                for k, v in tp["kernels"][name].items()}}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -9768,7 +10281,7 @@ def main() -> int:
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
          "moe": moe, "batch": batch, "combined": combined,
-         "elastic": elastic, "train": train,
+         "elastic": elastic, "tp": tp, "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))

@@ -672,11 +672,11 @@ def test_serve_argv_maps_onto_the_jax_fields(monkeypatch, case):
     ["--autoscale"], ["--autoscale-max-lanes", "3"], ["--autoscale-slo-feed"],
 ], ids=lambda a: a[0])
 def test_serve_unported_flags_refuse_by_name(monkeypatch, argv):
-    """``--mesh`` and ``--tp`` refuse by name. The others refused until
-    the stall watchdog and the elastic fleet were ported: each now
-    reaches the WorkerConfig or GatewayConfig field the JAX command
-    sets."""
-    if argv[0] in ("--mesh", "--tp"):
+    """``--mesh`` refuses by name. The others refused until the stall
+    watchdog, the elastic fleet and tensor-parallel serving were ported:
+    each now reaches the WorkerConfig or GatewayConfig field the JAX
+    command sets."""
+    if argv[0] == "--mesh":
         with pytest.raises(NotImplementedError, match=argv[0]):
             cli.serve_args(argv)
         with pytest.raises(NotImplementedError, match=argv[0]):

@@ -206,7 +206,12 @@ def test_construction_without_device_raises_here(spec, tparams):
     pytest.param(dict(state_rows=4), ValueError,
                  "state_rows applies to the state_slab family",
                  id="overrides4-NotImplementedError-state_slab"),
-    (dict(tp=2), NotImplementedError, "tensor-parallel"),
+    # Tensor parallelism is ported; what still refuses is tp beside a
+    # single `device` (the ranks take tp_devices), with the JAX
+    # scheduler's message. The case keeps the id it had while tp refused
+    # as unported.
+    pytest.param(dict(tp=2), ValueError, "mutually exclusive",
+                 id="overrides5-NotImplementedError-tensor-parallel"),
 ])
 def test_unported_modes_refuse(spec, tparams, overrides, exc, match):
     with pytest.raises(exc, match=match):

@@ -379,9 +379,19 @@ def test_spec_lane_refusals(spec, tparams):
                        match="state_rows applies to the state_slab family"):
         ContinuousGenerator(spec, params=tparams, device="cpu", spec_k=2,
                             **dict(KW, state_rows=2))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # Tensor parallelism is ported: tp beside a single `device` refuses
+    # (the JAX scheduler's message), and a tp 2 spec lane builds on its
+    # ranks' devices.
+    with pytest.raises(ValueError, match="mutually exclusive"):
         ContinuousGenerator(spec, params=tparams, device="cpu", spec_k=2,
                             **dict(KW, tp=2))
+    sharded = ContinuousGenerator(spec, params=tparams, spec_k=2,
+                                  tp_devices=["cpu"] * 2, **dict(KW, tp=2))
+    try:
+        assert sharded.stats()["spec"]["k"] == 2
+        assert sharded.stats()["kv_pool"]["tp"] == 2
+    finally:
+        sharded.stop()
     # The host tier is ported: a spec lane builds with it.
     tiered = ContinuousGenerator(spec, params=tparams, device="cpu",
                                  spec_k=2, **dict(KW, kv_host_blocks=4))

@@ -50,8 +50,11 @@ def _make_bert(name: str, cfg: TransformerConfig, seq_len: int,
         mask = (tokens > 0).to(torch.int32)
         return transformer_apply(params, tokens, cfg, mask=mask, dtype=dtype)
 
+    # The JAX registry's declaration: the encoder's blocks take the
+    # transformer families' named layout.
     return ModelSpec(name, cfg, apply=apply, input_shape=(seq_len,),
-                     output_shape=(seq_len, n_outputs), init_fn=init)
+                     output_shape=(seq_len, n_outputs), init_fn=init,
+                     tp_rule="transformer")
 
 
 @register("bert")

@@ -93,6 +93,21 @@ def params_from_jax(tree, cfg: Optional[TransformerConfig] = None,
     return out
 
 
+def tp_params_from_jax(tree, spec, devices, dtype="float32"):
+    """The JAX package's param pytree (numpy arrays) sharded for tensor-
+    parallel serving over ``devices`` (one rank each): a
+    ``models.transformer.TPParams`` of the per-rank trees that
+    ``models.registry.tp_rank_trees`` cuts from ``params_from_jax``'s
+    tree, each on its rank's device."""
+    from tpu_engine_torch.models.registry import tp_rank_trees
+    from tpu_engine_torch.models.transformer import TPParams
+    from tpu_engine_torch.parallel.mesh import TPGroup
+
+    group = TPGroup(devices)
+    params = params_from_jax(tree, spec.config, group.home, dtype)
+    return TPParams(tp_rank_trees(spec, params, group.devices), group)
+
+
 def ssd_params_from_jax(tree, cfg, device=None):
     """The JAX package's ``ssd_init`` tree as numpy arrays to the port's
     recurrent-decoder tree on ``device``: the stacked (L, ...) ``blocks``

@@ -22,7 +22,10 @@ plain transformer of its config (``models.convert.init_params``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import re
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from tpu_engine_torch.models.transformer import TransformerConfig
 
@@ -109,14 +112,170 @@ class ModelSpec:
         return n
 
 
+# -- tensor-parallel partition rules ------------------------------------------
+#
+# The JAX registry's rules, ending in per-rank parameter trees instead of
+# NamedShardings. A rule is a list of (regex over the '/'-joined leaf
+# path, spec tail) pairs, first match wins; the tail is right-aligned onto
+# the leaf's shape (the port's per-layer ``blocks`` leaves lack JAX's
+# leading L axis, which no tail names), and "model" marks the sharded dim.
+# The transformer families' Megatron placement: QKV and the MLP
+# up-projections shard their output dim (column parallel), the attention
+# output and the MLP down-projection their input dim (row parallel: the
+# forward sums the ranks' partials), the LM head its vocab dim; norms,
+# embeddings, the row-parallel biases and the MoE expert banks replicate.
+_TRANSFORMER_TP_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
+    (r"attn/w[qkv]/kernel$", (None, "model")),
+    (r"attn/w[qkv]/bias$", ("model",)),
+    (r"attn/wo/kernel$", ("model", None)),
+    (r"mlp/(fc|gate|up)/kernel$", (None, "model")),
+    (r"mlp/(fc|gate|up)/bias$", ("model",)),
+    (r"mlp/proj/kernel$", ("model", None)),
+    (r"head/kernel$", (None, "model")),
+    (r"head/bias$", ("model",)),
+    (r".*", ()),
+]
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(path, leaf) pairs of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _map_named(fn, tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_named(fn, v, f"{prefix}{i}/")
+                for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def _refuse_quantized(params) -> None:
+    """Weight-quantized trees refuse tensor parallelism (the JAX
+    registry's message): int8 kernels and their per-channel scales would
+    shard along mismatched axes or silently replicate."""
+    from tpu_engine_torch.ops.quant import tree_is_quantized
+
+    if tree_is_quantized(params):
+        raise RuntimeError(
+            "tensor-parallel sharding cannot place a weight-quantized "
+            "param tree (ops.quant kernel_q/wi_q leaves): the TP "
+            "partition rules target full-precision kernels. Use int8 "
+            "weight quantization OR tensor parallelism per deployment, "
+            "not both.")
+
+
+def _match_rules_dims(rules, params, tp: int):
+    """(regex, tail) rules + a parameter tree -> the tree of each leaf's
+    sharded dim (None: replicated). A sharded dim that does not divide by
+    ``tp`` replicates its leaf (gpt2's 50257-wide head stays whole)."""
+
+    def dim_for(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        nd = len(shape)
+        for pat, tail in rules:
+            if re.search(pat, name):
+                if nd < len(tail):
+                    return None
+                spec = (None,) * (nd - len(tail)) + tuple(tail)
+                for dim, t in enumerate(spec):
+                    if t is not None:
+                        return dim if shape[dim] % tp == 0 else None
+                return None
+        return None
+
+    return _map_named(dim_for, params)
+
+
+def _transformer_tp_rule(params, tp: int):
+    _refuse_quantized(params)
+    return _match_rules_dims(_TRANSFORMER_TP_RULES, params, tp)
+
+
+def _dense_output_tp_rule(params, tp: int):
+    """The generic rule for models without a named layout (mlp, resnet,
+    ONNX graphs), the JAX registry's: kernels of 2+ dims shard their
+    output-feature dim, divisible 1-D leaves of more than one element
+    shard, the rest replicates. The output-feature dim is JAX's last one;
+    a port conv kernel is OIHW, so its output channels are dim 0."""
+    _refuse_quantized(params)
+
+    def dim_for(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if len(shape) >= 2:
+            dim = 0 if len(shape) == 4 else len(shape) - 1
+            return dim if shape[dim] % tp == 0 else None
+        if len(shape) == 1 and shape[0] % tp == 0 and shape[0] > 1:
+            return 0
+        return None
+
+    return _map_named(dim_for, params)
+
+
+# name -> callable(params, tp) -> tree of sharded dims (None: replicated).
+TP_RULES: Dict[str, Callable] = {
+    "transformer": _transformer_tp_rule,
+    "dense_output": _dense_output_tp_rule,
+}
+
+
 def tp_unshardable_reason(spec) -> Optional[str]:
     """The declared reason ``spec`` cannot shard tensor-parallel (its
-    ``tp_rule`` is "unshardable:<reason>"), or None."""
+    ``tp_rule`` is "unshardable:<reason>", or a rule no table names), or
+    None when its rule resolves. Bare stand-in specs default to the
+    transformer layout, as in the JAX registry."""
     rule = getattr(spec, "tp_rule", "") or "transformer"
     if rule.startswith("unshardable"):
         _, _, reason = rule.partition(":")
         return reason.strip() or "model declares itself unshardable"
+    if rule not in TP_RULES:
+        return f"unknown TP partition rule {rule!r}"
     return None
+
+
+def tp_shard_dims(spec, params, tp: int):
+    """Resolve ``spec.tp_rule`` over ``params`` for ``tp`` ranks: the tree
+    of each leaf's sharded dim (None: replicated). Raises RuntimeError
+    (the JAX registry's message) for an unshardable or unknown rule."""
+    reason = tp_unshardable_reason(spec)
+    if reason is not None:
+        raise RuntimeError(
+            f"model '{getattr(spec, 'name', '?')}' cannot be "
+            f"tensor-parallel sharded: {reason}")
+    rule = getattr(spec, "tp_rule", "") or "transformer"
+    return TP_RULES[rule](params, int(tp))
+
+
+def tp_rank_trees(spec, params, devices) -> list:
+    """The per-rank parameter trees of ``params`` over ``devices`` (one
+    rank each; the counterpart of placing the tree by JAX's
+    ``tp_shardings``): rank r's leaf is the r-th contiguous chunk of its
+    sharded dim, or the whole leaf where it replicates, on
+    ``devices[r]``. A replicated leaf already on its rank's device is
+    shared, not copied."""
+    devices = [torch.device(d) for d in devices]
+    tp = len(devices)
+    dims = dict(_named_leaves(tp_shard_dims(spec, params, tp)))
+
+    def rank_tree(r):
+        def place(name, leaf):
+            dim = dims[name]
+            if dim is not None:
+                leaf = leaf.chunk(tp, dim)[r]
+            leaf = leaf.to(devices[r])
+            return leaf.contiguous() if dim is not None else leaf
+        return _map_named(place, params)
+
+    return [rank_tree(r) for r in range(tp)]
 
 
 _REGISTRY: Dict[str, Callable[..., ModelSpec]] = {}

@@ -99,6 +99,17 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+class TPParams(NamedTuple):
+    """A decoder sharded over a tensor-parallel group
+    (``parallel.mesh.TPGroup``): ``ranks[r]`` is rank r's parameter tree
+    on ``group.devices[r]`` (``models.registry.tp_rank_trees``). The
+    serving forwards take it in place of a parameter tree, with caches
+    sharded on H_kv: a ``KVCache`` whose fields hold one tensor per
+    rank."""
+    ranks: list
+    group: object
+
+
 def init_caches(cfg: TransformerConfig, batch: int,
                 max_seq: Optional[int] = None, dtype=torch.bfloat16,
                 device=None) -> KVCache:
@@ -134,12 +145,17 @@ def _mlp(params, h, dtype, cfg: TransformerConfig):
     return nn.dense(params["proj"], h, dtype=dtype)
 
 
-def _project_qkv(bp, x, cfg: TransformerConfig, *, dtype, positions):
-    q = _split_heads(nn.dense(bp["attn"]["wq"], x, dtype=dtype), cfg.n_heads)
+def _project_qkv(bp, x, cfg: TransformerConfig, *, dtype, positions,
+                 tp: int = 1):
+    """Q, K, V (B, T, heads, D) of the block, rope applied. ``tp`` > 1:
+    a tensor-parallel rank's projection onto its H/tp query and H_kv/tp
+    KV heads."""
+    q = _split_heads(nn.dense(bp["attn"]["wq"], x, dtype=dtype),
+                     cfg.n_heads // tp)
     k = _split_heads(nn.dense(bp["attn"]["wk"], x, dtype=dtype),
-                     cfg.kv_heads)
+                     cfg.kv_heads // tp)
     v = _split_heads(nn.dense(bp["attn"]["wv"], x, dtype=dtype),
-                     cfg.kv_heads)
+                     cfg.kv_heads // tp)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -267,13 +283,21 @@ def transformer_step_rows_ragged(params, tokens, caches: KVCache, tables,
     head multiplies (B, d) and not (B*W, d). ``sample_width`` > 1 widens
     the gather to slots sample_slot..sample_slot + width - 1 (clipped to
     W-1). Returns (logits (B, vocab), caches), or (B, sample_width, vocab)
-    when sample_width > 1, or (B, W, vocab) without ``sample_slot``."""
+    when sample_width > 1, or (B, W, vocab) without ``sample_slot``.
+
+    A ``TPParams`` model runs the tensor-parallel form over the sharded
+    pool (``caches`` and ``scales`` with one tensor per rank)."""
     _check_paged(cfg)
     if attn_fn is None:
         from tpu_engine_torch.ops import paged_attention as pa
 
         attn_fn = (pa.ragged_paged_attention if scales is None
                    else pa.quant_ragged_paged_attention)
+    if isinstance(params, TPParams):
+        return _tp_step_rows_ragged(
+            params, tokens, caches, tables, pos0, qlen, cfg, dtype=dtype,
+            attn_fn=attn_fn, sample_slot=sample_slot,
+            sample_width=sample_width, scales=scales)
     b, w = tokens.shape
     logical = pos0[:, None].long() + torch.arange(w, device=tokens.device)
     h = _embed(params, tokens, logical, cfg, dtype)
@@ -282,18 +306,27 @@ def transformer_step_rows_ragged(params, tokens, caches: KVCache, tables,
             bp, h, caches.k[li], caches.v[li], tables, pos0, qlen, cfg,
             dtype=dtype, attn_fn=attn_fn,
             scales=None if scales is None else (scales.k[li], scales.v[li]))
-    if sample_slot is not None:
-        slots = torch.clamp(
-            sample_slot[:, None].long()
-            + torch.arange(sample_width, device=h.device)[None, :],
-            max=w - 1)
-        h = h[torch.arange(b, device=h.device)[:, None], slots]  # (B, S, d)
+    h = _sample_slots(h, sample_slot, sample_width)
     logits = _head(params, h, cfg, dtype)
     if sample_slot is not None and sample_width == 1:
         logits = logits[:, 0]
     if scales is not None:
         return logits, caches, scales
     return logits, caches
+
+
+def _sample_slots(h, sample_slot, sample_width: int):
+    """The hidden states (B, S, d) of slots sample_slot..sample_slot +
+    width - 1 of each row (clipped to W - 1), or all of ``h`` when
+    ``sample_slot`` is None."""
+    if sample_slot is None:
+        return h
+    b, w = h.shape[:2]
+    slots = torch.clamp(
+        sample_slot[:, None].long()
+        + torch.arange(sample_width, device=h.device)[None, :],
+        max=w - 1)
+    return h[torch.arange(b, device=h.device)[:, None], slots]
 
 
 def _block_decode_rows_paged(bp, h, ck, cv, tables, pos_vec,
@@ -335,13 +368,19 @@ def transformer_decode_rows_paged(params, token_t, caches: KVCache, tables,
     ``attn_fn`` defaults to ``ops.paged_attention.paged_attention`` (the
     CUDA kernel on CUDA tensors), or with ``scales`` (the int8 pool's
     scales, updated in place) to ``quant_paged_attention``. Returns
-    (logits (B, vocab), caches), or (logits, caches, scales)."""
+    (logits (B, vocab), caches), or (logits, caches, scales). A
+    ``TPParams`` model runs the tensor-parallel form over the sharded
+    pool."""
     _check_paged(cfg)
     if attn_fn is None:
         from tpu_engine_torch.ops import paged_attention as pa
 
         attn_fn = (pa.paged_attention if scales is None
                    else pa.quant_paged_attention)
+    if isinstance(params, TPParams):
+        return _tp_decode_rows_paged(params, token_t, caches, tables,
+                                     pos_vec, cfg, dtype=dtype,
+                                     attn_fn=attn_fn, scales=scales)
     h = _embed(params, token_t[:, None], pos_vec[:, None], cfg, dtype)
     for li, bp in enumerate(params["blocks"]):
         h = _block_decode_rows_paged(
@@ -367,7 +406,21 @@ def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
     offs = torch.arange(w, device=h.device)[None, :]
     logical = (pos_vec - start_vec).long()[:, None] + offs
     q, k, v = _project_qkv(bp, x, cfg, dtype=dtype, positions=logical)
-    rows = torch.arange(b, device=h.device)[:, None]
+    a = _window_write_attend(q, k, v, ck, cv, pos_vec, start_vec, cfg,
+                             drop_past=drop_past)
+    h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, w, -1), dtype=dtype)
+    h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+    return h.to(dtype)
+
+
+def _window_write_attend(q, k, v, ck, cv, pos_vec, start_vec,
+                         cfg: TransformerConfig, *, drop_past):
+    """A window's K/V written into the row cache ck/cv (B, S, H_kv, D) at
+    columns [pos_vec, pos_vec + W), then its queries' attention over the
+    cache (see ``_block_decode_window``)."""
+    b, w = q.shape[:2]
+    offs = torch.arange(w, device=q.device)[None, :]
+    rows = torch.arange(b, device=q.device)[:, None]
     cols = pos_vec.long()[:, None] + offs                    # (B, W)
     if drop_past:
         # A column past the cache is dropped, as JAX's scatter drops it:
@@ -381,15 +434,12 @@ def _block_decode_window(bp, h, ck, cv, pos_vec, start_vec,
     else:
         ck[rows, cols] = k.to(ck.dtype)
         cv[rows, cols] = v.to(cv.dtype)
-    kpos = torch.arange(ck.shape[1], device=h.device)[None, None, :]
+    kpos = torch.arange(ck.shape[1], device=q.device)[None, None, :]
     valid = ((kpos <= cols[:, :, None])
              & (kpos >= start_vec.long()[:, None, None]))
     if cfg.sliding_window is not None:
         valid = valid & (kpos > cols[:, :, None] - cfg.sliding_window)
-    a = dot_product_attention(q, ck, cv, mask=valid.to(torch.int32))
-    h = h + nn.dense(bp["attn"]["wo"], a.reshape(b, w, -1), dtype=dtype)
-    h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
-    return h.to(dtype)
+    return dot_product_attention(q, ck, cv, mask=valid.to(torch.int32))
 
 
 def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
@@ -406,10 +456,15 @@ def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
     where logits[:, i] predicts the token after tokens[:, i]. Callers keep
     pos_vec + W <= S, or pass ``drop_past`` to drop the writes past the
     cache (the batch speculative loop's finished rows make such writes;
-    their outputs are discarded)."""
+    their outputs are discarded). A ``TPParams`` model runs the
+    tensor-parallel form over per-rank row caches (``tp_init_caches``)."""
     _check_dialect(cfg)
     if start_vec is None:
         start_vec = torch.zeros_like(pos_vec)
+    if isinstance(params, TPParams):
+        return _tp_decode_window(params, tokens, caches, pos_vec, cfg,
+                                 dtype=dtype, start_vec=start_vec,
+                                 head=head, drop_past=drop_past)
     w = tokens.shape[1]
     logical = ((pos_vec - start_vec).long()[:, None]
                + torch.arange(w, device=tokens.device)[None, :])
@@ -426,6 +481,7 @@ def transformer_decode_window(params, tokens, caches: KVCache, pos_vec,
 
 
 # -- full-sequence forward and the dense scheduler's paths ---------------------
+
 
 def _band(cfg: TransformerConfig) -> dict:
     """The sliding band, passed only when the config has one, so an
@@ -510,12 +566,18 @@ def transformer_prefill(params, tokens, caches: KVCache,
     from 0 at its first real token, so every row ends at column S-1. Pad
     query rows attend nothing and give 0; their K/V land in columns the
     decode step masks (below the row's start). ``attn_fn`` defaults to
-    ``ops.flash.flash_attention``: causal, the padding mask and the band."""
+    ``ops.flash.flash_attention``: causal, the padding mask and the band.
+    A ``TPParams`` model runs the tensor-parallel form over per-rank
+    caches."""
     _check_dialect(cfg)
     attn_fn = attn_fn or flash_attention
     s = tokens.shape[1]
     positions = (torch.arange(s, device=tokens.device)[None, :]
                  if pos_ids is None else pos_ids)
+    if isinstance(params, TPParams):
+        return _tp_prefill(params, tokens, caches, cfg, dtype=dtype,
+                           attn_mask=attn_mask, positions=positions,
+                           attn_fn=attn_fn)
     h = _embed(params, tokens, positions, cfg, dtype)
     n_rep = cfg.n_heads // cfg.kv_heads
     for li, bp in enumerate(params["blocks"]):
@@ -597,3 +659,211 @@ def transformer_decode_step(params, token_t, caches: KVCache, pos: int,
     return transformer_decode_rows(params, token_t, caches, pos_vec, cfg,
                                    dtype=dtype, start_vec=start,
                                    pos_ids=pos_ids)
+
+
+# -- tensor-parallel serving forwards -----------------------------------------
+#
+# One rank per device of the group, driven from this one thread: each rank
+# projects Q/K/V onto its H/N query and H_kv/N KV heads, writes its K/V into
+# its own cache shard and runs its attention kernel there; its row of
+# ``wo`` (and of the FFN's ``proj``) gives a partial product, and the
+# ranks' partials are summed in rank order in f32 (``TPGroup.reduce_sum``)
+# before the bias, added once, and the residual add. The embeddings, norms
+# and the residual stream are replicated: they live on the group's home
+# device (rank 0's), which every rank reads. The LM head is vocab-sharded
+# where the vocab divides (logits gathered in rank order), else rank 0's
+# replicated head computes it whole. An MoE block's experts are replicated
+# (the rule's catch-all): the FFN runs once on the replicated input, with
+# the router's expert-sharded gate gathered whole.
+
+
+def tp_init_caches(cfg: TransformerConfig, group, batch: int,
+                   max_seq: Optional[int] = None,
+                   dtype=torch.bfloat16) -> KVCache:
+    """Zeroed dense row caches for a tensor-parallel forward: rank r's
+    (L, batch, max_seq, H_kv/N, D) on ``group.devices[r]``."""
+    n = group.size
+    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq,
+             cfg.kv_heads // n, cfg.d_head)
+    return KVCache(
+        [torch.zeros(shape, dtype=dtype, device=d) for d in group.devices],
+        [torch.zeros(shape, dtype=dtype, device=d) for d in group.devices])
+
+
+def _tp_mlp(bps, x, dtype, cfg: TransformerConfig, group):
+    """The FFN over the group: column-parallel up-projections, the
+    activation per rank, row-parallel ``proj`` partials summed; whole on
+    rank 0 where ``d_ff`` does not divide (the rule replicated it); an
+    MoE FFN once, on the replicated input."""
+    if cfg.n_experts > 0:
+        mp = dict(bps[0]["mlp"])
+        gates = [bp["mlp"]["gate"]["kernel"] for bp in bps]
+        if gates[0].shape[-1] != cfg.n_experts:
+            mp["gate"] = dict(mp["gate"], kernel=group.gather_last(gates))
+        return moe_apply(mp, x, cfg.moe, dtype=dtype)
+    if bps[0]["mlp"]["proj"]["kernel"].shape[0] == cfg.d_ff:
+        return _mlp(bps[0]["mlp"], x, dtype, cfg)
+    parts = []
+    for r, bp in enumerate(bps):
+        mp, xr = bp["mlp"], group.to_rank(r, x)
+        if cfg.mlp_act == "swiglu":
+            hr = (nn.silu(nn.dense(mp["gate"], xr, dtype=dtype))
+                  * nn.dense(mp["up"], xr, dtype=dtype))
+        else:
+            hr = nn.gelu(nn.dense(mp["fc"], xr, dtype=dtype),
+                         approximate=cfg.gelu_tanh)
+        parts.append(nn.dense(mp["proj"], hr, dtype=dtype, bias=False))
+    return group.reduce_sum(parts) + bps[0]["mlp"]["proj"]["bias"]
+
+
+def _tp_block(tp: TPParams, li: int, h, cfg: TransformerConfig, *, dtype,
+              positions, attend):
+    """One pre-LN layer over the group. ``attend(r, q, k, v)`` writes rank
+    r's K/V into its cache shard and returns its heads' attention
+    (B, T, H/N, D)."""
+    group = tp.group
+    bps = [rp["blocks"][li] for rp in tp.ranks]
+    b, t = h.shape[:2]
+    x = _norm(bps[0]["ln1"], h, cfg)
+    parts = []
+    for r, bp in enumerate(bps):
+        q, k, v = _project_qkv(bp, group.to_rank(r, x), cfg, dtype=dtype,
+                               positions=group.to_rank(r, positions),
+                               tp=group.size)
+        a = attend(r, q, k, v).to(dtype)
+        parts.append(nn.dense(bp["attn"]["wo"], a.reshape(b, t, -1),
+                              dtype=dtype, bias=False))
+    h = h + (group.reduce_sum(parts) + bps[0]["attn"]["wo"]["bias"])
+    h = h + _tp_mlp(bps, _norm(bps[0]["ln2"], h, cfg), dtype, cfg, group)
+    return h.to(dtype)
+
+
+def _tp_head(tp: TPParams, h, cfg: TransformerConfig, dtype):
+    rp0, group = tp.ranks[0], tp.group
+    if not cfg.post_ln:
+        h = _norm(rp0["ln_f"], h, cfg)
+    if rp0["head"]["kernel"].shape[-1] == cfg.vocab:
+        return nn.dense(rp0["head"], h, dtype=dtype).float()
+    return group.gather_last([
+        nn.dense(rp["head"], group.to_rank(r, h), dtype=dtype)
+        for r, rp in enumerate(tp.ranks)]).float()
+
+
+def _tp_layer_scales(scales, r: int, li: int):
+    return None if scales is None else (scales.k[r][li], scales.v[r][li])
+
+
+def _tp_step_rows_ragged(tp: TPParams, tokens, caches: KVCache, tables,
+                         pos0, qlen, cfg: TransformerConfig, *, dtype,
+                         attn_fn, sample_slot, sample_width, scales):
+    """``transformer_step_rows_ragged`` over the group: the ragged read
+    launched per rank and layer on the rank's pool shard."""
+    group = tp.group
+    b, w = tokens.shape
+    bs = caches.k[0].shape[2]
+    offs = torch.arange(w, device=tokens.device)[None, :]
+    logical = pos0[:, None].long() + offs                      # (B, W)
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    cols = torch.clamp(logical, max=tables.shape[1] * bs - 1)
+    blk = tables.long()[rows, cols // bs]
+    blk = torch.where(offs < qlen[:, None].long(), blk, 0)
+    on = [[group.to_rank(r, t) for t in (blk, cols % bs, tables, pos0, qlen)]
+          for r in range(group.size)]
+    h = _embed(tp.ranks[0], tokens, logical, cfg, dtype)
+    for li in range(cfg.n_layers):
+        def attend(r, q, k, v, li=li):
+            blk_r, off_r, tables_r, pos0_r, qlen_r = on[r]
+            ck, cv = caches.k[r][li], caches.v[r][li]
+            sc = _tp_layer_scales(scales, r, li)
+            _write_kv(ck, cv, sc, blk_r, off_r, k, v)
+            if sc is None:
+                return attn_fn(q, ck, cv, tables_r, pos0_r, qlen_r)
+            return attn_fn(q, ck, cv, sc[0], sc[1], tables_r, pos0_r,
+                           qlen_r)
+        h = _tp_block(tp, li, h, cfg, dtype=dtype, positions=logical,
+                      attend=attend)
+    logits = _tp_head(tp, _sample_slots(h, sample_slot, sample_width), cfg,
+                      dtype)
+    if sample_slot is not None and sample_width == 1:
+        logits = logits[:, 0]
+    if scales is not None:
+        return logits, caches, scales
+    return logits, caches
+
+
+def _tp_decode_rows_paged(tp: TPParams, token_t, caches: KVCache, tables,
+                          pos_vec, cfg: TransformerConfig, *, dtype,
+                          attn_fn, scales):
+    """``transformer_decode_rows_paged`` over the group: the decode read
+    launched per rank and layer on the rank's pool shard."""
+    group = tp.group
+    bs = caches.k[0].shape[2]
+    rows = torch.arange(token_t.shape[0], device=token_t.device)
+    pos = pos_vec.long()
+    blk = tables.long()[rows, pos // bs]
+    on = [[group.to_rank(r, t) for t in (blk, pos % bs, tables, pos_vec)]
+          for r in range(group.size)]
+    h = _embed(tp.ranks[0], token_t[:, None], pos_vec[:, None], cfg, dtype)
+    for li in range(cfg.n_layers):
+        def attend(r, q, k, v, li=li):
+            blk_r, off_r, tables_r, pos_r = on[r]
+            ck, cv = caches.k[r][li], caches.v[r][li]
+            sc = _tp_layer_scales(scales, r, li)
+            _write_kv(ck, cv, sc, blk_r, off_r, k[:, 0], v[:, 0])
+            if sc is None:
+                return attn_fn(q, ck, cv, tables_r, pos_r)
+            return attn_fn(q, ck, cv, sc[0], sc[1], tables_r, pos_r)
+        h = _tp_block(tp, li, h, cfg, dtype=dtype,
+                      positions=pos_vec[:, None].long(), attend=attend)
+    logits = _tp_head(tp, h, cfg, dtype)[:, 0]
+    if scales is not None:
+        return logits, caches, scales
+    return logits, caches
+
+
+def _tp_decode_window(tp: TPParams, tokens, caches: KVCache, pos_vec,
+                      cfg: TransformerConfig, *, dtype, start_vec, head,
+                      drop_past):
+    """``transformer_decode_window`` over the group, each rank on its own
+    row cache (``tp_init_caches``)."""
+    group = tp.group
+    w = tokens.shape[1]
+    logical = ((pos_vec - start_vec).long()[:, None]
+               + torch.arange(w, device=tokens.device)[None, :])
+    on = [[group.to_rank(r, t) for t in (pos_vec, start_vec)]
+          for r in range(group.size)]
+    h = _embed(tp.ranks[0], tokens, logical, cfg, dtype)
+    for li in range(cfg.n_layers):
+        def attend(r, q, k, v, li=li):
+            return _window_write_attend(q, k, v, caches.k[r][li],
+                                        caches.v[r][li], *on[r], cfg,
+                                        drop_past=drop_past)
+        h = _tp_block(tp, li, h, cfg, dtype=dtype, positions=logical,
+                      attend=attend)
+    if head == "none":
+        return None, caches
+    if head == "last":
+        h = h[:, -1:]
+    return _tp_head(tp, h, cfg, dtype), caches
+
+
+def _tp_prefill(tp: TPParams, tokens, caches: KVCache,
+                cfg: TransformerConfig, *, dtype, attn_mask, positions,
+                attn_fn):
+    """``transformer_prefill`` over the group: the flash kernel per rank
+    and layer on the rank's heads, K/V into the rank's cache."""
+    group = tp.group
+    s = tokens.shape[1]
+    n_rep = cfg.n_heads // cfg.kv_heads
+    masks = [None if attn_mask is None else group.to_rank(r, attn_mask)
+             for r in range(group.size)]
+    h = _embed(tp.ranks[0], tokens, positions, cfg, dtype)
+    for li in range(cfg.n_layers):
+        def attend(r, q, k, v, li=li):
+            caches.k[r][li][:, :s] = k.to(caches.k[r].dtype)
+            caches.v[r][li][:, :s] = v.to(caches.v[r].dtype)
+            return attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                           causal=True, mask=masks[r], **_band(cfg))
+        h = _tp_block(tp, li, h, cfg, dtype=dtype, positions=positions,
+                      attend=attend)
+    return _tp_head(tp, h[:, -1:], cfg, dtype)[:, 0], caches

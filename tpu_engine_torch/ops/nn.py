@@ -64,9 +64,11 @@ class MatmulF32Out(torch.autograd.Function):
         return gx, gk
 
 
-def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None
-          ) -> torch.Tensor:
+def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+          bias: bool = True) -> torch.Tensor:
     """x @ kernel + bias with f32 accumulation and an f32 result.
+    ``bias=False`` leaves the bias out: a row-parallel rank's partial
+    product, whose bias is added once, after the ranks' sum.
 
     In f32 this is a plain matmul. In a narrower compute dtype the product
     is ``MatmulF32Out``, so the result is not rounded to the compute dtype
@@ -91,7 +93,9 @@ def dense(params, x: torch.Tensor, dtype: Optional[torch.dtype] = None
         y = _mm_f32_out(x2, kernel)
     if quantized:
         y = y * params["kernel_scale"]
-    return (y + params["bias"]).reshape(*lead, kernel.shape[-1])
+    if bias:
+        y = y + params["bias"]
+    return y.reshape(*lead, kernel.shape[-1])
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -23,6 +23,12 @@ format (counterpart of ``tpu_engine/runtime/kv_blocks.py``).
   int8), pinned when the pool lives on the card. The node stays in the
   tree; a later lookup with ``promote_reserve`` swaps the block back in
   instead of recomputing its prefill. A round trip is bit-exact.
+- Tensor-parallel pools (``tp_devices``): one set of block ids, one
+  radix tree and one host tier of bookkeeping over N payload shards, rank
+  r's (L, NB, bs, H_kv/N, D) tensor (and int8 scales) on its own device,
+  each contiguous (the kernels refuse strided views). Copy-on-write,
+  demotion and promotion copy every shard; the wire carries the whole
+  H_kv (the shards' heads concatenated in rank order) stamped with ``tp``.
 - Chain wire format (``export_chain`` / ``chain_compatible`` /
   ``verify_chain`` / ``import_chain``): a block chain as the JAX
   package's JSON-safe dict, byte for byte: the blocks' bytes verbatim in
@@ -309,12 +315,32 @@ class BlockPool:
 
     def __init__(self, cfg: TransformerConfig, num_blocks: int,
                  block_size: int, dtype: torch.dtype = torch.bfloat16,
-                 device=None, host_blocks: int = 0, quantize: str = ""):
+                 device=None, host_blocks: int = 0, quantize: str = "",
+                 tp_devices: Optional[Sequence] = None):
+        """``tp_devices`` (tensor-parallel serving): one device per rank
+        (entries may repeat). The pool shards its H_kv axis over them:
+        ``caches`` (and ``scales``) then hold one tensor per rank in each
+        field. ``kv_heads`` must divide by the degree; ``device`` and
+        ``tp_devices`` are exclusive."""
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         if quantize not in ("", "int8"):
             raise ValueError(f"unsupported KV quantize mode {quantize!r} "
                              "(only 'int8')")
+        self.tp = 1
+        if tp_devices is not None:
+            if device is not None:
+                raise ValueError("BlockPool: pass device OR tp_devices, not "
+                                 "both (the ranks own their placement)")
+            self.tp = len(tp_devices)
+            if cfg.kv_heads % self.tp:
+                raise ValueError(
+                    f"kv_heads={cfg.kv_heads} must divide by the "
+                    f"tensor-parallel degree {self.tp} (the pool shards its "
+                    f"H_kv axis)")
+            self.shard_devices = [resolve_device(d) for d in tp_devices]
+        else:
+            self.shard_devices = [resolve_device(device)]
         self.cfg = cfg
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
@@ -323,7 +349,7 @@ class BlockPool:
         self.quantized = quantize == "int8"
         self.io_dtype = dtype
         self.dtype = torch.int8 if self.quantized else dtype
-        self.device = resolve_device(device)
+        self.device = self.shard_devices[0]
         self.scales: Optional[KVCache] = None
         # Guards the bookkeeping. RLock: eviction runs inside alloc.
         self.lock = threading.RLock()
@@ -363,25 +389,45 @@ class BlockPool:
 
     def _init_device(self) -> KVCache:
         shape = (self.cfg.n_layers, self.num_blocks, self.block_size,
-                 self.cfg.kv_heads, self.cfg.d_head)
+                 self.cfg.kv_heads // self.tp, self.cfg.d_head)
+
+        def pair(fill, shp, dt):
+            made = [[fill(shp, dtype=dt, device=d)
+                     for d in self.shard_devices] for _ in range(2)]
+            return KVCache(*made) if self.tp > 1 else KVCache(
+                made[0][0], made[1][0])
+
         if self.quantized:
-            self.scales = KVCache(
-                torch.ones(shape[:-1], dtype=torch.float32,
-                           device=self.device),
-                torch.ones(shape[:-1], dtype=torch.float32,
-                           device=self.device))
-        return KVCache(torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device),
-                       torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device))
+            self.scales = pair(torch.ones, shape[:-1], torch.float32)
+        return pair(torch.zeros, shape, self.dtype)
 
     def _pool_tensors(self) -> List[torch.Tensor]:
-        """The pool's tensors, block axis 1: k, v (and the int8 pool's k
-        and v scales), in the chain's entry order."""
-        out = [self.caches.k, self.caches.v]
-        if self.quantized:
-            out += [self.scales.k, self.scales.v]
-        return out
+        """The pool's tensors, block axis 1: per rank k, v (and the int8
+        pool's k and v scales), the chain's entry order within a rank."""
+        parts = [self.caches] + ([self.scales] if self.quantized else [])
+        if self.tp == 1:
+            return [t for c in parts for t in c]
+        return [t for r in range(self.tp) for c in parts for t in
+                (c.k[r], c.v[r])]
+
+    def _whole(self, arrays: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-rank arrays in ``_pool_tensors`` order -> the whole
+        [k, v(, ks, vs)]: each kind's shards concatenated on its heads
+        axis (-2 of a payload, -1 of a scale) in rank order."""
+        if self.tp == 1:
+            return list(arrays)
+        n = 4 if self.quantized else 2
+        return [torch.cat(arrays[i::n], dim=-2 if i < 2 else -1)
+                for i in range(n)]
+
+    def _split(self, arrays: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``_whole``'s inverse: whole [k, v(, ks, vs)] -> per-rank
+        arrays in ``_pool_tensors`` order."""
+        if self.tp == 1:
+            return list(arrays)
+        chunks = [a.chunk(self.tp, dim=-2 if i < 2 else -1)
+                  for i, a in enumerate(arrays)]
+        return [c[r].contiguous() for r in range(self.tp) for c in chunks]
 
     # -- bookkeeping (hold self.lock) -----------------------------------------
 
@@ -541,14 +587,15 @@ class BlockPool:
         """Device blocks ``bids`` -> host tensors [k, v(, ks, vs)], each
         block-major (n, L, ...): one gather and one transfer per tensor,
         not one per block."""
-        ids = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        return [t[:, ids].transpose(0, 1).contiguous().cpu()
-                for t in self._pool_tensors()]
+        ids = torch.tensor(list(bids), dtype=torch.long)
+        return self._whole([
+            t[:, ids.to(t.device)].transpose(0, 1).contiguous().cpu()
+            for t in self._pool_tensors()])
 
     def _export_host_arrays(self, slot: int) -> List[torch.Tensor]:
         """A demoted node's block, straight from the host tier: no swap-
         in, no device traffic."""
-        return [host[slot] for host in self._host]
+        return self._whole([host[slot] for host in self._host])
 
     def export_chain(self, sources: Sequence,
                      trace: Optional[dict] = None) -> dict:
@@ -597,6 +644,11 @@ class BlockPool:
             "checksum": crc,
             "generation": self.generation,
         }
+        if self.tp > 1:
+            # The shard-geometry stamp, absent at tp 1 (that wire is the
+            # pre-TP one): a chain written under another partitioning
+            # refuses by name (chain_compatible) and the caller replays.
+            out["tp"] = self.tp
         if trace:
             out["trace"] = dict(trace)
         return out
@@ -605,10 +657,11 @@ class BlockPool:
         """None when ``chain`` can be imported into this pool verbatim,
         else the reason, as the JAX pool words it: the family (absent =
         ``kv_paged``), the geometry and storage dtype (an import never
-        requantizes), the shard degree (the port's pools are tp 1), and
+        requantizes), the shard degree (``tp``), and
         every block's structure (keys, exact decoded lengths), so a
         malformed chain is refused here and never reaches a device
-        write. An additive ``trace`` key is ignored."""
+        write. An additive ``trace`` key is ignored. A chain without a
+        ``tp`` stamp reads as tp 1."""
         fam = chain.get("family")
         if fam not in (None, "kv_paged"):
             return (f"chain family={fam!r} does not match destination "
@@ -627,9 +680,10 @@ class BlockPool:
             chain_tp = int(chain.get("tp", 1))
         except (TypeError, ValueError):
             return f"chain tp={chain.get('tp')!r} is not an integer"
-        if chain_tp != 1:
+        if chain_tp != self.tp:
             return (f"chain tp={chain_tp} does not match destination "
-                    f"pool tp=1 (tensor-parallel shard geometry)")
+                    f"pool tp={self.tp} (tensor-parallel shard "
+                    f"geometry)")
         slots = self.cfg.n_layers * self.block_size * self.cfg.kv_heads
         payload_len = slots * self.cfg.d_head * torch.empty(
             (), dtype=self.dtype).element_size()
@@ -700,12 +754,13 @@ class BlockPool:
         compatibility."""
         if not ids:
             return
-        per = [self._chain_block_arrays(chain, e) for e in entries]
-        dst = torch.tensor(list(ids), dtype=torch.long, device=self.device)
+        per = [self._split(self._chain_block_arrays(chain, e))
+               for e in entries]
+        dst = torch.tensor(list(ids), dtype=torch.long)
         for i, t in enumerate(self._pool_tensors()):
             # (n, L, ...) -> (L, n, ...): the pool's block axis.
-            t[:, dst] = torch.stack([p[i] for p in per], dim=1).to(
-                self.device)
+            t[:, dst.to(t.device)] = torch.stack(
+                [p[i] for p in per], dim=1).to(t.device)
 
     def reset(self) -> None:
         """Recovery after a failed device step: the pool tensors may hold
@@ -762,6 +817,12 @@ class BlockPool:
                 "radix_lookups": self.radix_lookups,
                 "radix_hits": self.radix_hits,
             }
+            if self.tp > 1:
+                # Present only in tensor-parallel pools, as in the JAX
+                # pool: the degree and one device's share of a block.
+                out["tp"] = self.tp
+                out["bytes_per_block_per_device"] = (
+                    self.bytes_per_block() // self.tp)
             if self.quantized:
                 # Present only in quantized pools, as in the JAX pool.
                 bpb = self.bytes_per_block()
@@ -975,10 +1036,26 @@ class StateSlabPool:
 
 # -- device-side block movement (two-path admission) --------------------------
 
+def _per_shard(fn, *args, ids, **kw):
+    """``fn`` over each tensor-parallel shard (args that are lists hold one
+    tensor per rank), ``ids`` on each shard's device; the results' fields
+    regathered into one sharded KVCache (or None)."""
+    outs = [fn(*[a[r] if isinstance(a, list) else a for a in args],
+               ids=ids.to(args[0][r].device), **kw)
+            for r in range(len(args[0]))]
+    if outs[0] is None:
+        return None
+    return KVCache([o.k for o in outs], [o.v for o in outs])
+
+
 def gather_blocks(pool_k, pool_v, ids) -> KVCache:
     """(L, NB, bs, H, D) pools + (nb,) block ids -> one row cache
     (L, 1, nb*bs, H, D): logical column j*bs+o reads pool[ids[j], o].
-    Null-block entries give columns the position mask must exclude."""
+    Null-block entries give columns the position mask must exclude.
+    Sharded pools (lists, one tensor per rank) give per-rank row
+    caches."""
+    if isinstance(pool_k, list):
+        return _per_shard(gather_blocks, pool_k, pool_v, ids=ids)
     n_layers, _, bs, h, d = pool_k.shape
     nb = ids.shape[0]
     return KVCache(pool_k[:, ids].reshape(n_layers, 1, nb * bs, h, d),
@@ -990,7 +1067,12 @@ def scatter_blocks(caches: KVCache, row_k, row_v, ids) -> None:
     ``ids``, in place. Radix-matched slots map to the null block 0, so a
     shared block is never rewritten; those duplicate indices make the
     write order into block 0 undefined, which is harmless because block 0
-    is never attended."""
+    is never attended. A sharded pool takes per-rank row caches."""
+    if isinstance(caches.k, list):
+        _per_shard(lambda k, v, rk, rv, ids: scatter_blocks(
+            KVCache(k, v), rk, rv, ids), caches.k, caches.v, row_k, row_v,
+            ids=ids)
+        return
     n_layers, nb = caches.k.shape[0], ids.shape[0]
     shape = (n_layers, nb) + tuple(caches.k.shape[2:])
     caches.k[:, ids] = row_k.reshape(shape).to(caches.k.dtype)
@@ -1001,6 +1083,9 @@ def gather_blocks_quant(pool_k, pool_v, k_scale, v_scale, ids, *,
                         dtype) -> KVCache:
     """``gather_blocks`` for the int8 pool: the gathered blocks dequantize
     (payload * per-slot scale) to ``dtype``; the pool is untouched."""
+    if isinstance(pool_k, list):
+        return _per_shard(gather_blocks_quant, pool_k, pool_v, k_scale,
+                          v_scale, ids=ids, dtype=dtype)
     n_layers, _, bs, h, d = pool_k.shape
     nb = ids.shape[0]
     k = dequantize_kv(pool_k[:, ids], k_scale[:, ids], dtype)
@@ -1015,6 +1100,11 @@ def scatter_blocks_quant(caches: KVCache, scales: KVCache, row_k, row_v,
     quantizes here, once, one int8 vector and f32 scale per (layer, slot,
     kv-head), and payload and scales are written together (null-block
     duplicates as in ``scatter_blocks``)."""
+    if isinstance(caches.k, list):
+        _per_shard(lambda k, v, sk, sv, rk, rv, ids: scatter_blocks_quant(
+            KVCache(k, v), KVCache(sk, sv), rk, rv, ids), caches.k,
+            caches.v, scales.k, scales.v, row_k, row_v, ids=ids)
+        return
     n_layers, nb = caches.k.shape[0], ids.shape[0]
     shape = (n_layers, nb) + tuple(caches.k.shape[2:])
     qk, sk = quantize_kv(row_k.reshape(shape))

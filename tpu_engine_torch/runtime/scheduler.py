@@ -95,8 +95,20 @@ serves a peer the longest radix chain of a token prefix,
 directory, and a miss carrying a ``prefix_hint`` fetches the hinted
 peer's chain (the ``prefix_fetch`` callable the worker installs) and
 splices it past the local match before prefilling the rest
-(``_fetch_prefix_splice``; every failure prefills locally). Tensor
-parallelism is not yet ported and refuses.
+(``_fetch_prefix_splice``; every failure prefills locally).
+
+Tensor-parallel serving (``tp`` > 1, paged only, the kv_paged family):
+the model is sharded by the registry's rule over ``tp`` ranks
+(``models.registry.tp_rank_trees``; one rank per entry of ``tp_devices``,
+by default the first ``tp`` CUDA devices) and the pool shards its H_kv
+axis (``BlockPool(tp_devices=...)``). The lane is still one scheduler: a
+tick is one forward, counted as one dispatch, in which each rank runs the
+attention kernel on its own heads and pool shard, per layer
+(``models.transformer.TPParams``), so a tick launches tp x layers
+kernels. Prefill windows, gathers, scatters, the host tier and the chain
+wire work per shard; sampling runs on the gathered logits on rank 0's
+device, where the drafter's model also lives. ``stats()`` carries the
+topology label under ``tp``.
 
 The state_slab family (``models.ssd``: mamba2, ssd-small-test) runs the
 same loop over a ``StateSlabPool`` instead of a KV cache: one fixed-size
@@ -168,6 +180,7 @@ import torch
 from tpu_engine_torch.models.registry import (
     ModelSpec,
     create_model,
+    tp_rank_trees,
     tp_unshardable_reason,
 )
 from tpu_engine_torch.models.ssd import (
@@ -177,13 +190,20 @@ from tpu_engine_torch.models.ssd import (
 )
 from tpu_engine_torch.models.transformer import (
     KVCache,
+    TPParams,
     TransformerConfig,
     init_caches,
+    tp_init_caches,
     transformer_decode_rows,
     transformer_decode_rows_paged,
     transformer_decode_window,
     transformer_prefill,
     transformer_step_rows_ragged,
+)
+from tpu_engine_torch.parallel.mesh import (
+    TPGroup,
+    tp_devices as resolve_tp_devices,
+    tp_topology_label,
 )
 from tpu_engine_torch.runtime.generator import (
     _sample,
@@ -368,11 +388,6 @@ class ImportRefused(RuntimeError):
     import_refused = True
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to "
-                              f"tpu_engine_torch")
-
-
 def spec_accept_emit(logits, tokens, sample_slot, fold0, n_draft, stoch,
                      active, done, seeds, temps, topps, topks, minps, eos,
                      counts=None, pens=None, stops=None):
@@ -485,11 +500,12 @@ class ContinuousGenerator:
         spec_draft_params=None,
         state_rows: int = 0,
         tp: int = 1,
+        tp_devices=None,
         infer_engine=None,
         score_provider=None,
     ):
-        """Arguments keep the JAX scheduler's names and meanings; the ones
-        of modes not yet ported refuse when set. ``kv_block_size`` 0 picks
+        """Arguments keep the JAX scheduler's names and meanings.
+        ``kv_block_size`` 0 picks
         the dense mode, > 0 the paged one, where ``mixed_step`` picks
         mixed stepping over two-path; ``step_chunk`` is the dense and
         two-path decode chunk's steps; ``prefix_cache_mb`` the dense
@@ -502,7 +518,11 @@ class ContinuousGenerator:
         ``spec_draft`` drafter ("ngram", or "model": ``spec_draft_model``
         with ``spec_draft_params``, its own seeded init when None).
         ``device`` defaults to the CUDA card; pass ``device="cpu"`` to run
-        the plain PyTorch paths on the CPU.
+        the plain PyTorch paths on the CPU. ``tp`` > 1 serves the model
+        tensor-parallel over ``tp_devices`` (entries may repeat, e.g.
+        ``["cpu"] * tp``; default the first ``tp`` CUDA devices), with the
+        JAX scheduler's fences: the paged cache only, ``device``
+        exclusive, unshardable families and too few devices refused.
 
         One-shot rows: ``infer_engine`` (a ``runtime.engine.
         InferenceEngine``) enables ``submit_infer``, ``score_provider`` (a
@@ -518,6 +538,7 @@ class ContinuousGenerator:
         # (one-shot rows only).
         self._stateless = model.state_family == "stateless"
         self._slab = model.state_family == "state_slab"
+        self._tp = int(tp)
         if self._stateless:
             self._fence_stateless(kv_block_size, kv_blocks, kv_host_blocks,
                                   kv_quantize, spec_k, mixed_step,
@@ -541,8 +562,26 @@ class ContinuousGenerator:
         if int(kv_host_blocks) > 0 and int(kv_block_size) <= 0:
             raise ValueError("kv_host_blocks requires the paged KV cache "
                              "(set kv_block_size > 0)")
-        if int(tp) > 1:
-            _refuse("tensor-parallel serving (tp)")
+        self._tp_group = None
+        if self._tp > 1:
+            # After the family fences: a slab model refuses tp by its
+            # pinned rule whatever else is set.
+            if device is not None:
+                raise ValueError(
+                    "tp > 1 builds its own device mesh; `device` is "
+                    "mutually exclusive with tensor-parallel serving")
+            if int(kv_block_size) <= 0:
+                raise ValueError(
+                    "tp > 1 requires the paged KV cache "
+                    "(set kv_block_size > 0): the dense per-slot cache "
+                    "has no sharded pool layout")
+            reason = tp_unshardable_reason(model)
+            if reason is not None:
+                raise RuntimeError(
+                    f"model '{model.name}' cannot serve "
+                    f"tensor-parallel (tp={self._tp}): {reason}")
+            self._tp_group = TPGroup(resolve_tp_devices(self._tp,
+                                                        tp_devices))
         cfg = model.config
         if not (self._stateless or self._slab) and (
                 not isinstance(cfg, TransformerConfig) or not cfg.causal):
@@ -550,7 +589,10 @@ class ContinuousGenerator:
                              f"transformer")
         self.spec = model
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # Rank 0's device under tp: the home of the replicated tensors
+        # (tokens, tables, logits, sampling state) and of the drafter.
+        self.device = (self._tp_group.home if self._tp_group is not None
+                       else resolve_device(device))
         self._dtype = resolve_dtype(dtype)
         if self._stateless:
             # One-shot rows have no sequence axis: max_seq only bounds the
@@ -580,6 +622,8 @@ class ContinuousGenerator:
         else:
             self.params = params if params is not None else model.init(
                 rng_seed, device=self.device, dtype=self._dtype)
+            if self._tp_group is not None:
+                self.params = self._shard(self.params)
         # Every mode carries the prefix cache (idle in the paged modes, as
         # in the JAX scheduler), so stats() has one schema.
         self._prefix_cache = _PrefixCache(int(prefix_cache_mb) * (1 << 20))
@@ -853,9 +897,12 @@ class ContinuousGenerator:
         if host_blocks > 0 and not prefix_sharing:
             raise ValueError("kv_host_blocks requires prefix_sharing "
                              "(the host tier holds radix entries)")
-        self._pool = BlockPool(cfg, nb, bs, self._dtype, self.device,
+        group = self._tp_group
+        self._pool = BlockPool(cfg, nb, bs, self._dtype,
+                               None if group else self.device,
                                host_blocks=host_blocks,
-                               quantize=kv_quantize)
+                               quantize=kv_quantize,
+                               tp_devices=group.devices if group else None)
         self._tables = np.zeros((self.n_slots, width), np.int32)
         self._prefix_sharing = prefix_sharing
 
@@ -1336,6 +1383,10 @@ class ContinuousGenerator:
                    active=int(sum(r is not None for r in self._row_req)),
                    last_tick_age_s=round(age, 3),
                    prefix_cache=self._prefix_cache.stats())
+        if self._tp > 1:
+            # Present only on tensor-parallel lanes: the mesh-shape label
+            # the topology-aware gateway ring reads from /health.
+            out["tp"] = tp_topology_label(self._tp)
         if self._paged:
             out["kv_pool"] = self._pool.stats()
             out["kv_pool"]["pending_admissions"] = len(self._pending)
@@ -1603,12 +1654,20 @@ class ContinuousGenerator:
         with the swap (blocks still pinned by live rows free as those rows
         finish). A live row finishes its current tick or chunk on the
         parameters that tick captured and runs its next on the new ones;
-        stop the lane first for a hard cut."""
-        self.params = params
+        stop the lane first for a hard cut. A tensor-parallel lane shards
+        the new tree by the registry's rule."""
+        self.params = (self._shard(params) if self._tp_group is not None
+                       else params)
         self._prefix_cache = _PrefixCache(self._prefix_cache.budget)
         if self._paged:
             with self._pool.lock:
                 self._pool.radix.clear()
+
+    def _shard(self, params) -> TPParams:
+        """A whole parameter tree cut into the tp ranks' trees."""
+        group = self._tp_group
+        return TPParams(tp_rank_trees(self.spec, params, group.devices),
+                        group)
 
     def stop(self) -> None:
         self._running = False
@@ -2236,6 +2295,9 @@ class ContinuousGenerator:
                         row_caches = gather_blocks(pool.caches.k,
                                                    pool.caches.v, ids_t)
                 self._count_admission_dispatch()
+            elif self._tp_group is not None:
+                row_caches = tp_init_caches(self.cfg, self._tp_group, 1,
+                                            pb, self._dtype)
             else:
                 row_caches = init_caches(self.cfg, 1, pb, self._dtype,
                                          self.device)

@@ -262,7 +262,10 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
     one model on one device share one weight tree: ``model_path``'s,
     loaded once, or the first lane's random draw (a quantized lane draws
     its own). ``lane_roles`` assigns disaggregated roles round-robin
-    (default ``worker_config.role``). ``warmup`` runs each lane's batch
+    (default ``worker_config.role``). With ``worker_config.tp`` > 1 the
+    default is ``cards // tp`` lanes, lane i's ranks on cards
+    [i*tp, (i+1)*tp) (``tp_device_offset``), or all on the config's
+    ``device`` when it names one. ``warmup`` runs each lane's batch
     buckets and a short generation before serving. ``native_front``: None
     = the C++ front for one model, True = require it, False = the Python
     front. A library that does not build raises. With
@@ -292,7 +295,13 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
 
         native.load()  # a failed build raises here, before any lane
     devices = lane_devices(cfg)
-    n_lanes = lanes or max(len(devices), len(models))
+    tp = max(1, int(cfg.tp))
+    # Tensor-parallel lanes each take tp cards: the default fleet is
+    # cards // tp lanes, lane i on cards [i*tp, (i+1)*tp) (round-robin
+    # when --lanes oversubscribes), or every rank on the named device.
+    n_slices = max(1, len(devices) // tp)
+    n_lanes = lanes or max(n_slices if tp > 1 else len(devices),
+                           len(models))
     if lane_roles:
         n_lanes = max(n_lanes, len(lane_roles))
     load_dtype = "float32" if cfg.quantize else cfg.dtype
@@ -307,6 +316,9 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
         over = {"node_id": f"worker_{i + 1}",
                 "model": models[i % len(models)],
                 "device": devices[i % len(devices)], "port": port}
+        if tp > 1 and cfg.device is None:
+            over["device"] = None
+            over["tp_device_offset"] = (i % n_slices) * tp
         if lane_roles:
             over["role"] = lane_roles[i % len(lane_roles)]
         lane_cfg = dataclasses.replace(cfg, **over)

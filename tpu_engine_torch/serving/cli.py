@@ -10,9 +10,9 @@
       [--gen-scheduler batch|continuous|speculative [--gen-decode-fused]
        [--gen-spec-k K] [--gen-draft-model NAME] [--gen-draft-path DIR]]
       [--state-rows N] [--step-chunk N] [--prefill-chunk N] [--n-slots N]
-      [--max-batch-size N] [--cache-capacity N] [--batch-timeout-ms MS]
-      [--pipeline-depth N] [--warmup] [--no-unified-stateless]
-      [--priority-admission] [--adaptive-depth]
+      [--tp N] [--max-batch-size N] [--cache-capacity N]
+      [--batch-timeout-ms MS] [--pipeline-depth N] [--warmup]
+      [--no-unified-stateless] [--priority-admission] [--adaptive-depth]
       [--brownout [--brownout-clamp-tokens N]]
       [--trace-capacity N] [--trace-stitch] [--profile-dir DIR]
       [--flight-recorder N [--flight-dump-dir DIR]]
@@ -171,9 +171,16 @@ a failed build stops the command with the compiler's output. The JAX
 command's flags map onto the same WorkerConfig and GatewayConfig fields
 (``--default-deadline-ms``, ``--retry-backoff-ms`` among them);
 ``--autoscale`` mints in-process lanes and retires them with the load,
-``--scheduler-stall-s`` arms every lane's stall watchdog; ``--mesh`` and
-``--tp`` refuse by name. SIGTERM stops the front, the gateway and every
-lane.
+``--scheduler-stall-s`` arms every lane's stall watchdog; ``--tp N``
+makes every lane tensor-parallel over N ranks (the default lane count is
+then the cards // N, lane i on cards i*N ..; with ``--device`` every rank
+on that device); ``--mesh`` refuses by name. SIGTERM stops the front, the
+gateway and every lane.
+
+``--tp N`` on a worker (paged continuous lanes, ``--kv-block-size``
+needed) shards the model by the registry's rule over N ranks, on the
+first N cards, or all on ``--device``; its /health carries the
+``topology`` label the gateway's ring weights it by.
 
 Train: the JAX command's causal-LM loop with AdamW on one card: the same
 numpy draws (the fixed synthetic batch from ``--seed``, rows and offsets
@@ -339,6 +346,13 @@ def _add_worker_flags(p: argparse.ArgumentParser) -> None:
                    help="decode-loop liveness threshold: /health reads "
                         "unhealthy when the loop has not ticked for this "
                         "long (0/unset = report the age only)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel serving: shard the model "
+                        "(registry-declared partition rule) and the paged "
+                        "KV pool's H_kv axis over this many ranks (the "
+                        "first cards, or all on --device); needs "
+                        "--kv-block-size; unshardable families (mamba2) "
+                        "refuse at startup (unset/1 = one device)")
 
 
 def worker_config(a, node_id: str, model: str, model_path=None):
@@ -390,6 +404,8 @@ def worker_config(a, node_id: str, model: str, model_path=None):
         cfg.gen_prefix_fetch_inflight = a.prefix_fetch_inflight
     if a.scheduler_stall_s is not None:
         cfg.scheduler_stall_s = a.scheduler_stall_s
+    if a.tp is not None:
+        cfg.tp = a.tp
     return cfg
 
 
@@ -719,17 +735,16 @@ def _gateway(argv) -> int:
 
 
 # The JAX serve command's flags that map onto no ported feature: each is
-# accepted and refuses by name (parallel serving).
+# accepted and refuses by name (mesh-sharded serving).
 _UNPORTED_SERVE_FLAGS = (
     ("--mesh", "mesh-sharded serving"),
-    ("--tp", "tensor-parallel serving"),
 )
 
 
 def serve_args(argv) -> dict:
     """The keyword arguments of ``app.serve_combined`` for a ``serve``
     command line, mapped as the JAX command maps them; an unported flag
-    (``--mesh``, ``--tp``) raises NotImplementedError naming it."""
+    (``--mesh``) raises NotImplementedError naming it."""
     from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
 
     p = argparse.ArgumentParser(prog="serve")
@@ -847,6 +862,12 @@ def serve_args(argv) -> dict:
     p.add_argument("--scheduler-stall-s", type=float, default=None,
                    help="decode-loop liveness threshold of every lane "
                         "(0/unset = report the age only)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel serving (needs --kv-block-size): "
+                        "every lane serves the model sharded over this "
+                        "many ranks, lane i on cards [i*tp, (i+1)*tp) "
+                        "(all on --device when given); the default lane "
+                        "count becomes cards // tp")
     _add_autoscale_flags(p)
     for flag, _what in _UNPORTED_SERVE_FLAGS:
         p.add_argument(flag, default=None)
@@ -921,7 +942,8 @@ def serve_args(argv) -> dict:
                         ("profile_dir", "profile_dir"),
                         ("flight_recorder", "flight_recorder"),
                         ("flight_dump_dir", "flight_dump_dir"),
-                        ("scheduler_stall_s", "scheduler_stall_s")):
+                        ("scheduler_stall_s", "scheduler_stall_s"),
+                        ("tp", "tp")):
         if getattr(a, name) is not None:
             wk[field] = getattr(a, name)
     for name, field in (("priority_admission", "priority_admission"),

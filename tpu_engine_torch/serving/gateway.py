@@ -29,6 +29,13 @@ request naming a model none of the typed lanes serves probes the whole
 ring while untyped lanes exist, and a lane's 400 for it moves on without
 a penalty.
 
+The ring is topology-aware, as JAX's: a tensor-parallel lane (an
+in-process one's ``tp``, an HTTP lane's ``/health`` ``topology`` label,
+read at a disagg add and by the prober) holds its devices x
+``virtual_nodes`` vnodes on every ring, and ``/stats`` grows a
+``topology`` block (each labelled lane, every lane's ``ring_weights``)
+once a lane is labelled; an unlabelled fleet keeps the reference ring.
+
 Streams are relayed frame by frame; a mid-stream lane fault (the
 transport dying, or a retryable in-band error event that is not a
 ``shed``) counts against the lane's breaker.
@@ -145,6 +152,7 @@ from typing import Dict, List, Optional
 
 from tpu_engine_torch.core.circuit_breaker import CircuitBreaker
 from tpu_engine_torch.core.consistent_hash import ConsistentHash
+from tpu_engine_torch.parallel.mesh import tp_topology_label
 from tpu_engine_torch.serving.clients import (
     HttpWorkerClient,
     LocalWorkerClient,
@@ -409,6 +417,14 @@ class Gateway:
         self.handoff = HandoffCounters()
         self._roles: Dict[str, str] = {}
         self._prefill_ring = ConsistentHash(self.config.virtual_nodes)
+        # The topology-aware ring: per-lane mesh-shape labels ({tp,
+        # devices[, mesh_shape]}, absent = one device) from the worker
+        # config (in-process lanes), the disagg role read or the prober's
+        # /health sweeps (HTTP lanes). A labelled lane weights its vnodes
+        # by its devices on every ring; an unlabelled fleet keeps the
+        # reference ring. Under _lock.
+        self._topology: Dict[str, dict] = {}
+        self._topology_updates = 0
         self._handoff_exec: Optional[
             concurrent.futures.ThreadPoolExecutor] = None
         # Prefix-affinity routing: per-lane assignments and the recent
@@ -482,23 +498,57 @@ class Gateway:
 
     # -- membership -----------------------------------------------------------
 
+    @staticmethod
+    def _normalize_topology(topo) -> Optional[dict]:
+        """A /health (or worker-config) topology label -> ``{tp, devices[,
+        mesh_shape]}``, or None for an unlabelled or one-device lane. A
+        malformed label is None, never an exception: on the prober's path
+        an exception would read as a failed probe and eject a healthy
+        lane."""
+        if not isinstance(topo, dict):
+            return None
+        try:
+            devices = int(topo.get("devices", topo.get("tp", 1)))
+            tp = int(topo.get("tp", devices))
+        except (TypeError, ValueError):
+            return None
+        if devices <= 1:
+            return None
+        out = {"tp": tp, "devices": devices}
+        if isinstance(topo.get("mesh_shape"), dict):
+            out["mesh_shape"] = dict(topo["mesh_shape"])
+        return out
+
+    def _lane_weight(self, name: str) -> int:
+        """A lane's vnode weight: its labelled devices, 1 unlabelled."""
+        with self._lock:
+            topo = self._topology.get(name)
+        return int(topo["devices"]) if topo else 1
+
     def add_worker(self, worker) -> str:
         """Register a lane: an HTTP worker's URL (lane name
         ``"host:port"``, untyped) or an in-process ``WorkerNode`` (lane
-        name its ``node_id``, typed by its model, with its role)."""
+        name its ``node_id``, typed by its model, with its role and its
+        tensor-parallel topology). A labelled lane's vnodes are weighted
+        by its devices on every ring."""
         cfg = self.config
         model_name = None
         role = "both"
+        topo = None
         if isinstance(worker, str):
             client = HttpWorkerClient(worker, timeout_s=cfg.worker_timeout_s,
                                       default_port=cfg.default_worker_port,
                                       gen_timeout_s=cfg.gen_timeout_s)
             name = client.url
             if cfg.disagg:
-                # Role discovery (a URL carries none): one best-effort
-                # /health read; no key or no answer reads "both".
+                # Role and topology discovery (a URL carries neither): one
+                # best-effort /health read; no key or no answer reads
+                # "both" on one device. Other HTTP fleets take their
+                # labels from the prober's sweeps.
                 try:
-                    role = str(client.health().get("role", "both"))
+                    health = client.health()
+                    role = str(health.get("role", "both"))
+                    topo = self._normalize_topology(health.get("topology"))
                 except Exception:
                     role = "both"
         else:
@@ -506,18 +556,24 @@ class Gateway:
             name = worker.node_id
             model_name = worker.engine.spec.name
             role = str(worker.config.role or "both")
+            tp = int(getattr(worker.config, "tp", 1) or 1)
+            if tp > 1:
+                topo = self._normalize_topology(tp_topology_label(tp))
         if role not in ("prefill", "decode", "both"):
             role = "both"
+        weight = int(topo["devices"]) if topo else 1
         with self._lock:
             self._clients[name] = client
             self._breakers[name] = self._make_breaker()
             if role != "both":
                 self._roles[name] = role
+            if topo is not None:
+                self._topology[name] = topo
             if model_name is None:
                 self._untyped.add(name)
-        self._ring.add_node(name)
+        self._ring.add_node(name, weight)
         if role != "decode":
-            self._prefill_ring.add_node(name)
+            self._prefill_ring.add_node(name, weight)
         if model_name is not None:
             with self._lock:
                 ring = self._model_rings.get(model_name)
@@ -525,14 +581,43 @@ class Gateway:
                     # Filled before it is published: a concurrent route
                     # never sees an empty ring of a registered model.
                     ring = ConsistentHash(cfg.virtual_nodes)
-                    ring.add_node(name)
+                    ring.add_node(name, weight)
                     self._model_rings[model_name] = ring
                 else:
-                    ring.add_node(name)
+                    ring.add_node(name, weight)
                 if self.default_model is None:
                     self.default_model = model_name
         self._notify_membership("add", name, worker)
         return name
+
+    def _apply_topology(self, name: str, topo) -> None:
+        """Adopt a lane's topology label from a /health read (an HTTP
+        lane's mesh shape is nowhere else) and re-weight its vnodes on
+        every ring it is on; nothing while the label is unchanged.
+        ``reweight_node`` checks membership and resizes under one ring
+        lock, so a removal racing this sweep is never undone."""
+        topo = self._normalize_topology(topo)
+        with self._lock:
+            if name not in self._clients:
+                return
+            if topo == self._topology.get(name):
+                return
+            if topo is None:
+                self._topology.pop(name, None)
+            else:
+                self._topology[name] = topo
+            rings = list(self._model_rings.values())
+        weight = int(topo["devices"]) if topo else 1
+        applied = self._ring.reweight_node(name, weight)
+        self._prefill_ring.reweight_node(name, weight)
+        for ring in rings:
+            ring.reweight_node(name, weight)
+        if applied:
+            with self._lock:
+                if name in self._clients:
+                    self._topology_updates += 1
+                else:
+                    self._topology.pop(name, None)
 
     def on_membership(self, listener) -> None:
         """Call ``listener(event, name, worker)`` after every lane added
@@ -585,6 +670,7 @@ class Gateway:
             self._untyped.discard(name)
             self._ejected.discard(name)
             self._roles.pop(name, None)
+            self._topology.pop(name, None)
             # The departing lane's radix tree leaves with it: every
             # directory entry naming it is a dead hint.
             pd_dropped = (self._prefix_dir.invalidate_lane(name)
@@ -654,6 +740,10 @@ class Gateway:
                     body = getattr(client, "probe_health",
                                    client.health)()
                     ok = bool(body.get("healthy", False))
+                    # Topology labels ride the same read: an HTTP lane's
+                    # mesh shape is only in its /health (no-op while the
+                    # label is unchanged).
+                    self._apply_topology(name, body.get("topology"))
                     # Directory seeding rides the same read: the lane's
                     # bounded radix summaries (with prefix fetch on).
                     if self._prefix_dir_on:
@@ -1557,7 +1647,7 @@ class Gateway:
         if role == "decode":
             self._prefill_ring.remove_node(name)
         elif name not in self._prefill_ring.get_all_nodes():
-            self._prefill_ring.add_node(name)
+            self._prefill_ring.add_node(name, self._lane_weight(name))
         self._handoff_count("role_flips", lane=name, role=role)
         return {"ok": True, "node_id": name, "role": role,
                 "drained": drained}
@@ -2475,6 +2565,8 @@ class Gateway:
             active_streams = len(self._streams)
             lanes = sorted(self._clients)
             roles = {n: self._roles.get(n, "both") for n in lanes}
+            topo = dict(self._topology)
+            topo_updates = self._topology_updates
             aff_assigned = dict(self._affinity_assigned)
             prefix_dir_state = (self._prefix_dir.stats()
                                 if self._prefix_dir is not None else None)
@@ -2512,6 +2604,15 @@ class Gateway:
             ho = self.handoff.as_dict()
             ho["roles"] = roles
             out["handoff"] = ho
+        if topo:
+            # Only once a lane carries a label: each labelled lane's mesh
+            # shape and every lane's vnode weight.
+            out["topology"] = {
+                "lanes": topo,
+                "ring_weights": {n: max(1, self._ring.node_weight(n))
+                                 for n in lanes},
+                "updates": topo_updates,
+            }
         if cfg.prefix_affinity or self.affinity.any_nonzero():
             aff = self.affinity.as_dict()
             aff["assigned"] = aff_assigned

@@ -189,7 +189,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from tpu_engine_torch.core.lru_cache import LRUCache
-from tpu_engine_torch.models.registry import ModelSpec, create_model
+from tpu_engine_torch.models.registry import (
+    ModelSpec,
+    create_model,
+    tp_unshardable_reason,
+)
+from tpu_engine_torch.parallel.mesh import tp_devices, tp_topology_label
 from tpu_engine_torch.runtime.batch_processor import BatchProcessor
 from tpu_engine_torch.runtime.engine import InferenceEngine
 from tpu_engine_torch.runtime.generator import Generator
@@ -477,6 +482,7 @@ class WorkerNode:
                 params = _load_model_path(spec, path, config.device,
                                           load_dtype)
         self._fence_family(spec)
+        self._fence_tp(spec)
         self.engine = InferenceEngine(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             batch_buckets=config.batch_buckets,
@@ -626,6 +632,41 @@ class WorkerNode:
                 "scheduler with the paged KV cache "
                 "(--kv-block-size > 0)")
 
+    def _fence_tp(self, spec: ModelSpec) -> None:
+        """Tensor-parallel fences, the JAX worker's: a degree below 1, an
+        unshardable family (named first), a lane without the paged
+        continuous scheduler, and a device slice past the local devices
+        refuse at startup, before any weight is placed."""
+        cfg = self.config
+        self._tp_rank_devices = None
+        if int(cfg.tp) < 1:
+            raise RuntimeError(f"--tp must be >= 1, got {cfg.tp}")
+        if int(cfg.tp) <= 1:
+            return
+        reason = tp_unshardable_reason(spec)
+        if reason is not None:
+            raise RuntimeError(
+                f"model '{getattr(spec, 'name', cfg.model)}' cannot serve "
+                f"tensor-parallel (--tp {cfg.tp}): {reason}")
+        if not self._continuous or cfg.gen_kv_block_size <= 0:
+            raise RuntimeError(
+                "--tp requires the continuous scheduler with the "
+                "paged KV cache (--kv-block-size > 0): the sharded "
+                "pool layout is the paged pool")
+        self._tp_rank_devices = self._tp_devices()
+
+    def _tp_devices(self):
+        """This lane's rank devices: ``tp`` copies of the config's
+        ``device`` when it names one, else the CUDA devices from
+        ``tp_device_offset`` (a slice past the local devices refuses with
+        the JAX worker's message). None at tp 1."""
+        tp = int(self.config.tp)
+        if tp <= 1:
+            return None
+        if self.config.device is not None:
+            return [self.config.device] * tp
+        return tp_devices(tp, offset=self.config.tp_device_offset)
+
     def _fence_stateless(self, spec: ModelSpec) -> None:
         """A stateless model refuses every generative knob (the JAX
         worker's messages; --spec-k first, so a speculation request gets
@@ -707,7 +748,8 @@ class WorkerNode:
                 state_rows=cfg.gen_state_rows,
                 infer_engine=self.engine if self._unified else None,
                 score_provider=self._get_scorer if self._unified else None,
-                device=cfg.device, **spec_kw)
+                tp=int(cfg.tp), tp_devices=self._tp_rank_devices,
+                device=None if int(cfg.tp) > 1 else cfg.device, **spec_kw)
         except ValueError as exc:
             if spec_kw:
                 # The operator asked for speculation: a construction
@@ -1981,6 +2023,10 @@ class WorkerNode:
             # Only on dedicated-role lanes (absent reads "both"): a
             # default lane's /health keeps its keys.
             out["role"] = self.config.role
+        if int(self.config.tp) > 1:
+            # Only on tensor-parallel lanes (absent reads one device): the
+            # label by which the gateway's ring weights this lane's vnodes.
+            out["topology"] = tp_topology_label(self.config.tp)
         gstats = (self.generator.stats() if self.generator is not None
                   else {})
         if self.generator is not None and not getattr(

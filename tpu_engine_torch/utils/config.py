@@ -143,6 +143,15 @@ class WorkerConfig:
     # gateway's prober ejects it. 0 reports the tick age only. Set it
     # above the longest first-use kernel build.
     scheduler_stall_s: float = 0.0
+    # Tensor-parallel serving (--tp): the continuous scheduler serves one
+    # model sharded over this many ranks (the registry's rule; the paged
+    # pool shards its H_kv axis). Needs the paged cache; unshardable
+    # families refuse at startup. 1 = one device.
+    tp: int = 1
+    # First CUDA device of this lane's tp ranks (serve gives lane i offset
+    # i * tp, so in-process tp lanes own disjoint cards); with ``device``
+    # named, every rank sits on that device instead.
+    tp_device_offset: int = 0
     # The port's own: where the lane runs (None = the CUDA card) and the
     # seed of its random weights.
     device: Optional[str] = None
