@@ -60,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
               configuration (224 x 224 x 3, bf16, 32-row batches, random
               weights from seed 0): the unified lane (single-tick rows of
               the continuous scheduler) and the batch lane
-              (--no-unified-stateless), each answering a burst of 32
+              (--no-unified-stateless), each answering a burst of 16
               concurrent distinct requests, 16 repeats (cached), 8
               identical new requests (coalesced into fewer dispatched
               rows) and the reference's 3-float payload, every answer
@@ -80,7 +80,8 @@ Phases (any failure exits non-zero and prints no result line):
               int8 decode kernel, which runs the decode kernel's split and
               merge kernels over int8 rows and scales); each answers a
               burst of concurrent /generate requests and one
-              /generate/stream, a shared-prefix
+              /generate/stream (16 new tokens each, as on the gateway
+              phase's lanes), a shared-prefix
               request and a greedy repeat: every request completes, the
               repeat is token-identical, ticks == dispatches (mixed) or
               chunks > 0 (two-path), no block leaks once idle. The fifth,
@@ -529,6 +530,28 @@ Phases (any failure exits non-zero and prints no result line):
               streams /generate/stream (the in-process tp 2 tokens, #1 ==
               2 x 22 x its ticks), its /health carries topology, and a
               gateway over it and a tp 1 lane reads ring_weights 2 and 1.
+18. mesh    — last: mesh-sharded serving and training, every rank on the
+              one card (cuda:0). `serve --mesh data=2` without --device
+              refuses (one card; JAX's message). resnet50 /infer at 224 x
+              224 x 3 under `serve --mesh data=2 --device cuda:0` (bf16)
+              and `--mesh model=2,data=2 --device cuda:0` (f32 and bf16)
+              behind the C++ front: one lane worker_1, the reference wire
+              schema, 8 concurrent images against the single-rank engine
+              on the same card and weights (f32 within 1e-4 of the
+              largest logit, TF32 off; bf16 within 1e-2, the served
+              bound), a repeat answered from the cache (in C++),
+              /health healthy. TinyLlama width at 4 layers (f32) under
+              `--mesh model=2,data=2`: 8 concurrent /infer rows of 128
+              token ids against the single-rank engine (1e-4), #5 ==
+              4 x 2 data ranks x the engine's dispatches. `train --mesh
+              data=2,model=2 --device cuda:0` at TinyLlama width and 4
+              layers, B 4 x S 256, 3 steps in f32 (TF32 off): losses
+              within 1e-4 relative of the unsharded train command's on
+              the card, #5, #6 and #7 == 4 x 2 a step each (4 a step
+              unsharded), no plain call; on llama-small-test --out then
+              --resume continues the step count and the unsharded run's
+              losses. No speed is claimed: on one card the ranks free
+              nothing.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -549,10 +572,11 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
-    python3 chip_smoke.py --phase batch|combined|elastic|tp
+    python3 chip_smoke.py --phase batch|combined|elastic|tp|mesh|server
 
-runs the build and that one phase, and writes its readings to
-chiprun_out/phase_<name>.json (no result lines).
+runs the build and that one phase (or several, comma-separated, in
+turn), and writes its readings to chiprun_out/phase_<name>.json (no
+result lines).
 
     python3 chip_smoke.py --profiler-probe
 
@@ -605,7 +629,7 @@ FLASH_SHAPES = (("prefill S=256 f32", 1, 256, "float32"),
                 ("prefill S=2048", 1, 2048, "bfloat16"),
                 ("infer B=32 S=128 f32", 32, 128, "float32"),
                 ("score B=8 S=128 f32", 8, 128, "float32"))
-MAX_NEW = 32
+MAX_NEW = 16
 # A spec_k = 4 tick's verify windows at the main path's geometry: q_len
 # 1..5 at contexts about 1700, row 1 across a 16-token block edge, row 3
 # across the 512-key split at 1536.
@@ -679,7 +703,7 @@ LANES = {
 # rows), and the same with the dedicated batch lane.
 INFER_LANES = {"infer-resnet50": dict(unified_stateless=True),
                "infer-resnet50-batch-lane": dict(unified_stateless=False)}
-INFER_BURST = 32
+INFER_BURST = 16
 # mlp and the resnets in f32 on the card (TF32 off) against the CPU, as
 # max|card - cpu| / max|cpu|: the same products summed in another order
 # by cuDNN and by the CPU's convolutions, through 53 conv layers.
@@ -2616,11 +2640,15 @@ def phase_server(torch) -> dict:
         "unified and the batch lane")
     params = init_params(create_model(cut_llama()).config, seed=0,
                          device="cuda", dtype="bfloat16")
-    out.update({lane: serve_lane(torch, params, lane) for lane in LANES
-                if lane != "dense-bf16"})
-    out["dense-bf16"] = serve_dense_lane(torch, params)
-    for lane in SPEC_LANES:
-        out[lane] = serve_spec_lane(torch, params, lane)
+    walls = {}
+    for lane in (*LANES, *SPEC_LANES):
+        t0 = time.perf_counter()
+        out[lane] = (serve_dense_lane(torch, params) if lane == "dense-bf16"
+                     else serve_spec_lane(torch, params, lane)
+                     if lane in SPEC_LANES
+                     else serve_lane(torch, params, lane))
+        walls[lane] = round(time.perf_counter() - t0, 1)
+    log(f"server lane walls (s): {json.dumps(walls)}")
     return out
 
 
@@ -9307,6 +9335,337 @@ def phase_tp(torch, card: str, pa) -> dict:
     return res
 
 
+# -- mesh-sharded serving and training ----------------------------------------
+
+# Every mesh rank on the one card, as the tp phase's.
+MESH_DEVICE = "cuda:0"
+# The resnet50 mesh lanes: (mesh, dtype, tolerance) against the single-rank
+# engine on the same weights, as max|mesh - single| / max|single|. f32
+# (TF32 off): the same convolutions on 2 rows a rank instead of 8 in one
+# batch, summed by other cuDNN algorithms, 1e-4. bf16: INFER_BF16_TOL, the
+# served lanes' bound (a sum that differs in its last f32 bit can round a
+# conv's bf16 input the other way).
+MESH_INFER = (("data=2", "bfloat16", INFER_BF16_TOL),
+              ("model=2,data=2", "float32", 1e-4),
+              ("model=2,data=2", "bfloat16", INFER_BF16_TOL))
+MESH_IMAGES = 8
+MESH_DECODER_ROWS = 8
+MESH_DECODER_TOL = 1e-4
+MESH_TRAIN = ("--batch", "4", "--seq", "256", "--steps", "3",
+              "--log-every", "1")
+MESH_TRAIN_TOL = 1e-4
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def rank_bytes(placed) -> list:
+    """The parameter bytes each mesh rank holds (its distinct tensors)."""
+    return [sum(t.numel() * t.element_size()
+                for t in {id(t): t for t in ts}.values())
+            for ts in placed.ranks]
+
+
+def mesh_resnet_lane(torch, mesh: str, dtype: str, tol: float) -> dict:
+    """resnet50 under ``serve --mesh <mesh> --device cuda:0`` (the serve
+    command's arguments, its combined server in this process, the C++
+    front): the one lane's engine spans the mesh; concurrent images
+    against the single-rank engine on the lane's weights; a repeat is a
+    cache hit answered in C++; /health."""
+    from tpu_engine_torch.runtime.engine import InferenceEngine
+    from tpu_engine_torch.serving import cli
+    from tpu_engine_torch.serving.app import serve_combined, stop_combined
+
+    kw = cli.serve_args(["--model", "resnet50", "--mesh", mesh, "--device",
+                         MESH_DEVICE, "--dtype", dtype, "--port", "0"])
+    t0 = time.perf_counter()
+    gw, workers, server = serve_combined(**kw)
+    ready = time.perf_counter() - t0
+    try:
+        check([w.node_id for w in workers] == ["worker_1"],
+              f"mesh {mesh}: lanes {[w.node_id for w in workers]}")
+        eng = workers[0].engine
+        n = 1
+        for v in eng.stats()["mesh"]["axes"].values():
+            n *= v
+        check(eng.stats()["mesh"]["n_devices"] == n,
+              f"mesh {mesh}: stats {eng.stats()['mesh']}")
+        rng = np.random.default_rng(24)
+        images = [np.round(rng.random(224 * 224 * 3, np.float32), 3)
+                  for _ in range(MESH_IMAGES)]
+        bodies = {f"m{i}": json.dumps({
+            "request_id": f"mesh-{mesh}-{dtype}-{i}",
+            "input_data": images[i].tolist()}).encode()
+            for i in range(MESH_IMAGES)}
+        answers, wall = concurrent_posts(server.port, "/infer", bodies)
+        for name, a in answers.items():
+            check(set(a) == {"request_id", "output_data", "node_id",
+                             "cached", "inference_time_us"}
+                  and a["node_id"] == "worker_1",
+                  f"mesh {mesh}: /infer answer {sorted(a)}")
+        got = np.stack([np.asarray(answers[f"m{i}"]["output_data"],
+                                   np.float32) for i in range(MESH_IMAGES)])
+        single = InferenceEngine(eng.spec, params=eng.params, dtype=dtype,
+                                 batch_buckets=(MESH_IMAGES,),
+                                 device=MESH_DEVICE)
+        want = np.stack(single.batch_predict(images))
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(np.isfinite(got).all() and got.shape == want.shape,
+              f"mesh {mesh} {dtype}: answers {got.shape}")
+        check(err <= tol, f"mesh {mesh} {dtype}: {err} > {tol}")
+        again = post(server.port, "/infer", bodies["m0"].replace(
+            b'-0"', b'-again"'))
+        check(again["cached"] is True
+              and again["output_data"] == answers["m0"]["output_data"],
+              f"mesh {mesh}: the repeat was not a cache hit")
+        health, stats = get(server.port, "/health"), get(server.port,
+                                                         "/stats")
+        cxx_hits = health["total_requests"] - stats["total_requests"]
+        check(health["healthy"] is True
+              and health["total_requests"] == MESH_IMAGES + 1
+              and cxx_hits == 1,
+              f"mesh {mesh}: /health {health['total_requests']}, /stats "
+              f"{stats['total_requests']}")
+        resident = rank_bytes(eng._placed)
+        log(f"mesh serve resnet50 {dtype} `--mesh {mesh} --device "
+            f"{MESH_DEVICE}`: ready in {ready:.1f} s; {MESH_IMAGES} "
+            f"concurrent /infer in {wall:.3f} s from worker_1, max|mesh - "
+            f"single| / max|single| {err:.3e} (tol {tol}); the repeat "
+            f"answered in C++ ({cxx_hits} hit); /health healthy; stats "
+            f"mesh {eng.stats()['mesh']}; param bytes held by each rank "
+            f"{resident} (the whole tree {tree_bytes(eng.params)})")
+        return {"ready_s": ready, "burst_s": wall, "max_rel_err": err,
+                "cxx_hits": cxx_hits, "mesh": eng.stats()["mesh"],
+                "rank_param_bytes": resident,
+                "whole_param_bytes": tree_bytes(eng.params)}
+    finally:
+        stop_combined(gw, workers, server)
+
+
+def mesh_decoder_lane(torch) -> dict:
+    """TinyLlama width at cut depth (f32) under ``serve --mesh
+    model=2,data=2``: concurrent /infer rows of token ids against the
+    single-rank engine, #5 == layers x data ranks x the engine's
+    dispatches and no other kernel."""
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.runtime.engine import InferenceEngine
+    from tpu_engine_torch.serving import cli
+    from tpu_engine_torch.serving.app import serve_combined, stop_combined
+
+    model = cut_llama()
+    kw = cli.serve_args(["--model", model, "--mesh", "model=2,data=2",
+                         "--device", MESH_DEVICE, "--dtype", "float32",
+                         "--port", "0"])
+    gw, workers, server = serve_combined(**kw)
+    try:
+        eng = workers[0].engine
+        layers, vocab = eng.spec.config.n_layers, eng.spec.config.vocab
+        rng = np.random.default_rng(25)
+        rows = [rng.integers(1, vocab, int(n)).astype(np.float32)
+                for n in rng.integers(32, 129, MESH_DECODER_ROWS)]
+        dispatched = eng.stats()["execute_count"]
+        kl.reset_counts()
+        answers, wall = concurrent_posts(server.port, "/infer", {
+            f"r{i}": {"request_id": f"mesh-llama-{i}",
+                      "input_data": r.tolist()}
+            for i, r in enumerate(rows)})
+        launches = check_counts("mesh decoder", "flash_attention")
+        dispatches = eng.stats()["execute_count"] - dispatched
+        check(dispatches > 0 and launches == layers * 2 * dispatches,
+              f"mesh decoder: #5 {launches} != {layers} x 2 x "
+              f"{dispatches}")
+        got = np.stack([np.asarray(answers[f"r{i}"]["output_data"],
+                                   np.float32) for i in range(len(rows))])
+        single = InferenceEngine(eng.spec, params=eng.params,
+                                 dtype="float32",
+                                 batch_buckets=(MESH_DECODER_ROWS,),
+                                 device=MESH_DEVICE)
+        want = np.stack(single.batch_predict(rows))
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(np.isfinite(got).all() and err <= MESH_DECODER_TOL,
+              f"mesh decoder: {err} > {MESH_DECODER_TOL}")
+        log(f"mesh serve {model} (TinyLlama width, {layers} layers, f32) "
+            f"`--mesh model=2,data=2`: {len(rows)} concurrent /infer rows "
+            f"in {wall:.3f} s, {dispatches} dispatch(es); #5 {launches} = "
+            f"{layers} x 2 x {dispatches}; max|mesh - single| / "
+            f"max|single| {err:.3e} (tol {MESH_DECODER_TOL})")
+        return {"launches": launches, "dispatches": dispatches,
+                "max_rel_err": err, "burst_s": wall}
+    finally:
+        stop_combined(gw, workers, server)
+
+
+def mesh_train(torch) -> dict:
+    """``train --mesh data=2,model=2 --device cuda:0`` at TinyLlama width
+    and cut depth against the unsharded train command on the card (same
+    seed, same batch), each with the launch counts reset before and read
+    after; then --out and --resume of a mesh run on llama-small-test."""
+    import gc
+    import tempfile
+
+    from tpu_engine_torch.ops import kernels as kl
+
+    model = cut_llama()
+    common = ["--model", model, *MESH_TRAIN, "--device", MESH_DEVICE]
+    steps = int(MESH_TRAIN[MESH_TRAIN.index("--steps") + 1])
+    runs = {}
+    for name, extra, ranks in (("mesh", ["--mesh", "data=2,model=2"], 2),
+                               ("unsharded", [], 1)):
+        kl.reset_counts()
+        gc.collect()  # earlier lanes' tensors must not leave within
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        text = run_train([*common, *extra])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = launch_counts()
+        check(all(p == 0 for _, p in counts.values()),
+              f"mesh train {name}: plain versions ran: {counts}")
+        bwd = ("flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+        launches = {k: counts[k][0] for k in bwd}
+        check(all(v == CUT_LAYERS * ranks * steps
+                  for v in launches.values()),
+              f"mesh train {name}: launches {launches} != {CUT_LAYERS} x "
+              f"{ranks} x {steps}")
+        losses = [float(ln.split()[-1]) for ln in text.splitlines()
+                  if ln.startswith("step ")]
+        check(len(losses) == steps and np.isfinite(losses).all(),
+              f"mesh train {name}: losses {losses}")
+        runs[name] = {"losses": losses, "launches": launches, "wall_s": wall,
+                      "peak_bytes": peak}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["mesh"]["losses"], runs["unsharded"]["losses"]))
+    check(rel <= MESH_TRAIN_TOL,
+          f"mesh train: losses {runs['mesh']['losses']} vs unsharded "
+          f"{runs['unsharded']['losses']}")
+    shape = (f"B {MESH_TRAIN[MESH_TRAIN.index('--batch') + 1]} x S "
+             f"{MESH_TRAIN[MESH_TRAIN.index('--seq') + 1]}")
+    log(f"mesh train {model} (TinyLlama width, {CUT_LAYERS} layers, f32, "
+        f"{shape}) `--mesh data=2,model=2`: losses "
+        f"{runs['mesh']['losses']} against the unsharded command's "
+        f"{runs['unsharded']['losses']} (max rel {rel:.2e}, tol "
+        f"{MESH_TRAIN_TOL}); #5/#6/#7 {runs['mesh']['launches']} == "
+        f"{CUT_LAYERS} x 2 x {steps} (unsharded "
+        f"{runs['unsharded']['launches']}); walls "
+        f"{runs['mesh']['wall_s']:.1f} / {runs['unsharded']['wall_s']:.1f}"
+        f" s; peak allocated above the start "
+        f"{runs['mesh']['peak_bytes'] / 2**30:.2f} / "
+        f"{runs['unsharded']['peak_bytes'] / 2**30:.2f} GiB")
+    small = ["--model", "llama-small-test", "--batch", "4", "--seq", "64",
+             "--log-every", "1", "--device", MESH_DEVICE]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        run_train([*small, "--steps", "3", "--mesh", "data=2,model=2",
+                   "--out", f"{tmp}/ck"])
+        text = run_train([*small, "--steps", "2", "--mesh",
+                          "data=2,model=2", "--resume", f"{tmp}/ck/state"])
+        plain = run_train([*small, "--steps", "5"])
+    check("resumed at step 3" in text and "step 5:" in text,
+          f"mesh train: --resume did not continue the step count: {text}")
+    resumed = [float(ln.split()[-1]) for ln in text.splitlines()
+               if ln.startswith("step ")]
+    whole = [float(ln.split()[-1]) for ln in plain.splitlines()
+             if ln.startswith("step ")][3:]
+    rrel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole))
+    check(rrel <= MESH_TRAIN_TOL,
+          f"mesh train: the resumed run {resumed} left the unsharded "
+          f"run's {whole}")
+    log(f"mesh train --out/--resume (llama-small-test, data=2,model=2): "
+        f"resumed at step 3, steps 4-5 losses {resumed} == the unsharded "
+        f"run's {whole} (max rel {rrel:.2e})")
+    return {**runs, "max_rel_loss_diff": rel, "steps": steps,
+            "resumed_losses": resumed, "resumed_max_rel": rrel}
+
+
+def mesh_kernel_readings(torch) -> dict:
+    """#5, #6 and #7 at a data rank's shape of the mesh train run (B 2 x
+    S 256, H 32, D 64, causal, f32) against their plain versions (#5: out
+    and lse within F32_TOL; #6, #7: within BWD_F32_TOL of the gradient's
+    largest magnitude), then their device, plain, library and bound times
+    (``flash_numbers``, ``flash_bwd_numbers``)."""
+    from tpu_engine_torch.ops import flash as fl
+
+    b = int(MESH_TRAIN[MESH_TRAIN.index("--batch") + 1]) // 2
+    s = int(MESH_TRAIN[MESH_TRAIN.index("--seq") + 1])
+    rng = np.random.default_rng(26)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, 32, 64), np.float32)).to(MESH_DEVICE) for _ in range(4))
+    out, lse = fl.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fl.flash_attention_reference(q, k, v, causal=True)
+    errs = {"flash_attention": flash_err(torch, out, lse, ref, ref_lse)}
+    a = (q, k, v, None, lse, fl.bwd_delta(do, out), do)
+    for kernel in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        got = getattr(fl, kernel)(*a, causal=True)
+        want = getattr(fl, kernel + "_reference")(*a, causal=True)
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (
+            got, want)
+        errs[kernel] = max(float((g - w).abs().max() / w.abs().max())
+                           for g, w in zip(got, want))
+    for kernel, err in errs.items():
+        tol = F32_TOL if kernel == "flash_attention" else BWD_F32_TOL
+        check(err <= tol, f"mesh {kernel} at the rank shape: {err} > {tol}")
+    log(f"mesh kernels at a data rank's train shape (B {b} x S {s}, H 32, "
+        f"f32): max err against the plain versions {errs}")
+    res = {"flash_attention": flash_numbers(torch, b, s, torch.float32),
+           **flash_bwd_numbers(torch, b, s, torch.float32)}
+    for kernel, err in errs.items():
+        res[kernel]["max_abs_err"] = err
+        res[kernel]["shape"] = f"B {b} x S {s} x H 32, f32"
+    return res
+
+
+def phase_mesh(torch, card: str) -> dict:
+    """Mesh-sharded serving and training (see the module docstring's mesh
+    entry)."""
+    import gc
+
+    from tpu_engine_torch.serving.app import parse_mesh_spec
+
+    walls = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    res = {"card": card, "walls_s": walls}
+    if torch.cuda.device_count() == 1:
+        try:
+            parse_mesh_spec("data=2")
+        except ValueError as exc:
+            res["refused"] = str(exc)
+        check(res.get("refused") == "mesh shape (2,) needs 2 devices, have 1",
+              f"mesh: data=2 on one card without --device: "
+              f"{res.get('refused')!r}")
+        log(f"mesh: `--mesh data=2` without --device on one card refuses: "
+            f"{res['refused']}")
+    for mesh, dtype, tol in MESH_INFER:
+        if dtype == "bfloat16":
+            with served_conv_precision(torch):
+                res[f"resnet50 {mesh} {dtype}"] = mesh_resnet_lane(
+                    torch, mesh, dtype, tol)
+        else:
+            res[f"resnet50 {mesh} {dtype}"] = mesh_resnet_lane(
+                torch, mesh, dtype, tol)
+    lap("resnet50")
+    res["decoder"] = mesh_decoder_lane(torch)
+    lap("decoder")
+    res["train"] = mesh_train(torch)
+    lap("train")
+    res["kernels"] = mesh_kernel_readings(torch)
+    lap("kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh phase walls (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} "
+        f"[{card}]")
+    return res
+
+
 def leaves(tree) -> list:
     """A parameter tree's tensors, in a fixed order."""
     if isinstance(tree, dict):
@@ -10100,11 +10459,14 @@ def main() -> int:
                 "batch": lambda: phase_batch(torch, card),
                 "combined": lambda: phase_combined(torch, card),
                 "elastic": lambda: phase_elastic(torch, card),
-                "tp": lambda: phase_tp(torch, card, pa)}
-        res = timed(name, only[name])
-        (OUT_DIR / f"phase_{name}.json").write_text(json.dumps(
-            res, indent=1, default=str))
-        log(f"phase {name} passed [{card}]")
+                "tp": lambda: phase_tp(torch, card, pa),
+                "mesh": lambda: phase_mesh(torch, card),
+                "server": lambda: phase_server(torch)}
+        for one in name.split(","):
+            res = timed(one, only[one])
+            (OUT_DIR / f"phase_{one}.json").write_text(json.dumps(
+                res, indent=1, default=str))
+            log(f"phase {one} passed [{card}]")
         return 0
     errs = timed("parity", phase_parity, torch, pa)
     infer_parity = timed("infer parity", parity_infer_models, torch)
@@ -10140,6 +10502,9 @@ def main() -> int:
     # Tensor-parallel serving: TinyLlama lanes at tp 1, 2 and 4 with every
     # rank on the one card (#1-#4 at the ranks' shapes).
     tp = timed("tp", phase_tp, torch, card, pa)
+    # Mesh-sharded serving and training: resnet50 and TinyLlama lanes and
+    # the train command over data x model meshes on the one card (#5-#7).
+    mesh = timed("mesh", phase_mesh, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -10255,6 +10620,23 @@ def main() -> int:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_device_ms")}
                 for k, v in tp["kernels"][name].items()}}
+        # The mesh phase's launches: #5 at the decoder lane's
+        # dispatches (layers x 2 data ranks each), #5-#7 at the mesh train
+        # command's steps (layers x 2 each).
+        if name in mesh["train"]["mesh"]["launches"]:
+            at = mesh["kernels"][name]
+            rows[-1]["mesh"] = {
+                "train_launches": mesh["train"]["mesh"]["launches"][name],
+                "train_steps": mesh["train"]["steps"],
+                "shape": at["shape"], "max_abs_err": at["max_abs_err"],
+                "ms": at["device_ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                "library_ms": at.get("library_device_ms",
+                                     at["library_ms"])}
+            if name == "flash_attention":
+                rows[-1]["mesh"].update(
+                    infer_launches=mesh["decoder"]["launches"],
+                    infer_dispatches=mesh["decoder"]["dispatches"])
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -10281,7 +10663,7 @@ def main() -> int:
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
          "moe": moe, "batch": batch, "combined": combined,
-         "elastic": elastic, "tp": tp, "train": train,
+         "elastic": elastic, "tp": tp, "mesh": mesh, "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))

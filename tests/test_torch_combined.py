@@ -654,7 +654,7 @@ def test_serve_argv_maps_onto_the_jax_fields(monkeypatch, case):
     want = _jax_serve_kwargs(monkeypatch, argv)
     got = cli.serve_args(argv)
     for k in ("model", "lanes", "port", "warmup", "native_front",
-              "lane_roles"):
+              "lane_roles", "mesh"):
         assert got[k] == want[k], k
     assert want["mesh"] is None
     for k in ("worker_config", "gateway_config"):
@@ -672,15 +672,25 @@ def test_serve_argv_maps_onto_the_jax_fields(monkeypatch, case):
     ["--autoscale"], ["--autoscale-max-lanes", "3"], ["--autoscale-slo-feed"],
 ], ids=lambda a: a[0])
 def test_serve_unported_flags_refuse_by_name(monkeypatch, argv):
-    """``--mesh`` refuses by name. The others refused until the stall
-    watchdog, the elastic fleet and tensor-parallel serving were ported:
-    each now reaches the WorkerConfig or GatewayConfig field the JAX
-    command sets."""
+    """Each flag refused until its feature was ported (the stall
+    watchdog, the elastic fleet, tensor-parallel and mesh-sharded
+    serving): each now reaches the WorkerConfig or GatewayConfig field,
+    or the ``serve_combined`` argument, the JAX command sets. ``--mesh``
+    also serves: its one lane's engine spans the mesh."""
     if argv[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match=argv[0]):
-            cli.serve_args(argv)
-        with pytest.raises(NotImplementedError, match=argv[0]):
-            cli.main(["serve", *argv])
+        want = _jax_serve_kwargs(monkeypatch, argv)
+        kw = cli.serve_args(argv)
+        assert kw["mesh"] == want["mesh"] == "data=1"
+        kw = cli.serve_args([*argv, "--model", "mlp", "--port", "0",
+                             "--device", "cpu", "--dtype", "float32",
+                             "--native-front", "off"])
+        gw, workers, server = serve_combined(**kw)
+        try:
+            assert [w.node_id for w in workers] == ["worker_1"]
+            assert workers[0].engine.stats()["mesh"] == {
+                "axes": {"data": 1}, "n_devices": 1}
+        finally:
+            stop_combined(gw, workers, server)
         return
     want = _jax_serve_kwargs(monkeypatch, argv)
     got = cli.serve_args(argv)

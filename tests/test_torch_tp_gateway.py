@@ -258,8 +258,13 @@ def test_serve_tp_maps_onto_the_jax_fields(monkeypatch):
     shared = set(got.__dict__) & set(want.__dict__)
     assert {f: got.__dict__[f] for f in shared} == {
         f: want.__dict__[f] for f in shared}
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        cli.serve_args(["--mesh", "data=1"])
+    # --mesh, which refused here until mesh serving was ported, reaches
+    # serve_combined's mesh argument as the JAX command passes it.
+    seen.clear()
+    with pytest.raises(_Captured):
+        jcli.main(["serve", "--mesh", "data=1", *argv])
+    assert cli.serve_args(["--mesh", "data=1", *argv])["mesh"] == \
+        seen["mesh"] == "data=1"
 
 
 def test_worker_tp_flag_reaches_the_config():

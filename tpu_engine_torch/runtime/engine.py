@@ -38,6 +38,20 @@ over flat float vectors, with the JAX engine's bucketing and wire rules.
   every serving path of a worker. Random weights are drawn in f32 and
   quantized from f32, as JAX quantizes its f32 tree; a given tree is
   quantized as it is.
+- **Mesh** (``mesh``, a ``parallel.mesh.Mesh``): every bucket's rows
+  scatter over the ``data`` axis in equal slices (buckets round up to
+  multiples of its size), each data rank runs the family's own apply on
+  its slice on its device, and the outputs gather back to the home device
+  (rank 0's) in row order. Parameters place by ``param_shardings``
+  (``training.train.shard_params_tp``: split over ``model``) or whole on
+  every rank; a data rank gathers each split leaf from its model ranks'
+  shards on its device at every forward, so every family's apply runs
+  unchanged and each rank's rows are the single-device engine's for the
+  same rows, bit for bit (a product's bits may depend on its row count,
+  so one whole-bucket forward can differ in the last bit). ``params``
+  stays the
+  whole tree on the home device, which the worker's generation and
+  scoring paths share as on any lane.
 """
 
 from __future__ import annotations
@@ -81,6 +95,9 @@ class InferenceEngine:
         shape_buckets: Optional[Sequence[Tuple[int, ...]]] = None,
         device=None,
         quantize: Optional[str] = None,
+        mesh=None,
+        data_axis: str = "data",
+        param_shardings=None,
     ):
         """``params``: the model's parameter tree on ``device``; None draws
         seeded random weights (``rng_seed``). ``device`` defaults to the
@@ -88,7 +105,10 @@ class InferenceEngine:
         ``shape_buckets``: per-sample input shapes for mixed-shape serving
         (the model's apply must take each, as a fully convolutional model
         does); the model's own shape is always one. ``quantize``: None or
-        "int8" (weight-only, ``ops.quant``)."""
+        "int8" (weight-only, ``ops.quant``). ``mesh``: a
+        ``parallel.mesh.Mesh`` the engine spans instead of one ``device``,
+        batches split over ``data_axis``, parameters placed by
+        ``param_shardings`` (default whole on every rank)."""
         if quantize is not None and quantize != "int8":
             raise ValueError(f"unsupported quantize mode '{quantize}' "
                              "(supported: int8)")
@@ -97,9 +117,24 @@ class InferenceEngine:
         if model.apply is None:
             raise ValueError(f"model '{model.name}' has no one-shot apply")
         self.spec = model
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass either mesh or device, not both")
+        if quantize is not None and mesh is not None \
+                and param_shardings is not None:
+            raise ValueError(
+                "quantize=int8 with tensor-parallel param_shardings is "
+                "unsupported (shard rules address 'kernel' paths); "
+                "serve quantized on replicated/data meshes")
+        self._mesh = mesh
+        self._data_axis = data_axis
+        self._data_size = 1 if mesh is None else mesh.shape[data_axis]
+        self.device = mesh.home if mesh is not None else resolve_device(
+            device)
         self._dtype = resolve_dtype(dtype)
-        self._buckets = tuple(sorted({max(1, int(b)) for b in batch_buckets}))
+        d = self._data_size
+        # Every bucket splits evenly over the data axis.
+        self._buckets = tuple(sorted({-(-max(1, int(b)) // d) * d
+                                      for b in batch_buckets}))
         self._shape_buckets: Optional[Tuple[Tuple[int, ...], ...]] = None
         if shape_buckets is not None:
             shapes = {tuple(int(d) for d in sh) for sh in shape_buckets}
@@ -112,6 +147,15 @@ class InferenceEngine:
             dtype=torch.float32 if quantize else self._dtype)
         if quantize is not None:
             self.params = quantize_params(self.params)
+        self._param_shardings = None
+        self._placed = None
+        if mesh is not None:
+            from tpu_engine_torch.parallel.mesh import replicated
+
+            self._param_shardings = (param_shardings
+                                     if param_shardings is not None
+                                     else replicated(mesh))
+            self._place()
         self._cuda = self.device.type == "cuda"
         # Set by the owning worker, as on the JAX engine. The JAX engine
         # records an ``xla_compile`` span per bucket it compiles; the
@@ -159,8 +203,20 @@ class InferenceEngine:
         from tpu_engine_torch.models.convert import params_to
 
         self.params = params_to(params, self.device)
+        if self._mesh is not None:
+            self._place()
+
+    def _place(self) -> None:
+        """The mesh ranks' trees of ``params`` (``parallel.mesh.place``)."""
+        from tpu_engine_torch.parallel.mesh import place
+
+        self._placed = place(self.params, self._param_shardings)
 
     # -- buckets and staging --------------------------------------------------
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        return self._buckets
 
     def _bucket_for(self, batch_size: int) -> int:
         for b in self._buckets:
@@ -215,16 +271,32 @@ class InferenceEngine:
         host = torch.from_numpy(buf).to(self._wire_dtype)
         return host.pin_memory() if self._cuda else host
 
-    def _forward(self, xw: torch.Tensor, bucket: int,
+    def _forward(self, params, xw: torch.Tensor,
                  shape: Tuple[int, ...]) -> torch.Tensor:
-        """Zero-pad the wire to the size of ``shape`` on the device,
-        reshape to (bucket, *shape) and run the forward: (bucket, ...)
-        f32."""
+        """Zero-pad the wire's rows to the size of ``shape`` on their
+        device, reshape to (rows, *shape) and run the forward on
+        ``params``: (rows, -1) f32."""
         n_in = int(np.prod(shape))
         if xw.shape[1] < n_in:
             xw = F.pad(xw, (0, n_in - xw.shape[1]))
-        x = xw.reshape((bucket,) + tuple(shape))
-        return self.spec.apply(self.params, x, dtype=self._dtype)
+        x = xw.reshape((xw.shape[0],) + tuple(shape))
+        return self.spec.apply(params, x, dtype=self._dtype).reshape(
+            xw.shape[0], -1)
+
+    def _run(self, host_in: torch.Tensor,
+             shape: Tuple[int, ...]) -> torch.Tensor:
+        """The forward of a staged (bucket, wire) host buffer: on the
+        engine's device, or with a mesh each data rank's slice on its
+        device over its gathered tree, the rows gathered back to the home
+        device in order."""
+        if self._mesh is None:
+            return self._forward(self.params, host_in.to(
+                self.device, non_blocking=True), shape)
+        mesh = self._mesh
+        return mesh.gather_batch([
+            self._forward(self._placed.gathered(r), xw, shape)
+            for r, xw in zip(mesh.data_ranks(self._data_axis),
+                             mesh.scatter_batch(host_in, self._data_axis))])
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run every batch bucket at the narrowest and widest wire bucket,
@@ -309,8 +381,7 @@ class InferenceEngine:
         memory without blocking; ``rows`` are the requests' positions."""
         host_in = self._stage_wire(chunk, bucket, wire)
         with torch.inference_mode():
-            xw = host_in.to(self.device, non_blocking=True)
-            y = self._forward(xw, bucket, shape).reshape(bucket, -1)
+            y = self._run(host_in, shape)
             event = None
             if self._cuda:
                 out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
@@ -360,4 +431,7 @@ class InferenceEngine:
                 "wire_buckets": list(self._wire_buckets),
                 "device": str(self.device),
                 "execute_count": count,
-                "collect_block_s": round(block, 4)}
+                "collect_block_s": round(block, 4),
+                "mesh": None if self._mesh is None else {
+                    "axes": dict(self._mesh.shape),
+                    "n_devices": self._mesh.size}}

@@ -247,13 +247,59 @@ def native_front_wanted(models: List[str],
     return native_front is not False
 
 
+def parse_mesh_spec(spec: str, device=None):
+    """'data=8' / 'model=2,data=4' -> a ``parallel.mesh.Mesh`` with those
+    axes in that order; a missing ``data`` axis is added with size 1 (the
+    engine's batch axis always exists). The ranks are the CUDA devices,
+    which must number the mesh's size (the JAX message otherwise), or
+    with ``device`` every rank on that one device."""
+    import math
+
+    from tpu_engine_torch.parallel.mesh import create_mesh
+    from tpu_engine_torch.utils.device import resolve_device
+
+    axes = []
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        axes.append((name.strip(), int(size)))
+    if "data" not in (n for n, _ in axes):
+        axes.append(("data", 1))
+    shape = tuple(s for _, s in axes)
+    return create_mesh(shape=shape, axis_names=tuple(n for n, _ in axes),
+                       devices=(None if device is None else
+                                [resolve_device(device)] * math.prod(shape)))
+
+
+def _mesh_engine(model: str, lane_cfg: WorkerConfig, mesh, params=None):
+    """One engine spanning the whole mesh: batches scatter over ``data``,
+    weights split over ``model`` when that axis is > 1
+    (``training.train.shard_params_tp``), else whole on every rank.
+    ``params``: the model's tree on the mesh's home device; None draws
+    the seeded random weights of ``lane_cfg.seed``."""
+    from tpu_engine_torch.runtime.engine import InferenceEngine
+    from tpu_engine_torch.training.train import shard_params_tp
+
+    spec = _model_spec(model, lane_cfg.model_path or "")
+    if params is None:
+        params = spec.init(lane_cfg.seed, device=mesh.home,
+                           dtype=lane_cfg.dtype)
+    shardings = None
+    if mesh.shape.get("model", 1) > 1:
+        shardings = shard_params_tp(params, mesh, axis="model")
+    return InferenceEngine(
+        spec, params=params, dtype=lane_cfg.dtype,
+        batch_buckets=lane_cfg.batch_buckets,
+        shape_buckets=lane_cfg.shape_buckets, mesh=mesh,
+        param_shardings=shardings)
+
+
 def serve_combined(model: str = "resnet50", lanes: int = 0,
                    port: int = 8000,
                    worker_config: Optional[WorkerConfig] = None,
                    gateway_config: Optional[GatewayConfig] = None,
                    warmup: bool = False,
                    native_front: Optional[bool] = None,
-                   lane_roles: Optional[List[str]] = None):
+                   lane_roles: Optional[List[str]] = None, mesh=None):
     """One process serving ``model`` (``"a,b"``: models assigned to lanes
     round-robin, requests routed by their ``model``) on ``lanes``
     in-process lanes (0: one per device of ``lane_devices``; more go
@@ -271,9 +317,12 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
     front. A library that does not build raises. With
     ``gateway_config.autoscale`` the fleet controller mints lanes
     ``worker_{N+1}...`` (``make_lane``'s, at most ``autoscale_max_lanes``
-    live) and retires them; ``workers`` follows. Returns (gateway,
-    workers, server), serving in the background; stop them with
-    ``stop_combined``."""
+    live) and retires them; ``workers`` follows. ``mesh`` (a spec such
+    as 'model=2,data=4', every rank on ``worker_config.device`` when it
+    names one, or a ``parallel.mesh.Mesh``): mesh-sharded serving, one
+    model on ONE lane, ``worker_1``, whose engine spans the mesh
+    (``_mesh_engine``). Returns (gateway, workers, server), serving in the
+    background; stop them with ``stop_combined``."""
     cfg = worker_config or WorkerConfig()
     gateway_config = gateway_config or GatewayConfig(port=port)
     models = [m.strip() for m in str(model).split(",") if m.strip()]
@@ -281,6 +330,8 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
         raise ValueError("model_path is ambiguous with multiple models; "
                          "serve them from separate processes or extend "
                          "the config per model")
+    if mesh is not None and len(models) > 1:
+        raise ValueError("mesh-sharded serving is single-model")
     if lanes and lanes < len(models):
         raise ValueError(
             f"lanes={lanes} cannot serve {len(models)} models — "
@@ -294,15 +345,18 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
         from tpu_engine_torch.core import native
 
         native.load()  # a failed build raises here, before any lane
-    devices = lane_devices(cfg)
+    if isinstance(mesh, str):
+        mesh = parse_mesh_spec(mesh, device=cfg.device)
+    devices = ([str(mesh.home)] if mesh is not None
+               else lane_devices(cfg))
     tp = max(1, int(cfg.tp))
     # Tensor-parallel lanes each take tp cards: the default fleet is
     # cards // tp lanes, lane i on cards [i*tp, (i+1)*tp) (round-robin
     # when --lanes oversubscribes), or every rank on the named device.
     n_slices = max(1, len(devices) // tp)
-    n_lanes = lanes or max(n_slices if tp > 1 else len(devices),
-                           len(models))
-    if lane_roles:
+    n_lanes = 1 if mesh is not None else lanes or max(
+        n_slices if tp > 1 else len(devices), len(models))
+    if lane_roles and mesh is None:
         n_lanes = max(n_lanes, len(lane_roles))
     load_dtype = "float32" if cfg.quantize else cfg.dtype
     path = cfg.model_path or ""
@@ -331,7 +385,10 @@ def serve_combined(model: str = "resnet50", lanes: int = 0,
         cache = None
         if use_native:
             cache = native.NativeLRUCache(lane_cfg.cache_capacity, raw=True)
-        w = WorkerNode(lane_cfg, params=shared[key], cache=cache)
+        engine = (None if mesh is None else _mesh_engine(
+            lane_cfg.model, lane_cfg, mesh, params=shared[key]))
+        w = WorkerNode(lane_cfg, params=shared[key], cache=cache,
+                       engine=engine)
         if (shared[key] is None and cfg.quantize is None
                 and not path.endswith(".onnx")):
             shared[key] = w.engine.params

@@ -174,8 +174,10 @@ command's flags map onto the same WorkerConfig and GatewayConfig fields
 ``--scheduler-stall-s`` arms every lane's stall watchdog; ``--tp N``
 makes every lane tensor-parallel over N ranks (the default lane count is
 then the cards // N, lane i on cards i*N ..; with ``--device`` every rank
-on that device); ``--mesh`` refuses by name. SIGTERM stops the front, the
-gateway and every lane.
+on that device); ``--mesh model=2,data=2`` serves one model on one lane
+whose engine spans the mesh (batches split over ``data``, weights over
+``model``), its ranks the cards (as many as the mesh's size) or all on
+``--device``. SIGTERM stops the front, the gateway and every lane.
 
 ``--tp N`` on a worker (paged continuous lanes, ``--kv-block-size``
 needed) shards the model by the registry's rule over N ranks, on the
@@ -188,7 +190,12 @@ from ``--seed + 1``), the same ``step k: loss x`` lines, an f32 forward
 through the flash kernels and their backward, ``--remat`` checkpointing
 each block. ``--out`` writes ``<out>/state`` (the whole train state) and
 ``<out>/params`` (servable, with the sidecar); ``--resume`` continues a
-saved state's step count. ``--mesh`` (parallel training) is not ported.
+saved state's step count. ``--mesh data=2,model=2`` trains over a mesh
+(``training.train.make_mesh_train_step``): parameters split over
+``model`` when the mesh has that axis (else whole on every rank), the
+batch over ``data``, the whole state (optimizer moments included) placed
+on the mesh after a resume, and ``--out`` writing the gathered state, as
+an unsharded run's. Its ranks are the cards, or all on ``--device``.
 
 The worker and train commands run on the CUDA card unless ``--device
 cpu``; the gateway never touches the card.
@@ -734,17 +741,9 @@ def _gateway(argv) -> int:
     return 0
 
 
-# The JAX serve command's flags that map onto no ported feature: each is
-# accepted and refuses by name (mesh-sharded serving).
-_UNPORTED_SERVE_FLAGS = (
-    ("--mesh", "mesh-sharded serving"),
-)
-
-
 def serve_args(argv) -> dict:
     """The keyword arguments of ``app.serve_combined`` for a ``serve``
-    command line, mapped as the JAX command maps them; an unported flag
-    (``--mesh``) raises NotImplementedError naming it."""
+    command line, mapped as the JAX command maps them."""
     from tpu_engine_torch.utils.config import GatewayConfig, WorkerConfig
 
     p = argparse.ArgumentParser(prog="serve")
@@ -757,6 +756,12 @@ def serve_args(argv) -> dict:
     p.add_argument("--lanes", type=int, default=0,
                    help="in-process lanes (default: one per card, or one "
                         "on --device)")
+    p.add_argument("--mesh", default=None,
+                   help="mesh-sharded serving: one lane whose engine spans "
+                        "a mesh, e.g. data=2 or model=2,data=2 (batches "
+                        "split over data, weights over model); its axes "
+                        "multiply to the card count, or every rank sits "
+                        "on --device")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--warmup", action="store_true",
                    help="run every batch bucket and a short generation on "
@@ -869,13 +874,7 @@ def serve_args(argv) -> dict:
                         "(all on --device when given); the default lane "
                         "count becomes cards // tp")
     _add_autoscale_flags(p)
-    for flag, _what in _UNPORTED_SERVE_FLAGS:
-        p.add_argument(flag, default=None)
     a = p.parse_args(argv)
-    for flag, what in _UNPORTED_SERVE_FLAGS:
-        if getattr(a, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"{flag} ({what}) is not yet ported to tpu_engine_torch")
     gw = {}
     for name, field in (
             ("breaker_timeout", "breaker_timeout_s"),
@@ -979,7 +978,7 @@ def serve_args(argv) -> dict:
                                if gw else None),
             "native_front": {"auto": None, "on": True,
                              "off": False}[a.native_front],
-            "lane_roles": lane_roles}
+            "lane_roles": lane_roles, "mesh": a.mesh}
 
 
 def _serve_combined(argv) -> int:
@@ -1018,7 +1017,11 @@ def train(argv, params=None) -> int:
     from tpu_engine_torch.training.train import (
         adamw,
         cross_entropy_loss,
+        gather_train_state,
+        make_mesh_train_step,
         make_train_step,
+        replicated_tree,
+        shard_params_tp,
     )
     from tpu_engine_torch.utils.checkpoint import (
         load_train_state,
@@ -1037,7 +1040,9 @@ def train(argv, params=None) -> int:
                         "max_seq)")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mesh", default=None,
-                   help="parallel training: not ported (refuses)")
+                   help="e.g. data=2,model=2: params split over model, "
+                        "the batch over data; the axis sizes multiply to "
+                        "the card count, or every rank sits on --device")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint each block (activation memory ~ one "
                         "layer instead of all L)")
@@ -1052,16 +1057,17 @@ def train(argv, params=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh:
-        print("--mesh (parallel training) is not yet ported to "
-              "tpu_engine_torch")
-        return 2
     spec = create_model(args.model)
     cfg = spec.config
     if not isinstance(cfg, TransformerConfig) or not cfg.causal:
         print(f"'{args.model}' is not a causal-LM transformer")
         return 2
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from tpu_engine_torch.serving.app import parse_mesh_spec
+
+        mesh = parse_mesh_spec(args.mesh, device=args.device)
+    dev = mesh.home if mesh is not None else resolve_device(args.device)
     seq = min(args.seq or cfg.max_seq, cfg.max_seq)
 
     def apply_fn(params, x, dtype=torch.bfloat16):
@@ -1076,6 +1082,16 @@ def train(argv, params=None) -> int:
     state = init_state(params)
     if args.resume:
         state = load_train_state(args.resume, like=state)
+    if mesh is not None:
+        # The whole state, optimizer moments included, or a resumed mesh
+        # run would train on whole copies.
+        place_state, train_step = make_mesh_train_step(
+            apply_fn, mesh, loss_fn=cross_entropy_loss, dtype=torch.float32)
+        state = place_state(state, (
+            shard_params_tp(state.params, mesh, "model")
+            if "model" in mesh.shape
+            else replicated_tree(state.params, mesh)))
+    if args.resume:
         print(f"resumed at step {state.step}")
 
     if args.data:
@@ -1097,6 +1113,8 @@ def train(argv, params=None) -> int:
         if k % args.log_every == 0 or k == args.steps - 1:
             print(f"step {state.step}: loss {float(loss):.4f}", flush=True)
     if args.out:
+        if mesh is not None:
+            state = gather_train_state(state)
         spath = save_train_state(os.path.join(args.out, "state"), state,
                                  overwrite=True)
         ppath = save_params(os.path.join(args.out, "params"), state.params,

@@ -403,13 +403,17 @@ def _load_model_path(spec: ModelSpec, model_path: Optional[str], device,
 
 
 class WorkerNode:
-    def __init__(self, config: WorkerConfig, params=None, cache=None):
+    def __init__(self, config: WorkerConfig, params=None, cache=None,
+                 engine: Optional[InferenceEngine] = None):
         """``params``: the model's parameter tree (``models.convert``) on
         the lane's device; None draws seeded random weights
         (``config.seed``). ``cache``: the /infer result cache (an
         ``LRUCache`` of ``cache_capacity`` by default; the combined
         server's native front gives its lanes a raw-mode
-        ``core.native.NativeLRUCache``, whose entries it serves in C++)."""
+        ``core.native.NativeLRUCache``, whose entries it serves in C++).
+        ``engine``: the lane's engine, built by the caller (the combined
+        server's mesh engine), instead of one built here from
+        ``params``."""
         self.config = config
         self.node_id = config.node_id
         self._node_id_json = json.dumps(self.node_id).encode()
@@ -469,7 +473,9 @@ class WorkerNode:
         # Quantized lanes load f32 weights and quantize those, as JAX
         # quantizes its f32 tree.
         load_dtype = "float32" if config.quantize else config.dtype
-        if path.endswith(".onnx") and os.path.exists(path):
+        if engine is not None:
+            spec = engine.spec
+        elif path.endswith(".onnx") and os.path.exists(path):
             # The graph itself is the model: architecture and weights.
             from tpu_engine_torch.models.onnx_graph import build_onnx_model
 
@@ -483,7 +489,7 @@ class WorkerNode:
                                           load_dtype)
         self._fence_family(spec)
         self._fence_tp(spec)
-        self.engine = InferenceEngine(
+        self.engine = engine or InferenceEngine(
             spec, params=params, rng_seed=config.seed, dtype=config.dtype,
             batch_buckets=config.batch_buckets,
             shape_buckets=config.shape_buckets, device=config.device,
