@@ -98,9 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
               drafter, mixed, bf16 pool), spec-two-path-int8 (n-gram,
               two-path, int8 pool) and spec-model-gpt2 (gpt2's 12 layers
               at d 768 with its auto draft distilgpt2, both random from
-              seeds 0 and 1, mixed, bf16 pool), each answering the burst,
-              the stream, a shared-prefix request, a repetitive prompt
-              and its greedy repeat: spec ticks == dispatches, the ragged
+              seeds 0 and 1, mixed, bf16 pool; 8 new tokens a request,
+              16 on the others), each answering the burst, the stream, a
+              shared-prefix request, a repetitive prompt and its greedy
+              repeat: spec ticks == dispatches, the ragged
               kernel's launches == dispatches x layers, the flash
               forward's == draft dispatches x the draft's 6 layers (zero
               on the n-gram lanes), no decode read (#2, #3) launched.
@@ -173,18 +174,20 @@ Phases (any failure exits non-zero and prints no result line):
               bf16's own distance from f32, the same burst through a
               worker in f32 within BERT_F32_TOL of the plain f32 forward,
               the forward's times at B 1 and 32; a yolov8n worker (bf16,
-              shape buckets 320, 480, 640) answering 6 distinct 16-float
-              requests cycling the three shapes: n_anchors x 144 values
+              shape buckets 320, 480, 640) answering 3 distinct 16-float
+              requests, one a shape: n_anchors x 144 values
               each, within YOLO_TOL of the plain f32 forward of each
               canvas, the same burst through a worker in f32 within
-              YOLO_F32_TOL of it, the forward's times per bucket at B 1
-              and 8 and one 640 answer's JSON encoding; a
+              YOLO_F32_TOL of it, the forward at every bucket at B 1
+              and 8, its times at 640, and one 640 answer's JSON
+              encoding; a
               ResNet-50 v2 ONNX graph (seeded, in resnet50-v2-7.onnx's
               shape) served by `worker_node <port> worker_1 <file>.onnx` as
               a process, answering the 3-float payload and a full image
               within ONNX_TOL of the port's executor on the CPU in f32, and
-              its forward's times; two gpt2 (124M) HF-layout checkpoints
-              of seeded tensors (config.json + model.safetensors;
+              its forward's times; two gpt2 HF-layout checkpoints at 4 of
+              its 12 layers (d 768, vocab 50257) of seeded tensors
+              (config.json + model.safetensors; config.json +
               pytorch_model.bin), the first served by `worker_node` as a
               process, /admin/reload to the second (timed): the cache
               empties, /infer changes, and a greedy stream equals a fresh
@@ -424,7 +427,7 @@ Phases (any failure exits non-zero and prints no result line):
               and the bound. gpt2 at full width and
               depth (random weights from seed 0, bf16) as a worker_node
               process with --gen-scheduler batch (8 rows a group, 200 ms
-              window): 16 /generate (prompts of 100-480 tokens, 32 new,
+              window): 8 /generate (prompts of 100-480 tokens, 32 new,
               half greedy, half seeded at 0.8, two with stop tokens and a
               penalty of 1.2), 4 streams, 4 beam-4 requests of 16 tokens
               and 8 /score rows of 128 at once; then a 600-token prompt
@@ -552,6 +555,32 @@ Phases (any failure exits non-zero and prints no result line):
               --resume continues the step count and the unsharded run's
               losses. No speed is claimed: on one card the ranks free
               nothing.
+19. seqpar  — last: sequence parallelism, GPipe and expert-parallel MoE,
+              every rank on the one card (cuda:0), #5 the attention of
+              every path. The ring's hop-merge (one #5 call a hop, the
+              hops merged in f32 by their lse) against the plain ring
+              (JAX's accumulation step) on the same inputs, f32 within
+              1e-5 and bf16 within 2e-2: B 2 x S 32 x H 4 x D 64 causal,
+              masked and both over seq=8, B 1 x S 2048 x H 32 causal
+              over seq=4; #5 == n(n+1)/2 hops causal, n² otherwise.
+              TinyLlama (22 layers, random weights from seed 0) with the
+              ring and with Ulysses over seq=4 as every block's
+              attention, B 1 x S 2048 and B 2 right-padded through the
+              mask, f32 (TF32 off, within 2e-4 of the largest logit)
+              and bf16 (2e-2), against the single-rank forward through
+              #5, argmax equal where the top-2 margin exceeds the bound;
+              #5 == 22 x 10 (ring) and 22 x 4 (Ulysses) a forward.
+              GPipe: TinyLlama's 22 blocks (f32) over stage=2, B 8 x S
+              256, M 4 and 8, against the plain loop (2e-4); #5 == 22 x
+              M. gpt2-moe (12 layers, d 768, 8 experts, top-2, capacity
+              1.25) with each block's bank split over expert=4, B 4 x S
+              128, f32 (1e-4), bf16 and int8 weights (2e-2), against the
+              unsharded forward with the same routing (pairs, slots,
+              drops); #5 == 12 a forward. Each path's peak memory beside
+              the unsharded run's, and #5's times at the ring's hop shape
+              (B 1 x S 512 x H 32). Who: an operator whose context or
+              model outgrows one card; on one card the ranks free
+              nothing, so no speed or memory saving is claimed.
 
 The last line of standard output is the JSON result; the line before it
 the card's name and power limit; the line before that the kernels' JSON
@@ -572,7 +601,8 @@ does the same for the resnet50 bf16 forward at buckets 1, 8 and 32 and
 the bf16 resnets' card vs CPU errors, at torch's default TF32 settings.
 
     python3 chip_smoke.py --phase handoff|observe|overload|recurrent|moe
-    python3 chip_smoke.py --phase batch|combined|elastic|tp|mesh|server
+    python3 chip_smoke.py --phase batch|combined|elastic|tp|mesh|seqpar
+    python3 chip_smoke.py --phase server|refmodels|parity|gateway|kvtier
 
 runs the build and that one phase (or several, comma-separated, in
 turn), and writes its readings to chiprun_out/phase_<name>.json (no
@@ -739,6 +769,10 @@ SPEC_LANES = {
                              gen_mixed_token_budget=256,
                              gen_spec_draft="model")),
 }
+# New tokens a request on a spec lane other than MAX_NEW: the model-drafted
+# lane's draft forwards make its ticks the slowest (cut from 16 for the
+# smoke's time before the seqpar phase).
+SPEC_LANE_NEW = {"spec-model-gpt2": 8}
 
 
 def wrapper(name: str):
@@ -796,6 +830,18 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def lap_timer(walls: dict):
+    """A function that records, under each name it is given, the seconds
+    since its previous call (or since it was made)."""
+    t0 = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t0[0]
+        t0[0] = now
+    return lap
 
 
 def card_line() -> str:
@@ -1402,14 +1448,21 @@ def parity_flash(torch, dev, record) -> None:
         flash_identical(torch, fl, q, k, v, args, out, lse, f"f32 {case}")
     for case, s, h, d, pad, window in FLASH_BF16_CASES:
         q, k, v, mask = flash_inputs(torch, dev, s, h, d, pad)
-        args = dict(causal=True, mask=mask, window=window)
-        out, lse = fl.flash_attention_fwd(q, k, v, **args)
-        ref, ref_lse = fl.flash_attention_reference(q, k, v, **args)
-        torch.cuda.synchronize()
-        record("flash_attention", f"bf16 {case}",
-               flash_err(torch, out, lse, ref, ref_lse), BF16_TOL)
-        flash_identical(torch, fl, q, k, v, args, out, lse, f"bf16 {case}")
-        del ref, ref_lse
+        # bf16 out, and the f32 out the ring's hops take.
+        for out_dtype, tag in ((None, "bf16"),
+                               (torch.float32, "bf16 in, f32 out")):
+            args = dict(causal=True, mask=mask, window=window,
+                        out_dtype=out_dtype)
+            out, lse = fl.flash_attention_fwd(q, k, v, **args)
+            ref, ref_lse = fl.flash_attention_reference(q, k, v, **args)
+            torch.cuda.synchronize()
+            check(out.dtype == (out_dtype or q.dtype),
+                  f"flash_attention {tag} {case}: out {out.dtype}")
+            record("flash_attention", f"{tag} {case}",
+                   flash_err(torch, out, lse, ref, ref_lse), BF16_TOL)
+            flash_identical(torch, fl, q, k, v, args, out, lse,
+                            f"{tag} {case}")
+            del ref, ref_lse
     # The draft model's prefill on the model-drafted spec lane: one row of
     # distilgpt2 width (12 heads, D 64) in its bucket, left padding masked,
     # f32 q, k, v as nn.dense gives them.
@@ -2019,18 +2072,18 @@ def start_lane(torch, params, lane: str, model: str = "llama",
 
 
 def burst(port: int, lane: str, reqs: dict, stream_prompt,
-          vocab: int = 32000) -> tuple:
+          vocab: int = 32000, max_new: int = MAX_NEW) -> tuple:
     """The requests of ``reqs`` on /generate and ``stream_prompt`` on
     /generate/stream, all at once. Checks that every one completes with
-    MAX_NEW tokens; returns (results by name, stream tokens, stream TTFT,
-    the burst's seconds, its tokens)."""
+    ``max_new`` tokens; returns (results by name, stream tokens, stream
+    TTFT, the burst's seconds, its tokens)."""
     results, errors = {}, []
 
     def run(name, prompt):
         try:
             results[name] = post(port, "/generate", {
                 "request_id": name, "prompt_tokens": prompt,
-                "max_new_tokens": MAX_NEW})
+                "max_new_tokens": max_new})
         except Exception as exc:  # reported below, fails the phase
             errors.append(f"{name}: {exc!r}")
 
@@ -2038,7 +2091,7 @@ def burst(port: int, lane: str, reqs: dict, stream_prompt,
         try:
             results["stream"] = stream(port, {
                 "request_id": "stream", "prompt_tokens": stream_prompt,
-                "max_new_tokens": MAX_NEW})
+                "max_new_tokens": max_new})
         except Exception as exc:
             errors.append(f"stream: {exc!r}")
 
@@ -2054,11 +2107,11 @@ def burst(port: int, lane: str, reqs: dict, stream_prompt,
           f"{lane} burst failed: {errors}")
     s_toks, s_final, ttft = results.pop("stream")
     check(s_final is not None and "error" not in s_final
-          and s_final["tokens"] == s_toks and len(s_toks) == MAX_NEW,
+          and s_final["tokens"] == s_toks and len(s_toks) == max_new,
           f"{lane} stream: {s_final}")
     n_tokens = len(s_toks)
     for name, res in results.items():
-        check(len(res["tokens"]) == MAX_NEW
+        check(len(res["tokens"]) == max_new
               and all(0 <= t < vocab for t in res["tokens"]),
               f"{lane} {name}: {res}")
         n_tokens += len(res["tokens"])
@@ -2370,6 +2423,7 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
     from tpu_engine_torch.ops import kernels
 
     model, kernel, overrides = SPEC_LANES[lane]
+    max_new = SPEC_LANE_NEW.get(lane, MAX_NEW)
     if model == "llama":
         model = cut_llama()
     worker, server = start_lane(torch, params if model == CUT_LLAMA
@@ -2398,13 +2452,13 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
                                         "max_new_tokens": 4})
         check(len(warm["tokens"]) == 4, f"{lane} warm-up: {warm}")
         _, _, ttft, burst_s, n_tokens = burst(port, lane, reqs,
-                                              stream_prompt, vocab)
+                                              stream_prompt, vocab, max_new)
         hit0 = generator_stats(port)["kv_pool"]["prefix_hit_tokens"]
         shared = post(port, "/generate", {
             "request_id": "prefix_b", "prompt_tokens": prefix + toks(40),
-            "max_new_tokens": MAX_NEW})
+            "max_new_tokens": max_new})
         hit = generator_stats(port)["kv_pool"]["prefix_hit_tokens"] - hit0
-        check(len(shared["tokens"]) == MAX_NEW and hit >= 64,
+        check(len(shared["tokens"]) == max_new and hit >= 64,
               f"{lane} shared prefix: {hit} prefix-hit tokens")
         # A spec lane in bf16 is held to its own greedy repeat, alone and
         # from the same radix hit (a verify window changes the GEMM's M,
@@ -2413,9 +2467,9 @@ def serve_spec_lane(torch, params, lane: str) -> dict:
         sp0 = generator_stats(port)["spec"]
         _, first, again = (post(port, "/generate", {
             "request_id": f"repetitive-{i}", "prompt_tokens": repetitive,
-            "max_new_tokens": MAX_NEW, "repetition_penalty": 0.1})["tokens"]
+            "max_new_tokens": max_new, "repetition_penalty": 0.1})["tokens"]
             for i in range(3))
-        check(first == again and len(first) == MAX_NEW,
+        check(first == again and len(first) == max_new,
               f"{lane} greedy repeat differs: {first} {again}")
         sp1 = generator_stats(port)["spec"]
         rep_proposed = sp1["proposed_tokens"] - sp0["proposed_tokens"]
@@ -3629,10 +3683,11 @@ BERT_LAYERS = 12
 BERT_BF16_FACTOR = 3.0
 BERT_F32_TOL = 1e-4
 YOLO_SIZES = (320, 480, 640)
-# 2 requests a bucket (16 before the observe phase came, 8 before the
-# combined phase, 4 before the tp phase, cut for the smoke's time: a 640
-# answer is 9 MB of JSON to encode on the host).
-YOLO_REQUESTS = 6
+# 1 request a bucket (16 before the observe phase came, 8 before the
+# combined phase, 4 before the tp phase, 2 before the seqpar phase, cut
+# for the smoke's time: a 640 answer is 9 MB of JSON to encode on the
+# host).
+YOLO_REQUESTS = 3
 YOLO_HEAD = 144
 # The yolov8n lane (bf16: every conv's operands rounded to bf16, f32
 # sums) against the plain f32 forward of each request's canvas on the same
@@ -3652,8 +3707,10 @@ YOLO_F32_TOL = 1e-4
 # Gemm through 53 layers. Measured on the CPU (the worker in bf16 against
 # the executor in f32, these inputs): 3.8e-3.
 ONNX_TOL = 3e-2
-# The gpt2 (124M) HF checkpoints of the reload check: HF's geometry.
-GPT2_HF = dict(vocab_size=50257, n_layer=12, n_embd=768, n_head=12,
+# The gpt2 HF checkpoints of the reload check: HF's geometry at 4 of its 12
+# layers (cut for the smoke's time before the seqpar phase: two checkpoints
+# written and loaded; the importers read the depth from config.json).
+GPT2_HF = dict(vocab_size=50257, n_layer=4, n_embd=768, n_head=12,
                n_positions=1024)
 
 
@@ -3948,7 +4005,8 @@ def refmodels_yolo(torch, card: str) -> dict:
     has n_anchors x 144 values for its shape, finite, within YOLO_TOL of
     the plain f32 forward of its canvas on the same weights (TF32 off);
     the lane's forwards are one per (dispatch, bucket). Then the forward
-    per bucket at B 1 and B 8; the same burst through a worker in f32 on
+    per bucket at B 1 and B 8 (its shape, finite), timed at 640; the same
+    burst through a worker in f32 on
     the same weights, each answer within YOLO_F32_TOL of the plain f32
     forward; and the host's JSON encoding of one 640 answer. (The burst is
     YOLO_REQUESTS requests.)"""
@@ -4009,8 +4067,11 @@ def refmodels_yolo(torch, card: str) -> dict:
                 check(tuple(y.shape) == (b, n_anchors(s, s), YOLO_HEAD)
                       and bool(torch.isfinite(y).all()),
                       f"yolo forward {s} B {b}")
-                out[f"forward {s} B={b}"] = forward_reading(
-                    torch, f"yolov8n bf16, {s} x {s}, B {b}", fwd, card)
+                # Timed at the largest bucket only (every bucket before
+                # the seqpar phase).
+                if s == YOLO_SIZES[-1]:
+                    out[f"forward {s} B={b}"] = forward_reading(
+                        torch, f"yolov8n bf16, {s} x {s}, B {b}", fwd, card)
     # The plain f32 forward (TF32 off) of each request's canvas, built here
     # as bench.py builds it: the 16 floats first, zeros to (s, s, 3).
     p32 = tree_map(lambda t: t.float(), params)
@@ -4363,8 +4424,11 @@ def start_reload(torch, tmp: Path) -> dict:
     first.mkdir()
     second.mkdir()
     t0 = time.perf_counter()
-    (first / "config.json").write_text(json.dumps(
-        {"model_type": "gpt2", "n_inner": None, **GPT2_HF}))
+    # Both carry config.json: the fresh worker on the second reads its
+    # geometry there (the registry's gpt2 has 12 layers).
+    for d in (first, second):
+        (d / "config.json").write_text(json.dumps(
+            {"model_type": "gpt2", "n_inner": None, **GPT2_HF}))
     write_safetensors(first / "model.safetensors", gpt2_hf_state(1))
     torch.save({k: torch.from_numpy(v) for k, v in gpt2_hf_state(2).items()},
                second / "pytorch_model.bin")
@@ -4375,9 +4439,10 @@ def start_reload(torch, tmp: Path) -> dict:
 
 
 def refmodels_reload(torch, card: str, started: dict) -> dict:
-    """The HF importers and /admin/reload: two gpt2 (124M) HF-layout
-    checkpoints of seeded tensors under HF's names, one a directory with
-    config.json and model.safetensors, the other with pytorch_model.bin.
+    """The HF importers and /admin/reload: two gpt2 HF-layout checkpoints
+    (GPT2_HF's geometry) of seeded tensors under HF's names, one a
+    directory with config.json and model.safetensors, the other with
+    config.json and pytorch_model.bin.
     `worker_node <port> w_hf <first>` (a process, which ``start_reload``
     starts; the model and geometry from config.json, bf16) serves the
     first; POST /admin/reload swaps in
@@ -4459,7 +4524,10 @@ def phase_refmodels(torch, card: str, errs: dict) -> dict:
     import tempfile
 
     t0 = time.perf_counter()
-    out = {"flash": refmodels_flash(torch, card, errs)}
+    walls = {}
+    lap = lap_timer(walls)
+    out = {"flash": refmodels_flash(torch, card, errs), "walls_s": walls}
+    lap("flash")
     flash_dev = out["flash"]["bert B=32 S=384 H=12 float32"]["device_ms"]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_refmodels_"))
     started = []
@@ -4469,10 +4537,15 @@ def phase_refmodels(torch, card: str, errs: dict) -> dict:
         started.append(onnx["proc"])
         reload = start_reload(torch, tmp)
         started.append(reload["proc"])
+        lap("start workers")
         out["bert"] = refmodels_bert(torch, card, flash_dev)
+        lap("bert")
         out["yolo"] = refmodels_yolo(torch, card)
+        lap("yolo")
         out["onnx"] = refmodels_onnx(torch, card, onnx)
+        lap("onnx")
         out["reload"] = refmodels_reload(torch, card, reload)
+        lap("reload")
     finally:
         for proc in started:
             if proc.poll() is None:
@@ -4480,7 +4553,9 @@ def phase_refmodels(torch, card: str, errs: dict) -> dict:
                 proc.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    log(f"refmodels: every check passed in {out['seconds']:.1f} s [{card}]")
+    log(f"refmodels: every check passed in {out['seconds']:.1f} s, walls "
+        f"(s) {json.dumps({k: round(v, 1) for k, v in walls.items()})} "
+        f"[{card}]")
     return out
 
 
@@ -7413,7 +7488,8 @@ BATCH_LANE_ARGS = ("gpt2", "--gen-scheduler", "batch", "--n-slots", "8",
 SPEC_LANE_ARGS = ("--gen-scheduler", "speculative", "--gen-spec-k", "4",
                   "--n-slots", "8", "--batch-timeout-ms", "200",
                   "--dtype", "float32")
-BATCH_GENERATE = 16
+# 8 /generate in the burst (16 before the seqpar phase).
+BATCH_GENERATE = 8
 BATCH_NEW = 32
 BATCH_STREAMS = 4
 BATCH_BEAMS = 4
@@ -7809,16 +7885,16 @@ def batch_in_process(torch, card: str, params) -> dict:
     log(f"batch: gpt2 bf16 B 8 decode step (pos 600) wall {wall:.3f} ms, "
         f"host issue {issue:.3f} ms, {busy_text(busy, idle)} [{card}]")
     del caches
-    # The decode loop's host reads, 8 x 64 tokens in turns: the done flag
-    # read every 16 steps (the lane's step_chunk: 5 reads) against every
-    # 64 (2 reads: before the first step and after the last). Both run
-    # the same 64 steps. The second Generator's cache is warmed first.
+    # The decode loop's host reads, 8 x 64 tokens: the done flag read every
+    # 16 steps (the lane's step_chunk: 5 reads) against every 64 (2 reads:
+    # before the first step and after the last), once each (twice before
+    # the seqpar phase). Both run the same 64 steps. The second
+    # Generator's cache is warmed first.
     few = tg.Generator(spec, params=params, dtype="bfloat16",
                        step_chunk=64, device="cuda")
     few.generate(prompts, max_new_tokens=2)
     walls = {"every_16": [], "every_64": []}
-    for mode, g in (("every_16", gen), ("every_64", few),
-                    ("every_64", few), ("every_16", gen)):
+    for mode, g in (("every_16", gen), ("every_64", few)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g.generate(prompts, max_new_tokens=64)
@@ -7831,7 +7907,7 @@ def batch_in_process(torch, card: str, params) -> dict:
         f"{walls['every_64']} ms [{card}]")
     # One beam-4 step: the wall of 32 - 16 steps over 16, and its gather.
     bw = {}
-    for n in (17, 33, 17, 33):
+    for n in (17, 33):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gen.beam_search(prompts[1], beam_width=4, max_new_tokens=n)
@@ -8002,6 +8078,8 @@ def phase_batch(torch, card: str) -> dict:
     from tpu_engine_torch.ops import kernels as kl
 
     t0 = time.perf_counter()
+    walls = {}
+    lap = lap_timer(walls)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_batch_"))
     try:
         # The three worker processes load while the in-process parts run.
@@ -8009,22 +8087,30 @@ def phase_batch(torch, card: str) -> dict:
             ["batch-w", *BATCH_LANE_ARGS], "batch_worker.log",
             "batch_counts.json")
         spec_started = start_spec_lanes(torch, tmp)
-        out = {"small": batch_small(torch)}
+        lap("start workers")
+        out = {"small": batch_small(torch), "walls_s": walls}
+        lap("small")
         out["flash"] = batch_flash(torch, card)
+        lap("flash")
         params = create_model("gpt2").init(0, device="cuda",
                                            dtype="bfloat16")
         out["in_process"] = batch_in_process(torch, card, params)
         del params
+        lap("in process")
         # The main path: counts to 0 just before the worker, read just
         # after.
         kl.reset_counts()
         out["worker"] = batch_worker(torch, card, started)
+        lap("worker")
         out["spec"] = batch_spec_lanes(torch, card, spec_started)
+        lap("spec lanes")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    log(f"batch: every check passed in {out['seconds']:.1f} s [{card}]")
+    log(f"batch: every check passed in {out['seconds']:.1f} s, walls (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} "
+        f"[{card}]")
     return out
 
 
@@ -9250,13 +9336,7 @@ def phase_tp(torch, card: str, pa) -> dict:
     spec = create_model("llama")
     cfg = spec.config
     walls = {}
-    t0 = time.perf_counter()
-
-    def lap(name):
-        nonlocal t0
-        walls[name] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-
+    lap = lap_timer(walls)
     res = {"card": card, "walls_s": walls,
            "kernels": tp_kernel_readings(torch, pa)}
     lap("kernels")
@@ -9625,13 +9705,7 @@ def phase_mesh(torch, card: str) -> dict:
     from tpu_engine_torch.serving.app import parse_mesh_spec
 
     walls = {}
-    t0 = time.perf_counter()
-
-    def lap(name):
-        nonlocal t0
-        walls[name] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-
+    lap = lap_timer(walls)
     res = {"card": card, "walls_s": walls}
     if torch.cuda.device_count() == 1:
         try:
@@ -9663,6 +9737,452 @@ def phase_mesh(torch, card: str) -> dict:
     log(f"mesh phase walls (s): "
         f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} "
         f"[{card}]")
+    return res
+
+
+# -- sequence parallelism, GPipe and expert-parallel MoE ----------------------
+
+SEQPAR_DEVICE = "cuda:0"
+# The hop-merge against the plain ring: (case, B, S, H, ranks on seq,
+# causal, valid keys a row or None). The JAX tests' shapes (B 2, S 32,
+# H 4) at D 64, the smallest head dim #5 takes above JAX's 8, over
+# seq=8; and a long row of TinyLlama's heads over seq=4.
+SEQPAR_D = 64
+SEQPAR_MERGE = (("B2 S32 H4 causal seq=8", 2, 32, 4, 8, True, None),
+                ("B2 S32 H4 mask seq=8", 2, 32, 4, 8, False, 20),
+                ("B2 S32 H4 causal+mask seq=8", 2, 32, 4, 8, True, 24),
+                ("B1 S2048 H32 causal seq=4", 1, 2048, 32, 4, True, None))
+# TinyLlama with sequence-parallel attention against its single-rank
+# forward through #5, as max|diff| / max|single|: f32 (TF32 off) JAX's
+# test bound; bf16 the smoke's bound for #5.
+SEQPAR_SEQ = 4
+SEQPAR_S = 2048
+SEQPAR_PAD_VALID = 1500        # the B 2 case: row 1 right-padded
+SEQPAR_MODEL_TOL = {"float32": 2e-4, "bfloat16": BF16_TOL}
+# GPipe: TinyLlama's blocks over stage=2, (B, S), microbatch counts.
+SEQPAR_GPIPE = (8, 256)
+SEQPAR_GPIPE_M = (4, 8)
+SEQPAR_GPIPE_TOL = 2e-4
+# Expert-parallel gpt2-moe at the registry's width: expert=4, (B, S); the
+# unsharded forward's bound per compute dtype (f32 JAX's 1e-4).
+SEQPAR_EP = 4
+SEQPAR_EP_SHAPE = (4, 128)
+SEQPAR_EP_TOL = {"float32": 1e-4, "bfloat16": BF16_TOL}
+
+
+@contextlib.contextmanager
+def counted_copies():
+    """The flash wrapper's copies of operands whose rows are not 16-byte
+    aligned (``ops.flash._aligned``), counted while the block runs."""
+    from tpu_engine_torch.ops import flash as fl
+
+    seen = [0]
+    aligned = fl._aligned
+
+    def counting(t):
+        out = aligned(t)
+        seen[0] += out is not t
+        return out
+    fl._aligned = counting
+    try:
+        yield seen
+    finally:
+        fl._aligned = aligned
+
+
+def seqpar_merge(torch) -> dict:
+    """The card's ring (one #5 call a hop, merged by lse) against the
+    plain ring (JAX's accumulation step, on the card) on the same inputs,
+    f32 within F32_TOL and bf16 within BF16_TOL, with its launches
+    (n(n+1)/2 causal, n² otherwise) and the flash wrapper's copies."""
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.parallel import ring
+    from tpu_engine_torch.parallel.mesh import Mesh
+
+    res = {}
+    rng = np.random.default_rng(27)
+    for case, b, s, h, n, causal, valid in SEQPAR_MERGE:
+        mesh = Mesh([SEQPAR_DEVICE] * n, (n,), ("seq",))
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, s, h, SEQPAR_D), np.float32)).to(SEQPAR_DEVICE)
+            for _ in range(3))
+        mask = None
+        if valid is not None:
+            m = np.zeros((b, s), np.int32)
+            m[:, :valid] = 1
+            mask = torch.from_numpy(m).to(SEQPAR_DEVICE)
+        for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+            dt = getattr(torch, dtype)
+            qq, kk, vv = (t.to(dt) for t in (q, k, v))
+            kw = dict(axis_name="seq", causal=causal, kv_mask=mask,
+                      batch_axis=None)
+            with torch.no_grad():
+                want = ring._ring(qq, kk, vv, mesh, block=ring.PLAIN, **kw)
+                kl.reset_counts()
+                with counted_copies() as copies:
+                    got = ring.ring_attention(qq, kk, vv, mesh,
+                                              causal=causal, kv_mask=mask)
+                torch.cuda.synchronize()
+            launches = fl.flash_attention_fwd.launches
+            hops = n * (n + 1) // 2 if causal else n * n
+            check(launches == hops and fl.flash_attention_fwd.plain_calls
+                  == 0, f"seqpar merge {case} {dtype}: #5 {launches} != "
+                        f"{hops} hops")
+            check(got.dtype == dt and bool(torch.isfinite(got).all()),
+                  f"seqpar merge {case} {dtype}: {got.dtype}, non-finite")
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= tol, f"seqpar merge {case} {dtype}: {err} > {tol}")
+            res[f"{case} {dtype}"] = {"max_abs_err": err, "launches":
+                                      launches, "copies": copies[0]}
+            if dtype == "bfloat16":
+                # What rounding each hop's output to bf16 before the merge
+                # costs: the merged ring and one #5 call over the whole
+                # sequence, each against the plain ring in f32 on the
+                # same bf16 values.
+                with torch.no_grad():
+                    exact = ring._ring(qq.float(), kk.float(), vv.float(),
+                                       mesh, block=ring.PLAIN, **kw)
+                    whole = fl.flash_attention_fwd(qq, kk, vv, causal=causal,
+                                                   mask=mask)[0]
+                res[f"{case} {dtype}"].update(
+                    merged_vs_f32=float((got.float() - exact).abs().max()),
+                    one_call_vs_f32=float((whole.float() - exact)
+                                          .abs().max()))
+    log("seqpar hop-merge (#5 a hop, merged by lse in f32) against the "
+        "plain ring on the card: " + "; ".join(
+            f"{k} err {v['max_abs_err']:.2e}, #5 {v['launches']}, copies "
+            f"{v['copies']}" + (
+                f" (against f32 math: merged {v['merged_vs_f32']:.2e}, one "
+                f"#5 call {v['one_call_vs_f32']:.2e})"
+                if "merged_vs_f32" in v else "") for k, v in res.items()))
+    return res
+
+
+def seqpar_tokens(vocab: int, b: int, s: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, vocab, (b, s))
+
+
+def seqpar_compare(torch, what: str, got, want, tol: float, mask=None,
+                   max_rel: bool = True) -> dict:
+    """max|got - want| / max|want| within ``tol`` (a reading only, with
+    ``max_rel`` False), and the argmax equal at every position (valid
+    under ``mask``) whose top-2 margin in ``want`` exceeds ``tol`` of
+    max|want|."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(bool(torch.isfinite(got).all()) and (err <= tol or not max_rel),
+          f"{what}: {err} > {tol}")
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol * scale
+    if mask is not None:
+        clear = clear & (mask > 0)
+    same = got.argmax(-1) == want.argmax(-1)
+    check(bool(same[clear].all()), f"{what}: argmax differs at "
+          f"{int((~same & clear).sum())} positions with a clear margin")
+    return {"max_rel_err": err, "argmax_checked": int(clear.sum())}
+
+
+def seqpar_layerwise(torch, params, cfg, tokens, mask, dtype, fn,
+                     mesh) -> float:
+    """The single-rank forward through #5, each layer's attention also run
+    through ``fn`` on the same q, k, v: the largest max|fn - #5| / max|#5|
+    over the layers."""
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops import flash as fl
+
+    worst = 0.0
+
+    def attn(q, k, v, causal, mask):
+        nonlocal worst
+        a = fl.flash_attention(q, k, v, causal=causal, mask=mask).float()
+        r = fn(q, k, v, mesh, causal=causal, kv_mask=mask).float()
+        worst = max(worst, float((r - a).abs().max() / a.abs().max()))
+        return a.to(q.dtype)
+    transformer_apply(params, tokens, cfg, mask=mask, dtype=dtype,
+                      attn_fn=attn)
+    return worst
+
+
+def peak_run(torch, fn):
+    """``fn()`` with the card's allocation peak above its start (bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def seqpar_bf16_readings(torch, params, cfg, tokens, mesh, single) -> dict:
+    """What the bf16 logits' difference stands against (readings, no
+    check): the ring with each hop's output rounded to bf16 before the
+    merge, and the single-rank forward through #5's plain version, each as
+    max|diff| / max|single| from the single-rank forward through #5."""
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.parallel import ring
+
+    def bf16_hop(q, k, v, *, causal, mask, out_dtype):
+        return fl.flash_attention_fwd(q, k, v, causal=causal, mask=mask)
+
+    def rounded_ring(q, k, v, causal, mask):
+        return ring._ring(q, k, v, mesh, axis_name="seq", causal=causal,
+                          kv_mask=mask, batch_axis=None, block=bf16_hop)
+
+    def plain(q, k, v, causal, mask):
+        return fl.flash_attention_reference(q, k, v, causal=causal,
+                                            mask=mask)[0]
+
+    scale = float(single.float().abs().max())
+    out = {}
+    for name, attn in (("ring with bf16 hop outputs", rounded_ring),
+                       ("single rank, #5's plain version", plain)):
+        got = transformer_apply(params, tokens, cfg, dtype=torch.bfloat16,
+                                attn_fn=attn)
+        out[name] = float((got.float() - single.float()).abs().max()) / scale
+        del got
+    return out
+
+
+def seqpar_llama(torch) -> dict:
+    """TinyLlama (22 layers, random weights from seed 0) with the ring and
+    with Ulysses over seq=4 as every block's attention against the
+    single-rank forward through #5, f32 and bf16, B 1 x S 2048 and a
+    right-padded B 2 case: f32 logits within SEQPAR_MODEL_TOL of the
+    largest; bf16 each layer's attention within it on the single-rank
+    forward's q, k, v; argmax equal where the top-2 margin exceeds the
+    bound; #5 == 22 x 10 (ring) and 22 x 4 (Ulysses) a forward, no plain
+    call; each path's peak memory."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models.transformer import transformer_apply
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.parallel import ring
+    from tpu_engine_torch.parallel.mesh import Mesh
+
+    spec = create_model("llama")
+    cfg = spec.config
+    mesh = Mesh([SEQPAR_DEVICE] * SEQPAR_SEQ, (SEQPAR_SEQ,), ("seq",))
+    paths = {"ring": (ring.ring_attention,
+                      SEQPAR_SEQ * (SEQPAR_SEQ + 1) // 2),
+             "ulysses": (ring.ulysses_attention, SEQPAR_SEQ)}
+    m = np.ones((2, SEQPAR_S), np.int32)
+    m[1, SEQPAR_PAD_VALID:] = 0
+    cases = {"B1": (seqpar_tokens(cfg.vocab, 1, SEQPAR_S, 28), None),
+             "B2 right-padded": (seqpar_tokens(cfg.vocab, 2, SEQPAR_S, 29),
+                                 m)}
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        params = spec.init(0, device=SEQPAR_DEVICE, dtype=dtype)
+        for case, (tokens, mask) in cases.items():
+            t = torch.from_numpy(tokens).to(SEQPAR_DEVICE)
+            mk = None if mask is None else torch.from_numpy(mask).to(
+                SEQPAR_DEVICE)
+            with torch.no_grad():
+                single, single_peak = peak_run(torch, lambda: transformer_apply(
+                    params, t, cfg, mask=mk, dtype=dt))
+                for name, (fn, per_layer) in paths.items():
+                    def attn(q, k, v, causal, mask, fn=fn):
+                        return fn(q, k, v, mesh, causal=causal,
+                                  kv_mask=mask)
+                    kl.reset_counts()
+                    got, peak = peak_run(torch, lambda: transformer_apply(
+                        params, t, cfg, mask=mk, dtype=dt, attn_fn=attn))
+                    launches = fl.flash_attention_fwd.launches
+                    want_n = cfg.n_layers * per_layer
+                    check(launches == want_n
+                          and fl.flash_attention_fwd.plain_calls == 0,
+                          f"seqpar {name} {case} {dtype}: #5 {launches} != "
+                          f"{cfg.n_layers} x {per_layer}")
+                    tol = SEQPAR_MODEL_TOL[dtype]
+                    # bf16 logits after 22 random-weight layers move by
+                    # ~2e-2 of the largest under any change of rounding
+                    # (#5's own plain version in place of #5: the
+                    # readings), so in bf16 the bound holds each layer's
+                    # attention on the same q, k, v, and the logits'
+                    # difference is read beside the argmax check.
+                    row = seqpar_compare(
+                        torch, f"seqpar {name} TinyLlama {case} {dtype}",
+                        got, single, tol, mk, max_rel=dtype == "float32")
+                    del got
+                    if dtype == "bfloat16":
+                        row["layer_max_rel_err"] = seqpar_layerwise(
+                            torch, params, cfg, t, mk, dt, fn, mesh)
+                        check(row["layer_max_rel_err"] <= tol,
+                              f"seqpar {name} TinyLlama {case} bf16: a "
+                              f"layer's attention {row['layer_max_rel_err']}"
+                              f" > {tol}")
+                    row.update(launches=launches, peak_bytes=peak,
+                               single_peak_bytes=single_peak)
+                    res[f"{name} {case} {dtype}"] = row
+                if mask is None and dtype == "float32":
+                    single32 = single
+                if dtype == "bfloat16" and mask is None:
+                    res[f"readings {case} {dtype}"] = seqpar_bf16_readings(
+                        torch, params, cfg, t, mesh, single)
+                    res[f"readings {case} {dtype}"][
+                        "single rank, bf16 against f32 weights and math"] = \
+                        float((single.float() - single32).abs().max()) / \
+                        float(single32.abs().max())
+                    del single32
+            del single
+        del params
+        torch.cuda.empty_cache()
+    log(f"seqpar TinyLlama ({cfg.n_layers} layers, S {SEQPAR_S}, seq="
+        f"{SEQPAR_SEQ} on {SEQPAR_DEVICE}) against the single-rank forward "
+        f"through #5: " + "; ".join(
+            f"{k} max rel {v['max_rel_err']:.2e}"
+            + (f" (a layer's attention {v['layer_max_rel_err']:.2e})"
+               if "layer_max_rel_err" in v else "")
+            + f", argmax equal at {v['argmax_checked']} clear positions, "
+            f"#5 {v['launches']}, peak {v['peak_bytes'] / 2**30:.2f} GiB "
+            f"(single {v['single_peak_bytes'] / 2**30:.2f})"
+            if "max_rel_err" in v else f"{k}: {json.dumps(v)}"
+            for k, v in res.items()))
+    return res
+
+
+def seqpar_gpipe(torch) -> dict:
+    """TinyLlama's 22 blocks (f32, TF32 off) pipelined over stage=2 at B 8
+    x S 256 with M 4 and 8 against the plain loop over ``_block_apply``
+    (SEQPAR_GPIPE_TOL of the largest activation), #5 == 22 x M."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models import transformer as tt
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.parallel.mesh import Mesh
+    from tpu_engine_torch.parallel.pipeline import pipeline_apply
+
+    spec = create_model("llama")
+    cfg = spec.config
+    params = spec.init(0, device=SEQPAR_DEVICE, dtype="float32")
+    b, s = SEQPAR_GPIPE
+    tokens = torch.from_numpy(seqpar_tokens(cfg.vocab, b, s, 30)).to(
+        SEQPAR_DEVICE)
+    mesh = Mesh([SEQPAR_DEVICE] * 2, (2,), ("stage",))
+
+    def block(bp, h):
+        return tt._block_apply(bp, h, cfg, mask=None, dtype=torch.float32)
+
+    res = {}
+    with torch.no_grad():
+        h0 = tt._embed(params, tokens, torch.arange(s, device=SEQPAR_DEVICE)
+                       [None, :], cfg, torch.float32)
+        want, plain_peak = peak_run(torch, lambda: functools.reduce(
+            lambda h, bp: block(bp, h), params["blocks"], h0))
+        scale = float(want.abs().max())
+        for m in SEQPAR_GPIPE_M:
+            kl.reset_counts()
+            got, peak = peak_run(torch, lambda: pipeline_apply(
+                block, params["blocks"], h0, mesh, n_microbatches=m))
+            launches = fl.flash_attention_fwd.launches
+            check(launches == cfg.n_layers * m
+                  and fl.flash_attention_fwd.plain_calls == 0,
+                  f"seqpar gpipe M {m}: #5 {launches} != {cfg.n_layers} x "
+                  f"{m}")
+            err = float((got - want).abs().max()) / scale
+            check(err <= SEQPAR_GPIPE_TOL and got.device == mesh.home,
+                  f"seqpar gpipe M {m}: {err} > {SEQPAR_GPIPE_TOL}")
+            res[f"M {m}"] = {"max_rel_err": err, "launches": launches,
+                             "peak_bytes": peak,
+                             "plain_peak_bytes": plain_peak}
+    del params
+    torch.cuda.empty_cache()
+    log(f"seqpar GPipe: TinyLlama's {cfg.n_layers} blocks (f32) over "
+        f"stage=2, B {b} x S {s}, against the plain loop: " + "; ".join(
+            f"{k} max rel {v['max_rel_err']:.2e}, #5 {v['launches']}, peak "
+            f"{v['peak_bytes'] / 2**30:.2f} GiB (plain "
+            f"{v['plain_peak_bytes'] / 2**30:.2f})" for k, v in res.items()))
+    return res
+
+
+def seqpar_ep(torch) -> dict:
+    """gpt2-moe at the registry's width (12 layers, d 768, 8 experts,
+    top-2, capacity 1.25) with every block's expert bank split over
+    expert=4 against the unsharded forward, in f32, bf16 and with int8
+    weights (bf16 compute): the same routing (pairs, slots and drops),
+    SEQPAR_EP_TOL, #5 == 12 a forward."""
+    from tpu_engine_torch.models.registry import create_model
+    from tpu_engine_torch.models import transformer as tt
+    from tpu_engine_torch.ops import flash as fl
+    from tpu_engine_torch.ops import kernels as kl
+    from tpu_engine_torch.ops.quant import quantize_params
+    from tpu_engine_torch.parallel.mesh import Mesh
+
+    spec = create_model("gpt2-moe")
+    cfg = spec.config
+    mesh = Mesh([SEQPAR_DEVICE] * SEQPAR_EP, (SEQPAR_EP,), ("expert",))
+    b, s = SEQPAR_EP_SHAPE
+    tokens = torch.from_numpy(seqpar_tokens(cfg.vocab, b, s, 31)).to(
+        SEQPAR_DEVICE)
+    res = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"),
+                        ("int8", "bfloat16")):
+        dt = getattr(torch, dtype)
+        params = spec.init(0, device=SEQPAR_DEVICE,
+                           dtype="float32" if name == "int8" else dtype)
+        if name == "int8":
+            params = quantize_params(params)
+        ep = tt.expert_parallel_params(params, mesh, "expert")
+        with torch.no_grad():
+            with recorded_routing() as plain_routes:
+                want, single_peak = peak_run(torch, lambda: tt.transformer_apply(
+                    params, tokens, cfg, dtype=dt))
+            kl.reset_counts()
+            with recorded_routing() as ep_routes:
+                got, peak = peak_run(torch, lambda: tt.transformer_apply(
+                    ep, tokens, cfg, dtype=dt))
+        launches = fl.flash_attention_fwd.launches
+        check(launches == cfg.n_layers
+              and fl.flash_attention_fwd.plain_calls == 0,
+              f"seqpar ep {name}: #5 {launches} != {cfg.n_layers}")
+        margin = routing_diff(torch, f"seqpar ep {name}", ep_routes,
+                              plain_routes)
+        pairs = sum(d.shape[0] for _, d in ep_routes) * cfg.moe_top_k
+        routed = sum(int(d.sum()) for _, d in ep_routes)
+        row = seqpar_compare(torch, f"seqpar ep gpt2-moe {name}", got, want,
+                             SEQPAR_EP_TOL[dtype])
+        row.update(launches=launches, pairs=pairs, dropped=pairs - routed,
+                   min_router_margin=margin, peak_bytes=peak,
+                   single_peak_bytes=single_peak)
+        res[name] = row
+        del params, ep, got, want
+        torch.cuda.empty_cache()
+    log(f"seqpar expert-parallel gpt2-moe ({cfg.n_layers} layers, "
+        f"{cfg.n_experts} experts over expert={SEQPAR_EP}, B {b} x S {s}) "
+        f"against the unsharded forward: " + "; ".join(
+            f"{k} max rel {v['max_rel_err']:.2e}, routing equal ("
+            f"{v['pairs']} pairs, {v['dropped']} dropped), #5 "
+            f"{v['launches']}, peak {v['peak_bytes'] / 2**30:.2f} GiB "
+            f"(unsharded {v['single_peak_bytes'] / 2**30:.2f})"
+            for k, v in res.items()))
+    return res
+
+
+def phase_seqpar(torch, card: str) -> dict:
+    """Sequence parallelism, GPipe and expert-parallel MoE (see the module
+    docstring's seqpar entry)."""
+    walls = {}
+    lap = lap_timer(walls)
+    res = {"card": card, "walls_s": walls}
+    res["merge"] = seqpar_merge(torch)
+    lap("merge")
+    res["gpipe"] = seqpar_gpipe(torch)
+    lap("gpipe")
+    res["ep"] = seqpar_ep(torch)
+    lap("ep")
+    res["hop"] = {name: flash_numbers(torch, 1, SEQPAR_S // SEQPAR_SEQ,
+                                      getattr(torch, name))
+                  for name in ("float32", "bfloat16")}
+    lap("hop times")
+    res["llama"] = seqpar_llama(torch)
+    lap("llama")
+    log(f"seqpar phase walls (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})} [{card}]")
     return res
 
 
@@ -10461,6 +10981,12 @@ def main() -> int:
                 "elastic": lambda: phase_elastic(torch, card),
                 "tp": lambda: phase_tp(torch, card, pa),
                 "mesh": lambda: phase_mesh(torch, card),
+                "seqpar": lambda: phase_seqpar(torch, card),
+                "parity": lambda: phase_parity(torch, pa),
+                "gateway": lambda: phase_gateway(torch),
+                "kvtier": lambda: phase_kvtier(torch, card),
+                "refmodels": lambda: phase_refmodels(
+                    torch, card, {"flash_attention": {}}),
                 "server": lambda: phase_server(torch)}
         for one in name.split(","):
             res = timed(one, only[one])
@@ -10505,6 +11031,9 @@ def main() -> int:
     # Mesh-sharded serving and training: resnet50 and TinyLlama lanes and
     # the train command over data x model meshes on the one card (#5-#7).
     mesh = timed("mesh", phase_mesh, torch, card)
+    # Ring and Ulysses attention, GPipe and expert-parallel MoE, every rank
+    # on the one card (#5 in every path).
+    seqpar = timed("seqpar", phase_seqpar, torch, card)
     rows = []
     for name, meta in KERNELS.items():
         main_shape = next(iter(numbers[name].values()))
@@ -10637,6 +11166,27 @@ def main() -> int:
                 rows[-1]["mesh"].update(
                     infer_launches=mesh["decoder"]["launches"],
                     infer_dispatches=mesh["decoder"]["dispatches"])
+        # The seqpar phase's #5: its launches in each path (a ring hop, an
+        # Ulysses rank, a pipelined block, an EP forward's layer), the
+        # hop-merge's error against the plain ring, and one hop's times
+        # (the diagonal hop of TinyLlama's S 2048 over seq=4, f32).
+        if name == "flash_attention":
+            hop = seqpar["hop"]["float32"]
+            rows[-1]["seqpar"] = {
+                "launches": {
+                    **{k: v["launches"] for k, v in
+                       seqpar["llama"].items() if "launches" in v},
+                    **{f"gpipe {k}": v["launches"] for k, v in
+                       seqpar["gpipe"].items()},
+                    **{f"ep {k}": v["launches"] for k, v in
+                       seqpar["ep"].items()}},
+                "max_abs_err": max(v["max_abs_err"] for v in
+                                   seqpar["merge"].values()),
+                "shape": f"B 1 x S {SEQPAR_S // SEQPAR_SEQ} x H 32, "
+                         f"causal, f32",
+                "ms": hop["device_ms"], "plain_ms": hop["plain_ms"],
+                "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+                "library_ms": hop["library_device_ms"]}
     # #8's row: its launches from the recurrent phase's worker (the main
     # path), its times at the decode tick's shape (B 8 x W 1), the other
     # shapes beside them. No single PyTorch call computes the scan, so
@@ -10663,7 +11213,8 @@ def main() -> int:
          "refmodels": refmodels, "overload": overload,
          "observe": observe, "handoff": handoff, "recurrent": recurrent,
          "moe": moe, "batch": batch, "combined": combined,
-         "elastic": elastic, "tp": tp, "mesh": mesh, "train": train,
+         "elastic": elastic, "tp": tp, "mesh": mesh, "seqpar": seqpar,
+         "train": train,
          "phase_seconds": walls,
          "numbers": numbers, **kernels},
         indent=1))

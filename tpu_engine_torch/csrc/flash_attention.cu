@@ -11,8 +11,10 @@
 //   16-byte aligned: the caller copies a tensor that is not); mask (B, Sk)
 //   int32, 1 = valid, or null; causal (query i attends keys j <= i) and an
 //   optional sliding window (keys j > i - window; causal only)
-//   ->  out (B, Sq, H, D) in v's dtype, lse (B, H, Sq) f32.
-//   A query row with no valid key gives out 0 and lse -inf, never NaN.
+//   ->  out (B, Sq, H, D) in v's dtype (or, for bf16 inputs, f32 when the
+//   caller asks: the ring's hops, merged in f32 by their lse), lse (B, H,
+//   Sq) f32. A query row with no valid key gives out 0 and lse -inf, never
+//   NaN.
 //   lse is the residual of the backward: the two kernels of
 //   flash_attention_bwd.cu (the ports of `_bwd_dq_kernel` and
 //   `_bwd_dkv_kernel`) recompute the probabilities from it, and its -inf
@@ -22,7 +24,8 @@
 // values summed in f32 and scaled by 1/sqrt(D); the softmax runs in f32;
 // the weights are rounded to v's dtype before the weighted sum of V, which
 // is accumulated in f32; the denominator sums the unrounded weights; the
-// output is rounded to v's dtype once, at the end.
+// output is rounded to v's dtype once, at the end (not at all for an f32
+// output).
 //
 // What bounds it on an H100: operations. A causal prompt of S tokens does
 // 4 * D flops per attended (query, key) pair, about S^2 / 2 pairs per head,
@@ -104,9 +107,9 @@ struct MmaCfg {
                                   2 * kBN * sizeof(int);
 };
 
-template <int D>
+template <int D, typename O>
 __device__ __forceinline__ void fwd_mma(const bf16* q, const bf16* k, const bf16* v,
-                                        const int* mask, bf16* out, float* lse, int Sq,
+                                        const int* mask, O* out, float* lse, int Sq,
                                         int Sk, int H, Strides qs, Strides ks, Strides vs,
                                         int causal, int window, float scale, int tile, int h,
                                         int b, unsigned char* smem) {
@@ -250,11 +253,16 @@ __device__ __forceinline__ void fwd_mma(const bf16* q, const bf16* k, const bf16
     const int r = row0 + g + 8 * hi;
     if (r >= n_rows) continue;
     const float inv = l[hi] > 0.f ? 1.f / l[hi] : 0.f;
-    bf16* o = out + ((static_cast<long long>(b) * Sq + q0 + r) * H + h) * D + 2 * t;
+    O* o = out + ((static_cast<long long>(b) * Sq + q0 + r) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < C::kND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * hi] * inv, acc[n][2 * hi + 1] * inv);
+    for (int n = 0; n < C::kND; ++n) {
+      if constexpr (std::is_same<O, float>::value)
+        *reinterpret_cast<float2*>(o + n * 8) =
+            make_float2(acc[n][2 * hi] * inv, acc[n][2 * hi + 1] * inv);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(o + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * hi] * inv, acc[n][2 * hi + 1] * inv);
+    }
     if (t == 0)
       lse[(static_cast<long long>(b) * H + h) * Sq + q0 + r] = lse_of(m[hi], l[hi]);
   }
@@ -478,18 +486,19 @@ static_assert(smem_bytes<float, 128>() <= 232448, "f32 tiles at D 128 fit a thre
 static_assert(2 * (smem_bytes<float, 64>() + 1024) <= 233472,
               "two f32 thread blocks at D 64 fit on an SM");
 
-template <typename T, int D>
+// O, the output's type: T, or float for bf16 inputs.
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(threads_for<T>(), min_blocks<T, D>())
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ mask,
-                       T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+                       O* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
                        Strides qs, Strides ks, Strides vs, int causal, int window,
                        float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = gridDim.z - 1 - blockIdx.z;  // the longest causal sweeps first
   if constexpr (std::is_same<T, bf16>::value)
-    fwd_mma<D>(q, k, v, mask, out, lse, Sq, Sk, H, qs, ks, vs, causal, window, scale, tile,
-               blockIdx.x, blockIdx.y, smem);
+    fwd_mma<D, O>(q, k, v, mask, out, lse, Sq, Sk, H, qs, ks, vs, causal, window, scale, tile,
+                  blockIdx.x, blockIdx.y, smem);
   else
     fwd_simt<D>(q, k, v, mask, out, lse, Sq, Sk, H, qs, ks, vs, causal, window, scale, tile,
                 blockIdx.x, blockIdx.y, smem);
@@ -504,27 +513,27 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.H, a.B, (a.Sq + kTile - 1) / kTile);
   constexpr size_t smem = smem_bytes<T, D>();
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<T, D, O>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads_for<T>(), smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const int*>(a.mask), static_cast<T*>(a.out), static_cast<float*>(a.lse),
+      static_cast<const int*>(a.mask), static_cast<O*>(a.out), static_cast<float*>(a.lse),
       a.Sq, a.Sk, a.H, a.qs, a.ks, a.vs, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O = T>
 cudaError_t dispatch_d(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
-    case 16:  return launch<T, 16>(a, stream);
-    case 32:  return launch<T, 32>(a, stream);
-    case 64:  return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 16:  return launch<T, 16, O>(a, stream);
+    case 32:  return launch<T, 32, O>(a, stream);
+    case 64:  return launch<T, 64, O>(a, stream);
+    case 128: return launch<T, 128, O>(a, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -543,11 +552,11 @@ bool rows_aligned(const Args& a, size_t item) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike). window: 0 = no
-// sliding window, else >= 1 (causal only). mask may be null. The pointers
-// and strides must keep every row 16-byte aligned. Returns the launch's
-// cudaError_t (0 = success); the caller checks it, since a refused launch
-// never runs.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike), 2 = bfloat16
+// q, k, v with a float32 out. window: 0 = no sliding window, else >= 1
+// (causal only). mask may be null. The pointers and strides must keep
+// every row 16-byte aligned. Returns the launch's cudaError_t (0 =
+// success); the caller checks it, since a refused launch never runs.
 int flash_attention(const void* q, const void* k, const void* v, const void* mask,
                     void* out, void* lse, int B, int Sq, int Sk, int H, int D,
                     long long q_sb, long long q_ss, long long q_sh,
@@ -562,6 +571,7 @@ int flash_attention(const void* q, const void* k, const void* v, const void* mas
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && rows_aligned(a, sizeof(float))) return dispatch_d<float>(a, D, s);
   if (dtype == 1 && rows_aligned(a, sizeof(bf16))) return dispatch_d<bf16>(a, D, s);
+  if (dtype == 2 && rows_aligned(a, sizeof(bf16))) return dispatch_d<bf16, float>(a, D, s);
   return cudaErrorInvalidValue;
 }
 

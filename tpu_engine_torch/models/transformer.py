@@ -23,7 +23,9 @@ A config with experts (``n_experts > 0``, the gpt2-moe family) runs the
 mixture-of-experts FFN (``ops.moe``) in every forward. Its capacity
 slots are shared by every token of a call, padding and free slots
 included, so each forward hands it the same (B, T) tensor as its JAX
-twin.
+twin. ``expert_parallel_params`` splits each block's expert bank over a
+mesh's ``expert`` axis, and the forwards then run the banks
+expert-parallel (``ops.moe``).
 
 The rounding points follow the JAX forward: the residual adds promote to
 f32 (``nn.dense`` returns f32) and the carry is cast back to the compute
@@ -46,8 +48,9 @@ from tpu_engine_torch.ops.attention import (
     rope,
 )
 from tpu_engine_torch.ops.flash import flash_attention
-from tpu_engine_torch.ops.moe import MoEConfig, moe_apply
+from tpu_engine_torch.ops.moe import MoEConfig, moe_apply, shard_moe_params
 from tpu_engine_torch.ops.quant import quantize_kv
+from tpu_engine_torch.parallel.mesh import place
 from tpu_engine_torch.utils.device import resolve_device
 
 
@@ -505,6 +508,28 @@ def _attn(bp, x, cfg: TransformerConfig, *, mask, dtype, attn_fn,
     return nn.dense(bp["attn"]["wo"], a.reshape(b, s, -1), dtype=dtype)
 
 
+def _block_apply(bp, h, cfg: TransformerConfig, *, mask, dtype,
+                 attn_fn=None, positions=None):
+    """One block of the full-sequence forward (JAX's ``_block_apply``):
+    pre-norm sublayers with residual adds (post-LN in the encoder
+    dialect), the carry cast back to the compute dtype at the end.
+    ``attn_fn`` defaults to ``ops.flash.flash_attention``; ``positions``
+    (the rope phases) to ``arange`` over the sequence."""
+    attn_fn = attn_fn or flash_attention
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    if cfg.post_ln:  # sublayer, residual add, then LayerNorm
+        h = _norm(bp["ln1"], h + _attn(bp, h, cfg, mask=mask, dtype=dtype,
+                                       attn_fn=attn_fn,
+                                       positions=positions), cfg)
+        h = _norm(bp["ln2"], h + _mlp(bp["mlp"], h, dtype, cfg), cfg)
+    else:
+        h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
+                      dtype=dtype, attn_fn=attn_fn, positions=positions)
+        h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
+    return h.to(dtype)
+
+
 def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
                       dtype=torch.bfloat16, attn_fn=None, remat: bool = False,
                       head_rows=None):
@@ -532,16 +557,8 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
     h = _embed(params, tokens, positions[None, :], cfg, dtype)
 
     def block(bp, h):
-        if cfg.post_ln:  # sublayer, residual add, then LayerNorm
-            h = _norm(bp["ln1"], h + _attn(bp, h, cfg, mask=mask,
-                                           dtype=dtype, attn_fn=attn_fn,
-                                           positions=positions), cfg)
-            h = _norm(bp["ln2"], h + _mlp(bp["mlp"], h, dtype, cfg), cfg)
-        else:
-            h = h + _attn(bp, _norm(bp["ln1"], h, cfg), cfg, mask=mask,
-                          dtype=dtype, attn_fn=attn_fn, positions=positions)
-            h = h + _mlp(bp["mlp"], _norm(bp["ln2"], h, cfg), dtype, cfg)
-        return h.to(dtype)
+        return _block_apply(bp, h, cfg, mask=mask, dtype=dtype,
+                            attn_fn=attn_fn, positions=positions)
 
     for bp in params["blocks"]:
         if remat:
@@ -552,6 +569,19 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *, mask=None,
     if head_rows is not None:
         h = h[torch.arange(h.shape[0], device=h.device), head_rows]
     return _head(params, h, cfg, dtype)
+
+
+def expert_parallel_params(params, mesh, axis: str = "expert"):
+    """An MoE decoder's tree with each block's expert bank split over
+    ``axis`` of ``mesh`` (``parallel.mesh.Mesh``): every block's ``mlp``
+    becomes the ``MeshTree`` that ``place(mlp, shard_moe_params(mlp,
+    mesh, axis))`` gives, every other leaf stays as it is. JAX splits
+    axis 1 of its stacked (L, E, ...) banks; the port splits dim 0 of each
+    block's. The forwards take the tree in place of ``params``
+    (``transformer_apply`` runs its MoE layers expert-parallel)."""
+    blocks = [{**bp, "mlp": place(bp["mlp"], shard_moe_params(
+        bp["mlp"], mesh, axis))} for bp in params["blocks"]]
+    return {**params, "blocks": blocks}
 
 
 def transformer_prefill(params, tokens, caches: KVCache,

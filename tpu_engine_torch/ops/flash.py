@@ -16,6 +16,9 @@
 - ``flash_attention_fwd`` returns ``(out, lse)``: ``lse`` (B, H, Sq) f32
   is the logsumexp of the masked, scaled scores, -inf on fully masked
   rows, as ``_flash_kernel`` writes it for its backward pass.
+  ``out_dtype=torch.float32`` over bf16 inputs writes out unrounded in
+  f32 (the ring's hops, which ``parallel.ring`` merges in f32 by their
+  lse, so the merged output rounds once, as one call's does).
 - ``flash_attention_bwd(q, k, v, mask, out, lse, do, *, causal, window)``
   returns ``(dq, dk, dv)`` in the inputs' dtypes. It computes
   delta = sum_d do * out (B, H, Sq) in f32 as a torch reduction (the JAX
@@ -96,10 +99,11 @@ def _keep(q, sk: int, causal: bool, mask, window):
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = False, mask=None,
-                              window: Optional[int] = None):
-    """Plain version: (out (B, Sq, H, D) in v's dtype, lse (B, H, Sq) f32).
-    Query i attends key j when j <= i (``causal``), j > i - window
-    (``window``) and mask[b, j] > 0 (``mask``)."""
+                              window: Optional[int] = None, out_dtype=None):
+    """Plain version: (out (B, Sq, H, D) in ``out_dtype``, default v's
+    dtype, lse (B, H, Sq) f32). Query i attends key j when j <= i
+    (``causal``), j > i - window (``window``) and mask[b, j] > 0
+    (``mask``)."""
     _check_shapes(q, k, v, mask, causal, window)
     d = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -112,7 +116,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = False, mask=None,
     l = p.sum(-1)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (acc / l_safe.transpose(1, 2)[..., None]).to(v.dtype)
+    out = (acc / l_safe.transpose(1, 2)[..., None]).to(out_dtype or v.dtype)
     lse = torch.where(l > 0, m[..., 0] + torch.log(l_safe), neg_inf)
     return out, lse
 
@@ -218,20 +222,28 @@ def _mask_arg(mask):
 
 @counted
 def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, out_dtype=None):
     """(out, lse) with the contract of ``flash_attention_reference``. CUDA
     tensors launch the port of ``_flash_kernel``; CPU tensors take the
-    plain version."""
+    plain version. ``out_dtype``: v's dtype (None), or float32 over bf16
+    inputs."""
+    if out_dtype not in (None, v.dtype) and not (
+            out_dtype == torch.float32 and v.dtype == torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype} over {v.dtype} inputs: "
+                         f"the output is v's dtype, or float32 over "
+                         f"bfloat16")
     if plain_or_cuda(flash_attention_fwd, q):
         return flash_attention_reference(q, k, v, causal=causal, mask=mask,
-                                         window=window)
+                                         window=window, out_dtype=out_dtype)
     _check_cuda(q, k, v, mask, causal, window)
     dev = q.device
     b, sq, h, d = q.shape
     sk = k.shape[1]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     m = _mask_arg(mask)
-    out = torch.empty((b, sq, h, d), dtype=v.dtype, device=dev)
+    out_dtype = out_dtype or v.dtype
+    code = _DTYPES[q.dtype] + (out_dtype != v.dtype)  # 2: bf16 in, f32 out
+    out = torch.empty((b, sq, h, d), dtype=out_dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     launch("flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            None if m is None else m.data_ptr(), out.data_ptr(),
@@ -240,7 +252,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, mask=None,
            k.stride(0), k.stride(1), k.stride(2),
            v.stride(0), v.stride(1), v.stride(2),
            int(bool(causal)), 0 if window is None else int(window),
-           1.0 / math.sqrt(d), _DTYPES[q.dtype])
+           1.0 / math.sqrt(d), code)
     flash_attention_fwd.launches += 1
     return out, lse
 

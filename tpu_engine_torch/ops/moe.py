@@ -19,6 +19,15 @@ products run in the compute dtype, GELU is the tanh form
 (``jax.nn.gelu``'s default), and an int8 expert stack's f32 scale
 promotes its product, and the combine after it, to f32. The result is
 cast to x's dtype.
+
+Expert parallelism: ``shard_moe_params`` gives JAX's shardings (a leaf
+whose path names ``wi`` or ``wo`` splits dim 0, the experts, over the
+``expert`` axis; every other leaf is whole), and ``moe_apply`` over the
+``MeshTree`` that ``place(params, shard_moe_params(params, mesh))``
+gives runs the router, the dispatch and the combine on ``mesh.home`` and
+each rank's E/n experts on its own device; the expert outputs gather
+along E in rank order. The slots are the unsharded call's, drops
+included.
 """
 
 from __future__ import annotations
@@ -29,6 +38,12 @@ import math
 import torch
 
 from tpu_engine_torch.ops import nn
+from tpu_engine_torch.parallel.mesh import (
+    Mesh,
+    MeshTree,
+    Sharding,
+    unflatten_tree,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,29 +133,86 @@ def _expert_product(spec: str, x, params, name: str, dtype):
     return torch.einsum(spec, x, params[name].to(dtype))
 
 
+def _experts(params, expert_in, dtype):
+    """The expert FFNs over their slots: (E', C, d) -> (E', C, d) for the
+    E' experts whose stacks ``params`` holds."""
+    h = _expert_product("ecd,edf->ecf", expert_in, params, "wi", dtype)
+    h = nn.gelu(h, approximate=True)
+    return _expert_product("ecf,efd->ecd", h.to(dtype), params, "wo",
+                           dtype)
+
+
+def _experts_parallel(placed: MeshTree, expert_in, dtype):
+    """``_experts`` with the stacks split over the experts: the ranks at
+    each index of the split axis (0 on every other axis) run their E/n
+    experts on their devices; the outputs gather along E in rank order
+    on ``expert_in``'s device."""
+    mesh = placed.mesh
+    axis = next(s.axis for s in placed.shardings if s.axis is not None)
+    n = mesh.shape[axis]
+    parts = []
+    for i, chunk in enumerate(expert_in.chunk(n, 0)):
+        r = mesh.rank(**{axis: i})
+        parts.append(_experts(placed.local(r), chunk.to(mesh.devices[r]),
+                              dtype))
+    return Mesh.gather(parts, 0, expert_in.device)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig,
               dtype=torch.bfloat16) -> torch.Tensor:
     """x (B, T, d_model) -> (B, T, d_model): the dense-dispatch MoE FFN
     over every B x T token. ``params``: ``{"gate": {"kernel"}, "wi",
     "wo"}`` or its int8 form (``wi_q``/``wi_scale``,
-    ``wo_q``/``wo_scale``; the gate stays full precision)."""
+    ``wo_q``/``wo_scale``; the gate stays full precision), or that tree
+    placed on a mesh by ``shard_moe_params`` (expert parallelism: the
+    router, dispatch and combine on ``mesh.home``, the result on x's
+    device)."""
+    placed = params if isinstance(params, MeshTree) else None
+    home = x.device
+    if placed is not None:
+        home = placed.mesh.home
+        params = placed.local(0)
     b, t, d = x.shape
     n = b * t
-    xf = x.reshape(n, d)
+    xf = x.reshape(n, d).to(home)
     gate = dict(params["gate"])
     gate.setdefault("bias", torch.zeros((cfg.n_experts,),
                                         dtype=torch.float32,
-                                        device=x.device))
+                                        device=home))
     logits = nn.dense(gate, xf, dtype=dtype)
     dispatch, combine = _dispatch_tensors(logits, cfg, n)
     xc = xf.to(dtype)
     expert_in = torch.einsum("nd,nec->ecd", xc, dispatch.to(dtype))
-    h = _expert_product("ecd,edf->ecf", expert_in, params, "wi", dtype)
-    h = nn.gelu(h, approximate=True)
-    expert_out = _expert_product("ecf,efd->ecd", h.to(dtype), params, "wo",
-                                 dtype)
+    expert_out = (_experts(params, expert_in, dtype) if placed is None
+                  else _experts_parallel(placed, expert_in, dtype))
     # The gates round to the compute dtype, then promote with an f32
     # expert output (the int8 form), as JAX's einsum promotes them.
     out = torch.einsum("ecd,nec->nd", expert_out,
                        combine.to(dtype).to(expert_out.dtype))
-    return out.reshape(b, t, d).to(x.dtype)
+    return out.reshape(b, t, d).to(x.device, x.dtype)
+
+
+def _path_names(tree, prefix=()):
+    """(path, leaf) of every leaf, dicts in insertion order."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in _path_names(v, prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in _path_names(v, prefix + (str(i),))]
+    return [(prefix, tree)]
+
+
+def shard_moe_params(params, mesh: Mesh, axis: str = "expert"):
+    """JAX's ``shard_moe_params`` as the port's ``Sharding``s, a tree of
+    ``params``' structure: a leaf whose path names ``wi`` or ``wo`` (so
+    also ``wi_q``, ``wi_scale``, ``wo_q``, ``wo_scale``) splits dim 0,
+    the experts, over ``axis``; every other leaf is whole on every rank.
+    ``place(params, shard_moe_params(params, mesh))`` gives the tree that
+    ``moe_apply`` runs expert-parallel."""
+    shardings = []
+    for path, _leaf in _path_names(params):
+        name = "/".join(path)
+        shardings.append(Sharding(mesh, axis, 0)
+                         if "wi" in name or "wo" in name else Sharding(mesh))
+    return unflatten_tree(params, shardings)

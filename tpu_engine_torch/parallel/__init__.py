@@ -1,2 +1,3 @@
-"""Parallel serving (counterpart of ``tpu_engine/parallel/``): the
-tensor-parallel group of one process (``mesh``)."""
+"""Parallel serving and compute (counterpart of ``tpu_engine/parallel/``):
+the device meshes of one process (``mesh``), ring and Ulysses attention
+(``ring``) and GPipe microbatching (``pipeline``)."""
